@@ -1,0 +1,184 @@
+"""The rules the port (``veles_tpu_torch``) keeps, checked on the CPU.
+
+- It imports neither ``jax`` nor any module of ``veles_tpu``: it keeps
+  its own copies.  Note that ``veles_tpu_torch`` itself starts with the
+  letters ``veles_tpu``, so the checks look for the exact name or the
+  ``veles_tpu.`` prefix.
+- Its entry points run on the CUDA card unless the caller passes
+  ``device="cpu"``, and raise without a card instead of carrying on.
+- The CPU path launches no kernel and never loads the kernel builder.
+- ``chip_smoke.py`` fails, and prints no result, without a card or
+  without the package beside it.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "veles_tpu_torch"
+
+
+def _forbidden(name):
+    return (name == "jax" or name.startswith("jax.")
+            or name == "veles_tpu" or name.startswith("veles_tpu."))
+
+
+def _run(code, cwd=REPO, env_extra=None):
+    env = dict(os.environ, **(env_extra or {}))
+    env["PYTHONPATH"] = str(REPO)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+# -- no jax, no veles_tpu -----------------------------------------------------
+
+def test_importing_the_port_loads_no_jax_and_no_veles_tpu():
+    proc = _run(
+        "import json, sys\n"
+        "import veles_tpu_torch, veles_tpu_torch.gen\n"
+        "import veles_tpu_torch.ops.attention\n"
+        "import veles_tpu_torch.gen.__main__\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "veles_tpu_torch.gen.engine" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_no_source_of_the_port_imports_jax_or_veles_tpu():
+    sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 15
+    for path in sources:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, "%s imports %s" % (path.relative_to(REPO), bad)
+
+
+def test_cpu_session_never_loads_the_kernel_builder():
+    proc = _run(
+        "import sys\n"
+        "from veles_tpu_torch.gen import __main__ as m\n"
+        "from veles_tpu_torch.ops import attention\n"
+        "assert m.main(['--smoke', '--device', 'cpu', '--requests', '3'])"
+        " == 0\n"
+        "assert attention.launches == {'flash_fwd': 0, 'decode_attn': 0}\n"
+        "assert 'veles_tpu_torch.ops.build' not in sys.modules\n"
+        "assert 'triton' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+# -- cuda by default, raising without a card --------------------------------
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_cuda):
+    from veles_tpu_torch.backends import resolve_device
+    from veles_tpu_torch.gen import GenerativeEngine, TransformerGenModel
+    from veles_tpu_torch.samples.transformer import TINY
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransformerGenModel(TINY)
+    model = TransformerGenModel(TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerativeEngine(model, max_slots=1)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_gen_cli_raises_without_a_card():
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; torch.cuda.is_available = lambda: False\n"
+         "from veles_tpu_torch.gen.__main__ import main\n"
+         "main(['--smoke'])"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+
+
+def test_wrappers_on_cpu_tensors_launch_nothing(no_cuda):
+    from veles_tpu_torch.ops import attention
+    attention.reset_launches()
+    x = torch.randn(2, 5, 2, 8, generator=torch.Generator().manual_seed(0))
+    attention.flash_attention(x, x, x, causal=True)
+    attention.decode_attention(x[:, :1], x, x,
+                               torch.tensor([2, 5], dtype=torch.int32))
+    assert attention.launches == {"flash_fwd": 0, "decode_attn": 0}
+
+
+# -- the kernel sources and their builder -----------------------------------
+
+@pytest.mark.parametrize("name,replaces", [
+    ("flash_fwd", "_attn_kernel"), ("decode_attn", "_decode_kernel")])
+def test_kernel_source_names_the_tpu_kernel_it_replaces(name, replaces):
+    from veles_tpu_torch.ops import build
+    assert name in build.SOURCES
+    head = (build.CSRC_DIR / (name + ".cu")).read_text().split("#include")[0]
+    assert "veles_tpu/ops/attention.py" in head and replaces in head
+    assert "What bounds it on the H100" in head
+
+
+def test_library_name_follows_the_source_hash(tmp_path, monkeypatch):
+    from veles_tpu_torch.ops import build
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text("// one\n")
+    first = build.library_path("k")
+    assert first.parent == build.BUILD_DIR
+    assert build.library_path("k") == first
+    (tmp_path / "k.cu").write_text("// two\n")
+    assert build.library_path("k") != first
+    assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+
+
+def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
+    from veles_tpu_torch.ops import build
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(os.path, "isfile",
+                        lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.nvcc()
+
+
+# -- chip_smoke.py ----------------------------------------------------------
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch; torch.cuda.is_available = lambda: True\n"
+         "sys.argv = ['chip_smoke.py']\n"
+         "import runpy; runpy.run_path('chip_smoke.py', "
+         "run_name='__main__')"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "veles_tpu_torch" in proc.stderr

@@ -1,0 +1,14 @@
+"""veles_tpu_torch — the PyTorch + CUDA port of veles_tpu.
+
+A package of its own beside :mod:`veles_tpu`, which stays the reference
+the port is held against.  It imports ``torch`` and numpy, never
+``jax`` and never a module of ``veles_tpu``: what it needs from there
+it keeps as its own copy, under the same module name, so a reader finds
+each counterpart.  Every TPU kernel on a ported path is a kernel written
+by hand for the H100 (``csrc/``), with its plain PyTorch version beside
+it (``ops/``).
+
+Ported so far: generative serving of the transformer LM with a
+contiguous KV cache (:mod:`veles_tpu_torch.gen`).  Entry points run on
+the CUDA card unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,94 @@
+"""Auto-vivifying configuration tree (the ``root.*`` namespace).
+
+The port's own copy of :mod:`veles_tpu.config` (the port imports nothing
+of ``veles_tpu``): the same dotted namespace, trimmed to the defaults
+the generative serving path reads — ``root.common.engine.trace`` and
+the ``root.common.gen`` subtree (``kv``, ``prefill_chunk``,
+``prefix_cache``, ``speculative``), which auto-vivifies.
+"""
+
+
+class Config(object):
+    """A node in the auto-vivifying config tree.
+
+    Attribute access on a missing key creates a child ``Config`` node, so
+    ``root.a.b.c = 1`` works with no prior declarations.
+    """
+
+    __slots__ = ("__dict__", "__path__")
+
+    def __init__(self, path="root"):
+        object.__setattr__(self, "__path__", path)
+
+    def __getattr__(self, name):
+        if name.startswith("__") and name.endswith("__"):
+            raise AttributeError(name)
+        child = Config("%s.%s" % (self.path, name))
+        self.__dict__[name] = child
+        return child
+
+    def __setattr__(self, name, value):
+        self.__dict__[name] = value
+
+    @property
+    def path(self):
+        return object.__getattribute__(self, "__path__")
+
+    def __contains__(self, name):
+        return name in self.__dict__
+
+    def __iter__(self):
+        return iter(sorted(self.__dict__.items()))
+
+    def __bool__(self):
+        return bool(self.__dict__)
+
+    def __repr__(self):
+        return "<Config %s: %d keys>" % (self.path, len(self.__dict__))
+
+    def get(self, name, default=None):
+        """Non-vivifying lookup."""
+        return self.__dict__.get(name, default)
+
+    def update(self, tree):
+        """Deep-merge a nested dict (or another Config) into this node."""
+        if isinstance(tree, Config):
+            tree = tree.to_dict()
+        if not isinstance(tree, dict):
+            raise TypeError("Config.update expects a dict, got %r" % tree)
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                node = self.__dict__.get(key)
+                if not isinstance(node, Config):
+                    node = Config("%s.%s" % (self.path, key))
+                    self.__dict__[key] = node
+                node.update(value)
+            else:
+                setattr(self, key, value)
+        return self
+
+    def to_dict(self):
+        out = {}
+        for key, value in self.__dict__.items():
+            out[key] = value.to_dict() if isinstance(value, Config) else value
+        return out
+
+
+#: The global configuration tree.
+root = Config("root")
+
+root.common.update({
+    "engine": {
+        # Unified tracing (veles_tpu_torch.trace): "off" (every hook is
+        # a single attribute check) or "on" (record spans into the ring).
+        "trace": "off",
+    },
+    # Generative serving: only the contiguous KV layout is ported; the
+    # engine raises on any other value of these keys.
+    "gen": {
+        "kv": "contiguous",
+        "prefill_chunk": None,
+        "prefix_cache": "off",
+        "speculative": "off",
+    },
+})

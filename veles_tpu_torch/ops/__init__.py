@@ -1,0 +1,17 @@
+"""Kernels written by hand for Hopper, each beside its plain PyTorch
+version.
+
+- ``veles_tpu/ops/attention.py`` ``_attn_kernel`` (flash forward) →
+  :func:`veles_tpu_torch.ops.attention.flash_attention`, CUDA C++ in
+  ``csrc/flash_fwd.cu``;
+- ``veles_tpu/ops/attention.py`` ``_decode_kernel`` (decode / verify) →
+  :func:`veles_tpu_torch.ops.attention.decode_attention`, CUDA C++ in
+  ``csrc/decode_attn.cu``.
+
+The CUDA sources are compiled by :mod:`veles_tpu_torch.ops.build` at
+first use on the card; nothing here builds or imports a compiler when
+the package is imported.  A wrapper runs its plain version only for
+CPU tensors; for CUDA tensors it launches its kernel or raises.
+"""
+
+from veles_tpu_torch.ops.util import on_gpu  # noqa: F401

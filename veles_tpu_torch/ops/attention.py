@@ -1,0 +1,237 @@
+"""Attention for the generative serving path: the flash-prefill and the
+decode kernels, each beside its plain PyTorch version.
+
+Counterpart of :mod:`veles_tpu.ops.attention`.  The public functions
+keep the JAX layout ``(batch, seq, heads, head_dim)`` and the JAX
+semantics: the START-aligned causal mask (key ``k_offset + j`` is
+visible to query ``q_offset + i`` iff ``k_offset + j <= q_offset +
+i``), masked scores of ``NEG_INF = -1e30`` and a softmax scale of
+``1/sqrt(head_dim)``.
+
+Dispatch is by where the tensors lie: CPU tensors take the plain
+version (``_mha_ref``, ``_decode_ref``, ``_verify_ref``); CUDA tensors
+launch the hand-written kernel (``csrc/flash_fwd.cu``,
+``csrc/decode_attn.cu``) or raise.  There is no fallback from a CUDA
+tensor to the plain version.  ``launches`` counts kernel launches by
+kernel name; only a launch adds to it.
+"""
+
+import ctypes
+
+import torch
+
+from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
+
+NEG_INF = -1e30
+#: the kernels hold head_dim in registers in 32-wide pieces
+MAX_HEAD_DIM = 128
+#: decode / verify query rows per (batch, head) the kernel takes
+MAX_QUERY_ROWS = 8
+
+#: kernel name -> launches since the last reset_launches()
+launches = {"flash_fwd": 0, "decode_attn": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "flash_fwd": ("veles_flash_fwd",
+                  [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 3
+                  + [ctypes.c_float, _P]),
+    "decode_attn": ("veles_decode_attn",
+                    [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 2
+                    + [ctypes.c_float, _P]),
+}
+_entries = {}
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
+
+
+def _entry(name):
+    """The C entry of kernel ``name`` with its ctypes signature,
+    building the library at first use."""
+    fn = _entries.get(name)
+    if fn is None:
+        from veles_tpu_torch.ops import build
+        symbol, argtypes = _ARGTYPES[name]
+        fn = getattr(build.library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _check_bshd(name, *tensors):
+    """Validate the kernels' operand contract before any pointer is
+    taken: 4-D (b, s, h, d), one supported dtype, unit stride on d."""
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError("%s kernel takes float32 or bfloat16, got %s"
+                        % (name, dtype))
+    for t in tensors:
+        if t.dim() != 4:
+            raise ValueError("%s expects (b, s, h, d) tensors, got shape "
+                             "%s" % (name, tuple(t.shape)))
+        if t.dtype != dtype:
+            raise TypeError("%s operands differ in dtype: %s vs %s"
+                            % (name, t.dtype, dtype))
+        if t.stride(-1) != 1:
+            raise ValueError("%s needs a unit stride on head_dim" % name)
+        if t.device != tensors[0].device:
+            raise ValueError("%s operands on different devices" % name)
+    b, _s, h, d = tensors[0].shape
+    for t in tensors[1:]:
+        if t.shape[0] != b or t.shape[2] != h or t.shape[3] != d:
+            raise ValueError("%s operand shapes disagree: %s"
+                             % (name, [tuple(x.shape) for x in tensors]))
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError("%s kernel takes head_dim 1..%d, got %d"
+                         % (name, MAX_HEAD_DIM, d))
+    return dtype
+
+
+def _strides(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+# -- plain versions (the CPU path and the kernels' references) -------------
+
+def _mha_ref(q, k, v, causal, q_offset=0, k_offset=0):
+    """Dense attention, mirroring ``_mha_jnp``: f32 scores, start-aligned
+    causal mask, logsumexp softmax; returns ``(o, lse)`` with ``o`` in
+    q's dtype and ``lse`` (b, h, sq) f32."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) / (d ** 0.5)
+    if causal:
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        dev = scores.device
+        mask = ((k_offset + torch.arange(sk, device=dev))[None, :]
+                <= (q_offset + torch.arange(sq, device=dev))[:, None])
+        scores = torch.where(mask, scores, NEG_INF)
+    lse = torch.logsumexp(scores, dim=-1)
+    probs = torch.exp(scores - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return out.to(q.dtype), lse
+
+
+def _masked_ref(q, k, v, limits):
+    """Dense attention of q (b, nq, h, d) against the keys of each row
+    below ``limits`` (b, nq)."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) / (d ** 0.5)
+    keys = torch.arange(k.shape[1], device=k.device)
+    mask = keys[None, None, None, :] < limits[:, None, :, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    lse = torch.logsumexp(scores, dim=-1)
+    probs = torch.exp(scores - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return out.to(q.dtype)
+
+
+def _decode_ref(q, k, v, lengths):
+    """Mirror of ``_decode_jnp``: every query row of sequence ``i``
+    reads the first ``lengths[i]`` keys."""
+    limits = lengths.long()[:, None].expand(q.shape[0], q.shape[1])
+    return _masked_ref(q, k, v, limits)
+
+
+def _verify_ref(q, k, v, lengths):
+    """Mirror of ``_verify_jnp``: row ``j`` of sequence ``i`` reads the
+    keys ``< lengths[i] + j`` (the staggered verify mask)."""
+    rows = torch.arange(q.shape[1], device=q.device)
+    limits = lengths.long()[:, None] + rows[None, :]
+    return _masked_ref(q, k, v, limits)
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+def _flash_fwd_cuda(q, k, v, causal, q_offset, k_offset):
+    dtype = _check_bshd("flash_fwd", q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if v.shape[1] != sk:
+        raise ValueError("flash_fwd: k has %d rows, v %d" % (sk, v.shape[1]))
+    o = torch.empty((b, sq, h, d), dtype=dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    status = _entry("flash_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), _DTYPE_CODES[dtype], b, h, sq, sk, d,
+        *_strides(q), *_strides(k), *_strides(v),
+        int(bool(causal)), int(q_offset), int(k_offset),
+        1.0 / (d ** 0.5), stream_handle(q.device))
+    check_status("flash_fwd", status)
+    launches["flash_fwd"] += 1
+    return o, lse
+
+
+def _flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
+    """``(o, lse)`` of attention over (b, s, h, d) tensors: the kernel on
+    CUDA tensors, :func:`_mha_ref` on CPU tensors.  ``q_offset`` and
+    ``k_offset`` are the global causal positions of element 0."""
+    if on_gpu(q, k, v):
+        return _flash_fwd_cuda(q, k, v, causal, int(q_offset),
+                               int(k_offset))
+    return _mha_ref(q, k, v, causal, int(q_offset), int(k_offset))
+
+
+def flash_attention(q, k, v, causal=False, q_offset=0, k_offset=0):
+    """Tiled attention ``softmax(q·kᵀ/√d)·v`` over (b, s, h, d) tensors
+    (forward only; the backward kernels come with the training port)."""
+    return _flash_fwd(q, k, v, causal, q_offset, k_offset)[0]
+
+
+def _decode_cuda(q, k, v, lengths, row_step):
+    dtype = _check_bshd("decode_attn", q, k, v)
+    b, nq, h, d = q.shape
+    seq = k.shape[1]
+    if v.shape[1] != seq:
+        raise ValueError("decode_attn: k has %d rows, v %d"
+                         % (seq, v.shape[1]))
+    if not 1 <= nq <= MAX_QUERY_ROWS:
+        raise ValueError("decode_attn takes 1..%d query rows, got %d"
+                         % (MAX_QUERY_ROWS, nq))
+    if (lengths.dtype != torch.int32 or lengths.shape != (b,)
+            or lengths.device != q.device or not lengths.is_contiguous()):
+        raise ValueError("decode_attn needs contiguous int32 lengths of "
+                         "shape (%d,) on %s" % (b, q.device))
+    width = 16 // q.element_size()
+    vec = int(d % width == 0
+              and all(s % width == 0 for s in _strides(k) + _strides(v))
+              and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    o = torch.empty((b, nq, h, d), dtype=dtype, device=q.device)
+    status = _entry("decode_attn")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        o.data_ptr(), _DTYPE_CODES[dtype], b, h, nq, seq, d,
+        *_strides(q), *_strides(k), *_strides(v), int(row_step), vec,
+        1.0 / (d ** 0.5), stream_handle(q.device))
+    check_status("decode_attn", status)
+    launches["decode_attn"] += 1
+    return o
+
+
+def decode_attention(q, k, v, lengths, row_step=0):
+    """Attention of a few query rows against a masked KV buffer — the
+    decode step's hot op.
+
+    ``q``: (b, nq, h, d) with nq <= 8, or (b, h, d); ``k``/``v``: (b, S,
+    h, d) cache buffers of which the first ``lengths[i]`` (int32, each
+    >= 1) keys of row ``i`` are valid.  ``row_step=1`` is the verify
+    mask: query row ``j`` reads the keys ``< lengths[i] + j``.  Row
+    ``i``'s output depends only on row ``i``'s query and valid keys."""
+    if row_step not in (0, 1):
+        raise ValueError("row_step must be 0 (decode) or 1 (verify), "
+                         "got %r" % (row_step,))
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    if on_gpu(q, k, v, lengths):
+        out = _decode_cuda(q, k, v, lengths, row_step)
+    elif row_step:
+        out = _verify_ref(q, k, v, lengths)
+    else:
+        out = _decode_ref(q, k, v, lengths)
+    return out[:, 0] if squeeze else out

@@ -1,0 +1,12 @@
+"""veles_tpu_torch.trace — the span recorder the serving path calls.
+
+Categories recorded by the port: ``gen`` (prefill and decode dispatch
+spans of :mod:`veles_tpu_torch.gen.engine`; enqueue, admit and evict
+instants and the per-request spans of
+:mod:`veles_tpu_torch.gen.scheduler`).  The knob is
+``root.common.engine.trace = off | on``.
+"""
+
+from veles_tpu_torch.trace.core import (  # noqa: F401
+    DEFAULT_CAPACITY, NULL_SPAN, TraceRecorder, complete, configure,
+    enabled, instant, recorder, span)

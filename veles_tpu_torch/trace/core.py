@@ -1,0 +1,143 @@
+"""The span recorder: a process-wide, lock-light ring of trace events.
+
+The port's own copy of the span API of :mod:`veles_tpu.trace.core`
+that the generative engine and scheduler call.  The disabled path is a
+single attribute check that returns a shared no-op singleton; enabled,
+each span costs one ``perf_counter_ns`` pair and one slot store in a
+preallocated ring.  Events are ``(phase, cat, name, ts_ns, dur_ns,
+tid, args, role)`` tuples in the Chrome trace-event vocabulary (``X``
+complete spans, ``i`` instants).  The device-profiler bridge and the
+Chrome export are not ported yet.
+"""
+
+import threading
+import time
+
+from veles_tpu_torch.config import root
+
+#: default ring capacity (events)
+DEFAULT_CAPACITY = 65536
+
+DEFAULT_ROLE = "trainer"
+
+
+class _NullSpan(object):
+    """The shared disabled-path context manager."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+#: the one instance every disabled ``span()`` call returns
+NULL_SPAN = _NullSpan()
+
+
+class _Span(object):
+    """A live span: records one ``X`` event on exit."""
+
+    __slots__ = ("_rec", "cat", "name", "args", "role", "_begin")
+
+    def __init__(self, rec, cat, name, args, role):
+        self._rec = rec
+        self.cat = cat
+        self.name = name
+        self.args = args
+        self.role = role
+
+    def __enter__(self):
+        self._begin = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self._rec.record("X", self.cat, self.name, self._begin,
+                         end - self._begin, self.args, self.role)
+        return False
+
+
+class TraceRecorder(object):
+    """Process-wide ring of trace events; keeps the newest
+    ``capacity`` events."""
+
+    def __init__(self, capacity=DEFAULT_CAPACITY):
+        #: THE hot-path switch every hook reads
+        self.enabled = False
+        self.role = DEFAULT_ROLE
+        self.capacity = int(capacity)
+        self._ring = [None] * self.capacity
+        self._pos = 0
+        self._lock = threading.Lock()
+
+    def record(self, phase, cat, name, ts_ns, dur_ns, args=None,
+               role=None):
+        event = (phase, cat, name, ts_ns, dur_ns, threading.get_ident(),
+                 args, role or self.role)
+        with self._lock:
+            self._ring[self._pos % self.capacity] = event
+            self._pos += 1
+
+    def events(self):
+        """Snapshot of the ring, oldest recorded → newest."""
+        with self._lock:
+            pos = self._pos
+            ring = list(self._ring)
+        n = min(pos, len(ring))
+        return [ring[i % len(ring)] for i in range(pos - n, pos)]
+
+    def clear(self):
+        """Drop every recorded event (keeps enabled/role)."""
+        with self._lock:
+            self._ring = [None] * self.capacity
+            self._pos = 0
+
+
+#: THE process-wide recorder every hook shares
+recorder = TraceRecorder()
+
+
+def span(cat, name, args=None, role=None):
+    """Context manager timing a span (host clock).  Disabled: one
+    attribute check, the shared no-op singleton."""
+    rec = recorder
+    if not rec.enabled:
+        return NULL_SPAN
+    return _Span(rec, cat, name, args, role)
+
+
+def instant(cat, name, args=None, role=None):
+    """Record a point event (Chrome phase ``i``)."""
+    rec = recorder
+    if not rec.enabled:
+        return
+    rec.record("i", cat, name, time.perf_counter_ns(), 0, args, role)
+
+
+def complete(cat, name, begin_ns, dur_ns, args=None, role=None):
+    """Record a span retroactively from caller-held timestamps."""
+    rec = recorder
+    if not rec.enabled:
+        return
+    rec.record("X", cat, name, int(begin_ns), int(dur_ns), args, role)
+
+
+def enabled():
+    """The hot-path switch, for call sites that skip building args."""
+    return recorder.enabled
+
+
+def configure(value=None):
+    """Apply the ``root.common.engine.trace`` knob (``off`` | ``on``,
+    read fresh when ``value`` is None); returns the enabled state."""
+    if value is None:
+        value = root.common.engine.get("trace", "off")
+    if isinstance(value, str):
+        on = value.strip().lower() in ("on", "1", "true", "yes")
+    else:
+        on = bool(value)
+    recorder.enabled = on
+    return on

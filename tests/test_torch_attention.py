@@ -71,7 +71,7 @@ def test_flash_attention_on_cpu_takes_the_plain_version(launches):
     assert torch.equal(out, o)
     assert torch.equal(o, port._mha_ref(q, k, v, True)[0])
     assert lse.dtype == torch.float32
-    assert launches == {"flash_fwd": 0, "decode_attn": 0}
+    assert not any(launches.values())
 
 
 @pytest.mark.parametrize("seq,lengths", [
@@ -120,4 +120,4 @@ def test_decode_attention_wrapper_on_cpu(launches):
     assert torch.equal(verify, port._verify_ref(q, k, v, lens))
     with pytest.raises(ValueError):
         port.decode_attention(q, k, v, lens, row_step=2)
-    assert launches == {"flash_fwd": 0, "decode_attn": 0}
+    assert not any(launches.values())

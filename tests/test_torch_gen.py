@@ -258,7 +258,7 @@ def test_engine_bookkeeping_and_launch_free_cpu_path():
         engine.release_slot(slot)
     engine.close()
     engine.close()                           # idempotent
-    assert attention.launches == {"flash_fwd": 0, "decode_attn": 0}
+    assert not any(attention.launches.values())
 
 
 def test_engine_holds_kv_and_params_in_the_hbm_ledger():

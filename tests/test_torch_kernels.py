@@ -13,6 +13,15 @@ runs on its own:
 Tolerances: float32 max abs 1e-4 (the kernels sum in another order than
 the plain version, with TF32 off); bfloat16 2e-2 (V is drawn from
 U(-1, 1), so an output lies in [-1, 1] where one bf16 ulp is <= 2^-7).
+The backward's gradients are not bounded by 1, so their tolerance is
+relative as well as absolute, element by element within atol + rtol·|plain|:
+float32 1e-4 + 1e-4; bfloat16 2e-3 + 2^-7.  A bf16 gradient is rounded
+once on output, so two sums that differ in the last f32 bit may land one
+bf16 ulp (at most 2^-7 relative) apart; p and ds, which both versions
+round to bf16 before their products, add far less.  The absolute 2e-3
+is about a sixth of a typical |dq| at s = 2048, small enough that a
+dropped K or Q tile is reported (``test_bwd_tolerance_reports_planted
+_faults``).
 """
 
 import numpy
@@ -24,6 +33,8 @@ from veles_tpu_torch.ops.util import on_gpu
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+BWD_F32_TOL = (1e-4, 1e-4)              # (atol, rtol)
+BWD_BF16_TOL = (2e-3, 2 ** -7)
 
 
 def _arrays(shapes, seed, uniform_last=False):
@@ -69,6 +80,53 @@ def test_kernel_contract_refuses_mismatched_operands():
         port._check_bshd("decode_attn", x, torch.zeros((2, 4, 3, 8)))
     with pytest.raises(TypeError, match="differ in dtype"):
         port._check_bshd("decode_attn", x, x.to(torch.bfloat16))
+
+
+def test_backward_contract_is_checked_before_launch():
+    x = torch.zeros((2, 5, 3, 8))
+    lse = torch.zeros((2, 3, 5))
+    port._bwd_check(x, x, x, x, lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        port._bwd_check(x, x, x, x, lse[:, :, :4], lse)
+    with pytest.raises(ValueError, match="delta"):
+        port._bwd_check(x, x, x, x, lse, lse.transpose(1, 2).contiguous())
+    with pytest.raises(ValueError, match="rows"):
+        port._bwd_check(x, x, x, x[:, :4], lse, lse)
+    with pytest.raises(TypeError, match="dtype"):
+        port._bwd_check(x, x, x, x.to(torch.bfloat16), lse, lse)
+
+
+def _within(got, want, tol):
+    return bool(((got.float() - want.float()).abs()
+                 <= tol[0] + tol[1] * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("fault", ["delta_sign", "last_k_tile",
+                                   "last_q_tile"])
+def test_bwd_tolerance_reports_planted_faults(fault):
+    """The bf16 backward tolerance is tight enough to see a kernel that
+    flips delta's sign, or skips the last K tile of dq or the last Q
+    tile of dk/dv (64 rows, the kernels' tile), on the plain version's
+    own outputs."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in
+                   _arrays([(1, 256, 2, 64)] * 4, seed=26, uniform_last=True))
+    o, lse = port._mha_ref(q, k, v, True)
+    delta = port._delta(o, do)
+    want = port._bwd_ref(q, k, v, o, lse, do, True, delta=delta)
+    cut = q.shape[1] - 64
+    if fault == "delta_sign":
+        bad = port._bwd_ref(q, k, v, o, lse, do, True, delta=-delta)[0]
+        assert not _within(bad, want[0], BWD_BF16_TOL)
+    elif fault == "last_k_tile":
+        bad = port._bwd_ref(q, k[:, :cut], v[:, :cut], o, lse, do, True,
+                            delta=delta)[0]
+        assert not _within(bad, want[0], BWD_BF16_TOL)
+    else:
+        _dq, dk, dv = port._bwd_ref(q[:, :cut], k, v, o[:, :cut],
+                                    lse[..., :cut], do[:, :cut], True,
+                                    delta=delta[..., :cut])
+        assert not _within(dk, want[1], BWD_BF16_TOL)
+        assert not _within(dv, want[2], BWD_BF16_TOL)
 
 
 def test_on_gpu_refuses_mixed_devices():
@@ -129,6 +187,77 @@ def test_decode_kernel_matches_plain_version_on_card(
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
 
 
+def _bwd_operands(device, dtype, sq, sk, d, causal, q_off, strided, seed):
+    """(q, k, v, o, lse, do) on the card; q, k, v are strided views of
+    one (b, s, 3, h, d) projection when ``strided``, as training makes
+    them; o and lse come from the plain forward."""
+    b, h = 2, 3
+    if strided:
+        x, do = _arrays([(b, sq, 3, h, d), (b, sq, h, d)], seed)
+        x[:, :, 2] = numpy.random.default_rng(seed).uniform(
+            -1.0, 1.0, x[:, :, 2].shape)
+        qkv = torch.from_numpy(x).to(device, dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v, do = (torch.from_numpy(a).to(device, dtype) for a in
+                       _arrays([(b, sq, h, d), (b, sk, h, d), (b, sk, h, d),
+                                (b, sq, h, d)], seed, uniform_last=True))
+    do = torch.as_tensor(do).to(device, dtype)
+    o, lse = port._mha_ref(q, k, v, causal, q_off, 0)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, BWD_F32_TOL),
+                                       (torch.bfloat16, BWD_BF16_TOL)])
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("causal,q_off", [(True, 0), (False, 0),
+                                          (True, 40)])
+@pytest.mark.parametrize("sq,sk,strided", [(77, 77, True), (13, 29, False)])
+def test_flash_bwd_kernels_match_plain_version_on_card(
+        cuda_device, launches, sq, sk, strided, causal, q_off, d, dtype,
+        tol):
+    args = _bwd_operands(cuda_device, dtype, sq, sk, d, causal, q_off,
+                         strided, seed=23)
+    got = port._flash_bwd(*args, causal, q_off, 0)
+    want = port._bwd_ref(*args, causal, q_off, 0)
+    torch.cuda.synchronize()
+    assert launches["flash_bwd_dq"] == 1 and launches["flash_bwd_dkv"] == 1
+    for g, w, x in zip(got, want, args[:3]):
+        assert g.dtype == dtype and g.shape == x.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=tol[0],
+                                   rtol=tol[1])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_are_deterministic_on_card(cuda_device, launches):
+    """No atomics: two launches give the same bits."""
+    args = _bwd_operands(cuda_device, torch.bfloat16, 300, 300, 64, True, 0,
+                         True, seed=24)
+    first = port._flash_bwd(*args, True)
+    second = port._flash_bwd(*args, True)
+    torch.cuda.synchronize()
+    assert launches["flash_bwd_dq"] == 2 and launches["flash_bwd_dkv"] == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_launches_the_kernels_on_card(
+        cuda_device, launches):
+    q, k, v, o, lse, do = _bwd_operands(cuda_device, torch.float32, 77, 77,
+                                        64, True, 0, True, seed=25)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = port.flash_attention(*leaves, True)
+    out.backward(do)
+    want = port._bwd_ref(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                        "flash_bwd_dkv": 1, "decode_attn": 0}
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, atol=F32_TOL, rtol=F32_TOL)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_raise_on_the_card(cuda_device, launches):
     """A CUDA tensor the kernel does not take raises; it never falls
@@ -143,4 +272,4 @@ def test_kernel_wrappers_raise_on_the_card(cuda_device, launches):
         port.decode_attention(q, k, k, lens)
     with pytest.raises(ValueError, match="int32"):
         port.decode_attention(q[:, :1], k, k, lens.long())
-    assert launches == {"flash_fwd": 0, "decode_attn": 0}
+    assert not any(launches.values())

@@ -9,6 +9,8 @@ by hand for the H100 (``csrc/``), with its plain PyTorch version beside
 it (``ops/``).
 
 Ported so far: generative serving of the transformer LM with a
-contiguous KV cache (:mod:`veles_tpu_torch.gen`).  Entry points run on
-the CUDA card unless the caller passes ``device="cpu"``.
+contiguous KV cache (:mod:`veles_tpu_torch.gen`), and single-card
+training of the same LM (:mod:`veles_tpu_torch.samples.transformer`).
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
 """

@@ -20,11 +20,12 @@ checks that every request gets exactly its token budget.
 
 from veles_tpu_torch.gen.engine import GenerativeEngine  # noqa: F401
 from veles_tpu_torch.gen.model import (  # noqa: F401
-    TransformerGenModel, params_from_numpy)
+    TransformerGenModel, params_from_numpy, params_to_numpy)
 from veles_tpu_torch.gen.scheduler import (  # noqa: F401
     GenerativeScheduler, QueueFull, static_generate)
 
 __all__ = [
     "GenerativeEngine", "GenerativeScheduler", "QueueFull",
-    "TransformerGenModel", "params_from_numpy", "static_generate",
+    "TransformerGenModel", "params_from_numpy", "params_to_numpy",
+    "static_generate",
 ]

@@ -33,6 +33,8 @@ import torch.nn.functional as F
 
 from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.ops.attention import decode_attention, flash_attention
+from veles_tpu_torch.samples.transformer import (_layernorm, _not_ported,
+                                                 init_params)
 
 #: block weights whose matmul operands are cast to ``compute_dtype``
 _MATMUL_LEAVES = ("wqkv", "wo", "w1", "b1", "w2", "b2")
@@ -42,16 +44,26 @@ def params_from_numpy(tree, device, dtype=torch.float32):
     """Carry a numpy param tree (``veles_tpu.samples.transformer
     .init_params``, this package's copy, or a trained JAX run's arrays)
     into tensors of ``dtype`` on ``device``, keeping the tree's
-    structure."""
+    structure.  The tensors are copies: an in-place update (the train
+    step's) never writes through to the numpy arrays."""
     device = torch.device(device)
     out = {}
     for key, leaf in tree.items():
         if isinstance(leaf, dict):
             out[key] = params_from_numpy(leaf, device, dtype)
         else:
-            out[key] = torch.as_tensor(numpy.asarray(leaf)).to(
-                device=device, dtype=dtype)
+            out[key] = torch.tensor(numpy.asarray(leaf), dtype=dtype,
+                                    device=device)
     return out
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_numpy`: a tree of tensors (on
+    any device) as float32 numpy copies of the same structure."""
+    return {key: (params_to_numpy(leaf) if isinstance(leaf, dict)
+                  else leaf.detach().to("cpu", torch.float32,
+                                        copy=True).numpy())
+            for key, leaf in tree.items()}
 
 
 def tree_nbytes(tree):
@@ -59,18 +71,6 @@ def tree_nbytes(tree):
     return sum(tree_nbytes(leaf) if isinstance(leaf, dict)
                else leaf.numel() * leaf.element_size()
                for leaf in tree.values())
-
-
-def _layernorm(x, g, b):
-    mu = x.mean(-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + 1e-5) * g + b
-
-
-def _not_ported(entry, item):
-    raise NotImplementedError(
-        "%s is not ported to veles_tpu_torch yet (ROADMAP.md, 'Slices "
-        "still to port', item %s)" % (entry, item))
 
 
 class TransformerGenModel(object):
@@ -104,7 +104,6 @@ class TransformerGenModel(object):
     def init_params(self, seed=0):
         """Host (numpy, float32) params, bit-identical to the JAX
         package's for the same seed."""
-        from veles_tpu_torch.samples.transformer import init_params
         return init_params(self.cfg, seed=seed)
 
     def serving_params(self, params):

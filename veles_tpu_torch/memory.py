@@ -3,7 +3,8 @@ ledger of :mod:`veles_tpu.memory` (``track`` / ``untrack`` by category,
 current and peak bytes, and the ``generation`` guard that makes
 releases taken before a ``reset()`` no-ops).  The generative engine
 holds its KV cache under ``kv`` and its parameters under ``params``.
-``Vector`` and the transfer counters wait for the training slice."""
+``Vector`` and the transfer counters wait for the MNIST training slice
+(ROADMAP.md, 'Slices still to port', item 1)."""
 
 import threading
 

@@ -4,6 +4,10 @@ version.
 - ``veles_tpu/ops/attention.py`` ``_attn_kernel`` (flash forward) →
   :func:`veles_tpu_torch.ops.attention.flash_attention`, CUDA C++ in
   ``csrc/flash_fwd.cu``;
+- ``veles_tpu/ops/attention.py`` ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel`` (flash backward) → the backward of
+  :func:`veles_tpu_torch.ops.attention.flash_attention` under autograd,
+  CUDA C++ in ``csrc/flash_bwd.cu``;
 - ``veles_tpu/ops/attention.py`` ``_decode_kernel`` (decode / verify) →
   :func:`veles_tpu_torch.ops.attention.decode_attention`, CUDA C++ in
   ``csrc/decode_attn.cu``.

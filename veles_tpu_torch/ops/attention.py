@@ -1,5 +1,6 @@
-"""Attention for the generative serving path: the flash-prefill and the
-decode kernels, each beside its plain PyTorch version.
+"""Attention for serving and training: the flash forward, the flash
+backward pair and the decode kernel, each beside its plain PyTorch
+version.
 
 Counterpart of :mod:`veles_tpu.ops.attention`.  The public functions
 keep the JAX layout ``(batch, seq, heads, head_dim)`` and the JAX
@@ -9,11 +10,15 @@ i``), masked scores of ``NEG_INF = -1e30`` and a softmax scale of
 ``1/sqrt(head_dim)``.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain
-version (``_mha_ref``, ``_decode_ref``, ``_verify_ref``); CUDA tensors
-launch the hand-written kernel (``csrc/flash_fwd.cu``,
-``csrc/decode_attn.cu``) or raise.  There is no fallback from a CUDA
-tensor to the plain version.  ``launches`` counts kernel launches by
-kernel name; only a launch adds to it.
+version (``_mha_ref``, ``_bwd_ref``, ``_decode_ref``, ``_verify_ref``);
+CUDA tensors launch the hand-written kernel (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, ``csrc/decode_attn.cu``) or raise.  There is no
+fallback from a CUDA tensor to the plain version.  ``launches`` counts
+kernel launches by kernel name; only a launch adds to it.
+
+:func:`flash_attention` is differentiable: under autograd it runs
+through :class:`_FlashAttention`, whose backward is the dq and dk/dv
+kernel pair (the counterpart of the JAX ``custom_vjp``).
 """
 
 import ctypes
@@ -29,15 +34,23 @@ MAX_HEAD_DIM = 128
 MAX_QUERY_ROWS = 8
 
 #: kernel name -> launches since the last reset_launches()
-launches = {"flash_fwd": 0, "decode_attn": 0}
+launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode_attn": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: kernel name -> (library = csrc source, C symbol, ctypes argtypes)
 _ARGTYPES = {
-    "flash_fwd": ("veles_flash_fwd",
+    "flash_fwd": ("flash_fwd", "veles_flash_fwd",
                   [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 3
                   + [ctypes.c_float, _P]),
-    "decode_attn": ("veles_decode_attn",
+    "flash_bwd_dq": ("flash_bwd", "veles_flash_bwd_dq",
+                     [_P] * 7 + [_I] * 6 + [_L] * 12 + [_I] * 3
+                     + [ctypes.c_float, _P]),
+    "flash_bwd_dkv": ("flash_bwd", "veles_flash_bwd_dkv",
+                      [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I] * 3
+                      + [ctypes.c_float, _P]),
+    "decode_attn": ("decode_attn", "veles_decode_attn",
                     [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 2
                     + [ctypes.c_float, _P]),
 }
@@ -55,8 +68,8 @@ def _entry(name):
     fn = _entries.get(name)
     if fn is None:
         from veles_tpu_torch.ops import build
-        symbol, argtypes = _ARGTYPES[name]
-        fn = getattr(build.library(name), symbol)
+        source, symbol, argtypes = _ARGTYPES[name]
+        fn = getattr(build.library(source), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _entries[name] = fn
@@ -115,6 +128,51 @@ def _mha_ref(q, k, v, causal, q_offset=0, k_offset=0):
     probs = torch.exp(scores - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     return out.to(q.dtype), lse
+
+
+def _delta(o, do):
+    """``rowsum(do ⊙ o)`` in f32, (b, h, sq): the flash backward's
+    preprocessing, which the JAX package also runs outside its kernels."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
+
+
+def _bwd_ref(q, k, v, o, lse, do, causal, q_offset=0, k_offset=0,
+             delta=None, block_k=128):
+    """Flash backward ``(dq, dk, dv)`` from the saved ``(q, k, v, o,
+    lse)``, mirroring ``_bwd_blockwise``: K blocks of ``block_k`` keys,
+    probabilities recomputed from ``lse``, extended with the
+    start-aligned ``q_offset``/``k_offset`` of ``_flash_bwd``.  Matmul
+    operands keep the inputs' dtype (``do`` is cast to q's; ``p`` before
+    ``pᵀ·do`` and ``ds`` before ``ds·k`` and ``dsᵀ·q`` are rounded to
+    it) and every product sums in f32, as the TPU kernels do; the
+    softmax arithmetic is f32."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    if delta is None:
+        delta = _delta(o, do)
+    mm = q.dtype
+    q32 = q.float()
+    do32 = do.to(mm).float()
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    dq = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, sk, block_k):
+        kb = k[:, k0:k0 + block_k].float()
+        vb = v[:, k0:k0 + block_k].float()
+        scores = torch.einsum("bqhd,bkhd->bhqk", q32, kb) * scale
+        p = torch.exp(scores - lse[..., None])
+        if causal:
+            k_pos = k_offset + k0 + torch.arange(kb.shape[1],
+                                                 device=q.device)
+            p = torch.where(k_pos[None, :] <= q_pos[:, None], p, 0.0)
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p.to(mm).float(), do32))
+        dp = torch.einsum("bqhd,bkhd->bhqk", do32, vb)
+        ds = (p * (dp - delta[..., None]) * scale).to(mm).float()
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kb)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, q32))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
 
 
 def _masked_ref(q, k, v, limits):
@@ -178,9 +236,107 @@ def _flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
     return _mha_ref(q, k, v, causal, int(q_offset), int(k_offset))
 
 
+def _bwd_check(q, k, v, do, lse, delta):
+    dtype = _check_bshd("flash_bwd", q, k, v, do)
+    b, sq, h, _d = q.shape
+    if v.shape[1] != k.shape[1] or do.shape[1] != sq:
+        raise ValueError("flash_bwd: q/do rows %d/%d, k/v rows %d/%d"
+                         % (sq, do.shape[1], k.shape[1], v.shape[1]))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError("flash_bwd needs a contiguous float32 %s of "
+                             "shape %s on %s" % (name, (b, h, sq), q.device))
+    return dtype
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, q_offset, k_offset):
+    """dq by the dq kernel; ``do`` in q's dtype, ``lse``/``delta``
+    contiguous (b, h, sq) f32."""
+    dtype = _bwd_check(q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    dq = torch.empty((b, sq, h, d), dtype=dtype, device=q.device)
+    status = _entry("flash_bwd_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _DTYPE_CODES[dtype],
+        b, h, sq, k.shape[1], d, *_strides(q), *_strides(k), *_strides(v),
+        *_strides(do), int(bool(causal)), int(q_offset), int(k_offset),
+        1.0 / (d ** 0.5), stream_handle(q.device))
+    check_status("flash_bwd_dq", status)
+    launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset, k_offset):
+    """(dk, dv) by the dk/dv kernel; operands as :func:`_bwd_dq_cuda`."""
+    dtype = _bwd_check(q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dk = torch.empty((b, sk, h, d), dtype=dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=dtype, device=q.device)
+    status = _entry("flash_bwd_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _DTYPE_CODES[dtype], b, h, sq, sk, d, *_strides(q), *_strides(k),
+        *_strides(v), *_strides(do), int(bool(causal)), int(q_offset),
+        int(k_offset), 1.0 / (d ** 0.5), stream_handle(q.device))
+    check_status("flash_bwd_dkv", status)
+    launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal=False, q_offset=0, k_offset=0,
+               delta=None):
+    """``(dq, dk, dv)`` of attention from the forward's ``(q, k, v, o,
+    lse)`` and the output gradient ``do``: the dq and dk/dv kernels on
+    CUDA tensors, :func:`_bwd_ref` on CPU tensors.  ``delta`` (b, h, sq)
+    f32 may be passed precomputed; otherwise it is ``rowsum(do ⊙ o)``.
+    ``do`` is cast to q's dtype, as the JAX function does."""
+    if delta is None:
+        delta = _delta(o, do)
+    do = do.to(q.dtype)
+    if on_gpu(q, k, v, o, lse, do, delta):
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = delta.contiguous()
+        args = (q, k, v, do, lse, delta, causal, int(q_offset),
+                int(k_offset))
+        dq = _bwd_dq_cuda(*args)
+        dk, dv = _bwd_dkv_cuda(*args)
+        return dq, dk, dv
+    return _bwd_ref(q, k, v, o, lse, do, causal, int(q_offset),
+                    int(k_offset), delta)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX ``custom_vjp`` of ``flash_attention``: the
+    forward kernel saves ``(q, k, v, o, lse)`` and the backward is the
+    dq and dk/dv kernel pair.  Nothing outside ``ctx`` is kept, so under
+    ``torch.utils.checkpoint`` a recomputed forward stands alone."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, k_offset):
+        o, lse = _flash_fwd(q, k, v, causal, q_offset, k_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.masks = (causal, q_offset, k_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, *ctx.masks)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal=False, q_offset=0, k_offset=0):
-    """Tiled attention ``softmax(q·kᵀ/√d)·v`` over (b, s, h, d) tensors
-    (forward only; the backward kernels come with the training port)."""
+    """Tiled attention ``softmax(q·kᵀ/√d)·v`` over (b, s, h, d) tensors.
+
+    Differentiable in q, k and v: when autograd records (grad enabled
+    and an input requires grad) it runs through :class:`_FlashAttention`,
+    whose backward launches the backward kernels; otherwise (serving,
+    ``torch.no_grad()``, inference mode) it is the forward alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, q_offset, k_offset)
     return _flash_fwd(q, k, v, causal, q_offset, k_offset)[0]
 
 

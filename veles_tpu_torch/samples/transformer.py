@@ -1,16 +1,39 @@
-"""Decoder-only transformer LM: configurations and parameter layout.
+"""Decoder-only transformer LM: configurations, parameter layout and the
+single-card training step.
 
-The port's own copy of the numpy-only part of
-:mod:`veles_tpu.samples.transformer` (``CONFIG``, ``TINY``, the shape
-table and ``init_params``).  It draws from the same
-``numpy.random.default_rng(seed)`` in the same order, so one seed gives
-bit-identical weights in both packages.  The training step waits for
-the transformer-training slice of the port.
+Counterpart of :mod:`veles_tpu.samples.transformer`.  ``CONFIG``,
+``TINY``, the shape table and ``init_params`` are the port's own copy:
+they draw from the same ``numpy.random.default_rng(seed)`` in the same
+order, so one seed gives bit-identical weights in both packages.
+
+The training step (:func:`make_train_step`, :func:`build_train`) is the
+JAX one without a mesh: pre-LN blocks over the stacked layer axis (a
+Python loop in place of ``lax.scan``), ``torch.utils.checkpoint`` on
+each block when ``remat`` (the counterpart of ``jax.checkpoint``),
+attention through :func:`~veles_tpu_torch.ops.attention.flash_attention`
+(the flash forward kernel, and the dq and dk/dv kernels in the
+backward, on the card), a chunked cross-entropy that never holds the
+whole ``[B, S, V]`` logits, and SGD with momentum.
+``python -m veles_tpu_torch.samples.transformer [--device cpu]`` prints
+the tokens per second of the step.
+
+Not ported: the DP/TP/SP mesh (``build_train(mesh=...)``,
+``param_specs``), the ``engine.kernels=xla`` dense-attention hatch, and
+``param_shapes`` (a probe of the JAX planner): ROADMAP.md, 'Slices
+still to port', item 7.
 """
 
+import argparse
 import math
+import time
 
 import numpy
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from veles_tpu_torch.backends import resolve_device
+from veles_tpu_torch.ops.attention import flash_attention
 
 CONFIG = {
     "vocab": 32000, "dim": 1024, "heads": 16, "layers": 12,
@@ -20,6 +43,8 @@ TINY = {
     "vocab": 64, "dim": 32, "heads": 4, "layers": 2,
     "mlp_ratio": 2, "seq_len": 16,
 }
+#: SGD momentum of the training step, as in the JAX package
+MOMENTUM = 0.9
 
 
 def _shape_table(cfg):
@@ -73,3 +98,240 @@ def init_params(cfg, seed=0, dtype=numpy.float32):
         return fn(shape, dtype)
 
     return _build_params(_shape_table(cfg), make)
+
+
+def _not_ported(entry, item):
+    raise NotImplementedError(
+        "%s is not ported to veles_tpu_torch yet (ROADMAP.md, 'Slices "
+        "still to port', item %s)" % (entry, item))
+
+
+def param_specs(params, seq_axis="seq"):
+    """The JAX package's Megatron sharding rules; the port has no mesh
+    yet."""
+    _not_ported("param_specs (the tensor-parallel sharding rules)", 7)
+
+
+def _layernorm(x, g, b):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * g + b
+
+
+def _attend(q, k, v):
+    """Single-card attention: the flash kernels, start-aligned causal."""
+    return flash_attention(q, k, v, True)
+
+
+def _block(h, blk, compute_dtype):
+    """One pre-LN transformer block; wqkv [d,3,H,dh], wo [H,dh,d].
+
+    The JAX block's mixed-precision discipline: the residual stream
+    stays in the params' dtype, every matmul operand (biases included)
+    is cast to ``compute_dtype`` and its result stays there, and GELU is
+    the tanh approximation (``jax.nn.gelu``'s default)."""
+    cd = compute_dtype
+    B, S, d = h.shape
+    x = _layernorm(h, blk["ln1_g"], blk["ln1_b"])
+    qkv = (x.to(cd) @ blk["wqkv"].to(cd).reshape(d, -1)).view(
+        B, S, *blk["wqkv"].shape[1:])
+    # strided views of one (B, S, 3, H, dh) projection, as the kernels take
+    att = _attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    proj = att.to(cd).reshape(B, S, -1) @ blk["wo"].to(cd).reshape(-1, d)
+    h = h + proj.to(h.dtype)
+    x = _layernorm(h, blk["ln2_g"], blk["ln2_b"])
+    up = x.to(cd) @ blk["w1"].to(cd) + blk["b1"].to(cd)
+    down = (F.gelu(up, approximate="tanh") @ blk["w2"].to(cd)
+            + blk["b2"].to(cd))
+    return h + down.to(h.dtype)
+
+
+def hidden_fn(params, tokens, compute_dtype=torch.bfloat16, remat=True):
+    """tokens [B, S] (int64 on the params' device) → final-LN hidden
+    states [B, S, d]."""
+    h = params["embed"][tokens] + params["pos"][: tokens.shape[1]]
+    # one unbind per stacked leaf: its backward stacks the layers' grads
+    # once, where indexing layer by layer would add 12 full-size zeros
+    layers = [dict(zip(params["blocks"], leaves)) for leaves in zip(
+        *(leaf.unbind(0) for leaf in params["blocks"].values()))]
+    for blk in layers:
+        if remat:
+            h = checkpoint(_block, h, blk, compute_dtype,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _block(h, blk, compute_dtype)
+    return _layernorm(h, params["lnf_g"], params["lnf_b"])
+
+
+def apply_fn(params, tokens, compute_dtype=torch.bfloat16, remat=True):
+    """tokens [B, S] → logits [B, S, V] in ``compute_dtype`` (the
+    weight-tied readout, bf16 by design as in the JAX package)."""
+    h = hidden_fn(params, tokens, compute_dtype, remat)
+    return h.to(compute_dtype) @ params["embed"].to(compute_dtype).t()
+
+
+def _chunk_nll_sum(hc, tc, mask, emb, compute_dtype):
+    """Summed NLL of one sequence chunk: the readout in
+    ``compute_dtype``, the softmax arithmetic in f32."""
+    logits = (hc.to(compute_dtype) @ emb.to(compute_dtype).t()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, tc[..., None])[..., 0]
+    return ((lse - picked) * mask).sum()
+
+
+def _as_tokens(tokens, device):
+    """Token ids (numpy, list or tensor) as int64 on ``device``."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(numpy.asarray(tokens))
+    return tokens.to(device=device, dtype=torch.long)
+
+
+def make_train_step(cfg, mesh=None, lr=3e-4, compute_dtype=torch.bfloat16,
+                    remat=True, ce_chunk=128):
+    """``step(params, velocity, tokens) -> (params, velocity, {"loss"})``:
+    next-token cross-entropy, its gradient, and the SGD+momentum update
+    ``v ← 0.9·v − lr·g; p ← p + v`` on every leaf.
+
+    ``ce_chunk``: the loss is summed over sequence chunks of that many
+    positions (padded to a multiple, the pad masked), each under
+    ``checkpoint`` so the backward recomputes the chunk's logits and
+    only ``[B, chunk, V]`` of them is ever live; the mean is over
+    ``B·(S-1)``.  ``ce_chunk=0`` is the plain full-logits path.
+
+    ``cfg`` is taken for the JAX package's signature: the widths come
+    from the params.  ``params`` and ``velocity`` are nested dicts of
+    tensors (as :func:`build_train` makes them) and are updated IN
+    PLACE under ``no_grad`` — the port's stand-in for the JAX step's
+    donated buffers; the returned trees are the same objects.
+    ``tokens`` is an int array [B, S] (numpy or tensor)."""
+    if mesh is not None:
+        _not_ported("a DP/TP/SP mesh", 7)
+    kw = dict(compute_dtype=compute_dtype, remat=remat)
+
+    def loss_fn(params, tokens):
+        targets = tokens[:, 1:]
+        if not ce_chunk:
+            logits = apply_fn(params, tokens, **kw)
+            logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+            return -logp.gather(-1, targets[..., None]).mean()
+        hs = hidden_fn(params, tokens, **kw)[:, :-1]
+        batch, n, _d = hs.shape
+        chunk = min(ce_chunk, n)
+        k = -(-n // chunk)
+        pad = k * chunk - n
+        hs = F.pad(hs, (0, 0, 0, pad))
+        tg = F.pad(targets, (0, pad))
+        valid = (torch.arange(k * chunk, device=hs.device) < n).reshape(
+            k, chunk)
+        total = torch.zeros((), dtype=torch.float32, device=hs.device)
+        for i in range(k):
+            cut = slice(i * chunk, (i + 1) * chunk)
+            total = total + checkpoint(
+                _chunk_nll_sum, hs[:, cut], tg[:, cut], valid[i],
+                params["embed"], compute_dtype, use_reentrant=False,
+                preserve_rng_state=False)
+        return total / (batch * n)
+
+    def step(params, velocity, tokens):
+        leaves, vels = _leaves(params), _leaves(velocity)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        tokens = _as_tokens(tokens, leaves[0].device)
+        loss = loss_fn(params, tokens)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for p, v, g in zip(leaves, vels, grads):
+                v.mul_(MOMENTUM).sub_(lr * g)
+                p.add_(v)
+        return params, velocity, {"loss": loss.detach()}
+
+    return step
+
+
+def _leaves(tree):
+    out = []
+    for leaf in tree.values():
+        out.extend(_leaves(leaf) if isinstance(leaf, dict) else [leaf])
+    return out
+
+
+def build_train(cfg=None, mesh=None, lr=3e-4, compute_dtype=torch.bfloat16,
+                remat=True, seed=0, ce_chunk=128, device=None):
+    """``(params, velocity, step)``: f32 params from :func:`init_params`
+    (``seed``) and zero velocity as tensors on ``device`` (``cuda`` by
+    default; raises without a card unless ``"cpu"`` is asked for), and
+    the step of :func:`make_train_step`, which updates both in place."""
+    from veles_tpu_torch.gen.model import params_from_numpy
+    if mesh is not None:
+        _not_ported("build_train(mesh=...) (a DP/TP/SP mesh)", 7)
+    cfg = cfg or CONFIG
+    device = resolve_device(device)
+    host = init_params(cfg, seed=seed)
+    params = params_from_numpy(host, device)
+    velocity = params_from_numpy(
+        _build_params(host, numpy.zeros_like), device)
+    step = make_train_step(cfg, lr=lr, compute_dtype=compute_dtype,
+                           remat=remat, ce_chunk=ce_chunk)
+    return params, velocity, step
+
+
+def train_step_flops(cfg, batch):
+    """Analytic FLOPs of one LM train step (forward + backward ≈ 3× the
+    forward matmuls, the standard MFU convention; remat's forward
+    recompute is not counted as useful work).  Attention is counted
+    causal-discounted (each token attends to ~S/2 keys)."""
+    d, L, S, V = cfg["dim"], cfg["layers"], cfg["seq_len"], cfg["vocab"]
+    f = cfg["mlp_ratio"] * d
+    per_token_layer = (
+        2.0 * d * 3 * d          # qkv projection
+        + 2.0 * S * d            # QK^T + AV, causal-averaged S/2 each
+        + 2.0 * d * d            # output projection
+        + 4.0 * d * f)           # mlp up + down
+    per_token = L * per_token_layer + 2.0 * d * V   # tied readout
+    return 3.0 * batch * S * per_token
+
+
+def synthetic_tokens(cfg, batch, seed=0):
+    rng = numpy.random.default_rng(seed)
+    return rng.integers(0, cfg["vocab"],
+                        (batch, cfg["seq_len"])).astype(numpy.int32)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def benchmark(cfg=None, batch=8, steps=5, device=None):
+    """Tokens/sec of the train step: one warm-up step, then ``steps``
+    timed ones on the host clock, ended by a device synchronise."""
+    cfg = cfg or CONFIG
+    params, vel, step = build_train(cfg, device=device)
+    dev = params["embed"].device
+    tokens = _as_tokens(synthetic_tokens(cfg, batch), dev)
+    params, vel, _m = step(params, vel, tokens)
+    _sync(dev)
+    tic = time.perf_counter()
+    for _ in range(steps):
+        params, vel, _m = step(params, vel, tokens)
+    _sync(dev)
+    return steps * batch * cfg["seq_len"] / (time.perf_counter() - tic)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m veles_tpu_torch.samples.transformer",
+        description="Tokens/sec of the transformer LM train step at batch "
+        "8: CONFIG on the card, TINY on the CPU.")
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default) or cpu")
+    device = resolve_device(parser.parse_args(argv).device)
+    name, cfg = (("tiny", TINY) if device.type == "cpu"
+                 else ("config", CONFIG))
+    rate = benchmark(cfg, device=device)
+    print("LM train step (%s, %s): %.0f tokens/sec" % (name, device, rate))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -59,9 +59,39 @@ Phases, each printing one JSON line (any failure exits non-zero):
    sum) leaf by leaf within max |card - cpu| <= 1e-4 · max |cpu|.  A
    third run on the card with its dq zeroed must fail that velocity
    check.
+8. ``mnist``   — the MNIST MLP (784→100 tanh, 100→10 softmax, lr 0.03,
+   momentum 0.9, decay 0.0005, f32) trained through the eager workflow
+   (``samples.mnist.create_workflow(max_epochs=3)``, minibatch 100) on
+   the synthetic stand-in: the GEMM kernel counts (set to 0 just before
+   ``run()``, read just after) must be exactly 300 matmul, 120 gd_dx,
+   240 gd_dw and 240 gd_db; every n_err finite and the last validation
+   error below the first.  Epochs/s, samples/s, the median train
+   minibatch wall time, host→device bytes per minibatch and peak memory;
+   then one epoch (``max_epochs=2``) under ``torch.profiler``: device
+   time by kernel group, busy share, the largest idle gaps.
+9. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
+   on the card (kernels) and on the CPU (plain versions): per-epoch
+   per-class n_err and confusion matrices equal, the weights, biases
+   and momenta leaf by leaf within max |card − cpu| <= 1e-4 · max |cpu|;
+   a third card run with gd_dx planted to return zeros must fail it.
+
+The ``kernels`` phase also holds the GEMM kernel (``matmul``: every
+activation × bias on/off) and the fused GD trio (every activation ×
+both storage layouts × need_err_input × has_bias) against
+``_matmul_ref`` / ``_gd_ref`` at 37×70×50, the MNIST shapes and 4096³,
+every element within 1e-5 + 1e-5·|plain| (4096³: 1e-4 + 1e-4·|plain|,
+a 4096-long f32 sum in another order), checks bit-equal relaunches,
+reports three planted faults (the last K tile dropped from matmul, dx
+launched after dw, the last batch tile dropped from dw) and times each
+kernel at the MNIST shapes and 4096³ beside its f32 bound, the plain
+version and one PyTorch call (``addmm``, ``mm``, ``sum``).  These
+times are device times of back-to-back calls (queued behind a spin
+kernel, one CUDA-event pair around them, per call): at the MNIST
+shapes a CUDA-event pair around one call times the host wrapper, which
+is kept as ``wrapper_ms``.
 
 Then it prints the per-kernel JSON line (launches on the main paths,
-serve and train, max abs error, kernel / plain / library times,
+serve, train and mnist, max abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -101,6 +131,23 @@ TRAIN_LOSS_RTOL = 1e-6
 TRAIN_PARAM_TOL = 1e-5
 TRAIN_VELOCITY_RTOL = 1e-4
 H100_BF16_FLOPS = 989e12
+# GEMM / fused GD against their plain versions, element by element within
+# atol + rtol·|plain|: f32 on both sides with TF32 off, one product summed
+# in another order (1/B multiplied in the kernels, divided in _gd_ref);
+# at 4096^3 a 4096-long f32 sum in another order than cuBLAS's
+GEMM_TOL = (1e-5, 1e-5)
+GEMM_BIG_TOL = (1e-4, 1e-4)
+GEMM_BIG = 4096
+GEMM_ACTIVATIONS = (None, "tanh", "sigmoid", "relu", "strict_relu")
+GEMM_TILE_K = 16                  # BK of csrc/gemm.cu
+GD_HP = (0.03, 0.03, 0.0005, 0.0005, 0.9, 0.9)   # MNIST's <- parameters
+MNIST_EPOCHS = 3
+MNIST_PARITY_EPOCHS = 2
+MNIST_PARAM_RTOL = 1e-4
+# the JAX package's schedule for max_epochs=3: 3 validation passes of 10
+# minibatches and 2 train passes of 60, two layers; only the softmax
+# layer's GD computes err_input
+MNIST_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240, "gd_db": 240}
 
 
 class PhaseFailed(Exception):
@@ -140,7 +187,59 @@ def time_ms(fn, reps=20, warm=3, flush=None):
     return statistics.median(times)
 
 
+#: spin-kernel clock rate assumed when sizing the spin (the H100's
+#: highest boost clock; a slower clock only spins longer)
+SPIN_CYCLES_PER_S = 2.0e9
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call of ``fn`` in ms: ``reps`` calls queued
+    behind a spinning kernel (``torch.cuda._sleep``) run back to back
+    once it ends, and one CUDA-event pair around them is divided by
+    ``reps``.  Unlike an event pair around one call, this leaves out the
+    host's launch time, which at the MNIST shapes is longer than the
+    kernel.  The spin must outlast the host's queueing of the calls;
+    it is lengthened until it does."""
+    fn()
+    gpu_sync()
+    tic = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - tic
+    gpu_sync()
+    cycles = int(2 * host_s * SPIN_CYCLES_PER_S) + 100000
+    for _ in range(4):
+        spin = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        tic = time.perf_counter()
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_ms = (time.perf_counter() - tic) * 1e3
+        end.synchronize()
+        if queued_ms < spin.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise PhaseFailed("kernels: the host queued %d calls more slowly "
+                      "than the spin lasted" % reps)
+
+
+#: csrc/gemm.cu's kernels by (demangled) name: one GEMM body templated
+#: on its epilogue, and the db kernel
+_GEMM_GROUPS = (("veles_gemm_kernel<0>", "veles_matmul"),
+                ("veles_gemm_kernel<1>", "veles_gd_dx"),
+                ("veles_gemm_kernel<2>", "veles_gd_dw"),
+                ("veles_gd_db_kernel", "veles_gd_db"))
+
+
 def _kernel_group(name):
+    for tag, group in _GEMM_GROUPS:
+        if tag in name:
+            return group
     for group in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if group + "_kernel" in name:
             return group
@@ -169,7 +268,7 @@ def profile_window(fn):
         fn()
         gpu_sync()
         wall_us = (time.perf_counter() - tic) * 1e6
-    groups, names = {}, {}
+    groups, names, spans = {}, {}, []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -177,12 +276,21 @@ def profile_window(fn):
         group = _kernel_group(ev.name)
         groups[group] = groups.get(group, 0.0) + us
         names[ev.name] = names.get(ev.name, 0.0) + us
+        spans.append((ev.time_range.start, ev.time_range.end))
     busy = sum(groups.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
+    # idle stretches of the device between one kernel's end and the next
+    # one's start: where the host held the card back
+    spans.sort()
+    gaps = sorted((b[0] - a[1] for a, b in zip(spans, spans[1:])
+                   if b[0] > a[1]), reverse=True)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "busy_share": busy / wall_us if busy else None,
             "device_ms_by_group": {g: t / 1e3 for g, t in groups.items()},
-            "top_kernels_ms": [[n[:200], t / 1e3] for n, t in top]}
+            "top_kernels_ms": [[n[:200], t / 1e3] for n, t in top],
+            "device_kernels": len(spans),
+            "top_host_gaps_ms": [g / 1e3 for g in gaps[:5]],
+            "host_gaps_ms_total": sum(gaps) / 1e3}
 
 
 def make_l2_flush(device):
@@ -389,6 +497,267 @@ def _bwd_timed(rng, device):
     return rows, report, ok
 
 
+def _within(got, want, tol):
+    """Max abs error, median |plain| and the count of elements outside
+    ``atol + rtol·|plain|`` of one output against its plain version."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    outside = int((diff > tol[0] + tol[1] * want.abs()).sum())
+    return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "median_abs_plain": float(want.abs().median())
+            if want.numel() else 0.0,
+            "outside_tol": outside}
+
+
+def _gemm_operands(rng, device, m, k, n, w_transposed=False):
+    """a (m, k), w (k, n) (a transposed view of (n, k) storage when
+    asked), bias (n,); w scaled by 1/sqrt(k), so outputs are O(1)."""
+    a = _rand(rng, (m, k), torch.float32, device)
+    w = _rand(rng, (n, k) if w_transposed else (k, n), torch.float32,
+              device) / numpy.sqrt(k)
+    bias = _rand(rng, (n,), torch.float32, device)
+    return a, (w.t() if w_transposed else w), bias
+
+
+def _gd_operands(rng, device, batch, f, n, transposed, scaled):
+    """(x, y, eo, w, b, vw, vb) of one GD step; at the large shape x is
+    scaled by 1/sqrt(batch) and w by 1/sqrt(n), so dW and err_input are
+    O(1)."""
+    x = _rand(rng, (batch, f), torch.float32, device)
+    if scaled:
+        x = x / numpy.sqrt(batch)
+    y = torch.tanh(_rand(rng, (batch, n), torch.float32, device))
+    eo = _rand(rng, (batch, n), torch.float32, device)
+    w = _rand(rng, (n, f) if transposed else (f, n), torch.float32,
+              device) / numpy.sqrt(n if scaled else f)
+    b = _rand(rng, (n,), torch.float32, device)
+    vw = _rand(rng, tuple(w.shape), torch.float32, device) * 0.01
+    vb = _rand(rng, (n,), torch.float32, device) * 0.01
+    return x, y, eo, w, b, vw, vb
+
+
+def _gemm_cases(rng, device):
+    """Every activation × bias on/off for matmul, and activation ×
+    layout × need_err_input × has_bias for the GD trio, at the ragged,
+    MNIST and 4096^3 shapes; each output element within its tolerance."""
+    from veles_tpu_torch.ops import gemm
+    cases = []
+    shapes = ((37, 70, 50), (100, 784, 100), (100, 100, 10),
+              (GEMM_BIG, GEMM_BIG, GEMM_BIG))
+    for m, k, n in shapes:
+        big = m == GEMM_BIG
+        tol = GEMM_BIG_TOL if big else GEMM_TOL
+        for activation in GEMM_ACTIVATIONS:
+            for with_bias in (True, False):
+                a, w, bias = _gemm_operands(rng, device, m, k, n,
+                                            w_transposed=not with_bias)
+                bias = bias if with_bias else None
+                report = _within(gemm.matmul(a, w, bias, activation),
+                                 gemm._matmul_ref(a, w, bias, activation),
+                                 tol)
+                cases.append(dict(report, kernel="matmul",
+                                  shape=[m, k, n], activation=activation,
+                                  bias=with_bias,
+                                  w_transposed=not with_bias,
+                                  tol=list(tol),
+                                  ok=report["outside_tol"] == 0))
+        for activation in GEMM_ACTIVATIONS:
+            for transposed in (False, True):
+                for need_err_input in (True, False):
+                    for has_bias in (True, False):
+                        args = _gd_operands(rng, device, m, k, n,
+                                            transposed, big)
+                        flags = dict(activation=activation,
+                                     need_err_input=need_err_input,
+                                     has_bias=has_bias,
+                                     transposed=transposed)
+                        want = gemm._gd_ref(*args, *GD_HP, **flags)
+                        got = gemm.gd_fused(*args, *GD_HP, **flags)
+                        errors = {
+                            name: _within(g, w_, tol) for name, g, w_ in
+                            zip(("w", "b", "vw", "vb", "err_input"), got,
+                                want) if w_ is not None
+                            and (has_bias or name not in ("b", "vb"))}
+                        cases.append({
+                            "kernel": "gd_dx+gd_dw+gd_db",
+                            "shape": [m, k, n], **flags,
+                            "errors": errors, "tol": list(tol),
+                            "max_abs_err": max(e["max_abs_err"]
+                                               for e in errors.values()),
+                            "ok": all(e["outside_tol"] == 0
+                                      for e in errors.values())})
+    gpu_sync()
+    return cases
+
+
+def _gemm_repeatable(rng, device):
+    """Two launches of each kernel give the same bits."""
+    from veles_tpu_torch.ops import gemm
+    a, w, bias = _gemm_operands(rng, device, 100, 784, 100)
+    same = torch.equal(gemm.matmul(a, w, bias, "tanh"),
+                       gemm.matmul(a, w, bias, "tanh"))
+    args = _gd_operands(rng, device, 100, 784, 100, False, False)
+    runs = []
+    for _ in range(2):
+        params = [t.clone() for t in args[3:]]
+        runs.append(gemm.gd_fused(*args[:3], *params, *GD_HP,
+                                  activation="tanh"))
+    gpu_sync()
+    return same and all(torch.equal(p, q) for p, q in zip(*runs))
+
+
+def _gemm_planted_faults(rng, device):
+    """Faults planted in the kernels' inputs at the MNIST shapes, each of
+    which the tolerance must report: the last K tile dropped from
+    matmul, dx launched after dw, the last batch tile dropped from dw."""
+    from veles_tpu_torch.ops import gemm
+    faults = {}
+    a, w, bias = _gemm_operands(rng, device, 100, 784, 100)
+    cut = (784 - 1) // GEMM_TILE_K * GEMM_TILE_K
+    faults["last_k_tile_dropped_from_matmul"] = _within(
+        gemm.matmul(a[:, :cut], w[:cut], bias, "tanh"),
+        gemm._matmul_ref(a, w, bias, "tanh"), GEMM_TOL)
+    x, y, eo, w, b, vw, vb = _gd_operands(rng, device, 100, 100, 10, False,
+                                          False)
+    want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *GD_HP)
+    gemm._gd_dw_cuda(x, eo, y, w, vw, 1.0 / 100, GD_HP[0], GD_HP[2],
+                     GD_HP[4], None, False)
+    faults["dx_launched_after_dw"] = _within(
+        gemm._gd_dx_cuda(eo, y, w, None, False), want[4], GEMM_TOL)
+    x, y, eo, w, b, vw, vb = _gd_operands(rng, device, 100, 784, 100, False,
+                                          False)
+    want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *GD_HP, activation="tanh")
+    cut = (100 - 1) // GEMM_TILE_K * GEMM_TILE_K
+    gemm._gd_dw_cuda(x[:cut], eo[:cut], y[:cut], w, vw, 1.0 / 100,
+                     GD_HP[0], GD_HP[2], GD_HP[4], "tanh", False)
+    faults["last_batch_tile_dropped_from_dw"] = _within(vw, want[2],
+                                                        GEMM_TOL)
+    gpu_sync()
+    return {name: dict(report, caught=report["outside_tol"] > 0)
+            for name, report in faults.items()}
+
+
+def _gemm_timed(rng, device):
+    """Each kernel's device time per call (:func:`device_ms`) at the
+    MNIST shapes and at 4096^3, beside its bound and the device times of
+    the plain version and of one PyTorch call; ``wrapper_ms`` is the
+    median of 20 CUDA-event timings around one wrapper call.  The first
+    shape listed for each kernel is one the main path gives it (layer 1;
+    layer 2 for gd_dx)."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops import gemm
+    rows = {}
+
+    def timed(kernel, plain, library, big):
+        reps = 5 if big else 20
+        return (device_ms(kernel, reps), time_ms(kernel),
+                device_ms(plain, reps), device_ms(library, reps))
+
+    def row(name, shape, times, nbytes, ops, err, plain_of, library_of):
+        ms, wrapper_ms, plain_ms, library_ms = times
+        bound, by = bound_seconds(nbytes, ops, "float32")
+        entry = rows.setdefault(name, {
+            "name": name, "route": "cuda",
+            "source": "veles_tpu_torch/csrc/gemm.cu",
+            "replaces": "veles_tpu/ops/gemm.py:%d" % {
+                "matmul": 56, "gd_dx": 322, "gd_dw": 263,
+                "gd_db": 298}[name],
+            "dtype": "float32", "plain_of": plain_of,
+            "library_of": library_of, "by_shape": []})
+        entry["by_shape"].append({
+            "shape": shape, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound * 1e3,
+            "bound_by": by, "max_abs_err": err})
+
+    # matmul: layer 1 (tanh), layer 2 (linear), 4096^3 (linear)
+    for (m, k, n), act in (((100, 784, 100), "tanh"),
+                           ((100, 100, 10), None),
+                           ((GEMM_BIG,) * 3, None)):
+        a, w, bias = _gemm_operands(rng, device, m, k, n)
+        err = _within(gemm.matmul(a, w, bias, act),
+                      gemm._matmul_ref(a, w, bias, act),
+                      GEMM_TOL)["max_abs_err"]
+        row("matmul", [m, k, n],
+            timed(lambda: gemm._matmul_cuda(a, w, bias, act),
+                  lambda: gemm._matmul_ref(a, w, bias, act),
+                  lambda: torch.addmm(bias, a, w), m == GEMM_BIG),
+            4 * (m * k + k * n + n + m * n), 2 * m * n * k, err,
+            "_matmul_ref", "torch.addmm (no activation)")
+    # GD: layer 1 (tanh, no err_input), layer 2 (the softmax layer, the
+    # only one that launches gd_dx), 4096^3
+    for (batch, f, n), act in (((100, 784, 100), "tanh"),
+                               ((100, 100, 10), None),
+                               ((GEMM_BIG,) * 3, "tanh")):
+        big = batch == GEMM_BIG
+        x, y, eo, w, b, vw, vb = _gd_operands(rng, device, batch, f, n,
+                                              False, big)
+        want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *GD_HP, activation=act)
+
+        def plain():
+            gemm._gd_ref(x, y, eo, w, b, vw, vb, *GD_HP, activation=act)
+        delta = eo * gemm._derivative(y, act)
+        tol = GEMM_BIG_TOL if big else GEMM_TOL
+        dx_err = _within(gemm._gd_dx_cuda(eo, y, w, act, False), want[4],
+                         tol)["max_abs_err"]
+        if (batch, f, n) != (100, 784, 100):
+            row("gd_dx", [batch, n, f],
+                timed(lambda: gemm._gd_dx_cuda(eo, y, w, act, False),
+                      plain, lambda: torch.mm(delta, w.t()), big),
+                4 * (2 * batch * n + n * f + batch * f),
+                2 * batch * n * f, dx_err, "_gd_ref, the whole step",
+                "torch.mm(delta, W^T)")
+        w1, vw1, b1, vb1 = w.clone(), vw.clone(), b.clone(), vb.clone()
+        gemm._gd_dw_cuda(x, eo, y, w1, vw1, 1.0 / batch, GD_HP[0],
+                         GD_HP[2], GD_HP[4], act, False)
+        gemm._gd_db_cuda(eo, y, b1, vb1, 1.0 / batch, GD_HP[1], GD_HP[3],
+                         GD_HP[5], act)
+        dw_err = max(_within(w1, want[0], tol)["max_abs_err"],
+                     _within(vw1, want[2], tol)["max_abs_err"])
+        db_err = max(_within(b1, want[1], tol)["max_abs_err"],
+                     _within(vb1, want[3], tol)["max_abs_err"])
+        # timed on copies, so the repeated in-place updates stay in range
+        row("gd_dw", [batch, f, n],
+            timed(lambda: gemm._gd_dw_cuda(
+                x, eo, y, w1, vw1, 1.0 / batch, GD_HP[0], GD_HP[2],
+                GD_HP[4], act, False),
+                plain, lambda: torch.mm(x.t(), delta), big),
+            4 * (batch * f + 2 * batch * n + 2 * f * n) + 4 * 2 * f * n,
+            2 * batch * f * n, dw_err, "_gd_ref, the whole step",
+            "torch.mm(x^T, delta)")
+        row("gd_db", [batch, n],
+            timed(lambda: gemm._gd_db_cuda(
+                eo, y, b1, vb1, 1.0 / batch, GD_HP[1], GD_HP[3], GD_HP[5],
+                act),
+                plain, lambda: delta.sum(0), big),
+            4 * (2 * batch * n + 2 * n) + 4 * 2 * n, 2 * batch * n, db_err,
+            "_gd_ref, the whole step", "delta.sum(0)")
+    gpu_sync()
+    timed = []
+    for name in ("matmul", "gd_dx", "gd_dw", "gd_db"):
+        entry = rows[name]
+        main = entry["by_shape"][0]       # the main path's shape
+        entry.update({key: main[key] for key in (
+            "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")})
+        timed.append(entry)
+    return timed
+
+
+def _gemm_kernels(device):
+    """The ``kernels`` phase's GEMM half: cases, repeatability, planted
+    faults and timings of the four kernels of csrc/gemm.cu."""
+    rng = numpy.random.default_rng(SEED + 3)
+    cases = _gemm_cases(rng, device)
+    repeatable = _gemm_repeatable(rng, device)
+    planted = _gemm_planted_faults(rng, device)
+    timed = _gemm_timed(rng, device)
+    ok = (all(c["ok"] for c in cases) and repeatable
+          and all(f["caught"] for f in planted.values()))
+    return {"cases": cases, "bit_equal_relaunch": repeatable,
+            "planted_faults": planted}, timed, ok
+
+
 def phase_kernels(device):
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops.attention import (_decode_cuda, _decode_ref,
@@ -484,12 +853,18 @@ def phase_kernels(device):
         "bound_ms": d_bound * 1e3, "bound_by": d_by,
     }
     bwd_rows, bwd_report, bwd_ok = _bwd_timed(rng, device)
-    timed = [flash] + bwd_rows + [decode]
-    ok = not bad and ferr <= BF16_TOL and derr <= BF16_TOL and bwd_ok
+    gemm_report, gemm_rows, gemm_ok = _gemm_kernels(device)
+    timed = [flash] + bwd_rows + [decode] + gemm_rows
+    ok = (not bad and ferr <= BF16_TOL and derr <= BF16_TOL and bwd_ok
+          and gemm_ok)
     emit({"phase": "kernels", "ok": ok, "cases": cases,
-          "timed_backward_errors": bwd_report, "timed": timed})
-    check(ok, "kernels", "kernel disagrees with its plain version: %s"
-          % (bad or timed))
+          "timed_backward_errors": bwd_report, "gemm": gemm_report,
+          "timed": timed})
+    gemm_bad = [c for c in gemm_report["cases"] if not c["ok"]]
+    check(ok, "kernels", "kernel disagrees with its plain version, or a "
+          "planted fault went unseen: %s" % (
+              bad or gemm_bad[:4] or gemm_report["planted_faults"]
+              if not gemm_ok else timed))
     return timed
 
 
@@ -784,6 +1159,182 @@ def phase_train_parity(device):
           % (loss_rel, param_err, worst, v_errs[worst], planted, launches))
 
 
+def _record_closes(wf, out):
+    """Wrap the Decision's class close: (epoch, class, n_err, samples,
+    confusion matrix so far) at every close."""
+    dec, ev = wf.decision, wf.evaluator
+    close = dec._close_class
+
+    def recording(cls, check_epoch_end):
+        ev.confusion_matrix.map_read()
+        out.append({"epoch": int(dec.epoch_number), "cls": cls,
+                    "n_err": float(dec.epoch_n_err[cls]),
+                    "samples": int(dec.epoch_samples[cls]),
+                    "confusion": numpy.array(ev.confusion_matrix.mem)})
+        return close(cls, check_epoch_end)
+    dec._close_class = recording
+
+
+def phase_mnist(device, smi):
+    """The MNIST MLP's training through the eager workflow at full width
+    (784→100→10, minibatch 100) on the synthetic stand-in: launch counts,
+    rates, per-minibatch transfers, then one epoch under the profiler."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.memory import Watcher
+    from veles_tpu_torch.ops import gemm
+    from veles_tpu_torch.samples import mnist
+
+    prng.seed_all(SEED)
+    tic = time.perf_counter()
+    wf = mnist.create_workflow(device=device, max_epochs=MNIST_EPOCHS)
+    gpu_sync()
+    setup_s = time.perf_counter() - tic
+    starts = []
+    loader_run = wf.loader.run
+
+    def timed_run():
+        tic_, moved = time.perf_counter(), Watcher.transfers()
+        loader_run()
+        starts.append((tic_, moved, int(wf.loader.minibatch_class)))
+    wf.loader.run = timed_run
+
+    torch.cuda.reset_peak_memory_stats(device)
+    in_use = torch.cuda.memory_allocated(device)
+    before = Watcher.transfers()
+    gemm.reset_launches()
+    tic = time.perf_counter()
+    wf.run()
+    gpu_sync()
+    end = time.perf_counter()
+    launches = dict(gemm.launches)
+    after = Watcher.transfers()
+    elapsed = end - tic
+    peak = torch.cuda.max_memory_allocated(device)
+    closes = wf.decision.history
+
+    served = wf.loader.samples_served
+    bounds = [t for t, _x, _c in starts] + [end]
+    train_ms = [(bounds[i + 1] - bounds[i]) * 1e3
+                for i, (_t, _x, cls) in enumerate(starts) if cls == 2]
+    h2d_steps = [starts[i + 1][1]["h2d_bytes"] - starts[i][1]["h2d_bytes"]
+                 for i in range(len(starts) - 1)]
+    errors = [c["n_err"] for c in closes]
+    valid = [c["n_err_pt"] for c in closes if c["cls"] == "validation"]
+    finite = all(numpy.isfinite(e) for e in errors)
+    learned = len(valid) == MNIST_EPOCHS and valid[-1] < valid[0]
+    counted = launches == MNIST_LAUNCHES
+    info = {
+        "phase": "mnist", "nvidia_smi": smi,
+        "layers": "784-100 all2all_tanh, 100-10 softmax", "minibatch": 100,
+        "max_epochs": MNIST_EPOCHS, "data": "synthetic stand-in, seed 1234",
+        "seed": SEED, "setup_s": setup_s, "elapsed_s": elapsed,
+        "minibatches": len(starts), "samples": served,
+        "epochs_per_s": served / wf.loader.total_samples / elapsed,
+        "samples_per_s": served / elapsed,
+        "train_minibatch_median_ms": statistics.median(train_ms),
+        "h2d_bytes": after["h2d_bytes"] - before["h2d_bytes"],
+        "h2d_bytes_per_minibatch_median": statistics.median(h2d_steps),
+        "h2d_bytes_per_minibatch_mean":
+            (after["h2d_bytes"] - before["h2d_bytes"]) / len(starts),
+        "d2h_transfers": after["d2h_transfers"] - before["d2h_transfers"],
+        "max_memory_allocated": peak,
+        "max_memory_above_start": peak - in_use,
+        "hbm_ledger": Watcher.hbm_ledger(),
+        "class_closes": closes,
+        "results": wf.gather_results(),
+        "launches": launches, "launches_expected": MNIST_LAUNCHES,
+        "ok": finite and learned and counted,
+    }
+    profiled = mnist.create_workflow(device=device, max_epochs=2)
+    gemm.reset_launches()
+    info["breakdown"] = profile_window(profiled.run)
+    info["breakdown"]["window"] = ("one epoch: 2 validation passes and 1 "
+                                   "train pass (max_epochs=2)")
+    # device time of one launch on the main path, from the profile
+    by_group = info["breakdown"]["device_ms_by_group"]
+    info["breakdown"]["device_us_per_launch"] = {
+        name: by_group.get("veles_" + name, 0.0) * 1e3 / count
+        for name, count in gemm.launches.items() if count}
+    emit(info)
+    check(finite, "mnist", "an n_err is not finite: %s" % errors)
+    check(learned, "mnist", "validation error did not fall: %s" % valid)
+    check(counted, "mnist", "the kernels were not on the main path as "
+          "expected: %s, want %s" % (launches, MNIST_LAUNCHES))
+    return launches
+
+
+def phase_mnist_parity(device):
+    """The same seed on the card (kernels) and on the CPU (plain
+    versions), one train pass: per-epoch per-class n_err and confusion
+    matrices equal, parameters and momenta leaf by leaf within
+    max |card − cpu| <= 1e-4 · max |cpu|; a card run with gd_dx planted
+    to return zeros must fail that check."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import gemm
+    from veles_tpu_torch.samples import mnist
+
+    def run(dev):
+        prng.seed_all(SEED)
+        wf = mnist.create_workflow(device=dev, max_epochs=MNIST_PARITY_EPOCHS)
+        closes = []
+        _record_closes(wf, closes)
+        wf.run()
+        return closes, wf.params_to_numpy()
+
+    def param_errors(got):
+        return {name: float(numpy.abs(got[name] - ref).max()
+                            / max(float(numpy.abs(ref).max()), 1e-30))
+                for name, ref in cpu_params.items()}
+
+    gemm.reset_launches()
+    gpu_closes, gpu_params = run(device)
+    launches = dict(gemm.launches)
+    cpu_closes, cpu_params = run(torch.device("cpu"))
+
+    dx = gemm._gd_dx_cuda
+
+    def zero_dx(*args, **kwargs):
+        return torch.zeros_like(dx(*args, **kwargs))
+
+    gemm._gd_dx_cuda = zero_dx
+    try:
+        _c, planted_params = run(device)
+    finally:
+        gemm._gd_dx_cuda = dx
+    planted = max(param_errors(planted_params).values())
+
+    counts_equal = ([(c["epoch"], c["cls"], c["n_err"], c["samples"])
+                     for c in gpu_closes]
+                    == [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+                        for c in cpu_closes])
+    confusion_equal = len(gpu_closes) == len(cpu_closes) and all(
+        numpy.array_equal(g["confusion"], c["confusion"])
+        for g, c in zip(gpu_closes, cpu_closes))
+    errs = param_errors(gpu_params)
+    worst = max(errs, key=errs.get)
+    ok = (counts_equal and confusion_equal
+          and errs[worst] <= MNIST_PARAM_RTOL
+          and planted > MNIST_PARAM_RTOL
+          and all(launches[k] > 0 for k in MNIST_LAUNCHES))
+    emit({"phase": "mnist_parity", "ok": ok,
+          "max_epochs": MNIST_PARITY_EPOCHS, "dtype": "float32",
+          "tf32": False,
+          "gpu_n_err": [c["n_err"] for c in gpu_closes],
+          "cpu_n_err": [c["n_err"] for c in cpu_closes],
+          "n_err_equal": counts_equal, "confusion_equal": confusion_equal,
+          "param_rel_err_by_leaf": errs, "param_worst_leaf": [worst,
+                                                              errs[worst]],
+          "param_rtol": MNIST_PARAM_RTOL,
+          "planted_zero_dx_param_rel_err": planted,
+          "planted_zero_dx_caught": planted > MNIST_PARAM_RTOL,
+          "gpu_launches": launches})
+    check(ok, "mnist_parity", "card and CPU training disagree, or the "
+          "planted zero dx went unseen (n_err equal %s, confusion equal "
+          "%s, params %s %.3g, planted %.3g, launches %s)"
+          % (counts_equal, confusion_equal, worst, errs[worst], planted,
+             launches))
+
+
 def _named_leaves(tree, prefix=""):
     for key, leaf in tree.items():
         if isinstance(leaf, dict):
@@ -813,18 +1364,22 @@ def main():
         phase_parity(device)
         paths["train"] = phase_train(device, info["nvidia_smi"])
         phase_train_parity(device)
+        paths["mnist"] = phase_mnist(device, info["nvidia_smi"])
+        phase_mnist_parity(device)
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1
     for entry in timed:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in paths.items()
-                                     if counts[entry["name"]]}
+                                     if counts.get(entry["name"])}
         entry["launches"] = sum(entry["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{key: entry[key] for key in keys}
+    # the GEMM kernels also carry wrapper_ms, the time of one wrapper call
+    emit({"kernels": [{key: entry[key] for key in keys + ("wrapper_ms",)
+                       if key in keys or key in entry}
                       for entry in timed]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

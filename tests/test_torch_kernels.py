@@ -273,3 +273,137 @@ def test_kernel_wrappers_raise_on_the_card(cuda_device, launches):
     with pytest.raises(ValueError, match="int32"):
         port.decode_attention(q[:, :1], k, k, lens.long())
     assert not any(launches.values())
+
+
+# -- the GEMM and fused-GD kernels (csrc/gemm.cu) ----------------------------
+#
+# Every element within 1e-5 + 1e-5·|plain|: f32 on both sides (TF32 off),
+# one product summed in another order (and 1/B multiplied in the kernels,
+# divided in _gd_ref).
+
+GEMM_TOL = (1e-5, 1e-5)
+GEMM_ACTIVATIONS = [None, "tanh", "sigmoid", "relu", "strict_relu"]
+GEMM_SHAPES = [(37, 70, 50), (100, 784, 100), (100, 100, 10)]
+_GD_HP = (0.03, 0.03, 0.0005, 0.0005, 0.9, 0.9)
+
+
+@pytest.fixture
+def gemm_launches():
+    from veles_tpu_torch.ops import gemm
+    gemm.reset_launches()
+    yield gemm.launches
+    gemm.reset_launches()
+
+
+def _gd_operands(device, batch, f, n, transposed, seed):
+    rng = numpy.random.default_rng(seed)
+    x, eo, y = (rng.standard_normal(s).astype(numpy.float32)
+                for s in ((batch, f), (batch, n), (batch, n)))
+    w = (rng.standard_normal((n, f) if transposed else (f, n))
+         / numpy.sqrt(f)).astype(numpy.float32)
+    b = rng.standard_normal(n).astype(numpy.float32)
+    vw = (rng.standard_normal(w.shape) * 0.01).astype(numpy.float32)
+    vb = (rng.standard_normal(n) * 0.01).astype(numpy.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, y, eo, w, b, vw, vb)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", GEMM_ACTIVATIONS)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("w_transposed", [False, True])
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_matmul_kernel_matches_plain_version_on_card(
+        cuda_device, gemm_launches, m, k, n, w_transposed, with_bias,
+        activation):
+    from veles_tpu_torch.ops import gemm
+    rng = numpy.random.default_rng(31)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        numpy.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.standard_normal((n, k) if w_transposed
+                                              else (k, n)) / numpy.sqrt(k))
+                         .astype(numpy.float32)).to(cuda_device)
+    w = w.t() if w_transposed else w
+    bias = torch.from_numpy(rng.standard_normal(n).astype(
+        numpy.float32)).to(cuda_device) if with_bias else None
+    got = gemm.matmul(a, w, bias, activation)
+    want = gemm._matmul_ref(a, w, bias, activation)
+    torch.cuda.synchronize()
+    assert gemm_launches["matmul"] == 1
+    torch.testing.assert_close(got, want, atol=GEMM_TOL[0],
+                               rtol=GEMM_TOL[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", GEMM_ACTIVATIONS)
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("need_err_input", [True, False])
+@pytest.mark.parametrize("has_bias", [True, False])
+@pytest.mark.parametrize("batch,f,n", GEMM_SHAPES)
+def test_gd_kernels_match_plain_version_on_card(
+        cuda_device, gemm_launches, batch, f, n, has_bias, need_err_input,
+        transposed, activation):
+    from veles_tpu_torch.ops import gemm
+    args = _gd_operands(cuda_device, batch, f, n, transposed, seed=32)
+    flags = dict(activation=activation, need_err_input=need_err_input,
+                 has_bias=has_bias, transposed=transposed)
+    want = gemm._gd_ref(*args, *_GD_HP, **flags)
+    got = gemm.gd_fused(*args, *_GD_HP, **flags)
+    torch.cuda.synchronize()
+    assert gemm_launches == {"matmul": 0, "gd_dx": int(need_err_input),
+                             "gd_dw": 1, "gd_db": int(has_bias)}
+    for name, g, w_ in zip(("w", "b", "vw", "vb", "err_input"), got, want):
+        if w_ is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, w_, atol=GEMM_TOL[0],
+                                   rtol=GEMM_TOL[1], msg=name)
+
+
+@pytest.mark.cuda
+def test_gemm_kernels_are_deterministic_on_card(cuda_device, gemm_launches):
+    """No atomics, no split-K: two launches give the same bits."""
+    from veles_tpu_torch.ops import gemm
+    x, y, eo, w, b, vw, vb = _gd_operands(cuda_device, 100, 784, 100, False,
+                                          seed=33)
+    assert torch.equal(gemm.matmul(x, w, b, "tanh"),
+                       gemm.matmul(x, w, b, "tanh"))
+    runs = []
+    for _ in range(2):
+        params = [t.clone() for t in (w, b, vw, vb)]
+        out = gemm.gd_fused(x, y, eo, params[0], params[1], params[2],
+                            params[3], *_GD_HP, activation="tanh")
+        runs.append(list(out))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_gd_dx_must_run_before_dw_on_card(cuda_device, gemm_launches):
+    """dw updates W in place, so err_input is right only when dx is
+    launched first: the reverse order must fail the tolerance."""
+    from veles_tpu_torch.ops import gemm
+    x, y, eo, w, b, vw, vb = _gd_operands(cuda_device, 100, 100, 10, False,
+                                          seed=34)
+    want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *_GD_HP)[4]
+    first = gemm._gd_dx_cuda(eo, y, w, None, False)
+    gemm._gd_dw_cuda(x, eo, y, w, vw, 1.0 / 100, 0.03, 0.0005, 0.9, None,
+                     False)
+    late = gemm._gd_dx_cuda(eo, y, w, None, False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first, want, atol=GEMM_TOL[0],
+                               rtol=GEMM_TOL[1])
+    assert not torch.allclose(late, want, atol=GEMM_TOL[0],
+                              rtol=GEMM_TOL[1])
+
+
+@pytest.mark.cuda
+def test_gemm_wrappers_raise_on_the_card(cuda_device, gemm_launches):
+    from veles_tpu_torch.ops import gemm
+    a = torch.zeros((4, 6), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        gemm.matmul(a, a.t(), None, None)
+    a = torch.zeros((4, 6), device=cuda_device)
+    with pytest.raises(ValueError, match="matmul: a is"):
+        gemm.matmul(a, a, None, None)
+    assert not any(gemm_launches.values())

@@ -46,10 +46,12 @@ def test_importing_the_port_loads_no_jax_and_no_veles_tpu():
         "import veles_tpu_torch, veles_tpu_torch.gen\n"
         "import veles_tpu_torch.ops.attention\n"
         "import veles_tpu_torch.gen.__main__\n"
+        "import veles_tpu_torch.samples.mnist\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     assert proc.returncode == 0, proc.stderr
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "veles_tpu_torch.gen.engine" in loaded
+    assert "veles_tpu_torch.ops.gemm" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -82,6 +84,17 @@ def test_cpu_session_never_loads_the_kernel_builder():
     assert proc.returncode == 0, proc.stderr + proc.stdout
 
 
+def test_cpu_mnist_never_loads_the_kernel_builder():
+    proc = _run(
+        "import sys\n"
+        "from veles_tpu_torch.ops import gemm\n"
+        "from veles_tpu_torch.samples import mnist\n"
+        "assert mnist.main(['--device', 'cpu', '--max-epochs', '2']) == 0\n"
+        "assert not any(gemm.launches.values())\n"
+        "assert 'veles_tpu_torch.ops.build' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
 # -- cuda by default, raising without a card --------------------------------
 
 @pytest.fixture
@@ -101,6 +114,14 @@ def test_entry_points_raise_without_a_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         GenerativeEngine(model, max_slots=1)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mnist_workflow_raises_without_a_card(no_cuda):
+    from veles_tpu_torch.samples import mnist
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mnist.create_workflow()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mnist.main(["--max-epochs", "1"])
 
 
 def test_gen_cli_raises_without_a_card():
@@ -124,16 +145,31 @@ def test_wrappers_on_cpu_tensors_launch_nothing(no_cuda):
     assert not any(attention.launches.values())
 
 
+def test_gemm_wrappers_on_cpu_tensors_launch_nothing(no_cuda):
+    from veles_tpu_torch.ops import gemm
+    gemm.reset_launches()
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn(6, 5, generator=gen), torch.randn(5, 4, generator=gen)
+    gemm.matmul(x, w, torch.zeros(4), "tanh")
+    y = torch.randn(6, 4, generator=gen)
+    gemm.gd_fused(x, y, y, w.clone(), torch.zeros(4), torch.zeros(5, 4),
+                  torch.zeros(4), 0.1, 0.1, 0.0, 0.0, 0.9, 0.9, "tanh")
+    assert not any(gemm.launches.values())
+
+
 # -- the kernel sources and their builder -----------------------------------
 
 @pytest.mark.parametrize("name,replaces", [
     ("flash_fwd", "_attn_kernel"), ("flash_bwd", "_bwd_dq_kernel"),
-    ("flash_bwd", "_bwd_dkv_kernel"), ("decode_attn", "_decode_kernel")])
+    ("flash_bwd", "_bwd_dkv_kernel"), ("decode_attn", "_decode_kernel"),
+    ("gemm", "_matmul_kernel"), ("gemm", "_gd_dx_kernel"),
+    ("gemm", "_gd_dw_kernel"), ("gemm", "_gd_db_kernel")])
 def test_kernel_source_names_the_tpu_kernel_it_replaces(name, replaces):
     from veles_tpu_torch.ops import build
     assert name in build.SOURCES
     head = (build.CSRC_DIR / (name + ".cu")).read_text().split("#include")[0]
-    assert "veles_tpu/ops/attention.py" in head and replaces in head
+    tpu_module = "gemm" if name == "gemm" else "attention"
+    assert "veles_tpu/ops/%s.py" % tpu_module in head and replaces in head
     assert "What bounds it on the H100" in head
 
 

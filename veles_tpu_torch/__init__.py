@@ -9,8 +9,11 @@ by hand for the H100 (``csrc/``), with its plain PyTorch version beside
 it (``ops/``).
 
 Ported so far: generative serving of the transformer LM with a
-contiguous KV cache (:mod:`veles_tpu_torch.gen`), and single-card
-training of the same LM (:mod:`veles_tpu_torch.samples.transformer`).
+contiguous KV cache (:mod:`veles_tpu_torch.gen`), single-card training
+of the same LM (:mod:`veles_tpu_torch.samples.transformer`), and
+training of the MNIST MLP through the unit/workflow core
+(:mod:`veles_tpu_torch.samples.mnist` over :mod:`.units`,
+:mod:`.workflow`, :mod:`.memory`, :mod:`.loader` and :mod:`.znicz`).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """

@@ -1,22 +1,42 @@
-"""Device-memory accounting: the port's own copy of the ``Watcher``
-ledger of :mod:`veles_tpu.memory` (``track`` / ``untrack`` by category,
-current and peak bytes, and the ``generation`` guard that makes
-releases taken before a ``reset()`` no-ops).  The generative engine
-holds its KV cache under ``kv`` and its parameters under ``params``.
-``Vector`` and the transfer counters wait for the MNIST training slice
-(ROADMAP.md, 'Slices still to port', item 1)."""
+"""Device memory: the ``Watcher`` ledger and ``Vector``, the buffer that
+bridges host numpy and a device tensor.
+
+The port's counterpart of :mod:`veles_tpu.memory`.  ``Watcher`` tracks
+resident device bytes by category (``track`` / ``untrack``, current and
+peak, and the ``generation`` guard that makes releases taken before a
+``reset()`` no-ops) and counts host→device and device→host transfer
+bytes.  The generative engine holds its KV cache under ``kv`` and its
+parameters under ``params``; the workflow's Vectors hold theirs under
+their own ``category``.
+
+``Vector`` keeps ``mem`` (a host numpy array) and ``devmem`` (a
+``torch.Tensor`` on the attached device) and knows which side holds the
+freshest data: ``map_read`` brings the device copy to the host,
+``map_write`` declares a host edit (the next ``devmem`` re-uploads),
+``reset`` installs new host contents.  A unit that updates ``devmem``
+in place (the GD kernels do) publishes it by assigning it back
+(``vec.devmem = tensor``).  The prefetch ``StagingRing`` is not ported
+(ROADMAP item 1b).
+"""
 
 import threading
 
+import numpy
+
 
 class Watcher(object):
-    """Process-wide ledger of resident device bytes by category."""
+    """Process-wide ledger of resident device bytes by category and of
+    transfer traffic in both directions."""
 
     lock = threading.Lock()
     bytes_in_use = 0
     peak_bytes = 0
     #: bumped by reset(); holds taken before it were already wiped
     generation = 0
+    h2d_bytes = 0
+    h2d_transfers = 0
+    d2h_bytes = 0
+    d2h_transfers = 0
     bytes_by_category = {}
     peak_by_category = {}
 
@@ -40,6 +60,27 @@ class Watcher(object):
                 cls.bytes_by_category.get(cat, 0) - nbytes
 
     @classmethod
+    def track_h2d(cls, nbytes):
+        with cls.lock:
+            cls.h2d_bytes += int(nbytes)
+            cls.h2d_transfers += 1
+
+    @classmethod
+    def track_d2h(cls, nbytes):
+        with cls.lock:
+            cls.d2h_bytes += int(nbytes)
+            cls.d2h_transfers += 1
+
+    @classmethod
+    def transfers(cls):
+        """``{h2d_bytes, h2d_transfers, d2h_bytes, d2h_transfers}``."""
+        with cls.lock:
+            return {"h2d_bytes": cls.h2d_bytes,
+                    "h2d_transfers": cls.h2d_transfers,
+                    "d2h_bytes": cls.d2h_bytes,
+                    "d2h_transfers": cls.d2h_transfers}
+
+    @classmethod
     def hbm_ledger(cls):
         """JSON-able snapshot: totals and per-category current/peak."""
         with cls.lock:
@@ -57,5 +98,153 @@ class Watcher(object):
             cls.generation += 1
             cls.bytes_in_use = 0
             cls.peak_bytes = 0
+            cls.h2d_bytes = 0
+            cls.h2d_transfers = 0
+            cls.d2h_bytes = 0
+            cls.d2h_transfers = 0
             cls.bytes_by_category = {}
             cls.peak_by_category = {}
+
+
+def _nbytes(tensor):
+    return tensor.numel() * tensor.element_size()
+
+
+class Vector(object):
+    """Host-mirrored device buffer.  ``category`` tags its device bytes
+    in the Watcher (``params`` / ``dataset`` / ``staging``; ``None``
+    groups under ``other``)."""
+
+    def __init__(self, data=None, category=None):
+        self._mem = None
+        self._device = None
+        self._devmem = None
+        self._host_fresh = True
+        self._dev_fresh = False
+        self._tracked = 0
+        self._tracked_gen = 0
+        self.category = category
+        if data is not None:
+            self.reset(data)
+
+    # -- basic properties ---------------------------------------------------
+    def reset(self, data):
+        """Install new host contents; the device copy is dropped."""
+        self._mem = numpy.ascontiguousarray(data) \
+            if data is not None else None
+        self._drop_devmem()
+        self._host_fresh = True
+        self._dev_fresh = False
+        return self
+
+    def _ref(self):
+        return self._devmem if self._devmem is not None else self._mem
+
+    @property
+    def shape(self):
+        ref = self._ref()
+        return tuple(ref.shape) if ref is not None else None
+
+    @property
+    def dtype(self):
+        if self._mem is not None:
+            return self._mem.dtype
+        if self._devmem is not None:
+            return numpy.dtype(str(self._devmem.dtype).replace("torch.",
+                                                               ""))
+        return None
+
+    def __bool__(self):
+        return self.shape is not None
+
+    def __len__(self):
+        shape = self.shape
+        return shape[0] if shape else 0
+
+    def __repr__(self):
+        where = "dev" if not self._host_fresh else "host"
+        return "<Vector %s %s @%s>" % (self.shape, self.dtype, where)
+
+    # -- device attachment --------------------------------------------------
+    def initialize(self, device):
+        """Attach to a device; the upload happens at the first ``devmem``
+        access."""
+        self._device = device
+        return self
+
+    # -- the coherence protocol --------------------------------------------
+    @property
+    def mem(self):
+        """Host view, brought up to date first.  Call :meth:`map_write`
+        before editing it in place."""
+        self.map_read()
+        return self._mem
+
+    @mem.setter
+    def mem(self, value):
+        self.reset(value)
+
+    @property
+    def devmem(self):
+        """The device tensor; uploads the host copy if it is fresher."""
+        if self._devmem is None or not self._dev_fresh:
+            if self._mem is None:
+                raise ValueError("empty Vector has no device memory")
+            if self._device is None:
+                raise ValueError("Vector is attached to no device: "
+                                 "initialize(device) it first")
+            self._set_devmem(self._device.put(self._mem))
+            Watcher.track_h2d(self._mem.nbytes)
+            self._dev_fresh = True
+        return self._devmem
+
+    @devmem.setter
+    def devmem(self, value):
+        """Publish a device tensor (new, or the old one updated in
+        place): the host copy is stale from here on."""
+        if value is not self._devmem:
+            self._set_devmem(value)
+        self._dev_fresh = True
+        self._host_fresh = False
+
+    def map_read(self):
+        """Bring the host copy up to date (a device→host copy when the
+        device holds newer data)."""
+        if not self._host_fresh and self._devmem is not None:
+            self._mem = self._device.get(self._devmem)
+            self._host_fresh = True
+            Watcher.track_d2h(self._mem.nbytes)
+        return self
+
+    def map_write(self):
+        """Declare an in-place edit of the host copy: the next
+        ``devmem`` access re-uploads."""
+        self.map_read()
+        if self._mem is not None and not self._mem.flags.writeable:
+            self._mem = numpy.array(self._mem)
+        self._dev_fresh = False
+        return self
+
+    # -- helpers ------------------------------------------------------------
+    def _set_devmem(self, value):
+        self._untrack()
+        self._devmem = value
+        self._tracked = _nbytes(value)
+        if self._tracked:
+            Watcher.track(self._tracked, self.category)
+            self._tracked_gen = Watcher.generation
+
+    def _untrack(self):
+        if self._tracked and self._tracked_gen == Watcher.generation:
+            Watcher.untrack(self._tracked, self.category)
+        self._tracked = 0
+
+    def _drop_devmem(self):
+        self._untrack()
+        self._devmem = None
+
+    def __del__(self):
+        try:
+            self._drop_devmem()
+        except Exception:  # pragma: no cover - interpreter shutdown
+            pass

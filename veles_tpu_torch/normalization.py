@@ -1,0 +1,97 @@
+"""Feature normalizers: the port's counterpart of
+:mod:`veles_tpu.normalization`, trimmed to the registry,
+``normalizer_factory`` and the stateless normalizers (``none``,
+``scale``, ``linear``).  The ones that fit statistics on the TRAIN set
+(``range_linear``, ``mean_disp``, ``exp``, ``pointwise``,
+``external_mean``, ``internal_mean``) are not ported (ROADMAP item 7).
+
+The contract: ``analyze(data)`` streams over the TRAIN set once;
+``normalize(data)`` edits a host batch in place.  ``denormalize`` and
+``as_affine`` (the affine form a u8-resident dataset needs) wait for
+ROADMAP item 1b.
+"""
+
+import numpy
+
+#: the JAX package's normalizers the port does not have yet
+_NOT_PORTED = ("range_linear", "mean_disp", "exp", "pointwise",
+               "external_mean", "internal_mean")
+
+
+class NormalizerRegistry(type):
+    """MAPPING name → class."""
+
+    normalizers = {}
+
+    def __init__(cls, name, bases, namespace):
+        super(NormalizerRegistry, cls).__init__(name, bases, namespace)
+        mapping = namespace.get("MAPPING")
+        if mapping:
+            NormalizerRegistry.normalizers[mapping] = cls
+
+
+def normalizer_factory(name, **kwargs):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            "normalization type %r is not ported yet (ROADMAP item 7)"
+            % name)
+    try:
+        klass = NormalizerRegistry.normalizers[name]
+    except KeyError:
+        raise ValueError(
+            "unknown normalization type %r (have: %s)" %
+            (name, ", ".join(sorted(NormalizerRegistry.normalizers))))
+    return klass(**kwargs)
+
+
+class NormalizerBase(object, metaclass=NormalizerRegistry):
+    MAPPING = None
+
+    def __init__(self, **kwargs):
+        pass
+
+    def analyze(self, data):
+        """Stateless normalizers fit nothing."""
+
+    def normalize(self, data):
+        raise NotImplementedError
+
+
+class NoneNormalizer(NormalizerBase):
+    """Identity."""
+
+    MAPPING = "none"
+
+    def normalize(self, data):
+        pass
+
+
+class ScaleNormalizer(NormalizerBase):
+    """Fixed multiplicative scale (``1/255`` for byte images)."""
+
+    MAPPING = "scale"
+
+    def __init__(self, scale=1.0 / 255.0, **kwargs):
+        self.scale = float(scale)
+        super(ScaleNormalizer, self).__init__(**kwargs)
+
+    def normalize(self, data):
+        data *= self.scale
+
+
+class LinearNormalizer(NormalizerBase):
+    """Each sample scaled into ``interval`` by its own min and max."""
+
+    MAPPING = "linear"
+
+    def __init__(self, interval=(-1, 1), **kwargs):
+        self.interval = tuple(interval)
+        super(LinearNormalizer, self).__init__(**kwargs)
+
+    def normalize(self, data):
+        lo, hi = self.interval
+        flat = data.reshape(len(data), -1)
+        dmin = flat.min(axis=1, keepdims=True)
+        dmax = flat.max(axis=1, keepdims=True)
+        span = numpy.where(dmax > dmin, dmax - dmin, 1)
+        flat[...] = (flat - dmin) / span * (hi - lo) + lo

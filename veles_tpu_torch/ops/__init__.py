@@ -10,7 +10,12 @@ version.
   CUDA C++ in ``csrc/flash_bwd.cu``;
 - ``veles_tpu/ops/attention.py`` ``_decode_kernel`` (decode / verify) →
   :func:`veles_tpu_torch.ops.attention.decode_attention`, CUDA C++ in
-  ``csrc/decode_attn.cu``.
+  ``csrc/decode_attn.cu``;
+- ``veles_tpu/ops/gemm.py`` ``_matmul_kernel`` →
+  :func:`veles_tpu_torch.ops.gemm.matmul`, and ``_gd_dx_kernel``,
+  ``_gd_dw_kernel``, ``_gd_db_kernel`` →
+  :func:`veles_tpu_torch.ops.gemm.gd_fused`, CUDA C++ in
+  ``csrc/gemm.cu``.
 
 The CUDA sources are compiled by :mod:`veles_tpu_torch.ops.build` at
 first use on the card; nothing here builds or imports a compiler when

@@ -1,0 +1,318 @@
+"""GEMM with a fused bias + activation epilogue, and the fused
+gradient-descent trio, each beside its plain PyTorch version.
+
+Counterpart of :mod:`veles_tpu.ops.gemm`:
+
+- :func:`matmul` is ``act(a @ w + bias)``: the kernel
+  (``csrc/gemm.cu`` ``veles_matmul``, replacing ``_matmul_kernel``) on
+  CUDA tensors, :func:`_matmul_ref` (the counterpart of ``_matmul_jnp``)
+  on CPU tensors.
+- :func:`gd_fused` is one GD step of a fully-connected layer: δ =
+  err_output ⊙ act′(y) (the derivative taken from the output, Znicz
+  style), ``err_input = δ·Wᵀ`` (``δ·W`` in transposed storage) from the
+  weights BEFORE the update, ``dW = xᵀδ/B``, ``v′ = m·v − lr·(dW +
+  λW)``, ``W′ = W + v′``, and the same for the bias.  On CUDA tensors
+  it launches ``veles_gd_dx``, ``veles_gd_dw`` and ``veles_gd_db``
+  (replacing ``_gd_dx_kernel``, ``_gd_dw_kernel``, ``_gd_db_kernel``)
+  in that order on one stream: dx must read W before dw updates it in
+  place.  On CPU tensors it takes :func:`_gd_ref` (the counterpart of
+  ``znicz.gd._gd_math``).  Either way W, vW, b and vb are updated IN
+  PLACE (the JAX package donates them) and returned with err_input.
+
+The kernels take f32 only (bf16 arrives with the fused trainer) and
+compute full f32 at every ``precision_level``; the hyperparameters are
+plain kernel arguments.  The kernels scale by ``1/B`` as a multiply,
+as the Pallas kernels do; ``_gd_ref`` divides, as ``_gd_math`` does,
+so the two differ in the last bit.  There is no fallback from a CUDA
+tensor to the plain version.  ``launches`` counts kernel launches by
+kernel name; only a launch adds to it.
+"""
+
+import ctypes
+
+import torch
+
+from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
+
+#: activation name -> the kernels' code; ``None`` and "linear" are one
+ACTIVATION_CODES = {None: 0, "linear": 0, "tanh": 1, "sigmoid": 2,
+                    "relu": 3, "strict_relu": 4}
+
+#: kernel name -> launches since the last reset_launches()
+launches = {"matmul": 0, "gd_dx": 0, "gd_dw": 0, "gd_db": 0}
+
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+#: kernel name -> (C symbol, ctypes argtypes), all in csrc/gemm.cu
+_ARGTYPES = {
+    "matmul": ("veles_matmul", [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _P]),
+    "gd_dx": ("veles_gd_dx", [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I, _P]),
+    "gd_dw": ("veles_gd_dw", [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I] * 2
+              + [_F] * 4 + [_P]),
+    "gd_db": ("veles_gd_db", [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P]),
+}
+_entries = {}
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
+
+
+def _entry(name):
+    """The C entry of kernel ``name``, building ``csrc/gemm.cu`` at first
+    use."""
+    fn = _entries.get(name)
+    if fn is None:
+        from veles_tpu_torch.ops import build
+        symbol, argtypes = _ARGTYPES[name]
+        fn = getattr(build.library("gemm"), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+# -- plain versions (the CPU path and the kernels' references) -------------
+
+def _activate(x, activation):
+    """The activations of ``_ACTIVATIONS`` (Znicz scaled tanh, smooth
+    relu clamped at 30)."""
+    if activation in (None, "linear"):
+        return x
+    if activation == "tanh":
+        return torch.tanh(x * 0.6666) * 1.7159
+    if activation == "sigmoid":
+        return torch.sigmoid(x)
+    if activation == "relu":
+        return torch.log1p(torch.exp(torch.clamp(x, max=30.0)))
+    if activation == "strict_relu":
+        return torch.clamp(x, min=0.0)
+    raise ValueError("unknown activation %r" % (activation,))
+
+
+def _derivative(y, activation):
+    """act′ from the output y (``_GD_DERIVS``)."""
+    if activation in (None, "linear"):
+        return torch.ones_like(y)
+    if activation == "tanh":
+        return y * y * (-0.388484177) + 1.14381894
+    if activation == "sigmoid":
+        return y * (1.0 - y)
+    if activation == "relu":
+        return 1.0 - torch.exp(-y)
+    if activation == "strict_relu":
+        return (y > 0).to(y.dtype)
+    raise ValueError("unknown activation %r" % (activation,))
+
+
+def _matmul_ref(a, w, bias=None, activation=None):
+    """Mirror of ``_matmul_jnp``: an f32 product, then the bias, then
+    the activation."""
+    out = torch.mm(a.float(), w.float())
+    if bias is not None:
+        out = out + bias.float()
+    return _activate(out, activation).to(a.dtype)
+
+
+def _gd_ref(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
+            decay_bias, moment, moment_bias, activation=None,
+            need_err_input=True, has_bias=True, transposed=False):
+    """Mirror of ``znicz.gd._gd_math``: returns new ``(w, b, vw, vb,
+    err_input)`` (``b``/``vb`` as given when not ``has_bias``,
+    ``err_input`` None when not needed); the inputs are not touched."""
+    batch = x.shape[0]
+    delta = err_output.reshape(batch, -1).float() * _derivative(
+        y.reshape(batch, -1).float(), activation)
+    x2 = x.reshape(batch, -1).float()
+    grad_w = torch.mm(x2.t(), delta) / batch
+    if need_err_input:
+        err_input = torch.mm(delta, w if transposed else w.t())
+    else:
+        err_input = None
+    if transposed:
+        grad_w = grad_w.t()
+    vw = moment * vw - lr * (grad_w + decay * w)
+    w = w + vw
+    if has_bias:
+        grad_b = delta.sum(dim=0) / batch
+        vb = moment_bias * vb - lr_bias * (grad_b + decay_bias * b)
+        b = b + vb
+    return w, b, vw, vb, err_input
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+def _check_f32(name, *tensors):
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError("%s kernel takes float32 only (bf16 arrives "
+                            "with the fused trainer), got %s"
+                            % (name, t.dtype))
+        if t.device != tensors[0].device:
+            raise ValueError("%s operands on different devices" % name)
+
+
+def _check_2d(name, **tensors):
+    for label, t in tensors.items():
+        if t.dim() != 2:
+            raise ValueError("%s expects a 2-D %s, got shape %s"
+                             % (name, label, tuple(t.shape)))
+
+
+def _check_contiguous(name, **tensors):
+    for label, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError("%s needs a contiguous %s" % (name, label))
+
+
+def _matmul_cuda(a, w, bias, activation):
+    """The ``veles_matmul`` kernel: a (M, K) and w (K, N) read through
+    their strides (a transposed view needs no copy), bias (N,)
+    contiguous or None."""
+    _check_2d("matmul", a=a, w=w)
+    _check_f32("matmul", a, w, *(() if bias is None else (bias,)))
+    m, k = a.shape
+    k2, n = w.shape
+    if k != k2:
+        raise ValueError("matmul: a is %s, w is %s" % (tuple(a.shape),
+                                                       tuple(w.shape)))
+    if bias is not None and (tuple(bias.shape) != (n,)
+                             or not bias.is_contiguous()):
+        raise ValueError("matmul needs a contiguous bias of shape (%d,)"
+                         % n)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    status = _entry("matmul")(
+        a.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        m, n, k, a.stride(0), a.stride(1), w.stride(0), w.stride(1),
+        ACTIVATION_CODES[activation], stream_handle(a.device))
+    check_status("matmul", status)
+    launches["matmul"] += 1
+    return out
+
+
+def matmul(a, w, bias=None, activation=None):
+    """``activation(a @ w + bias)`` in f32: the kernel on CUDA tensors,
+    :func:`_matmul_ref` on CPU tensors.  a: (M, K); w: (K, N), any
+    strides; bias: (N,) or None."""
+    if activation not in ACTIVATION_CODES:
+        raise ValueError("unknown activation %r" % (activation,))
+    tensors = (a, w) if bias is None else (a, w, bias)
+    if on_gpu(*tensors):
+        return _matmul_cuda(a, w, bias, activation)
+    return _matmul_ref(a, w, bias, activation)
+
+
+def _gd_check(name, eo, y, w, transposed, x=None):
+    _check_2d(name, err_output=eo, y=y, w=w)
+    _check_f32(name, eo, y, w, *(() if x is None else (x,)))
+    _check_contiguous(name, err_output=eo, y=y)
+    if eo.shape != y.shape:
+        raise ValueError("%s: err_output %s and y %s differ"
+                         % (name, tuple(eo.shape), tuple(y.shape)))
+    n = eo.shape[1]
+    f = w.shape[1] if transposed else w.shape[0]
+    if (w.shape[0] if transposed else w.shape[1]) != n:
+        raise ValueError("%s: weights %s do not match %d neurons%s"
+                         % (name, tuple(w.shape), n,
+                            " (transposed)" if transposed else ""))
+    if x is not None:
+        _check_2d(name, x=x)
+        if tuple(x.shape) != (eo.shape[0], f):
+            raise ValueError("%s: x is %s, want %s" % (
+                name, tuple(x.shape), (eo.shape[0], f)))
+    return f
+
+
+def _gd_dx_cuda(eo, y, w, activation, transposed):
+    """``veles_gd_dx``: err_input (B, F) = δ·Wᵀ (δ·W when transposed),
+    δ rebuilt per tile from eo and y; w read through its strides."""
+    f = _gd_check("gd_dx", eo, y, w, transposed)
+    batch, n = eo.shape
+    out = torch.empty((batch, f), dtype=torch.float32, device=eo.device)
+    # w as the (n, f) operand of δ·(.)
+    s_nf = (w.stride(0), w.stride(1)) if transposed \
+        else (w.stride(1), w.stride(0))
+    status = _entry("gd_dx")(
+        eo.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
+        batch, n, f, *s_nf, ACTIVATION_CODES[activation],
+        stream_handle(eo.device))
+    check_status("gd_dx", status)
+    launches["gd_dx"] += 1
+    return out
+
+
+def _gd_dw_cuda(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
+                transposed):
+    """``veles_gd_dw``: dW = xᵀδ (δᵀx in (N, F) storage) times
+    ``inv_batch``, then the momentum update of the contiguous ``w`` and
+    ``vw`` in place."""
+    _gd_check("gd_dw", eo, y, w, transposed, x=x)
+    _check_contiguous("gd_dw", w=w, vw=vw)
+    if vw.shape != w.shape or vw.dtype != w.dtype or vw.device != w.device:
+        raise ValueError("gd_dw: vw %s does not match w %s"
+                         % (tuple(vw.shape), tuple(w.shape)))
+    batch, n = eo.shape
+    status = _entry("gd_dw")(
+        x.data_ptr(), eo.data_ptr(), y.data_ptr(), w.data_ptr(),
+        vw.data_ptr(), batch, x.shape[1], n, x.stride(0), x.stride(1),
+        int(bool(transposed)), ACTIVATION_CODES[activation],
+        float(inv_batch), float(lr), float(decay), float(moment),
+        stream_handle(eo.device))
+    check_status("gd_dw", status)
+    launches["gd_dw"] += 1
+
+
+def _gd_db_cuda(eo, y, b, vb, inv_batch, lr, decay, moment, activation):
+    """``veles_gd_db``: db = Σδ times ``inv_batch``, then the momentum
+    update of ``b`` and ``vb`` (N,) in place."""
+    _check_f32("gd_db", eo, y, b, vb)
+    _check_contiguous("gd_db", err_output=eo, y=y, b=b, vb=vb)
+    n = eo.shape[1]
+    if eo.shape != y.shape or b.shape != (n,) or vb.shape != (n,):
+        raise ValueError("gd_db: err_output %s, y %s, b %s, vb %s" % (
+            tuple(eo.shape), tuple(y.shape), tuple(b.shape),
+            tuple(vb.shape)))
+    status = _entry("gd_db")(
+        eo.data_ptr(), y.data_ptr(), b.data_ptr(), vb.data_ptr(),
+        eo.shape[0], n, ACTIVATION_CODES[activation], float(inv_batch),
+        float(lr), float(decay), float(moment), stream_handle(eo.device))
+    check_status("gd_db", status)
+    launches["gd_db"] += 1
+
+
+def gd_fused(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
+             decay_bias, moment, moment_bias, activation=None,
+             need_err_input=True, has_bias=True, transposed=False):
+    """One fused GD step of a fully-connected layer (the counterpart of
+    ``gd_fused_pallas``, same arguments and returns ``(w, b, vw, vb,
+    err_input)``).  ``w``/``vw`` are (F, N), or (N, F) when
+    ``transposed``; ``x``, ``y`` and ``err_output`` have the batch
+    first.  W, vW (and b, vb when ``has_bias``) are updated in place."""
+    if activation not in ACTIVATION_CODES:
+        raise ValueError("unknown activation %r" % (activation,))
+    batch = x.shape[0]
+    x2 = x.reshape(batch, -1)
+    eo = err_output.reshape(batch, -1)
+    y2 = y.reshape(batch, -1)
+    params = (w, vw, b, vb) if has_bias else (w, vw)
+    if not on_gpu(x2, eo, y2, *params):
+        new = _gd_ref(x2, y2, eo, w, b, vw, vb, lr, lr_bias, decay,
+                      decay_bias, moment, moment_bias, activation,
+                      need_err_input, has_bias, transposed)
+        for buf, value in zip((w, b, vw, vb), new[:4]):
+            if buf is not value:
+                buf.copy_(value)
+        return w, b, vw, vb, new[4]
+    eo, y2 = eo.contiguous(), y2.contiguous()
+    inv_batch = 1.0 / batch
+    # dx FIRST: it reads W before dw updates it in place (one stream)
+    err_input = _gd_dx_cuda(eo, y2, w, activation, transposed) \
+        if need_err_input else None
+    _gd_dw_cuda(x2, eo, y2, w, vw, inv_batch, lr, decay, moment,
+                activation, transposed)
+    if has_bias:
+        _gd_db_cuda(eo, y2, b, vb, inv_batch, lr_bias, decay_bias,
+                    moment_bias, activation)
+    return w, b, vw, vb, err_input

@@ -3,7 +3,9 @@
 Categories recorded by the port: ``gen`` (prefill and decode dispatch
 spans of :mod:`veles_tpu_torch.gen.engine`; enqueue, admit and evict
 instants and the per-request spans of
-:mod:`veles_tpu_torch.gen.scheduler`).  The knob is
+:mod:`veles_tpu_torch.gen.scheduler`), ``unit`` (each unit's ``run()``
+in a workflow, named after the unit) and ``loader`` (minibatch
+serving).  The knob is
 ``root.common.engine.trace = off | on``.
 """
 

@@ -1,0 +1,177 @@
+"""Workflow: the container unit executing a graph of units.
+
+The port's counterpart of :mod:`veles_tpu.workflow`: the unit container
+with ``start_point``/``end_point``, self-registration of units
+(``add_ref``), initialization in dependency order with partial-init
+requeue, the run loop (an iterative FIFO work queue drained on the
+calling thread, deterministic), run-time statistics and result
+gathering.
+
+Not ported (ROADMAP item 7): the master/slave job protocol, checkpoint
+capture and restore, ``checksum`` and ``package_export``; segment
+stitching and epoch-scan windows wait for item 1b.
+"""
+
+import collections
+import inspect
+
+from veles_tpu_torch import trace
+from veles_tpu_torch.plumbing import EndPoint, StartPoint
+from veles_tpu_torch.units import MissingDemandedAttributes, Unit
+
+
+class Workflow(Unit):
+    """Container unit holding and executing a unit graph."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, **kwargs):
+        self._units = []
+        super(Workflow, self).__init__(workflow, **kwargs)
+        self._launcher = None
+        if kwargs.get("launcher") is not None:
+            self.launcher = kwargs["launcher"]
+        self.stopped = False
+        self.start_point = StartPoint(self)
+        self.end_point = EndPoint(self)
+
+    def init_unpickled(self):
+        super(Workflow, self).init_unpickled()
+        self._queue_ = collections.deque()
+
+    # -- membership ---------------------------------------------------------
+    def add_ref(self, unit):
+        """Units register themselves on construction."""
+        if unit is self:
+            raise ValueError("a workflow cannot contain itself")
+        if unit not in self._units:
+            self._units.append(unit)
+        unit.workflow = self
+
+    @property
+    def launcher(self):
+        return self._launcher
+
+    @launcher.setter
+    def launcher(self, value):
+        old = self._launcher
+        if old is not None and old is not value:
+            old.del_ref(self)
+        self._launcher = value
+        if value is not None:
+            value.add_ref(self)
+
+    # -- initialization ----------------------------------------------------
+    def units_in_dependency_order(self):
+        """BFS from ``start_point`` over control edges; units it does not
+        reach are appended afterwards in insertion order."""
+        seen = []
+        seen_set = set()
+        frontier = collections.deque([self.start_point])
+        while frontier:
+            unit = frontier.popleft()
+            if id(unit) in seen_set:
+                continue
+            seen_set.add(id(unit))
+            seen.append(unit)
+            for dst in unit.links_to:
+                if id(dst) not in seen_set:
+                    frontier.append(dst)
+        unreachable = [u for u in self._units if id(u) not in seen_set]
+        flagged = [u.name for u in unreachable if u is not self.end_point]
+        if flagged:
+            self.warning("%d unit(s) unreachable from start_point, appended "
+                         "in insertion order: %s", len(flagged),
+                         ", ".join(flagged))
+        return seen + unreachable
+
+    def initialize(self, device=None, **kwargs):
+        """Initialize every unit in dependency order; a unit whose
+        demanded attributes are not yet produced is retried after its
+        producers (only :class:`MissingDemandedAttributes` requeues, at
+        most once per unit in the queue)."""
+        trace.configure()
+        self.device = device
+        pending = collections.deque(self.units_in_dependency_order())
+        retries = {}
+        limit = len(pending)
+        while pending:
+            unit = pending.popleft()
+            try:
+                if device is not None and _accepts_kwarg(unit.initialize,
+                                                         "device"):
+                    unit.initialize(device=device, **kwargs)
+                else:
+                    unit.initialize(**kwargs)
+            except MissingDemandedAttributes:
+                retries[id(unit)] = retries.get(id(unit), 0) + 1
+                if retries[id(unit)] > limit:
+                    raise
+                pending.append(unit)
+        self._is_initialized = True
+        self.stopped = False
+        return self
+
+    # -- execution ----------------------------------------------------------
+    def schedule(self, unit, src):
+        """Enqueue a gate check of ``unit`` triggered by ``src``."""
+        self._queue_.append((unit, src))
+
+    def run(self):
+        """Run the graph until the end point fires (or a unit fails)."""
+        if not self._is_initialized:
+            raise RuntimeError("initialize() the workflow before run()")
+        self.stopped = False
+        self.schedule(self.start_point, None)
+        self._drain()
+
+    def _drain(self):
+        """Pop and run until the queue is empty or the workflow stops."""
+        queue = self._queue_
+        while queue and not self.stopped:
+            unit, src = queue.popleft()
+            unit._check_gate_and_run(src)
+        queue.clear()
+
+    def on_workflow_finished(self):
+        self.stopped = True
+        if self._launcher is not None:
+            self._launcher.on_workflow_finished()
+
+    def on_unit_failed(self, unit):
+        self.warning("unit %r failed; stopping workflow", unit)
+        self.stopped = True
+
+    # -- results / stats ----------------------------------------------------
+    def gather_results(self):
+        """Merge ``get_metric_values()`` of every unit that has one."""
+        results = {}
+        for unit in self._units:
+            get = getattr(unit, "get_metric_values", None)
+            if callable(get):
+                results.update(get())
+        return results
+
+    def get_unit_run_time_stats(self):
+        """(unit, seconds) sorted by descending run time."""
+        stats = [(unit, unit.run_time) for unit in self._units]
+        stats.sort(key=lambda pair: -pair[1])
+        return stats
+
+    def print_stats(self, top=10):
+        total = sum(t for _, t in self.get_unit_run_time_stats()) or 1e-12
+        self.info("unit run-time stats (top %d):", top)
+        for unit, seconds in self.get_unit_run_time_stats()[:top]:
+            self.info("  %6.2f%%  %8.3f s  %s",
+                      100.0 * seconds / total, seconds, unit.name)
+
+
+def _accepts_kwarg(fn, name):
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    if name in sig.parameters:
+        return True
+    return any(p.kind is inspect.Parameter.VAR_KEYWORD
+               for p in sig.parameters.values())

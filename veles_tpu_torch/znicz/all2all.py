@@ -1,0 +1,127 @@
+"""Fully-connected forward layers: the port's counterpart of
+:mod:`veles_tpu.znicz.all2all`.
+
+``output = activation(input·W + b)`` with Znicz's activations (scaled
+tanh ``1.7159·tanh(0.6666x)``, smooth relu ``log(1+eˣ)``).  ``cuda_run``
+is one call of :func:`veles_tpu_torch.ops.gemm.matmul`: the bias and the
+activation ride the GEMM kernel's epilogue, and the input stays on the
+device between layers.  ``All2AllSoftmax`` runs the GEMM without an
+activation and leaves the softmax and ``max_idx`` to plain torch, as
+the JAX package leaves them to XLA.  The int8 ``qgemm`` branch is not ported (ROADMAP item 3).
+"""
+
+import numpy
+import torch
+
+from veles_tpu_torch.ops import gemm
+from veles_tpu_torch.memory import Vector
+from veles_tpu_torch.znicz.nn_units import ForwardBase
+
+
+class All2All(ForwardBase):
+    """Linear fully-connected layer (activation = identity)."""
+
+    MAPPING = "all2all"
+    ACTIVATION = None
+
+    def __init__(self, workflow, **kwargs):
+        super(All2All, self).__init__(workflow, **kwargs)
+        shape = kwargs.get("output_sample_shape", ())
+        if isinstance(shape, int):
+            shape = (shape,)
+        self.output_sample_shape = tuple(shape)
+
+    @property
+    def neurons_number(self):
+        return int(numpy.prod(self.output_sample_shape))
+
+    def initialize(self, device=None, **kwargs):
+        super(All2All, self).initialize(device=device, **kwargs)
+        n_input = int(numpy.prod(self.input.shape[1:]))
+        n_neurons = self.neurons_number
+        if not self.weights:
+            shape = (n_neurons, n_input) if self.weights_transposed \
+                else (n_input, n_neurons)
+            w = numpy.zeros(shape, dtype=numpy.float32)
+            # the default scale is 1/sqrt of the TRUE fan-in, which is
+            # shape[1] in transposed storage
+            self.fill_array(w, self.weights_filling,
+                            self.weights_stddev
+                            or 1.0 / numpy.sqrt(max(n_input, 1)))
+            self.weights.reset(w)
+        if self.include_bias and not self.bias:
+            b = numpy.zeros((n_neurons,), dtype=numpy.float32)
+            self.fill_array(b, self.bias_filling, self.bias_stddev)
+            self.bias.reset(b)
+        batch = self.input.shape[0]
+        self.output.reset(numpy.zeros(
+            (batch,) + self.output_sample_shape, dtype=numpy.float32))
+        self.init_vectors(self.weights, self.bias, self.output)
+
+    def _gemm(self, activation):
+        """One GEMM kernel call over the device buffers (a transposed
+        storage is read through its strides, not copied)."""
+        x = self.input.devmem
+        x = x.reshape(x.shape[0], -1)
+        w = self.weights.devmem
+        if self.weights_transposed:
+            w = w.t()
+        bias = self.bias.devmem if self.include_bias else None
+        return gemm.matmul(x, w, bias, activation)
+
+    def cuda_run(self):
+        out = self._gemm(self.ACTIVATION)
+        self.output.devmem = out.reshape(
+            (out.shape[0],) + self.output_sample_shape)
+
+
+class All2AllTanh(All2All):
+    """Scaled tanh: 1.7159·tanh(0.6666·x)."""
+
+    MAPPING = "all2all_tanh"
+    ACTIVATION = "tanh"
+    A = 1.7159
+    B = 0.6666
+
+
+class All2AllSigmoid(All2All):
+    MAPPING = "all2all_sigmoid"
+    ACTIVATION = "sigmoid"
+
+
+class All2AllRELU(All2All):
+    """Znicz smooth relu: log(1 + eˣ)."""
+
+    MAPPING = "all2all_relu"
+    ACTIVATION = "relu"
+
+
+class All2AllStrictRELU(All2All):
+    MAPPING = "all2all_strict_relu"
+    MAPPING_ALIASES = ("all2all_str",)
+    ACTIVATION = "strict_relu"
+
+
+class All2AllSoftmax(All2All):
+    """Linear layer + softmax; also exports ``max_idx`` (the argmax per
+    sample) for the evaluator."""
+
+    MAPPING = "softmax"
+    ACTIVATION = None
+
+    def __init__(self, workflow, **kwargs):
+        super(All2AllSoftmax, self).__init__(workflow, **kwargs)
+        self.max_idx = Vector()
+
+    def initialize(self, device=None, **kwargs):
+        super(All2AllSoftmax, self).initialize(device=device, **kwargs)
+        self.max_idx.reset(numpy.zeros(self.output.shape[0],
+                                       dtype=numpy.int32))
+        self.init_vectors(self.max_idx)
+
+    def cuda_run(self):
+        logits = self._gemm(None)
+        m = logits.max(dim=1, keepdim=True).values
+        e = torch.exp(logits - m)
+        self.output.devmem = e / e.sum(dim=1, keepdim=True)
+        self.max_idx.devmem = logits.argmax(dim=1).to(torch.int32)

@@ -1,0 +1,87 @@
+"""Evaluators: the port's counterpart of :mod:`veles_tpu.znicz.evaluator`,
+ported for the softmax loss (``EvaluatorMSE`` waits for ROADMAP item
+1b, with ``FullBatchLoaderMSE``).
+
+``EvaluatorSoftmax`` emits ``err_output`` = δ = (y − onehot(label)) for
+the gradient chain and the minibatch's ``n_err`` (mis-argmax count),
+``loss`` (mean cross-entropy) and confusion matrix.  ``cuda_run`` is
+:func:`_softmax_eval_math` in torch over the full padded buffers: rows
+with label < 0 (the short batch's padding) are masked out, ``n_err`` and
+``loss`` stay device scalars (the Decision fetches them once per class
+end) and the confusion matrix accumulates on the device.
+"""
+
+import numpy
+import torch
+
+from veles_tpu_torch.accelerated_units import AcceleratedUnit
+from veles_tpu_torch.memory import Vector
+
+
+def _softmax_eval_math(out, labels, max_idx, confusion):
+    """Mirror of ``_softmax_eval_math``: ``(err, n_err, loss,
+    confusion)``; ``confusion`` (classes, classes) int64 is updated in
+    place when given."""
+    out32 = out.float()
+    valid = labels >= 0
+    lbl = labels.clamp(min=0).long()
+    onehot = torch.nn.functional.one_hot(lbl, out.shape[1]).float()
+    err = torch.where(valid[:, None], out32 - onehot,
+                      torch.zeros_like(out32))
+    pred = max_idx.long()
+    n_err = ((pred != labels.long()) & valid).sum()
+    probs = out32.gather(1, lbl[:, None])[:, 0]
+    n_valid = valid.sum()
+    loss = torch.where(
+        n_valid > 0,
+        -(torch.log(probs.clamp(min=1e-30)) * valid).sum()
+        / n_valid.clamp(min=1),
+        torch.zeros((), dtype=torch.float32, device=out.device))
+    if confusion is not None:
+        confusion.index_put_((lbl, pred), valid.to(confusion.dtype),
+                             accumulate=True)
+    return err, n_err, loss, confusion
+
+
+class EvaluatorBase(AcceleratedUnit):
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        super(EvaluatorBase, self).__init__(workflow, **kwargs)
+        self.output = None           # linked from the last forward
+        self.err_output = Vector()
+        self.batch_size = None       # linked from loader minibatch_size
+        self.demand("output", "batch_size")
+
+    def initialize(self, device=None, **kwargs):
+        super(EvaluatorBase, self).initialize(device=device, **kwargs)
+        self.err_output.reset(numpy.zeros(self.output.shape,
+                                          dtype=numpy.float32))
+        self.err_output.initialize(self.device)
+
+
+class EvaluatorSoftmax(EvaluatorBase):
+    """Cross-entropy on the softmax output."""
+
+    def __init__(self, workflow, **kwargs):
+        super(EvaluatorSoftmax, self).__init__(workflow, **kwargs)
+        self.labels = None           # linked from loader minibatch_labels
+        self.max_idx = None          # linked from All2AllSoftmax
+        self.confusion_matrix = Vector()
+        self.n_err = 0               # errors in the last minibatch
+        self.loss = 0.0
+        self.demand("labels", "max_idx")
+
+    def initialize(self, device=None, **kwargs):
+        super(EvaluatorSoftmax, self).initialize(device=device, **kwargs)
+        n_classes = self.output.shape[1]
+        self.confusion_matrix.reset(numpy.zeros(
+            (n_classes, n_classes), dtype=numpy.int64))
+        self.confusion_matrix.initialize(self.device)
+
+    def cuda_run(self):
+        err, self.n_err, self.loss, cm = _softmax_eval_math(
+            self.output.devmem, self.labels.devmem, self.max_idx.devmem,
+            self.confusion_matrix.devmem)
+        self.err_output.devmem = err
+        self.confusion_matrix.devmem = cm

@@ -1,0 +1,121 @@
+"""Shared bases for forward and gradient-descent units: the port's
+counterpart of :mod:`veles_tpu.znicz.nn_units`.
+
+``ForwardBase`` consumes ``input``, produces ``output`` and owns the
+``weights``/``bias`` Vectors, filled at initialize from the
+``forward_init`` stream (:mod:`veles_tpu_torch.prng`, so a seed gives
+the JAX package's initial weights).  ``GradientDescentBase`` holds the
+backward hyperparameters and the momenta ``gradient_weights`` /
+``gradient_bias``, with the update rule (docs ``:547-556``)::
+
+    v ← μ·v − α·(g + λ·w);  w ← w + v
+"""
+
+import numpy
+
+from veles_tpu_torch import prng
+from veles_tpu_torch.accelerated_units import AcceleratedUnit
+from veles_tpu_torch.memory import Vector
+
+#: backward options of the JAX package this slice does not port
+_GD_NOT_PORTED = ("l1_vs_l2", "l1_vs_l2_bias", "factor_ortho")
+
+
+class ForwardBase(AcceleratedUnit):
+    """Forward layer base."""
+
+    hide_from_registry = True
+
+    MAPPING = None
+
+    def __init__(self, workflow, **kwargs):
+        super(ForwardBase, self).__init__(workflow, **kwargs)
+        self.input = None
+        self.output = Vector()
+        self.weights = Vector(category="params")
+        self.bias = Vector(category="params")
+        self.include_bias = kwargs.get("include_bias", True)
+        self.weights_filling = kwargs.get("weights_filling", "uniform")
+        self.weights_stddev = kwargs.get("weights_stddev", None)
+        self.bias_filling = kwargs.get("bias_filling", "uniform")
+        self.bias_stddev = kwargs.get("bias_stddev", None)
+        #: storage layout: (neurons, fan-in) when True
+        self.weights_transposed = kwargs.get("weights_transposed", False)
+        self.demand("input")
+
+    @property
+    def forward_prng(self):
+        return prng.get("forward_init")
+
+    def fill_array(self, array, filling, stddev):
+        """Initial fill: ``gaussian``, ``uniform`` or ``constant``."""
+        if stddev is None:
+            fan_in = array.shape[0] if array.ndim > 1 else array.size
+            stddev = 1.0 / numpy.sqrt(max(fan_in, 1))
+        if filling == "gaussian":
+            self.forward_prng.fill_normal(array, stddev=stddev)
+        elif filling == "uniform":
+            self.forward_prng.fill_uniform(array, low=-stddev, high=stddev)
+        elif filling == "constant":
+            array[...] = stddev
+        else:
+            raise ValueError("unknown filling %r" % filling)
+
+
+class GradientDescentBase(AcceleratedUnit):
+    """Backward layer base: consumes ``err_output`` and the forward's
+    ``input``/``output``, produces ``err_input`` and updates the
+    forward's parameters in place."""
+
+    hide_from_registry = True
+
+    MAPPING = None
+
+    def __init__(self, workflow, **kwargs):
+        for key in _GD_NOT_PORTED:
+            if kwargs.get(key):
+                raise NotImplementedError(
+                    "GD option %r is not ported yet (ROADMAP item 7)" % key)
+        super(GradientDescentBase, self).__init__(workflow, **kwargs)
+        self.input = None
+        self.output = None
+        self.err_output = None
+        self.err_input = Vector()
+        self.weights = None
+        self.bias = None
+        self.learning_rate = kwargs.get("learning_rate", 0.01)
+        self.learning_rate_bias = kwargs.get(
+            "learning_rate_bias", kwargs.get("learning_rate", 0.01))
+        self.weights_decay = kwargs.get("weights_decay", 0.0)
+        self.weights_decay_bias = kwargs.get("weights_decay_bias", 0.0)
+        self.gradient_moment = kwargs.get("gradient_moment", 0.0)
+        self.gradient_moment_bias = kwargs.get(
+            "gradient_moment_bias", kwargs.get("gradient_moment", 0.0))
+        self.include_bias = kwargs.get("include_bias", True)
+        #: compute err_input (False for the first layer: saves a GEMM)
+        self.need_err_input = kwargs.get("need_err_input", True)
+        self.forward = None
+        self.gradient_weights = Vector(category="params")
+        self.gradient_bias = Vector(category="params")
+        self.demand("input", "err_output", "weights")
+
+    def setup_from_forward(self, forward):
+        """Wire the data links from the paired forward unit."""
+        self.forward = forward
+        self.link_attrs(forward, "input", "output", "weights")
+        if self.include_bias:
+            self.link_attrs(forward, "bias")
+        return self
+
+    @property
+    def weights_transposed(self):
+        return bool(getattr(self.forward, "weights_transposed", False))
+
+    def initialize(self, device=None, **kwargs):
+        super(GradientDescentBase, self).initialize(device=device, **kwargs)
+        if self.weights and not self.gradient_weights:
+            self.gradient_weights.reset(numpy.zeros_like(self.weights.mem))
+            self.gradient_weights.initialize(self.device)
+        if self.include_bias and self.bias and not self.gradient_bias:
+            self.gradient_bias.reset(numpy.zeros_like(self.bias.mem))
+            self.gradient_bias.initialize(self.device)

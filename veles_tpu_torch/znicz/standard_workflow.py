@@ -1,0 +1,219 @@
+"""StandardWorkflow: the canonical training-graph builder, the port's
+counterpart of :mod:`veles_tpu.znicz.standard_workflow`, ported for the
+eager per-unit chain (``fused=False``)::
+
+    repeater → loader → forwards… → evaluator → decision → gds… ─┐
+        ▲                                                        │
+        └────────────────────── back edge ───────────────────────┘
+    decision --complete--> end_point ; gds gated to TRAIN minibatches
+
+Layer specs are a list of dicts with ``type`` (a unit ``MAPPING``) and
+the forward ``->`` and backward ``<-`` parameter groups.  Not ported:
+``fused`` (the one-program trainer), ``mcdnnic_topology``, the
+snapshotter, plotters, ``lr_adjuster``, rollback and image saver
+(ROADMAP item 7), and the MSE loss (item 1b).
+"""
+
+import numpy
+
+from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.plumbing import Repeater
+from veles_tpu_torch.units import UnitRegistry
+from veles_tpu_torch.znicz import all2all, gd  # noqa: F401 - registry
+from veles_tpu_torch.znicz.decision import DecisionGD
+from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
+
+#: forward MAPPING → paired gradient MAPPING (the all2all family and
+#: softmax; the JAX package's table also pairs conv, pooling, rnn, …)
+GD_PAIRS = {
+    "all2all": "gd",
+    "all2all_tanh": "gd_tanh",
+    "all2all_sigmoid": "gd_sigmoid",
+    "all2all_relu": "gd_relu",
+    "all2all_strict_relu": "gd_strict_relu",
+    "all2all_str": "gd_strict_relu",
+    "softmax": "gd_softmax",
+}
+
+#: StandardWorkflow options of the JAX package not ported yet, with the
+#: ROADMAP item that will port each
+_NOT_PORTED = {
+    "fused": "7", "fused_config": "7", "mcdnnic_topology": "7",
+    "mcdnnic_parameters": "7", "snapshotter_config": "7",
+    "plotters_config": "7", "lr_adjuster_config": "7",
+    "rollback_config": "7", "image_saver_config": "7",
+}
+
+
+class ClassSkipGate(Bool):
+    """True while the loader is NOT serving ``cls`` minibatches: the
+    ``gate_skip`` that runs the gradient units on TRAIN batches only."""
+
+    __slots__ = ("loader", "cls")
+
+    def __init__(self, loader, cls=TRAIN):
+        super(ClassSkipGate, self).__init__(False)
+        self.loader = loader
+        self.cls = cls
+
+    def __bool__(self):
+        return int(self.loader.minibatch_class) != self.cls
+
+
+class StandardWorkflow(AcceleratedWorkflow):
+    """Builds the training graph from the ``layers`` config.
+
+    kwargs:
+      loader_factory: callable(workflow) → Loader (required)
+      layers: list of {"type": MAPPING, "->": {...}, "<-": {...}}
+      loss_function: "softmax" (the default from a last softmax layer)
+      decision_config: dict for the Decision unit
+    """
+
+    def __init__(self, workflow=None, **kwargs):
+        for key, item in _NOT_PORTED.items():
+            if kwargs.pop(key, None):
+                raise NotImplementedError(
+                    "StandardWorkflow option %r is not ported yet "
+                    "(ROADMAP item %s)" % (key, item))
+        self.layers = kwargs.pop("layers", [])
+        self.loss_function = kwargs.pop("loss_function", None)
+        self.decision_config = dict(kwargs.pop("decision_config", {}))
+        loader_factory = kwargs.pop("loader_factory")
+        super(StandardWorkflow, self).__init__(workflow, **kwargs)
+        self.repeater = Repeater(self)
+        self.loader = loader_factory(self)
+        self.forwards = []
+        self.gds = []
+        self.evaluator = None
+        self.create_workflow()
+
+    # -- the link_* contract ------------------------------------------------
+    def create_workflow(self):
+        self.link_loader()
+        self.link_forwards()
+        self.link_evaluator()
+        self.link_decision()
+        self.link_gds()
+        self.link_loop_and_end()
+
+    def link_loader(self):
+        self.repeater.link_from(self.start_point)
+        self.loader.link_from(self.repeater)
+
+    def _make_unit(self, mapping, params):
+        try:
+            klass = UnitRegistry.mapped[mapping]
+        except KeyError:
+            raise ValueError(
+                "unknown layer type %r (ported: %s)" %
+                (mapping, ", ".join(sorted(UnitRegistry.mapped))))
+        return klass(self, **params)
+
+    def link_forwards(self):
+        prev = self.loader
+        prev_attr = "minibatch_data"
+        for spec in self.layers:
+            if spec["type"] not in GD_PAIRS:
+                raise NotImplementedError(
+                    "layer type %r is not ported yet (ROADMAP item 7)"
+                    % spec["type"])
+            unit = self._make_unit(spec["type"], dict(spec.get("->", {})))
+            unit.link_from(prev)
+            unit.link_attrs(prev, ("input", prev_attr))
+            self.forwards.append(unit)
+            prev = unit
+            prev_attr = "output"
+
+    def _loss_kind(self):
+        return self.loss_function or (
+            "softmax" if self.layers[-1]["type"] == "softmax" else "mse")
+
+    def link_evaluator(self):
+        loss = self._loss_kind()
+        if loss != "softmax":
+            raise NotImplementedError(
+                "loss %r is not ported yet (ROADMAP item 1b)" % loss)
+        last = self.forwards[-1]
+        self.evaluator = EvaluatorSoftmax(self)
+        self.evaluator.link_attrs(last, "output", "max_idx")
+        self.evaluator.link_attrs(self.loader,
+                                  ("labels", "minibatch_labels"),
+                                  ("batch_size", "minibatch_size"))
+        self.evaluator.link_from(last)
+
+    def link_decision(self):
+        self.decision = DecisionGD(self, **self.decision_config)
+        self.decision.link_from_loader(self.loader)
+        self.decision.evaluator = self.evaluator
+        self.decision.link_from(self.evaluator)
+
+    def link_gds(self):
+        """The backward chain in reverse layer order, gated to TRAIN
+        batches; the first layer's GD computes no err_input."""
+        prev = self.decision
+        err_src, err_attr = self.evaluator, "err_output"
+        skip_gate = ClassSkipGate(self.loader, TRAIN)
+        for forward, spec in zip(reversed(self.forwards),
+                                 reversed(self.layers)):
+            params = dict(spec.get("<-", {}))
+            if forward is self.forwards[0]:
+                params.setdefault("need_err_input", False)
+            unit = self._make_unit(GD_PAIRS[spec["type"]], params)
+            unit.setup_from_forward(forward)
+            unit.link_attrs(err_src, ("err_output", err_attr))
+            unit.gate_skip = skip_gate
+            unit.link_from(prev)
+            self.gds.append(unit)
+            prev = unit
+            err_src, err_attr = unit, "err_input"
+
+    def link_loop_and_end(self):
+        last_gd = self.gds[-1] if self.gds else self.decision
+        self.repeater.link_from(last_gd)
+        self.end_point.link_from(last_gd)
+        self.end_point.gate_block = ~self.decision.complete
+        self.repeater.gate_block = self.decision.complete
+
+    # -- carrying weights across --------------------------------------------
+    def _param_vectors(self):
+        """(name, Vector) of every trainable parameter and momentum, in
+        layer order: ``{i}.weights``, ``{i}.bias``,
+        ``{i}.gradient_weights``, ``{i}.gradient_bias``."""
+        gds = list(reversed(self.gds))
+        for i, forward in enumerate(self.forwards):
+            yield "%d.weights" % i, forward.weights
+            if forward.include_bias:
+                yield "%d.bias" % i, forward.bias
+            if i < len(gds):
+                yield "%d.gradient_weights" % i, gds[i].gradient_weights
+                if gds[i].include_bias:
+                    yield "%d.gradient_bias" % i, gds[i].gradient_bias
+
+    def params_to_numpy(self):
+        """Copies of the forwards' weights and biases and the GDs'
+        momenta as numpy arrays in the JAX package's storage layout
+        (``(fan-in, neurons)``, or ``(neurons, fan-in)`` when
+        ``weights_transposed``), keyed as :meth:`_param_vectors` names
+        them."""
+        return {name: numpy.array(vec.mem)
+                for name, vec in self._param_vectors() if vec}
+
+    def params_from_numpy(self, arrays):
+        """Install copies of ``arrays`` (keys and layouts as
+        :meth:`params_to_numpy` gives them) into the parameter and
+        momentum Vectors; their device copies are rebuilt at the next
+        use.  Call it after ``initialize()``."""
+        vectors = dict(self._param_vectors())
+        unknown = sorted(set(arrays) - set(vectors))
+        if unknown:
+            raise KeyError("no such parameters: %s" % unknown)
+        for name, value in arrays.items():
+            vec = vectors[name]
+            value = numpy.array(value, dtype=numpy.float32)
+            if vec and tuple(vec.shape) != value.shape:
+                raise ValueError("%s: shape %s, want %s"
+                                 % (name, value.shape, vec.shape))
+            vec.reset(value)

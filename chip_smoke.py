@@ -61,10 +61,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    check.
 8. ``mnist``   — the MNIST MLP (784→100 tanh, 100→10 softmax, lr 0.03,
    momentum 0.9, decay 0.0005, f32) trained through the eager workflow
-   (``samples.mnist.create_workflow(max_epochs=3)``, minibatch 100) on
-   the synthetic stand-in: the GEMM kernel counts (set to 0 just before
-   ``run()``, read just after) must be exactly 300 matmul, 120 gd_dx,
-   240 gd_dw and 240 gd_db; every n_err finite and the last validation
+   (``samples.mnist.create_workflow(max_epochs=3)`` with
+   ``engine.stitch=off``, minibatch 100) on the synthetic stand-in: the
+   kernel counts (set to 0 just before ``run()``, read just after) must
+   be exactly 300 matmul, 120 gd_dx, 240 gd_dw, 240 gd_db and 300
+   gather (the fill's data and label rows); every n_err finite and the
+   last validation
    error below the first.  Epochs/s, samples/s, the median train
    minibatch wall time, host→device bytes per minibatch and peak memory;
    then one epoch (``max_epochs=2``) under ``torch.profiler``: device
@@ -74,6 +76,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
    per-class n_err and confusion matrices equal, the weights, biases
    and momenta leaf by leaf within max |card − cpu| <= 1e-4 · max |cpu|;
    a third card run with gd_dx planted to return zeros must fail it.
+10. ``mnist_stitched`` — the default route: ``create_workflow(native=
+   True, max_epochs=3)`` with ``engine.stitch=on``: the u8 dataset
+   resident, each minibatch one replay of the forward segment's CUDA
+   graph (loader head, both forwards, evaluator) and, on train
+   minibatches, one of the GD segment's.  Exactly 150 and 120
+   dispatches, 2 captures, 0 recaptures; launches 150 gather_norm, 150
+   gather, 300 matmul, 120 gd_dx, 240 gd_dw, 240 gd_db; host→device
+   bytes per minibatch median <= 64 (the scalar blocks); one
+   device→host copy per class close; n_err finite and falling.
+   Epochs/s (over the run, and after both captures: a capture
+   synchronizes and collects garbage), samples/s, the median train
+   minibatch, resident bytes;
+   then one steady-state epoch (epoch 1 of a ``max_epochs=3`` run)
+   under ``torch.profiler``: device time by kernel, kernels per
+   minibatch, host gaps, busy share.
+11. ``mnist_stitched_parity`` — the stitched card run against the
+   CPU's (native, one train pass), the card's stitch on against off
+   (f32 dataset), a minibatch-96 run (short tails) against the CPU's,
+   and a run whose GD learning rates are halved at epoch 1 against the
+   CPU's (a frozen hyperparameter would fail): n_err and confusion
+   equal, parameters and momenta within 1e-4 · max |cpu|.  A card run
+   whose loader scalar block is written once and never again (a stale
+   offset) must fail that check.
 
 The ``kernels`` phase also holds the GEMM kernel (``matmul``: every
 activation × bias on/off) and the fused GD trio (every activation ×
@@ -88,10 +113,17 @@ version and one PyTorch call (``addmm``, ``mm``, ``sum``).  These
 times are device times of back-to-back calls (queued behind a spin
 kernel, one CUDA-event pair around them, per call): at the MNIST
 shapes a CUDA-event pair around one call times the host wrapper, which
-is kept as ``wrapper_ms``.
+is kept as ``wrapper_ms``.  It holds the gather kernels (``gather``:
+pads 0 and -1; ``gather_norm``: scalar and per-feature affines) on u8,
+f32 and int32 tables with negative and out-of-range indices and rows of
+1, 13 (no 16-B word) and 784 elements, exactly; two planted faults per
+kernel (every index off by one, negative indices not zeroed) must be
+reported; each is timed at 100 rows of a (7000, 784) table and at 4096
+rows of a (70000, 784) u8 table beside its bound by bytes.
 
 Then it prints the per-kernel JSON line (launches on the main paths,
-serve, train and mnist, max abs error, kernel / plain / library times,
+serve, train, mnist and mnist_stitched, max abs error, kernel / plain /
+library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -99,6 +131,7 @@ rest of the repository beside it, it exits non-zero and prints no
 result.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -147,7 +180,17 @@ MNIST_PARAM_RTOL = 1e-4
 # the JAX package's schedule for max_epochs=3: 3 validation passes of 10
 # minibatches and 2 train passes of 60, two layers; only the softmax
 # layer's GD computes err_input
-MNIST_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240, "gd_db": 240}
+MNIST_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240, "gd_db": 240,
+                  "gather": 300, "gather_norm": 0}
+# the stitched native route, max_epochs=3: the forward segment dispatches
+# every minibatch (150), the GD segment every train minibatch (120); its
+# head gathers the u8 data row (gather_norm) and the labels (gather)
+MNIST_STITCHED_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240,
+                           "gd_db": 240, "gather": 150, "gather_norm": 150}
+MNIST_STITCHED_DISPATCHES = [150, 120]
+# per minibatch: the loader's (offset, size), int32, and on train
+# minibatches 2 layers x 6 GD hyperparameters, float32
+MNIST_STITCHED_H2D_MAX = 64
 
 
 class PhaseFailed(Exception):
@@ -228,6 +271,11 @@ def device_ms(fn, reps=20):
                       "than the spin lasted" % reps)
 
 
+#: a launch counter's name -> its kernel group in a profile, where the two
+#: differ
+_PROFILE_GROUP = {"gather": "veles_gather_rows",
+                  "gather_norm": "veles_gather_norm"}
+
 #: csrc/gemm.cu's kernels by (demangled) name: one GEMM body templated
 #: on its epilogue, and the db kernel
 _GEMM_GROUPS = (("veles_gemm_kernel<0>", "veles_matmul"),
@@ -243,6 +291,10 @@ def _kernel_group(name):
     for group in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if group + "_kernel" in name:
             return group
+    if "veles_gather_norm_kernel" in name:
+        return "veles_gather_norm"
+    if "veles_gather_rows_kernel" in name:
+        return "veles_gather_rows"
     if "decode_kernel" in name:
         return "decode_attn"
     if any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass",
@@ -256,10 +308,10 @@ def _kernel_group(name):
 def profile_window(fn):
     """Run ``fn`` once under ``torch.profiler`` and return its host wall
     time, the device time of every kernel summed by group (flash_fwd,
-    flash_bwd_dq, flash_bwd_dkv, decode_attn, matmul, copy, other), the
-    12 kernels that took most of it, and the device's busy share of the
-    wall time.  Kernels run on one stream, so their times add."""
-    from torch.autograd import DeviceType
+    flash_bwd_dq, flash_bwd_dkv, decode_attn, the GEMM and gather
+    kernels, matmul, copy, other), the 12 kernels that took most of it,
+    and the device's busy share of the wall time.  Kernels run on one
+    stream, so their times add."""
     from torch.profiler import ProfilerActivity, profile
     gpu_sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -268,6 +320,12 @@ def profile_window(fn):
         fn()
         gpu_sync()
         wall_us = (time.perf_counter() - tic) * 1e6
+    return _profile_summary(prof, wall_us)
+
+
+def _profile_summary(prof, wall_us):
+    """:func:`profile_window`'s summary of a finished profile."""
+    from torch.autograd import DeviceType
     groups, names, spans = {}, {}, []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -758,6 +816,210 @@ def _gemm_kernels(device):
             "planted_faults": planted}, timed, ok
 
 
+# -- the gather kernels (csrc/gather.cu) ------------------------------------
+
+#: (table dtype, table shape) the gather kernels are held on: MNIST's u8
+#: and f32 data and int32 labels, rows of 1 element, of 13 B (neither a
+#: 16-B nor a 4-B word) and of (3, 9, 9)
+GATHER_TABLES = ((torch.uint8, (7000, 784)), (torch.float32, (7000, 784)),
+                 (torch.int32, (7000,)), (torch.uint8, (50, 1)),
+                 (torch.uint8, (50, 13)), (torch.float32, (50, 3, 9, 9)),
+                 (torch.int32, (50, 784)))
+GATHER_MAIN = (7000, 784, 100)          # the MNIST tables, minibatch 100
+GATHER_BIG = (70000, 784, 4096)         # real MNIST's size, 4096 rows
+
+
+def _gather_table(rng, device, dtype, shape):
+    if dtype == torch.float32:
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            numpy.float32)).to(device)
+    high = 256 if dtype == torch.uint8 else 2 ** 20
+    return torch.from_numpy(rng.integers(0, high, shape)).to(dtype).to(
+        device)
+
+
+def _gather_indices(rng, device, n_rows, n_idx, invalid=True):
+    """int32 indices; with ``invalid`` three are -1 (one at the end) and
+    one is past the table, which the kernels pad as well."""
+    idx = rng.integers(0, n_rows, n_idx).astype(numpy.int32)
+    if invalid:
+        idx[[3, 17, n_idx - 1]] = -1
+        idx[5] = n_rows
+    return torch.from_numpy(idx).to(device)
+
+
+def _exact(got, want):
+    diff = (got.double() - want.double()).abs()
+    return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "exact": bool(torch.equal(got, want))}
+
+
+def _gather_cases(rng, device):
+    """Each kernel against its plain version on every table, pads 0 and
+    -1 (255 in u8), scalar and per-feature affines: exact."""
+    from veles_tpu_torch.ops import gather
+    cases = []
+    for dtype, shape in GATHER_TABLES:
+        data = _gather_table(rng, device, dtype, shape)
+        idx = _gather_indices(rng, device, shape[0], 100)
+        name = str(dtype).replace("torch.", "")
+        for pad in (0, 255 if dtype == torch.uint8 else -1):
+            report = _exact(gather.take_rows(data, idx, pad),
+                            gather._gather_ref(data, idx, pad))
+            cases.append(dict(report, kernel="gather", dtype=name,
+                              table=list(shape), pad=pad,
+                              ok=report["exact"]))
+        if len(shape) == 1:
+            continue
+        f = int(numpy.prod(shape[1:]))
+        for per_feature in (False, True):
+            norm = gather.affine_tensors(
+                (rng.uniform(0.5, 2.0, f), rng.standard_normal(f))
+                if per_feature else (1.0 / 255.0, 0.0), device)
+            got = gather.take_rows_norm(data, idx, norm)
+            report = _exact(got, gather._gather_norm_ref(data, idx, *norm))
+            zeroed = not bool(got[idx < 0].any())
+            cases.append(dict(report, kernel="gather_norm", dtype=name,
+                              table=list(shape), per_feature=per_feature,
+                              negative_rows_zero=zeroed,
+                              ok=report["exact"] and zeroed))
+    gpu_sync()
+    return cases
+
+
+def _gather_repeatable(rng, device):
+    from veles_tpu_torch.ops import gather
+    data = _gather_table(rng, device, torch.uint8, GATHER_MAIN[:2])
+    idx = _gather_indices(rng, device, GATHER_MAIN[0], GATHER_MAIN[2])
+    norm = gather.affine_tensors((1.0 / 255.0, 0.0), device)
+    same = (torch.equal(gather.take_rows(data, idx),
+                        gather.take_rows(data, idx))
+            and torch.equal(gather.take_rows_norm(data, idx, norm),
+                            gather.take_rows_norm(data, idx, norm)))
+    gpu_sync()
+    return same
+
+
+def _gather_planted_faults(rng, device):
+    """Faults planted in the kernels' inputs at the main path's shape,
+    each of which the exact check must report: every valid index off by
+    one, and the negative indices given as 0 (a row not zeroed)."""
+    from veles_tpu_torch.ops import gather
+    data = _gather_table(rng, device, torch.uint8, GATHER_MAIN[:2])
+    idx = _gather_indices(rng, device, GATHER_MAIN[0], GATHER_MAIN[2])
+    norm = gather.affine_tensors((1.0 / 255.0, 0.0), device)
+    valid = (idx >= 0) & (idx < GATHER_MAIN[0] - 1)
+    shifted = torch.where(valid, idx + 1, idx)
+    unzeroed = torch.where(idx < 0, 0, idx)
+    want_rows = gather._gather_ref(data, idx)
+    want_norm = gather._gather_norm_ref(data, idx, *norm)
+    faults = {
+        "gather_index_off_by_one": _exact(
+            gather.take_rows(data, shifted), want_rows),
+        "gather_negative_index_not_padded": _exact(
+            gather.take_rows(data, unzeroed), want_rows),
+        "gather_norm_index_off_by_one": _exact(
+            gather.take_rows_norm(data, shifted, norm), want_norm),
+        "gather_norm_negative_index_not_zeroed": _exact(
+            gather.take_rows_norm(data, unzeroed, norm), want_norm),
+    }
+    gpu_sync()
+    return {name: dict(report, caught=not report["exact"])
+            for name, report in faults.items()}
+
+
+def _gather_bytes(data, idx, out, extra=0):
+    """Bytes the call must move: the indices, the rows of the valid
+    indices (this run's data), the output, and ``extra``."""
+    valid = int(((idx >= 0) & (idx < data.shape[0])).sum())
+    row = data[0].numel() * data.element_size()
+    return (idx.numel() * idx.element_size() + valid * row
+            + out.numel() * out.element_size() + extra)
+
+
+def _gather_timed(rng, device):
+    """Each kernel's device time per call (:func:`device_ms`) at the
+    main path's shape (100 rows of a (7000, 784) table: f32 for gather,
+    the eager route's data row, u8 for gather_norm, the stitched head's)
+    and at 4096 rows of a (70000, 784) u8 table, beside its bound by
+    bytes, the plain version's time and ``torch.index_select``'s on the
+    same, all-valid, indices (gather only: no one PyTorch call computes
+    gather_norm).  The label row (100 of 7000 int32) is timed too.
+    Calls run back to back on the same indices, so rows a call reads
+    may be in L2."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops import gather
+    rows = {}
+
+    def row(name, shape, dtype, kernel, plain, library, nbytes, ops, err):
+        bound, by = bound_seconds(nbytes, ops, "float32")
+        entry = rows.setdefault(name, {
+            "name": name, "route": "cuda",
+            "source": "veles_tpu_torch/csrc/gather.cu",
+            "replaces": "veles_tpu/ops/gather.py:%d" % {
+                "gather": 204, "gather_norm": 146}[name],
+            "plain_of": "_gather_ref" if name == "gather"
+            else "_gather_norm_ref",
+            "library_of": "torch.index_select" if name == "gather"
+            else None, "by_shape": []})
+        entry["by_shape"].append({
+            "table": list(shape), "dtype": dtype,
+            "ms": device_ms(kernel), "wrapper_ms": time_ms(kernel),
+            "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library) if library else None,
+            "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err})
+
+    for (n, f, b), dtype in ((GATHER_MAIN, torch.float32),
+                             ((GATHER_MAIN[0], None, GATHER_MAIN[2]),
+                              torch.int32),
+                             (GATHER_BIG, torch.uint8)):
+        shape = (n,) if f is None else (n, f)
+        data = _gather_table(rng, device, dtype, shape)
+        idx = _gather_indices(rng, device, n, b, invalid=False)
+        out = gather.take_rows(data, idx)
+        err = _exact(out, gather._gather_ref(data, idx))["max_abs_err"]
+        row("gather", shape, str(dtype).replace("torch.", ""),
+            lambda: gather._gather_cuda(data, idx, 0),
+            lambda: gather._gather_ref(data, idx, 0),
+            lambda: torch.index_select(data, 0, idx),
+            _gather_bytes(data, idx, out), 0, err)
+    for n, f, b in (GATHER_MAIN, GATHER_BIG):
+        data = _gather_table(rng, device, torch.uint8, (n, f))
+        idx = _gather_indices(rng, device, n, b, invalid=False)
+        scale, shift = gather.affine_tensors((1.0 / 255.0, 0.0), device)
+        out = gather.take_rows_norm(data, idx, (scale, shift))
+        err = _exact(out, gather._gather_norm_ref(data, idx, scale,
+                                                  shift))["max_abs_err"]
+        row("gather_norm", (n, f), "uint8",
+            lambda: gather._gather_norm_cuda(data, idx, scale, shift),
+            lambda: gather._gather_norm_ref(data, idx, scale, shift),
+            None, _gather_bytes(data, idx, out, extra=8), 2 * b * f, err)
+    gpu_sync()
+    timed = []
+    for name in ("gather_norm", "gather"):
+        entry = rows[name]
+        main = entry["by_shape"][0]       # the main path's shape
+        entry.update({key: main[key] for key in (
+            "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")})
+        timed.append(entry)
+    return timed
+
+
+def _gather_kernels(device):
+    """The ``kernels`` phase's gather half: cases, repeatability,
+    planted faults and timings of the two kernels of csrc/gather.cu."""
+    rng = numpy.random.default_rng(SEED + 4)
+    cases = _gather_cases(rng, device)
+    repeatable = _gather_repeatable(rng, device)
+    planted = _gather_planted_faults(rng, device)
+    timed = _gather_timed(rng, device)
+    ok = (all(c["ok"] for c in cases) and repeatable
+          and all(f["caught"] for f in planted.values()))
+    return {"cases": cases, "bit_equal_relaunch": repeatable,
+            "planted_faults": planted}, timed, ok
+
+
 def phase_kernels(device):
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops.attention import (_decode_cuda, _decode_ref,
@@ -854,17 +1116,20 @@ def phase_kernels(device):
     }
     bwd_rows, bwd_report, bwd_ok = _bwd_timed(rng, device)
     gemm_report, gemm_rows, gemm_ok = _gemm_kernels(device)
-    timed = [flash] + bwd_rows + [decode] + gemm_rows
+    gather_report, gather_rows, gather_ok = _gather_kernels(device)
+    timed = [flash] + bwd_rows + [decode] + gemm_rows + gather_rows
     ok = (not bad and ferr <= BF16_TOL and derr <= BF16_TOL and bwd_ok
-          and gemm_ok)
+          and gemm_ok and gather_ok)
     emit({"phase": "kernels", "ok": ok, "cases": cases,
           "timed_backward_errors": bwd_report, "gemm": gemm_report,
-          "timed": timed})
+          "gather": gather_report, "timed": timed})
     gemm_bad = [c for c in gemm_report["cases"] if not c["ok"]]
+    gather_bad = [c for c in gather_report["cases"] if not c["ok"]]
     check(ok, "kernels", "kernel disagrees with its plain version, or a "
           "planted fault went unseen: %s" % (
-              bad or gemm_bad[:4] or gemm_report["planted_faults"]
-              if not gemm_ok else timed))
+              bad or gemm_bad[:4] or gather_bad[:4]
+              or [gemm_report["planted_faults"],
+                  gather_report["planted_faults"]]))
     return timed
 
 
@@ -1175,13 +1440,43 @@ def _record_closes(wf, out):
     dec._close_class = recording
 
 
+@contextlib.contextmanager
+def engine_knobs(**knobs):
+    """Set ``root.common.engine`` knobs of the port, restored after."""
+    from veles_tpu_torch.config import root
+    eng = root.common.engine
+    saved = {key: eng.get(key) for key in knobs}
+    for key, value in knobs.items():
+        setattr(eng, key, value)
+    try:
+        yield eng
+    finally:
+        for key, value in saved.items():
+            setattr(eng, key, value)
+
+
+def reset_all_launches():
+    from veles_tpu_torch.ops import attention, gather, gemm
+    for module in (attention, gather, gemm):
+        module.reset_launches()
+
+
+def mnist_launches():
+    from veles_tpu_torch.ops import gather, gemm
+    return {**gemm.launches, **gather.launches}
+
+
 def phase_mnist(device, smi):
     """The MNIST MLP's training through the eager workflow at full width
     (784→100→10, minibatch 100) on the synthetic stand-in: launch counts,
     rates, per-minibatch transfers, then one epoch under the profiler."""
+    with engine_knobs(stitch="off"):
+        return _phase_mnist(device, smi)
+
+
+def _phase_mnist(device, smi):
     from veles_tpu_torch import prng
     from veles_tpu_torch.memory import Watcher
-    from veles_tpu_torch.ops import gemm
     from veles_tpu_torch.samples import mnist
 
     prng.seed_all(SEED)
@@ -1201,12 +1496,12 @@ def phase_mnist(device, smi):
     torch.cuda.reset_peak_memory_stats(device)
     in_use = torch.cuda.memory_allocated(device)
     before = Watcher.transfers()
-    gemm.reset_launches()
+    reset_all_launches()
     tic = time.perf_counter()
     wf.run()
     gpu_sync()
     end = time.perf_counter()
-    launches = dict(gemm.launches)
+    launches = mnist_launches()
     after = Watcher.transfers()
     elapsed = end - tic
     peak = torch.cuda.max_memory_allocated(device)
@@ -1227,7 +1522,8 @@ def phase_mnist(device, smi):
         "phase": "mnist", "nvidia_smi": smi,
         "layers": "784-100 all2all_tanh, 100-10 softmax", "minibatch": 100,
         "max_epochs": MNIST_EPOCHS, "data": "synthetic stand-in, seed 1234",
-        "seed": SEED, "setup_s": setup_s, "elapsed_s": elapsed,
+        "stitch": "off", "seed": SEED, "setup_s": setup_s,
+        "elapsed_s": elapsed,
         "minibatches": len(starts), "samples": served,
         "epochs_per_s": served / wf.loader.total_samples / elapsed,
         "samples_per_s": served / elapsed,
@@ -1246,15 +1542,16 @@ def phase_mnist(device, smi):
         "ok": finite and learned and counted,
     }
     profiled = mnist.create_workflow(device=device, max_epochs=2)
-    gemm.reset_launches()
+    reset_all_launches()
     info["breakdown"] = profile_window(profiled.run)
     info["breakdown"]["window"] = ("one epoch: 2 validation passes and 1 "
                                    "train pass (max_epochs=2)")
     # device time of one launch on the main path, from the profile
     by_group = info["breakdown"]["device_ms_by_group"]
     info["breakdown"]["device_us_per_launch"] = {
-        name: by_group.get("veles_" + name, 0.0) * 1e3 / count
-        for name, count in gemm.launches.items() if count}
+        name: by_group.get(_PROFILE_GROUP.get(name, "veles_" + name),
+                           0.0) * 1e3 / count
+        for name, count in mnist_launches().items() if count}
     emit(info)
     check(finite, "mnist", "an n_err is not finite: %s" % errors)
     check(learned, "mnist", "validation error did not fall: %s" % valid)
@@ -1265,10 +1562,15 @@ def phase_mnist(device, smi):
 
 def phase_mnist_parity(device):
     """The same seed on the card (kernels) and on the CPU (plain
-    versions), one train pass: per-epoch per-class n_err and confusion
-    matrices equal, parameters and momenta leaf by leaf within
-    max |card − cpu| <= 1e-4 · max |cpu|; a card run with gd_dx planted
-    to return zeros must fail that check."""
+    versions), one train pass of the eager chain: per-epoch per-class
+    n_err and confusion matrices equal, parameters and momenta leaf by
+    leaf within max |card − cpu| <= 1e-4 · max |cpu|; a card run with
+    gd_dx planted to return zeros must fail that check."""
+    with engine_knobs(stitch="off"):
+        _phase_mnist_parity(device)
+
+
+def _phase_mnist_parity(device):
     from veles_tpu_torch import prng
     from veles_tpu_torch.ops import gemm
     from veles_tpu_torch.samples import mnist
@@ -1286,9 +1588,9 @@ def phase_mnist_parity(device):
                             / max(float(numpy.abs(ref).max()), 1e-30))
                 for name, ref in cpu_params.items()}
 
-    gemm.reset_launches()
+    reset_all_launches()
     gpu_closes, gpu_params = run(device)
-    launches = dict(gemm.launches)
+    launches = mnist_launches()
     cpu_closes, cpu_params = run(torch.device("cpu"))
 
     dx = gemm._gd_dx_cuda
@@ -1315,7 +1617,7 @@ def phase_mnist_parity(device):
     ok = (counts_equal and confusion_equal
           and errs[worst] <= MNIST_PARAM_RTOL
           and planted > MNIST_PARAM_RTOL
-          and all(launches[k] > 0 for k in MNIST_LAUNCHES))
+          and all(launches[k] > 0 for k, n in MNIST_LAUNCHES.items() if n))
     emit({"phase": "mnist_parity", "ok": ok,
           "max_epochs": MNIST_PARITY_EPOCHS, "dtype": "float32",
           "tf32": False,
@@ -1333,6 +1635,294 @@ def phase_mnist_parity(device):
           "%s, params %s %.3g, planted %.3g, launches %s)"
           % (counts_equal, confusion_equal, worst, errs[worst], planted,
              launches))
+
+
+# -- the stitched route -----------------------------------------------------
+
+def _mnist_stitched_profile(device):
+    """One steady-state epoch of the stitched native route under
+    ``torch.profiler``: a ``max_epochs=3`` run whose profile window
+    opens at epoch 1's first dispatch (both graphs captured in epoch 0)
+    and closes at epoch 2's, so it holds one validation pass and one
+    train pass, 70 minibatches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist
+    prng.seed_all(SEED)
+    wf = mnist.create_workflow(device=device, max_epochs=MNIST_EPOCHS,
+                               native=True)
+    head = wf.stitch_segments[0].stages[0]
+    prelude, loader = head.prelude, wf.loader
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def watched():
+        # an epoch starts in the prelude that wraps the offset
+        at = (loader.epoch_number,
+              loader.global_offset >= loader.total_samples)
+        if "tic" not in window and at == (0, True):
+            gpu_sync()
+            prof.start()
+            window["tic"] = time.perf_counter()
+            window["minibatches"] = 0
+        elif "tic" in window and "toc" not in window and at == (1, True):
+            gpu_sync()
+            window["toc"] = time.perf_counter()
+            prof.stop()
+        if "tic" in window and "toc" not in window:
+            window["minibatches"] += 1
+        prelude()
+    head.prelude = watched
+    wf.run()
+    gpu_sync()
+    if "toc" not in window:
+        prof.stop()
+        window["toc"] = time.perf_counter()
+    summary = _profile_summary(prof, (window["toc"] - window["tic"]) * 1e6)
+    summary["window"] = ("one steady-state epoch: epoch 1's validation "
+                         "and train passes (%d minibatches)"
+                         % window["minibatches"])
+    summary["minibatches"] = window["minibatches"]
+    summary["kernels_per_minibatch"] = (summary["device_kernels"]
+                                        / window["minibatches"])
+    return summary
+
+
+def phase_mnist_stitched(device, smi):
+    """The stitched native route at full width (784→100→10, minibatch
+    100, u8 dataset scaled in the loader head): each minibatch is one
+    forward-segment graph replay and, on train minibatches, one GD
+    replay.  Exact dispatch, capture and launch counts, the per-minibatch
+    host→device bytes (the scalar blocks), rates, resident bytes, then
+    one steady-state epoch under the profiler."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.memory import Watcher
+    from veles_tpu_torch.samples import mnist
+
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        prng.seed_all(SEED)
+        Watcher.reset()
+        tic = time.perf_counter()
+        wf = mnist.create_workflow(device=device, max_epochs=MNIST_EPOCHS,
+                                   native=True)
+        gpu_sync()
+        setup_s = time.perf_counter() - tic
+        resident = Watcher.hbm_ledger()
+        head = wf.stitch_segments[0].stages[0]
+        prelude, loader, starts = head.prelude, wf.loader, []
+
+        def timed_prelude():
+            starts.append((time.perf_counter(), Watcher.transfers()))
+            prelude()
+            starts[-1] += (int(loader.minibatch_class),)
+        head.prelude = timed_prelude
+
+        torch.cuda.reset_peak_memory_stats(device)
+        in_use = torch.cuda.memory_allocated(device)
+        before = Watcher.transfers()
+        reset_all_launches()
+        tic = time.perf_counter()
+        wf.run()
+        gpu_sync()
+        end = time.perf_counter()
+        launches = mnist_launches()
+        after = Watcher.transfers()
+        elapsed = end - tic
+        peak = torch.cuda.max_memory_allocated(device)
+        report = wf.stitch_report()
+        closes = wf.decision.history
+
+        served = loader.samples_served
+        bounds = [t for t, _x, _c in starts] + [end]
+        train_ms = [(bounds[i + 1] - bounds[i]) * 1e3
+                    for i, (_t, _x, cls) in enumerate(starts) if cls == 2]
+        # after both captures: the GD segment captures at the second
+        # train minibatch, so time from the dispatch after it
+        steady = [i for i, (_t, _x, cls) in enumerate(starts)
+                  if cls == 2][1] + 1
+        steady_s = end - starts[steady][0]
+        moved = [x for _t, x, _c in starts] + [after]
+        h2d_steps = [b["h2d_bytes"] - a["h2d_bytes"]
+                     for a, b in zip(moved, moved[1:])]
+        errors = [c["n_err"] for c in closes]
+        valid = [c["n_err_pt"] for c in closes if c["cls"] == "validation"]
+        finite = all(numpy.isfinite(e) for e in errors)
+        learned = len(valid) == MNIST_EPOCHS and valid[-1] < valid[0]
+        counted = launches == MNIST_STITCHED_LAUNCHES
+        dispatched = ([r["dispatches"] for r in report]
+                      == MNIST_STITCHED_DISPATCHES
+                      and [r["captures"] for r in report] == [1, 1]
+                      and all(r["recaptures"] == 0 for r in report))
+        h2d_ok = statistics.median(h2d_steps) <= MNIST_STITCHED_H2D_MAX
+        d2h = after["d2h_transfers"] - before["d2h_transfers"]
+        d2h_ok = d2h == len(closes)
+        info = {
+            "phase": "mnist_stitched", "nvidia_smi": smi,
+            "layers": "784-100 all2all_tanh, 100-10 softmax",
+            "minibatch": 100, "max_epochs": MNIST_EPOCHS,
+            "data": "synthetic stand-in as u8 (load_mnist(raw=True)), "
+                    "scale 1/255 in the loader head",
+            "stitch": "on", "native": True, "seed": SEED,
+            "setup_s": setup_s, "elapsed_s": elapsed,
+            "minibatches": len(starts), "samples": served,
+            "epochs_per_s": served / loader.total_samples / elapsed,
+            "samples_per_s": served / elapsed,
+            "epochs_per_s_after_captures": (len(starts) - steady)
+            * loader.max_minibatch_size / loader.total_samples / steady_s,
+            "train_minibatch_median_ms": statistics.median(train_ms),
+            "segments": report,
+            "h2d_bytes": after["h2d_bytes"] - before["h2d_bytes"],
+            "h2d_bytes_per_minibatch_median":
+                statistics.median(h2d_steps),
+            "h2d_bytes_per_minibatch_max_steady": max(
+                h2d_steps[2:10] + h2d_steps[11:]),
+            "h2d_inplace_bytes": after["h2d_inplace_bytes"]
+            - before["h2d_inplace_bytes"],
+            "h2d_inplace_transfers": after["h2d_inplace_transfers"]
+            - before["h2d_inplace_transfers"],
+            "d2h_transfers": d2h, "class_closes_count": len(closes),
+            "resident_at_setup": resident,
+            "resident_after_run": Watcher.hbm_ledger(),
+            "max_memory_allocated": peak,
+            "max_memory_above_start": peak - in_use,
+            "class_closes": closes, "results": wf.gather_results(),
+            "launches": launches,
+            "launches_expected": MNIST_STITCHED_LAUNCHES,
+            "ok": (finite and learned and counted and dispatched and h2d_ok
+                   and d2h_ok),
+        }
+        reset_all_launches()
+        info["breakdown"] = _mnist_stitched_profile(device)
+        by_group = info["breakdown"]["device_ms_by_group"]
+        n = info["breakdown"]["minibatches"]
+        info["breakdown"]["device_us_per_minibatch_by_group"] = {
+            g: t * 1e3 / n for g, t in by_group.items()}
+    emit(info)
+    check(finite, "mnist_stitched", "an n_err is not finite: %s" % errors)
+    check(learned, "mnist_stitched", "validation error did not fall: %s"
+          % valid)
+    check(counted, "mnist_stitched", "the kernels were not on the main "
+          "path as expected: %s, want %s"
+          % (launches, MNIST_STITCHED_LAUNCHES))
+    check(dispatched, "mnist_stitched", "segments dispatched, captured or "
+          "recaptured other than expected: %s" % report)
+    check(h2d_ok, "mnist_stitched", "host->device bytes per minibatch: "
+          "median %s > %d" % (statistics.median(h2d_steps),
+                              MNIST_STITCHED_H2D_MAX))
+    check(d2h_ok, "mnist_stitched", "%d device->host copies for %d class "
+          "closes" % (d2h, len(closes)))
+    return launches
+
+
+def _close_record(closes):
+    return [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+            for c in closes]
+
+
+def _agreement(a, b):
+    """Two runs' ``(closes, params)``: counts and confusion matrices
+    equal, and each parameter leaf's max |a − b| / max |b|."""
+    (ca, pa), (cb, pb) = a, b
+    counts = _close_record(ca) == _close_record(cb)
+    confusion = len(ca) == len(cb) and all(
+        numpy.array_equal(x["confusion"], y["confusion"])
+        for x, y in zip(ca, cb))
+    errs = {name: float(numpy.abs(pa[name] - ref).max()
+                        / max(float(numpy.abs(ref).max()), 1e-30))
+            for name, ref in pb.items()}
+    worst = max(errs.values())
+    return {"n_err_equal": counts, "confusion_equal": confusion,
+            "param_worst_rel_err": worst,
+            "n_err": [c["n_err"] for c in ca],
+            "ok": counts and confusion and worst <= MNIST_PARAM_RTOL}
+
+
+def phase_mnist_stitched_parity(device):
+    """The stitched route on the card held against: the CPU's stitched
+    run from the same seed (native, one train pass); the card's eager
+    run (native=False, stitch on against off); a minibatch-96 run (every
+    class ends in a short batch); and a run whose GD learning rates are
+    halved at epoch 1's validation close (max_epochs=3), card and CPU
+    alike.  Each within: n_err and confusion equal, every parameter and
+    momentum within 1e-4 · max |cpu|.  A card run whose loader scalar
+    block is written once and never again (the prelude's write skipped:
+    a stale offset) must fail that check."""
+    from veles_tpu_torch import prng, stitch
+    from veles_tpu_torch.samples import mnist
+
+    def run(dev, native=True, stitch_mode="on", minibatch=100,
+            epochs=MNIST_PARITY_EPOCHS, halve_lr=False):
+        with engine_knobs(stitch=stitch_mode, loader="auto"):
+            prng.seed_all(SEED)
+            wf = mnist.create_workflow(device=dev, max_epochs=epochs,
+                                       minibatch_size=minibatch,
+                                       native=native)
+            closes = []
+            _record_closes(wf, closes)
+            if halve_lr:
+                dec = wf.decision
+                close = dec._close_class
+
+                def closing(cls, check_epoch_end):
+                    if int(dec.epoch_number) == 1 and cls == 1:
+                        for unit in wf.gds:
+                            unit.learning_rate *= 0.5
+                            unit.learning_rate_bias *= 0.5
+                    return close(cls, check_epoch_end)
+                dec._close_class = closing
+            wf.run()
+            gpu_sync()
+            report = wf.stitch_report()
+            return (closes, wf.params_to_numpy()), report
+
+    cpu = torch.device("cpu")
+    results = {}
+    card, card_report = run(device)
+    results["card_vs_cpu"] = _agreement(card, run(cpu)[0])
+    on, _r = run(device, native=False)
+    off, _r = run(device, native=False, stitch_mode="off")
+    results["stitch_on_vs_off_card_f32"] = _agreement(on, off)
+    short, short_report = run(device, minibatch=96)
+    results["minibatch_96_card_vs_cpu"] = _agreement(
+        short, run(cpu, minibatch=96)[0])
+    halved, _r = run(device, epochs=MNIST_EPOCHS, halve_lr=True)
+    results["lr_halved_card_vs_cpu"] = _agreement(
+        halved, run(cpu, epochs=MNIST_EPOCHS, halve_lr=True)[0])
+    unchanged, _r = run(device, epochs=MNIST_EPOCHS)
+    lr_moved = _agreement(halved, unchanged)["param_worst_rel_err"]
+
+    write = stitch.ScalarBlock.write
+    written = set()
+
+    def stale(self, values):
+        if self.dtype == torch.int32 and id(self) in written:
+            return
+        written.add(id(self))
+        write(self, values)
+    stitch.ScalarBlock.write = stale
+    try:
+        planted, _r = run(device)
+    finally:
+        stitch.ScalarBlock.write = write
+    planted_check = _agreement(planted, run(cpu)[0])
+    recaptures = sum(r["recaptures"] for r in card_report + short_report)
+    ok = (all(r["ok"] for r in results.values())
+          and lr_moved > MNIST_PARAM_RTOL and not planted_check["ok"]
+          and recaptures == 0)
+    emit({"phase": "mnist_stitched_parity", "ok": ok, "dtype": "float32",
+          "tf32": False, "param_rtol": MNIST_PARAM_RTOL,
+          "comparisons": results, "card_segments": card_report,
+          "minibatch_96_segments": short_report,
+          "lr_halved_vs_unchanged_param_rel_err": lr_moved,
+          "planted_stale_offset": planted_check,
+          "planted_stale_offset_caught": not planted_check["ok"]})
+    check(ok, "mnist_stitched_parity", "the stitched card run disagrees, "
+          "the LR change did not move the parameters, a recapture "
+          "happened, or the planted stale offset went unseen: %s, "
+          "lr moved %.3g, planted %s, recaptures %d"
+          % ({k: v["ok"] for k, v in results.items()}, lr_moved,
+             planted_check, recaptures))
 
 
 def _named_leaves(tree, prefix=""):
@@ -1366,6 +1956,9 @@ def main():
         phase_train_parity(device)
         paths["mnist"] = phase_mnist(device, info["nvidia_smi"])
         phase_mnist_parity(device)
+        paths["mnist_stitched"] = phase_mnist_stitched(
+            device, info["nvidia_smi"])
+        phase_mnist_stitched_parity(device)
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1

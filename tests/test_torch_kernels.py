@@ -407,3 +407,200 @@ def test_gemm_wrappers_raise_on_the_card(cuda_device, gemm_launches):
     with pytest.raises(ValueError, match="matmul: a is"):
         gemm.matmul(a, a, None, None)
     assert not any(gemm_launches.values())
+
+
+# -- the gather kernels (csrc/gather.cu) -------------------------------------
+# Gathers move bytes: exact.  gather_norm multiplies, then adds, each
+# rounded (__fmul_rn, __fadd_rn) as the plain version's two torch ops do:
+# exact as well.
+
+#: (table dtype, table shape): MNIST's u8 and f32 data, its int32
+#: labels, rows of 1 element and of 13 B (no 16-B or 4-B words)
+GATHER_TABLES = [(torch.uint8, (7000, 784)), (torch.float32, (7000, 784)),
+                 (torch.int32, (7000,)), (torch.uint8, (50, 1)),
+                 (torch.uint8, (50, 13)), (torch.float32, (50, 3, 9, 9))]
+
+
+@pytest.fixture
+def gather_launches():
+    from veles_tpu_torch.ops import gather
+    gather.reset_launches()
+    yield gather.launches
+    gather.reset_launches()
+
+
+def _gather_operands(device, dtype, shape, n_idx=100, seed=40):
+    """A table and int32 indices with negative and out-of-range ones."""
+    rng = numpy.random.default_rng(seed)
+    if dtype == torch.float32:
+        data = torch.from_numpy(rng.standard_normal(shape).astype(
+            numpy.float32))
+    else:
+        high = 256 if dtype == torch.uint8 else 2 ** 20
+        data = torch.from_numpy(rng.integers(0, high, shape)).to(dtype)
+    idx = rng.integers(0, shape[0], n_idx).astype(numpy.int32)
+    idx[[3, 17, n_idx - 1]] = -1
+    idx[5] = shape[0]                    # out of range: a pad row too
+    return data.to(device), torch.from_numpy(idx).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", GATHER_TABLES)
+@pytest.mark.parametrize("pad", [0, -1])
+def test_gather_kernel_matches_plain_version_on_card(
+        cuda_device, gather_launches, dtype, shape, pad):
+    from veles_tpu_torch.ops import gather
+    if dtype == torch.uint8 and pad == -1:
+        pad = 255
+    data, idx = _gather_operands(cuda_device, dtype, shape)
+    got = gather.take_rows(data, idx, pad)
+    want = gather._gather_ref(data, idx, pad)
+    torch.cuda.synchronize()
+    assert gather_launches == {"gather": 1, "gather_norm": 0}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    t for t in GATHER_TABLES if t[0] != torch.int32 or len(t[1]) > 1]
+    + [(torch.int32, (50, 784))])
+@pytest.mark.parametrize("per_feature", [False, True])
+def test_gather_norm_kernel_matches_plain_version_on_card(
+        cuda_device, gather_launches, dtype, shape, per_feature):
+    from veles_tpu_torch.ops import gather
+    data, idx = _gather_operands(cuda_device, dtype, shape)
+    f = int(numpy.prod(shape[1:]))
+    rng = numpy.random.default_rng(41)
+    if per_feature:
+        norm = gather.affine_tensors(
+            (rng.uniform(0.5, 2.0, f), rng.standard_normal(f)), cuda_device)
+    else:
+        norm = gather.affine_tensors((1.0 / 255.0, 0.0), cuda_device)
+    got = gather.take_rows_norm(data, idx, norm)
+    want = gather._gather_norm_ref(data, idx, *norm)
+    torch.cuda.synchronize()
+    assert gather_launches == {"gather": 0, "gather_norm": 1}
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert not got[idx < 0].any()
+
+
+@pytest.mark.cuda
+def test_gather_kernels_are_deterministic_on_card(cuda_device,
+                                                  gather_launches):
+    from veles_tpu_torch.ops import gather
+    data, idx = _gather_operands(cuda_device, torch.uint8, (7000, 784))
+    norm = gather.affine_tensors((1.0 / 255.0, 0.0), cuda_device)
+    assert torch.equal(gather.take_rows(data, idx),
+                       gather.take_rows(data, idx))
+    assert torch.equal(gather.take_rows_norm(data, idx, norm),
+                       gather.take_rows_norm(data, idx, norm))
+
+
+@pytest.mark.cuda
+def test_gather_kernels_replay_in_a_cuda_graph_on_card(cuda_device,
+                                                       gather_launches):
+    """Captured once, replayed with new index contents written into the
+    captured buffer: each replay gathers the new rows."""
+    from veles_tpu_torch.ops import gather
+    data, idx = _gather_operands(cuda_device, torch.uint8, (7000, 784))
+    norm = gather.affine_tensors((1.0 / 255.0, 0.0), cuda_device)
+    gather.take_rows_norm(data, idx, norm)        # load the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rows = gather.take_rows(data, idx)
+        normed = gather.take_rows_norm(data, idx, norm)
+    for seed in (42, 43):
+        _, new = _gather_operands(cuda_device, torch.uint8, (7000, 784),
+                                  seed=seed)
+        idx.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(rows, gather._gather_ref(data, idx))
+        assert torch.equal(normed,
+                           gather._gather_norm_ref(data, idx, *norm))
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_raise_on_the_card(cuda_device, gather_launches):
+    from veles_tpu_torch.ops import gather
+    data, idx = _gather_operands(cuda_device, torch.uint8, (50, 13))
+    with pytest.raises(ValueError, match="int32 indices"):
+        gather.take_rows(data, idx.long())
+    with pytest.raises(ValueError, match="contiguous table"):
+        gather.take_rows(data.t(), idx)
+    with pytest.raises(TypeError, match="gather_norm takes"):
+        gather.take_rows_norm(data.double(), idx, (1.0, 0.0))
+    norm = gather.affine_tensors((numpy.ones(5), numpy.zeros(5)),
+                                 cuda_device)
+    with pytest.raises(ValueError, match="want 1 or 13"):
+        gather.take_rows_norm(data, idx, norm)
+    assert not any(gather_launches.values())
+
+
+@pytest.mark.cuda
+def test_gd_kernels_read_hyperparameters_at_replay_on_card(
+        cuda_device, gemm_launches):
+    """The stitched GD stage's form: hyperparameters as 0-d f32 tensors
+    of one device block.  Captured once; a learning rate written into
+    the block before a replay takes effect at that replay."""
+    from veles_tpu_torch.ops import gemm
+    args = _gd_operands(cuda_device, 100, 784, 100, False, seed=35)
+    block = torch.tensor(_GD_HP, dtype=torch.float32, device=cuda_device)
+    hp = [block[i] for i in range(6)]
+    params = [t.clone() for t in args[3:]]
+    gemm.gd_fused(*args[:3], *params, *hp, activation="tanh")   # warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gemm.gd_fused(*args[:3], *params, *hp, activation="tanh")
+    for lr in (0.03, 0.015):
+        block[0], block[1] = lr, lr
+        before = [t.clone() for t in params]
+        want = gemm._gd_ref(*args[:3], before[0], before[1], before[2],
+                            before[3], lr, lr, *_GD_HP[2:],
+                            activation="tanh")
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, got, ref in zip(("w", "b", "vw", "vb"), params, want):
+            torch.testing.assert_close(got, ref, atol=GEMM_TOL[0],
+                                       rtol=GEMM_TOL[1], msg=name)
+
+
+# -- a stitched segment on the card (veles_tpu_torch.stitch) -----------------
+
+@pytest.mark.cuda
+def test_stitched_segment_recaptures_when_a_read_tensor_moves_on_card(
+        cuda_device, gemm_launches):
+    """The first layer's weights rebound to a new tensor mid-run: both
+    segments read it (the forward as a parameter, the GD segment as a
+    donated buffer), so each must recapture once, never replay against
+    the old address, and the run must still give the CPU's results."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist
+
+    def run(device):
+        prng.seed_all(3)
+        wf = mnist.create_workflow(device=device, max_epochs=2,
+                                   native=True)
+        head = wf.stitch_segments[0].stages[0]
+        prelude, weights = head.prelude, wf.forwards[0].weights
+
+        def moving():
+            prelude()
+            if wf.loader.samples_served == 2000:     # a train minibatch
+                weights.bind(weights.devmem.clone())
+        head.prelude = moving
+        wf.run()
+        return wf
+
+    card, cpu = run(None), run("cpu")
+    torch.cuda.synchronize()
+    assert [r["recaptures"] for r in card.stitch_report()] == [1, 1]
+    assert [h["n_err"] for h in card.decision.history] == \
+        [h["n_err"] for h in cpu.decision.history]
+    got, want = card.params_to_numpy(), cpu.params_to_numpy()
+    for name, ref in want.items():
+        err = float(numpy.abs(got[name] - ref).max())
+        assert err <= 1e-4 * float(numpy.abs(ref).max()), (name, err)

@@ -38,6 +38,7 @@ from veles_tpu.znicz.standard_workflow import \
     StandardWorkflow as JaxStandardWorkflow
 from veles_tpu_torch import prng
 from veles_tpu_torch.backends import CPUDevice
+from veles_tpu_torch.config import root
 from veles_tpu_torch.dummy import DummyLauncher, DummyWorkflow
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.memory import Vector, Watcher
@@ -60,16 +61,19 @@ HP = {"learning_rate": 0.05, "learning_rate_bias": 0.04,
 
 @pytest.fixture
 def engine_config():
-    """The JAX package's eager per-unit route; restores the global knobs
-    it sets."""
+    """The eager per-unit route of both packages; restores the global
+    knobs it sets."""
     eng = jax_root.common.engine
     saved = {k: eng.get(k, d) for k, d in (
         ("kernels", "auto"), ("stitch", "on"), ("epoch_scan", "off"))}
+    port_saved = root.common.engine.get("stitch", "on")
     eng.stitch = "off"
     eng.kernels = "xla"
+    root.common.engine.stitch = "off"
     yield eng
     for key, value in saved.items():
         setattr(eng, key, value)
+    root.common.engine.stitch = port_saved
 
 
 def _synchronous(wf):
@@ -417,10 +421,11 @@ def test_pallas_arm_on_blobs_matches_port(engine_config):
                                       rtol=1e-3, err_msg=name)
 
 
-def test_workflow_options_not_ported_raise():
+def test_workflow_options_not_ported_raise(engine_config):
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
         mnist.create_workflow(device="cpu", fused=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1b"):
+    # the u8 dataset needs the stitched head, which stitch=off turns off
+    with pytest.raises(ValueError, match="stitched"):
         mnist.create_workflow(device="cpu", native=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
         mnist.create_workflow(device="cpu", layers=[

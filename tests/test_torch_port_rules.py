@@ -157,18 +157,29 @@ def test_gemm_wrappers_on_cpu_tensors_launch_nothing(no_cuda):
     assert not any(gemm.launches.values())
 
 
+def test_gather_wrappers_on_cpu_tensors_launch_nothing(no_cuda):
+    from veles_tpu_torch.ops import gather
+    gather.reset_launches()
+    data = torch.arange(60, dtype=torch.uint8).reshape(6, 10)
+    idx = torch.tensor([4, -1, 0], dtype=torch.int32)
+    assert gather.take_rows(data, idx)[1].tolist() == [0] * 10
+    assert gather.take_rows_norm(data, idx, (0.5, 1.0))[0, 0] == 21.0
+    assert not any(gather.launches.values())
+
+
 # -- the kernel sources and their builder -----------------------------------
 
 @pytest.mark.parametrize("name,replaces", [
     ("flash_fwd", "_attn_kernel"), ("flash_bwd", "_bwd_dq_kernel"),
     ("flash_bwd", "_bwd_dkv_kernel"), ("decode_attn", "_decode_kernel"),
     ("gemm", "_matmul_kernel"), ("gemm", "_gd_dx_kernel"),
-    ("gemm", "_gd_dw_kernel"), ("gemm", "_gd_db_kernel")])
+    ("gemm", "_gd_dw_kernel"), ("gemm", "_gd_db_kernel"),
+    ("gather", "_gather_kernel"), ("gather", "_gather_norm_kernel")])
 def test_kernel_source_names_the_tpu_kernel_it_replaces(name, replaces):
     from veles_tpu_torch.ops import build
     assert name in build.SOURCES
     head = (build.CSRC_DIR / (name + ".cu")).read_text().split("#include")[0]
-    tpu_module = "gemm" if name == "gemm" else "attention"
+    tpu_module = name if name in ("gemm", "gather") else "attention"
     assert "veles_tpu/ops/%s.py" % tpu_module in head and replaces in head
     assert "What bounds it on the H100" in head
 

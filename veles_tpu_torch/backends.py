@@ -83,6 +83,12 @@ class Device(object):
         in-place update must not write through to the host buffer)."""
         return torch.from_numpy(numpy.array(array)).to(self.torch_device)
 
+    def put_into(self, tensor, array):
+        """Copy the host array into ``tensor`` on this device, keeping
+        its address."""
+        tensor.copy_(torch.from_numpy(
+            numpy.require(array, requirements="CW")))
+
     def get(self, tensor):
         """A host numpy copy of a tensor on this device."""
         return tensor.detach().to("cpu").numpy().copy()

@@ -2,8 +2,9 @@
 
 The port's own copy of :mod:`veles_tpu.config` (the port imports nothing
 of ``veles_tpu``): the same dotted namespace, trimmed to the defaults
-the generative serving path reads — ``root.common.engine.trace`` and
-the ``root.common.gen`` subtree (``kv``, ``prefill_chunk``,
+the paths the port runs: ``root.common.engine`` (``trace``, and the
+workflow's ``stitch``, ``loader`` and ``epoch_scan``) and the
+``root.common.gen`` subtree (``kv``, ``prefill_chunk``,
 ``prefix_cache``, ``speculative``), which auto-vivifies.
 """
 
@@ -82,6 +83,16 @@ root.common.update({
         # Unified tracing (veles_tpu_torch.trace): "off" (every hook is
         # a single attribute check) or "on" (record spans into the ring).
         "trace": "off",
+        # Segment stitching (veles_tpu_torch.stitch): "on" runs each
+        # maximal chain of stitchable units as one segment (one CUDA
+        # graph on the card), "off" the eager per-unit chain.
+        "stitch": "on",
+        # FullBatchLoader minibatch selection: "auto" and "device" let
+        # the loader head the first stitched segment (the gather runs
+        # inside it), "host" keeps the loader a per-unit barrier.
+        "loader": "auto",
+        # K-step epoch windows: only "off" is ported (ROADMAP item 1c).
+        "epoch_scan": "off",
     },
     # Generative serving: only the contiguous KV layout is ported; the
     # engine raises on any other value of these keys.

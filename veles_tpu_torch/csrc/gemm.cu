@@ -37,6 +37,10 @@
 // The db step reads 2 B N floats and is bound by bytes and by the launch;
 // one block per 32 columns loops over the whole batch, and its 8 row
 // groups are summed in a fixed order, so it needs no atomics either.
+// The dw and db steps take the learning rate, decay and momentum by value
+// or, where the pointers are given, from device memory read at run time:
+// a CUDA graph that captured the launch then sees the values written
+// before each replay (the JAX package traces them as scalars).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -99,7 +103,16 @@ struct Params {
   float* w;
   float* v;
   float inv_b, lr, decay, moment;
+  // when set, lr / decay / moment are read from here at run time
+  const float* lr_p;
+  const float* decay_p;
+  const float* moment_p;
 };
+
+// the hyperparameters of a momentum step: by value, or from device memory
+__device__ __forceinline__ float hyper(float value, const float* p) {
+  return p != nullptr ? *p : value;
+}
 
 // EPI is the epilogue: one instantiation each for matmul (STORE_ACT),
 // gd_dx (STORE) and gd_dw (MOMENTUM), so a profile names them apart.
@@ -117,6 +130,12 @@ veles_gemm_kernel(Operand A, Operand B, int M, int N, int K, Params P) {
   // has the unit stride
   const bool a_k_fast = A.s1 == 1;
   const bool b_n_fast = B.s1 == 1;
+  float lr = 0.0f, decay = 0.0f, moment = 0.0f;
+  if (EPI == MOMENTUM) {
+    lr = hyper(P.lr, P.lr_p);
+    decay = hyper(P.decay, P.decay_p);
+    moment = hyper(P.moment, P.moment_p);
+  }
 
   float acc[4][4];
 #pragma unroll
@@ -171,7 +190,7 @@ veles_gemm_kernel(Operand A, Operand B, int M, int N, int K, Params P) {
       } else {
         const float grad = acc[i][j] * P.inv_b;
         const float w = P.w[o];
-        const float v = P.moment * P.v[o] - P.lr * (grad + P.decay * w);
+        const float v = moment * P.v[o] - lr * (grad + decay * w);
         P.w[o] = w + v;
         P.v[o] = v;
       }
@@ -185,8 +204,9 @@ constexpr int DB_GROUPS = THREADS / DB_COLS;
 __global__ void __launch_bounds__(THREADS)
 veles_gd_db_kernel(const float* __restrict__ eo,
                    const float* __restrict__ y, float* b, float* vb,
-                   int batch, int n, int act, float inv_b, float lr,
-                   float decay, float moment) {
+                   int batch, int n, int act, float inv_b, float lr_v,
+                   float decay_v, float moment_v, const float* lr_p,
+                   const float* decay_p, const float* moment_p) {
   __shared__ float part[DB_GROUPS][DB_COLS + 1];
   const int c = threadIdx.x % DB_COLS, g = threadIdx.x / DB_COLS;
   const int col = blockIdx.x * DB_COLS + c;
@@ -203,6 +223,8 @@ veles_gd_db_kernel(const float* __restrict__ eo,
 #pragma unroll
     for (int i = 0; i < DB_GROUPS; ++i) t += part[i][c];
     const float grad = t * inv_b;
+    const float lr = hyper(lr_v, lr_p), decay = hyper(decay_v, decay_p);
+    const float moment = hyper(moment_v, moment_p);
     const float bias = b[col];
     const float v = moment * vb[col] - lr * (grad + decay * bias);
     b[col] = bias + v;
@@ -228,6 +250,7 @@ Params no_params() {
   p.w = nullptr;
   p.v = nullptr;
   p.inv_b = p.lr = p.decay = p.moment = 0.0f;
+  p.lr_p = p.decay_p = p.moment_p = nullptr;
   return p;
 }
 
@@ -264,12 +287,15 @@ extern "C" int veles_gd_dx(const float* eo, const float* y, const float* w,
 // dW = x^T delta (f, n), or delta^T x (n, f) when transposed, times inv_b,
 // then the momentum update of W and V (contiguous, storage layout) in
 // place; x (batch, f) through strides (sxb, sxf), eo and y (batch, n)
-// contiguous.
+// contiguous.  lr, decay and moment are read from lr_p, decay_p and
+// moment_p on the device where those are not null.
 extern "C" int veles_gd_dw(const float* x, const float* eo, const float* y,
                            float* w, float* v, int batch, int f, int n,
                            long long sxb, long long sxf, int transposed,
                            int act, float inv_b, float lr, float decay,
-                           float moment, void* stream) {
+                           float moment, const float* lr_p,
+                           const float* decay_p, const float* moment_p,
+                           void* stream) {
   Operand X = {x, nullptr, sxf, sxb, LINEAR};       // x^T: (f, batch)
   Operand D = {eo, y, (long long)n, 1, act};        // delta: (batch, n)
   Operand Dt = {eo, y, 1, (long long)n, act};       // delta^T: (n, batch)
@@ -281,20 +307,26 @@ extern "C" int veles_gd_dw(const float* x, const float* eo, const float* y,
   p.lr = lr;
   p.decay = decay;
   p.moment = moment;
+  p.lr_p = lr_p;
+  p.decay_p = decay_p;
+  p.moment_p = moment_p;
   if (transposed)
     return launch_gemm<MOMENTUM>(Dt, Xb, n, f, batch, p, stream);
   return launch_gemm<MOMENTUM>(X, D, f, n, batch, p, stream);
 }
 
 // db = sum over the batch of delta, times inv_b, then the momentum update
-// of b and vb (n,) in place; eo and y (batch, n) contiguous.
+// of b and vb (n,) in place; eo and y (batch, n) contiguous; the
+// hyperparameters as for veles_gd_dw.
 extern "C" int veles_gd_db(const float* eo, const float* y, float* b,
                            float* vb, int batch, int n, int act, float inv_b,
                            float lr, float decay, float moment,
-                           void* stream) {
+                           const float* lr_p, const float* decay_p,
+                           const float* moment_p, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const int blocks = (n + DB_COLS - 1) / DB_COLS;
   veles_gd_db_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      eo, y, b, vb, batch, n, act, inv_b, lr, decay, moment);
+      eo, y, b, vb, batch, n, act, inv_b, lr, decay, moment, lr_p, decay_p,
+      moment_p);
   return (int)cudaGetLastError();
 }

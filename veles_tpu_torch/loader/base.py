@@ -12,10 +12,12 @@ bit for bit), ``serve_next_minibatch`` / ``fill_indices`` and
 
 Serving is host control flow: the minibatch *fill* of a resident
 dataset runs on the device in
-:class:`veles_tpu_torch.loader.fullbatch.FullBatchLoader`.  Not ported:
-the prefetch staging ring and stitched preludes (ROADMAP item 1b), the
-master/slave job methods, the retry queue, ``validation_ratio`` and
-checkpointing (item 7).
+:class:`veles_tpu_torch.loader.fullbatch.FullBatchLoader`.  A loader
+that heads a stitched segment serves through :meth:`stitch_prelude`
+(the bookkeeping without the fill; the segment gathers the batch).  Not
+ported: the prefetch staging ring (ROADMAP item 1c), the master/slave
+job methods, the retry queue, ``validation_ratio`` and checkpointing
+(item 7).
 """
 
 import numpy
@@ -36,7 +38,7 @@ LABEL_DTYPE = numpy.int32
 
 #: loader options of the JAX package this slice does not port, with the
 #: ROADMAP item that will
-_NOT_PORTED = {"prefetch": "1b", "validation_ratio": "7", "testing": "7",
+_NOT_PORTED = {"prefetch": "1c", "validation_ratio": "7", "testing": "7",
                "train_ratio": "7"}
 
 
@@ -68,8 +70,9 @@ class Loader(Unit):
         self.minibatch_labels = Vector(category="staging")
         self.minibatch_indices = Vector(category="staging")
         self.labels_mapping = {}
-        #: the shuffled index space; host-only (the device sees each
-        #: minibatch's slice through ``minibatch_indices``)
+        #: the shuffled index space: the eager fill uploads each
+        #: minibatch's slice (``minibatch_indices``); a stitched loader
+        #: head reads it on the device, uploaded once per shuffle
         self.shuffled_indices = Vector(category="dataset")
         self.shuffle_limit = kwargs.get("shuffle_limit", 2 ** 31)
         self.global_offset = 0
@@ -160,6 +163,14 @@ class Loader(Unit):
         self.serve_next_minibatch()
         self.samples_served += self.minibatch_size
 
+    def stitch_prelude(self):
+        """The host half of a loader-headed segment's dispatch: advance
+        the serving state (offset, class, epoch flags, the shuffle at an
+        epoch's start) without filling a minibatch buffer; the segment
+        gathers the batch on the device."""
+        self.serve_next_minibatch(fill=False)
+        self.samples_served += self.minibatch_size
+
     # -- serving ------------------------------------------------------------
     def shuffle(self):
         """Shuffle the TRAIN span of the index space."""
@@ -179,9 +190,10 @@ class Loader(Unit):
                 return class_index, offset - index
         raise LoaderError("sample index %d out of range" % index)
 
-    def serve_next_minibatch(self):
+    def serve_next_minibatch(self, fill=True):
         """Advance to the next (offset, size), update the epoch flags and
-        fill the minibatch."""
+        fill the minibatch (``fill=False``: leave the fill to a
+        stitched segment)."""
         with trace.span("loader", "serve_minibatch"):
             minibatch_offset, minibatch_size = \
                 self._advance_global_offset()
@@ -190,7 +202,8 @@ class Loader(Unit):
             self._update_flags()
             self.fill_indices(minibatch_offset - minibatch_size,
                               minibatch_size)
-            self.fill_minibatch()
+            if fill:
+                self.fill_minibatch()
 
     def fill_indices(self, start_offset, count):
         """Copy the served span of shuffled indices into

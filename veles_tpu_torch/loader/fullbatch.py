@@ -1,35 +1,47 @@
 """FullBatchLoader: the whole dataset resident on the device.
 
 The port's counterpart of :mod:`veles_tpu.loader.fullbatch`.  The
-dataset (``original_data``) is normalized once on the host and uploaded
-once; the labels are mapped once into ``resident_labels`` (int32, ``-1``
-for an unlabeled sample) and uploaded with it.  Each minibatch then
-moves only its index slice to the device (``minibatch_indices``, 400 B
-at minibatch 100), and :func:`take_rows` gathers the data rows and the
-labels there, ``-1`` indices giving zero rows and ``-1`` labels.  That
-is the counterpart of the JAX package's ``_gather_jnp`` route, the one
-its eager chain takes when neither ``pallas_gather`` nor an autotune DB
-selects the gather kernel; the gather kernels of
-``veles_tpu/ops/gather.py`` and the stitched loader head wait for
-ROADMAP item 1b, as do ``native_device_dtype`` and
-``FullBatchLoaderMSE``.  The dataset is normalized once, so minibatches need no normalize, label
-map or tail pad of their own.
+dataset (``original_data``) and its labels, mapped once into
+``resident_labels`` (int32, ``-1`` for an unlabeled sample), are
+uploaded once.  Minibatch selection then runs on the device, in one of
+two ways:
+
+- Eager (``engine.stitch=off``, or ``engine.loader=host``): the loader
+  serves each minibatch as a unit, uploading only its index slice
+  (``minibatch_indices``, 400 B at minibatch 100), and
+  :func:`veles_tpu_torch.ops.gather.take_rows` gathers the data rows
+  and the labels (the gather kernel on the card).
+- The device fast path (``engine.loader`` ``auto`` or ``device``, with
+  stitching on): the loader HEADS the first stitched segment.
+  :meth:`stitch_stage` keeps the serving bookkeeping as the segment's
+  prelude and turns the fill into index arithmetic over the
+  device-resident shuffled-index buffer,
+  ``idx = where(pos < size, shuffled[offset + pos], -1)``, with
+  ``offset`` and ``size`` read from the segment's scalar block, so one
+  captured graph serves every batch, short tails included; then the
+  gather of the data row and ``take_rows(pad=-1)`` of the labels.  The
+  shuffled indices move once per shuffle, in place.
+
+``native_device_dtype=True`` keeps the dataset in its storage type
+(uint8 pixels: a quarter of float32's bytes) and publishes the
+normalizer's affine form as ``input_norm``; the head then gathers the
+data row through :func:`~veles_tpu_torch.ops.gather.take_rows_norm`
+(the gather + normalize kernel), so the first forward sees normalized
+float32.  It needs the head: the eager fill cannot normalize.  Without
+it the dataset is normalized once on the host at initialize.
+``FullBatchLoaderMSE`` waits for ROADMAP item 1c.
 """
 
 import numpy
 import torch
 
+from veles_tpu_torch.config import root
 from veles_tpu_torch.loader.base import Loader, LoaderError, TRAIN
 from veles_tpu_torch.memory import Vector
+from veles_tpu_torch.ops.gather import (affine_tensors, take_rows,
+                                        take_rows_norm)
 
-
-def take_rows(data, indices, pad=0):
-    """``data[indices]`` along axis 0 with ``pad`` rows where an index
-    is negative (the short batch's empty slots)."""
-    valid = indices >= 0
-    rows = data.index_select(0, indices.clamp(min=0).long())
-    mask = valid.reshape((-1,) + (1,) * (rows.dim() - 1))
-    return torch.where(mask, rows, torch.full_like(rows, pad))
+LOADER_MODES = ("auto", "device", "host")
 
 
 class FullBatchLoader(Loader):
@@ -39,12 +51,15 @@ class FullBatchLoader(Loader):
     hide_from_registry = True
 
     def __init__(self, workflow, **kwargs):
-        if kwargs.get("native_device_dtype"):
-            raise NotImplementedError(
-                "native_device_dtype (the u8-resident dataset) is not "
-                "ported yet (ROADMAP item 1b)")
         self.original_data = Vector(category="dataset")
         self.original_labels = []
+        #: keep the dataset in its storage dtype and normalize in the
+        #: stitched head (needs an affine normalizer)
+        self.native_device_dtype = bool(kwargs.get("native_device_dtype",
+                                                   False))
+        #: the normalizer's ``(scale, shift)`` when native_device_dtype
+        self.input_norm = None
+        self._input_norm_dev = None
         #: the pre-mapped labels (int32, -1 = unlabeled), device-resident
         self.resident_labels = Vector(category="dataset")
         super(FullBatchLoader, self).__init__(workflow, **kwargs)
@@ -53,10 +68,24 @@ class FullBatchLoader(Loader):
     def has_labels(self):
         return len(self.original_labels) > 0
 
+    @property
+    def device_fast_path_active(self):
+        """True when the loader heads the first stitched segment:
+        ``engine.loader`` is ``auto`` or ``device``, a device is
+        attached and the dataset is resident."""
+        mode = str(root.common.engine.get("loader", "auto")).lower()
+        if mode not in LOADER_MODES:
+            raise ValueError("engine.loader must be one of %s, not %r"
+                             % (LOADER_MODES, mode))
+        return (mode != "host" and self.device is not None
+                and bool(self.original_data))
+
     def create_minibatch_data(self):
+        dtype = numpy.float32 if self.native_device_dtype \
+            else self.original_data.dtype
         self.minibatch_data.reset(numpy.zeros(
             (self.max_minibatch_size,) + self.original_data.shape[1:],
-            dtype=self.original_data.dtype))
+            dtype=dtype))
 
     def initialize(self, device=None, **kwargs):
         super(FullBatchLoader, self).initialize(device=device, **kwargs)
@@ -67,9 +96,18 @@ class FullBatchLoader(Loader):
         if self.has_labels and \
                 len(self.original_labels) != self.total_samples:
             raise LoaderError("original_labels length mismatch")
-        # one-shot normalization of the resident dataset
-        self.original_data.map_write()
-        self.normalizer.normalize(self.original_data.mem)
+        if self.native_device_dtype:
+            # the dataset keeps its storage dtype; the head normalizes
+            self.input_norm = self.normalizer.as_affine()
+            if self.input_norm is None:
+                raise LoaderError(
+                    "native_device_dtype needs an affine normalizer "
+                    "(as_affine() returned None for %s)"
+                    % type(self.normalizer).__name__)
+        else:
+            # one-shot normalization of the resident dataset
+            self.original_data.map_write()
+            self.normalizer.normalize(self.original_data.mem)
         if self.has_labels:
             mapped = [-1 if raw is None
                       else self.labels_mapping.get(raw, raw)
@@ -77,7 +115,7 @@ class FullBatchLoader(Loader):
             self.resident_labels.reset(
                 numpy.asarray(mapped, dtype=numpy.int32))
         vectors = [self.original_data, self.minibatch_data,
-                   self.minibatch_indices]
+                   self.minibatch_indices, self.shuffled_indices]
         if self.has_labels:
             vectors += [self.resident_labels, self.minibatch_labels]
         for vec in vectors:
@@ -85,6 +123,9 @@ class FullBatchLoader(Loader):
         self.original_data.devmem        # upload once
         if self.has_labels:
             self.resident_labels.devmem
+        if self.native_device_dtype and self.device is not None:
+            self._input_norm_dev = affine_tensors(
+                self.input_norm, self.device.torch_device)
 
     def analyze_dataset(self):
         """The dataset is resident: analyze the TRAIN span directly."""
@@ -100,9 +141,64 @@ class FullBatchLoader(Loader):
     def fill_minibatch(self):
         """Gather the minibatch rows and labels on the device, where the
         dataset is resident: only the index slice goes up."""
+        if self.native_device_dtype:
+            raise LoaderError(
+                "a native_device_dtype dataset is normalized by the "
+                "stitched loader head; the eager fill cannot serve it "
+                "(engine.stitch=on, engine.loader!=host)")
         indices = self.minibatch_indices.devmem
         self.minibatch_data.devmem = take_rows(
             self.original_data.devmem, indices)
         if self.has_labels:
             self.minibatch_labels.devmem = take_rows(
                 self.resident_labels.devmem, indices, pad=-1)
+
+    # -- the loader-headed stitched segment (the device fast path) -----------
+    def _device_stage_plan(self):
+        """``(name, source Vector, output Vector, pad)`` of each row the
+        head gathers."""
+        plan = [("minibatch_data", self.original_data,
+                 self.minibatch_data, 0)]
+        if self.has_labels:
+            plan.append(("minibatch_labels", self.resident_labels,
+                         self.minibatch_labels, -1))
+        return plan
+
+    def stitch_stage(self):
+        """The head stage of the first segment (see the module doc), or
+        None when the device fast path is off."""
+        from veles_tpu_torch.stitch import StitchStage
+        if not self.device_fast_path_active:
+            return None
+        plan = self._device_stage_plan()
+        pads = {name: pad for name, _src, _out, pad in plan}
+        norm = self._input_norm_dev if self.native_device_dtype else None
+        pos = torch.arange(int(self.max_minibatch_size), dtype=torch.int32,
+                           device=self.device.torch_device)
+
+        def fn(t):
+            valid = pos < t["size"]
+            served = t["indices"].index_select(
+                0, torch.where(valid, pos + t["offset"], 0))
+            idx = torch.where(valid, served, -1)
+            out = {}
+            for name, pad in pads.items():
+                if norm is not None and name == "minibatch_data":
+                    out[name] = take_rows_norm(t["src_" + name], idx, norm)
+                else:
+                    out[name] = take_rows(t["src_" + name], idx, pad)
+            return out
+
+        params = {"indices": self.shuffled_indices}
+        produces = {}
+        for name, src, out_vec, _pad in plan:
+            params["src_" + name] = src
+            produces[name] = out_vec
+        loader = self
+        return StitchStage(
+            self, fn, produces=produces, params=params,
+            scalars=lambda: {
+                "offset": int(loader.minibatch_offset
+                              - loader.minibatch_size),
+                "size": int(loader.minibatch_size)},
+            prelude=self.stitch_prelude)

@@ -15,13 +15,22 @@ freshest data: ``map_read`` brings the device copy to the host,
 ``map_write`` declares a host edit (the next ``devmem`` re-uploads),
 ``reset`` installs new host contents.  A unit that updates ``devmem``
 in place (the GD kernels do) publishes it by assigning it back
-(``vec.devmem = tensor``).  The prefetch ``StagingRing`` is not ported
-(ROADMAP item 1b).
+(``vec.devmem = tensor``).
+
+A Vector that a captured CUDA graph reads must keep its device address:
+a stitched segment sets ``keep_address`` on every Vector its stages
+read, and from then on a re-upload after ``map_write``/``reset`` copies
+into the bound tensor (counted in the Watcher as an in-place upload),
+and a published tensor of the same shape and type is copied into it.
+``bind`` rebinds unconditionally: a segment binds the Vectors it
+produces to its graph's outputs once.  The prefetch ``StagingRing`` is
+not ported (ROADMAP item 1c).
 """
 
 import threading
 
 import numpy
+import torch
 
 
 class Watcher(object):
@@ -35,6 +44,9 @@ class Watcher(object):
     generation = 0
     h2d_bytes = 0
     h2d_transfers = 0
+    #: the share of the above that went into an already bound tensor
+    h2d_inplace_bytes = 0
+    h2d_inplace_transfers = 0
     d2h_bytes = 0
     d2h_transfers = 0
     bytes_by_category = {}
@@ -60,10 +72,13 @@ class Watcher(object):
                 cls.bytes_by_category.get(cat, 0) - nbytes
 
     @classmethod
-    def track_h2d(cls, nbytes):
+    def track_h2d(cls, nbytes, inplace=False):
         with cls.lock:
             cls.h2d_bytes += int(nbytes)
             cls.h2d_transfers += 1
+            if inplace:
+                cls.h2d_inplace_bytes += int(nbytes)
+                cls.h2d_inplace_transfers += 1
 
     @classmethod
     def track_d2h(cls, nbytes):
@@ -73,10 +88,13 @@ class Watcher(object):
 
     @classmethod
     def transfers(cls):
-        """``{h2d_bytes, h2d_transfers, d2h_bytes, d2h_transfers}``."""
+        """``{h2d_bytes, h2d_transfers, h2d_inplace_bytes,
+        h2d_inplace_transfers, d2h_bytes, d2h_transfers}``."""
         with cls.lock:
             return {"h2d_bytes": cls.h2d_bytes,
                     "h2d_transfers": cls.h2d_transfers,
+                    "h2d_inplace_bytes": cls.h2d_inplace_bytes,
+                    "h2d_inplace_transfers": cls.h2d_inplace_transfers,
                     "d2h_bytes": cls.d2h_bytes,
                     "d2h_transfers": cls.d2h_transfers}
 
@@ -100,6 +118,8 @@ class Watcher(object):
             cls.peak_bytes = 0
             cls.h2d_bytes = 0
             cls.h2d_transfers = 0
+            cls.h2d_inplace_bytes = 0
+            cls.h2d_inplace_transfers = 0
             cls.d2h_bytes = 0
             cls.d2h_transfers = 0
             cls.bytes_by_category = {}
@@ -108,6 +128,14 @@ class Watcher(object):
 
 def _nbytes(tensor):
     return tensor.numel() * tensor.element_size()
+
+
+def _same_layout(tensor, shape, dtype):
+    """True when ``tensor`` can take contents of ``shape`` and ``dtype``
+    (a numpy or torch dtype) in place."""
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(numpy.empty(0, dtype)).dtype
+    return tuple(tensor.shape) == tuple(shape) and tensor.dtype == dtype
 
 
 class Vector(object):
@@ -124,15 +152,20 @@ class Vector(object):
         self._tracked = 0
         self._tracked_gen = 0
         self.category = category
+        #: writes go into the bound device tensor (a graph reads it)
+        self.keep_address = False
         if data is not None:
             self.reset(data)
 
     # -- basic properties ---------------------------------------------------
     def reset(self, data):
-        """Install new host contents; the device copy is dropped."""
+        """Install new host contents; the device copy is dropped, or
+        kept to be overwritten at the next ``devmem`` when
+        ``keep_address`` is set."""
         self._mem = numpy.ascontiguousarray(data) \
             if data is not None else None
-        self._drop_devmem()
+        if self._mem is None or not self.keep_address:
+            self._drop_devmem()
         self._host_fresh = True
         self._dev_fresh = False
         return self
@@ -193,15 +226,38 @@ class Vector(object):
             if self._device is None:
                 raise ValueError("Vector is attached to no device: "
                                  "initialize(device) it first")
-            self._set_devmem(self._device.put(self._mem))
-            Watcher.track_h2d(self._mem.nbytes)
+            inplace = (self.keep_address and self._devmem is not None
+                       and _same_layout(self._devmem, self._mem.shape,
+                                        self._mem.dtype))
+            if inplace:
+                self._device.put_into(self._devmem, self._mem)
+            else:
+                self._set_devmem(self._device.put(self._mem))
+            Watcher.track_h2d(self._mem.nbytes, inplace=inplace)
             self._dev_fresh = True
         return self._devmem
 
     @devmem.setter
     def devmem(self, value):
         """Publish a device tensor (new, or the old one updated in
-        place): the host copy is stale from here on."""
+        place): the host copy is stale from here on.  With
+        ``keep_address`` a new tensor of the bound one's shape and type
+        is copied into it."""
+        if value is not self._devmem:
+            if (self.keep_address and self._devmem is not None
+                    and value.device == self._devmem.device
+                    and _same_layout(self._devmem, value.shape,
+                                     value.dtype)):
+                self._devmem.copy_(value)
+            else:
+                self._set_devmem(value)
+        self._dev_fresh = True
+        self._host_fresh = False
+
+    def bind(self, value):
+        """Rebind to the device tensor ``value`` whatever
+        ``keep_address`` says (a segment binds the Vectors it produces
+        to its graph's static outputs); the host copy is stale."""
         if value is not self._devmem:
             self._set_devmem(value)
         self._dev_fresh = True

@@ -6,9 +6,11 @@
 ``external_mean``, ``internal_mean``) are not ported (ROADMAP item 7).
 
 The contract: ``analyze(data)`` streams over the TRAIN set once;
-``normalize(data)`` edits a host batch in place.  ``denormalize`` and
-``as_affine`` (the affine form a u8-resident dataset needs) wait for
-ROADMAP item 1b.
+``normalize(data)`` edits a host batch in place; ``as_affine()`` is the
+``(scale, shift)`` pair with ``normalize(x) == x*scale + shift`` for
+every sample, or None (the stitched loader head of a u8-resident
+dataset applies it, ``ops.gather.take_rows_norm``).  ``denormalize``
+has no caller in the port.
 """
 
 import numpy
@@ -56,6 +58,12 @@ class NormalizerBase(object, metaclass=NormalizerRegistry):
     def normalize(self, data):
         raise NotImplementedError
 
+    def as_affine(self):
+        """``(scale, shift)``, scalars or flat per-feature arrays, such
+        that ``normalize(x) == x*scale + shift`` for every sample; None
+        when the normalizer is not a sample-independent affine map."""
+        return None
+
 
 class NoneNormalizer(NormalizerBase):
     """Identity."""
@@ -64,6 +72,9 @@ class NoneNormalizer(NormalizerBase):
 
     def normalize(self, data):
         pass
+
+    def as_affine(self):
+        return (1.0, 0.0)
 
 
 class ScaleNormalizer(NormalizerBase):
@@ -77,6 +88,11 @@ class ScaleNormalizer(NormalizerBase):
 
     def normalize(self, data):
         data *= self.scale
+
+    def as_affine(self):
+        """The u8 dataset scaled by the head gives pre-scaled float32's
+        trajectory: both multiply by ``float32(scale)``."""
+        return (self.scale, 0.0)
 
 
 class LinearNormalizer(NormalizerBase):

@@ -20,8 +20,11 @@ Counterpart of :mod:`veles_tpu.ops.gemm`:
   PLACE (the JAX package donates them) and returned with err_input.
 
 The kernels take f32 only (bf16 arrives with the fused trainer) and
-compute full f32 at every ``precision_level``; the hyperparameters are
-plain kernel arguments.  The kernels scale by ``1/B`` as a multiply,
+compute full f32 at every ``precision_level``.  The hyperparameters
+are plain kernel arguments when given as numbers; given as 0-d f32
+tensors on the card, the dw and db kernels read them from device memory
+when they run, so a CUDA graph that captured the launch sees the values
+written before each replay.  The kernels scale by ``1/B`` as a multiply,
 as the Pallas kernels do; ``_gd_ref`` divides, as ``_gd_math`` does,
 so the two differ in the last bit.  There is no fallback from a CUDA
 tensor to the plain version.  ``launches`` counts kernel launches by
@@ -48,8 +51,8 @@ _ARGTYPES = {
     "matmul": ("veles_matmul", [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _P]),
     "gd_dx": ("veles_gd_dx", [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I, _P]),
     "gd_dw": ("veles_gd_dw", [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I] * 2
-              + [_F] * 4 + [_P]),
-    "gd_db": ("veles_gd_db", [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P]),
+              + [_F] * 4 + [_P] * 4),
+    "gd_db": ("veles_gd_db", [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P] * 4),
 }
 _entries = {}
 
@@ -225,6 +228,22 @@ def _gd_check(name, eo, y, w, transposed, x=None):
     return f
 
 
+def _hyperparameters(name, device, *values):
+    """The kernels' ``(floats, pointers)`` for the hyperparameters:
+    numbers go by value (null pointers), 0-d f32 tensors on ``device``
+    by address (zeros by value).  One call takes one kind."""
+    tensors = [isinstance(v, torch.Tensor) for v in values]
+    if not any(tensors):
+        return [float(v) for v in values], [None] * len(values)
+    for v in values:
+        if not isinstance(v, torch.Tensor) or v.dtype != torch.float32 \
+                or v.numel() != 1 or v.device != device:
+            raise ValueError("%s takes its hyperparameters as numbers or "
+                             "all as one-element f32 tensors on %s"
+                             % (name, device))
+    return [0.0] * len(values), [v.data_ptr() for v in values]
+
+
 def _gd_dx_cuda(eo, y, w, activation, transposed):
     """``veles_gd_dx``: err_input (B, F) = δ·Wᵀ (δ·W when transposed),
     δ rebuilt per tile from eo and y; w read through its strides."""
@@ -247,26 +266,29 @@ def _gd_dw_cuda(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
                 transposed):
     """``veles_gd_dw``: dW = xᵀδ (δᵀx in (N, F) storage) times
     ``inv_batch``, then the momentum update of the contiguous ``w`` and
-    ``vw`` in place."""
+    ``vw`` in place; ``lr``, ``decay``, ``moment`` numbers or 0-d f32
+    tensors on the card."""
     _gd_check("gd_dw", eo, y, w, transposed, x=x)
     _check_contiguous("gd_dw", w=w, vw=vw)
     if vw.shape != w.shape or vw.dtype != w.dtype or vw.device != w.device:
         raise ValueError("gd_dw: vw %s does not match w %s"
                          % (tuple(vw.shape), tuple(w.shape)))
     batch, n = eo.shape
+    values, pointers = _hyperparameters("gd_dw", eo.device, lr, decay,
+                                        moment)
     status = _entry("gd_dw")(
         x.data_ptr(), eo.data_ptr(), y.data_ptr(), w.data_ptr(),
         vw.data_ptr(), batch, x.shape[1], n, x.stride(0), x.stride(1),
         int(bool(transposed)), ACTIVATION_CODES[activation],
-        float(inv_batch), float(lr), float(decay), float(moment),
-        stream_handle(eo.device))
+        float(inv_batch), *values, *pointers, stream_handle(eo.device))
     check_status("gd_dw", status)
     launches["gd_dw"] += 1
 
 
 def _gd_db_cuda(eo, y, b, vb, inv_batch, lr, decay, moment, activation):
     """``veles_gd_db``: db = Σδ times ``inv_batch``, then the momentum
-    update of ``b`` and ``vb`` (N,) in place."""
+    update of ``b`` and ``vb`` (N,) in place; the hyperparameters as
+    for :func:`_gd_dw_cuda`."""
     _check_f32("gd_db", eo, y, b, vb)
     _check_contiguous("gd_db", err_output=eo, y=y, b=b, vb=vb)
     n = eo.shape[1]
@@ -274,10 +296,12 @@ def _gd_db_cuda(eo, y, b, vb, inv_batch, lr, decay, moment, activation):
         raise ValueError("gd_db: err_output %s, y %s, b %s, vb %s" % (
             tuple(eo.shape), tuple(y.shape), tuple(b.shape),
             tuple(vb.shape)))
+    values, pointers = _hyperparameters("gd_db", eo.device, lr, decay,
+                                        moment)
     status = _entry("gd_db")(
         eo.data_ptr(), y.data_ptr(), b.data_ptr(), vb.data_ptr(),
         eo.shape[0], n, ACTIVATION_CODES[activation], float(inv_batch),
-        float(lr), float(decay), float(moment), stream_handle(eo.device))
+        *values, *pointers, stream_handle(eo.device))
     check_status("gd_db", status)
     launches["gd_db"] += 1
 
@@ -289,7 +313,9 @@ def gd_fused(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
     ``gd_fused_pallas``, same arguments and returns ``(w, b, vw, vb,
     err_input)``).  ``w``/``vw`` are (F, N), or (N, F) when
     ``transposed``; ``x``, ``y`` and ``err_output`` have the batch
-    first.  W, vW (and b, vb when ``has_bias``) are updated in place."""
+    first.  W, vW (and b, vb when ``has_bias``) are updated in place.
+    The six hyperparameters are numbers, or 0-d f32 tensors on the
+    parameters' device (the stitched GD stage's scalar block)."""
     if activation not in ACTIVATION_CODES:
         raise ValueError("unknown activation %r" % (activation,))
     batch = x.shape[0]

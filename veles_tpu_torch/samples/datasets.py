@@ -7,7 +7,10 @@ downloaded.  Otherwise ``load_mnist`` returns the JAX package's
 synthetic stand-in: 28×28 images of 10 classes (a per-class template
 plus noise, min-max scaled into [0, 1]), 6000 train and 1000
 validation samples from ``numpy.random.default_rng(1234)`` — the same
-arrays bit for bit.
+arrays bit for bit.  ``raw=True`` gives the u8 pixels a u8-resident
+dataset keeps: the IDX bytes as they are, or the stand-in mapped to
+bytes by one mapping fit on the train split, as the JAX package maps
+it.
 """
 
 import gzip
@@ -50,20 +53,28 @@ def _mnist_paths():
 
 def load_mnist(raw=False):
     """``(train_x, train_y, test_x, test_y, real)``: floats in [0, 1]
-    and int64 labels, ``real`` False for the synthetic stand-in.  The
-    u8 ``raw`` form waits for ROADMAP item 1b."""
-    if raw:
-        raise NotImplementedError(
-            "load_mnist(raw=True) (u8 pixels for a u8-resident dataset) "
-            "is not ported yet (ROADMAP item 1b)")
+    (u8 pixels when ``raw``) and int64 labels, ``real`` False for the
+    synthetic stand-in."""
     paths = _mnist_paths()
     if paths:
-        tr_x = _read_idx(paths[0]).astype(numpy.float32) / 255.0
-        te_x = _read_idx(paths[2]).astype(numpy.float32) / 255.0
+        tr_x, te_x = _read_idx(paths[0]), _read_idx(paths[2])
+        if not raw:
+            tr_x = tr_x.astype(numpy.float32) / 255.0
+            te_x = te_x.astype(numpy.float32) / 255.0
         tr_y = _read_idx(paths[1]).astype(numpy.int64)
         te_y = _read_idx(paths[3]).astype(numpy.int64)
         return tr_x, tr_y, te_x, te_y, True
-    return _synthetic_images((28, 28), 10, 6000, 1000) + (False,)
+    tr_x, tr_y, te_x, te_y = _synthetic_images((28, 28), 10, 6000, 1000)
+    if raw:
+        # one byte mapping fit on TRAIN for both splits (a split-local
+        # min/max would scale train and validation pixels differently)
+        lo, hi = tr_x.min(), tr_x.max()
+
+        def to_u8(x):
+            return numpy.clip((x - lo) / max(hi - lo, 1e-6) * 255.0, 0,
+                              255).astype(numpy.uint8)
+        tr_x, te_x = to_u8(tr_x), to_u8(te_x)
+    return tr_x, tr_y, te_x, te_y, False
 
 
 def _synthetic_images(shape, n_classes, n_train, n_valid):

@@ -1,14 +1,21 @@
 """MnistSimple: the 784→100→10 softmax MLP, the port's counterpart of
 :mod:`veles_tpu.samples.mnist`.
 
-``create_workflow()`` builds the eager ``StandardWorkflow`` over the
-resident MNIST dataset (the synthetic stand-in when the IDX files are
-absent) and initializes it on the card; ``device="cpu"`` runs the same
-units over CPU tensors, where each kernel wrapper takes its plain
-version.  Every forward is one GEMM kernel launch and every gradient
-unit one dx/dw/db kernel step (``ops/gemm.py``).  Run it with
+``create_workflow()`` builds the ``StandardWorkflow`` over the resident
+MNIST dataset (the synthetic stand-in when the IDX files are absent) and
+initializes it on the card; ``device="cpu"`` runs the same units over
+CPU tensors, where each kernel wrapper takes its plain version.  With
+``engine.stitch=on`` (the default) each minibatch is two segment
+dispatches, ``[loader head, All2AllTanh, All2AllSoftmax,
+EvaluatorSoftmax]`` and, on train minibatches, ``[GDSoftmax, GDTanh]``:
+two CUDA graph replays on the card.  ``native=True`` keeps the dataset
+as uint8 and scales it by 1/255 in the loader head (the gather +
+normalize kernel); it needs stitching.  With ``engine.stitch=off`` the
+units run one by one (the gather, GEMM and dx/dw/db kernels).  Run it
+with
 
     python -m veles_tpu_torch.samples.mnist [--device cpu] [--max-epochs N]
+        [--native] [--stitch on|off]
 
 which prints ``gather_results()`` and the epochs per second.
 """
@@ -22,6 +29,7 @@ import time
 import numpy
 
 from veles_tpu_torch.backends import make_device
+from veles_tpu_torch.config import root
 from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.samples.datasets import load_mnist
@@ -38,10 +46,12 @@ LAYERS = [
 
 
 class MnistLoader(FullBatchLoader):
-    """MNIST: validation = the t10k set, train = the train set."""
+    """MNIST: validation = the t10k set, train = the train set; u8
+    pixels when ``native_device_dtype``."""
 
     def load_data(self):
-        tr_x, tr_y, te_x, te_y, real = load_mnist()
+        raw = self.native_device_dtype
+        tr_x, tr_y, te_x, te_y, real = load_mnist(raw=raw)
         if not real:
             self.warning("real MNIST not found under $VELES_DATASETS or "
                          "root.common.dirs.datasets — using the synthetic "
@@ -49,30 +59,29 @@ class MnistLoader(FullBatchLoader):
         data = numpy.concatenate([te_x, tr_x]).reshape(-1, 784)
         labels = numpy.concatenate([te_y, tr_y])
         self.original_data.mem = numpy.ascontiguousarray(
-            data, dtype=numpy.float32)
+            data, dtype=numpy.uint8 if raw else numpy.float32)
         self.original_labels = [int(v) for v in labels]
         self.class_lengths[:] = [0, len(te_y), len(tr_y)]
 
 
 def create_workflow(device=None, max_epochs=25, minibatch_size=100,
-                    layers=None, **kwargs):
+                    layers=None, native=False, **kwargs):
     """The MNIST MLP workflow, initialized on ``device`` (the card when
-    None; raises without one).  ``snapshot_dir`` and ``native`` of the
-    JAX function are not ported (ROADMAP items 7 and 1b)."""
+    None; raises without one).  ``native=True``: the uint8-resident
+    dataset, normalized by ``"scale"`` (1/255) in the stitched loader
+    head unless ``normalization_type`` says otherwise.
+    ``snapshot_dir`` is not ported (ROADMAP item 7)."""
     if kwargs.pop("snapshot_dir", None):
         raise NotImplementedError(
             "snapshot_dir (the snapshotter) is not ported yet "
             "(ROADMAP item 7)")
-    if kwargs.pop("native", False):
-        raise NotImplementedError(
-            "native=True (the u8-resident dataset) is not ported yet "
-            "(ROADMAP item 1b)")
     device = make_device(device)
-    normalization = kwargs.pop("normalization_type", "none")
+    normalization = kwargs.pop("normalization_type",
+                               "scale" if native else "none")
     wf = StandardWorkflow(
         None,
         loader_factory=lambda w: MnistLoader(
-            w, minibatch_size=minibatch_size,
+            w, minibatch_size=minibatch_size, native_device_dtype=native,
             normalization_type=normalization),
         layers=[{**spec} for spec in (layers or LAYERS)],
         decision_config={"max_epochs": max_epochs,
@@ -87,15 +96,25 @@ def create_workflow(device=None, max_epochs=25, minibatch_size=100,
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m veles_tpu_torch.samples.mnist",
-        description="Train the MNIST MLP through the eager workflow.")
+        description="Train the MNIST MLP through the workflow.")
     parser.add_argument("--device", default=None,
                         help="cpu, or a cuda device (default: the card)")
     parser.add_argument("--max-epochs", type=int, default=25)
     parser.add_argument("--minibatch-size", type=int, default=100)
+    parser.add_argument("--native", action="store_true",
+                        help="keep the dataset as uint8, scaled in the "
+                        "stitched loader head")
+    parser.add_argument("--stitch", choices=("on", "off"), default=None,
+                        help="engine.stitch: segments (CUDA graphs on "
+                        "the card) or the eager per-unit chain "
+                        "(default: the config's, on)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    if args.stitch is not None:
+        root.common.engine.stitch = args.stitch
     wf = create_workflow(device=args.device, max_epochs=args.max_epochs,
-                         minibatch_size=args.minibatch_size)
+                         minibatch_size=args.minibatch_size,
+                         native=args.native)
     tic = time.perf_counter()
     wf.run()
     wf.device.sync()

@@ -1,0 +1,484 @@
+"""Segment stitching: each maximal chain of stitchable units runs as one
+segment, which is one CUDA graph on the card.
+
+The port's counterpart of :mod:`veles_tpu.stitch`.  At
+``Workflow.initialize()`` the control graph is walked and every maximal
+linear run of units that return a :class:`StitchStage` from
+``stitch_stage()`` becomes a :class:`StitchSegment`.  Host units (the
+Decision, the Repeater) stay barriers, and the gate protocol is
+untouched: a member still opens its gate and propagates control, its
+``run()`` becomes a no-op because the segment's head computed it.  For
+the MNIST MLP that gives ``[loader head, All2AllTanh, All2AllSoftmax,
+EvaluatorSoftmax]`` and ``[GDSoftmax, GDTanh]``.
+
+A stage declares by Vector identity what it consumes, produces, reads
+as parameters and DONATES (updates in place), the host scalars of each
+dispatch and the device metrics it publishes; a loader head also has a
+``prelude``, the host serving bookkeeping that runs before the
+scalars are read.  The scalars of one segment are written into one
+device block per type (int32, float32) before each dispatch, and the
+stage functions read 0-d views of it, so the values change while the
+graph does not: the loader's ``(offset, size)`` and the GD units'
+learning rates reach the kernels at replay time.
+
+Execution on the card: the first dispatch runs the stages eagerly (a
+real step, which also warms up the lazy builds and loads); the second
+captures them into a ``torch.cuda.CUDAGraph`` (on the capture side
+stream) and replays it once; every later dispatch writes the scalar
+blocks and replays.  The Vectors the segment produces are bound once
+to the graph's static outputs, and every Vector it reads is set to
+``keep_address``, so uploads and publishes go into the captured
+buffers.  Before each replay the segment checks the address of every
+tensor it reads against the captured one; a moved tensor makes it
+recapture (counted in ``recaptures`` and logged), never read a stale
+address.  On the CPU a segment runs its stage functions in order,
+eagerly, over CPU tensors, with the same scalar blocks.
+
+Launch counters count executed launches: a capture records how many
+launches of each kernel went into the graph and restores the counters,
+and each replay adds them.
+
+Not ported: pod shardings, health instrumentation, the AOT
+``EnforcedProgram`` and the ``prof`` ledger (the capture and recapture
+counters stand in for the last two), and the JAX package's fallbacks to
+per-unit dispatch when a ``stitch_stage()`` or a segment build raises:
+here the exception propagates.  ``engine.epoch_scan`` other than
+``off`` raises (ROADMAP item 1c).
+"""
+
+import time
+
+import numpy
+import torch
+
+from veles_tpu_torch import trace
+from veles_tpu_torch.config import root
+from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.memory import Vector, Watcher
+from veles_tpu_torch.mutable import Bool
+
+
+def enabled():
+    """The ``engine.stitch`` switch, read at call time."""
+    value = root.common.engine.get("stitch", "on")
+    if isinstance(value, str):
+        return value.lower() not in ("off", "0", "false", "no")
+    return bool(value)
+
+
+def check_epoch_scan():
+    """Raise unless ``engine.epoch_scan`` is ``off``."""
+    value = root.common.engine.get("epoch_scan", "off")
+    if str(value).lower() != "off":
+        raise NotImplementedError(
+            "engine.epoch_scan=%r (K-step epoch windows) is not ported "
+            "yet (ROADMAP item 1c)" % (value,))
+
+
+class StitchStage(object):
+    """One unit's part of a segment.
+
+    ``fn(tensors)`` receives a dict with every declared name (consumes
+    + params + donated + scalars, the scalars as 0-d tensors) and
+    returns a dict with every ``produces`` name, every ``donated`` name
+    (the same buffer, updated in place) and every ``metrics`` name
+    (device scalars set on the unit after each dispatch)."""
+
+    __slots__ = ("unit", "fn", "consumes", "produces", "params",
+                 "donated", "scalars", "metrics", "prelude")
+
+    def __init__(self, unit, fn, consumes=None, produces=None,
+                 params=None, donated=None, scalars=None, metrics=(),
+                 prelude=None):
+        self.unit = unit
+        self.fn = fn
+        self.consumes = dict(consumes or {})
+        self.produces = dict(produces or {})
+        self.params = dict(params or {})
+        self.donated = dict(donated or {})
+        #: callable -> {name: int or float}, read at every dispatch
+        self.scalars = scalars
+        self.metrics = tuple(metrics)
+        #: host callable run before every dispatch, before the scalars
+        self.prelude = prelude
+
+    def vectors(self):
+        for group in (self.consumes, self.produces, self.params,
+                      self.donated):
+            for vec in group.values():
+                yield vec
+
+
+def _launch_counters():
+    """Every kernel wrapper module's ``launches`` dict."""
+    from veles_tpu_torch.ops import attention, gather, gemm
+    return (attention.launches, gather.launches, gemm.launches)
+
+
+class ScalarBlock(object):
+    """The scalars of one type of a segment's dispatch, in one device
+    buffer that the stage functions read through 0-d views.  On the
+    card each write goes through a small ring of pinned host buffers,
+    so the host never overwrites one whose copy is still queued."""
+
+    RING = 4
+
+    def __init__(self, count, dtype, device):
+        self.dtype = dtype
+        self.tensor = torch.zeros(count, dtype=dtype, device=device)
+        self.nbytes = self.tensor.numel() * self.tensor.element_size()
+        self._ring = []
+        if self.tensor.device.type == "cuda":
+            self._ring = [(torch.empty(count, dtype=dtype, pin_memory=True),
+                           torch.cuda.Event()) for _ in range(self.RING)]
+            self._used = [False] * self.RING
+            self._next = 0
+
+    def view(self, index):
+        return self.tensor[index]
+
+    def write(self, values):
+        if not self._ring:
+            self.tensor.copy_(torch.tensor(values, dtype=self.dtype))
+        else:
+            slot = self._next
+            self._next = (slot + 1) % self.RING
+            host, done = self._ring[slot]
+            if self._used[slot]:
+                done.synchronize()
+            host.numpy()[:] = values
+            self.tensor.copy_(host, non_blocking=True)
+            done.record()
+            self._used[slot] = True
+        Watcher.track_h2d(self.nbytes)
+
+
+class StitchSegment(Logger):
+    """A maximal run of stitchable units, dispatched as one step."""
+
+    def __init__(self, units, stages, device):
+        super(StitchSegment, self).__init__()
+        self.units = list(units)
+        self.stages = list(stages)
+        self.head = self.units[0]
+        self.device = torch.device(device)
+        self.dispatches = 0
+        #: graph captures, and the recaptures among them
+        self.captures = 0
+        self.recaptures = 0
+        self.replays = 0
+        #: host seconds spent capturing (torch.cuda.graph synchronizes
+        #: and collects garbage on entry)
+        self.capture_seconds = 0.0
+        self._computed = set()
+        self._member_ids = frozenset(id(u) for u in self.units[1:])
+        self._graph = None
+        self._graph_launches = []
+        self._captured_ptrs = None
+        #: the graph's (outputs, donated, metrics), bound at capture
+        self._static = None
+        self._build_plan()
+        self._trace_args = {"segment": "+".join(self.names)}
+
+    @property
+    def names(self):
+        return [u.name for u in self.units]
+
+    @property
+    def graph_launches(self):
+        """``{kernel: launches}`` of one replay of the captured graph."""
+        return {name: count for _counters, name, count
+                in self._graph_launches}
+
+    def __repr__(self):
+        return "<StitchSegment %s>" % "+".join(self.names)
+
+    # -- plan ---------------------------------------------------------------
+    def _build_plan(self):
+        produced = set()
+        input_vecs, input_ids = [], set()
+        ro_vecs, don_vecs = [], []
+        ro_slots, don_slots = [], []
+        scalar_slots, kinds = [], {}
+        metric_spec = []
+        for stage in self.stages:
+            for vec in stage.consumes.values():
+                if id(vec) not in produced and id(vec) not in input_ids:
+                    input_ids.add(id(vec))
+                    input_vecs.append(vec)
+            ro_slots.append([])
+            for name, vec in sorted(stage.params.items()):
+                ro_slots[-1].append((len(ro_vecs), name))
+                ro_vecs.append(vec)
+            don_slots.append([])
+            for name, vec in sorted(stage.donated.items()):
+                don_slots[-1].append((len(don_vecs), name))
+                don_vecs.append(vec)
+            scalar_slots.append([])
+            if stage.scalars is not None:
+                for name, value in sorted(stage.scalars().items()):
+                    # ints stay int32, exact offsets; the rest float32
+                    kind = "int" if isinstance(value, (int, numpy.integer)) \
+                        and not isinstance(value, bool) else "float"
+                    index = kinds.get(kind, 0)
+                    kinds[kind] = index + 1
+                    scalar_slots[-1].append((kind, index, name))
+            for vec in stage.produces.values():
+                produced.add(id(vec))
+            for name in stage.metrics:
+                metric_spec.append((stage.unit, name))
+        # a donated buffer belongs to ONE stage and doubles as nothing
+        # else in the segment: a later stage would read it half updated
+        don_ids = [id(vec) for vec in don_vecs]
+        aliased = (len(don_ids) != len(set(don_ids))
+                   or any(i in input_ids for i in don_ids)
+                   or any(i in produced for i in don_ids)
+                   or any(id(vec) in don_ids for vec in ro_vecs))
+        if aliased:
+            raise ValueError(
+                "segment %s aliases a donated Vector with another "
+                "read/write slot - not stitchable" % "+".join(self.names))
+        output_vecs, seen = [], set()
+        for stage in self.stages:
+            for vec in stage.produces.values():
+                if id(vec) not in seen:
+                    seen.add(id(vec))
+                    output_vecs.append(vec)
+        self._read_vecs = input_vecs + ro_vecs + don_vecs
+        for vec in self._read_vecs:
+            vec.keep_address = True
+        self._n_inputs, self._n_ro = len(input_vecs), len(ro_vecs)
+        self._input_vecs = input_vecs
+        self._ro_slots, self._don_slots = ro_slots, don_slots
+        self._don_vecs = don_vecs
+        self._scalar_slots = scalar_slots
+        self._output_vecs = output_vecs
+        self._metric_spec = metric_spec
+        self._blocks = {
+            kind: ScalarBlock(count, torch.int32 if kind == "int"
+                              else torch.float32, self.device)
+            for kind, count in kinds.items()}
+
+    # -- the stages ----------------------------------------------------------
+    def _write_scalars(self):
+        values = {kind: [None] * block.tensor.numel()
+                  for kind, block in self._blocks.items()}
+        for stage, slots in zip(self.stages, self._scalar_slots):
+            if slots:
+                current = stage.scalars()
+                for kind, index, name in slots:
+                    values[kind][index] = current[name]
+        for kind, block in self._blocks.items():
+            block.write(values[kind])
+
+    def _run_stages(self, tensors):
+        """The stage functions in order over ``tensors`` (inputs, then
+        read-only params, then donated buffers, as ``_read_vecs``):
+        ``(outputs, donated, metrics)``."""
+        inputs = tensors[:self._n_inputs]
+        ro = tensors[self._n_inputs:self._n_inputs + self._n_ro]
+        don = list(tensors[self._n_inputs + self._n_ro:])
+        env = {id(vec): t for vec, t in zip(self._input_vecs, inputs)}
+        metrics = []
+        for si, stage in enumerate(self.stages):
+            t = {name: env[id(vec)] for name, vec in stage.consumes.items()}
+            for pos, name in self._ro_slots[si]:
+                t[name] = ro[pos]
+            for pos, name in self._don_slots[si]:
+                t[name] = don[pos]
+            for kind, index, name in self._scalar_slots[si]:
+                t[name] = self._blocks[kind].view(index)
+            out = stage.fn(t)
+            for name, vec in stage.produces.items():
+                env[id(vec)] = out[name]
+            for pos, name in self._don_slots[si]:
+                don[pos] = out[name]
+            metrics.extend(out[name] for name in stage.metrics)
+        return [env[id(vec)] for vec in self._output_vecs], don, metrics
+
+    def _publish(self, outputs, donated, metrics):
+        for vec, value in zip(self._output_vecs, outputs):
+            vec.devmem = value
+        for vec, value in zip(self._don_vecs, donated):
+            vec.devmem = value
+        for (unit, name), value in zip(self._metric_spec, metrics):
+            setattr(unit, name, value)
+
+    # -- the graph -----------------------------------------------------------
+    def _capture(self, tensors):
+        """Capture the stages into a new graph (nothing runs yet), bind
+        the produced Vectors to its outputs and record its launches."""
+        tic = time.perf_counter()
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                outputs, donated, metrics = self._run_stages(tensors)
+        finally:
+            launched = [(c, name, c[name] - b[name])
+                        for c, b in zip(counters, before) for name in c]
+            for c, b in zip(counters, before):
+                c.update(b)
+        moved = [vec for vec, new, old in zip(
+            self._don_vecs, donated, tensors[self._n_inputs + self._n_ro:])
+            if new.data_ptr() != old.data_ptr()]
+        if moved:
+            raise RuntimeError("%s: a stage returned a new buffer for a "
+                               "donated Vector (%s); donated buffers are "
+                               "updated in place" % (self, moved))
+        self._graph = graph
+        self._graph_launches = [entry for entry in launched if entry[2]]
+        self._captured_ptrs = [t.data_ptr() for t in tensors]
+        for vec, value in zip(self._output_vecs, outputs):
+            vec.bind(value)
+        self._static = (outputs, donated, metrics)
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - tic
+
+    def _replay(self, tensors):
+        ptrs = [t.data_ptr() for t in tensors]
+        if self._graph is None:
+            self._capture(tensors)
+        elif ptrs != self._captured_ptrs:
+            moved = [vec for vec, a, b in zip(self._read_vecs, ptrs,
+                                              self._captured_ptrs) if a != b]
+            self.warning("%s: %d tensor(s) it reads moved (%s); "
+                         "recapturing", self, len(moved), moved)
+            self.recaptures += 1
+            self._capture(tensors)
+        self._graph.replay()
+        self.replays += 1
+        for counters, name, count in self._graph_launches:
+            counters[name] += count
+        self._publish(*self._static)
+
+    # -- execution ----------------------------------------------------------
+    def execute(self):
+        """Run the preludes, write the scalars and dispatch the
+        segment: eagerly on the CPU and at the first dispatch on the
+        card, as a graph replay after that."""
+        with trace.span("segment", "dispatch", self._trace_args):
+            for stage in self.stages:
+                if stage.prelude is not None:
+                    stage.prelude()
+            self._write_scalars()
+            tensors = [vec.devmem for vec in self._read_vecs]
+            if self.device.type == "cuda" and self.dispatches > 0:
+                self._replay(tensors)
+            else:
+                self._publish(*self._run_stages(tensors))
+            self.dispatches += 1
+            self._computed = set(self._member_ids)
+
+    def member_run(self, unit):
+        """The per-unit hook: the head dispatches the segment, members
+        are no-ops for the pass the head computed.  A member firing
+        without a preceding head dispatch runs its own ``run()``."""
+        if unit is self.head:
+            self.execute()
+            return
+        if id(unit) in self._computed:
+            self._computed.discard(id(unit))
+            return
+        unit.run()
+
+    def reset_pass(self):
+        """Forget a half-consumed pass (``Workflow.run`` calls this
+        before each drain)."""
+        self._computed = set()
+
+    def detach(self):
+        for unit in self.units:
+            unit.attach_stitch_segment(None)
+
+    def report(self):
+        return {"names": self.names, "dispatches": self.dispatches,
+                "captures": self.captures, "recaptures": self.recaptures,
+                "replays": self.replays,
+                "capture_s": self.capture_seconds,
+                "graph_launches": self.graph_launches,
+                "loader_headed": any(s.prelude is not None
+                                     for s in self.stages)}
+
+
+# -- building segments ------------------------------------------------------
+
+def _constant_false(cell):
+    """A plain Bool(False) with no expression: the gate can never flip
+    under the segment."""
+    return (type(cell) is Bool and cell._expr is None
+            and cell._value is False)
+
+
+def _gate_compatible(head, unit):
+    if unit.ignores_gate or not _constant_false(unit.gate_block):
+        return False
+    return (_constant_false(unit.gate_skip)
+            or unit.gate_skip is head.gate_skip)
+
+
+def _stage_of(unit, cache):
+    if id(unit) not in cache:
+        maker = getattr(unit, "stitch_stage", None)
+        cache[id(unit)] = maker() if callable(maker) else None
+    return cache[id(unit)]
+
+
+def _vectors_ready(stage):
+    return all(isinstance(vec, Vector) and vec for vec in stage.vectors())
+
+
+def build_segments(workflow):
+    """Walk the control graph and return its :class:`StitchSegment`\\ s
+    (empty when stitching is off, no device is attached, or no chain
+    qualifies).  Members get their segment through
+    ``Unit.attach_stitch_segment``."""
+    if not enabled():
+        return []
+    device = getattr(workflow, "device", None)
+    torch_device = getattr(device, "torch_device", None)
+    if torch_device is None:
+        return []
+    cache = {}
+    assigned = set()
+    segments = []
+    for unit in workflow.units_in_dependency_order():
+        if id(unit) in assigned or unit is workflow:
+            continue
+        head_stage = _stage_of(unit, cache)
+        if head_stage is None:
+            continue
+        chain, stages, cur = [unit], [head_stage], unit
+        while True:
+            targets = list(cur.links_to)
+            if len(targets) != 1:
+                break
+            nxt = targets[0]
+            if id(nxt) in assigned or len(nxt.links_from) != 1 \
+                    or not _gate_compatible(unit, nxt):
+                break
+            stage = _stage_of(nxt, cache)
+            if stage is None:
+                break
+            chain.append(nxt)
+            stages.append(stage)
+            cur = nxt
+        if len(chain) < 2:
+            continue
+        blocked = [s.unit.name for s in stages if not _vectors_ready(s)]
+        if blocked:
+            workflow.info(
+                "not stitching %s: %s exposes an empty Vector; the chain "
+                "stays on per-unit dispatch",
+                "+".join(u.name for u in chain), ", ".join(blocked))
+            continue
+        segment = StitchSegment(chain, stages, torch_device)
+        for member in chain:
+            member.attach_stitch_segment(segment)
+            assigned.add(id(member))
+        segments.append(segment)
+    if segments:
+        workflow.info("stitched %d segment(s): %s", len(segments),
+                      "; ".join("+".join(s.names) for s in segments))
+    return segments

@@ -17,8 +17,11 @@ The port's counterpart of :mod:`veles_tpu.units`:
   that ``StandardWorkflow`` builds layers from).
 
 The scheduler is the workflow's iterative FIFO work queue, as in the
-JAX package.  Segment stitching (``stitch_stage``) and background units
-(``wants_thread``) are not ported (ROADMAP item 1b).
+JAX package.  Segment stitching: a unit opts in by returning a
+:class:`veles_tpu_torch.stitch.StitchStage` from ``stitch_stage()``;
+while the workflow runs with ``stitch_active``, ``run_wrapped`` goes
+through the unit's segment (the head dispatches it, members no-op).
+Background units (``wants_thread``) are not ported (ROADMAP item 7).
 """
 
 import threading
@@ -78,6 +81,7 @@ class Unit(Pickleable, metaclass=UnitRegistry):
     def init_unpickled(self):
         super(Unit, self).init_unpickled()
         self._gate_lock_ = threading.Lock()
+        self._stitch_segment_ = None
 
     def __repr__(self):
         return '<%s "%s">' % (self.__class__.__name__, self.name)
@@ -136,6 +140,19 @@ class Unit(Pickleable, metaclass=UnitRegistry):
     def stop(self):
         pass
 
+    # -- segment stitching (veles_tpu_torch.stitch) ---------------------------
+    def stitch_stage(self):
+        """This unit's :class:`veles_tpu_torch.stitch.StitchStage`, or
+        None (the default: the unit is a barrier)."""
+        return None
+
+    def attach_stitch_segment(self, segment):
+        self._stitch_segment_ = segment
+
+    @property
+    def stitch_segment(self):
+        return self._stitch_segment_
+
     # -- gate semantics -----------------------------------------------------
     def open_gate(self, src):
         """Mark the edge from ``src`` as fired; True when ALL incoming
@@ -167,14 +184,20 @@ class Unit(Pickleable, metaclass=UnitRegistry):
 
     def run_wrapped(self):
         """``run()`` under a ``unit`` span, with wall-time accounting
-        and the workflow's stop check."""
+        and the workflow's stop check; through the unit's segment while
+        the workflow runs stitched (the segment's own span covers it)."""
         wf = self.workflow
         if wf is not None and wf.stopped:
             return
+        segment = self._stitch_segment_
         tic = time.perf_counter()
         try:
-            with trace.span("unit", self.name):
-                self.run()
+            if segment is not None and wf is not None \
+                    and getattr(wf, "stitch_active", False):
+                segment.member_run(self)
+            else:
+                with trace.span("unit", self.name):
+                    self.run()
         except Exception:
             self.error("failed to run %r", self)
             if wf is not None:

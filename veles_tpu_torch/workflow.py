@@ -7,9 +7,12 @@ requeue, the run loop (an iterative FIFO work queue drained on the
 calling thread, deterministic), run-time statistics and result
 gathering.
 
-Not ported (ROADMAP item 7): the master/slave job protocol, checkpoint
-capture and restore, ``checksum`` and ``package_export``; segment
-stitching and epoch-scan windows wait for item 1b.
+Segment stitching (:mod:`veles_tpu_torch.stitch`): ``initialize()``
+ends with ``rebuild_stitching()``, and ``run()`` rebuilds when the
+``engine.stitch`` knob was flipped since the last build.  Not ported
+(ROADMAP item 7): the master/slave job protocol, checkpoint capture and
+restore, ``checksum`` and ``package_export``; epoch-scan windows wait
+for item 1c.
 """
 
 import collections
@@ -38,6 +41,10 @@ class Workflow(Unit):
     def init_unpickled(self):
         super(Workflow, self).init_unpickled()
         self._queue_ = collections.deque()
+        self._stitch_segments_ = []
+        self._stitch_active_ = False
+        #: was the switch on when the segments were last (re)built?
+        self._stitch_built_enabled_ = False
 
     # -- membership ---------------------------------------------------------
     def add_ref(self, unit):
@@ -110,7 +117,34 @@ class Workflow(Unit):
                 pending.append(unit)
         self._is_initialized = True
         self.stopped = False
+        self.rebuild_stitching()
         return self
+
+    # -- segment stitching ----------------------------------------------------
+    def rebuild_stitching(self):
+        """(Re)walk the unit chain into segments
+        (:func:`veles_tpu_torch.stitch.build_segments`)."""
+        from veles_tpu_torch import stitch
+        stitch.check_epoch_scan()
+        for segment in self._stitch_segments_:
+            segment.detach()
+        self._stitch_segments_ = stitch.build_segments(self)
+        self._stitch_built_enabled_ = stitch.enabled()
+        return self._stitch_segments_
+
+    @property
+    def stitch_active(self):
+        """True while run() executes with stitched segments live."""
+        return self._stitch_active_
+
+    @property
+    def stitch_segments(self):
+        return list(self._stitch_segments_)
+
+    def stitch_report(self):
+        """Each segment's units, dispatches, graph captures,
+        recaptures, replays and launches per replay."""
+        return [segment.report() for segment in self._stitch_segments_]
 
     # -- execution ----------------------------------------------------------
     def schedule(self, unit, src):
@@ -121,6 +155,13 @@ class Workflow(Unit):
         """Run the graph until the end point fires (or a unit fails)."""
         if not self._is_initialized:
             raise RuntimeError("initialize() the workflow before run()")
+        from veles_tpu_torch import stitch
+        if stitch.enabled() != self._stitch_built_enabled_:
+            self.rebuild_stitching()
+        self._stitch_active_ = bool(self._stitch_segments_)
+        for segment in self._stitch_segments_:
+            # an interrupted run may have left members unconsumed
+            segment.reset_pass()
         self.stopped = False
         self.schedule(self.start_point, None)
         self._drain()

@@ -2,12 +2,15 @@
 :mod:`veles_tpu.znicz.all2all`.
 
 ``output = activation(input·W + b)`` with Znicz's activations (scaled
-tanh ``1.7159·tanh(0.6666x)``, smooth relu ``log(1+eˣ)``).  ``cuda_run``
-is one call of :func:`veles_tpu_torch.ops.gemm.matmul`: the bias and the
+tanh ``1.7159·tanh(0.6666x)``, smooth relu ``log(1+eˣ)``).  ``pure`` is
+one call of :func:`veles_tpu_torch.ops.gemm.matmul`: the bias and the
 activation ride the GEMM kernel's epilogue, and the input stays on the
-device between layers.  ``All2AllSoftmax`` runs the GEMM without an
-activation and leaves the softmax and ``max_idx`` to plain torch, as
-the JAX package leaves them to XLA.  The int8 ``qgemm`` branch is not ported (ROADMAP item 3).
+device between layers; ``cuda_run`` and the stitched stage both call
+it.  ``All2AllSoftmax`` runs the GEMM without an activation and leaves
+the softmax and ``max_idx`` to plain torch, as the JAX package leaves
+them to XLA: the eager unit takes ``max_idx`` from the logits, the
+stitched stage from the softmax output, as the JAX package's do.  The
+int8 ``qgemm`` branch is not ported (ROADMAP item 3).
 """
 
 import numpy
@@ -58,19 +61,18 @@ class All2All(ForwardBase):
             (batch,) + self.output_sample_shape, dtype=numpy.float32))
         self.init_vectors(self.weights, self.bias, self.output)
 
-    def _gemm(self, activation):
-        """One GEMM kernel call over the device buffers (a transposed
-        storage is read through its strides, not copied)."""
-        x = self.input.devmem
-        x = x.reshape(x.shape[0], -1)
-        w = self.weights.devmem
-        if self.weights_transposed:
-            w = w.t()
-        bias = self.bias.devmem if self.include_bias else None
-        return gemm.matmul(x, w, bias, activation)
+    def _gemm(self, params, x, activation):
+        """One GEMM kernel call (a transposed storage is read through
+        its strides, not copied)."""
+        w = params["w"].t() if self.weights_transposed else params["w"]
+        return gemm.matmul(x.reshape(x.shape[0], -1), w, params.get("b"),
+                           activation)
+
+    def pure(self, params, x):
+        return self._gemm(params, x, self.ACTIVATION)
 
     def cuda_run(self):
-        out = self._gemm(self.ACTIVATION)
+        out = self.pure(self.pure_params(), self.input.devmem)
         self.output.devmem = out.reshape(
             (out.shape[0],) + self.output_sample_shape)
 
@@ -119,9 +121,33 @@ class All2AllSoftmax(All2All):
                                        dtype=numpy.int32))
         self.init_vectors(self.max_idx)
 
+    def pure(self, params, x):
+        return _softmax(self._gemm(params, x, None))
+
     def cuda_run(self):
-        logits = self._gemm(None)
-        m = logits.max(dim=1, keepdim=True).values
-        e = torch.exp(logits - m)
-        self.output.devmem = e / e.sum(dim=1, keepdim=True)
+        logits = self._gemm(self.pure_params(), self.input.devmem, None)
+        self.output.devmem = _softmax(logits)
         self.max_idx.devmem = logits.argmax(dim=1).to(torch.int32)
+
+    def stitch_stage(self):
+        """The generic stage, also producing ``max_idx`` as the argmax
+        of the softmax output (the same as the logits' but for ties)."""
+        base = super(All2AllSoftmax, self).stitch_stage()
+        if base is None or not self.max_idx:
+            return base
+        inner = base.fn
+
+        def fn(t):
+            out = inner(t)
+            out["max_idx"] = out["output"].argmax(dim=1).to(torch.int32)
+            return out
+
+        base.fn = fn
+        base.produces["max_idx"] = self.max_idx
+        return base
+
+
+def _softmax(logits):
+    m = logits.max(dim=1, keepdim=True).values
+    e = torch.exp(logits - m)
+    return e / e.sum(dim=1, keepdim=True)

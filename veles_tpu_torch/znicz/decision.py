@@ -1,6 +1,6 @@
 """Decision: epoch accounting, stop criteria and improvement tracking —
 the port's counterpart of :mod:`veles_tpu.znicz.decision`, ported for
-``DecisionGD`` (``DecisionMSE`` waits for ROADMAP item 1b).
+``DecisionGD`` (``DecisionMSE`` waits for ROADMAP item 1c).
 
 ``DecisionGD`` accumulates the evaluator's per-minibatch ``n_err`` per
 class over an epoch, closes a class at its last minibatch (``n_err_pt``,
@@ -9,7 +9,10 @@ raises ``complete`` at ``max_epochs`` or after ``fail_iterations``
 epochs without improvement.  On the device path ``n_err`` is a device
 scalar: the Decision keeps a running device sum per class and fetches
 it ONCE, at the class end (one 8-byte device→host copy), instead of
-every minibatch.  The epoch-scan window protocol waits for item 1b.
+every minibatch.  The sum is the Decision's own buffer, added to by
+value: on the stitched route the evaluator's ``n_err`` is a graph's
+static output, overwritten by the next replay.  The epoch-scan window
+protocol waits for item 1c.
 """
 
 import torch
@@ -56,7 +59,10 @@ class DecisionBase(Unit):
             sums[cls] += float(value)
             return
         pending = self._pending_[cls]
-        self._pending_[cls] = value if pending is None else pending + value
+        if pending is None:
+            self._pending_[cls] = value.clone()
+        else:
+            pending.add_(value)
 
     def _flush_metrics(self, sums, cls):
         """Fetch the class's running device sum (one copy) into

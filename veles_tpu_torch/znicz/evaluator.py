@@ -1,6 +1,6 @@
 """Evaluators: the port's counterpart of :mod:`veles_tpu.znicz.evaluator`,
 ported for the softmax loss (``EvaluatorMSE`` waits for ROADMAP item
-1b, with ``FullBatchLoaderMSE``).
+1c, with ``FullBatchLoaderMSE``).
 
 ``EvaluatorSoftmax`` emits ``err_output`` = δ = (y − onehot(label)) for
 the gradient chain and the minibatch's ``n_err`` (mis-argmax count),
@@ -8,7 +8,9 @@ the gradient chain and the minibatch's ``n_err`` (mis-argmax count),
 :func:`_softmax_eval_math` in torch over the full padded buffers: rows
 with label < 0 (the short batch's padding) are masked out, ``n_err`` and
 ``loss`` stay device scalars (the Decision fetches them once per class
-end) and the confusion matrix accumulates on the device.
+end) and the confusion matrix accumulates on the device.  The stitched
+stage runs the same math with the confusion matrix donated and
+``n_err``/``loss`` as the segment's metrics.
 """
 
 import numpy
@@ -38,8 +40,10 @@ def _softmax_eval_math(out, labels, max_idx, confusion):
         / n_valid.clamp(min=1),
         torch.zeros((), dtype=torch.float32, device=out.device))
     if confusion is not None:
-        confusion.index_put_((lbl, pred), valid.to(confusion.dtype),
-                             accumulate=True)
+        # integer counts: the order of the adds does not matter
+        n = confusion.shape[1]
+        confusion.view(-1).index_add_(0, lbl * n + pred,
+                                      valid.to(confusion.dtype))
     return err, n_err, loss, confusion
 
 
@@ -85,3 +89,26 @@ class EvaluatorSoftmax(EvaluatorBase):
             self.confusion_matrix.devmem)
         self.err_output.devmem = err
         self.confusion_matrix.devmem = cm
+
+    def stitch_stage(self):
+        """The evaluator's math inside the forward segment: produces
+        ``err_output``, updates the donated confusion matrix and
+        publishes ``n_err`` and ``loss`` as device scalars."""
+        from veles_tpu_torch.stitch import StitchStage
+        if not isinstance(self.labels, Vector) \
+                or not isinstance(self.max_idx, Vector):
+            return None
+
+        def fn(t):
+            err, n_err, loss, cm = _softmax_eval_math(
+                t["output"], t["labels"], t["max_idx"], t["confusion"])
+            return {"err_output": err, "n_err": n_err, "loss": loss,
+                    "confusion": cm}
+
+        return StitchStage(
+            self, fn,
+            consumes={"output": self.output, "labels": self.labels,
+                      "max_idx": self.max_idx},
+            produces={"err_output": self.err_output},
+            donated={"confusion": self.confusion_matrix},
+            metrics=("n_err", "loss"))

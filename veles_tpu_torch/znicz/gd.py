@@ -9,12 +9,17 @@ For ``y = act(x·W + b)`` and the incoming ``err_output = ∂L/∂y``::
 ``cuda_run`` is one call of :func:`veles_tpu_torch.ops.gemm.gd_fused`:
 on the card the dx, dw and db kernels, in that order, updating the
 weights, the bias and their momenta in place (the JAX package donates
-them); on CPU tensors the plain version.  The stitched stage and the health statistics wait for ROADMAP
-item 1b.
+them); on CPU tensors the plain version.  The stitched stage
+(:meth:`GradientDescent.stitch_stage`) makes the same call with the
+six hyperparameters as 0-d tensors of the segment's scalar block, so
+the dw and db kernels read them when a replay runs: a learning rate
+changed between dispatches takes effect at the next one.  The health
+statistics are not ported (ROADMAP item 6).
 """
 
 import numpy
 
+from veles_tpu_torch.memory import Vector
 from veles_tpu_torch.ops.gemm import gd_fused
 from veles_tpu_torch.znicz.nn_units import GradientDescentBase
 
@@ -53,6 +58,54 @@ class GradientDescent(GradientDescentBase):
             self.gradient_bias.devmem = vb
         if self.need_err_input:
             self.err_input.devmem = err_input.reshape(self.input.shape)
+
+    def stitch_stage(self):
+        """The backward stage: ``gd_fused`` with W, vW, b and vb DONATED
+        (updated in place) and the hyperparameters read at every
+        dispatch."""
+        from veles_tpu_torch.stitch import StitchStage
+        if not isinstance(self.input, Vector):
+            return None
+        has_bias = bool(self.include_bias and self.bias)
+        activation = self.ACTIVATION
+        need_err_input = self.need_err_input
+        transposed = self.weights_transposed
+        input_shape = tuple(self.input.shape)
+
+        def fn(t):
+            w, b, vw, vb, err_input = gd_fused(
+                t["input"], t["output"], t["err_output"], t["w"],
+                t.get("b"), t["vw"], t.get("vb"), t["lr"], t["lr_b"],
+                t["decay"], t["decay_b"], t["moment"], t["moment_b"],
+                activation=activation, need_err_input=need_err_input,
+                has_bias=has_bias, transposed=transposed)
+            out = {"w": w, "vw": vw}
+            if has_bias:
+                out["b"], out["vb"] = b, vb
+            if need_err_input:
+                out["err_input"] = err_input.reshape(input_shape)
+            return out
+
+        donated = {"w": self.weights, "vw": self.gradient_weights}
+        if has_bias:
+            donated["b"] = self.bias
+            donated["vb"] = self.gradient_bias
+        unit = self
+        return StitchStage(
+            self, fn,
+            consumes={"input": self.input, "output": self.output,
+                      "err_output": self.err_output},
+            produces={"err_input": self.err_input}
+            if need_err_input else None,
+            donated=donated,
+            scalars=lambda: {
+                "lr": float(unit.learning_rate),
+                "lr_b": float(unit.learning_rate_bias),
+                "decay": float(unit.weights_decay),
+                "decay_b": float(unit.weights_decay_bias),
+                "moment": float(unit.gradient_moment),
+                "moment_b": float(unit.gradient_moment_bias),
+            })
 
 
 class GDTanh(GradientDescent):

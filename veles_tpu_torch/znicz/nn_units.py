@@ -4,7 +4,10 @@ counterpart of :mod:`veles_tpu.znicz.nn_units`.
 ``ForwardBase`` consumes ``input``, produces ``output`` and owns the
 ``weights``/``bias`` Vectors, filled at initialize from the
 ``forward_init`` stream (:mod:`veles_tpu_torch.prng`, so a seed gives
-the JAX package's initial weights).  ``GradientDescentBase`` holds the
+the JAX package's initial weights).  A forward class defines
+``pure(params, x)``, its output from ``{"w", "b"}`` tensors and the
+input; its ``cuda_run`` and its generic stitched stage
+(:meth:`ForwardBase.stitch_stage`) both call it.  ``GradientDescentBase`` holds the
 backward hyperparameters and the momenta ``gradient_weights`` /
 ``gradient_bias``, with the update rule (docs ``:547-556``)::
 
@@ -42,6 +45,42 @@ class ForwardBase(AcceleratedUnit):
         #: storage layout: (neurons, fan-in) when True
         self.weights_transposed = kwargs.get("weights_transposed", False)
         self.demand("input")
+
+    def pure(self, params, x):
+        """The layer's output from ``params`` (``{"w": ..., "b": ...}``,
+        ``b`` absent without a bias) and the input tensor ``x``."""
+        raise NotImplementedError
+
+    def pure_params(self):
+        """``{"w", "b"}`` device tensors of the layer's parameters."""
+        params = {"w": self.weights.devmem}
+        if self.include_bias and self.bias:
+            params["b"] = self.bias.devmem
+        return params
+
+    def stitch_stage(self):
+        """The generic forward stage: :meth:`pure` over the w/b Vectors,
+        consuming ``input`` and producing ``output``; None for a class
+        without ``pure``."""
+        from veles_tpu_torch.stitch import StitchStage
+        if type(self).pure is ForwardBase.pure \
+                or not isinstance(self.input, Vector) \
+                or not self.input or not self.output:
+            return None
+        out_shape = tuple(self.output.shape)
+        params = {"w": self.weights}
+        if self.include_bias and self.bias:
+            params["b"] = self.bias
+        keys = tuple(sorted(params))
+        unit = self
+
+        def fn(t):
+            out = unit.pure({k: t[k] for k in keys}, t["input"])
+            return {"output": out.reshape(out_shape)}
+
+        return StitchStage(self, fn, consumes={"input": self.input},
+                           produces={"output": self.output},
+                           params=params)
 
     @property
     def forward_prng(self):

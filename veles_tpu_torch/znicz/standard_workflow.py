@@ -8,15 +8,19 @@ eager per-unit chain (``fused=False``)::
     decision --complete--> end_point ; gds gated to TRAIN minibatches
 
 Layer specs are a list of dicts with ``type`` (a unit ``MAPPING``) and
-the forward ``->`` and backward ``<-`` parameter groups.  Not ported:
-``fused`` (the one-program trainer), ``mcdnnic_topology``, the
-snapshotter, plotters, ``lr_adjuster``, rollback and image saver
-(ROADMAP item 7), and the MSE loss (item 1b).
+the forward ``->`` and backward ``<-`` parameter groups.  With
+``engine.stitch=on`` (the default) ``initialize()`` stitches the chain
+into two segments, ``[loader head, forwards…, evaluator]`` and
+``[gds…]`` (:mod:`veles_tpu_torch.stitch`).  Not ported: ``fused`` (the
+one-program trainer), ``mcdnnic_topology``, the snapshotter, plotters,
+``lr_adjuster``, rollback and image saver (ROADMAP item 7), and the MSE
+loss (item 1c).
 """
 
 import numpy
 
 from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+from veles_tpu_torch.config import root
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import Repeater
@@ -93,6 +97,22 @@ class StandardWorkflow(AcceleratedWorkflow):
     # -- the link_* contract ------------------------------------------------
     def create_workflow(self):
         self.link_loader()
+        if getattr(self.loader, "native_device_dtype", False):
+            # the eager forward units consume minibatch_data as it is:
+            # raw integers must never train silently.  The stitched
+            # head's gather + normalize hands the first forward
+            # normalized float32, so native is legal when it engages.
+            eng = root.common.engine
+            stitched_norm = (
+                str(eng.get("stitch", "on")).lower()
+                not in ("off", "0", "false", "no")
+                and str(eng.get("loader", "auto")).lower() != "host")
+            if not stitched_norm:
+                raise ValueError(
+                    "native_device_dtype loaders require the stitched "
+                    "device fast path (engine.stitch=on, "
+                    "engine.loader!=host): the affine normalizer is "
+                    "applied by the stitched gather+normalize head")
         self.link_forwards()
         self.link_evaluator()
         self.link_decision()
@@ -135,7 +155,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         loss = self._loss_kind()
         if loss != "softmax":
             raise NotImplementedError(
-                "loss %r is not ported yet (ROADMAP item 1b)" % loss)
+                "loss %r is not ported yet (ROADMAP item 1c)" % loss)
         last = self.forwards[-1]
         self.evaluator = EvaluatorSoftmax(self)
         self.evaluator.link_attrs(last, "output", "max_idx")

@@ -43,7 +43,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
    logits at the first diverging step had a top-2 gap below 1e-3; and
    ``calibration_logits`` of one 256-token prompt must agree within
    max abs 1e-3.
-6. ``train``   — the training path at full width: ``build_train(CONFIG)``
+6. ``serve_paged`` — the paged path at full width: the same model and
+   weights with ``kv="paged"`` (pages of 16, the default 513-page
+   pool), ``prefill_chunk=256`` and ``prefix_cache="on"`` behind the
+   worker thread; 8 requests, each a shared seeded 512-token stem plus
+   its own tail of 16..1000 tokens, 64 new tokens each.  Exact budgets;
+   launches (set to 0 just before, read just after) exactly 12
+   ``paged_decode_attn`` a decode dispatch and 12 ``flash_fwd`` a chunk,
+   no ``decode_attn``; at least 32 shared pages (a later admission
+   adopted both stem chunks); no preemption.  Tokens/s, TTFT, step and
+   chunk times, prefix hit rate, peak pages, pool bytes, host→device
+   bytes a decode step, and a 16-step decode window under
+   ``torch.profiler``.
+7. ``serve_spec`` — as ``serve_paged`` with ``speculative="ngram"``,
+   ``draft_k=4`` and tails that repeat a seeded 24-token phrase: exact
+   budgets, every decode dispatch a verify, 12 ``paged_decode_attn``
+   launches a verify; accept rate, tokens a dispatch, verify step,
+   host time in ``propose``.
+8. ``serve_paged_parity`` — CONFIG cut to 2 layers, f32, TF32 off,
+   max_seq 512: 6 requests (a 64-token stem plus 8..150-token tails) x
+   16 tokens.  R, the card's contiguous streams: the CPU's agree with R
+   under the near-tie rule of ``parity``; the card's paged engine gives
+   R exactly; chunked (64) with the prefix cache, paged and contiguous
+   n-gram speculation, and a 33-page pool that preempts agree with R
+   under the near-tie rule (the card's contiguous model the judge); two
+   tight-pool runs give equal streams and preemption counts.
+9. ``train``   — the training path at full width: ``build_train(CONFIG)``
    (bf16 compute, remat, ce_chunk 128, SGD with momentum) on
    ``synthetic_tokens(CONFIG, 8)``, one warm-up step and 5 timed ones.
    Every loss must be finite and every step must launch the forward
@@ -51,7 +76,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    kernel 12 times (counts set to 0 just before the steps, read just
    after each).  Then one step under ``torch.profiler`` gives the
    device time by kernel group and the busy share.
-7. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
+10. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
    batch 2, float32 with TF32 off: 2 steps from the same numpy params
    on the card (kernels) and on the CPU (plain versions); the losses
    must agree within relative 1e-6, the params after 2 steps within
@@ -59,7 +84,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    sum) leaf by leaf within max |card - cpu| <= 1e-4 · max |cpu|.  A
    third run on the card with its dq zeroed must fail that velocity
    check.
-8. ``mnist``   — the MNIST MLP (784→100 tanh, 100→10 softmax, lr 0.03,
+11. ``mnist``   — the MNIST MLP (784→100 tanh, 100→10 softmax, lr 0.03,
    momentum 0.9, decay 0.0005, f32) trained through the eager workflow
    (``samples.mnist.create_workflow(max_epochs=3)`` with
    ``engine.stitch=off``, minibatch 100) on the synthetic stand-in: the
@@ -71,12 +96,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    minibatch wall time, host→device bytes per minibatch and peak memory;
    then one epoch (``max_epochs=2``) under ``torch.profiler``: device
    time by kernel group, busy share, the largest idle gaps.
-9. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
+12. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
    on the card (kernels) and on the CPU (plain versions): per-epoch
    per-class n_err and confusion matrices equal, the weights, biases
    and momenta leaf by leaf within max |card − cpu| <= 1e-4 · max |cpu|;
    a third card run with gd_dx planted to return zeros must fail it.
-10. ``mnist_stitched`` — the default route: ``create_workflow(native=
+13. ``mnist_stitched`` — the default route: ``create_workflow(native=
    True, max_epochs=3)`` with ``engine.stitch=on``: the u8 dataset
    resident, each minibatch one replay of the forward segment's CUDA
    graph (loader head, both forwards, evaluator) and, on train
@@ -91,7 +116,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    then one steady-state epoch (epoch 1 of a ``max_epochs=3`` run)
    under ``torch.profiler``: device time by kernel, kernels per
    minibatch, host gaps, busy share.
-11. ``mnist_stitched_parity`` — the stitched card run against the
+14. ``mnist_stitched_parity`` — the stitched card run against the
    CPU's (native, one train pass), the card's stitch on against off
    (f32 dataset), a minibatch-96 run (short tails) against the CPU's,
    and a run whose GD learning rates are halved at epoch 1 against the
@@ -100,8 +125,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
    whose loader scalar block is written once and never again (a stale
    offset) must fail that check.
 
-The ``kernels`` phase also holds the GEMM kernel (``matmul``: every
-activation × bias on/off) and the fused GD trio (every activation ×
+The ``kernels`` phase also holds the paged decode kernel against
+``_paged_decode_ref`` (f32 <= 1e-4, bf16 <= 2e-2) for decode (1 row)
+and verify (5 and 8 rows), pages of 4, 8 and 16 keys in shuffled order,
+lengths of 1, a page edge -1 and +1 and a verify limit at max_blocks·BS;
+requires it to equal the contiguous decode kernel bit for bit on a pool
+that mirrors a contiguous cache, to ignore garbage (1e4) in the trash
+and unowned pages, and to report two planted faults (one row's first
+and last table entries swapped, one row's length + 1); and times it at
+the serving shape (bf16, 513-page pool, lengths up to 1564, decode and
+5-row verify) beside the contiguous kernel on the mirrored cache, the
+plain version and its bound by bytes (no one PyTorch call reads through
+a block table, so ``library_ms`` is null).  It holds the GEMM kernel
+(``matmul``: every activation × bias on/off) and the fused GD trio (every activation ×
 both storage layouts × need_err_input × has_bias) against
 ``_matmul_ref`` / ``_gd_ref`` at 37×70×50, the MNIST shapes and 4096³,
 every element within 1e-5 + 1e-5·|plain| (4096³: 1e-4 + 1e-4·|plain|,
@@ -122,8 +158,8 @@ reported; each is timed at 100 rows of a (7000, 784) table and at 4096
 rows of a (70000, 784) u8 table beside its bound by bytes.
 
 Then it prints the per-kernel JSON line (launches on the main paths,
-serve, train, mnist and mnist_stitched, max abs error, kernel / plain /
-library times,
+serve, serve_paged, serve_spec, train, mnist and mnist_stitched, max
+abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -296,7 +332,7 @@ def _kernel_group(name):
     if "veles_gather_rows_kernel" in name:
         return "veles_gather_rows"
     if "decode_kernel" in name:
-        return "decode_attn"
+        return "paged_decode_attn" if "PagedKeys" in name else "decode_attn"
     if any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass",
                                            "nvjet")):
         return "matmul"
@@ -1020,6 +1056,214 @@ def _gather_kernels(device):
             "planted_faults": planted}, timed, ok
 
 
+# -- the paged decode kernel (csrc/decode_attn.cu, second entry) ------------
+
+#: the serving shape of the paged paths: 4 slots, 16 heads of 64, pages
+#: of 16 keys, 128 pages a row (max_seq 2048), the default 513-page pool
+PAGED_SHAPE = dict(b=4, h=16, d=64, bs=16, max_blocks=128, num_blocks=513)
+#: the four longest prompts of serve_paged's workload (512-token stem +
+#: tails up to 1000), 52 tokens into their decode
+PAGED_TIMED_LENGTHS = [1142, 1282, 1423, 1564]
+
+
+def _paged_pool(rng, device, dtype, lengths, nq, row_step, b, h, d, bs,
+                max_blocks, num_blocks=None, fill=None):
+    """q, K and V pools with the pages in shuffled order, tables (trash
+    block 0 past each row's pages) and lengths, on the card.  ``fill``
+    overwrites the trash block and every page no row owns."""
+    num_blocks = num_blocks or b * max_blocks + 1
+    q = _rand(rng, (b, nq, h, d), dtype, device)
+    kp = _rand(rng, (num_blocks, bs, h, d), dtype, device)
+    vp = _rand(rng, (num_blocks, bs, h, d), dtype, device, uniform=True)
+    pages = rng.permutation(numpy.arange(1, num_blocks))
+    tables = numpy.zeros((b, max_blocks), numpy.int32)
+    used = 0
+    for i, n in enumerate(lengths):
+        need = min(max_blocks, -(-(n + row_step * (nq - 1)) // bs))
+        tables[i, :need] = pages[used:used + need]
+        used += need
+    if fill is not None:
+        owned = torch.zeros(num_blocks, dtype=torch.bool, device=device)
+        owned[torch.from_numpy(tables[tables > 0]).long().to(device)] = True
+        kp[~owned] = fill
+        vp[~owned] = fill
+    return (q, kp, vp, torch.from_numpy(tables).to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+def _paged_out(args, row_step):
+    from veles_tpu_torch.ops.attention import _paged_decode_cuda
+    out = _paged_decode_cuda(*args, row_step)
+    gpu_sync()
+    return out
+
+
+def _max_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def _paged_cases(rng, device):
+    """The kernel against ``_paged_decode_ref`` (f32 <= 1e-4, bf16 <=
+    2e-2): decode (nq 1) and verify (nq 5, 8), pages of 4, 8 and 16
+    keys, lengths of 1, a page edge -1 and +1 and a verify limit that
+    reaches max_blocks·BS, pages in shuffled order."""
+    from veles_tpu_torch.ops.attention import _paged_decode_ref
+    cases = []
+    b, h, d = 4, 16, 64
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for bs in (4, 8, 16):
+            max_blocks = 2048 // bs
+            for nq, row_step in ((1, 0), (5, 1), (8, 1)):
+                lengths = [1, 7 * bs - 1, 7 * bs + 1,
+                           max_blocks * bs - row_step * (nq - 1)]
+                args = _paged_pool(rng, device, dtype, lengths, nq,
+                                   row_step, b, h, d, bs, max_blocks)
+                err = _max_err(_paged_out(args, row_step),
+                               _paged_decode_ref(*args, row_step))
+                cases.append({"kernel": "paged_decode_attn",
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "q": [b, nq, h, d], "block_size": bs,
+                              "max_blocks": max_blocks, "lengths": lengths,
+                              "row_step": row_step, "max_abs_err": err,
+                              "tol": tol, "ok": err <= tol})
+    return cases
+
+
+def _paged_mirror(rng, device):
+    """On a pool that mirrors a contiguous cache page by page (shuffled,
+    garbage in the trash block), the paged kernel's output equals the
+    contiguous kernel's bit for bit, f32 and bf16, decode and verify."""
+    from veles_tpu_torch.ops.attention import _decode_cuda
+    report, ok = [], True
+    b, h, d, bs, mb = 4, 16, 64, 16, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        for nq, row_step in ((1, 0), (5, 1)):
+            k = _rand(rng, (b, mb * bs, h, d), dtype, device)
+            v = _rand(rng, (b, mb * bs, h, d), dtype, device, uniform=True)
+            q = _rand(rng, (b, nq, h, d), dtype, device)
+            lens = torch.tensor([1, 17, 1000, mb * bs - row_step * (nq - 1)],
+                                dtype=torch.int32, device=device)
+            tables = torch.from_numpy(rng.permutation(numpy.arange(
+                1, b * mb + 1)).reshape(b, mb).astype(numpy.int32)).to(device)
+            kp = torch.full((b * mb + 1, bs, h, d), 1e4, dtype=dtype,
+                            device=device)
+            vp = kp.clone()
+            kp[tables.long()] = k.reshape(b, mb, bs, h, d)
+            vp[tables.long()] = v.reshape(b, mb, bs, h, d)
+            paged = _paged_out((q, kp, vp, tables, lens), row_step)
+            contiguous = _decode_cuda(q, k, v, lens, row_step)
+            gpu_sync()
+            equal = bool(torch.equal(paged, contiguous))
+            ok = ok and equal
+            report.append({"dtype": str(dtype).replace("torch.", ""),
+                           "nq": nq, "row_step": row_step,
+                           "bit_equal": equal})
+    return report, ok
+
+
+def _paged_garbage_and_faults(rng, device):
+    """Finite garbage (1e4) in the trash block and every unowned page
+    leaves the output as it is with zeros there; and two faults planted
+    in the inputs (one row's first and last table entries swapped, one
+    row's length + 1) must each move the output past the f32 tolerance
+    of the plain version on the true inputs."""
+    from veles_tpu_torch.ops.attention import _paged_decode_ref
+    sh = PAGED_SHAPE
+    out = {}
+    for nq, row_step in ((1, 0), (8, 1)):
+        lengths = [1, 7 * sh["bs"] + 1, 1000, 2048 - row_step * (nq - 1)]
+        seed = int(rng.integers(1 << 30))
+        clean = _paged_pool(numpy.random.default_rng(seed), device,
+                            torch.float32, lengths, nq, row_step, sh["b"],
+                            sh["h"], sh["d"], sh["bs"], sh["max_blocks"],
+                            fill=0.0)
+        dirty = _paged_pool(numpy.random.default_rng(seed), device,
+                            torch.float32, lengths, nq, row_step, sh["b"],
+                            sh["h"], sh["d"], sh["bs"], sh["max_blocks"],
+                            fill=1e4)
+        out["garbage_row_step%d" % row_step] = {"bit_equal": bool(
+            torch.equal(_paged_out(clean, row_step),
+                        _paged_out(dirty, row_step)))}
+        want = _paged_decode_ref(*clean, row_step)
+        q, kp, vp, tables, lens = clean
+        swapped = tables.clone()
+        last = (lengths[1] + row_step * (nq - 1) - 1) // sh["bs"]
+        swapped[1, 0], swapped[1, last] = tables[1, last], tables[1, 0]
+        longer = lens.clone()
+        longer[2] += 1
+        for name, args in (("tables_swapped", (q, kp, vp, swapped, lens)),
+                           ("length_plus_one", (q, kp, vp, tables, longer))):
+            err = _max_err(_paged_out(args, row_step), want)
+            out["%s_row_step%d" % (name, row_step)] = {
+                "max_abs_err": err, "caught": err > F32_TOL}
+    ok = all(v.get("bit_equal", v.get("caught")) for v in out.values())
+    return out, ok
+
+
+def _paged_timed(rng, device):
+    """The kernel at the serving shape (bf16, 513-page shuffled pool,
+    lengths as serve_paged reaches them), decode and 5-row verify,
+    beside the contiguous kernel on the mirrored cache, the plain version
+    and the bound by bytes."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops.attention import (_decode_cuda,
+                                               _paged_decode_cuda,
+                                               _paged_decode_ref)
+    sh = PAGED_SHAPE
+    b, h, d, bs, mb = sh["b"], sh["h"], sh["d"], sh["bs"], sh["max_blocks"]
+    flush = make_l2_flush(device)
+    row = {"name": "paged_decode_attn", "route": "cuda",
+           "source": "veles_tpu_torch/csrc/decode_attn.cu",
+           "replaces": "veles_tpu/ops/attention.py:597",
+           "q": [b, 1, h, d], "pool": [sh["num_blocks"], bs, h, d],
+           "tables": [b, mb], "lengths": PAGED_TIMED_LENGTHS,
+           "dtype": "bfloat16", "library_ms": None,
+           "library": "none: no one PyTorch call reads through a block "
+                      "table (a gather plus SDPA is two)"}
+    for nq, row_step, tag in ((1, 0, ""), (5, 1, "verify_")):
+        args = _paged_pool(rng, device, torch.bfloat16, PAGED_TIMED_LENGTHS,
+                           nq, row_step, b, h, d, bs, mb, sh["num_blocks"])
+        q, kp, vp, tables, lens = args
+        err = _max_err(_paged_out(args, row_step),
+                       _paged_decode_ref(*args, row_step))
+        # the contiguous cache the pool mirrors
+        k = kp[tables.long()].reshape(b, mb * bs, h, d)
+        v = vp[tables.long()].reshape(b, mb * bs, h, d)
+        keys = sum(min(n + row_step * (nq - 1), mb * bs)
+                   for n in PAGED_TIMED_LENGTHS)
+        nbytes = (2 * keys * h * d * 2 + tables.numel() * 4
+                  + 2 * b * nq * h * d * 2 + b * 4)
+        ops = 4 * d * h * sum(min(n + row_step * r, mb * bs)
+                              for n in PAGED_TIMED_LENGTHS
+                              for r in range(nq))
+        bound, by = bound_seconds(nbytes, ops, "bfloat16")
+        row.update({
+            tag + "max_abs_err": err,
+            tag + "ms": time_ms(lambda: _paged_decode_cuda(*args, row_step),
+                                flush=flush),
+            tag + "contiguous_ms": time_ms(
+                lambda: _decode_cuda(q, k, v, lens, row_step), flush=flush),
+            tag + "plain_ms": time_ms(
+                lambda: _paged_decode_ref(*args, row_step), flush=flush),
+            tag + "bound_ms": bound * 1e3, tag + "bound_by": by})
+    return row
+
+
+def _paged_kernels(device):
+    """The ``kernels`` phase's paged half: cases, the mirror check, the
+    garbage check, planted faults and the timed row."""
+    rng = numpy.random.default_rng(SEED + 5)
+    cases = _paged_cases(rng, device)
+    mirror, mirror_ok = _paged_mirror(rng, device)
+    faults, faults_ok = _paged_garbage_and_faults(rng, device)
+    row = _paged_timed(rng, device)
+    ok = (all(c["ok"] for c in cases) and mirror_ok and faults_ok
+          and row["max_abs_err"] <= BF16_TOL
+          and row["verify_max_abs_err"] <= BF16_TOL)
+    return {"cases": cases, "mirror": mirror,
+            "garbage_and_planted_faults": faults}, [row], ok
+
+
 def phase_kernels(device):
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops.attention import (_decode_cuda, _decode_ref,
@@ -1117,19 +1361,24 @@ def phase_kernels(device):
     bwd_rows, bwd_report, bwd_ok = _bwd_timed(rng, device)
     gemm_report, gemm_rows, gemm_ok = _gemm_kernels(device)
     gather_report, gather_rows, gather_ok = _gather_kernels(device)
-    timed = [flash] + bwd_rows + [decode] + gemm_rows + gather_rows
+    paged_report, paged_rows, paged_ok = _paged_kernels(device)
+    timed = ([flash] + bwd_rows + [decode] + paged_rows + gemm_rows
+             + gather_rows)
     ok = (not bad and ferr <= BF16_TOL and derr <= BF16_TOL and bwd_ok
-          and gemm_ok and gather_ok)
+          and gemm_ok and gather_ok and paged_ok)
     emit({"phase": "kernels", "ok": ok, "cases": cases,
           "timed_backward_errors": bwd_report, "gemm": gemm_report,
-          "gather": gather_report, "timed": timed})
+          "gather": gather_report, "paged": paged_report, "timed": timed})
     gemm_bad = [c for c in gemm_report["cases"] if not c["ok"]]
     gather_bad = [c for c in gather_report["cases"] if not c["ok"]]
+    paged_bad = [c for c in paged_report["cases"] if not c["ok"]]
     check(ok, "kernels", "kernel disagrees with its plain version, or a "
           "planted fault went unseen: %s" % (
-              bad or gemm_bad[:4] or gather_bad[:4]
+              bad or gemm_bad[:4] or gather_bad[:4] or paged_bad[:4]
               or [gemm_report["planted_faults"],
-                  gather_report["planted_faults"]]))
+                  gather_report["planted_faults"],
+                  paged_report["mirror"],
+                  paged_report["garbage_and_planted_faults"]]))
     return timed
 
 
@@ -1296,6 +1545,375 @@ def phase_parity(device):
           "diverged, %d at a near-tie)" % (logit_err, diverged, ties))
 
 
+# -- the paged serving paths ------------------------------------------------
+
+PAGED_STEM = 512
+PAGED_CHUNK = 256
+PAGED_PHRASE = 24
+PAGED_PARITY_REQUESTS = 6
+PAGED_PARITY_STEM = 64
+# pages of the tight pool of serve_paged_parity: one max_seq sequence
+# (32 pages of 16) + the trash block, so that the workload preempts
+PAGED_PARITY_TIGHT_BLOCKS = 33
+
+
+def paged_workload(vocab, seed, requests, stem_len, tail_lo, tail_hi,
+                   phrase=False):
+    """Prompts of one shared seeded stem plus each request's own tail
+    (``tail_lo``..``tail_hi`` tokens, evenly spread, shuffled): random
+    tokens, or with ``phrase`` a seeded 24-token phrase repeated to
+    length, which prompt lookup can match."""
+    rng = numpy.random.default_rng(seed)
+    stem = rng.integers(0, vocab, stem_len).tolist()
+    tails = numpy.linspace(tail_lo, tail_hi, requests).astype(int)
+    rng.shuffle(tails)
+    prompts = []
+    for n in tails:
+        if phrase:
+            words = rng.integers(0, vocab, PAGED_PHRASE).tolist()
+            tail = (words * (int(n) // PAGED_PHRASE + 1))[:int(n)]
+        else:
+            tail = rng.integers(0, vocab, int(n)).tolist()
+        prompts.append(stem + tail)
+    return prompts
+
+
+def _paged_engine(device, cfg, dtype, **options):
+    from veles_tpu_torch.gen import GenerativeEngine, TransformerGenModel
+    model = TransformerGenModel(cfg, compute_dtype=dtype, device=device)
+    return GenerativeEngine(model, max_slots=4, max_seq=2048, seed=SEED,
+                            device=device, kv="paged", block_size=16,
+                            prefill_chunk=PAGED_CHUNK, prefix_cache="on",
+                            **options)
+
+
+def _serve_paged_session(engine, workload, label):
+    """One counted session behind the worker thread: launches (set to 0
+    just before, read just after), dispatch counts, span times, the
+    peak pages in use (sampled after each admission and decode step) and
+    the host time of the speculative proposals."""
+    from veles_tpu_torch import trace
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.gen import GenerativeScheduler
+    from veles_tpu_torch.ops import attention
+
+    peak = [0]
+    propose_s = []
+
+    def sampled(fn):
+        def run(*args):
+            out = fn(*args)
+            peak[0] = max(peak[0], engine.blocks_total - engine.blocks_free)
+            return out
+        return run
+
+    def timed(fn):
+        def run(*args):
+            tic = time.perf_counter()
+            out = fn(*args)
+            propose_s.append(time.perf_counter() - tic)
+            return out
+        return run
+
+    engine.admit = sampled(engine.admit)
+    engine.decode_step = sampled(engine.decode_step)
+    engine.spec_decode_step = sampled(engine.spec_decode_step)
+    engine.propose = timed(engine.propose)
+    root.common.engine.trace = "on"
+    trace.configure()
+    trace.recorder.clear()
+    before = {name: getattr(engine, name) for name in (
+        "prefill_calls", "decode_calls", "spec_dispatches",
+        "preemptions_total", "prefix_shared_pages_total")}
+    attention.reset_launches()
+    scheduler = GenerativeScheduler(engine, name=label).start()
+    try:
+        tic = time.perf_counter()
+        futures = [scheduler.submit(toks, SERVE_NEW_TOKENS)
+                   for toks in workload]
+        results = [f.result(timeout=600) for f in futures]
+        elapsed = time.perf_counter() - tic
+    finally:
+        scheduler.stop()
+    launches = dict(attention.launches)
+    events = trace.recorder.events()
+    root.common.engine.trace = "off"
+    trace.configure()
+    for name in ("admit", "decode_step", "spec_decode_step", "propose"):
+        del engine.__dict__[name]
+    counts = {name: getattr(engine, name) - value
+              for name, value in before.items()}
+
+    def span_ms(name):
+        return [ev[4] / 1e6 for ev in events
+                if ev[0] == "X" and ev[2] == name]
+
+    tokens = sum(len(r) for r in results)
+    steps = counts["decode_calls"]
+    return results, {
+        "requests": len(workload),
+        "prompt_lengths": [len(t) for t in workload],
+        "new_tokens": SERVE_NEW_TOKENS, "tokens": tokens,
+        "elapsed_s": elapsed, "tokens_per_s": tokens / elapsed,
+        "ttft_mean_ms": scheduler.ttft.mean * 1e3,
+        "chunks": counts["prefill_calls"], "decode_dispatches": steps,
+        "spec_dispatches": counts["spec_dispatches"],
+        "preemptions": counts["preemptions_total"],
+        "prefix_shared_pages": counts["prefix_shared_pages_total"],
+        "prefix_hit_rate": engine.prefix_hit_rate(),
+        "peak_pages_in_use": peak[0], "pages_total": engine.blocks_total,
+        "kv_cache_bytes": engine.kv_cache_bytes,
+        "decode_step_median_ms": (statistics.median(span_ms("decode"))
+                                  if span_ms("decode") else None),
+        "verify_step_median_ms": (statistics.median(span_ms("spec_verify"))
+                                  if span_ms("spec_verify") else None),
+        "chunk_span_median_ms": statistics.median(span_ms("prefill_chunk")),
+        "propose_ms_per_step": (sum(propose_s) * 1e3 / steps
+                                if propose_s and steps else None),
+        "batch_fill": scheduler.batch_fill(),
+        "launches": launches,
+    }
+
+
+def paged_breakdown(engine, prompts, decode_steps=16):
+    """After the counted session: each chunk of four fresh prompts (the
+    session's stem, new tails) timed on its own between two
+    synchronizations, the host→device bytes and the table upload of a
+    decode step, and ``decode_steps`` decode steps over the full batch
+    under ``torch.profiler``."""
+    from veles_tpu_torch.memory import Watcher
+    slots, chunk_ms = [], []
+    for prompt in prompts[:engine.max_slots]:
+        slot, _tok = engine.admit(prompt)
+        slots.append(slot)
+        while slot in engine._chunking:
+            gpu_sync()
+            tic = time.perf_counter()
+            engine.prefill_step(slot)
+            gpu_sync()
+            chunk_ms.append((time.perf_counter() - tic) * 1e3)
+    h2d0 = Watcher.transfers()["h2d_bytes"]
+    window = profile_window(
+        lambda: [engine.decode_step() for _ in range(decode_steps)])
+    h2d = (Watcher.transfers()["h2d_bytes"] - h2d0) / decode_steps
+    window["steps"] = decode_steps
+    tables = engine._pool.tables
+
+    def upload():
+        engine._put(tables, torch.int32)
+        gpu_sync()
+    upload()
+    upload_ms = []
+    for _ in range(20):
+        tic = time.perf_counter()
+        upload()
+        upload_ms.append((time.perf_counter() - tic) * 1e3)
+    for slot in slots:
+        engine.release_slot(slot)
+    return {"chunks_timed": len(chunk_ms),
+            "chunk_median_ms": statistics.median(chunk_ms),
+            "h2d_bytes_per_decode_step": h2d,
+            "tables_bytes": int(tables.nbytes),
+            "tables_upload_median_ms": statistics.median(upload_ms),
+            "decode_window": window}
+
+
+def _check_paged_launches(info, layers, dispatches, phase):
+    launches = info["launches"]
+    want = {"paged_decode_attn": layers * dispatches,
+            "flash_fwd": layers * info["chunks"], "decode_attn": 0}
+    info["launches_expected"] = want
+    check(dispatches > 0 and info["chunks"] > 0
+          and all(launches[k] == v for k, v in want.items()), phase,
+          "the kernels were not on the main path as expected: launches "
+          "%s, want %s" % (launches, want))
+
+
+def phase_serve_paged(device, smi):
+    from veles_tpu_torch.samples.transformer import CONFIG
+
+    tic = time.perf_counter()
+    engine = _paged_engine(device, CONFIG, torch.bfloat16)
+    setup_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - tic
+    workload = paged_workload(CONFIG["vocab"], SEED + 7, SERVE_REQUESTS,
+                              PAGED_STEM, 16, 1000)
+    torch.cuda.reset_peak_memory_stats(device)
+    results, info = _serve_paged_session(engine, workload, "serve-paged")
+    info.update({"phase": "serve_paged", "nvidia_smi": smi,
+                 "config": dict(CONFIG), "compute_dtype": "bfloat16",
+                 "kv": "paged", "block_size": 16,
+                 "prefill_chunk": PAGED_CHUNK, "prefix_cache": "on",
+                 "max_memory_allocated":
+                 torch.cuda.max_memory_allocated(device),
+                 "setup_s": setup_s, "warmup_s": warmup_s})
+    fresh = paged_workload(CONFIG["vocab"], SEED + 8, SERVE_REQUESTS,
+                           PAGED_STEM, 16, 1000)
+    fresh = [workload[0][:PAGED_STEM] + p[PAGED_STEM:]
+             for p in sorted(fresh, key=len)[-engine.max_slots:]]
+    info["breakdown"] = paged_breakdown(engine, fresh)
+    budgets_ok = all(len(r) == SERVE_NEW_TOKENS for r in results)
+    in_vocab = all(0 <= t < CONFIG["vocab"] for r in results for t in r)
+    info["ok"] = (budgets_ok and in_vocab and info["preemptions"] == 0
+                  and info["prefix_shared_pages"] >= 2 * PAGED_CHUNK // 16)
+    emit(info)
+    engine.close()
+    check(budgets_ok, "serve_paged", "a request did not get exactly %d "
+          "tokens" % SERVE_NEW_TOKENS)
+    check(in_vocab, "serve_paged", "a token lies outside the vocabulary")
+    check(info["preemptions"] == 0, "serve_paged", "the default pool "
+          "preempted %d times" % info["preemptions"])
+    check(info["prefix_shared_pages"] >= 2 * PAGED_CHUNK // 16,
+          "serve_paged", "no admission adopted both stem chunks (%d shared "
+          "pages)" % info["prefix_shared_pages"])
+    _check_paged_launches(info, CONFIG["layers"], info["decode_dispatches"],
+                          "serve_paged")
+    return info
+
+
+def phase_serve_spec(device, smi, paged_tokens_per_s):
+    from veles_tpu_torch.samples.transformer import CONFIG
+
+    engine = _paged_engine(device, CONFIG, torch.bfloat16,
+                           speculative="ngram", draft_k=4).warmup()
+    workload = paged_workload(CONFIG["vocab"], SEED + 9, SERVE_REQUESTS,
+                              PAGED_STEM, 16, 1000, phrase=True)
+    results, info = _serve_paged_session(engine, workload, "serve-spec")
+    info.update({"phase": "serve_spec", "nvidia_smi": smi,
+                 "config": dict(CONFIG), "compute_dtype": "bfloat16",
+                 "kv": "paged", "block_size": 16,
+                 "prefill_chunk": PAGED_CHUNK, "prefix_cache": "on",
+                 "speculative": "ngram", "draft_k": 4,
+                 "spec_accept_rate": engine.spec_accept_rate(),
+                 "spec_tokens_per_dispatch":
+                 engine.spec_tokens_per_dispatch(),
+                 "serve_paged_tokens_per_s": paged_tokens_per_s})
+    budgets_ok = all(len(r) == SERVE_NEW_TOKENS for r in results)
+    verified = (info["spec_dispatches"] >= 1
+                and info["spec_dispatches"] == info["decode_dispatches"])
+    info["ok"] = budgets_ok and verified
+    emit(info)
+    engine.close()
+    check(budgets_ok, "serve_spec", "a request did not get exactly %d "
+          "tokens" % SERVE_NEW_TOKENS)
+    check(verified, "serve_spec", "%d verify dispatches of %d decode "
+          "dispatches" % (info["spec_dispatches"],
+                          info["decode_dispatches"]))
+    _check_paged_launches(info, CONFIG["layers"], info["spec_dispatches"],
+                          "serve_spec")
+    return info
+
+
+def _near_tie_agreement(judge, engine, workload, reference, streams):
+    """Streams against the reference: equal, or first diverging where the
+    judge model's logits after the reference prefix had a top-2 gap
+    below TIE_GAP.  Returns (diverged, at_near_tie)."""
+    diverged, ties = 0, 0
+    for prompt, got, want in zip(workload, streams, reference):
+        if got == want:
+            continue
+        diverged += 1
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        with torch.inference_mode():
+            top2 = torch.topk(judge.calibration_logits(
+                engine._params, list(prompt) + want[:j]), 2).values
+        if float(top2[0] - top2[1]) < TIE_GAP:
+            ties += 1
+    return diverged, ties
+
+
+def phase_serve_paged_parity(device):
+    """The paged engine's gates on the card, 2-layer CONFIG in f32 with
+    TF32 off: the card's contiguous plain streams R; the CPU's agree
+    with R under the near-tie rule; the card's paged engine gives R
+    exactly (the paged kernel mirrors the contiguous one); chunked with
+    the prefix cache, paged and contiguous speculation and a tight pool
+    agree with R under the near-tie rule, the card's contiguous model
+    the judge; two tight-pool runs give equal streams and preemptions."""
+    from veles_tpu_torch.gen import (GenerativeEngine, GenerativeScheduler,
+                                     TransformerGenModel, params_from_numpy)
+    from veles_tpu_torch.ops import attention
+    from veles_tpu_torch.samples.transformer import CONFIG
+
+    cfg = dict(CONFIG, layers=2)
+    workload = paged_workload(cfg["vocab"], SEED + 11,
+                              PAGED_PARITY_REQUESTS, PAGED_PARITY_STEM, 8,
+                              150)
+    host_params = TransformerGenModel(cfg, device="cpu").init_params(SEED)
+
+    def session(dev, keep=False, **options):
+        model = TransformerGenModel(cfg, device=dev)
+        engine = GenerativeEngine(
+            model, params_from_numpy(host_params, dev), max_slots=4,
+            max_seq=512, device=dev, **options)
+        attention.reset_launches()
+        scheduler = GenerativeScheduler(engine)
+        futures = [scheduler.submit(t, PARITY_NEW_TOKENS) for t in workload]
+        scheduler.run_until_idle()
+        streams = [f.result(0) for f in futures]
+        counts = {"launches": dict(attention.launches),
+                  "preemptions": engine.preemptions_total,
+                  "prefix_shared_pages": engine.prefix_shared_pages_total,
+                  "spec_dispatches": engine.spec_dispatches,
+                  "spec_accepted": engine.spec_accepted_total}
+        if not keep:
+            engine.close()
+        return streams, counts, (model, engine)
+
+    reference, ref_counts, (gmodel, gengine) = session(device, keep=True)
+    report = {"contiguous": ref_counts}
+    cpu_streams, _c, (cmodel, cengine) = session(torch.device("cpu"),
+                                                 keep=True)
+    cpu = _near_tie_agreement(cmodel, cengine, workload, reference,
+                              cpu_streams)
+    cengine.close()
+    paged, report["paged"], _m = session(device, kv="paged", block_size=16)
+    runs = {
+        "chunked_prefix": dict(kv="paged", block_size=16, prefill_chunk=64,
+                               prefix_cache="on"),
+        "paged_ngram": dict(kv="paged", block_size=16, speculative="ngram",
+                            draft_k=4),
+        "contiguous_ngram": dict(speculative="ngram", draft_k=4),
+        "tight_pool": dict(kv="paged", block_size=16, prefill_chunk=64,
+                           num_blocks=PAGED_PARITY_TIGHT_BLOCKS),
+    }
+    agreement = {}
+    streams = {}
+    for name, options in runs.items():
+        streams[name], report[name], _m = session(device, **options)
+        agreement[name] = _near_tie_agreement(
+            gmodel, gengine, workload, reference, streams[name])
+    again, again_counts, _m = session(device, **runs["tight_pool"])
+    gengine.close()
+    repeat_ok = (again == streams["tight_pool"]
+                 and again_counts["preemptions"]
+                 == report["tight_pool"]["preemptions"])
+    ok = (cpu[0] == cpu[1] and paged == reference
+          and all(d == t for d, t in agreement.values())
+          and report["chunked_prefix"]["prefix_shared_pages"] >= 1
+          and report["paged_ngram"]["spec_dispatches"] >= 1
+          and report["contiguous_ngram"]["launches"]["decode_attn"] > 0
+          and report["tight_pool"]["preemptions"] >= 1 and repeat_ok
+          and all(len(s) == PARITY_NEW_TOKENS for s in reference))
+    emit({"phase": "serve_paged_parity", "ok": ok, "config": cfg,
+          "dtype": "float32", "tf32": False, "max_seq": 512,
+          "prompt_lengths": [len(t) for t in workload],
+          "new_tokens": PARITY_NEW_TOKENS,
+          "cpu_contiguous": {"diverged": cpu[0], "at_near_tie": cpu[1]},
+          "paged_equals_contiguous_exactly": paged == reference,
+          "runs": {name: {"diverged": d, "at_near_tie": t,
+                          "counts": report[name]}
+                   for name, (d, t) in agreement.items()},
+          "tight_pool_repeat_equal": repeat_ok,
+          "counts": {k: report[k] for k in ("contiguous", "paged")}})
+    check(ok, "serve_paged_parity", "the paged engine's gates failed on "
+          "the card (cpu %s, paged exact %s, runs %s, repeat %s)"
+          % (cpu, paged == reference, agreement, repeat_ok))
+
+
 def phase_train(device, smi):
     from veles_tpu_torch.ops import attention
     from veles_tpu_torch.samples import transformer as T
@@ -1307,7 +1925,8 @@ def phase_train(device, smi):
     gpu_sync()
     setup_s = time.perf_counter() - tic
     want = {"flash_fwd": 2 * cfg["layers"], "flash_bwd_dq": cfg["layers"],
-            "flash_bwd_dkv": cfg["layers"], "decode_attn": 0}
+            "flash_bwd_dkv": cfg["layers"], "decode_attn": 0,
+            "paged_decode_attn": 0}
 
     torch.cuda.reset_peak_memory_stats(device)
     attention.reset_launches()
@@ -1952,6 +2571,11 @@ def main():
         timed = phase_kernels(device)
         paths = {"serve": phase_serve(device, info["nvidia_smi"])}
         phase_parity(device)
+        paged = phase_serve_paged(device, info["nvidia_smi"])
+        paths["serve_paged"] = paged["launches"]
+        paths["serve_spec"] = phase_serve_spec(
+            device, info["nvidia_smi"], paged["tokens_per_s"])["launches"]
+        phase_serve_paged_parity(device)
         paths["train"] = phase_train(device, info["nvidia_smi"])
         phase_train_parity(device)
         paths["mnist"] = phase_mnist(device, info["nvidia_smi"])
@@ -1970,8 +2594,12 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # the GEMM kernels also carry wrapper_ms, the time of one wrapper call
-    emit({"kernels": [{key: entry[key] for key in keys + ("wrapper_ms",)
+    # the GEMM kernels also carry wrapper_ms, the time of one wrapper
+    # call; the paged kernel the contiguous kernel's time on the mirrored
+    # cache and its verify (5 rows) times
+    extra = ("wrapper_ms", "contiguous_ms", "verify_ms",
+             "verify_contiguous_ms", "verify_plain_ms", "verify_bound_ms")
+    emit({"kernels": [{key: entry[key] for key in keys + extra
                        if key in keys or key in entry}
                       for entry in timed]})
     print(info["nvidia_smi"], flush=True)

@@ -281,15 +281,32 @@ def test_engine_holds_kv_and_params_in_the_hbm_ledger():
     assert Watcher.hbm_ledger()["bytes_in_use"] == 0
 
 
+def _int8_params():
+    params = port_transformer.init_params(CFG, seed=0)
+    wqkv = params["blocks"]["wqkv"]
+    params["blocks"]["wqkv"] = {"q": wqkv.astype(numpy.int8),
+                                "scale": numpy.ones(wqkv.shape[-1])}
+    return params
+
+
 @pytest.mark.parametrize("option", [
-    dict(kv="paged"), dict(prefill_chunk=8), dict(prefix_cache="on"),
-    dict(speculative="ngram"), dict(mesh=object())])
+    lambda: port_engine(params=_int8_params()),
+    lambda: GenerativeScheduler(port_engine(), metrics=object()),
+    lambda: port_engine(kv="paged", block_size=8).warm_handoff(),
+    lambda: port_engine(kv="paged", block_size=8).export_slot(0),
+    lambda: port_engine(mesh=object())],
+    ids=["int8", "metrics", "warm_handoff", "export_slot", "mesh"])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine(**option)
+        option()
 
 
 def test_gen_smoke_entry_point_on_cpu(capsys):
     assert gen_main.main(["--smoke", "--device", "cpu", "--requests",
                           "6"]) == 0
-    assert "gen smoke[cpu]: 6 requests" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "gen smoke[cpu]: 6 requests" in out
+    paged = [ln for ln in out.splitlines()
+             if ln.startswith("gen smoke[cpu, paged]: 6 requests")]
+    assert len(paged) == 1 and "contiguous == paged" in paged[0]
+    assert " 0 preemption" not in paged[0]

@@ -253,7 +253,8 @@ def test_flash_attention_autograd_launches_the_kernels_on_card(
     want = port._bwd_ref(q, k, v, o, lse, do, True)
     torch.cuda.synchronize()
     assert launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                        "flash_bwd_dkv": 1, "decode_attn": 0}
+                        "flash_bwd_dkv": 1, "decode_attn": 0,
+                        "paged_decode_attn": 0}
     for leaf, w in zip(leaves, want):
         torch.testing.assert_close(leaf.grad, w, atol=F32_TOL, rtol=F32_TOL)
 
@@ -272,6 +273,138 @@ def test_kernel_wrappers_raise_on_the_card(cuda_device, launches):
         port.decode_attention(q, k, k, lens)
     with pytest.raises(ValueError, match="int32"):
         port.decode_attention(q[:, :1], k, k, lens.long())
+    assert not any(launches.values())
+
+
+# -- the paged decode kernel (csrc/decode_attn.cu, second entry) ------------
+
+def _paged_operands(device, dtype, bs, nq, row_step, d, seed, h=2, b=4,
+                    max_blocks=None, fill=None):
+    """q, shuffled-page pools, tables (trash 0 past each row's pages) and
+    lengths of 1, a page edge -1 and +1, and a verify limit that reaches
+    max_blocks·BS.  ``fill`` overwrites the trash and every unowned page
+    (garbage that must never reach the output)."""
+    max_blocks = max_blocks or 48 // bs
+    rng = numpy.random.default_rng(seed)
+    num_blocks = b * max_blocks + 3
+    lengths = [1, bs - 1 if bs > 1 else 1, bs + 1,
+               max_blocks * bs - row_step * (nq - 1)]
+    q = rng.standard_normal((b, nq, h, d)).astype(numpy.float32)
+    kp = rng.standard_normal((num_blocks, bs, h, d)).astype(numpy.float32)
+    vp = rng.uniform(-1, 1, (num_blocks, bs, h, d)).astype(numpy.float32)
+    pages = rng.permutation(numpy.arange(1, num_blocks))
+    tables = numpy.zeros((b, max_blocks), numpy.int32)
+    used = 0
+    for i, n in enumerate(lengths):
+        need = min(max_blocks, -(-(n + row_step * (nq - 1)) // bs))
+        tables[i, :need] = pages[used:used + need]
+        used += need
+    if fill is not None:
+        owned = numpy.zeros(num_blocks, bool)
+        owned[tables[tables > 0]] = True
+        kp[~owned] = fill
+        vp[~owned] = fill
+    return [torch.from_numpy(a).to(device, dtype) for a in (q, kp, vp)] + [
+        torch.from_numpy(tables).to(device),
+        torch.tensor(lengths, dtype=torch.int32, device=device)]
+
+
+@pytest.mark.parametrize("bad,message", [
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(nq=9), "query rows"),
+    (dict(tables=torch.int64), "int32 tables"),
+    (dict(lengths=torch.int64), "int32 lengths"),
+    (dict(heads=3), "disagree"),
+])
+def test_paged_kernel_contract_is_checked_before_launch(bad, message):
+    """What the paged kernel does not take is refused in Python, before
+    any pointer is handed to it (so the check runs on the CPU too)."""
+    q = torch.zeros((2, bad.get("nq", 1), 2, 8),
+                    dtype=bad.get("dtype", torch.float32))
+    pool = torch.zeros((5, 4, bad.get("heads", 2), 8),
+                       dtype=bad.get("dtype", torch.float32))
+    tables = torch.zeros((2, 3), dtype=bad.get("tables", torch.int32))
+    lens = torch.ones(2, dtype=bad.get("lengths", torch.int32))
+    with pytest.raises((TypeError, ValueError), match=message):
+        port._paged_decode_cuda(q, pool, pool, tables, lens, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("bs", [4, 8, 16])
+@pytest.mark.parametrize("nq,row_step", [(1, 0), (5, 1), (8, 1)])
+def test_paged_kernel_matches_plain_version_on_card(
+        cuda_device, launches, nq, row_step, bs, d, dtype, tol):
+    q, kp, vp, tables, lens = _paged_operands(cuda_device, dtype, bs, nq,
+                                              row_step, d, seed=bs + nq)
+    out = port.paged_decode_attention(q, kp, vp, tables, lens,
+                                      row_step=row_step)
+    ref = port._paged_decode_ref(q, kp, vp, tables, lens, row_step)
+    torch.cuda.synchronize()
+    assert launches["paged_decode_attn"] == 1
+    assert launches["decode_attn"] == 0
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,row_step", [(1, 0), (5, 1)])
+def test_paged_kernel_equals_contiguous_kernel_on_a_mirror_on_card(
+        cuda_device, launches, nq, row_step, dtype):
+    """A pool that mirrors a contiguous cache, page by page in shuffled
+    order, gives the contiguous kernel's output bit for bit."""
+    bs, max_blocks, b = 16, 8, 3
+    rng = numpy.random.default_rng(60 + nq)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (b, max_blocks * bs, 2, 64)).astype(numpy.float32)).to(
+            cuda_device, dtype) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((b, nq, 2, 64)).astype(
+        numpy.float32)).to(cuda_device, dtype)
+    lens = torch.tensor([1, 77, max_blocks * bs - row_step * (nq - 1)],
+                        dtype=torch.int32, device=cuda_device)
+    tables = torch.from_numpy(rng.permutation(
+        numpy.arange(1, b * max_blocks + 1)).reshape(b, max_blocks).astype(
+            numpy.int32)).to(cuda_device)
+    kp = torch.full((b * max_blocks + 1, bs, 2, 64), 1e4,
+                    device=cuda_device, dtype=dtype)
+    vp = kp.clone()
+    kp[tables.long()] = k.reshape(b, max_blocks, bs, 2, 64)
+    vp[tables.long()] = v.reshape(b, max_blocks, bs, 2, 64)
+    paged = port.paged_decode_attention(q, kp, vp, tables, lens, row_step)
+    contiguous = port.decode_attention(q, k, v, lens, row_step)
+    torch.cuda.synchronize()
+    assert launches["paged_decode_attn"] == launches["decode_attn"] == 1
+    assert torch.equal(paged, contiguous)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,row_step", [(1, 0), (8, 1)])
+def test_paged_kernel_never_reads_trash_or_unowned_pages_on_card(
+        cuda_device, launches, nq, row_step):
+    args = dict(dtype=torch.float32, bs=4, nq=nq, row_step=row_step, d=64,
+                seed=7)
+    clean = _paged_operands(cuda_device, fill=0.0, **args)
+    dirty = _paged_operands(cuda_device, fill=1e4, **args)
+    a = port.paged_decode_attention(*clean, row_step=row_step)
+    b = port.paged_decode_attention(*dirty, row_step=row_step)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_wrapper_raises_on_the_card(cuda_device, launches):
+    q, kp, vp, tables, lens = _paged_operands(cuda_device, torch.float32,
+                                              8, 1, 0, 8, seed=3)
+    with pytest.raises(TypeError):
+        port.paged_decode_attention(q.half(), kp.half(), vp.half(), tables,
+                                    lens)
+    with pytest.raises(ValueError, match="int32 tables"):
+        port.paged_decode_attention(q, kp, vp, tables.long(), lens)
+    with pytest.raises(ValueError, match="query rows"):
+        port.paged_verify_attention(torch.cat([q] * 9, dim=1), kp, vp,
+                                    tables, lens)
     assert not any(launches.values())
 
 

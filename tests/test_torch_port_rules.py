@@ -76,7 +76,7 @@ def test_cpu_session_never_loads_the_kernel_builder():
         "import sys\n"
         "from veles_tpu_torch.gen import __main__ as m\n"
         "from veles_tpu_torch.ops import attention\n"
-        "assert m.main(['--smoke', '--device', 'cpu', '--requests', '3'])"
+        "assert m.main(['--smoke', '--device', 'cpu', '--requests', '6'])"
         " == 0\n"
         "assert not any(attention.launches.values())\n"
         "assert 'veles_tpu_torch.ops.build' not in sys.modules\n"
@@ -172,6 +172,7 @@ def test_gather_wrappers_on_cpu_tensors_launch_nothing(no_cuda):
 @pytest.mark.parametrize("name,replaces", [
     ("flash_fwd", "_attn_kernel"), ("flash_bwd", "_bwd_dq_kernel"),
     ("flash_bwd", "_bwd_dkv_kernel"), ("decode_attn", "_decode_kernel"),
+    ("decode_attn", "_paged_decode_kernel"),
     ("gemm", "_matmul_kernel"), ("gemm", "_gd_dx_kernel"),
     ("gemm", "_gd_dw_kernel"), ("gemm", "_gd_db_kernel"),
     ("gather", "_gather_kernel"), ("gather", "_gather_norm_kernel")])

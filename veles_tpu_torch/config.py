@@ -94,12 +94,23 @@ root.common.update({
         # K-step epoch windows: only "off" is ported (ROADMAP item 1c).
         "epoch_scan": "off",
     },
-    # Generative serving: only the contiguous KV layout is ported; the
-    # engine raises on any other value of these keys.
+    # Generative serving defaults (veles_tpu_torch.gen.engine); an
+    # engine's keyword arguments win over them.
     "gen": {
+        # "contiguous" (a max_seq slot a sequence) or "paged" (the
+        # shared block pool)
         "kv": "contiguous",
+        # paged: tokens per page (must divide max_seq) and pages in the
+        # pool (None: every slot's max_seq, plus the trash block)
+        "block_size": 16,
+        "num_blocks": None,
+        # tokens per prefill chunk (None: whole-prompt buckets)
         "prefill_chunk": None,
+        # "on" shares full prompt pages between admissions (paged only)
         "prefix_cache": "off",
+        # "off", "ngram" or a registered draft model's name, and the
+        # drafted tokens a slot verifies per step (1..7)
         "speculative": "off",
+        "draft_k": 4,
     },
 })

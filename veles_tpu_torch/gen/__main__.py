@@ -1,12 +1,15 @@
 """``python -m veles_tpu_torch.gen --smoke`` — the generative serving
 gate of the port.
 
-Mirrors phase 1 of ``python -m veles_tpu.gen --smoke``: a tiny
+Mirrors phases 1 and 2 of ``python -m veles_tpu.gen --smoke``: a tiny
 transformer engine is warmed (kernels built, every prefill bucket and
 the decode step run once), then a seeded mixed-length
 continuous-batching session must resolve every request with exactly its
-budgeted token count.  It runs on the CUDA card unless ``--device cpu``
-is given.  Exit code 0 on success; any violation prints the failure and
+budgeted token count.  Then the same workload runs through a PAGED
+engine whose pool is too small for the mix, with chunked prefill: it
+must preempt at least once and still give the contiguous session's
+token streams.  It runs on the CUDA card unless ``--device cpu`` is
+given.  Exit code 0 on success; any violation prints the failure and
 exits 1.
 """
 
@@ -48,26 +51,34 @@ def smoke(slots=4, max_seq=48, requests=16, seed=0, device=None):
          int(rng.integers(1, 14)))
         for _ in range(requests)]
 
-    engine = GenerativeEngine(
-        TransformerGenModel(cfg, device=device), max_slots=slots,
-        max_seq=max_seq, prefill_buckets=(8, 16, 32), seed=seed,
-        device=device)
-    engine.warmup()
-    scheduler = GenerativeScheduler(engine, name="smoke")
-    futures = [scheduler.submit(toks, max_new)
-               for toks, max_new in workload]
-    tic = time.perf_counter()
-    scheduler.run_until_idle()
-    elapsed = time.perf_counter() - tic
-    failed = 0
-    for future, (_toks, max_new) in zip(futures, workload):
-        got = future.result(0) if future.done() else None
-        if got is None:
-            print("FAIL: request with budget %d never resolved" % max_new)
-            failed += 1
-        elif len(got) != max_new:
-            print("FAIL: got %d tokens, budget %d" % (len(got), max_new))
-            failed += 1
+    def session(label, **kw):
+        engine = GenerativeEngine(
+            TransformerGenModel(cfg, device=device), max_slots=slots,
+            max_seq=max_seq, prefill_buckets=(8, 16, 32), seed=seed,
+            device=device, **kw)
+        engine.warmup()
+        scheduler = GenerativeScheduler(engine, name=label)
+        futures = [scheduler.submit(toks, max_new)
+                   for toks, max_new in workload]
+        tic = time.perf_counter()
+        scheduler.run_until_idle()
+        elapsed = time.perf_counter() - tic
+        results = [f.result(0) if f.done() else None for f in futures]
+        engine.close()
+        failed = 0
+        for got, (_toks, max_new) in zip(results, workload):
+            if got is None:
+                print("FAIL[%s]: request with budget %d never resolved"
+                      % (label, max_new))
+                failed += 1
+            elif len(got) != max_new:
+                print("FAIL[%s]: got %d tokens, budget %d"
+                      % (label, len(got), max_new))
+                failed += 1
+        return engine, scheduler, results, elapsed, failed
+
+    # phase 1: the contiguous session
+    engine, scheduler, results, elapsed, failed = session("smoke")
     tokens = scheduler.tokens_total
     print("gen smoke[%s]: %d requests, %d tokens in %.2fs (%.1f tok/s), "
           "batch fill %.0f%%, %d prefills, %d decode steps"
@@ -75,7 +86,28 @@ def smoke(slots=4, max_seq=48, requests=16, seed=0, device=None):
              tokens / elapsed if elapsed else 0.0,
              100.0 * scheduler.batch_fill(), engine.prefill_calls,
              engine.decode_calls))
-    engine.close()
+
+    # phase 2: the same workload through the smallest block pool that
+    # holds one whole sequence, too small for the mix (preemption must
+    # fire and recover), chunked, giving the contiguous session's streams
+    paged, pscheduler, presults, pelapsed, pfailed = session(
+        "smoke-paged", kv="paged", block_size=8,
+        num_blocks=max_seq // 8 + 1, prefill_chunk=16)
+    failed += pfailed
+    if presults != results:
+        print("FAIL[paged]: token streams diverge from the contiguous "
+              "session")
+        failed += 1
+    if paged.preemptions_total < 1:
+        print("FAIL[paged]: the pool is sized for preemption but none "
+              "fired")
+        failed += 1
+    print("gen smoke[%s, paged]: %d requests, %d tokens in %.2fs, %d "
+          "pages, %d preemption(s) recovered losslessly, %d chunks, "
+          "contiguous == paged"
+          % (paged.device, len(workload), pscheduler.tokens_total,
+             pelapsed, paged.blocks_total, paged.preemptions_total,
+             paged.prefill_calls))
     return 1 if failed else 0
 
 

@@ -13,6 +13,19 @@ object through this protocol:
 - ``decode(params, cache, tokens, positions, active)`` → ``(cache,
   next_tokens)`` — ONE autoregressive step over every slot at once.
 
+The PAGED half mirrors these over a shared block pool
+(:mod:`veles_tpu_torch.gen.paged`): ``init_paged_cache(num_blocks,
+block_size)`` (``{"k", "v"}: [L, num_blocks, BS, h, dh]``),
+``paged_prefill`` and ``paged_decode`` (a block-id scatter and a read
+through the block tables, the page append fused into the decode step),
+the chunked-prefill pair ``prefill_chunk`` / ``paged_prefill_chunk``
+(one chunk of a prompt per call) and the speculative pair ``verify`` /
+``paged_verify`` (a slot's pending token and up to 7 drafts scored in
+one call).  Writes that must not land in a live page (inactive slots,
+rows past a slot's drafts, bucket tails past the allocation, pages
+shared through the prefix cache) route to the trash block 0, which
+nothing reads unmasked.
+
 Unlike the JAX model, whose programs return a successor cache, these
 update the cache tensors IN PLACE (the returned ``cache`` is the same
 object): PyTorch runs eagerly and a copy of a 0.4 GB cache per step
@@ -22,9 +35,13 @@ cache prefix, which is what makes continuous batching bit-exact against
 sequential decode.
 
 Prefill attention runs :func:`~veles_tpu_torch.ops.attention
-.flash_attention` (the flash-prefill kernel on the card), decode
+.flash_attention` (the flash-prefill kernel on the card), chunked
+prefill :func:`~veles_tpu_torch.ops.attention.chunk_attention` (the
+same kernel at a runtime query offset), decode and contiguous verify
 attention :func:`~veles_tpu_torch.ops.attention.decode_attention` (the
-decode kernel); every other product is a plain ``torch.matmul``.
+decode kernel), paged decode and verify
+:func:`~veles_tpu_torch.ops.attention.paged_decode_attention` (its
+paged entry); every other product is a plain ``torch.matmul``.
 """
 
 import numpy
@@ -32,9 +49,13 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.backends import resolve_device
-from veles_tpu_torch.ops.attention import decode_attention, flash_attention
-from veles_tpu_torch.samples.transformer import (_layernorm, _not_ported,
-                                                 init_params)
+from veles_tpu_torch.ops.attention import (chunk_attention,
+                                           decode_attention,
+                                           flash_attention,
+                                           paged_decode_attention,
+                                           paged_verify_attention,
+                                           verify_attention)
+from veles_tpu_torch.samples.transformer import _layernorm, init_params
 
 #: block weights whose matmul operands are cast to ``compute_dtype``
 _MATMUL_LEAVES = ("wqkv", "wo", "w1", "b1", "w2", "b2")
@@ -132,10 +153,27 @@ class TransformerGenModel(object):
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
 
     def cache_nbytes(self, slots, max_seq, dtype=None):
-        shape = self.cache_shape(slots, max_seq)
+        return self._nbytes(self.cache_shape(slots, max_seq), dtype)
+
+    def _nbytes(self, shape, dtype):
         itemsize = torch.empty((), dtype=dtype or self.compute_dtype
                                ).element_size()
         return 2 * int(numpy.prod(shape)) * itemsize
+
+    # -- paged cache (shared block pool + per-slot block tables) -----------
+    def paged_cache_shape(self, num_blocks, block_size):
+        return (self.layers, int(num_blocks), int(block_size), self.heads,
+                self.head_dim)
+
+    def init_paged_cache(self, num_blocks, block_size, dtype=None):
+        shape = self.paged_cache_shape(num_blocks, block_size)
+        dtype = dtype or self.compute_dtype
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    def paged_cache_nbytes(self, num_blocks, block_size, dtype=None):
+        return self._nbytes(self.paged_cache_shape(num_blocks, block_size),
+                            dtype)
 
     # -- forwards ----------------------------------------------------------
     def _run_layers(self, params, cache, h, kv_hook):
@@ -182,6 +220,22 @@ class TransformerGenModel(object):
         return torch.as_tensor(tokens, dtype=torch.long).to(
             params["embed"].device)
 
+    def _greedy_at(self, params, h, index):
+        """h (1, S, d) → the greedy token of row ``index`` (0-d)."""
+        return torch.argmax(self._readout(params, h[0, index:index + 1])[0])
+
+    def _greedy_grid(self, params, h):
+        """h (slots, K+1, d) → the greedy token of EVERY row (slots,
+        K+1): the verify step's readout, row by row the same tied
+        readout as :meth:`decode`'s."""
+        slots, kp1, dim = h.shape
+        logits = self._readout(params, h.reshape(slots * kp1, dim))
+        return torch.argmax(logits, dim=-1).reshape(slots, kp1)
+
+    def _pages(self, rows, n_blk):
+        """(S, h, dh) rows as (n_blk, S // n_blk, h, dh) pages."""
+        return rows.reshape(n_blk, -1, self.heads, self.head_dim)
+
     def calibration_logits(self, params, tokens):
         """Last-position f32 logits (vocab,) of ONE prompt through the
         shared layer body; no cache is read or written."""
@@ -213,8 +267,7 @@ class TransformerGenModel(object):
             return att
 
         h = self._run_layers(params, cache, h, kv_hook)
-        logits = self._readout(params, h[0, length - 1:length])
-        return cache, torch.argmax(logits[0])
+        return cache, self._greedy_at(params, h, length - 1)
 
     def decode(self, params, cache, tokens, positions, active):
         """ONE decode step over every slot: tokens (slots,) (each slot's
@@ -244,27 +297,184 @@ class TransformerGenModel(object):
         logits = self._readout(params, h[:, 0])
         return cache, torch.argmax(logits, dim=-1)
 
-    # -- entry points of later slices ----------------------------------------
-    def init_paged_cache(self, num_blocks, block_size, dtype=None):
-        _not_ported("the paged KV cache", 2)
+    # -- paged forwards (block-pool cache, veles_tpu_torch.gen.paged) -----
+    def paged_prefill(self, params, cache, tokens, block_ids, length):
+        """Whole-prompt prefill into the PAGED pool: tokens (1, bucket)
+        (bucket a multiple of block_size), block_ids (bucket //
+        block_size,) — the prompt's pages in position order, entries past
+        its allocation (and pages shared through the prefix cache) at the
+        trash block 0.  Same forward as :meth:`prefill`; only where the
+        K/V land differs."""
+        tokens = self._tokens(params, tokens)
+        block_ids = self._tokens(params, block_ids)
+        bucket = tokens.shape[1]
+        n_blk = block_ids.shape[0]
+        h = params["embed"][tokens] + params["pos"][:bucket]
 
-    def paged_prefill(self, *args, **kwargs):
-        _not_ported("paged prefill", 2)
+        def kv_hook(kc, vc, q, k, v):
+            att = flash_attention(q, k, v, True)
+            kc[block_ids] = self._pages(k[0], n_blk).to(kc.dtype)
+            vc[block_ids] = self._pages(v[0], n_blk).to(vc.dtype)
+            return att
 
-    def paged_decode(self, *args, **kwargs):
-        _not_ported("paged decode", 2)
+        h = self._run_layers(params, cache, h, kv_hook)
+        return cache, self._greedy_at(params, h, length - 1)
 
-    def prefill_chunk(self, *args, **kwargs):
-        _not_ported("chunked prefill", 2)
+    def paged_decode(self, params, cache, tables, tokens, positions,
+                     active):
+        """ONE decode step over every slot against the PAGED pool: tables
+        (slots, max_blocks) int32, the rest as :meth:`decode`.  The page
+        append is fused in: position ``p`` scatters into page
+        ``tables[slot, p // BS]`` at offset ``p % BS`` (inactive slots
+        to the trash block), and the attention reads through the
+        tables."""
+        tokens = self._tokens(params, tokens)
+        positions = self._tokens(params, positions)
+        tables = torch.as_tensor(tables, dtype=torch.int32).to(
+            tokens.device)
+        active = torch.as_tensor(active, dtype=torch.bool).to(
+            tokens.device)
+        slots = tokens.shape[0]
+        bs = cache["k"].shape[2]               # [L, NB, BS, h, dh]
+        h = (params["embed"][tokens]
+             + params["pos"][positions])[:, None, :]   # (slots, 1, d)
+        idx = torch.arange(slots, device=tokens.device)
+        zero = torch.zeros_like(positions)
+        blk_idx = torch.where(active, tables[idx, positions // bs].long(),
+                              zero)
+        blk_off = torch.where(active, positions % bs, zero)
+        lengths = (positions + 1).to(torch.int32)
 
-    def paged_prefill_chunk(self, *args, **kwargs):
-        _not_ported("paged chunked prefill", 2)
+        def kv_hook(kc, vc, q, k, v):
+            # rows routed to the trash block collide there; nothing reads
+            # block 0 unmasked, so which of them lands does not matter
+            kc[blk_idx, blk_off] = k[:, 0].to(kc.dtype)
+            vc[blk_idx, blk_off] = v[:, 0].to(vc.dtype)
+            return paged_decode_attention(q, kc, vc, tables, lengths)
 
-    def verify(self, *args, **kwargs):
-        _not_ported("speculative verify", 2)
+        h = self._run_layers(params, cache, h, kv_hook)
+        return cache, torch.argmax(self._readout(params, h[:, 0]), dim=-1)
 
-    def paged_verify(self, *args, **kwargs):
-        _not_ported("paged speculative verify", 2)
+    # -- speculative verify (K drafts scored in ONE call) ------------------
+    def _verify_rows(self, params, tokens, positions, drafts, active):
+        """The verify entries' shared set-up: the (slots, K+1) input
+        rows, the global positions, and which rows write their K/V
+        (active slots, rows ``j <= drafts``); masked rows park at
+        position 0."""
+        tokens = self._tokens(params, tokens)
+        positions = self._tokens(params, positions)
+        drafts = self._tokens(params, drafts)
+        active = torch.as_tensor(active, dtype=torch.bool).to(
+            tokens.device)
+        kp1 = tokens.shape[1]
+        offs = torch.arange(kp1, device=tokens.device)
+        gpos = positions[:, None] + offs[None, :]     # (slots, K+1)
+        h = (params["embed"][tokens]
+             + params["pos"][gpos.clamp(0, self.seq_limit - 1)])
+        keep = active[:, None] & (offs[None, :] <= drafts[:, None])
+        safe = torch.where(keep, gpos, torch.zeros_like(gpos))
+        return h, positions, keep, safe
+
+    def verify(self, params, cache, tokens, positions, drafts, active):
+        """Score a slot's pending token plus its K draft continuations in
+        ONE call against the CONTIGUOUS cache: tokens (slots, K+1) (row 0
+        each slot's last emitted token, rows 1..K the drafts), positions
+        (slots,) (row 0's write position), drafts (slots,) (how many
+        draft rows are real, 0..K), active (slots,) bool.  K/V for rows
+        ``j <= drafts`` land at ``positions + j``; masked rows re-write
+        the old value at position 0 (live slots have positions >= 1).
+        Returns ``(cache, out)``, ``out[s, j]`` the greedy token after
+        the prefix plus ``tokens[s, :j+1]``."""
+        h, positions, keep, safe = self._verify_rows(
+            params, tokens, positions, drafts, active)
+        slots, kp1 = safe.shape
+        rows = torch.arange(slots, device=safe.device)[:, None].expand(
+            slots, kp1)
+        lengths = (positions + 1).to(torch.int32)
+        keep4 = keep[..., None, None]
+
+        def kv_hook(kc, vc, q, k, v):
+            kc[rows, safe] = torch.where(keep4, k.to(kc.dtype),
+                                         kc[rows, safe])
+            vc[rows, safe] = torch.where(keep4, v.to(vc.dtype),
+                                         vc[rows, safe])
+            return verify_attention(q, kc, vc, lengths)
+
+        h = self._run_layers(params, cache, h, kv_hook)
+        return cache, self._greedy_grid(params, h)
+
+    def paged_verify(self, params, cache, tables, tokens, positions,
+                     drafts, active):
+        """The PAGED twin of :meth:`verify`: K/V rows scatter through the
+        block tables like :meth:`paged_decode`'s append (the engine has
+        allocated every page the draft span touches), rows past
+        ``drafts`` and inactive slots to the trash block, and the
+        attention reads through the tables with the verify mask."""
+        h, positions, keep, safe = self._verify_rows(
+            params, tokens, positions, drafts, active)
+        tables = torch.as_tensor(tables, dtype=torch.int32).to(
+            safe.device)
+        slots = safe.shape[0]
+        bs = cache["k"].shape[2]               # [L, NB, BS, h, dh]
+        idx = torch.arange(slots, device=safe.device)[:, None]
+        zero = torch.zeros_like(safe)
+        blk_idx = torch.where(keep, tables[idx, safe // bs].long(), zero)
+        blk_off = torch.where(keep, safe % bs, zero)
+        lengths = (positions + 1).to(torch.int32)
+
+        def kv_hook(kc, vc, q, k, v):
+            kc[blk_idx, blk_off] = k.to(kc.dtype)
+            vc[blk_idx, blk_off] = v.to(vc.dtype)
+            return paged_verify_attention(q, kc, vc, tables, lengths)
+
+        h = self._run_layers(params, cache, h, kv_hook)
+        return cache, self._greedy_grid(params, h)
+
+    # -- chunked prefill (one chunk per decode-step cadence) ---------------
+    def prefill_chunk(self, params, cache, tokens, slot, start, chunk_len):
+        """ONE chunk of a prompt through the CONTIGUOUS cache: tokens (1,
+        C) (zero-padded past ``chunk_len`` on the final chunk); writes
+        K/V at [slot, start:start+C) and attends the chunk's queries
+        causally against the slot's whole cache row (keys >= start+C
+        hidden by the causal offset).  Returns ``(cache, token)``, the
+        token meaningful on the final chunk only."""
+        tokens = self._tokens(params, tokens)
+        chunk = tokens.shape[1]
+        h = params["embed"][tokens] + params["pos"][start:start + chunk]
+
+        def kv_hook(kc, vc, q, k, v):
+            kc[slot, start:start + chunk] = k[0].to(kc.dtype)
+            vc[slot, start:start + chunk] = v[0].to(vc.dtype)
+            return chunk_attention(q, kc[slot:slot + 1], vc[slot:slot + 1],
+                                   start)
+
+        h = self._run_layers(params, cache, h, kv_hook)
+        return cache, self._greedy_at(params, h, chunk_len - 1)
+
+    def paged_prefill_chunk(self, params, cache, tokens, chunk_ids, table,
+                            start, chunk_len):
+        """ONE chunk of a prompt through the PAGED pool: chunk_ids (C //
+        block_size,) the pages covering [start, start+C) (trash past the
+        allocation), table (max_blocks,) the sequence's whole block table
+        for the attention's read, gathered by a plain index as the JAX
+        package gathers it outside any kernel.  Otherwise as
+        :meth:`prefill_chunk`."""
+        tokens = self._tokens(params, tokens)
+        chunk_ids = self._tokens(params, chunk_ids)
+        table = self._tokens(params, table)
+        chunk = tokens.shape[1]
+        n_blk = chunk_ids.shape[0]
+        h = params["embed"][tokens] + params["pos"][start:start + chunk]
+
+        def kv_hook(kc, vc, q, k, v):
+            kc[chunk_ids] = self._pages(k[0], n_blk).to(kc.dtype)
+            vc[chunk_ids] = self._pages(v[0], n_blk).to(vc.dtype)
+            kg, vg = (c[table].reshape(1, -1, self.heads, self.head_dim)
+                      for c in (kc, vc))
+            return chunk_attention(q, kg, vg, start)
+
+        h = self._run_layers(params, cache, h, kv_hook)
+        return cache, self._greedy_at(params, h, chunk_len - 1)
 
     # -- analytic FLOPs ----------------------------------------------------
     def _per_token_layer_flops(self, attended):
@@ -280,6 +490,19 @@ class TransformerGenModel(object):
         per_token = self.layers * self._per_token_layer_flops(
             bucket / 2.0)
         return bucket * per_token + 2.0 * self.dim * self.vocab
+
+    def prefill_chunk_flops(self, chunk, max_seq):
+        """Forward FLOPs of one prefill chunk: each chunk token attends to
+        its whole prefix, counted at the ``max_seq / 2`` mean extent, +
+        one readout."""
+        per_token = self.layers * self._per_token_layer_flops(
+            max_seq / 2.0)
+        return chunk * per_token + 2.0 * self.dim * self.vocab
+
+    def verify_flops(self, slots, k, max_seq):
+        """FLOPs of one K-draft verify step: K+1 query rows per slot,
+        each counted like a decode row."""
+        return (k + 1.0) * self.decode_flops(slots, max_seq)
 
     def decode_flops(self, slots, max_seq):
         """FLOPs of one decode step, counting every slot's attention at

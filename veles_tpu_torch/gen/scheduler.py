@@ -1,18 +1,30 @@
 """Continuous-batching scheduler: iteration-level admission over the
 engine's slots.
 
-Counterpart of :mod:`veles_tpu.gen.scheduler` for the contiguous
-engine.  Requests are admitted into open KV-cache slots at EVERY decode
-iteration and evicted the moment they finish, so the decode step's
-fixed ``max_slots`` rows stay as full as the arrival process allows.
-One scheduler thread owns the engine; ``submit`` only touches the
-bounded queue (:class:`QueueFull` on overflow).  Tokens stream per
-request through ``on_token`` callbacks; the request future resolves
-with the full greedy token list at eviction.
+Counterpart of :mod:`veles_tpu.gen.scheduler`.  Requests are admitted
+into open KV-cache slots at EVERY decode iteration and evicted the
+moment they finish, so the decode step's fixed ``max_slots`` rows stay
+as full as the arrival process allows.  One scheduler thread owns the
+engine; ``submit`` only touches the bounded queue (:class:`QueueFull`
+on overflow).  Tokens stream per request through ``on_token``
+callbacks; the request future resolves with the full greedy token list
+at eviction.
 
-Not ported in this slice: the ``/metrics`` gauges (``metrics`` must be
-None), the fleet page handoff and drain, speculative decode, and the
-telemetry-bus snapshots.
+Against a paged engine the loop gains three moves: admission is priced
+by the pool's actual headroom (``engine.can_admit``, FIFO, no
+overtaking the head); a chunked prefill feeds exactly one chunk per
+step, so co-resident decodes keep their cadence; and pool exhaustion
+preempts the YOUNGEST sequence, whose pages are freed and which is
+requeued at the front with its tokens so far (greedy decode of the
+prefix replays the stream, so the result is byte-identical to an
+uncontended run).  With a speculative engine each decode is one
+draft-then-verify round, its accepted span emitted token by token
+through the same finish predicate.
+
+Not ported, each raising ``NotImplementedError`` naming its ROADMAP
+item: the ``/metrics`` gauges (``metrics`` must be None; item 6), the
+telemetry-bus snapshots (item 6), and the fleet page handoff and drain
+(``submit_handoff``, ``drain``; item 7).
 """
 
 import collections
@@ -25,6 +37,7 @@ import numpy
 from veles_tpu_torch import trace
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.metrics import LatencyHistogram
+from veles_tpu_torch.samples.transformer import _not_ported
 
 
 class QueueFull(RuntimeError):
@@ -34,7 +47,7 @@ class QueueFull(RuntimeError):
 class GenRequest(object):
     __slots__ = ("tokens", "max_new_tokens", "future", "on_token",
                  "submitted", "first_token_at", "generated", "slot",
-                 "finish_reason")
+                 "finish_reason", "admit_seq", "preemptions")
 
     def __init__(self, tokens, max_new_tokens, on_token=None):
         self.tokens = tokens
@@ -46,11 +59,14 @@ class GenRequest(object):
         self.generated = []
         self.slot = None
         self.finish_reason = None
+        #: admission stamp: preemption evicts the YOUNGEST (largest)
+        self.admit_seq = -1
+        self.preemptions = 0
 
     def prefix(self):
-        """The tokens an admission must prefill: the prompt plus
-        everything generated before (greedy decode of the prefix
-        reproduces the stream)."""
+        """The tokens a (re-)admission must prefill: the prompt plus
+        everything generated before a preemption (greedy decode of the
+        prefix reproduces the stream, so requeueing is lossless)."""
         if not self.generated:
             return self.tokens
         return numpy.concatenate([
@@ -58,15 +74,22 @@ class GenRequest(object):
             numpy.asarray(self.generated, numpy.int32)])
 
 
-def finish_reason(engine, n_generated, max_new_tokens, token, slot):
+def finish_reason(engine, n_generated, max_new_tokens, token, slot,
+                  slot_len=None):
     """The ONE finish predicate continuous and static batching share:
     ``"eos"`` when the engine's eos token was produced, ``"length"`` at
-    the request's token budget or a full KV slot, else ``None``."""
+    the request's token budget or a full KV slot, else ``None``.
+    ``slot_len`` overrides the engine's counter: a speculative verify
+    advances the slot by the whole accepted span before its tokens are
+    emitted one by one, so each emit passes the length as of its
+    token."""
     if engine.eos_id is not None and token == engine.eos_id:
         return "eos"
     if n_generated >= max_new_tokens:
         return "length"
-    if engine.slot_len[slot] >= engine.max_seq:
+    if slot_len is None:
+        slot_len = engine.slot_len[slot]
+    if slot_len >= engine.max_seq:
         return "length"
     return None
 
@@ -86,14 +109,13 @@ class GenerativeScheduler(Logger):
                  max_queue=256, **kwargs):
         super(GenerativeScheduler, self).__init__(**kwargs)
         if metrics is not None:
-            raise NotImplementedError(
-                "the /metrics gauges are not ported to veles_tpu_torch "
-                "yet (ROADMAP.md, 'Slices still to port', item 6)")
+            _not_ported("the scheduler's /metrics gauges", 6)
         self.engine = engine
         self.name = name
         self.max_queue = int(max_queue)
         self._queue = collections.deque()
         self._active = {}            # slot -> decoding GenRequest
+        self._prefilling = {}        # slot -> chunk-admitting request
         self._cond = threading.Condition()
         self._stopped = False
         self._thread = None
@@ -103,6 +125,7 @@ class GenerativeScheduler(Logger):
         self.shed_total = 0
         self.decode_steps = 0
         self.decode_slot_steps = 0   # active rows summed over steps
+        self._admit_counter = 0
         #: submit → first streamed token (queue wait + prefill)
         self.ttft = LatencyHistogram()
 
@@ -118,7 +141,7 @@ class GenerativeScheduler(Logger):
         return len(self._queue)
 
     def active_requests(self):
-        return len(self._active)
+        return len(self._active) + len(self._prefilling)
 
     # -- client side -------------------------------------------------------
     def submit(self, tokens, max_new_tokens=16, on_token=None):
@@ -132,13 +155,26 @@ class GenerativeScheduler(Logger):
             raise ValueError("max_new_tokens must be >= 1")
         if len(tokens) < 1:
             raise ValueError("empty prompt")
-        self.engine.check_prompt(len(tokens))
-        if len(tokens) + max_new_tokens - 1 >= self.engine.max_seq:
+        return self.submit_request(GenRequest(tokens, max_new_tokens,
+                                              on_token))
+
+    def submit_request(self, request):
+        """Enqueue a pre-built :class:`GenRequest` (what :meth:`submit`
+        rides).  The door check is written against the request's prefix
+        and REMAINING budget, which for a fresh request is the prompt +
+        ``max_new_tokens`` check."""
+        prefix_len = len(request.prefix())
+        remaining = request.max_new_tokens - len(request.generated)
+        if remaining < 1:
+            raise ValueError(
+                "request has no remaining token budget (%d generated of "
+                "%d)" % (len(request.generated), request.max_new_tokens))
+        self.engine.check_prompt(prefix_len)  # raises when oversized
+        if prefix_len + remaining - 1 >= self.engine.max_seq:
             raise ValueError(
                 "prompt %d + max_new_tokens %d exceeds the engine's "
-                "max_seq %d KV slot" % (len(tokens), max_new_tokens,
+                "max_seq %d KV slot" % (prefix_len, remaining,
                                         self.engine.max_seq))
-        request = GenRequest(tokens, max_new_tokens, on_token)
         with self._cond:
             if self._stopped:
                 raise RuntimeError("scheduler is stopped")
@@ -150,9 +186,16 @@ class GenerativeScheduler(Logger):
             self._queue.append(request)
             self._cond.notify()
         trace.instant("gen", "enqueue",
-                      {"prompt": len(tokens), "max_new": max_new_tokens},
-                      role="server")
+                      {"prompt": len(request.tokens),
+                       "max_new": request.max_new_tokens,
+                       "resumed": bool(request.generated)}, role="server")
         return request.future
+
+    def submit_handoff(self, payload, request):
+        _not_ported("the fleet page handoff (submit_handoff)", 7)
+
+    def drain(self, timeout=30.0):
+        _not_ported("the fleet drain", 7)
 
     def generate(self, tokens, max_new_tokens=16, timeout=120.0,
                  on_token=None):
@@ -171,7 +214,7 @@ class GenerativeScheduler(Logger):
         return future.result(0)
 
     # -- the scheduling iteration ------------------------------------------
-    def _emit(self, request, token):
+    def _emit(self, request, token, slot_len=None):
         request.generated.append(int(token))
         if request.first_token_at is None:
             request.first_token_at = time.perf_counter()
@@ -186,7 +229,7 @@ class GenerativeScheduler(Logger):
                 request.on_token = None
         reason = finish_reason(self.engine, len(request.generated),
                                request.max_new_tokens, int(token),
-                               request.slot)
+                               request.slot, slot_len=slot_len)
         if reason is not None:
             self._finish(request, reason)
 
@@ -208,17 +251,69 @@ class GenerativeScheduler(Logger):
                            role="server")
         request.future.set_result(list(request.generated))
 
-    def step(self):
-        """One iteration: admit while a slot is free (FIFO), then one
-        decode step over the active set.  Returns the number of tokens
-        emitted (0 = idle)."""
+    def _preempt(self, request):
+        """Pool-exhaustion eviction of the YOUNGEST sequence: free its
+        slot and pages and requeue it at the queue FRONT with its tokens
+        so far (greedy decode of the prefix reproduces the stream)."""
+        slot = request.slot
+        self.engine.preempt(slot)
+        self._active.pop(slot, None)
+        self._prefilling.pop(slot, None)
+        request.slot = None
+        request.preemptions += 1
+        trace.instant("gen", "preempt",
+                      {"slot": slot, "generated": len(request.generated)},
+                      role="server")
+        with self._cond:
+            self._queue.appendleft(request)
+
+    def _spec_decode(self):
+        """One draft-then-verify round over the active set: proposals per
+        slot, the engine's one verify call, then each slot's accepted
+        span emitted ONE token at a time through the shared finish
+        predicate, so the stream (and where it stops) is plain decode's.
+        Returns the number of tokens emitted."""
+        proposals = {}
+        for slot, request in self._active.items():
+            if self.engine.slot_len[slot] < self.engine.max_seq:
+                proposals[slot] = self.engine.propose(request.prefix())
+        result = self.engine.spec_decode_step(proposals)
+        if result is None:
+            return 0
+        emitted = 0
+        self.decode_steps += 1
+        self.decode_slot_steps += len(result)
+        for slot, tokens in sorted(result.items()):
+            request = self._active.get(slot)
+            if request is None:
+                continue
+            final_len = int(self.engine.slot_len[slot])
+            for j, token in enumerate(tokens):
+                # the slot length as of this token: the engine already
+                # advanced by the whole accepted span
+                self._emit(request, token,
+                           slot_len=final_len - (len(tokens) - 1 - j))
+                emitted += 1
+                if request.finish_reason is not None:
+                    # eos or length mid-span: plain decode stops here too
+                    break
+        return emitted
+
+    def _admit_queued(self):
+        """Admit from the queue head while the engine has real headroom
+        (slots, and pool pages when paged), one at a time so every
+        admission updates the free list and the pool before the next is
+        priced.  Returns the tokens emitted."""
         emitted = 0
         while True:
             with self._cond:
                 if not self._queue:
                     break
                 head = self._queue[0]
-                if not self.engine.can_admit(len(head.prefix())):
+                # the tokens let prefix-cache hits (and evictable
+                # cache-only pages) count toward the pricing
+                if not self.engine.can_admit(len(head.prefix()),
+                                             head.prefix()):
                     break          # FIFO: no overtaking the head
                 request = self._queue.popleft()
             try:
@@ -231,38 +326,92 @@ class GenerativeScheduler(Logger):
                     request.future.set_exception(exc)
                 continue
             request.slot = slot
+            self._admit_counter += 1
+            request.admit_seq = self._admit_counter
             self.admitted_total += 1
             trace.instant("gen", "admit",
-                          {"slot": slot, "prompt": len(request.tokens)},
+                          {"slot": slot, "prompt": len(request.tokens),
+                           "resumed": bool(request.generated)},
                           role="server")
-            self._active[slot] = request
-            self._emit(request, token)   # may evict immediately
-            emitted += 1
+            if token is None:
+                self._prefilling[slot] = request
+            else:
+                self._active[slot] = request
+                self._emit(request, token)   # may evict immediately
+                emitted += 1
+        return emitted
+
+    def _feed_chunks(self):
+        """The chunked-prefill cadence: ONE chunk per pending prompt per
+        step.  Returns the chunks fed."""
+        fed = 0
+        for slot in sorted(self._prefilling):
+            request = self._prefilling[slot]
+            try:
+                token = self.engine.prefill_step(slot)
+            except Exception as exc:  # noqa: BLE001 - per-request
+                self.exception("prefill chunk failed; failing the request")
+                del self._prefilling[slot]
+                try:
+                    self.engine.release_slot(slot)
+                except Exception:
+                    pass
+                if not request.future.done():
+                    request.future.set_exception(exc)
+                continue
+            fed += 1
+            if token is not None:
+                del self._prefilling[slot]
+                self._active[slot] = request
+                self._emit(request, token)
+        return fed
+
+    def step(self):
+        """One iteration: admit while the engine has headroom, feed at
+        most one chunk per pending chunked prefill, finish saturated
+        slots, preempt the youngest sequence until the next decode
+        step's pages fit, then one decode (or draft-then-verify) over
+        the active set.  Returns the work done, tokens emitted plus
+        chunks fed plus preemptions (0 = idle)."""
+        emitted = self._admit_queued()
+        emitted += self._feed_chunks()
         # a saturated slot decodes nothing: route it through the shared
         # finish predicate instead of stalling the batch
         for slot, request in list(self._active.items()):
             if self.engine.slot_len[slot] >= self.engine.max_seq:
+                last = request.generated[-1] if request.generated \
+                    else int(self.engine.slot_token[slot])
                 reason = finish_reason(
                     self.engine, len(request.generated),
-                    request.max_new_tokens, request.generated[-1],
-                    slot) or "length"
+                    request.max_new_tokens, last, slot) or "length"
                 self._finish(request, reason)
+        while self.engine.decode_block_deficit() > 0:
+            if not self._active:
+                raise RuntimeError(
+                    "block pool deficit with no preemptible sequence: "
+                    "the pool is smaller than one step's working set")
+            self._preempt(max(self._active.values(),
+                              key=lambda r: r.admit_seq))
+            emitted += 1
         if self._active:
-            result = self.engine.decode_step()
-            if result is not None:
-                out, active = result
-                self.decode_steps += 1
-                self.decode_slot_steps += int(active.sum())
-                for slot, request in list(self._active.items()):
-                    if active[slot]:
-                        self._emit(request, out[slot])
-                        emitted += 1
+            if self.engine.proposer is not None:
+                emitted += self._spec_decode()
+            else:
+                result = self.engine.decode_step()
+                if result is not None:
+                    out, active = result
+                    self.decode_steps += 1
+                    self.decode_slot_steps += int(active.sum())
+                    for slot, request in list(self._active.items()):
+                        if active[slot]:
+                            self._emit(request, out[slot])
+                            emitted += 1
         return emitted
 
     def run_until_idle(self, max_steps=100000):
         """Pump until queue and slots drain (manual mode)."""
         steps = 0
-        while self._queue or self._active:
+        while self._queue or self._active or self._prefilling:
             if self.step() == 0:
                 break
             steps += 1
@@ -288,7 +437,7 @@ class GenerativeScheduler(Logger):
             with self._cond:
                 if self._stopped:
                     return
-                if not self._queue and not self._active:
+                if not (self._queue or self._active or self._prefilling):
                     self._cond.wait(0.05)
                     if self._stopped:
                         return
@@ -298,8 +447,10 @@ class GenerativeScheduler(Logger):
                 # fail the inhabitants rather than silently wedging
                 self.exception("scheduler step failed; failing active "
                                "requests")
-                occupants = list(self._active.items())
+                occupants = (list(self._active.items())
+                             + list(self._prefilling.items()))
                 self._active.clear()
+                self._prefilling.clear()
                 for slot, request in occupants:
                     try:
                         self.engine.release_slot(slot)
@@ -315,7 +466,8 @@ class GenerativeScheduler(Logger):
         if self._thread is not None and drain:
             while True:
                 with self._cond:
-                    idle = not self._queue and not self._active
+                    idle = not (self._queue or self._active
+                                or self._prefilling)
                 if idle:
                     break
                 time.sleep(0.005)
@@ -333,8 +485,10 @@ class GenerativeScheduler(Logger):
             self._thread = None
         # whatever still occupies a slot fails LOUDLY now: a pending
         # future against a stopped scheduler would block its client
-        for slot, request in list(self._active.items()):
+        for slot, request in (list(self._active.items())
+                              + list(self._prefilling.items())):
             self._active.pop(slot, None)
+            self._prefilling.pop(slot, None)
             try:
                 self.engine.release_slot(slot)
             except ValueError:

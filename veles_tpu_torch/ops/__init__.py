@@ -11,6 +11,11 @@ version.
 - ``veles_tpu/ops/attention.py`` ``_decode_kernel`` (decode / verify) →
   :func:`veles_tpu_torch.ops.attention.decode_attention`, CUDA C++ in
   ``csrc/decode_attn.cu``;
+- ``veles_tpu/ops/attention.py`` ``_paged_decode_kernel`` (decode /
+  verify through block tables) →
+  :func:`veles_tpu_torch.ops.attention.paged_decode_attention` and
+  :func:`~veles_tpu_torch.ops.attention.paged_verify_attention`, the
+  second entry of ``csrc/decode_attn.cu``;
 - ``veles_tpu/ops/gemm.py`` ``_matmul_kernel`` →
   :func:`veles_tpu_torch.ops.gemm.matmul`, and ``_gd_dx_kernel``,
   ``_gd_dw_kernel``, ``_gd_db_kernel`` →

@@ -1,6 +1,6 @@
 """Attention for serving and training: the flash forward, the flash
-backward pair and the decode kernel, each beside its plain PyTorch
-version.
+backward pair, the decode kernel and its paged twin, each beside its
+plain PyTorch version.
 
 Counterpart of :mod:`veles_tpu.ops.attention`.  The public functions
 keep the JAX layout ``(batch, seq, heads, head_dim)`` and the JAX
@@ -10,9 +10,10 @@ i``), masked scores of ``NEG_INF = -1e30`` and a softmax scale of
 ``1/sqrt(head_dim)``.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain
-version (``_mha_ref``, ``_bwd_ref``, ``_decode_ref``, ``_verify_ref``);
-CUDA tensors launch the hand-written kernel (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, ``csrc/decode_attn.cu``) or raise.  There is no
+version (``_mha_ref``, ``_bwd_ref``, ``_decode_ref``, ``_verify_ref``,
+``_paged_decode_ref``); CUDA tensors launch the hand-written kernel
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/decode_attn.cu``,
+whose second entry is the paged kernel) or raise.  There is no
 fallback from a CUDA tensor to the plain version.  ``launches`` counts
 kernel launches by kernel name; only a launch adds to it.
 
@@ -35,7 +36,7 @@ MAX_QUERY_ROWS = 8
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "decode_attn": 0}
+            "decode_attn": 0, "paged_decode_attn": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -53,6 +54,9 @@ _ARGTYPES = {
     "decode_attn": ("decode_attn", "veles_decode_attn",
                     [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 2
                     + [ctypes.c_float, _P]),
+    "paged_decode_attn": ("decode_attn", "veles_paged_decode_attn",
+                          [_P] * 6 + [_I] * 7 + [_L] * 10 + [_I] * 2
+                          + [ctypes.c_float, _P]),
 }
 _entries = {}
 
@@ -205,6 +209,27 @@ def _verify_ref(q, k, v, lengths):
     return _masked_ref(q, k, v, limits)
 
 
+def _gather_pool(pool, tables):
+    """(num_blocks, BS, h, d) pool + (b, max_blocks) int32 tables → the
+    (b, max_blocks·BS, h, d) contiguous copy of each sequence, as
+    ``veles_tpu.ops.attention._gather_pool``.  Entries past a sequence's
+    allocation point at the trash block 0, whose keys lie past
+    ``lengths`` and are masked."""
+    g = pool[tables.long()]                # (b, mb, BS, h, d)
+    b, mb, bs = g.shape[:3]
+    return g.reshape(b, mb * bs, g.shape[3], g.shape[4])
+
+
+def _paged_decode_ref(q, k_pool, v_pool, tables, lengths, row_step=0):
+    """Mirror of ``_paged_decode_jnp`` (``row_step=0``) and of the dense
+    path of ``paged_verify_attention`` (``row_step=1``): gather the pool
+    through the tables into the contiguous layout, then run
+    :func:`_decode_ref` or :func:`_verify_ref`."""
+    ref = _verify_ref if row_step else _decode_ref
+    return ref(q, _gather_pool(k_pool, tables), _gather_pool(v_pool, tables),
+               lengths)
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 def _flash_fwd_cuda(q, k, v, causal, q_offset, k_offset):
@@ -340,6 +365,13 @@ def flash_attention(q, k, v, causal=False, q_offset=0, k_offset=0):
     return _flash_fwd(q, k, v, causal, q_offset, k_offset)[0]
 
 
+def _check_lengths(name, lengths, b, device):
+    if (lengths.dtype != torch.int32 or lengths.shape != (b,)
+            or lengths.device != device or not lengths.is_contiguous()):
+        raise ValueError("%s needs contiguous int32 lengths of shape (%d,) "
+                         "on %s" % (name, b, device))
+
+
 def _decode_cuda(q, k, v, lengths, row_step):
     dtype = _check_bshd("decode_attn", q, k, v)
     b, nq, h, d = q.shape
@@ -350,10 +382,7 @@ def _decode_cuda(q, k, v, lengths, row_step):
     if not 1 <= nq <= MAX_QUERY_ROWS:
         raise ValueError("decode_attn takes 1..%d query rows, got %d"
                          % (MAX_QUERY_ROWS, nq))
-    if (lengths.dtype != torch.int32 or lengths.shape != (b,)
-            or lengths.device != q.device or not lengths.is_contiguous()):
-        raise ValueError("decode_attn needs contiguous int32 lengths of "
-                         "shape (%d,) on %s" % (b, q.device))
+    _check_lengths("decode_attn", lengths, b, q.device)
     width = 16 // q.element_size()
     vec = int(d % width == 0
               and all(s % width == 0 for s in _strides(k) + _strides(v))
@@ -391,3 +420,108 @@ def decode_attention(q, k, v, lengths, row_step=0):
     else:
         out = _decode_ref(q, k, v, lengths)
     return out[:, 0] if squeeze else out
+
+
+def verify_attention(q, k, v, lengths):
+    """K-token causal verify against a contiguous cache (speculative
+    decode): ``q`` (b, K+1, h, d), row ``j`` of sequence ``i`` reads the
+    keys ``< lengths[i] + j``.  The decode kernel with ``row_step=1``."""
+    return decode_attention(q, k, v, lengths, row_step=1)
+
+
+def chunk_attention(q, k, v, start):
+    """Causal attention of ONE prefill chunk against the sequence's whole
+    KV buffer: ``q`` (1, C, h, d) at global positions ``start + i``,
+    ``k``/``v`` (1, S, h, d) with the chunk's K/V already written at
+    [start, start+C).  Keys at or past ``start + C`` are hidden by the
+    causal offset.  The flash forward with ``q_offset=start``."""
+    return _flash_fwd(q, k, v, causal=True, q_offset=int(start))[0]
+
+
+def _paged_decode_cuda(q, k_pool, v_pool, tables, lengths, row_step):
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError("paged_decode_attn kernel takes float32 or "
+                        "bfloat16, got %s" % dtype)
+    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.dim() != 4:
+        raise ValueError("paged_decode_attn expects q (b, nq, h, d) and "
+                         "pools (num_blocks, BS, h, d)")
+    b, nq, h, d = q.shape
+    if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (h, d):
+        raise ValueError("paged_decode_attn operand shapes disagree: q %s, "
+                         "pools %s %s" % (tuple(q.shape),
+                                          tuple(k_pool.shape),
+                                          tuple(v_pool.shape)))
+    for t in (k_pool, v_pool):
+        if t.dtype != dtype:
+            raise TypeError("paged_decode_attn operands differ in dtype: "
+                            "%s vs %s" % (t.dtype, dtype))
+    for t in (q, k_pool, v_pool):
+        if t.stride(-1) != 1:
+            raise ValueError("paged_decode_attn needs a unit stride on "
+                             "head_dim")
+        if t.device != q.device:
+            raise ValueError("paged_decode_attn operands on different "
+                             "devices")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError("paged_decode_attn takes head_dim 1..%d, got %d"
+                         % (MAX_HEAD_DIM, d))
+    if not 1 <= nq <= MAX_QUERY_ROWS:
+        raise ValueError("paged_decode_attn takes 1..%d query rows, got %d"
+                         % (MAX_QUERY_ROWS, nq))
+    if (tables.dtype != torch.int32 or tables.dim() != 2
+            or tables.shape[0] != b or tables.shape[1] < 1
+            or tables.stride(1) != 1 or tables.device != q.device):
+        raise ValueError("paged_decode_attn needs int32 tables of shape "
+                         "(%d, max_blocks) with a unit last stride on %s"
+                         % (b, q.device))
+    _check_lengths("paged_decode_attn", lengths, b, q.device)
+    width = 16 // q.element_size()
+    vec = int(d % width == 0
+              and all(s % width == 0 for s in _strides(k_pool)
+                      + _strides(v_pool))
+              and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
+    o = torch.empty((b, nq, h, d), dtype=dtype, device=q.device)
+    status = _entry("paged_decode_attn")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+        _DTYPE_CODES[dtype], b, h, nq, tables.shape[1], k_pool.shape[1], d,
+        *_strides(q), *_strides(k_pool), *_strides(v_pool), tables.stride(0),
+        int(row_step), vec, 1.0 / (d ** 0.5), stream_handle(q.device))
+    check_status("paged_decode_attn", status)
+    launches["paged_decode_attn"] += 1
+    return o
+
+
+def paged_decode_attention(q, k_pool, v_pool, tables, lengths, row_step=0):
+    """A few query rows against a PAGED KV pool — the decode (and, with
+    ``row_step=1``, the verify) hot op of the block-pool cache.
+
+    ``q``: (b, nq, h, d) with nq <= 8, or (b, h, d); ``k_pool``/
+    ``v_pool``: (num_blocks, BS, h, d) shared pools; ``tables``: (b,
+    max_blocks) int32, row ``i``'s sequence in blocks ``tables[i]`` in
+    order, entries past its allocation pointing at the trash block 0;
+    ``lengths``: (b,) int32 valid key counts (each >= 1).  Row ``j``
+    reads the keys ``< lengths[i] + row_step·j``, never past
+    ``max_blocks·BS``.  Same row independence as
+    :func:`decode_attention`."""
+    if row_step not in (0, 1):
+        raise ValueError("row_step must be 0 (decode) or 1 (verify), "
+                         "got %r" % (row_step,))
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    if on_gpu(q, k_pool, v_pool, tables, lengths):
+        out = _paged_decode_cuda(q, k_pool, v_pool, tables, lengths,
+                                 row_step)
+    else:
+        out = _paged_decode_ref(q, k_pool, v_pool, tables, lengths,
+                                row_step)
+    return out[:, 0] if squeeze else out
+
+
+def paged_verify_attention(q, k_pool, v_pool, tables, lengths):
+    """The paged twin of :func:`verify_attention`: the staggered verify
+    mask over keys gathered through the block tables."""
+    return paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                                  row_step=1)

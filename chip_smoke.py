@@ -43,7 +43,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
    logits at the first diverging step had a top-2 gap below 1e-3; and
    ``calibration_logits`` of one 256-token prompt must agree within
    max abs 1e-3.
-6. ``serve_paged`` — the paged path at full width: the same model and
+6. ``serve_int8`` — the int8 deploy at full width: ``serve``'s model,
+   weights, 8 requests and worker thread with ``quantize_int8(
+   calibration_tokens=<first prompt>, tol=0.05)`` before warmup (the
+   measured drift printed).  Exact budgets; ``qmatmul`` launches (set to
+   0 just before the session, read just after) exactly 48 a prefill and
+   a decode step (4 a layer); every block weight int8.  A 16-step
+   decode window under ``torch.profiler`` must hold at least 48 cuBLAS
+   kernels a step fewer than ``serve``'s bf16 window, where each of the
+   48 block products launches at least one (so none went through the
+   library here), and gives qmatmul's device time a launch against its
+   bound by bytes.  Params bytes and their ratio to the
+   bf16 twin's, tokens/s, TTFT, the median decode step and the share of
+   tokens equal to ``serve``'s streams are printed.
+7. ``serve_int8_parity`` — CONFIG cut to 2 layers, f32, TF32 off: one
+   host-quantized tree serves on the card (the kernel) and on the CPU
+   (the plain version), contiguous and paged with a 64-token prefill
+   chunk; the streams must be equal, unless the CPU logits at the first
+   divergence had a top-2 gap below 1e-3, and ``calibration_logits``
+   must agree within 1e-3.
+8. ``serve_paged`` — the paged path at full width: the same model and
    weights with ``kv="paged"`` (pages of 16, the default 513-page
    pool), ``prefill_chunk=256`` and ``prefix_cache="on"`` behind the
    worker thread; 8 requests, each a shared seeded 512-token stem plus
@@ -55,12 +74,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    chunk times, prefix hit rate, peak pages, pool bytes, host→device
    bytes a decode step, and a 16-step decode window under
    ``torch.profiler``.
-7. ``serve_spec`` — as ``serve_paged`` with ``speculative="ngram"``,
+9. ``serve_spec`` — as ``serve_paged`` with ``speculative="ngram"``,
    ``draft_k=4`` and tails that repeat a seeded 24-token phrase: exact
    budgets, every decode dispatch a verify, 12 ``paged_decode_attn``
    launches a verify; accept rate, tokens a dispatch, verify step,
    host time in ``propose``.
-8. ``serve_paged_parity`` — CONFIG cut to 2 layers, f32, TF32 off,
+10. ``serve_paged_parity`` — CONFIG cut to 2 layers, f32, TF32 off,
    max_seq 512: 6 requests (a 64-token stem plus 8..150-token tails) x
    16 tokens.  R, the card's contiguous streams: the CPU's agree with R
    under the near-tie rule of ``parity``; the card's paged engine gives
@@ -68,7 +87,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    n-gram speculation, and a 33-page pool that preempts agree with R
    under the near-tie rule (the card's contiguous model the judge); two
    tight-pool runs give equal streams and preemption counts.
-9. ``train``   — the training path at full width: ``build_train(CONFIG)``
+11. ``train``   — the training path at full width: ``build_train(CONFIG)``
    (bf16 compute, remat, ce_chunk 128, SGD with momentum) on
    ``synthetic_tokens(CONFIG, 8)``, one warm-up step and 5 timed ones.
    Every loss must be finite and every step must launch the forward
@@ -76,7 +95,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    kernel 12 times (counts set to 0 just before the steps, read just
    after each).  Then one step under ``torch.profiler`` gives the
    device time by kernel group and the busy share.
-10. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
+12. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
    batch 2, float32 with TF32 off: 2 steps from the same numpy params
    on the card (kernels) and on the CPU (plain versions); the losses
    must agree within relative 1e-6, the params after 2 steps within
@@ -84,7 +103,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    sum) leaf by leaf within max |card - cpu| <= 1e-4 · max |cpu|.  A
    third run on the card with its dq zeroed must fail that velocity
    check.
-11. ``mnist``   — the MNIST MLP (784→100 tanh, 100→10 softmax, lr 0.03,
+13. ``mnist``   — the MNIST MLP (784→100 tanh, 100→10 softmax, lr 0.03,
    momentum 0.9, decay 0.0005, f32) trained through the eager workflow
    (``samples.mnist.create_workflow(max_epochs=3)`` with
    ``engine.stitch=off``, minibatch 100) on the synthetic stand-in: the
@@ -96,12 +115,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    minibatch wall time, host→device bytes per minibatch and peak memory;
    then one epoch (``max_epochs=2``) under ``torch.profiler``: device
    time by kernel group, busy share, the largest idle gaps.
-12. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
+14. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
    on the card (kernels) and on the CPU (plain versions): per-epoch
    per-class n_err and confusion matrices equal, the weights, biases
    and momenta leaf by leaf within max |card − cpu| <= 1e-4 · max |cpu|;
    a third card run with gd_dx planted to return zeros must fail it.
-13. ``mnist_stitched`` — the default route: ``create_workflow(native=
+15. ``mnist_stitched`` — the default route: ``create_workflow(native=
    True, max_epochs=3)`` with ``engine.stitch=on``: the u8 dataset
    resident, each minibatch one replay of the forward segment's CUDA
    graph (loader head, both forwards, evaluator) and, on train
@@ -116,7 +135,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    then one steady-state epoch (epoch 1 of a ``max_epochs=3`` run)
    under ``torch.profiler``: device time by kernel, kernels per
    minibatch, host gaps, busy share.
-14. ``mnist_stitched_parity`` — the stitched card run against the
+16. ``mnist_stitched_parity`` — the stitched card run against the
    CPU's (native, one train pass), the card's stitch on against off
    (f32 dataset), a minibatch-96 run (short tails) against the CPU's,
    and a run whose GD learning rates are halved at epoch 1 against the
@@ -124,6 +143,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    equal, parameters and momenta within 1e-4 · max |cpu|.  A card run
    whose loader scalar block is written once and never again (a stale
    offset) must fail that check.
+17. ``ops`` — the ops API on the card: ``matrix_reduce`` of a (4096,
+   4096) f32 matrix under ``root.common.engine.pallas_reduce = True``
+   launches the reduce kernel once a call (every op and axis) and agrees
+   with ``_reduce_ref``; with the knob off it launches nothing.
+   ``uniform_pallas(seed, (4096, 4096))`` launches once, gives the same
+   bits as the same call with ``device="cpu"``, and another seed gives
+   other bits.
 
 The ``kernels`` phase also holds the paged decode kernel against
 ``_paged_decode_ref`` (f32 <= 1e-4, bf16 <= 2e-2) for decode (1 row)
@@ -155,10 +181,30 @@ f32 and int32 tables with negative and out-of-range indices and rows of
 1, 13 (no 16-B word) and 784 elements, exactly; two planted faults per
 kernel (every index off by one, negative indices not zeroed) must be
 reported; each is timed at 100 rows of a (7000, 784) table and at 4096
-rows of a (70000, 784) u8 table beside its bound by bytes.
+rows of a (70000, 784) u8 table beside its bound by bytes.  It holds
+the int8 GEMM (``qmatmul``) against ``_qmatmul_ref`` at CONFIG's four
+block shapes at M = 4 and 2048 in bf16 and M = 20 in f32, and at (5,
+200, 130) and (20, 1024, 1024) with every activation (gelu included),
+bias and no bias, f32 and bf16 (f32 within 1e-4 of max |plain|, bf16
+within 2e-2); two planted faults (shuffled scales, the last K tile
+dropped) must be reported; it is timed at the four shapes at decode (L2
+flushed) and prefill beside its bound, the plain version and
+``torch.mm`` on a dequantized bf16 copy plus the epilogue.  It holds the
+reduce kernel against ``_reduce_ref`` at (4096, 4096), (37, 53), (24,
+256), (1, 5000) and (5000, 1), f32 and bf16, every op and axis, with and
+without ±inf and NaN (max and min equal, NaN where the plain version has
+it; sums within 1e-6·Σ|a|, plus one bf16 ulp for bf16); a dropped last
+row block and a dropped last column block must be reported; it is timed
+at (4096, 4096) f32 beside ``torch.sum`` / ``amax`` / ``amin``.  It holds
+the uniform kernel bit for bit against ``_uniform_ref`` at (4096, 4096)
+and (1000,), f32 and bf16, in [low, high) and with mean and variance
+within 5 sigma of U(low, high), and times it (L2 flushed) beside
+``torch.rand``.
+Every phase runs with ``precision_level`` 2 (TF32 off).
 
-Then it prints the per-kernel JSON line (launches on the main paths,
-serve, serve_paged, serve_spec, train, mnist and mnist_stitched, max
+Then it prints the per-kernel JSON line, all 14 TPU kernels (launches on
+the main paths, serve, serve_int8, serve_paged, serve_spec, train,
+mnist, mnist_stitched and ops, max
 abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -321,6 +367,12 @@ _GEMM_GROUPS = (("veles_gemm_kernel<0>", "veles_matmul"),
 
 
 def _kernel_group(name):
+    for tag, group in (("qmatmul_kernel", "qmatmul"),
+                       ("reduce_rows_kernel", "reduce"),
+                       ("reduce_cols_kernel", "reduce"),
+                       ("uniform_kernel", "uniform")):
+        if tag in name:
+            return group
     for tag, group in _GEMM_GROUPS:
         if tag in name:
             return group
@@ -343,9 +395,10 @@ def _kernel_group(name):
 
 def profile_window(fn):
     """Run ``fn`` once under ``torch.profiler`` and return its host wall
-    time, the device time of every kernel summed by group (flash_fwd,
-    flash_bwd_dq, flash_bwd_dkv, decode_attn, the GEMM and gather
-    kernels, matmul, copy, other), the 12 kernels that took most of it,
+    time, the device time and the number of kernels of every group
+    (flash_fwd, flash_bwd_dq, flash_bwd_dkv, decode_attn, the GEMM and
+    gather kernels, matmul, copy, other), the 12 kernels that took most
+    of it,
     and the device's busy share of the wall time.  Kernels run on one
     stream, so their times add."""
     from torch.profiler import ProfilerActivity, profile
@@ -362,13 +415,14 @@ def profile_window(fn):
 def _profile_summary(prof, wall_us):
     """:func:`profile_window`'s summary of a finished profile."""
     from torch.autograd import DeviceType
-    groups, names, spans = {}, {}, []
+    groups, counts, names, spans = {}, {}, {}, []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
         us = ev.device_time_total
         group = _kernel_group(ev.name)
         groups[group] = groups.get(group, 0.0) + us
+        counts[group] = counts.get(group, 0) + 1
         names[ev.name] = names.get(ev.name, 0.0) + us
         spans.append((ev.time_range.start, ev.time_range.end))
     busy = sum(groups.values())
@@ -381,6 +435,7 @@ def _profile_summary(prof, wall_us):
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "busy_share": busy / wall_us if busy else None,
             "device_ms_by_group": {g: t / 1e3 for g, t in groups.items()},
+            "kernels_by_group": counts,
             "top_kernels_ms": [[n[:200], t / 1e3] for n, t in top],
             "device_kernels": len(spans),
             "top_host_gaps_ms": [g / 1e3 for g in gaps[:5]],
@@ -1264,6 +1319,408 @@ def _paged_kernels(device):
             "garbage_and_planted_faults": faults}, [row], ok
 
 
+# -- the int8 GEMM (csrc/qgemm.cu) ------------------------------------------
+
+#: CONFIG's block weights, (K, N) and the epilogue the model gives each:
+#: wqkv, wo, w1 (bias + gelu), w2 (bias); 4 calls a layer
+QMM_LAYER = (("wqkv", 1024, 3072, False, None),
+             ("wo", 1024, 1024, False, None),
+             ("w1", 1024, 4096, True, "gelu"),
+             ("w2", 4096, 1024, True, None))
+QMM_DECODE_M = 4                 # a decode step of 4 slots
+QMM_VERIFY_M = 20                # a verify step: 4 slots x 5 rows
+QMM_PREFILL_M = 2048             # the largest prefill bucket
+QMM_ACTIVATIONS = (None, "tanh", "sigmoid", "relu", "strict_relu", "gelu")
+QMM_TILE_K = 64                  # BK of csrc/qgemm.cu
+
+
+def _qmm_operands(rng, device, m, k, n, dtype, bias=True):
+    """a (m, k), int8 q (k, n) over the full range, per-channel scales,
+    and a bias (n,) in a's dtype: scaled so outputs stay below 4, where a
+    bf16 ulp (<= 2^-6) is inside BF16_TOL."""
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        numpy.float32)).to(device, dtype)
+    q = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(
+        numpy.int8)).to(device)
+    scale = torch.from_numpy((rng.uniform(0.25, 0.75, n) / 127
+                              / numpy.sqrt(k)).astype(numpy.float32))
+    scale = scale.to(device)
+    b = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(
+        numpy.float32)).to(device, dtype) if bias else None
+    return a, q, scale, b
+
+
+def _qmm_err(got, want, dtype):
+    """Max abs error of a qmatmul output and whether it is inside the
+    tolerance: f32 within 1e-4 of max |plain|, bf16 within BF16_TOL."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = (F32_TOL * float(want.float().abs().max())
+           if dtype == torch.float32 else BF16_TOL)
+    return {"max_abs_err": err, "tol": tol, "ok": err <= tol}
+
+
+def _qgemm_cases(rng, device):
+    """The four layer shapes at M = 4 and M = 2048 in bf16 and at M = 20
+    in f32; a ragged (5, 200, 130) and a (20, 1024, 1024) case with every
+    activation, bias and no bias, in f32 and bf16."""
+    from veles_tpu_torch.ops import qgemm
+    cases = []
+
+    def case(m, k, n, dtype, has_bias, activation, label):
+        a, q, scale, b = _qmm_operands(rng, device, m, k, n, dtype, has_bias)
+        report = _qmm_err(qgemm.qmatmul(a, q, scale, b, activation),
+                          qgemm._qmatmul_ref(a, q, scale, b, activation),
+                          dtype)
+        cases.append(dict(report, kernel="qmatmul", weight=label,
+                          shape=[m, k, n], dtype=str(dtype)[6:],
+                          bias=has_bias, activation=activation,
+                          split=qgemm.split_k(m, n, k)))
+
+    for m, dtype in ((QMM_DECODE_M, torch.bfloat16),
+                     (QMM_PREFILL_M, torch.bfloat16),
+                     (QMM_VERIFY_M, torch.float32)):
+        for label, k, n, has_bias, activation in QMM_LAYER:
+            case(m, k, n, dtype, has_bias, activation, label)
+    for m, k, n in ((5, 200, 130), (QMM_VERIFY_M, 1024, 1024)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for activation in QMM_ACTIVATIONS:
+                for has_bias in (True, False):
+                    case(m, k, n, dtype, has_bias, activation, None)
+    gpu_sync()
+    return cases
+
+
+def _qgemm_planted_faults(rng, device):
+    """Faults planted in the kernel's inputs at the decode shape of wqkv,
+    each of which the tolerance must report: the scales shuffled, and
+    the last K tile dropped."""
+    from veles_tpu_torch.ops import qgemm
+    m, k, n = QMM_DECODE_M, 1024, 3072
+    a, q, scale, _b = _qmm_operands(rng, device, m, k, n, torch.bfloat16)
+    want = qgemm._qmatmul_ref(a, q, scale)
+    perm = torch.from_numpy(rng.permutation(n)).to(device)
+    cut = k - QMM_TILE_K
+    faults = {
+        "scales_shuffled": _qmm_err(qgemm.qmatmul(a, q, scale[perm]), want,
+                                    torch.bfloat16),
+        "last_k_tile_dropped": _qmm_err(
+            qgemm.qmatmul(a[:, :cut], q[:cut].contiguous(), scale), want,
+            torch.bfloat16)}
+    gpu_sync()
+    return {name: dict(report, caught=not report["ok"])
+            for name, report in faults.items()}
+
+
+def _qmm_bytes(m, k, n, dtype, has_bias):
+    elem = 2 if dtype == torch.bfloat16 else 4
+    return m * k * elem + k * n + 4 * n + (n * elem if has_bias else 0) \
+        + m * n * elem
+
+
+def _qgemm_timed(rng, device):
+    """The kernel at each of a layer's four shapes, at decode (M = 4,
+    bound by bytes, L2 flushed before each call) and at the largest
+    prefill bucket (M = 2048), bf16: median of 20 CUDA-event timings
+    beside the bound, the plain version and one library call (torch.mm,
+    or addmm with the bias, on a dequantized bf16 copy, then gelu where
+    the model fuses it).  The row's headline is one decode layer: the sum
+    of the four decode calls."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops import qgemm
+    flush = make_l2_flush(device)
+    by_shape = []
+    for m in (QMM_DECODE_M, QMM_PREFILL_M):
+        for label, k, n, has_bias, activation in QMM_LAYER:
+            dtype = torch.bfloat16
+            a, q, scale, b = _qmm_operands(rng, device, m, k, n, dtype,
+                                           has_bias)
+            err = _qmm_err(qgemm.qmatmul(a, q, scale, b, activation),
+                           qgemm._qmatmul_ref(a, q, scale, b, activation),
+                           dtype)["max_abs_err"]
+            wd = (q.float() * scale).to(dtype)
+
+            def library(a=a, wd=wd, b=b, activation=activation):
+                out = torch.addmm(b, a, wd) if b is not None \
+                    else torch.mm(a, wd)
+                return F.gelu(out, approximate="tanh") \
+                    if activation == "gelu" else out
+            nbytes = _qmm_bytes(m, k, n, dtype, has_bias)
+            bound, by = bound_seconds(nbytes, 2 * m * k * n, "bfloat16")
+            cold = flush if by == "bytes" else None
+            by_shape.append({
+                "weight": label, "shape": [m, k, n], "dtype": "bfloat16",
+                "bias": has_bias, "activation": activation,
+                "split": qgemm.split_k(m, n, k),
+                "ms": time_ms(lambda: qgemm._qmatmul_cuda(
+                    a, q, scale, b, activation, dtype), flush=cold),
+                "plain_ms": time_ms(lambda: qgemm._qmatmul_ref(
+                    a, q, scale, b, activation), flush=cold),
+                "library_ms": time_ms(library, flush=cold),
+                "bound_ms": bound * 1e3, "bound_by": by,
+                "max_abs_err": err})
+    gpu_sync()
+    decode = [s for s in by_shape if s["shape"][0] == QMM_DECODE_M]
+    row = {"name": "qmatmul", "route": "cuda",
+           "source": "veles_tpu_torch/csrc/qgemm.cu",
+           "replaces": "veles_tpu/ops/qgemm.py:57",
+           "dtype": "bfloat16", "shape": "one decode layer: the 4 calls "
+           "at M=%d (wqkv, wo, w1, w2)" % QMM_DECODE_M,
+           "plain_of": "_qmatmul_ref",
+           "library_of": "torch.mm / addmm on a dequantized bf16 copy, "
+           "then the epilogue", "by_shape": by_shape,
+           "bound_by": "bytes",
+           "max_abs_err": max(s["max_abs_err"] for s in decode)}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        row[key] = sum(s[key] for s in decode)
+    return row
+
+
+def _qgemm_kernels(device):
+    """The ``kernels`` phase's int8 part: cases, repeatability, planted
+    faults and timings of csrc/qgemm.cu."""
+    from veles_tpu_torch.ops import qgemm
+    rng = numpy.random.default_rng(SEED + 5)
+    cases = _qgemm_cases(rng, device)
+    a, q, scale, b = _qmm_operands(rng, device, QMM_DECODE_M, 4096, 1024,
+                                   torch.bfloat16)
+    repeatable = torch.equal(qgemm.qmatmul(a, q, scale, b),
+                             qgemm.qmatmul(a, q, scale, b))
+    planted = _qgemm_planted_faults(rng, device)
+    row = _qgemm_timed(rng, device)
+    ok = (all(c["ok"] for c in cases) and repeatable
+          and all(f["caught"] for f in planted.values()))
+    return {"cases": cases, "bit_equal_relaunch": repeatable,
+            "planted_faults": planted}, [row], ok
+
+
+# -- the reduction (csrc/reduce.cu) ------------------------------------------
+
+REDUCE_BIG = (4096, 4096)
+REDUCE_SHAPES = (REDUCE_BIG, (37, 53), (24, 256), (1, 5000), (5000, 1))
+REDUCE_SUM_RTOL = 1e-6
+REDUCE_BLOCK = 512               # the Pallas kernel's rows (columns) a block
+
+
+def _reduce_matrix(rng, device, shape, dtype, specials):
+    a = rng.standard_normal(shape).astype(numpy.float32)
+    if specials and min(shape) > 1:
+        m, n = shape
+        a[0, n - 1], a[m - 1, 0], a[m // 2, n // 2] = \
+            numpy.inf, -numpy.inf, numpy.nan
+        a[m // 3, :] = numpy.inf                  # a whole row of +inf
+    return torch.from_numpy(a).to(device, dtype)
+
+
+def _reduce_agree(got, want, a, op, axis):
+    """max / min: equal, NaN where the plain version has NaN; sum: NaN
+    and inf where the plain version has them, and elsewhere within
+    1e-6·Σ|a| (finite entries) plus one bf16 ulp of |plain| for a bf16
+    output, whose f32 sum each side rounds once."""
+    g, w = got.float(), want.float()
+    nan = torch.isnan(w)
+    same_nan = bool(torch.equal(torch.isnan(g), nan))
+    if op != "sum":
+        exact = bool(torch.equal(g[~nan], w[~nan]))
+        diff = (g - w).abs()[~nan]
+        return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+                "bit_equal": exact, "ok": same_nan and exact}
+    inf = torch.isinf(w)
+    same_inf = bool(torch.equal(g[inf], w[inf]))
+    scale = a.float().nan_to_num(0.0, 0.0, 0.0).abs().sum(axis)
+    tol = REDUCE_SUM_RTOL * scale
+    if a.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * w.abs()
+    ok = ~nan & ~inf
+    diff = (g - w).abs()
+    outside = int((diff[ok] > tol[ok]).sum())
+    return {"max_abs_err": float(diff[ok].max()) if ok.any() else 0.0,
+            "outside_tol": outside,
+            "ok": same_nan and same_inf and outside == 0}
+
+
+def _reduce_cases(rng, device):
+    from veles_tpu_torch.ops import reduce
+    cases = []
+    for shape in REDUCE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for specials in (False, True):
+                a = _reduce_matrix(rng, device, shape, dtype, specials)
+                for op in ("sum", "max", "min"):
+                    for axis in (0, 1):
+                        report = _reduce_agree(
+                            reduce.matrix_reduce(a, axis, op, use_pallas=True),
+                            reduce._reduce_ref(a, axis, op), a, op, axis)
+                        cases.append(dict(
+                            report, kernel="reduce", shape=list(shape),
+                            dtype=str(dtype)[6:], op=op, axis=axis,
+                            nan_inf=specials and min(shape) > 1))
+    gpu_sync()
+    return cases
+
+
+def _reduce_planted_faults(rng, device):
+    """The last row block (512 rows, the Pallas kernel's block) dropped
+    from a sum over axis 0, and the last column block from a max over
+    axis 1, at the main shape: each must be reported."""
+    from veles_tpu_torch.ops import reduce
+    a = _reduce_matrix(rng, device, REDUCE_BIG, torch.float32, False)
+    cut = REDUCE_BIG[0] - REDUCE_BLOCK
+    faults = {
+        "last_row_block_dropped_sum_axis0": _reduce_agree(
+            reduce.matrix_reduce(a[:cut], 0, "sum", use_pallas=True),
+            reduce._reduce_ref(a, 0, "sum"), a, "sum", 0),
+        "last_column_block_dropped_max_axis1": _reduce_agree(
+            reduce.matrix_reduce(a[:, :cut], 1, "max", use_pallas=True),
+            reduce._reduce_ref(a, 1, "max"), a, "max", 1)}
+    gpu_sync()
+    return {name: dict(report, caught=not report["ok"])
+            for name, report in faults.items()}
+
+
+def _reduce_timed(rng, device):
+    """Every op and axis at (4096, 4096) f32, L2 flushed before each
+    call: median of 20 CUDA-event timings beside the byte bound, the
+    plain version and torch's one call (sum, amax, amin along the
+    axis); the headline is the sum over axis 0, the reference's default
+    axis."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops import reduce
+    flush = make_l2_flush(device)
+    a = _reduce_matrix(rng, device, REDUCE_BIG, torch.float32, False)
+    m, n = REDUCE_BIG
+    library = {"sum": torch.sum, "max": torch.amax, "min": torch.amin}
+    by_shape = []
+    for op in ("sum", "max", "min"):
+        for axis in (0, 1):
+            out = n if axis == 0 else m
+            bound, by = bound_seconds(4 * (m * n + out), m * n, "float32")
+            err = _reduce_agree(reduce.matrix_reduce(a, axis, op, True),
+                                reduce._reduce_ref(a, axis, op), a, op,
+                                axis)["max_abs_err"]
+            by_shape.append({
+                "shape": [m, n], "dtype": "float32", "op": op, "axis": axis,
+                "ms": time_ms(lambda: reduce._reduce_cuda(a, axis, op),
+                              flush=flush),
+                "plain_ms": time_ms(lambda: reduce._reduce_ref(a, axis, op),
+                                    flush=flush),
+                "library_ms": time_ms(lambda: library[op](a, dim=axis),
+                                      flush=flush),
+                "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err})
+    gpu_sync()
+    row = {"name": "reduce", "route": "cuda",
+           "source": "veles_tpu_torch/csrc/reduce.cu",
+           "replaces": "veles_tpu/ops/reduce.py:44",
+           "plain_of": "_reduce_ref",
+           "library_of": "torch.sum / torch.amax / torch.amin",
+           "by_shape": by_shape}
+    row.update({key: by_shape[0][key] for key in (
+        "shape", "dtype", "op", "axis", "ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by", "max_abs_err")})
+    return row
+
+
+def _reduce_kernels(device):
+    from veles_tpu_torch.ops import reduce
+    rng = numpy.random.default_rng(SEED + 6)
+    cases = _reduce_cases(rng, device)
+    a = _reduce_matrix(rng, device, REDUCE_BIG, torch.float32, False)
+    repeatable = all(torch.equal(reduce.matrix_reduce(a, ax, "sum", True),
+                                 reduce.matrix_reduce(a, ax, "sum", True))
+                     for ax in (0, 1))
+    planted = _reduce_planted_faults(rng, device)
+    row = _reduce_timed(rng, device)
+    ok = (all(c["ok"] for c in cases) and repeatable
+          and all(f["caught"] for f in planted.values()))
+    return {"cases": cases, "bit_equal_relaunch": repeatable,
+            "planted_faults": planted}, [row], ok
+
+
+# -- the uniform fill (csrc/random.cu) ----------------------------------------
+
+UNIFORM_BIG = (4096, 4096)
+
+
+def _uniform_moments(x, low, high):
+    """Mean and variance of a fill against U(low, high): each within 5
+    sigma (the variance's sigma from the fourth central moment (high -
+    low)^4 / 80), plus half a bf16 ulp of max(|low|, |high|) for a bf16
+    fill's rounding."""
+    n = x.numel()
+    xd = x.double()
+    mean, var = (low + high) / 2, (high - low) ** 2 / 12
+    slack = 0.0 if x.dtype == torch.float32 else \
+        2.0 ** -8 * max(abs(low), abs(high))
+    mean_err = abs(float(xd.mean()) - mean)
+    var_err = abs(float(xd.var()) - var)
+    mean_tol = 5 * (var / n) ** 0.5 + slack
+    var_tol = 5 * (((high - low) ** 4 / 80 - var ** 2) / n) ** 0.5 \
+        + 2 * slack * (high - low)
+    return {"mean_err": mean_err, "mean_tol": mean_tol, "var_err": var_err,
+            "var_tol": var_tol, "in_range": bool(float(x.min()) >= low
+                                                 and float(x.max()) < high),
+            "ok": mean_err <= mean_tol and var_err <= var_tol}
+
+
+def _uniform_cases(device):
+    from veles_tpu_torch.ops import random
+    cases = []
+    for shape in (UNIFORM_BIG, (1000,)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for low, high in ((0.0, 1.0), (-2.0, 3.0)):
+                got = random.uniform_pallas(SEED + 11, shape, dtype, low,
+                                            high)
+                want = random._uniform_ref(SEED + 11, shape, dtype, low,
+                                           high, device=device)
+                moments = _uniform_moments(got, low, high)
+                same = bool(torch.equal(got, want))
+                cases.append(dict(moments, kernel="uniform",
+                                  shape=list(shape), dtype=str(dtype)[6:],
+                                  low=low, high=high, bit_equal=same,
+                                  ok=same and moments["in_range"]
+                                  and moments["ok"]))
+    gpu_sync()
+    return cases
+
+
+def _uniform_timed(device):
+    """(4096, 4096) f32 in [0, 1): median of 20 CUDA-event timings, L2
+    flushed before each call, beside the bound by bytes written, the
+    plain version (Philox in torch int64 on the card) and torch.rand
+    with a CUDA generator."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops import random
+    flush = make_l2_flush(device)
+    shape = UNIFORM_BIG
+    count = shape[0] * shape[1]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    bound, by = bound_seconds(4 * count, 0, "float32")
+    err = float((random.uniform_pallas(SEED, shape)
+                 - random._uniform_ref(SEED, shape, device=device)
+                 ).abs().max())
+    row = {"name": "uniform", "route": "cuda",
+           "source": "veles_tpu_torch/csrc/random.cu",
+           "replaces": "veles_tpu/ops/random.py:36",
+           "shape": list(shape), "dtype": "float32",
+           "plain_of": "_uniform_ref",
+           "library_of": "torch.rand with a CUDA generator",
+           "ms": time_ms(lambda: random._uniform_cuda(
+               SEED, shape, torch.float32, 0.0, 1.0, device), flush=flush),
+           "plain_ms": time_ms(lambda: random._uniform_ref(
+               SEED, shape, device=device), flush=flush),
+           "library_ms": time_ms(lambda: torch.rand(
+               shape, generator=gen, device=device), flush=flush),
+           "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err}
+    gpu_sync()
+    return row
+
+
+def _uniform_kernels(device):
+    cases = _uniform_cases(device)
+    row = _uniform_timed(device)
+    ok = all(c["ok"] for c in cases) and row["max_abs_err"] == 0.0
+    return {"cases": cases}, [row], ok
+
+
 def phase_kernels(device):
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops.attention import (_decode_cuda, _decode_ref,
@@ -1362,23 +1819,36 @@ def phase_kernels(device):
     gemm_report, gemm_rows, gemm_ok = _gemm_kernels(device)
     gather_report, gather_rows, gather_ok = _gather_kernels(device)
     paged_report, paged_rows, paged_ok = _paged_kernels(device)
+    qgemm_report, qgemm_rows, qgemm_ok = _qgemm_kernels(device)
+    reduce_report, reduce_rows, reduce_ok = _reduce_kernels(device)
+    uniform_report, uniform_rows, uniform_ok = _uniform_kernels(device)
     timed = ([flash] + bwd_rows + [decode] + paged_rows + gemm_rows
-             + gather_rows)
+             + gather_rows + qgemm_rows + reduce_rows + uniform_rows)
     ok = (not bad and ferr <= BF16_TOL and derr <= BF16_TOL and bwd_ok
-          and gemm_ok and gather_ok and paged_ok)
+          and gemm_ok and gather_ok and paged_ok and qgemm_ok and reduce_ok
+          and uniform_ok)
     emit({"phase": "kernels", "ok": ok, "cases": cases,
           "timed_backward_errors": bwd_report, "gemm": gemm_report,
-          "gather": gather_report, "paged": paged_report, "timed": timed})
+          "gather": gather_report, "paged": paged_report,
+          "qgemm": qgemm_report, "reduce": reduce_report,
+          "uniform": uniform_report, "timed": timed})
     gemm_bad = [c for c in gemm_report["cases"] if not c["ok"]]
     gather_bad = [c for c in gather_report["cases"] if not c["ok"]]
     paged_bad = [c for c in paged_report["cases"] if not c["ok"]]
+    new_bad = [c for report in (qgemm_report, reduce_report, uniform_report)
+               for c in report["cases"] if not c["ok"]]
     check(ok, "kernels", "kernel disagrees with its plain version, or a "
           "planted fault went unseen: %s" % (
               bad or gemm_bad[:4] or gather_bad[:4] or paged_bad[:4]
+              or new_bad[:4]
               or [gemm_report["planted_faults"],
                   gather_report["planted_faults"],
                   paged_report["mirror"],
-                  paged_report["garbage_and_planted_faults"]]))
+                  paged_report["garbage_and_planted_faults"],
+                  qgemm_report["planted_faults"],
+                  reduce_report["planted_faults"],
+                  qgemm_report["bit_equal_relaunch"],
+                  reduce_report["bit_equal_relaunch"], uniform_rows]))
     return timed
 
 
@@ -1400,11 +1870,7 @@ def phase_serve(device, smi):
     engine.warmup()
     warmup_s = time.perf_counter() - tic
 
-    rng = numpy.random.default_rng(SEED)
-    lengths = numpy.linspace(16, 1500, SERVE_REQUESTS).astype(int)
-    rng.shuffle(lengths)
-    workload = [rng.integers(0, CONFIG["vocab"], int(n)).tolist()
-                for n in lengths]
+    lengths, workload = serve_workload(CONFIG["vocab"])
 
     root.common.engine.trace = "on"
     trace.configure()
@@ -1460,6 +1926,9 @@ def phase_serve(device, smi):
                and launches["decode_attn"] >= layers * steps > 0)
     info["ok"] = budgets_ok and in_vocab and counted
     info["breakdown"] = profile_breakdown(engine, workload)
+    window = info["breakdown"]["decode_window"]
+    blas_per_step = window["kernels_by_group"].get("matmul", 0) / float(
+        window["steps"])
     emit(info)
     engine.close()
     check(budgets_ok, "serve", "a request did not get exactly %d tokens"
@@ -1468,7 +1937,17 @@ def phase_serve(device, smi):
     check(counted, "serve", "the kernels were not on the main path: "
           "launches %s for %d prefills and %d decode steps"
           % (launches, prefills, steps))
-    return launches
+    return launches, results, info["params_bytes"], blas_per_step
+
+
+def serve_workload(vocab):
+    """The serving sessions' 8 seeded prompts of 16..1500 tokens, evenly
+    spread and shuffled: ``(lengths, prompts)``."""
+    rng = numpy.random.default_rng(SEED)
+    lengths = numpy.linspace(16, 1500, SERVE_REQUESTS).astype(int)
+    rng.shuffle(lengths)
+    return lengths, [rng.integers(0, vocab, int(n)).tolist()
+                     for n in lengths]
 
 
 def profile_breakdown(engine, workload, decode_steps=16):
@@ -1543,6 +2022,257 @@ def phase_parity(device):
           "tol": PARITY_LOGIT_TOL})
     check(ok, "parity", "card and CPU disagree (logit err %.3g, %d streams "
           "diverged, %d at a near-tie)" % (logit_err, diverged, ties))
+
+
+# -- the int8 deploy --------------------------------------------------------
+
+INT8_TOL = 0.05                  # the drift gate of the JAX smoke's phase 3
+QMM_PER_LAYER = 4                # wqkv, wo, w1, w2
+INT8_PARITY_CHUNK = 64
+
+
+def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
+                     bf16_blas_per_step):
+    """``serve``'s model, weights, workload and worker thread with the
+    block weights quantized to int8 before warmup (drift gate at 0.05
+    on the first prompt): exact budgets; exactly 48 qmatmul launches a
+    prefill and a decode step over the session; in a profiled 16-step
+    decode window, at least 48 cuBLAS kernels a step fewer than the bf16
+    twin's window (``bf16_blas_per_step``, from ``serve``), whose 48
+    block products each launch at least one (so no block product went
+    through the library); every block weight int8.  Prints the bytes against the bf16 twin's,
+    tokens/s, TTFT, the decode step, the share of tokens equal to
+    ``serve``'s, and qmatmul's device time a launch in a profiled
+    16-step decode window against its byte bound."""
+    from veles_tpu_torch import quant, trace
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.gen import (GenerativeEngine, GenerativeScheduler,
+                                     TransformerGenModel)
+    from veles_tpu_torch.ops import attention, gemm, qgemm
+    from veles_tpu_torch.samples.transformer import CONFIG
+
+    lengths, workload = serve_workload(CONFIG["vocab"])
+    tic = time.perf_counter()
+    model = TransformerGenModel(CONFIG, compute_dtype=torch.bfloat16,
+                                device=device)
+    engine = GenerativeEngine(model, max_slots=4, max_seq=2048, seed=SEED,
+                              device=device)
+    with torch.inference_mode():
+        ref_logits = model.calibration_logits(engine._params, workload[0])
+    engine.quantize_int8(calibration_tokens=workload[0], tol=INT8_TOL)
+    with torch.inference_mode():
+        drift = quant.relative_drift(
+            ref_logits.float().cpu().numpy(), model.calibration_logits(
+                engine._params, workload[0]).float().cpu().numpy())
+    quantize_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - tic
+    blocks = engine._params["blocks"]
+    int8_blocks = {key: str(blocks[key]["q"].dtype)[6:]
+                   if isinstance(blocks[key], dict) else str(blocks[key].dtype)
+                   for key in ("wqkv", "wo", "w1", "w2")}
+
+    root.common.engine.trace = "on"
+    trace.configure()
+    trace.recorder.clear()
+    reset_all_launches()
+    prefill0, decode0 = engine.prefill_calls, engine.decode_calls
+    scheduler = GenerativeScheduler(engine, name="chip-smoke-int8").start()
+    try:
+        tic = time.perf_counter()
+        futures = [scheduler.submit(toks, SERVE_NEW_TOKENS)
+                   for toks in workload]
+        results = [f.result(timeout=600) for f in futures]
+        elapsed = time.perf_counter() - tic
+    finally:
+        scheduler.stop()
+    launches = {**attention.launches, **gemm.launches, **qgemm.launches}
+    prefills = engine.prefill_calls - prefill0
+    steps = engine.decode_calls - decode0
+    events = trace.recorder.events()
+    root.common.engine.trace = "off"
+    trace.configure()
+
+    decode_ms = [ev[4] / 1e6 for ev in events
+                 if ev[0] == "X" and ev[2] == "decode"]
+    tokens = sum(len(r) for r in results)
+    same = sum(a == b for got, want in zip(results, serve_streams)
+               for a, b in zip(got, want))
+    layers = CONFIG["layers"]
+    want_qmm = QMM_PER_LAYER * layers * (prefills + steps)
+    breakdown = profile_breakdown(engine, workload)
+    window = breakdown["decode_window"]
+    blas_per_step = window["kernels_by_group"].get("matmul", 0) / float(
+        window["steps"])
+    qmm_ms = window["device_ms_by_group"].get("qmatmul", 0.0)
+    qmm_launches = QMM_PER_LAYER * layers * window["steps"]
+    step_bytes = layers * sum(_qmm_bytes(QMM_DECODE_M, k, n, torch.bfloat16,
+                                         has_bias)
+                              for _l, k, n, has_bias, _a in QMM_LAYER)
+    step_bound, _by = bound_seconds(step_bytes, 0, "bfloat16")
+    info = {
+        "phase": "serve_int8", "nvidia_smi": smi,
+        "config": dict(CONFIG), "compute_dtype": "bfloat16",
+        "quantize": engine.describe()["quantize"],
+        "block_weight_dtypes": int8_blocks,
+        "calibration_drift": drift, "drift_tol": INT8_TOL,
+        "requests": len(workload), "prompt_lengths": lengths.tolist(),
+        "new_tokens": SERVE_NEW_TOKENS, "tokens": tokens,
+        "elapsed_s": elapsed, "tokens_per_s": tokens / elapsed,
+        "ttft_mean_ms": scheduler.ttft.mean * 1e3,
+        "decode_steps": steps, "prefills": prefills,
+        "decode_step_median_ms": statistics.median(decode_ms),
+        "launches": launches, "launches_expected_qmatmul": want_qmm,
+        "params_bytes": engine.params_nbytes,
+        "bf16_params_bytes": bf16_params_bytes,
+        "params_ratio_to_bf16": engine.params_nbytes / bf16_params_bytes,
+        "tokens_equal_to_serve": same,
+        "tokens_equal_share": same / tokens if tokens else None,
+        "decode_window_qmatmul_ms_per_launch": qmm_ms / qmm_launches,
+        "decode_step_qmatmul_bound_ms": step_bound * 1e3,
+        "decode_window_qmatmul_ms_per_step": qmm_ms / window["steps"],
+        "decode_window_cublas_kernels_per_step": blas_per_step,
+        "bf16_decode_window_cublas_kernels_per_step": bf16_blas_per_step,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+        "quantize_s": quantize_s, "warmup_s": warmup_s,
+        "breakdown": breakdown,
+    }
+    budgets_ok = all(len(r) == SERVE_NEW_TOKENS for r in results)
+    counted = (prefills > 0 and steps > 0
+               and launches["qmatmul"] == want_qmm)
+    no_library = (bf16_blas_per_step - blas_per_step
+                  >= QMM_PER_LAYER * layers)
+    all_int8 = set(int8_blocks.values()) == {"int8"}
+    info["ok"] = budgets_ok and counted and no_library and all_int8
+    emit(info)
+    engine.close()
+    check(budgets_ok, "serve_int8", "a request did not get exactly %d "
+          "tokens" % SERVE_NEW_TOKENS)
+    check(counted, "serve_int8", "qmatmul launches %d for %d prefills and "
+          "%d decode steps (want %d)"
+          % (launches["qmatmul"], prefills, steps, want_qmm))
+    check(no_library, "serve_int8", "%g cuBLAS kernels a decode step, "
+          "against %g for the bf16 twin: a block product went through "
+          "the library" % (blas_per_step, bf16_blas_per_step))
+    check(all_int8, "serve_int8", "block weights not int8: %s" % int8_blocks)
+    return launches
+
+
+def phase_serve_int8_parity(device):
+    """CONFIG cut to 2 layers, f32, TF32 off: one host-quantized tree
+    serves on the card (the kernel) and on the CPU (the plain version),
+    contiguous and paged with chunked prefill; the streams must be equal
+    unless the CPU logits at the first divergence had a top-2 gap below
+    1e-3, and ``calibration_logits`` must agree within 1e-3."""
+    from veles_tpu_torch import quant
+    from veles_tpu_torch.gen import (GenerativeEngine, GenerativeScheduler,
+                                     TransformerGenModel, params_from_numpy)
+    from veles_tpu_torch.ops import qgemm
+    from veles_tpu_torch.samples.transformer import CONFIG
+
+    cfg = dict(CONFIG, layers=2)
+    rng = numpy.random.default_rng(SEED + 12)
+    workload = [rng.integers(0, cfg["vocab"], int(n)).tolist()
+                for n in rng.integers(8, 200, PARITY_REQUESTS)]
+    calibration_prompt = rng.integers(0, cfg["vocab"], 256).tolist()
+    host = quant.quantize_transformer_params(
+        TransformerGenModel(cfg, device="cpu").init_params(SEED))
+    modes = {"contiguous": {},
+             "paged_chunked": dict(kv="paged", block_size=16,
+                                   prefill_chunk=INT8_PARITY_CHUNK)}
+
+    def session(dev, options):
+        model = TransformerGenModel(cfg, device=dev)
+        engine = GenerativeEngine(model, params_from_numpy(host, dev),
+                                  max_slots=4, max_seq=512, device=dev,
+                                  **options)
+        qgemm.reset_launches()
+        scheduler = GenerativeScheduler(engine)
+        futures = [scheduler.submit(t, PARITY_NEW_TOKENS) for t in workload]
+        scheduler.run_until_idle()
+        streams = [f.result(0) for f in futures]
+        launched = qgemm.launches["qmatmul"]
+        with torch.inference_mode():
+            logits = model.calibration_logits(engine._params,
+                                              calibration_prompt)
+        return model, engine, streams, logits.float().cpu(), launched
+
+    report, ok = {}, True
+    for name, options in modes.items():
+        _gm, gengine, gpu_streams, gpu_logits, launched = session(device,
+                                                                  options)
+        gengine.close()
+        cmodel, cengine, cpu_streams, cpu_logits, _n = session(
+            torch.device("cpu"), options)
+        logit_err = float((gpu_logits - cpu_logits).abs().max())
+        diverged, ties = _near_tie_agreement(cmodel, cengine, workload,
+                                             cpu_streams, gpu_streams)
+        cengine.close()
+        mode_ok = (logit_err <= PARITY_LOGIT_TOL and diverged == ties
+                   and launched > 0
+                   and all(len(s) == PARITY_NEW_TOKENS for s in gpu_streams))
+        report[name] = {"streams_equal": PARITY_REQUESTS - diverged,
+                        "diverged": diverged, "diverged_at_near_tie": ties,
+                        "calibration_logits_max_abs_err": logit_err,
+                        "qmatmul_launches": launched, "ok": mode_ok}
+        ok = ok and mode_ok
+    emit({"phase": "serve_int8_parity", "ok": ok, "config": cfg,
+          "dtype": "float32", "tf32": False, "quantize": "int8",
+          "requests": PARITY_REQUESTS, "new_tokens": PARITY_NEW_TOKENS,
+          "tol": PARITY_LOGIT_TOL, "modes": report})
+    check(ok, "serve_int8_parity", "card and CPU int8 serving disagree: %s"
+          % report)
+
+
+OPS_SEED = 1234
+
+
+def phase_ops(device):
+    """The ops API on the card: ``matrix_reduce`` of a (4096, 4096) f32
+    matrix under ``root.common.engine.pallas_reduce = True`` launches the
+    kernel once a call (every op and axis) and agrees with ``_reduce_ref``
+    (max / min equal, sums within 1e-6·Σ|a|); with the knob off it
+    launches nothing.  ``uniform_pallas(seed, (4096, 4096))`` launches
+    once and gives the same bits as the same call on the CPU; another
+    seed gives other bits.  The launches of the knob-on calls and the
+    two card fills are the path's count."""
+    from veles_tpu_torch import ops
+    from veles_tpu_torch.ops import random, reduce
+
+    a = _reduce_matrix(numpy.random.default_rng(SEED + 13), device,
+                       REDUCE_BIG, torch.float32, False)
+    calls = [(op, axis) for op in ("sum", "max", "min") for axis in (0, 1)]
+    reset_all_launches()
+    with engine_knobs(pallas_reduce=True):
+        reduced = [ops.matrix_reduce(a, axis, op) for op, axis in calls]
+    fill = random.uniform_pallas(OPS_SEED, UNIFORM_BIG)
+    other = random.uniform_pallas(OPS_SEED + 1, UNIFORM_BIG)
+    gpu_sync()
+    launches = {**reduce.launches, **random.launches}
+    agree = {"%s_axis%d" % call: _reduce_agree(
+        out, reduce._reduce_ref(a, call[1], call[0]), a, call[0], call[1])
+        for call, out in zip(calls, reduced)}
+    with engine_knobs(pallas_reduce=False):
+        ops.matrix_reduce(a, 0, "sum")
+    knob_off_launches = reduce.launches["reduce"] - launches["reduce"]
+    cpu = random.uniform_pallas(OPS_SEED, UNIFORM_BIG, device="cpu")
+    same_bits = bool(torch.equal(fill.cpu(), cpu))
+    other_bits = not bool(torch.equal(fill, other))
+    ok = (launches == {"reduce": len(calls), "uniform": 2}
+          and knob_off_launches == 0 and same_bits and other_bits
+          and all(r["ok"] for r in agree.values()))
+    emit({"phase": "ops", "ok": ok, "shape": list(REDUCE_BIG),
+          "launches": launches, "knob_off_launches": knob_off_launches,
+          "reduce": agree, "uniform_card_equals_cpu": same_bits,
+          "uniform_other_seed_differs": other_bits})
+    check(ok, "ops", "the ops API did not take its kernels as expected: "
+          "launches %s (knob off %d), card == cpu %s, other seed differs "
+          "%s, reduce %s" % (launches, knob_off_launches, same_bits,
+                              other_bits, {k: v["ok"]
+                                           for k, v in agree.items()}))
+    return launches
 
 
 # -- the paged serving paths ------------------------------------------------
@@ -2075,8 +2805,9 @@ def engine_knobs(**knobs):
 
 
 def reset_all_launches():
-    from veles_tpu_torch.ops import attention, gather, gemm
-    for module in (attention, gather, gemm):
+    from veles_tpu_torch.ops import (attention, gather, gemm, qgemm, random,
+                                     reduce)
+    for module in (attention, gather, gemm, qgemm, random, reduce):
         module.reset_launches()
 
 
@@ -2563,14 +3294,24 @@ def main():
               "this script (%s)" % exc, file=sys.stderr)
         return 1
     from veles_tpu_torch.backends import set_precision
+    from veles_tpu_torch.config import root
+    # every phase runs full f32 in cuBLAS (TF32 off), as the parity
+    # gates' tolerances assume
+    root.common.engine.precision_level = 2
     set_precision()
     device = torch.device("cuda", 0)
     try:
         info = phase_device()
         phase_build()
         timed = phase_kernels(device)
-        paths = {"serve": phase_serve(device, info["nvidia_smi"])}
+        serve_launches, serve_streams, serve_bytes, serve_blas = \
+            phase_serve(device, info["nvidia_smi"])
+        paths = {"serve": serve_launches}
         phase_parity(device)
+        paths["serve_int8"] = phase_serve_int8(
+            device, info["nvidia_smi"], serve_streams, serve_bytes,
+            serve_blas)
+        phase_serve_int8_parity(device)
         paged = phase_serve_paged(device, info["nvidia_smi"])
         paths["serve_paged"] = paged["launches"]
         paths["serve_spec"] = phase_serve_spec(
@@ -2583,6 +3324,7 @@ def main():
         paths["mnist_stitched"] = phase_mnist_stitched(
             device, info["nvidia_smi"])
         phase_mnist_stitched_parity(device)
+        paths["ops"] = phase_ops(device)
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1

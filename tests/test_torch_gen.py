@@ -290,7 +290,9 @@ def _int8_params():
 
 
 @pytest.mark.parametrize("option", [
-    lambda: port_engine(params=_int8_params()),
+    # int8 params are served now (tests/test_torch_quant.py); an int8
+    # deploy over a tensor-parallel mesh is not (ROADMAP item 7)
+    lambda: port_engine(params=_int8_params(), mesh=object()),
     lambda: GenerativeScheduler(port_engine(), metrics=object()),
     lambda: port_engine(kv="paged", block_size=8).warm_handoff(),
     lambda: port_engine(kv="paged", block_size=8).export_slot(0),
@@ -310,3 +312,13 @@ def test_gen_smoke_entry_point_on_cpu(capsys):
              if ln.startswith("gen smoke[cpu, paged]: 6 requests")]
     assert len(paged) == 1 and "contiguous == paged" in paged[0]
     assert " 0 preemption" not in paged[0]
+    # phases 3 and 4 of the JAX smoke: int8 against its float twin (params
+    # at most 0.35x), prefix + speculation against plain paged
+    int8 = [ln for ln in out.splitlines()
+            if ln.startswith("gen smoke[cpu, int8]: 6 requests")]
+    assert len(int8) == 1
+    assert float(int8[0].split("params ")[1].split("x float")[0]) <= 0.35
+    spec = [ln for ln in out.splitlines()
+            if ln.startswith("gen smoke[cpu, prefix+spec]:")]
+    assert len(spec) == 1 and "plain == prefix+spec" in spec[0]
+    assert "FAIL" not in out

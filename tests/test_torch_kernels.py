@@ -145,6 +145,8 @@ def cuda_device():
                     "only there (python -m pytest --noconftest "
                     "tests/test_torch_kernels.py -m cuda)")
     from veles_tpu_torch.backends import set_precision
+    from veles_tpu_torch.config import root
+    root.common.engine.precision_level = 2      # full f32: TF32 off
     set_precision()
     return torch.device("cuda")
 
@@ -737,3 +739,120 @@ def test_stitched_segment_recaptures_when_a_read_tensor_moves_on_card(
     for name, ref in want.items():
         err = float(numpy.abs(got[name] - ref).max())
         assert err <= 1e-4 * float(numpy.abs(ref).max()), (name, err)
+
+
+# -- the int8 GEMM, the reduction and the uniform fill -----------------------
+# qmatmul: f32 on both sides with TF32 off, one product summed in another
+# order (and over a split K): within 1e-4 of max |plain|; bf16 output within
+# 2e-2 (one bf16 rounding of outputs up to ~6).  reduce: max and min equal
+# (NaN where the plain version has NaN), sums within 1e-6 of sum |a| plus one
+# bf16 ulp for a bf16 output.  uniform: the same bits as the plain version.
+
+QMM_CASES = [(4, 1024, 3072, torch.bfloat16), (20, 1024, 4096, torch.bfloat16),
+             (4, 4096, 1024, torch.float32), (5, 200, 130, torch.float32),
+             (300, 256, 192, torch.float32)]
+QMM_ACTIVATIONS = [None, "tanh", "sigmoid", "relu", "strict_relu", "gelu"]
+
+
+def _qmm_operands(device, m, k, n, dtype, seed):
+    rng = numpy.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        numpy.float32)).to(device, dtype)
+    q = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(
+        numpy.int8)).to(device)
+    scale = torch.from_numpy((rng.uniform(0.5, 1.5, n) / 127
+                              / numpy.sqrt(k)).astype(numpy.float32)).to(
+        device)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(
+        numpy.float32)).to(device, dtype)
+    return a, q, scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", QMM_ACTIVATIONS)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("m,k,n,dtype", QMM_CASES)
+def test_qmatmul_kernel_matches_plain_version_on_card(
+        cuda_device, m, k, n, dtype, with_bias, activation):
+    from veles_tpu_torch.ops import qgemm
+    a, q, scale, bias = _qmm_operands(cuda_device, m, k, n, dtype, 41)
+    bias = bias if with_bias else None
+    qgemm.reset_launches()
+    got = qgemm.qmatmul(a, q, scale, bias, activation)
+    want = qgemm._qmatmul_ref(a, q, scale, bias, activation)
+    again = qgemm.qmatmul(a, q, scale, bias, activation)
+    torch.cuda.synchronize()
+    assert qgemm.launches["qmatmul"] == 2 and got.dtype == dtype
+    assert torch.equal(got, again)              # no atomics: same bits
+    err = float((got.float() - want.float()).abs().max())
+    tol = F32_TOL * float(want.float().abs().max()) \
+        if dtype == torch.float32 else BF16_TOL
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+def test_qmatmul_wrapper_raises_on_the_card(cuda_device):
+    from veles_tpu_torch.ops import qgemm
+    a, q, scale, _b = _qmm_operands(cuda_device, 4, 64, 32, torch.float32, 1)
+    qgemm.reset_launches()
+    with pytest.raises(TypeError, match="int8"):
+        qgemm.qmatmul(a, q.float(), scale)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        qgemm.qmatmul(a.half(), q, scale)
+    with pytest.raises(ValueError, match="scale"):
+        qgemm.qmatmul(a, q, scale[:-1])
+    assert not qgemm.launches["qmatmul"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 53), (24, 256), (1, 5000),
+                                   (5000, 1), (300, 1030)])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+def test_reduce_kernel_matches_plain_version_on_card(cuda_device, op, axis,
+                                                     shape, dtype):
+    from veles_tpu_torch.ops import reduce
+    a = numpy.random.default_rng(43).standard_normal(shape).astype(
+        numpy.float32)
+    if min(shape) > 1:
+        a[0, -1], a[-1, 0], a[shape[0] // 2, shape[1] // 2] = \
+            numpy.inf, -numpy.inf, numpy.nan
+    t = torch.from_numpy(a).to(cuda_device, dtype)
+    reduce.reset_launches()
+    got = reduce.matrix_reduce(t, axis, op, use_pallas=True)
+    want = reduce._reduce_ref(t, axis, op)
+    torch.cuda.synchronize()
+    assert reduce.launches["reduce"] == 1 and got.dtype == dtype
+    g, w = got.float().cpu(), want.float().cpu()
+    nan = torch.isnan(w)
+    assert torch.equal(torch.isnan(g), nan)
+    if op != "sum":
+        assert torch.equal(g[~nan], w[~nan])
+        return
+    inf = torch.isinf(w)
+    assert torch.equal(g[inf], w[inf])
+    finite = t.float().cpu().nan_to_num(0.0, 0.0, 0.0).abs().sum(axis)
+    tol = 1e-6 * finite + (2.0 ** -8 * w.abs()
+                           if dtype == torch.bfloat16 else 0.0)
+    ok = ~nan & ~inf
+    assert bool(((g - w).abs()[ok] <= tol[ok]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,low,high", [((1000,), 0.0, 1.0),
+                                            ((257, 33), -2.0, 3.0),
+                                            ((3,), 0.1, 0.3)])
+def test_uniform_kernel_matches_plain_version_on_card(cuda_device, shape,
+                                                      low, high, dtype):
+    from veles_tpu_torch.ops import random
+    random.reset_launches()
+    got = random.uniform_pallas(5, shape, dtype, low, high)
+    torch.cuda.synchronize()
+    assert random.launches["uniform"] == 1 and got.dtype == dtype
+    assert torch.equal(got, random._uniform_ref(5, shape, dtype, low, high,
+                                                device=cuda_device))
+    assert torch.equal(got.cpu(), random.uniform_pallas(
+        5, shape, dtype, low, high, device="cpu"))
+    assert float(got.min()) >= low and float(got.max()) < high

@@ -52,6 +52,8 @@ def test_importing_the_port_loads_no_jax_and_no_veles_tpu():
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "veles_tpu_torch.gen.engine" in loaded
     assert "veles_tpu_torch.ops.gemm" in loaded
+    for module in ("quant.core", "ops.qgemm", "ops.reduce", "ops.random"):
+        assert "veles_tpu_torch." + module in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -167,6 +169,31 @@ def test_gather_wrappers_on_cpu_tensors_launch_nothing(no_cuda):
     assert not any(gather.launches.values())
 
 
+def test_qmatmul_reduce_and_uniform_on_cpu_tensors_launch_nothing(no_cuda):
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import qgemm, random, reduce
+    for module in (qgemm, random, reduce):
+        module.reset_launches()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 5, generator=gen)
+    q = torch.ones(5, 4, dtype=torch.int8)
+    assert qgemm.qmatmul(x, q, torch.ones(4), torch.zeros(4),
+                         "gelu").shape == (6, 4)
+    saved = root.common.engine.get("pallas_reduce")
+    root.common.engine.pallas_reduce = True
+    try:
+        assert reduce.matrix_reduce(x, axis=1, op="min").shape == (6,)
+    finally:
+        root.common.engine.pallas_reduce = saved
+    assert reduce.matrix_reduce(x, use_pallas=True).shape == (5,)
+    assert random.uniform_pallas(1, (3, 4), device="cpu").shape == (3, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        random.uniform_pallas(1, (3, 4))
+    assert not any(qgemm.launches.values())
+    assert not any(reduce.launches.values())
+    assert not any(random.launches.values())
+
+
 # -- the kernel sources and their builder -----------------------------------
 
 @pytest.mark.parametrize("name,replaces", [
@@ -175,12 +202,15 @@ def test_gather_wrappers_on_cpu_tensors_launch_nothing(no_cuda):
     ("decode_attn", "_paged_decode_kernel"),
     ("gemm", "_matmul_kernel"), ("gemm", "_gd_dx_kernel"),
     ("gemm", "_gd_dw_kernel"), ("gemm", "_gd_db_kernel"),
-    ("gather", "_gather_kernel"), ("gather", "_gather_norm_kernel")])
+    ("gather", "_gather_kernel"), ("gather", "_gather_norm_kernel"),
+    ("qgemm", "_qmatmul_kernel"), ("reduce", "_reduce_kernel"),
+    ("random", "_uniform_kernel")])
 def test_kernel_source_names_the_tpu_kernel_it_replaces(name, replaces):
     from veles_tpu_torch.ops import build
     assert name in build.SOURCES
     head = (build.CSRC_DIR / (name + ".cu")).read_text().split("#include")[0]
-    tpu_module = name if name in ("gemm", "gather") else "attention"
+    tpu_module = name if name in ("gemm", "gather", "qgemm", "reduce",
+                                  "random") else "attention"
     assert "veles_tpu/ops/%s.py" % tpu_module in head and replaces in head
     assert "What bounds it on the H100" in head
 

@@ -36,27 +36,50 @@ H100_PEAK_OPS = {
 
 def resolve_device(device=None):
     """``None`` → ``cuda`` (raises without a card); ``"cpu"`` or any
-    explicit device string/``torch.device`` is taken as asked."""
+    explicit device string/``torch.device`` is taken as asked.  Every
+    entry point of the port (the generative model and engine, the
+    workflow devices, the ops that allocate) resolves its device here,
+    so a card's matmul precision follows ``precision_level`` through
+    :func:`set_precision` on each of them."""
     if device is None:
         device = "cuda"
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "veles_tpu_torch runs on a CUDA card by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch path")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "veles_tpu_torch runs on a CUDA card by default and none "
+                "is available; pass device='cpu' to run the plain "
+                "PyTorch path")
+        set_precision()
     return device
 
 
 def set_precision():
-    """Pin full-float32 matrix products (no TF32) for parity with the
-    float32 reference: TF32 keeps about three decimal digits.
+    """Map ``root.common.engine.precision_level`` onto the float32
+    matmul switches of cuBLAS and cuDNN, and return the level.
 
-    The JAX package maps ``root.common.engine.precision_level`` to XLA
-    matmul precision (level 0: bf16 passes on a TPU).  The port's GEMM
-    and GD kernels compute full f32 at every level, and the plain
-    versions run with TF32 off, so the level selects nothing yet."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    The JAX package maps the level to XLA's matmul precision
+    (``veles_tpu/ops/gemm.py`` ``_precision``): 0 → one bf16 pass on a
+    TPU, 1 → three bf16 passes (bf16_3x), 2 → full f32.  Here level 0
+    allows TF32 in cuBLAS and cuDNN, the card's counterpart of one bf16
+    pass (about three decimal digits); levels 1 and 2 turn TF32 off and
+    give full f32, since cuBLAS has no counterpart of bf16_3x.  The
+    switches are process-wide and touch only the library and plain
+    paths: the hand-written GEMM, GD and qmatmul kernels compute f32 at
+    every level.  On the CPU the level changes nothing, as XLA on the
+    CPU computes f32 at level 0 too.  :func:`resolve_device` calls this
+    for every card it resolves; the JAX package reads the level on every
+    matmul, so a level set later takes effect at the next entry point
+    (or a direct call here)."""
+    from veles_tpu_torch.config import root
+    level = int(root.common.engine.get("precision_level", 0))
+    if level not in (0, 1, 2):
+        raise ValueError("precision_level must be 0, 1 or 2, got %d"
+                         % level)
+    tf32 = level == 0
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    return level
 
 
 def bound_seconds(nbytes, ops, dtype="bfloat16"):

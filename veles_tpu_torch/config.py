@@ -2,8 +2,9 @@
 
 The port's own copy of :mod:`veles_tpu.config` (the port imports nothing
 of ``veles_tpu``): the same dotted namespace, trimmed to the defaults
-the paths the port runs: ``root.common.engine`` (``trace``, and the
-workflow's ``stitch``, ``loader`` and ``epoch_scan``) and the
+the paths the port runs: ``root.common.engine`` (``trace``,
+``precision_level``, ``pallas_reduce``, and the workflow's ``stitch``,
+``loader`` and ``epoch_scan``) and the
 ``root.common.gen`` subtree (``kv``, ``prefill_chunk``,
 ``prefix_cache``, ``speculative``), which auto-vivifies.
 """
@@ -83,6 +84,14 @@ root.common.update({
         # Unified tracing (veles_tpu_torch.trace): "off" (every hook is
         # a single attribute check) or "on" (record spans into the ring).
         "trace": "off",
+        # Float32 matmul precision of the library and plain paths
+        # (veles_tpu_torch.backends.set_precision, applied whenever an
+        # entry point resolves a card): 0 lets cuBLAS and cuDNN use
+        # TF32, 1 and 2 keep full float32.
+        "precision_level": 0,
+        # matrix_reduce through its kernel (veles_tpu_torch.ops.reduce)
+        # instead of torch's own reduction.
+        "pallas_reduce": False,
         # Segment stitching (veles_tpu_torch.stitch): "on" runs each
         # maximal chain of stitchable units as one segment (one CUDA
         # graph on the card), "off" the eager per-unit chain.

@@ -1,9 +1,10 @@
 """veles_tpu_torch.gen — continuously-batched generative serving.
 
-Counterpart of :mod:`veles_tpu.gen` on one device with float weights,
-in both KV layouts (a contiguous cache or the paged block pool), with
-whole-prompt or chunked prefill, the radix prefix cache and speculative
-decode:
+Counterpart of :mod:`veles_tpu.gen` on one device with float or int8
+(W8A16, :meth:`~veles_tpu_torch.gen.engine.GenerativeEngine
+.quantize_int8`) weights, in both KV layouts (a contiguous cache or the
+paged block pool), with whole-prompt or chunked prefill, the radix
+prefix cache and speculative decode:
 
 - :mod:`model` — the generative model protocol and
   :class:`~veles_tpu_torch.gen.model.TransformerGenModel`, with
@@ -23,9 +24,11 @@ decode:
   pad-to-slowest :func:`~veles_tpu_torch.gen.scheduler.static_generate`.
 
 ``python -m veles_tpu_torch.gen --smoke`` runs a seeded session (every
-request exactly its token budget), then the same workload through a
-paged engine whose pool is too small, chunked, which must preempt and
-still give the contiguous session's streams.
+request exactly its token budget), the same workload through a paged
+engine whose pool is too small, chunked, which must preempt and still
+give the contiguous session's streams, an int8 engine against its float
+twin, and a prefix-cached, speculative paged engine against a plain
+one.
 """
 
 from veles_tpu_torch.gen.engine import (  # noqa: F401

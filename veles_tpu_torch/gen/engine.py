@@ -21,8 +21,11 @@ The JAX engine compiles one program per shape ahead of time; PyTorch
 runs eagerly, so :meth:`warmup` instead builds the CUDA kernels and runs
 each entry point once.  Not ported here, each raising
 ``NotImplementedError`` naming its ROADMAP item: the fleet page handoff
-(``warm_handoff``, ``export_slot``, ``adopt_sequence``: item 7), a
-tensor-parallel mesh (item 7) and int8 params (item 3).
+(``warm_handoff``, ``export_slot``, ``adopt_sequence``: item 7) and a
+tensor-parallel mesh (item 7).  int8 weights (W8A16) come in as a
+quantized params tree or through :meth:`GenerativeEngine.quantize_int8`
+before warmup, and every entry point serves them through the qmatmul
+kernel.
 """
 
 import bisect
@@ -30,10 +33,10 @@ import bisect
 import numpy
 import torch
 
-from veles_tpu_torch import trace
+from veles_tpu_torch import quant, trace
 from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.config import root
-from veles_tpu_torch.gen.model import params_from_numpy, tree_nbytes
+from veles_tpu_torch.gen.model import params_from_numpy
 from veles_tpu_torch.gen.paged import BlockPool
 from veles_tpu_torch.gen.prefix import PrefixCache
 from veles_tpu_torch.logger import Logger
@@ -53,12 +56,6 @@ def _power_of_two_buckets(lo, hi):
         b *= 2
     buckets.append(hi)
     return tuple(buckets)
-
-
-def _is_quantized(tree):
-    return any(isinstance(leaf, dict) and ("q" in leaf or
-                                           _is_quantized(leaf))
-               for leaf in tree.values())
 
 
 #: registry of small draft models for model-based speculation:
@@ -271,8 +268,15 @@ class GenerativeEngine(Logger):
 
         if params is None:
             params = model.init_params(seed=seed)
-        if _is_quantized(params):
-            _not_ported("int8-quantized params", 3)
+        #: "int8" when the params tree carries quantized pairs (given to
+        #: the constructor or made by quantize_int8()); None = float
+        self.quantized = "int8" if quant.tree_is_quantized(params) \
+            else None
+        #: the float params as given (held by reference until warmup()
+        #: or quantize_int8()): quantize_int8() quantizes these, as the
+        #: JAX engine quantizes its float32 masters, and not the served
+        #: tree, whose block weights are rounded to a bf16 compute_dtype
+        self._masters = None if self.quantized else params
         if not isinstance(_first_leaf(params), torch.Tensor):
             params = params_from_numpy(params, self.device)
         self._params = model.serving_params(params)
@@ -287,7 +291,7 @@ class GenerativeEngine(Logger):
                                                      self.max_seq)
         Watcher.track(self.kv_cache_bytes, "kv")
         self._kv_tracked = True
-        self.params_nbytes = tree_nbytes(self._params)
+        self.params_nbytes = quant.tree_nbytes(self._params)
         Watcher.track(self.params_nbytes, "params")
         self._params_tracked = True
         self._ledger_gen = Watcher.generation
@@ -346,6 +350,45 @@ class GenerativeEngine(Logger):
         if self.device.type == "cuda":
             Watcher.track_h2d(tensor.numel() * tensor.element_size())
         return tensor.to(self.device)
+
+    # -- int8 deploy -------------------------------------------------------
+    def quantize_int8(self, calibration_tokens=None, tol=None):
+        """Quantize the served block weights in place (per-output-channel
+        symmetric int8, :func:`veles_tpu_torch.quant.quantize_gen_params`)
+        and re-price ``params_nbytes`` and the ledger's params hold.
+        Must run BEFORE :meth:`warmup` and any served step, as in the JAX
+        package, whose programs compile once against the tree.  The walk
+        starts from the float params given to the constructor (or its
+        seeded ones), not from the served tree, so at a bf16
+        ``compute_dtype`` the int8 weights are the JAX engine's, made
+        from float32 masters.  ``calibration_tokens`` arms the drift gate:
+        relative logit drift beyond ``tol`` (default
+        :data:`veles_tpu_torch.quant.DRIFT_TOL`) raises a typed
+        :class:`~veles_tpu_torch.quant.QuantizationError` naming the worst
+        block weight.  Returns self (chainable)."""
+        if self._warmed or self.prefill_calls or self.decode_calls:
+            raise RuntimeError(
+                "quantize_int8 must run before warmup() and any served "
+                "step: the JAX package would recompile every program in "
+                "steady state")
+        if self.quantized:
+            return self
+        qparams = quant.quantize_gen_params(
+            self.model, self._masters, calibration_tokens=calibration_tokens,
+            tol=quant.DRIFT_TOL if tol is None else tol)
+        self._params = self.model.serving_params(
+            params_from_numpy(qparams, self.device))
+        self.quantized = "int8"
+        self._masters = None
+        if self._params_tracked and self._ledger_gen == Watcher.generation:
+            Watcher.untrack(self.params_nbytes, "params")
+        self.params_nbytes = quant.tree_nbytes(self._params)
+        Watcher.track(self.params_nbytes, "params")
+        self._params_tracked = True
+        self._ledger_gen = Watcher.generation
+        self.info("quantized params to int8 (%d bytes resident)",
+                  self.params_nbytes)
+        return self
 
     # -- warmup ------------------------------------------------------------
     def warmup(self):
@@ -406,6 +449,7 @@ class GenerativeEngine(Logger):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warmed = True
+        self._masters = None
         return self
 
     def warm_handoff(self):
@@ -862,6 +906,12 @@ class GenerativeEngine(Logger):
         return self.spec_tokens_total / float(self.spec_dispatches)
 
     def describe(self):
+        """The engine's configuration and counters.  ``params_bytes``
+        counts every storage of the served tree once: at float32 it is
+        the JAX engine's ``params_nbytes`` (float or int8); at a bf16
+        ``compute_dtype`` the block weights are held in bf16 and the
+        readout's bf16 copy of the embedding (``embed_cd``) is counted,
+        a copy the JAX tree does not hold."""
         info = {
             "model": type(self.model).__name__,
             "device": str(self.device),
@@ -871,6 +921,7 @@ class GenerativeEngine(Logger):
             "kv_cache_bytes": self.kv_cache_bytes,
             "kv": self.kv_mode,
             "compute_dtype": str(self.model.compute_dtype),
+            "quantize": self.quantized,
             "params_bytes": self.params_nbytes,
             "prefill_chunk": self.prefill_chunk,
             "active_slots": self.active_slots(),

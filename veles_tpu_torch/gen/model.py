@@ -41,7 +41,12 @@ same kernel at a runtime query offset), decode and contiguous verify
 attention :func:`~veles_tpu_torch.ops.attention.decode_attention` (the
 decode kernel), paged decode and verify
 :func:`~veles_tpu_torch.ops.attention.paged_decode_attention` (its
-paged entry); every other product is a plain ``torch.matmul``.
+paged entry).  A block weight quantized to an ``{"q", "scale"}`` int8
+pair (:mod:`veles_tpu_torch.quant`) runs its product through
+:func:`~veles_tpu_torch.ops.qgemm.qmatmul` (the qmatmul kernel on the
+card: four per layer when all four are quantized, the MLP's bias and
+gelu in the epilogues); every other block product is a plain
+``torch.matmul``.
 """
 
 import numpy
@@ -49,12 +54,14 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.backends import resolve_device
+from veles_tpu_torch.ops import qgemm
 from veles_tpu_torch.ops.attention import (chunk_attention,
                                            decode_attention,
                                            flash_attention,
                                            paged_decode_attention,
                                            paged_verify_attention,
                                            verify_attention)
+from veles_tpu_torch.quant.core import is_quantized_leaf
 from veles_tpu_torch.samples.transformer import _layernorm, init_params
 
 #: block weights whose matmul operands are cast to ``compute_dtype``
@@ -65,9 +72,15 @@ def params_from_numpy(tree, device, dtype=torch.float32):
     """Carry a numpy param tree (``veles_tpu.samples.transformer
     .init_params``, this package's copy, or a trained JAX run's arrays)
     into tensors of ``dtype`` on ``device``, keeping the tree's
-    structure.  The tensors are copies: an in-place update (the train
-    step's) never writes through to the numpy arrays."""
+    structure; a quantized ``{"q", "scale"}`` pair keeps ``q`` int8 and
+    ``scale`` float32.  The tensors are copies: an in-place update (the
+    train step's) never writes through to the numpy arrays."""
     device = torch.device(device)
+    if is_quantized_leaf(tree):
+        return {"q": torch.tensor(numpy.asarray(tree["q"]), dtype=torch.int8,
+                                  device=device),
+                "scale": torch.tensor(numpy.asarray(tree["scale"]),
+                                      dtype=torch.float32, device=device)}
     out = {}
     for key, leaf in tree.items():
         if isinstance(leaf, dict):
@@ -80,18 +93,21 @@ def params_from_numpy(tree, device, dtype=torch.float32):
 
 def params_to_numpy(tree):
     """The inverse of :func:`params_from_numpy`: a tree of tensors (on
-    any device) as float32 numpy copies of the same structure."""
+    any device) as numpy copies of the same structure, float leaves as
+    float32 and int8 leaves as they are."""
     return {key: (params_to_numpy(leaf) if isinstance(leaf, dict)
-                  else leaf.detach().to("cpu", torch.float32,
-                                        copy=True).numpy())
+                  else leaf.detach().to(
+                      "cpu", torch.float32 if leaf.is_floating_point()
+                      else leaf.dtype, copy=True).numpy())
             for key, leaf in tree.items()}
 
 
-def tree_nbytes(tree):
-    """Bytes held by every tensor of a (nested dict) tree."""
-    return sum(tree_nbytes(leaf) if isinstance(leaf, dict)
-               else leaf.numel() * leaf.element_size()
-               for leaf in tree.values())
+def _layer_slice(leaf, i):
+    """Layer ``i`` of a stacked block leaf (a tensor or a quantized
+    pair)."""
+    if isinstance(leaf, dict):
+        return {"q": leaf["q"][i], "scale": leaf["scale"][i]}
+    return leaf[i]
 
 
 class TransformerGenModel(object):
@@ -133,11 +149,15 @@ class TransformerGenModel(object):
         of the tied embedding for the readout (``embed_cd``).  The casts
         are the ones :meth:`_run_layers` would make on every call, so
         the results are bit-identical; the embedding gather and the
-        positional table stay in the params' dtype."""
+        positional table stay in the params' dtype.  Quantized block
+        weights (``{"q", "scale"}`` pairs) stay as they are: the qmatmul
+        kernel reads ``q`` as stored.  At float32 the casts return the
+        tensors themselves, so ``embed_cd`` is ``embed``."""
         cd = self.compute_dtype
         out = dict(params)
         out["blocks"] = {
-            key: leaf.to(cd) if key in _MATMUL_LEAVES else leaf
+            key: (leaf.to(cd) if key in _MATMUL_LEAVES
+                  and not isinstance(leaf, dict) else leaf)
             for key, leaf in params["blocks"].items()}
         out["embed_cd"] = params["embed"].to(cd)
         return out
@@ -176,35 +196,66 @@ class TransformerGenModel(object):
                             dtype)
 
     # -- forwards ----------------------------------------------------------
+    def _mm(self, x2, leaf, nc, bias=None, gelu=False):
+        """One block matmul of the rows ``x2`` (n, K) over one layer's
+        slice of a block weight, then ``bias`` and the tanh gelu
+        (``jax.nn.gelu``'s default) when asked.  The leaf's first ``nc``
+        axes are the contraction (K) and the rest flatten into output
+        channels (N), so every block weight reduces to one 2-D product.
+        A quantized ``{"q", "scale"}`` leaf runs it through
+        :func:`~veles_tpu_torch.ops.qgemm.qmatmul` (the kernel on the
+        card: int8 weights read as stored, the scale, bias and gelu in
+        the epilogue); a float leaf through a plain ``torch.matmul`` in
+        ``x2``'s dtype."""
+        quantized = isinstance(leaf, dict)
+        w = leaf["q"] if quantized else leaf
+        k = 1
+        for dim in w.shape[:nc]:
+            k *= int(dim)
+        if quantized:
+            return qgemm.qmatmul(x2, w.reshape(k, -1),
+                                 leaf["scale"].reshape(-1), bias,
+                                 "gelu" if gelu else None,
+                                 out_dtype=x2.dtype)
+        y = x2 @ w.to(x2.dtype).reshape(k, -1)
+        if bias is not None:
+            y = y + bias
+        return F.gelu(y, approximate="tanh") if gelu else y
+
     def _run_layers(self, params, cache, h, kv_hook):
         """The ONE shared layer body over the stacked block axis (a
         Python loop in place of ``lax.scan``).  ``kv_hook(kc, vc, q, k,
         v) -> att`` is what the entry points differ in: where this
         layer's K/V land (written in place into ``kc``/``vc``, the
         layer's cache views, or None without a cache) and what the
-        attention reads.  Returns the final-normed ``h``."""
+        attention reads.  Each of the four block products goes through
+        :meth:`_mm`, float or quantized leaf alike (each independently:
+        the calibration blame probe quantizes one key at a time), so
+        every entry point (prefill, decode, paged, chunked, verify)
+        serves int8 through this one body.  Returns the final-normed
+        ``h``."""
         cd = self.compute_dtype
         blocks = params["blocks"]
         for i in range(self.layers):
-            blk = {key: leaf[i] for key, leaf in blocks.items()}
+            blk = {key: _layer_slice(leaf, i) for key, leaf in blocks.items()}
             b_, s_ = h.shape[0], h.shape[1]
             x = _layernorm(h, blk["ln1_g"], blk["ln1_b"])
-            qkv = (x.to(cd) @ blk["wqkv"].to(cd).reshape(self.dim, -1)
-                   ).view(b_, s_, 3, self.heads, self.head_dim)
+            qkv = self._mm(x.reshape(b_ * s_, -1).to(cd), blk["wqkv"], 1)
+            qkv = qkv.view(b_, s_, 3, self.heads, self.head_dim)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             kc = vc = None
             if cache is not None:
                 kc, vc = cache["k"][i], cache["v"][i]
             att = kv_hook(kc, vc, q, k, v)
-            proj = (att.to(cd).reshape(b_, s_, -1)
-                    @ blk["wo"].to(cd).reshape(-1, self.dim))
-            h = h + proj.to(h.dtype)
+            proj = self._mm(att.reshape(b_ * s_, -1).to(cd), blk["wo"], 2)
+            h = h + proj.reshape(b_, s_, -1).to(h.dtype)
             x = _layernorm(h, blk["ln2_g"], blk["ln2_b"])
-            # jax.nn.gelu defaults to the tanh approximation
-            up = x.to(cd) @ blk["w1"].to(cd) + blk["b1"].to(cd)
-            down = (F.gelu(up, approximate="tanh") @ blk["w2"].to(cd)
-                    + blk["b2"].to(cd))
-            h = h + down.to(h.dtype)
+            # bias + gelu ride the up-projection's epilogue, the bias the
+            # down-projection's
+            up = self._mm(x.reshape(b_ * s_, -1).to(cd), blk["w1"], 1,
+                          bias=blk["b1"].to(cd), gelu=True)
+            down = self._mm(up, blk["w2"], 1, bias=blk["b2"].to(cd))
+            h = h + down.reshape(b_, s_, -1).to(h.dtype)
         return _layernorm(h, params["lnf_g"], params["lnf_b"])
 
     def _readout(self, params, rows):
@@ -238,7 +289,11 @@ class TransformerGenModel(object):
 
     def calibration_logits(self, params, tokens):
         """Last-position f32 logits (vocab,) of ONE prompt through the
-        shared layer body; no cache is read or written."""
+        shared layer body; no cache is read or written.  ``params`` is a
+        tree of tensors on the model's device, or a host numpy tree
+        (the quantization walk's), carried there first."""
+        if not isinstance(params["embed"], torch.Tensor):
+            params = params_from_numpy(params, self.device)
         tokens = self._tokens(params, tokens).reshape(1, -1)
         s = tokens.shape[1]
         h = params["embed"][tokens] + params["pos"][:s]

@@ -20,7 +20,21 @@ version.
   :func:`veles_tpu_torch.ops.gemm.matmul`, and ``_gd_dx_kernel``,
   ``_gd_dw_kernel``, ``_gd_db_kernel`` →
   :func:`veles_tpu_torch.ops.gemm.gd_fused`, CUDA C++ in
-  ``csrc/gemm.cu``.
+  ``csrc/gemm.cu``;
+- ``veles_tpu/ops/gather.py`` ``_gather_kernel`` and
+  ``_gather_norm_kernel`` → :func:`veles_tpu_torch.ops.gather.take_rows`
+  and :func:`~veles_tpu_torch.ops.gather.take_rows_norm`, CUDA C++ in
+  ``csrc/gather.cu``;
+- ``veles_tpu/ops/qgemm.py`` ``_qmatmul_kernel`` (the int8 W8A16 GEMM)
+  → :func:`veles_tpu_torch.ops.qgemm.qmatmul`, CUDA C++ in
+  ``csrc/qgemm.cu``;
+- ``veles_tpu/ops/reduce.py`` ``_reduce_kernel`` →
+  :func:`veles_tpu_torch.ops.reduce.matrix_reduce` (under
+  ``root.common.engine.pallas_reduce`` or ``use_pallas=True``), CUDA C++
+  in ``csrc/reduce.cu``;
+- ``veles_tpu/ops/random.py`` ``_uniform_kernel`` →
+  :func:`veles_tpu_torch.ops.random.uniform_pallas`, CUDA C++ in
+  ``csrc/random.cu``.
 
 The CUDA sources are compiled by :mod:`veles_tpu_torch.ops.build` at
 first use on the card; nothing here builds or imports a compiler when
@@ -28,4 +42,6 @@ the package is imported.  A wrapper runs its plain version only for
 CPU tensors; for CUDA tensors it launches its kernel or raises.
 """
 
+from veles_tpu_torch.ops.random import normal, uniform  # noqa: F401
+from veles_tpu_torch.ops.reduce import matrix_reduce  # noqa: F401
 from veles_tpu_torch.ops.util import on_gpu  # noqa: F401

@@ -23,7 +23,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "veles_tpu_torch"
 #: every kernel source of the package (``csrc/<name>.cu``)
-SOURCES = ("flash_fwd", "flash_bwd", "decode_attn", "gemm", "gather")
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attn", "gemm", "gather",
+           "qgemm", "reduce", "random")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,173 @@
+"""Quantized (int8-weight, W8A16) matmul, beside its plain version.
+
+Counterpart of :mod:`veles_tpu.ops.qgemm`.  :func:`qmatmul` is
+``act((a @ q) · scale[N] + bias)`` with int8 weights: on CUDA tensors
+the kernel (``csrc/qgemm.cu`` ``veles_qmatmul``, replacing
+``_qmatmul_kernel``), on CPU tensors :func:`_qmatmul_ref` (the
+counterpart of ``_qmatmul_jnp``).  Both widen ``q`` exactly (|q| <= 127
+fits the mantissa of bf16 and f32), accumulate the product in f32,
+apply the per-output-channel scale ONCE after the K loop
+(dot-then-scale, as the Pallas epilogue does), then the bias and the
+activation in f32, and cast to ``out_dtype or a.dtype``.
+
+The activations are the GEMM table
+(:data:`veles_tpu_torch.ops.gemm.ACTIVATION_CODES`, with the Znicz
+scaled tanh) plus ``gelu``, the tanh approximation (``jax.nn.gelu``'s
+default), which the transformer MLP's up-projection fuses.  The kernel
+computes f32 on the CUDA cores at every ``precision_level``.  It takes
+fixed tiles: the autotune DB row ``ratings["gemm_int8"]``, ``tiles`` and
+``use_pallas`` wait for ROADMAP item 7, and on the card :func:`qmatmul`
+always runs the kernel, as :func:`veles_tpu_torch.ops.gemm.matmul` does.
+There is no fallback from a CUDA tensor to the plain version.  No
+gradient is defined: quantized params are served, not trained through.
+``launches["qmatmul"]`` counts kernel launches; only a launch adds to
+it.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from veles_tpu_torch.ops.gemm import ACTIVATION_CODES as _GEMM_CODES
+from veles_tpu_torch.ops.gemm import _activate
+from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
+
+#: activation name -> the kernel's code: the GEMM table plus gelu
+ACTIVATION_CODES = dict(_GEMM_CODES, gelu=5)
+
+#: kernel name -> launches since the last reset_launches()
+launches = {"qmatmul": 0}
+
+#: the kernel's K tile (BK of csrc/qgemm.cu)
+TILE_K = 64
+#: SMs of the H100: the kernel splits K over a cluster of up to 8
+#: blocks until the grid covers them twice
+_SMS = 132
+_MAX_SPLIT = 8
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 5 + [_I] * 4 + [_I] * 5 + [_P]
+_entry_fn = []
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
+
+
+def _entry():
+    """The C entry ``veles_qmatmul``, building ``csrc/qgemm.cu`` at first
+    use."""
+    if not _entry_fn:
+        from veles_tpu_torch.ops import build
+        fn = build.library("qgemm").veles_qmatmul
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _entry_fn.append(fn)
+    return _entry_fn[0]
+
+
+# -- the plain version (the CPU path and the kernel's reference) ------------
+
+def _qactivate(x, activation):
+    if activation == "gelu":
+        return F.gelu(x, approximate="tanh")
+    return _activate(x, activation)
+
+
+def _qmatmul_ref(a, q, scale, bias=None, activation=None, out_dtype=None):
+    """Mirror of ``_qmatmul_jnp``: q widened (exactly) and the product
+    accumulated in f32, then ``* scale``, ``+ bias`` and the activation
+    in f32, cast to ``out_dtype or a.dtype``."""
+    out = torch.mm(a.float(), q.float())
+    out = out * scale.reshape(-1).float()
+    if bias is not None:
+        out = out + bias.float()
+    return _qactivate(out, activation).to(out_dtype or a.dtype)
+
+
+# -- the kernel wrapper -----------------------------------------------------
+
+def split_k(m, n, k):
+    """The K split (cluster size) the kernel launches with for an (M, K)
+    by (K, N) product: doubled, up to 8, while the grid of output tiles
+    covers the SMs less than twice and every split keeps a K tile."""
+    block_m = 16 if m <= 16 else 64
+    tiles = -(-n // 64) * -(-m // block_m)
+    k_tiles = -(-k // TILE_K)
+    split = 1
+    while (split < _MAX_SPLIT and tiles * split < 2 * _SMS
+           and k_tiles >= 2 * split):
+        split *= 2
+    return split
+
+
+def _qmatmul_cuda(a, q, scale, bias, activation, out_dtype):
+    """``veles_qmatmul``: a (M, K) f32 or bf16 with unit column stride,
+    q (K, N) int8 contiguous, scale (N,) f32, bias (N,) f32 or a's dtype
+    or None; out (M, N) in ``out_dtype`` (f32 or bf16)."""
+    if a.dim() != 2 or q.dim() != 2:
+        raise ValueError("qmatmul expects a 2-D a and q, got %s and %s"
+                         % (tuple(a.shape), tuple(q.shape)))
+    m, k = a.shape
+    k2, n = q.shape
+    if k != k2:
+        raise ValueError("qmatmul: a is %s, q is %s" % (tuple(a.shape),
+                                                        tuple(q.shape)))
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("qmatmul takes float32 or bfloat16 activations, "
+                        "got %s" % a.dtype)
+    if q.dtype != torch.int8 or not q.is_contiguous():
+        raise TypeError("qmatmul takes contiguous int8 weights, got %s%s"
+                        % (q.dtype, "" if q.is_contiguous()
+                           else " (not contiguous)"))
+    if a.stride(1) != 1 and k > 1:
+        raise ValueError("qmatmul needs a with unit column stride")
+    scale = scale.reshape(-1)
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (n,) \
+            or not scale.is_contiguous():
+        raise ValueError("qmatmul needs a contiguous float32 scale of "
+                         "shape (%d,)" % n)
+    if bias is not None and (tuple(bias.shape) != (n,)
+                             or not bias.is_contiguous()
+                             or bias.dtype not in (torch.float32, a.dtype)):
+        raise ValueError("qmatmul needs a contiguous bias of shape (%d,) "
+                         "in float32 or a's dtype" % n)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("qmatmul writes float32 or bfloat16, not %s"
+                        % out_dtype)
+    devices = {t.device for t in (a, q, scale) + (
+        () if bias is None else (bias,))}
+    if len(devices) != 1:
+        raise ValueError("qmatmul operands on different devices")
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    status = _entry()(
+        a.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        m, n, k, a.stride(0),
+        int(a.dtype == torch.bfloat16),
+        int(bias is not None and bias.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), ACTIVATION_CODES[activation],
+        split_k(m, n, k), stream_handle(a.device))
+    check_status("qmatmul", status)
+    launches["qmatmul"] += 1
+    return out
+
+
+def qmatmul(a, q, scale, bias=None, activation=None, out_dtype=None):
+    """``activation((a @ q) * scale + bias)`` with int8 weights.
+
+    a: (M, K) bf16/f32 activations; q: (K, N) **int8** weights as
+    stored; scale: (N,) (or any shape of N elements) float32
+    per-output-channel dequant factors; bias: (N,) or None.  The kernel
+    on CUDA tensors, :func:`_qmatmul_ref` on CPU tensors."""
+    if activation not in ACTIVATION_CODES:
+        raise ValueError("unknown activation %r" % (activation,))
+    out_dtype = out_dtype or a.dtype
+    tensors = (a, q, scale) if bias is None else (a, q, scale, bias)
+    if on_gpu(*tensors):
+        return _qmatmul_cuda(a, q, scale, bias, activation, out_dtype)
+    return _qmatmul_ref(a, q, scale, bias, activation, out_dtype)

@@ -9,14 +9,18 @@ device between layers; ``cuda_run`` and the stitched stage both call
 it.  ``All2AllSoftmax`` runs the GEMM without an activation and leaves
 the softmax and ``max_idx`` to plain torch, as the JAX package leaves
 them to XLA: the eager unit takes ``max_idx`` from the logits, the
-stitched stage from the softmax output, as the JAX package's do.  The
-int8 ``qgemm`` branch is not ported (ROADMAP item 3).
+stitched stage from the softmax output, as the JAX package's do.  An
+int8 weight (a :mod:`veles_tpu_torch.quant` ``{"q", "scale"}`` pair, in
+(fan-in, neurons) storage whatever ``weights_transposed`` says, since
+the deploy walk canonicalizes it) runs through
+:func:`veles_tpu_torch.ops.qgemm.qmatmul` instead, with the unit's
+activation in its epilogue and an f32 result.
 """
 
 import numpy
 import torch
 
-from veles_tpu_torch.ops import gemm
+from veles_tpu_torch.ops import gemm, qgemm
 from veles_tpu_torch.memory import Vector
 from veles_tpu_torch.znicz.nn_units import ForwardBase
 
@@ -63,10 +67,17 @@ class All2All(ForwardBase):
 
     def _gemm(self, params, x, activation):
         """One GEMM kernel call (a transposed storage is read through
-        its strides, not copied)."""
-        w = params["w"].t() if self.weights_transposed else params["w"]
-        return gemm.matmul(x.reshape(x.shape[0], -1), w, params.get("b"),
-                           activation)
+        its strides, not copied), or one qmatmul call for an int8
+        weight."""
+        h = x.reshape(x.shape[0], -1)
+        w = params["w"]
+        if isinstance(w, dict):
+            return qgemm.qmatmul(h, w["q"], w["scale"].reshape(-1),
+                                 params.get("b"), activation,
+                                 out_dtype=torch.float32).to(x.dtype)
+        if self.weights_transposed:
+            w = w.t()
+        return gemm.matmul(h, w, params.get("b"), activation)
 
     def pure(self, params, x):
         return self._gemm(params, x, self.ACTIVATION)

@@ -26,7 +26,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    inputs (delta's sign flipped, the last K tile dropped from dq, the
    last Q tile dropped from dk/dv) must each be reported.  Each kernel
    is timed at its main path's shape (bfloat16, median of 20 CUDA-event
-   timings).
+   timings); the backward pair's rows also give the body that ran, read
+   from the kernels' names in a profile of the pair (it must be the
+   tensor-core body), TFLOP/s and the share of the bound at that time,
+   and the device time per call (``device_ms``, as the GEMM rows below).
 4. ``serve``   — the main path at full width: ``GenerativeEngine`` over
    ``TransformerGenModel(CONFIG)`` in bfloat16 (4 slots, max_seq 2048)
    behind a ``GenerativeScheduler`` worker thread, 8 seeded requests of
@@ -93,8 +96,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    Every loss must be finite and every step must launch the forward
    kernel 24 times (forward and remat recompute) and each backward
    kernel 12 times (counts set to 0 just before the steps, read just
-   after each).  Then one step under ``torch.profiler`` gives the
-   device time by kernel group and the busy share.
+   after each).  Then one step under ``torch.profiler`` gives the device
+   time by kernel group and the busy share, and its 12 + 12 backward
+   kernels must all be the tensor-core body (``*_kernel_tc``).
 12. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
    batch 2, float32 with TF32 off: 2 steps from the same numpy params
    on the card (kernels) and on the CPU (plain versions); the losses
@@ -232,7 +236,9 @@ BF16_TOL = 2e-2
 # for the small values, about a sixth of a typical |dq| at s = 2048
 BWD_F32_TOL = (1e-4, 1e-4)
 BWD_BF16_TOL = (2e-3, 2 ** -7)
-BWD_TILE = 64                     # BLOCK_Q = BLOCK_K of csrc/flash_bwd.cu
+# BLOCK_Q = BLOCK_K of csrc/flash_bwd.cu, both bodies: the rows a planted
+# "last tile dropped" fault cuts
+BWD_TILE = 64
 SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 64
 PARITY_REQUESTS = 4
@@ -393,14 +399,15 @@ def _kernel_group(name):
     return "other"
 
 
-def profile_window(fn):
+def profile_window(fn, names_of=()):
     """Run ``fn`` once under ``torch.profiler`` and return its host wall
     time, the device time and the number of kernels of every group
     (flash_fwd, flash_bwd_dq, flash_bwd_dkv, decode_attn, the GEMM and
     gather kernels, matmul, copy, other), the 12 kernels that took most
     of it,
-    and the device's busy share of the wall time.  Kernels run on one
-    stream, so their times add."""
+    and the device's busy share of the wall time; ``kernel_names``
+    counts the kernels of the groups ``names_of`` by name.  Kernels run
+    on one stream, so their times add."""
     from torch.profiler import ProfilerActivity, profile
     gpu_sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -409,13 +416,13 @@ def profile_window(fn):
         fn()
         gpu_sync()
         wall_us = (time.perf_counter() - tic) * 1e6
-    return _profile_summary(prof, wall_us)
+    return _profile_summary(prof, wall_us, names_of)
 
 
-def _profile_summary(prof, wall_us):
+def _profile_summary(prof, wall_us, names_of=()):
     """:func:`profile_window`'s summary of a finished profile."""
     from torch.autograd import DeviceType
-    groups, counts, names, spans = {}, {}, {}, []
+    groups, counts, names, spans, named = {}, {}, {}, [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -424,6 +431,8 @@ def _profile_summary(prof, wall_us):
         groups[group] = groups.get(group, 0.0) + us
         counts[group] = counts.get(group, 0) + 1
         names[ev.name] = names.get(ev.name, 0.0) + us
+        if group in names_of:
+            named[ev.name[:200]] = named.get(ev.name[:200], 0) + 1
         spans.append((ev.time_range.start, ev.time_range.end))
     busy = sum(groups.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
@@ -432,14 +441,28 @@ def _profile_summary(prof, wall_us):
     spans.sort()
     gaps = sorted((b[0] - a[1] for a, b in zip(spans, spans[1:])
                    if b[0] > a[1]), reverse=True)
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "busy_share": busy / wall_us if busy else None,
-            "device_ms_by_group": {g: t / 1e3 for g, t in groups.items()},
-            "kernels_by_group": counts,
-            "top_kernels_ms": [[n[:200], t / 1e3] for n, t in top],
-            "device_kernels": len(spans),
-            "top_host_gaps_ms": [g / 1e3 for g in gaps[:5]],
-            "host_gaps_ms_total": sum(gaps) / 1e3}
+    summary = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+               "busy_share": busy / wall_us if busy else None,
+               "device_ms_by_group": {g: t / 1e3
+                                      for g, t in groups.items()},
+               "kernels_by_group": counts,
+               "top_kernels_ms": [[n[:200], t / 1e3] for n, t in top],
+               "device_kernels": len(spans),
+               "top_host_gaps_ms": [g / 1e3 for g in gaps[:5]],
+               "host_gaps_ms_total": sum(gaps) / 1e3}
+    if names_of:
+        summary["kernel_names"] = named
+    return summary
+
+
+def _bwd_bodies(names):
+    """Backward kernels by the body of ``csrc/flash_bwd.cu`` their
+    profiled names belong to: ``*_kernel_tc`` is the bf16 tensor-core
+    body, the rest the f32 FMA body."""
+    bodies = {"tensor_core": 0, "fma": 0}
+    for name, n in names.items():
+        bodies["tensor_core" if "_kernel_tc<" in name else "fma"] += n
+    return bodies
 
 
 def make_l2_flush(device):
@@ -588,12 +611,16 @@ def _bwd_planted_faults(q, k, v, o, lse, do, delta):
 
 def _bwd_timed(rng, device):
     """The backward pair at the training shape (the ``train`` phase's
-    batch at CONFIG width): each kernel's time and bound, the plain
-    version's time, and SDPA's backward as the library time of the pair
-    (its forward + backward less its forward)."""
+    batch at CONFIG width): each kernel's time, as the other attention
+    rows take it (:func:`time_ms`, one wrapper call between CUDA events),
+    with its device time per call beside it (:func:`device_ms`, without
+    the host's checks and allocation), its bound, the body that ran (the
+    kernels' names in a profile of the pair), the plain version's time,
+    and SDPA's backward as the library time of the pair (its forward +
+    backward less its forward)."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops.attention import (_bwd_dkv_cuda, _bwd_dq_cuda,
-                                               _bwd_ref, _delta)
+                                               _bwd_ref, _delta, _flash_bwd)
     from veles_tpu_torch.samples.transformer import CONFIG
     b, s, h = TRAIN_BATCH, CONFIG["seq_len"], CONFIG["heads"]
     d = CONFIG["dim"] // h
@@ -616,6 +643,11 @@ def _bwd_timed(rng, device):
     library_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
                                                       dot))
                   - time_ms(sdpa))
+    # the pair with delta's reduction, so the window holds a PyTorch
+    # kernel too (around ctypes launches alone the profiler saw nothing)
+    names = profile_window(lambda: _flash_bwd(q, k, v, o, lse, do, True),
+                           names_of=("flash_bwd_dq", "flash_bwd_dkv")
+                           )["kernel_names"]
 
     elem, pairs = 2, b * h * s * (s + 1) // 2      # unmasked (q, k) pairs
     product = 2 * d * pairs                        # one s×s×d product
@@ -629,6 +661,11 @@ def _bwd_timed(rng, device):
         bound, by = bound_seconds(read + out_bytes, products * product,
                                   "bfloat16")
         outputs = ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")
+        bodies = _bwd_bodies({n_: c for n_, c in names.items()
+                              if name + "_kernel" in n_})
+        body = "+".join(b_ for b_, n_ in bodies.items() if n_)
+        ok = ok and bodies == {"tensor_core": 1, "fma": 0}
+        ms = time_ms(fn)
         rows.append({
             "name": name, "route": "cuda",
             "source": "veles_tpu_torch/csrc/flash_bwd.cu",
@@ -637,7 +674,10 @@ def _bwd_timed(rng, device):
                          else "veles_tpu/ops/attention.py:248"),
             "shape": [b, s, h, d], "dtype": "bfloat16", "causal": True,
             "max_abs_err": max(report[o_]["max_abs_err"] for o_ in outputs),
-            "ms": time_ms(fn), "plain_ms": plain_ms,
+            "body": body,
+            "ms": ms, "device_ms": device_ms(fn),
+            "tflops": products * product / (ms / 1e3) / 1e12,
+            "bound_share": bound * 1e3 / ms, "plain_ms": plain_ms,
             "plain_of": "_bwd_ref, the pair (dq, dk, dv)",
             "library_ms": library_ms,
             "library_of": "SDPA backward, the pair (fwd+bwd less fwd)",
@@ -2690,14 +2730,23 @@ def phase_train(device, smi):
         "max_memory_allocated": peak, "setup_s": setup_s,
         "launches": launches, "launches_per_step": per_step,
         "launches_per_step_expected": want,
-        "ok": finite and counted,
     }
     info["breakdown"] = profile_window(
-        lambda: step(params, velocity, tokens))
+        lambda: step(params, velocity, tokens),
+        names_of=("flash_bwd_dq", "flash_bwd_dkv"))
+    # every backward kernel of the profiled step is the tensor-core body
+    want_bodies = {"tensor_core": 2 * cfg["layers"], "fma": 0}
+    bodies = _bwd_bodies(info["breakdown"]["kernel_names"])
+    on_tensor_cores = bodies == want_bodies
+    info.update(bwd_bodies=bodies, bwd_bodies_expected=want_bodies,
+                ok=finite and counted and on_tensor_cores)
     emit(info)
     check(finite, "train", "a loss is not finite: %s" % losses)
     check(counted, "train", "the kernels were not on the main path as "
           "expected: %s per step, want %s" % (per_step, want))
+    check(on_tensor_cores, "train", "a profiled step's backward kernels "
+          "were not all the tensor-core body: %s, want %s"
+          % (bodies, want_bodies))
     return launches
 
 
@@ -3338,9 +3387,11 @@ def main():
             "bound_ms", "bound_by", "library_ms")
     # the GEMM kernels also carry wrapper_ms, the time of one wrapper
     # call; the paged kernel the contiguous kernel's time on the mirrored
-    # cache and its verify (5 rows) times
+    # cache and its verify (5 rows) times; the backward pair its body,
+    # rate, share of its bound and device time per call
     extra = ("wrapper_ms", "contiguous_ms", "verify_ms",
-             "verify_contiguous_ms", "verify_plain_ms", "verify_bound_ms")
+             "verify_contiguous_ms", "verify_plain_ms", "verify_bound_ms",
+             "body", "tflops", "bound_share", "device_ms")
     emit({"kernels": [{key: entry[key] for key in keys + extra
                        if key in keys or key in entry}
                       for entry in timed]})

@@ -6,11 +6,16 @@ The plain version ``_bwd_ref`` is held against JAX ``_bwd_blockwise``
 ``_flash_bwd`` in interpret mode with 8-row blocks, so that ragged
 lengths pad inside the kernels; the port's autograd gradients of
 ``flash_attention`` are held against ``jax.vjp`` of JAX
-``flash_attention``.  Inputs are float32 numpy arrays from a seed (d =
-8); tolerance atol 1e-5, rtol 1e-5.  On the CPU the wrappers take the
-plain versions and launch nothing; the kernels are held against the
-plain versions on the card (``test_torch_kernels.py``,
-``chip_smoke.py``).
+``flash_attention``.  Inputs are numpy arrays from a seed; tolerance
+atol 1e-5, rtol 1e-5 in float32.  The Pallas pair is also run in
+bfloat16 (head dims 8, 64, 72 and 128), where ``_bwd_ref`` is the
+oracle the card's tensor-core kernels are held against: both sides
+round p and ds to bfloat16 before their products and round each
+gradient once on output, so they agree within atol 2e-3, rtol 2^-7
+(one bfloat16 ulp), the card's bfloat16 tolerance.  On the CPU the
+wrappers take the plain versions and launch nothing; the kernels are
+held against the plain versions on the card
+(``test_torch_kernels.py``, ``chip_smoke.py``).
 """
 
 import jax
@@ -26,11 +31,18 @@ from veles_tpu.ops.attention import flash_attention as jax_flash_attention
 from veles_tpu_torch.ops import attention as port
 
 ATOL = RTOL = 1e-5
+#: (atol, rtol) by dtype: the card's bfloat16 backward tolerance
+TOLS = {"float32": (ATOL, RTOL), "bfloat16": (2e-3, 2 ** -7)}
 CASES = [
-    (24, 24, 0, 0),          # square, block multiple
-    (13, 29, 0, 0),          # ragged, rectangular
-    (7, 19, 12, 0),          # a query chunk late in the sequence
-    (16, 16, 3, 5),          # both offsets nonzero
+    (24, 24, 0, 0, 8),       # square, block multiple
+    (13, 29, 0, 0, 8),       # ragged, rectangular
+    (7, 19, 12, 0, 8),       # a query chunk late in the sequence
+    (16, 16, 3, 5, 8),       # both offsets nonzero
+    (13, 29, 0, 0, 64),      # ragged at the training head dim
+    (13, 29, 0, 0, 72),      # a head dim the kernels pad to 128
+    (13, 29, 0, 0, 128),
+    (77, 77, 0, 0, 64),      # several blocks, a ragged last one
+    (45, 77, 32, 0, 64),     # a query chunk at q_offset 32
 ]
 
 
@@ -44,13 +56,17 @@ def _close(got, want):
                                   atol=ATOL, rtol=RTOL)
 
 
-def _saved(sq, sk, causal, q_off, k_off, seed):
-    """(q, k, v, o, lse, do) as numpy, o and lse from the JAX forward."""
-    q, k, v, do = _arrays([(2, sq, 3, 8), (2, sk, 3, 8), (2, sk, 3, 8),
-                           (2, sq, 3, 8)], seed)
-    o, lse = _mha_jnp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                      causal, q_offset=q_off, k_offset=k_off)
-    return q, k, v, numpy.array(o), numpy.array(lse), do
+def _saved(sq, sk, causal, q_off, k_off, seed, d=8, dtype="float32"):
+    """(q, k, v, o, lse, do) as float32 numpy holding ``dtype`` values,
+    o and lse from the JAX forward in ``dtype``."""
+    arrays = _arrays([(2, sq, 3, d), (2, sk, 3, d), (2, sk, 3, d),
+                      (2, sq, 3, d)], seed)
+    q, k, v, do = (numpy.array(jnp.asarray(a, dtype).astype(jnp.float32))
+                   for a in arrays)
+    o, lse = _mha_jnp(jnp.asarray(q, dtype), jnp.asarray(k, dtype),
+                      jnp.asarray(v, dtype), causal, q_offset=q_off,
+                      k_offset=k_off)
+    return q, k, v, numpy.array(o.astype(jnp.float32)), numpy.array(lse), do
 
 
 @pytest.fixture
@@ -60,18 +76,28 @@ def launches():
     port.reset_launches()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("sq,sk,q_off,k_off", CASES)
-def test_bwd_ref_matches_pallas_interpret(causal, sq, sk, q_off, k_off):
-    arrays = _saved(sq, sk, causal, q_off, k_off, seed=sq + 3 * sk)
-    got = port._bwd_ref(*(torch.from_numpy(a) for a in arrays), causal,
-                        q_off, k_off)
-    want = jax_flash_bwd(*(jnp.asarray(a) for a in arrays), causal=causal,
-                         block_q=8, block_k=8, interpret=True,
+@pytest.mark.parametrize("sq,sk,q_off,k_off,d", CASES)
+def test_bwd_ref_matches_pallas_interpret(causal, sq, sk, q_off, k_off, d,
+                                          dtype):
+    arrays = _saved(sq, sk, causal, q_off, k_off, seed=sq + 3 * sk,
+                    d=d, dtype=dtype)
+    mm = getattr(torch, dtype)
+    got = port._bwd_ref(*(torch.from_numpy(a).to(mm) for a in arrays[:4]),
+                        torch.from_numpy(arrays[4]),
+                        torch.from_numpy(arrays[5]).to(mm), causal, q_off,
+                        k_off)
+    want = jax_flash_bwd(*(jnp.asarray(a, dtype) for a in arrays[:4]),
+                         jnp.asarray(arrays[4]), jnp.asarray(arrays[5], dtype),
+                         causal=causal, block_q=8, block_k=8, interpret=True,
                          q_offset=q_off, k_offset=k_off)
+    atol, rtol = TOLS[dtype]
     for g, w, x in zip(got, want, arrays[:3]):
-        assert g.shape == x.shape and g.dtype == torch.float32
-        _close(g, w)
+        assert g.shape == x.shape and g.dtype == mm
+        numpy.testing.assert_allclose(
+            g.float().numpy(), numpy.asarray(w.astype(jnp.float32)),
+            atol=atol, rtol=rtol)
 
 
 #: JAX's _bwd_blockwise and flash_attention take no offsets: their causal

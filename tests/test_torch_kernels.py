@@ -21,7 +21,8 @@ bf16 ulp (at most 2^-7 relative) apart; p and ds, which both versions
 round to bf16 before their products, add far less.  The absolute 2e-3
 is about a sixth of a typical |dq| at s = 2048, small enough that a
 dropped K or Q tile is reported (``test_bwd_tolerance_reports_planted
-_faults``).
+_faults``).  The bfloat16 backward runs on the tensor cores, float32
+on the FMA body: a profile of the launches names the kernels that ran.
 """
 
 import numpy
@@ -212,10 +213,14 @@ def _bwd_operands(device, dtype, sq, sk, d, causal, q_off, strided, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, BWD_F32_TOL),
                                        (torch.bfloat16, BWD_BF16_TOL)])
-@pytest.mark.parametrize("d", [8, 64])
+# 7: rows of 14 bytes, the synchronous-load route of the bf16 body; 72
+# and 128: head dims padded to 128 inside the tensor-core body; 100: the
+# synchronous route at 128
+@pytest.mark.parametrize("d", [7, 8, 64, 72, 100, 128])
 @pytest.mark.parametrize("causal,q_off", [(True, 0), (False, 0),
                                           (True, 40)])
-@pytest.mark.parametrize("sq,sk,strided", [(77, 77, True), (13, 29, False)])
+@pytest.mark.parametrize("sq,sk,strided", [(77, 77, True), (13, 29, False),
+                                           (1000, 1000, True)])
 def test_flash_bwd_kernels_match_plain_version_on_card(
         cuda_device, launches, sq, sk, strided, causal, q_off, d, dtype,
         tol):
@@ -234,14 +239,57 @@ def test_flash_bwd_kernels_match_plain_version_on_card(
 @pytest.mark.cuda
 def test_flash_bwd_kernels_are_deterministic_on_card(cuda_device, launches):
     """No atomics: two launches give the same bits."""
-    args = _bwd_operands(cuda_device, torch.bfloat16, 300, 300, 64, True, 0,
-                         True, seed=24)
+    args = _bwd_operands(cuda_device, torch.bfloat16, 1024, 1024, 64, True,
+                         0, True, seed=24)
     first = port._flash_bwd(*args, True)
     second = port._flash_bwd(*args, True)
     torch.cuda.synchronize()
     assert launches["flash_bwd_dq"] == 2 and launches["flash_bwd_dkv"] == 2
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_unaligned_rows_on_card(cuda_device, launches):
+    """q, k, v and do 2 bytes past a 16-byte boundary, d = 64: the
+    tensor-core body fills its tiles by ordinary loads."""
+    q, k, v, o, lse, do = _bwd_operands(cuda_device, torch.bfloat16, 77,
+                                        77, 66, True, 0, False, seed=27)
+    q, k, v, do = (x[..., 1:65] for x in (q, k, v, do))
+    o, lse = port._mha_ref(q, k, v, True)
+    got = port._flash_bwd(q, k, v, o, lse, do, True)
+    want = port._bwd_ref(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert q.data_ptr() % 16 == 2
+    assert launches["flash_bwd_dq"] == 1 and launches["flash_bwd_dkv"] == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=BWD_BF16_TOL[0],
+                                   rtol=BWD_BF16_TOL[1])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_body_follows_the_dtype_on_card(cuda_device, launches):
+    """float32 launches run the FMA body and bfloat16 launches the
+    tensor-core body (``*_kernel_tc``), never the other: the kernels'
+    names as a profile of the backward records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for dtype, tag in ((torch.float32, "_kernel<"),
+                       (torch.bfloat16, "_kernel_tc<")):
+        args = _bwd_operands(cuda_device, dtype, 77, 77, 64, True, 0, True,
+                             seed=28)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            port._flash_bwd(*args, True)
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA
+                 and "flash_bwd" in ev.name]
+        assert len(names) == 2, names
+        for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert any(kernel + tag in n for n in names), names
 
 
 @pytest.mark.cuda

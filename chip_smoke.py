@@ -26,10 +26,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    inputs (delta's sign flipped, the last K tile dropped from dq, the
    last Q tile dropped from dk/dv) must each be reported.  Each kernel
    is timed at its main path's shape (bfloat16, median of 20 CUDA-event
-   timings); the backward pair's rows also give the body that ran, read
-   from the kernels' names in a profile of the pair (it must be the
-   tensor-core body), TFLOP/s and the share of the bound at that time,
-   and the device time per call (``device_ms``, as the GEMM rows below).
+   timings); the flash rows also give the body that ran, read from the
+   kernels' names in a profile (it must be the tensor-core body),
+   TFLOP/s and the share of the bound at that time, and the device time
+   per call (``device_ms``, as the GEMM rows below).  The forward is
+   timed at (1, 2048, 16, 64) and at the train step's (8, 2048, 16, 64),
+   SDPA on both measures beside it, and two faults planted in its inputs
+   (V's row 64 zeroed, q_offset off by one) must each be reported.
 4. ``serve``   — the main path at full width: ``GenerativeEngine`` over
    ``TransformerGenModel(CONFIG)`` in bfloat16 (4 slots, max_seq 2048)
    behind a ``GenerativeScheduler`` worker thread, 8 seeded requests of
@@ -51,7 +54,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    calibration_tokens=<first prompt>, tol=0.05)`` before warmup (the
    measured drift printed).  Exact budgets; ``qmatmul`` launches (set to
    0 just before the session, read just after) exactly 48 a prefill and
-   a decode step (4 a layer); every block weight int8.  A 16-step
+   a decode step (4 a layer); every block weight int8; in a profiled
+   prefill window of 4 prompts, every block product of a bucket above
+   16 rows runs the tensor-core body (``qmatmul_kernel_tc``), the
+   window's qmatmul device time printed.  A 16-step
    decode window under ``torch.profiler`` must hold at least 48 cuBLAS
    kernels a step fewer than ``serve``'s bf16 window, where each of the
    48 block products launches at least one (so none went through the
@@ -97,8 +103,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    kernel 24 times (forward and remat recompute) and each backward
    kernel 12 times (counts set to 0 just before the steps, read just
    after each).  Then one step under ``torch.profiler`` gives the device
-   time by kernel group and the busy share, and its 12 + 12 backward
-   kernels must all be the tensor-core body (``*_kernel_tc``).
+   time by kernel group and the busy share, and its 24 forward and 12 +
+   12 backward kernels must all be the tensor-core bodies
+   (``*_kernel_tc``).
 12. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
    batch 2, float32 with TF32 off: 2 steps from the same numpy params
    on the card (kernels) and on the CPU (plain versions); the losses
@@ -191,9 +198,12 @@ block shapes at M = 4 and 2048 in bf16 and M = 20 in f32, and at (5,
 200, 130) and (20, 1024, 1024) with every activation (gelu included),
 bias and no bias, f32 and bf16 (f32 within 1e-4 of max |plain|, bf16
 within 2e-2); two planted faults (shuffled scales, the last K tile
-dropped) must be reported; it is timed at the four shapes at decode (L2
-flushed) and prefill beside its bound, the plain version and
-``torch.mm`` on a dequantized bf16 copy plus the epilogue.  It holds the
+dropped) must be reported; relaunches of the tensor-core body, split
+and not, must give equal bits; it is timed at the four shapes at decode
+(L2 flushed) and at prefill (M = 2048, the row's headline; device time
+too) beside its bound, the plain version and ``torch.mm`` on a
+dequantized bf16 copy plus the epilogue, and a profile must name the
+tensor-core body at M = 2048 and the FMA body at decode.  It holds the
 reduce kernel against ``_reduce_ref`` at (4096, 4096), (37, 53), (24,
 256), (1, 5000) and (5000, 1), f32 and bf16, every op and axis, with and
 without ±inf and NaN (max and min equal, NaN where the plain version has
@@ -455,10 +465,11 @@ def _profile_summary(prof, wall_us, names_of=()):
     return summary
 
 
-def _bwd_bodies(names):
-    """Backward kernels by the body of ``csrc/flash_bwd.cu`` their
-    profiled names belong to: ``*_kernel_tc`` is the bf16 tensor-core
-    body, the rest the f32 FMA body."""
+def _bodies(names):
+    """Kernels by the body their profiled names belong to: ``*_kernel_tc``
+    is the bf16 tensor-core body (of ``csrc/flash_fwd.cu``,
+    ``csrc/flash_bwd.cu`` or ``csrc/qgemm.cu``), the rest the FMA
+    body."""
     bodies = {"tensor_core": 0, "fma": 0}
     for name, n in names.items():
         bodies["tensor_core" if "_kernel_tc<" in name else "fma"] += n
@@ -538,6 +549,89 @@ def _decode_case(rng, device, dtype, lengths, nq, row_step, slots=4,
     ref = (_verify_ref if row_step else _decode_ref)(q, k, v, lens)
     gpu_sync()
     return (q, k, v, lens), float((out.float() - ref.float()).abs().max())
+
+
+def _fwd_planted_faults(q, k, v):
+    """Two faults planted in the forward's inputs at the timed shape, each
+    of which the tolerance must report: V's row 64 (the first of the
+    second K tile) zeroed, what a misplaced row of the ring would do, and
+    q_offset off by one, each query seeing one key too many."""
+    from veles_tpu_torch.ops.attention import _flash_fwd_cuda, _mha_ref
+    want_o, want_lse = _mha_ref(q, k, v, True)
+    v_bad = v.clone()
+    v_bad[:, BWD_TILE] = 0
+    faults = {"v_row_64_zeroed": _flash_fwd_cuda(q, k, v_bad, True, 0, 0),
+              "q_offset_plus_one": _flash_fwd_cuda(q, k, v, True, 1, 0)}
+    gpu_sync()
+    out = {}
+    for name, (o, lse) in faults.items():
+        err = max(float((o.float() - want_o.float()).abs().max()),
+                  float((lse - want_lse).abs().max()))
+        out[name] = {"max_abs_err": err, "tol": BF16_TOL,
+                     "caught": err > BF16_TOL}
+    return out
+
+
+def _fwd_timed(rng, device):
+    """The forward at CONFIG's heads and the largest prefill bucket, (1,
+    2048, 16, 64), and at the ``train`` step's batch, (8, 2048, 16, 64),
+    bf16 causal on strided views of one projection: one wrapper call's
+    event time (:func:`time_ms`) and the device time per call
+    (:func:`device_ms`), TFLOP/s and the share of the bound on both
+    measures, the plain version's time, and SDPA's on both measures.  The
+    row's headline is (1, 2048, 16, 64), as the earlier rows; the body
+    that ran is read from the kernel's name in a profile; two planted
+    faults must be reported."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops.attention import _flash_fwd_cuda, _mha_ref
+    from veles_tpu_torch.samples.transformer import CONFIG
+    h, s = CONFIG["heads"], CONFIG["seq_len"]
+    d = CONFIG["dim"] // h
+    by_shape, first = [], None
+    for b in (1, TRAIN_BATCH):
+        (q, k, v), err = _flash_case(rng, device, torch.bfloat16, b, s, h,
+                                     d, True)
+        first = first or (q, k, v)
+        nbytes = 4 * b * s * h * d * 2 + b * h * s * 4   # q k v o, lse
+        ops = 4 * d * h * b * s * (s + 1) // 2           # unmasked pairs
+        bound, by = bound_seconds(nbytes, ops, "bfloat16")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def kernel(q=q, k=k, v=v):
+            return _flash_fwd_cuda(q, k, v, True, 0, 0)
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=True)
+        ms, dev = time_ms(kernel), device_ms(kernel)
+        by_shape.append({
+            "shape": [b, s, h, d], "max_abs_err": err, "ms": ms,
+            "device_ms": dev, "tflops": ops / (ms / 1e3) / 1e12,
+            "tflops_device": ops / (dev / 1e3) / 1e12,
+            "bound_share": bound * 1e3 / ms,
+            "bound_share_device": bound * 1e3 / dev,
+            "plain_ms": time_ms(lambda: _mha_ref(q, k, v, True), reps=5),
+            "library_ms": time_ms(sdpa), "library_device_ms": device_ms(sdpa),
+            "bound_ms": bound * 1e3, "bound_by": by})
+    planted = _fwd_planted_faults(*first)
+    # the call with a PyTorch kernel beside it, so the window sees the
+    # card (around ctypes launches alone the profiler saw nothing)
+    names = profile_window(
+        lambda: _flash_fwd_cuda(*first, True, 0, 0)[0].float().sum(),
+        names_of=("flash_fwd",))["kernel_names"]
+    bodies = _bodies(names)
+    row = dict(by_shape[0], name="flash_fwd", route="cuda",
+               source="veles_tpu_torch/csrc/flash_fwd.cu",
+               replaces="veles_tpu/ops/attention.py:58", dtype="bfloat16",
+               causal=True, body="+".join(b_ for b_, n_ in bodies.items()
+                                          if n_),
+               plain_of="_mha_ref", library_of="SDPA, is_causal",
+               by_shape=by_shape, train_shape=by_shape[1],
+               planted_faults=planted)
+    ok = (bodies == {"tensor_core": 1, "fma": 0}
+          and all(f["caught"] for f in planted.values())
+          and all(r["max_abs_err"] <= BF16_TOL for r in by_shape))
+    return row, ok
 
 
 def _bwd_limits(dtype):
@@ -661,7 +755,7 @@ def _bwd_timed(rng, device):
         bound, by = bound_seconds(read + out_bytes, products * product,
                                   "bfloat16")
         outputs = ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")
-        bodies = _bwd_bodies({n_: c for n_, c in names.items()
+        bodies = _bodies({n_: c for n_, c in names.items()
                               if name + "_kernel" in n_})
         body = "+".join(b_ for b_, n_ in bodies.items() if n_)
         ok = ok and bodies == {"tensor_core": 1, "fma": 0}
@@ -1371,7 +1465,7 @@ QMM_DECODE_M = 4                 # a decode step of 4 slots
 QMM_VERIFY_M = 20                # a verify step: 4 slots x 5 rows
 QMM_PREFILL_M = 2048             # the largest prefill bucket
 QMM_ACTIVATIONS = (None, "tanh", "sigmoid", "relu", "strict_relu", "gelu")
-QMM_TILE_K = 64                  # BK of csrc/qgemm.cu
+QMM_TILE_K = 64                  # BK of csrc/qgemm.cu's FMA body (decode)
 
 
 def _qmm_operands(rng, device, m, k, n, dtype, bias=True):
@@ -1414,7 +1508,7 @@ def _qgemm_cases(rng, device):
         cases.append(dict(report, kernel="qmatmul", weight=label,
                           shape=[m, k, n], dtype=str(dtype)[6:],
                           bias=has_bias, activation=activation,
-                          split=qgemm.split_k(m, n, k)))
+                          split=qgemm.split_k(m, n, k, dtype)))
 
     for m, dtype in ((QMM_DECODE_M, torch.bfloat16),
                      (QMM_PREFILL_M, torch.bfloat16),
@@ -1460,15 +1554,18 @@ def _qmm_bytes(m, k, n, dtype, has_bias):
 def _qgemm_timed(rng, device):
     """The kernel at each of a layer's four shapes, at decode (M = 4,
     bound by bytes, L2 flushed before each call) and at the largest
-    prefill bucket (M = 2048), bf16: median of 20 CUDA-event timings
-    beside the bound, the plain version and one library call (torch.mm,
-    or addmm with the bias, on a dequantized bf16 copy, then gelu where
-    the model fuses it).  The row's headline is one decode layer: the sum
-    of the four decode calls."""
+    prefill bucket (M = 2048), bf16: median of 20 CUDA-event timings of
+    one wrapper call beside the bound, the plain version and one library
+    call (torch.mm, or addmm with the bias, on a dequantized bf16 copy,
+    then gelu where the model fuses it); at M = 2048 also the device time
+    per call (:func:`device_ms`).  The row's headline is one prefill
+    layer, the sum of the four M = 2048 calls; one decode layer, the sum
+    of the four decode calls, stands beside it.  The body each shape ran
+    is read from the kernels' names in a profile."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops import qgemm
     flush = make_l2_flush(device)
-    by_shape = []
+    by_shape, calls = [], []
     for m in (QMM_DECODE_M, QMM_PREFILL_M):
         for label, k, n, has_bias, activation in QMM_LAYER:
             dtype = torch.bfloat16
@@ -1484,35 +1581,72 @@ def _qgemm_timed(rng, device):
                     else torch.mm(a, wd)
                 return F.gelu(out, approximate="tanh") \
                     if activation == "gelu" else out
+
+            def kernel(a=a, q=q, scale=scale, b=b, activation=activation):
+                return qgemm._qmatmul_cuda(a, q, scale, b, activation,
+                                           dtype)
+            calls.append(kernel)
             nbytes = _qmm_bytes(m, k, n, dtype, has_bias)
             bound, by = bound_seconds(nbytes, 2 * m * k * n, "bfloat16")
             cold = flush if by == "bytes" else None
-            by_shape.append({
+            entry = {
                 "weight": label, "shape": [m, k, n], "dtype": "bfloat16",
                 "bias": has_bias, "activation": activation,
-                "split": qgemm.split_k(m, n, k),
-                "ms": time_ms(lambda: qgemm._qmatmul_cuda(
-                    a, q, scale, b, activation, dtype), flush=cold),
+                "split": qgemm.split_k(m, n, k, dtype),
+                "ms": time_ms(kernel, flush=cold),
                 "plain_ms": time_ms(lambda: qgemm._qmatmul_ref(
                     a, q, scale, b, activation), flush=cold),
                 "library_ms": time_ms(library, flush=cold),
                 "bound_ms": bound * 1e3, "bound_by": by,
-                "max_abs_err": err})
+                "max_abs_err": err}
+            if m == QMM_PREFILL_M:
+                entry["device_ms"] = device_ms(kernel)
+                entry["tflops_device"] = 2 * m * k * n / entry[
+                    "device_ms"] / 1e9
+                entry["library_device_ms"] = device_ms(library)
+            by_shape.append(entry)
     gpu_sync()
-    decode = [s for s in by_shape if s["shape"][0] == QMM_DECODE_M]
-    row = {"name": "qmatmul", "route": "cuda",
-           "source": "veles_tpu_torch/csrc/qgemm.cu",
-           "replaces": "veles_tpu/ops/qgemm.py:57",
-           "dtype": "bfloat16", "shape": "one decode layer: the 4 calls "
-           "at M=%d (wqkv, wo, w1, w2)" % QMM_DECODE_M,
-           "plain_of": "_qmatmul_ref",
-           "library_of": "torch.mm / addmm on a dequantized bf16 copy, "
-           "then the epilogue", "by_shape": by_shape,
-           "bound_by": "bytes",
-           "max_abs_err": max(s["max_abs_err"] for s in decode)}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        row[key] = sum(s[key] for s in decode)
-    return row
+    # one call of each layer's shapes at decode and at prefill, beside a
+    # PyTorch kernel so the window sees the card
+    names = profile_window(
+        lambda: [fn().float().sum() for fn in calls],
+        names_of=("qmatmul",))["kernel_names"]
+    decode_names = {n_: c for n_, c in names.items() if "_kernel<16" in n_}
+    bodies = {"decode": _bodies(decode_names),
+              "prefill": _bodies({n_: c for n_, c in names.items()
+                                  if n_ not in decode_names})}
+    # this window has seen only 1 of the 4 decode launches (the serving
+    # windows see every one), so a body counts as named when the profile
+    # saw it at least once and saw no other body
+    named = {"decode": bodies["decode"]["fma"] > 0
+             and not bodies["decode"]["tensor_core"],
+             "prefill": bodies["prefill"]["tensor_core"] > 0
+             and not bodies["prefill"]["fma"]}
+
+    def layer(m):
+        calls_m = [e for e in by_shape if e["shape"][0] == m]
+        out = {key: sum(e[key] for e in calls_m)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+               + (("device_ms", "library_device_ms")
+                  if m == QMM_PREFILL_M else ())}
+        out["max_abs_err"] = max(e["max_abs_err"] for e in calls_m)
+        return out
+    prefill = layer(QMM_PREFILL_M)
+    row = dict(prefill, name="qmatmul", route="cuda",
+               source="veles_tpu_torch/csrc/qgemm.cu",
+               replaces="veles_tpu/ops/qgemm.py:57", dtype="bfloat16",
+               shape="one prefill layer: the 4 calls at M=%d (wqkv, wo, "
+               "w1, w2)" % QMM_PREFILL_M, bound_by="operations",
+               body="tensor_core" if named["prefill"]
+               else "not the tensor cores",
+               decode_layer=dict(layer(QMM_DECODE_M), bound_by="bytes",
+                                 shape="the 4 calls at M=%d"
+                                 % QMM_DECODE_M, body="fma"
+                                 if named["decode"] else "not the FMA body"),
+               plain_of="_qmatmul_ref",
+               library_of="torch.mm / addmm on a dequantized bf16 copy, "
+               "then the epilogue", by_shape=by_shape)
+    return row, bodies, all(named.values())
 
 
 def _qgemm_kernels(device):
@@ -1525,12 +1659,19 @@ def _qgemm_kernels(device):
                                    torch.bfloat16)
     repeatable = torch.equal(qgemm.qmatmul(a, q, scale, b),
                              qgemm.qmatmul(a, q, scale, b))
+    # the tensor-core body, unsplit and split
+    for m, n in ((QMM_PREFILL_M, 4096), (256, 1024)):
+        a, q, scale, b = _qmm_operands(rng, device, m, 1024, n,
+                                       torch.bfloat16)
+        repeatable = repeatable and torch.equal(
+            qgemm.qmatmul(a, q, scale, b, "gelu"),
+            qgemm.qmatmul(a, q, scale, b, "gelu"))
     planted = _qgemm_planted_faults(rng, device)
-    row = _qgemm_timed(rng, device)
+    row, bodies, named = _qgemm_timed(rng, device)
     ok = (all(c["ok"] for c in cases) and repeatable
-          and all(f["caught"] for f in planted.values()))
+          and all(f["caught"] for f in planted.values()) and named)
     return {"cases": cases, "bit_equal_relaunch": repeatable,
-            "planted_faults": planted}, [row], ok
+            "planted_faults": planted, "bodies": bodies}, [row], ok
 
 
 # -- the reduction (csrc/reduce.cu) ------------------------------------------
@@ -1763,8 +1904,7 @@ def _uniform_kernels(device):
 
 def phase_kernels(device):
     from veles_tpu_torch.backends import bound_seconds
-    from veles_tpu_torch.ops.attention import (_decode_cuda, _decode_ref,
-                                               _flash_fwd_cuda, _mha_ref)
+    from veles_tpu_torch.ops.attention import _decode_cuda, _decode_ref
     rng = numpy.random.default_rng(SEED)
     cases = []
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -1808,29 +1948,12 @@ def phase_kernels(device):
     bad = [c for c in cases
            if not c.get("ok", c["max_abs_err"] <= c["tol"])]
 
-    # times at the main path's shapes: the largest prefill bucket, and a
-    # decode step of 4 slots against the 2048-row cache, both bfloat16
+    # times at the main path's shapes: the forward at the largest prefill
+    # bucket and the train step's batch, and a decode step of 4 slots
+    # against the 2048-row cache, all bfloat16
     flush = make_l2_flush(device)
-    (q, k, v), ferr = _flash_case(rng, device, torch.bfloat16,
-                                  1, 2048, 16, 64, True)
-    s, h, d = 2048, 16, 64
-    elem = 2
-    f_bytes = 4 * s * h * d * elem + h * s * 4     # q k v o, lse
-    f_ops = 4 * d * h * s * (s + 1) // 2           # unmasked pairs only
-    f_bound, f_by = bound_seconds(f_bytes, f_ops, "bfloat16")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    flash = {
-        "name": "flash_fwd", "route": "cuda",
-        "source": "veles_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "veles_tpu/ops/attention.py:58",
-        "shape": [1, s, h, d], "dtype": "bfloat16", "causal": True,
-        "max_abs_err": ferr,
-        "ms": time_ms(lambda: _flash_fwd_cuda(q, k, v, True, 0, 0)),
-        "plain_ms": time_ms(lambda: _mha_ref(q, k, v, True)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-        "bound_ms": f_bound * 1e3, "bound_by": f_by,
-    }
+    flash, flash_ok = _fwd_timed(rng, device)
+    h, d, elem = 16, 64, 2
     lengths = [1, 17, 1000, 2048]
     (q, k, v, lens), derr = _decode_case(rng, device, torch.bfloat16,
                                          lengths, 1, 0)
@@ -1864,7 +1987,7 @@ def phase_kernels(device):
     uniform_report, uniform_rows, uniform_ok = _uniform_kernels(device)
     timed = ([flash] + bwd_rows + [decode] + paged_rows + gemm_rows
              + gather_rows + qgemm_rows + reduce_rows + uniform_rows)
-    ok = (not bad and ferr <= BF16_TOL and derr <= BF16_TOL and bwd_ok
+    ok = (not bad and flash_ok and derr <= BF16_TOL and bwd_ok
           and gemm_ok and gather_ok and paged_ok and qgemm_ok and reduce_ok
           and uniform_ok)
     emit({"phase": "kernels", "ok": ok, "cases": cases,
@@ -1885,7 +2008,8 @@ def phase_kernels(device):
                   gather_report["planted_faults"],
                   paged_report["mirror"],
                   paged_report["garbage_and_planted_faults"],
-                  qgemm_report["planted_faults"],
+                  flash["planted_faults"], flash["body"],
+                  qgemm_report["planted_faults"], qgemm_report["bodies"],
                   reduce_report["planted_faults"],
                   qgemm_report["bit_equal_relaunch"],
                   reduce_report["bit_equal_relaunch"], uniform_rows]))
@@ -1990,15 +2114,17 @@ def serve_workload(vocab):
                      for n in lengths]
 
 
-def profile_breakdown(engine, workload, decode_steps=16):
+def profile_breakdown(engine, workload, decode_steps=16, names_of=()):
     """Where a serving step's time goes, after the counted session: one
     profiled window that fills every slot (one prefill each, through
-    the engine's own entry point) and one of ``decode_steps`` decode
-    steps over the full batch."""
+    the engine's own entry point; the kernels of the groups ``names_of``
+    counted by name) and one of ``decode_steps`` decode steps over the
+    full batch."""
     prompts = workload[:engine.max_slots]
     slots = []
     prefill = profile_window(
-        lambda: slots.extend(engine.prefill(p)[0] for p in prompts))
+        lambda: slots.extend(engine.prefill(p)[0] for p in prompts),
+        names_of)
     prefill["buckets"] = [engine.bucket_for(len(p)) for p in prompts]
     decode = profile_window(
         lambda: [engine.decode_step() for _ in range(decode_steps)])
@@ -2142,8 +2268,23 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
                for a, b in zip(got, want))
     layers = CONFIG["layers"]
     want_qmm = QMM_PER_LAYER * layers * (prefills + steps)
-    breakdown = profile_breakdown(engine, workload)
+    breakdown = profile_breakdown(engine, workload, names_of=("qmatmul",))
     window = breakdown["decode_window"]
+    # the prefill window: each layer's 4 block products of a bucket above
+    # 16 rows on the tensor-core body, of a 16-row bucket on the FMA body
+    prefill_window = breakdown["prefill_window"]
+    above = sum(bucket > 16 for bucket in prefill_window["buckets"])
+    want_prefill_bodies = {
+        "tensor_core": QMM_PER_LAYER * layers * above,
+        "fma": QMM_PER_LAYER * layers * (len(prefill_window["buckets"])
+                                         - above)}
+    prefill_bodies = _bodies(prefill_window["kernel_names"])
+    # the profiler may miss launches (see _qgemm_timed): the tensor-core
+    # body must be named, and the FMA body only when a bucket of 16 rows
+    # was filled
+    on_tensor_cores = (prefill_bodies["tensor_core"] > 0
+                       and (prefill_bodies["fma"] == 0
+                            or want_prefill_bodies["fma"] > 0))
     blas_per_step = window["kernels_by_group"].get("matmul", 0) / float(
         window["steps"])
     qmm_ms = window["device_ms_by_group"].get("qmatmul", 0.0)
@@ -2174,6 +2315,16 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
         "decode_step_qmatmul_bound_ms": step_bound * 1e3,
         "decode_window_qmatmul_ms_per_step": qmm_ms / window["steps"],
         "decode_window_cublas_kernels_per_step": blas_per_step,
+        "prefill_window_buckets": prefill_window["buckets"],
+        "prefill_window_qmatmul_ms": prefill_window[
+            "device_ms_by_group"].get("qmatmul", 0.0),
+        "prefill_window_busy_ms": prefill_window["device_busy_ms"],
+        "prefill_window_wall_ms": prefill_window["wall_ms"],
+        "prefill_window_qmatmul_bodies": prefill_bodies,
+        "prefill_window_qmatmul_bodies_launched": want_prefill_bodies,
+        "decode_window_qmatmul_kernels_seen": window[
+            "kernels_by_group"].get("qmatmul", 0),
+        "decode_window_qmatmul_launches": qmm_launches,
         "bf16_decode_window_cublas_kernels_per_step": bf16_blas_per_step,
         "max_memory_allocated": torch.cuda.max_memory_allocated(device),
         "quantize_s": quantize_s, "warmup_s": warmup_s,
@@ -2185,7 +2336,8 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
     no_library = (bf16_blas_per_step - blas_per_step
                   >= QMM_PER_LAYER * layers)
     all_int8 = set(int8_blocks.values()) == {"int8"}
-    info["ok"] = budgets_ok and counted and no_library and all_int8
+    info["ok"] = (budgets_ok and counted and no_library and all_int8
+                  and on_tensor_cores)
     emit(info)
     engine.close()
     check(budgets_ok, "serve_int8", "a request did not get exactly %d "
@@ -2197,6 +2349,9 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
           "against %g for the bf16 twin: a block product went through "
           "the library" % (blas_per_step, bf16_blas_per_step))
     check(all_int8, "serve_int8", "block weights not int8: %s" % int8_blocks)
+    check(on_tensor_cores, "serve_int8", "the prefill window's qmatmul "
+          "kernels by body %s, want %s" % (prefill_bodies,
+                                           want_prefill_bodies))
     return launches
 
 
@@ -2733,19 +2888,26 @@ def phase_train(device, smi):
     }
     info["breakdown"] = profile_window(
         lambda: step(params, velocity, tokens),
-        names_of=("flash_bwd_dq", "flash_bwd_dkv"))
-    # every backward kernel of the profiled step is the tensor-core body
-    want_bodies = {"tensor_core": 2 * cfg["layers"], "fma": 0}
-    bodies = _bwd_bodies(info["breakdown"]["kernel_names"])
+        names_of=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    # every attention kernel of the profiled step is the tensor-core body:
+    # 24 forward (forward and remat recompute), 12 + 12 backward
+    names = info["breakdown"]["kernel_names"]
+    want_bodies = {"fwd": {"tensor_core": 2 * cfg["layers"], "fma": 0},
+                   "bwd": {"tensor_core": 2 * cfg["layers"], "fma": 0}}
+    bodies = {"fwd": _bodies({n_: c for n_, c in names.items()
+                              if "flash_fwd_kernel" in n_}),
+              "bwd": _bodies({n_: c for n_, c in names.items()
+                              if "flash_bwd_" in n_})}
     on_tensor_cores = bodies == want_bodies
-    info.update(bwd_bodies=bodies, bwd_bodies_expected=want_bodies,
+    info.update(attention_bodies=bodies,
+                attention_bodies_expected=want_bodies,
                 ok=finite and counted and on_tensor_cores)
     emit(info)
     check(finite, "train", "a loss is not finite: %s" % losses)
     check(counted, "train", "the kernels were not on the main path as "
           "expected: %s per step, want %s" % (per_step, want))
-    check(on_tensor_cores, "train", "a profiled step's backward kernels "
-          "were not all the tensor-core body: %s, want %s"
+    check(on_tensor_cores, "train", "a profiled step's attention kernels "
+          "were not all the tensor-core bodies: %s, want %s"
           % (bodies, want_bodies))
     return launches
 
@@ -3387,11 +3549,14 @@ def main():
             "bound_ms", "bound_by", "library_ms")
     # the GEMM kernels also carry wrapper_ms, the time of one wrapper
     # call; the paged kernel the contiguous kernel's time on the mirrored
-    # cache and its verify (5 rows) times; the backward pair its body,
-    # rate, share of its bound and device time per call
+    # cache and its verify (5 rows) times; the flash kernels their body,
+    # rate, share of their bound, device time per call (the forward also
+    # SDPA's, and its numbers at the train step's batch); qmatmul its
+    # prefill layer's device times and its decode layer
     extra = ("wrapper_ms", "contiguous_ms", "verify_ms",
              "verify_contiguous_ms", "verify_plain_ms", "verify_bound_ms",
-             "body", "tflops", "bound_share", "device_ms")
+             "body", "tflops", "bound_share", "device_ms",
+             "library_device_ms", "train_shape", "decode_layer")
     emit({"kernels": [{key: entry[key] for key in keys + extra
                        if key in keys or key in entry}
                       for entry in timed]})

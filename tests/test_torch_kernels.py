@@ -21,8 +21,10 @@ bf16 ulp (at most 2^-7 relative) apart; p and ds, which both versions
 round to bf16 before their products, add far less.  The absolute 2e-3
 is about a sixth of a typical |dq| at s = 2048, small enough that a
 dropped K or Q tile is reported (``test_bwd_tolerance_reports_planted
-_faults``).  The bfloat16 backward runs on the tensor cores, float32
-on the FMA body: a profile of the launches names the kernels that ran.
+_faults``).  In bfloat16 the flash forward, the flash backward and
+qmatmul at M > 16 run on the tensor cores, in float32 (and qmatmul at
+M <= 16) the FMA bodies: a profile of the launches names the kernels
+that ran.
 """
 
 import numpy
@@ -169,6 +171,124 @@ def test_flash_kernel_matches_plain_version_on_card(
     assert o.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=0)
+
+
+def _fwd_operands(device, b, sq, sk, h, d, seed, strided=False,
+                  pad=0):
+    """bf16 q, k, v on the card, V from U(-1, 1).  ``strided``: views of
+    one (b, s, 3, h, d) projection, as prefill and training make them;
+    ``pad``: columns [pad, pad + d) of rows d + 2 pad wide, so every row
+    starts 2 pad bytes past a 16-byte boundary."""
+    rng = numpy.random.default_rng(seed)
+    width = d + 2 * pad
+    if strided:
+        x = rng.standard_normal((b, sq, 3, h, width)).astype(numpy.float32)
+        x[:, :, 2] = rng.uniform(-1.0, 1.0, x[:, :, 2].shape)
+        qkv = torch.from_numpy(x).to(device, torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = (torch.from_numpy(a).to(device, torch.bfloat16) for a in
+                   _arrays([(b, sq, h, width), (b, sk, h, width),
+                            (b, sk, h, width)], seed, uniform_last=True))
+    return tuple(x[..., pad:pad + d] for x in (q, k, v))
+
+
+def _fwd_agrees(q, k, v, causal, q_off=0, k_off=0):
+    o, lse = port._flash_fwd(q, k, v, causal, q_off, k_off)
+    ref_o, ref_lse = port._mha_ref(q, k, v, causal, q_off, k_off)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == ref_lse.shape
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=BF16_TOL,
+                               rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=BF16_TOL, rtol=0)
+    return o, lse
+
+
+@pytest.mark.cuda
+# 7 and 100: rows not a whole number of 16-byte chunks, the ordinary-load
+# route; 16 and 100 are zero-padded to 32 and 128
+@pytest.mark.parametrize("d", [7, 16, 32, 64, 100, 128])
+@pytest.mark.parametrize("s", [1, 7, 64, 65, 300, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_tensor_core_body_matches_plain_version_on_card(
+        cuda_device, launches, causal, s, d):
+    q, k, v = _fwd_operands(cuda_device, 1, s, s, 2, d, seed=s + d)
+    _fwd_agrees(q, k, v, causal)
+    assert launches["flash_fwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_tensor_core_body_on_a_chunk_on_card(cuda_device,
+                                                        launches, causal):
+    """A prefill chunk: 256 queries at q_offset 512 against 768 keys."""
+    q, _k, _v = _fwd_operands(cuda_device, 2, 256, 256, 3, 64, seed=31)
+    _q, k, v = _fwd_operands(cuda_device, 2, 768, 768, 3, 64, seed=32)
+    _fwd_agrees(q, k, v, causal, q_off=512)
+    assert launches["flash_fwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("causal,q_off", [(True, 0), (False, 0),
+                                          (True, 40)])
+def test_flash_fwd_tensor_core_body_on_strided_views_on_card(
+        cuda_device, launches, causal, q_off, pad):
+    """Strided views of one projection (cp.async tiles); with ``pad`` the
+    rows start 2 bytes past 16 (ordinary loads into the same tiles)."""
+    q, k, v = _fwd_operands(cuda_device, 2, 300, 300, 3, 64, seed=33,
+                            strided=True, pad=pad)
+    assert (q.data_ptr() % 16 == 2) == bool(pad)
+    _fwd_agrees(q, k, v, causal, q_off=q_off)
+    assert launches["flash_fwd"] == 1
+
+
+@pytest.mark.cuda
+def test_flash_fwd_tensor_core_body_at_the_training_shape_on_card(
+        cuda_device, launches):
+    """(8, 2048, 16, 64) causal, strided views: the ``train`` step's."""
+    q, k, v = _fwd_operands(cuda_device, 8, 2048, 2048, 16, 64, seed=34,
+                            strided=True)
+    first = _fwd_agrees(q, k, v, True)
+    again = port._flash_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    assert launches["flash_fwd"] == 2
+    # no atomics, a fixed order: a relaunch gives the same bits
+    assert torch.equal(first[0], again[0])
+    assert torch.equal(first[1], again[1])
+
+
+def _profiled_kernel_names(fn, tag=""):
+    """The names of the CUDA kernels holding ``tag`` that a profile of
+    ``fn`` records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA and tag in ev.name]
+
+
+@pytest.mark.cuda
+def test_flash_fwd_body_follows_the_dtype_on_card(cuda_device, launches):
+    """float32 runs the FMA body (``flash_fwd_kernel<``) and bfloat16 the
+    tensor-core body (``flash_fwd_kernel_tc<``), never the other: the
+    kernels' names as a profile records them (beside a PyTorch kernel,
+    around which the profiler sees the card)."""
+    for dtype, tag in ((torch.float32, "flash_fwd_kernel<"),
+                       (torch.bfloat16, "flash_fwd_kernel_tc<")):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in
+                   _arrays([(2, 77, 3, 64)] * 3, seed=35, uniform_last=True))
+
+        def run():
+            o, _lse = port._flash_fwd(q, k, v, True)
+            return o.float().sum()
+        names = _profiled_kernel_names(run, "flash_fwd")
+        assert len(names) == 1 and tag in names[0], names
 
 
 @pytest.mark.cuda
@@ -798,7 +918,10 @@ def test_stitched_segment_recaptures_when_a_read_tensor_moves_on_card(
 
 QMM_CASES = [(4, 1024, 3072, torch.bfloat16), (20, 1024, 4096, torch.bfloat16),
              (4, 4096, 1024, torch.float32), (5, 200, 130, torch.float32),
-             (300, 256, 192, torch.float32)]
+             (300, 256, 192, torch.float32)] + [
+    # the tensor-core body (bf16 at M > 16): ragged M, K and N, rows of a
+    # 200 bytes long (ordinary loads), one column or a ragged 100 of q
+    (m, 100, n, torch.bfloat16) for m in (17, 33, 100, 2048) for n in (1, 100)]
 QMM_ACTIVATIONS = [None, "tanh", "sigmoid", "relu", "strict_relu", "gelu"]
 
 
@@ -836,6 +959,97 @@ def test_qmatmul_kernel_matches_plain_version_on_card(
     tol = F32_TOL * float(want.float().abs().max()) \
         if dtype == torch.float32 else BF16_TOL
     assert err <= tol, (err, tol)
+
+
+def _qmm_variant(a, q, bias, variant):
+    """The operands of one layout variant of the tensor-core body: a as
+    columns of wider rows (lda > K: 16-byte aligned, or 2 bytes off),
+    bias in f32 or none, q 1 byte past a 16-byte boundary."""
+    m, k = a.shape
+    if variant in ("lda", "lda_unaligned"):
+        off = 1 if variant == "lda_unaligned" else 0
+        lda = -(-k // 8) * 8 + 16           # a whole number of chunks
+        wide = torch.zeros((m, lda), dtype=a.dtype, device=a.device)
+        wide[:, off:off + k] = a
+        a = wide[:, off:off + k]
+    if variant == "bias_f32":
+        bias = bias.float()
+    if variant == "no_bias":
+        bias = None
+    if variant == "q_unaligned":
+        flat = torch.zeros(q.numel() + 1, dtype=torch.int8, device=q.device)
+        flat[1:] = q.reshape(-1)
+        q = flat[1:].view(q.shape)
+    return a, q, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", QMM_ACTIVATIONS)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant", ["lda", "lda_unaligned", "bias_f32",
+                                     "no_bias", "q_unaligned"])
+@pytest.mark.parametrize("m,k,n", [(33, 1024, 1024), (2048, 100, 100),
+                                   (2048, 1024, 1024)])
+def test_qmatmul_tensor_core_body_layouts_on_card(
+        cuda_device, m, k, n, variant, out_dtype, activation):
+    """The tensor-core body over every layout it takes: cp.async or
+    ordinary loads of a and of q, bias f32, bf16 or none, f32 or bf16
+    output, with and without a split K."""
+    from veles_tpu_torch.ops import qgemm
+    a, q, scale, bias = _qmm_operands(cuda_device, m, k, n, torch.bfloat16,
+                                      44)
+    a, q, bias = _qmm_variant(a, q, bias, variant)
+    assert (a.data_ptr() % 16 == 2) == (variant == "lda_unaligned")
+    assert (q.data_ptr() % 16 == 1) == (variant == "q_unaligned")
+    qgemm.reset_launches()
+    got = qgemm.qmatmul(a, q, scale, bias, activation, out_dtype)
+    want = qgemm._qmatmul_ref(a, q, scale, bias, activation, out_dtype)
+    torch.cuda.synchronize()
+    assert qgemm.launches["qmatmul"] == 1 and got.dtype == out_dtype
+    err = float((got.float() - want.float()).abs().max())
+    tol = F32_TOL * float(want.float().abs().max()) \
+        if out_dtype == torch.float32 else BF16_TOL
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2048, 1024, 1024), (2048, 1024, 4096),
+                                   (256, 1024, 1024)])
+def test_qmatmul_tensor_core_body_relaunch_is_bit_equal_on_card(
+        cuda_device, m, k, n):
+    """No atomics and a fixed order, split or not: a relaunch gives the
+    same bits."""
+    from veles_tpu_torch.ops import qgemm
+    a, q, scale, bias = _qmm_operands(cuda_device, m, k, n, torch.bfloat16,
+                                      45)
+    first = qgemm.qmatmul(a, q, scale, bias, "gelu")
+    again = qgemm.qmatmul(a, q, scale, bias, "gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_qmatmul_body_follows_the_dtype_and_m_on_card(cuda_device):
+    """bf16 at M > 16 runs the tensor-core body (``qmatmul_kernel_tc<``);
+    bf16 at M <= 16 and f32 at any M the FMA body (``qmatmul_kernel<``):
+    the kernels' names as a profile records them.  A profile of one such
+    launch has seen none of it, so each shape runs 4 times in the
+    window; at least one must be seen, and every one seen must be the
+    body's."""
+    from veles_tpu_torch.ops import qgemm
+    for m, dtype, tag in ((4, torch.bfloat16, "qmatmul_kernel<16, true>"),
+                          (16, torch.bfloat16, "qmatmul_kernel<16, true>"),
+                          (20, torch.float32, "qmatmul_kernel<64, false>"),
+                          (17, torch.bfloat16, "qmatmul_kernel_tc<"),
+                          (2048, torch.bfloat16, "qmatmul_kernel_tc<")):
+        a, q, scale, bias = _qmm_operands(cuda_device, m, 256, 192, dtype, 46)
+
+        def run():
+            return [qgemm.qmatmul(a, q, scale, bias).float().sum()
+                    for _ in range(4)]
+        names = _profiled_kernel_names(run)
+        ours = [n for n in names if "qmatmul_kernel" in n]
+        assert ours and all(tag in n for n in ours), (m, dtype, names)
 
 
 @pytest.mark.cuda

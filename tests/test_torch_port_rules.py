@@ -227,6 +227,46 @@ def test_library_name_follows_the_source_hash(tmp_path, monkeypatch):
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
 
 
+def test_editing_a_header_changes_every_library_path(tmp_path, monkeypatch):
+    """A source may include any header of csrc/ (mma.cuh, the tensor-core
+    building blocks), so an edited header must not load a library built
+    from the old one: every library's name follows every header."""
+    from veles_tpu_torch.ops import build
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    for name in ("a", "b"):
+        (tmp_path / (name + ".cu")).write_text('#include "mma.cuh"\n')
+    (tmp_path / "mma.cuh").write_text("// one\n")
+    first = {name: build.library_path(name) for name in ("a", "b")}
+    assert first["a"] != first["b"]
+    (tmp_path / "mma.cuh").write_text("// two\n")
+    assert all(build.library_path(name) != path
+               for name, path in first.items())
+    (tmp_path / "mma.cuh").write_text("// one\n")
+    assert {name: build.library_path(name) for name in ("a", "b")} == first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert all(build.library_path(name) != path
+               for name, path in first.items())
+
+
+def test_tensor_core_sources_share_one_header():
+    """The three tensor-core sources include csrc/mma.cuh, and none keeps
+    its own copy of a helper the header defines."""
+    import re
+    from veles_tpu_torch.ops import build
+    helpers = ("smem_addr", "swz", "cp_async16", "cp_async4",
+               "cp_async_commit", "cp_async_wait", "ldsm_x4",
+               "ldsm_x4_trans", "mma_bf16", "pack_bf16", "load_tile_tc")
+
+    def defined(text):
+        return set(re.findall(r"__forceinline__\s+\w+\s+(\w+)\s*\(", text))
+
+    assert set(helpers) <= defined((build.CSRC_DIR / "mma.cuh").read_text())
+    for name in ("flash_fwd", "flash_bwd", "qgemm"):
+        source = (build.CSRC_DIR / (name + ".cu")).read_text()
+        assert '#include "mma.cuh"' in source, name
+        assert not defined(source) & set(helpers), name
+
+
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
     from veles_tpu_torch.ops import build
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -194,6 +194,39 @@ def test_split_k_covers_the_card_and_keeps_a_tile_per_split():
     assert qgemm.split_k(4, 64, 64) == 1            # one K tile
 
 
+@pytest.mark.parametrize("m,k,n,split", [
+    (2048, 1024, 3072, 1),      # 384 tensor-core tiles: no split
+    (2048, 1024, 4096, 1),      # 512 tiles
+    (2048, 1024, 1024, 2),      # 128 tiles: doubled once, to 256
+    (2048, 4096, 1024, 2),
+    (256, 1024, 3072, 4),       # 48 tiles
+    (256, 1024, 1024, 8),       # 16 tiles
+    (32, 4096, 1024, 8),        # 8 tiles
+    (17, 100, 100, 4),          # 4 K tiles of 32: one a split
+    (2048, 100, 1, 4),
+    (17, 32, 100, 1),           # one K tile
+])
+def test_split_k_of_the_tensor_core_body(m, k, n, split):
+    """bf16 at M > 16 runs the tensor-core body: 128 x 128 tiles, K in
+    steps of 32, and the split doubles while the grid covers the SMs
+    less than once."""
+    assert qgemm.tile(m, torch.bfloat16) == qgemm.TC_TILE == (128, 128, 32)
+    assert qgemm.split_k(m, n, k, torch.bfloat16) == split
+
+
+@pytest.mark.parametrize("m,dtype,tile", [
+    (4, torch.bfloat16, (16, 64, 64)), (16, torch.bfloat16, (16, 64, 64)),
+    (16, torch.float32, (16, 64, 64)), (17, torch.float32, (64, 64, 64)),
+    (2048, torch.float32, (64, 64, 64)), (17, torch.bfloat16, (128, 128, 32)),
+])
+def test_qmatmul_body_tile_follows_dtype_and_m(m, dtype, tile):
+    """The FMA body at M <= 16 (decode) and for f32, the tensor-core body
+    for bf16 at M > 16; the f32 default keeps the FMA body's splits."""
+    assert qgemm.tile(m, dtype) == tile
+    assert qgemm.split_k(m, 1024, 1024) == qgemm.split_k(m, 1024, 1024,
+                                                         torch.float32)
+
+
 # -- All2All with a quantized leaf --------------------------------------------
 
 @pytest.mark.parametrize("name,activation", [

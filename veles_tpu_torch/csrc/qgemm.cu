@@ -8,47 +8,65 @@
 // Activations: linear, the Znicz scaled tanh tanh(x*0.6666)*1.7159,
 // sigmoid, smooth relu log1p(exp(min(x, 30))), strict relu, and gelu in
 // its tanh form (jax.nn.gelu's default), which the transformer MLP's
-// up-projection fuses with its bias.
+// up-projection fuses with its bias.  Every body widens q exactly (|q| <=
+// 127 fits the mantissa of bf16 and f32), sums in f32, applies the
+// per-output-channel scale once after the K loop (dot-then-scale, as the
+// Pallas epilogue), then the bias and the activation, all in f32, and
+// casts to the output dtype.  Ragged M, K and N edges are masked or
+// zero-filled in the kernel, not padded.
 //
-// Design.  A block computes a BM x 64 tile of the output (BM = 16 for
-// M <= 16, the decode shape; 64 otherwise), looping over K in steps of 64:
-// the Pallas kernel's carried K grid axis becomes this loop.  Each step
-// stages a BM x 64 tile of a and a 64 x 64 tile of q in shared memory: q
-// is read from device memory as int8 (16 bytes a thread, a quarter of the
-// bf16 bytes) and widened to f32 as it is stored, which is exact (|q| <=
-// 127); the next step's tiles are loaded into registers while this one's
-// products run.  Each of the 256 threads owns BM/16 x 4 outputs and
-// accumulates f32 FMA products on the CUDA cores, at every precision
-// level.  Ragged M, K and N edges are masked in the kernel, not padded.
-// After the loop the per-output-channel scale is applied once
-// (dot-then-scale, as the Pallas epilogue), then the bias and the
-// activation, all in f32, and the result is cast to the output dtype.
+// Two bodies, chosen by the activation dtype and M (`veles_qmatmul`):
 //
-// Split K over a cluster.  At decode (M = 4) the grid has N / 64 tiles,
-// 16 for N = 1024, far fewer than the 132 SMs that must pull the weights
+// * bfloat16 at M > 16 (prefill): the tensor-core body
+//   (`qmatmul_kernel_tc<A_ASYNC, Q_ASYNC>`).  What bounds it on the H100:
+//   the products.  At the largest prefill bucket (M = 2048) a layer's four
+//   calls do 2 M K N = 51.5 GFLOP against 80 MB moved: 0.052 ms at 989
+//   TFLOP/s against 0.024 ms for the bytes at 3.35 TB/s (w1 alone: 0.0174
+//   against 0.0075).  So the products are bf16 `mma.sync.m16n8k16` with
+//   f32 sums (mma.cuh).  A block of 8 warps computes a 128 x 128 output tile, each
+//   warp 64 x 32 of it, over K in steps of 32.  Each step's a tile (128 x
+//   32 bf16) and q tile (32 x 128, still int8: a quarter of bf16's bytes,
+//   as the TPU kernel DMAs it) stream through a 4-stage ring filled by
+//   `cp.async` (16 bytes a thread, zero-filled past M, K and N), so three
+//   steps load while one computes.  Each thread widens the 16 q bytes it
+//   copied into a swizzled bf16 tile, one step ahead of the products and
+//   double-buffered, so one barrier a step orders the ring, the widening
+//   and the products.  The A fragments are read with `ldmatrix` from the
+//   swizzled a tile, the B fragments with `ldmatrix.trans` from the (K, N)
+//   widened tile.  Rows of a that are not 16-byte aligned (a or lda), and
+//   q with N % 16 != 0 or an unaligned base, fill the same tiles with
+//   ordinary loads (A_ASYNC or Q_ASYNC false).  64 KB of shared memory and
+//   at most 128 registers a thread hold 2 blocks an SM.
+// * float32 at any M, and bfloat16 at M <= 16 (decode; verify rows): the
+//   first version's body (`qmatmul_kernel<BM, A_BF16>`).  A block computes
+//   a BM x 64 tile (BM = 16 for M <= 16, else 64), looping over K in steps
+//   of 64: q is read as int8 (16 bytes a thread) and widened to f32 in
+//   shared memory, a in its own type; the next step's tiles are loaded
+//   into registers while this one's f32 FMA products run on the CUDA
+//   cores.  What bounds it at decode: the bytes.  CONFIG's block weights
+//   (K x N = 1024 x 3072, 1024 x 1024, 1024 x 4096, 4096 x 1024) are
+//   12 582 912 int8 bytes a layer; the FLOPs at M = 4 (101 MFLOP a layer)
+//   take 1.5 us at 67 TFLOP/s against 3.8 us for the bytes at 3.35 TB/s.
+//
+// Split K over a cluster (both bodies).  At decode (M = 4) the grid has
+// N / 64 tiles, 16 for N = 1024, and at the small prefill buckets a few
+// 128 x 128 tiles: far fewer than the 132 SMs that must pull the weights
 // from memory.  So K is split over a thread block cluster of up to 8
-// blocks (the wrapper doubles the split while the grid covers the SMs
-// less than twice): each block sums its K range into shared memory, and
-// after a cluster barrier each block reduces a slice of the tile from all
-// the blocks' shared memory (distributed shared memory) in rank order and
-// runs the epilogue on it.  No atomics and a fixed order: a launch gives
-// the same bits every time.
-//
-// What bounds it on the H100: at decode the bytes.  CONFIG's block
-// weights (K x N = 1024 x 3072, 1024 x 1024, 1024 x 4096, 4096 x 1024) are
-// 12 582 912 int8 bytes a layer; the FLOPs at M = 4 (2 M K N = 101 MFLOP a
-// layer) take 1.5 us at 67 TFLOP/s against 3.8 us for the bytes at
-// 3.35 TB/s.  Twelve layers read at least 151 MB a decode step, >= 45 us
-// (the bf16 twin 302 MB, >= 90 us).  At prefill (M = 2048) the products
-// bound it: 2 M K N over f32 FMA on the CUDA cores.  Tensor cores
-// (mma.sync or wgmma with int8 -> bf16 widening in registers) are later
-// work.
+// blocks (`ops/qgemm.py:split_k` doubles the split while the grid covers
+// the SMs less than twice): each block sums its K range into shared
+// memory, and after a cluster barrier each block reduces a slice of the
+// tile from all the blocks' shared memory (distributed shared memory) in
+// rank order and runs the epilogue on it.  No atomics and a fixed order: a
+// launch gives the same bits every time.  Unsplit, the tensor-core body
+// runs the epilogue from its registers.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -232,6 +250,326 @@ cudaError_t launch(const void* a, const int8_t* q, const float* scale,
                             out_bf16, act, k_chunk);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at M > 16: the tensor-core body (building blocks in mma.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BM = 128;
+constexpr int TC_BN = 128;
+constexpr int TC_BK = 32;
+constexpr int TC_THREADS = 256;          // 8 warps: 2 along M x 4 along N
+constexpr int TC_STAGES = 4;             // the a / q ring
+constexpr int WM = 64, WN = 32;          // a warp's part of the tile
+constexpr int MT = WM / 16, NT = WN / 8; // its m16 and n8 tiles
+
+struct TcSmem {
+  // TC_STAGES x (a tile [BM][BK] bf16 swizzled, q tile [BK][BN] int8),
+  // then two widened q tiles [BK][BN] bf16 swizzled; after the K loop the
+  // partial f32 tile [BM][BN] of a split K aliases them
+  static constexpr int A_BYTES = TC_BM * TC_BK * 2;
+  static constexpr int Q_BYTES = TC_BK * TC_BN;
+  static constexpr int STAGE = A_BYTES + Q_BYTES;
+  static constexpr int W_BYTES = TC_BK * TC_BN * 2;
+  static constexpr int LOOP = TC_STAGES * STAGE + 2 * W_BYTES;
+  static constexpr int PART = TC_BM * TC_BN * 4;
+  static constexpr int BYTES = LOOP > PART ? LOOP : PART;
+};
+
+// The epilogue of one output: scale once, bias, activation, all in f32.
+__device__ __forceinline__ float epilogue(float acc, int col,
+                                          const float* scale,
+                                          const void* bias, int bias_bf16,
+                                          int act) {
+  float v = acc * scale[col];
+  if (bias != nullptr)
+    v += bias_bf16 ? __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(bias)[col])
+                   : static_cast<const float*>(bias)[col];
+  return activate(v, act);
+}
+
+// Outputs (row, col) and (row, col + 1) of a contiguous (M, N) output,
+// cast to its dtype; columns past n are dropped.
+__device__ __forceinline__ void store_pair(void* out, int n, int row,
+                                           int col, float v0, float v1,
+                                           int out_bf16) {
+  const size_t o = static_cast<size_t>(row) * n + col;
+  const bool pair = col + 1 < n && (n & 1) == 0;
+  if (out_bf16) {
+    bf16* p = static_cast<bf16*>(out) + o;
+    if (pair) {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      if (col < n) p[0] = __float2bfloat16_rn(v0);
+      if (col + 1 < n) p[1] = __float2bfloat16_rn(v1);
+    }
+  } else {
+    float* p = static_cast<float*>(out) + o;
+    if (pair) {
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+    } else {
+      if (col < n) p[0] = v0;
+      if (col + 1 < n) p[1] = v1;
+    }
+  }
+}
+
+template <bool A_ASYNC, bool Q_ASYNC>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+qmatmul_kernel_tc(const bf16* __restrict__ a, const int8_t* __restrict__ q,
+                  const float* __restrict__ scale,
+                  const void* __restrict__ bias, void* __restrict__ out,
+                  int m, int n, int k, int lda, int bias_bf16, int out_bf16,
+                  int act, int k_chunk) {
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / (TC_BN / WN), wn = warp % (TC_BN / WN);
+  const int n0 = blockIdx.x * TC_BN, m0 = blockIdx.y * TC_BM;
+  const int kb = rank * k_chunk;
+  const int ke = min(k, kb + k_chunk);
+  const int nk = ke > kb ? (ke - kb + TC_BK - 1) / TC_BK : 0;
+  const uint32_t base = smem_addr(smem_tc);
+  const uint32_t w_base = base + TC_STAGES * TcSmem::STAGE;
+  // this thread's q chunk of a step: 16 bytes of row qr, columns 16 qc ...
+  const int qr = tid / (TC_BN / 16), qc = tid % (TC_BN / 16);
+
+  // step t's a and q tiles into ring stage st
+  auto load = [&](int t, int st) {
+    const int k0 = kb + t * TC_BK;
+    const uint32_t sa = base + st * TcSmem::STAGE;
+#pragma unroll
+    for (int i = 0; i < TC_BM * TC_BK / 8 / TC_THREADS; ++i) {
+      const int e = tid + i * TC_THREADS;
+      const int r = e / (TC_BK / 8), c = e % (TC_BK / 8);
+      const int row = m0 + r, col = k0 + c * 8;
+      const uint32_t dst = sa + swz<TC_BK>(r, c) * 16;
+      const bf16* src = a + static_cast<size_t>(row) * lda + col;
+      if constexpr (A_ASYNC) {
+        // a partial chunk at the K edge copies its bytes, zero-fills the
+        // rest
+        const int bytes = row < m ? max(0, min(16, 2 * (ke - col))) : 0;
+        cp_async16(dst, bytes ? src : a, bytes);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in0 = row < m && col + 2 * j < ke;
+          const bool in1 = row < m && col + 2 * j + 1 < ke;
+          w[j] = pack_bf16(in0 ? __bfloat162float(src[2 * j]) : 0.f,
+                           in1 ? __bfloat162float(src[2 * j + 1]) : 0.f);
+        }
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                     :: "r"(dst), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                     : "memory");
+      }
+    }
+    const int kk = k0 + qr, nn = n0 + qc * 16;
+    const uint32_t dq = sa + TcSmem::A_BYTES + qr * TC_BN + qc * 16;
+    const int8_t* src = q + static_cast<size_t>(kk) * n + nn;
+    if constexpr (Q_ASYNC) {
+      const bool in = kk < ke && nn < n;   // n % 16 == 0: whole chunks
+      cp_async16(dq, in ? src : q, in ? 16 : 0);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = nn + 4 * j + i;
+          const uint32_t byte =
+              kk < ke && col < n ? static_cast<uint8_t>(src[4 * j + i]) : 0u;
+          x |= byte << (8 * i);
+        }
+        w[j] = x;
+      }
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                   :: "r"(dq), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                   : "memory");
+    }
+  };
+  // the 16 q bytes this thread copied in stage st, widened (exactly) into
+  // two chunks of widened tile wb; a thread reads only its own copies, so
+  // its own wait orders them
+  auto widen = [&](int st, int wb) {
+    const int8_t* src = reinterpret_cast<const int8_t*>(
+        smem_tc + st * TcSmem::STAGE + TcSmem::A_BYTES + qr * TC_BN +
+        qc * 16);
+    const int4 raw = *reinterpret_cast<const int4*>(src);
+    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+    uint32_t w[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      w[j] = pack_bf16(static_cast<float>(x[2 * j]),
+                       static_cast<float>(x[2 * j + 1]));
+    const uint32_t dst = w_base + wb * TcSmem::W_BYTES;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                   :: "r"(dst + swz<TC_BN>(qr, 2 * qc + h) * 16),
+                      "r"(w[4 * h]), "r"(w[4 * h + 1]), "r"(w[4 * h + 2]),
+                      "r"(w[4 * h + 3])
+                   : "memory");
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < TC_STAGES - 1; ++t) {
+    if (t < nk) load(t, t);
+    cp_async_commit();
+  }
+  if (nk > 0) {
+    cp_async_wait<TC_STAGES - 2>();      // step 0 landed
+    widen(0, 0);
+  }
+  const int mi = lane >> 3;
+  for (int kt = 0; kt < nk; ++kt) {
+    // step kt + 1 landed (this thread's copies); after the barrier every
+    // thread's, step kt's widened q is visible, and step kt - 1's
+    // products are done with their stage and widened tile
+    cp_async_wait<TC_STAGES - 3>();
+    __syncthreads();
+    const int pre = kt + TC_STAGES - 1;
+    if (pre < nk) load(pre, pre % TC_STAGES);
+    cp_async_commit();
+    if (kt + 1 < nk) widen((kt + 1) % TC_STAGES, (kt + 1) & 1);
+
+    const uint32_t sa = base + (kt % TC_STAGES) * TcSmem::STAGE;
+    const uint32_t sw = w_base + (kt & 1) * TcSmem::W_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < TC_BK / 16; ++ks) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldsm_x4(af[i], sa + swz<TC_BK>(wm * WM + i * 16 + (lane & 15),
+                                       2 * ks + (lane >> 4)) * 16);
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t bfr[4];
+        ldsm_x4_trans(bfr, sw + swz<TC_BN>(ks * 16 + (lane & 7) +
+                                               ((mi & 1) << 3),
+                                           (wn * WN) / 8 + 2 * jp +
+                                               (mi >> 1)) * 16);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][2 * jp], af[i], bfr[0], bfr[1]);
+          mma_bf16(acc[i][2 * jp + 1], af[i], bfr[2], bfr[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (split == 1) {                       // the epilogue from registers
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = n0 + wn * WN + j * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = m0 + wm * WM + i * 16 + (lane >> 2) + 8 * half;
+          if (row >= m || col >= n) continue;
+          const float v0 = epilogue(acc[i][j][2 * half], col, scale, bias,
+                                    bias_bf16, act);
+          const float v1 = col + 1 < n
+                               ? epilogue(acc[i][j][2 * half + 1], col + 1,
+                                          scale, bias, bias_bf16, act)
+                               : 0.f;
+          store_pair(out, n, row, col, v0, v1, out_bf16);
+        }
+      }
+    }
+    return;
+  }
+
+  // split K: this block's partial tile, visible to the whole cluster after
+  // the barrier (the ring is done: every copy waited for, every reader
+  // past the barrier below)
+  __syncthreads();
+  float* Cs = reinterpret_cast<float*>(smem_tc);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wm * WM + i * 16 + (lane >> 2) + 8 * half;
+        const int c = wn * WN + j * 8 + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(&Cs[r * TC_BN + c]) =
+            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+  cluster.sync();
+
+  // each block reduces its slice of the tile over the cluster in rank
+  // order, then the epilogue, two neighbouring columns a thread
+  const int chunk = TC_BM * TC_BN / split;
+  for (int idx = rank * chunk + 2 * tid; idx < (rank + 1) * chunk;
+       idx += 2 * TC_THREADS) {
+    float s0 = 0.0f, s1 = 0.0f;
+    for (int r = 0; r < split; ++r) {
+      const float2 x =
+          *reinterpret_cast<const float2*>(cluster.map_shared_rank(Cs, r) +
+                                           idx);
+      s0 += x.x;
+      s1 += x.y;
+    }
+    const int row = m0 + idx / TC_BN, col = n0 + idx % TC_BN;
+    if (row < m && col < n) {
+      const float v0 = epilogue(s0, col, scale, bias, bias_bf16, act);
+      const float v1 = col + 1 < n ? epilogue(s1, col + 1, scale, bias,
+                                              bias_bf16, act)
+                                   : 0.f;
+      store_pair(out, n, row, col, v0, v1, out_bf16);
+    }
+  }
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
+}
+
+template <bool A_ASYNC, bool Q_ASYNC>
+cudaError_t launch_tc(const bf16* a, const int8_t* q, const float* scale,
+                      const void* bias, void* out, int m, int n, int k,
+                      int lda, int bias_bf16, int out_bf16, int act,
+                      int split, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmatmul_kernel_tc<A_ASYNC, Q_ASYNC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, TcSmem::BYTES);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int k_tiles = (k + TC_BK - 1) / TC_BK;
+  const int k_chunk = (k_tiles + split - 1) / split * TC_BK;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM,
+                        split);
+  config.blockDim = dim3(TC_THREADS);
+  config.dynamicSmemBytes = TcSmem::BYTES;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, qmatmul_kernel_tc<A_ASYNC, Q_ASYNC>, a,
+                            q, scale, bias, out, m, n, k, lda, bias_bf16,
+                            out_bf16, act, k_chunk);
+}
+
 }  // namespace
 
 // out (M, N) contiguous = act((a @ q) * scale + bias); a (M, K) with row
@@ -246,21 +584,33 @@ extern "C" int veles_qmatmul(const void* a, const void* q, const void* scale,
                              int act, int split, void* stream) {
   if (split < 1 || split > 8 || (split & (split - 1)))
     return cudaErrorInvalidValue;
-  const int q_vec = (n % 16 == 0) && (reinterpret_cast<uintptr_t>(q) % 16 == 0);
+  const bool q_vec =
+      n % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   const int8_t* qp = static_cast<const int8_t*>(q);
   const float* sp = static_cast<const float*>(scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (m <= 16) {
+  if (a_bf16 && m > 16) {                 // the tensor-core body
+    const bf16* ap = static_cast<const bf16*>(a);
+    const bool a_vec =
+        lda % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+#define VELES_QMM_TC_ARGS \
+  ap, qp, sp, bias, out, m, n, k, lda, bias_bf16, out_bf16, act, split, s
+    if (a_vec)
+      err = q_vec ? launch_tc<true, true>(VELES_QMM_TC_ARGS)
+                  : launch_tc<true, false>(VELES_QMM_TC_ARGS);
+    else
+      err = q_vec ? launch_tc<false, true>(VELES_QMM_TC_ARGS)
+                  : launch_tc<false, false>(VELES_QMM_TC_ARGS);
+#undef VELES_QMM_TC_ARGS
+  } else if (m <= 16) {
     err = a_bf16 ? launch<16, true>(a, qp, sp, bias, out, m, n, k, lda, q_vec,
                                     bias_bf16, out_bf16, act, split, s)
                  : launch<16, false>(a, qp, sp, bias, out, m, n, k, lda, q_vec,
                                      bias_bf16, out_bf16, act, split, s);
   } else {
-    err = a_bf16 ? launch<64, true>(a, qp, sp, bias, out, m, n, k, lda, q_vec,
-                                    bias_bf16, out_bf16, act, split, s)
-                 : launch<64, false>(a, qp, sp, bias, out, m, n, k, lda, q_vec,
-                                     bias_bf16, out_bf16, act, split, s);
+    err = launch<64, false>(a, qp, sp, bias, out, m, n, k, lda, q_vec,
+                            bias_bf16, out_bf16, act, split, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

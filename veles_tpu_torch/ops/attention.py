@@ -14,8 +14,11 @@ version (``_mha_ref``, ``_bwd_ref``, ``_decode_ref``, ``_verify_ref``,
 ``_paged_decode_ref``); CUDA tensors launch the hand-written kernel
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/decode_attn.cu``,
 whose second entry is the paged kernel) or raise.  There is no
-fallback from a CUDA tensor to the plain version.  ``launches`` counts
-kernel launches by kernel name; only a launch adds to it.
+fallback from a CUDA tensor to the plain version.  The flash kernels'
+C entries pick their body by the dtype: bf16 runs the tensor-core
+bodies (``*_kernel_tc``: bf16 ``mma.sync`` with f32 sums), f32 the FMA
+bodies.  ``launches`` counts kernel launches by kernel name; only a
+launch adds to it.
 
 :func:`flash_attention` is differentiable: under autograd it runs
 through :class:`_FlashAttention`, whose backward is the dq and dk/dv

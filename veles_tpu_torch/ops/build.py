@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on its own into a shared
 library with a plain C interface and loaded with ``ctypes``; the
 wrappers pass pointers and the stream as ``c_void_p``.  Libraries land
 in ``build/veles_tpu_torch/`` beside the package, named by a hash of
-the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  ``build_all()`` starts one ``nvcc``
-per source, all at once.  Nothing here runs at import time, and the CPU
-path never imports this module.
+the source, the headers of ``csrc/`` (``mma.cuh``: the tensor-core
+building blocks) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.  ``build_all()``
+starts one ``nvcc`` per source, all at once.  Nothing here runs at
+import time, and the CPU path never imports this module.
 """
 
 import ctypes
@@ -52,10 +53,14 @@ def nvcc():
 
 
 def library_path(name):
-    source = CSRC_DIR / (name + ".cu")
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / ("lib%s-%s.so" % (name, digest[:16]))
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    every header of ``csrc/`` (a source may include any of them) and the
+    flags, so an edit to any of them builds a new library."""
+    digest = hashlib.sha256((CSRC_DIR / (name + ".cu")).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 
 def _start(name, target):

@@ -14,9 +14,12 @@ The activations are the GEMM table
 (:data:`veles_tpu_torch.ops.gemm.ACTIVATION_CODES`, with the Znicz
 scaled tanh) plus ``gelu``, the tanh approximation (``jax.nn.gelu``'s
 default), which the transformer MLP's up-projection fuses.  The kernel
-computes f32 on the CUDA cores at every ``precision_level``.  It takes
-fixed tiles: the autotune DB row ``ratings["gemm_int8"]``, ``tiles`` and
-``use_pallas`` wait for ROADMAP item 7, and on the card :func:`qmatmul`
+picks its body by the activations: bf16 at M > 16 (prefill) runs
+bf16 products on the tensor cores with f32 sums; f32 activations, and
+bf16 at M <= 16 (decode), run f32 FMA on the CUDA cores, at every
+``precision_level``.  Each body takes fixed tiles (:func:`tile`): the
+autotune DB row ``ratings["gemm_int8"]``, ``tiles`` and ``use_pallas``
+wait for ROADMAP item 7, and on the card :func:`qmatmul`
 always runs the kernel, as :func:`veles_tpu_torch.ops.gemm.matmul` does.
 There is no fallback from a CUDA tensor to the plain version.  No
 gradient is defined: quantized params are served, not trained through.
@@ -39,10 +42,18 @@ ACTIVATION_CODES = dict(_GEMM_CODES, gelu=5)
 #: kernel name -> launches since the last reset_launches()
 launches = {"qmatmul": 0}
 
-#: the kernel's K tile (BK of csrc/qgemm.cu)
-TILE_K = 64
+#: (BM, BN, BK) of csrc/qgemm.cu's bodies: the FMA body at M <= 16
+#: (decode) and at f32, and the tensor-core body (bf16 at M > 16)
+DECODE_TILE = (16, 64, 64)
+FMA_TILE = (64, 64, 64)
+TC_TILE = (128, 128, 32)
 #: SMs of the H100: the kernel splits K over a cluster of up to 8
-#: blocks until the grid covers them twice
+#: blocks until the grid covers them twice (the FMA body) or once (the
+#: tensor-core body, whose 128 x 128 tile is four FMA tiles of work: a
+#: timed probe on the card, scripts/tc_probe.py, found that split the
+#: fastest, or within 10 % of it, for 11 of 12 products (CONFIG's four
+#: block shapes at M = 2048, 256 and 32; w1 at 256 ran 26 % slower than
+#: at a split of 2)
 _SMS = 132
 _MAX_SPLIT = 8
 
@@ -89,15 +100,27 @@ def _qmatmul_ref(a, q, scale, bias=None, activation=None, out_dtype=None):
 
 # -- the kernel wrapper -----------------------------------------------------
 
-def split_k(m, n, k):
+def tile(m, dtype=torch.float32):
+    """``(BM, BN, BK)`` of the body ``veles_qmatmul`` runs for M rows of
+    ``dtype`` activations: the tensor-core body for bf16 at M > 16, else
+    the FMA body (16 rows a tile at M <= 16)."""
+    if m <= 16:
+        return DECODE_TILE
+    return TC_TILE if dtype == torch.bfloat16 else FMA_TILE
+
+
+def split_k(m, n, k, dtype=torch.float32):
     """The K split (cluster size) the kernel launches with for an (M, K)
-    by (K, N) product: doubled, up to 8, while the grid of output tiles
-    covers the SMs less than twice and every split keeps a K tile."""
-    block_m = 16 if m <= 16 else 64
-    tiles = -(-n // 64) * -(-m // block_m)
-    k_tiles = -(-k // TILE_K)
+    by (K, N) product of ``dtype`` activations: doubled, up to 8, while
+    the grid of the body's output tiles covers the SMs less than twice
+    (the FMA body) or once (the tensor-core body) and every split keeps
+    a K tile."""
+    block_m, block_n, block_k = tile(m, dtype)
+    tiles = -(-n // block_n) * -(-m // block_m)
+    k_tiles = -(-k // block_k)
+    cover = 1 if (block_m, block_n, block_k) == TC_TILE else 2
     split = 1
-    while (split < _MAX_SPLIT and tiles * split < 2 * _SMS
+    while (split < _MAX_SPLIT and tiles * split < cover * _SMS
            and k_tiles >= 2 * split):
         split *= 2
     return split
@@ -151,7 +174,7 @@ def _qmatmul_cuda(a, q, scale, bias, activation, out_dtype):
         int(a.dtype == torch.bfloat16),
         int(bias is not None and bias.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), ACTIVATION_CODES[activation],
-        split_k(m, n, k), stream_handle(a.device))
+        split_k(m, n, k, a.dtype), stream_handle(a.device))
     check_status("qmatmul", status)
     launches["qmatmul"] += 1
     return out

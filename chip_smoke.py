@@ -27,7 +27,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    last Q tile dropped from dk/dv) must each be reported.  Each kernel
    is timed at its main path's shape (bfloat16, median of 20 CUDA-event
    timings); the flash rows also give the body that ran, read from the
-   kernels' names in a profile (it must be the tensor-core body),
+   kernels' names in a profile (it must be the tensor-core body; a
+   window that saw none of the kernels it reads is taken again, at most
+   3 windows, as the qmatmul window below),
    TFLOP/s and the share of the bound at that time, and the device time
    per call (``device_ms``, as the GEMM rows below).  The forward is
    timed at (1, 2048, 16, 64) and at the train step's (8, 2048, 16, 64),
@@ -120,12 +122,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``engine.stitch=off``, minibatch 100) on the synthetic stand-in: the
    kernel counts (set to 0 just before ``run()``, read just after) must
    be exactly 300 matmul, 120 gd_dx, 240 gd_dw, 240 gd_db and 300
-   gather (the fill's data and label rows); every n_err finite and the
-   last validation
+   gather (the fill's data and label rows), of which exactly 300 matmul
+   and 240 gd_dw launches split K over a cluster (``gemm
+   .split_launches``); every n_err finite and the last validation
    error below the first.  Epochs/s, samples/s, the median train
    minibatch wall time, host→device bytes per minibatch and peak memory;
    then one epoch (``max_epochs=2``) under ``torch.profiler``: device
-   time by kernel group, busy share, the largest idle gaps.
+   time by kernel group, busy share, the largest idle gaps, and the GEMM
+   bodies by name: only the split tile's ``veles_gemm_kernel<KIND, 0>``,
+   each of the three seen at least once, and no other GEMM body.
 14. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
    on the card (kernels) and on the CPU (plain versions): per-epoch
    per-class n_err and confusion matrices equal, the weights, biases
@@ -137,15 +142,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    graph (loader head, both forwards, evaluator) and, on train
    minibatches, one of the GD segment's.  Exactly 150 and 120
    dispatches, 2 captures, 0 recaptures; launches 150 gather_norm, 150
-   gather, 300 matmul, 120 gd_dx, 240 gd_dw, 240 gd_db; host→device
-   bytes per minibatch median <= 64 (the scalar blocks); one
+   gather, 300 matmul, 120 gd_dx, 240 gd_dw, 240 gd_db, the graph
+   replays of 300 matmul and 240 gd_dw splitting K over a cluster;
+   host→device bytes per minibatch median <= 64 (the scalar blocks); one
    device→host copy per class close; n_err finite and falling.
    Epochs/s (over the run, and after both captures: a capture
    synchronizes and collects garbage), samples/s, the median train
    minibatch, resident bytes;
    then one steady-state epoch (epoch 1 of a ``max_epochs=3`` run)
    under ``torch.profiler``: device time by kernel, kernels per
-   minibatch, host gaps, busy share.
+   minibatch, host gaps, busy share, and the GEMM bodies by name, as
+   in ``mnist``.
 16. ``mnist_stitched_parity`` — the stitched card run against the
    CPU's (native, one train pass), the card's stitch on against off
    (f32 dataset), a minibatch-96 run (short tails) against the CPU's,
@@ -176,13 +183,16 @@ plain version and its bound by bytes (no one PyTorch call reads through
 a block table, so ``library_ms`` is null).  It holds the GEMM kernel
 (``matmul``: every activation × bias on/off) and the fused GD trio (every activation ×
 both storage layouts × need_err_input × has_bias) against
-``_matmul_ref`` / ``_gd_ref`` at 37×70×50, the MNIST shapes and 4096³,
-every element within 1e-5 + 1e-5·|plain| (4096³: 1e-4 + 1e-4·|plain|,
-a 4096-long f32 sum in another order), checks bit-equal relaunches,
-reports three planted faults (the last K tile dropped from matmul, dx
-launched after dw, the last batch tile dropped from dw) and times each
-kernel at the MNIST shapes and 4096³ beside its f32 bound, the plain
-version and one PyTorch call (``addmm``, ``mm``, ``sum``).  These
+``_matmul_ref`` / ``_gd_ref`` at 37×70×50, the MNIST shapes, 8×20×8 and
+30×140×30 (K split 2 over less than 2·16, split 8 over 9 K tiles) and
+4096³, every element within 1e-5 + 1e-5·|plain| (4096³: 1e-4 +
+1e-4·|plain|, a 4096-long f32 sum in another order), checks bit-equal
+relaunches, reports six planted faults (the last K tile dropped from
+matmul, dx launched after dw, the last batch tile dropped from dw, and
+the last rank's K chunk dropped from matmul, dx and dw where the host
+rule splits K) and times each kernel at the MNIST shapes and 4096³
+beside its f32 bound, the plain version and one PyTorch call
+(``addmm``, ``mm``, ``sum``), with the (tile, split) it ran.  These
 times are device times of back-to-back calls (queued behind a spin
 kernel, one CUDA-event pair around them, per call): at the MNIST
 shapes a CUDA-event pair around one call times the host wrapper, which
@@ -229,6 +239,7 @@ result.
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -270,7 +281,7 @@ GEMM_TOL = (1e-5, 1e-5)
 GEMM_BIG_TOL = (1e-4, 1e-4)
 GEMM_BIG = 4096
 GEMM_ACTIVATIONS = (None, "tanh", "sigmoid", "relu", "strict_relu")
-GEMM_TILE_K = 16                  # BK of csrc/gemm.cu
+GEMM_TILE_K = 16                  # BK of csrc/gemm.cu's split tile
 GD_HP = (0.03, 0.03, 0.0005, 0.0005, 0.9, 0.9)   # MNIST's <- parameters
 MNIST_EPOCHS = 3
 MNIST_PARITY_EPOCHS = 2
@@ -286,6 +297,13 @@ MNIST_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240, "gd_db": 240,
 MNIST_STITCHED_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240,
                            "gd_db": 240, "gather": 150, "gather_norm": 150}
 MNIST_STITCHED_DISPATCHES = [150, 120]
+# both routes: every forward splits K (layer 1: 16 tiles split 8; layer 2:
+# 4 tiles split 4), so does every dw (layer 1: 100 tiles split 4; layer
+# 2: 4 tiles split 4); layer 2's dx has one K tile
+MNIST_SPLIT_LAUNCHES = {"matmul_split": 300, "gd_dx_split": 0,
+                        "gd_dw_split": 240}
+# the GEMM bodies (KIND, TILE) of both routes' calls: all on the split tile
+MNIST_GEMM_BODIES = {(0, 0), (1, 0), (2, 0)}
 # per minibatch: the loader's (offset, size), int32, and on train
 # minibatches 2 layers x 6 GD hyperparameters, float32
 MNIST_STITCHED_H2D_MAX = 64
@@ -374,12 +392,21 @@ def device_ms(fn, reps=20):
 _PROFILE_GROUP = {"gather": "veles_gather_rows",
                   "gather_norm": "veles_gather_norm"}
 
-#: csrc/gemm.cu's kernels by (demangled) name: one GEMM body templated
-#: on its epilogue, and the db kernel
-_GEMM_GROUPS = (("veles_gemm_kernel<0>", "veles_matmul"),
-                ("veles_gemm_kernel<1>", "veles_gd_dx"),
-                ("veles_gemm_kernel<2>", "veles_gd_dw"),
+#: csrc/gemm.cu's kernels by (demangled) name, blanks removed: one GEMM
+#: body templated on its kind (0 matmul, 1 gd_dx, 2 gd_dw, 3 gd_dw into
+#: the transposed storage) and tile (0 the split tile, 1 the big tile),
+#: and the db kernel
+_GEMM_GROUPS = (("veles_gemm_kernel<0,0>", "veles_matmul"),
+                ("veles_gemm_kernel<0,1>", "veles_matmul"),
+                ("veles_gemm_kernel<1,0>", "veles_gd_dx"),
+                ("veles_gemm_kernel<1,1>", "veles_gd_dx"),
+                ("veles_gemm_kernel<2,0>", "veles_gd_dw"),
+                ("veles_gemm_kernel<2,1>", "veles_gd_dw"),
+                ("veles_gemm_kernel<3,0>", "veles_gd_dw"),
+                ("veles_gemm_kernel<3,1>", "veles_gd_dw"),
                 ("veles_gd_db_kernel", "veles_gd_db"))
+#: a GEMM body's profiled name -> its kind and tile
+_GEMM_BODY = re.compile(r"veles_gemm_kernel<(\d+),\s*(\d+)>")
 
 
 def _kernel_group(name):
@@ -390,7 +417,7 @@ def _kernel_group(name):
         if tag in name:
             return group
     for tag, group in _GEMM_GROUPS:
-        if tag in name:
+        if tag in name.replace(" ", ""):
             return group
     for group in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if group + "_kernel" in name:
@@ -429,6 +456,26 @@ def profile_window(fn, names_of=()):
     return _profile_summary(prof, wall_us, names_of)
 
 
+#: windows a kernel-name check may take: a short window around launches
+#: made through ctypes at times records none of them, even beside a
+#: PyTorch kernel (so the ``qmatmul`` window once saw none of its 8)
+PROFILE_TRIES = 3
+
+
+def profiled_names(fn, names_of, seen):
+    """The names of the kernels of the groups ``names_of`` that a
+    :func:`profile_window` around ``fn`` saw, ``{name: count}``, and the
+    number of windows taken: a window is taken again, at most
+    PROFILE_TRIES in all, while ``seen(names)`` is false.  The caller's
+    check of the names stays as strict: a body that ran is seen, and a
+    body that never ran is never seen, in any window."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        names = profile_window(fn, names_of)["kernel_names"]
+        if seen(names):
+            break
+    return names, tries
+
+
 def _profile_summary(prof, wall_us, names_of=()):
     """:func:`profile_window`'s summary of a finished profile."""
     from torch.autograd import DeviceType
@@ -463,6 +510,39 @@ def _profile_summary(prof, wall_us, names_of=()):
     if names_of:
         summary["kernel_names"] = named
     return summary
+
+
+#: the profile groups whose kernel names the MNIST phases read: the GEMM
+#: bodies, and "matmul", where any other GEMM would land
+_GEMM_NAMES = ("veles_matmul", "veles_gd_dx", "veles_gd_dw", "matmul")
+
+
+def _gemm_bodies(names):
+    """The GEMM bodies among a profile's kernel names, ``{"KIND,TILE":
+    count}``, and the names of any other ``veles_gemm_kernel`` (the
+    shape before the tile parameter)."""
+    bodies, other = {}, []
+    for name, n in names.items():
+        if "veles_gemm_kernel" not in name:
+            continue
+        found = _GEMM_BODY.search(name)
+        if found is None:
+            other.append(name[:120])
+            continue
+        key = "%s,%s" % found.groups()
+        bodies[key] = bodies.get(key, 0) + n
+    return bodies, other
+
+
+def _gemm_bodies_ok(breakdown):
+    """Records the GEMM bodies of an MNIST profile in ``breakdown`` and
+    says whether they are MNIST_GEMM_BODIES, each seen at least once (the
+    profiler may miss some launches), and nothing else."""
+    bodies, other = _gemm_bodies(breakdown.get("kernel_names", {}))
+    breakdown["gemm_bodies"] = bodies
+    breakdown["gemm_bodies_expected"] = sorted(
+        "%d,%d" % b for b in MNIST_GEMM_BODIES)
+    return not other and set(bodies) == set(breakdown["gemm_bodies_expected"])
 
 
 def _bodies(names):
@@ -616,9 +696,9 @@ def _fwd_timed(rng, device):
     planted = _fwd_planted_faults(*first)
     # the call with a PyTorch kernel beside it, so the window sees the
     # card (around ctypes launches alone the profiler saw nothing)
-    names = profile_window(
+    names, tries = profiled_names(
         lambda: _flash_fwd_cuda(*first, True, 0, 0)[0].float().sum(),
-        names_of=("flash_fwd",))["kernel_names"]
+        ("flash_fwd",), bool)
     bodies = _bodies(names)
     row = dict(by_shape[0], name="flash_fwd", route="cuda",
                source="veles_tpu_torch/csrc/flash_fwd.cu",
@@ -627,7 +707,7 @@ def _fwd_timed(rng, device):
                                           if n_),
                plain_of="_mha_ref", library_of="SDPA, is_causal",
                by_shape=by_shape, train_shape=by_shape[1],
-               planted_faults=planted)
+               planted_faults=planted, profile_windows=tries)
     ok = (bodies == {"tensor_core": 1, "fma": 0}
           and all(f["caught"] for f in planted.values())
           and all(r["max_abs_err"] <= BF16_TOL for r in by_shape))
@@ -739,9 +819,12 @@ def _bwd_timed(rng, device):
                   - time_ms(sdpa))
     # the pair with delta's reduction, so the window holds a PyTorch
     # kernel too (around ctypes launches alone the profiler saw nothing)
-    names = profile_window(lambda: _flash_bwd(q, k, v, o, lse, do, True),
-                           names_of=("flash_bwd_dq", "flash_bwd_dkv")
-                           )["kernel_names"]
+    names, tries = profiled_names(
+        lambda: _flash_bwd(q, k, v, o, lse, do, True),
+        ("flash_bwd_dq", "flash_bwd_dkv"),
+        lambda seen: all(any(g + "_kernel" in n_ for n_ in seen)
+                         for g in ("flash_bwd_dq", "flash_bwd_dkv")))
+    report = dict(report, profile_windows=tries)
 
     elem, pairs = 2, b * h * s * (s + 1) // 2      # unmasked (q, k) pairs
     product = 2 * d * pairs                        # one s×s×d product
@@ -822,11 +905,12 @@ def _gd_operands(rng, device, batch, f, n, transposed, scaled):
 def _gemm_cases(rng, device):
     """Every activation × bias on/off for matmul, and activation ×
     layout × need_err_input × has_bias for the GD trio, at the ragged,
-    MNIST and 4096^3 shapes; each output element within its tolerance."""
+    MNIST, split (K split 2 over 20, split 8 over 9 K tiles) and 4096^3
+    shapes; each output element within its tolerance."""
     from veles_tpu_torch.ops import gemm
     cases = []
-    shapes = ((37, 70, 50), (100, 784, 100), (100, 100, 10),
-              (GEMM_BIG, GEMM_BIG, GEMM_BIG))
+    shapes = ((37, 70, 50), (100, 784, 100), (100, 100, 10), (8, 20, 8),
+              (30, 140, 30), (GEMM_BIG, GEMM_BIG, GEMM_BIG))
     for m, k, n in shapes:
         big = m == GEMM_BIG
         tol = GEMM_BIG_TOL if big else GEMM_TOL
@@ -839,7 +923,9 @@ def _gemm_cases(rng, device):
                                  gemm._matmul_ref(a, w, bias, activation),
                                  tol)
                 cases.append(dict(report, kernel="matmul",
-                                  shape=[m, k, n], activation=activation,
+                                  shape=[m, k, n],
+                                  tile_split=list(gemm.plan(m, n, k)),
+                                  activation=activation,
                                   bias=with_bias,
                                   w_transposed=not with_bias,
                                   tol=list(tol),
@@ -892,7 +978,9 @@ def _gemm_repeatable(rng, device):
 def _gemm_planted_faults(rng, device):
     """Faults planted in the kernels' inputs at the MNIST shapes, each of
     which the tolerance must report: the last K tile dropped from
-    matmul, dx launched after dw, the last batch tile dropped from dw."""
+    matmul, dx launched after dw, the last batch tile dropped from dw,
+    and the last rank's K chunk dropped (K cut by it) from matmul (split
+    8), dx and dw (split 4) at layer 1's shapes."""
     from veles_tpu_torch.ops import gemm
     faults = {}
     a, w, bias = _gemm_operands(rng, device, 100, 784, 100)
@@ -915,6 +1003,28 @@ def _gemm_planted_faults(rng, device):
                      GD_HP[0], GD_HP[2], GD_HP[4], "tanh", False)
     faults["last_batch_tile_dropped_from_dw"] = _within(vw, want[2],
                                                         GEMM_TOL)
+    # the last rank's chunk: K ends where it began
+    a, w, bias = _gemm_operands(rng, device, 100, 784, 100)
+    split = gemm.plan(100, 100, 784)[1]
+    cut = gemm.k_range(split - 1, split, 784)[0]
+    faults["last_rank_chunk_dropped_from_matmul"] = dict(_within(
+        gemm.matmul(a[:, :cut], w[:cut], bias, "tanh"),
+        gemm._matmul_ref(a, w, bias, "tanh"), GEMM_TOL), split=split)
+    x, y, eo, w, b, vw, vb = _gd_operands(rng, device, 100, 784, 100, False,
+                                          False)
+    want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *GD_HP, activation="tanh")
+    split = gemm.plan(100, 784, 100)[1]          # dx: K = the 100 neurons
+    cut = gemm.k_range(split - 1, split, 100)[0]
+    faults["last_rank_chunk_dropped_from_dx"] = dict(_within(
+        gemm._gd_dx_cuda(eo[:, :cut].contiguous(), y[:, :cut].contiguous(),
+                         w[:, :cut], "tanh", False), want[4], GEMM_TOL),
+        split=split)
+    split = gemm.plan(784, 100, 100)[1]          # dw: K = the batch of 100
+    cut = gemm.k_range(split - 1, split, 100)[0]
+    gemm._gd_dw_cuda(x[:cut], eo[:cut], y[:cut], w, vw, 1.0 / 100,
+                     GD_HP[0], GD_HP[2], GD_HP[4], "tanh", False)
+    faults["last_rank_chunk_dropped_from_dw"] = dict(_within(
+        vw, want[2], GEMM_TOL), split=split)
     gpu_sync()
     return {name: dict(report, caught=report["outside_tol"] > 0)
             for name, report in faults.items()}
@@ -947,8 +1057,14 @@ def _gemm_timed(rng, device):
                 "gd_db": 298}[name],
             "dtype": "float32", "plain_of": plain_of,
             "library_of": library_of, "by_shape": []})
+        tile_split = None                  # (M, K, N) of the product
+        if name in ("matmul", "gd_dx"):
+            tile_split = list(gemm.plan(shape[0], shape[2], shape[1]))
+        elif name == "gd_dw":
+            tile_split = list(gemm.plan(shape[1], shape[2], shape[0]))
         entry["by_shape"].append({
-            "shape": shape, "ms": ms, "wrapper_ms": wrapper_ms,
+            "shape": shape, "tile_split": tile_split,
+            "ms": ms, "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound * 1e3,
             "bound_by": by, "max_abs_err": err})
@@ -1608,9 +1724,9 @@ def _qgemm_timed(rng, device):
     gpu_sync()
     # one call of each layer's shapes at decode and at prefill, beside a
     # PyTorch kernel so the window sees the card
-    names = profile_window(
-        lambda: [fn().float().sum() for fn in calls],
-        names_of=("qmatmul",))["kernel_names"]
+    names, tries = profiled_names(
+        lambda: [fn().float().sum() for fn in calls], ("qmatmul",),
+        lambda seen: len({"_kernel<16" in n_ for n_ in seen}) == 2)
     decode_names = {n_: c for n_, c in names.items() if "_kernel<16" in n_}
     bodies = {"decode": _bodies(decode_names),
               "prefill": _bodies({n_: c for n_, c in names.items()
@@ -1645,7 +1761,8 @@ def _qgemm_timed(rng, device):
                                  if named["decode"] else "not the FMA body"),
                plain_of="_qmatmul_ref",
                library_of="torch.mm / addmm on a dequantized bf16 copy, "
-               "then the epilogue", by_shape=by_shape)
+               "then the epilogue", by_shape=by_shape,
+               profile_windows=tries)
     return row, bodies, all(named.values())
 
 
@@ -3038,6 +3155,7 @@ def phase_mnist(device, smi):
 def _phase_mnist(device, smi):
     from veles_tpu_torch import prng
     from veles_tpu_torch.memory import Watcher
+    from veles_tpu_torch.ops import gemm
     from veles_tpu_torch.samples import mnist
 
     prng.seed_all(SEED)
@@ -3063,6 +3181,7 @@ def _phase_mnist(device, smi):
     gpu_sync()
     end = time.perf_counter()
     launches = mnist_launches()
+    splits = dict(gemm.split_launches)
     after = Watcher.transfers()
     elapsed = end - tic
     peak = torch.cuda.max_memory_allocated(device)
@@ -3079,6 +3198,7 @@ def _phase_mnist(device, smi):
     finite = all(numpy.isfinite(e) for e in errors)
     learned = len(valid) == MNIST_EPOCHS and valid[-1] < valid[0]
     counted = launches == MNIST_LAUNCHES
+    split_ok = splits == MNIST_SPLIT_LAUNCHES
     info = {
         "phase": "mnist", "nvidia_smi": smi,
         "layers": "784-100 all2all_tanh, 100-10 softmax", "minibatch": 100,
@@ -3100,11 +3220,15 @@ def _phase_mnist(device, smi):
         "class_closes": closes,
         "results": wf.gather_results(),
         "launches": launches, "launches_expected": MNIST_LAUNCHES,
-        "ok": finite and learned and counted,
+        "split_launches": splits,
+        "split_launches_expected": MNIST_SPLIT_LAUNCHES,
+        "ok": finite and learned and counted and split_ok,
     }
     profiled = mnist.create_workflow(device=device, max_epochs=2)
     reset_all_launches()
-    info["breakdown"] = profile_window(profiled.run)
+    info["breakdown"] = profile_window(profiled.run, _GEMM_NAMES)
+    bodies_ok = _gemm_bodies_ok(info["breakdown"])
+    info["ok"] = info["ok"] and bodies_ok
     info["breakdown"]["window"] = ("one epoch: 2 validation passes and 1 "
                                    "train pass (max_epochs=2)")
     # device time of one launch on the main path, from the profile
@@ -3118,6 +3242,11 @@ def _phase_mnist(device, smi):
     check(learned, "mnist", "validation error did not fall: %s" % valid)
     check(counted, "mnist", "the kernels were not on the main path as "
           "expected: %s, want %s" % (launches, MNIST_LAUNCHES))
+    check(split_ok, "mnist", "K split in %s launches, want %s"
+          % (splits, MNIST_SPLIT_LAUNCHES))
+    check(bodies_ok, "mnist", "GEMM bodies in the profile: %s, want each "
+          "of %s and no other" % (info["breakdown"]["gemm_bodies"],
+                                  info["breakdown"]["gemm_bodies_expected"]))
     return launches
 
 
@@ -3240,7 +3369,8 @@ def _mnist_stitched_profile(device):
     if "toc" not in window:
         prof.stop()
         window["toc"] = time.perf_counter()
-    summary = _profile_summary(prof, (window["toc"] - window["tic"]) * 1e6)
+    summary = _profile_summary(prof, (window["toc"] - window["tic"]) * 1e6,
+                               _GEMM_NAMES)
     summary["window"] = ("one steady-state epoch: epoch 1's validation "
                          "and train passes (%d minibatches)"
                          % window["minibatches"])
@@ -3259,6 +3389,7 @@ def phase_mnist_stitched(device, smi):
     one steady-state epoch under the profiler."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.memory import Watcher
+    from veles_tpu_torch.ops import gemm
     from veles_tpu_torch.samples import mnist
 
     with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
@@ -3288,6 +3419,7 @@ def phase_mnist_stitched(device, smi):
         gpu_sync()
         end = time.perf_counter()
         launches = mnist_launches()
+        splits = dict(gemm.split_launches)
         after = Watcher.transfers()
         elapsed = end - tic
         peak = torch.cuda.max_memory_allocated(device)
@@ -3311,6 +3443,7 @@ def phase_mnist_stitched(device, smi):
         finite = all(numpy.isfinite(e) for e in errors)
         learned = len(valid) == MNIST_EPOCHS and valid[-1] < valid[0]
         counted = launches == MNIST_STITCHED_LAUNCHES
+        split_ok = splits == MNIST_SPLIT_LAUNCHES
         dispatched = ([r["dispatches"] for r in report]
                       == MNIST_STITCHED_DISPATCHES
                       and [r["captures"] for r in report] == [1, 1]
@@ -3350,11 +3483,15 @@ def phase_mnist_stitched(device, smi):
             "class_closes": closes, "results": wf.gather_results(),
             "launches": launches,
             "launches_expected": MNIST_STITCHED_LAUNCHES,
-            "ok": (finite and learned and counted and dispatched and h2d_ok
-                   and d2h_ok),
+            "split_launches": splits,
+            "split_launches_expected": MNIST_SPLIT_LAUNCHES,
+            "ok": (finite and learned and counted and split_ok and dispatched
+                   and h2d_ok and d2h_ok),
         }
         reset_all_launches()
         info["breakdown"] = _mnist_stitched_profile(device)
+        bodies_ok = _gemm_bodies_ok(info["breakdown"])
+        info["ok"] = info["ok"] and bodies_ok
         by_group = info["breakdown"]["device_ms_by_group"]
         n = info["breakdown"]["minibatches"]
         info["breakdown"]["device_us_per_minibatch_by_group"] = {
@@ -3366,6 +3503,12 @@ def phase_mnist_stitched(device, smi):
     check(counted, "mnist_stitched", "the kernels were not on the main "
           "path as expected: %s, want %s"
           % (launches, MNIST_STITCHED_LAUNCHES))
+    check(split_ok, "mnist_stitched", "K split in %s launches (graph "
+          "replays included), want %s" % (splits, MNIST_SPLIT_LAUNCHES))
+    check(bodies_ok, "mnist_stitched", "GEMM bodies in the profile: %s, "
+          "want each of %s and no other"
+          % (info["breakdown"]["gemm_bodies"],
+             info["breakdown"]["gemm_bodies_expected"]))
     check(dispatched, "mnist_stitched", "segments dispatched, captured or "
           "recaptured other than expected: %s" % report)
     check(h2d_ok, "mnist_stitched", "host->device bytes per minibatch: "

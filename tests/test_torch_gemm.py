@@ -17,6 +17,15 @@
   with the three kernel wrappers replaced by in-place plain pieces, and
   the same pieces in the wrong order must fail it.
 
+- ``plan`` (the GEMM body's tile and K split) and ``k_range`` (a rank's
+  K chunk): the split never passes 8, stops once the grid covers the
+  SMs, leaves no rank without a K tile, and the chunks cover K once, in
+  rank order; the MNIST shapes and 4096³ map to the stated configs.
+- The split's arithmetic emulated in plain PyTorch (each rank's chunk
+  summed on its own, the partial tiles added in rank order) against
+  ``_matmul_jnp`` and ``_gd_math``: atol 1e-5 + rtol 1e-5, the card's
+  GEMM tolerance.
+
 The kernels themselves run only on the card (``tests/test_torch_kernels
 .py``, ``cuda`` marker; ``chip_smoke.py``).
 """
@@ -233,3 +242,111 @@ def test_gd_contract_is_checked_before_launch():
     with pytest.raises(ValueError, match="unknown activation"):
         gemm.gd_fused(eo, eo, eo, torch.zeros((5, 5)), None,
                       torch.zeros((5, 5)), None, *_HP, activation="gelu")
+
+
+# -- the tile and split rule (ops.gemm.plan, k_range) ------------------------
+
+SPLIT_ATOL = SPLIT_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    ((100, 100, 784, (gemm.SPLIT_TILE, 8))),   # layer 1's forward: 16 tiles
+    ((100, 10, 100, (gemm.SPLIT_TILE, 4))),    # layer 2's forward; its dw
+    ((100, 100, 10, (gemm.SPLIT_TILE, 1))),    # layer 2's dx: one K tile
+    ((784, 100, 100, (gemm.SPLIT_TILE, 4))),   # layer 1's dw: 100 tiles
+    ((100, 784, 100, (gemm.SPLIT_TILE, 4))),   # the same, transposed
+    ((1000, 1000, 1000, (gemm.SPLIT_TILE, 1))),  # 992 tiles: covered
+    ((4096, 4096, 4096, (gemm.BIG_TILE, 1))),  # 1024 big tiles
+    ((1536, 1536, 64, (gemm.BIG_TILE, 1))),    # 144 big tiles: covered
+    ((37, 50, 70, (gemm.SPLIT_TILE, 4))),      # 5 K tiles: 1, 1, 1, 2
+])
+def test_plan_maps_the_main_shapes_to_their_configs(m, n, k, want):
+    assert gemm.plan(m, n, k) == want
+
+
+@pytest.mark.parametrize("m", [1, 37, 100, 784, 4096])
+@pytest.mark.parametrize("n", [1, 10, 100, 1000])
+@pytest.mark.parametrize("k", [1, 16, 20, 100, 784, 5000])
+def test_plan_splits_only_an_uncovered_grid_and_feeds_every_rank(m, n, k):
+    tile, split = gemm.plan(m, n, k)
+    block_k = gemm.TILES[tile][2]
+    cover = gemm._SMS * 256        # a 256-thread block on every SM
+    assert split in (1, 2, 4, 8)
+    if tile == gemm.BIG_TILE:
+        assert split == 1 and gemm.grid_threads(m, n, tile) >= cover
+    else:
+        assert gemm.grid_threads(m, n, gemm.BIG_TILE) < cover
+    if split > 1:     # the half split did not cover the SMs
+        assert gemm.grid_threads(m, n, tile, split // 2) < cover
+    ranges = [gemm.k_range(r, split, k, tile) for r in range(split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (_, end), (begin, _) in zip(ranges, ranges[1:]):
+        assert end == begin                    # contiguous, in rank order
+    for begin, end in ranges:
+        assert end > begin                     # every rank has a K tile
+        assert begin % block_k == 0
+    sizes = [-(-(end - begin) // block_k) for begin, end in ranges]
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("split,k,want", [
+    (8, 784, [(0, 96), (96, 192), (192, 288), (288, 384), (384, 480),
+              (480, 576), (576, 672), (672, 784)]),
+    (4, 100, [(0, 16), (16, 48), (48, 80), (80, 100)]),
+    (2, 20, [(0, 16), (16, 20)]),              # K shorter than split x BK
+    (8, 100, [(0, 0), (0, 16), (16, 32), (32, 48), (48, 64), (64, 80),
+              (80, 96), (96, 100)]),           # forced: 7 K tiles, rank 0
+])                                             # empty
+def test_k_range_is_the_kernels_chunk_arithmetic(split, k, want):
+    assert [gemm.k_range(r, split, k) for r in range(split)] == want
+
+
+def _split_mm(a, b, split):
+    """a @ b as a split launch sums it: each rank's K chunk on its own,
+    then the partial tiles added in rank order."""
+    total = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for rank in range(split):
+        begin, end = gemm.k_range(rank, split, a.shape[1])
+        total = total + a[:, begin:end] @ b[begin:end]
+    return total
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("m,k,n,split", [(100, 784, 100, 8),
+                                         (100, 100, 10, 2),
+                                         (100, 100, 10, 4)])
+def test_split_sum_matches_jax_matmul(activation, m, k, n, split):
+    rng = numpy.random.default_rng(12)
+    a = rng.standard_normal((m, k)).astype(numpy.float32)
+    w = (rng.standard_normal((k, n)) / numpy.sqrt(k)).astype(numpy.float32)
+    bias = rng.standard_normal((n,)).astype(numpy.float32)
+    got = gemm._activate(_split_mm(torch.from_numpy(a), torch.from_numpy(w),
+                                   split) + torch.from_numpy(bias),
+                         activation).numpy()
+    want = _matmul_jnp(jnp.asarray(a), jnp.asarray(w), jnp.asarray(bias),
+                       activation)
+    numpy.testing.assert_allclose(got, numpy.asarray(want), atol=SPLIT_ATOL,
+                                  rtol=SPLIT_RTOL)
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("batch,f,n,split", [(100, 784, 100, 2),
+                                             (100, 100, 10, 4),
+                                             (100, 784, 100, 8)])
+def test_split_sum_matches_jax_gd(activation, batch, f, n, split):
+    """dW as the split kernel sums it (K = the batch), times 1/B, then
+    the momentum step; err_input with K = n split the same way."""
+    arrays = _gd_inputs(False, seed=13, batch=batch, f=f, n=n)
+    x, y, eo, w, b, vw, vb = _t(*arrays)
+    lr, _, decay, _, moment, _ = _HP
+    delta = eo * gemm._derivative(y, activation)
+    grad = _split_mm(x.t().contiguous(), delta, split) * (1.0 / batch)
+    v_new = moment * vw - lr * (grad + decay * w)
+    err_input = _split_mm(delta, w.t().contiguous(), split)
+    want = _gd_math(*[jnp.asarray(a) for a in arrays], *_HP,
+                    activation=activation)
+    for name, got, ref in (("w", w + v_new, want[0]), ("vw", v_new, want[2]),
+                           ("err_input", err_input, want[4])):
+        numpy.testing.assert_allclose(got.numpy(), numpy.asarray(ref),
+                                      atol=SPLIT_ATOL, rtol=SPLIT_RTOL,
+                                      err_msg=name)

@@ -664,7 +664,8 @@ def test_gd_kernels_match_plain_version_on_card(
 
 @pytest.mark.cuda
 def test_gemm_kernels_are_deterministic_on_card(cuda_device, gemm_launches):
-    """No atomics, no split-K: two launches give the same bits."""
+    """No atomics (K split over a cluster and summed in rank order): two
+    launches give the same bits."""
     from veles_tpu_torch.ops import gemm
     x, y, eo, w, b, vw, vb = _gd_operands(cuda_device, 100, 784, 100, False,
                                           seed=33)
@@ -710,6 +711,201 @@ def test_gemm_wrappers_raise_on_the_card(cuda_device, gemm_launches):
     with pytest.raises(ValueError, match="matmul: a is"):
         gemm.matmul(a, a, None, None)
     assert not any(gemm_launches.values())
+
+
+#: (M, K, N) of the split body beyond GEMM_SHAPES: K shorter than split x
+#: BK (split 2 over 20), and split 8 over 9 K tiles (chunks of 1 and 2)
+GEMM_SPLIT_SHAPES = [(8, 20, 8), (30, 140, 30)]
+#: every (tile, split) the C entries take; split tiles of 1 ... 8 ranks
+GEMM_CONFIGS = [(0, 1), (0, 2), (0, 4), (0, 8), (1, 1)]
+GEMM_BIG_TOL = (1e-4, 1e-4)          # a 4096-long sum in another order
+
+
+def _gemm_case(device, m, k, n, seed, w_transposed=False, x_strided=False):
+    """a (m, k) (a view with a row stride of 2k + 3 and every other
+    column when ``x_strided``), w (k, n) (a transposed view of (n, k)
+    storage when ``w_transposed``) scaled by 1/sqrt(k), bias (n,)."""
+    rng = numpy.random.default_rng(seed)
+    shape = (m, 2 * k + 3) if x_strided else (m, k)
+    a = torch.from_numpy(rng.standard_normal(shape).astype(
+        numpy.float32)).to(device)
+    if x_strided:
+        a = a[:, 1:2 * k:2]
+    w = torch.from_numpy((rng.standard_normal((n, k) if w_transposed
+                                              else (k, n)) / numpy.sqrt(k))
+                         .astype(numpy.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(
+        numpy.float32)).to(device)
+    return a, (w.t() if w_transposed else w), bias
+
+
+def _gemm_config_errors(device, m, k, n, tile_split, tol, seed):
+    """matmul, gd_dx and gd_dw (both storage layouts) forced onto one
+    (tile, split), each against its plain version; returns the names of
+    those outside ``tol`` and whether a relaunch gave the same bits."""
+    from veles_tpu_torch.ops import gemm
+    bad, same = [], True
+    a, w, bias = _gemm_case(device, m, k, n, seed)
+    want = gemm._matmul_ref(a, w, bias, "tanh")
+    got = gemm._matmul_cuda(a, w, bias, "tanh", tile_split)
+    same &= torch.equal(got, gemm._matmul_cuda(a, w, bias, "tanh",
+                                               tile_split))
+    if not torch.allclose(got, want, atol=tol[0], rtol=tol[1]):
+        bad.append("matmul")
+    # GD with batch m, f = k inputs, n neurons
+    x, y, eo, w, b, vw, vb = _gd_operands(device, m, k, n, False, seed)
+    want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *_GD_HP, activation="tanh")
+    dx = gemm._gd_dx_cuda(eo, y, w, "tanh", False, tile_split)
+    same &= torch.equal(dx, gemm._gd_dx_cuda(eo, y, w, "tanh", False,
+                                             tile_split))
+    if not torch.allclose(dx, want[4], atol=tol[0], rtol=tol[1]):
+        bad.append("gd_dx")
+    for transposed in (False, True):
+        if transposed:
+            x, y, eo, w, b, vw, vb = _gd_operands(device, m, k, n, True, seed)
+            want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *_GD_HP,
+                                activation="tanh", transposed=True)
+        runs = []
+        for _ in range(2):
+            w1, vw1 = w.clone(), vw.clone()
+            gemm._gd_dw_cuda(x, eo, y, w1, vw1, 1.0 / m, _GD_HP[0],
+                             _GD_HP[2], _GD_HP[4], "tanh", transposed,
+                             tile_split)
+            runs.append((w1, vw1))
+        same &= all(torch.equal(p, q) for p, q in zip(*runs))
+        for name, got_, ref in (("gd_dw w", runs[0][0], want[0]),
+                                ("gd_dw vw", runs[0][1], want[2])):
+            if not torch.allclose(got_, ref, atol=tol[0], rtol=tol[1]):
+                bad.append(name + (" transposed" if transposed else ""))
+    torch.cuda.synchronize()
+    return bad, same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_split", GEMM_CONFIGS)
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES + GEMM_SPLIT_SHAPES)
+def test_gemm_every_config_matches_plain_version_on_card(
+        cuda_device, gemm_launches, m, k, n, tile_split):
+    """Each tile and split (the host rule's or not), bit-equal on a
+    relaunch; a split of more ranks than K tiles leaves some empty."""
+    bad, same = _gemm_config_errors(cuda_device, m, k, n, tile_split,
+                                    GEMM_TOL, seed=36)
+    assert not bad and same, (bad, same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_split", GEMM_CONFIGS)
+def test_gemm_every_config_at_4096_on_card(cuda_device, gemm_launches,
+                                           tile_split):
+    bad, same = _gemm_config_errors(cuda_device, 4096, 4096, 4096,
+                                    tile_split, GEMM_BIG_TOL, seed=37)
+    assert not bad and same, (bad, same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", GEMM_ACTIVATIONS)
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m,k,n", GEMM_SPLIT_SHAPES)
+def test_gemm_split_epilogues_match_plain_version_on_card(
+        cuda_device, gemm_launches, m, k, n, transposed, activation):
+    """Every epilogue and activation where the host rule splits K: the
+    activation after the rank-order sum, and the momentum update of W
+    and V by the one rank that owns each element."""
+    from veles_tpu_torch.ops import gemm
+    a, w, bias = _gemm_case(cuda_device, m, k, n, seed=38,
+                            w_transposed=transposed)
+    got = gemm.matmul(a, w, bias, activation)
+    want = gemm._matmul_ref(a, w, bias, activation)
+    args = _gd_operands(cuda_device, m, k, n, transposed, seed=39)
+    flags = dict(activation=activation, transposed=transposed)
+    want_gd = gemm._gd_ref(*args, *_GD_HP, **flags)
+    got_gd = gemm.gd_fused(*args, *_GD_HP, **flags)
+    torch.cuda.synchronize()
+    dw_shape = (n, k, m) if transposed else (k, n, m)
+    assert gemm.split_launches == {
+        "matmul_split": 1, "gd_dx_split": int(gemm.plan(m, k, n)[1] > 1),
+        "gd_dw_split": int(gemm.plan(*dw_shape)[1] > 1)}
+    torch.testing.assert_close(got, want, atol=GEMM_TOL[0],
+                               rtol=GEMM_TOL[1])
+    for name, g, w_ in zip(("w", "b", "vw", "vb", "err_input"), got_gd,
+                           want_gd):
+        torch.testing.assert_close(g, w_, atol=GEMM_TOL[0],
+                                   rtol=GEMM_TOL[1], msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(100, 784, 100), (37, 70, 50)])
+def test_gemm_reads_a_strided_x_on_card(cuda_device, gemm_launches, m, k,
+                                        n):
+    """x as a view (row stride 2k + 3, every other column) for matmul's
+    a and for gd_dw's x: masked scalar staging, same results."""
+    from veles_tpu_torch.ops import gemm
+    a, w, bias = _gemm_case(cuda_device, m, k, n, seed=40, x_strided=True)
+    torch.testing.assert_close(gemm.matmul(a, w, bias, "tanh"),
+                               gemm._matmul_ref(a, w, bias, "tanh"),
+                               atol=GEMM_TOL[0], rtol=GEMM_TOL[1])
+    _x, y, eo, w, b, vw, vb = _gd_operands(cuda_device, m, k, n, False,
+                                           seed=41)
+    want = gemm._gd_ref(a, y, eo, w, b, vw, vb, *_GD_HP, activation="tanh")
+    got = gemm.gd_fused(a, y, eo, w, b, vw, vb, *_GD_HP, activation="tanh")
+    torch.cuda.synchronize()
+    for name, g, w_ in zip(("w", "b", "vw", "vb", "err_input"), got, want):
+        torch.testing.assert_close(g, w_, atol=GEMM_TOL[0],
+                                   rtol=GEMM_TOL[1], msg=name)
+
+
+@pytest.mark.cuda
+def test_gemm_split_launch_replays_in_a_cuda_graph_on_card(cuda_device,
+                                                            gemm_launches):
+    """Layer 1's forward (split 8) and dw (split 4), captured as cluster
+    launches into one graph: a replay gives the eager call's bits."""
+    from veles_tpu_torch.ops import gemm
+    a, w, bias = _gemm_case(cuda_device, 100, 784, 100, seed=42)
+    x, y, eo, w1, _b, vw1, _vb = _gd_operands(cuda_device, 100, 784, 100,
+                                              False, seed=43)
+    eager = gemm.matmul(a, w, bias, "tanh")
+    w_eager, vw_eager = w1.clone(), vw1.clone()
+    gemm._gd_dw_cuda(x, eo, y, w_eager, vw_eager, 0.01, *_GD_HP[0:5:2],
+                     "tanh", False)
+    torch.cuda.synchronize()
+    w_graph, vw_graph = w1.clone(), vw1.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gemm.matmul(a, w, bias, "tanh")
+        gemm._gd_dw_cuda(x, eo, y, w_graph, vw_graph, 0.01,
+                         *_GD_HP[0:5:2], "tanh", False)
+    out.zero_()
+    w_graph.copy_(w1)
+    vw_graph.copy_(vw1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert gemm.plan(100, 100, 784) == (gemm.SPLIT_TILE, 8)
+    assert gemm.plan(784, 100, 100) == (gemm.SPLIT_TILE, 4)
+    assert torch.equal(out, eager)
+    assert torch.equal(w_graph, w_eager) and torch.equal(vw_graph, vw_eager)
+
+
+@pytest.mark.cuda
+def test_gemm_body_follows_the_plan_on_card(cuda_device, gemm_launches):
+    """The split tile at layer 1's shape and the big tile at 4096^3, by
+    the kernels' names in a profile: ``veles_gemm_kernel<KIND, TILE>``.
+    The profiler may record none of a window's ctypes launches, so a
+    window that saw no GEMM kernel is profiled again, up to three times;
+    every kernel it does see must be the planned body."""
+    from veles_tpu_torch.ops import gemm
+    for size, tile in (((100, 784, 100), 0), ((4096, 4096, 4096), 1)):
+        a, w, bias = _gemm_case(cuda_device, *size, seed=44)
+
+        def run():
+            for _ in range(8):
+                out = gemm.matmul(a, w, bias, "tanh")
+            return out.sum()
+        for _ in range(3):
+            names = _profiled_kernel_names(run, "veles_gemm_kernel")
+            if names:
+                break
+        assert names and all("veles_gemm_kernel<0, %d>" % tile in name
+                             for name in names), names
 
 
 # -- the gather kernels (csrc/gather.cu) -------------------------------------

@@ -301,3 +301,28 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "veles_tpu_torch" in proc.stderr
+
+
+@pytest.mark.parametrize("windows,tries,names", [
+    # the first window saw the kernel
+    ([{"k<1>": 1}], 1, {"k<1>": 1}),
+    # two windows saw nothing, the third the kernel
+    ([{}, {}, {"k<1>": 2}], 3, {"k<1>": 2}),
+    # a kernel never seen: the check is left to fail after 3 windows
+    ([{}, {}, {}, {"k<1>": 1}], 3, {}),
+])
+def test_chip_smoke_takes_a_name_window_again_only_while_it_saw_none(
+        windows, tries, names):
+    import runpy
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"))
+    left = list(windows)
+    taken = []
+
+    def window(fn, names_of=()):
+        taken.append(names_of)
+        return {"kernel_names": left.pop(0)}
+    profiled = smoke["profiled_names"]
+    profiled.__globals__["profile_window"] = window
+    assert smoke["PROFILE_TRIES"] == 3
+    assert profiled(lambda: None, ("k",), bool) == (names, tries)
+    assert taken == [("k",)] * tries

@@ -20,7 +20,13 @@ Counterpart of :mod:`veles_tpu.ops.gemm`:
   PLACE (the JAX package donates them) and returned with err_input.
 
 The kernels take f32 only (bf16 arrives with the fused trainer) and
-compute full f32 at every ``precision_level``.  The hyperparameters
+compute full f32 at every ``precision_level``.  :func:`plan` picks the
+GEMM body's tile and K split from the shape (the ``tile`` and ``split``
+of every launch): the 128 × 128 tile where its grid covers the card's
+SMs, else the 32 × 32 tile with K split over a thread block cluster of
+up to 8 blocks, summed in rank order (no atomics: a launch gives the
+same bits every time).  A grid covers the SMs when it holds a 256-thread
+block's worth of threads for each.  The hyperparameters
 are plain kernel arguments when given as numbers; given as 0-d f32
 tensors on the card, the dw and db kernels read them from device memory
 when they run, so a CUDA graph that captured the launch sees the values
@@ -28,7 +34,8 @@ written before each replay.  The kernels scale by ``1/B`` as a multiply,
 as the Pallas kernels do; ``_gd_ref`` divides, as ``_gd_math`` does,
 so the two differ in the last bit.  There is no fallback from a CUDA
 tensor to the plain version.  ``launches`` counts kernel launches by
-kernel name; only a launch adds to it.
+kernel name; only a launch adds to it, and ``split_launches`` counts
+the GEMM launches that split K over a cluster.
 """
 
 import ctypes
@@ -43,23 +50,77 @@ ACTIVATION_CODES = {None: 0, "linear": 0, "tanh": 1, "sigmoid": 2,
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"matmul": 0, "gd_dx": 0, "gd_dw": 0, "gd_db": 0}
+#: "<GEMM kernel name>_split" -> those of its launches that split K
+split_launches = {"matmul_split": 0, "gd_dx_split": 0, "gd_dw_split": 0}
+
+#: csrc/gemm.cu's tile configurations (``TileOf<TILE>``): code -> (BM,
+#: BN, BK, threads) of the output tile, the K step and the block
+SPLIT_TILE, BIG_TILE = 0, 1
+TILES = {SPLIT_TILE: (32, 32, 16, 64), BIG_TILE: (128, 128, 8, 256)}
+_SMS = 132                # the H100's SMs
+_COVER = _SMS * 256       # threads of a grid that covers them once
+_MAX_SPLIT = 8            # the portable cluster size
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 #: kernel name -> (C symbol, ctypes argtypes), all in csrc/gemm.cu
 _ARGTYPES = {
-    "matmul": ("veles_matmul", [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _P]),
-    "gd_dx": ("veles_gd_dx", [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I, _P]),
+    "matmul": ("veles_matmul", [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I] * 3
+               + [_P]),
+    "gd_dx": ("veles_gd_dx", [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I] * 3
+              + [_P]),
     "gd_dw": ("veles_gd_dw", [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I] * 2
-              + [_F] * 4 + [_P] * 4),
+              + [_F] * 4 + [_P] * 3 + [_I] * 2 + [_P]),
     "gd_db": ("veles_gd_db", [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P] * 4),
 }
 _entries = {}
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    for counter in (launches, split_launches):
+        for name in counter:
+            counter[name] = 0
+
+
+def grid_threads(m, n, tile, split=1):
+    """Threads of the grid of ``tile`` over an (M, N) output, split K
+    ways."""
+    block_m, block_n, _, threads = TILES[tile]
+    return -(-m // block_m) * -(-n // block_n) * threads * split
+
+
+def plan(m, n, k):
+    """``(tile, split)`` of the GEMM body for an (M, K) by (K, N)
+    product: the big tile where its grid covers the SMs (split 1), else
+    the split tile with K split over a cluster, doubled up to 8 while
+    the grid covers the SMs less than once and every rank keeps a K
+    tile."""
+    if grid_threads(m, n, BIG_TILE) >= _COVER:
+        return BIG_TILE, 1
+    k_tiles = -(-k // TILES[SPLIT_TILE][2])
+    split = 1
+    while (split < _MAX_SPLIT
+           and grid_threads(m, n, SPLIT_TILE, split) < _COVER
+           and k_tiles >= 2 * split):
+        split *= 2
+    return SPLIT_TILE, split
+
+
+def k_range(rank, split, k, tile=SPLIT_TILE):
+    """``[k_begin, k_end)``: the K elements rank ``rank`` of a split
+    launch sums, as the kernel computes them: K tiles ``[rank T / split,
+    (rank + 1) T / split)`` of ``T = ceil(K / BK)``, so the chunks
+    differ by at most one tile and only the last one is ragged."""
+    block_k = TILES[tile][2]
+    k_tiles = -(-k // block_k)
+    return (rank * k_tiles // split * block_k,
+            min(k, (rank + 1) * k_tiles // split * block_k))
+
+
+def _launched(name, split):
+    launches[name] += 1
+    if split > 1:
+        split_launches[name + "_split"] += 1
 
 
 def _entry(name):
@@ -169,10 +230,10 @@ def _check_contiguous(name, **tensors):
             raise ValueError("%s needs a contiguous %s" % (name, label))
 
 
-def _matmul_cuda(a, w, bias, activation):
+def _matmul_cuda(a, w, bias, activation, tile_split=None):
     """The ``veles_matmul`` kernel: a (M, K) and w (K, N) read through
     their strides (a transposed view needs no copy), bias (N,)
-    contiguous or None."""
+    contiguous or None; ``tile_split`` overrides :func:`plan`."""
     _check_2d("matmul", a=a, w=w)
     _check_f32("matmul", a, w, *(() if bias is None else (bias,)))
     m, k = a.shape
@@ -185,13 +246,14 @@ def _matmul_cuda(a, w, bias, activation):
         raise ValueError("matmul needs a contiguous bias of shape (%d,)"
                          % n)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    tile, split = tile_split or plan(m, n, k)
     status = _entry("matmul")(
         a.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         m, n, k, a.stride(0), a.stride(1), w.stride(0), w.stride(1),
-        ACTIVATION_CODES[activation], stream_handle(a.device))
+        ACTIVATION_CODES[activation], tile, split, stream_handle(a.device))
     check_status("matmul", status)
-    launches["matmul"] += 1
+    _launched("matmul", split)
     return out
 
 
@@ -244,30 +306,32 @@ def _hyperparameters(name, device, *values):
     return [0.0] * len(values), [v.data_ptr() for v in values]
 
 
-def _gd_dx_cuda(eo, y, w, activation, transposed):
+def _gd_dx_cuda(eo, y, w, activation, transposed, tile_split=None):
     """``veles_gd_dx``: err_input (B, F) = δ·Wᵀ (δ·W when transposed),
-    δ rebuilt per tile from eo and y; w read through its strides."""
+    δ rebuilt per tile from eo and y; w read through its strides;
+    ``tile_split`` overrides :func:`plan`."""
     f = _gd_check("gd_dx", eo, y, w, transposed)
     batch, n = eo.shape
     out = torch.empty((batch, f), dtype=torch.float32, device=eo.device)
     # w as the (n, f) operand of δ·(.)
     s_nf = (w.stride(0), w.stride(1)) if transposed \
         else (w.stride(1), w.stride(0))
+    tile, split = tile_split or plan(batch, f, n)
     status = _entry("gd_dx")(
         eo.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
-        batch, n, f, *s_nf, ACTIVATION_CODES[activation],
+        batch, n, f, *s_nf, ACTIVATION_CODES[activation], tile, split,
         stream_handle(eo.device))
     check_status("gd_dx", status)
-    launches["gd_dx"] += 1
+    _launched("gd_dx", split)
     return out
 
 
 def _gd_dw_cuda(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
-                transposed):
+                transposed, tile_split=None):
     """``veles_gd_dw``: dW = xᵀδ (δᵀx in (N, F) storage) times
     ``inv_batch``, then the momentum update of the contiguous ``w`` and
     ``vw`` in place; ``lr``, ``decay``, ``moment`` numbers or 0-d f32
-    tensors on the card."""
+    tensors on the card; ``tile_split`` overrides :func:`plan`."""
     _gd_check("gd_dw", eo, y, w, transposed, x=x)
     _check_contiguous("gd_dw", w=w, vw=vw)
     if vw.shape != w.shape or vw.dtype != w.dtype or vw.device != w.device:
@@ -276,13 +340,17 @@ def _gd_dw_cuda(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
     batch, n = eo.shape
     values, pointers = _hyperparameters("gd_dw", eo.device, lr, decay,
                                         moment)
+    f = x.shape[1]
+    tile, split = tile_split or plan(*((n, f) if transposed else (f, n)),
+                                     batch)
     status = _entry("gd_dw")(
         x.data_ptr(), eo.data_ptr(), y.data_ptr(), w.data_ptr(),
-        vw.data_ptr(), batch, x.shape[1], n, x.stride(0), x.stride(1),
+        vw.data_ptr(), batch, f, n, x.stride(0), x.stride(1),
         int(bool(transposed)), ACTIVATION_CODES[activation],
-        float(inv_batch), *values, *pointers, stream_handle(eo.device))
+        float(inv_batch), *values, *pointers, tile, split,
+        stream_handle(eo.device))
     check_status("gd_dw", status)
-    launches["gd_dw"] += 1
+    _launched("gd_dw", split)
 
 
 def _gd_db_cuda(eo, y, b, vb, inv_batch, lr, decay, moment, activation):

@@ -110,9 +110,11 @@ class StitchStage(object):
 
 
 def _launch_counters():
-    """Every kernel wrapper module's ``launches`` dict."""
+    """Every kernel wrapper module's ``launches`` dict, and the GEMM
+    wrappers' ``split_launches``."""
     from veles_tpu_torch.ops import attention, gather, gemm
-    return (attention.launches, gather.launches, gemm.launches)
+    return (attention.launches, gather.launches, gemm.launches,
+            gemm.split_launches)
 
 
 class ScalarBlock(object):

@@ -9,7 +9,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. ``device``  — the card's name and power limit (``nvidia-smi``).
 2. ``build``   — compile every kernel of ``veles_tpu_torch/csrc`` with
-   ``nvcc`` (one process per source, all at once) and load them.
+   ``nvcc`` (one process per source, all at once) and load them, and,
+   in the same parallel batch, four builds with a fault planted in a
+   cluster merge (``-DVELES_PLANTED_FAULT``: decode attention's last
+   rank dropped, or its acc not rescaled; qmatmul's decode body's last
+   rank's K chunk dropped, or its scale applied twice).
 3. ``kernels`` — hold each kernel against its plain PyTorch version on
    the same CUDA tensors: the flash-prefill kernel against ``_mha_ref``
    on strided q/k/v views of one projection, as prefill hands them over
@@ -34,7 +38,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
    per call (``device_ms``, as the GEMM rows below).  The forward is
    timed at (1, 2048, 16, 64) and at the train step's (8, 2048, 16, 64),
    SDPA on both measures beside it, and two faults planted in its inputs
-   (V's row 64 zeroed, q_offset off by one) must each be reported.
+   (V's row 64 zeroed, q_offset off by one) must each be reported.  The
+   decode kernel, whose (batch, head) rows split their keys over a
+   cluster of up to 8 blocks, is held against ``_decode_ref`` /
+   ``_verify_ref`` at the serving shape (4 x 16 heads of 64, a 2048-row
+   cache, lengths 1, 17, 1000, 2048) under every split (1, 2, 4, 8), f32
+   and bf16, decode and 5-row verify, each relaunch bit-equal; the two
+   planted builds of its merge must each be reported in f32; it is timed
+   (bf16) as one wrapper call's event time with L2 flushed and as device
+   time a call on cold operands (``cold_device_ms``: 12 copies of the
+   cache cycled, so no call finds its 12.6 MB in L2), SDPA with the
+   length mask on both measures, with its split, its share of the bound
+   and its body read from the profiled names (``decode_kernel_split``).
 4. ``serve``   — the main path at full width: ``GenerativeEngine`` over
    ``TransformerGenModel(CONFIG)`` in bfloat16 (4 slots, max_seq 2048)
    behind a ``GenerativeScheduler`` worker thread, 8 seeded requests of
@@ -43,8 +58,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    just before the session, read just after) must show 12 launches per
    prefill and per decode step.  After the counted session, two
    windows under ``torch.profiler`` (filling the 4 slots with prefills,
-   then 16 decode steps) give the device time by kernel group and the
-   device's busy share of the wall time.
+   then 16 decode steps, taken again, at most 6 windows, while it
+   counted the library or qmatmul kernels of only part of its steps)
+   give the device time by kernel group and the device's busy share of
+   the wall time; every decode-attention kernel the decode window names
+   is the split body.
 5. ``parity``  — CONFIG width cut to 2 layers, float32 with TF32 off:
    4 seeded requests x 16 tokens on the card (kernels) and on the CPU
    (plain versions) must give equal token streams, unless the CPU
@@ -58,13 +76,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
    0 just before the session, read just after) exactly 48 a prefill and
    a decode step (4 a layer); every block weight int8; in a profiled
    prefill window of 4 prompts, every block product of a bucket above
-   16 rows runs the tensor-core body (``qmatmul_kernel_tc``), the
-   window's qmatmul device time printed.  A 16-step
-   decode window under ``torch.profiler`` must hold at least 48 cuBLAS
-   kernels a step fewer than ``serve``'s bf16 window, where each of the
-   48 block products launches at least one (so none went through the
-   library here), and gives qmatmul's device time a launch against its
-   bound by bytes.  Params bytes and their ratio to the
+   16 rows runs the tensor-core body (``qmatmul_kernel_tc``), of a
+   16-row bucket the decode body, the window's qmatmul device time
+   printed.  A 16-step decode window under ``torch.profiler`` must name
+   the decode body (``qmatmul_kernel_dec``) and no other, must hold at
+   least 48 cuBLAS kernels a step fewer than ``serve``'s bf16 window,
+   where each of the 48 block products launches at least one (so none
+   went through the library here), and gives qmatmul's device time a
+   launch against its bound by bytes.  Params bytes and their ratio to the
    bf16 twin's, tokens/s, TTFT, the median decode step and the share of
    tokens equal to ``serve``'s streams are printed.
 7. ``serve_int8_parity`` — CONFIG cut to 2 layers, f32, TF32 off: one
@@ -174,13 +193,14 @@ The ``kernels`` phase also holds the paged decode kernel against
 and verify (5 and 8 rows), pages of 4, 8 and 16 keys in shuffled order,
 lengths of 1, a page edge -1 and +1 and a verify limit at max_blocks·BS;
 requires it to equal the contiguous decode kernel bit for bit on a pool
-that mirrors a contiguous cache, to ignore garbage (1e4) in the trash
-and unowned pages, and to report two planted faults (one row's first
-and last table entries swapped, one row's length + 1); and times it at
-the serving shape (bf16, 513-page pool, lengths up to 1564, decode and
-5-row verify) beside the contiguous kernel on the mirrored cache, the
-plain version and its bound by bytes (no one PyTorch call reads through
-a block table, so ``library_ms`` is null).  It holds the GEMM kernel
+that mirrors a contiguous cache at every split, to ignore garbage (1e4)
+in the trash and unowned pages, and to report two planted faults (one
+row's first and last table entries swapped, one row's length + 1); and
+times it at the serving shape (bf16, 513-page pool, lengths up to 1564,
+decode and 5-row verify), on both measures, beside the contiguous kernel
+on the mirrored cache, the plain version and its bound by bytes (no one
+PyTorch call reads through a block table, so ``library_ms`` is null),
+with its split and body.  It holds the GEMM kernel
 (``matmul``: every activation × bias on/off) and the fused GD trio (every activation ×
 both storage layouts × need_err_input × has_bias) against
 ``_matmul_ref`` / ``_gd_ref`` at 37×70×50, the MNIST shapes, 8×20×8 and
@@ -207,13 +227,18 @@ the int8 GEMM (``qmatmul``) against ``_qmatmul_ref`` at CONFIG's four
 block shapes at M = 4 and 2048 in bf16 and M = 20 in f32, and at (5,
 200, 130) and (20, 1024, 1024) with every activation (gelu included),
 bias and no bias, f32 and bf16 (f32 within 1e-4 of max |plain|, bf16
-within 2e-2); two planted faults (shuffled scales, the last K tile
-dropped) must be reported; relaunches of the tensor-core body, split
-and not, must give equal bits; it is timed at the four shapes at decode
-(L2 flushed) and at prefill (M = 2048, the row's headline; device time
-too) beside its bound, the plain version and ``torch.mm`` on a
-dequantized bf16 copy plus the epilogue, and a profile must name the
-tensor-core body at M = 2048 and the FMA body at decode.  It holds the
+within 2e-2), and the decode body (bf16, M <= 16) at (4, 1024, 1024),
+(16, 4096, 1024) and (5, 200, 130) under every column tile and split,
+each relaunch bit-equal; four planted faults (shuffled scales, the last
+K tile dropped, and the decode body's two planted builds) must be
+reported; relaunches of the tensor-core body, split and not, must give
+equal bits; it is timed at the four shapes at decode (event time with L2
+flushed, and device time on 12 cycled copies of the weights) and at
+prefill (M = 2048, the row's headline; device time too) beside its
+bound, the plain version and ``torch.mm`` on a dequantized bf16 copy
+plus the epilogue, on the same measures, and a profile of each M's calls
+must name the tensor-core body at M = 2048 and the decode body
+(``qmatmul_kernel_dec``) at decode, and no other.  It holds the
 reduce kernel against ``_reduce_ref`` at (4096, 4096), (37, 53), (24,
 256), (1, 5000) and (5000, 1), f32 and bf16, every op and axis, with and
 without ±inf and NaN (max and min equal, NaN where the plain version has
@@ -238,6 +263,7 @@ result.
 """
 
 import contextlib
+import itertools
 import json
 import re
 import statistics
@@ -385,6 +411,23 @@ def device_ms(fn, reps=20):
         cycles *= 4
     raise PhaseFailed("kernels: the host queued %d calls more slowly "
                       "than the spin lasted" % reps)
+
+
+#: copies of a byte-bound call's operands that :func:`cold_device_ms`
+#: cycles through: 12 copies of the decode step's 12.6 MB of K and V (or
+#: of a qmatmul layer's int8 weights) pass 150 MB, three times the 50 MB
+#: L2, between two calls on the same copy, as a serving step's 12 layers
+#: do
+COLD_COPIES = 12
+
+
+def cold_device_ms(calls, reps=2 * COLD_COPIES):
+    """:func:`device_ms` of a byte-bound call with each call on the next
+    of ``calls`` (one closure a copy of the operands, cycled), so that
+    none finds its operands in L2: back to back on one copy, the decode
+    step's bytes would be served from L2 after the first call."""
+    it = itertools.cycle(calls)
+    return device_ms(lambda: next(it)(), reps)
 
 
 #: a launch counter's name -> its kernel group in a profile, where the two
@@ -548,11 +591,13 @@ def _gemm_bodies_ok(breakdown):
 def _bodies(names):
     """Kernels by the body their profiled names belong to: ``*_kernel_tc``
     is the bf16 tensor-core body (of ``csrc/flash_fwd.cu``,
-    ``csrc/flash_bwd.cu`` or ``csrc/qgemm.cu``), the rest the FMA
-    body."""
-    bodies = {"tensor_core": 0, "fma": 0}
+    ``csrc/flash_bwd.cu`` or ``csrc/qgemm.cu``), ``qmatmul_kernel_dec``
+    qmatmul's decode body (bf16 at M <= 16), the rest the FMA body."""
+    bodies = {"tensor_core": 0, "decode": 0, "fma": 0}
     for name, n in names.items():
-        bodies["tensor_core" if "_kernel_tc<" in name else "fma"] += n
+        body = ("tensor_core" if "_kernel_tc<" in name else "decode"
+                if "qmatmul_kernel_dec<" in name else "fma")
+        bodies[body] += n
     return bodies
 
 
@@ -582,17 +627,82 @@ def phase_device():
     return info
 
 
+#: builds of a source with a fault planted in its cluster merge
+#: (``-DVELES_PLANTED_FAULT=n``), which the ``kernels`` phase's
+#: tolerances must report: (source, n) -> what the fault does
+PLANTED_BUILDS = {
+    ("decode_attn", 1): "last_rank_partial_dropped",
+    ("decode_attn", 2): "last_rank_acc_not_rescaled",
+    ("qgemm", 1): "last_rank_k_chunk_dropped",
+    ("qgemm", 2): "scale_applied_twice"}
+#: (source, n) -> the built library
+planted_libraries = {}
+
+
 def phase_build():
     from veles_tpu_torch.ops import build
     tic = time.perf_counter()
-    seconds = build.build_all()
+    folder = build.BUILD_DIR / "planted"
+    folder.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for source, fault in PLANTED_BUILDS:
+        target = folder / ("lib%s_fault%d.so" % (source, fault))
+        cmd = [build.nvcc(), *build.NVCC_FLAGS,
+               "-DVELES_PLANTED_FAULT=%d" % fault, "-o", str(target),
+               str(build.CSRC_DIR / (source + ".cu"))]
+        procs[source, fault] = (target, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    try:
+        seconds = build.build_all()
+        for key, (target, proc) in procs.items():
+            out, _ = proc.communicate()
+            check(proc.returncode == 0, "build", "nvcc failed on the "
+                  "planted build %s:\n%s" % (key, out))
+            planted_libraries[key] = target
+    finally:
+        for _target, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     wall = time.perf_counter() - tic
     ptxas = {name: [ln.strip() for ln in log["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]
              for name, log in build.build_log.items()}
     emit({"phase": "build", "ok": True, "wall_s": wall,
-          "nvcc_s": seconds, "ptxas": ptxas})
+          "nvcc_s": seconds, "ptxas": ptxas,
+          "planted_builds": sorted("%s:%d" % key for key in PLANTED_BUILDS)})
+
+
+@contextlib.contextmanager
+def planted(source, fault):
+    """The package's wrappers of ``source``'s kernels launch the planted
+    build ``fault`` inside the block (same C entries, same arguments)."""
+    import ctypes
+    from veles_tpu_torch.ops import attention, qgemm
+    lib = ctypes.CDLL(str(planted_libraries[source, fault]))
+    if source == "qgemm":
+        fn = lib.veles_qmatmul
+        fn.argtypes, fn.restype = qgemm._ARGTYPES, ctypes.c_int
+        saved = list(qgemm._entry_fn)
+        qgemm._entry_fn[:] = [fn]
+        try:
+            yield
+        finally:
+            qgemm._entry_fn[:] = saved
+        return
+    saved = dict(attention._entries)
+    for name in ("decode_attn", "paged_decode_attn"):
+        _src, symbol, argtypes = attention._ARGTYPES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        attention._entries[name] = fn
+    try:
+        yield
+    finally:
+        attention._entries.clear()
+        attention._entries.update(saved)
 
 
 def _rand(rng, shape, dtype, device, uniform=False):
@@ -708,7 +818,7 @@ def _fwd_timed(rng, device):
                plain_of="_mha_ref", library_of="SDPA, is_causal",
                by_shape=by_shape, train_shape=by_shape[1],
                planted_faults=planted, profile_windows=tries)
-    ok = (bodies == {"tensor_core": 1, "fma": 0}
+    ok = (bodies == {"tensor_core": 1, "decode": 0, "fma": 0}
           and all(f["caught"] for f in planted.values())
           and all(r["max_abs_err"] <= BF16_TOL for r in by_shape))
     return row, ok
@@ -841,7 +951,7 @@ def _bwd_timed(rng, device):
         bodies = _bodies({n_: c for n_, c in names.items()
                               if name + "_kernel" in n_})
         body = "+".join(b_ for b_, n_ in bodies.items() if n_)
-        ok = ok and bodies == {"tensor_core": 1, "fma": 0}
+        ok = ok and bodies == {"tensor_core": 1, "decode": 0, "fma": 0}
         ms = time_ms(fn)
         rows.append({
             "name": name, "route": "cuda",
@@ -1361,6 +1471,137 @@ def _gather_kernels(device):
             "planted_faults": planted}, timed, ok
 
 
+# -- the decode kernel (csrc/decode_attn.cu, first entry) --------------------
+
+#: the serving decode step: 4 slots x 16 heads of 64 against the 2048-row
+#: cache, at lengths short, mid and full (a 5-row verify reaches 2048)
+DECODE_SHAPE = dict(b=4, h=16, d=64, seq=2048)
+DECODE_LENGTHS = [1, 17, 1000, 2048]
+DECODE_SPLITS = (1, 2, 4, 8)
+#: the cluster merge's body, by its profiled name.  Its name windows hold
+#: 12 launches: late in this process a window around ctypes launches has
+#: seen none of one launch three times over, and 1 of 4 (a fresh process
+#: sees every one)
+DECODE_BODY = "decode_kernel_split<"
+
+
+def _decode_split_cases(rng, device):
+    """The contiguous kernel at the serving shape under every split,
+    f32 and bf16, decode and 5-row verify, against ``_decode_ref`` /
+    ``_verify_ref`` (f32 <= 1e-4, bf16 <= 2e-2), and each relaunch
+    bit-equal."""
+    from veles_tpu_torch.ops.attention import (_decode_cuda, _decode_ref,
+                                               _verify_ref)
+    cases, same = [], True
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for nq, row_step in ((1, 0), (5, 1)):
+            lengths = DECODE_LENGTHS[:-1] + [2048 - row_step * (nq - 1)]
+            (q, k, v, lens), _err = _decode_case(rng, device, dtype, lengths,
+                                                 nq, row_step)
+            want = (_verify_ref if row_step else _decode_ref)(q, k, v, lens)
+            for split in DECODE_SPLITS:
+                out = _decode_cuda(q, k, v, lens, row_step, split)
+                again = _decode_cuda(q, k, v, lens, row_step, split)
+                gpu_sync()
+                same = same and torch.equal(out, again)
+                err = _max_err(out, want)
+                cases.append({"kernel": "decode_attn",
+                              "dtype": str(dtype)[6:], "q": [4, nq, 16, 64],
+                              "lengths": lengths, "row_step": row_step,
+                              "split": split, "max_abs_err": err,
+                              "tol": tol, "ok": err <= tol})
+    return cases, same
+
+
+def _decode_planted_faults(rng, device):
+    """The planted builds of decode_attn.cu (the last rank's partial
+    dropped from the cluster merge; the last rank's acc taken without
+    rescaling by its m) at the serving shape in f32, where the rule
+    splits each row over 8 blocks: each must move the output past the
+    f32 tolerance of the plain version."""
+    from veles_tpu_torch.ops.attention import (_decode_cuda, _decode_ref,
+                                               decode_split)
+    (q, k, v, lens), _err = _decode_case(rng, device, torch.float32,
+                                         DECODE_LENGTHS, 1, 0)
+    want = _decode_ref(q, k, v, lens)
+    split = decode_split(DECODE_SHAPE["b"] * DECODE_SHAPE["h"])
+    out = {}
+    for (source, fault), name in PLANTED_BUILDS.items():
+        if source != "decode_attn":
+            continue
+        with planted(source, fault):
+            got = _decode_cuda(q, k, v, lens, 0)
+        err = _max_err(got, want)
+        out[name] = {"max_abs_err": err, "tol": F32_TOL, "split": split,
+                     "caught": err > F32_TOL}
+    return out
+
+
+def _decode_timed(rng, device):
+    """The kernel at the serving decode step (bf16): one wrapper call's
+    event time with L2 flushed (``ms``, the earlier rows' measure) and
+    the device time a call on cold operands (:func:`cold_device_ms`),
+    each beside SDPA with the length mask on the same measure; the plain
+    version, the bound by bytes and its share, the split, and the body
+    read from the profiled kernel names."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops.attention import (_decode_cuda, _decode_ref,
+                                               decode_split)
+    b, h, d, seq = (DECODE_SHAPE[x] for x in ("b", "h", "d", "seq"))
+    (q, k, v, lens), err = _decode_case(rng, device, torch.bfloat16,
+                                        DECODE_LENGTHS, 1, 0)
+    nbytes = (2 * sum(DECODE_LENGTHS) * h * d * 2      # valid K and V rows
+              + 2 * b * h * d * 2 + b * 4)
+    bound, by = bound_seconds(nbytes, 4 * d * h * sum(DECODE_LENGTHS),
+                              "bfloat16")
+    mask = (torch.arange(seq, device=device)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    copies = [(k, v)] + [(k.clone(), v.clone())
+                         for _ in range(COLD_COPIES - 1)]
+    kernels = [lambda k=k_, v=v_: _decode_cuda(q, k, v, lens, 0)
+               for k_, v_ in copies]
+    sdpas = [lambda k=k_, v=v_: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask) for k_, v_ in copies]
+    flush = make_l2_flush(device)
+    dev, lib_dev = cold_device_ms(kernels), cold_device_ms(sdpas)
+    names, tries = profiled_names(
+        lambda: [fn().float().sum() for fn in kernels], ("decode_attn",),
+        bool)
+    row = {
+        "name": "decode_attn", "route": "cuda",
+        "source": "veles_tpu_torch/csrc/decode_attn.cu",
+        "replaces": "veles_tpu/ops/attention.py:423",
+        "q": [b, 1, h, d], "cache": [b, seq, h, d],
+        "lengths": DECODE_LENGTHS, "dtype": "bfloat16", "max_abs_err": err,
+        "ms": time_ms(kernels[0], flush=flush),
+        "plain_ms": time_ms(lambda: _decode_ref(q, k, v, lens),
+                            flush=flush),
+        "library_ms": time_ms(sdpas[0], flush=flush),
+        "device_ms": dev, "library_device_ms": lib_dev,
+        "bound_ms": bound * 1e3, "bound_by": by,
+        "bound_share_device": bound * 1e3 / dev,
+        "split": decode_split(b * h),
+        "body": "split" if names and all(DECODE_BODY in n_ for n_ in names)
+        else "not the split body", "kernel_names": names,
+        "profile_windows": tries, "library_of": "SDPA, length mask"}
+    return row
+
+
+def _decode_kernels(device):
+    """The ``kernels`` phase's decode part: every split's cases, the
+    relaunches, the planted builds and the timed row."""
+    rng = numpy.random.default_rng(SEED + 7)
+    cases, same = _decode_split_cases(rng, device)
+    planted_faults = _decode_planted_faults(rng, device)
+    row = _decode_timed(rng, device)
+    ok = (all(c["ok"] for c in cases) and same
+          and all(f["caught"] for f in planted_faults.values())
+          and row["max_abs_err"] <= BF16_TOL and row["body"] == "split")
+    return {"cases": cases, "bit_equal_relaunch": same,
+            "planted_faults": planted_faults}, [row], ok
+
+
 # -- the paged decode kernel (csrc/decode_attn.cu, second entry) ------------
 
 #: the serving shape of the paged paths: 4 slots, 16 heads of 64, pages
@@ -1437,8 +1678,10 @@ def _paged_cases(rng, device):
 def _paged_mirror(rng, device):
     """On a pool that mirrors a contiguous cache page by page (shuffled,
     garbage in the trash block), the paged kernel's output equals the
-    contiguous kernel's bit for bit, f32 and bf16, decode and verify."""
-    from veles_tpu_torch.ops.attention import _decode_cuda
+    contiguous kernel's bit for bit, f32 and bf16, decode and verify, at
+    every split."""
+    from veles_tpu_torch.ops.attention import (_decode_cuda,
+                                               _paged_decode_cuda)
     report, ok = [], True
     b, h, d, bs, mb = 4, 16, 64, 16, 128
     for dtype in (torch.float32, torch.bfloat16):
@@ -1455,14 +1698,16 @@ def _paged_mirror(rng, device):
             vp = kp.clone()
             kp[tables.long()] = k.reshape(b, mb, bs, h, d)
             vp[tables.long()] = v.reshape(b, mb, bs, h, d)
-            paged = _paged_out((q, kp, vp, tables, lens), row_step)
-            contiguous = _decode_cuda(q, k, v, lens, row_step)
-            gpu_sync()
-            equal = bool(torch.equal(paged, contiguous))
-            ok = ok and equal
-            report.append({"dtype": str(dtype).replace("torch.", ""),
-                           "nq": nq, "row_step": row_step,
-                           "bit_equal": equal})
+            for split in DECODE_SPLITS:
+                paged = _paged_decode_cuda(q, kp, vp, tables, lens,
+                                           row_step, split)
+                contiguous = _decode_cuda(q, k, v, lens, row_step, split)
+                gpu_sync()
+                equal = bool(torch.equal(paged, contiguous))
+                ok = ok and equal
+                report.append({"dtype": str(dtype).replace("torch.", ""),
+                               "nq": nq, "row_step": row_step,
+                               "split": split, "bit_equal": equal})
     return report, ok
 
 
@@ -1509,11 +1754,14 @@ def _paged_timed(rng, device):
     """The kernel at the serving shape (bf16, 513-page shuffled pool,
     lengths as serve_paged reaches them), decode and 5-row verify,
     beside the contiguous kernel on the mirrored cache, the plain version
-    and the bound by bytes."""
+    and the bound by bytes: one wrapper call's event time with L2 flushed
+    and the device time a call on cold operands (:func:`cold_device_ms`),
+    the split and the body read from the profiled kernel names."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops.attention import (_decode_cuda,
                                                _paged_decode_cuda,
-                                               _paged_decode_ref)
+                                               _paged_decode_ref,
+                                               decode_split)
     sh = PAGED_SHAPE
     b, h, d, bs, mb = sh["b"], sh["h"], sh["d"], sh["bs"], sh["max_blocks"]
     flush = make_l2_flush(device)
@@ -1523,6 +1771,7 @@ def _paged_timed(rng, device):
            "q": [b, 1, h, d], "pool": [sh["num_blocks"], bs, h, d],
            "tables": [b, mb], "lengths": PAGED_TIMED_LENGTHS,
            "dtype": "bfloat16", "library_ms": None,
+           "library_device_ms": None, "split": decode_split(b * h),
            "library": "none: no one PyTorch call reads through a block "
                       "table (a gather plus SDPA is two)"}
     for nq, row_step, tag in ((1, 0, ""), (5, 1, "verify_")):
@@ -1542,7 +1791,19 @@ def _paged_timed(rng, device):
                               for n in PAGED_TIMED_LENGTHS
                               for r in range(nq))
         bound, by = bound_seconds(nbytes, ops, "bfloat16")
+        copies = [(kp, vp, k, v)] + [
+            (kp.clone(), vp.clone(), k.clone(), v.clone())
+            for _ in range(COLD_COPIES - 1)]
+        dev = cold_device_ms([
+            lambda kp=c[0], vp=c[1]: _paged_decode_cuda(
+                q, kp, vp, tables, lens, row_step) for c in copies])
+        contiguous_dev = cold_device_ms([
+            lambda k=c[2], v=c[3]: _decode_cuda(q, k, v, lens, row_step)
+            for c in copies])
+        del copies
         row.update({
+            tag + "device_ms": dev, tag + "contiguous_device_ms":
+            contiguous_dev, tag + "bound_share_device": bound * 1e3 / dev,
             tag + "max_abs_err": err,
             tag + "ms": time_ms(lambda: _paged_decode_cuda(*args, row_step),
                                 flush=flush),
@@ -1551,6 +1812,13 @@ def _paged_timed(rng, device):
             tag + "plain_ms": time_ms(
                 lambda: _paged_decode_ref(*args, row_step), flush=flush),
             tag + "bound_ms": bound * 1e3, tag + "bound_by": by})
+    names, tries = profiled_names(
+        lambda: [_paged_decode_cuda(*args, 1).float().sum()
+                 for _ in range(COLD_COPIES)], ("paged_decode_attn",), bool)
+    row.update(body="split" if names and all(DECODE_BODY in n_
+                                             for n_ in names)
+               else "not the split body", kernel_names=names,
+               profile_windows=tries)
     return row
 
 
@@ -1564,7 +1832,8 @@ def _paged_kernels(device):
     row = _paged_timed(rng, device)
     ok = (all(c["ok"] for c in cases) and mirror_ok and faults_ok
           and row["max_abs_err"] <= BF16_TOL
-          and row["verify_max_abs_err"] <= BF16_TOL)
+          and row["verify_max_abs_err"] <= BF16_TOL
+          and row["body"] == "split")
     return {"cases": cases, "mirror": mirror,
             "garbage_and_planted_faults": faults}, [row], ok
 
@@ -1581,7 +1850,7 @@ QMM_DECODE_M = 4                 # a decode step of 4 slots
 QMM_VERIFY_M = 20                # a verify step: 4 slots x 5 rows
 QMM_PREFILL_M = 2048             # the largest prefill bucket
 QMM_ACTIVATIONS = (None, "tanh", "sigmoid", "relu", "strict_relu", "gelu")
-QMM_TILE_K = 64                  # BK of csrc/qgemm.cu's FMA body (decode)
+QMM_TILE_K = 64                  # BK of csrc/qgemm.cu's decode and FMA bodies
 
 
 def _qmm_operands(rng, device, m, k, n, dtype, bias=True):
@@ -1626,6 +1895,24 @@ def _qgemm_cases(rng, device):
                           bias=has_bias, activation=activation,
                           split=qgemm.split_k(m, n, k, dtype)))
 
+    def plans(m, k, n):
+        """The decode body at every column tile and split, bf16, a bias
+        and gelu, each relaunch bit-equal."""
+        a, q, scale, b = _qmm_operands(rng, device, m, k, n, torch.bfloat16)
+        want = qgemm._qmatmul_ref(a, q, scale, b, "gelu")
+        for plan in [(bn, s_) for bn in qgemm.DECODE_BLOCK_N
+                     for s_ in (1, 2, 4, 8)]:
+            got = qgemm._qmatmul_cuda(a, q, scale, b, "gelu",
+                                      torch.bfloat16, plan)
+            again = qgemm._qmatmul_cuda(a, q, scale, b, "gelu",
+                                        torch.bfloat16, plan)
+            gpu_sync()
+            cases.append(dict(_qmm_err(got, want, torch.bfloat16),
+                              kernel="qmatmul", shape=[m, k, n],
+                              dtype="bfloat16", bias=True, activation="gelu",
+                              plan=list(plan),
+                              bit_equal_relaunch=torch.equal(got, again)))
+
     for m, dtype in ((QMM_DECODE_M, torch.bfloat16),
                      (QMM_PREFILL_M, torch.bfloat16),
                      (QMM_VERIFY_M, torch.float32)):
@@ -1636,14 +1923,21 @@ def _qgemm_cases(rng, device):
             for activation in QMM_ACTIVATIONS:
                 for has_bias in (True, False):
                     case(m, k, n, dtype, has_bias, activation, None)
+    for m, k, n in ((QMM_DECODE_M, 1024, 1024), (16, 4096, 1024),
+                    (5, 200, 130)):
+        plans(m, k, n)
     gpu_sync()
+    for c in cases:
+        c["ok"] = c["ok"] and c.get("bit_equal_relaunch", True)
     return cases
 
 
 def _qgemm_planted_faults(rng, device):
-    """Faults planted in the kernel's inputs at the decode shape of wqkv,
-    each of which the tolerance must report: the scales shuffled, and
-    the last K tile dropped."""
+    """Faults planted at the decode shape of wqkv (split 8), each of which
+    the tolerance must report: in the kernel's inputs, the scales
+    shuffled and the last K tile dropped; in the planted builds of the
+    decode body, the last rank's K chunk dropped from the cluster sum and
+    the scale applied twice."""
     from veles_tpu_torch.ops import qgemm
     m, k, n = QMM_DECODE_M, 1024, 3072
     a, q, scale, _b = _qmm_operands(rng, device, m, k, n, torch.bfloat16)
@@ -1656,6 +1950,13 @@ def _qgemm_planted_faults(rng, device):
         "last_k_tile_dropped": _qmm_err(
             qgemm.qmatmul(a[:, :cut], q[:cut].contiguous(), scale), want,
             torch.bfloat16)}
+    for (source, fault), name in PLANTED_BUILDS.items():
+        if source == "qgemm":
+            with planted(source, fault):
+                faults[name] = dict(_qmm_err(qgemm.qmatmul(a, q, scale),
+                                             want, torch.bfloat16),
+                                    split=qgemm.split_k(m, n, k,
+                                                        torch.bfloat16))
     gpu_sync()
     return {name: dict(report, caught=not report["ok"])
             for name, report in faults.items()}
@@ -1673,11 +1974,14 @@ def _qgemm_timed(rng, device):
     prefill bucket (M = 2048), bf16: median of 20 CUDA-event timings of
     one wrapper call beside the bound, the plain version and one library
     call (torch.mm, or addmm with the bias, on a dequantized bf16 copy,
-    then gelu where the model fuses it); at M = 2048 also the device time
-    per call (:func:`device_ms`).  The row's headline is one prefill
-    layer, the sum of the four M = 2048 calls; one decode layer, the sum
-    of the four decode calls, stands beside it.  The body each shape ran
-    is read from the kernels' names in a profile."""
+    then gelu where the model fuses it); also the device time per call,
+    at M = 2048 back to back (:func:`device_ms`), at decode each call on
+    its own copy of the weights (:func:`cold_device_ms`), for the kernel
+    and the library call.  The row's headline is one prefill layer, the
+    sum of the four M = 2048 calls; one decode layer, the sum of the four
+    decode calls, stands beside it with its plans (column tile, split).
+    The body each M ran is read from the kernels' names in a profile of
+    that M's calls."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops import qgemm
     flush = make_l2_flush(device)
@@ -1709,6 +2013,8 @@ def _qgemm_timed(rng, device):
                 "weight": label, "shape": [m, k, n], "dtype": "bfloat16",
                 "bias": has_bias, "activation": activation,
                 "split": qgemm.split_k(m, n, k, dtype),
+                "block_n": qgemm.decode_plan(n, k)[0]
+                if m <= 16 else qgemm.TC_TILE[1],
                 "ms": time_ms(kernel, flush=cold),
                 "plain_ms": time_ms(lambda: qgemm._qmatmul_ref(
                     a, q, scale, b, activation), flush=cold),
@@ -1720,32 +2026,42 @@ def _qgemm_timed(rng, device):
                 entry["tflops_device"] = 2 * m * k * n / entry[
                     "device_ms"] / 1e9
                 entry["library_device_ms"] = device_ms(library)
+            else:
+                copies = [(q, wd)] + [(q.clone(), wd.clone())
+                                      for _ in range(COLD_COPIES - 1)]
+                entry["device_ms"] = cold_device_ms([
+                    lambda q=q_, kernel=kernel: kernel(q=q)
+                    for q_, _w in copies])
+                entry["library_device_ms"] = cold_device_ms([
+                    lambda wd=w_, library=library: library(wd=wd)
+                    for _q, w_ in copies])
+                del copies
+            entry["bound_share_device"] = bound * 1e3 / entry["device_ms"]
             by_shape.append(entry)
     gpu_sync()
-    # one call of each layer's shapes at decode and at prefill, beside a
-    # PyTorch kernel so the window sees the card
-    names, tries = profiled_names(
-        lambda: [fn().float().sum() for fn in calls], ("qmatmul",),
-        lambda seen: len({"_kernel<16" in n_ for n_ in seen}) == 2)
-    decode_names = {n_: c for n_, c in names.items() if "_kernel<16" in n_}
-    bodies = {"decode": _bodies(decode_names),
-              "prefill": _bodies({n_: c for n_, c in names.items()
-                                  if n_ not in decode_names})}
-    # this window has seen only 1 of the 4 decode launches (the serving
-    # windows see every one), so a body counts as named when the profile
-    # saw it at least once and saw no other body
-    named = {"decode": bodies["decode"]["fma"] > 0
-             and not bodies["decode"]["tensor_core"],
-             "prefill": bodies["prefill"]["tensor_core"] > 0
-             and not bodies["prefill"]["fma"]}
+    # each M's four calls in a window of their own, beside a PyTorch
+    # kernel so the window sees the card: at decode the decode body, at
+    # M = 2048 the tensor-core body, and no other.  A window may see only
+    # some of the launches (the serving windows see every one), so a body
+    # counts as named when the profile saw it at least once and saw no
+    # other body
+    bodies, tries, named = {}, {}, {}
+    for key, want, part in (("decode", "decode", calls[:4]),
+                            ("prefill", "tensor_core", calls[4:])):
+        names, tries[key] = profiled_names(
+            lambda part=part: [fn().float().sum() for fn in part],
+            ("qmatmul",), bool)
+        bodies[key] = _bodies(names)
+        named[key] = bodies[key][want] > 0 and sum(bodies[key].values()) \
+            == bodies[key][want]
 
     def layer(m):
         calls_m = [e for e in by_shape if e["shape"][0] == m]
         out = {key: sum(e[key] for e in calls_m)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")
-               + (("device_ms", "library_device_ms")
-                  if m == QMM_PREFILL_M else ())}
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "device_ms", "library_device_ms")}
         out["max_abs_err"] = max(e["max_abs_err"] for e in calls_m)
+        out["bound_share_device"] = out["bound_ms"] / out["device_ms"]
         return out
     prefill = layer(QMM_PREFILL_M)
     row = dict(prefill, name="qmatmul", route="cuda",
@@ -1757,8 +2073,12 @@ def _qgemm_timed(rng, device):
                else "not the tensor cores",
                decode_layer=dict(layer(QMM_DECODE_M), bound_by="bytes",
                                  shape="the 4 calls at M=%d"
-                                 % QMM_DECODE_M, body="fma"
-                                 if named["decode"] else "not the FMA body"),
+                                 % QMM_DECODE_M, body="decode"
+                                 if named["decode"]
+                                 else "not the decode body",
+                                 plans=[[e["block_n"], e["split"]]
+                                        for e in by_shape
+                                        if e["shape"][0] == QMM_DECODE_M]),
                plain_of="_qmatmul_ref",
                library_of="torch.mm / addmm on a dequantized bf16 copy, "
                "then the epilogue", by_shape=by_shape,
@@ -2020,8 +2340,6 @@ def _uniform_kernels(device):
 
 
 def phase_kernels(device):
-    from veles_tpu_torch.backends import bound_seconds
-    from veles_tpu_torch.ops.attention import _decode_cuda, _decode_ref
     rng = numpy.random.default_rng(SEED)
     cases = []
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -2052,49 +2370,13 @@ def phase_kernels(device):
         cases.append({"kernel": "flash_fwd", "dtype": name,
                       "shape": [1, 1024, 16, 64], "causal": True,
                       "q_offset": 512, "max_abs_err": err, "tol": tol})
-        _, err = _decode_case(rng, device, dtype, [1, 17, 1000, 2048], 1, 0)
-        cases.append({"kernel": "decode_attn", "dtype": name,
-                      "q": [4, 1, 16, 64], "cache": [4, 2048, 16, 64],
-                      "lengths": [1, 17, 1000, 2048],
-                      "max_abs_err": err, "tol": tol})
-        _, err = _decode_case(rng, device, dtype, [1, 17, 1000, 2044], 5, 1)
-        cases.append({"kernel": "decode_attn", "dtype": name,
-                      "q": [4, 5, 16, 64], "cache": [4, 2048, 16, 64],
-                      "lengths": [1, 17, 1000, 2044], "row_step": 1,
-                      "max_abs_err": err, "tol": tol})
     bad = [c for c in cases
            if not c.get("ok", c["max_abs_err"] <= c["tol"])]
 
     # times at the main path's shapes: the forward at the largest prefill
-    # bucket and the train step's batch, and a decode step of 4 slots
-    # against the 2048-row cache, all bfloat16
-    flush = make_l2_flush(device)
+    # bucket and the train step's batch, all bfloat16; the decode kernel
+    # in _decode_kernels
     flash, flash_ok = _fwd_timed(rng, device)
-    h, d, elem = 16, 64, 2
-    lengths = [1, 17, 1000, 2048]
-    (q, k, v, lens), derr = _decode_case(rng, device, torch.bfloat16,
-                                         lengths, 1, 0)
-    slots, seq = 4, 2048
-    d_bytes = (2 * sum(lengths) * h * d * elem      # valid K and V rows
-               + 2 * slots * h * d * elem + slots * 4)
-    d_ops = 4 * d * h * sum(lengths)
-    d_bound, d_by = bound_seconds(d_bytes, d_ops, "bfloat16")
-    mask = (torch.arange(seq, device=device)[None, :]
-            < lens[:, None].long())[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    decode = {
-        "name": "decode_attn", "route": "cuda",
-        "source": "veles_tpu_torch/csrc/decode_attn.cu",
-        "replaces": "veles_tpu/ops/attention.py:423",
-        "q": [slots, 1, h, d], "cache": [slots, seq, h, d],
-        "lengths": lengths, "dtype": "bfloat16", "max_abs_err": derr,
-        "ms": time_ms(lambda: _decode_cuda(q, k, v, lens, 0), flush=flush),
-        "plain_ms": time_ms(lambda: _decode_ref(q, k, v, lens),
-                            flush=flush),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), flush=flush),
-        "bound_ms": d_bound * 1e3, "bound_by": d_by,
-    }
     bwd_rows, bwd_report, bwd_ok = _bwd_timed(rng, device)
     gemm_report, gemm_rows, gemm_ok = _gemm_kernels(device)
     gather_report, gather_rows, gather_ok = _gather_kernels(device)
@@ -2102,12 +2384,14 @@ def phase_kernels(device):
     qgemm_report, qgemm_rows, qgemm_ok = _qgemm_kernels(device)
     reduce_report, reduce_rows, reduce_ok = _reduce_kernels(device)
     uniform_report, uniform_rows, uniform_ok = _uniform_kernels(device)
-    timed = ([flash] + bwd_rows + [decode] + paged_rows + gemm_rows
+    decode_report, decode_rows, decode_ok = _decode_kernels(device)
+    timed = ([flash] + bwd_rows + decode_rows + paged_rows + gemm_rows
              + gather_rows + qgemm_rows + reduce_rows + uniform_rows)
-    ok = (not bad and flash_ok and derr <= BF16_TOL and bwd_ok
+    ok = (not bad and flash_ok and decode_ok and bwd_ok
           and gemm_ok and gather_ok and paged_ok and qgemm_ok and reduce_ok
           and uniform_ok)
     emit({"phase": "kernels", "ok": ok, "cases": cases,
+          "decode": decode_report,
           "timed_backward_errors": bwd_report, "gemm": gemm_report,
           "gather": gather_report, "paged": paged_report,
           "qgemm": qgemm_report, "reduce": reduce_report,
@@ -2115,7 +2399,8 @@ def phase_kernels(device):
     gemm_bad = [c for c in gemm_report["cases"] if not c["ok"]]
     gather_bad = [c for c in gather_report["cases"] if not c["ok"]]
     paged_bad = [c for c in paged_report["cases"] if not c["ok"]]
-    new_bad = [c for report in (qgemm_report, reduce_report, uniform_report)
+    new_bad = [c for report in (decode_report, qgemm_report, reduce_report,
+                                uniform_report)
                for c in report["cases"] if not c["ok"]]
     check(ok, "kernels", "kernel disagrees with its plain version, or a "
           "planted fault went unseen: %s" % (
@@ -2126,6 +2411,8 @@ def phase_kernels(device):
                   paged_report["mirror"],
                   paged_report["garbage_and_planted_faults"],
                   flash["planted_faults"], flash["body"],
+                  decode_report["planted_faults"],
+                  decode_report["bit_equal_relaunch"], decode_rows[0]["body"],
                   qgemm_report["planted_faults"], qgemm_report["bodies"],
                   reduce_report["planted_faults"],
                   qgemm_report["bit_equal_relaunch"],
@@ -2205,9 +2492,13 @@ def phase_serve(device, smi):
     in_vocab = all(0 <= t < CONFIG["vocab"] for r in results for t in r)
     counted = (launches["flash_fwd"] >= layers * prefills > 0
                and launches["decode_attn"] >= layers * steps > 0)
-    info["ok"] = budgets_ok and in_vocab and counted
-    info["breakdown"] = profile_breakdown(engine, workload)
+    info["breakdown"] = profile_breakdown(engine, workload,
+                                          names_of=("decode_attn",))
     window = info["breakdown"]["decode_window"]
+    # every decode-attention kernel the window saw is the split body
+    split_body = bool(window["kernel_names"]) and all(
+        DECODE_BODY in name for name in window["kernel_names"])
+    info["ok"] = budgets_ok and in_vocab and counted and split_body
     blas_per_step = window["kernels_by_group"].get("matmul", 0) / float(
         window["steps"])
     emit(info)
@@ -2218,6 +2509,8 @@ def phase_serve(device, smi):
     check(counted, "serve", "the kernels were not on the main path: "
           "launches %s for %d prefills and %d decode steps"
           % (launches, prefills, steps))
+    check(split_body, "serve", "the decode window's attention kernels "
+          "are not all the split body: %s" % window["kernel_names"])
     return launches, results, info["params_bytes"], blas_per_step
 
 
@@ -2231,21 +2524,44 @@ def serve_workload(vocab):
                      for n in lengths]
 
 
+#: decode windows :func:`profile_breakdown` may take: a serving window
+#: has missed some of its kernels in two windows running
+DECODE_WINDOW_TRIES = 6
+
+
+def _whole_steps(window, steps, groups=("matmul", "qmatmul")):
+    """Every decode step launches the same kernels, so a window of
+    ``steps`` steps that counted a group's kernels a number of times that
+    is not a multiple of ``steps`` missed some: the profiler drops events
+    at times (a bf16 window once counted 779 cuBLAS kernels for 16 steps
+    of 49)."""
+    counts = window["kernels_by_group"]
+    return all(counts.get(group, 0) % steps == 0 for group in groups)
+
+
 def profile_breakdown(engine, workload, decode_steps=16, names_of=()):
     """Where a serving step's time goes, after the counted session: one
     profiled window that fills every slot (one prefill each, through
-    the engine's own entry point; the kernels of the groups ``names_of``
-    counted by name) and one of ``decode_steps`` decode steps over the
-    full batch."""
+    the engine's own entry point) and one of ``decode_steps`` decode
+    steps over the full batch, taken again (at most DECODE_WINDOW_TRIES
+    windows) while it missed some of the steps' library or qmatmul
+    kernels (:func:`_whole_steps`), whose counts the serving checks read;
+    in both the kernels of the groups ``names_of`` are counted by
+    name."""
     prompts = workload[:engine.max_slots]
     slots = []
     prefill = profile_window(
         lambda: slots.extend(engine.prefill(p)[0] for p in prompts),
         names_of)
     prefill["buckets"] = [engine.bucket_for(len(p)) for p in prompts]
-    decode = profile_window(
-        lambda: [engine.decode_step() for _ in range(decode_steps)])
+    for tries in range(1, DECODE_WINDOW_TRIES + 1):
+        decode = profile_window(
+            lambda: [engine.decode_step() for _ in range(decode_steps)],
+            names_of)
+        if _whole_steps(decode, decode_steps):
+            break
     decode["steps"] = decode_steps
+    decode["windows"] = tries
     for slot in slots:
         engine.release_slot(slot)
     return {"prefill_window": prefill, "decode_window": decode}
@@ -2388,20 +2704,27 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
     breakdown = profile_breakdown(engine, workload, names_of=("qmatmul",))
     window = breakdown["decode_window"]
     # the prefill window: each layer's 4 block products of a bucket above
-    # 16 rows on the tensor-core body, of a 16-row bucket on the FMA body
+    # 16 rows on the tensor-core body, of a 16-row bucket on the decode
+    # body
     prefill_window = breakdown["prefill_window"]
     above = sum(bucket > 16 for bucket in prefill_window["buckets"])
     want_prefill_bodies = {
         "tensor_core": QMM_PER_LAYER * layers * above,
-        "fma": QMM_PER_LAYER * layers * (len(prefill_window["buckets"])
-                                         - above)}
+        "decode": QMM_PER_LAYER * layers * (len(prefill_window["buckets"])
+                                            - above), "fma": 0}
     prefill_bodies = _bodies(prefill_window["kernel_names"])
     # the profiler may miss launches (see _qgemm_timed): the tensor-core
-    # body must be named, and the FMA body only when a bucket of 16 rows
-    # was filled
+    # body must be named, the decode body only when a bucket of 16 rows
+    # was filled, and the FMA body (f32) never
     on_tensor_cores = (prefill_bodies["tensor_core"] > 0
-                       and (prefill_bodies["fma"] == 0
-                            or want_prefill_bodies["fma"] > 0))
+                       and prefill_bodies["fma"] == 0
+                       and (prefill_bodies["decode"] == 0
+                            or want_prefill_bodies["decode"] > 0))
+    # every decode step's block products (M = 4) on the decode body
+    decode_bodies = _bodies(window["kernel_names"])
+    on_decode_body = (decode_bodies["decode"] > 0
+                      and decode_bodies["decode"]
+                      == sum(decode_bodies.values()))
     blas_per_step = window["kernels_by_group"].get("matmul", 0) / float(
         window["steps"])
     qmm_ms = window["device_ms_by_group"].get("qmatmul", 0.0)
@@ -2439,6 +2762,7 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
         "prefill_window_wall_ms": prefill_window["wall_ms"],
         "prefill_window_qmatmul_bodies": prefill_bodies,
         "prefill_window_qmatmul_bodies_launched": want_prefill_bodies,
+        "decode_window_qmatmul_bodies": decode_bodies,
         "decode_window_qmatmul_kernels_seen": window[
             "kernels_by_group"].get("qmatmul", 0),
         "decode_window_qmatmul_launches": qmm_launches,
@@ -2454,7 +2778,7 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
                   >= QMM_PER_LAYER * layers)
     all_int8 = set(int8_blocks.values()) == {"int8"}
     info["ok"] = (budgets_ok and counted and no_library and all_int8
-                  and on_tensor_cores)
+                  and on_tensor_cores and on_decode_body)
     emit(info)
     engine.close()
     check(budgets_ok, "serve_int8", "a request did not get exactly %d "
@@ -2469,6 +2793,8 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
     check(on_tensor_cores, "serve_int8", "the prefill window's qmatmul "
           "kernels by body %s, want %s" % (prefill_bodies,
                                            want_prefill_bodies))
+    check(on_decode_body, "serve_int8", "the decode window's qmatmul "
+          "kernels by body %s, want the decode body only" % decode_bodies)
     return launches
 
 
@@ -3009,8 +3335,10 @@ def phase_train(device, smi):
     # every attention kernel of the profiled step is the tensor-core body:
     # 24 forward (forward and remat recompute), 12 + 12 backward
     names = info["breakdown"]["kernel_names"]
-    want_bodies = {"fwd": {"tensor_core": 2 * cfg["layers"], "fma": 0},
-                   "bwd": {"tensor_core": 2 * cfg["layers"], "fma": 0}}
+    want_bodies = {"fwd": {"tensor_core": 2 * cfg["layers"], "decode": 0,
+                           "fma": 0},
+                   "bwd": {"tensor_core": 2 * cfg["layers"], "decode": 0,
+                           "fma": 0}}
     bodies = {"fwd": _bodies({n_: c for n_, c in names.items()
                               if "flash_fwd_kernel" in n_}),
               "bwd": _bodies({n_: c for n_, c in names.items()
@@ -3694,12 +4022,17 @@ def main():
     # call; the paged kernel the contiguous kernel's time on the mirrored
     # cache and its verify (5 rows) times; the flash kernels their body,
     # rate, share of their bound, device time per call (the forward also
-    # SDPA's, and its numbers at the train step's batch); qmatmul its
-    # prefill layer's device times and its decode layer
+    # SDPA's, and its numbers at the train step's batch); the decode
+    # kernels their split, body, device time on cold operands and its
+    # share of the bound (the contiguous one SDPA's device time); qmatmul
+    # its prefill layer's device times and its decode layer (device
+    # times, plans, body)
     extra = ("wrapper_ms", "contiguous_ms", "verify_ms",
              "verify_contiguous_ms", "verify_plain_ms", "verify_bound_ms",
-             "body", "tflops", "bound_share", "device_ms",
-             "library_device_ms", "train_shape", "decode_layer")
+             "body", "split", "tflops", "bound_share", "device_ms",
+             "bound_share_device", "library_device_ms", "contiguous_device_ms",
+             "verify_device_ms", "verify_contiguous_device_ms",
+             "verify_bound_share_device", "train_shape", "decode_layer")
     emit({"kernels": [{key: entry[key] for key in keys + extra
                        if key in keys or key in entry}
                       for entry in timed]})

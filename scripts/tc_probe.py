@@ -17,9 +17,10 @@ the same measure.  qmatmul's tensor-core body is timed at CONFIG's four
 block shapes at M = 2048, 256 and 32 under every K split (the cluster
 size the C entry takes), each split held against ``_qmatmul_ref``.
 With ``--parent DIR`` (a directory holding another version's
-``flash_fwd.cu`` and ``qgemm.cu``, with the same C entries) that version
-is built and timed beside it in the same run.  Prints one JSON object a
-line and writes them all to ``--out``.
+``flash_fwd.cu`` and ``qgemm.cu``, whose qmatmul entry takes no column
+tile, as before the decode body) that version is built and timed beside
+it in the same run.  Prints one JSON object a line and writes them all
+to ``--out``.
 """
 
 import argparse
@@ -113,12 +114,16 @@ def fwd_entry(path):
     return fn
 
 
-def qmm_entry(path):
+def qmm_entry(path, parent=False):
+    """``veles_qmatmul`` of a build, called with this version's arguments;
+    a parent's entry, which takes no column tile (``block_n``, read by
+    the decode body only), gets them without it."""
     from veles_tpu_torch.ops import qgemm
     fn = ctypes.CDLL(str(path)).veles_qmatmul
-    fn.argtypes = qgemm._ARGTYPES
+    fn.argtypes = (qgemm._ARGTYPES[:-2] + qgemm._ARGTYPES[-1:] if parent
+                   else qgemm._ARGTYPES)
     fn.restype = ctypes.c_int
-    return fn
+    return (lambda *args: fn(*args[:-2], args[-1])) if parent else fn
 
 
 def run_fwd(entry, q, k, v, causal, q_off=0):
@@ -209,7 +214,7 @@ def probe_qmm(rows, entries, device):
                             None if bias is None else bias.data_ptr(),
                             out.data_ptr(), m, n, k, a.stride(0), 1,
                             int(bias is not None), 1,
-                            qgemm.ACTIVATION_CODES[act], split,
+                            qgemm.ACTIVATION_CODES[act], split, 0,
                             stream_handle(device)))
                     call()
                     torch.cuda.synchronize()
@@ -275,7 +280,7 @@ def main():
     probe_fwd(rows, entries, device)
     qmm = {"change": qmm_entry(build.library_path("qgemm"))}
     if args.parent:
-        qmm["parent"] = qmm_entry(copies["parent_qgemm"][1])
+        qmm["parent"] = qmm_entry(copies["parent_qgemm"][1], parent=True)
     probe_qmm(rows, qmm, device)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

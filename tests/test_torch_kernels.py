@@ -1226,16 +1226,17 @@ def test_qmatmul_tensor_core_body_relaunch_is_bit_equal_on_card(
 
 @pytest.mark.cuda
 def test_qmatmul_body_follows_the_dtype_and_m_on_card(cuda_device):
-    """bf16 at M > 16 runs the tensor-core body (``qmatmul_kernel_tc<``);
-    bf16 at M <= 16 and f32 at any M the FMA body (``qmatmul_kernel<``):
-    the kernels' names as a profile records them.  A profile of one such
-    launch has seen none of it, so each shape runs 4 times in the
-    window; at least one must be seen, and every one seen must be the
-    body's."""
+    """bf16 at M > 16 runs the tensor-core body (``qmatmul_kernel_tc<``),
+    bf16 at M <= 16 the decode body (``qmatmul_kernel_dec<``), f32 at any
+    M the FMA body (``qmatmul_kernel<``): the kernels' names as a profile
+    records them.  A profile of one such launch has seen none of it, so
+    each shape runs 4 times in the window; at least one must be seen,
+    and every one seen must be the body's."""
     from veles_tpu_torch.ops import qgemm
-    for m, dtype, tag in ((4, torch.bfloat16, "qmatmul_kernel<16, true>"),
-                          (16, torch.bfloat16, "qmatmul_kernel<16, true>"),
-                          (20, torch.float32, "qmatmul_kernel<64, false>"),
+    for m, dtype, tag in ((4, torch.bfloat16, "qmatmul_kernel_dec<4, "),
+                          (16, torch.bfloat16, "qmatmul_kernel_dec<16, "),
+                          (4, torch.float32, "qmatmul_kernel<16>"),
+                          (20, torch.float32, "qmatmul_kernel<64>"),
                           (17, torch.bfloat16, "qmatmul_kernel_tc<"),
                           (2048, torch.bfloat16, "qmatmul_kernel_tc<")):
         a, q, scale, bias = _qmm_operands(cuda_device, m, 256, 192, dtype, 46)
@@ -1314,3 +1315,196 @@ def test_uniform_kernel_matches_plain_version_on_card(cuda_device, shape,
     assert torch.equal(got.cpu(), random.uniform_pallas(
         5, shape, dtype, low, high, device="cpu"))
     assert float(got.min()) >= low and float(got.max()) < high
+
+
+# -- the decode kernels' cluster split over the keys -------------------------
+# Each (batch, head) row's keys are split over a cluster of 1, 2, 4 or 8
+# blocks (``decode_split`` by default; the wrappers take a forced split),
+# rank r taking ``key_range(r, split, kend)``; tolerances as above.
+
+#: lengths around the 32-key chunks and the ranks' edges at a 2048-key
+#: cache (2048 keys are 64 chunks: 8 a rank at split 8); a length of 1
+#: leaves every rank but the last empty
+SPLIT_LENGTHS = [1, 31, 32, 33, 255, 256, 257, 2047, 2048]
+
+
+def _split_operands(device, dtype, nq, row_step, d, seed, h=2):
+    b, seq = len(SPLIT_LENGTHS), 2048
+    q, k, v = (torch.from_numpy(a).to(device, dtype) for a in _arrays(
+        [(b, nq, h, d), (b, seq, h, d), (b, seq, h, d)], seed,
+        uniform_last=True))
+    lengths = [min(n, seq - row_step * (nq - 1)) for n in SPLIT_LENGTHS]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, k, v, lens
+
+
+def test_a_length_of_one_leaves_all_ranks_but_one_empty():
+    ranges = [port.key_range(r, 8, 1) for r in range(8)]
+    assert [end - begin for begin, end in ranges] == [0] * 7 + [1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("d", [32, 64, 100, 128])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("nq,row_step", [(1, 0), (8, 1)])
+def test_decode_split_matches_plain_version_on_card(
+        cuda_device, launches, nq, row_step, split, d, dtype, tol):
+    """Every forced split, lengths at chunk and rank edges, head dims of
+    each template (100: the ordinary loads), and a relaunch bit-equal."""
+    q, k, v, lens = _split_operands(cuda_device, dtype, nq, row_step, d,
+                                    seed=70 + d + nq)
+    out = port._decode_cuda(q, k, v, lens, row_step, split)
+    again = port._decode_cuda(q, k, v, lens, row_step, split)
+    ref = (port._verify_ref if row_step else port._decode_ref)(q, k, v,
+                                                               lens)
+    torch.cuda.synchronize()
+    assert launches["decode_attn"] == 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("row_step", [0, 1])
+def test_decode_split_every_row_count_on_card(cuda_device, launches, nq,
+                                              row_step):
+    """1 to 8 query rows, decode and verify masks, at the default
+    split."""
+    q, k, v, lens = _split_operands(cuda_device, torch.bfloat16, nq,
+                                    row_step, 64, seed=90 + nq)
+    out = port.decode_attention(q, k, v, lens, row_step=row_step)
+    ref = (port._verify_ref if row_step else port._decode_ref)(q, k, v,
+                                                               lens)
+    torch.cuda.synchronize()
+    assert launches["decode_attn"] == 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=BF16_TOL,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,row_step", [(1, 0), (5, 1)])
+def test_paged_split_equals_contiguous_split_on_card(
+        cuda_device, launches, nq, row_step, dtype, split):
+    """At every split a pool that mirrors a contiguous cache (pages
+    shuffled, garbage 1e4 in the trash block and in every key past each
+    row's length) gives the contiguous kernel's output bit for bit."""
+    bs, max_blocks, h, d = 16, 128, 2, 64
+    q, k, v, lens = _split_operands(cuda_device, dtype, nq, row_step, d,
+                                    seed=110 + nq)
+    b = q.shape[0]
+    limit = (torch.arange(max_blocks * bs, device=cuda_device)[None, :]
+             >= (lens + row_step * (nq - 1))[:, None])
+    k_dirty, v_dirty = k.clone(), v.clone()
+    k_dirty[limit], v_dirty[limit] = 1e4, 1e4
+    rng = numpy.random.default_rng(120 + nq)
+    tables = torch.from_numpy(rng.permutation(numpy.arange(
+        1, b * max_blocks + 1)).reshape(b, max_blocks).astype(
+            numpy.int32)).to(cuda_device)
+    kp = torch.full((b * max_blocks + 1, bs, h, d), 1e4, dtype=dtype,
+                    device=cuda_device)
+    vp = kp.clone()
+    kp[tables.long()] = k_dirty.reshape(b, max_blocks, bs, h, d)
+    vp[tables.long()] = v_dirty.reshape(b, max_blocks, bs, h, d)
+    paged = port._paged_decode_cuda(q, kp, vp, tables, lens, row_step,
+                                    split)
+    contiguous = port._decode_cuda(q, k, v, lens, row_step, split)
+    torch.cuda.synchronize()
+    assert launches["paged_decode_attn"] == launches["decode_attn"] == 1
+    assert torch.equal(paged, contiguous)
+
+
+@pytest.mark.cuda
+def test_decode_split_is_checked_before_launch_on_card(cuda_device,
+                                                      launches):
+    q, k, v, lens = _split_operands(cuda_device, torch.float32, 1, 0, 8,
+                                    seed=3)
+    with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        port._decode_cuda(q, k, v, lens, 0, 3)
+    assert not any(launches.values())
+
+
+# -- qmatmul's decode body (bf16 at M <= 16) ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("k,n", [(1000, 130), (64, 1), (4096, 1024),
+                                 (200, 3072)])
+def test_qmatmul_decode_body_every_m_on_card(cuda_device, m, k, n):
+    """M 1 to 16 (the three row templates), ragged K and N (N % 16 != 0:
+    ordinary q loads), a bias and gelu, each relaunch bit-equal."""
+    from veles_tpu_torch.ops import qgemm
+    a, q, scale, bias = _qmm_operands(cuda_device, m, k, n, torch.bfloat16,
+                                      50 + m)
+    qgemm.reset_launches()
+    got = qgemm.qmatmul(a, q, scale, bias, "gelu")
+    again = qgemm.qmatmul(a, q, scale, bias, "gelu")
+    want = qgemm._qmatmul_ref(a, q, scale, bias, "gelu")
+    torch.cuda.synchronize()
+    assert qgemm.launches["qmatmul"] == 2 and torch.equal(got, again)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= BF16_TOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", QMM_ACTIVATIONS)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_qmatmul_decode_body_every_activation_on_card(
+        cuda_device, activation, with_bias, out_dtype):
+    from veles_tpu_torch.ops import qgemm
+    a, q, scale, bias = _qmm_operands(cuda_device, 4, 1024, 3072,
+                                      torch.bfloat16, 51)
+    bias = bias if with_bias else None
+    got = qgemm.qmatmul(a, q, scale, bias, activation, out_dtype)
+    want = qgemm._qmatmul_ref(a, q, scale, bias, activation, out_dtype)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = F32_TOL * float(want.float().abs().max()) \
+        if out_dtype == torch.float32 else BF16_TOL
+    assert got.dtype == out_dtype and err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["lda", "lda_unaligned", "bias_f32",
+                                     "q_unaligned"])
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 1024), (13, 200, 96)])
+def test_qmatmul_decode_body_layouts_on_card(cuda_device, m, k, n,
+                                             variant):
+    """a with a wider row stride (aligned, or 2 bytes off: ordinary
+    loads), an f32 bias, q 1 byte past a 16-byte boundary."""
+    from veles_tpu_torch.ops import qgemm
+    a, q, scale, bias = _qmm_operands(cuda_device, m, k, n, torch.bfloat16,
+                                      52)
+    a, q, bias = _qmm_variant(a, q, bias, variant)
+    got = qgemm.qmatmul(a, q, scale, bias, "tanh")
+    want = qgemm._qmatmul_ref(a, q, scale, bias, "tanh")
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= BF16_TOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_n", [128, 64])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 1024), (16, 1024, 3072),
+                                   (7, 100, 130)])
+def test_qmatmul_decode_body_every_plan_on_card(cuda_device, m, k, n,
+                                                split, block_n):
+    """Every column tile and forced split (at K = 100 a split of 4 or 8
+    leaves ranks without K rows), each relaunch bit-equal."""
+    from veles_tpu_torch.ops import qgemm
+    a, q, scale, bias = _qmm_operands(cuda_device, m, k, n, torch.bfloat16,
+                                      53)
+    plan = (block_n, split)
+    got = qgemm._qmatmul_cuda(a, q, scale, bias, None, torch.bfloat16, plan)
+    again = qgemm._qmatmul_cuda(a, q, scale, bias, None, torch.bfloat16,
+                                plan)
+    want = qgemm._qmatmul_ref(a, q, scale, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= BF16_TOL, err

@@ -326,3 +326,50 @@ def test_chip_smoke_takes_a_name_window_again_only_while_it_saw_none(
     assert smoke["PROFILE_TRIES"] == 3
     assert profiled(lambda: None, ("k",), bool) == (names, tries)
     assert taken == [("k",)] * tries
+
+
+@pytest.mark.parametrize("counts,windows", [
+    # every step's library kernels seen: one window
+    ([{"matmul": 784}], 1),
+    # 5 of 784 dropped, then whole steps: taken again
+    ([{"matmul": 779}, {"matmul": 784, "qmatmul": 768}], 2),
+    # qmatmul kernels of part of a step, twice: the third window is kept
+    ([{"qmatmul": 767}, {"qmatmul": 700}, {"qmatmul": 768}], 3),
+    # never whole: the sixth window is kept
+    ([{"matmul": 783}] * 6, 6),
+])
+def test_chip_smoke_takes_a_decode_window_again_while_it_missed_kernels(
+        counts, windows):
+    """A profiled decode window whose library or qmatmul kernel count is
+    not a multiple of its steps missed some (every step launches the
+    same kernels); ``profile_breakdown`` profiles the steps again, at
+    most ``DECODE_WINDOW_TRIES`` windows, and keeps the last one."""
+    import runpy
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"))
+    left = [{"kernels_by_group": c} for c in [{}] + counts]
+
+    def window(fn, names_of=()):
+        fn()
+        return left.pop(0)
+
+    class Engine(object):
+        max_slots = 1
+        steps = 0
+
+        def prefill(self, prompt):
+            return 0, None
+
+        def bucket_for(self, n):
+            return 16
+
+        def decode_step(self):
+            Engine.steps += 1
+
+        def release_slot(self, slot):
+            pass
+    breakdown = smoke["profile_breakdown"]
+    breakdown.__globals__["profile_window"] = window
+    decode = breakdown(Engine(), [[1, 2, 3]])["decode_window"]
+    assert decode["windows"] == windows and decode["steps"] == 16
+    assert decode["kernels_by_group"] == counts[windows - 1]
+    assert Engine.steps == 16 * windows and not left

@@ -215,13 +215,14 @@ def test_split_k_of_the_tensor_core_body(m, k, n, split):
 
 
 @pytest.mark.parametrize("m,dtype,tile", [
-    (4, torch.bfloat16, (16, 64, 64)), (16, torch.bfloat16, (16, 64, 64)),
+    (4, torch.bfloat16, (16, 128, 64)), (16, torch.bfloat16, (16, 128, 64)),
     (16, torch.float32, (16, 64, 64)), (17, torch.float32, (64, 64, 64)),
     (2048, torch.float32, (64, 64, 64)), (17, torch.bfloat16, (128, 128, 32)),
 ])
 def test_qmatmul_body_tile_follows_dtype_and_m(m, dtype, tile):
-    """The FMA body at M <= 16 (decode) and for f32, the tensor-core body
-    for bf16 at M > 16; the f32 default keeps the FMA body's splits."""
+    """The decode body for bf16 at M <= 16 (its column tile narrowed to
+    64 where ``decode_plan`` says), the tensor-core body for bf16 above,
+    the FMA body for f32; the f32 default keeps the FMA body's splits."""
     assert qgemm.tile(m, dtype) == tile
     assert qgemm.split_k(m, 1024, 1024) == qgemm.split_k(m, 1024, 1024,
                                                          torch.float32)

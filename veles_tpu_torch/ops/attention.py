@@ -17,7 +17,9 @@ whose second entry is the paged kernel) or raise.  There is no
 fallback from a CUDA tensor to the plain version.  The flash kernels'
 C entries pick their body by the dtype: bf16 runs the tensor-core
 bodies (``*_kernel_tc``: bf16 ``mma.sync`` with f32 sums), f32 the FMA
-bodies.  ``launches`` counts kernel launches by kernel name; only a
+bodies.  The decode kernels split each (batch, head) row's keys over a
+cluster of :func:`decode_split` blocks (:func:`key_range` gives a rank's
+share).  ``launches`` counts kernel launches by kernel name; only a
 launch adds to it.
 
 :func:`flash_attention` is differentiable: under autograd it runs
@@ -36,6 +38,12 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 #: decode / verify query rows per (batch, head) the kernel takes
 MAX_QUERY_ROWS = 8
+#: keys a warp of csrc/decode_attn.cu takes at a time: a rank's share of
+#: a row is a whole number of chunks
+DECODE_CHUNK = 32
+#: the H100's SMs, and the portable cluster size that bounds the split
+_SMS = 132
+_MAX_SPLIT = 8
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
@@ -56,10 +64,10 @@ _ARGTYPES = {
                       + [ctypes.c_float, _P]),
     "decode_attn": ("decode_attn", "veles_decode_attn",
                     [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 2
-                    + [ctypes.c_float, _P]),
+                    + [ctypes.c_float, _I, _P]),
     "paged_decode_attn": ("decode_attn", "veles_paged_decode_attn",
                           [_P] * 6 + [_I] * 7 + [_L] * 10 + [_I] * 2
-                          + [ctypes.c_float, _P]),
+                          + [ctypes.c_float, _I, _P]),
 }
 _entries = {}
 
@@ -368,6 +376,40 @@ def flash_attention(q, k, v, causal=False, q_offset=0, k_offset=0):
     return _flash_fwd(q, k, v, causal, q_offset, k_offset)[0]
 
 
+def decode_split(rows):
+    """The cluster size the decode kernels launch with for ``rows`` =
+    batch x heads (batch, head) rows: doubled, up to 8, while the grid
+    of ``rows * split`` blocks covers the SMs less than twice.  The host
+    does not know the lengths (they stay on the device), so the split
+    follows the grid alone; each block finds its share of its row's keys
+    itself."""
+    split = 1
+    while split < _MAX_SPLIT and rows * split < 2 * _SMS:
+        split *= 2
+    return split
+
+
+def key_range(rank, split, kend):
+    """``[begin, end)``: the keys rank ``rank`` of a ``split``-block
+    cluster reads of a row whose keys end at ``kend`` (``min(kmax,
+    lengths[b] + row_step * (nq - 1))``), as the kernel computes them:
+    chunks ``[rank C / split, (rank + 1) C / split)`` of ``C =
+    ceil(kend / DECODE_CHUNK)``, in rank order.  A rank's range is empty
+    when the row has fewer chunks than ranks."""
+    chunks = -(-kend // DECODE_CHUNK)
+    return (min(kend, rank * chunks // split * DECODE_CHUNK),
+            min(kend, (rank + 1) * chunks // split * DECODE_CHUNK))
+
+
+def _check_split(name, split, rows):
+    if split is None:
+        return decode_split(rows)
+    if split not in (1, 2, 4, 8):
+        raise ValueError("%s splits a row over 1, 2, 4 or 8 blocks, got %r"
+                         % (name, split))
+    return split
+
+
 def _check_lengths(name, lengths, b, device):
     if (lengths.dtype != torch.int32 or lengths.shape != (b,)
             or lengths.device != device or not lengths.is_contiguous()):
@@ -375,7 +417,9 @@ def _check_lengths(name, lengths, b, device):
                          "on %s" % (name, b, device))
 
 
-def _decode_cuda(q, k, v, lengths, row_step):
+def _decode_cuda(q, k, v, lengths, row_step, split=None):
+    """``veles_decode_attn``; ``split`` forces the cluster size (the
+    card tests try each), else :func:`decode_split`."""
     dtype = _check_bshd("decode_attn", q, k, v)
     b, nq, h, d = q.shape
     seq = k.shape[1]
@@ -386,6 +430,7 @@ def _decode_cuda(q, k, v, lengths, row_step):
         raise ValueError("decode_attn takes 1..%d query rows, got %d"
                          % (MAX_QUERY_ROWS, nq))
     _check_lengths("decode_attn", lengths, b, q.device)
+    split = _check_split("decode_attn", split, b * h)
     width = 16 // q.element_size()
     vec = int(d % width == 0
               and all(s % width == 0 for s in _strides(k) + _strides(v))
@@ -395,7 +440,7 @@ def _decode_cuda(q, k, v, lengths, row_step):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         o.data_ptr(), _DTYPE_CODES[dtype], b, h, nq, seq, d,
         *_strides(q), *_strides(k), *_strides(v), int(row_step), vec,
-        1.0 / (d ** 0.5), stream_handle(q.device))
+        1.0 / (d ** 0.5), split, stream_handle(q.device))
     check_status("decode_attn", status)
     launches["decode_attn"] += 1
     return o
@@ -441,7 +486,9 @@ def chunk_attention(q, k, v, start):
     return _flash_fwd(q, k, v, causal=True, q_offset=int(start))[0]
 
 
-def _paged_decode_cuda(q, k_pool, v_pool, tables, lengths, row_step):
+def _paged_decode_cuda(q, k_pool, v_pool, tables, lengths, row_step,
+                       split=None):
+    """``veles_paged_decode_attn``; ``split`` as :func:`_decode_cuda`."""
     dtype = q.dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError("paged_decode_attn kernel takes float32 or "
@@ -479,6 +526,7 @@ def _paged_decode_cuda(q, k_pool, v_pool, tables, lengths, row_step):
                          "(%d, max_blocks) with a unit last stride on %s"
                          % (b, q.device))
     _check_lengths("paged_decode_attn", lengths, b, q.device)
+    split = _check_split("paged_decode_attn", split, b * h)
     width = 16 // q.element_size()
     vec = int(d % width == 0
               and all(s % width == 0 for s in _strides(k_pool)
@@ -490,7 +538,7 @@ def _paged_decode_cuda(q, k_pool, v_pool, tables, lengths, row_step):
         tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         _DTYPE_CODES[dtype], b, h, nq, tables.shape[1], k_pool.shape[1], d,
         *_strides(q), *_strides(k_pool), *_strides(v_pool), tables.stride(0),
-        int(row_step), vec, 1.0 / (d ** 0.5), stream_handle(q.device))
+        int(row_step), vec, 1.0 / (d ** 0.5), split, stream_handle(q.device))
     check_status("paged_decode_attn", status)
     launches["paged_decode_attn"] += 1
     return o

@@ -15,8 +15,10 @@ The activations are the GEMM table
 scaled tanh) plus ``gelu``, the tanh approximation (``jax.nn.gelu``'s
 default), which the transformer MLP's up-projection fuses.  The kernel
 picks its body by the activations: bf16 at M > 16 (prefill) runs
-bf16 products on the tensor cores with f32 sums; f32 activations, and
-bf16 at M <= 16 (decode), run f32 FMA on the CUDA cores, at every
+bf16 products on the tensor cores with f32 sums; bf16 at M <= 16
+(decode) the decode body, f32 FMA over the real rows with a rank's whole
+K chunk of q in flight at once (:func:`decode_plan` picks its column
+tile and split); f32 activations the first version's FMA body, at every
 ``precision_level``.  Each body takes fixed tiles (:func:`tile`): the
 autotune DB row ``ratings["gemm_int8"]``, ``tiles`` and ``use_pallas``
 wait for ROADMAP item 7, and on the card :func:`qmatmul`
@@ -42,11 +44,17 @@ ACTIVATION_CODES = dict(_GEMM_CODES, gelu=5)
 #: kernel name -> launches since the last reset_launches()
 launches = {"qmatmul": 0}
 
-#: (BM, BN, BK) of csrc/qgemm.cu's bodies: the FMA body at M <= 16
-#: (decode) and at f32, and the tensor-core body (bf16 at M > 16)
-DECODE_TILE = (16, 64, 64)
+#: (BM, BN, BK) of csrc/qgemm.cu's bodies: the decode body (bf16 at M <=
+#: 16: up to 16 rows, 128 columns or the 64 of DECODE_BLOCK_N where
+#: :func:`decode_plan` narrows it, 64 K rows a stage), the FMA body (f32;
+#: 16 rows a tile at M <= 16) and the tensor-core body (bf16 at M > 16)
+DECODE_TILE = (16, 128, 64)
+FMA_SMALL_TILE = (16, 64, 64)
 FMA_TILE = (64, 64, 64)
 TC_TILE = (128, 128, 32)
+#: the decode body's column tiles, widest first: 128 columns read whole
+#: 128-byte lines of q a K row; 64 doubles the tiles of a narrow N
+DECODE_BLOCK_N = (128, 64)
 #: SMs of the H100: the kernel splits K over a cluster of up to 8
 #: blocks until the grid covers them twice (the FMA body) or once (the
 #: tensor-core body, whose 128 x 128 tile is four FMA tiles of work: a
@@ -58,7 +66,7 @@ _SMS = 132
 _MAX_SPLIT = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 4 + [_I] * 5 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 4 + [_I] * 6 + [_P]
 _entry_fn = []
 
 
@@ -102,19 +110,51 @@ def _qmatmul_ref(a, q, scale, bias=None, activation=None, out_dtype=None):
 
 def tile(m, dtype=torch.float32):
     """``(BM, BN, BK)`` of the body ``veles_qmatmul`` runs for M rows of
-    ``dtype`` activations: the tensor-core body for bf16 at M > 16, else
-    the FMA body (16 rows a tile at M <= 16)."""
-    if m <= 16:
-        return DECODE_TILE
-    return TC_TILE if dtype == torch.bfloat16 else FMA_TILE
+    ``dtype`` activations: for bf16 the decode body at M <= 16 and the
+    tensor-core body above, for f32 the FMA body (16 rows a tile at M <=
+    16)."""
+    if dtype == torch.bfloat16:
+        return DECODE_TILE if m <= 16 else TC_TILE
+    return FMA_SMALL_TILE if m <= 16 else FMA_TILE
+
+
+def decode_plan(n, k):
+    """``(block_n, split)`` of the decode body (bf16, M <= 16) for a (K,
+    N) weight: the widest column tile of DECODE_BLOCK_N whose grid, with
+    K split over a cluster doubled up to 8 while the grid covers the SMs
+    less than once and every rank keeps a stage of K, covers them; else
+    the narrowest with its split.  CONFIG's decode products: wqkv and w1
+    take (128, 8), wo and w2 (64, 8)."""
+    k_tiles = -(-k // DECODE_TILE[2])
+    for block_n in DECODE_BLOCK_N:
+        tiles = -(-n // block_n)
+        split = 1
+        while (split < _MAX_SPLIT and tiles * split < _SMS
+               and k_tiles >= 2 * split):
+            split *= 2
+        if tiles * split >= _SMS:
+            break
+    return block_n, split
+
+
+def k_range(rank, split, k, block_k):
+    """``[k_begin, k_end)``: the K rows rank ``rank`` of a split launch
+    sums, as every body computes them: chunks of ``ceil(T / split)`` K
+    tiles of ``T = ceil(K / block_k)``, so only the last ranks may be
+    short or empty."""
+    k_tiles = -(-k // block_k)
+    chunk = -(-k_tiles // split) * block_k
+    return min(k, rank * chunk), min(k, (rank + 1) * chunk)
 
 
 def split_k(m, n, k, dtype=torch.float32):
     """The K split (cluster size) the kernel launches with for an (M, K)
-    by (K, N) product of ``dtype`` activations: doubled, up to 8, while
-    the grid of the body's output tiles covers the SMs less than twice
-    (the FMA body) or once (the tensor-core body) and every split keeps
-    a K tile."""
+    by (K, N) product of ``dtype`` activations: the decode body's from
+    :func:`decode_plan`; else doubled, up to 8, while the grid of the
+    body's output tiles covers the SMs less than twice (the FMA body) or
+    once (the tensor-core body) and every split keeps a K tile."""
+    if dtype == torch.bfloat16 and m <= 16:
+        return decode_plan(n, k)[1]
     block_m, block_n, block_k = tile(m, dtype)
     tiles = -(-n // block_n) * -(-m // block_m)
     k_tiles = -(-k // block_k)
@@ -126,10 +166,12 @@ def split_k(m, n, k, dtype=torch.float32):
     return split
 
 
-def _qmatmul_cuda(a, q, scale, bias, activation, out_dtype):
+def _qmatmul_cuda(a, q, scale, bias, activation, out_dtype, plan=None):
     """``veles_qmatmul``: a (M, K) f32 or bf16 with unit column stride,
     q (K, N) int8 contiguous, scale (N,) f32, bias (N,) f32 or a's dtype
-    or None; out (M, N) in ``out_dtype`` (f32 or bf16)."""
+    or None; out (M, N) in ``out_dtype`` (f32 or bf16).  ``plan`` forces
+    ``(block_n, split)`` (the card tests try each; block_n is read by
+    the decode body only), else :func:`decode_plan` / :func:`split_k`."""
     if a.dim() != 2 or q.dim() != 2:
         raise ValueError("qmatmul expects a 2-D a and q, got %s and %s"
                          % (tuple(a.shape), tuple(q.shape)))
@@ -167,6 +209,14 @@ def _qmatmul_cuda(a, q, scale, bias, activation, out_dtype):
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    if plan is None:
+        decode = a.dtype == torch.bfloat16 and m <= 16
+        plan = (decode_plan(n, k) if decode
+                else (0, split_k(m, n, k, a.dtype)))
+    block_n, split = plan
+    if split not in (1, 2, 4, 8):
+        raise ValueError("qmatmul splits K over 1, 2, 4 or 8 blocks, got %r"
+                         % (split,))
     status = _entry()(
         a.data_ptr(), q.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
@@ -174,7 +224,7 @@ def _qmatmul_cuda(a, q, scale, bias, activation, out_dtype):
         int(a.dtype == torch.bfloat16),
         int(bias is not None and bias.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), ACTIVATION_CODES[activation],
-        split_k(m, n, k, a.dtype), stream_handle(a.device))
+        split, block_n, stream_handle(a.device))
     check_status("qmatmul", status)
     launches["qmatmul"] += 1
     return out

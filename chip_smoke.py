@@ -10,10 +10,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. ``device``  — the card's name and power limit (``nvidia-smi``).
 2. ``build``   — compile every kernel of ``veles_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once) and load them, and,
-   in the same parallel batch, four builds with a fault planted in a
-   cluster merge (``-DVELES_PLANTED_FAULT``: decode attention's last
-   rank dropped, or its acc not rescaled; qmatmul's decode body's last
-   rank's K chunk dropped, or its scale applied twice).
+   in the same parallel batch, eight builds with a fault planted
+   (``-DVELES_PLANTED_FAULT``: decode attention's last rank dropped, or
+   its acc not rescaled; qmatmul's decode body's last rank's K chunk
+   dropped, or its scale applied twice; reduce's last rank dropped from
+   axis 0's merge, or its NaN flag ignored; uniform's second word of a
+   counter written over its first, or every counter one block off).
 3. ``kernels`` — hold each kernel against its plain PyTorch version on
    the same CUDA tensors: the flash-prefill kernel against ``_mha_ref``
    on strided q/k/v views of one projection, as prefill hands them over
@@ -126,7 +128,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    after each).  Then one step under ``torch.profiler`` gives the device
    time by kernel group and the busy share, and its 24 forward and 12 +
    12 backward kernels must all be the tensor-core bodies
-   (``*_kernel_tc``).
+   (``*_kernel_tc``); a window that counted other numbers is taken
+   again, at most PROFILE_TRIES windows, as the profiler drops events
+   at times.
 12. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
    batch 2, float32 with TF32 off: 2 steps from the same numpy params
    on the card (kernels) and on the CPU (plain versions); the losses
@@ -242,13 +246,25 @@ must name the tensor-core body at M = 2048 and the decode body
 reduce kernel against ``_reduce_ref`` at (4096, 4096), (37, 53), (24,
 256), (1, 5000) and (5000, 1), f32 and bf16, every op and axis, with and
 without ±inf and NaN (max and min equal, NaN where the plain version has
-it; sums within 1e-6·Σ|a|, plus one bf16 ulp for bf16); a dropped last
-row block and a dropped last column block must be reported; it is timed
-at (4096, 4096) f32 beside ``torch.sum`` / ``amax`` / ``amin``.  It holds
-the uniform kernel bit for bit against ``_uniform_ref`` at (4096, 4096)
-and (1000,), f32 and bf16, in [low, high) and with mean and variance
-within 5 sigma of U(low, high), and times it (L2 flushed) beside
-``torch.rand``.
+it; sums within 1e-6·Σ|a|, plus one bf16 ulp for bf16), at every split
+(1, 2, 4, 8) at (4096, 4096) with ±inf and NaN (the sums also bit for
+bit against ``_reduce_plan_ref``, the plain model of the kernel's
+order), and on row strides past n (1032, 16-byte aligned, and 1031);
+a dropped last row block and a dropped last column block (in the
+inputs) and its two planted builds must be reported; a profile of the
+six calls must name ``reduce_axis0_kernel`` and ``reduce_axis1_kernel``
+and no other reduce kernel; it is timed at (4096, 4096) f32 beside
+``torch.sum`` / ``amax`` / ``amin`` as event time with L2 flushed and as
+device time on 4 cycled copies.  It holds the uniform kernel bit for
+bit against ``_uniform_ref`` at (4096, 4096) (in [low, high), mean and
+variance within 5 sigma of U(low, high)) and at fills whose last
+counter holds 4, 1, 2 or 3 values, f32 and bf16; its two planted builds
+must be reported; it is timed as event time with L2 flushed and as
+device time back to back beside ``torch.rand`` and ``fill_`` of the
+same 64 MiB.  Event times "with L2 flushed" run a 96 MiB read before
+each timed call (``make_l2_flush``), which leaves L2 clean: the earlier
+zeroing flush left ~50 MB of dirty lines that were written back inside
+the next timed call.
 Every phase runs with ``precision_level`` 2 (TF32 off).
 
 Then it prints the per-kernel JSON line, all 14 TPU kernels (launches on
@@ -454,6 +470,8 @@ _GEMM_BODY = re.compile(r"veles_gemm_kernel<(\d+),\s*(\d+)>")
 
 def _kernel_group(name):
     for tag, group in (("qmatmul_kernel", "qmatmul"),
+                       ("reduce_axis0_kernel", "reduce"),
+                       ("reduce_axis1_kernel", "reduce"),
                        ("reduce_rows_kernel", "reduce"),
                        ("reduce_cols_kernel", "reduce"),
                        ("uniform_kernel", "uniform")):
@@ -601,11 +619,20 @@ def _bodies(names):
     return bodies
 
 
-def make_l2_flush(device):
-    buf = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=device)
+def make_l2_flush(device, dirty=False):
+    """A flush of the 50 MB L2 to run before a timed call: a read of 96
+    MiB, which evicts the previous call's dirty lines (their write-backs
+    land inside the flush, outside the timed events) and leaves L2 full
+    of clean, unrelated lines.  ``dirty=True`` is the zeroing flush the
+    earlier event-time rows were taken under: its own ~50 MB of dirty
+    lines are written back inside the next timed call, which is billed
+    for them (kept to compare the two measures in scripts/ops_probe.py)."""
+    buf = torch.ones(24 * 2 ** 20, dtype=torch.float32, device=device)
+    if dirty:
+        return buf.zero_
 
     def flush():
-        buf.zero_()
+        torch.amax(buf)
     return flush
 
 
@@ -634,7 +661,11 @@ PLANTED_BUILDS = {
     ("decode_attn", 1): "last_rank_partial_dropped",
     ("decode_attn", 2): "last_rank_acc_not_rescaled",
     ("qgemm", 1): "last_rank_k_chunk_dropped",
-    ("qgemm", 2): "scale_applied_twice"}
+    ("qgemm", 2): "scale_applied_twice",
+    ("reduce", 1): "last_rank_partial_dropped",
+    ("reduce", 2): "nan_flag_ignored",
+    ("random", 1): "second_word_over_first",
+    ("random", 2): "counter_offset_one_block"}
 #: (source, n) -> the built library
 planted_libraries = {}
 
@@ -680,8 +711,20 @@ def planted(source, fault):
     """The package's wrappers of ``source``'s kernels launch the planted
     build ``fault`` inside the block (same C entries, same arguments)."""
     import ctypes
-    from veles_tpu_torch.ops import attention, qgemm
+    from veles_tpu_torch.ops import attention, qgemm, random, reduce
     lib = ctypes.CDLL(str(planted_libraries[source, fault]))
+    if source in ("reduce", "random"):
+        module = reduce if source == "reduce" else random
+        fn = getattr(lib, "veles_" + ("reduce" if source == "reduce"
+                                      else "uniform"))
+        fn.argtypes, fn.restype = module._ARGTYPES, ctypes.c_int
+        saved = list(module._entry_fn)
+        module._entry_fn[:] = [fn]
+        try:
+            yield
+        finally:
+            module._entry_fn[:] = saved
+        return
     if source == "qgemm":
         fn = lib.veles_qmatmul
         fn.argtypes, fn.restype = qgemm._ARGTYPES, ctypes.c_int
@@ -2115,8 +2158,15 @@ def _qgemm_kernels(device):
 
 REDUCE_BIG = (4096, 4096)
 REDUCE_SHAPES = (REDUCE_BIG, (37, 53), (24, 256), (1, 5000), (5000, 1))
+REDUCE_SPLITS = (1, 2, 4, 8)
 REDUCE_SUM_RTOL = 1e-6
 REDUCE_BLOCK = 512               # the Pallas kernel's rows (columns) a block
+#: copies of the (4096, 4096) matrix a reduction's device time cycles
+#: through: 256 MiB, five times L2, between two calls on one copy
+REDUCE_COPIES = 4
+#: the reduce kernels' profiled names (``reduce_rows_kernel`` and
+#: ``reduce_cols_kernel`` were an earlier body's)
+REDUCE_BODIES = ("reduce_axis0_kernel", "reduce_axis1_kernel")
 
 
 def _reduce_matrix(rng, device, shape, dtype, specials):
@@ -2156,7 +2206,19 @@ def _reduce_agree(got, want, a, op, axis):
             "ok": same_nan and same_inf and outside == 0}
 
 
+def _model_bits(got, model):
+    """The kernel's result equals its plain model's (NaN alike)."""
+    g, w = got.float().cpu(), model.float().cpu()
+    nan = torch.isnan(w)
+    return bool(torch.equal(torch.isnan(g), nan)
+                and torch.equal(g[~nan], w[~nan]))
+
+
 def _reduce_cases(rng, device):
+    """Every shape, dtype, op and axis at the plan's split; every split
+    at (4096, 4096) with ±inf and NaN (the sums also against the plain
+    model of the kernel's order, bit for bit); row strides past n, 16-byte
+    aligned and not."""
     from veles_tpu_torch.ops import reduce
     cases = []
     for shape in REDUCE_SHAPES:
@@ -2171,40 +2233,88 @@ def _reduce_cases(rng, device):
                         cases.append(dict(
                             report, kernel="reduce", shape=list(shape),
                             dtype=str(dtype)[6:], op=op, axis=axis,
+                            split=reduce.launch_plan(a, axis).split,
                             nan_inf=specials and min(shape) > 1))
+    a = _reduce_matrix(rng, device, REDUCE_BIG, torch.float32, True)
+    for split in REDUCE_SPLITS:
+        for op in ("sum", "max", "min"):
+            for axis in (0, 1):
+                got = reduce._reduce_cuda(a, axis, op, split)
+                report = _reduce_agree(got, reduce._reduce_ref(a, axis, op),
+                                       a, op, axis)
+                if op == "sum":
+                    report["model_bits"] = _model_bits(
+                        got, reduce._reduce_plan_ref(
+                            a, axis, op, reduce.launch_plan(a, axis, split)))
+                    report["ok"] = report["ok"] and report["model_bits"]
+                cases.append(dict(report, kernel="reduce",
+                                  shape=list(REDUCE_BIG), dtype="float32",
+                                  op=op, axis=axis, split=split,
+                                  forced_split=True, nan_inf=True))
+    for cols, n in ((1032, 1000), (1031, 1000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            wide = _reduce_matrix(rng, device, (300, cols), dtype, True)
+            a = wide[:, :n]
+            for op in ("sum", "max", "min"):
+                for axis in (0, 1):
+                    report = _reduce_agree(
+                        reduce.matrix_reduce(a, axis, op, use_pallas=True),
+                        reduce._reduce_ref(a, axis, op), a, op, axis)
+                    cases.append(dict(
+                        report, kernel="reduce", shape=[300, n], lda=cols,
+                        dtype=str(dtype)[6:], op=op, axis=axis,
+                        vec=reduce.launch_plan(a, axis).vec, nan_inf=True))
     gpu_sync()
     return cases
 
 
 def _reduce_planted_faults(rng, device):
-    """The last row block (512 rows, the Pallas kernel's block) dropped
-    from a sum over axis 0, and the last column block from a max over
-    axis 1, at the main shape: each must be reported."""
+    """Faults that must be reported: the last row block (512 rows, the
+    Pallas kernel's block) dropped from a sum over axis 0 and the last
+    column block from a max over axis 1 (in the inputs), and the planted
+    builds: the last rank's partial dropped from axis 0's merge (sum and
+    max at split 8) and the NaN flag ignored (max and min on the NaN
+    matrix, both axes)."""
     from veles_tpu_torch.ops import reduce
     a = _reduce_matrix(rng, device, REDUCE_BIG, torch.float32, False)
+    special = _reduce_matrix(rng, device, REDUCE_BIG, torch.float32, True)
     cut = REDUCE_BIG[0] - REDUCE_BLOCK
     faults = {
-        "last_row_block_dropped_sum_axis0": _reduce_agree(
+        "last_row_block_dropped_sum_axis0": [_reduce_agree(
             reduce.matrix_reduce(a[:cut], 0, "sum", use_pallas=True),
-            reduce._reduce_ref(a, 0, "sum"), a, "sum", 0),
-        "last_column_block_dropped_max_axis1": _reduce_agree(
+            reduce._reduce_ref(a, 0, "sum"), a, "sum", 0)],
+        "last_column_block_dropped_max_axis1": [_reduce_agree(
             reduce.matrix_reduce(a[:, :cut], 1, "max", use_pallas=True),
-            reduce._reduce_ref(a, 1, "max"), a, "max", 1)}
+            reduce._reduce_ref(a, 1, "max"), a, "max", 1)]}
+    with planted("reduce", 1):
+        faults["last_rank_partial_dropped"] = [_reduce_agree(
+            reduce._reduce_cuda(a, 0, op, 8), reduce._reduce_ref(a, 0, op),
+            a, op, 0) for op in ("sum", "max")]
+    with planted("reduce", 2):
+        faults["nan_flag_ignored"] = [_reduce_agree(
+            reduce._reduce_cuda(special, axis, op),
+            reduce._reduce_ref(special, axis, op), special, op, axis)
+            for op in ("max", "min") for axis in (0, 1)]
     gpu_sync()
-    return {name: dict(report, caught=not report["ok"])
-            for name, report in faults.items()}
+    return {name: {"reports": reports,
+                   "caught": not any(r["ok"] for r in reports)}
+            for name, reports in faults.items()}
 
 
 def _reduce_timed(rng, device):
-    """Every op and axis at (4096, 4096) f32, L2 flushed before each
-    call: median of 20 CUDA-event timings beside the byte bound, the
-    plain version and torch's one call (sum, amax, amin along the
-    axis); the headline is the sum over axis 0, the reference's default
-    axis."""
+    """Every op and axis at (4096, 4096) f32: the kernel, the plain
+    version and torch's one call (sum, amax, amin along the axis) as one
+    call's event time with L2 flushed (``ms``: the median of 20, each
+    after the clean flush) and the kernel and torch's call as device time
+    a call on REDUCE_COPIES cycled copies (``device_ms``: none finds its
+    operand in L2), beside the byte bound; the headline is the sum over
+    axis 0, the reference's default axis."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops import reduce
     flush = make_l2_flush(device)
-    a = _reduce_matrix(rng, device, REDUCE_BIG, torch.float32, False)
+    copies = [_reduce_matrix(rng, device, REDUCE_BIG, torch.float32, False)
+              for _ in range(REDUCE_COPIES)]
+    a = copies[0]
     m, n = REDUCE_BIG
     library = {"sum": torch.sum, "max": torch.amax, "min": torch.amin}
     by_shape = []
@@ -2215,25 +2325,36 @@ def _reduce_timed(rng, device):
             err = _reduce_agree(reduce.matrix_reduce(a, axis, op, True),
                                 reduce._reduce_ref(a, axis, op), a, op,
                                 axis)["max_abs_err"]
+            lib = library[op]
+            dev = cold_device_ms([
+                lambda c=c: reduce._reduce_cuda(c, axis, op)
+                for c in copies], reps=4 * REDUCE_COPIES)
             by_shape.append({
                 "shape": [m, n], "dtype": "float32", "op": op, "axis": axis,
+                "split": reduce.launch_plan(a, axis).split,
                 "ms": time_ms(lambda: reduce._reduce_cuda(a, axis, op),
                               flush=flush),
+                "device_ms": dev,
                 "plain_ms": time_ms(lambda: reduce._reduce_ref(a, axis, op),
                                     flush=flush),
-                "library_ms": time_ms(lambda: library[op](a, dim=axis),
-                                      flush=flush),
-                "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err})
+                "library_ms": time_ms(lambda: lib(a, dim=axis), flush=flush),
+                "library_device_ms": cold_device_ms([
+                    lambda c=c: lib(c, dim=axis) for c in copies],
+                    reps=4 * REDUCE_COPIES),
+                "bound_ms": bound * 1e3, "bound_by": by,
+                "bound_share_device": bound * 1e3 / dev,
+                "max_abs_err": err})
     gpu_sync()
     row = {"name": "reduce", "route": "cuda",
            "source": "veles_tpu_torch/csrc/reduce.cu",
            "replaces": "veles_tpu/ops/reduce.py:44",
            "plain_of": "_reduce_ref",
            "library_of": "torch.sum / torch.amax / torch.amin",
-           "by_shape": by_shape}
+           "calls": by_shape}
     row.update({key: by_shape[0][key] for key in (
-        "shape", "dtype", "op", "axis", "ms", "plain_ms", "library_ms",
-        "bound_ms", "bound_by", "max_abs_err")})
+        "shape", "dtype", "op", "axis", "split", "ms", "device_ms",
+        "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+        "bound_by", "bound_share_device", "max_abs_err")})
     return row
 
 
@@ -2245,17 +2366,34 @@ def _reduce_kernels(device):
     repeatable = all(torch.equal(reduce.matrix_reduce(a, ax, "sum", True),
                                  reduce.matrix_reduce(a, ax, "sum", True))
                      for ax in (0, 1))
-    planted = _reduce_planted_faults(rng, device)
+    planted_faults = _reduce_planted_faults(rng, device)
+    # the six calls twice (a short window around ctypes launches may see
+    # none of them), each with a PyTorch kernel beside it, so the window
+    # sees the card: only this body's kernels may be named, both of them
+    names, tries = profiled_names(
+        lambda: [reduce._reduce_cuda(a, axis, op).sum()
+                 for _ in range(2) for op in ("sum", "max", "min")
+                 for axis in (0, 1)],
+        ("reduce",), lambda seen: all(any(b in n_ for n_ in seen)
+                                      for b in REDUCE_BODIES))
+    named = bool(names) and all(any(b in n_ for b in REDUCE_BODIES)
+                                for n_ in names)
     row = _reduce_timed(rng, device)
-    ok = (all(c["ok"] for c in cases) and repeatable
-          and all(f["caught"] for f in planted.values()))
+    row.update(body="+".join(b for b in REDUCE_BODIES
+                             if any(b in n_ for n_ in names)),
+               profile_windows=tries)
+    ok = (all(c["ok"] for c in cases) and repeatable and named
+          and all(f["caught"] for f in planted_faults.values()))
     return {"cases": cases, "bit_equal_relaunch": repeatable,
-            "planted_faults": planted}, [row], ok
+            "planted_faults": planted_faults, "kernel_names": names,
+            "names_ok": named}, [row], ok
 
 
 # -- the uniform fill (csrc/random.cu) ----------------------------------------
 
 UNIFORM_BIG = (4096, 4096)
+#: fills whose last counter is whole, or holds 1, 2 or 3 values
+UNIFORM_TAILS = ((1000,), (1001,), (1002,), (1025, 1023), (3,))
 
 
 def _uniform_moments(x, low, high):
@@ -2280,31 +2418,56 @@ def _uniform_moments(x, low, high):
 
 
 def _uniform_cases(device):
+    """(4096, 4096) in both ranges and dtypes, bit for bit and by its
+    moments; every tail of a counter's four values, bit for bit."""
     from veles_tpu_torch.ops import random
     cases = []
-    for shape in (UNIFORM_BIG, (1000,)):
+    for shape in (UNIFORM_BIG,) + UNIFORM_TAILS:
         for dtype in (torch.float32, torch.bfloat16):
             for low, high in ((0.0, 1.0), (-2.0, 3.0)):
                 got = random.uniform_pallas(SEED + 11, shape, dtype, low,
                                             high)
                 want = random._uniform_ref(SEED + 11, shape, dtype, low,
                                            high, device=device)
-                moments = _uniform_moments(got, low, high)
                 same = bool(torch.equal(got, want))
-                cases.append(dict(moments, kernel="uniform",
-                                  shape=list(shape), dtype=str(dtype)[6:],
-                                  low=low, high=high, bit_equal=same,
-                                  ok=same and moments["in_range"]
-                                  and moments["ok"]))
+                case = dict(kernel="uniform", shape=list(shape),
+                            dtype=str(dtype)[6:], low=low, high=high,
+                            numel_mod_4=got.numel() % 4, bit_equal=same,
+                            in_range=bool(float(got.min()) >= low
+                                          and float(got.max()) < high))
+                if shape == UNIFORM_BIG:
+                    case.update(_uniform_moments(got, low, high))
+                case["ok"] = (same and case["in_range"]
+                              and case.get("ok", True))
+                cases.append(case)
     gpu_sync()
     return cases
 
 
+def _uniform_planted_faults(device):
+    """The planted builds of csrc/random.cu must each be reported: a
+    counter's second word written over its first, every counter one
+    block off."""
+    from veles_tpu_torch.ops import random
+    want = random._uniform_ref(SEED, UNIFORM_BIG, device=device)
+    faults = {}
+    for fault, name in ((1, "second_word_over_first"),
+                        (2, "counter_offset_one_block")):
+        with planted("random", fault):
+            got = random.uniform_pallas(SEED, UNIFORM_BIG)
+        faults[name] = {"bit_equal": bool(torch.equal(got, want)),
+                        "caught": not bool(torch.equal(got, want))}
+    return faults
+
+
 def _uniform_timed(device):
-    """(4096, 4096) f32 in [0, 1): median of 20 CUDA-event timings, L2
-    flushed before each call, beside the bound by bytes written, the
-    plain version (Philox in torch int64 on the card) and torch.rand
-    with a CUDA generator."""
+    """(4096, 4096) f32 in [0, 1): one call's event time with L2 flushed
+    (the median of 20, each after the clean flush) and device time a call
+    back to back on one output (each call pays for the previous one's
+    write-backs, as a fill in steady state does), beside the bound by
+    bytes written, the plain version (Philox in torch int64 on the card),
+    torch.rand with a CUDA generator and ``fill_`` of the same 64 MiB
+    (the card's practical write ceiling), on the same measures."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops import random
     flush = make_l2_flush(device)
@@ -2315,28 +2478,50 @@ def _uniform_timed(device):
     err = float((random.uniform_pallas(SEED, shape)
                  - random._uniform_ref(SEED, shape, device=device)
                  ).abs().max())
+
+    def kernel():
+        return random._uniform_cuda(SEED, shape, torch.float32, 0.0, 1.0,
+                                    device)
+
+    def rand():
+        return torch.rand(shape, generator=gen, device=device)
+    filled = torch.empty(shape, device=device)
+    dev = device_ms(kernel)
     row = {"name": "uniform", "route": "cuda",
            "source": "veles_tpu_torch/csrc/random.cu",
            "replaces": "veles_tpu/ops/random.py:36",
            "shape": list(shape), "dtype": "float32",
            "plain_of": "_uniform_ref",
            "library_of": "torch.rand with a CUDA generator",
-           "ms": time_ms(lambda: random._uniform_cuda(
-               SEED, shape, torch.float32, 0.0, 1.0, device), flush=flush),
+           "ms": time_ms(kernel, flush=flush), "device_ms": dev,
            "plain_ms": time_ms(lambda: random._uniform_ref(
                SEED, shape, device=device), flush=flush),
-           "library_ms": time_ms(lambda: torch.rand(
-               shape, generator=gen, device=device), flush=flush),
-           "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err}
+           "library_ms": time_ms(rand, flush=flush),
+           "library_device_ms": device_ms(rand),
+           "fill_ms": time_ms(lambda: filled.fill_(0.5), flush=flush),
+           "fill_device_ms": device_ms(lambda: filled.fill_(0.5)),
+           "bound_ms": bound * 1e3, "bound_by": by,
+           "bound_share_device": bound * 1e3 / dev, "max_abs_err": err}
     gpu_sync()
     return row
 
 
 def _uniform_kernels(device):
+    from veles_tpu_torch.ops import random
     cases = _uniform_cases(device)
+    planted_faults = _uniform_planted_faults(device)
+    # 12 fills, each with a PyTorch kernel beside it (one launch alone was
+    # seen in none of 3 windows late in the process)
+    names, tries = profiled_names(
+        lambda: [random.uniform_pallas(SEED, UNIFORM_BIG).sum()
+                 for _ in range(12)], ("uniform",), bool)
+    named = bool(names) and all("uniform_kernel" in n_ for n_ in names)
     row = _uniform_timed(device)
-    ok = all(c["ok"] for c in cases) and row["max_abs_err"] == 0.0
-    return {"cases": cases}, [row], ok
+    row.update(profile_windows=tries)
+    ok = (all(c["ok"] for c in cases) and row["max_abs_err"] == 0.0
+          and named and all(f["caught"] for f in planted_faults.values()))
+    return {"cases": cases, "planted_faults": planted_faults,
+            "kernel_names": names, "names_ok": named}, [row], ok
 
 
 def phase_kernels(device):
@@ -2415,6 +2600,9 @@ def phase_kernels(device):
                   decode_report["bit_equal_relaunch"], decode_rows[0]["body"],
                   qgemm_report["planted_faults"], qgemm_report["bodies"],
                   reduce_report["planted_faults"],
+                  reduce_report["kernel_names"],
+                  uniform_report["planted_faults"],
+                  uniform_report["kernel_names"],
                   qgemm_report["bit_equal_relaunch"],
                   reduce_report["bit_equal_relaunch"], uniform_rows]))
     return timed
@@ -3329,20 +3517,27 @@ def phase_train(device, smi):
         "launches": launches, "launches_per_step": per_step,
         "launches_per_step_expected": want,
     }
-    info["breakdown"] = profile_window(
-        lambda: step(params, velocity, tokens),
-        names_of=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
     # every attention kernel of the profiled step is the tensor-core body:
-    # 24 forward (forward and remat recompute), 12 + 12 backward
-    names = info["breakdown"]["kernel_names"]
+    # 24 forward (forward and remat recompute), 12 + 12 backward.  The
+    # profiler drops events at times (a window once counted 23 and 22),
+    # so a window that saw other counts is taken again, at most
+    # PROFILE_TRIES in all; the check reads the last window, as exact
     want_bodies = {"fwd": {"tensor_core": 2 * cfg["layers"], "decode": 0,
                            "fma": 0},
                    "bwd": {"tensor_core": 2 * cfg["layers"], "decode": 0,
                            "fma": 0}}
-    bodies = {"fwd": _bodies({n_: c for n_, c in names.items()
-                              if "flash_fwd_kernel" in n_}),
-              "bwd": _bodies({n_: c for n_, c in names.items()
-                              if "flash_bwd_" in n_})}
+    for tries in range(1, PROFILE_TRIES + 1):
+        info["breakdown"] = profile_window(
+            lambda: step(params, velocity, tokens),
+            names_of=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        names = info["breakdown"]["kernel_names"]
+        bodies = {"fwd": _bodies({n_: c for n_, c in names.items()
+                                  if "flash_fwd_kernel" in n_}),
+                  "bwd": _bodies({n_: c for n_, c in names.items()
+                                  if "flash_bwd_" in n_})}
+        if bodies == want_bodies:
+            break
+    info["breakdown"]["profile_windows"] = tries
     on_tensor_cores = bodies == want_bodies
     info.update(attention_bodies=bodies,
                 attention_bodies_expected=want_bodies,
@@ -4032,7 +4227,8 @@ def main():
              "body", "split", "tflops", "bound_share", "device_ms",
              "bound_share_device", "library_device_ms", "contiguous_device_ms",
              "verify_device_ms", "verify_contiguous_device_ms",
-             "verify_bound_share_device", "train_shape", "decode_layer")
+             "verify_bound_share_device", "train_shape", "decode_layer",
+             "fill_ms", "fill_device_ms", "calls")
     emit({"kernels": [{key: entry[key] for key in keys + extra
                        if key in keys or key in entry}
                       for entry in timed]})

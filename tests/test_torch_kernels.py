@@ -1298,11 +1298,98 @@ def test_reduce_kernel_matches_plain_version_on_card(cuda_device, op, axis,
     assert bool(((g - w).abs()[ok] <= tol[ok]).all())
 
 
+#: shapes of the reduce kernel's plans: the ops API's (4096, 4096) (axis 0
+#: split 8), a ragged strip and a ragged split, one strip (4096, 64),
+#: rows that are not 16-byte aligned (37, 53), one row, one column
+REDUCE_PLAN_SHAPES = [(4096, 4096), (1000, 1030), (4096, 64), (37, 53),
+                      (1, 5000), (5000, 1)]
+
+
+def _reduce_specials(shape, seed):
+    a = numpy.random.default_rng(seed).standard_normal(shape).astype(
+        numpy.float32)
+    if min(shape) > 1:
+        m, n = shape
+        a[0, -1], a[-1, 0], a[m // 2, n // 2] = numpy.inf, -numpy.inf, \
+            numpy.nan
+        a[m // 3, :] = numpy.inf
+    return a
+
+
+def _same_bits(got, want):
+    """Equal values (±0 alike) with NaN at the same places."""
+    g, w = got.float().cpu(), want.float().cpu()
+    nan = torch.isnan(w)
+    return bool(torch.equal(torch.isnan(g), nan)
+                and torch.equal(g[~nan], w[~nan]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", REDUCE_PLAN_SHAPES)
+@pytest.mark.parametrize("axis", [0, 1])
+def test_reduce_kernel_follows_its_plan_at_every_split(cuda_device, axis,
+                                                       shape, dtype):
+    """At every split the kernel gives the bits of its plain model
+    (``_reduce_plan_ref``: its order of the sum, fmax / fmin with NaN
+    flags), on a relaunch too, and agrees with ``_reduce_ref``."""
+    from veles_tpu_torch.ops import reduce
+    t = torch.from_numpy(_reduce_specials(shape, 44)).to(cuda_device, dtype)
+    for split in (1, 2, 4, 8):
+        launch = reduce.launch_plan(t, axis, split)
+        for op in ("sum", "max", "min"):
+            got = reduce._reduce_cuda(t, axis, op, split)
+            again = reduce._reduce_cuda(t, axis, op, split)
+            torch.cuda.synchronize()
+            assert _same_bits(got, again)
+            assert _same_bits(got, reduce._reduce_plan_ref(t, axis, op,
+                                                           launch)), \
+                (split, op)
+            if op != "sum":
+                assert _same_bits(got, reduce._reduce_ref(t, axis, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["wide_aligned", "wide_odd", "column_off",
+                                  "row_off"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_reduce_kernel_on_strided_views(cuda_device, axis, view, dtype):
+    """Views with a row stride ``lda > n``, 16-byte aligned (1032) or not
+    (1031), and starting one column or one row in: the vector path where
+    every row starts aligned, the scalar one elsewhere; the model's bits
+    and ``_reduce_ref``'s values either way."""
+    from veles_tpu_torch.ops import reduce
+    wide = {cols: torch.from_numpy(_reduce_specials((300, cols), 45)).to(
+        cuda_device, dtype) for cols in (1031, 1032)}
+    t = {"wide_aligned": wide[1032][:, :1000],
+         "wide_odd": wide[1031][:, :1000],
+         "column_off": wide[1032][:, 1:1025],
+         "row_off": wide[1032][1:, :1024]}[view]
+    launch = reduce.launch_plan(t, axis)
+    assert (launch.vec > 1) == (view in ("wide_aligned", "row_off"))
+    for op in ("sum", "max", "min"):
+        got = reduce.matrix_reduce(t, axis, op, use_pallas=True)
+        assert _same_bits(got, reduce._reduce_plan_ref(t, axis, op, launch))
+        ref = reduce._reduce_ref(t, axis, op)
+        if op != "sum":
+            assert _same_bits(got, ref)
+            continue
+        ref, g = ref.float().cpu(), got.float().cpu()
+        ok = torch.isfinite(ref)
+        scale = t.float().cpu().nan_to_num(0.0, 0.0, 0.0).abs().sum(axis)
+        tol = 1e-6 * scale + (2.0 ** -8 * ref.abs()
+                              if dtype == torch.bfloat16 else 0.0)
+        assert bool(((g - ref).abs()[ok] <= tol[ok]).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,low,high", [((1000,), 0.0, 1.0),
                                             ((257, 33), -2.0, 3.0),
-                                            ((3,), 0.1, 0.3)])
+                                            ((3,), 0.1, 0.3),
+                                            ((4098,), -1.0, 1.0),
+                                            ((1025, 1023), 0.0, 1.0)])
 def test_uniform_kernel_matches_plain_version_on_card(cuda_device, shape,
                                                       low, high, dtype):
     from veles_tpu_torch.ops import random

@@ -7,12 +7,18 @@
 - Its entry points run on the CUDA card unless the caller passes
   ``device="cpu"``, and raise without a card instead of carrying on.
 - The CPU path launches no kernel and never loads the kernel builder.
+- A ``root.common.engine`` knob that the JAX package reads in a ported
+  module is either ported or refused with ``NotImplementedError``
+  naming its ROADMAP item: ``kernels="xla"`` (item 7), ``health`` other
+  than ``off`` (item 6), ``metrics_every`` above 0 (item 1c);
+  ``trace_capacity`` is ported (``tests/test_torch_trace.py``).
 - ``chip_smoke.py`` fails, and prints no result, without a card or
   without the package beside it.
 """
 
 import ast
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -192,6 +198,103 @@ def test_qmatmul_reduce_and_uniform_on_cpu_tensors_launch_nothing(no_cuda):
     assert not any(qgemm.launches.values())
     assert not any(reduce.launches.values())
     assert not any(random.launches.values())
+
+
+# -- the engine knobs the JAX package reads -----------------------------------
+
+KNOBS = ("kernels", "health", "metrics_every", "trace_capacity", "stitch")
+
+
+@pytest.fixture
+def knobs():
+    """The port's engine knobs, restored after the test."""
+    from veles_tpu_torch.config import root
+    eng = root.common.engine
+    saved = {key: eng.get(key) for key in KNOBS}
+    yield eng
+    for key, value in saved.items():
+        setattr(eng, key, value)
+
+
+def _tiny_step(steps=1):
+    """A TINY train step on the CPU (batch 2): the losses."""
+    from veles_tpu_torch.samples import transformer
+    params, velocity, step = transformer.build_train(
+        transformer.TINY, device="cpu", compute_dtype=torch.float32)
+    tokens = transformer.synthetic_tokens(transformer.TINY, 2)
+    return [float(step(params, velocity, tokens)[2]["loss"])
+            for _ in range(steps)]
+
+
+@pytest.mark.parametrize("stitch", ["on", "off"])
+def test_kernels_xla_is_refused_naming_item_7(knobs, stitch):
+    """``xla`` took the JAX package's dense references (attention,
+    GD); the port refuses it where the JAX package reads it, before a
+    kernel is launched, instead of running its kernels silently."""
+    from veles_tpu_torch.ops import attention
+    from veles_tpu_torch.samples import mnist, transformer
+    knobs.stitch = stitch
+    params, velocity, step = transformer.build_train(
+        transformer.TINY, device="cpu", compute_dtype=torch.float32)
+    knobs.kernels = "XLA"
+    attention.reset_launches()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        transformer.build_train(transformer.TINY, device="cpu")
+    # a step built before the knob changed is refused at its attention
+    with pytest.raises(NotImplementedError, match="item 7"):
+        step(params, velocity,
+             transformer.synthetic_tokens(transformer.TINY, 2))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        mnist.create_workflow(device="cpu", max_epochs=1)
+    assert not any(attention.launches.values())
+
+
+@pytest.mark.parametrize("value", ["on", "strict", "ON"])
+def test_health_instrumentation_is_refused_naming_item_6(knobs, value):
+    from veles_tpu_torch.samples import mnist
+    knobs.health = value
+    with pytest.raises(NotImplementedError, match="item 6"):
+        mnist.create_workflow(device="cpu", max_epochs=1)
+    # the JAX package reads it only when it builds segments
+    knobs.stitch = "off"
+    wf = mnist.create_workflow(device="cpu", max_epochs=1)
+    assert wf.stitch_segments == []
+
+
+def test_health_rejects_what_the_jax_package_rejects(knobs):
+    from veles_tpu_torch.samples import mnist
+    knobs.health = "loud"
+    with pytest.raises(ValueError, match="off.on.strict"):
+        mnist.create_workflow(device="cpu", max_epochs=1)
+
+
+@pytest.mark.parametrize("every", [1, 50])
+def test_metrics_every_above_0_is_refused_naming_item_1c(knobs, every):
+    from veles_tpu_torch.samples import mnist
+    knobs.metrics_every = every
+    for stitch in ("on", "off"):
+        knobs.stitch = stitch
+        with pytest.raises(NotImplementedError, match="item 1c"):
+            mnist.create_workflow(device="cpu", max_epochs=1)
+
+
+@pytest.mark.parametrize("kernels", ["auto", "pallas"])
+def test_engine_knobs_at_their_defaults_still_run(knobs, kernels):
+    """Each knob at a value the port takes: the train step, the
+    stitched MNIST workflow and the trace ring run as before."""
+    from veles_tpu_torch import trace
+    from veles_tpu_torch.samples import mnist
+    knobs.kernels, knobs.health, knobs.metrics_every = kernels, "off", 0
+    knobs.stitch = "on"
+    knobs.trace_capacity = trace.DEFAULT_CAPACITY
+    losses = _tiny_step(2)
+    assert all(math.isfinite(x) for x in losses) and losses[1] < losses[0]
+    wf = mnist.create_workflow(device="cpu", max_epochs=1)
+    wf.run()
+    assert len(wf.stitch_segments) == 2
+    assert wf.decision.history and wf.decision.complete
+    trace.configure("off")
+    assert trace.recorder.capacity == trace.DEFAULT_CAPACITY
 
 
 # -- the kernel sources and their builder -----------------------------------

@@ -82,6 +82,21 @@ def set_precision():
     return level
 
 
+def check_kernels(route):
+    """Refuse ``root.common.engine.kernels = "xla"`` for ``route``.  The
+    JAX package reads the knob where it picks the transformer's
+    attention and the GD units' backend: "xla" takes its dense jnp
+    references there, a route the port has not ported (the bench
+    ladder's baseline arm).  "auto" and "pallas" both take the port's
+    kernels."""
+    from veles_tpu_torch.config import root
+    mode = str(root.common.engine.get("kernels", "auto") or "auto")
+    if mode.lower() == "xla":
+        raise NotImplementedError(
+            "engine.kernels='xla' (%s) is not ported to veles_tpu_torch "
+            "yet (ROADMAP.md, 'Slices still to port', item 7)" % route)
+
+
 def bound_seconds(nbytes, ops, dtype="bfloat16"):
     """The roofline bound of one call: the larger of its bytes over the
     memory rate and its operations over the peak rate for ``dtype``.

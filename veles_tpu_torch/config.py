@@ -102,6 +102,19 @@ root.common.update({
         "loader": "auto",
         # K-step epoch windows: only "off" is ported (ROADMAP item 1c).
         "epoch_scan": "off",
+        # Kernel backend: "auto" and "pallas" take the hand-written
+        # kernels; "xla" (the dense escape hatch of the transformer's
+        # attention and the GD units) raises (ROADMAP item 7).
+        "kernels": "auto",
+        # Mid-epoch metric flush every K minibatches: only 0 (one fetch
+        # a class end) is ported (ROADMAP item 1c).
+        "metrics_every": 0,
+        # Trace ring capacity in events; wraparound keeps the newest
+        # (read by veles_tpu_torch.trace.configure).
+        "trace_capacity": 65536,
+        # Training-health instrumentation of stitched stages: only
+        # "off" is ported (ROADMAP item 6).
+        "health": "off",
     },
     # Generative serving defaults (veles_tpu_torch.gen.engine); an
     # engine's keyword arguments win over them.

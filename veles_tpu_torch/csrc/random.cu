@@ -27,6 +27,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// a test build may plant a fault (1: a counter's second word written over
+// its first; 2: every counter offset by one block), which the card checks
+// must report; 0 in every other build
+#ifndef VELES_PLANTED_FAULT
+#define VELES_PLANTED_FAULT 0
+#endif
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -68,8 +75,11 @@ uniform_kernel(void* __restrict__ out, long long numel, uint32_t k0,
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   const long long first = counter * 4;
   if (first >= numel) return;
-  const uint4 w = philox(static_cast<uint64_t>(counter), k0, k1);
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  const uint4 w = philox(
+      static_cast<uint64_t>(counter + (VELES_PLANTED_FAULT == 2 ? THREADS : 0)),
+      k0, k1);
+  const uint32_t words[4] = {VELES_PLANTED_FAULT == 1 ? w.y : w.x, w.y, w.z,
+                             w.w};
   if (BF16) {
     union { uint2 u; unsigned short h[4]; } v;
 #pragma unroll

@@ -38,6 +38,10 @@ _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _DTYPES = (torch.float32, torch.bfloat16)
 
+#: ``veles_uniform``'s ctypes argtypes
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
+             ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _entry_fn = []
 
 
@@ -52,9 +56,7 @@ def _entry():
     if not _entry_fn:
         from veles_tpu_torch.ops import build
         fn = build.library("random").veles_uniform
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
-                       ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         _entry_fn.append(fn)
     return _entry_fn[0]

@@ -18,7 +18,8 @@ whole ``[B, S, V]`` logits, and SGD with momentum.
 the tokens per second of the step.
 
 Not ported: the DP/TP/SP mesh (``build_train(mesh=...)``,
-``param_specs``), the ``engine.kernels=xla`` dense-attention hatch, and
+``param_specs``), the ``engine.kernels=xla`` dense-attention hatch
+(refused by :func:`make_train_step` and :func:`_attend`), and
 ``param_shapes`` (a probe of the JAX planner): ROADMAP.md, 'Slices
 still to port', item 7.
 """
@@ -32,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from veles_tpu_torch.backends import resolve_device
+from veles_tpu_torch.backends import check_kernels, resolve_device
 from veles_tpu_torch.ops.attention import flash_attention
 
 CONFIG = {
@@ -120,6 +121,7 @@ def _layernorm(x, g, b):
 
 def _attend(q, k, v):
     """Single-card attention: the flash kernels, start-aligned causal."""
+    check_kernels("the transformer's dense-attention hatch")
     return flash_attention(q, k, v, True)
 
 
@@ -206,6 +208,7 @@ def make_train_step(cfg, mesh=None, lr=3e-4, compute_dtype=torch.bfloat16,
     ``tokens`` is an int array [B, S] (numpy or tensor)."""
     if mesh is not None:
         _not_ported("a DP/TP/SP mesh", 7)
+    check_kernels("the transformer's dense-attention hatch")
     kw = dict(compute_dtype=compute_dtype, remat=remat)
 
     def loss_fn(params, tokens):

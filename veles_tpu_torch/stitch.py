@@ -43,7 +43,8 @@ Not ported: pod shardings, health instrumentation, the AOT
 counters stand in for the last two), and the JAX package's fallbacks to
 per-unit dispatch when a ``stitch_stage()`` or a segment build raises:
 here the exception propagates.  ``engine.epoch_scan`` other than
-``off`` raises (ROADMAP item 1c).
+``off`` raises (ROADMAP item 1c), and so does ``engine.health`` ``on``
+or ``strict`` when a workflow stitches (ROADMAP item 6).
 """
 
 import time
@@ -73,6 +74,25 @@ def check_epoch_scan():
         raise NotImplementedError(
             "engine.epoch_scan=%r (K-step epoch windows) is not ported "
             "yet (ROADMAP item 1c)" % (value,))
+
+
+def check_health():
+    """Raise unless ``engine.health`` is ``off``: the JAX package reads
+    it when it builds segments and then instruments every stitched
+    stage (``on``) or also raises on non-finite parameters
+    (``strict``).  Any other value is refused as the JAX package
+    refuses it."""
+    value = root.common.engine.get("health", "off")
+    mode = "off" if value is None else str(value).strip().lower()
+    if mode in ("off", "0", "false", "no", ""):
+        return
+    if mode in ("on", "1", "true", "yes", "strict"):
+        raise NotImplementedError(
+            "engine.health=%r (the training-health instrumentation of "
+            "stitched stages) is not ported yet (ROADMAP item 6)"
+            % (value,))
+    raise ValueError("root.common.engine.health must be off|on|strict, "
+                     "got %r" % (value,))
 
 
 class StitchStage(object):
@@ -442,6 +462,7 @@ def build_segments(workflow):
     torch_device = getattr(device, "torch_device", None)
     if torch_device is None:
         return []
+    check_health()
     cache = {}
     assigned = set()
     segments = []

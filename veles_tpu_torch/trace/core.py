@@ -6,7 +6,8 @@ single attribute check that returns a shared no-op singleton; enabled,
 each span costs one ``perf_counter_ns`` pair and one slot store in a
 preallocated ring.  Events are ``(phase, cat, name, ts_ns, dur_ns,
 tid, args, role)`` tuples in the Chrome trace-event vocabulary (``X``
-complete spans, ``i`` instants).  The device-profiler bridge and the
+complete spans, ``i`` instants).  ``root.common.engine.trace_capacity``
+sizes the ring (:func:`configure`).  The device-profiler bridge and the
 Chrome export are not ported yet.
 """
 
@@ -15,7 +16,8 @@ import time
 
 from veles_tpu_torch.config import root
 
-#: default ring capacity (events)
+#: default ring capacity (events); override via
+#: ``root.common.engine.trace_capacity``
 DEFAULT_CAPACITY = 65536
 
 DEFAULT_ROLE = "trainer"
@@ -95,6 +97,20 @@ class TraceRecorder(object):
             self._ring = [None] * self.capacity
             self._pos = 0
 
+    def resize(self, capacity):
+        """Install a new ring capacity, keeping the newest events that
+        fit (the JAX package's resize drops them all)."""
+        capacity = int(capacity)
+        if capacity < 1:
+            raise ValueError("trace capacity must be >= 1")
+        with self._lock:
+            ring, pos = self._ring, self._pos
+            n = min(pos, len(ring), capacity)
+            kept = [ring[i % len(ring)] for i in range(pos - n, pos)]
+            self.capacity = capacity
+            self._ring = kept + [None] * (capacity - n)
+            self._pos = n
+
 
 #: THE process-wide recorder every hook shares
 recorder = TraceRecorder()
@@ -132,12 +148,17 @@ def enabled():
 
 def configure(value=None):
     """Apply the ``root.common.engine.trace`` knob (``off`` | ``on``,
-    read fresh when ``value`` is None); returns the enabled state."""
+    read fresh when ``value`` is None); returns the enabled state.
+    ``root.common.engine.trace_capacity`` resizes the ring when it
+    differs from the ring's capacity."""
     if value is None:
         value = root.common.engine.get("trace", "off")
     if isinstance(value, str):
         on = value.strip().lower() in ("on", "1", "true", "yes")
     else:
         on = bool(value)
+    capacity = root.common.engine.get("trace_capacity", None)
+    if capacity and int(capacity) != recorder.capacity:
+        recorder.resize(int(capacity))
     recorder.enabled = on
     return on

@@ -12,11 +12,13 @@ it ONCE, at the class end (one 8-byte device→host copy), instead of
 every minibatch.  The sum is the Decision's own buffer, added to by
 value: on the stitched route the evaluator's ``n_err`` is a graph's
 static output, overwritten by the next replay.  The epoch-scan window
-protocol waits for item 1c.
+protocol and the ``engine.metrics_every`` mid-epoch flush cadence wait
+for item 1c: ``initialize`` refuses a cadence above 0.
 """
 
 import torch
 
+from veles_tpu_torch.config import root
 from veles_tpu_torch.loader.base import CLASS_NAME, TEST, TRAIN, VALID
 from veles_tpu_torch.memory import Watcher
 from veles_tpu_torch.mutable import Bool
@@ -45,6 +47,15 @@ class DecisionBase(Unit):
         self.class_lengths = None
         self.demand("minibatch_class", "minibatch_size", "last_minibatch",
                     "epoch_ended", "epoch_number", "class_lengths")
+
+    def initialize(self, **kwargs):
+        every = int(root.common.engine.get("metrics_every", 0) or 0)
+        if every > 0:
+            raise NotImplementedError(
+                "engine.metrics_every=%d (a metric flush every %d "
+                "minibatches) is not ported yet (ROADMAP item 1c)"
+                % (every, every))
+        super(DecisionBase, self).initialize(**kwargs)
 
     def init_unpickled(self):
         super(DecisionBase, self).init_unpickled()

@@ -14,11 +14,14 @@ them); on CPU tensors the plain version.  The stitched stage
 six hyperparameters as 0-d tensors of the segment's scalar block, so
 the dw and db kernels read them when a replay runs: a learning rate
 changed between dispatches takes effect at the next one.  The health
-statistics are not ported (ROADMAP item 6).
+statistics are not ported (ROADMAP item 6), nor the
+``engine.kernels=xla`` route to the dense reference, which
+:meth:`GradientDescent.initialize` refuses (ROADMAP item 7).
 """
 
 import numpy
 
+from veles_tpu_torch.backends import check_kernels
 from veles_tpu_torch.memory import Vector
 from veles_tpu_torch.ops.gemm import gd_fused
 from veles_tpu_torch.znicz.nn_units import GradientDescentBase
@@ -30,6 +33,7 @@ class GradientDescent(GradientDescentBase):
     ACTIVATION = None
 
     def initialize(self, device=None, **kwargs):
+        check_kernels("the GD units' dense route")
         super(GradientDescent, self).initialize(device=device, **kwargs)
         if self.need_err_input and not self.err_input:
             self.err_input.reset(numpy.zeros(self.input.shape,

@@ -10,12 +10,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. ``device``  — the card's name and power limit (``nvidia-smi``).
 2. ``build``   — compile every kernel of ``veles_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once) and load them, and,
-   in the same parallel batch, eight builds with a fault planted
+   in the same parallel batch, twelve builds with a fault planted
    (``-DVELES_PLANTED_FAULT``: decode attention's last rank dropped, or
    its acc not rescaled; qmatmul's decode body's last rank's K chunk
    dropped, or its scale applied twice; reduce's last rank dropped from
    axis 0's merge, or its NaN flag ignored; uniform's second word of a
-   counter written over its first, or every counter one block off).
+   counter written over its first, or every counter one block off; the
+   dw launch's bias merge without the last rank's sums, or its update
+   applied by two ranks; the group gather's second table taken at index
+   + 1, or a raw table's pad rows left unwritten).
 3. ``kernels`` — hold each kernel against its plain PyTorch version on
    the same CUDA tensors: the flash-prefill kernel against ``_mha_ref``
    on strided q/k/v views of one projection, as prefill hands them over
@@ -129,8 +132,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    time by kernel group and the busy share, and its 24 forward and 12 +
    12 backward kernels must all be the tensor-core bodies
    (``*_kernel_tc``); a window that counted other numbers is taken
-   again, at most PROFILE_TRIES windows, as the profiler drops events
-   at times.
+   again, at most PROFILE_TRIES windows.
 12. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
    batch 2, float32 with TF32 off: 2 steps from the same numpy params
    on the card (kernels) and on the CPU (plain versions); the losses
@@ -144,16 +146,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
    (``samples.mnist.create_workflow(max_epochs=3)`` with
    ``engine.stitch=off``, minibatch 100) on the synthetic stand-in: the
    kernel counts (set to 0 just before ``run()``, read just after) must
-   be exactly 300 matmul, 120 gd_dx, 240 gd_dw, 240 gd_db and 300
-   gather (the fill's data and label rows), of which exactly 300 matmul
-   and 240 gd_dw launches split K over a cluster (``gemm
-   .split_launches``); every n_err finite and the last validation
+   be exactly 300 matmul, 120 gd_dx, 240 gd_dw (each carrying the bias
+   step: ``gemm.bias_in_dw`` 240, gd_db 0) and 150 gather serving 300
+   tables (the fill's data and label rows in one launch), of which
+   exactly 300 matmul and 240 gd_dw launches split K over a cluster
+   (``gemm.split_launches``); every n_err finite and the last validation
    error below the first.  Epochs/s, samples/s, the median train
    minibatch wall time, host→device bytes per minibatch and peak memory;
    then one epoch (``max_epochs=2``) under ``torch.profiler``: device
    time by kernel group, busy share, the largest idle gaps, and the GEMM
    bodies by name: only the split tile's ``veles_gemm_kernel<KIND, 0>``,
-   each of the three seen at least once, and no other GEMM body.
+   each of the three seen at least once, and no other GEMM body; every
+   minibatch run seen (two forward GEMMs each), exactly one gather
+   kernel a minibatch, the group's, and none named after the db step (a
+   window that fails it is taken again, at most 3 windows).  Every
+   profiler window first launches PROFILE_PRIMER small kernels and
+   counts only what starts after them: late in the process the
+   profiler loses the first device records of each window.
 14. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
    on the card (kernels) and on the CPU (plain versions): per-epoch
    per-class n_err and confusion matrices equal, the weights, biases
@@ -164,9 +173,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    resident, each minibatch one replay of the forward segment's CUDA
    graph (loader head, both forwards, evaluator) and, on train
    minibatches, one of the GD segment's.  Exactly 150 and 120
-   dispatches, 2 captures, 0 recaptures; launches 150 gather_norm, 150
-   gather, 300 matmul, 120 gd_dx, 240 gd_dw, 240 gd_db, the graph
-   replays of 300 matmul and 240 gd_dw splitting K over a cluster;
+   dispatches, 2 captures, 0 recaptures; launches 150 gather_norm (each
+   serving the normalized data and the labels: 150 + 150 tables), 0
+   gather, 300 matmul, 120 gd_dx, 240 gd_dw (bias_in_dw 240, gd_db 0),
+   the graph replays of 300 matmul and 240 gd_dw splitting K over a
+   cluster;
    host→device bytes per minibatch median <= 64 (the scalar blocks); one
    device→host copy per class close; n_err finite and falling.
    Epochs/s (over the run, and after both captures: a capture
@@ -174,8 +185,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    minibatch, resident bytes;
    then one steady-state epoch (epoch 1 of a ``max_epochs=3`` run)
    under ``torch.profiler``: device time by kernel, kernels per
-   minibatch, host gaps, busy share, and the GEMM bodies by name, as
-   in ``mnist``.
+   minibatch, host gaps, busy share, the GEMM bodies by name and one
+   gather kernel a minibatch, as in ``mnist``.
 16. ``mnist_stitched_parity`` — the stitched card run against the
    CPU's (native, one train pass), the card's stitch on against off
    (f32 dataset), a minibatch-96 run (short tails) against the CPU's,
@@ -205,28 +216,39 @@ decode and 5-row verify), on both measures, beside the contiguous kernel
 on the mirrored cache, the plain version and its bound by bytes (no one
 PyTorch call reads through a block table, so ``library_ms`` is null),
 with its split and body.  It holds the GEMM kernel
-(``matmul``: every activation × bias on/off) and the fused GD trio (every activation ×
+(``matmul``: every activation × bias on/off) and the fused GD step (dx,
+then dw carrying the bias step; every activation ×
 both storage layouts × need_err_input × has_bias) against
 ``_matmul_ref`` / ``_gd_ref`` at 37×70×50, the MNIST shapes, 8×20×8 and
 30×140×30 (K split 2 over less than 2·16, split 8 over 9 K tiles) and
 4096³, every element within 1e-5 + 1e-5·|plain| (4096³: 1e-4 +
-1e-4·|plain|, a 4096-long f32 sum in another order), checks bit-equal
-relaunches, reports six planted faults (the last K tile dropped from
-matmul, dx launched after dw, the last batch tile dropped from dw, and
-the last rank's K chunk dropped from matmul, dx and dw where the host
-rule splits K) and times each kernel at the MNIST shapes and 4096³
-beside its f32 bound, the plain version and one PyTorch call
-(``addmm``, ``mm``, ``sum``), with the (tile, split) it ran.  These
+1e-4·|plain|, a 4096-long f32 sum in another order); dw with the bias
+step on every (tile, split) at those shapes (4096³ on the host rule's),
+every activation and layout, relaunched bit-equal, its bias sums bit
+for bit against ``_bias_sum_plan_ref`` (the plain model of their
+order); checks bit-equal relaunches, reports eight planted faults (the
+last K tile dropped from matmul, dx launched after dw, the last batch
+tile dropped from dw, the last rank's K chunk dropped from matmul, dx
+and dw where the host rule splits K, and the two planted builds of the
+bias merge) and times each kernel at the MNIST shapes and 4096³ beside
+its f32 bound, the plain version and one PyTorch call (``addmm``,
+``mm``, ``sum``), with the (tile, split) it ran: dw with the bias step
+as the main path launches it and without, and gd_db as the time the
+bias step adds to the dw launch.  These
 times are device times of back-to-back calls (queued behind a spin
 kernel, one CUDA-event pair around them, per call): at the MNIST
 shapes a CUDA-event pair around one call times the host wrapper, which
-is kept as ``wrapper_ms``.  It holds the gather kernels (``gather``:
-pads 0 and -1; ``gather_norm``: scalar and per-feature affines) on u8,
-f32 and int32 tables with negative and out-of-range indices and rows of
-1, 13 (no 16-B word) and 784 elements, exactly; two planted faults per
-kernel (every index off by one, negative indices not zeroed) must be
-reported; each is timed at 100 rows of a (7000, 784) table and at 4096
-rows of a (70000, 784) u8 table beside its bound by bytes.  It holds
+is kept as ``wrapper_ms``.  It holds the group gather (``take_rows``:
+pads 0 and -1; ``take_rows_norm``: scalar and per-feature affines; and
+groups of up to four tables in one launch, also replayed from a graph
+over outputs filled with 7) on u8, f32 and int32 tables with negative
+and out-of-range indices and rows of 1, 13 (no 16-B word) and 784
+elements, exactly; six planted faults (every index off by one, negative
+indices not zeroed, for each kind, and the kernel's two planted builds)
+must be reported; it is timed as each route's minibatch launches it
+(100 rows of (7000, 784) f32 data or u8 normalized, with the int32
+labels), each table alone, and 4096 rows of a (70000, 784) u8 table,
+beside its bound by bytes.  It holds
 the int8 GEMM (``qmatmul``) against ``_qmatmul_ref`` at CONFIG's four
 block shapes at M = 4 and 2048 in bf16 and M = 20 in f32, and at (5,
 200, 130) and (20, 1024, 1024) with every activation (gelu included),
@@ -330,14 +352,20 @@ MNIST_PARITY_EPOCHS = 2
 MNIST_PARAM_RTOL = 1e-4
 # the JAX package's schedule for max_epochs=3: 3 validation passes of 10
 # minibatches and 2 train passes of 60, two layers; only the softmax
-# layer's GD computes err_input
-MNIST_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240, "gd_db": 240,
-                  "gather": 300, "gather_norm": 0}
+# layer's GD computes err_input; the bias step rides in every dw launch
+# (gd_db_in_dw), and one gather launch a minibatch serves its data and
+# labels (two raw tables)
+MNIST_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240, "gd_db": 0,
+                  "gd_db_in_dw": 240, "gather": 150, "gather_norm": 0,
+                  "gather_tables": 300, "gather_norm_tables": 0}
 # the stitched native route, max_epochs=3: the forward segment dispatches
 # every minibatch (150), the GD segment every train minibatch (120); its
-# head gathers the u8 data row (gather_norm) and the labels (gather)
+# head's one gather launch normalizes the u8 data row and takes the
+# labels (counted under gather_norm)
 MNIST_STITCHED_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240,
-                           "gd_db": 240, "gather": 150, "gather_norm": 150}
+                           "gd_db": 0, "gd_db_in_dw": 240, "gather": 0,
+                           "gather_norm": 150, "gather_tables": 150,
+                           "gather_norm_tables": 150}
 MNIST_STITCHED_DISPATCHES = [150, 120]
 # both routes: every forward splits K (layer 1: 16 tiles split 8; layer 2:
 # 4 tiles split 4), so does every dw (layer 1: 100 tiles split 4; layer
@@ -447,14 +475,14 @@ def cold_device_ms(calls, reps=2 * COLD_COPIES):
 
 
 #: a launch counter's name -> its kernel group in a profile, where the two
-#: differ
-_PROFILE_GROUP = {"gather": "veles_gather_rows",
-                  "gather_norm": "veles_gather_norm"}
+#: differ: both gather counters count launches of the one group kernel
+_GATHER_GROUP = "veles_gather_group"
+_PROFILE_GROUP = {"gather": _GATHER_GROUP, "gather_norm": _GATHER_GROUP}
 
 #: csrc/gemm.cu's kernels by (demangled) name, blanks removed: one GEMM
 #: body templated on its kind (0 matmul, 1 gd_dx, 2 gd_dw, 3 gd_dw into
-#: the transposed storage) and tile (0 the split tile, 1 the big tile),
-#: and the db kernel
+#: the transposed storage; the bias step rides in 2 and 3) and tile (0 the
+#: split tile, 1 the big tile)
 _GEMM_GROUPS = (("veles_gemm_kernel<0,0>", "veles_matmul"),
                 ("veles_gemm_kernel<0,1>", "veles_matmul"),
                 ("veles_gemm_kernel<1,0>", "veles_gd_dx"),
@@ -462,8 +490,7 @@ _GEMM_GROUPS = (("veles_gemm_kernel<0,0>", "veles_matmul"),
                 ("veles_gemm_kernel<2,0>", "veles_gd_dw"),
                 ("veles_gemm_kernel<2,1>", "veles_gd_dw"),
                 ("veles_gemm_kernel<3,0>", "veles_gd_dw"),
-                ("veles_gemm_kernel<3,1>", "veles_gd_dw"),
-                ("veles_gd_db_kernel", "veles_gd_db"))
+                ("veles_gemm_kernel<3,1>", "veles_gd_dw"))
 #: a GEMM body's profiled name -> its kind and tile
 _GEMM_BODY = re.compile(r"veles_gemm_kernel<(\d+),\s*(\d+)>")
 
@@ -483,10 +510,8 @@ def _kernel_group(name):
     for group in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if group + "_kernel" in name:
             return group
-    if "veles_gather_norm_kernel" in name:
-        return "veles_gather_norm"
-    if "veles_gather_rows_kernel" in name:
-        return "veles_gather_rows"
+    if "veles_gather_group_kernel" in name:
+        return _GATHER_GROUP
     if "decode_kernel" in name:
         return "paged_decode_attn" if "PagedKeys" in name else "decode_attn"
     if any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass",
@@ -510,6 +535,7 @@ def profile_window(fn, names_of=()):
     gpu_sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        prime_window()
         tic = time.perf_counter()
         fn()
         gpu_sync()
@@ -517,9 +543,36 @@ def profile_window(fn, names_of=()):
     return _profile_summary(prof, wall_us, names_of)
 
 
-#: windows a kernel-name check may take: a short window around launches
-#: made through ctypes at times records none of them, even beside a
-#: PyTorch kernel (so the ``qmatmul`` window once saw none of its 8)
+#: small kernels launched inside a profiler window before the profiled
+#: work.  Late in a process the profiler loses the first device records
+#: of every window (scripts/profile_window_probe.py on an H100: 8 of 200
+#: kernels after the ``kernels`` phase, none in a fresh process), which
+#: took a train step's first flash forward, an MNIST window's first
+#: minibatch, or all of a short window's kernels.  The primer's kernels
+#: take that loss; the summary counts only the kernels that start after
+#: WORK_MARKER, and records how many of the primer's it saw
+PROFILE_PRIMER = 256
+WORK_MARKER = "chip_smoke.profiled_work"
+#: the primer's device (the CPU tests run it on the CPU)
+_PRIMER_DEVICE = "cuda"
+
+
+def prime_window():
+    """Inside an open profiler window: launch PROFILE_PRIMER kernels,
+    wait for them, and mark where the profiled work starts."""
+    from torch.autograd.profiler import record_function
+    primer = torch.empty(1, device=_PRIMER_DEVICE)
+    for _ in range(PROFILE_PRIMER):
+        primer.add_(1.0)
+    gpu_sync()
+    time.sleep(0.005)      # the marker well after the primer's last kernel
+    with record_function(WORK_MARKER):
+        pass
+
+
+#: windows a kernel-name check may take (before PROFILE_PRIMER, a short
+#: window at times recorded none of its kernels: the ``qmatmul`` window
+#: once saw none of its 8)
 PROFILE_TRIES = 3
 
 
@@ -541,8 +594,15 @@ def _profile_summary(prof, wall_us, names_of=()):
     """:func:`profile_window`'s summary of a finished profile."""
     from torch.autograd import DeviceType
     groups, counts, names, spans, named = {}, {}, {}, [], {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    events = prof.events()
+    work = min((ev.time_range.start for ev in events
+                if ev.name == WORK_MARKER), default=None)
+    primer = 0
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA or ev.name == WORK_MARKER:
+            continue
+        if work is not None and ev.time_range.start < work:
+            primer += 1
             continue
         us = ev.device_time_total
         group = _kernel_group(ev.name)
@@ -567,15 +627,19 @@ def _profile_summary(prof, wall_us, names_of=()):
                "top_kernels_ms": [[n[:200], t / 1e3] for n, t in top],
                "device_kernels": len(spans),
                "top_host_gaps_ms": [g / 1e3 for g in gaps[:5]],
-               "host_gaps_ms_total": sum(gaps) / 1e3}
+               "host_gaps_ms_total": sum(gaps) / 1e3,
+               "primer_kernels_seen": primer,
+               "primer_kernels_run": PROFILE_PRIMER}
     if names_of:
         summary["kernel_names"] = named
     return summary
 
 
 #: the profile groups whose kernel names the MNIST phases read: the GEMM
-#: bodies, and "matmul", where any other GEMM would land
+#: bodies, and "matmul", where any other GEMM would land; and the gather
+#: kernel and "other", where a kernel of no known group lands
 _GEMM_NAMES = ("veles_matmul", "veles_gd_dx", "veles_gd_dw", "matmul")
+_MNIST_NAMES = _GEMM_NAMES + (_GATHER_GROUP, "other")
 
 
 def _gemm_bodies(names):
@@ -604,6 +668,42 @@ def _gemm_bodies_ok(breakdown):
     breakdown["gemm_bodies_expected"] = sorted(
         "%d,%d" % b for b in MNIST_GEMM_BODIES)
     return not other and set(bodies) == set(breakdown["gemm_bodies_expected"])
+
+
+def _mnist_kernels_ok(breakdown, minibatches):
+    """Records in an MNIST profile's ``breakdown`` its gather-family
+    kernels (any name holding ``veles_gather``), the minibatches it saw
+    (half its forward GEMM bodies: each minibatch launches the matmul
+    twice) and any kernel named after the db step, and says whether it
+    saw every one of the ``minibatches`` it ran, exactly one gather
+    kernel, the group's, for each, and no db kernel."""
+    names = breakdown.get("kernel_names", {})
+    gathers = {name: n for name, n in names.items()
+               if "veles_gather" in name}
+    forwards = _gemm_bodies(names)[0].get("0,0", 0)
+    breakdown["gather_kernels"] = sum(gathers.values())
+    breakdown["minibatches_seen"] = forwards / 2
+    breakdown["minibatches_run"] = minibatches
+    breakdown["gd_db_kernels"] = {name: n for name, n in names.items()
+                                  if "gd_db" in name}
+    return (breakdown["gather_kernels"] == minibatches
+            and forwards == 2 * minibatches
+            and all("veles_gather_group_kernel" in name for name in gathers)
+            and not breakdown["gd_db_kernels"])
+
+
+def _mnist_profiled(window):
+    """``window()`` -> ``(breakdown, minibatches)`` of one profiled MNIST
+    window, taken again, at most PROFILE_TRIES windows, while its
+    gather kernels and minibatches disagree; the last window's
+    breakdown, its windows recorded."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        breakdown, minibatches = window()
+        ok = _mnist_kernels_ok(breakdown, minibatches)
+        if ok:
+            break
+    breakdown["profile_windows"] = tries
+    return breakdown, ok
 
 
 def _bodies(names):
@@ -665,7 +765,11 @@ PLANTED_BUILDS = {
     ("reduce", 1): "last_rank_partial_dropped",
     ("reduce", 2): "nan_flag_ignored",
     ("random", 1): "second_word_over_first",
-    ("random", 2): "counter_offset_one_block"}
+    ("random", 2): "counter_offset_one_block",
+    ("gemm", 1): "bias_last_rank_partial_dropped",
+    ("gemm", 2): "bias_update_applied_by_two_ranks",
+    ("gather", 1): "second_table_rows_at_index_plus_one",
+    ("gather", 2): "raw_pad_rows_unwritten"}
 #: (source, n) -> the built library
 planted_libraries = {}
 
@@ -711,8 +815,31 @@ def planted(source, fault):
     """The package's wrappers of ``source``'s kernels launch the planted
     build ``fault`` inside the block (same C entries, same arguments)."""
     import ctypes
-    from veles_tpu_torch.ops import attention, qgemm, random, reduce
+    from veles_tpu_torch.ops import (attention, gather, gemm, qgemm, random,
+                                     reduce)
     lib = ctypes.CDLL(str(planted_libraries[source, fault]))
+    if source == "gather":
+        fn = lib.veles_gather_group
+        fn.argtypes, fn.restype = gather._ARGTYPES, ctypes.c_int
+        saved = list(gather._entry_fn)
+        gather._entry_fn[:] = [fn]
+        try:
+            yield
+        finally:
+            gather._entry_fn[:] = saved
+        return
+    if source == "gemm":
+        symbol, argtypes = gemm._ARGTYPES["gd_dw"]
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        saved = dict(gemm._entries)
+        gemm._entries["gd_dw"] = fn
+        try:
+            yield
+        finally:
+            gemm._entries.clear()
+            gemm._entries.update(saved)
+        return
     if source in ("reduce", "random"):
         module = reduce if source == "reduce" else random
         fn = getattr(lib, "veles_" + ("reduce" if source == "reduce"
@@ -1101,7 +1228,7 @@ def _gemm_cases(rng, device):
                                 want) if w_ is not None
                             and (has_bias or name not in ("b", "vb"))}
                         cases.append({
-                            "kernel": "gd_dx+gd_dw+gd_db",
+                            "kernel": "gd_dx+gd_dw(+bias)",
                             "shape": [m, k, n], **flags,
                             "errors": errors, "tol": list(tol),
                             "max_abs_err": max(e["max_abs_err"]
@@ -1110,6 +1237,76 @@ def _gemm_cases(rng, device):
                                       for e in errors.values())})
     gpu_sync()
     return cases
+
+
+#: (batch, inputs, neurons) and (tile, split) the dw launch's bias step is
+#: held on: the GD shapes of ``_gemm_cases`` at every configuration (K =
+#: the batch: split 2 over 8 rows, split 8 over 7 K tiles of 100 and over
+#: 2 of 30), and 4096^3 on the host rule's (the big tile)
+GD_BIAS_SHAPES = ((37, 70, 50), (100, 784, 100), (100, 100, 10),
+                  (8, 20, 8), (30, 140, 30))
+GD_BIAS_CONFIGS = ((0, 1), (0, 2), (0, 4), (0, 8), (1, 1))
+
+
+def _gd_bias_cases(rng, device):
+    """dw with the bias step on every (tile, split), activation and
+    storage layout: W, vW, b and vb against ``_gd_ref`` within the GEMM
+    tolerance; a relaunch bit-equal; and the bias sums bit for bit
+    against ``_bias_sum_plan_ref``, the plain model of their order, read
+    as minus vb from a launch with inv_batch 1, lr 1, decay 0 and
+    momentum 0 (delta from the plain version on the card).  Returns the
+    case count, the failed cases and the worst error."""
+    from veles_tpu_torch.ops import gemm
+    configs = [(shape, ts) for shape in GD_BIAS_SHAPES
+               for ts in GD_BIAS_CONFIGS]
+    configs.append(((GEMM_BIG,) * 3, gemm.plan(GEMM_BIG, GEMM_BIG,
+                                               GEMM_BIG)))
+    failed, worst, count = [], 0.0, 0
+    for (batch, f, n), tile_split in configs:
+        big = batch == GEMM_BIG
+        tol = GEMM_BIG_TOL if big else GEMM_TOL
+        for activation in ("tanh",) if big else GEMM_ACTIVATIONS:
+            for transposed in (False, True):
+                x, y, eo, w, b, vw, vb = _gd_operands(
+                    rng, device, batch, f, n, transposed, big)
+                want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *GD_HP,
+                                    activation=activation,
+                                    transposed=transposed)
+                runs = []
+                for _ in range(2):
+                    params = [t.clone() for t in (w, vw, b, vb)]
+                    gemm._gd_dw_cuda(x, eo, y, params[0], params[1],
+                                     1.0 / batch, *GD_HP[0::2], activation,
+                                     transposed, tile_split,
+                                     bias=(params[2], params[3],
+                                           *GD_HP[1::2]))
+                    runs.append(params)
+                errors = [_within(got, ref, tol) for got, ref in zip(
+                    runs[0], (want[0], want[2], want[1], want[3]))]
+                delta = eo * gemm._derivative(y, activation)
+                model = gemm._bias_sum_plan_ref(delta, tile_split[1],
+                                                tile_split[0])
+                sums = vb.clone()
+                gemm._gd_dw_cuda(x, eo, y, w.clone(), vw.clone(), 1.0,
+                                 *GD_HP[0::2], activation, transposed,
+                                 tile_split,
+                                 bias=(b.clone(), sums, 1.0, 0.0, 0.0))
+                case = {"shape": [batch, f, n],
+                        "tile_split": list(tile_split),
+                        "activation": activation, "transposed": transposed,
+                        "outside_tol": sum(e["outside_tol"]
+                                           for e in errors),
+                        "bit_equal_relaunch": all(
+                            torch.equal(p, q) for p, q in zip(*runs)),
+                        "sums_equal_model": bool(torch.equal(-sums, model))}
+                worst = max([worst] + [e["max_abs_err"] for e in errors])
+                count += 1
+                if case["outside_tol"] or not case["bit_equal_relaunch"] \
+                        or not case["sums_equal_model"]:
+                    failed.append(case)
+    gpu_sync()
+    return {"kernel": "gd_dw+bias", "cases": count, "failed": failed,
+            "max_abs_err": worst, "ok": not failed}
 
 
 def _gemm_repeatable(rng, device):
@@ -1129,11 +1326,13 @@ def _gemm_repeatable(rng, device):
 
 
 def _gemm_planted_faults(rng, device):
-    """Faults planted in the kernels' inputs at the MNIST shapes, each of
-    which the tolerance must report: the last K tile dropped from
+    """Faults planted at the MNIST shapes, each of which the tolerance
+    must report: in the kernels' inputs, the last K tile dropped from
     matmul, dx launched after dw, the last batch tile dropped from dw,
     and the last rank's K chunk dropped (K cut by it) from matmul (split
-    8), dx and dw (split 4) at layer 1's shapes."""
+    8), dx and dw (split 4) at layer 1's shapes; and the two planted
+    builds of dw's bias merge (the last rank's sums dropped, the update
+    applied by two ranks) at layer 1's dw, on b and vb."""
     from veles_tpu_torch.ops import gemm
     faults = {}
     a, w, bias = _gemm_operands(rng, device, 100, 784, 100)
@@ -1178,6 +1377,20 @@ def _gemm_planted_faults(rng, device):
                      GD_HP[0], GD_HP[2], GD_HP[4], "tanh", False)
     faults["last_rank_chunk_dropped_from_dw"] = dict(_within(
         vw, want[2], GEMM_TOL), split=split)
+    # the planted builds of the bias merge, at layer 1's dw (split 4)
+    x, y, eo, w, b, vw, vb = _gd_operands(rng, device, 100, 784, 100, False,
+                                          False)
+    want = gemm._gd_ref(x, y, eo, w, b, vw, vb, *GD_HP, activation="tanh")
+    for (source, fault), name in PLANTED_BUILDS.items():
+        if source != "gemm":
+            continue
+        b1, vb1 = b.clone(), vb.clone()
+        with planted(source, fault):
+            gemm.gd_fused(x, y, eo, w.clone(), b1, vw.clone(), vb1, *GD_HP,
+                          activation="tanh", need_err_input=False)
+        faults[name] = dict(_within(torch.cat([b1, vb1]),
+                                    torch.cat([want[1], want[3]]), GEMM_TOL),
+                            split=split)
     gpu_sync()
     return {name: dict(report, caught=report["outside_tol"] > 0)
             for name, report in faults.items()}
@@ -1189,7 +1402,10 @@ def _gemm_timed(rng, device):
     the plain version and of one PyTorch call; ``wrapper_ms`` is the
     median of 20 CUDA-event timings around one wrapper call.  The first
     shape listed for each kernel is one the main path gives it (layer 1;
-    layer 2 for gd_dx)."""
+    layer 2 for gd_dx).  gd_dw is timed as the main path launches it,
+    with the bias step (``without_bias_ms``: the same launch without);
+    gd_db, which rides in that launch, gives the time the bias step
+    adds to it (``ms``: with minus without, ``carrier_ms``: with)."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops import gemm
     rows = {}
@@ -1260,30 +1476,34 @@ def _gemm_timed(rng, device):
                 2 * batch * n * f, dx_err, "_gd_ref, the whole step",
                 "torch.mm(delta, W^T)")
         w1, vw1, b1, vb1 = w.clone(), vw.clone(), b.clone(), vb.clone()
-        gemm._gd_dw_cuda(x, eo, y, w1, vw1, 1.0 / batch, GD_HP[0],
-                         GD_HP[2], GD_HP[4], act, False)
-        gemm._gd_db_cuda(eo, y, b1, vb1, 1.0 / batch, GD_HP[1], GD_HP[3],
-                         GD_HP[5], act)
+        bias = (b1, vb1, *GD_HP[1::2])
+        gemm._gd_dw_cuda(x, eo, y, w1, vw1, 1.0 / batch, *GD_HP[0::2], act,
+                         False, bias=bias)
         dw_err = max(_within(w1, want[0], tol)["max_abs_err"],
                      _within(vw1, want[2], tol)["max_abs_err"])
         db_err = max(_within(b1, want[1], tol)["max_abs_err"],
                      _within(vb1, want[3], tol)["max_abs_err"])
+
         # timed on copies, so the repeated in-place updates stay in range
-        row("gd_dw", [batch, f, n],
-            timed(lambda: gemm._gd_dw_cuda(
-                x, eo, y, w1, vw1, 1.0 / batch, GD_HP[0], GD_HP[2],
-                GD_HP[4], act, False),
-                plain, lambda: torch.mm(x.t(), delta), big),
-            4 * (batch * f + 2 * batch * n + 2 * f * n) + 4 * 2 * f * n,
-            2 * batch * f * n, dw_err, "_gd_ref, the whole step",
+        def dw(with_bias=True):
+            gemm._gd_dw_cuda(x, eo, y, w1, vw1, 1.0 / batch, *GD_HP[0::2],
+                             act, False, bias=bias if with_bias else None)
+        reps = 5 if big else 20
+        alone = device_ms(lambda: dw(False), reps)
+        times = timed(dw, plain, lambda: torch.mm(x.t(), delta), big)
+        row("gd_dw", [batch, f, n], times,
+            4 * (batch * f + 2 * batch * n + 2 * f * n + 4 * n)
+            + 4 * 2 * f * n, 2 * batch * f * n + batch * n,
+            max(dw_err, db_err), "_gd_ref, the whole step",
             "torch.mm(x^T, delta)")
+        rows["gd_dw"]["by_shape"][-1]["without_bias_ms"] = alone
         row("gd_db", [batch, n],
-            timed(lambda: gemm._gd_db_cuda(
-                eo, y, b1, vb1, 1.0 / batch, GD_HP[1], GD_HP[3], GD_HP[5],
-                act),
-                plain, lambda: delta.sum(0), big),
+            (times[0] - alone, None, times[2],
+             device_ms(lambda: delta.sum(0), reps)),
             4 * (2 * batch * n + 2 * n) + 4 * 2 * n, 2 * batch * n, db_err,
             "_gd_ref, the whole step", "delta.sum(0)")
+        rows["gd_db"]["by_shape"][-1].update(
+            rides_in="gd_dw", carrier_ms=times[0], without_bias_ms=alone)
     gpu_sync()
     timed = []
     for name in ("matmul", "gd_dx", "gd_dw", "gd_db"):
@@ -1291,8 +1511,15 @@ def _gemm_timed(rng, device):
         main = entry["by_shape"][0]       # the main path's shape
         entry.update({key: main[key] for key in (
             "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "max_abs_err")})
+            "bound_by", "max_abs_err", "without_bias_ms", "carrier_ms")
+            if key in main})
         timed.append(entry)
+    # the bias step has no launch of its own: its launches are the dw
+    # launches that carried it
+    rows["gd_db"].update(
+        counted_as="gd_db_in_dw",
+        rides_in="veles_gd_dw (veles_gemm_kernel<2|3, TILE>): the bias "
+                 "epilogue of the dw launch; ms is the device time it adds")
     return timed
 
 
@@ -1301,6 +1528,7 @@ def _gemm_kernels(device):
     faults and timings of the four kernels of csrc/gemm.cu."""
     rng = numpy.random.default_rng(SEED + 3)
     cases = _gemm_cases(rng, device)
+    cases.append(_gd_bias_cases(rng, device))
     repeatable = _gemm_repeatable(rng, device)
     planted = _gemm_planted_faults(rng, device)
     timed = _gemm_timed(rng, device)
@@ -1377,8 +1605,68 @@ def _gather_cases(rng, device):
                               table=list(shape), per_feature=per_feature,
                               negative_rows_zero=zeroed,
                               ok=report["exact"] and zeroed))
+    cases += _gather_group_cases(rng, device)
     gpu_sync()
     return cases
+
+
+def _gather_group_cases(rng, device):
+    """Groups of one launch against their plain version, table by table,
+    exactly: MNIST's eager and stitched minibatches (with negative and
+    out-of-range indices), every table kind at once (a (50, 13) u8 table
+    beside (7000, ...) ones: most indices out of its range), and four raw
+    tables of 50 rows; each also replayed from a CUDA graph over outputs
+    filled with 7, so a row left unwritten would show."""
+    from veles_tpu_torch.ops import gather
+    n, f, b = GATHER_MAIN
+    f32 = _gather_table(rng, device, torch.float32, (n, f))
+    u8 = _gather_table(rng, device, torch.uint8, (n, f))
+    labels = _gather_table(rng, device, torch.int32, (n,))
+    scalar = gather.affine_tensors((1.0 / 255.0, 0.0), device)
+    per_feature = gather.affine_tensors(
+        (rng.uniform(0.5, 2.0, f), rng.standard_normal(f)), device)
+    small = [_gather_table(rng, device, dtype, shape)
+             for dtype, shape in GATHER_TABLES[3:]]
+    idx = _gather_indices(rng, device, n, b)
+    idx_small = _gather_indices(rng, device, 50, b)
+    groups = {
+        "mnist_eager": ([(f32, 0), (labels, -1)], idx),
+        "mnist_stitched": ([(u8, scalar), (labels, -1)], idx),
+        "every_kind": ([(f32, 0), (u8, per_feature), (labels, -1),
+                        (small[1], 255)], idx),
+        "four_raw_of_50_rows": ([(t, pad) for t, pad in zip(
+            small, (0, 255, -1, 3))], idx_small),
+    }
+    cases = []
+    for name, (tables, index) in groups.items():
+        want = gather._gather_group_ref(tables, index)
+        for route, got in (("eager", gather.take_rows_group(tables, index)),
+                           ("graph_replay",
+                            _group_replayed(tables, index))):
+            exact = [_exact(g, w) for g, w in zip(got, want)]
+            cases.append({"kernel": "gather_group", "group": name,
+                          "route": route, "tables": len(tables),
+                          "max_abs_err": max(e["max_abs_err"]
+                                             for e in exact),
+                          "ok": all(e["exact"] for e in exact)})
+    return cases
+
+
+def _group_replayed(tables, idx):
+    """The group launch captured in a CUDA graph and replayed over its
+    outputs filled with 7: a row the kernel leaves unwritten keeps the
+    7."""
+    from veles_tpu_torch.ops import gather
+    gather.take_rows_group(tables, idx)
+    gpu_sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = gather.take_rows_group(tables, idx)
+    for out in outs:
+        out.fill_(7)
+    graph.replay()
+    gpu_sync()
+    return outs
 
 
 def _gather_repeatable(rng, device):
@@ -1386,18 +1674,27 @@ def _gather_repeatable(rng, device):
     data = _gather_table(rng, device, torch.uint8, GATHER_MAIN[:2])
     idx = _gather_indices(rng, device, GATHER_MAIN[0], GATHER_MAIN[2])
     norm = gather.affine_tensors((1.0 / 255.0, 0.0), device)
+    labels = _gather_table(rng, device, torch.int32, GATHER_MAIN[:1])
+    tables = [(data, norm), (labels, -1)]
     same = (torch.equal(gather.take_rows(data, idx),
                         gather.take_rows(data, idx))
             and torch.equal(gather.take_rows_norm(data, idx, norm),
-                            gather.take_rows_norm(data, idx, norm)))
+                            gather.take_rows_norm(data, idx, norm))
+            and all(torch.equal(p, q) for p, q in zip(
+                gather.take_rows_group(tables, idx),
+                gather.take_rows_group(tables, idx))))
     gpu_sync()
     return same
 
 
 def _gather_planted_faults(rng, device):
-    """Faults planted in the kernels' inputs at the main path's shape,
-    each of which the exact check must report: every valid index off by
-    one, and the negative indices given as 0 (a row not zeroed)."""
+    """Faults planted at the main path's shape, each of which the exact
+    check must report: in the inputs, every valid index off by one, and
+    the negative indices given as 0 (a row not zeroed); and the kernel's
+    two planted builds (the second table's rows taken at index + 1, a
+    raw table's pad rows left unwritten) on the eager minibatch's group
+    (f32 data, int32 labels), replayed from a graph over outputs filled
+    with 7."""
     from veles_tpu_torch.ops import gather
     data = _gather_table(rng, device, torch.uint8, GATHER_MAIN[:2])
     idx = _gather_indices(rng, device, GATHER_MAIN[0], GATHER_MAIN[2])
@@ -1417,82 +1714,106 @@ def _gather_planted_faults(rng, device):
         "gather_norm_negative_index_not_zeroed": _exact(
             gather.take_rows_norm(data, unzeroed, norm), want_norm),
     }
+    tables = [(_gather_table(rng, device, torch.float32, GATHER_MAIN[:2]), 0),
+              (_gather_table(rng, device, torch.int32, GATHER_MAIN[:1]), -1)]
+    want = gather._gather_group_ref(tables, idx)
+    for (source, fault), name in PLANTED_BUILDS.items():
+        if source != "gather":
+            continue
+        with planted(source, fault):
+            got = _group_replayed(tables, idx)
+        faults[name] = _exact(torch.cat([g.reshape(-1).float() for g in got]),
+                              torch.cat([w.reshape(-1).float()
+                                         for w in want]))
     gpu_sync()
     return {name: dict(report, caught=not report["exact"])
             for name, report in faults.items()}
 
 
-def _gather_bytes(data, idx, out, extra=0):
-    """Bytes the call must move: the indices, the rows of the valid
-    indices (this run's data), the output, and ``extra``."""
-    valid = int(((idx >= 0) & (idx < data.shape[0])).sum())
-    row = data[0].numel() * data.element_size()
-    return (idx.numel() * idx.element_size() + valid * row
-            + out.numel() * out.element_size() + extra)
+def _gather_bytes(tables, idx, outs, extra=0):
+    """Bytes a launch must move: the indices once, the rows of the valid
+    indices of each table (this run's data), the outputs, and
+    ``extra``."""
+    total = idx.numel() * idx.element_size() + extra
+    for data, out in zip(tables, outs):
+        valid = int(((idx >= 0) & (idx < data.shape[0])).sum())
+        total += (valid * data[0].numel() * data.element_size()
+                  + out.numel() * out.element_size())
+    return total
 
 
 def _gather_timed(rng, device):
-    """Each kernel's device time per call (:func:`device_ms`) at the
-    main path's shape (100 rows of a (7000, 784) table: f32 for gather,
-    the eager route's data row, u8 for gather_norm, the stitched head's)
-    and at 4096 rows of a (70000, 784) u8 table, beside its bound by
-    bytes, the plain version's time and ``torch.index_select``'s on the
-    same, all-valid, indices (gather only: no one PyTorch call computes
-    gather_norm).  The label row (100 of 7000 int32) is timed too.
-    Calls run back to back on the same indices, so rows a call reads
-    may be in L2."""
+    """The gather kernel's device time per launch (:func:`device_ms`) as
+    each route's minibatch makes it, one launch of two tables, beside its
+    bound by bytes and the plain version's time: the eager route's f32
+    data and int32 labels (row ``gather``; ``library_ms`` is
+    ``torch.index_select`` of the data table: one call gathers one
+    table), the stitched head's u8 data normalized and the labels (row
+    ``gather_norm``; no one PyTorch call normalizes).  Also each table
+    alone (``index_select`` beside the raw ones) and 4096 rows of a
+    (70000, 784) u8 table.  Calls run back to back on the same, all-valid
+    indices, so rows a call reads may be in L2."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops import gather
     rows = {}
 
-    def row(name, shape, dtype, kernel, plain, library, nbytes, ops, err):
-        bound, by = bound_seconds(nbytes, ops, "float32")
+    def row(name, label, tables, idx, library, extra=0, ops=0):
+        outs = gather._gather_group_cuda(tables, idx)
+        want = gather._gather_group_ref(tables, idx)
+        err = max(_exact(o, w)["max_abs_err"] for o, w in zip(outs, want))
+        bound, by = bound_seconds(
+            _gather_bytes([t for t, _how in tables], idx, outs, extra), ops,
+            "float32")
         entry = rows.setdefault(name, {
             "name": name, "route": "cuda",
             "source": "veles_tpu_torch/csrc/gather.cu",
             "replaces": "veles_tpu/ops/gather.py:%d" % {
                 "gather": 204, "gather_norm": 146}[name],
-            "plain_of": "_gather_ref" if name == "gather"
-            else "_gather_norm_ref",
-            "library_of": "torch.index_select" if name == "gather"
-            else None, "by_shape": []})
+            "plain_of": "_gather_group_ref",
+            "library_of": "torch.index_select of the data table"
+            if name == "gather" else None,
+            "rides_in": "veles_gather_group: one launch a minibatch of its "
+                        "data and labels, counted under gather_norm where "
+                        "a normalized table rides along", "by_shape": []})
         entry["by_shape"].append({
-            "table": list(shape), "dtype": dtype,
-            "ms": device_ms(kernel), "wrapper_ms": time_ms(kernel),
-            "plain_ms": device_ms(plain),
+            "tables": label,
+            "ms": device_ms(lambda: gather._gather_group_cuda(tables, idx)),
+            "wrapper_ms": time_ms(
+                lambda: gather._gather_group_cuda(tables, idx)),
+            "plain_ms": device_ms(
+                lambda: gather._gather_group_ref(tables, idx)),
             "library_ms": device_ms(library) if library else None,
             "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err})
 
-    for (n, f, b), dtype in ((GATHER_MAIN, torch.float32),
-                             ((GATHER_MAIN[0], None, GATHER_MAIN[2]),
-                              torch.int32),
-                             (GATHER_BIG, torch.uint8)):
-        shape = (n,) if f is None else (n, f)
-        data = _gather_table(rng, device, dtype, shape)
-        idx = _gather_indices(rng, device, n, b, invalid=False)
-        out = gather.take_rows(data, idx)
-        err = _exact(out, gather._gather_ref(data, idx))["max_abs_err"]
-        row("gather", shape, str(dtype).replace("torch.", ""),
-            lambda: gather._gather_cuda(data, idx, 0),
-            lambda: gather._gather_ref(data, idx, 0),
-            lambda: torch.index_select(data, 0, idx),
-            _gather_bytes(data, idx, out), 0, err)
-    for n, f, b in (GATHER_MAIN, GATHER_BIG):
-        data = _gather_table(rng, device, torch.uint8, (n, f))
-        idx = _gather_indices(rng, device, n, b, invalid=False)
-        scale, shift = gather.affine_tensors((1.0 / 255.0, 0.0), device)
-        out = gather.take_rows_norm(data, idx, (scale, shift))
-        err = _exact(out, gather._gather_norm_ref(data, idx, scale,
-                                                  shift))["max_abs_err"]
-        row("gather_norm", (n, f), "uint8",
-            lambda: gather._gather_norm_cuda(data, idx, scale, shift),
-            lambda: gather._gather_norm_ref(data, idx, scale, shift),
-            None, _gather_bytes(data, idx, out, extra=8), 2 * b * f, err)
+    n, f, b = GATHER_MAIN
+    idx = _gather_indices(rng, device, n, b, invalid=False)
+    f32 = _gather_table(rng, device, torch.float32, (n, f))
+    u8 = _gather_table(rng, device, torch.uint8, (n, f))
+    labels = _gather_table(rng, device, torch.int32, (n,))
+    norm = gather.affine_tensors((1.0 / 255.0, 0.0), device)
+    row("gather", "(7000, 784) f32 + (7000,) int32 labels",
+        [(f32, 0), (labels, -1)], idx,
+        lambda: torch.index_select(f32, 0, idx))
+    row("gather", "(7000, 784) f32", [(f32, 0)], idx,
+        lambda: torch.index_select(f32, 0, idx))
+    row("gather", "(7000,) int32 labels", [(labels, -1)], idx,
+        lambda: torch.index_select(labels, 0, idx))
+    row("gather_norm", "(7000, 784) u8 normalized + (7000,) int32 labels",
+        [(u8, norm), (labels, -1)], idx, None, extra=8, ops=2 * b * f)
+    row("gather_norm", "(7000, 784) u8 normalized", [(u8, norm)], idx, None,
+        extra=8, ops=2 * b * f)
+    n, f, b = GATHER_BIG
+    idx = _gather_indices(rng, device, n, b, invalid=False)
+    big = _gather_table(rng, device, torch.uint8, (n, f))
+    row("gather", "4096 of (70000, 784) u8", [(big, 0)], idx,
+        lambda: torch.index_select(big, 0, idx))
+    row("gather_norm", "4096 of (70000, 784) u8 normalized", [(big, norm)],
+        idx, None, extra=8, ops=2 * b * f)
     gpu_sync()
     timed = []
     for name in ("gather_norm", "gather"):
         entry = rows[name]
-        main = entry["by_shape"][0]       # the main path's shape
+        main = entry["by_shape"][0]       # the main path's launch
         entry.update({key: main[key] for key in (
             "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")})
@@ -1502,7 +1823,8 @@ def _gather_timed(rng, device):
 
 def _gather_kernels(device):
     """The ``kernels`` phase's gather half: cases, repeatability,
-    planted faults and timings of the two kernels of csrc/gather.cu."""
+    planted faults and timings of csrc/gather.cu's group kernel, as
+    ``_gather_kernel``'s and ``_gather_norm_kernel``'s rows."""
     rng = numpy.random.default_rng(SEED + 4)
     cases = _gather_cases(rng, device)
     repeatable = _gather_repeatable(rng, device)
@@ -3518,10 +3840,9 @@ def phase_train(device, smi):
         "launches_per_step_expected": want,
     }
     # every attention kernel of the profiled step is the tensor-core body:
-    # 24 forward (forward and remat recompute), 12 + 12 backward.  The
-    # profiler drops events at times (a window once counted 23 and 22),
-    # so a window that saw other counts is taken again, at most
-    # PROFILE_TRIES in all; the check reads the last window, as exact
+    # 24 forward (forward and remat recompute), 12 + 12 backward.  A
+    # window that saw other counts is taken again, at most PROFILE_TRIES
+    # in all; the check reads the last window, as exact
     want_bodies = {"fwd": {"tensor_core": 2 * cfg["layers"], "decode": 0,
                            "fma": 0},
                    "bwd": {"tensor_core": 2 * cfg["layers"], "decode": 0,
@@ -3663,8 +3984,11 @@ def reset_all_launches():
 
 
 def mnist_launches():
+    """The GEMM and gather launch counts, the dw launches that carried
+    the bias step and the tables the gather launches served."""
     from veles_tpu_torch.ops import gather, gemm
-    return {**gemm.launches, **gather.launches}
+    return {**gemm.launches, **gemm.bias_in_dw, **gather.launches,
+            **gather.tables_served}
 
 
 def phase_mnist(device, smi):
@@ -3678,7 +4002,7 @@ def phase_mnist(device, smi):
 def _phase_mnist(device, smi):
     from veles_tpu_torch import prng
     from veles_tpu_torch.memory import Watcher
-    from veles_tpu_torch.ops import gemm
+    from veles_tpu_torch.ops import gather, gemm
     from veles_tpu_torch.samples import mnist
 
     prng.seed_all(SEED)
@@ -3747,11 +4071,15 @@ def _phase_mnist(device, smi):
         "split_launches_expected": MNIST_SPLIT_LAUNCHES,
         "ok": finite and learned and counted and split_ok,
     }
-    profiled = mnist.create_workflow(device=device, max_epochs=2)
-    reset_all_launches()
-    info["breakdown"] = profile_window(profiled.run, _GEMM_NAMES)
+    def window():
+        profiled = mnist.create_workflow(device=device, max_epochs=2)
+        served, inner = [], profiled.loader.run
+        profiled.loader.run = lambda: served.append(inner())
+        reset_all_launches()
+        return profile_window(profiled.run, _MNIST_NAMES), len(served)
+    info["breakdown"], kernels_ok = _mnist_profiled(window)
     bodies_ok = _gemm_bodies_ok(info["breakdown"])
-    info["ok"] = info["ok"] and bodies_ok
+    info["ok"] = info["ok"] and bodies_ok and kernels_ok
     info["breakdown"]["window"] = ("one epoch: 2 validation passes and 1 "
                                    "train pass (max_epochs=2)")
     # device time of one launch on the main path, from the profile
@@ -3759,7 +4087,8 @@ def _phase_mnist(device, smi):
     info["breakdown"]["device_us_per_launch"] = {
         name: by_group.get(_PROFILE_GROUP.get(name, "veles_" + name),
                            0.0) * 1e3 / count
-        for name, count in mnist_launches().items() if count}
+        for name, count in {**gemm.launches, **gather.launches}.items()
+        if count}
     emit(info)
     check(finite, "mnist", "an n_err is not finite: %s" % errors)
     check(learned, "mnist", "validation error did not fall: %s" % valid)
@@ -3770,6 +4099,12 @@ def _phase_mnist(device, smi):
     check(bodies_ok, "mnist", "GEMM bodies in the profile: %s, want each "
           "of %s and no other" % (info["breakdown"]["gemm_bodies"],
                                   info["breakdown"]["gemm_bodies_expected"]))
+    check(kernels_ok, "mnist", "the profile saw %d gather kernels for %s "
+          "minibatches (of %d run) and db kernels %s" % (
+              info["breakdown"]["gather_kernels"],
+              info["breakdown"]["minibatches_seen"],
+              info["breakdown"]["minibatches_run"],
+              info["breakdown"]["gd_db_kernels"]))
     return launches
 
 
@@ -3877,6 +4212,7 @@ def _mnist_stitched_profile(device):
         if "tic" not in window and at == (0, True):
             gpu_sync()
             prof.start()
+            prime_window()
             window["tic"] = time.perf_counter()
             window["minibatches"] = 0
         elif "tic" in window and "toc" not in window and at == (1, True):
@@ -3893,14 +4229,14 @@ def _mnist_stitched_profile(device):
         prof.stop()
         window["toc"] = time.perf_counter()
     summary = _profile_summary(prof, (window["toc"] - window["tic"]) * 1e6,
-                               _GEMM_NAMES)
+                               _MNIST_NAMES)
     summary["window"] = ("one steady-state epoch: epoch 1's validation "
                          "and train passes (%d minibatches)"
                          % window["minibatches"])
     summary["minibatches"] = window["minibatches"]
     summary["kernels_per_minibatch"] = (summary["device_kernels"]
                                         / window["minibatches"])
-    return summary
+    return summary, window["minibatches"]
 
 
 def phase_mnist_stitched(device, smi):
@@ -4012,9 +4348,10 @@ def phase_mnist_stitched(device, smi):
                    and h2d_ok and d2h_ok),
         }
         reset_all_launches()
-        info["breakdown"] = _mnist_stitched_profile(device)
+        info["breakdown"], kernels_ok = _mnist_profiled(
+            lambda: _mnist_stitched_profile(device))
         bodies_ok = _gemm_bodies_ok(info["breakdown"])
-        info["ok"] = info["ok"] and bodies_ok
+        info["ok"] = info["ok"] and bodies_ok and kernels_ok
         by_group = info["breakdown"]["device_ms_by_group"]
         n = info["breakdown"]["minibatches"]
         info["breakdown"]["device_us_per_minibatch_by_group"] = {
@@ -4032,6 +4369,12 @@ def phase_mnist_stitched(device, smi):
           "want each of %s and no other"
           % (info["breakdown"]["gemm_bodies"],
              info["breakdown"]["gemm_bodies_expected"]))
+    check(kernels_ok, "mnist_stitched", "the profile saw %d gather kernels "
+          "for %s minibatches (of %d run) and db kernels %s" % (
+              info["breakdown"]["gather_kernels"],
+              info["breakdown"]["minibatches_seen"],
+              info["breakdown"]["minibatches_run"],
+              info["breakdown"]["gd_db_kernels"]))
     check(dispatched, "mnist_stitched", "segments dispatched, captured or "
           "recaptured other than expected: %s" % report)
     check(h2d_ok, "mnist_stitched", "host->device bytes per minibatch: "
@@ -4206,23 +4549,37 @@ def main():
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1
     for entry in timed:
-        entry["launches_by_path"] = {path: counts[entry["name"]]
+        # a row whose function rides in another launch counts those
+        # launches (gd_db: the dw launches that carried the bias step);
+        # the gather rows also give the tables their launches served
+        counter = entry.get("counted_as", entry["name"])
+        entry["launches_by_path"] = {path: counts[counter]
                                      for path, counts in paths.items()
-                                     if counts.get(entry["name"])}
+                                     if counts.get(counter)}
         entry["launches"] = sum(entry["launches_by_path"].values())
+        if entry["name"] in ("gather", "gather_norm"):
+            entry["tables_by_path"] = {
+                path: {kind: counts[kind] for kind in (
+                    "gather_tables", "gather_norm_tables") if counts[kind]}
+                for path, counts in paths.items()
+                if counts.get("gather_tables")
+                or counts.get("gather_norm_tables")}
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # the GEMM kernels also carry wrapper_ms, the time of one wrapper
-    # call; the paged kernel the contiguous kernel's time on the mirrored
-    # cache and its verify (5 rows) times; the flash kernels their body,
-    # rate, share of their bound, device time per call (the forward also
-    # SDPA's, and its numbers at the train step's batch); the decode
-    # kernels their split, body, device time on cold operands and its
-    # share of the bound (the contiguous one SDPA's device time); qmatmul
-    # its prefill layer's device times and its decode layer (device
-    # times, plans, body)
-    extra = ("wrapper_ms", "contiguous_ms", "verify_ms",
+    # gd_db and the gather rows say which launch they ride in (gd_db its
+    # carrier's times with and without it, the gather rows the tables
+    # served); the GEMM kernels also carry wrapper_ms, the time of one
+    # wrapper call; the paged kernel the contiguous kernel's time on the
+    # mirrored cache and its verify (5 rows) times; the flash kernels
+    # their body, rate, share of their bound, device time per call (the
+    # forward also SDPA's, and its numbers at the train step's batch);
+    # the decode kernels their split, body, device time on cold operands
+    # and its share of the bound (the contiguous one SDPA's device time);
+    # qmatmul its prefill layer's device times and its decode layer
+    # (device times, plans, body)
+    extra = ("rides_in", "tables_by_path", "without_bias_ms", "carrier_ms",
+             "wrapper_ms", "contiguous_ms", "verify_ms",
              "verify_contiguous_ms", "verify_plain_ms", "verify_bound_ms",
              "body", "split", "tflops", "bound_share", "device_ms",
              "bound_share_device", "library_device_ms", "contiguous_device_ms",

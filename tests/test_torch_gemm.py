@@ -13,9 +13,10 @@
   the Pallas kernels multiply by 1/B, and they sum in tiles).
 - The ``gd_fused`` wrapper updates W, vW, b and vb in place on the CPU
   as on the card, launches nothing, and — on the kernel route — must
-  read W for err_input before dw updates it: a test runs that route
-  with the three kernel wrappers replaced by in-place plain pieces, and
-  the same pieces in the wrong order must fail it.
+  read W for err_input before dw (which carries the bias step) updates
+  it: a test runs that route with the two kernel wrappers replaced by
+  in-place plain pieces, and the same pieces in the wrong order must
+  fail it.
 
 - ``plan`` (the GEMM body's tile and K split) and ``k_range`` (a rank's
   K chunk): the split never passes 8, stops once the grid covers the
@@ -23,8 +24,10 @@
   rank order; the MNIST shapes and 4096³ map to the stated configs.
 - The split's arithmetic emulated in plain PyTorch (each rank's chunk
   summed on its own, the partial tiles added in rank order) against
-  ``_matmul_jnp`` and ``_gd_math``: atol 1e-5 + rtol 1e-5, the card's
-  GEMM tolerance.
+  ``_matmul_jnp`` and ``_gd_math``, and the bias sums in the dw kernel's
+  order (``_bias_sum_plan_ref``: rows one by one within a rank's K
+  chunk, ranks in order) at splits 1 to 8, both storage layouts: atol
+  1e-5 + rtol 1e-5, the card's GEMM tolerance.
 
 The kernels themselves run only on the card (``tests/test_torch_kernels
 .py``, ``cuda`` marker; ``chip_smoke.py``).
@@ -144,8 +147,9 @@ def test_gd_fused_updates_in_place_on_cpu(transposed):
 
 
 def _plain_pieces(order):
-    """The three kernel wrappers as in-place plain pieces; ``order``
-    records the calls."""
+    """The two kernel wrappers as in-place plain pieces, dw taking the
+    bias step when given it, as its launch does; ``order`` records the
+    calls."""
 
     def dx(eo, y, w, activation, transposed):
         order.append("dx")
@@ -153,42 +157,42 @@ def _plain_pieces(order):
         return delta @ (w if transposed else w.t())
 
     def dw(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
-           transposed):
-        order.append("dw")
-        grad = x.t() @ (eo * gemm._derivative(y, activation)) * inv_batch
+           transposed, bias=None):
+        order.append("dw" if bias is None else "dw+db")
+        delta = eo * gemm._derivative(y, activation)
+        grad = x.t() @ delta * inv_batch
         if transposed:
             grad = grad.t()
         vw.copy_(moment * vw - lr * (grad + decay * w))
         w.add_(vw)
-
-    def db(eo, y, b, vb, inv_batch, lr, decay, moment, activation):
-        order.append("db")
-        grad = (eo * gemm._derivative(y, activation)).sum(0) * inv_batch
-        vb.copy_(moment * vb - lr * (grad + decay * b))
-        b.add_(vb)
-    return dx, dw, db
+        if bias is not None:
+            b, vb, lr_b, decay_b, moment_b = bias
+            grad_b = delta.sum(0) * inv_batch
+            vb.copy_(moment_b * vb - lr_b * (grad_b + decay_b * b))
+            b.add_(vb)
+    return dx, dw
 
 
 @pytest.mark.parametrize("swapped", [False, True])
 def test_kernel_route_reads_w_before_the_update(monkeypatch, swapped):
     """On CUDA tensors ``gd_fused`` launches dx, then dw (which updates W
-    in place), then db.  With the wrappers replaced by plain in-place
-    pieces, that order gives ``_gd_ref``'s err_input; dx run after dw
-    (``swapped``) reads the updated W and must not."""
+    in place, and takes the bias step in the same launch).  With the
+    wrappers replaced by plain in-place pieces, that order gives
+    ``_gd_ref``'s err_input; dx run after dw (``swapped``) reads the
+    updated W and must not."""
     order, late = [], []
-    dx, dw, db = _plain_pieces(order)
+    dx, dw = _plain_pieces(order)
     if swapped:
         def dw_then_dx(x, eo, y, w, vw, inv_batch, lr, decay, moment,
-                       activation, transposed):
+                       activation, transposed, bias=None):
             dw(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
-               transposed)
+               transposed, bias)
             late.append(dx(eo, y, w, activation, transposed))
         monkeypatch.setattr(gemm, "_gd_dx_cuda", lambda *args: None)
         monkeypatch.setattr(gemm, "_gd_dw_cuda", dw_then_dx)
     else:
         monkeypatch.setattr(gemm, "_gd_dx_cuda", dx)
         monkeypatch.setattr(gemm, "_gd_dw_cuda", dw)
-    monkeypatch.setattr(gemm, "_gd_db_cuda", db)
     monkeypatch.setattr(gemm, "on_gpu", lambda *t: True)
     arrays = _gd_inputs(False, seed=9)
     want = gemm._gd_ref(*_t(*arrays), *_HP, activation="sigmoid")
@@ -197,10 +201,10 @@ def test_kernel_route_reads_w_before_the_update(monkeypatch, swapped):
     for got, ref in zip(out[:4], want[:4]):
         torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
     if swapped:
-        assert order == ["dw", "dx", "db"]
+        assert order == ["dw+db", "dx"]
         assert not torch.allclose(err_input, want[4], atol=GD_ATOL)
     else:
-        assert order == ["dx", "dw", "db"]
+        assert order == ["dx", "dw+db"]
         torch.testing.assert_close(err_input, want[4], atol=1e-6, rtol=0)
 
 
@@ -236,9 +240,19 @@ def test_gd_contract_is_checked_before_launch():
         gemm._gd_dw_cuda(torch.zeros((4, 7)), eo, eo, torch.zeros((6, 5)),
                          torch.zeros((6, 5)), 0.25, 0.1, 0.0, 0.9, None,
                          False)
+    x, w = torch.zeros((4, 6)), torch.zeros((6, 5))
     with pytest.raises(TypeError, match="float32"):
-        gemm._gd_db_cuda(eo.double(), eo, torch.zeros(5), torch.zeros(5),
-                         0.25, 0.1, 0.0, 0.9, None)
+        gemm._gd_dw_cuda(x, eo, eo, w, w.clone(), 0.25, 0.1, 0.0, 0.9, None,
+                         False, bias=(torch.zeros(5, dtype=torch.float64),
+                                      torch.zeros(5), 0.1, 0.0, 0.9))
+    with pytest.raises(ValueError, match="want \\(5,\\) each"):
+        gemm._gd_dw_cuda(x, eo, eo, w, w.clone(), 0.25, 0.1, 0.0, 0.9, None,
+                         False, bias=(torch.zeros(4), torch.zeros(4), 0.1,
+                                      0.0, 0.9))
+    with pytest.raises(ValueError, match="hyperparameters"):
+        gemm._gd_dw_cuda(x, eo, eo, w, w.clone(), 0.25, 0.1, 0.0, 0.9, None,
+                         False, bias=(torch.zeros(5), torch.zeros(5),
+                                      torch.tensor(0.1), 0.0, 0.9))
     with pytest.raises(ValueError, match="unknown activation"):
         gemm.gd_fused(eo, eo, eo, torch.zeros((5, 5)), None,
                       torch.zeros((5, 5)), None, *_HP, activation="gelu")
@@ -330,23 +344,60 @@ def test_split_sum_matches_jax_matmul(activation, m, k, n, split):
 
 
 @pytest.mark.parametrize("activation", ACTIVATIONS)
-@pytest.mark.parametrize("batch,f,n,split", [(100, 784, 100, 2),
-                                             (100, 100, 10, 4),
-                                             (100, 784, 100, 8)])
+@pytest.mark.parametrize("batch,f,n,split", [
+    (100, 784, 100, 2), (100, 100, 10, 4), (100, 784, 100, 8),
+    (100, 784, 100, 1), (100, 784, 100, 4), (100, 100, 10, 1),
+    (100, 100, 10, 2), (100, 100, 10, 8), (37, 70, 50, 1), (37, 70, 50, 2),
+    (37, 70, 50, 4), (37, 70, 50, 8)])
 def test_split_sum_matches_jax_gd(activation, batch, f, n, split):
     """dW as the split kernel sums it (K = the batch), times 1/B, then
-    the momentum step; err_input with K = n split the same way."""
-    arrays = _gd_inputs(False, seed=13, batch=batch, f=f, n=n)
-    x, y, eo, w, b, vw, vb = _t(*arrays)
-    lr, _, decay, _, moment, _ = _HP
-    delta = eo * gemm._derivative(y, activation)
-    grad = _split_mm(x.t().contiguous(), delta, split) * (1.0 / batch)
-    v_new = moment * vw - lr * (grad + decay * w)
-    err_input = _split_mm(delta, w.t().contiguous(), split)
-    want = _gd_math(*[jnp.asarray(a) for a in arrays], *_HP,
-                    activation=activation)
-    for name, got, ref in (("w", w + v_new, want[0]), ("vw", v_new, want[2]),
-                           ("err_input", err_input, want[4])):
-        numpy.testing.assert_allclose(got.numpy(), numpy.asarray(ref),
-                                      atol=SPLIT_ATOL, rtol=SPLIT_RTOL,
-                                      err_msg=name)
+    the momentum step; err_input with K = n split the same way; and the
+    bias step from the sums in the dw kernel's order
+    (``_bias_sum_plan_ref``), in both storage layouts."""
+    lr, lr_b, decay, decay_b, moment, moment_b = _HP
+    for transposed in (False, True):
+        arrays = _gd_inputs(transposed, seed=13, batch=batch, f=f, n=n)
+        x, y, eo, w, b, vw, vb = _t(*arrays)
+        w_fn = w.t() if transposed else w            # (f, n)
+        delta = eo * gemm._derivative(y, activation)
+        grad = _split_mm(x.t().contiguous(), delta, split) * (1.0 / batch)
+        if transposed:
+            grad = grad.t()
+        v_new = moment * vw - lr * (grad + decay * w)
+        err_input = _split_mm(delta, w_fn.t().contiguous(), split)
+        grad_b = gemm._bias_sum_plan_ref(delta, split) * (1.0 / batch)
+        vb_new = moment_b * vb - lr_b * (grad_b + decay_b * b)
+        want = _gd_math(*[jnp.asarray(a) for a in arrays], *_HP,
+                        activation=activation, transposed=transposed)
+        for name, got, ref in (("w", w + v_new, want[0]),
+                               ("vw", v_new, want[2]),
+                               ("err_input", err_input, want[4]),
+                               ("b", b + vb_new, want[1]),
+                               ("vb", vb_new, want[3])):
+            numpy.testing.assert_allclose(
+                got.numpy(), numpy.asarray(ref), atol=SPLIT_ATOL,
+                rtol=SPLIT_RTOL,
+                err_msg="%s (transposed=%s)" % (name, transposed))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("batch", [1, 16, 37, 100])
+def test_bias_sum_plan_adds_rows_in_rank_order(split, batch):
+    """The model's order, written out: rank r adds its ``k_range`` rows
+    one by one into zero, then the ranks' sums are added into zero in
+    rank order (a split-1 launch keeps its sum)."""
+    rng = numpy.random.default_rng(14)
+    delta = torch.from_numpy(rng.standard_normal((batch, 9)).astype(
+        numpy.float32))
+    sums = []
+    for rank in range(split):
+        s = numpy.zeros(9, numpy.float32)
+        begin, end = gemm.k_range(rank, split, batch)
+        for row in delta.numpy()[begin:end]:
+            s = (s + row).astype(numpy.float32)
+        sums.append(s)
+    want = sums[0] if split == 1 else numpy.zeros(9, numpy.float32)
+    for s in sums if split > 1 else ():
+        want = (want + s).astype(numpy.float32)
+    got = gemm._bias_sum_plan_ref(delta, split).numpy()
+    numpy.testing.assert_array_equal(got, want)

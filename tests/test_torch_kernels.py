@@ -652,8 +652,10 @@ def test_gd_kernels_match_plain_version_on_card(
     want = gemm._gd_ref(*args, *_GD_HP, **flags)
     got = gemm.gd_fused(*args, *_GD_HP, **flags)
     torch.cuda.synchronize()
+    # the bias step rides in dw's launch: no launch of its own
     assert gemm_launches == {"matmul": 0, "gd_dx": int(need_err_input),
-                             "gd_dw": 1, "gd_db": int(has_bias)}
+                             "gd_dw": 1, "gd_db": 0}
+    assert gemm.bias_in_dw == {"gd_db_in_dw": int(has_bias)}
     for name, g, w_ in zip(("w", "b", "vw", "vb", "err_input"), got, want):
         if w_ is None:
             assert g is None
@@ -740,9 +742,10 @@ def _gemm_case(device, m, k, n, seed, w_transposed=False, x_strided=False):
 
 
 def _gemm_config_errors(device, m, k, n, tile_split, tol, seed):
-    """matmul, gd_dx and gd_dw (both storage layouts) forced onto one
-    (tile, split), each against its plain version; returns the names of
-    those outside ``tol`` and whether a relaunch gave the same bits."""
+    """matmul, gd_dx and gd_dw with the bias step (both storage layouts)
+    forced onto one (tile, split), each against its plain version;
+    returns the names of those outside ``tol`` and whether a relaunch
+    gave the same bits."""
     from veles_tpu_torch.ops import gemm
     bad, same = [], True
     a, w, bias = _gemm_case(device, m, k, n, seed)
@@ -767,14 +770,16 @@ def _gemm_config_errors(device, m, k, n, tile_split, tol, seed):
                                 activation="tanh", transposed=True)
         runs = []
         for _ in range(2):
-            w1, vw1 = w.clone(), vw.clone()
+            w1, vw1, b1, vb1 = w.clone(), vw.clone(), b.clone(), vb.clone()
             gemm._gd_dw_cuda(x, eo, y, w1, vw1, 1.0 / m, _GD_HP[0],
                              _GD_HP[2], _GD_HP[4], "tanh", transposed,
-                             tile_split)
-            runs.append((w1, vw1))
+                             tile_split, bias=(b1, vb1, *_GD_HP[1::2]))
+            runs.append((w1, vw1, b1, vb1))
         same &= all(torch.equal(p, q) for p, q in zip(*runs))
         for name, got_, ref in (("gd_dw w", runs[0][0], want[0]),
-                                ("gd_dw vw", runs[0][1], want[2])):
+                                ("gd_dw vw", runs[0][1], want[2]),
+                                ("gd_dw b", runs[0][2], want[1]),
+                                ("gd_dw vb", runs[0][3], want[3])):
             if not torch.allclose(got_, ref, atol=tol[0], rtol=tol[1]):
                 bad.append(name + (" transposed" if transposed else ""))
     torch.cuda.synchronize()
@@ -800,6 +805,34 @@ def test_gemm_every_config_at_4096_on_card(cuda_device, gemm_launches,
     bad, same = _gemm_config_errors(cuda_device, 4096, 4096, 4096,
                                     tile_split, GEMM_BIG_TOL, seed=37)
     assert not bad and same, (bad, same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", GEMM_ACTIVATIONS)
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("tile_split", GEMM_CONFIGS)
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES + GEMM_SPLIT_SHAPES)
+def test_gd_dw_bias_sums_follow_the_plan_on_card(
+        cuda_device, gemm_launches, m, k, n, tile_split, transposed,
+        activation):
+    """dw's bias step (batch m, k inputs, n neurons) on every tile and
+    split: with inv_batch 1, lr 1, decay 0 and momentum 0, vb comes out
+    as minus the kernel's sums of delta, which must equal the plain
+    model of their order (``_bias_sum_plan_ref``, delta computed by the
+    plain version on the card) bit for bit, twice."""
+    from veles_tpu_torch.ops import gemm
+    x, y, eo, w, b, vw, vb = _gd_operands(cuda_device, m, k, n, transposed,
+                                          seed=45)
+    delta = eo * gemm._derivative(y, activation)
+    want = gemm._bias_sum_plan_ref(delta, tile_split[1], tile_split[0])
+    for _ in range(2):
+        vb1 = vb.clone()
+        gemm._gd_dw_cuda(x, eo, y, w.clone(), vw.clone(), 1.0, 0.03, 0.0,
+                         0.9, activation, transposed, tile_split,
+                         bias=(b.clone(), vb1, 1.0, 0.0, 0.0))
+        torch.cuda.synchronize()
+        assert torch.equal(-vb1, want)
+    assert gemm.bias_in_dw == {"gd_db_in_dw": 2}
 
 
 @pytest.mark.cuda
@@ -985,6 +1018,39 @@ def test_gather_norm_kernel_matches_plain_version_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_feature", [False, True])
+def test_gather_group_matches_plain_version_on_card(
+        cuda_device, gather_launches, per_feature):
+    """Every table kind in one launch: MNIST's f32 data (16-byte words),
+    its u8 data normalized, int32 labels padded with -1 (4-byte words)
+    and rows of 13 u8 (bytes), all over one index vector with negative
+    and out-of-range indices; each output equals its plain version."""
+    from veles_tpu_torch.ops import gather
+    data, idx = _gather_operands(cuda_device, torch.float32, (7000, 784))
+    raw, _ = _gather_operands(cuda_device, torch.uint8, (7000, 784), seed=41)
+    labels, _ = _gather_operands(cuda_device, torch.int32, (7000,), seed=42)
+    odd, _ = _gather_operands(cuda_device, torch.uint8, (7000, 13), seed=43)
+    rng = numpy.random.default_rng(44)
+    norm = gather.affine_tensors(
+        (rng.uniform(0.5, 2.0, 784), rng.standard_normal(784))
+        if per_feature else (1.0 / 255.0, 0.0), cuda_device)
+    tables = [(data, 0), (raw, norm), (labels, -1), (odd, 7)]
+    got = gather.take_rows_group(tables, idx)
+    want = gather._gather_group_ref(tables, idx)
+    torch.cuda.synchronize()
+    assert gather_launches == {"gather": 0, "gather_norm": 1}
+    assert gather.tables_served == {"gather_tables": 3,
+                                    "gather_norm_tables": 1}
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and torch.equal(g, w_)
+    # without the normalized table: one launch under "gather"
+    got = gather.take_rows_group([tables[0], tables[2]], idx)
+    torch.cuda.synchronize()
+    assert gather_launches == {"gather": 1, "gather_norm": 1}
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[2])
+
+
+@pytest.mark.cuda
 def test_gather_kernels_are_deterministic_on_card(cuda_device,
                                                   gather_launches):
     from veles_tpu_torch.ops import gather
@@ -1000,9 +1066,11 @@ def test_gather_kernels_are_deterministic_on_card(cuda_device,
 def test_gather_kernels_replay_in_a_cuda_graph_on_card(cuda_device,
                                                        gather_launches):
     """Captured once, replayed with new index contents written into the
-    captured buffer: each replay gathers the new rows."""
+    captured buffer and the outputs overwritten: each replay gathers the
+    new rows and writes every row, pad rows included."""
     from veles_tpu_torch.ops import gather
     data, idx = _gather_operands(cuda_device, torch.uint8, (7000, 784))
+    labels, _ = _gather_operands(cuda_device, torch.int32, (7000,), seed=44)
     norm = gather.affine_tensors((1.0 / 255.0, 0.0), cuda_device)
     gather.take_rows_norm(data, idx, norm)        # load the library
     torch.cuda.synchronize()
@@ -1010,15 +1078,20 @@ def test_gather_kernels_replay_in_a_cuda_graph_on_card(cuda_device,
     with torch.cuda.graph(graph):
         rows = gather.take_rows(data, idx)
         normed = gather.take_rows_norm(data, idx, norm)
+        grouped = gather.take_rows_group([(data, norm), (labels, -1)], idx)
     for seed in (42, 43):
         _, new = _gather_operands(cuda_device, torch.uint8, (7000, 784),
                                   seed=seed)
         idx.copy_(new)
+        for out in [rows, normed] + grouped:
+            out.fill_(7)
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(rows, gather._gather_ref(data, idx))
         assert torch.equal(normed,
                            gather._gather_norm_ref(data, idx, *norm))
+        assert torch.equal(grouped[0], normed)
+        assert torch.equal(grouped[1], gather._gather_ref(labels, idx, -1))
 
 
 @pytest.mark.cuda

@@ -431,6 +431,97 @@ def test_chip_smoke_takes_a_name_window_again_only_while_it_saw_none(
     assert taken == [("k",)] * tries
 
 
+def test_chip_smoke_primes_a_profiler_window_before_the_work():
+    """``profile_window`` launches PROFILE_PRIMER small kernels inside
+    the profiler's window, waits for them, and marks where the work
+    starts before it runs the work (late in a process the profiler loses
+    the first device records of a window); host ops of the primer are
+    not the work's."""
+    import runpy
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"))
+    window = smoke["profile_window"]
+    order = []
+    window.__globals__["gpu_sync"] = lambda: order.append("sync")
+    window.__globals__["_PRIMER_DEVICE"] = "cpu"
+
+    def work():
+        order.append("work")
+        return torch.ones(64) + 1
+    summary = window(work)
+    assert smoke["PROFILE_PRIMER"] >= 64
+    assert order == ["sync", "sync", "work", "sync"]
+    assert summary["primer_kernels_run"] == smoke["PROFILE_PRIMER"]
+    assert summary["primer_kernels_seen"] == 0      # no device here
+    assert summary["device_kernels"] == 0
+
+
+@pytest.mark.parametrize("starts,primer,work", [
+    # every primer kernel and every work kernel seen
+    ([1, 2, 3, 10, 11], 3, 2),
+    # the first records lost: the primer took the loss
+    ([3, 10, 11], 1, 2),
+    # no marker (a profile taken without the primer): all are the work's
+    (None, 0, 3),
+])
+def test_chip_smoke_counts_only_the_kernels_after_the_work_marker(
+        starts, primer, work):
+    import runpy
+    from torch.autograd import DeviceType
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"))
+
+    class Range(object):
+        def __init__(self, start):
+            self.start, self.end = start, start + 0.5
+
+    class Event(object):
+        def __init__(self, name, start, device_type=DeviceType.CUDA):
+            self.name, self.device_type = name, device_type
+            self.time_range = Range(start)
+            self.device_time_total = 0.5
+
+    if starts is None:
+        events = [Event("k", t) for t in (1, 10, 11)]
+    else:
+        events = [Event("k", t) for t in starts] + [
+            Event(smoke["WORK_MARKER"], 5, DeviceType.CPU),
+            Event("aten::add_", 0.5, DeviceType.CPU)]
+
+    class Prof(object):
+        def events(self):
+            return events
+    summary = smoke["_profile_summary"](Prof(), 100.0)
+    assert summary["primer_kernels_seen"] == primer
+    assert summary["device_kernels"] == work
+    assert summary["kernels_by_group"] == {"other": work}
+
+
+_GATHER = "void veles_gather_group_kernel<4>(GroupArgs)"
+_FORWARD = "void veles_gemm_kernel<0, 0>(GemmArgs)"
+
+
+@pytest.mark.parametrize("names,ok", [
+    # 80 minibatches, each one group gather and two forward GEMMs
+    ({_GATHER: 80, _FORWARD: 160}, True),
+    # one whole minibatch not seen
+    ({_GATHER: 79, _FORWARD: 158}, False),
+    # every forward seen, one gather missing
+    ({_GATHER: 79, _FORWARD: 160}, False),
+    # a second gather kernel of another name
+    ({_GATHER: 80, _FORWARD: 160, "void veles_gather_rows(float*)": 1},
+     False),
+    # a kernel named after the db step
+    ({_GATHER: 80, _FORWARD: 160, "void veles_gd_db_kernel(float*)": 1},
+     False),
+])
+def test_chip_smoke_mnist_profile_must_see_every_minibatch(names, ok):
+    import runpy
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"))
+    breakdown = {"kernel_names": dict(names)}
+    assert smoke["_mnist_kernels_ok"](breakdown, 80) is ok
+    assert breakdown["minibatches_run"] == 80
+    assert breakdown["minibatches_seen"] == names[_FORWARD] / 2
+
+
 @pytest.mark.parametrize("counts,windows", [
     # every step's library kernels seen: one window
     ([{"matmul": 784}], 1),

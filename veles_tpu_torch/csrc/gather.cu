@@ -1,47 +1,93 @@
-// Row gather, and row gather fused with an affine normalize, for Hopper
-// (sm_90a), written by hand.
+// Row gather of up to four tables over one index vector in one launch,
+// each table moved raw or (one of them) fused with an affine normalize, for
+// Hopper (sm_90a), written by hand.
 //
 // Replaces two TPU kernels of veles_tpu/ops/gather.py:
 // - `_gather_kernel` (via `_gather_pallas`): out[i] = data[idx[i]] along
 //   axis 0, a pad row where idx[i] is negative (the empty slots of a
-//   short minibatch)                                 -> veles_gather_rows;
+//   short minibatch)              -> a raw table of veles_gather_group;
 // - `_gather_norm_kernel` (via `_gather_norm_pallas`): out[i] =
 //   f32(data[idx[i]]) * scale + shift, per feature or one scalar pair,
 //   and a ZERO row (not `shift`) where idx[i] is negative
-//                                                    -> veles_gather_norm.
+//                                 -> the normalized table of the group.
 // The Pallas kernels run one grid point per output row, with the index
 // as a scalar-prefetch index map that DMAs the source row into the
-// output block.  Here one block copies one output row: it loads its own
-// index, and its threads stride over the row, neighbouring threads on
-// neighbouring addresses.  veles_gather_rows moves the row as raw bytes
-// (any element type) in 16-byte words where the row width and both
-// base addresses allow it, else in 4-byte words, else bytes; the pad
-// value arrives as an 8-byte pattern of its element repeated.
-// veles_gather_norm reads u8, int32 or f32 rows four elements at a time
-// where the width and alignment allow it, converts them to f32 and
-// writes float4s; the multiply and the add are rounded one after the
-// other (__fmul_rn, __fadd_rn), as the plain version and the JAX
-// reference compute them, so no fused multiply-add changes a bit.  An
-// index outside [0, n_rows) gives the pad (zero) row: no read ever
-// leaves the table.  Neither kernel synchronises or allocates; both
-// launch on the caller's stream, so a CUDA graph captures them.
+// output block, one pallas_call a table.  Here one block serves one
+// output row of every table of the group: its threads load the row's
+// index, and each table has warps of its own, which stride over its row,
+// neighbouring threads on neighbouring addresses, so every table's loads
+// are in flight at once (a thread that walked the tables in turn would
+// wait for one table's load before it issued the next's: a third round
+// trip, 0.5 us on the MNIST minibatch).  A raw table's row moves as raw
+// bytes (any element type) in 16-byte words where the row width and both
+// base addresses allow it, else in 4-byte words, else bytes; its pad value
+// arrives as an 8-byte pattern of its element repeated.  The normalized
+// table's u8, int32 or f32 rows are read four elements at a time where
+// the width and alignment allow it, converted to f32 and written as
+// float4s; the multiply and the add are rounded one after the other
+// (__fmul_rn, __fadd_rn), as the plain version and the JAX reference
+// compute them, so no fused multiply-add changes a bit.  An index
+// outside [0, n_rows) gives the pad (zero) row: no read ever leaves a
+// table.  The kernel neither synchronises nor allocates, and launches on
+// the caller's stream, so a CUDA graph captures it.
 //
-// What bounds it on the H100: bytes.  The MNIST head gathers 100 rows
-// of 784 u8 (78 400 B read, 313 600 B of f32 written, 400 B of
-// indices): 0.117 us at 3.35 TB/s, far below one launch, so at the
-// main path's shape the launch and the graph around it are the cost.
-// At 4096 rows of real MNIST's (70 000, 784) u8 table the bound is
-// 4.8 us; a block per row keeps 4096 blocks in flight over 132 SMs, and
-// each row is read and written once, coalesced.
+// What bounds it on the H100: bytes, and below them the launch.  The
+// MNIST minibatch gathers 100 rows of 784 (f32 on the eager route, u8
+// normalized to f32 in the stitched head) and 100 int32 labels: at most
+// 0.63 MB, 0.19 us at 3.35 TB/s, far below the ~2.5 us floor that each
+// launch paid when the labels had a launch of their own.  So the group
+// serves a minibatch's tables in one launch, one block a row, two
+// dependent round trips (the index, then every table's row).  At 4096
+// rows of real MNIST's (70 000, 784) u8 table the bound is 4.8 us; a
+// block per row keeps 4096 blocks in flight over 132 SMs, and each row is
+// read and written once, coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// a test build may plant a fault (1: the second table's rows taken at
+// index + 1; 2: a raw table's pad rows left unwritten), which the card
+// checks must report; 0 in every other build
+#ifndef VELES_PLANTED_FAULT
+#define VELES_PLANTED_FAULT 0
+#endif
+
 namespace {
 
-constexpr int MAX_THREADS = 256;
+constexpr int MAX_THREADS = 256;   // a table's threads
+constexpr int MAX_TABLES = 4;
+constexpr int MAX_BLOCK = MAX_THREADS * MAX_TABLES;
 
-// threads of a block that copies `chunks` words a row: whole warps, at
+// how a table's rows move: raw words of 16, 4 or 1 bytes, or normalized
+// from u8, int32 or f32 four features a thread step (VEC 4) or one
+enum Move {
+  RAW16 = 0, RAW4 = 1, RAW1 = 2,
+  NORM_U8_4 = 3, NORM_U8_1 = 4, NORM_I32_4 = 5, NORM_I32_1 = 6,
+  NORM_F32_4 = 7, NORM_F32_1 = 8
+};
+
+// one table of a launch: `words` words of its move a row (features for a
+// normalized table), moved by the block's threads [first, first + threads)
+struct Table {
+  const void* data;
+  void* out;
+  long long n_rows;
+  long long words;
+  unsigned long long pad;
+  const float* scale;
+  const float* shift;
+  int stride;   // 1: per-feature scale and shift, 0: one pair
+  int move;
+  int first;
+  int threads;
+};
+
+struct Group {
+  Table t[MAX_TABLES];
+  int count;
+};
+
+// threads of a table that moves `chunks` words a row: whole warps, at
 // most MAX_THREADS
 int threads_for(long long chunks) {
   long long t = (chunks + 31) / 32 * 32;
@@ -75,36 +121,21 @@ __device__ __forceinline__ unsigned char pad_of<unsigned char>(
   return (unsigned char)(p >> (8 * (w & 7)));
 }
 
-// one block per output row; a row is `row_words` words of type W
+// output row i of a raw table from source row r (a pad row outside it),
+// by the table's thread `lane`
 template <typename W>
-__global__ void __launch_bounds__(MAX_THREADS)
-veles_gather_rows_kernel(const W* __restrict__ data,
-                         const int* __restrict__ idx, W* __restrict__ out,
-                         long long n_rows, long long row_words,
-                         unsigned long long pad) {
-  const long long i = blockIdx.x;
-  const int r = idx[i];
-  W* dst = out + i * row_words;
-  if (r >= 0 && r < n_rows) {
-    const W* src = data + (long long)r * row_words;
-    for (long long w = threadIdx.x; w < row_words; w += blockDim.x)
-      dst[w] = src[w];
-  } else {
-    for (long long w = threadIdx.x; w < row_words; w += blockDim.x)
-      dst[w] = pad_of<W>(pad, w);
+__device__ __forceinline__ void raw_row(const Table& t, long long i, int r,
+                                        int lane) {
+  const W* __restrict__ data = static_cast<const W*>(t.data);
+  W* __restrict__ dst = static_cast<W*>(t.out) + i * t.words;
+  if (r >= 0 && r < t.n_rows) {
+    const W* src = data + (long long)r * t.words;
+    for (long long w = lane; w < t.words; w += t.threads) dst[w] = src[w];
+    return;
   }
-}
-
-template <typename W>
-int launch_rows(const void* data, const int* idx, void* out,
-                long long n_rows, int n_idx, long long row_bytes,
-                unsigned long long pad, void* stream) {
-  const long long words = row_bytes / (long long)sizeof(W);
-  veles_gather_rows_kernel<W>
-      <<<n_idx, threads_for(words), 0, (cudaStream_t)stream>>>(
-          reinterpret_cast<const W*>(data), idx, reinterpret_cast<W*>(out),
-          n_rows, words, pad);
-  return (int)cudaGetLastError();
+  if (VELES_PLANTED_FAULT == 2) return;   // planted: the pad row unwritten
+  for (long long w = lane; w < t.words; w += t.threads)
+    dst[w] = pad_of<W>(t.pad, w);
 }
 
 // four elements of a row as f32
@@ -124,22 +155,20 @@ __device__ __forceinline__ float affine(float x, float s, float h) {
   return __fadd_rn(__fmul_rn(x, s), h);
 }
 
-// one block per output row of f features; VEC = 4 moves four features a
-// thread step (f % 4 == 0, aligned bases), VEC = 1 one.  `stride` is 1
-// for per-feature scale/shift, 0 for one scalar pair.
+// output row i of the normalized table (f = t.words features) from source
+// row r (a zero row outside it), by the table's thread `lane`; VEC = 4
+// moves four features a thread step (f % 4 == 0, aligned bases), VEC = 1
+// one
 template <typename T, int VEC>
-__global__ void __launch_bounds__(MAX_THREADS)
-veles_gather_norm_kernel(const T* __restrict__ data,
-                         const int* __restrict__ idx,
-                         float* __restrict__ out, long long n_rows,
-                         long long f, const float* __restrict__ scale,
-                         const float* __restrict__ shift, int stride) {
-  const long long i = blockIdx.x;
-  const int r = idx[i];
-  float* dst = out + i * f;
+__device__ __forceinline__ void norm_row(const Table& t, long long i, int r,
+                                         int lane) {
+  const long long f = t.words;
+  float* __restrict__ dst = static_cast<float*>(t.out) + i * f;
+  const float* __restrict__ scale = t.scale;
+  const float* __restrict__ shift = t.shift;
   const long long steps = f / VEC;
-  if (r < 0 || r >= n_rows) {
-    for (long long c = threadIdx.x; c < steps; c += blockDim.x) {
+  if (r < 0 || r >= t.n_rows) {
+    for (long long c = lane; c < steps; c += t.threads) {
       if (VEC == 4)
         reinterpret_cast<float4*>(dst)[c] = make_float4(0.f, 0.f, 0.f, 0.f);
       else
@@ -147,12 +176,12 @@ veles_gather_norm_kernel(const T* __restrict__ data,
     }
     return;
   }
-  const T* src = data + (long long)r * f;
-  for (long long c = threadIdx.x; c < steps; c += blockDim.x) {
+  const T* src = static_cast<const T*>(t.data) + (long long)r * f;
+  for (long long c = lane; c < steps; c += t.threads) {
     if (VEC == 4) {
       const float4 x = load4(src + 4 * c);
       float4 s, h;
-      if (stride) {
+      if (t.stride) {
         s = reinterpret_cast<const float4*>(scale)[c];
         h = reinterpret_cast<const float4*>(shift)[c];
       } else {
@@ -163,72 +192,106 @@ veles_gather_norm_kernel(const T* __restrict__ data,
           affine(x.x, s.x, h.x), affine(x.y, s.y, h.y),
           affine(x.z, s.z, h.z), affine(x.w, s.w, h.w));
     } else {
-      dst[c] = affine((float)src[c], scale[c * stride], shift[c * stride]);
+      dst[c] = affine((float)src[c], scale[c * t.stride],
+                      shift[c * t.stride]);
     }
   }
 }
 
-template <typename T>
-int launch_norm(const void* data, const int* idx, float* out,
-                long long n_rows, int n_idx, long long f,
-                const float* scale, const float* shift, int stride,
-                void* stream) {
-  const T* d = reinterpret_cast<const T*>(data);
-  const bool vec = f % 4 == 0 && aligned(data, 4 * (int)sizeof(T)) &&
-                   aligned(out, 16) &&
-                   (!stride || (aligned(scale, 16) && aligned(shift, 16)));
-  if (vec)
-    veles_gather_norm_kernel<T, 4>
-        <<<n_idx, threads_for(f / 4), 0, (cudaStream_t)stream>>>(
-            d, idx, out, n_rows, f, scale, shift, stride);
-  else
-    veles_gather_norm_kernel<T, 1>
-        <<<n_idx, threads_for(f), 0, (cudaStream_t)stream>>>(
-            d, idx, out, n_rows, f, scale, shift, stride);
-  return (int)cudaGetLastError();
+// one block per output row: row blockIdx.x of every table of the group,
+// each table by its own warps
+__global__ void __launch_bounds__(MAX_BLOCK)
+veles_gather_group_kernel(const int* __restrict__ idx,
+                          const __grid_constant__ Group g) {
+  const long long i = blockIdx.x;
+  const int r = idx[i];
+#pragma unroll
+  for (int j = 0; j < MAX_TABLES; ++j) {
+    if (j >= g.count) break;
+    const Table& t = g.t[j];
+    const int lane = (int)threadIdx.x - t.first;
+    if (lane < 0 || lane >= t.threads) continue;   // another table's warps
+    // planted: the second table's rows taken at index + 1
+    const int rj = VELES_PLANTED_FAULT == 1 && j == 1 ? r + 1 : r;
+    switch (t.move) {
+      case RAW16: raw_row<uint4>(t, i, rj, lane); break;
+      case RAW4: raw_row<unsigned>(t, i, rj, lane); break;
+      case RAW1: raw_row<unsigned char>(t, i, rj, lane); break;
+      case NORM_U8_4: norm_row<unsigned char, 4>(t, i, rj, lane); break;
+      case NORM_U8_1: norm_row<unsigned char, 1>(t, i, rj, lane); break;
+      case NORM_I32_4: norm_row<int, 4>(t, i, rj, lane); break;
+      case NORM_I32_1: norm_row<int, 1>(t, i, rj, lane); break;
+      case NORM_F32_4: norm_row<float, 4>(t, i, rj, lane); break;
+      default: norm_row<float, 1>(t, i, rj, lane); break;
+    }
+  }
 }
 
 }  // namespace
 
-// out (n_idx, row_bytes) = data[idx] row by row, `pad` (an 8-byte
-// pattern of the pad element) where idx is out of [0, n_rows); data
-// (n_rows, row_bytes) and out contiguous, idx int32.
-extern "C" int veles_gather_rows(const void* data, const int* idx, void* out,
-                                 long long n_rows, int n_idx,
-                                 long long row_bytes,
-                                 unsigned long long pad, void* stream) {
-  if (n_idx <= 0 || row_bytes <= 0) return (int)cudaGetLastError();
-  if (row_bytes % 16 == 0 && aligned(data, 16) && aligned(out, 16))
-    return launch_rows<uint4>(data, idx, out, n_rows, n_idx, row_bytes,
-                              pad, stream);
-  if (row_bytes % 4 == 0 && aligned(data, 4) && aligned(out, 4))
-    return launch_rows<unsigned>(data, idx, out, n_rows, n_idx, row_bytes,
-                                 pad, stream);
-  return launch_rows<unsigned char>(data, idx, out, n_rows, n_idx,
-                                    row_bytes, pad, stream);
-}
+// One table of veles_gather_group, as the host gives it (ops/gather.py
+// `_Table`): data (n_rows, ...) and out contiguous; kind -1 moves rows of
+// `width` bytes raw, `pad` an 8-byte pattern of the pad element; kind 0
+// (u8), 1 (int32) or 2 (f32) normalizes rows of `width` features into f32
+// with scale and shift, per feature (stride 1) or one value each (stride
+// 0), zero rows for an index out of range.
+struct GatherTableArg {
+  const void* data;
+  void* out;
+  long long n_rows;
+  long long width;
+  int kind;
+  int stride;
+  unsigned long long pad;
+  const float* scale;
+  const float* shift;
+};
 
-// out (n_idx, f) f32 = f32(data[idx]) * scale + shift, a zero row where
-// idx is out of [0, n_rows); dtype 0 = u8, 1 = int32, 2 = f32; scale and
-// shift f32, per feature (stride 1) or one value each (stride 0).
-// Returns cudaErrorInvalidValue for an unknown dtype.
-extern "C" int veles_gather_norm(const void* data, int dtype, const int* idx,
-                                 float* out, long long n_rows, int n_idx,
-                                 long long f, const float* scale,
-                                 const float* shift, int stride,
-                                 void* stream) {
-  if (n_idx <= 0 || f <= 0) return (int)cudaGetLastError();
-  switch (dtype) {
-    case 0:
-      return launch_norm<unsigned char>(data, idx, out, n_rows, n_idx, f,
-                                        scale, shift, stride, stream);
-    case 1:
-      return launch_norm<int>(data, idx, out, n_rows, n_idx, f, scale,
-                              shift, stride, stream);
-    case 2:
-      return launch_norm<float>(data, idx, out, n_rows, n_idx, f, scale,
-                                shift, stride, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// out_t (n_idx, ...) = table t's rows idx, for each of the n_tables (1 to
+// 4) tables, in one launch; idx int32.  Returns cudaErrorInvalidValue for
+// a table count or kind it does not take.
+extern "C" int veles_gather_group(const GatherTableArg* tables, int n_tables,
+                                  const int* idx, int n_idx, void* stream) {
+  if (n_tables < 1 || n_tables > MAX_TABLES) return (int)cudaErrorInvalidValue;
+  if (n_idx <= 0) return (int)cudaGetLastError();
+  Group g = {};
+  g.count = n_tables;
+  int threads = 0;   // the block: each table's warps after the last's
+  for (int j = 0; j < n_tables; ++j) {
+    const GatherTableArg& a = tables[j];
+    Table& t = g.t[j];
+    t.data = a.data;
+    t.out = a.out;
+    t.n_rows = a.n_rows;
+    t.pad = a.pad;
+    t.scale = a.scale;
+    t.shift = a.shift;
+    t.stride = a.stride;
+    long long chunks;
+    if (a.kind < 0) {
+      const int word = a.width % 16 == 0 && aligned(a.data, 16) &&
+                               aligned(a.out, 16) ? 16
+                       : a.width % 4 == 0 && aligned(a.data, 4) &&
+                               aligned(a.out, 4) ? 4 : 1;
+      t.move = word == 16 ? RAW16 : word == 4 ? RAW4 : RAW1;
+      t.words = a.width / word;
+      chunks = t.words;
+    } else {
+      if (a.kind > 2) return (int)cudaErrorInvalidValue;
+      const int size = a.kind == 0 ? 1 : 4;
+      const bool vec = a.width % 4 == 0 && aligned(a.data, 4 * size) &&
+                       aligned(a.out, 16) &&
+                       (!a.stride || (aligned(a.scale, 16) &&
+                                      aligned(a.shift, 16)));
+      t.move = NORM_U8_4 + 2 * a.kind + (vec ? 0 : 1);
+      t.words = a.width;
+      chunks = vec ? a.width / 4 : a.width;
+    }
+    t.first = threads;
+    t.threads = threads_for(chunks);
+    threads += t.threads;
   }
+  veles_gather_group_kernel<<<n_idx, threads, 0, (cudaStream_t)stream>>>(
+      idx, g);
+  return (int)cudaGetLastError();
 }

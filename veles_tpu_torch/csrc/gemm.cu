@@ -1,5 +1,6 @@
 // Tiled f32 GEMM with a fused prologue and epilogue for Hopper (sm_90a),
-// written by hand; and the bias step of the fused gradient descent.
+// written by hand, that also carries the bias step of the fused gradient
+// descent.
 //
 // Replaces four TPU kernels of veles_tpu/ops/gemm.py:
 // - `_matmul_kernel` (via `_matmul_pallas`): act(a @ w + bias), f32
@@ -12,8 +13,9 @@
 // - `_gd_dw_kernel`: dW = x^T delta / B (delta^T x straight into the
 //   (N, F) storage when transposed), then v' = m v - lr (dW + decay W),
 //   W' = W + v', written over W and v in place       -> veles_gd_dw;
-// - `_gd_db_kernel`: db = sum(delta) / B and the same update of the bias
-//                                                    -> veles_gd_db.
+// - `_gd_db_kernel`: db = sum(delta) / B and the same update of the bias,
+//   which has no launch of its own: it rides in veles_gd_dw's launch (the
+//   bias epilogue below), given b and vb             -> veles_gd_dw.
 //
 // All three GEMMs run one templated body, `veles_gemm_kernel<KIND, TILE>`:
 // KIND is the product and its epilogue (0 matmul, 1 gd_dx, 2 gd_dw, 3 gd_dw
@@ -22,9 +24,10 @@
 // FMA on the CUDA cores at every precision level (no TF32).  Operands are
 // read through their strides, so a transposed weight storage or x^T needs
 // no copy, and delta is built in registers while its tile is staged (the
-// prologue), never written to device memory.  Ragged M, N and K edges are
-// masked or zero-filled in the kernel (784 = 49 * 16, N = 10, a short
-// batch), not padded.
+// prologue), never written to device memory; act'(y) is rounded after each
+// operation (no contraction), as the plain version computes it.  Ragged M,
+// N and K edges are masked or zero-filled in the kernel (784 = 49 * 16,
+// N = 10, a short batch), not padded.
 //
 // What bounds it on the H100.  At the MNIST shapes (100 x 784 x 100,
 // 100 x 100 x 10) every call is far below a microsecond of roofline (15.7
@@ -65,13 +68,28 @@
 // straight into shared memory; the others are held in registers (float4
 // where aligned, else masked scalars), delta's act'(y) applied there, and
 // an operand whose unit stride runs along k is transposed as it is
-// stored.  The db step reads 2 B N floats and is bound by bytes and by the
-// launch; one block per 32 columns loops over the whole batch, and its 8
-// row groups are summed in a fixed order, so it needs no atomics either.
-// The dw and db steps take the learning rate, decay and momentum by value
-// or, where the pointers are given, from device memory read at run time:
-// a CUDA graph that captured the launch then sees the values written
-// before each replay (the JAX package traces them as scalars).
+// stored.
+//
+// The bias step.  db reads the 2 B N floats of err_output and y, which a
+// launch of its own read a second time after dw and paid a ~3 us launch
+// floor for less than a microsecond of bytes.  dw already stages delta
+// tile by tile (B in GD_DW, A in GD_DW_T), so the blocks of the first
+// tile along the other index (blockIdx.y == 0 in GD_DW, blockIdx.x == 0 in
+// GD_DW_T) add each staged row of delta into one sum a neuron, a thread a
+// neuron, rows in order.  Split 1: the block finishes the bias update
+// itself.  Split over a cluster: each rank pushes its column sums beside
+// its dW partial tile, and after the cluster barrier each rank merges a
+// slice of the neurons over the ranks in rank order (0 + s_0 + s_1 + ...)
+// and runs the bias update on it, exactly as dW is merged.  The owners of
+// the split tile load b, vb and the bias hyperparameters before the K
+// loop, and the adds ride among the FMAs, so the step adds no dependent
+// round trip to the launch.  No atomics: the sums, and b and vb, are the
+// same bits every launch, and ops/gemm.py `_bias_sum_plan_ref` models the
+// order.
+// The dw step takes the learning rate, decay and momentum of W and of the
+// bias by value or, where the pointers are given, from device memory read
+// at run time: a CUDA graph that captured the launch then sees the values
+// written before each replay (the JAX package traces them as scalars).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -84,9 +102,16 @@
 
 namespace cg = cooperative_groups;
 
+// a test build may plant a fault in the bias merge of a split launch (1:
+// the last rank's sums dropped; 2: the update applied by two ranks, the
+// next rank's after the owner's), which the card checks must report; 0 in
+// every other build
+#ifndef VELES_PLANTED_FAULT
+#define VELES_PLANTED_FAULT 0
+#endif
+
 namespace {
 
-constexpr int THREADS = 256;   // the db kernel
 constexpr int PAD = 4;         // shared-memory row pad (banks)
 constexpr int MAX_SPLIT = 8;   // a portable cluster
 
@@ -158,12 +183,16 @@ __device__ __forceinline__ float activate_as(float x, int act) {
   return ACT == ANY_ACT ? activate(x, act) : activate<ACT>(x);
 }
 
-// act'(y) from the output y (the Znicz convention of _GD_DERIVS)
+// act'(y) from the output y (the Znicz convention of _GD_DERIVS), each
+// operation rounded on its own as the plain version's (no fused
+// multiply-add), so delta, and the bias sums over it, are its bits
 __device__ __forceinline__ float derivative(float y, int act) {
   switch (act) {
-    case TANH: return y * y * (-0.388484177f) + 1.14381894f;
-    case SIGMOID: return y * (1.0f - y);
-    case RELU: return 1.0f - expf(-y);
+    case TANH:
+      return __fadd_rn(__fmul_rn(__fmul_rn(y, y), -0.388484177f),
+                       1.14381894f);
+    case SIGMOID: return __fmul_rn(y, __fsub_rn(1.0f, y));
+    case RELU: return __fsub_rn(1.0f, expf(-y));
     case STRICT_RELU: return y > 0.0f ? 1.0f : 0.0f;
     default: return 1.0f;
   }
@@ -299,6 +328,14 @@ struct Params {
   const float* moment_p;
   // N % 4 == 0 and the epilogue's arrays 16-byte aligned: float4 access
   int vec;
+  // MOMENTUM with a bias (b set): the bias step, b and vb (neurons,)
+  // updated in place with their own hyperparameters (values or pointers)
+  float* b;
+  float* vb;
+  float lr_b, decay_b, moment_b;
+  const float* lr_b_p;
+  const float* decay_b_p;
+  const float* moment_b_p;
 };
 
 // the hyperparameters of a momentum step: by value, or from device memory
@@ -309,6 +346,26 @@ __device__ __forceinline__ float hyper(float value, const float* p) {
 struct Hyper {
   float lr, decay, moment;
 };
+
+// what the bias update of one neuron reads besides its sum
+struct BiasStep {
+  float b, vb, lr, decay, moment;
+};
+
+__device__ __forceinline__ BiasStep load_bias(const Params& P, int c) {
+  return BiasStep{P.b[c], P.vb[c], hyper(P.lr_b, P.lr_b_p),
+                  hyper(P.decay_b, P.decay_b_p),
+                  hyper(P.moment_b, P.moment_b_p)};
+}
+
+// the bias update of neuron c from its sum of delta over the batch
+__device__ __forceinline__ void finish_bias(const Params& P, int c,
+                                            const BiasStep& s, float sum) {
+  const float grad = sum * P.inv_b;
+  const float v = s.moment * s.vb - s.lr * (grad + s.decay * s.b);
+  P.b[c] = s.b + v;
+  P.vb[c] = v;
+}
 
 // one output element through the epilogue
 template <int EPI, int ACT = ANY_ACT>
@@ -432,6 +489,12 @@ veles_gemm_kernel(const Operand A, const Operand B, const int M,
   // delta rides A in gd_dx and gd_dw transposed, B in gd_dw
   constexpr bool A_PRO = KIND == GD_DX || KIND == GD_DW_T;
   constexpr bool B_PRO = KIND == GD_DW;
+  // the bias step: delta's tile holds BIAS_N neurons (B's columns in
+  // gd_dw, A's rows transposed), staged k-major with row pitch BIAS_LD
+  constexpr bool BIAS = KIND == GD_DW || KIND == GD_DW_T;
+  constexpr int BIAS_N = KIND == GD_DW ? BN : BM;
+  constexpr int BIAS_LD = KIND == GD_DW ? T::LDB : T::LDA;
+  static_assert(BIAS_N <= NT && BIAS_N % MAX_SPLIT == 0, "bias threads");
   __shared__ __align__(16) float smem[T::SMEM];
 
   const int tid = threadIdx.x;
@@ -441,6 +504,21 @@ veles_gemm_kernel(const Operand A, const Operand B, const int M,
   const int k_tiles = (K + BK - 1) / BK;
   const int t0 = rank * k_tiles / split, t1 = (rank + 1) * k_tiles / split;
   const int kb = t0 * BK, ke = min(K, t1 * BK), steps = t1 - t0;
+  // the blocks of delta's first tile along the other index sum the bias,
+  // thread tid < BIAS_N neuron bias_n0 + tid of the `neurons`; the owners
+  // (split 1: each of those; split: a slice of BIAS_N / split a rank)
+  // finish neuron bias_c.  The split tile loads the update's operands
+  // before the K loop, so that their round trip hides under it.
+  const bool bias_block = BIAS && P.b != nullptr &&
+                          (KIND == GD_DW ? blockIdx.y : blockIdx.x) == 0;
+  const int bias_n0 = KIND == GD_DW ? n0 : m0;
+  const int neurons = KIND == GD_DW ? N : M;
+  const int bias_per = BIAS_N / split;
+  const int bias_c = bias_n0 + rank * bias_per + tid;
+  const bool bias_owner = bias_block && tid < bias_per && bias_c < neurons;
+  BiasStep bias_in = {};
+  if (TILE == SPLIT_TILE && bias_owner) bias_in = load_bias(P, bias_c);
+  float bias_sum = 0.0f;
 
   // 64-bit offsets spill gd_dw's big tile past 128 registers
   using Off = std::conditional_t<narrow(KIND, TILE), unsigned, long long>;
@@ -493,6 +571,10 @@ veles_gemm_kernel(const Operand A, const Operand B, const int M,
         b[4 * q + 2] = x.z;
         b[4 * q + 3] = x.w;
       }
+      // row kk of delta into the bias sums, in order, its adds among the
+      // FMAs
+      if (BIAS && bias_block && tid < BIAS_N)
+        bias_sum += (KIND == GD_DW ? bs : as)[kk * BIAS_LD + tid];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -506,6 +588,7 @@ veles_gemm_kernel(const Operand A, const Operand B, const int M,
     __syncthreads();
   }
 
+  if (TILE != SPLIT_TILE && bias_owner) bias_in = load_bias(P, bias_c);
   Hyper h = {0.0f, 0.0f, 0.0f};
   if (EPI == MOMENTUM) {
     h.lr = hyper(P.lr, P.lr_p);
@@ -534,13 +617,16 @@ veles_gemm_kernel(const Operand A, const Operand B, const int M,
     } else {
       store_tile<EPI, LINEAR, TILE>(P, h, acc, m0, n0, M, N, tx, ty);
     }
+    if (bias_owner) finish_bias(P, bias_c, bias_in, bias_sum);
     return;
   }
-  if constexpr (BM * BN <= T::SMEM) {
-    // this block's partial tile, visible to the cluster after the barrier
-    // (the K loop ended in a block barrier, so it may reuse the buffers)
+  if constexpr (BM * BN + BIAS_N <= T::SMEM) {
+    // this block's partial tile and bias sums, visible to the cluster
+    // after the barrier (the K loop ended in a block barrier, so it may
+    // reuse the buffers)
     cg::cluster_group cluster = cg::this_cluster();
     float* cs = smem;
+    float* cb = smem + BM * BN;
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -549,6 +635,7 @@ veles_gemm_kernel(const Operand A, const Operand B, const int M,
             cs + Q::row(i, ty) * BN + Q::col(q, tx)) =
             make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
                         acc[i][4 * q + 3]);
+    if (BIAS && bias_block && tid < BIAS_N) cb[tid] = bias_sum;
     cluster.sync();
     // each rank sums its slice of the tile over the ranks in rank order,
     // then the epilogue
@@ -566,42 +653,31 @@ veles_gemm_kernel(const Operand A, const Operand B, const int M,
       const int m = m0 + idx / BN, n = n0 + idx % BN;
       if (m < M && n < N) finish<EPI>(P, h, m, n, N, sum);
     }
+    // each owner merges its neuron's sums over the ranks in rank order,
+    // then the bias update
+    if (bias_owner) {
+      const int c = bias_c - bias_n0;
+      float sum = 0.0f;
+#if VELES_PLANTED_FAULT == 1   // planted: the last rank's sums dropped
+      for (int r = 0; r < split - 1; ++r)
+#else
+      for (int r = 0; r < split; ++r)
+#endif
+        sum += cluster.map_shared_rank(cb, r)[c];
+      finish_bias(P, bias_c, bias_in, sum);
+    }
+#if VELES_PLANTED_FAULT == 2   // planted: the next rank updates it again
+    cluster.sync();
+    const int c = (rank + 1) % split * bias_per + tid;
+    if (bias_block && tid < bias_per && bias_n0 + c < neurons) {
+      float sum = 0.0f;
+      for (int r = 0; r < split; ++r)
+        sum += cluster.map_shared_rank(cb, r)[c];
+      finish_bias(P, bias_n0 + c, load_bias(P, bias_n0 + c), sum);
+    }
+#endif
     // no block leaves while another may still read its shared memory
     cluster.sync();
-  }
-}
-
-constexpr int DB_COLS = 32;
-constexpr int DB_GROUPS = THREADS / DB_COLS;
-
-__global__ void __launch_bounds__(THREADS)
-veles_gd_db_kernel(const float* __restrict__ eo,
-                   const float* __restrict__ y, float* b, float* vb,
-                   int batch, int n, int act, float inv_b, float lr_v,
-                   float decay_v, float moment_v, const float* lr_p,
-                   const float* decay_p, const float* moment_p) {
-  __shared__ float part[DB_GROUPS][DB_COLS + 1];
-  const int c = threadIdx.x % DB_COLS, g = threadIdx.x / DB_COLS;
-  const int col = blockIdx.x * DB_COLS + c;
-  float s = 0.0f;
-  if (col < n)
-    for (int r = g; r < batch; r += DB_GROUPS) {
-      const long long o = (long long)r * n + col;
-      s += eo[o] * derivative(y[o], act);
-    }
-  part[g][c] = s;
-  __syncthreads();
-  if (g == 0 && col < n) {
-    float t = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DB_GROUPS; ++i) t += part[i][c];
-    const float grad = t * inv_b;
-    const float lr = hyper(lr_v, lr_p), decay = hyper(decay_v, decay_p);
-    const float moment = hyper(moment_v, moment_p);
-    const float bias = b[col];
-    const float v = moment * vb[col] - lr * (grad + decay * bias);
-    b[col] = bias + v;
-    vb[col] = v;
   }
 }
 
@@ -683,6 +759,9 @@ Params no_params() {
   p.inv_b = p.lr = p.decay = p.moment = 0.0f;
   p.lr_p = p.decay_p = p.moment_p = nullptr;
   p.vec = 0;
+  p.b = p.vb = nullptr;
+  p.lr_b = p.decay_b = p.moment_b = 0.0f;
+  p.lr_b_p = p.decay_b_p = p.moment_b_p = nullptr;
   return p;
 }
 
@@ -735,13 +814,19 @@ extern "C" int veles_gd_dx(const float* eo, const float* y, const float* w,
 // then the momentum update of W and V (contiguous, storage layout) in
 // place; x (batch, f) through strides (sxb, sxf), eo and y (batch, n)
 // contiguous.  lr, decay and moment are read from lr_p, decay_p and
-// moment_p on the device where those are not null.
+// moment_p on the device where those are not null.  Where b is not null,
+// the same launch also takes the bias step: db = sum over the batch of
+// delta, times inv_b, then the momentum update of b and vb (n,) in place
+// with lr_b, decay_b and moment_b (or their pointers).
 extern "C" int veles_gd_dw(const float* x, const float* eo, const float* y,
                            float* w, float* v, int batch, int f, int n,
                            long long sxb, long long sxf, int transposed,
                            int act, float inv_b, float lr, float decay,
                            float moment, const float* lr_p,
                            const float* decay_p, const float* moment_p,
+                           float* b, float* vb, float lr_b, float decay_b,
+                           float moment_b, const float* lr_b_p,
+                           const float* decay_b_p, const float* moment_b_p,
                            int tile, int split, void* stream) {
   Params p = no_params();
   p.w = w;
@@ -754,6 +839,14 @@ extern "C" int veles_gd_dw(const float* x, const float* eo, const float* y,
   p.decay_p = decay_p;
   p.moment_p = moment_p;
   p.vec = (transposed ? f : n) % 4 == 0 && aligned16(w) && aligned16(v);
+  p.b = b;
+  p.vb = vb;
+  p.lr_b = lr_b;
+  p.decay_b = decay_b;
+  p.moment_b = moment_b;
+  p.lr_b_p = lr_b_p;
+  p.decay_b_p = decay_b_p;
+  p.moment_b_p = moment_b_p;
   if (transposed) {
     const Operand Dt = a_operand(eo, y, 1, (long long)n, act);  // (n, B)
     const Operand X = b_operand(x, nullptr, sxb, sxf, LINEAR);  // (B, f)
@@ -763,20 +856,4 @@ extern "C" int veles_gd_dw(const float* x, const float* eo, const float* y,
   const Operand Xt = a_operand(x, nullptr, sxf, sxb, LINEAR);  // (f, B)
   const Operand D = b_operand(eo, y, (long long)n, 1, act);    // (B, n)
   return launch_gemm<GD_DW>(Xt, D, f, n, batch, p, tile, split, stream);
-}
-
-// db = sum over the batch of delta, times inv_b, then the momentum update
-// of b and vb (n,) in place; eo and y (batch, n) contiguous; the
-// hyperparameters as for veles_gd_dw.
-extern "C" int veles_gd_db(const float* eo, const float* y, float* b,
-                           float* vb, int batch, int n, int act, float inv_b,
-                           float lr, float decay, float moment,
-                           const float* lr_p, const float* decay_p,
-                           const float* moment_p, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const int blocks = (n + DB_COLS - 1) / DB_COLS;
-  veles_gd_db_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      eo, y, b, vb, batch, n, act, inv_b, lr, decay, moment, lr_p, decay_p,
-      moment_p);
-  return (int)cudaGetLastError();
 }

@@ -9,8 +9,8 @@ two ways:
 - Eager (``engine.stitch=off``, or ``engine.loader=host``): the loader
   serves each minibatch as a unit, uploading only its index slice
   (``minibatch_indices``, 400 B at minibatch 100), and
-  :func:`veles_tpu_torch.ops.gather.take_rows` gathers the data rows
-  and the labels (the gather kernel on the card).
+  :func:`veles_tpu_torch.ops.gather.take_rows_group` gathers the data
+  rows and the labels (one gather launch on the card).
 - The device fast path (``engine.loader`` ``auto`` or ``device``, with
   stitching on): the loader HEADS the first stitched segment.
   :meth:`stitch_stage` keeps the serving bookkeeping as the segment's
@@ -18,17 +18,18 @@ two ways:
   device-resident shuffled-index buffer,
   ``idx = where(pos < size, shuffled[offset + pos], -1)``, with
   ``offset`` and ``size`` read from the segment's scalar block, so one
-  captured graph serves every batch, short tails included; then the
-  gather of the data row and ``take_rows(pad=-1)`` of the labels.  The
-  shuffled indices move once per shuffle, in place.
+  captured graph serves every batch, short tails included; then one
+  group gather of the data row and the labels (pad -1).  The shuffled
+  indices move once per shuffle, in place.
 
 ``native_device_dtype=True`` keeps the dataset in its storage type
 (uint8 pixels: a quarter of float32's bytes) and publishes the
-normalizer's affine form as ``input_norm``; the head then gathers the
-data row through :func:`~veles_tpu_torch.ops.gather.take_rows_norm`
-(the gather + normalize kernel), so the first forward sees normalized
-float32.  It needs the head: the eager fill cannot normalize.  Without
-it the dataset is normalized once on the host at initialize.
+normalizer's affine form as ``input_norm``; the head's group gather
+then normalizes the data row (as
+:func:`~veles_tpu_torch.ops.gather.take_rows_norm`), so the first
+forward sees normalized float32.  It needs the head: the eager fill
+cannot normalize.  Without it the dataset is normalized once on the
+host at initialize.
 ``FullBatchLoaderMSE`` waits for ROADMAP item 1c.
 """
 
@@ -38,8 +39,7 @@ import torch
 from veles_tpu_torch.config import root
 from veles_tpu_torch.loader.base import Loader, LoaderError, TRAIN
 from veles_tpu_torch.memory import Vector
-from veles_tpu_torch.ops.gather import (affine_tensors, take_rows,
-                                        take_rows_norm)
+from veles_tpu_torch.ops.gather import affine_tensors, take_rows_group
 
 LOADER_MODES = ("auto", "device", "host")
 
@@ -146,12 +146,13 @@ class FullBatchLoader(Loader):
                 "a native_device_dtype dataset is normalized by the "
                 "stitched loader head; the eager fill cannot serve it "
                 "(engine.stitch=on, engine.loader!=host)")
-        indices = self.minibatch_indices.devmem
-        self.minibatch_data.devmem = take_rows(
-            self.original_data.devmem, indices)
+        tables = [(self.original_data.devmem, 0)]
         if self.has_labels:
-            self.minibatch_labels.devmem = take_rows(
-                self.resident_labels.devmem, indices, pad=-1)
+            tables.append((self.resident_labels.devmem, -1))
+        rows = take_rows_group(tables, self.minibatch_indices.devmem)
+        self.minibatch_data.devmem = rows[0]
+        if self.has_labels:
+            self.minibatch_labels.devmem = rows[1]
 
     # -- the loader-headed stitched segment (the device fast path) -----------
     def _device_stage_plan(self):
@@ -181,13 +182,11 @@ class FullBatchLoader(Loader):
             served = t["indices"].index_select(
                 0, torch.where(valid, pos + t["offset"], 0))
             idx = torch.where(valid, served, -1)
-            out = {}
-            for name, pad in pads.items():
-                if norm is not None and name == "minibatch_data":
-                    out[name] = take_rows_norm(t["src_" + name], idx, norm)
-                else:
-                    out[name] = take_rows(t["src_" + name], idx, pad)
-            return out
+            rows = take_rows_group(
+                [(t["src_" + name], norm if norm is not None
+                  and name == "minibatch_data" else pad)
+                 for name, pad in pads.items()], idx)
+            return dict(zip(pads, rows))
 
         params = {"indices": self.shuffled_indices}
         produces = {}

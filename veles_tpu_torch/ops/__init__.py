@@ -18,13 +18,14 @@ version.
   second entry of ``csrc/decode_attn.cu``;
 - ``veles_tpu/ops/gemm.py`` ``_matmul_kernel`` →
   :func:`veles_tpu_torch.ops.gemm.matmul`, and ``_gd_dx_kernel``,
-  ``_gd_dw_kernel``, ``_gd_db_kernel`` →
-  :func:`veles_tpu_torch.ops.gemm.gd_fused`, CUDA C++ in
+  ``_gd_dw_kernel``, ``_gd_db_kernel`` (the bias step, in dw's launch)
+  → :func:`veles_tpu_torch.ops.gemm.gd_fused`, CUDA C++ in
   ``csrc/gemm.cu``;
 - ``veles_tpu/ops/gather.py`` ``_gather_kernel`` and
-  ``_gather_norm_kernel`` → :func:`veles_tpu_torch.ops.gather.take_rows`
-  and :func:`~veles_tpu_torch.ops.gather.take_rows_norm`, CUDA C++ in
-  ``csrc/gather.cu``;
+  ``_gather_norm_kernel`` → :func:`veles_tpu_torch.ops.gather.take_rows`,
+  :func:`~veles_tpu_torch.ops.gather.take_rows_norm` and
+  :func:`~veles_tpu_torch.ops.gather.take_rows_group` (a minibatch's
+  tables in one launch), CUDA C++ in ``csrc/gather.cu``;
 - ``veles_tpu/ops/qgemm.py`` ``_qmatmul_kernel`` (the int8 W8A16 GEMM)
   → :func:`veles_tpu_torch.ops.qgemm.qmatmul`, CUDA C++ in
   ``csrc/qgemm.cu``;

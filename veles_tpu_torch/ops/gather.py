@@ -1,27 +1,36 @@
-"""Minibatch gather: rows of a device-resident table selected by index,
+"""Minibatch gather: rows of device-resident tables selected by index,
 each beside its plain PyTorch version.
 
 Counterpart of :mod:`veles_tpu.ops.gather`:
 
 - :func:`take_rows` is ``data[indices]`` along axis 0 with ``pad`` rows
-  where an index is negative (the empty slots of a short minibatch):
-  the kernel (``csrc/gather.cu`` ``veles_gather_rows``, replacing
-  ``_gather_kernel``) on CUDA tensors, :func:`_gather_ref` (the
-  counterpart of ``_gather_jnp``) on CPU tensors.  The pad is 0 for
-  data, as the TPU kernel writes, and -1 for labels, as the stitched
-  loader head writes.
+  where an index is negative (the empty slots of a short minibatch);
+  its plain version is :func:`_gather_ref` (the counterpart of
+  ``_gather_jnp``).  The pad is 0 for data, as the TPU kernel writes,
+  and -1 for labels, as the stitched loader head writes.
 - :func:`take_rows_norm` is float32 ``data[indices] * scale + shift``
-  with ZERO rows where an index is negative: the kernel
-  (``veles_gather_norm``, replacing ``_gather_norm_kernel``) on CUDA
-  tensors, :func:`_gather_norm_ref` (``_gather_norm_jnp``) on CPU
-  tensors.  It is the head of a uint8-resident dataset: the raw bytes
-  are read once and the first forward sees normalized float32.
+  with ZERO rows where an index is negative; its plain version is
+  :func:`_gather_norm_ref` (``_gather_norm_jnp``).  It is the head of a
+  uint8-resident dataset: the raw bytes are read once and the first
+  forward sees normalized float32.
+- :func:`take_rows_group` gathers the same indices from up to four
+  tables, each raw (as :func:`take_rows`) or, one of them, normalized
+  (as :func:`take_rows_norm`), in ONE launch: a minibatch's data and
+  labels.  Its plain version applies the two plain versions table by
+  table (:func:`_gather_group_ref`).
 
-An index outside ``[0, len(data))`` gives the pad row on both routes.
-The JAX module's autotune verdicts, its negative cache of rejected
-shapes and its silent fallback to XLA have no counterpart: a CUDA
-tensor launches the kernel or raises.  ``launches`` counts kernel
-launches by kernel name; only a launch adds to it.
+On CUDA tensors all three launch one kernel (``csrc/gather.cu``
+``veles_gather_group``, replacing ``_gather_kernel`` and
+``_gather_norm_kernel``: one block a row of every table); on CPU
+tensors they take the plain versions.  An index outside ``[0,
+len(data))`` gives the pad row on both routes.  The JAX module's
+autotune verdicts, its negative cache of rejected shapes and its silent
+fallback to XLA have no counterpart: a CUDA tensor launches the kernel
+or raises.  ``launches`` counts launches, under ``"gather_norm"`` when
+the group holds a normalized table, else under ``"gather"``;
+``tables_served`` counts the raw (``"gather_tables"``) and normalized
+(``"gather_norm_tables"``) tables those launches served.  Only a launch
+adds to them.
 """
 
 import ctypes
@@ -31,40 +40,52 @@ import torch
 
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 
-#: kernel name -> launches since the last reset_launches()
+#: launches since the last reset_launches(), under "gather_norm" when the
+#: group held a normalized table, else under "gather"
 launches = {"gather": 0, "gather_norm": 0}
+#: tables those launches served: raw ("gather_tables") and normalized
+tables_served = {"gather_tables": 0, "gather_norm_tables": 0}
 
-#: the gather_norm kernel's table types and their codes
+#: the normalized table's types and their codes
 NORM_DTYPES = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
+#: tables one launch serves
+MAX_TABLES = 4
 
-_P, _I, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_ulonglong)
-#: kernel name -> (C symbol, ctypes argtypes), all in csrc/gather.cu
-_ARGTYPES = {
-    "gather": ("veles_gather_rows", [_P] * 3 + [_L, _I, _L, _U, _P]),
-    "gather_norm": ("veles_gather_norm",
-                    [_P, _I, _P, _P, _L, _I, _L, _P, _P, _I, _P]),
-}
-_entries = {}
+
+class _Table(ctypes.Structure):
+    """One table of a launch, as ``csrc/gather.cu`` ``GatherTableArg``:
+    ``kind`` -1 moves rows of ``width`` bytes raw with the ``pad``
+    pattern, 0 / 1 / 2 normalizes rows of ``width`` features (u8, int32,
+    f32) with ``scale`` and ``shift`` (``stride`` 1: per feature)."""
+    _fields_ = [("data", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n_rows", ctypes.c_longlong), ("width", ctypes.c_longlong),
+                ("kind", ctypes.c_int), ("stride", ctypes.c_int),
+                ("pad", ctypes.c_ulonglong), ("scale", ctypes.c_void_p),
+                ("shift", ctypes.c_void_p)]
+
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]
+#: the loaded C entry, ``veles_gather_group`` (a list, so a test can swap
+#: in another build's)
+_entry_fn = []
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    for counter in (launches, tables_served):
+        for name in counter:
+            counter[name] = 0
 
 
-def _entry(name):
-    """The C entry of kernel ``name``, building ``csrc/gather.cu`` at
-    first use."""
-    fn = _entries.get(name)
-    if fn is None:
+def _entry():
+    """The C entry, building ``csrc/gather.cu`` at first use."""
+    if not _entry_fn:
         from veles_tpu_torch.ops import build
-        symbol, argtypes = _ARGTYPES[name]
-        fn = getattr(build.library("gather"), symbol)
-        fn.argtypes = argtypes
+        fn = build.library("gather").veles_gather_group
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
+        _entry_fn.append(fn)
+    return _entry_fn[0]
 
 
 # -- plain versions (the CPU path and the kernels' references) -------------
@@ -96,6 +117,19 @@ def _gather_norm_ref(data, indices, scale, shift):
     return normed.reshape(rows.shape)
 
 
+def _is_norm(how):
+    """A table's ``how``: a ``(scale, shift)`` pair normalizes, a number
+    is a raw table's pad."""
+    return isinstance(how, (tuple, list))
+
+
+def _gather_group_ref(tables, indices):
+    """:func:`take_rows_group`'s plain version: :func:`_gather_norm_ref`
+    or :func:`_gather_ref` table by table."""
+    return [_gather_norm_ref(data, indices, *how) if _is_norm(how)
+            else _gather_ref(data, indices, how) for data, how in tables]
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 def _check_indices(name, data, indices):
@@ -120,28 +154,8 @@ def _pad_pattern(pad, dtype):
     return int.from_bytes(bytes(element.tolist()) * (8 // size), "little")
 
 
-def _gather_cuda(data, indices, pad):
-    """``veles_gather_rows``: a contiguous table of any element type,
-    rows moved as raw bytes."""
-    _check_indices("gather", data, indices)
-    out = torch.empty((indices.shape[0],) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    if out.numel() == 0:
-        return out
-    row_bytes = math.prod(data.shape[1:]) * data.element_size()
-    status = _entry("gather")(
-        data.data_ptr(), indices.data_ptr(), out.data_ptr(), data.shape[0],
-        indices.shape[0], row_bytes, _pad_pattern(pad, data.dtype),
-        stream_handle(data.device))
-    check_status("gather", status)
-    launches["gather"] += 1
-    return out
-
-
-def _gather_norm_cuda(data, indices, scale, shift):
-    """``veles_gather_norm``: a contiguous u8, int32 or f32 table; scale
-    and shift f32 on the card, one value each or one per feature."""
-    _check_indices("gather_norm", data, indices)
+def _norm_table(data, scale, shift):
+    """The normalized table's checks; its feature count."""
     if data.dtype not in NORM_DTYPES:
         raise TypeError("gather_norm takes %s tables, got %s"
                         % (sorted(str(t) for t in NORM_DTYPES), data.dtype))
@@ -155,18 +169,52 @@ def _gather_norm_cuda(data, indices, scale, shift):
     if sizes not in ({1}, {f}):
         raise ValueError("gather_norm: scale and shift hold %s values, "
                          "want 1 or %d each" % (sorted(sizes), f))
-    out = torch.empty((indices.shape[0],) + tuple(data.shape[1:]),
-                      dtype=torch.float32, device=data.device)
-    if out.numel() == 0:
-        return out
-    status = _entry("gather_norm")(
-        data.data_ptr(), NORM_DTYPES[data.dtype], indices.data_ptr(),
-        out.data_ptr(), data.shape[0], indices.shape[0], f,
-        scale.data_ptr(), shift.data_ptr(), int(sizes != {1}),
-        stream_handle(data.device))
-    check_status("gather_norm", status)
-    launches["gather_norm"] += 1
-    return out
+    return f
+
+
+def _gather_group_cuda(tables, indices):
+    """``veles_gather_group``: one launch over 1 to 4 contiguous tables,
+    ``(data, pad)`` raw (any element type, rows moved as bytes) or one
+    ``(data, (scale, shift))`` normalized (a u8, int32 or f32 table;
+    scale and shift f32 tensors on the card, one value each or one per
+    feature).  Returns the outputs, table by table."""
+    if not 1 <= len(tables) <= MAX_TABLES:
+        raise ValueError("gather serves 1 to %d tables a launch, not %d"
+                         % (MAX_TABLES, len(tables)))
+    norms = sum(_is_norm(how) for _data, how in tables)
+    if norms > 1:
+        raise ValueError("gather normalizes at most one table a launch, "
+                         "not %d" % norms)
+    args = (_Table * len(tables))()
+    outs = []
+    for arg, (data, how) in zip(args, tables):
+        _check_indices("gather_norm" if _is_norm(how) else "gather", data,
+                       indices)
+        shape = (indices.shape[0],) + tuple(data.shape[1:])
+        if _is_norm(how):
+            scale, shift = how
+            f = _norm_table(data, scale, shift)
+            out = torch.empty(shape, dtype=torch.float32, device=data.device)
+            arg.kind, arg.width = NORM_DTYPES[data.dtype], f
+            arg.stride = int(scale.numel() != 1)
+            arg.scale, arg.shift = scale.data_ptr(), shift.data_ptr()
+        else:
+            out = torch.empty(shape, dtype=data.dtype, device=data.device)
+            arg.kind = -1
+            arg.width = math.prod(data.shape[1:]) * data.element_size()
+            arg.pad = _pad_pattern(how, data.dtype)
+        arg.data, arg.out, arg.n_rows = (data.data_ptr(), out.data_ptr(),
+                                         data.shape[0])
+        outs.append(out)
+    if not any(out.numel() for out in outs):
+        return outs
+    status = _entry()(args, len(tables), indices.data_ptr(),
+                      indices.shape[0], stream_handle(indices.device))
+    check_status("gather", status)
+    launches["gather_norm" if norms else "gather"] += 1
+    tables_served["gather_norm_tables"] += norms
+    tables_served["gather_tables"] += len(tables) - norms
+    return outs
 
 
 def affine_tensors(norm, device):
@@ -179,11 +227,9 @@ def affine_tensors(norm, device):
 
 def take_rows(data, indices, pad=0):
     """``data[indices]`` along axis 0 with ``pad`` rows where an index
-    is negative: the kernel on CUDA tensors, :func:`_gather_ref` on CPU
-    tensors.  ``indices`` are int32."""
-    if on_gpu(data, indices):
-        return _gather_cuda(data, indices, pad)
-    return _gather_ref(data, indices, pad)
+    is negative: the group kernel with one table on CUDA tensors,
+    :func:`_gather_ref` on CPU tensors.  ``indices`` are int32."""
+    return take_rows_group([(data, pad)], indices)[0]
 
 
 def take_rows_norm(data, indices, norm):
@@ -192,10 +238,25 @@ def take_rows_norm(data, indices, norm):
     ``(scale, shift)`` as :func:`affine_tensors` gives them (tensors on
     the table's device, which a captured graph needs), or as numbers or
     arrays."""
-    scale, shift = norm
-    if not isinstance(scale, torch.Tensor) \
-            or not isinstance(shift, torch.Tensor):
-        scale, shift = affine_tensors(norm, data.device)
-    if on_gpu(data, indices, scale, shift):
-        return _gather_norm_cuda(data, indices, scale, shift)
-    return _gather_norm_ref(data, indices, scale, shift)
+    return take_rows_group([(data, norm)], indices)[0]
+
+
+def take_rows_group(tables, indices):
+    """Rows ``indices`` (int32) of every table in one launch: ``tables``
+    holds up to four ``(data, how)`` pairs, ``how`` a raw table's pad
+    (:func:`take_rows`) or, for at most one table, a ``(scale, shift)``
+    pair that normalizes it (:func:`take_rows_norm`).  Returns one
+    output per table: the kernel on CUDA tensors,
+    :func:`_gather_group_ref` on CPU tensors."""
+    specs, tensors = [], [indices]
+    for data, how in tables:
+        if _is_norm(how):
+            how = tuple(how)
+            if not all(isinstance(v, torch.Tensor) for v in how):
+                how = affine_tensors(how, data.device)
+            tensors += how
+        specs.append((data, how))
+        tensors.append(data)
+    if on_gpu(*tensors):
+        return _gather_group_cuda(specs, indices)
+    return _gather_group_ref(specs, indices)

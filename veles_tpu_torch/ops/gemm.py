@@ -12,11 +12,13 @@ Counterpart of :mod:`veles_tpu.ops.gemm`:
   style), ``err_input = δ·Wᵀ`` (``δ·W`` in transposed storage) from the
   weights BEFORE the update, ``dW = xᵀδ/B``, ``v′ = m·v − lr·(dW +
   λW)``, ``W′ = W + v′``, and the same for the bias.  On CUDA tensors
-  it launches ``veles_gd_dx``, ``veles_gd_dw`` and ``veles_gd_db``
-  (replacing ``_gd_dx_kernel``, ``_gd_dw_kernel``, ``_gd_db_kernel``)
-  in that order on one stream: dx must read W before dw updates it in
-  place.  On CPU tensors it takes :func:`_gd_ref` (the counterpart of
-  ``znicz.gd._gd_math``).  Either way W, vW, b and vb are updated IN
+  it launches ``veles_gd_dx`` (replacing ``_gd_dx_kernel``), then
+  ``veles_gd_dw`` (replacing ``_gd_dw_kernel``), on one stream: dx must
+  read W before dw updates it in place.  The bias step
+  (``_gd_db_kernel``'s function) has no launch of its own: it rides in
+  dw's launch, whose blocks already stage δ (``bias_in_dw`` counts those
+  launches).  On CPU tensors it takes :func:`_gd_ref` (the counterpart
+  of ``znicz.gd._gd_math``).  Either way W, vW, b and vb are updated IN
   PLACE (the JAX package donates them) and returned with err_input.
 
 The kernels take f32 only (bf16 arrives with the fused trainer) and
@@ -26,16 +28,18 @@ of every launch): the 128 × 128 tile where its grid covers the card's
 SMs, else the 32 × 32 tile with K split over a thread block cluster of
 up to 8 blocks, summed in rank order (no atomics: a launch gives the
 same bits every time).  A grid covers the SMs when it holds a 256-thread
-block's worth of threads for each.  The hyperparameters
+block's worth of threads for each.  The bias sums follow the same order
+(:func:`_bias_sum_plan_ref` is its plain model).  The hyperparameters
 are plain kernel arguments when given as numbers; given as 0-d f32
-tensors on the card, the dw and db kernels read them from device memory
-when they run, so a CUDA graph that captured the launch sees the values
-written before each replay.  The kernels scale by ``1/B`` as a multiply,
-as the Pallas kernels do; ``_gd_ref`` divides, as ``_gd_math`` does,
-so the two differ in the last bit.  There is no fallback from a CUDA
-tensor to the plain version.  ``launches`` counts kernel launches by
-kernel name; only a launch adds to it, and ``split_launches`` counts
-the GEMM launches that split K over a cluster.
+tensors on the card, the dw kernel reads them from device memory when it
+runs, so a CUDA graph that captured the launch sees the values written
+before each replay.  The kernels scale by ``1/B`` as a multiply, as the
+Pallas kernels do; ``_gd_ref`` divides, as ``_gd_math`` does, so the two
+differ in the last bit.  There is no fallback from a CUDA tensor to the
+plain version.  ``launches`` counts kernel launches by kernel name; only
+a launch adds to it (``"gd_db"`` stays 0: db has no launch of its own),
+``bias_in_dw`` counts the dw launches that carried the bias step, and
+``split_launches`` the GEMM launches that split K over a cluster.
 """
 
 import ctypes
@@ -48,8 +52,11 @@ from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 ACTIVATION_CODES = {None: 0, "linear": 0, "tanh": 1, "sigmoid": 2,
                     "relu": 3, "strict_relu": 4}
 
-#: kernel name -> launches since the last reset_launches()
+#: kernel name -> launches since the last reset_launches(); "gd_db" stays
+#: 0, as the bias step rides in gd_dw's launch
 launches = {"matmul": 0, "gd_dx": 0, "gd_dw": 0, "gd_db": 0}
+#: "gd_db_in_dw" -> the gd_dw launches that carried the bias step
+bias_in_dw = {"gd_db_in_dw": 0}
 #: "<GEMM kernel name>_split" -> those of its launches that split K
 split_launches = {"matmul_split": 0, "gd_dx_split": 0, "gd_dw_split": 0}
 
@@ -70,14 +77,14 @@ _ARGTYPES = {
     "gd_dx": ("veles_gd_dx", [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I] * 3
               + [_P]),
     "gd_dw": ("veles_gd_dw", [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I] * 2
-              + [_F] * 4 + [_P] * 3 + [_I] * 2 + [_P]),
-    "gd_db": ("veles_gd_db", [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P] * 4),
+              + [_F] * 4 + [_P] * 5 + [_F] * 3 + [_P] * 3 + [_I] * 2
+              + [_P]),
 }
 _entries = {}
 
 
 def reset_launches():
-    for counter in (launches, split_launches):
+    for counter in (launches, bias_in_dw, split_launches):
         for name in counter:
             counter[name] = 0
 
@@ -205,6 +212,29 @@ def _gd_ref(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
     return w, b, vw, vb, err_input
 
 
+def _bias_sum_plan_ref(delta, split, tile=SPLIT_TILE):
+    """Σ over the batch of δ (B, N) in the dw kernel's order, the plain
+    model of its bias sums: rank r of a ``split`` launch adds the rows of
+    its K chunk (:func:`k_range`) one after another into zero, and the
+    ranks' sums are added into zero in rank order (a split-1 launch keeps
+    its one sum).  On the same δ the kernel gives these bits."""
+    delta = delta.float()
+    sums = []
+    for rank in range(split):
+        begin, end = k_range(rank, split, delta.shape[0], tile)
+        s = torch.zeros(delta.shape[1], dtype=torch.float32,
+                        device=delta.device)
+        for row in range(begin, end):
+            s = s + delta[row]
+        sums.append(s)
+    if split == 1:
+        return sums[0]
+    total = torch.zeros_like(sums[0])
+    for s in sums:
+        total = total + s
+    return total
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 def _check_f32(name, *tensors):
@@ -327,19 +357,34 @@ def _gd_dx_cuda(eo, y, w, activation, transposed, tile_split=None):
 
 
 def _gd_dw_cuda(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
-                transposed, tile_split=None):
+                transposed, tile_split=None, bias=None):
     """``veles_gd_dw``: dW = xᵀδ (δᵀx in (N, F) storage) times
     ``inv_batch``, then the momentum update of the contiguous ``w`` and
     ``vw`` in place; ``lr``, ``decay``, ``moment`` numbers or 0-d f32
-    tensors on the card; ``tile_split`` overrides :func:`plan`."""
+    tensors on the card; ``tile_split`` overrides :func:`plan`.  ``bias``
+    ``(b, vb, lr, decay, moment)`` makes the same launch take the bias
+    step: db = Σδ times ``inv_batch``, then the momentum update of the
+    contiguous (N,) ``b`` and ``vb`` in place, its hyperparameters of the
+    same kind as W's."""
     _gd_check("gd_dw", eo, y, w, transposed, x=x)
     _check_contiguous("gd_dw", w=w, vw=vw)
     if vw.shape != w.shape or vw.dtype != w.dtype or vw.device != w.device:
         raise ValueError("gd_dw: vw %s does not match w %s"
                          % (tuple(vw.shape), tuple(w.shape)))
     batch, n = eo.shape
-    values, pointers = _hyperparameters("gd_dw", eo.device, lr, decay,
-                                        moment)
+    hyper = (lr, decay, moment) + (() if bias is None else tuple(bias[2:]))
+    values, pointers = _hyperparameters("gd_dw", eo.device, *hyper)
+    b_ptrs = [None, None]
+    if bias is None:
+        values, pointers = values + [0.0] * 3, pointers + [None] * 3
+    else:
+        b, vb = bias[:2]
+        _check_f32("gd_dw", eo, b, vb)
+        _check_contiguous("gd_dw", b=b, vb=vb)
+        if tuple(b.shape) != (n,) or tuple(vb.shape) != (n,):
+            raise ValueError("gd_dw: b %s and vb %s, want (%d,) each"
+                             % (tuple(b.shape), tuple(vb.shape), n))
+        b_ptrs = [b.data_ptr(), vb.data_ptr()]
     f = x.shape[1]
     tile, split = tile_split or plan(*((n, f) if transposed else (f, n)),
                                      batch)
@@ -347,31 +392,12 @@ def _gd_dw_cuda(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
         x.data_ptr(), eo.data_ptr(), y.data_ptr(), w.data_ptr(),
         vw.data_ptr(), batch, f, n, x.stride(0), x.stride(1),
         int(bool(transposed)), ACTIVATION_CODES[activation],
-        float(inv_batch), *values, *pointers, tile, split,
-        stream_handle(eo.device))
+        float(inv_batch), *values[:3], *pointers[:3], *b_ptrs,
+        *values[3:], *pointers[3:], tile, split, stream_handle(eo.device))
     check_status("gd_dw", status)
     _launched("gd_dw", split)
-
-
-def _gd_db_cuda(eo, y, b, vb, inv_batch, lr, decay, moment, activation):
-    """``veles_gd_db``: db = Σδ times ``inv_batch``, then the momentum
-    update of ``b`` and ``vb`` (N,) in place; the hyperparameters as
-    for :func:`_gd_dw_cuda`."""
-    _check_f32("gd_db", eo, y, b, vb)
-    _check_contiguous("gd_db", err_output=eo, y=y, b=b, vb=vb)
-    n = eo.shape[1]
-    if eo.shape != y.shape or b.shape != (n,) or vb.shape != (n,):
-        raise ValueError("gd_db: err_output %s, y %s, b %s, vb %s" % (
-            tuple(eo.shape), tuple(y.shape), tuple(b.shape),
-            tuple(vb.shape)))
-    values, pointers = _hyperparameters("gd_db", eo.device, lr, decay,
-                                        moment)
-    status = _entry("gd_db")(
-        eo.data_ptr(), y.data_ptr(), b.data_ptr(), vb.data_ptr(),
-        eo.shape[0], n, ACTIVATION_CODES[activation], float(inv_batch),
-        *values, *pointers, stream_handle(eo.device))
-    check_status("gd_db", status)
-    launches["gd_db"] += 1
+    if bias is not None:
+        bias_in_dw["gd_db_in_dw"] += 1
 
 
 def gd_fused(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
@@ -405,8 +431,7 @@ def gd_fused(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
     err_input = _gd_dx_cuda(eo, y2, w, activation, transposed) \
         if need_err_input else None
     _gd_dw_cuda(x2, eo, y2, w, vw, inv_batch, lr, decay, moment,
-                activation, transposed)
-    if has_bias:
-        _gd_db_cuda(eo, y2, b, vb, inv_batch, lr_bias, decay_bias,
-                    moment_bias, activation)
+                activation, transposed,
+                bias=(b, vb, lr_bias, decay_bias, moment_bias)
+                if has_bias else None)
     return w, b, vw, vb, err_input

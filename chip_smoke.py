@@ -10,7 +10,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. ``device``  — the card's name and power limit (``nvidia-smi``).
 2. ``build``   — compile every kernel of ``veles_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once) and load them, and,
-   in the same parallel batch, twelve builds with a fault planted
+   in the same parallel batch, thirteen builds with a fault planted
    (``-DVELES_PLANTED_FAULT``: decode attention's last rank dropped, or
    its acc not rescaled; qmatmul's decode body's last rank's K chunk
    dropped, or its scale applied twice; reduce's last rank dropped from
@@ -18,7 +18,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    counter written over its first, or every counter one block off; the
    dw launch's bias merge without the last rank's sums, or its update
    applied by two ranks; the group gather's second table taken at index
-   + 1, or a raw table's pad rows left unwritten).
+   + 1, or a raw table's pad rows left unwritten, or the served launch
+   serving row ``size``, one past a short tail, as valid).
 3. ``kernels`` — hold each kernel against its plain PyTorch version on
    the same CUDA tensors: the flash-prefill kernel against ``_mha_ref``
    on strided q/k/v views of one projection, as prefill hands them over
@@ -182,11 +183,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
    device→host copy per class close; n_err finite and falling.
    Epochs/s (over the run, and after both captures: a capture
    synchronizes and collects garbage), samples/s, the median train
-   minibatch, resident bytes;
-   then one steady-state epoch (epoch 1 of a ``max_epochs=3`` run)
-   under ``torch.profiler``: device time by kernel, kernels per
-   minibatch, host gaps, busy share, the GEMM bodies by name and one
-   gather kernel a minibatch, as in ``mnist``.
+   minibatch, resident bytes; every gather launch the served one
+   (``gather.entry_launches``: 150 ``veles_gather_served``, 0
+   ``veles_gather_group``; ``mnist``: the reverse); the loader head
+   stage's function, run once eagerly under ``torch.profiler``,
+   launches exactly one device kernel, the served gather; then one
+   steady-state epoch (epoch 1 of a ``max_epochs=3`` run) under
+   ``torch.profiler``: device time by kernel, kernels per minibatch
+   (beside the 54.47 of the head with seven index kernels), host gaps,
+   busy share, the GEMM bodies by name and one gather kernel a
+   minibatch, as in ``mnist``.
 16. ``mnist_stitched_parity`` — the stitched card run against the
    CPU's (native, one train pass), the card's stitch on against off
    (f32 dataset), a minibatch-96 run (short tails) against the CPU's,
@@ -243,12 +249,25 @@ pads 0 and -1; ``take_rows_norm``: scalar and per-feature affines; and
 groups of up to four tables in one launch, also replayed from a graph
 over outputs filled with 7) on u8, f32 and int32 tables with negative
 and out-of-range indices and rows of 1, 13 (no 16-B word) and 784
-elements, exactly; six planted faults (every index off by one, negative
-indices not zeroed, for each kind, and the kernel's two planted builds)
-must be reported; it is timed as each route's minibatch launches it
-(100 rows of (7000, 784) f32 data or u8 normalized, with the int32
-labels), each table alone, and 4096 rows of a (70000, 784) u8 table,
-beside its bound by bytes.  It holds
+elements, exactly; the served launch (``take_rows_served``: the
+stitched head's rows, their index computed in the launch from a
+shuffled buffer and 0-d int32 offset and size on the card) against
+``_gather_served_ref`` bit for bit at sizes 100, 60, 1 and 0, the
+buffer's last row, a batch running past the buffer's end and an offset
+at it, for u8 data normalized with the labels, f32 data raw with the
+labels, int32 and f32 tables normalized per feature, each also replayed
+from one graph with the scalars rewritten between replays; seven planted
+faults (every index off by one, negative indices not zeroed, for each
+kind, and the kernel's three planted builds) must be reported; it is
+timed as each route's minibatch launches it (the eager group: 100 rows
+of (7000, 784) f32 data with the int32 labels; the stitched served
+launch: u8 normalized with the labels at sizes 100 and 60, beside the
+head's earlier form, five index ops (seven kernels, each op timed)
+and the group launch), each table alone, and 4096 rows of a (70000, 784) u8 table
+(served with its labels), beside its bound by bytes.  The GEMM half
+also requires ``matmul`` through a transposed view of (N, K) weights to
+equal the same call on its contiguous copy bit for bit at (100, 784,
+100).  It holds
 the int8 GEMM (``qmatmul``) against ``_qmatmul_ref`` at CONFIG's four
 block shapes at M = 4 and 2048 in bf16 and M = 20 in f32, and at (5,
 200, 130) and (20, 1024, 1024) with every activation (gelu included),
@@ -367,6 +386,16 @@ MNIST_STITCHED_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240,
                            "gather_norm": 150, "gather_tables": 150,
                            "gather_norm_tables": 150}
 MNIST_STITCHED_DISPATCHES = [150, 120]
+# the same launches by csrc/gather.cu's entry: the eager fill's group
+# launch, the stitched head's served launch
+MNIST_ENTRY_LAUNCHES = {"veles_gather_group": 150, "veles_gather_served": 0}
+MNIST_STITCHED_ENTRY_LAUNCHES = {"veles_gather_group": 0,
+                                 "veles_gather_served": 150}
+# kernels a minibatch of the stitched steady epoch while the head ran five
+# int32 index ops (seven kernels: each where against a scalar also fills)
+# ahead of its group gather (scripts/launch_probe.py on an H100 80GB HBM3
+# at 700 W; PERF.md section 5): the served launch takes them into itself
+MNIST_STITCHED_KERNELS_WITH_INDEX_OPS = 54.47
 # both routes: every forward splits K (layer 1: 16 tiles split 8; layer 2:
 # 4 tiles split 4), so does every dw (layer 1: 100 tiles split 4; layer
 # 2: 4 tiles split 4); layer 2's dx has one K tile
@@ -475,9 +504,13 @@ def cold_device_ms(calls, reps=2 * COLD_COPIES):
 
 
 #: a launch counter's name -> its kernel group in a profile, where the two
-#: differ: both gather counters count launches of the one group kernel
+#: differ: both gather counters count launches of csrc/gather.cu's two
+#: kernels, which share one profile group
 _GATHER_GROUP = "veles_gather_group"
 _PROFILE_GROUP = {"gather": _GATHER_GROUP, "gather_norm": _GATHER_GROUP}
+#: csrc/gather.cu's kernels by name: the group launch over an index
+#: vector, and the stitched head's served launch
+_GATHER_KERNELS = ("veles_gather_group_kernel", "veles_gather_served_kernel")
 
 #: csrc/gemm.cu's kernels by (demangled) name, blanks removed: one GEMM
 #: body templated on its kind (0 matmul, 1 gd_dx, 2 gd_dw, 3 gd_dw into
@@ -510,7 +543,7 @@ def _kernel_group(name):
     for group in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if group + "_kernel" in name:
             return group
-    if "veles_gather_group_kernel" in name:
+    if any(kernel in name for kernel in _GATHER_KERNELS):
         return _GATHER_GROUP
     if "decode_kernel" in name:
         return "paged_decode_attn" if "PagedKeys" in name else "decode_attn"
@@ -676,7 +709,8 @@ def _mnist_kernels_ok(breakdown, minibatches):
     (half its forward GEMM bodies: each minibatch launches the matmul
     twice) and any kernel named after the db step, and says whether it
     saw every one of the ``minibatches`` it ran, exactly one gather
-    kernel, the group's, for each, and no db kernel."""
+    kernel for each, the group's (the eager fill) or the served one (the
+    stitched head), and no db kernel."""
     names = breakdown.get("kernel_names", {})
     gathers = {name: n for name, n in names.items()
                if "veles_gather" in name}
@@ -688,7 +722,8 @@ def _mnist_kernels_ok(breakdown, minibatches):
                                   if "gd_db" in name}
     return (breakdown["gather_kernels"] == minibatches
             and forwards == 2 * minibatches
-            and all("veles_gather_group_kernel" in name for name in gathers)
+            and all(any(kernel in name for kernel in _GATHER_KERNELS)
+                    for name in gathers)
             and not breakdown["gd_db_kernels"])
 
 
@@ -769,7 +804,8 @@ PLANTED_BUILDS = {
     ("gemm", 1): "bias_last_rank_partial_dropped",
     ("gemm", 2): "bias_update_applied_by_two_ranks",
     ("gather", 1): "second_table_rows_at_index_plus_one",
-    ("gather", 2): "raw_pad_rows_unwritten"}
+    ("gather", 2): "raw_pad_rows_unwritten",
+    ("gather", 3): "served_row_one_past_the_tail"}
 #: (source, n) -> the built library
 planted_libraries = {}
 
@@ -819,14 +855,16 @@ def planted(source, fault):
                                      reduce)
     lib = ctypes.CDLL(str(planted_libraries[source, fault]))
     if source == "gather":
-        fn = lib.veles_gather_group
-        fn.argtypes, fn.restype = gather._ARGTYPES, ctypes.c_int
-        saved = list(gather._entry_fn)
-        gather._entry_fn[:] = [fn]
+        saved = dict(gather._entries)
+        for symbol, argtypes in gather._ARGTYPES.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            gather._entries[symbol] = fn
         try:
             yield
         finally:
-            gather._entry_fn[:] = saved
+            gather._entries.clear()
+            gather._entries.update(saved)
         return
     if source == "gemm":
         symbol, argtypes = gemm._ARGTYPES["gd_dw"]
@@ -1523,12 +1561,30 @@ def _gemm_timed(rng, device):
     return timed
 
 
+def _gemm_layout_case(rng, device):
+    """matmul through a transposed view of (N, K) weights and through its
+    contiguous copy, at MNIST's layer 1 (100, 784, 100) tanh: bit for
+    bit, as the plain version gives the same bits from either storage."""
+    from veles_tpu_torch.ops import gemm
+    a = torch.from_numpy(rng.standard_normal((100, 784)).astype(
+        numpy.float32)).to(device)
+    w_nk = torch.from_numpy((rng.standard_normal((100, 784)) / 28.0).astype(
+        numpy.float32)).to(device)
+    report = _exact(gemm.matmul(a, w_nk.t(), None, "tanh"),
+                    gemm.matmul(a, w_nk.t().contiguous(), None, "tanh"))
+    gpu_sync()
+    return dict(report, kernel="matmul", shape=[100, 784, 100],
+                check="transposed_view_equals_contiguous_copy",
+                ok=report["exact"])
+
+
 def _gemm_kernels(device):
     """The ``kernels`` phase's GEMM half: cases, repeatability, planted
     faults and timings of the four kernels of csrc/gemm.cu."""
     rng = numpy.random.default_rng(SEED + 3)
     cases = _gemm_cases(rng, device)
     cases.append(_gd_bias_cases(rng, device))
+    cases.append(_gemm_layout_case(rng, device))
     repeatable = _gemm_repeatable(rng, device)
     planted = _gemm_planted_faults(rng, device)
     timed = _gemm_timed(rng, device)
@@ -1606,6 +1662,7 @@ def _gather_cases(rng, device):
                               negative_rows_zero=zeroed,
                               ok=report["exact"] and zeroed))
     cases += _gather_group_cases(rng, device)
+    cases += _gather_served_cases(rng, device)
     gpu_sync()
     return cases
 
@@ -1669,6 +1726,99 @@ def _group_replayed(tables, idx):
     return outs
 
 
+#: (offset, size) of the served cases over GATHER_MAIN's 7000-row buffer
+#: and 100 rows: a whole batch, a short tail, one row, none, the buffer's
+#: last row, a batch running 60 rows past the buffer's end, and an offset
+#: at the end (every row a pad row)
+GATHER_SERVED_SPANS = ((0, 100), (940, 60), (3, 1), (500, 0), (6999, 1),
+                       (6960, 100), (7000, 100))
+
+
+def _scalars(device, offset, size):
+    """``offset`` and ``size`` as the segment's scalar block hands them
+    over: 0-d int32 views of one device buffer."""
+    block = torch.tensor([offset, size], dtype=torch.int32, device=device)
+    return block, block[0], block[1]
+
+
+def _gather_served_cases(rng, device):
+    """The served entry (``take_rows_served``) against its plain version,
+    ``_gather_served_ref``, exactly, at every GATHER_SERVED_SPANS over a
+    shuffled permutation: the native head's u8 data normalized with the
+    labels, the f32-dataset head's raw data with the labels, an int32
+    and an f32 table normalized per feature; each group also captured
+    once in a CUDA graph and replayed over outputs filled with 7 with
+    the scalars rewritten in place between replays (a scalar read at
+    capture, or a row left unwritten, would show)."""
+    from veles_tpu_torch.ops import gather
+    n, f, b = GATHER_MAIN
+    shuffled = torch.from_numpy(rng.permutation(n).astype(
+        numpy.int32)).to(device)
+    labels = _gather_table(rng, device, torch.int32, (n,))
+    per_feature = gather.affine_tensors(
+        (rng.uniform(0.5, 2.0, f), rng.standard_normal(f)), device)
+    groups = {
+        "u8_normalized+labels": [
+            (_gather_table(rng, device, torch.uint8, (n, f)),
+             gather.affine_tensors((1.0 / 255.0, 0.0), device)),
+            (labels, -1)],
+        "f32_raw+labels": [
+            (_gather_table(rng, device, torch.float32, (n, f)), 0),
+            (labels, -1)],
+        "int32_normalized+labels": [
+            (_gather_table(rng, device, torch.int32, (n, f)), per_feature),
+            (labels, -1)],
+        "f32_normalized": [
+            (_gather_table(rng, device, torch.float32, (n, f)),
+             per_feature)],
+    }
+    cases = []
+    for name, tables in groups.items():
+        for offset, size in GATHER_SERVED_SPANS:
+            _block, at, count = _scalars(device, offset, size)
+            got = gather.take_rows_served(tables, shuffled, at, count, b)
+            want = gather._gather_served_ref(tables, shuffled, at, count, b)
+            exact = [_exact(g, w) for g, w in zip(got, want)]
+            cases.append({"kernel": "gather_served", "group": name,
+                          "route": "eager", "offset": offset, "size": size,
+                          "max_abs_err": max(e["max_abs_err"]
+                                             for e in exact),
+                          "ok": all(e["exact"] for e in exact)})
+        replays = _served_replayed(tables, shuffled, b)
+        cases.append({"kernel": "gather_served", "group": name,
+                      "route": "graph_replay",
+                      "spans": [list(span) for span in GATHER_SERVED_SPANS],
+                      "max_abs_err": max(e["max_abs_err"] for e in replays),
+                      "ok": all(e["exact"] for e in replays)})
+    return cases
+
+
+def _served_replayed(tables, shuffled, count, spans=GATHER_SERVED_SPANS):
+    """One served launch captured in a CUDA graph, replayed once a span
+    with the scalars written into the captured block and the outputs
+    filled with 7: each replay against the plain version."""
+    from veles_tpu_torch.ops import gather
+    device = shuffled.device
+    block, at, size = _scalars(device, *spans[0])
+    gather.take_rows_served(tables, shuffled, at, size, count)
+    gpu_sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = gather.take_rows_served(tables, shuffled, at, size, count)
+    reports = []
+    for span in spans[::-1]:
+        block.copy_(torch.tensor(span, dtype=torch.int32))
+        for out in outs:
+            out.fill_(7)
+        graph.replay()
+        want = gather._gather_served_ref(tables, shuffled, at, size, count)
+        gpu_sync()
+        exact = [_exact(g, w) for g, w in zip(outs, want)]
+        reports.append({"max_abs_err": max(e["max_abs_err"] for e in exact),
+                        "exact": all(e["exact"] for e in exact)})
+    return reports
+
+
 def _gather_repeatable(rng, device):
     from veles_tpu_torch.ops import gather
     data = _gather_table(rng, device, torch.uint8, GATHER_MAIN[:2])
@@ -1683,6 +1833,12 @@ def _gather_repeatable(rng, device):
             and all(torch.equal(p, q) for p, q in zip(
                 gather.take_rows_group(tables, idx),
                 gather.take_rows_group(tables, idx))))
+    shuffled = torch.from_numpy(rng.permutation(GATHER_MAIN[0]).astype(
+        numpy.int32)).to(device)
+    _block, at, size = _scalars(device, 940, 60)
+    same = same and all(torch.equal(p, q) for p, q in zip(
+        gather.take_rows_served(tables, shuffled, at, size, GATHER_MAIN[2]),
+        gather.take_rows_served(tables, shuffled, at, size, GATHER_MAIN[2])))
     gpu_sync()
     return same
 
@@ -1691,10 +1847,11 @@ def _gather_planted_faults(rng, device):
     """Faults planted at the main path's shape, each of which the exact
     check must report: in the inputs, every valid index off by one, and
     the negative indices given as 0 (a row not zeroed); and the kernel's
-    two planted builds (the second table's rows taken at index + 1, a
-    raw table's pad rows left unwritten) on the eager minibatch's group
-    (f32 data, int32 labels), replayed from a graph over outputs filled
-    with 7."""
+    three planted builds (the second table's rows taken at index + 1, a
+    raw table's pad rows left unwritten: on the eager minibatch's group;
+    row ``size`` served as valid: on the served launch of a 60-row tail)
+    over f32 data and int32 labels, replayed from a graph over outputs
+    filled with 7."""
     from veles_tpu_torch.ops import gather
     data = _gather_table(rng, device, torch.uint8, GATHER_MAIN[:2])
     idx = _gather_indices(rng, device, GATHER_MAIN[0], GATHER_MAIN[2])
@@ -1717,10 +1874,17 @@ def _gather_planted_faults(rng, device):
     tables = [(_gather_table(rng, device, torch.float32, GATHER_MAIN[:2]), 0),
               (_gather_table(rng, device, torch.int32, GATHER_MAIN[:1]), -1)]
     want = gather._gather_group_ref(tables, idx)
+    shuffled = torch.from_numpy(rng.permutation(GATHER_MAIN[0]).astype(
+        numpy.int32)).to(device)
+    tail = ((940, 60),)                  # a short tail: row 60 must pad
     for (source, fault), name in PLANTED_BUILDS.items():
         if source != "gather":
             continue
         with planted(source, fault):
+            if fault == 3:
+                faults[name] = _served_replayed(
+                    tables, shuffled, GATHER_MAIN[2], tail)[0]
+                continue
             got = _group_replayed(tables, idx)
         faults[name] = _exact(torch.cat([g.reshape(-1).float() for g in got]),
                               torch.cat([w.reshape(-1).float()
@@ -1730,11 +1894,12 @@ def _gather_planted_faults(rng, device):
             for name, report in faults.items()}
 
 
-def _gather_bytes(tables, idx, outs, extra=0):
-    """Bytes a launch must move: the indices once, the rows of the valid
-    indices of each table (this run's data), the outputs, and
-    ``extra``."""
-    total = idx.numel() * idx.element_size() + extra
+def _gather_bytes(tables, idx, outs, extra=0, index_bytes=None):
+    """Bytes a launch must move: the indices once (``index_bytes``, else
+    the whole index vector), the rows of the valid indices of each table
+    (this run's data), the outputs, and ``extra``."""
+    total = (idx.numel() * idx.element_size() if index_bytes is None
+             else index_bytes) + extra
     for data, out in zip(tables, outs):
         valid = int(((idx >= 0) & (idx < data.shape[0])).sum())
         total += (valid * data[0].numel() * data.element_size()
@@ -1742,20 +1907,75 @@ def _gather_bytes(tables, idx, outs, extra=0):
     return total
 
 
+def _parent_head(tables, shuffled, at, size, count):
+    """The stitched head as it stood before the served launch: five
+    int32 ops of index arithmetic (``lt``, ``add``, ``where``,
+    ``index_select``, ``where``; seven kernels, since each ``where``
+    against a scalar first fills a tensor with it), then the group
+    launch; the closures of each index op alone, and of the whole
+    head."""
+    from veles_tpu_torch.ops import gather
+    pos = torch.arange(count, dtype=torch.int32, device=shuffled.device)
+    valid = pos < size
+    at_pos = pos + at
+    picked = torch.where(valid, at_pos, 0)
+    served = shuffled.index_select(0, picked)
+
+    def head():
+        v = pos < size
+        got = shuffled.index_select(0, torch.where(v, pos + at, 0))
+        return gather.take_rows_group(tables, torch.where(v, got, -1))
+    ops = {"lt": lambda: pos < size, "add": lambda: pos + at,
+           "where": lambda: torch.where(valid, at_pos, 0),
+           "index_select": lambda: shuffled.index_select(0, picked),
+           "where_pad": lambda: torch.where(valid, served, -1)}
+    return ops, head
+
+
 def _gather_timed(rng, device):
-    """The gather kernel's device time per launch (:func:`device_ms`) as
-    each route's minibatch makes it, one launch of two tables, beside its
-    bound by bytes and the plain version's time: the eager route's f32
-    data and int32 labels (row ``gather``; ``library_ms`` is
-    ``torch.index_select`` of the data table: one call gathers one
-    table), the stitched head's u8 data normalized and the labels (row
-    ``gather_norm``; no one PyTorch call normalizes).  Also each table
-    alone (``index_select`` beside the raw ones) and 4096 rows of a
-    (70000, 784) u8 table.  Calls run back to back on the same, all-valid
-    indices, so rows a call reads may be in L2."""
+    """The gather kernels' device time per launch (:func:`device_ms`)
+    as each route's minibatch makes it, beside the bound by bytes and
+    the plain version's time.  Row ``gather`` (``_gather_kernel``): the
+    eager route's group launch of f32 data and int32 labels
+    (``library_ms`` is ``torch.index_select`` of the data table: one
+    call gathers one table), each table alone, and 4096 rows of a
+    (70000, 784) u8 table.  Row ``gather_norm``
+    (``_gather_norm_kernel``): the stitched head's served launch of u8
+    data normalized and the labels from a shuffled buffer at size 100
+    (the main path's launch), at a 60-row tail, and 4096 rows of the
+    (70000, 784) table with its labels; beside each, the head in its
+    earlier form (five index ops, then the group launch: each op alone
+    and the whole head) and the group launch alone at the
+    same rows; and the group launch of the normalized data alone (no one
+    PyTorch call normalizes).  Calls run back to back on the same
+    operands, so rows a call reads may be in L2."""
     from veles_tpu_torch.backends import bound_seconds
     from veles_tpu_torch.ops import gather
     rows = {}
+
+    def entry_of(name):
+        return rows.setdefault(name, {
+            "name": name, "route": "cuda",
+            "source": "veles_tpu_torch/csrc/gather.cu",
+            "replaces": "veles_tpu/ops/gather.py:%d" % {
+                "gather": 204, "gather_norm": 146}[name],
+            "entry": {"gather": "veles_gather_group",
+                      "gather_norm": "veles_gather_served"}[name],
+            "plain_of": {"gather": "_gather_group_ref",
+                         "gather_norm": "_gather_served_ref"}[name],
+            "library_of": "torch.index_select of the data table"
+            if name == "gather" else None,
+            "rides_in": {
+                "gather": "veles_gather_group: the eager fill's one launch "
+                          "a minibatch of its data and labels; its raw "
+                          "tables also ride in the stitched head's "
+                          "veles_gather_served launch",
+                "gather_norm": "veles_gather_served: the stitched head's "
+                               "one launch a minibatch, which computes the "
+                               "served index and gathers the normalized "
+                               "data and the labels (counted under "
+                               "gather_norm)"}[name],
+            "by_shape": []})
 
     def row(name, label, tables, idx, library, extra=0, ops=0):
         outs = gather._gather_group_cuda(tables, idx)
@@ -1764,19 +1984,8 @@ def _gather_timed(rng, device):
         bound, by = bound_seconds(
             _gather_bytes([t for t, _how in tables], idx, outs, extra), ops,
             "float32")
-        entry = rows.setdefault(name, {
-            "name": name, "route": "cuda",
-            "source": "veles_tpu_torch/csrc/gather.cu",
-            "replaces": "veles_tpu/ops/gather.py:%d" % {
-                "gather": 204, "gather_norm": 146}[name],
-            "plain_of": "_gather_group_ref",
-            "library_of": "torch.index_select of the data table"
-            if name == "gather" else None,
-            "rides_in": "veles_gather_group: one launch a minibatch of its "
-                        "data and labels, counted under gather_norm where "
-                        "a normalized table rides along", "by_shape": []})
-        entry["by_shape"].append({
-            "tables": label,
+        entry_of(name)["by_shape"].append({
+            "tables": label, "entry": "veles_gather_group",
             "ms": device_ms(lambda: gather._gather_group_cuda(tables, idx)),
             "wrapper_ms": time_ms(
                 lambda: gather._gather_group_cuda(tables, idx)),
@@ -1785,12 +1994,49 @@ def _gather_timed(rng, device):
             "library_ms": device_ms(library) if library else None,
             "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err})
 
+    def served_row(label, tables, shuffled, offset, size, count, ops=0):
+        _block, at, n = _scalars(device, offset, size)
+        outs = gather._gather_served_cuda(tables, shuffled, at, n, count)
+        want = gather._gather_served_ref(tables, shuffled, at, n, count)
+        err = max(_exact(o, w)["max_abs_err"] for o, w in zip(outs, want))
+        idx = gather._served_indices(shuffled, at, n, count)
+        # the two scalars, the served part of the buffer, each table's
+        # valid rows, the outputs, and the normalized table's scale and
+        # shift
+        bound, by = bound_seconds(_gather_bytes(
+            [t for t, _how in tables], idx, outs, extra=8 + 8,
+            index_bytes=4 * int((idx >= 0).sum())), ops, "float32")
+        index_ops, head = _parent_head(tables, shuffled, at, n, count)
+        parent = gather._gather_group_ref(
+            tables, gather._served_indices(shuffled, at, n, count))
+        head_exact = all(torch.equal(g, w) for g, w in zip(head(), parent))
+        group_idx = idx.clone()
+        entry_of("gather_norm")["by_shape"].append({
+            "tables": label, "entry": "veles_gather_served",
+            "offset": offset, "size": size, "count": count,
+            "ms": device_ms(lambda: gather._gather_served_cuda(
+                tables, shuffled, at, n, count)),
+            "wrapper_ms": time_ms(lambda: gather._gather_served_cuda(
+                tables, shuffled, at, n, count)),
+            "plain_ms": device_ms(lambda: gather._gather_served_ref(
+                tables, shuffled, at, n, count)),
+            "library_ms": None,
+            "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err,
+            "parent_head_ms": device_ms(head),
+            "parent_head_exact": head_exact,
+            "parent_index_kernels_ms": {
+                op: device_ms(fn) for op, fn in index_ops.items()},
+            "group_alone_ms": device_ms(
+                lambda: gather._gather_group_cuda(tables, group_idx))})
+
     n, f, b = GATHER_MAIN
     idx = _gather_indices(rng, device, n, b, invalid=False)
     f32 = _gather_table(rng, device, torch.float32, (n, f))
     u8 = _gather_table(rng, device, torch.uint8, (n, f))
     labels = _gather_table(rng, device, torch.int32, (n,))
     norm = gather.affine_tensors((1.0 / 255.0, 0.0), device)
+    shuffled = torch.from_numpy(rng.permutation(n).astype(
+        numpy.int32)).to(device)
     row("gather", "(7000, 784) f32 + (7000,) int32 labels",
         [(f32, 0), (labels, -1)], idx,
         lambda: torch.index_select(f32, 0, idx))
@@ -1798,17 +2044,24 @@ def _gather_timed(rng, device):
         lambda: torch.index_select(f32, 0, idx))
     row("gather", "(7000,) int32 labels", [(labels, -1)], idx,
         lambda: torch.index_select(labels, 0, idx))
-    row("gather_norm", "(7000, 784) u8 normalized + (7000,) int32 labels",
-        [(u8, norm), (labels, -1)], idx, None, extra=8, ops=2 * b * f)
-    row("gather_norm", "(7000, 784) u8 normalized", [(u8, norm)], idx, None,
-        extra=8, ops=2 * b * f)
+    served_row("(7000, 784) u8 normalized + (7000,) int32 labels, served "
+               "from the shuffled buffer", [(u8, norm), (labels, -1)],
+               shuffled, 1000, b, b, ops=2 * b * f)
+    served_row("the same, a 60-row tail", [(u8, norm), (labels, -1)],
+               shuffled, 940, 60, b, ops=2 * 60 * f)
+    row("gather_norm", "(7000, 784) u8 normalized (the group launch)",
+        [(u8, norm)], idx, None, extra=8, ops=2 * b * f)
     n, f, b = GATHER_BIG
     idx = _gather_indices(rng, device, n, b, invalid=False)
     big = _gather_table(rng, device, torch.uint8, (n, f))
+    big_labels = _gather_table(rng, device, torch.int32, (n,))
+    big_shuffled = torch.from_numpy(rng.permutation(n).astype(
+        numpy.int32)).to(device)
     row("gather", "4096 of (70000, 784) u8", [(big, 0)], idx,
         lambda: torch.index_select(big, 0, idx))
-    row("gather_norm", "4096 of (70000, 784) u8 normalized", [(big, norm)],
-        idx, None, extra=8, ops=2 * b * f)
+    served_row("4096 of (70000, 784) u8 normalized + (70000,) int32 "
+               "labels, served", [(big, norm), (big_labels, -1)],
+               big_shuffled, n // 4, b, b, ops=2 * b * f)
     gpu_sync()
     timed = []
     for name in ("gather_norm", "gather"):
@@ -1817,6 +2070,9 @@ def _gather_timed(rng, device):
         entry.update({key: main[key] for key in (
             "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")})
+        if name == "gather_norm":
+            entry.update({key: main[key] for key in (
+                "parent_head_ms", "group_alone_ms")})
         timed.append(entry)
     return timed
 
@@ -4028,6 +4284,7 @@ def _phase_mnist(device, smi):
     gpu_sync()
     end = time.perf_counter()
     launches = mnist_launches()
+    entries = dict(gather.entry_launches)
     splits = dict(gemm.split_launches)
     after = Watcher.transfers()
     elapsed = end - tic
@@ -4044,7 +4301,8 @@ def _phase_mnist(device, smi):
     valid = [c["n_err_pt"] for c in closes if c["cls"] == "validation"]
     finite = all(numpy.isfinite(e) for e in errors)
     learned = len(valid) == MNIST_EPOCHS and valid[-1] < valid[0]
-    counted = launches == MNIST_LAUNCHES
+    counted = (launches == MNIST_LAUNCHES
+               and entries == MNIST_ENTRY_LAUNCHES)
     split_ok = splits == MNIST_SPLIT_LAUNCHES
     info = {
         "phase": "mnist", "nvidia_smi": smi,
@@ -4067,6 +4325,8 @@ def _phase_mnist(device, smi):
         "class_closes": closes,
         "results": wf.gather_results(),
         "launches": launches, "launches_expected": MNIST_LAUNCHES,
+        "entry_launches": entries,
+        "entry_launches_expected": MNIST_ENTRY_LAUNCHES,
         "split_launches": splits,
         "split_launches_expected": MNIST_SPLIT_LAUNCHES,
         "ok": finite and learned and counted and split_ok,
@@ -4093,7 +4353,8 @@ def _phase_mnist(device, smi):
     check(finite, "mnist", "an n_err is not finite: %s" % errors)
     check(learned, "mnist", "validation error did not fall: %s" % valid)
     check(counted, "mnist", "the kernels were not on the main path as "
-          "expected: %s, want %s" % (launches, MNIST_LAUNCHES))
+          "expected: %s %s, want %s %s" % (launches, entries, MNIST_LAUNCHES,
+                                           MNIST_ENTRY_LAUNCHES))
     check(split_ok, "mnist", "K split in %s launches, want %s"
           % (splits, MNIST_SPLIT_LAUNCHES))
     check(bodies_ok, "mnist", "GEMM bodies in the profile: %s, want each "
@@ -4105,7 +4366,7 @@ def _phase_mnist(device, smi):
               info["breakdown"]["minibatches_seen"],
               info["breakdown"]["minibatches_run"],
               info["breakdown"]["gd_db_kernels"]))
-    return launches
+    return dict(launches, **entries)
 
 
 def phase_mnist_parity(device):
@@ -4248,7 +4509,7 @@ def phase_mnist_stitched(device, smi):
     one steady-state epoch under the profiler."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.memory import Watcher
-    from veles_tpu_torch.ops import gemm
+    from veles_tpu_torch.ops import gather, gemm
     from veles_tpu_torch.samples import mnist
 
     with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
@@ -4278,6 +4539,7 @@ def phase_mnist_stitched(device, smi):
         gpu_sync()
         end = time.perf_counter()
         launches = mnist_launches()
+        entries = dict(gather.entry_launches)
         splits = dict(gemm.split_launches)
         after = Watcher.transfers()
         elapsed = end - tic
@@ -4301,7 +4563,8 @@ def phase_mnist_stitched(device, smi):
         valid = [c["n_err_pt"] for c in closes if c["cls"] == "validation"]
         finite = all(numpy.isfinite(e) for e in errors)
         learned = len(valid) == MNIST_EPOCHS and valid[-1] < valid[0]
-        counted = launches == MNIST_STITCHED_LAUNCHES
+        counted = (launches == MNIST_STITCHED_LAUNCHES
+                   and entries == MNIST_STITCHED_ENTRY_LAUNCHES)
         split_ok = splits == MNIST_SPLIT_LAUNCHES
         dispatched = ([r["dispatches"] for r in report]
                       == MNIST_STITCHED_DISPATCHES
@@ -4342,27 +4605,37 @@ def phase_mnist_stitched(device, smi):
             "class_closes": closes, "results": wf.gather_results(),
             "launches": launches,
             "launches_expected": MNIST_STITCHED_LAUNCHES,
+            "entry_launches": entries,
+            "entry_launches_expected": MNIST_STITCHED_ENTRY_LAUNCHES,
             "split_launches": splits,
             "split_launches_expected": MNIST_SPLIT_LAUNCHES,
             "ok": (finite and learned and counted and split_ok and dispatched
                    and h2d_ok and d2h_ok),
         }
+        info["head_stage"] = _head_stage_launches(wf, device)
+        head_ok = info["head_stage"]["ok"]
         reset_all_launches()
         info["breakdown"], kernels_ok = _mnist_profiled(
             lambda: _mnist_stitched_profile(device))
         bodies_ok = _gemm_bodies_ok(info["breakdown"])
-        info["ok"] = info["ok"] and bodies_ok and kernels_ok
+        info["ok"] = info["ok"] and bodies_ok and kernels_ok and head_ok
         by_group = info["breakdown"]["device_ms_by_group"]
         n = info["breakdown"]["minibatches"]
         info["breakdown"]["device_us_per_minibatch_by_group"] = {
             g: t * 1e3 / n for g, t in by_group.items()}
+        info["breakdown"]["kernels_per_minibatch_with_index_ops"] = \
+            MNIST_STITCHED_KERNELS_WITH_INDEX_OPS
     emit(info)
     check(finite, "mnist_stitched", "an n_err is not finite: %s" % errors)
     check(learned, "mnist_stitched", "validation error did not fall: %s"
           % valid)
     check(counted, "mnist_stitched", "the kernels were not on the main "
-          "path as expected: %s, want %s"
-          % (launches, MNIST_STITCHED_LAUNCHES))
+          "path as expected: %s %s, want %s %s"
+          % (launches, entries, MNIST_STITCHED_LAUNCHES,
+             MNIST_STITCHED_ENTRY_LAUNCHES))
+    check(head_ok, "mnist_stitched", "the head stage's fn, run once, "
+          "launched other than the one served gather kernel: %s"
+          % info["head_stage"])
     check(split_ok, "mnist_stitched", "K split in %s launches (graph "
           "replays included), want %s" % (splits, MNIST_SPLIT_LAUNCHES))
     check(bodies_ok, "mnist_stitched", "GEMM bodies in the profile: %s, "
@@ -4382,7 +4655,36 @@ def phase_mnist_stitched(device, smi):
                               MNIST_STITCHED_H2D_MAX))
     check(d2h_ok, "mnist_stitched", "%d device->host copies for %d class "
           "closes" % (d2h, len(closes)))
-    return launches
+    return dict(launches, **entries)
+
+
+def _head_stage_launches(wf, device):
+    """The loader head stage's ``fn`` run once eagerly under the
+    profiler, at a 60-row tail of the shuffled buffer, its scalars 0-d
+    views of one device buffer as the segment's scalar block hands them
+    over: the device kernels it launched (exactly one, the served gather,
+    is required) and its launch counts.  A window that saw no kernel is
+    taken again, at most PROFILE_TRIES windows."""
+    from veles_tpu_torch.ops import gather
+    stage = wf.stitch_segments[0].stages[0]
+    t = {name: vec.devmem for name, vec in stage.params.items()}
+    _block, t["offset"], t["size"] = _scalars(device, 940, 60)
+    gpu_sync()
+    for tries in range(1, PROFILE_TRIES + 1):
+        reset_all_launches()
+        summary = profile_window(lambda: stage.fn(t),
+                                 (_GATHER_GROUP, "other", "copy", "matmul"))
+        if summary["device_kernels"]:
+            break
+    names = summary["kernel_names"]
+    counts = {**gather.launches, **gather.entry_launches}
+    reset_all_launches()
+    return {"device_kernels": summary["device_kernels"],
+            "kernel_names": names, "windows": tries, "launches": counts,
+            "ok": (summary["device_kernels"] == 1 and len(names) == 1
+                   and "veles_gather_served_kernel" in next(iter(names))
+                   and counts["veles_gather_served"] == 1
+                   and counts["gather_norm"] == 1)}
 
 
 def _close_record(closes):
@@ -4558,6 +4860,13 @@ def main():
                                      if counts.get(counter)}
         entry["launches"] = sum(entry["launches_by_path"].values())
         if entry["name"] in ("gather", "gather_norm"):
+            entry["launches_by_entry"] = {
+                path: {name: counts[name] for name in (
+                    "veles_gather_group", "veles_gather_served")
+                    if counts.get(name)}
+                for path, counts in paths.items()
+                if counts.get("veles_gather_group")
+                or counts.get("veles_gather_served")}
             entry["tables_by_path"] = {
                 path: {kind: counts[kind] for kind in (
                     "gather_tables", "gather_norm_tables") if counts[kind]}
@@ -4568,8 +4877,10 @@ def main():
             "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # gd_db and the gather rows say which launch they ride in (gd_db its
-    # carrier's times with and without it, the gather rows the tables
-    # served); the GEMM kernels also carry wrapper_ms, the time of one
+    # carrier's times with and without it, the gather rows their C entry,
+    # the launches by entry, the tables served, and gather_norm the
+    # head's earlier form of five index ops and the group launch);
+    # the GEMM kernels also carry wrapper_ms, the time of one
     # wrapper call; the paged kernel the contiguous kernel's time on the
     # mirrored cache and its verify (5 rows) times; the flash kernels
     # their body, rate, share of their bound, device time per call (the
@@ -4578,7 +4889,9 @@ def main():
     # and its share of the bound (the contiguous one SDPA's device time);
     # qmatmul its prefill layer's device times and its decode layer
     # (device times, plans, body)
-    extra = ("rides_in", "tables_by_path", "without_bias_ms", "carrier_ms",
+    extra = ("entry", "rides_in", "launches_by_entry", "tables_by_path",
+             "parent_head_ms", "group_alone_ms", "without_bias_ms",
+             "carrier_ms",
              "wrapper_ms", "contiguous_ms", "verify_ms",
              "verify_contiguous_ms", "verify_plain_ms", "verify_bound_ms",
              "body", "split", "tflops", "bound_share", "device_ms",

@@ -18,11 +18,20 @@ the same numpy inputs:
 - the wrapper contract of the kernel route (at most four tables, one
   normalized, int32 indices, contiguous tables, scale and shift sizes),
   checked before any launch;
-- both loader routes, each minibatch made by ONE group call: the eager
-  fill (``engine.stitch=off``) against the JAX loader's fill, and the
-  stitched head's stage function (native u8 data, scale 1/255) against
-  the JAX head's at the same offsets and sizes, short tails included:
-  minibatch data and labels exactly.
+- the served rows (``take_rows_served``, the stitched head's one
+  launch): its plain version ``_gather_served_ref`` against the JAX
+  head's stage function at the same shuffled buffer, offsets and sizes
+  (a short tail, size 0, the buffer's last row), for the native u8 head
+  and the f32-dataset head, exactly; its out-of-range rule (a row past
+  ``size`` or past the shuffled buffer, a served index past the table:
+  pad rows) against a numpy model; and its wrapper contract (0-d int32
+  scalars on the buffer's device) checked before any launch;
+- both loader routes, each minibatch made by ONE gather call: the eager
+  fill (``engine.stitch=off``, one ``take_rows_group``) against the JAX
+  loader's fill, and the stitched head's stage function (native u8
+  data, scale 1/255; one ``take_rows_served``) against the JAX head's at
+  the same offsets and sizes, short tails included: minibatch data and
+  labels exactly.
 
 The kernel itself runs only on the card (``tests/test_torch_kernels.py``,
 ``cuda`` marker; ``chip_smoke.py``).
@@ -179,6 +188,85 @@ def test_gather_group_contract_is_checked_before_launch(bad, error,
     assert not any(gather.tables_served.values())
 
 
+# -- the served rows ---------------------------------------------------------
+
+def _served_model(shuffled, offset, size, count):
+    """The served indices, element by element: -1 after the tail and
+    past the buffer."""
+    return numpy.asarray(
+        [shuffled[offset + i] if i < size and 0 <= offset + i < len(shuffled)
+         else -1 for i in range(count)], numpy.int32)
+
+
+@pytest.mark.parametrize("offset,size,count", [
+    (45, 10, 12),      # rows 5..9 past the buffer, 10..11 past the tail
+    (0, 50, 50), (0, 0, 8), (49, 1, 4), (50, 3, 3), (-2, 5, 6),
+    (10, 60, 8),       # size above count: count rows, all served
+])
+def test_served_rows_pad_past_the_tail_and_the_buffer(offset, size, count):
+    """``take_rows_served`` on CPU tensors is its plain version; row i is
+    ``shuffled[offset + i]`` for i < size inside the buffer, else a pad
+    row, and a served index past the table pads too."""
+    rng = numpy.random.default_rng(11)
+    data = rng.integers(0, 256, (40, 13)).astype(numpy.uint8)
+    labels = rng.integers(0, 10, 40).astype(numpy.int32)
+    shuffled = rng.integers(0, 40, 50).astype(numpy.int32)
+    shuffled[[7, 46]] = 40                 # past the table
+    t_data, t_labels, t_shuffled = _torch(data, labels, shuffled)
+    norm = gather.affine_tensors((1.0 / 255.0, 0.25), "cpu")
+    tables = [(t_data, norm), (t_labels, -1), (t_data, 3)]
+    scalars = [torch.tensor(v, dtype=torch.int32) for v in (offset, size)]
+    gather.reset_launches()
+    got = gather.take_rows_served(tables, t_shuffled, *scalars, count)
+    assert not any(gather.launches.values())
+    assert not any(gather.entry_launches.values())
+    idx = _served_model(shuffled, offset, size, count)
+    numpy.testing.assert_array_equal(
+        gather._served_indices(t_shuffled, *scalars, count).numpy(), idx)
+    want = gather._gather_group_ref(tables, torch.from_numpy(idx))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape[0] == count
+        assert torch.equal(g, w)
+    numpy.testing.assert_array_equal(got[1].numpy(),
+                                     _jax_rows(labels, idx, -1))
+    numpy.testing.assert_array_equal(got[2].numpy(),
+                                     _jax_rows(data, idx, 3))
+    assert not got[0][torch.from_numpy(_in_table(data, idx)) < 0].any()
+
+
+@pytest.mark.parametrize("bad,message", [
+    ("offset_1d", "offset as a 0-d int32"),
+    ("size_int64", "size as a 0-d int32"),
+    ("offset_number", "offset as a 0-d int32"),
+    ("shuffled_int64", "int32 indices"),
+    ("five_tables", "1 to 4 tables"),
+    ("negative_count", "count -1"),
+])
+def test_gather_served_contract_is_checked_before_launch(bad, message):
+    data = torch.zeros((50, 13), dtype=torch.uint8)
+    shuffled = torch.arange(50, dtype=torch.int32)
+    offset = torch.tensor(3, dtype=torch.int32)
+    size = torch.tensor(5, dtype=torch.int32)
+    tables, count = [(data, _norm()), (data, 0)], 8
+    if bad == "offset_1d":
+        offset = offset.reshape(1)
+    elif bad == "size_int64":
+        size = size.long()
+    elif bad == "offset_number":
+        offset = 3
+    elif bad == "shuffled_int64":
+        shuffled = shuffled.long()
+    elif bad == "five_tables":
+        tables = [(data, 0)] * 5
+    else:
+        count = -1
+    gather.reset_launches()
+    with pytest.raises(ValueError, match=message):
+        gather._gather_served_cuda(tables, shuffled, offset, size, count)
+    assert not any(gather.launches.values())
+    assert not any(gather.entry_launches.values())
+
+
 # -- the loader routes -------------------------------------------------------
 
 @pytest.fixture
@@ -205,14 +293,21 @@ def _host(vec):
 
 @pytest.fixture
 def group_calls(monkeypatch):
-    """Counts the loader's calls of ``take_rows_group``."""
+    """Counts the loader's gather calls: ``("group", tables)`` for
+    ``take_rows_group``, ``("served", tables)`` for
+    ``take_rows_served``."""
     calls = []
-    inner = fullbatch.take_rows_group
+    group, served = fullbatch.take_rows_group, fullbatch.take_rows_served
 
-    def counted(tables, indices):
-        calls.append(len(tables))
-        return inner(tables, indices)
-    monkeypatch.setattr(fullbatch, "take_rows_group", counted)
+    def counted_group(tables, indices):
+        calls.append(("group", len(tables)))
+        return group(tables, indices)
+
+    def counted_served(tables, *args):
+        calls.append(("served", len(tables)))
+        return served(tables, *args)
+    monkeypatch.setattr(fullbatch, "take_rows_group", counted_group)
+    monkeypatch.setattr(fullbatch, "take_rows_served", counted_served)
     return calls
 
 
@@ -241,7 +336,7 @@ def test_eager_fill_gives_the_jax_loaders_rows(engines, group_calls,
             want = _host(getattr(jwf.loader, name))
             assert got.dtype == want.dtype and got.shape == want.shape
             numpy.testing.assert_array_equal(got, want, err_msg=name)
-    assert group_calls == [2] * fills
+    assert group_calls == [("group", 2)] * fills
 
 
 def _head_inputs(stage, offset, size, asarray):
@@ -250,22 +345,58 @@ def _head_inputs(stage, offset, size, asarray):
     return t
 
 
-@pytest.mark.parametrize("offset,size", [(0, 100), (100, 100), (940, 60),
-                                         (1000, 100), (6950, 50), (3, 1)])
-def test_stitched_head_gives_the_jax_heads_rows(engines, group_calls,
-                                                offset, size):
-    """The stitched native head (u8 dataset, scale 1/255 in the gather):
-    its stage function against the JAX head's at one (offset, size) of
-    the shuffled indices, a short batch's tail included; one group call
-    of the normalized data and the labels."""
+HEAD_CASES = [(0, 100), (100, 100), (940, 60), (1000, 100), (6950, 50),
+              (3, 1)]
+
+
+def _heads(engines, native):
+    """The JAX and the port's stitched head stages, each from its own
+    MNIST workflow at seed 7."""
     jeng, teng = engines
     jeng.stitch = teng.stitch = "on"
     jax_prng.seed_all(SEED)
     jwf = jax_mnist.create_workflow(device=JaxCPUDevice(), max_epochs=3,
-                                    native=True)
+                                    native=native)
     prng.seed_all(SEED)
-    twf = mnist.create_workflow(device="cpu", max_epochs=3, native=True)
-    jstage, tstage = jwf.loader.stitch_stage(), twf.loader.stitch_stage()
+    twf = mnist.create_workflow(device="cpu", max_epochs=3, native=native)
+    return jwf.loader.stitch_stage(), twf.loader.stitch_stage(), twf
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("offset,size", HEAD_CASES + [(500, 0), (6999, 1)])
+def test_served_ref_gives_the_jax_heads_rows(engines, native, offset, size):
+    """``_gather_served_ref`` over the port head's tables (the normalized
+    u8 data and the labels; or the f32 dataset raw, pad 0) and shuffled
+    buffer, against the JAX head's stage function at the same (offset,
+    size): data and labels exactly, size 0 and the buffer's last row
+    included."""
+    jstage, tstage, twf = _heads(engines, native)
+    want = jstage.fn(_head_inputs(jstage, offset, size,
+                                  lambda v: jnp.asarray(v, jnp.int32)))
+    loader = twf.loader
+    how = loader._input_norm_dev if native else 0
+    tables = [(loader.original_data.devmem, how),
+              (loader.resident_labels.devmem, -1)]
+    got = gather._gather_served_ref(
+        tables, loader.shuffled_indices.devmem,
+        torch.tensor(offset, dtype=torch.int32),
+        torch.tensor(size, dtype=torch.int32),
+        int(loader.max_minibatch_size))
+    for name, g in zip(("minibatch_data", "minibatch_labels"), got):
+        g, w = g.numpy(), numpy.asarray(want[name])
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        numpy.testing.assert_array_equal(g, w, err_msg=name)
+    assert (got[1][size:] == -1).all() and not got[0][size:].any()
+
+
+@pytest.mark.parametrize("offset,size", HEAD_CASES)
+def test_stitched_head_gives_the_jax_heads_rows(engines, group_calls,
+                                                offset, size):
+    """The stitched native head (u8 dataset, scale 1/255 in the gather):
+    its stage function against the JAX head's at one (offset, size) of
+    the shuffled indices, a short batch's tail included; one served call
+    of the normalized data and the labels, and no group call."""
+    jstage, tstage, _twf = _heads(engines, True)
     want = jstage.fn(_head_inputs(jstage, offset, size,
                                   lambda v: jnp.asarray(v, jnp.int32)))
     got = tstage.fn(_head_inputs(
@@ -279,4 +410,4 @@ def test_stitched_head_gives_the_jax_heads_rows(engines, group_calls,
         numpy.testing.assert_array_equal(g, w, err_msg=name)
     assert got["minibatch_data"].dtype == torch.float32
     assert (got["minibatch_labels"][size:] == -1).all()
-    assert group_calls == [2]
+    assert group_calls == [("served", 2)]

@@ -103,6 +103,28 @@ def test_matmul_wrapper_reads_a_transposed_storage_on_cpu():
 
 
 @pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("batch,f,n", [(24, 70, 50), (100, 100, 10)])
+def test_gd_ref_gives_the_same_bits_from_either_storage(activation, batch,
+                                                        f, n):
+    """``_gd_ref`` on W stored (F, N) and on the same W stored (N, F)
+    (``transposed``) gives the same bits: err_input, and the new W and
+    vW up to the storage's transpose (CPU BLAS takes another kernel for
+    a transposed operand, so δ·Wᵀ must read one layout)."""
+    arrays = _gd_inputs(False, seed=12, batch=batch, f=f, n=n)
+    x, y, eo, w, b, vw, vb = _t(*arrays)
+    plain = gemm._gd_ref(x, y, eo, w, b, vw, vb, *_HP,
+                         activation=activation)
+    turned = gemm._gd_ref(x, y, eo, w.t().contiguous(), b,
+                          vw.t().contiguous(), vb, *_HP,
+                          activation=activation, transposed=True)
+    assert torch.equal(plain[4], turned[4])
+    assert torch.equal(plain[0], turned[0].t())
+    assert torch.equal(plain[2], turned[2].t())
+    assert torch.equal(plain[1], turned[1]) and torch.equal(plain[3],
+                                                            turned[3])
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("need_err_input", [True, False])
 @pytest.mark.parametrize("has_bias", [True, False])

@@ -1111,6 +1111,103 @@ def test_gather_wrappers_raise_on_the_card(cuda_device, gather_launches):
     assert not any(gather_launches.values())
 
 
+#: (offset, size) of the served launch over a 7000-row shuffled buffer, 100
+#: rows: a whole batch, a short tail, one row, none, the buffer's last
+#: row, a batch past the buffer's end, an offset at its end
+SERVED_SPANS = [(0, 100), (940, 60), (3, 1), (500, 0), (6999, 1),
+                (6960, 100), (7000, 100)]
+
+
+def _served_operands(device, kind, seed=50):
+    """The tables of one served launch (``kind``: the native head's u8
+    data normalized, the f32 dataset's raw data, an int32 table
+    normalized per feature; each with int32 labels) and a shuffled
+    7000-row buffer."""
+    from veles_tpu_torch.ops import gather
+    rng = numpy.random.default_rng(seed)
+    dtype = {"u8_norm": torch.uint8, "f32_raw": torch.float32,
+             "int32_norm": torch.int32}[kind]
+    data, _ = _gather_operands(device, dtype, (7000, 784), seed=seed)
+    labels, _ = _gather_operands(device, torch.int32, (7000,), seed=seed + 1)
+    how = 0 if kind == "f32_raw" else gather.affine_tensors(
+        (1.0 / 255.0, 0.0) if kind == "u8_norm"
+        else (rng.uniform(0.5, 2.0, 784), rng.standard_normal(784)), device)
+    shuffled = torch.from_numpy(rng.permutation(7000).astype(
+        numpy.int32)).to(device)
+    return [(data, how), (labels, -1)], shuffled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8_norm", "f32_raw", "int32_norm"])
+@pytest.mark.parametrize("offset,size", SERVED_SPANS)
+def test_gather_served_matches_plain_version_on_card(
+        cuda_device, gather_launches, kind, offset, size):
+    """One served launch (the index computed in it from the shuffled
+    buffer and 0-d int32 scalars of one device block) against
+    ``_gather_served_ref``, bit for bit; counted under the group's key
+    and its own entry."""
+    from veles_tpu_torch.ops import gather
+    tables, shuffled = _served_operands(cuda_device, kind)
+    block = torch.tensor([offset, size], dtype=torch.int32,
+                         device=cuda_device)
+    got = gather.take_rows_served(tables, shuffled, block[0], block[1], 100)
+    want = gather._gather_served_ref(tables, shuffled, block[0], block[1],
+                                     100)
+    torch.cuda.synchronize()
+    norm = kind != "f32_raw"
+    assert gather_launches == {"gather": int(not norm),
+                               "gather_norm": int(norm)}
+    assert gather.entry_launches == {"veles_gather_group": 0,
+                                     "veles_gather_served": 1}
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and torch.equal(g, w_)
+    assert (got[1][size:] == -1).all()
+
+
+@pytest.mark.cuda
+def test_gather_served_reads_its_scalars_at_replay_on_card(
+        cuda_device, gather_launches):
+    """Captured once at one (offset, size); each replay after the
+    scalars are rewritten in place, over outputs filled with 7, serves
+    the new span: the launch reads them on the device."""
+    from veles_tpu_torch.ops import gather
+    tables, shuffled = _served_operands(cuda_device, "u8_norm")
+    block = torch.tensor(SERVED_SPANS[0], dtype=torch.int32,
+                         device=cuda_device)
+    gather.take_rows_served(tables, shuffled, block[0], block[1], 100)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = gather.take_rows_served(tables, shuffled, block[0], block[1],
+                                       100)
+    for span in SERVED_SPANS[::-1]:
+        block.copy_(torch.tensor(span, dtype=torch.int32))
+        for out in outs:
+            out.fill_(7)
+        graph.replay()
+        want = gather._gather_served_ref(tables, shuffled, block[0],
+                                         block[1], 100)
+        torch.cuda.synchronize()
+        for g, w_ in zip(outs, want):
+            assert torch.equal(g, w_), span
+
+
+@pytest.mark.cuda
+def test_gather_served_wrapper_raises_on_the_card(cuda_device,
+                                                  gather_launches):
+    from veles_tpu_torch.ops import gather
+    tables, shuffled = _served_operands(cuda_device, "u8_norm")
+    at = torch.tensor(0, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="mixed devices"):
+        gather.take_rows_served(tables, shuffled, at,
+                                torch.tensor(5, dtype=torch.int32), 100)
+    with pytest.raises(ValueError, match="size as a 0-d int32"):
+        gather.take_rows_served(tables, shuffled, at, at.long(), 100)
+    with pytest.raises(ValueError, match="int32 indices"):
+        gather.take_rows_served(tables, shuffled.long(), at, at, 100)
+    assert not any(gather_launches.values())
+
+
 @pytest.mark.cuda
 def test_gd_kernels_read_hyperparameters_at_replay_on_card(
         cuda_device, gemm_launches):

@@ -318,6 +318,25 @@ def test_kernel_source_names_the_tpu_kernel_it_replaces(name, replaces):
     assert "What bounds it on the H100" in head
 
 
+def test_gather_entries_share_one_row_body():
+    """Both entries of csrc/gather.cu move their rows through the one
+    device function ``move_rows``: the table switch is written once, and
+    the group kernel and the served kernel each call it; the served
+    kernel's planted build (row ``size`` served as valid) is one of
+    chip_smoke.py's planted builds."""
+    import runpy
+    source = (REPO / "veles_tpu_torch" / "csrc" / "gather.cu").read_text()
+    assert source.count("switch (t.move)") == 1
+    for kernel in ("veles_gather_group_kernel", "veles_gather_served_kernel"):
+        body = source.split(kernel + "(", 1)[1].split("\n}\n", 1)[0]
+        assert "move_rows(g, i, " in body, kernel
+    assert 'extern "C" int veles_gather_served(' in source
+    assert "VELES_PLANTED_FAULT == 3" in source
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"))
+    assert smoke["PLANTED_BUILDS"][("gather", 3)] == \
+        "served_row_one_past_the_tail"
+
+
 def test_library_name_follows_the_source_hash(tmp_path, monkeypatch):
     from veles_tpu_torch.ops import build
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
@@ -496,12 +515,20 @@ def test_chip_smoke_counts_only_the_kernels_after_the_work_marker(
 
 
 _GATHER = "void veles_gather_group_kernel<4>(GroupArgs)"
+_SERVED = ("void (anonymous namespace)::veles_gather_served_kernel(int "
+           "const*, long long, int const*, int const*, Group)")
 _FORWARD = "void veles_gemm_kernel<0, 0>(GemmArgs)"
 
 
 @pytest.mark.parametrize("names,ok", [
     # 80 minibatches, each one group gather and two forward GEMMs
     ({_GATHER: 80, _FORWARD: 160}, True),
+    # the stitched head: one served gather a minibatch
+    ({_SERVED: 80, _FORWARD: 160}, True),
+    # one served gather missing
+    ({_SERVED: 79, _FORWARD: 160}, False),
+    # the served gather and the head's earlier index kernels' group gather
+    ({_SERVED: 80, _GATHER: 80, _FORWARD: 160}, False),
     # one whole minibatch not seen
     ({_GATHER: 79, _FORWARD: 158}, False),
     # every forward seen, one gather missing

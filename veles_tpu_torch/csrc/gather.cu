@@ -1,52 +1,70 @@
-// Row gather of up to four tables over one index vector in one launch,
-// each table moved raw or (one of them) fused with an affine normalize, for
-// Hopper (sm_90a), written by hand.
+// Row gather of up to four tables in one launch, each table moved raw or
+// (one of them) fused with an affine normalize, for Hopper (sm_90a),
+// written by hand; either over an index vector or over the rows a loader
+// serves, computed in the launch.
 //
 // Replaces two TPU kernels of veles_tpu/ops/gather.py:
 // - `_gather_kernel` (via `_gather_pallas`): out[i] = data[idx[i]] along
 //   axis 0, a pad row where idx[i] is negative (the empty slots of a
-//   short minibatch)              -> a raw table of veles_gather_group;
+//   short minibatch)              -> a raw table of either entry;
 // - `_gather_norm_kernel` (via `_gather_norm_pallas`): out[i] =
 //   f32(data[idx[i]]) * scale + shift, per feature or one scalar pair,
 //   and a ZERO row (not `shift`) where idx[i] is negative
-//                                 -> the normalized table of the group.
+//                                 -> the normalized table of either entry.
 // The Pallas kernels run one grid point per output row, with the index
 // as a scalar-prefetch index map that DMAs the source row into the
 // output block, one pallas_call a table.  Here one block serves one
-// output row of every table of the group: its threads load the row's
-// index, and each table has warps of its own, which stride over its row,
-// neighbouring threads on neighbouring addresses, so every table's loads
-// are in flight at once (a thread that walked the tables in turn would
-// wait for one table's load before it issued the next's: a third round
-// trip, 0.5 us on the MNIST minibatch).  A raw table's row moves as raw
-// bytes (any element type) in 16-byte words where the row width and both
-// base addresses allow it, else in 4-byte words, else bytes; its pad value
-// arrives as an 8-byte pattern of its element repeated.  The normalized
-// table's u8, int32 or f32 rows are read four elements at a time where
-// the width and alignment allow it, converted to f32 and written as
-// float4s; the multiply and the add are rounded one after the other
-// (__fmul_rn, __fadd_rn), as the plain version and the JAX reference
-// compute them, so no fused multiply-add changes a bit.  An index
-// outside [0, n_rows) gives the pad (zero) row: no read ever leaves a
-// table.  The kernel neither synchronises nor allocates, and launches on
-// the caller's stream, so a CUDA graph captures it.
+// output row of every table of the group: each table has warps of its
+// own, which stride over its row, neighbouring threads on neighbouring
+// addresses, so every table's loads are in flight at once (a thread that
+// walked the tables in turn would wait for one table's load before it
+// issued the next's: another round trip, 0.5 us on the MNIST minibatch).
+// A raw table's row moves as raw bytes (any element type) in 16-byte
+// words where the row width and both base addresses allow it, else in
+// 4-byte words, else bytes; its pad value arrives as an 8-byte pattern of
+// its element repeated.  The normalized table's u8, int32 or f32 rows are
+// read four elements at a time where the width and alignment allow it,
+// converted to f32 and written as float4s; the multiply and the add are
+// rounded one after the other (__fmul_rn, __fadd_rn), as the plain
+// version and the JAX reference compute them, so no fused multiply-add
+// changes a bit.  An index outside [0, n_rows) gives the pad (zero) row:
+// no read ever leaves a table.  Both entries move a row through one
+// device function (`move_rows`), given the row's source index r:
+// - veles_gather_group takes r = idx[i] from an index vector the host
+//   uploaded (the eager fill, `take_rows_group`);
+// - veles_gather_served computes r itself, as the stitched loader head
+//   serves it: r = shuffled[offset + i] where i < size and offset + i
+//   lies in the shuffled-index buffer, else -1 (`take_rows_served`).
+//   `offset` and `size` are read on the device, at run time, from the
+//   segment's scalar block, so one captured graph serves every
+//   minibatch, short tails included.  This replaces the JAX head's
+//   `where`/`take` over `arange(count)` (veles_tpu/loader/fullbatch.py
+//   `stitch_stage`): five small int32 ops ahead of the gather, seven
+//   launches on the card (each `where` against a scalar first fills a
+//   tensor with it), now one launch with the gather.
+// The kernels neither synchronise nor allocate, and launch on the
+// caller's stream, so a CUDA graph captures them.
 //
-// What bounds it on the H100: bytes, and below them the launch.  The
-// MNIST minibatch gathers 100 rows of 784 (f32 on the eager route, u8
-// normalized to f32 in the stitched head) and 100 int32 labels: at most
-// 0.63 MB, 0.19 us at 3.35 TB/s, far below the ~2.5 us floor that each
-// launch paid when the labels had a launch of their own.  So the group
-// serves a minibatch's tables in one launch, one block a row, two
-// dependent round trips (the index, then every table's row).  At 4096
-// rows of real MNIST's (70 000, 784) u8 table the bound is 4.8 us; a
-// block per row keeps 4096 blocks in flight over 132 SMs, and each row is
-// read and written once, coalesced.
+// What bounds it on the H100: bytes, and below them the launch and its
+// dependent round trips (~0.5 us each).  The MNIST minibatch gathers 100
+// rows of 784 (f32 on the eager route, u8 normalized to f32 in the
+// stitched head) and 100 int32 labels: at most 0.63 MB (0.40 MB in the
+// head: 0.12 us at 3.35 TB/s), far below one launch's ~2.5 us floor.  So
+// each route serves a minibatch's tables in one launch, one block a row.
+// The group pays two dependent round trips (the index, then every
+// table's row); the served launch three: the two scalars (both loads in
+// flight together), then the served index (one thread loads it into
+// shared memory for the block), then every table's row.  At 4096 rows of
+// real MNIST's (70 000, 784) u8 table the bound is 4.8 us; a block per
+// row keeps 4096 blocks in flight over 132 SMs, and each row is read and
+// written once, coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 // a test build may plant a fault (1: the second table's rows taken at
-// index + 1; 2: a raw table's pad rows left unwritten), which the card
+// index + 1; 2: a raw table's pad rows left unwritten; 3: the served
+// launch serves row `size`, one past the tail, as valid), which the card
 // checks must report; 0 in every other build
 #ifndef VELES_PLANTED_FAULT
 #define VELES_PLANTED_FAULT 0
@@ -198,13 +216,10 @@ __device__ __forceinline__ void norm_row(const Table& t, long long i, int r,
   }
 }
 
-// one block per output row: row blockIdx.x of every table of the group,
-// each table by its own warps
-__global__ void __launch_bounds__(MAX_BLOCK)
-veles_gather_group_kernel(const int* __restrict__ idx,
-                          const __grid_constant__ Group g) {
-  const long long i = blockIdx.x;
-  const int r = idx[i];
+// output row i of every table of the group from source row r (a pad row
+// outside a table), each table by its own warps
+__device__ __forceinline__ void move_rows(const Group& g, long long i,
+                                          int r) {
 #pragma unroll
   for (int j = 0; j < MAX_TABLES; ++j) {
     if (j >= g.count) break;
@@ -227,10 +242,43 @@ veles_gather_group_kernel(const int* __restrict__ idx,
   }
 }
 
+// one block per output row: row blockIdx.x of every table, from idx
+__global__ void __launch_bounds__(MAX_BLOCK)
+veles_gather_group_kernel(const int* __restrict__ idx,
+                          const __grid_constant__ Group g) {
+  const long long i = blockIdx.x;
+  move_rows(g, i, idx[i]);
+}
+
+// one block per output row i of a served minibatch: its source row is
+// shuffled[*offset + i] where i < *size and *offset + i lies in the
+// buffer, else -1 (the pad row).  Thread 0 issues the two scalar loads
+// together, then the served index's, and leaves it in shared memory for
+// the block's table warps: three dependent round trips in all.
+__global__ void __launch_bounds__(MAX_BLOCK)
+veles_gather_served_kernel(const int* __restrict__ shuffled,
+                           long long n_shuffled,
+                           const int* __restrict__ offset,
+                           const int* __restrict__ size,
+                           const __grid_constant__ Group g) {
+  __shared__ int served;
+  const int i = blockIdx.x;
+  if (threadIdx.x == 0) {
+    const int at = *offset;
+    const int n = *size;
+    const long long p = (long long)at + i;
+    // planted: row `size`, one past the tail, served as valid
+    const bool in_tail = VELES_PLANTED_FAULT == 3 ? i <= n : i < n;
+    served = in_tail && p >= 0 && p < n_shuffled ? shuffled[p] : -1;
+  }
+  __syncthreads();
+  move_rows(g, i, served);
+}
+
 }  // namespace
 
-// One table of veles_gather_group, as the host gives it (ops/gather.py
-// `_Table`): data (n_rows, ...) and out contiguous; kind -1 moves rows of
+// One table of a launch of either entry, as the host gives it
+// (ops/gather.py `_Table`): data (n_rows, ...) and out contiguous; kind -1 moves rows of
 // `width` bytes raw, `pad` an 8-byte pattern of the pad element; kind 0
 // (u8), 1 (int32) or 2 (f32) normalizes rows of `width` features into f32
 // with scale and shift, per feature (stride 1) or one value each (stride
@@ -247,19 +295,18 @@ struct GatherTableArg {
   const float* shift;
 };
 
-// out_t (n_idx, ...) = table t's rows idx, for each of the n_tables (1 to
-// 4) tables, in one launch; idx int32.  Returns cudaErrorInvalidValue for
-// a table count or kind it does not take.
-extern "C" int veles_gather_group(const GatherTableArg* tables, int n_tables,
-                                  const int* idx, int n_idx, void* stream) {
+// The launch's Group from the host's tables and the block's threads
+// (each table's warps after the last's); cudaErrorInvalidValue for a
+// table count or kind it does not take.
+static int make_group(const GatherTableArg* tables, int n_tables, Group* g,
+                      int* threads) {
   if (n_tables < 1 || n_tables > MAX_TABLES) return (int)cudaErrorInvalidValue;
-  if (n_idx <= 0) return (int)cudaGetLastError();
-  Group g = {};
-  g.count = n_tables;
-  int threads = 0;   // the block: each table's warps after the last's
+  *g = Group{};
+  g->count = n_tables;
+  *threads = 0;
   for (int j = 0; j < n_tables; ++j) {
     const GatherTableArg& a = tables[j];
-    Table& t = g.t[j];
+    Table& t = g->t[j];
     t.data = a.data;
     t.out = a.out;
     t.n_rows = a.n_rows;
@@ -287,11 +334,44 @@ extern "C" int veles_gather_group(const GatherTableArg* tables, int n_tables,
       t.words = a.width;
       chunks = vec ? a.width / 4 : a.width;
     }
-    t.first = threads;
+    t.first = *threads;
     t.threads = threads_for(chunks);
-    threads += t.threads;
+    *threads += t.threads;
   }
+  return 0;
+}
+
+// out_t (n_idx, ...) = table t's rows idx, for each of the n_tables (1 to
+// 4) tables, in one launch; idx int32.  Returns cudaErrorInvalidValue for
+// a table count or kind it does not take.
+extern "C" int veles_gather_group(const GatherTableArg* tables, int n_tables,
+                                  const int* idx, int n_idx, void* stream) {
+  Group g;
+  int threads;
+  const int status = make_group(tables, n_tables, &g, &threads);
+  if (status) return status;
+  if (n_idx <= 0) return (int)cudaGetLastError();
   veles_gather_group_kernel<<<n_idx, threads, 0, (cudaStream_t)stream>>>(
       idx, g);
+  return (int)cudaGetLastError();
+}
+
+// out_t (count, ...) = table t's rows of the served minibatch, for each of
+// the n_tables (1 to 4) tables, in one launch: row i is taken at
+// shuffled[*offset + i] where i < *size and 0 <= *offset + i <
+// n_shuffled, and is the pad row otherwise.  shuffled (n_shuffled int32),
+// offset and size (one int32 each) live on the device and are read when
+// the kernel runs, never by the host.
+extern "C" int veles_gather_served(const GatherTableArg* tables, int n_tables,
+                                   const int* shuffled, long long n_shuffled,
+                                   const int* offset, const int* size,
+                                   int count, void* stream) {
+  Group g;
+  int threads;
+  const int status = make_group(tables, n_tables, &g, &threads);
+  if (status) return status;
+  if (count <= 0) return (int)cudaGetLastError();
+  veles_gather_served_kernel<<<count, threads, 0, (cudaStream_t)stream>>>(
+      shuffled, n_shuffled, offset, size, g);
   return (int)cudaGetLastError();
 }

@@ -14,17 +14,19 @@ two ways:
 - The device fast path (``engine.loader`` ``auto`` or ``device``, with
   stitching on): the loader HEADS the first stitched segment.
   :meth:`stitch_stage` keeps the serving bookkeeping as the segment's
-  prelude and turns the fill into index arithmetic over the
-  device-resident shuffled-index buffer,
-  ``idx = where(pos < size, shuffled[offset + pos], -1)``, with
-  ``offset`` and ``size`` read from the segment's scalar block, so one
-  captured graph serves every batch, short tails included; then one
-  group gather of the data row and the labels (pad -1).  The shuffled
-  indices move once per shuffle, in place.
+  prelude and turns the fill into one served launch
+  (:func:`veles_tpu_torch.ops.gather.take_rows_served`): over the
+  device-resident shuffled-index buffer it takes row ``i`` at
+  ``shuffled[offset + i]`` where ``i < size`` (a pad row after the
+  tail), with ``offset`` and ``size`` read on the device from the
+  segment's scalar block, so one captured graph serves every batch,
+  short tails included, and gathers the data row and the labels (pad
+  -1) in the same launch.  The shuffled indices move once per shuffle,
+  in place.
 
 ``native_device_dtype=True`` keeps the dataset in its storage type
 (uint8 pixels: a quarter of float32's bytes) and publishes the
-normalizer's affine form as ``input_norm``; the head's group gather
+normalizer's affine form as ``input_norm``; the head's served launch
 then normalizes the data row (as
 :func:`~veles_tpu_torch.ops.gather.take_rows_norm`), so the first
 forward sees normalized float32.  It needs the head: the eager fill
@@ -34,12 +36,12 @@ host at initialize.
 """
 
 import numpy
-import torch
 
 from veles_tpu_torch.config import root
 from veles_tpu_torch.loader.base import Loader, LoaderError, TRAIN
 from veles_tpu_torch.memory import Vector
-from veles_tpu_torch.ops.gather import affine_tensors, take_rows_group
+from veles_tpu_torch.ops.gather import (affine_tensors, take_rows_group,
+                                        take_rows_served)
 
 LOADER_MODES = ("auto", "device", "host")
 
@@ -174,18 +176,14 @@ class FullBatchLoader(Loader):
         plan = self._device_stage_plan()
         pads = {name: pad for name, _src, _out, pad in plan}
         norm = self._input_norm_dev if self.native_device_dtype else None
-        pos = torch.arange(int(self.max_minibatch_size), dtype=torch.int32,
-                           device=self.device.torch_device)
+        count = int(self.max_minibatch_size)
 
         def fn(t):
-            valid = pos < t["size"]
-            served = t["indices"].index_select(
-                0, torch.where(valid, pos + t["offset"], 0))
-            idx = torch.where(valid, served, -1)
-            rows = take_rows_group(
+            rows = take_rows_served(
                 [(t["src_" + name], norm if norm is not None
                   and name == "minibatch_data" else pad)
-                 for name, pad in pads.items()], idx)
+                 for name, pad in pads.items()],
+                t["indices"], t["offset"], t["size"], count)
             return dict(zip(pads, rows))
 
         params = {"indices": self.shuffled_indices}

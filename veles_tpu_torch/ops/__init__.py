@@ -25,7 +25,10 @@ version.
   ``_gather_norm_kernel`` → :func:`veles_tpu_torch.ops.gather.take_rows`,
   :func:`~veles_tpu_torch.ops.gather.take_rows_norm` and
   :func:`~veles_tpu_torch.ops.gather.take_rows_group` (a minibatch's
-  tables in one launch), CUDA C++ in ``csrc/gather.cu``;
+  tables in one launch) and
+  :func:`~veles_tpu_torch.ops.gather.take_rows_served` (the stitched
+  loader head's: the served index computed in the same launch), CUDA
+  C++ in ``csrc/gather.cu``;
 - ``veles_tpu/ops/qgemm.py`` ``_qmatmul_kernel`` (the int8 W8A16 GEMM)
   → :func:`veles_tpu_torch.ops.qgemm.qmatmul`, CUDA C++ in
   ``csrc/qgemm.cu``;

@@ -18,19 +18,29 @@ Counterpart of :mod:`veles_tpu.ops.gather`:
   (as :func:`take_rows_norm`), in ONE launch: a minibatch's data and
   labels.  Its plain version applies the two plain versions table by
   table (:func:`_gather_group_ref`).
+- :func:`take_rows_served` is the same group over the rows the stitched
+  loader head serves: row ``i`` is taken at ``shuffled[offset + i]``
+  where ``i < size`` and ``offset + i`` lies in the shuffled-index
+  buffer, and is a pad row otherwise; ``offset`` and ``size`` are 0-d
+  int32 tensors (the segment's scalar block), read on the device.  Its
+  plain version, :func:`_gather_served_ref`, computes that index with
+  five tensor ops (as the JAX head's ``where``/``take``) and then
+  :func:`_gather_group_ref`.
 
-On CUDA tensors all three launch one kernel (``csrc/gather.cu``
-``veles_gather_group``, replacing ``_gather_kernel`` and
-``_gather_norm_kernel``: one block a row of every table); on CPU
-tensors they take the plain versions.  An index outside ``[0,
-len(data))`` gives the pad row on both routes.  The JAX module's
-autotune verdicts, its negative cache of rejected shapes and its silent
-fallback to XLA have no counterpart: a CUDA tensor launches the kernel
-or raises.  ``launches`` counts launches, under ``"gather_norm"`` when
-the group holds a normalized table, else under ``"gather"``;
-``tables_served`` counts the raw (``"gather_tables"``) and normalized
-(``"gather_norm_tables"``) tables those launches served.  Only a launch
-adds to them.
+On CUDA tensors the group launches ``csrc/gather.cu``
+``veles_gather_group`` and the served rows ``veles_gather_served``
+(both replacing ``_gather_kernel`` and ``_gather_norm_kernel``: one
+block a row of every table; the served entry computes the index in the
+same launch); on CPU tensors they take the plain versions.  An index
+outside ``[0, len(data))`` gives the pad row on both routes.  The JAX
+module's autotune verdicts, its negative cache of rejected shapes and
+its silent fallback to XLA have no counterpart: a CUDA tensor launches
+the kernel or raises.  ``launches`` counts launches of either entry,
+under ``"gather_norm"`` when the group holds a normalized table, else
+under ``"gather"``; ``tables_served`` counts the raw
+(``"gather_tables"``) and normalized (``"gather_norm_tables"``) tables
+those launches served, and ``entry_launches`` the launches of each C
+entry.  Only a launch adds to them.
 """
 
 import ctypes
@@ -45,6 +55,8 @@ from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 launches = {"gather": 0, "gather_norm": 0}
 #: tables those launches served: raw ("gather_tables") and normalized
 tables_served = {"gather_tables": 0, "gather_norm_tables": 0}
+#: the same launches by C entry
+entry_launches = {"veles_gather_group": 0, "veles_gather_served": 0}
 
 #: the normalized table's types and their codes
 NORM_DTYPES = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
@@ -64,28 +76,30 @@ class _Table(ctypes.Structure):
                 ("shift", ctypes.c_void_p)]
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
-#: the loaded C entry, ``veles_gather_group`` (a list, so a test can swap
-#: in another build's)
-_entry_fn = []
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: each C entry's argument types: (tables, n_tables, ...)
+_ARGTYPES = {"veles_gather_group": [_P, _I, _P, _I, _P],
+             "veles_gather_served": [_P, _I, _P, _L, _P, _P, _I, _P]}
+#: the loaded C entries by name (a dict, so a test can swap in another
+#: build's)
+_entries = {}
 
 
 def reset_launches():
-    for counter in (launches, tables_served):
+    for counter in (launches, tables_served, entry_launches):
         for name in counter:
             counter[name] = 0
 
 
-def _entry():
-    """The C entry, building ``csrc/gather.cu`` at first use."""
-    if not _entry_fn:
+def _entry(name):
+    """The C entry ``name``, building ``csrc/gather.cu`` at first use."""
+    if name not in _entries:
         from veles_tpu_torch.ops import build
-        fn = build.library("gather").veles_gather_group
-        fn.argtypes = _ARGTYPES
+        fn = getattr(build.library("gather"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _entry_fn.append(fn)
-    return _entry_fn[0]
+        _entries[name] = fn
+    return _entries[name]
 
 
 # -- plain versions (the CPU path and the kernels' references) -------------
@@ -130,6 +144,25 @@ def _gather_group_ref(tables, indices):
             else _gather_ref(data, indices, how) for data, how in tables]
 
 
+def _served_indices(shuffled, offset, size, count):
+    """The served rows' int32 indices, as the stitched head computes
+    them: ``shuffled[offset + i]`` where ``i < size`` and ``offset + i``
+    lies in ``shuffled``, else -1."""
+    pos = torch.arange(count, dtype=torch.int64, device=shuffled.device)
+    valid = pos < size.long()
+    at = pos + offset.long()
+    valid = valid & (at >= 0) & (at < shuffled.shape[0])
+    served = shuffled.index_select(0, torch.where(valid, at, 0))
+    return torch.where(valid, served, -1).to(torch.int32)
+
+
+def _gather_served_ref(tables, shuffled, offset, size, count):
+    """:func:`take_rows_served`'s plain version: the served indices
+    (:func:`_served_indices`), then :func:`_gather_group_ref`."""
+    return _gather_group_ref(tables,
+                             _served_indices(shuffled, offset, size, count))
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 def _check_indices(name, data, indices):
@@ -172,12 +205,10 @@ def _norm_table(data, scale, shift):
     return f
 
 
-def _gather_group_cuda(tables, indices):
-    """``veles_gather_group``: one launch over 1 to 4 contiguous tables,
-    ``(data, pad)`` raw (any element type, rows moved as bytes) or one
-    ``(data, (scale, shift))`` normalized (a u8, int32 or f32 table;
-    scale and shift f32 tensors on the card, one value each or one per
-    feature).  Returns the outputs, table by table."""
+def _table_args(tables, indices, n_out):
+    """The C tables of one launch of ``n_out`` rows over ``indices`` (the
+    index vector, or the shuffled-index buffer) and their outputs; the
+    count of normalized tables."""
     if not 1 <= len(tables) <= MAX_TABLES:
         raise ValueError("gather serves 1 to %d tables a launch, not %d"
                          % (MAX_TABLES, len(tables)))
@@ -190,7 +221,7 @@ def _gather_group_cuda(tables, indices):
     for arg, (data, how) in zip(args, tables):
         _check_indices("gather_norm" if _is_norm(how) else "gather", data,
                        indices)
-        shape = (indices.shape[0],) + tuple(data.shape[1:])
+        shape = (n_out,) + tuple(data.shape[1:])
         if _is_norm(how):
             scale, shift = how
             f = _norm_table(data, scale, shift)
@@ -206,14 +237,61 @@ def _gather_group_cuda(tables, indices):
         arg.data, arg.out, arg.n_rows = (data.data_ptr(), out.data_ptr(),
                                          data.shape[0])
         outs.append(out)
-    if not any(out.numel() for out in outs):
-        return outs
-    status = _entry()(args, len(tables), indices.data_ptr(),
-                      indices.shape[0], stream_handle(indices.device))
-    check_status("gather", status)
+    return args, outs, norms
+
+
+def _launched(entry, tables, norms):
     launches["gather_norm" if norms else "gather"] += 1
     tables_served["gather_norm_tables"] += norms
-    tables_served["gather_tables"] += len(tables) - norms
+    tables_served["gather_tables"] += tables - norms
+    entry_launches[entry] += 1
+
+
+def _gather_group_cuda(tables, indices):
+    """``veles_gather_group``: one launch over 1 to 4 contiguous tables,
+    ``(data, pad)`` raw (any element type, rows moved as bytes) or one
+    ``(data, (scale, shift))`` normalized (a u8, int32 or f32 table;
+    scale and shift f32 tensors on the card, one value each or one per
+    feature).  Returns the outputs, table by table."""
+    args, outs, norms = _table_args(tables, indices, indices.shape[0])
+    if not any(out.numel() for out in outs):
+        return outs
+    entry = "veles_gather_group"
+    status = _entry(entry)(args, len(tables), indices.data_ptr(),
+                           indices.shape[0], stream_handle(indices.device))
+    check_status("gather", status)
+    _launched(entry, len(tables), norms)
+    return outs
+
+
+def _check_scalars(shuffled, offset, size, count):
+    for name, t in (("offset", offset), ("size", size)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 0 \
+                or t.dtype != torch.int32 or t.device != shuffled.device:
+            raise ValueError("take_rows_served takes %s as a 0-d int32 "
+                             "tensor on the shuffled indices' device"
+                             % name)
+    if count < 0:
+        raise ValueError("take_rows_served: count %d < 0" % count)
+
+
+def _gather_served_cuda(tables, shuffled, offset, size, count):
+    """``veles_gather_served``: the tables as for
+    :func:`_gather_group_cuda`, ``count`` rows taken at the served
+    indices, which the launch computes from the int32 ``shuffled``
+    buffer and the 0-d int32 ``offset`` and ``size`` on the card (read
+    when the kernel runs: a captured graph reads each replay's)."""
+    _check_scalars(shuffled, offset, size, count)
+    args, outs, norms = _table_args(tables, shuffled, count)
+    if not any(out.numel() for out in outs):
+        return outs
+    entry = "veles_gather_served"
+    status = _entry(entry)(args, len(tables), shuffled.data_ptr(),
+                           shuffled.shape[0], offset.data_ptr(),
+                           size.data_ptr(), count,
+                           stream_handle(shuffled.device))
+    check_status("gather", status)
+    _launched(entry, len(tables), norms)
     return outs
 
 
@@ -241,14 +319,10 @@ def take_rows_norm(data, indices, norm):
     return take_rows_group([(data, norm)], indices)[0]
 
 
-def take_rows_group(tables, indices):
-    """Rows ``indices`` (int32) of every table in one launch: ``tables``
-    holds up to four ``(data, how)`` pairs, ``how`` a raw table's pad
-    (:func:`take_rows`) or, for at most one table, a ``(scale, shift)``
-    pair that normalizes it (:func:`take_rows_norm`).  Returns one
-    output per table: the kernel on CUDA tensors,
-    :func:`_gather_group_ref` on CPU tensors."""
-    specs, tensors = [], [indices]
+def _specs(tables):
+    """The tables with each normalized table's affine as tensors on its
+    device, and every tensor they hold."""
+    specs, tensors = [], []
     for data, how in tables:
         if _is_norm(how):
             how = tuple(how)
@@ -257,6 +331,31 @@ def take_rows_group(tables, indices):
             tensors += how
         specs.append((data, how))
         tensors.append(data)
-    if on_gpu(*tensors):
+    return specs, tensors
+
+
+def take_rows_group(tables, indices):
+    """Rows ``indices`` (int32) of every table in one launch: ``tables``
+    holds up to four ``(data, how)`` pairs, ``how`` a raw table's pad
+    (:func:`take_rows`) or, for at most one table, a ``(scale, shift)``
+    pair that normalizes it (:func:`take_rows_norm`).  Returns one
+    output per table: the kernel on CUDA tensors,
+    :func:`_gather_group_ref` on CPU tensors."""
+    specs, tensors = _specs(tables)
+    if on_gpu(indices, *tensors):
         return _gather_group_cuda(specs, indices)
     return _gather_group_ref(specs, indices)
+
+
+def take_rows_served(tables, shuffled, offset, size, count):
+    """The stitched loader head's minibatch in one launch: ``count``
+    rows of every table (``tables`` as for :func:`take_rows_group`),
+    row ``i`` taken at ``shuffled[offset + i]`` where ``i < size`` and
+    ``offset + i`` lies in ``shuffled`` (int32), a pad row otherwise.
+    ``offset`` and ``size`` are 0-d int32 tensors, read on the device;
+    ``count`` is the static row count (the largest minibatch).  The
+    kernel on CUDA tensors, :func:`_gather_served_ref` on CPU tensors."""
+    specs, tensors = _specs(tables)
+    if on_gpu(shuffled, offset, size, *tensors):
+        return _gather_served_cuda(specs, shuffled, offset, size, count)
+    return _gather_served_ref(specs, shuffled, offset, size, count)

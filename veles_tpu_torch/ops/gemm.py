@@ -179,8 +179,10 @@ def _derivative(y, activation):
 
 def _matmul_ref(a, w, bias=None, activation=None):
     """Mirror of ``_matmul_jnp``: an f32 product, then the bias, then
-    the activation."""
-    out = torch.mm(a.float(), w.float())
+    the activation.  The product reads a contiguous copy of ``w``, so a
+    transposed view and its contiguous storage give the same bits (CPU
+    BLAS takes another kernel for a transposed operand)."""
+    out = torch.mm(a.float(), w.float().contiguous())
     if bias is not None:
         out = out + bias.float()
     return _activate(out, activation).to(a.dtype)
@@ -198,7 +200,10 @@ def _gd_ref(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
     x2 = x.reshape(batch, -1).float()
     grad_w = torch.mm(x2.t(), delta) / batch
     if need_err_input:
-        err_input = torch.mm(delta, w if transposed else w.t())
+        # Wᵀ as a contiguous (N, F) copy in both layouts: the same bits
+        # from either storage, as in _matmul_ref
+        err_input = torch.mm(delta,
+                             (w if transposed else w.t()).contiguous())
     else:
         err_input = None
     if transposed:

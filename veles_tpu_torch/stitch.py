@@ -131,11 +131,12 @@ class StitchStage(object):
 
 def _launch_counters():
     """Every kernel wrapper module's ``launches`` dict, the gather's
-    ``tables_served`` and the GEMM wrappers' ``bias_in_dw`` and
-    ``split_launches``."""
+    ``tables_served`` and ``entry_launches`` and the GEMM wrappers'
+    ``bias_in_dw`` and ``split_launches``."""
     from veles_tpu_torch.ops import attention, gather, gemm
     return (attention.launches, gather.launches, gather.tables_served,
-            gemm.launches, gemm.bias_in_dw, gemm.split_launches)
+            gather.entry_launches, gemm.launches, gemm.bias_in_dw,
+            gemm.split_launches)
 
 
 class ScalarBlock(object):

@@ -201,7 +201,42 @@ Phases, each printing one JSON line (any failure exits non-zero):
    equal, parameters and momenta within 1e-4 · max |cpu|.  A card run
    whose loader scalar block is written once and never again (a stale
    offset) must fail that check.
-17. ``ops`` — the ops API on the card: ``matrix_reduce`` of a (4096,
+17. ``mnist_scan`` — the stitched native route of ``mnist_stitched``
+   under ``engine.epoch_scan=auto`` (``veles_tpu_torch/epoch_scan.py``),
+   4 epochs: each class pass is one window (validation 10 steps with the
+   device verdict in its graph, train 60 steps), epoch 0's windows run
+   eagerly, epoch 1's are captured, the rest replay.  Exactly 2 windows
+   and 70 steps in each full epoch and 7 ``segment/dispatch`` spans in
+   all (the per-step segments never dispatch), the window graphs' keys
+   ``(False, 10, True)`` and ``(True, 60, False)``, each captured once
+   and never again, with K times a step's launches a replay; launches
+   over the run exactly 440 matmul, 180 gd_dx, 360 gd_dw (bias_in_dw
+   360), 220 served gathers (220 + 220 tables); the device verdict equal
+   to the host close at every validated close; capture seconds, pool
+   bytes, each epoch's wall time and the host serving and dispatch time
+   of the steady epoch's windows; then epoch 2 under ``torch.profiler``
+   (kernels a minibatch, busy share, device time by group, one gather
+   kernel a minibatch, the split tile's GEMM bodies only).
+18. ``mnist_scan_parity`` — 3 epochs (eager, captured and replayed
+   windows): the card's window route against the card's per-step
+   stitched route from the same seed, weights, momenta, confusion and
+   closes bit for bit; against the port on the CPU, closes exact and
+   parameters within 1e-4 · max |cpu|; under ``metrics_every=25``,
+   which misdivides the train pass (windows of 25, 25 and 10 steps),
+   each window key captured once at its second window and never again,
+   and the run bit for bit the per-step one.  A card window run whose
+   stacked offset column repeats row 0 must fail the CPU check.
+19. ``mnist_ae`` — the MLP autoencoder (``samples/mnist_ae.py``,
+   784→100 sigmoid→784 sigmoid, f32, MSE, minibatch 100, the stand-in
+   as data and targets) stitched with ``epoch_scan`` off and auto, 4
+   epochs each: the rmse closes, exactly 440 matmul, 180 gd_dx, 360
+   gd_dw and 220 served gathers of the data and targets (440 raw
+   tables) on both, the window graphs as in ``mnist_scan``, and the
+   two runs' weights bit for bit.
+20. ``mnist_ae_parity`` — the autoencoder under epoch_scan=auto on the
+   card against the CPU, 3 epochs: the same closes, each rmse within
+   relative 1e-5, parameters within 1e-4 · max |cpu|.
+21. ``ops`` — the ops API on the card: ``matrix_reduce`` of a (4096,
    4096) f32 matrix under ``root.common.engine.pallas_reduce = True``
    launches the reduce kernel once a call (every op and axis) and agrees
    with ``_reduce_ref``; with the knob off it launches nothing.
@@ -225,9 +260,10 @@ with its split and body.  It holds the GEMM kernel
 (``matmul``: every activation × bias on/off) and the fused GD step (dx,
 then dw carrying the bias step; every activation ×
 both storage layouts × need_err_input × has_bias) against
-``_matmul_ref`` / ``_gd_ref`` at 37×70×50, the MNIST shapes, 8×20×8 and
-30×140×30 (K split 2 over less than 2·16, split 8 over 9 K tiles) and
-4096³, every element within 1e-5 + 1e-5·|plain| (4096³: 1e-4 +
+``_matmul_ref`` / ``_gd_ref`` at 37×70×50, the MNIST shapes, 8×20×8,
+30×140×30 (K split 2 over less than 2·16, split 8 over 9 K tiles), the
+autoencoder's second layer 100×100×784 (its first is MNIST's 100×784×100)
+and 4096³, every element within 1e-5 + 1e-5·|plain| (4096³: 1e-4 +
 1e-4·|plain|, a 4096-long f32 sum in another order); dw with the bias
 step on every (tile, split) at those shapes (4096³ on the host rule's),
 every activation and layout, relaunched bit-equal, its bias sums bit
@@ -255,8 +291,9 @@ shuffled buffer and 0-d int32 offset and size on the card) against
 ``_gather_served_ref`` bit for bit at sizes 100, 60, 1 and 0, the
 buffer's last row, a batch running past the buffer's end and an offset
 at it, for u8 data normalized with the labels, f32 data raw with the
-labels, int32 and f32 tables normalized per feature, each also replayed
-from one graph with the scalars rewritten between replays; seven planted
+labels, int32 and f32 tables normalized per feature, and the
+autoencoder's two raw f32 tables (data and targets, pad 0), each also
+replayed from one graph with the scalars rewritten between replays; seven planted
 faults (every index off by one, negative indices not zeroed, for each
 kind, and the kernel's three planted builds) must be reported; it is
 timed as each route's minibatch launches it (the eager group: 100 rows
@@ -310,7 +347,7 @@ Every phase runs with ``precision_level`` 2 (TF32 off).
 
 Then it prints the per-kernel JSON line, all 14 TPU kernels (launches on
 the main paths, serve, serve_int8, serve_paged, serve_spec, train,
-mnist, mnist_stitched and ops, max
+mnist, mnist_stitched, mnist_scan, mnist_ae and ops, max
 abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -1223,12 +1260,13 @@ def _gd_operands(rng, device, batch, f, n, transposed, scaled):
 def _gemm_cases(rng, device):
     """Every activation × bias on/off for matmul, and activation ×
     layout × need_err_input × has_bias for the GD trio, at the ragged,
-    MNIST, split (K split 2 over 20, split 8 over 9 K tiles) and 4096^3
-    shapes; each output element within its tolerance."""
+    MNIST, split (K split 2 over 20, split 8 over 9 K tiles), the
+    autoencoder's (100, 100, 784) and 4096^3 shapes; each output element
+    within its tolerance."""
     from veles_tpu_torch.ops import gemm
     cases = []
     shapes = ((37, 70, 50), (100, 784, 100), (100, 100, 10), (8, 20, 8),
-              (30, 140, 30), (GEMM_BIG, GEMM_BIG, GEMM_BIG))
+              (30, 140, 30), (100, 100, 784), (GEMM_BIG, GEMM_BIG, GEMM_BIG))
     for m, k, n in shapes:
         big = m == GEMM_BIG
         tol = GEMM_BIG_TOL if big else GEMM_TOL
@@ -1746,7 +1784,8 @@ def _gather_served_cases(rng, device):
     ``_gather_served_ref``, exactly, at every GATHER_SERVED_SPANS over a
     shuffled permutation: the native head's u8 data normalized with the
     labels, the f32-dataset head's raw data with the labels, an int32
-    and an f32 table normalized per feature; each group also captured
+    and an f32 table normalized per feature, and the autoencoder's head
+    (the f32 data and targets, raw); each group also captured
     once in a CUDA graph and replayed over outputs filled with 7 with
     the scalars rewritten in place between replays (a scalar read at
     capture, or a row left unwritten, would show)."""
@@ -1771,6 +1810,10 @@ def _gather_served_cases(rng, device):
         "f32_normalized": [
             (_gather_table(rng, device, torch.float32, (n, f)),
              per_feature)],
+        # the autoencoder's head: the data and its targets, both raw f32
+        "f32_data+f32_targets": [
+            (_gather_table(rng, device, torch.float32, (n, f)), 0),
+            (_gather_table(rng, device, torch.float32, (n, f)), 0)],
     }
     cases = []
     for name, tables in groups.items():
@@ -4797,6 +4840,522 @@ def phase_mnist_stitched_parity(device):
              planted_check, recaptures))
 
 
+# -- the epoch-scan windows -------------------------------------------------
+
+MNIST_SCAN_EPOCHS = 4
+# the stand-in's windows under epoch_scan=auto: the validation pass (10
+# steps, a validated class close: the verdict runs in the graph) and the
+# train pass (60 steps); (train, K, verdict)
+MNIST_SCAN_KEYS = [(False, 10, True), (True, 60, False)]
+# one step's launches in each segment of the native stitched route: the
+# forward segment (two split forwards, the served gather of the u8 data
+# and the labels) and the GD segment (one dx, two split dw carrying the
+# bias step)
+MNIST_STEP_LAUNCHES = (
+    {"matmul": 2, "matmul_split": 2, "gather_norm": 1,
+     "gather_norm_tables": 1, "gather_tables": 1,
+     "veles_gather_served": 1},
+    {"gd_dx": 1, "gd_dw": 2, "gd_db_in_dw": 2, "gd_dw_split": 2})
+# max_epochs=4: 4 validation passes of 10 steps, 3 train passes of 60
+MNIST_SCAN_STEPS = (4 * 10 + 3 * 60, 3 * 60)
+MNIST_AE_EPOCHS = 4
+MNIST_AE_RMSE_RTOL = 1e-5
+# the autoencoder's step: two sigmoid forwards, the served gather of the
+# f32 data and targets (two raw tables); one dx (layer 2), two dw
+MNIST_AE_STEP_LAUNCHES = (
+    {"matmul": 2, "matmul_split": 2, "gather": 1, "gather_tables": 2,
+     "veles_gather_served": 1},
+    {"gd_dx": 1, "gd_dx_split": 1, "gd_dw": 2, "gd_db_in_dw": 2,
+     "gd_dw_split": 2})
+
+
+def _launches_of(steps, per_step):
+    """``{counter: launches}`` of ``steps`` (forward steps, train steps)
+    of each segment's launches a step (MNIST_STEP_LAUNCHES or its AE
+    twin)."""
+    counts = {}
+    for launches, n in zip(per_step, steps):
+        for name, count in launches.items():
+            if count * n:
+                counts[name] = counts.get(name, 0) + count * n
+    return counts
+
+
+def _counted():
+    """Every GEMM and gather counter as the run left them."""
+    from veles_tpu_torch.ops import gather, gemm
+    counts = {}
+    for counters in (gemm.launches, gemm.bias_in_dw, gemm.split_launches,
+                     gather.launches, gather.tables_served,
+                     gather.entry_launches):
+        counts.update(counters)
+    return counts
+
+
+def _counted_expected(expected):
+    """``expected`` over every counter :func:`_counted` reads (0 where
+    it names none)."""
+    return {name: expected.get(name, 0) for name in _counted()}
+
+
+def _window_log(wf):
+    """Wrap the runner's window: one record a window (epoch, class,
+    steps)."""
+    runner, loader = wf.epoch_runner, wf.loader
+    execute, log = runner._execute_window, []
+
+    def logged(k_max):
+        steps = runner.steps
+        execute(k_max)
+        log.append({"epoch": int(loader.epoch_number),
+                    "cls": int(loader.minibatch_class),
+                    "steps": runner.steps - steps})
+    runner._execute_window = logged
+    return log
+
+
+def _verdict_log(wf):
+    """Wrap the Decision's class close: at each validated close that
+    ends an epoch, whether the window's device verdict agrees with the
+    host close (improved and complete)."""
+    dec, out = wf.decision, []
+    close = dec._close_class
+
+    def checked(cls, check_epoch_end):
+        result = close(cls, check_epoch_end)
+        if dec._validated(cls) and check_epoch_end:
+            v = dec.scan_verdict
+            out.append({
+                "epoch": int(dec.epoch_number), "cls": cls,
+                "verdict": None if v is None else {
+                    "improved": bool(v["improved"]),
+                    "stop": bool(v["stop"]), "epoch": v["epoch"],
+                    "cls": v["cls"], "steps": v["steps"]},
+                "host": {"improved": bool(dec.improved),
+                         "complete": bool(dec.complete)}})
+            out[-1]["agree"] = (
+                v is not None and v["epoch"] == int(dec.epoch_number)
+                and v["cls"] == cls
+                and bool(v["improved"]) == bool(dec.improved)
+                and bool(v["stop"]) == bool(dec.complete))
+        return result
+    dec._close_class = checked
+    return out
+
+
+def _hook_steps(wf, mode, hook):
+    """Call ``hook()`` before each served step of a stitched run: the
+    loader head's prelude per step, or each step of a window's serving
+    loop under epoch_scan."""
+    loader = wf.loader
+    if mode == "off":
+        stage = wf.stitch_segments[0].stages[0]
+        inner = stage.prelude
+    else:
+        inner = loader.scan_window_step
+
+    def step():
+        hook()
+        inner()
+    if mode == "off":
+        stage.prelude = step
+    else:
+        loader.scan_window_step = step
+
+
+def _scan_profile(device, create, epochs, names_of, steady_epoch=2,
+                  mode="auto"):
+    """One steady epoch of a stitched sample under ``epoch_scan=mode``
+    in the profiler: a ``max_epochs=epochs`` run whose window opens as
+    ``steady_epoch`` starts (its graphs captured in the epochs before)
+    and closes as the next starts.  Returns ``(summary,
+    minibatches)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from veles_tpu_torch import prng
+    with engine_knobs(stitch="on", loader="auto", epoch_scan=mode):
+        prng.seed_all(SEED)
+        wf = create(device=device, max_epochs=epochs)
+        loader = wf.loader
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        window = {}
+
+        def watched():
+            # an epoch starts in the step that wraps the offset
+            at = (loader.epoch_number,
+                  loader.global_offset >= loader.total_samples)
+            if "tic" not in window and at == (steady_epoch - 1, True):
+                gpu_sync()
+                prof.start()
+                prime_window()
+                window["tic"] = time.perf_counter()
+                window["minibatches"] = 0
+            elif "tic" in window and "toc" not in window \
+                    and at == (steady_epoch, True):
+                gpu_sync()
+                window["toc"] = time.perf_counter()
+                prof.stop()
+            if "tic" in window and "toc" not in window:
+                window["minibatches"] += 1
+        _hook_steps(wf, mode, watched)
+        wf.run()
+        gpu_sync()
+        if "toc" not in window:
+            prof.stop()
+            window["toc"] = time.perf_counter()
+    summary = _profile_summary(prof, (window["toc"] - window["tic"]) * 1e6,
+                               names_of)
+    summary["window"] = ("one steady epoch under epoch_scan=%s: epoch "
+                         "%d (%d minibatches)"
+                         % (mode, steady_epoch, window["minibatches"]))
+    summary["minibatches"] = window["minibatches"]
+    summary["kernels_per_minibatch"] = (summary["device_kernels"]
+                                        / window["minibatches"])
+    return summary, window["minibatches"]
+
+
+def _scan_counted_run(device, create, epochs, mode):
+    """A sample's stitched run under ``epoch_scan=mode`` with the trace
+    on: ``(wf, info)`` with the launches, the windows by epoch, the
+    ``segment/dispatch`` and ``window_serve`` spans, the verdict checks
+    and the wall times."""
+    from veles_tpu_torch import prng, trace
+    with engine_knobs(stitch="on", loader="auto", epoch_scan=mode,
+                      trace="on"):
+        prng.seed_all(SEED)
+        wf = create(device=device, max_epochs=epochs)
+        trace.recorder.clear()
+        log = _window_log(wf) if mode != "off" else []
+        verdicts = _verdict_log(wf) if mode != "off" else []
+        loader, starts = wf.loader, []
+
+        def epoch_start():
+            if not starts or loader.global_offset >= loader.total_samples:
+                starts.append(time.perf_counter())
+        _hook_steps(wf, mode, epoch_start)
+        reset_all_launches()
+        gpu_sync()
+        tic = time.perf_counter()
+        wf.run()
+        gpu_sync()
+        elapsed = time.perf_counter() - tic
+        events = trace.recorder.events()
+    trace.configure()
+    trace.recorder.clear()
+    dispatch = [e for e in events if e[1:3] == ("segment", "dispatch")]
+    serve = [e for e in events if e[1:3] == ("segment", "window_serve")]
+    info = {"elapsed_s": elapsed, "dispatch_spans": len(dispatch),
+            "epoch_wall_ms": [(b - a) * 1e3
+                              for a, b in zip(starts, starts[1:])],
+            "segments": wf.stitch_report(),
+            "epoch_scan": wf.epoch_scan_report(), "verdicts": verdicts,
+            "closes": wf.decision.history}
+    if log:
+        for record, d, w in zip(log, dispatch, serve):
+            record["dispatch_host_ms"] = d[4] / 1e6
+            record["serve_host_ms"] = w[4] / 1e6
+        epochs_seen = sorted({r["epoch"] for r in log})
+        info["windows_by_epoch"] = [
+            sum(1 for r in log if r["epoch"] == e) for e in epochs_seen]
+        info["steps_by_epoch"] = [
+            sum(r["steps"] for r in log if r["epoch"] == e)
+            for e in epochs_seen]
+        info["windows"] = log
+    return wf, info
+
+
+def _scan_graphs_ok(report, keys, step_launches):
+    """The runner's graphs: exactly ``keys``, each captured once, never
+    again, with K times a step's launches a replay."""
+    graphs = report["graphs"] if report else {}
+    launches_ok = all(
+        graphs[key]["graph_launches"] == _launches_of(
+            (key[1], key[1] if key[0] else 0), step_launches)
+        for key in keys if key in graphs)
+    return (report is not None and report["eligible"]
+            and sorted(graphs) == sorted(keys)
+            and all(g["captures"] == 1 and g["recaptures"] == 0
+                    for g in graphs.values()) and launches_ok)
+
+
+def phase_mnist_scan(device, smi):
+    """The stitched native MNIST route under epoch_scan=auto at full
+    width (784→100 tanh→10 softmax, minibatch 100, the stand-in), 4
+    epochs: a class pass is one window, epoch 0's windows run eagerly,
+    epoch 1's capture, the rest replay.  Windows and steps per epoch,
+    the host dispatches (``segment/dispatch`` spans) a steady epoch, the
+    window graphs' keys, captures, recaptures and launches a replay,
+    exact launches over the run, the device verdict against the host
+    close, then one steady epoch under the profiler."""
+    from veles_tpu_torch.samples import mnist
+
+    def create(device, max_epochs):
+        return mnist.create_workflow(device=device, max_epochs=max_epochs,
+                                     native=True)
+    wf, info = _scan_counted_run(device, create, MNIST_SCAN_EPOCHS, "auto")
+    expected = _launches_of(MNIST_SCAN_STEPS, MNIST_STEP_LAUNCHES)
+    launches = _counted()
+    report = info["epoch_scan"]
+    graphs_ok = _scan_graphs_ok(report, MNIST_SCAN_KEYS,
+                                MNIST_STEP_LAUNCHES)
+    counted = launches == _counted_expected(expected)
+    epochs_ok = (info["windows_by_epoch"] == [2, 2, 2, 1]
+                 and info["steps_by_epoch"] == [70, 70, 70, 10]
+                 and info["dispatch_spans"] == 7)
+    per_step_idle = all(r["dispatches"] == 0 for r in info["segments"])
+    verdicts_ok = (len(info["verdicts"]) == MNIST_SCAN_EPOCHS
+                   and all(v["agree"] for v in info["verdicts"]))
+    errors = [c["n_err"] for c in info["closes"]]
+    valid = [c["n_err_pt"] for c in info["closes"]
+             if c["cls"] == "validation"]
+    learned = (all(numpy.isfinite(e) for e in errors)
+               and valid[-1] < valid[0])
+    steady = [w for w in info["windows"] if w["epoch"] == 2]
+    info.update({
+        "phase": "mnist_scan", "nvidia_smi": smi,
+        "layers": "784-100 all2all_tanh, 100-10 softmax",
+        "minibatch": 100, "max_epochs": MNIST_SCAN_EPOCHS,
+        "data": "synthetic stand-in as u8, scale 1/255 in the loader head",
+        "epoch_scan": report, "launches": launches,
+        "launches_expected": _counted_expected(expected),
+        "dispatches_per_steady_epoch": len(steady),
+        "steady_epoch_wall_ms": info["epoch_wall_ms"][2],
+        "steady_epoch_serve_host_ms": sum(w["serve_host_ms"]
+                                          for w in steady),
+        "steady_epoch_dispatch_host_ms": sum(w["dispatch_host_ms"]
+                                             for w in steady),
+        "capture_s": {str(k): g["capture_s"]
+                      for k, g in report["graphs"].items()},
+        "pool_reserved_bytes": {str(k): g["pool_reserved_bytes"]
+                                for k, g in report["graphs"].items()},
+        "pool_allocated_bytes": {str(k): g["pool_allocated_bytes"]
+                                 for k, g in report["graphs"].items()},
+    })
+    info["epoch_scan"] = {k: v for k, v in report.items() if k != "graphs"}
+    info["graphs"] = {str(k): g for k, g in report["graphs"].items()}
+    reset_all_launches()
+    info["breakdown"], kernels_ok = _mnist_profiled(
+        lambda: _scan_profile(device, create, MNIST_SCAN_EPOCHS,
+                              _MNIST_NAMES))
+    bodies_ok = _gemm_bodies_ok(info["breakdown"])
+    info["ok"] = (graphs_ok and counted and epochs_ok and per_step_idle
+                  and verdicts_ok and learned and kernels_ok and bodies_ok)
+    emit(info)
+    check(graphs_ok, "mnist_scan", "window graphs other than expected: %s"
+          % info["graphs"])
+    check(counted, "mnist_scan", "launches %s, want %s"
+          % (launches, info["launches_expected"]))
+    check(epochs_ok and per_step_idle, "mnist_scan", "windows %s, steps "
+          "%s by epoch, %d dispatch spans, segments %s"
+          % (info["windows_by_epoch"], info["steps_by_epoch"],
+             info["dispatch_spans"], info["segments"]))
+    check(verdicts_ok, "mnist_scan", "the device verdict disagrees with "
+          "the host close: %s" % info["verdicts"])
+    check(learned, "mnist_scan", "n_err %s, validation %s" % (errors, valid))
+    check(kernels_ok and bodies_ok, "mnist_scan", "the steady epoch's "
+          "profile: gather kernels %s for %s minibatches, bodies %s"
+          % (info["breakdown"].get("gather_kernels"),
+             info["breakdown"].get("minibatches_seen"),
+             info["breakdown"].get("gemm_bodies")))
+    return launches
+
+
+def _exact_agreement(a, b):
+    """Two runs' ``(closes, params)``: closes (n_err, samples, confusion)
+    and every parameter and momentum bit for bit."""
+    (ca, pa), (cb, pb) = a, b
+    closes = _close_record(ca) == _close_record(cb) and all(
+        numpy.array_equal(x["confusion"], y["confusion"])
+        for x, y in zip(ca, cb))
+    differing = sorted(name for name in pb
+                       if not numpy.array_equal(pa[name], pb[name]))
+    return {"closes_equal": closes, "params_differing": differing,
+            "ok": closes and not differing}
+
+
+#: a metrics_every that misdivides the stand-in's 60-step train pass:
+#: its windows take 25, 25 and 10 steps (keys (True, 25, False) and
+#: (True, 10, False)), the validation pass 10
+MNIST_SCAN_EVERY = 25
+
+
+def phase_mnist_scan_parity(device):
+    """The window route on the card (native, 3 epochs: eager, captured
+    and replayed windows) against the card's per-step stitched route
+    from the same seed, bit for bit (weights, momenta, confusion,
+    closes), and against the port on the CPU (closes exact, parameters
+    within 1e-4 · max |cpu|).  Under metrics_every=25 the train pass
+    takes windows of 25, 25 and 10 steps: each key captured once, at
+    its second window, never again, and the run bit for bit the
+    per-step one.  A card window run whose stacked offset column repeats
+    row 0 must fail the CPU check."""
+    from veles_tpu_torch import prng, stitch
+    from veles_tpu_torch.samples import mnist
+
+    def run(dev, mode, every=0):
+        with engine_knobs(stitch="on", loader="auto", epoch_scan=mode,
+                          metrics_every=every):
+            prng.seed_all(SEED)
+            wf = mnist.create_workflow(device=dev, max_epochs=MNIST_EPOCHS,
+                                       native=True)
+            closes = []
+            _record_closes(wf, closes)
+            wf.run()
+            gpu_sync()
+            return (closes, wf.params_to_numpy()), wf.epoch_scan_report()
+
+    cpu = torch.device("cpu")
+    window, report = run(device, "auto")
+    per_step, _r = run(device, "off")
+    on_cpu, _r = run(cpu, "auto")
+    misdivided, every_report = run(device, "auto", MNIST_SCAN_EVERY)
+    results = {"window_vs_per_step_card": _exact_agreement(window, per_step),
+               "window_card_vs_cpu": _agreement(window, on_cpu),
+               "metrics_every_%d_window_vs_per_step_card"
+               % MNIST_SCAN_EVERY: _exact_agreement(misdivided, per_step)}
+    every_graphs = every_report["graphs"]
+    every_ok = (sorted(every_graphs) == [(False, 10, True),
+                                         (True, 10, False),
+                                         (True, 25, False)]
+                and all(g["captures"] == 1 and g["recaptures"] == 0
+                        and g["replays"] == g["runs"] - 1
+                        for g in every_graphs.values()))
+    write = stitch.ScalarBlock.write
+
+    def stale(self, values):
+        if self.dtype == torch.int32 and self.tensor.dim() == 2:
+            # the loader's offset is the window's int column 0
+            values = [[values[0][0]] + list(row[1:]) for row in values]
+        write(self, values)
+    stitch.ScalarBlock.write = stale
+    try:
+        planted, _r = run(device, "auto")
+    finally:
+        stitch.ScalarBlock.write = write
+    planted_check = _agreement(planted, on_cpu)
+    graphs = report["graphs"]
+    recaptures = sum(g["recaptures"] for g in graphs.values())
+    captured = all(g["captures"] == 1 and g["replays"] >= 1
+                   for g in graphs.values())
+    ok = (all(r["ok"] for r in results.values()) and not planted_check["ok"]
+          and recaptures == 0 and captured and every_ok)
+    emit({"phase": "mnist_scan_parity", "ok": ok, "dtype": "float32",
+          "tf32": False, "param_rtol": MNIST_PARAM_RTOL,
+          "max_epochs": MNIST_EPOCHS, "comparisons": results,
+          "graphs": {str(k): g for k, g in graphs.items()},
+          "metrics_every": MNIST_SCAN_EVERY,
+          "metrics_every_graphs": {str(k): g
+                                   for k, g in every_graphs.items()},
+          "planted_stale_window_offsets": planted_check,
+          "planted_stale_window_offsets_caught": not planted_check["ok"]})
+    check(ok, "mnist_scan_parity", "the window route disagrees, a graph "
+          "recaptured or never replayed, or the planted stale offsets "
+          "went unseen: %s, planted %s, recaptures %d, metrics_every "
+          "graphs %s" % ({k: v["ok"] for k, v in results.items()},
+                         planted_check, recaptures, every_graphs))
+
+
+def _rmse_agreement(a, b, rtol=MNIST_AE_RMSE_RTOL):
+    """Two autoencoder runs' ``(history, params)``: the same closes with
+    each rmse within ``rtol``, and each parameter leaf's max |a − b| /
+    max |b|."""
+    (ha, pa), (hb, pb) = a, b
+    same = [(h["epoch"], h["cls"], h["batches"]) for h in ha] == \
+        [(h["epoch"], h["cls"], h["batches"]) for h in hb]
+    rel = max((abs(x["mse"] - y["mse"]) / abs(y["mse"])
+               for x, y in zip(ha, hb)), default=float("inf"))
+    errs = {name: float(numpy.abs(pa[name] - ref).max()
+                        / max(float(numpy.abs(ref).max()), 1e-30))
+            for name, ref in pb.items()}
+    worst = max(errs.values())
+    return {"closes_equal": same, "rmse_worst_rel_err": rel,
+            "param_worst_rel_err": worst,
+            "rmse": [h["mse"] for h in ha],
+            "ok": same and rel <= rtol and worst <= MNIST_PARAM_RTOL}
+
+
+def phase_mnist_ae(device, smi):
+    """The MLP autoencoder (784→100 sigmoid→784 sigmoid, f32, MSE,
+    minibatch 100, the stand-in as data and targets) stitched, with
+    epoch_scan off and auto, 4 epochs each: the rmse closes, exact
+    launches on both, the window graphs (keys, one capture each, K
+    times a step's launches a replay) and the weights of the two runs
+    bit for bit."""
+    from veles_tpu_torch.samples import mnist_ae
+    expected = _launches_of(MNIST_SCAN_STEPS, MNIST_AE_STEP_LAUNCHES)
+    runs, infos = {}, {}
+    for mode in ("off", "auto"):
+        wf, info = _scan_counted_run(device, mnist_ae.create_workflow,
+                                     MNIST_AE_EPOCHS, mode)
+        info["launches"] = _counted()
+        infos[mode] = info
+        runs[mode] = wf.params_to_numpy()
+        loader = wf.loader
+        info["epochs_per_s"] = (loader.samples_served
+                                / loader.total_samples / info["elapsed_s"])
+    want = _counted_expected(expected)
+    graphs_ok = _scan_graphs_ok(infos["auto"]["epoch_scan"],
+                                MNIST_SCAN_KEYS, MNIST_AE_STEP_LAUNCHES)
+    for info in infos.values():
+        if info["epoch_scan"]:
+            info["epoch_scan"]["graphs"] = {
+                str(k): g for k, g in info["epoch_scan"]["graphs"].items()}
+    counted = {mode: infos[mode]["launches"] == want for mode in infos}
+    differing = sorted(name for name in runs["off"]
+                       if not numpy.array_equal(runs["off"][name],
+                                                runs["auto"][name]))
+    rmse = [h["mse"] for h in infos["auto"]["closes"]
+            if h["cls"] == "validation"]
+    learned = (all(numpy.isfinite(h["mse"])
+                   for i in infos.values() for h in i["closes"])
+               and rmse[-1] < rmse[0])
+    same_closes = ([(h["epoch"], h["cls"]) for h in infos["off"]["closes"]]
+                   == [(h["epoch"], h["cls"])
+                       for h in infos["auto"]["closes"]])
+    ok = (graphs_ok and all(counted.values()) and not differing and learned
+          and same_closes and infos["auto"]["windows_by_epoch"]
+          == [2, 2, 2, 1])
+    emit({"phase": "mnist_ae", "nvidia_smi": smi, "ok": ok,
+          "layers": "784-100 all2all_sigmoid, 100-784 all2all_sigmoid",
+          "loss": "mse (rmse per minibatch)", "minibatch": 100,
+          "max_epochs": MNIST_AE_EPOCHS,
+          "data": "synthetic stand-in (f32) as data and targets",
+          "runs": infos, "launches_expected": want,
+          "params_differing_off_vs_auto": differing,
+          "window_graphs_ok": graphs_ok})
+    check(ok, "mnist_ae", "graphs ok %s, launches exact %s, params "
+          "differing off vs auto %s, rmse %s, windows %s"
+          % (graphs_ok, counted, differing, rmse,
+             infos["auto"].get("windows_by_epoch")))
+    return infos["auto"]["launches"]
+
+
+def phase_mnist_ae_parity(device):
+    """The autoencoder under epoch_scan=auto on the card against the
+    port on the CPU from the same seed (3 epochs): the same closes, each
+    rmse within relative 1e-5, parameters within 1e-4 · max |cpu|."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist_ae
+
+    def run(dev):
+        with engine_knobs(stitch="on", loader="auto", epoch_scan="auto"):
+            prng.seed_all(SEED)
+            wf = mnist_ae.create_workflow(device=dev,
+                                          max_epochs=MNIST_EPOCHS)
+            wf.run()
+            gpu_sync()
+            return wf.decision.history, wf.params_to_numpy()
+
+    result = _rmse_agreement(run(device), run(torch.device("cpu")))
+    emit({"phase": "mnist_ae_parity", "ok": result["ok"],
+          "dtype": "float32", "tf32": False, "max_epochs": MNIST_EPOCHS,
+          "rmse_rtol": MNIST_AE_RMSE_RTOL, "param_rtol": MNIST_PARAM_RTOL,
+          "card_vs_cpu": result})
+    check(result["ok"], "mnist_ae_parity", "card and CPU disagree: %s"
+          % result)
+
+
 def _named_leaves(tree, prefix=""):
     for key, leaf in tree.items():
         if isinstance(leaf, dict):
@@ -4846,6 +5405,10 @@ def main():
         paths["mnist_stitched"] = phase_mnist_stitched(
             device, info["nvidia_smi"])
         phase_mnist_stitched_parity(device)
+        paths["mnist_scan"] = phase_mnist_scan(device, info["nvidia_smi"])
+        phase_mnist_scan_parity(device)
+        paths["mnist_ae"] = phase_mnist_ae(device, info["nvidia_smi"])
+        phase_mnist_ae_parity(device)
         paths["ops"] = phase_ops(device)
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)

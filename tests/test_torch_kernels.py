@@ -1765,3 +1765,149 @@ def test_qmatmul_decode_body_every_plan_on_card(cuda_device, m, k, n,
     assert torch.equal(got, again)
     err = float((got.float() - want.float()).abs().max())
     assert err <= BF16_TOL, err
+
+
+# -- epoch-scan windows and the prefetch ring on the card -----------------------
+
+class _StageUnit(object):
+    """The unit a hand-made stage names."""
+    name = "served_probe"
+
+
+@pytest.mark.cuda
+def test_window_graph_serves_each_new_span_after_its_blocks_are_rewritten(
+        cuda_device, gather_launches):
+    """A 3-step window of the served launch (its rows summed as the
+    window's metric): run eagerly, captured, then replayed with other
+    spans written into its stacked block.  Each run's last rows equal
+    the plain version's at its last span, and its accumulator the sum
+    over its three spans: every step read its own row at replay."""
+    from veles_tpu_torch.backends import CUDADevice
+    from veles_tpu_torch.epoch_scan import ScanPlan, WindowGraph
+    from veles_tpu_torch.memory import Vector
+    from veles_tpu_torch.ops import gather
+    from veles_tpu_torch.stitch import StitchStage
+    tables, shuffled = _served_operands(cuda_device, "u8_norm")
+    (data, norm), (labels, _pad) = tables
+    device = CUDADevice(cuda_device)
+    vecs = {"indices": Vector(shuffled.cpu().numpy()),
+            "src": Vector(data.cpu().numpy()),
+            "lbl": Vector(labels.cpu().numpy())}
+    rows_vec = Vector(numpy.zeros((100, 784), numpy.float32))
+    for vec in list(vecs.values()) + [rows_vec]:
+        vec.initialize(device)
+    span = [0, 0]
+
+    def fn(t):
+        rows, _lbl = gather.take_rows_served(
+            [(t["src"], norm), (t["lbl"], -1)], t["indices"], t["offset"],
+            t["size"], 100)
+        return {"rows": rows, "total": rows.sum()}
+
+    stage = StitchStage(_StageUnit(), fn, produces={"rows": rows_vec},
+                        params=vecs, metrics=("total",),
+                        scalars=lambda: {"offset": span[0],
+                                         "size": span[1]})
+    plan = ScanPlan([stage])
+    window = WindowGraph(plan, 3, cuda_device, accum_index=0)
+    runs = [[(0, 100), (940, 60), (3, 1)],
+            [(6999, 1), (500, 0), (100, 100)],
+            [(7000, 100), (6960, 100), (200, 7)],
+            [(1000, 100), (1100, 100), (1200, 100)]]
+    for spans in runs:
+        rows = []
+        for at, size in spans:
+            span[:] = [at, size]
+            rows.append(plan.fetch_scalars())
+        accum, _lasts, _verdict = window.execute(rows, None)
+        want = [gather._gather_served_ref(
+            tables, shuffled, torch.tensor(at, dtype=torch.int32,
+                                           device=cuda_device),
+            torch.tensor(size, dtype=torch.int32, device=cuda_device),
+            100)[0] for at, size in spans]
+        total = torch.stack([w.sum() for w in want]).sum()
+        torch.cuda.synchronize()
+        assert torch.equal(rows_vec.devmem, want[-1]), spans
+        assert float(accum) == float(total), spans
+    graph = window.graph
+    assert (window.runs, graph.captures, graph.replays,
+            graph.recaptures) == (4, 1, 3, 0)
+    assert graph.launches["veles_gather_served"] == 3
+    # 3 eager launches, then 3 a replay
+    assert gather_launches["gather_norm"] == 12
+
+
+@pytest.mark.cuda
+def test_per_step_replay_after_a_window_does_not_recapture(cuda_device):
+    """The stitched MNIST route: per-step (its segment graphs captured),
+    then windows, then per-step again, then windows again.  No segment
+    and no window recaptures (the window writes the segments' captured
+    output buffers, it does not rebind them), and the weights equal a
+    run that was per-step throughout, bit for bit."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import mnist
+    eng = root.common.engine
+    saved = {k: eng.get(k) for k in ("stitch", "loader", "epoch_scan")}
+    try:
+        eng.stitch, eng.loader = "on", "auto"
+
+        def fresh():
+            prng.seed_all(3)
+            return mnist.create_workflow(device=cuda_device, max_epochs=2,
+                                         native=True)
+        mixed = fresh()
+        for epochs, mode in ((2, "off"), (4, "auto"), (5, "off"),
+                             (7, "auto")):
+            eng.epoch_scan = mode
+            mixed.decision.complete <<= False
+            mixed.decision.max_epochs = epochs
+            mixed.run()
+        eng.epoch_scan = "off"
+        ref = fresh()
+        ref.decision.max_epochs = 7
+        ref.run()
+        torch.cuda.synchronize()
+        report = mixed.epoch_scan_report()
+        assert report["windows"] > 0
+        assert all(g["captures"] == 1 and g["recaptures"] == 0
+                   for g in report["graphs"].values())
+        assert all(r["captures"] == 1 and r["recaptures"] == 0
+                   for r in mixed.stitch_report())
+        got, want = mixed.params_to_numpy(), ref.params_to_numpy()
+        for name in want:
+            numpy.testing.assert_array_equal(got[name], want[name], name)
+        assert [h["n_err"] for h in mixed.decision.history] == \
+            [h["n_err"] for h in ref.decision.history]
+    finally:
+        for key, value in saved.items():
+            setattr(eng, key, value)
+
+
+@pytest.mark.cuda
+def test_staging_ring_reuses_no_slot_whose_copy_is_in_flight(cuda_device):
+    """A slot's upload queued behind a long spin on the ring's side
+    stream: acquiring that slot again waits for the copy, so the values
+    written into it afterwards never reach the uploaded tensor."""
+    from veles_tpu_torch.backends import CUDADevice
+    from veles_tpu_torch.memory import StagingRing
+    device = CUDADevice(cuda_device)
+    ring = StagingRing((1024, 1024), numpy.float32, depth=2, pin=True)
+    first = ring.acquire()
+    first[...] = 1.0
+    ring.upload(device, first).take()           # makes the side stream
+    stream = next(iter(ring._streams.values()))
+    second = ring.acquire()
+    second[...] = 2.0
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(200_000_000)          # ~0.1 s on the side stream
+    staged = ring.upload(device, second)
+    assert not staged.event.query()             # the copy waits
+    third = ring.acquire()                      # slot 0: its copy is done
+    fourth = ring.acquire()                     # slot 1: waits for its copy
+    assert fourth is second and staged.event.query()
+    fourth[...] = 4.0
+    got = staged.take()
+    torch.cuda.synchronize()
+    assert third is first
+    assert bool((got == 2.0).all())

@@ -10,8 +10,9 @@
 - A ``root.common.engine`` knob that the JAX package reads in a ported
   module is either ported or refused with ``NotImplementedError``
   naming its ROADMAP item: ``kernels="xla"`` (item 7), ``health`` other
-  than ``off`` (item 6), ``metrics_every`` above 0 (item 1c);
-  ``trace_capacity`` is ported (``tests/test_torch_trace.py``).
+  than ``off`` (item 6); ``metrics_every`` is ported (the Decision's
+  closes equal the JAX package's at any cadence) and so is
+  ``trace_capacity`` (``tests/test_torch_trace.py``).
 - ``chip_smoke.py`` fails, and prints no result, without a card or
   without the package beside it.
 """
@@ -268,14 +269,101 @@ def test_health_rejects_what_the_jax_package_rejects(knobs):
         mnist.create_workflow(device="cpu", max_epochs=1)
 
 
+def _blob_workflow(package, seed=5):
+    """A blob classifier (400 train, 100 validation samples of 16
+    features; minibatch 48, so both classes end in a short batch) in the
+    port (``package="port"``) or the JAX package, from ``seed``, with
+    its closes recorded as ``wf.closes``."""
+    import numpy
+    if package == "port":
+        from veles_tpu_torch import prng
+        from veles_tpu_torch.dummy import DummyLauncher
+        from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+        from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+        device = "cpu"
+    else:
+        from veles_tpu import prng
+        from veles_tpu.backends import CPUDevice
+        from veles_tpu.dummy import DummyLauncher
+        from veles_tpu.loader.fullbatch import FullBatchLoader
+        from veles_tpu.znicz.standard_workflow import StandardWorkflow
+        device = CPUDevice()
+
+    class Blobs(FullBatchLoader):
+        def load_data(self):
+            rng = numpy.random.default_rng(42)
+            labels = numpy.tile(numpy.arange(10), 50)
+            centers = rng.standard_normal((10, 16)) * 3.0
+            data = centers[labels] + rng.standard_normal((500, 16)) * 0.7
+            self.original_data.mem = data.astype(numpy.float32)
+            self.original_labels = [int(x) for x in labels]
+            self.class_lengths[:] = [0, 100, 400]
+
+    prng.seed_all(seed)
+    wf = StandardWorkflow(
+        None, loader_factory=lambda w: Blobs(w, minibatch_size=48),
+        layers=[{"type": "all2all_tanh", "->": {"output_sample_shape": 12},
+                 "<-": {"learning_rate": 0.05, "gradient_moment": 0.9}},
+                {"type": "softmax", "->": {"output_sample_shape": 10},
+                 "<-": {"learning_rate": 0.05}}],
+        decision_config={"max_epochs": 3, "fail_iterations": 10 ** 6})
+    wf.launcher = DummyLauncher()
+    wf.initialize(device=device)
+    dec, wf.closes = wf.decision, []
+    close = dec._close_class
+
+    def recording(cls, check_epoch_end):
+        wf.closes.append((int(dec.epoch_number), cls,
+                          float(dec.epoch_n_err[cls]),
+                          int(dec.epoch_samples[cls])))
+        return close(cls, check_epoch_end)
+    dec._close_class = recording
+    return wf
+
+
+@pytest.mark.parametrize("stitch", ["on", "off"])
 @pytest.mark.parametrize("every", [1, 50])
-def test_metrics_every_above_0_is_refused_naming_item_1c(knobs, every):
-    from veles_tpu_torch.samples import mnist
-    knobs.metrics_every = every
-    for stitch in ("on", "off"):
-        knobs.stitch = stitch
-        with pytest.raises(NotImplementedError, match="item 1c"):
-            mnist.create_workflow(device="cpu", max_epochs=1)
+def test_metrics_every_gives_the_jax_packages_closes(knobs, every, stitch):
+    """``metrics_every`` is ported: the Decision fetches its running sum
+    every ``every`` steps (one device→host copy each, and one at each
+    class close) and closes each class with the JAX package's error
+    counts, stitched or eager."""
+    import jax
+    from veles_tpu.config import root as jax_root
+    from veles_tpu.memory import Vector as JaxVector
+    from veles_tpu_torch.memory import Watcher
+    jeng = jax_root.common.engine
+    saved = {k: jeng.get(k, d) for k, d in (
+        ("metrics_every", 0), ("stitch", "on"), ("kernels", "auto"))}
+    try:
+        jeng.metrics_every, jeng.stitch, jeng.kernels = every, stitch, "xla"
+        jwf = _blob_workflow("jax")
+        for unit in jwf.units:
+            # the JAX eager chain is deterministic only when each unit's
+            # results are waited for (tests/test_torch_mnist.py)
+            def run(unit=unit, inner=unit.run):
+                inner()
+                for value in list(unit.__dict__.values()):
+                    if isinstance(value, JaxVector):
+                        value = value._devmem_
+                    if isinstance(value, jax.Array):
+                        value.block_until_ready()
+            unit.run = run
+        jwf.run()
+    finally:
+        for key, value in saved.items():
+            setattr(jeng, key, value)
+    knobs.metrics_every, knobs.stitch = every, stitch
+    twf = _blob_workflow("port")
+    before = Watcher.transfers()["d2h_transfers"]
+    twf.run()
+    fetches = Watcher.transfers()["d2h_transfers"] - before
+    assert twf.closes == jwf.closes
+    assert [c[:2] for c in twf.closes] == [(0, 1), (0, 2), (1, 1), (1, 2),
+                                           (2, 1)]
+    # 3 validation passes of 3 steps, 2 train passes of 9
+    steps = 3 * 3 + 2 * 9
+    assert fetches == (steps if every == 1 else len(twf.closes))
 
 
 @pytest.mark.parametrize("kernels", ["auto", "pallas"])

@@ -385,10 +385,6 @@ def test_options_raise(engines):
     with pytest.raises(ValueError, match="stitched device fast path"):
         mnist.create_workflow(device="cpu", native=True)
     root.common.engine.loader = "auto"
-    root.common.engine.epoch_scan = "auto"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1c"):
-        mnist.create_workflow(device="cpu", native=True)
-    root.common.engine.epoch_scan = "off"
 
 
 def test_native_cli_runs_the_stitched_route(engines, capsys):

@@ -4,7 +4,7 @@ The port's own copy of :mod:`veles_tpu.config` (the port imports nothing
 of ``veles_tpu``): the same dotted namespace, trimmed to the defaults
 the paths the port runs: ``root.common.engine`` (``trace``,
 ``precision_level``, ``pallas_reduce``, and the workflow's ``stitch``,
-``loader`` and ``epoch_scan``) and the
+``loader``, ``epoch_scan`` and ``metrics_every``) and the
 ``root.common.gen`` subtree (``kv``, ``prefill_chunk``,
 ``prefix_cache``, ``speculative``), which auto-vivifies.
 """
@@ -100,14 +100,17 @@ root.common.update({
         # the loader head the first stitched segment (the gather runs
         # inside it), "host" keeps the loader a per-unit barrier.
         "loader": "auto",
-        # K-step epoch windows: only "off" is ported (ROADMAP item 1c).
+        # K-step epoch windows (veles_tpu_torch.epoch_scan): "off" (one
+        # dispatch a segment a step), "auto" (K = metrics_every when
+        # set, else 1024) or an integer K; a window is one CUDA graph
+        # on the card and never crosses a class close.
         "epoch_scan": "off",
         # Kernel backend: "auto" and "pallas" take the hand-written
         # kernels; "xla" (the dense escape hatch of the transformer's
         # attention and the GD units) raises (ROADMAP item 7).
         "kernels": "auto",
-        # Mid-epoch metric flush every K minibatches: only 0 (one fetch
-        # a class end) is ported (ROADMAP item 1c).
+        # The Decision's metric fetch every K steps (0: one fetch a
+        # class end); it also bounds an epoch-scan window.
         "metrics_every": 0,
         # Trace ring capacity in events; wraparound keeps the newest
         # (read by veles_tpu_torch.trace.configure).

@@ -14,11 +14,26 @@ Serving is host control flow: the minibatch *fill* of a resident
 dataset runs on the device in
 :class:`veles_tpu_torch.loader.fullbatch.FullBatchLoader`.  A loader
 that heads a stitched segment serves through :meth:`stitch_prelude`
-(the bookkeeping without the fill; the segment gathers the batch).  Not
-ported: the prefetch staging ring (ROADMAP item 1c), the master/slave
-job methods, the retry queue, ``validation_ratio`` and checkpointing
-(item 7).
+(the bookkeeping without the fill; the segment gathers the batch), and
+an epoch-scan window (:mod:`veles_tpu_torch.epoch_scan`) serves its K
+steps through :meth:`scan_window_step`, the same bookkeeping once a
+step.
+
+A loader whose minibatch is filled on the host (``fill_minibatch``
+writes ``minibatch_data.mem`` and ``raw_minibatch_labels``; the serve
+then normalizes, maps the labels and pads a short batch) may set
+``prefetch=True`` when it provides the pure ``fill_minibatch_into``
+(``supports_prefetch``): after each serve a background worker
+(:mod:`veles_tpu_torch.thread_pool`) fills and prepares the predicted
+next minibatch in a :class:`veles_tpu_torch.memory.StagingRing` slot
+and uploads it on a side stream, and the next serve publishes it when
+its ``(offset, size)`` matches.  Not ported: the slave half of the
+prefetch (``prefetch_job_data``) and the rest of the master/slave job
+methods, the retry queue, ``validation_ratio`` and checkpointing
+(ROADMAP item 7).
 """
+
+import threading
 
 import numpy
 
@@ -38,8 +53,7 @@ LABEL_DTYPE = numpy.int32
 
 #: loader options of the JAX package this slice does not port, with the
 #: ROADMAP item that will
-_NOT_PORTED = {"prefetch": "1c", "validation_ratio": "7", "testing": "7",
-               "train_ratio": "7"}
+_NOT_PORTED = {"validation_ratio": "7", "testing": "7", "train_ratio": "7"}
 
 
 class LoaderError(Exception):
@@ -69,6 +83,7 @@ class Loader(Unit):
         self.minibatch_data = Vector(category="staging")
         self.minibatch_labels = Vector(category="staging")
         self.minibatch_indices = Vector(category="staging")
+        self.raw_minibatch_labels = []
         self.labels_mapping = {}
         #: the shuffled index space: the eager fill uploads each
         #: minibatch's slice (``minibatch_indices``); a stitched loader
@@ -84,10 +99,23 @@ class Loader(Unit):
         self._normalization_parameters = kwargs.get(
             "normalization_parameters", {})
         self._prng_name = kwargs.get("prng_name", "loader")
+        #: fill the next minibatch in the background (needs a subclass
+        #: providing ``fill_minibatch_into``)
+        self.prefetch = kwargs.get("prefetch", False)
         #: the attached device (set at initialize)
         self.device = None
         super(Loader, self).__init__(workflow, **kwargs)
         self._normalizer = None
+
+    def init_unpickled(self):
+        super(Loader, self).init_unpickled()
+        #: pending background fills: {(offset, size): Future}
+        self._prefetch_futures_ = {}
+        #: serializes fill_minibatch against a background
+        #: fill_minibatch_into (subclasses may share file handles)
+        self._fill_lock_ = threading.Lock()
+        #: the prefetch ring's (data, labels) staging, made at first use
+        self._staging_ring_ = None
 
     # -- configuration ------------------------------------------------------
     @property
@@ -103,7 +131,10 @@ class Loader(Unit):
 
     @property
     def has_labels(self):
-        return bool(self.labels_mapping)
+        """Subclasses set ``_has_labels = True`` in ``load_data()`` when
+        the dataset is labeled."""
+        return getattr(self, "_has_labels", False) \
+            or bool(self.labels_mapping)
 
     @property
     def total_samples(self):
@@ -128,9 +159,20 @@ class Loader(Unit):
         raise NotImplementedError
 
     def fill_minibatch(self):
-        """Fill ``minibatch_data`` and ``minibatch_labels`` for the
-        ``minibatch_indices`` just served (``-1``: an empty slot of a
-        short batch) — normalized, labels mapped, tail padded."""
+        """Fill ``minibatch_data`` (and the raw labels) for the
+        ``minibatch_indices`` just served; the serve then normalizes,
+        maps the labels and pads a short batch (a loader with a
+        device-resident dataset overrides those three as no-ops)."""
+        raise NotImplementedError
+
+    #: True when the subclass provides a pure, thread-safe
+    #: ``fill_minibatch_into``: enables :attr:`prefetch`
+    supports_prefetch = False
+
+    def fill_minibatch_into(self, indices, data_out, raw_labels_out):
+        """Pure fill: write the samples of ``indices`` into the given
+        numpy buffers without touching ``self.minibatch_*``; called from
+        a background thread while the previous minibatch is consumed."""
         raise NotImplementedError
 
     # -- lifecycle ----------------------------------------------------------
@@ -141,6 +183,10 @@ class Loader(Unit):
             device = getattr(self.workflow, "device", None)
         if device is not None:
             self.device = device
+        # a re-initialize reshuffles: a fill buffered for the old order
+        # must not be served under a matching (offset, size)
+        self._prefetch_futures_.clear()
+        self._staging_ring_ = None
         self.load_data()
         if self.total_samples == 0:
             raise LoaderError("there is no data to serve")
@@ -149,6 +195,7 @@ class Loader(Unit):
                   *self.class_lengths)
         self.minibatch_labels.reset(numpy.zeros(
             self.max_minibatch_size, dtype=LABEL_DTYPE))
+        self.raw_minibatch_labels = [None] * self.max_minibatch_size
         self.minibatch_indices.reset(numpy.zeros(
             self.max_minibatch_size, dtype=INDEX_DTYPE))
         self.create_minibatch_data()
@@ -159,9 +206,10 @@ class Loader(Unit):
         self.shuffle()
 
     def run(self):
-        """Serve one minibatch."""
+        """Serve one minibatch, then start the next one's prefetch."""
         self.serve_next_minibatch()
         self.samples_served += self.minibatch_size
+        self._start_prefetch()
 
     def stitch_prelude(self):
         """The host half of a loader-headed segment's dispatch: advance
@@ -170,6 +218,14 @@ class Loader(Unit):
         gathers the batch on the device."""
         self.serve_next_minibatch(fill=False)
         self.samples_served += self.minibatch_size
+
+    def scan_window_step(self):
+        """One serving step of an epoch-scan window
+        (:mod:`veles_tpu_torch.epoch_scan`): the bookkeeping of
+        :meth:`stitch_prelude`, called once a step while the window is
+        served; the served ``(offset, size)`` becomes that step's row
+        of the window's stacked scalars."""
+        self.stitch_prelude()
 
     # -- serving ------------------------------------------------------------
     def shuffle(self):
@@ -202,8 +258,46 @@ class Loader(Unit):
             self._update_flags()
             self.fill_indices(minibatch_offset - minibatch_size,
                               minibatch_size)
-            if fill:
-                self.fill_minibatch()
+            if not fill:
+                return
+            if self._consume_prefetched((minibatch_offset,
+                                         minibatch_size)):
+                return      # prepared: normalized, mapped and padded
+            with trace.span("loader", "sync_fill"):
+                with self._fill_lock_:
+                    self.fill_minibatch()
+                self.normalize_minibatch()
+                self.map_minibatch_labels()
+                if minibatch_size < self.max_minibatch_size:
+                    self.pad_minibatch(minibatch_size)
+
+    def pad_minibatch(self, minibatch_size):
+        """Zero the data and -1 the labels past a short batch's end."""
+        self.minibatch_data.map_write()
+        self.minibatch_data.mem[minibatch_size:] = 0
+        if self.has_labels:
+            self.minibatch_labels.map_write()
+            self.minibatch_labels.mem[minibatch_size:] = -1
+
+    def normalize_minibatch(self):
+        self.minibatch_data.map_write()
+        self.normalizer.normalize(
+            self.minibatch_data.mem[:self.minibatch_size])
+
+    def map_minibatch_labels(self):
+        if not self.has_labels:
+            return
+        self.minibatch_labels.map_write()
+        self._map_labels_into(self.minibatch_labels.mem,
+                              self.raw_minibatch_labels,
+                              self.minibatch_size)
+
+    def _map_labels_into(self, labels_out, raw_labels, count):
+        """Raw → mapped labels of the first ``count`` slots: the one
+        mapping of the synchronous serve and the prefetch ring."""
+        for i, raw in enumerate(raw_labels[:count]):
+            labels_out[i] = self.labels_mapping.get(raw, -1) \
+                if self.labels_mapping else raw
 
     def fill_indices(self, start_offset, count):
         """Copy the served span of shuffled indices into
@@ -243,11 +337,159 @@ class Loader(Unit):
             (self.minibatch_class == TRAIN and
              self.class_lengths[VALID] == 0))
 
+    # -- prefetch (the next minibatch filled in the background) -------------
+    def _peek_next_minibatch(self):
+        """The ``(offset, size)`` the next serve will pick, or None when
+        an epoch wrap (a reshuffle) comes first.  The port's loader has
+        no retry queue and no master/slave mode, the JAX package's other
+        two cases."""
+        if self.global_offset >= self.total_samples:
+            return None
+        _cls, remainder = self.class_index_by_sample_index(
+            self.global_offset)
+        size = min(remainder, self.max_minibatch_size)
+        return self.global_offset + size, size
+
+    def _staging(self):
+        """The ``(data, labels)`` staging rings, made once: depth 3, for
+        at most two fills in flight and the slot the consumer may still
+        publish from."""
+        if self._staging_ring_ is None:
+            from veles_tpu_torch.memory import StagingRing
+            target = getattr(self.device, "torch_device", None)
+            pin = target is not None and target.type == "cuda"
+            self._staging_ring_ = (
+                StagingRing(self.minibatch_data.shape,
+                            self.minibatch_data.dtype, depth=3, pin=pin),
+                StagingRing((self.max_minibatch_size,), LABEL_DTYPE,
+                            depth=3, pin=pin))
+        return self._staging_ring_
+
+    def _prepare_staged(self, data_out, labels_out, raw_labels, size):
+        """The worker's share of a serve: the normalize, label map and
+        pad of the synchronous path."""
+        self.normalizer.normalize(data_out[:size])
+        if size < self.max_minibatch_size:
+            data_out[size:] = 0
+        labels_out[:] = -1
+        if self.has_labels:
+            self._map_labels_into(labels_out, raw_labels, size)
+
+    def _submit_fill(self, key, indices, size):
+        """Queue a background fill of ``indices`` into a ring slot under
+        ``key``, the ``(offset, size)`` the matching serve presents: the
+        whole preparation, then the uploads."""
+        data_ring, labels_ring = self._staging()
+        data_out = data_ring.acquire()
+        labels_out = labels_ring.acquire()
+        raw_labels = [None] * self.max_minibatch_size
+        device = self.device
+
+        def work():
+            # under the fill lock: it serializes shared file handles and
+            # a dropped worker's slot against a newer fill of it
+            with trace.span("loader", "prefetch_fill"):
+                with self._fill_lock_:
+                    self.fill_minibatch_into(indices, data_out[:size],
+                                             raw_labels)
+                    self._prepare_staged(data_out, labels_out,
+                                         raw_labels, size)
+                    dev_data = data_ring.upload(device, data_out)
+                    dev_labels = labels_ring.upload(device, labels_out) \
+                        if self.has_labels else None
+            return data_out, labels_out, raw_labels, dev_data, dev_labels
+
+        from veles_tpu_torch import thread_pool
+        self._prefetch_futures_[key] = thread_pool.submit(work)
+
+    def _start_prefetch(self):
+        """Start a background fill of the predicted next minibatch."""
+        if not (self.prefetch and self.supports_prefetch):
+            return
+        nxt = self._peek_next_minibatch()
+        if nxt is None:
+            # an epoch wrap reshuffles: whatever is buffered may be
+            # wrong for a later serve at the same offset
+            self._prefetch_futures_.clear()
+            return
+        offset, size = nxt
+        indices = numpy.array(
+            self.shuffled_indices.mem[offset - size:offset])
+        self._submit_fill(nxt, indices, size)
+
+    def prefetch_job_data(self, data):
+        """The slave half of the prefetch (the next job's indices filled
+        while the current job computes) waits for the job protocol."""
+        raise NotImplementedError(
+            "Loader.prefetch_job_data (the slave half of the prefetch "
+            "ring) is not ported yet (ROADMAP item 7)")
+
+    def _consume_prefetched(self, minibatch_def):
+        """Publish the prepared minibatch when a background fill
+        matches ``minibatch_def``; False sends the caller to the
+        synchronous fill.  A worker's exception surfaces here, is
+        logged, and the serve fills synchronously."""
+        key = (int(minibatch_def[0]), int(minibatch_def[1]))
+        fut = self._prefetch_futures_.pop(key, None)
+        if fut is None:
+            self._prefetch_futures_.clear()
+            return False
+        try:
+            data, labels, raw_labels, dev_data, dev_labels = fut.result()
+        except Exception:
+            self.exception("prefetch failed - refilling synchronously")
+            return False
+        with trace.span("loader", "publish"):
+            self.minibatch_data.publish(
+                data, dev_data.take() if dev_data is not None else None)
+            self.raw_minibatch_labels[:] = raw_labels
+            if self.has_labels:
+                self.minibatch_labels.publish(
+                    labels, dev_labels.take()
+                    if dev_labels is not None else None)
+        return True
+
     # -- normalization analysis --------------------------------------------
     def analyze_dataset(self):
-        """Stream the TRAIN set through the normalizer once (subclasses
-        with a resident dataset analyze it directly)."""
-        raise NotImplementedError
+        """Stream the TRAIN set through the normalizer once, collecting
+        the label mapping from the raw labels (a resident dataset
+        analyzes itself directly)."""
+        if self.class_lengths[TRAIN] == 0:
+            return
+        labels_seen = {}
+
+        def callback():
+            if self.has_labels and not self.labels_mapping:
+                for raw in self.raw_minibatch_labels[:self.minibatch_size]:
+                    if raw is not None and raw not in labels_seen:
+                        labels_seen[raw] = len(labels_seen)
+            self.normalizer.analyze(
+                self.minibatch_data.mem[:self.minibatch_size])
+
+        self._iterate_class(TRAIN, callback)
+        if self.has_labels and not self.labels_mapping and labels_seen:
+            try:
+                ordered = sorted(labels_seen)
+            except TypeError:
+                ordered = list(labels_seen)
+            self.labels_mapping = {raw: i for i, raw in enumerate(ordered)}
+
+    def _iterate_class(self, class_index, fn):
+        if not self.shuffled_indices:
+            self.shuffled_indices.mem = numpy.arange(
+                self.total_samples, dtype=INDEX_DTYPE)
+        length = self.class_lengths[class_index]
+        start = self.class_end_offsets[class_index - 1] \
+            if class_index > 0 else 0
+        for offset in range(0, length, self.max_minibatch_size):
+            self.minibatch_size = min(self.max_minibatch_size,
+                                      length - offset)
+            self.minibatch_indices.map_write()
+            self.minibatch_indices.mem[:self.minibatch_size] = \
+                self.shuffled_indices.mem[
+                    start + offset:start + offset + self.minibatch_size]
+            self.fill_minibatch()
+            fn()
 
     # -- results ------------------------------------------------------------
     def get_metric_values(self):

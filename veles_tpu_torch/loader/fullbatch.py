@@ -32,7 +32,14 @@ then normalizes the data row (as
 forward sees normalized float32.  It needs the head: the eager fill
 cannot normalize.  Without it the dataset is normalized once on the
 host at initialize.
-``FullBatchLoaderMSE`` waits for ROADMAP item 1c.
+
+An epoch-scan window (:mod:`veles_tpu_torch.epoch_scan`) replays the
+head's served launch once a step, each time with its own row of the
+window's stacked scalar block.  :class:`FullBatchLoaderMSE` adds the
+regression targets, a raw float32 table padded with 0 that rides in the
+same launch on both routes.  The slave half of the job protocol
+(``prefetch_job_data``, ``apply_data_from_master``) waits for ROADMAP
+item 7.
 """
 
 import numpy
@@ -148,13 +155,32 @@ class FullBatchLoader(Loader):
                 "a native_device_dtype dataset is normalized by the "
                 "stitched loader head; the eager fill cannot serve it "
                 "(engine.stitch=on, engine.loader!=host)")
-        tables = [(self.original_data.devmem, 0)]
-        if self.has_labels:
-            tables.append((self.resident_labels.devmem, -1))
-        rows = take_rows_group(tables, self.minibatch_indices.devmem)
-        self.minibatch_data.devmem = rows[0]
-        if self.has_labels:
-            self.minibatch_labels.devmem = rows[1]
+        plan = self._device_stage_plan()
+        rows = take_rows_group([(src.devmem, pad)
+                                for _name, src, _out, pad in plan],
+                               self.minibatch_indices.devmem)
+        for (_name, _src, out, _pad), row in zip(plan, rows):
+            out.devmem = row
+
+    def pad_minibatch(self, minibatch_size):
+        """No-op: the gather pads the tail rows itself."""
+
+    def normalize_minibatch(self):
+        """No-op: the resident dataset was normalized at initialize (or
+        the head normalizes a native one)."""
+
+    def map_minibatch_labels(self):
+        """No-op: the labels were mapped once into ``resident_labels``."""
+
+    def prefetch_job_data(self, data):
+        raise NotImplementedError(
+            "FullBatchLoader.prefetch_job_data (the slave's staged index "
+            "span) is not ported yet (ROADMAP item 7)")
+
+    def apply_data_from_master(self, data):
+        raise NotImplementedError(
+            "FullBatchLoader.apply_data_from_master (the job protocol) "
+            "is not ported yet (ROADMAP item 7)")
 
     # -- the loader-headed stitched segment (the device fast path) -----------
     def _device_stage_plan(self):
@@ -199,3 +225,35 @@ class FullBatchLoader(Loader):
                               - loader.minibatch_size),
                 "size": int(loader.minibatch_size)},
             prelude=self.stitch_prelude)
+
+
+class FullBatchLoaderMSE(FullBatchLoader):
+    """Adds per-sample regression targets (``original_targets``, served
+    as ``minibatch_targets``): the port's counterpart of
+    ``veles_tpu.loader.fullbatch.FullBatchLoaderMSE``.  The targets
+    table joins the data (and labels) in the gather launch on both
+    routes, raw float32 padded with 0."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        self.original_targets = Vector(category="dataset")
+        self.minibatch_targets = Vector(category="staging")
+        super(FullBatchLoaderMSE, self).__init__(workflow, **kwargs)
+
+    def _device_stage_plan(self):
+        plan = super(FullBatchLoaderMSE, self)._device_stage_plan()
+        plan.append(("minibatch_targets", self.original_targets,
+                     self.minibatch_targets, 0))
+        return plan
+
+    def initialize(self, device=None, **kwargs):
+        super(FullBatchLoaderMSE, self).initialize(device=device, **kwargs)
+        if len(self.original_targets) != self.total_samples:
+            raise LoaderError("original_targets length mismatch")
+        self.minibatch_targets.reset(numpy.zeros(
+            (self.max_minibatch_size,) + self.original_targets.shape[1:],
+            dtype=self.original_targets.dtype))
+        for vec in (self.original_targets, self.minibatch_targets):
+            vec.initialize(self.device)
+        self.original_targets.devmem     # upload once

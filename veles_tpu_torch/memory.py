@@ -263,6 +263,26 @@ class Vector(object):
         self._dev_fresh = True
         self._host_fresh = False
 
+    def publish(self, host_array=None, device_array=None):
+        """Install matching host and device copies in one step (the
+        consume half of the prefetch ring: a background worker prepared
+        both).  ``host_array`` alone is an in-place host edit, as after
+        :meth:`map_write`; with ``device_array`` both sides are fresh.
+        A ``keep_address`` Vector copies ``device_array`` into its bound
+        tensor, as the ``devmem`` setter does."""
+        if host_array is not None:
+            if self._mem is None or self._mem.shape != host_array.shape \
+                    or not self._mem.flags.writeable:
+                self._mem = numpy.array(host_array)
+            else:
+                self._mem[...] = host_array
+            self._host_fresh = True
+            self._dev_fresh = False
+        if device_array is not None:
+            self.devmem = device_array
+            self._host_fresh = host_array is not None
+        return self
+
     def map_read(self):
         """Bring the host copy up to date (a device→host copy when the
         device holds newer data)."""
@@ -304,3 +324,98 @@ class Vector(object):
             self._drop_devmem()
         except Exception:  # pragma: no cover - interpreter shutdown
             pass
+
+
+class Staged(object):
+    """A staged upload: the device tensor and the event its copy
+    recorded on the ring's side stream (None on the CPU)."""
+
+    __slots__ = ("tensor", "event")
+
+    def __init__(self, tensor, event=None):
+        self.tensor = tensor
+        self.event = event
+
+    def take(self):
+        """The tensor, with the calling thread's current stream made to
+        wait for the copy first (and the allocator told that stream
+        uses it)."""
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.tensor.device)
+            stream.wait_event(self.event)
+            self.tensor.record_stream(stream)
+        return self.tensor
+
+
+class StagingRing(object):
+    """The loader prefetch ring's host staging, the port's counterpart
+    of ``veles_tpu.memory.StagingRing``: ``depth`` buffers allocated
+    once (pinned when ``pin``), handed out round robin by
+    :meth:`acquire`, uploaded by :meth:`upload`.
+
+    A slot is never rewritten while its copy is queued: the upload
+    records an event on the ring's side stream, and :meth:`acquire`
+    waits on the slot's last event before it hands the slot out again
+    (the idiom of ``stitch.ScalarBlock``).  The caller still picks
+    ``depth`` above its fills in flight plus the slots being read (the
+    loader takes 3)."""
+
+    def __init__(self, shape, dtype, depth=2, pin=False):
+        self.depth = int(depth)
+        dtype = torch.from_numpy(numpy.empty(0, dtype)).dtype
+        self._slots = [torch.zeros(shape, dtype=dtype, pin_memory=pin)
+                       for _ in range(self.depth)]
+        self._arrays = [slot.numpy() for slot in self._slots]
+        self._events = [None] * self.depth
+        self._pos = 0
+        self._lock = threading.Lock()
+        self._streams = {}
+
+    def acquire(self):
+        """The next buffer (a numpy view of the slot), once the copy
+        last queued from it has finished."""
+        from veles_tpu_torch import trace
+        with trace.span("loader", "ring_acquire"):
+            with self._lock:
+                pos = self._pos
+                self._pos = (pos + 1) % self.depth
+                event, self._events[pos] = self._events[pos], None
+            if event is not None:
+                event.synchronize()
+        return self._arrays[pos]
+
+    def _slot_of(self, array):
+        for pos, held in enumerate(self._arrays):
+            if held is array:
+                return pos
+        raise ValueError("the array is not a slot of this ring")
+
+    def upload(self, device, array):
+        """Queue a copy of the slot ``array`` to ``device`` (a workflow
+        device; None gives None) and return it :class:`Staged`.  On a
+        card the copy runs on the ring's side stream with
+        ``non_blocking=True``; the consumer calls ``take()``."""
+        from veles_tpu_torch import trace
+        target = getattr(device, "torch_device", None)
+        if target is None:
+            return None
+        pos = self._slot_of(array)
+        with trace.span("loader", "staging_upload"):
+            if target.type != "cuda":
+                staged = Staged(device.put(array))
+            else:
+                stream = self._streams.get(target)
+                if stream is None:
+                    stream = self._streams[target] = \
+                        torch.cuda.Stream(target)
+                with torch.cuda.stream(stream):
+                    out = torch.empty(self._slots[pos].shape,
+                                      dtype=self._slots[pos].dtype,
+                                      device=target)
+                    out.copy_(self._slots[pos], non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                self._events[pos] = event
+                staged = Staged(out, event)
+        Watcher.track_h2d(array.nbytes)
+        return staged

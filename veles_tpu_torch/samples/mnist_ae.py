@@ -1,0 +1,126 @@
+"""The MNIST MLP autoencoder (784→100 sigmoid→784 sigmoid, MSE): the
+port's counterpart of :mod:`veles_tpu.samples.mnist_ae`.
+
+``create_workflow()`` builds the ``StandardWorkflow`` over the
+resident MNIST images as both data and targets (the synthetic stand-in
+when the IDX files are absent), ``loss_function="mse"``, and
+initializes it on the card; ``device="cpu"`` runs the same units over
+CPU tensors.  Stitched (the default), each minibatch is the loader
+head's one served launch (data and targets, two f32 tables 784 wide)
+and the two sigmoid GEMMs and the MSE evaluator in one segment, and on
+train minibatches the two GD steps in the other; with
+``engine.epoch_scan=auto`` a class pass is one window.  Not ported:
+``conv=True`` (the conv autoencoder: conv and pooling units) and
+``rbm_pretrain=True`` (``rbm.py``), both ROADMAP item 7.  Run it with
+
+    python -m veles_tpu_torch.samples.mnist_ae [--device cpu]
+        [--max-epochs N] [--epoch-scan off|auto|K]
+
+which prints ``gather_results()`` and the epochs per second.
+"""
+
+import argparse
+import json
+import logging
+import sys
+import time
+
+import numpy
+
+from veles_tpu_torch.backends import make_device
+from veles_tpu_torch.config import root
+from veles_tpu_torch.dummy import DummyLauncher
+from veles_tpu_torch.loader.fullbatch import FullBatchLoaderMSE
+from veles_tpu_torch.samples.datasets import load_mnist
+from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+
+
+def make_layers(hidden=100, learning_rate=0.01):
+    return [
+        {"type": "all2all_sigmoid",
+         "->": {"output_sample_shape": hidden},
+         "<-": {"learning_rate": learning_rate,
+                "gradient_moment": 0.9}},
+        {"type": "all2all_sigmoid",
+         "->": {"output_sample_shape": 784},
+         "<-": {"learning_rate": learning_rate,
+                "gradient_moment": 0.9}},
+    ]
+
+
+class MnistAELoader(FullBatchLoaderMSE):
+    """Targets = inputs (reconstruction); no labels."""
+
+    SAMPLE_SHAPE = (784,)
+
+    def load_data(self):
+        tr_x, _tr_y, te_x, te_y, real = load_mnist()
+        if not real:
+            self.warning("real MNIST not found - synthetic stand-in")
+        data = numpy.concatenate([te_x, tr_x]).reshape(
+            (-1,) + self.SAMPLE_SHAPE)
+        data = numpy.ascontiguousarray(data, dtype=numpy.float32)
+        self.original_data.mem = data
+        self.original_targets.mem = data.copy()
+        self.original_labels = []
+        self.class_lengths[:] = [0, len(te_y), len(tr_x)]
+
+
+def create_workflow(device=None, max_epochs=15, minibatch_size=100,
+                    hidden=100, rbm_pretrain=False, conv=False,
+                    **kwargs):
+    """The MLP autoencoder workflow, initialized on ``device`` (the
+    card when None; raises without one)."""
+    if conv:
+        raise NotImplementedError(
+            "mnist_ae conv=True (the conv autoencoder: conv and pooling "
+            "units) is not ported yet (ROADMAP item 7)")
+    if rbm_pretrain:
+        raise NotImplementedError(
+            "mnist_ae rbm_pretrain=True (rbm.py) is not ported yet "
+            "(ROADMAP item 7)")
+    device = make_device(device)
+    wf = StandardWorkflow(
+        None,
+        loader_factory=lambda w: MnistAELoader(
+            w, minibatch_size=minibatch_size),
+        layers=kwargs.pop("layers", None) or make_layers(hidden=hidden),
+        loss_function="mse",
+        decision_config={"max_epochs": max_epochs},
+        **kwargs)
+    wf.launcher = DummyLauncher()
+    wf.initialize(device=device)
+    return wf
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m veles_tpu_torch.samples.mnist_ae",
+        description="Train the MNIST MLP autoencoder through the "
+        "workflow.")
+    parser.add_argument("--device", default=None,
+                        help="cpu, or a cuda device (default: the card)")
+    parser.add_argument("--max-epochs", type=int, default=15)
+    parser.add_argument("--minibatch-size", type=int, default=100)
+    parser.add_argument("--epoch-scan", default=None,
+                        help="engine.epoch_scan: off, auto or a window "
+                        "length K (default: the config's, off)")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    if args.epoch_scan is not None:
+        root.common.engine.epoch_scan = args.epoch_scan
+    wf = create_workflow(device=args.device, max_epochs=args.max_epochs,
+                         minibatch_size=args.minibatch_size)
+    tic = time.perf_counter()
+    wf.run()
+    wf.device.sync()
+    elapsed = time.perf_counter() - tic
+    results = wf.gather_results()
+    results["epochs_per_s"] = (wf.loader.samples_served
+                               / wf.loader.total_samples / elapsed)
+    print(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,23 +28,29 @@ stream) and replays it once; every later dispatch writes the scalar
 blocks and replays.  The Vectors the segment produces are bound once
 to the graph's static outputs, and every Vector it reads is set to
 ``keep_address``, so uploads and publishes go into the captured
-buffers.  Before each replay the segment checks the address of every
-tensor it reads against the captured one; a moved tensor makes it
-recapture (counted in ``recaptures`` and logged), never read a stale
-address.  On the CPU a segment runs its stage functions in order,
-eagerly, over CPU tensors, with the same scalar blocks.
+buffers.  Before each replay the segment's :class:`CapturedGraph`
+checks the address of every tensor it reads against the captured one;
+a moved tensor makes it recapture (counted in ``recaptures`` and
+logged), never read a stale address.  On the CPU a segment runs its
+stage functions in order, eagerly, over CPU tensors, with the same
+scalar blocks.
 
 Launch counters count executed launches: a capture records how many
 launches of each kernel went into the graph and restores the counters,
 and each replay adds them.
 
+The stage-running loop (:func:`run_stages`) is shared with the K-step
+epoch-scan windows (:mod:`veles_tpu_torch.epoch_scan`): the head of the
+loader-headed segment asks its ``epoch_runner`` for a window before a
+per-step dispatch, and a window marks the segments' pass absorbed
+(:meth:`StitchSegment.absorb_pass`).
+
 Not ported: pod shardings, health instrumentation, the AOT
 ``EnforcedProgram`` and the ``prof`` ledger (the capture and recapture
 counters stand in for the last two), and the JAX package's fallbacks to
 per-unit dispatch when a ``stitch_stage()`` or a segment build raises:
-here the exception propagates.  ``engine.epoch_scan`` other than
-``off`` raises (ROADMAP item 1c), and so does ``engine.health`` ``on``
-or ``strict`` when a workflow stitches (ROADMAP item 6).
+here the exception propagates.  ``engine.health`` ``on`` or ``strict``
+raises when a workflow stitches (ROADMAP item 6).
 """
 
 import time
@@ -65,15 +71,6 @@ def enabled():
     if isinstance(value, str):
         return value.lower() not in ("off", "0", "false", "no")
     return bool(value)
-
-
-def check_epoch_scan():
-    """Raise unless ``engine.epoch_scan`` is ``off``."""
-    value = root.common.engine.get("epoch_scan", "off")
-    if str(value).lower() != "off":
-        raise NotImplementedError(
-            "engine.epoch_scan=%r (K-step epoch windows) is not ported "
-            "yet (ROADMAP item 1c)" % (value,))
 
 
 def check_health():
@@ -139,21 +136,168 @@ def _launch_counters():
             gemm.split_launches)
 
 
+def scalar_slots(stages):
+    """Each stage's ``[(kind, index, name)]`` in the scalar blocks, and
+    ``{kind: count}``: ints stay int32 (exact offsets), the rest
+    float32."""
+    slots, kinds = [], {}
+    for stage in stages:
+        slots.append([])
+        if stage.scalars is None:
+            continue
+        for name, value in sorted(stage.scalars().items()):
+            kind = "int" if isinstance(value, (int, numpy.integer)) \
+                and not isinstance(value, bool) else "float"
+            index = kinds.get(kind, 0)
+            kinds[kind] = index + 1
+            slots[-1].append((kind, index, name))
+    return slots, kinds
+
+
+def scalar_values(stages, slots, kinds):
+    """``{kind: [value, ...]}``: the stages' scalars read now, in block
+    order."""
+    values = {kind: [None] * count for kind, count in kinds.items()}
+    for stage, stage_slots in zip(stages, slots):
+        if stage_slots:
+            current = stage.scalars()
+            for kind, index, name in stage_slots:
+                values[kind][index] = current[name]
+    return values
+
+
+def run_stages(stages, slots, tensors, scalar):
+    """Run ``stages`` in order, once.  ``tensors`` maps ``id(Vector)``
+    to the tensor a stage reads for it: every Vector no earlier stage
+    produced must be there, and each stage's produced and donated
+    results are written back into it, so a later stage (or the next
+    step of a window) reads them.  ``scalar(kind, index)`` gives the
+    0-d tensor of a scalar slot.  Returns the stages' metrics, in
+    order."""
+    metrics = []
+    for stage, stage_slots in zip(stages, slots):
+        t = {name: tensors[id(vec)]
+             for group in (stage.consumes, stage.params, stage.donated)
+             for name, vec in group.items()}
+        for kind, index, name in stage_slots:
+            t[name] = scalar(kind, index)
+        out = stage.fn(t)
+        for group in (stage.produces, stage.donated):
+            for name, vec in group.items():
+                tensors[id(vec)] = out[name]
+        metrics.extend(out[name] for name in stage.metrics)
+    return metrics
+
+
+class CapturedGraph(Logger):
+    """One CUDA graph and its discipline, shared by a segment and an
+    epoch-scan window: captured at its first replay, replayed after,
+    and captured again (counted in ``recaptures`` and logged) when a
+    tensor it reads or writes has moved, never read at a stale
+    address.  A capture records how many launches of each kernel went
+    into the graph and restores the launch counters; each replay adds
+    them."""
+
+    def __init__(self, name, device):
+        super(CapturedGraph, self).__init__()
+        self.name = name
+        self.device = device
+        self.captures = 0
+        self.recaptures = 0
+        self.replays = 0
+        #: host seconds spent capturing (torch.cuda.graph synchronizes
+        #: and collects garbage on entry)
+        self.capture_seconds = 0.0
+        #: the bytes of the graph's private memory pool after the last
+        #: capture: its segments, and what stays allocated in them
+        self.pool_reserved_bytes = 0
+        self.pool_allocated_bytes = 0
+        self._graph = None
+        self._launched = []
+        self._ptrs = None
+        self._static = None
+
+    @property
+    def launches(self):
+        """``{kernel: launches}`` of one replay."""
+        return {name: count for _c, name, count in self._launched}
+
+    def replay(self, body, tensors, labels, on_capture=None):
+        """Replay the graph of ``body()``, whose inputs and outputs are
+        ``tensors`` (``labels`` name them in the log), capturing it
+        first when there is none or one of them moved;
+        ``on_capture(results)`` sees a new capture's results before the
+        replay.  Returns ``body()``'s results as the graph holds
+        them."""
+        ptrs = [t.data_ptr() for t in tensors]
+        if self._graph is not None and ptrs != self._ptrs:
+            moved = [label for label, a, b in zip(labels, ptrs, self._ptrs)
+                     if a != b]
+            self.warning("%s: %d tensor(s) it reads or writes moved (%s); "
+                         "recapturing", self.name, len(moved), moved)
+            self.recaptures += 1
+            self._graph = None
+        if self._graph is None:
+            self._capture(body, on_capture)
+            self._ptrs = ptrs
+        self._graph.replay()
+        self.replays += 1
+        for counters, name, count in self._launched:
+            counters[name] += count
+        return self._static
+
+    def _capture(self, body, on_capture):
+        tic = time.perf_counter()
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                static = body()
+        finally:
+            launched = [(c, name, c[name] - b[name])
+                        for c, b in zip(counters, before) for name in c
+                        if c[name] != b[name]]
+            for c, b in zip(counters, before):
+                c.update(b)
+        if on_capture is not None:
+            on_capture(static)
+        self._graph, self._launched, self._static = graph, launched, static
+        pool = tuple(graph.pool())
+        segments = [seg for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg.get("segment_pool_id", ())) == pool]
+        self.pool_reserved_bytes = sum(seg["total_size"]
+                                       for seg in segments)
+        self.pool_allocated_bytes = sum(seg["allocated_size"]
+                                        for seg in segments)
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - tic
+
+    def report(self):
+        return {"captures": self.captures, "recaptures": self.recaptures,
+                "replays": self.replays, "capture_s": self.capture_seconds,
+                "graph_launches": self.launches,
+                "pool_reserved_bytes": self.pool_reserved_bytes,
+                "pool_allocated_bytes": self.pool_allocated_bytes}
+
+
 class ScalarBlock(object):
-    """The scalars of one type of a segment's dispatch, in one device
-    buffer that the stage functions read through 0-d views.  On the
-    card each write goes through a small ring of pinned host buffers,
-    so the host never overwrites one whose copy is still queued."""
+    """The scalars of one type of a segment's dispatch (``shape`` a
+    count), or of every step of a window (``(steps, count)``), in one
+    device buffer that the stage functions read through 0-d views.  On
+    the card each write goes through a small ring of pinned host
+    buffers, so the host never overwrites one whose copy is still
+    queued."""
 
     RING = 4
 
-    def __init__(self, count, dtype, device):
+    def __init__(self, shape, dtype, device):
         self.dtype = dtype
-        self.tensor = torch.zeros(count, dtype=dtype, device=device)
+        self.tensor = torch.zeros(shape, dtype=dtype, device=device)
         self.nbytes = self.tensor.numel() * self.tensor.element_size()
         self._ring = []
         if self.tensor.device.type == "cuda":
-            self._ring = [(torch.empty(count, dtype=dtype, pin_memory=True),
+            self._ring = [(torch.empty(shape, dtype=dtype, pin_memory=True),
                            torch.cuda.Event()) for _ in range(self.RING)]
             self._used = [False] * self.RING
             self._next = 0
@@ -187,32 +331,21 @@ class StitchSegment(Logger):
         self.head = self.units[0]
         self.device = torch.device(device)
         self.dispatches = 0
-        #: graph captures, and the recaptures among them
-        self.captures = 0
-        self.recaptures = 0
-        self.replays = 0
-        #: host seconds spent capturing (torch.cuda.graph synchronizes
-        #: and collects garbage on entry)
-        self.capture_seconds = 0.0
         self._computed = set()
         self._member_ids = frozenset(id(u) for u in self.units[1:])
-        self._graph = None
-        self._graph_launches = []
-        self._captured_ptrs = None
-        #: the graph's (outputs, donated, metrics), bound at capture
-        self._static = None
+        #: the epoch-scan runner a loader-headed segment's head asks
+        #: for a window (set by veles_tpu_torch.epoch_scan)
+        self.epoch_runner = None
+        #: a window ran this segment's pass, head included
+        self._head_absorbed_ = False
         self._build_plan()
         self._trace_args = {"segment": "+".join(self.names)}
+        #: the segment's graph on the card
+        self.graph = CapturedGraph(repr(self), self.device)
 
     @property
     def names(self):
         return [u.name for u in self.units]
-
-    @property
-    def graph_launches(self):
-        """``{kernel: launches}`` of one replay of the captured graph."""
-        return {name: count for _counters, name, count
-                in self._graph_launches}
 
     def __repr__(self):
         return "<StitchSegment %s>" % "+".join(self.names)
@@ -222,31 +355,16 @@ class StitchSegment(Logger):
         produced = set()
         input_vecs, input_ids = [], set()
         ro_vecs, don_vecs = [], []
-        ro_slots, don_slots = [], []
-        scalar_slots, kinds = [], {}
         metric_spec = []
         for stage in self.stages:
             for vec in stage.consumes.values():
                 if id(vec) not in produced and id(vec) not in input_ids:
                     input_ids.add(id(vec))
                     input_vecs.append(vec)
-            ro_slots.append([])
-            for name, vec in sorted(stage.params.items()):
-                ro_slots[-1].append((len(ro_vecs), name))
+            for _name, vec in sorted(stage.params.items()):
                 ro_vecs.append(vec)
-            don_slots.append([])
-            for name, vec in sorted(stage.donated.items()):
-                don_slots[-1].append((len(don_vecs), name))
+            for _name, vec in sorted(stage.donated.items()):
                 don_vecs.append(vec)
-            scalar_slots.append([])
-            if stage.scalars is not None:
-                for name, value in sorted(stage.scalars().items()):
-                    # ints stay int32, exact offsets; the rest float32
-                    kind = "int" if isinstance(value, (int, numpy.integer)) \
-                        and not isinstance(value, bool) else "float"
-                    index = kinds.get(kind, 0)
-                    kinds[kind] = index + 1
-                    scalar_slots[-1].append((kind, index, name))
             for vec in stage.produces.values():
                 produced.add(id(vec))
             for name in stage.metrics:
@@ -272,26 +390,18 @@ class StitchSegment(Logger):
         for vec in self._read_vecs:
             vec.keep_address = True
         self._n_inputs, self._n_ro = len(input_vecs), len(ro_vecs)
-        self._input_vecs = input_vecs
-        self._ro_slots, self._don_slots = ro_slots, don_slots
         self._don_vecs = don_vecs
-        self._scalar_slots = scalar_slots
+        self._scalar_slots, self._kinds = scalar_slots(self.stages)
         self._output_vecs = output_vecs
         self._metric_spec = metric_spec
         self._blocks = {
             kind: ScalarBlock(count, torch.int32 if kind == "int"
                               else torch.float32, self.device)
-            for kind, count in kinds.items()}
+            for kind, count in self._kinds.items()}
 
     # -- the stages ----------------------------------------------------------
     def _write_scalars(self):
-        values = {kind: [None] * block.tensor.numel()
-                  for kind, block in self._blocks.items()}
-        for stage, slots in zip(self.stages, self._scalar_slots):
-            if slots:
-                current = stage.scalars()
-                for kind, index, name in slots:
-                    values[kind][index] = current[name]
+        values = scalar_values(self.stages, self._scalar_slots, self._kinds)
         for kind, block in self._blocks.items():
             block.write(values[kind])
 
@@ -299,26 +409,12 @@ class StitchSegment(Logger):
         """The stage functions in order over ``tensors`` (inputs, then
         read-only params, then donated buffers, as ``_read_vecs``):
         ``(outputs, donated, metrics)``."""
-        inputs = tensors[:self._n_inputs]
-        ro = tensors[self._n_inputs:self._n_inputs + self._n_ro]
-        don = list(tensors[self._n_inputs + self._n_ro:])
-        env = {id(vec): t for vec, t in zip(self._input_vecs, inputs)}
-        metrics = []
-        for si, stage in enumerate(self.stages):
-            t = {name: env[id(vec)] for name, vec in stage.consumes.items()}
-            for pos, name in self._ro_slots[si]:
-                t[name] = ro[pos]
-            for pos, name in self._don_slots[si]:
-                t[name] = don[pos]
-            for kind, index, name in self._scalar_slots[si]:
-                t[name] = self._blocks[kind].view(index)
-            out = stage.fn(t)
-            for name, vec in stage.produces.items():
-                env[id(vec)] = out[name]
-            for pos, name in self._don_slots[si]:
-                don[pos] = out[name]
-            metrics.extend(out[name] for name in stage.metrics)
-        return [env[id(vec)] for vec in self._output_vecs], don, metrics
+        env = {id(vec): t for vec, t in zip(self._read_vecs, tensors)}
+        blocks = self._blocks
+        metrics = run_stages(self.stages, self._scalar_slots, env,
+                             lambda kind, index: blocks[kind].view(index))
+        return ([env[id(vec)] for vec in self._output_vecs],
+                [env[id(vec)] for vec in self._don_vecs], metrics)
 
     def _publish(self, outputs, donated, metrics):
         for vec, value in zip(self._output_vecs, outputs):
@@ -329,53 +425,25 @@ class StitchSegment(Logger):
             setattr(unit, name, value)
 
     # -- the graph -----------------------------------------------------------
-    def _capture(self, tensors):
-        """Capture the stages into a new graph (nothing runs yet), bind
-        the produced Vectors to its outputs and record its launches."""
-        tic = time.perf_counter()
-        counters = _launch_counters()
-        before = [dict(c) for c in counters]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                outputs, donated, metrics = self._run_stages(tensors)
-        finally:
-            launched = [(c, name, c[name] - b[name])
-                        for c, b in zip(counters, before) for name in c]
-            for c, b in zip(counters, before):
-                c.update(b)
-        moved = [vec for vec, new, old in zip(
-            self._don_vecs, donated, tensors[self._n_inputs + self._n_ro:])
-            if new.data_ptr() != old.data_ptr()]
-        if moved:
-            raise RuntimeError("%s: a stage returned a new buffer for a "
-                               "donated Vector (%s); donated buffers are "
-                               "updated in place" % (self, moved))
-        self._graph = graph
-        self._graph_launches = [entry for entry in launched if entry[2]]
-        self._captured_ptrs = [t.data_ptr() for t in tensors]
-        for vec, value in zip(self._output_vecs, outputs):
-            vec.bind(value)
-        self._static = (outputs, donated, metrics)
-        self.captures += 1
-        self.capture_seconds += time.perf_counter() - tic
-
     def _replay(self, tensors):
-        ptrs = [t.data_ptr() for t in tensors]
-        if self._graph is None:
-            self._capture(tensors)
-        elif ptrs != self._captured_ptrs:
-            moved = [vec for vec, a, b in zip(self._read_vecs, ptrs,
-                                              self._captured_ptrs) if a != b]
-            self.warning("%s: %d tensor(s) it reads moved (%s); "
-                         "recapturing", self, len(moved), moved)
-            self.recaptures += 1
-            self._capture(tensors)
-        self._graph.replay()
-        self.replays += 1
-        for counters, name, count in self._graph_launches:
-            counters[name] += count
-        self._publish(*self._static)
+        def captured(static):
+            """A new capture: donated buffers stay put, and the produced
+            Vectors are bound to the graph's outputs."""
+            outputs, donated, _metrics = static
+            moved = [vec for vec, new, old in zip(
+                self._don_vecs, donated,
+                tensors[self._n_inputs + self._n_ro:])
+                if new.data_ptr() != old.data_ptr()]
+            if moved:
+                raise RuntimeError(
+                    "%s: a stage returned a new buffer for a donated "
+                    "Vector (%s); donated buffers are updated in place"
+                    % (self, moved))
+            for vec, value in zip(self._output_vecs, outputs):
+                vec.bind(value)
+        self._publish(*self.graph.replay(
+            lambda: self._run_stages(tensors), tensors, self._read_vecs,
+            on_capture=captured))
 
     # -- execution ----------------------------------------------------------
     def execute(self):
@@ -396,10 +464,18 @@ class StitchSegment(Logger):
             self._computed = set(self._member_ids)
 
     def member_run(self, unit):
-        """The per-unit hook: the head dispatches the segment, members
-        are no-ops for the pass the head computed.  A member firing
-        without a preceding head dispatch runs its own ``run()``."""
+        """The per-unit hook: the head dispatches the segment (or a
+        window, when its epoch runner takes one), members are no-ops
+        for the pass the head computed.  A member firing without a
+        preceding head dispatch runs its own ``run()``."""
         if unit is self.head:
+            if self._head_absorbed_:
+                # a window already ran this segment's steps
+                self._head_absorbed_ = False
+                return
+            runner = self.epoch_runner
+            if runner is not None and runner.try_window(self):
+                return
             self.execute()
             return
         if id(unit) in self._computed:
@@ -407,21 +483,31 @@ class StitchSegment(Logger):
             return
         unit.run()
 
+    def absorb_pass(self, include_head=False):
+        """Mark one pass of this segment as computed by a window:
+        members no-op, and with ``include_head`` the head's next firing
+        too (the GD segment, whose steps the window ran)."""
+        self._computed = set(self._member_ids)
+        if include_head:
+            self._head_absorbed_ = True
+
     def reset_pass(self):
         """Forget a half-consumed pass (``Workflow.run`` calls this
         before each drain)."""
         self._computed = set()
+        self._head_absorbed_ = False
 
     def detach(self):
         for unit in self.units:
             unit.attach_stitch_segment(None)
 
     def report(self):
+        graph = self.graph
         return {"names": self.names, "dispatches": self.dispatches,
-                "captures": self.captures, "recaptures": self.recaptures,
-                "replays": self.replays,
-                "capture_s": self.capture_seconds,
-                "graph_launches": self.graph_launches,
+                "captures": graph.captures, "recaptures": graph.recaptures,
+                "replays": graph.replays,
+                "capture_s": graph.capture_seconds,
+                "graph_launches": graph.launches,
                 "loader_headed": any(s.prelude is not None
                                      for s in self.stages)}
 

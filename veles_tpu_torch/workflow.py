@@ -9,10 +9,11 @@ gathering.
 
 Segment stitching (:mod:`veles_tpu_torch.stitch`): ``initialize()``
 ends with ``rebuild_stitching()``, and ``run()`` rebuilds when the
-``engine.stitch`` knob was flipped since the last build.  Not ported
-(ROADMAP item 7): the master/slave job protocol, checkpoint capture and
-restore, ``checksum`` and ``package_export``; epoch-scan windows wait
-for item 1c.
+``engine.stitch`` knob was flipped since the last build.  The
+epoch-scan runner (:mod:`veles_tpu_torch.epoch_scan`) is built beside
+the segments and dropped with them; ``epoch_scan_report()`` describes
+it.  Not ported (ROADMAP item 7): the master/slave job protocol,
+checkpoint capture and restore, ``checksum`` and ``package_export``.
 """
 
 import collections
@@ -42,6 +43,7 @@ class Workflow(Unit):
         super(Workflow, self).init_unpickled()
         self._queue_ = collections.deque()
         self._stitch_segments_ = []
+        self._epoch_runner_ = None
         self._stitch_active_ = False
         #: was the switch on when the segments were last (re)built?
         self._stitch_built_enabled_ = False
@@ -123,13 +125,16 @@ class Workflow(Unit):
     # -- segment stitching ----------------------------------------------------
     def rebuild_stitching(self):
         """(Re)walk the unit chain into segments
-        (:func:`veles_tpu_torch.stitch.build_segments`)."""
-        from veles_tpu_torch import stitch
-        stitch.check_epoch_scan()
+        (:func:`veles_tpu_torch.stitch.build_segments`) and build the
+        epoch-scan runner over them, so its window graphs never outlive
+        the segments they fold."""
+        from veles_tpu_torch import epoch_scan, stitch
         for segment in self._stitch_segments_:
             segment.detach()
         self._stitch_segments_ = stitch.build_segments(self)
         self._stitch_built_enabled_ = stitch.enabled()
+        self._epoch_runner_ = epoch_scan.build_runner(self) \
+            if self._stitch_segments_ else None
         return self._stitch_segments_
 
     @property
@@ -145,6 +150,18 @@ class Workflow(Unit):
         """Each segment's units, dispatches, graph captures,
         recaptures, replays and launches per replay."""
         return [segment.report() for segment in self._stitch_segments_]
+
+    @property
+    def epoch_runner(self):
+        """The :class:`veles_tpu_torch.epoch_scan.EpochScanRunner`, or
+        None when nothing is stitched."""
+        return self._epoch_runner_
+
+    def epoch_scan_report(self):
+        """The runner's ``describe()`` (eligibility and its reason,
+        windows, steps, each window graph's report), or None."""
+        runner = self._epoch_runner_
+        return runner.describe() if runner is not None else None
 
     # -- execution ----------------------------------------------------------
     def schedule(self, unit, src):
@@ -162,6 +179,9 @@ class Workflow(Unit):
         for segment in self._stitch_segments_:
             # an interrupted run may have left members unconsumed
             segment.reset_pass()
+        if self._epoch_runner_ is not None:
+            # and the Decision's absorb mark of a window it never saw
+            self._epoch_runner_.reset_pass()
         self.stopped = False
         self.schedule(self.start_point, None)
         self._drain()

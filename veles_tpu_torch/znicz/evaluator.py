@@ -1,6 +1,5 @@
-"""Evaluators: the port's counterpart of :mod:`veles_tpu.znicz.evaluator`,
-ported for the softmax loss (``EvaluatorMSE`` waits for ROADMAP item
-1c, with ``FullBatchLoaderMSE``).
+"""Evaluators: the port's counterpart of :mod:`veles_tpu.znicz.evaluator`
+(``EvaluatorSoftmax`` and ``EvaluatorMSE``).
 
 ``EvaluatorSoftmax`` emits ``err_output`` = δ = (y − onehot(label)) for
 the gradient chain and the minibatch's ``n_err`` (mis-argmax count),
@@ -11,6 +10,17 @@ with label < 0 (the short batch's padding) are masked out, ``n_err`` and
 end) and the confusion matrix accumulates on the device.  The stitched
 stage runs the same math with the confusion matrix donated and
 ``n_err``/``loss`` as the segment's metrics.
+
+``EvaluatorMSE`` emits δ = (y − target) on the minibatch's first
+``batch`` rows and the minibatch's metric ``mse``: the mean over those
+rows of each row's root mean square error (``root=False``: its mean
+square), computed with the JAX package's per-row max-abs rescale
+(:func:`_mse_eval_math`), so the squares stay within [0, 1].
+``mean=False`` scales δ by the buffer's rows (the GD units then sum
+over the batch instead of averaging).  The stitched stage reads
+``batch`` as a float scalar of the segment's block.  The JAX package's
+float64 ``numpy_run`` is not ported: on the CPU the same torch math
+runs over CPU tensors.
 """
 
 import numpy
@@ -45,6 +55,23 @@ def _softmax_eval_math(out, labels, max_idx, confusion):
         confusion.view(-1).index_add_(0, lbl * n + pred,
                                       valid.to(confusion.dtype))
     return err, n_err, loss, confusion
+
+
+def _mse_eval_math(out, target, batch):
+    """Mirror of ``_mse_eval_math``: ``(err, mean_sq_scaled,
+    row_scale, valid)`` for the first ``batch`` rows (a number or a 0-d
+    tensor); each row's error is rescaled by its largest magnitude
+    before it is squared."""
+    rows = out.shape[0]
+    out32 = out.reshape(rows, -1).float()
+    t32 = target.reshape(rows, -1).float()
+    valid = torch.arange(rows, device=out.device) < batch
+    err = torch.where(valid[:, None], out32 - t32,
+                      torch.zeros((), dtype=torch.float32,
+                                  device=out.device))
+    scale = torch.clamp(err.abs().amax(dim=1, keepdim=True), min=1e-30)
+    mean_sq_scaled = ((err / scale) ** 2).mean(dim=1)
+    return err, mean_sq_scaled, scale[:, 0], valid
 
 
 class EvaluatorBase(AcceleratedUnit):
@@ -112,3 +139,65 @@ class EvaluatorSoftmax(EvaluatorBase):
             produces={"err_output": self.err_output},
             donated={"confusion": self.confusion_matrix},
             metrics=("n_err", "loss"))
+
+
+class EvaluatorMSE(EvaluatorBase):
+    """Mean-squared error against ``target`` (linked from the loader's
+    ``minibatch_targets``): δ = (y − t); ``mse`` (also published as
+    ``n_err``) per minibatch."""
+
+    def __init__(self, workflow, **kwargs):
+        super(EvaluatorMSE, self).__init__(workflow, **kwargs)
+        self.target = None
+        self.mse = 0.0
+        self.n_err = 0
+        self.root = kwargs.get("root", True)
+        #: True: mean-over-batch gradients (the GD units divide by the
+        #: batch); False: sum-over-batch, δ pre-scaled by the rows
+        self.mean = kwargs.get("mean", True)
+        self.demand("target")
+
+    def _device_math(self, out, target, batch):
+        """``(err_output, mse)`` for a batch of ``batch`` rows."""
+        err, mean_sq_scaled, row_scale, valid = _mse_eval_math(
+            out, target, batch)
+        if self.root:
+            per_sample = row_scale * torch.sqrt(mean_sq_scaled)
+        else:
+            per_sample = row_scale * row_scale * mean_sq_scaled
+        denom = torch.clamp(batch, min=1.0) \
+            if isinstance(batch, torch.Tensor) else max(float(batch), 1.0)
+        mse = (per_sample * valid).sum() / denom
+        if not self.mean:
+            err = err * float(self.err_output.shape[0])
+        return err.reshape(self.err_output.shape), mse
+
+    def cuda_run(self):
+        err, mse = self._device_math(self.output.devmem,
+                                     self.target.devmem,
+                                     float(int(self.batch_size)))
+        self.err_output.devmem = err
+        self.mse = mse
+        self.n_err = mse
+
+    def stitch_stage(self):
+        """The evaluator's math inside the forward segment: consumes the
+        output and the targets, produces ``err_output``, publishes
+        ``mse`` and ``n_err`` and reads ``batch`` from the segment's
+        float block."""
+        from veles_tpu_torch.stitch import StitchStage
+        if not isinstance(self.target, Vector):
+            return None
+        unit = self
+
+        def fn(t):
+            err, mse = unit._device_math(t["output"], t["target"],
+                                         t["batch"])
+            return {"err_output": err, "mse": mse, "n_err": mse}
+
+        return StitchStage(
+            self, fn,
+            consumes={"output": self.output, "target": self.target},
+            produces={"err_output": self.err_output},
+            scalars=lambda: {"batch": float(int(unit.batch_size))},
+            metrics=("mse", "n_err"))

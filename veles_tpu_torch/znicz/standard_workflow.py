@@ -13,8 +13,13 @@ the forward ``->`` and backward ``<-`` parameter groups.  With
 into two segments, ``[loader head, forwards…, evaluator]`` and
 ``[gds…]`` (:mod:`veles_tpu_torch.stitch`).  Not ported: ``fused`` (the
 one-program trainer), ``mcdnnic_topology``, the snapshotter, plotters,
-``lr_adjuster``, rollback and image saver (ROADMAP item 7), and the MSE
-loss (item 1c).
+``lr_adjuster``, rollback and image saver (ROADMAP item 7).
+
+``loss_function="mse"`` (the default when the last layer is not a
+softmax) takes ``EvaluatorMSE`` against the loader's
+``minibatch_targets`` (a :class:`~veles_tpu_torch.loader.fullbatch.
+FullBatchLoaderMSE`) and ``DecisionMSE``; the GD chain reads the
+evaluator's ``err_output`` as for the softmax loss.
 """
 
 import numpy
@@ -26,8 +31,8 @@ from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import Repeater
 from veles_tpu_torch.units import UnitRegistry
 from veles_tpu_torch.znicz import all2all, gd  # noqa: F401 - registry
-from veles_tpu_torch.znicz.decision import DecisionGD
-from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
+from veles_tpu_torch.znicz.decision import DecisionGD, DecisionMSE
+from veles_tpu_torch.znicz.evaluator import EvaluatorMSE, EvaluatorSoftmax
 
 #: forward MAPPING → paired gradient MAPPING (the all2all family and
 #: softmax; the JAX package's table also pairs conv, pooling, rnn, …)
@@ -73,6 +78,7 @@ class StandardWorkflow(AcceleratedWorkflow):
       loader_factory: callable(workflow) → Loader (required)
       layers: list of {"type": MAPPING, "->": {...}, "<-": {...}}
       loss_function: "softmax" (the default from a last softmax layer)
+        or "mse" (the default otherwise)
       decision_config: dict for the Decision unit
     """
 
@@ -153,19 +159,26 @@ class StandardWorkflow(AcceleratedWorkflow):
 
     def link_evaluator(self):
         loss = self._loss_kind()
-        if loss != "softmax":
-            raise NotImplementedError(
-                "loss %r is not ported yet (ROADMAP item 1c)" % loss)
+        if loss not in ("softmax", "mse"):
+            raise ValueError("unknown loss function %r" % loss)
         last = self.forwards[-1]
-        self.evaluator = EvaluatorSoftmax(self)
-        self.evaluator.link_attrs(last, "output", "max_idx")
+        if loss == "softmax":
+            self.evaluator = EvaluatorSoftmax(self)
+            self.evaluator.link_attrs(last, "output", "max_idx")
+            self.evaluator.link_attrs(self.loader,
+                                      ("labels", "minibatch_labels"))
+        else:
+            self.evaluator = EvaluatorMSE(self)
+            self.evaluator.link_attrs(last, "output")
+            self.evaluator.link_attrs(self.loader,
+                                      ("target", "minibatch_targets"))
         self.evaluator.link_attrs(self.loader,
-                                  ("labels", "minibatch_labels"),
                                   ("batch_size", "minibatch_size"))
         self.evaluator.link_from(last)
 
     def link_decision(self):
-        self.decision = DecisionGD(self, **self.decision_config)
+        decision = DecisionMSE if self._loss_kind() == "mse" else DecisionGD
+        self.decision = decision(self, **self.decision_config)
         self.decision.link_from_loader(self.loader)
         self.decision.evaluator = self.evaluator
         self.decision.link_from(self.evaluator)

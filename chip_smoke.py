@@ -244,6 +244,38 @@ Phases, each printing one JSON line (any failure exits non-zero):
    bits as the same call with ``device="cpu"``, and another seed gives
    other bits.
 
+22. ``serve_batch`` — the batch serving path at MNIST width: the MLP
+   (784→100 tanh→10 softmax, f32) trained through the stitched workflow
+   (``create_workflow(max_epochs=2)``: one validation and one train
+   pass; its second validation n_err must fall), served by
+   ``InferenceEngine.from_workflow(wf, max_batch_size=64)`` (buckets 1
+   … 64, one CUDA graph each) deployed as ``mnist`` in a
+   ``ModelRegistry`` behind ``ServingServer`` on 127.0.0.1.  256
+   requests of 1–4 stand-in test rows from 16 client threads, half JSON
+   and half base64: every reply equal to ``reference_forward`` of its
+   rows bit for bit and within 1e-5 of the plain forward
+   (``_matmul_ref`` + softmax) on the card; 7 captures, 0 recaptures,
+   ``compile_count`` 7 before and after; fewer infer calls than
+   requests, and exactly 2 GEMM launches an infer call (counts set to 0
+   just before the traffic, read just after; the graphs' replays count
+   their launches).  A profile of 24 replays must name 2 GEMM kernels a
+   call and no cuBLAS kernel; a profiled window of 64 served requests
+   gives the device's busy share.  A second engine with its weights
+   and biases halved is deployed under traffic from 8 threads: every
+   reply is v1's or v2's forward whole, and both are seen.  The int8
+   deploy (``quantize="int8"``, a 100-row calibration batch) as
+   ``mnist_int8``: 64 requests, exactly 2 qmatmul launches an infer
+   call and no GEMM, replies within 1e-5 of the plain ``_qmatmul_ref``
+   forward, drift under ``quant.DRIFT_TOL``, params at most 0.35x the
+   float engine's, a replay profile naming 2 qmatmul kernels a call;
+   whether 16 rows give the same bits in the 16- and the 32-row bucket
+   is recorded for float and int8.  Requests/s, p50/p95/p99 latency,
+   rows per infer call and the batch fill ratio are printed, and the
+   GEMM's and qmatmul's device time per call at M = 1, 8 and 64 on the
+   served layers (784×100 tanh, 100×10) beside the plain version,
+   ``addmm`` (on a dequantized f32 copy for qmatmul) and the bound;
+   these ride in the kernels line's ``serving_buckets``.
+
 The ``kernels`` phase also holds the paged decode kernel against
 ``_paged_decode_ref`` (f32 <= 1e-4, bf16 <= 2e-2) for decode (1 row)
 and verify (5 and 8 rows), pages of 4, 8 and 16 keys in shuffled order,
@@ -347,7 +379,7 @@ Every phase runs with ``precision_level`` 2 (TF32 off).
 
 Then it prints the per-kernel JSON line, all 14 TPU kernels (launches on
 the main paths, serve, serve_int8, serve_paged, serve_spec, train,
-mnist, mnist_stitched, mnist_scan, mnist_ae and ops, max
+mnist, mnist_stitched, mnist_scan, mnist_ae, serve_batch and ops, max
 abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -5364,6 +5396,435 @@ def _named_leaves(tree, prefix=""):
             yield prefix + key, leaf
 
 
+# -- the batch serving path -------------------------------------------------
+
+SERVE_BATCH_EPOCHS = 2           # one validation and one train pass
+SERVE_BATCH_MAX = 64             # buckets 1, 2, 4, ..., 64
+SERVE_BATCH_REQUESTS = 256
+SERVE_BATCH_CLIENTS = 16
+SERVE_BATCH_ROWS = (1, 4)        # rows a request, inclusive
+SERVE_BATCH_TOL = 1e-5           # replies against the plain forward
+SERVE_BATCH_SWAP_CLIENTS = 8
+SERVE_BATCH_SWAP_SCALE = 0.5     # v2's weights and biases: v1's times this
+SERVE_BATCH_INT8_REQUESTS = 64
+SERVE_BATCH_CALIBRATION = 100
+SERVE_BATCH_INT8_BYTES = 0.35    # int8 params bytes <= this x float's
+SERVE_BATCH_PROFILE_CALLS = 24
+SERVE_BATCH_TIMED_M = (1, 8, 64)
+SERVE_BATCH_LAYERS = ((784, 100, "tanh"), (100, 10, None))
+SERVE_BATCH_HTTP_TIMEOUT = 60
+
+
+def _post_rows(port, name, rows, b64):
+    """One ``POST /service/<name>`` of ``rows`` as JSON lists or base64
+    float32 bytes: ``(status, result rows or None)``."""
+    import base64
+    import urllib.error
+    import urllib.request
+    if b64:
+        payload = {"input_b64": base64.b64encode(rows.tobytes()).decode(),
+                   "shape": list(rows.shape), "dtype": "float32"}
+    else:
+        payload = {"input": rows.tolist()}
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/service/%s" % (port, name),
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(
+                req, timeout=SERVE_BATCH_HTTP_TIMEOUT) as resp:
+            body = json.loads(resp.read())
+            return resp.status, numpy.asarray(body["result"],
+                                              numpy.float32)
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+
+def _serve_requests(port, name, pool, count, clients, seed):
+    """``count`` requests of 1..4 rows drawn from ``pool``, half JSON
+    and half base64, from ``clients`` threads:
+    ``[(rows, status, reply)]`` in request order and the wall time."""
+    import threading
+    rng = numpy.random.default_rng(seed)
+    requests = []
+    for i in range(count):
+        n = int(rng.integers(SERVE_BATCH_ROWS[0], SERVE_BATCH_ROWS[1] + 1))
+        rows = numpy.ascontiguousarray(
+            pool[rng.integers(0, len(pool), n)], numpy.float32)
+        requests.append((rows, i % 2 == 1))
+    out = [None] * count
+
+    def client(k):
+        for i in range(k, count, clients):
+            rows, b64 = requests[i]
+            out[i] = (rows,) + _post_rows(port, name, rows, b64)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    tic = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - tic
+
+
+def _plain_forward(params, rows, device):
+    """The served MLP's plain version on the card: ``_matmul_ref`` (or
+    ``_qmatmul_ref`` for an int8 weight) with the activation, then the
+    softmax."""
+    from veles_tpu_torch.ops import gemm, qgemm
+    from veles_tpu_torch.znicz.all2all import _softmax
+    h = torch.from_numpy(rows).to(device)
+    for (_k, _n, act), p in zip(SERVE_BATCH_LAYERS, params):
+        if isinstance(p["w"], dict):
+            h = qgemm._qmatmul_ref(h, p["w"]["q"], p["w"]["scale"], p["b"],
+                                   act, out_dtype=torch.float32)
+        else:
+            h = gemm._matmul_ref(h, p["w"], p["b"], act)
+    return _softmax(h).cpu().numpy()
+
+
+def _graphs_of(engine):
+    graphs = [b.graph for b in engine._buckets.values()]
+    return {"captures": sum(g.captures for g in graphs),
+            "recaptures": sum(g.recaptures for g in graphs),
+            "replays": sum(g.replays for g in graphs),
+            "capture_s": sum(g.capture_seconds for g in graphs),
+            "pool_reserved_bytes": sum(g.pool_reserved_bytes
+                                       for g in graphs)}
+
+
+def _serving_replays_window(engine, pool, groups):
+    """A profile of SERVE_BATCH_PROFILE_CALLS direct ``infer`` calls at
+    1..64 rows (each one bucket replay): its summary, taken again, at
+    most PROFILE_TRIES windows, while it counted other than 2 kernels of
+    ``groups`` a call."""
+    sizes = [1 + (7 * i) % SERVE_BATCH_MAX
+             for i in range(SERVE_BATCH_PROFILE_CALLS)]
+
+    def work():
+        for n in sizes:
+            engine.infer(pool[:n])
+
+    for tries in range(1, PROFILE_TRIES + 1):
+        window = profile_window(work, ("veles_matmul", "qmatmul",
+                                       "matmul"))
+        counted = sum(window["kernels_by_group"].get(g, 0) for g in groups)
+        if counted == 2 * len(sizes):
+            break
+    window["profile_windows"] = tries
+    window["calls"] = len(sizes)
+    return window
+
+
+def _serving_timed(device):
+    """The GEMM (``_matmul_cuda``) and qmatmul (``_qmatmul_cuda``, f32
+    activations) at the served layers' shapes and M = 1, 8 and 64: device
+    time per call (:func:`device_ms`) beside the plain version, one
+    library call (``addmm``; ``addmm`` on a dequantized f32 copy for
+    qmatmul) and the bound of each."""
+    from veles_tpu_torch import quant
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops import gemm, qgemm
+    rng = numpy.random.default_rng(SEED + 29)
+    rows = {"matmul": [], "qmatmul": []}
+    for k, n, act in SERVE_BATCH_LAYERS:
+        w = rng.standard_normal((k, n)).astype(numpy.float32) / k ** 0.5
+        pair = quant.quantize_array(w, (0,))
+        q = torch.from_numpy(pair["q"]).to(device)
+        scale = torch.from_numpy(pair["scale"]).to(device).reshape(-1)
+        wt = torch.from_numpy(w).to(device)
+        deq = (q.float() * scale).contiguous()
+        b = torch.from_numpy(rng.standard_normal(n).astype(
+            numpy.float32)).to(device)
+        for m in SERVE_BATCH_TIMED_M:
+            a = torch.from_numpy(rng.standard_normal((m, k)).astype(
+                numpy.float32)).to(device)
+            ops = 2 * m * n * k
+            f_bytes = 4 * (m * k + k * n + n + m * n)
+            q_bytes = 4 * m * k + k * n + 4 * n + 4 * n + 4 * m * n
+            for name, kernel, plain, library, nbytes in (
+                    ("matmul",
+                     lambda: gemm._matmul_cuda(a, wt, b, act),
+                     lambda: gemm._matmul_ref(a, wt, b, act),
+                     lambda: torch.addmm(b, a, wt), f_bytes),
+                    ("qmatmul",
+                     lambda: qgemm._qmatmul_cuda(a, q, scale, b, act,
+                                                 torch.float32),
+                     lambda: qgemm._qmatmul_ref(a, q, scale, b, act,
+                                                torch.float32),
+                     lambda: torch.addmm(b, a, deq), q_bytes)):
+                bound, by = bound_seconds(nbytes, ops, "float32")
+                err = float((kernel() - plain()).abs().max())
+                rows[name].append({
+                    "shape": [m, k, n], "activation": act,
+                    "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+                    "library_ms": device_ms(library),
+                    "bound_ms": bound * 1e3, "bound_by": by,
+                    "max_abs_err": err})
+    return rows
+
+
+def phase_serve_batch(device, smi):
+    """The batch serving path at MNIST width: the port's MLP trained
+    through its stitched workflow, served by ``InferenceEngine`` (one
+    CUDA graph a bucket) behind ``ModelRegistry`` and ``ServingServer``,
+    float and int8.  Returns the GEMM and qmatmul launches of the
+    counted float and int8 traffic, and the serving timings."""
+    import threading
+    from veles_tpu_torch import quant
+    from veles_tpu_torch.ops import gemm, qgemm
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.serve import (InferenceEngine, ModelRegistry,
+                                       ServingMetrics, ServingServer)
+    phase = "serve_batch"
+    tic = time.perf_counter()
+    wf = mnist.create_workflow(max_epochs=SERVE_BATCH_EPOCHS)
+    wf.run()
+    wf.device.sync()
+    train_s = time.perf_counter() - tic
+    closes = [h["n_err"] for h in wf.decision.history
+              if h["cls"] == "validation"]
+    check(len(closes) == 2 and closes[-1] < closes[0], phase,
+          "the workflow did not learn: validation n_err %s" % closes)
+    wf.loader.original_data.map_read()
+    # the stand-in's test rows: the validation class, first in the data
+    test_rows = numpy.array(
+        wf.loader.original_data.mem[:wf.loader.class_lengths[1]],
+        numpy.float32)
+
+    engine = InferenceEngine.from_workflow(wf, max_batch_size=SERVE_BATCH_MAX)
+    check(engine.device.type == "cuda", phase, "the engine is not on the card")
+    metrics = ServingMetrics()
+    registry = ModelRegistry(metrics=metrics)
+    registry.deploy("mnist", engine)
+    warm = engine.compile_count
+    warm_graphs = _graphs_of(engine)
+    check(warm == len(engine.buckets) == 7 and warm_graphs["captures"] == 7
+          and warm_graphs["recaptures"] == 0, phase,
+          "warmup: compile_count %d for buckets %s, graphs %s"
+          % (warm, engine.buckets, warm_graphs))
+    server = ServingServer(registry=registry, host="127.0.0.1",
+                           port=0).start()
+    try:
+        # -- the counted float traffic
+        reset_all_launches()
+        calls0, batches0 = engine.infer_calls, metrics.batches_total
+        replies, wall = _serve_requests(server.port, "mnist", test_rows,
+                                        SERVE_BATCH_REQUESTS,
+                                        SERVE_BATCH_CLIENTS, SEED + 31)
+        gpu_sync()
+        float_launches = {"matmul": gemm.launches["matmul"],
+                          "qmatmul": qgemm.launches["qmatmul"]}
+        calls = engine.infer_calls - calls0
+        batches = metrics.batches_total - batches0
+        graphs = _graphs_of(engine)
+        statuses = sorted({r[1] for r in replies})
+        check(statuses == [200], phase, "replies %s" % statuses)
+        rows_sent = sum(len(r[0]) for r in replies)
+        exact = sum(r[2].tobytes() == engine.reference_forward(r[0])
+                    .tobytes() for r in replies)
+        plain_err = max(float(numpy.abs(
+            r[2] - _plain_forward(engine._params, r[0], device)).max())
+            for r in replies)
+        ok = (exact == len(replies) and plain_err <= SERVE_BATCH_TOL
+              and engine.compile_count == warm
+              and graphs["captures"] == 7 and graphs["recaptures"] == 0
+              and calls < SERVE_BATCH_REQUESTS and calls == batches
+              and float_launches == {"matmul": 2 * calls, "qmatmul": 0})
+        latency = {"p%d" % q: metrics.request_latency.percentile(q) * 1e3
+                   for q in (50, 95, 99)}
+        latency["mean"] = metrics.request_latency.mean * 1e3
+        traffic = {
+            "requests": len(replies), "rows": rows_sent,
+            "clients": SERVE_BATCH_CLIENTS, "wall_s": wall,
+            "requests_per_s": len(replies) / wall,
+            "rows_per_s": rows_sent / wall,
+            "latency_ms": latency,
+            "batch_latency_ms": {
+                "p%d" % q: metrics.batch_latency.percentile(q) * 1e3
+                for q in (50, 99)},
+            "infer_calls": calls, "rows_per_infer_call": rows_sent / calls,
+            "batch_fill_ratio": metrics.batch_fill_ratio(),
+            "launches": float_launches, "replies_bit_equal": exact,
+            "max_abs_err_vs_plain": plain_err,
+            "compile_count": engine.compile_count, "graphs": graphs}
+        emit({"phase": phase, "step": "float", "ok": ok,
+              "train_s": train_s, "validation_n_err": closes, **traffic})
+        check(ok, phase, "float traffic: %d of %d replies bit-equal to "
+              "reference_forward, max err %.3g vs the plain forward, "
+              "compile_count %d (warm %d), graphs %s, %d infer calls for "
+              "%d requests (%d batches), launches %s"
+              % (exact, len(replies), plain_err, engine.compile_count, warm,
+                 graphs, calls, len(replies), batches, float_launches))
+
+        # -- replays under the profiler: the GEMM kernel, never cuBLAS
+        window = _serving_replays_window(engine, test_rows,
+                                         ("veles_matmul",))
+        got = window["kernels_by_group"]
+        ok = (got.get("veles_matmul", 0) == 2 * window["calls"]
+              and got.get("matmul", 0) == 0 and not got.get("qmatmul"))
+        emit({"phase": phase, "step": "replay_profile", "ok": ok,
+              **{k: window[k] for k in (
+                  "calls", "profile_windows", "kernels_by_group",
+                  "device_ms_by_group", "busy_share", "wall_ms",
+                  "kernel_names")}})
+        check(ok, phase, "a replay window of %d calls counted kernels %s"
+              % (window["calls"], got))
+
+        # -- a profiled window of served HTTP traffic: the busy share
+        served = {}
+
+        def http_window():
+            served["out"] = _serve_requests(
+                server.port, "mnist", test_rows, 64, SERVE_BATCH_CLIENTS,
+                SEED + 37)
+
+        busy = profile_window(http_window)
+        emit({"phase": phase, "step": "http_profile",
+              "requests": len(served["out"][0]),
+              **{k: busy[k] for k in (
+                  "wall_ms", "device_busy_ms", "busy_share",
+                  "device_ms_by_group", "kernels_by_group",
+                  "device_kernels", "host_gaps_ms_total",
+                  "top_host_gaps_ms")}})
+
+        # -- bucket rows at M = 16 and 32 against the exact shape
+        probe = test_rows[:16]
+        bucket16 = engine.infer(probe)
+        bucket32 = engine.infer(test_rows[:17])[:16]
+        float_16_32 = bucket16.tobytes() == bucket32.tobytes()
+
+        # -- hot swap under traffic: every reply v1's or v2's, whole
+        v1_host = quant.core._host(engine._params)
+        v2 = InferenceEngine.from_workflow(wf, max_batch_size=SERVE_BATCH_MAX)
+        v2.update_params([{k: v * SERVE_BATCH_SWAP_SCALE
+                           for k, v in state.items()}
+                          for state in v1_host])
+        stop = threading.Event()
+        swap_replies = []
+        rng = numpy.random.default_rng(SEED + 41)
+        picks = [rng.integers(0, len(test_rows), int(rng.integers(1, 5)))
+                 for _ in range(4096)]
+
+        def swap_client(k):
+            i = k
+            while not stop.is_set() and i < len(picks):
+                rows = numpy.ascontiguousarray(test_rows[picks[i]])
+                status, reply = _post_rows(server.port, "mnist", rows,
+                                           i % 2 == 1)
+                swap_replies.append((rows, status, reply))
+                i += SERVE_BATCH_SWAP_CLIENTS
+
+        threads = [threading.Thread(target=swap_client, args=(k,))
+                   for k in range(SERVE_BATCH_SWAP_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        registry.deploy("mnist", v2)
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join()
+        versions = {"v1": 0, "v2": 0, "torn": 0}
+        for rows, status, reply in swap_replies:
+            if status != 200:
+                versions["torn"] += 1
+            elif reply.tobytes() == engine.reference_forward(rows).tobytes():
+                versions["v1"] += 1
+            elif reply.tobytes() == v2.reference_forward(rows).tobytes():
+                versions["v2"] += 1
+            else:
+                versions["torn"] += 1
+        ok = (versions["torn"] == 0 and versions["v1"] > 0
+              and versions["v2"] > 0 and registry.get("mnist").swaps == 1
+              and v2.compile_count == 7 and _graphs_of(v2)["recaptures"] == 0)
+        emit({"phase": phase, "step": "hot_swap", "ok": ok,
+              "replies": len(swap_replies), **versions,
+              "v2_compile_count": v2.compile_count})
+        check(ok, phase, "hot swap: replies by version %s" % versions)
+
+        # -- int8: the same path through the qmatmul kernel
+        calibration = test_rows[:SERVE_BATCH_CALIBRATION]
+        e8 = InferenceEngine.from_workflow(wf, max_batch_size=SERVE_BATCH_MAX)
+        float_bytes = e8.params_nbytes
+        float_calibration = e8.reference_forward(calibration)
+        registry.deploy("mnist_int8", e8, quantize="int8",
+                        calibration=calibration)
+        drift = quant.relative_drift(float_calibration,
+                                     e8.reference_forward(calibration))
+        reset_all_launches()
+        calls0 = e8.infer_calls
+        replies8, wall8 = _serve_requests(
+            server.port, "mnist_int8", test_rows, SERVE_BATCH_INT8_REQUESTS,
+            SERVE_BATCH_CLIENTS, SEED + 43)
+        gpu_sync()
+        int8_launches = {"matmul": gemm.launches["matmul"],
+                         "qmatmul": qgemm.launches["qmatmul"]}
+        calls8 = e8.infer_calls - calls0
+        statuses = sorted({r[1] for r in replies8})
+        plain8 = max(float(numpy.abs(
+            r[2] - _plain_forward(e8._params, r[0], device)).max())
+            for r in replies8) if statuses == [200] else None
+        exact8 = sum(r[2] is not None and r[2].tobytes()
+                     == e8.reference_forward(r[0]).tobytes()
+                     for r in replies8)
+        int8_16 = e8.infer(probe)
+        int8_32 = e8.infer(test_rows[:17])[:16]
+        window8 = _serving_replays_window(e8, test_rows, ("qmatmul",))
+        got8 = window8["kernels_by_group"]
+        ok = (statuses == [200] and plain8 <= SERVE_BATCH_TOL
+              and drift < quant.DRIFT_TOL
+              and e8.params_nbytes <= SERVE_BATCH_INT8_BYTES * float_bytes
+              and int8_launches == {"matmul": 0, "qmatmul": 2 * calls8}
+              and e8.compile_count == 7
+              and _graphs_of(e8)["recaptures"] == 0
+              and got8.get("qmatmul", 0) == 2 * window8["calls"]
+              and got8.get("matmul", 0) == 0
+              and not got8.get("veles_matmul"))
+        emit({"phase": phase, "step": "int8", "ok": ok,
+              "requests": len(replies8), "wall_s": wall8,
+              "requests_per_s": len(replies8) / wall8,
+              "infer_calls": calls8, "launches": int8_launches,
+              "max_abs_err_vs_plain": plain8, "drift": drift,
+              "drift_tol": quant.DRIFT_TOL,
+              "params_bytes": e8.params_nbytes, "float_params_bytes":
+              float_bytes, "params_ratio": e8.params_nbytes / float_bytes,
+              "replies_bit_equal_reference": exact8,
+              "rows_equal_at_16_and_32": {
+                  "float": float_16_32,
+                  "int8": int8_16.tobytes() == int8_32.tobytes(),
+                  "int8_max_abs_diff": float(numpy.abs(
+                      int8_16 - int8_32).max())},
+              "replay_profile": {k: window8[k] for k in (
+                  "calls", "profile_windows", "kernels_by_group",
+                  "device_ms_by_group", "kernel_names")}})
+        check(ok, phase, "int8: statuses %s, max err %s vs the plain "
+              "forward, drift %.4g, params %d of %d bytes, launches %s for "
+              "%d calls, compile_count %d, replay kernels %s"
+              % (statuses, plain8, drift, e8.params_nbytes, float_bytes,
+                 int8_launches, calls8, e8.compile_count, got8))
+        text = server.metrics_page()
+        check("veles_serve_requests_total" in text
+              and "veles_prof_recompiles_total 0" in text
+              and "veles_slo_batch_fill" in text, phase,
+              "the /metrics page lacks its serving lines")
+    finally:
+        server.stop()
+    timed = _serving_timed(device)
+    emit({"phase": phase, "step": "timed", "nvidia_smi": smi, **timed})
+    emit({"phase": phase, "ok": True, "nvidia_smi": smi,
+          "requests_per_s": traffic["requests_per_s"],
+          "latency_ms_p50": traffic["latency_ms"]["p50"],
+          "latency_ms_p99": traffic["latency_ms"]["p99"],
+          "rows_per_infer_call": traffic["rows_per_infer_call"],
+          "batch_fill_ratio": traffic["batch_fill_ratio"],
+          "http_busy_share": busy["busy_share"]})
+    return {"matmul": float_launches["matmul"],
+            "qmatmul": int8_launches["qmatmul"]}, timed
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5409,11 +5870,15 @@ def main():
         phase_mnist_scan_parity(device)
         paths["mnist_ae"] = phase_mnist_ae(device, info["nvidia_smi"])
         phase_mnist_ae_parity(device)
+        paths["serve_batch"], serving_timed = phase_serve_batch(
+            device, info["nvidia_smi"])
         paths["ops"] = phase_ops(device)
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1
     for entry in timed:
+        if entry["name"] in serving_timed:
+            entry["serving_buckets"] = serving_timed[entry["name"]]
         # a row whose function rides in another launch counts those
         # launches (gd_db: the dw launches that carried the bias step);
         # the gather rows also give the tables their launches served
@@ -5461,7 +5926,7 @@ def main():
              "bound_share_device", "library_device_ms", "contiguous_device_ms",
              "verify_device_ms", "verify_contiguous_device_ms",
              "verify_bound_share_device", "train_shape", "decode_layer",
-             "fill_ms", "fill_device_ms", "calls")
+             "fill_ms", "fill_device_ms", "calls", "serving_buckets")
     emit({"kernels": [{key: entry[key] for key in keys + extra
                        if key in keys or key in entry}
                       for entry in timed]})

@@ -15,6 +15,11 @@
   ``trace_capacity`` (``tests/test_torch_trace.py``).
 - ``chip_smoke.py`` fails, and prints no result, without a card or
   without the package beside it.
+- Each part of the batch serving path it leaves out raises
+  ``NotImplementedError`` naming its ROADMAP item: a mesh (7(d)),
+  snapshots (7(a)), the analyzer preflight and the strict recompile
+  sentinel (7(e)), generative serving through the registry and the
+  server (6(b)), the fleet (7(d)) and ``notify_status`` (7(e)).
 """
 
 import ast
@@ -62,6 +67,23 @@ def test_importing_the_port_loads_no_jax_and_no_veles_tpu():
     for module in ("quant.core", "ops.qgemm", "ops.reduce", "ops.random"):
         assert "veles_tpu_torch." + module in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_importing_the_serving_path_loads_no_jax_and_no_veles_tpu():
+    proc = _run(
+        "import json, sys\n"
+        "import veles_tpu_torch.serve, veles_tpu_torch.obs\n"
+        "import veles_tpu_torch.prof, veles_tpu_torch.restful_api\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    for module in ("serve.engine", "serve.batcher", "serve.registry",
+                   "serve.server", "serve.wire", "serve.metrics",
+                   "obs.context", "obs.slo", "prof.ledger",
+                   "prof.sentinel", "restful_api", "metrics"):
+        assert "veles_tpu_torch." + module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert "veles_tpu_torch.ops.build" not in loaded
 
 
 def test_no_source_of_the_port_imports_jax_or_veles_tpu():
@@ -682,3 +704,137 @@ def test_chip_smoke_takes_a_decode_window_again_while_it_missed_kernels(
     assert decode["windows"] == windows and decode["steps"] == 16
     assert decode["kernels_by_group"] == counts[windows - 1]
     assert Engine.steps == 16 * windows and not left
+
+
+# -- the batch serving path's refusals ---------------------------------------
+
+def _serving_engine(**kwargs):
+    import numpy
+    from veles_tpu_torch.serve import InferenceEngine
+    w = numpy.eye(4, dtype=numpy.float32)
+    return InferenceEngine([{"w": w}], lambda p, x: x @ p[0]["w"], (4,),
+                           max_batch_size=4, device="cpu", **kwargs)
+
+
+def test_serving_engine_raises_without_a_card(no_cuda):
+    import numpy
+    from veles_tpu_torch.serve import InferenceEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine([{"w": numpy.eye(2, dtype=numpy.float32)}],
+                        lambda p, x: x, (2,))
+    assert _serving_engine().device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kwargs", [{"mesh": object()},
+                                    {"param_specs": lambda leaf: None}])
+def test_serving_engine_mesh_is_refused_naming_7d(kwargs):
+    with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
+        _serving_engine(**kwargs)
+
+
+def test_serving_engine_from_snapshot_is_refused_naming_7a():
+    from veles_tpu_torch.serve import InferenceEngine
+    with pytest.raises(NotImplementedError, match=r"item 7\(a\)"):
+        InferenceEngine.from_snapshot("model.pickle")
+
+
+@pytest.fixture
+def serve_preflight():
+    from veles_tpu_torch.config import root
+    saved = root.common.serve.get("preflight")
+    yield root.common.serve
+    if saved is None:
+        root.common.serve.__dict__.pop("preflight", None)
+    else:
+        root.common.serve.preflight = saved
+
+
+@pytest.mark.parametrize("mode", [None, "warn", "fail", "WARN"])
+def test_registry_preflight_is_refused_naming_7e(serve_preflight, mode):
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.serve import ModelRegistry
+    if mode is not None:
+        serve_preflight.preflight = mode
+    wf = mnist.create_workflow(device="cpu", max_epochs=1)
+    registry = ModelRegistry()
+    with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
+        registry.preflight(wf)
+    with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
+        registry.load_workflow("mnist", wf,
+                               engine_config={"device": "cpu"})
+    assert registry.names() == []
+
+
+def test_registry_preflight_keeps_the_jax_value_check(serve_preflight):
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.serve import ModelRegistry
+    wf = mnist.create_workflow(device="cpu", max_epochs=1)
+    registry = ModelRegistry()
+    serve_preflight.preflight = "sometimes"
+    with pytest.raises(ValueError, match="want off"):
+        registry.preflight(wf)
+    serve_preflight.preflight = "off"
+    assert registry.preflight(wf) is None
+    try:
+        model = registry.load_workflow(
+            "mnist", wf, engine_config={"device": "cpu",
+                                        "max_batch_size": 4})
+        assert model.source == "StandardWorkflow"
+        assert model.engine.compile_count == 3
+    finally:
+        registry.stop()
+
+
+def test_recompile_sentinel_strict_is_refused_naming_7e(knobs):
+    import numpy
+    from veles_tpu_torch import prof
+    from veles_tpu_torch.prof import sentinel
+    saved = knobs.get("recompile_sentinel")
+    engine = _serving_engine()
+    try:
+        # warn: a capture after warmup is flagged, not raised
+        knobs.recompile_sentinel = "warn"
+        sentinel.reset()
+        engine._warmed = True
+        engine.infer(numpy.ones((1, 4), numpy.float32))
+        assert [e["site"] for e in prof.flagged] == [
+            "serve:%s:bucket[1]" % engine.prof_name]
+        knobs.recompile_sentinel = "strict"
+        with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
+            engine.infer(numpy.ones((3, 4), numpy.float32))
+        assert len(prof.flagged) == 2
+    finally:
+        knobs.recompile_sentinel = saved
+        sentinel.reset()
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda r: r.deploy_generative("lm", None), "6(b)"),
+    (lambda r: r.generate("lm", [1, 2]), "6(b)"),
+    (lambda r: r.preflight_generative(None), "6(b)"),
+    (lambda r: r.deploy_fleet("fleet", None), "7(d)"),
+    (lambda r: r.load_snapshot("m", "model.pickle"), "7(a)"),
+])
+def test_registry_refusals_name_their_items(call, item):
+    from veles_tpu_torch.serve import ModelRegistry
+    with pytest.raises(NotImplementedError,
+                       match=r"item %s" % item.replace("(", r"\(")
+                       .replace(")", r"\)")):
+        call(ModelRegistry())
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda s: s.handle_generate("/generate", b"{}"), "6(b)"),
+    (lambda s: next(iter(s.stream_generate("/generate", b"{}"))), "6(b)"),
+    (lambda s: s.notify_status("http://127.0.0.1:9/update"), "7(e)"),
+])
+def test_server_refusals_name_their_items(call, item):
+    from veles_tpu_torch.serve import ServingServer
+    server = ServingServer()
+    try:
+        with pytest.raises(NotImplementedError,
+                           match=r"item %s" % item.replace("(", r"\(")
+                           .replace(")", r"\)")):
+            call(server)
+    finally:
+        server.stop()

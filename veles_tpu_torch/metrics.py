@@ -1,6 +1,10 @@
-"""Low-overhead latency histogram: the port's own copy of
-:class:`veles_tpu.metrics.LatencyHistogram` (same log-spaced bucket
-boundaries, 60 µs … 60 s, so percentiles of the two packages compare)."""
+"""Shared metric primitives: the port's own copy of
+:mod:`veles_tpu.metrics`.
+
+:class:`LatencyHistogram` keeps the same log-spaced bucket boundaries,
+60 µs … 60 s, so percentiles of the two packages compare;
+:func:`emit_histogram` is the one Prometheus histogram renderer the
+serving ``/metrics`` page uses."""
 
 import bisect
 import threading
@@ -36,8 +40,26 @@ class LatencyHistogram(object):
             self._n += 1
 
     @property
+    def count(self):
+        return self._n
+
+    @property
     def mean(self):
         return self._sum / self._n if self._n else 0.0
+
+    def cumulative(self):
+        """Consistent snapshot for Prometheus exposition:
+        ``(upper_bounds, cumulative_counts, sum_seconds, count)``;
+        ``cumulative_counts[i]`` counts observations <= ``bounds[i]``,
+        and the last slot, past the last bound, is ``+Inf``."""
+        with self._lock:
+            counts = list(self._counts)
+            total, n = self._sum, self._n
+        running, cum = 0, []
+        for c in counts:
+            running += c
+            cum.append(running)
+        return list(self.BOUNDS), cum, total, n
 
     def percentile(self, q):
         """q in [0, 100] → seconds (interpolated inside the bucket)."""
@@ -56,3 +78,25 @@ class LatencyHistogram(object):
                 return lo + (hi - lo) * frac
             seen += c
         return self.BOUNDS[-1]
+
+
+def emit_histogram(lines, name, hist, help_, labels=None):
+    """Append one :class:`LatencyHistogram`'s Prometheus histogram
+    exposition under the full metric ``name``: cumulative ``le``
+    buckets, ``_sum`` and ``_count``.  ``help_=None`` skips the
+    HELP/TYPE header, for callers grouping several label variants under
+    one family header."""
+    bounds, cum, total, count = hist.cumulative()
+    prefix = "".join('%s="%s",' % (k, v) for k, v in
+                     sorted((labels or {}).items()))
+    suffix = ("{%s}" % prefix.rstrip(",")) if prefix else ""
+    if help_ is not None:
+        lines.append("# HELP %s %s" % (name, help_))
+        lines.append("# TYPE %s histogram" % name)
+    for bound, c in zip(bounds, cum):
+        lines.append('%s_bucket{%sle="%.6g"} %d'
+                     % (name, prefix, bound, c))
+    lines.append('%s_bucket{%sle="+Inf"} %d' % (name, prefix, count))
+    lines.append("%s_sum%s %.6f" % (name, suffix, total))
+    lines.append("%s_count%s %d" % (name, suffix, count))
+    return lines

@@ -130,10 +130,10 @@ def _launch_counters():
     """Every kernel wrapper module's ``launches`` dict, the gather's
     ``tables_served`` and ``entry_launches`` and the GEMM wrappers'
     ``bias_in_dw`` and ``split_launches``."""
-    from veles_tpu_torch.ops import attention, gather, gemm
+    from veles_tpu_torch.ops import attention, gather, gemm, qgemm
     return (attention.launches, gather.launches, gather.tables_served,
             gather.entry_launches, gemm.launches, gemm.bias_in_dw,
-            gemm.split_launches)
+            gemm.split_launches, qgemm.launches)
 
 
 def scalar_slots(stages):
@@ -198,10 +198,14 @@ class CapturedGraph(Logger):
     into the graph and restores the launch counters; each replay adds
     them."""
 
-    def __init__(self, name, device):
+    def __init__(self, name, device, capture_error_mode=None):
         super(CapturedGraph, self).__init__()
         self.name = name
         self.device = device
+        #: ``torch.cuda.graph``'s capture_error_mode (None: its default,
+        #: "global"); "thread_local" lets other threads keep launching
+        #: while this one captures
+        self.capture_error_mode = capture_error_mode
         self.captures = 0
         self.recaptures = 0
         self.replays = 0
@@ -251,8 +255,10 @@ class CapturedGraph(Logger):
         counters = _launch_counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
+        options = {} if self.capture_error_mode is None else {
+            "capture_error_mode": self.capture_error_mode}
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, **options):
                 static = body()
         finally:
             launched = [(c, name, c[name] - b[name])

@@ -6,9 +6,12 @@ single attribute check that returns a shared no-op singleton; enabled,
 each span costs one ``perf_counter_ns`` pair and one slot store in a
 preallocated ring.  Events are ``(phase, cat, name, ts_ns, dur_ns,
 tid, args, role)`` tuples in the Chrome trace-event vocabulary (``X``
-complete spans, ``i`` instants).  ``root.common.engine.trace_capacity``
-sizes the ring (:func:`configure`).  The device-profiler bridge and the
-Chrome export are not ported yet.
+complete spans, ``i`` instants, ``C`` counter samples).  Running counts
+by ``(cat, name)`` survive the ring's wraparound, as the JAX package's
+do, and feed :func:`metrics_text`, the trace lines of the serving
+``/metrics`` page.  ``root.common.engine.trace_capacity`` sizes the
+ring (:func:`configure`).  The device-profiler bridge and the Chrome
+export are not ported yet.
 """
 
 import threading
@@ -74,14 +77,23 @@ class TraceRecorder(object):
         self._ring = [None] * self.capacity
         self._pos = 0
         self._lock = threading.Lock()
+        #: events recorded since clear(), and their counts by
+        #: ``(cat, name)``: both survive wraparound and resize
+        self._recorded = 0
+        self._counts = {}
 
     def record(self, phase, cat, name, ts_ns, dur_ns, args=None,
-               role=None):
-        event = (phase, cat, name, ts_ns, dur_ns, threading.get_ident(),
+               role=None, tid=None):
+        """``tid`` defaults to the recording thread's ident."""
+        event = (phase, cat, name, ts_ns, dur_ns,
+                 threading.get_ident() if tid is None else int(tid),
                  args, role or self.role)
+        key = (cat, name)
         with self._lock:
             self._ring[self._pos % self.capacity] = event
             self._pos += 1
+            self._recorded += 1
+            self._counts[key] = self._counts.get(key, 0) + 1
 
     def events(self):
         """Snapshot of the ring, oldest recorded → newest."""
@@ -91,11 +103,33 @@ class TraceRecorder(object):
         n = min(pos, len(ring))
         return [ring[i % len(ring)] for i in range(pos - n, pos)]
 
+    @property
+    def recorded(self):
+        """Events recorded since the last clear()."""
+        return self._recorded
+
+    @property
+    def dropped(self):
+        """Recorded events no longer in the ring."""
+        with self._lock:
+            return self._recorded - min(self._pos, self.capacity)
+
+    def category_counts(self):
+        """``{category: events recorded since clear()}``."""
+        with self._lock:
+            items = list(self._counts.items())
+        out = {}
+        for (c, _n), k in items:
+            out[c] = out.get(c, 0) + k
+        return out
+
     def clear(self):
         """Drop every recorded event (keeps enabled/role)."""
         with self._lock:
             self._ring = [None] * self.capacity
             self._pos = 0
+            self._recorded = 0
+            self._counts = {}
 
     def resize(self, capacity):
         """Install a new ring capacity, keeping the newest events that
@@ -133,17 +167,67 @@ def instant(cat, name, args=None, role=None):
     rec.record("i", cat, name, time.perf_counter_ns(), 0, args, role)
 
 
-def complete(cat, name, begin_ns, dur_ns, args=None, role=None):
-    """Record a span retroactively from caller-held timestamps."""
+def counter(cat, name, value, role=None):
+    """Record a counter sample (Chrome phase ``C``)."""
     rec = recorder
     if not rec.enabled:
         return
-    rec.record("X", cat, name, int(begin_ns), int(dur_ns), args, role)
+    rec.record("C", cat, name, time.perf_counter_ns(), 0,
+               {"value": value}, role)
+
+
+def complete(cat, name, begin_ns, dur_ns, args=None, role=None,
+             tid=None):
+    """Record a span retroactively from caller-held timestamps; ``tid``
+    labels a synthetic lane."""
+    rec = recorder
+    if not rec.enabled:
+        return
+    rec.record("X", cat, name, int(begin_ns), int(dur_ns), args, role,
+               tid=tid)
 
 
 def enabled():
     """The hot-path switch, for call sites that skip building args."""
     return recorder.enabled
+
+
+def set_role(role):
+    """Re-label the events this process records from here on."""
+    recorder.role = str(role)
+
+
+def normalize(events=None):
+    """Recorder tuples (the ring's, when None) → event dicts with
+    timestamps in µs, as :func:`veles_tpu.trace.export.normalize` gives
+    them."""
+    if events is None:
+        events = recorder.events()
+    return [{"ph": phase, "cat": cat, "name": name, "ts_us": ts_ns / 1e3,
+             "dur_us": dur_ns / 1e3, "tid": tid, "role": role,
+             "args": args}
+            for phase, cat, name, ts_ns, dur_ns, tid, args, role in events]
+
+
+def metrics_text():
+    """Exposition lines for the serving ``/metrics`` page while tracing
+    is on (counterpart of ``veles_tpu.trace.export.metrics_text``):
+    running counts, not a walk of the ring."""
+    lines = [
+        "# HELP veles_trace_recorded_total trace events recorded "
+        "(veles_tpu.trace; grand total — its own family, so "
+        "sum(veles_trace_events_total) stays honest)",
+        "# TYPE veles_trace_recorded_total counter",
+        "veles_trace_recorded_total %d" % recorder.recorded,
+        "# HELP veles_trace_events_total trace events per category",
+        "# TYPE veles_trace_events_total counter",
+    ]
+    for cat, count in sorted(recorder.category_counts().items()):
+        lines.append('veles_trace_events_total{cat="%s"} %d'
+                     % (cat, count))
+    lines.append("# TYPE veles_trace_dropped_total counter")
+    lines.append("veles_trace_dropped_total %d" % recorder.dropped)
+    return "\n".join(lines) + "\n"
 
 
 def configure(value=None):

@@ -98,7 +98,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
    chunk; the streams must be equal, unless the CPU logits at the first
    divergence had a top-2 gap below 1e-3, and ``calibration_logits``
    must agree within 1e-3.
-8. ``serve_paged`` — the paged path at full width: the same model and
+8. ``serve_generate`` — generative serving through the front door:
+   ``serve``'s warmed engine deployed with
+   ``ModelRegistry.deploy_generative("lm", ...)`` at the default V-S01
+   preflight (``warn``; the report printed, no error allowed) behind
+   ``ServingServer`` on 127.0.0.1.  ``serve``'s 8 prompts from 8 client
+   threads, 4 of them ``"stream": true`` (chunked ndjson), traced: every
+   reply's tokens equal ``serve``'s stream for its prompt bit for bit,
+   each stream's events are indices 0..63 whose tokens are its final
+   document's, every ``traceparent`` is echoed, the launches (set to 0
+   just before, read just after) are exactly 12 ``flash_fwd`` a
+   prefill and 12 ``decode_attn`` a decode step, and ``/metrics`` shows
+   the JAX scheduler's ``gen_*`` gauges for ``model="lm"`` with
+   ``gen_tokens_total`` 512 and ``gen_ttft_seconds_count`` 8.  The same
+   traffic in a profiled window gives the busy share.  A drain swap to a
+   seed + 1 engine under 4 streams: each stream finishes its 64 tokens
+   as ``serve``'s, a new request is answered as version 2, and
+   ``torch.cuda.memory_allocated`` falls by at least v1's KV bytes.  The
+   int8 deploy (``deploy_generative("lm8", ..., quantize="int8")``):
+   the 8 prompts give ``serve_int8``'s streams, exactly 48 qmatmul
+   launches a prefill and a decode step (counted from 0 after the
+   deploy's warmup: the ``serve_generate_int8`` path), and a profiled
+   window names both the tensor-core and the decode body.  Requests/s,
+   tokens/s and TTFT p50/p99 of the counted session's 8 requests over
+   HTTP beside ``serve``'s direct tokens/s, the streamed share's
+   tokens/s beside the whole replies', and each streamed request's
+   first event are printed.
+9. ``serve_paged`` — the paged path at full width: the same model and
    weights with ``kv="paged"`` (pages of 16, the default 513-page
    pool), ``prefill_chunk=256`` and ``prefix_cache="on"`` behind the
    worker thread; 8 requests, each a shared seeded 512-token stem plus
@@ -110,12 +136,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    chunk times, prefix hit rate, peak pages, pool bytes, host→device
    bytes a decode step, and a 16-step decode window under
    ``torch.profiler``.
-9. ``serve_spec`` — as ``serve_paged`` with ``speculative="ngram"``,
+10. ``serve_spec`` — as ``serve_paged`` with ``speculative="ngram"``,
    ``draft_k=4`` and tails that repeat a seeded 24-token phrase: exact
    budgets, every decode dispatch a verify, 12 ``paged_decode_attn``
    launches a verify; accept rate, tokens a dispatch, verify step,
    host time in ``propose``.
-10. ``serve_paged_parity`` — CONFIG cut to 2 layers, f32, TF32 off,
+11. ``serve_paged_parity`` — CONFIG cut to 2 layers, f32, TF32 off,
    max_seq 512: 6 requests (a 64-token stem plus 8..150-token tails) x
    16 tokens.  R, the card's contiguous streams: the CPU's agree with R
    under the near-tie rule of ``parity``; the card's paged engine gives
@@ -123,7 +149,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    n-gram speculation, and a 33-page pool that preempts agree with R
    under the near-tie rule (the card's contiguous model the judge); two
    tight-pool runs give equal streams and preemption counts.
-11. ``train``   — the training path at full width: ``build_train(CONFIG)``
+12. ``train``   — the training path at full width: ``build_train(CONFIG)``
    (bf16 compute, remat, ce_chunk 128, SGD with momentum) on
    ``synthetic_tokens(CONFIG, 8)``, one warm-up step and 5 timed ones.
    Every loss must be finite and every step must launch the forward
@@ -134,7 +160,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    12 backward kernels must all be the tensor-core bodies
    (``*_kernel_tc``); a window that counted other numbers is taken
    again, at most PROFILE_TRIES windows.
-12. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
+13. ``train_parity`` — CONFIG width cut to 2 layers and seq_len 256,
    batch 2, float32 with TF32 off: 2 steps from the same numpy params
    on the card (kernels) and on the CPU (plain versions); the losses
    must agree within relative 1e-6, the params after 2 steps within
@@ -142,7 +168,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    sum) leaf by leaf within max |card - cpu| <= 1e-4 · max |cpu|.  A
    third run on the card with its dq zeroed must fail that velocity
    check.
-13. ``mnist``   — the MNIST MLP (784→100 tanh, 100→10 softmax, lr 0.03,
+14. ``mnist``   — the MNIST MLP (784→100 tanh, 100→10 softmax, lr 0.03,
    momentum 0.9, decay 0.0005, f32) trained through the eager workflow
    (``samples.mnist.create_workflow(max_epochs=3)`` with
    ``engine.stitch=off``, minibatch 100) on the synthetic stand-in: the
@@ -164,12 +190,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    profiler window first launches PROFILE_PRIMER small kernels and
    counts only what starts after them: late in the process the
    profiler loses the first device records of each window.
-14. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
+15. ``mnist_parity`` — the same seed, ``max_epochs=2`` (one train pass),
    on the card (kernels) and on the CPU (plain versions): per-epoch
    per-class n_err and confusion matrices equal, the weights, biases
    and momenta leaf by leaf within max |card − cpu| <= 1e-4 · max |cpu|;
    a third card run with gd_dx planted to return zeros must fail it.
-15. ``mnist_stitched`` — the default route: ``create_workflow(native=
+16. ``mnist_stitched`` — the default route: ``create_workflow(native=
    True, max_epochs=3)`` with ``engine.stitch=on``: the u8 dataset
    resident, each minibatch one replay of the forward segment's CUDA
    graph (loader head, both forwards, evaluator) and, on train
@@ -193,7 +219,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    (beside the 54.47 of the head with seven index kernels), host gaps,
    busy share, the GEMM bodies by name and one gather kernel a
    minibatch, as in ``mnist``.
-16. ``mnist_stitched_parity`` — the stitched card run against the
+17. ``mnist_stitched_parity`` — the stitched card run against the
    CPU's (native, one train pass), the card's stitch on against off
    (f32 dataset), a minibatch-96 run (short tails) against the CPU's,
    and a run whose GD learning rates are halved at epoch 1 against the
@@ -201,7 +227,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    equal, parameters and momenta within 1e-4 · max |cpu|.  A card run
    whose loader scalar block is written once and never again (a stale
    offset) must fail that check.
-17. ``mnist_scan`` — the stitched native route of ``mnist_stitched``
+18. ``mnist_scan`` — the stitched native route of ``mnist_stitched``
    under ``engine.epoch_scan=auto`` (``veles_tpu_torch/epoch_scan.py``),
    4 epochs: each class pass is one window (validation 10 steps with the
    device verdict in its graph, train 60 steps), epoch 0's windows run
@@ -217,7 +243,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    of the steady epoch's windows; then epoch 2 under ``torch.profiler``
    (kernels a minibatch, busy share, device time by group, one gather
    kernel a minibatch, the split tile's GEMM bodies only).
-18. ``mnist_scan_parity`` — 3 epochs (eager, captured and replayed
+19. ``mnist_scan_parity`` — 3 epochs (eager, captured and replayed
    windows): the card's window route against the card's per-step
    stitched route from the same seed, weights, momenta, confusion and
    closes bit for bit; against the port on the CPU, closes exact and
@@ -226,17 +252,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    each window key captured once at its second window and never again,
    and the run bit for bit the per-step one.  A card window run whose
    stacked offset column repeats row 0 must fail the CPU check.
-19. ``mnist_ae`` — the MLP autoencoder (``samples/mnist_ae.py``,
+20. ``mnist_ae`` — the MLP autoencoder (``samples/mnist_ae.py``,
    784→100 sigmoid→784 sigmoid, f32, MSE, minibatch 100, the stand-in
    as data and targets) stitched with ``epoch_scan`` off and auto, 4
    epochs each: the rmse closes, exactly 440 matmul, 180 gd_dx, 360
    gd_dw and 220 served gathers of the data and targets (440 raw
    tables) on both, the window graphs as in ``mnist_scan``, and the
    two runs' weights bit for bit.
-20. ``mnist_ae_parity`` — the autoencoder under epoch_scan=auto on the
+21. ``mnist_ae_parity`` — the autoencoder under epoch_scan=auto on the
    card against the CPU, 3 epochs: the same closes, each rmse within
    relative 1e-5, parameters within 1e-4 · max |cpu|.
-21. ``ops`` — the ops API on the card: ``matrix_reduce`` of a (4096,
+22. ``ops`` — the ops API on the card: ``matrix_reduce`` of a (4096,
    4096) f32 matrix under ``root.common.engine.pallas_reduce = True``
    launches the reduce kernel once a call (every op and axis) and agrees
    with ``_reduce_ref``; with the knob off it launches nothing.
@@ -244,7 +270,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    bits as the same call with ``device="cpu"``, and another seed gives
    other bits.
 
-22. ``serve_batch`` — the batch serving path at MNIST width: the MLP
+23. ``serve_batch`` — the batch serving path at MNIST width: the MLP
    (784→100 tanh→10 softmax, f32) trained through the stitched workflow
    (``create_workflow(max_epochs=2)``: one validation and one train
    pass; its second validation n_err must fall), served by
@@ -378,8 +404,10 @@ the next timed call.
 Every phase runs with ``precision_level`` 2 (TF32 off).
 
 Then it prints the per-kernel JSON line, all 14 TPU kernels (launches on
-the main paths, serve, serve_int8, serve_paged, serve_spec, train,
-mnist, mnist_stitched, mnist_scan, mnist_ae, serve_batch and ops, max
+the main paths, serve, serve_int8, serve_generate,
+serve_generate_int8, serve_paged,
+serve_spec, train, mnist, mnist_stitched, mnist_scan, mnist_ae,
+serve_batch and ops, max
 abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -3343,7 +3371,6 @@ def phase_serve(device, smi):
     blas_per_step = window["kernels_by_group"].get("matmul", 0) / float(
         window["steps"])
     emit(info)
-    engine.close()
     check(budgets_ok, "serve", "a request did not get exactly %d tokens"
           % SERVE_NEW_TOKENS)
     check(in_vocab, "serve", "a token lies outside the vocabulary")
@@ -3352,7 +3379,9 @@ def phase_serve(device, smi):
           % (launches, prefills, steps))
     check(split_body, "serve", "the decode window's attention kernels "
           "are not all the split body: %s" % window["kernel_names"])
-    return launches, results, info["params_bytes"], blas_per_step
+    # the warmed engine stays open: serve_generate deploys it
+    return (launches, results, info["params_bytes"], blas_per_step,
+            engine, info["tokens_per_s"])
 
 
 def serve_workload(vocab):
@@ -3636,7 +3665,7 @@ def phase_serve_int8(device, smi, serve_streams, bf16_params_bytes,
                                            want_prefill_bodies))
     check(on_decode_body, "serve_int8", "the decode window's qmatmul "
           "kernels by body %s, want the decode body only" % decode_bodies)
-    return launches
+    return launches, results
 
 
 def phase_serve_int8_parity(device):
@@ -3703,6 +3732,366 @@ def phase_serve_int8_parity(device):
           "tol": PARITY_LOGIT_TOL, "modes": report})
     check(ok, "serve_int8_parity", "card and CPU int8 serving disagree: %s"
           % report)
+
+
+#: serve_generate: the clients that ask for the ndjson stream (of the 8),
+#: the streams in flight across the drain swap, and each HTTP call's
+#: time limit
+SERVE_GEN_STREAMED = (0, 2, 4, 6)
+SERVE_GEN_SWAP_STREAMS = 4
+SERVE_GEN_HTTP_TIMEOUT = 300
+#: the gen_* gauges a contiguous engine's scheduler shows, as the JAX
+#: scheduler registers them
+SERVE_GEN_GAUGES = ("gen_queue_depth", "gen_slot_occupancy",
+                    "gen_admitted_total", "gen_tokens_total",
+                    "gen_batch_fill", "gen_ttft_p99_ms",
+                    "gen_preemptions_total", "gen_hbm_per_request_bytes")
+
+
+def _gen_post(port, name, tokens, stream, ctx=None, on_event=None):
+    """One ``POST /generate/<name>`` of ``tokens`` for SERVE_NEW_TOKENS:
+    the status, the headers, the final document, the streamed events
+    (None for a whole reply), the seconds to the first streamed event
+    and to the end.  ``on_event`` sees each streamed event as it
+    arrives."""
+    import urllib.error
+    import urllib.request
+    headers = {"Content-Type": "application/json"}
+    if ctx is not None:
+        headers["traceparent"] = ctx.traceparent()
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/generate/%s" % (port, name),
+        data=json.dumps({"tokens": [int(t) for t in tokens],
+                         "max_new_tokens": SERVE_NEW_TOKENS,
+                         "stream": bool(stream)}).encode(),
+        headers=headers)
+    out = {"events": None, "first_s": None}
+    tic = time.perf_counter()
+    try:
+        with urllib.request.urlopen(
+                req, timeout=SERVE_GEN_HTTP_TIMEOUT) as resp:
+            out["status"], out["headers"] = resp.status, dict(resp.headers)
+            if stream:
+                events = []
+                for line in resp:
+                    if out["first_s"] is None:
+                        out["first_s"] = time.perf_counter() - tic
+                    events.append(json.loads(line))
+                    if on_event is not None:
+                        on_event(events[-1])
+                out["doc"], out["events"] = events[-1], events[:-1]
+            else:
+                out["doc"] = json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        out["status"], out["headers"] = e.code, dict(e.headers)
+        out["doc"] = json.loads(e.read() or b"{}")
+    out["start"], out["end"] = tic, time.perf_counter()
+    return out
+
+
+def _gen_clients(port, name, prompts, streamed, ctxs=None):
+    """``prompts`` from one client thread each, those at ``streamed``
+    asking for the stream: the replies in prompt order, and the wall
+    time from the first send to the last reply."""
+    import threading
+    replies = [None] * len(prompts)
+
+    def client(i):
+        replies[i] = _gen_post(port, name, prompts[i], i in streamed,
+                               ctxs[i] if ctxs else None)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    tic = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return replies, time.perf_counter() - tic
+
+
+def _replies_ok(replies, want, version, streamed):
+    """Every reply a 200 of ``version`` whose tokens equal ``want``'s bit
+    for bit; a streamed reply's events indexed 0..n-1 and their tokens
+    the final document's.  Returns the faults found, by reply."""
+    faults = {}
+    for i, (reply, tokens) in enumerate(zip(replies, want)):
+        doc = reply["doc"]
+        if reply["status"] != 200 or doc.get("version") != version:
+            faults[i] = "status %s, %s" % (reply["status"], doc)
+        elif doc["tokens"] != list(tokens):
+            faults[i] = "tokens differ from index %d" % next(
+                (j for j, (a, b) in enumerate(zip(doc["tokens"], tokens))
+                 if a != b), min(len(doc["tokens"]), len(tokens)))
+        elif (i in streamed) != (reply["events"] is not None):
+            faults[i] = "streamed %s, asked %s" % (
+                reply["events"] is not None, i in streamed)
+        elif reply["events"] is not None and (
+                [e["index"] for e in reply["events"]]
+                != list(range(len(tokens)))
+                or [e["token"] for e in reply["events"]] != doc["tokens"]
+                or doc.get("done") is not True):
+            faults[i] = "stream framing %s ... %s" % (reply["events"][:2],
+                                                      doc)
+    return faults
+
+
+def _share_rate(replies, members):
+    """Tokens a second of the replies ``members``, over their span."""
+    picked = [replies[i] for i in members]
+    tokens = sum(len(r["doc"].get("tokens", ())) for r in picked)
+    span = max(r["end"] for r in picked) - min(r["start"] for r in picked)
+    return tokens / span
+
+
+def _gen_metrics(port):
+    """``GET /metrics``: the ``veles_serve_gen_*`` lines of the page,
+    ``{name with labels: value}``."""
+    import urllib.request
+    with urllib.request.urlopen("http://127.0.0.1:%d/metrics" % port,
+                                timeout=SERVE_GEN_HTTP_TIMEOUT) as resp:
+        page = resp.read().decode()
+    out = {}
+    for line in page.splitlines():
+        if line.startswith("veles_serve_gen_"):
+            key, _, value = line.rpartition(" ")
+            out[key[len("veles_serve_"):]] = float(value)
+    return out
+
+
+def phase_serve_generate(device, smi, engine, serve_streams,
+                         serve_tokens_per_s, int8_streams):
+    """Generative serving through the front door: ``serve``'s warmed
+    CONFIG engine deployed with ``ModelRegistry.deploy_generative`` at
+    the default V-S01 preflight (``warn``), behind ``ServingServer``.
+    ``serve``'s 8 prompts from 8 client threads over HTTP, 4 of them
+    streamed (chunked ndjson), traced: every reply equals ``serve``'s
+    stream bit for bit, every traceparent is echoed, exactly 12 flash
+    forward launches a prefill and 12 decode launches a step, and
+    ``/metrics`` shows the gen_* gauges (512 tokens, 8 TTFT samples).
+    The same traffic again in a profiled window (busy share).  A drain
+    swap to a seed + 1 engine under 4 streams: each finishes its 64
+    tokens as ``serve``'s, a new request is version 2, and v1's KV
+    cache leaves the card.  An int8 deploy (``quantize="int8"``) gives
+    ``serve_int8``'s streams over HTTP, with both qmatmul bodies named
+    in a profiled window and exactly 48 qmatmul launches a prefill and
+    a step.  Returns the launches of the counted HTTP session and those
+    of the int8 round, each set to 0 just before and read just after."""
+    import threading
+    from veles_tpu_torch import obs, trace
+    from veles_tpu_torch.analyze import check_generative
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.gen import GenerativeEngine, TransformerGenModel
+    from veles_tpu_torch.ops import attention, gemm, qgemm
+    from veles_tpu_torch.samples.transformer import CONFIG
+    from veles_tpu_torch.serve import (ModelRegistry, ServingMetrics,
+                                       ServingServer)
+    phase = "serve_generate"
+    layers = CONFIG["layers"]
+    lengths, workload = serve_workload(CONFIG["vocab"])
+    streamed = SERVE_GEN_STREAMED
+
+    def new_engine(seed):
+        model = TransformerGenModel(CONFIG, compute_dtype=torch.bfloat16,
+                                    device=device)
+        return GenerativeEngine(model, max_slots=4, max_seq=2048, seed=seed,
+                                device=device)
+
+    report = check_generative(engine)
+    print(report.render_text(), flush=True)
+    check(not report.has_errors, phase, "V-S01 refuses the serving plan")
+    metrics = ServingMetrics()
+    registry = ModelRegistry(metrics=metrics)
+    server = None
+    tic = time.perf_counter()
+    registry.deploy_generative("lm", engine, warmup=False)
+    deploy_s = time.perf_counter() - tic
+    try:
+        server = ServingServer(registry=registry).start()
+        scheduler = registry.get("lm").scheduler
+
+        # the counted, traced session
+        root.common.engine.trace = "on"
+        trace.configure()
+        trace.recorder.clear()
+        reset_all_launches()
+        prefill0, decode0 = engine.prefill_calls, engine.decode_calls
+        ctxs = [obs.mint() for _ in workload]
+        replies, elapsed = _gen_clients(server.port, "lm", workload,
+                                        streamed, ctxs)
+        counted = {**attention.launches, **gemm.launches,
+                   **qgemm.launches}
+        prefills = engine.prefill_calls - prefill0
+        steps = engine.decode_calls - decode0
+        events = trace.recorder.events()
+        root.common.engine.trace = "off"
+        trace.configure()
+        scraped = _gen_metrics(server.port)
+        # the counted session's TTFT samples alone: the rounds below
+        # add theirs to the same histogram
+        ttft = scheduler.ttft
+        ttft_ms = {"samples": ttft.count, "p50": ttft.percentile(50) * 1e3,
+                   "p99": ttft.percentile(99) * 1e3}
+        faults = _replies_ok(replies, serve_streams, 1, streamed)
+        echoed = [ctx.trace_id in (r["headers"].get("traceparent") or "")
+                  for ctx, r in zip(ctxs, replies)]
+        label = '{model="lm"}'
+        missing = [g for g in SERVE_GEN_GAUGES if g + label not in scraped]
+        tokens = sum(len(r["doc"].get("tokens", ())) for r in replies)
+        decode_ms = [ev[4] / 1e6 for ev in events
+                     if ev[0] == "X" and ev[2] == "decode"]
+        whole = [i for i in range(len(workload)) if i not in streamed]
+        first_ms = [replies[i]["first_s"] * 1e3 for i in streamed]
+
+        # the same traffic in a profiled window: the device's busy share
+        replies2 = []
+        window = profile_window(lambda: replies2.extend(_gen_clients(
+            server.port, "lm", workload, streamed)[0]))
+        faults2 = _replies_ok(replies2, serve_streams, 1, streamed)
+
+        # the drain swap under SERVE_GEN_SWAP_STREAMS streams
+        v1_kv = engine.kv_cache_bytes
+        tic = time.perf_counter()
+        v2 = new_engine(SEED + 1).warmup()
+        v2_build_s = time.perf_counter() - tic
+        n = SERVE_GEN_SWAP_STREAMS
+        first_seen = [threading.Event() for _ in range(n)]
+        swap_replies = [None] * n
+
+        def swap_client(i):
+            swap_replies[i] = _gen_post(
+                server.port, "lm", workload[i], True,
+                on_event=lambda _e: first_seen[i].set())
+
+        threads = [threading.Thread(target=swap_client, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        in_flight = all(e.wait(SERVE_GEN_HTTP_TIMEOUT) for e in first_seen)
+        gpu_sync()
+        mem_before = torch.cuda.memory_allocated(device)
+        tic = time.perf_counter()
+        registry.deploy_generative("lm", v2, warmup=False)
+        swap_s = time.perf_counter() - tic
+        gpu_sync()
+        mem_after = torch.cuda.memory_allocated(device)
+        for t in threads:
+            t.join()
+        swap_faults = _replies_ok(swap_replies, serve_streams[:n], 1,
+                                  range(n))
+        after_swap = _gen_post(server.port, "lm", workload[0], False)
+
+        # the int8 deploy
+        tic = time.perf_counter()
+        e8 = new_engine(SEED)
+        registry.deploy_generative("lm8", e8, quantize="int8")
+        int8_deploy_s = time.perf_counter() - tic
+        # the int8 round's own launches: set to 0 after the deploy's
+        # warmup, read right after the round
+        reset_all_launches()
+        p8, d8 = e8.prefill_calls, e8.decode_calls
+        replies8 = []
+        window8 = profile_window(lambda: replies8.extend(_gen_clients(
+            server.port, "lm8", workload, streamed)[0]),
+            names_of=("qmatmul",))
+        counted8 = {**attention.launches, **gemm.launches,
+                    **qgemm.launches}
+        qmm = counted8["qmatmul"]
+        prefills8, steps8 = e8.prefill_calls - p8, e8.decode_calls - d8
+        faults8 = _replies_ok(replies8, int8_streams, 1, streamed)
+        bodies8 = _bodies(window8["kernel_names"])
+    finally:
+        root.common.engine.trace = "off"
+        trace.configure()
+        if server is not None:
+            server.stop()
+        else:
+            registry.stop()
+    info = {
+        "phase": phase, "nvidia_smi": smi,
+        "config": dict(CONFIG), "compute_dtype": "bfloat16",
+        "preflight": [f.to_dict() for f in report],
+        "deploy_s": deploy_s,
+        "requests": len(workload), "streamed": list(streamed),
+        "prompt_lengths": lengths.tolist(), "new_tokens": SERVE_NEW_TOKENS,
+        "tokens": tokens, "elapsed_s": elapsed,
+        "requests_per_s": len(workload) / elapsed,
+        "tokens_per_s": tokens / elapsed,
+        "direct_tokens_per_s": serve_tokens_per_s,
+        "http_over_direct": tokens / elapsed / serve_tokens_per_s,
+        "streamed_tokens_per_s": _share_rate(replies, streamed),
+        "whole_tokens_per_s": _share_rate(replies, whole),
+        "ttft_samples": ttft_ms["samples"],
+        "ttft_p50_ms": ttft_ms["p50"], "ttft_p99_ms": ttft_ms["p99"],
+        "streamed_first_event_ms": first_ms,
+        # a streamed reply's inter-token time at the client, first event
+        # to the end, beside each whole reply's time: the streamed share
+        # against the whole one, apart from the order of admission
+        "streamed_ms_per_token": [
+            (replies[i]["end"] - replies[i]["start"] - replies[i]["first_s"])
+            * 1e3 / max(1, len(replies[i]["doc"]["tokens"]) - 1)
+            for i in streamed],
+        "reply_s": [r["end"] - r["start"] for r in replies],
+        "decode_step_median_ms": statistics.median(decode_ms),
+        "prefills": prefills, "decode_steps": steps,
+        "launches": counted, "replies_bit_equal_to_serve":
+            len(workload) - len(faults), "faults": faults,
+        "traceparent_echoed": sum(echoed), "gauges_missing": missing,
+        "gen_tokens_total": scraped.get("gen_tokens_total" + label),
+        "gen_ttft_seconds_count":
+            scraped.get("gen_ttft_seconds_count" + label),
+        "profiled": {k: window[k] for k in (
+            "wall_ms", "device_busy_ms", "busy_share", "device_ms_by_group",
+            "kernels_by_group", "top_host_gaps_ms", "host_gaps_ms_total")},
+        "profiled_faults": faults2,
+        "swap": {"v2_build_s": v2_build_s, "deploy_s": swap_s,
+                 "streams_in_flight": in_flight, "faults": swap_faults,
+                 "memory_before": mem_before, "memory_after": mem_after,
+                 "freed_bytes": mem_before - mem_after,
+                 "v1_kv_cache_bytes": v1_kv,
+                 "new_request": {"status": after_swap["status"],
+                                 "version": after_swap["doc"].get(
+                                     "version")}},
+        "int8": {"deploy_s": int8_deploy_s, "prefills": prefills8,
+                 "decode_steps": steps8, "qmatmul_launches": qmm,
+                 "launches": counted8,
+                 "faults": faults8, "bodies": bodies8,
+                 "busy_share": window8["busy_share"],
+                 "wall_ms": window8["wall_ms"]},
+    }
+    ok = {
+        "replies": not faults and not faults2,
+        "traceparent": all(echoed),
+        "launches": (prefills == len(workload) and steps > 0
+                     and counted["flash_fwd"] == layers * prefills
+                     and counted["decode_attn"] == layers * steps),
+        "metrics": (not missing
+                    and info["gen_tokens_total"]
+                    == SERVE_REQUESTS * SERVE_NEW_TOKENS
+                    and info["gen_ttft_seconds_count"] == len(workload)
+                    and ttft_ms["samples"] == len(workload)),
+        "swap": (in_flight and not swap_faults
+                 and after_swap["status"] == 200
+                 and after_swap["doc"].get("version") == 2
+                 and mem_before - mem_after >= v1_kv),
+        "int8": (not faults8 and bodies8["tensor_core"] > 0
+                 and bodies8["decode"] > 0 and prefills8 > 0
+                 and qmm == QMM_PER_LAYER * layers * (prefills8 + steps8)),
+    }
+    info["checks"] = ok
+    info["ok"] = all(ok.values())
+    emit(info)
+    check(ok["replies"], phase, "replies that are not serve's streams: %s "
+          "(profiled round: %s)" % (faults, faults2))
+    check(ok["traceparent"], phase, "traceparent not echoed: %s" % echoed)
+    check(ok["launches"], phase, "launches %s for %d prefills and %d decode "
+          "steps" % (counted, prefills, steps))
+    check(ok["metrics"], phase, "/metrics: missing %s, tokens %s, TTFT "
+          "samples %s" % (missing, info["gen_tokens_total"],
+                          info["gen_ttft_seconds_count"]))
+    check(ok["swap"], phase, "drain swap: %s" % info["swap"])
+    check(ok["int8"], phase, "int8 deploy: %s" % info["int8"])
+    return counted, counted8
 
 
 OPS_SEED = 1234
@@ -5846,14 +6235,20 @@ def main():
         info = phase_device()
         phase_build()
         timed = phase_kernels(device)
-        serve_launches, serve_streams, serve_bytes, serve_blas = \
-            phase_serve(device, info["nvidia_smi"])
+        (serve_launches, serve_streams, serve_bytes, serve_blas,
+         serve_engine, serve_tokens_per_s) = phase_serve(
+             device, info["nvidia_smi"])
         paths = {"serve": serve_launches}
         phase_parity(device)
-        paths["serve_int8"] = phase_serve_int8(
+        paths["serve_int8"], int8_streams = phase_serve_int8(
             device, info["nvidia_smi"], serve_streams, serve_bytes,
             serve_blas)
         phase_serve_int8_parity(device)
+        (paths["serve_generate"],
+         paths["serve_generate_int8"]) = phase_serve_generate(
+             device, info["nvidia_smi"], serve_engine, serve_streams,
+             serve_tokens_per_s, int8_streams)
+        del serve_engine
         paged = phase_serve_paged(device, info["nvidia_smi"])
         paths["serve_paged"] = paged["launches"]
         paths["serve_spec"] = phase_serve_spec(

@@ -293,11 +293,11 @@ def _int8_params():
     # int8 params are served now (tests/test_torch_quant.py); an int8
     # deploy over a tensor-parallel mesh is not (ROADMAP item 7)
     lambda: port_engine(params=_int8_params(), mesh=object()),
-    lambda: GenerativeScheduler(port_engine(), metrics=object()),
+    lambda: GenerativeScheduler(port_engine()).drain(),
     lambda: port_engine(kv="paged", block_size=8).warm_handoff(),
     lambda: port_engine(kv="paged", block_size=8).export_slot(0),
     lambda: port_engine(mesh=object())],
-    ids=["int8", "metrics", "warm_handoff", "export_slot", "mesh"])
+    ids=["int8", "drain", "warm_handoff", "export_slot", "mesh"])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         option()

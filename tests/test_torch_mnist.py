@@ -345,6 +345,33 @@ def test_params_round_trip_without_aliasing():
         wf.params_from_numpy({"0.weights": params["1.weights"]})
 
 
+def test_a_collected_vector_releases_its_bytes_without_the_lock():
+    """The garbage collector can run ``Vector.__del__`` inside the
+    Watcher's locked section of the same thread (an allocation in
+    ``track`` triggers a collection; the lock is not reentrant): the
+    release must not take the lock, and the ledger applies it at its
+    next locked call."""
+    import threading
+    vec = Vector(numpy.zeros(256, numpy.float32), category="collected")
+    vec.initialize(CPUDevice())
+    assert vec.devmem.numel() == 256
+    held = Watcher.hbm_ledger()["by_category"]["collected"]["bytes"]
+    assert held >= 1024
+
+    def collect_inside_the_lock(box):
+        with Watcher.lock:
+            box.pop()                 # the last reference: __del__ runs
+
+    worker = threading.Thread(target=collect_inside_the_lock,
+                              args=([vec],), daemon=True)
+    del vec
+    worker.start()
+    worker.join(10)
+    assert not worker.is_alive()
+    assert Watcher.hbm_ledger()["by_category"]["collected"]["bytes"] \
+        == held - 1024
+
+
 def test_jax_state_loads_into_the_port(engine_config):
     """``params_from_numpy`` takes a JAX workflow's state as it is: from
     other seeds, the port then computes the JAX forward on the first

@@ -9,17 +9,25 @@
 - The CPU path launches no kernel and never loads the kernel builder.
 - A ``root.common.engine`` knob that the JAX package reads in a ported
   module is either ported or refused with ``NotImplementedError``
-  naming its ROADMAP item: ``kernels="xla"`` (item 7), ``health`` other
-  than ``off`` (item 6); ``metrics_every`` is ported (the Decision's
-  closes equal the JAX package's at any cadence) and so is
-  ``trace_capacity`` (``tests/test_torch_trace.py``).
+  naming its ROADMAP item: ``kernels="xla"`` and ``pallas_gemm`` /
+  ``pallas_gather`` set false (item 7), ``health`` other than ``off``
+  (item 6), ``backend="numpy"`` (the decision of item 1);
+  ``metrics_every`` is ported (the Decision's closes equal the JAX
+  package's at any cadence) and so are ``trace_capacity``
+  (``tests/test_torch_trace.py``) and ``backend`` = ``auto`` / ``tpu``
+  (the card) or ``cpu``.  So are the other knobs the JAX package reads
+  there: ``root.common.ensemble.train_ratio`` other than 1 (item 7) and
+  ``root.common.watch.endpoint`` (item 6(c)) are refused, and
+  ``root.common.obs.blackbox_dir`` is ported
+  (``tests/test_torch_obs.py``).
 - ``chip_smoke.py`` fails, and prints no result, without a card or
   without the package beside it.
-- Each part of the batch serving path it leaves out raises
+- Each part of the serving path it leaves out raises
   ``NotImplementedError`` naming its ROADMAP item: a mesh (7(d)),
-  snapshots (7(a)), the analyzer preflight and the strict recompile
-  sentinel (7(e)), generative serving through the registry and the
-  server (6(b)), the fleet (7(d)) and ``notify_status`` (7(e)).
+  snapshots (7(a)), the workflow analyzer preflight and the strict
+  recompile sentinel (7(e)), the fleet (7(d)) and ``notify_status``
+  (7(e)).  Generative serving through the registry and the server is
+  ported (``tests/test_torch_gen_serve.py``).
 """
 
 import ast
@@ -74,12 +82,15 @@ def test_importing_the_serving_path_loads_no_jax_and_no_veles_tpu():
         "import json, sys\n"
         "import veles_tpu_torch.serve, veles_tpu_torch.obs\n"
         "import veles_tpu_torch.prof, veles_tpu_torch.restful_api\n"
+        "import veles_tpu_torch.analyze, veles_tpu_torch.trace.__main__\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     assert proc.returncode == 0, proc.stderr
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("serve.engine", "serve.batcher", "serve.registry",
                    "serve.server", "serve.wire", "serve.metrics",
-                   "obs.context", "obs.slo", "prof.ledger",
+                   "obs.context", "obs.slo", "obs.blackbox", "obs.scrape",
+                   "analyze.findings", "analyze.pricing", "analyze.shapes",
+                   "trace.export", "trace.__main__", "prof.ledger",
                    "prof.sentinel", "restful_api", "metrics"):
         assert "veles_tpu_torch." + module in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -405,6 +416,134 @@ def test_engine_knobs_at_their_defaults_still_run(knobs, kernels):
     assert wf.decision.history and wf.decision.complete
     trace.configure("off")
     assert trace.recorder.capacity == trace.DEFAULT_CAPACITY
+
+
+# -- more knobs the JAX package reads in ported modules ---------------------
+
+#: (node path, knob) pairs the tests below set, restored after each
+CONFIG_KNOBS = (("ensemble", "train_ratio"), ("watch", "endpoint"),
+                ("engine", "backend"), ("engine", "pallas_gemm"),
+                ("engine", "pallas_gather"), ("obs", "blackbox_dir"))
+
+
+@pytest.fixture
+def config_knobs():
+    """``root.common.<node>`` for each knob of CONFIG_KNOBS, each
+    restored (or unset again) after the test."""
+    from veles_tpu_torch.config import root
+    saved = {}
+    for node, key in CONFIG_KNOBS:
+        saved[(node, key)] = getattr(root.common, node).__dict__.get(
+            key, KeyError)
+    yield root.common
+    for (node, key), value in saved.items():
+        if value is KeyError:
+            getattr(root.common, node).__dict__.pop(key, None)
+        else:
+            setattr(getattr(root.common, node), key, value)
+
+
+@pytest.mark.parametrize("ratio", [0.5, 0.9, 2.0])
+def test_ensemble_train_ratio_is_refused_naming_item_7(config_knobs, ratio):
+    """The JAX loader reads the ratio when no keyword is passed, and a
+    ratio below 1 shrinks the TRAIN set: the port refuses it instead of
+    training on another set."""
+    from veles_tpu_torch.samples import mnist
+    config_knobs.ensemble.train_ratio = ratio
+    with pytest.raises(NotImplementedError, match="item 7"):
+        mnist.create_workflow(device="cpu", max_epochs=1)
+
+
+def test_watch_endpoint_is_refused_at_initialize_naming_6c(config_knobs):
+    from veles_tpu_torch.samples import mnist
+    config_knobs.watch.endpoint = "tcp://127.0.0.1:5599"
+    with pytest.raises(NotImplementedError, match=r"item 6\(c\)"):
+        mnist.create_workflow(device="cpu", max_epochs=1)
+
+
+@pytest.mark.parametrize("knob,value,call", [
+    ("pallas_gemm", False, "matmul"), ("pallas_gemm", 0, "matmul"),
+    ("pallas_gemm", False, "qmatmul"),
+    ("pallas_gather", False, "take_rows"),
+    ("pallas_gather", False, "take_rows_served")])
+def test_pallas_knobs_set_false_are_refused_naming_item_7(
+        config_knobs, knob, value, call):
+    """False picks the JAX package's XLA route, which the port has not
+    ported: the wrapper refuses before it runs either route."""
+    from veles_tpu_torch.ops import gather, gemm, qgemm
+    x = torch.ones(3, 4)
+    idx = torch.tensor([0, 1], dtype=torch.int32)
+    calls = {
+        "matmul": lambda: gemm.matmul(x, torch.ones(4, 2)),
+        "qmatmul": lambda: qgemm.qmatmul(
+            x, torch.ones(4, 2, dtype=torch.int8), torch.ones(2)),
+        "take_rows": lambda: gather.take_rows(x, idx),
+        "take_rows_served": lambda: gather.take_rows_served(
+            [(x, 0)], idx, torch.tensor(0, dtype=torch.int32),
+            torch.tensor(2, dtype=torch.int32), 2)}
+    setattr(config_knobs.engine, knob, value)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        calls[call]()
+
+
+@pytest.mark.parametrize("backend,error", [
+    ("numpy", NotImplementedError), ("NumPy", NotImplementedError),
+    ("cuda", ValueError), ("tpuu", ValueError)])
+def test_engine_backend_refusals(config_knobs, backend, error):
+    """``numpy`` names NumpyDevice, which the port does not port by
+    decision (item 1); a value the JAX package does not know raises its
+    ValueError."""
+    from veles_tpu_torch.backends import make_device
+    config_knobs.engine.backend = backend
+    with pytest.raises(error, match="item 1" if error is
+                       NotImplementedError else "unknown backend"):
+        make_device()
+
+
+@pytest.mark.parametrize("backend", ["auto", "tpu", "AUTO", None])
+def test_engine_backend_auto_and_tpu_name_the_card(config_knobs, no_cuda,
+                                                   backend):
+    from veles_tpu_torch.backends import CPUDevice, make_device
+    if backend is None:
+        config_knobs.engine.__dict__.pop("backend", None)
+    else:
+        config_knobs.engine.backend = backend
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_device()
+    # an explicit device wins over the knob
+    assert isinstance(make_device("cpu"), CPUDevice)
+
+
+def test_engine_backend_cpu_runs_the_workflow_on_the_cpu(config_knobs,
+                                                        no_cuda):
+    """``cpu`` is the config's request for CPUDevice, not a fallback:
+    the workflow built without a device runs there."""
+    from veles_tpu_torch.backends import CPUDevice, make_device
+    from veles_tpu_torch.samples import mnist
+    config_knobs.engine.backend = "cpu"
+    assert isinstance(make_device(), CPUDevice)
+    wf = mnist.create_workflow(max_epochs=1)
+    wf.run()
+    assert wf.decision.history
+
+
+def test_closed_knobs_at_their_defaults_still_run(config_knobs):
+    """train_ratio 1, an empty watch endpoint, pallas_gemm and
+    pallas_gather True: the stitched MNIST workflow runs and the
+    wrappers take their plain versions on CPU tensors."""
+    from veles_tpu_torch.ops import gather, gemm
+    from veles_tpu_torch.samples import mnist
+    config_knobs.ensemble.train_ratio = 1.0
+    config_knobs.watch.endpoint = ""
+    config_knobs.engine.pallas_gemm = True
+    config_knobs.engine.pallas_gather = True
+    wf = mnist.create_workflow(device="cpu", max_epochs=1)
+    wf.run()
+    assert wf.decision.history and wf.decision.complete
+    x = torch.ones(3, 4)
+    assert gemm.matmul(x, torch.ones(4, 2)).tolist() == [[4.0, 4.0]] * 3
+    assert gather.take_rows(x, torch.tensor([2], dtype=torch.int32)
+                            ).tolist() == [[1.0] * 4]
 
 
 # -- the kernel sources and their builder -----------------------------------
@@ -809,9 +948,6 @@ def test_recompile_sentinel_strict_is_refused_naming_7e(knobs):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda r: r.deploy_generative("lm", None), "6(b)"),
-    (lambda r: r.generate("lm", [1, 2]), "6(b)"),
-    (lambda r: r.preflight_generative(None), "6(b)"),
     (lambda r: r.deploy_fleet("fleet", None), "7(d)"),
     (lambda r: r.load_snapshot("m", "model.pickle"), "7(a)"),
 ])
@@ -824,8 +960,6 @@ def test_registry_refusals_name_their_items(call, item):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.handle_generate("/generate", b"{}"), "6(b)"),
-    (lambda s: next(iter(s.stream_generate("/generate", b"{}"))), "6(b)"),
     (lambda s: s.notify_status("http://127.0.0.1:9/update"), "7(e)"),
 ])
 def test_server_refusals_name_their_items(call, item):

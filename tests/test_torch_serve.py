@@ -312,3 +312,59 @@ def test_quantization_error_names_the_stage_jax_names():
     assert port_engine.quantized is None
     for engine in (jax_engine, port_engine):
         engine.close()
+
+
+MNIST_WIDTHS = (784, 100, 10)
+
+
+@pytest.fixture(scope="module")
+def mnist_engines():
+    """A 784 → 100 tanh → 10 engine of each package over the same
+    seeded numpy weights (the MNIST MLP's widths), warmed; buckets up to
+    64 rows."""
+    rng = numpy.random.default_rng(11)
+    params = [{"w": (rng.standard_normal((a, b)) / numpy.sqrt(a)).astype(
+        numpy.float32), "b": rng.standard_normal(b).astype(numpy.float32)}
+        for a, b in zip(MNIST_WIDTHS, MNIST_WIDTHS[1:])]
+
+    def jax_apply(p, x):
+        return JaxAll2All.pure(p[1], JaxAll2All.pure(p[0], x,
+                                                     activation="tanh"))
+
+    wf = DummyWorkflow()
+    tanh, linear = All2AllTanh(wf), All2All(wf)
+
+    def apply_fn(p, x):
+        return linear.pure(p[1], tanh.pure(p[0], x))
+
+    jax_engine = JaxEngine(params, jax_apply, sample_shape=(784,),
+                           max_batch_size=64)
+    port_engine = InferenceEngine(params, apply_fn, (784,),
+                                  max_batch_size=64, device="cpu")
+    for engine in (jax_engine, port_engine):
+        engine.warmup()
+    yield jax_engine, port_engine
+    for engine in (jax_engine, port_engine):
+        engine.close()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 8, 13, 31, 33, 64])
+def test_mnist_width_bucket_rows_equal_the_unbatched_forward(mnist_engines,
+                                                             n):
+    """The JAX package's promise (``tests/test_serve.py``): a padded
+    bucket's rows equal the forward at the exact shape byte for byte.
+    On the CPU the plain GEMM takes each row as its own product, so it
+    holds at fan-in 784 too (MKL's M-sized kernels broke it); the rows
+    also agree with the JAX engine within 1e-5."""
+    jax_engine, port_engine = mnist_engines
+    x = numpy.random.default_rng(100 + n).random((n, 784)).astype(
+        numpy.float32)
+    got = port_engine.infer(x)
+    assert got.shape == (n, 10) and got.dtype == numpy.float32
+    assert got.tobytes() == port_engine.reference_forward(x).tobytes()
+    # each row alone, as a 1-row request would be served
+    for i in (0, n - 1):
+        assert got[i:i + 1].tobytes() == port_engine.reference_forward(
+            x[i:i + 1]).tobytes()
+    numpy.testing.assert_allclose(got, jax_engine.infer(x), rtol=0,
+                                  atol=1e-5)

@@ -465,19 +465,6 @@ def test_server_answers_like_the_jax_server():
         jax_server.stop()
 
 
-def test_generate_route_answers_501_naming_6b():
-    server = ServingServer(engine=_identity_engine(1.0), port=0).start()
-    try:
-        status, headers, body = _request(
-            server.port, "POST", "/generate/lm",
-            json.dumps({"tokens": [1, 2]}).encode())
-        assert status == 501
-        assert headers["Content-Type"] == "application/json"
-        assert "item 6(b)" in json.loads(body)["error"]
-    finally:
-        server.stop()
-
-
 def test_backpressure_maps_to_503_with_the_jax_retry_after():
     stub = _StubEngine(max_batch_size=4, block=True)
     server = ServingServer(port=0, batcher_config={"max_wait_ms": 1,

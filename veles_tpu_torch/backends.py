@@ -97,6 +97,23 @@ def check_kernels(route):
             "yet (ROADMAP.md, 'Slices still to port', item 7)" % route)
 
 
+def check_pallas_knob(knob, route, is_off):
+    """Refuse ``root.common.engine.<knob>`` (``pallas_gemm`` or
+    ``pallas_gather``) when it is set and ``is_off(value)``: the caller
+    says which values pick the JAX package's XLA route for ``route``,
+    as ``veles_tpu/ops/gemm.py``, ``qgemm.py`` and ``gather.py`` read
+    them.  That route is not ported, as :func:`check_kernels` refuses
+    ``kernels="xla"``.  Unset, or set to a value that keeps the kernel,
+    the port launches its kernel."""
+    from veles_tpu_torch.config import root
+    value = root.common.engine.get(knob, None)
+    if value is not None and is_off(value):
+        raise NotImplementedError(
+            "engine.%s=%r (%s) is not ported to veles_tpu_torch yet "
+            "(ROADMAP.md, 'Slices still to port', item 7)"
+            % (knob, value, route))
+
+
 def bound_seconds(nbytes, ops, dtype="bfloat16"):
     """The roofline bound of one call: the larger of its bytes over the
     memory rate and its operations over the peak rate for ``dtype``.
@@ -164,13 +181,36 @@ class CPUDevice(Device):
         return torch.device("cpu")
 
 
+#: ``root.common.engine.backend`` values, as the JAX package names them
+BACKENDS = ("auto", "cpu", "numpy", "tpu")
+
+
 def make_device(device=None):
-    """A workflow device from what an entry point was given: ``None`` →
-    the card (raises without one); ``"cpu"``, ``"cuda"``, a
-    ``torch.device`` or a :class:`Device` as asked."""
+    """A workflow device from what an entry point was given: ``"cpu"``,
+    ``"cuda"``, a ``torch.device`` or a :class:`Device` as asked.
+    ``None`` reads ``root.common.engine.backend``, as the JAX package's
+    ``make_device`` does: ``"auto"`` (the default) and ``"tpu"`` (the
+    JAX package's accelerator backend) are the card, raising without
+    one; ``"cpu"`` is :class:`CPUDevice`, asked for by the config and
+    not a fallback; ``"numpy"`` raises ``NotImplementedError``, since
+    ``NumpyDevice`` is not ported by decision; any other value raises
+    the JAX package's ``ValueError``."""
     if isinstance(device, Device):
         return device
     if device is None:
+        from veles_tpu_torch.config import root
+        backend = str(root.common.engine.get("backend", "auto")
+                      or "auto").lower()
+        if backend not in BACKENDS:
+            raise ValueError("unknown backend %r (have: %s)"
+                             % (backend, ", ".join(BACKENDS)))
+        if backend == "numpy":
+            raise NotImplementedError(
+                "root.common.engine.backend='numpy': NumpyDevice is not "
+                "ported by decision (ROADMAP.md, 'Slices still to port', "
+                "item 1); use 'cpu'")
+        if backend == "cpu":
+            return CPUDevice()
         return CUDADevice()
     resolved = resolve_device(device)
     if resolved.type == "cpu":

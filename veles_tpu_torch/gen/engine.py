@@ -41,6 +41,7 @@ from veles_tpu_torch.gen.paged import BlockPool
 from veles_tpu_torch.gen.prefix import PrefixCache
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.memory import Watcher
+from veles_tpu_torch.obs import context as obs_context
 from veles_tpu_torch.ops.attention import flash_attention
 from veles_tpu_torch.samples.transformer import _not_ported
 
@@ -302,6 +303,10 @@ class GenerativeEngine(Logger):
         self._free = list(range(self.max_slots))
         #: slot -> in-flight chunked-prefill state
         self._chunking = {}
+        #: slot -> its occupant's distributed-trace id (None untraced),
+        #: stamped at admission from the ambient obs context, so the
+        #: shared decode span names the requests each step served
+        self.slot_trace = [None] * self.max_slots
 
         #: the speculative proposer (None = plain decode): n-gram prompt
         #: lookup, or a registered small draft model
@@ -471,6 +476,16 @@ class GenerativeEngine(Logger):
     def active_slots(self):
         return int(self.slot_active.sum())
 
+    def prefilling_slots(self):
+        return len(self._chunking)
+
+    def occupancy(self):
+        """Occupied slots (decoding or mid chunked prefill) over
+        ``max_slots``: host counters only, so a ``/metrics`` scrape
+        never waits on the card."""
+        return (self.active_slots() + len(self._chunking)) \
+            / float(self.max_slots)
+
     def _validate_prompt_len(self, n):
         """The two guards every admission path shares."""
         n = int(n)
@@ -566,6 +581,7 @@ class GenerativeEngine(Logger):
             raise ValueError("slot %d is not active" % slot)
         self.slot_active[slot] = False
         self.slot_len[slot] = 0
+        self.slot_trace[slot] = None
         if self._pool is not None:
             self._pool.release(slot)
         # deterministic admission: the free list stays sorted
@@ -638,8 +654,10 @@ class GenerativeEngine(Logger):
         padded = numpy.zeros((1, bucket), numpy.int32)
         padded[0, :n] = tokens
         self.prefill_calls += 1
+        self.slot_trace[slot] = obs_context.current_trace_id()
         with trace.span("gen", "prefill",
-                        {"bucket": bucket, "slot": slot, "len": n},
+                        obs_context.tag({"bucket": bucket, "slot": slot,
+                                         "len": n}),
                         role="server"), torch.inference_mode():
             if self._pool is not None:
                 block_ids = numpy.zeros(bucket // self.block_size,
@@ -682,6 +700,7 @@ class GenerativeEngine(Logger):
         padded[:n] = tokens
         self._chunking[slot] = {"tokens": padded, "n": n, "done": start0,
                                 "tag": tag}
+        self.slot_trace[slot] = obs_context.current_trace_id()
         return slot, None
 
     def prefill_step(self, slot):
@@ -695,7 +714,8 @@ class GenerativeEngine(Logger):
         tokens = state["tokens"][None, start:start + chunk]
         self.prefill_calls += 1
         with trace.span("gen", "prefill_chunk",
-                        {"slot": slot, "start": start, "len": chunk_len},
+                        obs_context.tag({"slot": slot, "start": start,
+                                         "len": chunk_len}),
                         role="server"), torch.inference_mode():
             if self._pool is not None:
                 first = start // self.block_size
@@ -738,7 +758,15 @@ class GenerativeEngine(Logger):
         positions = numpy.where(active, self.slot_len, 0)
         toks = numpy.where(active, self.slot_token, 0)
         self.decode_calls += 1
-        with trace.span("gen", "decode", {"active": int(active.sum())},
+        decode_args = {"active": int(active.sum())}
+        if trace.enabled():
+            # which requests this shared step decoded: the decode half
+            # of every co-resident's waterfall, one span
+            traces = sorted({t for s, t in enumerate(self.slot_trace)
+                             if t is not None and active[s]})
+            if traces:
+                decode_args["traces"] = traces
+        with trace.span("gen", "decode", decode_args,
                         role="server"), torch.inference_mode():
             args = (self._put(toks), self._put(positions),
                     self._put(active, torch.bool))

@@ -21,10 +21,20 @@ uncontended run).  With a speculative engine each decode is one
 draft-then-verify round, its accepted span emitted token by token
 through the same finish predicate.
 
+Given a ``metrics`` sink (:class:`veles_tpu_torch.serve.metrics
+.ServingMetrics`), the scheduler registers the JAX package's ``gen_*``
+gauges and its ``gen_ttft_seconds`` histogram under ``model="<name>"``
+and drops them at :meth:`GenerativeScheduler.stop`; every gauge reads
+host counters only, so a scrape on an HTTP thread never waits on the
+card or on a step.  With tracing on, a request carries the trace
+context it was submitted under: its enqueue, admit and evict instants,
+its ``queue_wait``, ``prefill_phase`` and ``decode_phase`` spans and
+the engine's dispatch spans carry its trace id.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-item: the ``/metrics`` gauges (``metrics`` must be None; item 6), the
-telemetry-bus snapshots (item 6), and the fleet page handoff and drain
-(``submit_handoff``, ``drain``; item 7).
+item: the fleet page handoff and drain (``submit_handoff``, ``drain``;
+item 7(d)).  The telemetry-bus snapshots (``watch_snapshot``) wait for
+``watch/`` (item 6(c)).
 """
 
 import collections
@@ -37,19 +47,18 @@ import numpy
 from veles_tpu_torch import trace
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.metrics import LatencyHistogram
+from veles_tpu_torch.obs import context as obs_context
 from veles_tpu_torch.samples.transformer import _not_ported
-
-
-class QueueFull(RuntimeError):
-    """Request rejected: the queue is at capacity."""
+from veles_tpu_torch.serve.batcher import QueueFull  # noqa: F401
 
 
 class GenRequest(object):
     __slots__ = ("tokens", "max_new_tokens", "future", "on_token",
                  "submitted", "first_token_at", "generated", "slot",
-                 "finish_reason", "admit_seq", "preemptions")
+                 "finish_reason", "admit_seq", "preemptions", "ctx",
+                 "queued_at", "admitted_at")
 
-    def __init__(self, tokens, max_new_tokens, on_token=None):
+    def __init__(self, tokens, max_new_tokens, on_token=None, ctx=None):
         self.tokens = tokens
         self.max_new_tokens = int(max_new_tokens)
         self.future = Future()
@@ -62,6 +71,21 @@ class GenRequest(object):
         #: admission stamp: preemption evicts the YOUNGEST (largest)
         self.admit_seq = -1
         self.preemptions = 0
+        #: the trace context captured at submit (None untraced): every
+        #: span of this request's waterfall carries its ids across the
+        #: thread handoff
+        self.ctx = ctx
+        #: start of the current queue residence (submit, then each
+        #: preemption requeue): the queue_wait span's begin
+        self.queued_at = self.submitted
+        self.admitted_at = None
+
+    def span_args(self, args=None):
+        """``args`` tagged with this request's trace identity (the dict
+        unchanged when untraced)."""
+        if self.ctx is None:
+            return args
+        return self.ctx.span_args(args)
 
     def prefix(self):
         """The tokens a (re-)admission must prefill: the prompt plus
@@ -108,14 +132,17 @@ class GenerativeScheduler(Logger):
     def __init__(self, engine, metrics=None, name="default",
                  max_queue=256, **kwargs):
         super(GenerativeScheduler, self).__init__(**kwargs)
-        if metrics is not None:
-            _not_ported("the scheduler's /metrics gauges", 6)
         self.engine = engine
         self.name = name
         self.max_queue = int(max_queue)
+        self.metrics = metrics
         self._queue = collections.deque()
         self._active = {}            # slot -> decoding GenRequest
         self._prefilling = {}        # slot -> chunk-admitting request
+        #: the request between its queue pop and its slot: a draining
+        #: stop() waits for it too (the JAX scheduler's drain does not,
+        #: and fails such a request "mid-stream")
+        self._admitting = None
         self._cond = threading.Condition()
         self._stopped = False
         self._thread = None
@@ -128,6 +155,75 @@ class GenerativeScheduler(Logger):
         self._admit_counter = 0
         #: submit → first streamed token (queue wait + prefill)
         self.ttft = LatencyHistogram()
+        self._gauges = {}
+        if metrics is not None:
+            self._register_gauges(metrics)
+
+    # -- metrics -----------------------------------------------------------
+    def _gauge_names(self):
+        """The gauges this engine shows, as the JAX scheduler registers
+        them: the block-pool pair only where a pool exists, the prefix
+        hit rate with the prefix cache, the speculation pair with a
+        proposer."""
+        names = ["gen_queue_depth", "gen_slot_occupancy",
+                 "gen_admitted_total", "gen_tokens_total", "gen_batch_fill",
+                 "gen_ttft_p99_ms", "gen_preemptions_total",
+                 "gen_hbm_per_request_bytes"]
+        engine = self.engine
+        if getattr(engine, "kv_mode", "contiguous") == "paged":
+            names += ["gen_blocks_total", "gen_blocks_free"]
+        if getattr(engine, "prefix_cache", False):
+            names += ["gen_prefix_hit_rate"]
+        if getattr(engine, "speculative", None):
+            names += ["gen_spec_accept_rate", "gen_spec_tokens_per_dispatch"]
+        return names
+
+    def _register_gauges(self, metrics):
+        engine = self.engine
+        sources = {
+            "gen_queue_depth": lambda: len(self._queue),
+            "gen_slot_occupancy": engine.occupancy,
+            "gen_admitted_total": lambda: self.admitted_total,
+            "gen_tokens_total": lambda: self.tokens_total,
+            "gen_batch_fill": self.batch_fill,
+            "gen_ttft_p99_ms":
+                lambda: round(self.ttft.percentile(99) * 1e3, 3),
+            "gen_preemptions_total": lambda: engine.preemptions_total,
+            "gen_hbm_per_request_bytes": engine.hbm_per_request_bytes,
+            "gen_blocks_total": lambda: engine.blocks_total,
+            "gen_blocks_free": lambda: engine.blocks_free,
+            "gen_prefix_hit_rate":
+                lambda: round(engine.prefix_hit_rate(), 4),
+            "gen_spec_accept_rate":
+                lambda: round(engine.spec_accept_rate(), 4),
+            "gen_spec_tokens_per_dispatch":
+                lambda: round(engine.spec_tokens_per_dispatch(), 4),
+        }
+        label = '{model="%s"}' % self.name
+        self._gauges = {name + label: sources[name]
+                        for name in self._gauge_names()}
+        for key, fn in self._gauges.items():
+            metrics.register_gauge(key, fn)
+        metrics.register_histogram("gen_ttft_seconds", self.ttft,
+                                   "submit -> first generated token",
+                                   labels={"model": self.name})
+
+    def _unregister_gauges(self, metrics):
+        """Drop this scheduler's gauges and histogram, and only those: a
+        successor deployed under the same name (a drain swap) has
+        registered its own under the same keys before this one stops,
+        and they stay."""
+        for key, fn in self._gauges.items():
+            metrics.unregister_gauge(key, fn)
+        metrics.unregister_histogram("gen_ttft_seconds",
+                                     labels={"model": self.name},
+                                     hist=self.ttft)
+
+    def attach_metrics(self, metrics):
+        """Record into ``metrics`` from now on and show the gauges there
+        (a registry handed its sink after this scheduler started)."""
+        self.metrics = metrics
+        self._register_gauges(metrics)
 
     def batch_fill(self):
         """Mean decode-row utilisation: active slots served per decode
@@ -155,8 +251,8 @@ class GenerativeScheduler(Logger):
             raise ValueError("max_new_tokens must be >= 1")
         if len(tokens) < 1:
             raise ValueError("empty prompt")
-        return self.submit_request(GenRequest(tokens, max_new_tokens,
-                                              on_token))
+        return self.submit_request(GenRequest(
+            tokens, max_new_tokens, on_token, ctx=obs_context.current()))
 
     def submit_request(self, request):
         """Enqueue a pre-built :class:`GenRequest` (what :meth:`submit`
@@ -180,22 +276,27 @@ class GenerativeScheduler(Logger):
                 raise RuntimeError("scheduler is stopped")
             if len(self._queue) >= self.max_queue:
                 self.shed_total += 1
+                if self.metrics is not None:
+                    self.metrics.record_shed()
                 raise QueueFull(
                     "generation queue full (%d requests, limit %d)"
                     % (len(self._queue), self.max_queue))
             self._queue.append(request)
             self._cond.notify()
-        trace.instant("gen", "enqueue",
-                      {"prompt": len(request.tokens),
-                       "max_new": request.max_new_tokens,
-                       "resumed": bool(request.generated)}, role="server")
+        if trace.enabled():
+            trace.instant("gen", "enqueue",
+                          request.span_args(
+                              {"prompt": len(request.tokens),
+                               "max_new": request.max_new_tokens,
+                               "resumed": bool(request.generated)}),
+                          role="server")
         return request.future
 
     def submit_handoff(self, payload, request):
-        _not_ported("the fleet page handoff (submit_handoff)", 7)
+        _not_ported("the fleet page handoff (submit_handoff)", "7(d)")
 
     def drain(self, timeout=30.0):
-        _not_ported("the fleet drain", 7)
+        _not_ported("the fleet drain", "7(d)")
 
     def generate(self, tokens, max_new_tokens=16, timeout=120.0,
                  on_token=None):
@@ -219,6 +320,16 @@ class GenerativeScheduler(Logger):
         if request.first_token_at is None:
             request.first_token_at = time.perf_counter()
             self.ttft.record(request.first_token_at - request.submitted)
+            if trace.enabled() and request.admitted_at is not None:
+                # the prefill phase of the request's waterfall: admission
+                # to first token (one bucket call or the chunk cadence)
+                trace.complete(
+                    "gen", "prefill_phase", int(request.admitted_at * 1e9),
+                    int((request.first_token_at - request.admitted_at)
+                        * 1e9),
+                    request.span_args({"slot": request.slot,
+                                       "prompt": len(request.tokens)}),
+                    role="server")
         self.tokens_total += 1
         if request.on_token is not None:
             try:
@@ -241,13 +352,27 @@ class GenerativeScheduler(Logger):
         if trace.enabled():
             now = time.perf_counter()
             trace.instant("gen", "evict",
-                          {"slot": request.slot, "reason": reason,
-                           "tokens": len(request.generated)},
+                          request.span_args(
+                              {"slot": request.slot, "reason": reason,
+                               "tokens": len(request.generated)}),
                           role="server")
+            if request.first_token_at is not None \
+                    and now > request.first_token_at:
+                # the decode phase: first token to eviction
+                trace.complete(
+                    "gen", "decode_phase", int(request.first_token_at * 1e9),
+                    int((now - request.first_token_at) * 1e9),
+                    request.span_args({"slot": request.slot,
+                                       "tokens": len(request.generated)}),
+                    role="server")
+            # the whole request: submit to resolution (it encloses the
+            # queue_wait, prefill_phase and decode_phase spans)
             trace.complete("gen", "request", int(request.submitted * 1e9),
                            int((now - request.submitted) * 1e9),
-                           {"reason": reason,
-                            "tokens": len(request.generated)},
+                           request.span_args(
+                               {"reason": reason,
+                                "tokens": len(request.generated),
+                                "preemptions": request.preemptions}),
                            role="server")
         request.future.set_result(list(request.generated))
 
@@ -261,9 +386,13 @@ class GenerativeScheduler(Logger):
         self._prefilling.pop(slot, None)
         request.slot = None
         request.preemptions += 1
-        trace.instant("gen", "preempt",
-                      {"slot": slot, "generated": len(request.generated)},
-                      role="server")
+        request.queued_at = time.perf_counter()
+        if trace.enabled():
+            trace.instant("gen", "preempt",
+                          request.span_args(
+                              {"slot": slot,
+                               "generated": len(request.generated)}),
+                          role="server")
         with self._cond:
             self._queue.appendleft(request)
 
@@ -315,28 +444,44 @@ class GenerativeScheduler(Logger):
                 if not self.engine.can_admit(len(head.prefix()),
                                              head.prefix()):
                     break          # FIFO: no overtaking the head
-                request = self._queue.popleft()
+                request = self._admitting = self._queue.popleft()
             try:
-                slot, token = self.engine.admit(request.prefix())
+                # the request's trace context, so the engine's dispatch
+                # spans (prefill, prefill_chunk) carry its identity
+                with obs_context.activate(request.ctx):
+                    slot, token = self.engine.admit(request.prefix())
             except Exception as exc:  # noqa: BLE001 - per-request
                 # it already left the queue, so fail THIS request's
                 # future; the next queued request still gets its attempt
                 self.exception("admission failed; failing the request")
+                self._admitting = None
                 if not request.future.done():
                     request.future.set_exception(exc)
                 continue
             request.slot = slot
+            request.admitted_at = time.perf_counter()
             self._admit_counter += 1
             request.admit_seq = self._admit_counter
             self.admitted_total += 1
-            trace.instant("gen", "admit",
-                          {"slot": slot, "prompt": len(request.tokens),
-                           "resumed": bool(request.generated)},
-                          role="server")
+            if trace.enabled():
+                trace.instant("gen", "admit",
+                              request.span_args(
+                                  {"slot": slot, "prompt": len(request.tokens),
+                                   "resumed": bool(request.generated)}),
+                              role="server")
+                # the queue-wait phase: (re-)enqueue to admission
+                trace.complete(
+                    "gen", "queue_wait", int(request.queued_at * 1e9),
+                    int((request.admitted_at - request.queued_at) * 1e9),
+                    request.span_args({"slot": slot,
+                                       "resumed": bool(request.generated)}),
+                    role="server")
             if token is None:
                 self._prefilling[slot] = request
             else:
                 self._active[slot] = request
+            self._admitting = None
+            if token is not None:
                 self._emit(request, token)   # may evict immediately
                 emitted += 1
         return emitted
@@ -348,7 +493,8 @@ class GenerativeScheduler(Logger):
         for slot in sorted(self._prefilling):
             request = self._prefilling[slot]
             try:
-                token = self.engine.prefill_step(slot)
+                with obs_context.activate(request.ctx):
+                    token = self.engine.prefill_step(slot)
             except Exception as exc:  # noqa: BLE001 - per-request
                 self.exception("prefill chunk failed; failing the request")
                 del self._prefilling[slot]
@@ -467,7 +613,8 @@ class GenerativeScheduler(Logger):
             while True:
                 with self._cond:
                     idle = not (self._queue or self._active
-                                or self._prefilling)
+                                or self._prefilling
+                                or self._admitting is not None)
                 if idle:
                     break
                 time.sleep(0.005)
@@ -496,6 +643,8 @@ class GenerativeScheduler(Logger):
             if not request.future.done():
                 request.future.set_exception(
                     RuntimeError("scheduler stopped mid-stream"))
+        if self.metrics is not None:
+            self._unregister_gauges(self.metrics)
 
     def describe(self):
         return {

@@ -38,6 +38,7 @@ import threading
 import numpy
 
 from veles_tpu_torch import prng, trace
+from veles_tpu_torch.config import root
 from veles_tpu_torch.memory import Vector
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.normalization import normalizer_factory
@@ -74,6 +75,13 @@ class Loader(Unit):
                 raise NotImplementedError(
                     "Loader option %r is not ported yet (ROADMAP item %s)"
                     % (key, item))
+        # the JAX package reads the ensemble's ratio from the config when
+        # no keyword is passed; a ratio below 1 shrinks the TRAIN set
+        ratio = float(root.common.ensemble.get("train_ratio", 1.0) or 1.0)
+        if ratio != 1.0:
+            raise NotImplementedError(
+                "root.common.ensemble.train_ratio=%r is not ported yet "
+                "(ROADMAP item 7)" % ratio)
         self.class_lengths = [0, 0, 0]
         self.class_end_offsets = [0, 0, 0]
         self.max_minibatch_size = kwargs.get("minibatch_size", 100)

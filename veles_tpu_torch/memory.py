@@ -23,8 +23,7 @@ read, and from then on a re-upload after ``map_write``/``reset`` copies
 into the bound tensor (counted in the Watcher as an in-place upload),
 and a published tensor of the same shape and type is copied into it.
 ``bind`` rebinds unconditionally: a segment binds the Vectors it
-produces to its graph's outputs once.  The prefetch ``StagingRing`` is
-not ported (ROADMAP item 1c).
+produces to its graph's outputs once.
 """
 
 import threading
@@ -51,11 +50,33 @@ class Watcher(object):
     d2h_transfers = 0
     bytes_by_category = {}
     peak_by_category = {}
+    #: ``(nbytes, category, generation)`` releases of Vectors collected by
+    #: the garbage collector, which may run inside a locked section of
+    #: this very thread (the lock is not reentrant): each locked call
+    #: applies them first
+    _deferred = []
+
+    @classmethod
+    def _apply_deferred(cls):
+        """Apply the deferred releases; the caller holds the lock."""
+        while cls._deferred:
+            nbytes, cat, generation = cls._deferred.pop()
+            if generation == cls.generation:
+                cls.bytes_in_use -= nbytes
+                cls.bytes_by_category[cat] = \
+                    cls.bytes_by_category.get(cat, 0) - nbytes
+
+    @classmethod
+    def untrack_later(cls, nbytes, category, generation):
+        """A release that takes no lock (``Vector.__del__``'s): applied
+        at the next locked call, unless a ``reset()`` came between."""
+        cls._deferred.append((nbytes, category or "other", generation))
 
     @classmethod
     def track(cls, nbytes, category=None):
         cat = category or "other"
         with cls.lock:
+            cls._apply_deferred()
             cls.bytes_in_use += nbytes
             cls.peak_bytes = max(cls.peak_bytes, cls.bytes_in_use)
             total = cls.bytes_by_category.get(cat, 0) + nbytes
@@ -67,6 +88,7 @@ class Watcher(object):
     def untrack(cls, nbytes, category=None):
         cat = category or "other"
         with cls.lock:
+            cls._apply_deferred()
             cls.bytes_in_use -= nbytes
             cls.bytes_by_category[cat] = \
                 cls.bytes_by_category.get(cat, 0) - nbytes
@@ -102,6 +124,7 @@ class Watcher(object):
     def hbm_ledger(cls):
         """JSON-able snapshot: totals and per-category current/peak."""
         with cls.lock:
+            cls._apply_deferred()
             by_category = {
                 cat: {"bytes": cls.bytes_by_category.get(cat, 0),
                       "peak": peak}
@@ -113,6 +136,7 @@ class Watcher(object):
     @classmethod
     def reset(cls):
         with cls.lock:
+            cls._deferred.clear()
             cls.generation += 1
             cls.bytes_in_use = 0
             cls.peak_bytes = 0
@@ -320,8 +344,14 @@ class Vector(object):
         self._devmem = None
 
     def __del__(self):
+        # the collector may run this inside the Watcher's locked section
+        # of the same thread: release without taking the lock
         try:
-            self._drop_devmem()
+            if self._tracked:
+                Watcher.untrack_later(self._tracked, self.category,
+                                      self._tracked_gen)
+            self._tracked = 0
+            self._devmem = None
         except Exception:  # pragma: no cover - interpreter shutdown
             pass
 

@@ -48,6 +48,7 @@ import math
 
 import torch
 
+from veles_tpu_torch.backends import check_pallas_knob
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 
 #: launches since the last reset_launches(), under "gather_norm" when the
@@ -334,6 +335,12 @@ def _specs(tables):
     return specs, tensors
 
 
+def _forced_off(value):
+    """``pallas_gather`` picks the JAX package's jnp gather only when it
+    is the boolean False (``veles_tpu/ops/gather.py`` honours a bool)."""
+    return value is False
+
+
 def take_rows_group(tables, indices):
     """Rows ``indices`` (int32) of every table in one launch: ``tables``
     holds up to four ``(data, how)`` pairs, ``how`` a raw table's pad
@@ -341,6 +348,8 @@ def take_rows_group(tables, indices):
     pair that normalizes it (:func:`take_rows_norm`).  Returns one
     output per table: the kernel on CUDA tensors,
     :func:`_gather_group_ref` on CPU tensors."""
+    check_pallas_knob("pallas_gather", "the jnp row gather",
+                      _forced_off)
     specs, tensors = _specs(tables)
     if on_gpu(indices, *tensors):
         return _gather_group_cuda(specs, indices)
@@ -355,6 +364,8 @@ def take_rows_served(tables, shuffled, offset, size, count):
     ``offset`` and ``size`` are 0-d int32 tensors, read on the device;
     ``count`` is the static row count (the largest minibatch).  The
     kernel on CUDA tensors, :func:`_gather_served_ref` on CPU tensors."""
+    check_pallas_knob("pallas_gather", "the jnp row gather",
+                      _forced_off)
     specs, tensors = _specs(tables)
     if on_gpu(shuffled, offset, size, *tensors):
         return _gather_served_cuda(specs, shuffled, offset, size, count)

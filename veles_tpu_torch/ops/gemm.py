@@ -43,9 +43,11 @@ a launch adds to it (``"gd_db"`` stays 0: db has no launch of its own),
 """
 
 import ctypes
+import operator
 
 import torch
 
+from veles_tpu_torch.backends import check_pallas_knob
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 
 #: activation name -> the kernels' code; ``None`` and "linear" are one
@@ -181,8 +183,16 @@ def _matmul_ref(a, w, bias=None, activation=None):
     """Mirror of ``_matmul_jnp``: an f32 product, then the bias, then
     the activation.  The product reads a contiguous copy of ``w``, so a
     transposed view and its contiguous storage give the same bits (CPU
-    BLAS takes another kernel for a transposed operand)."""
-    out = torch.mm(a.float(), w.float().contiguous())
+    BLAS takes another kernel for a transposed operand).  On the CPU
+    each row is its own (1, K) product: MKL picks its kernel by M, so a
+    row of one M-row product need not equal the same row of another
+    (at fan-in 784), and a padded bucket's rows must equal the
+    unbatched forward's bit for bit."""
+    a32, w32 = a.float(), w.float().contiguous()
+    if a32.is_cuda or a32.shape[0] <= 1:
+        out = torch.mm(a32, w32)
+    else:
+        out = torch.cat([torch.mm(row, w32) for row in a32.split(1)])
     if bias is not None:
         out = out + bias.float()
     return _activate(out, activation).to(a.dtype)
@@ -298,6 +308,7 @@ def matmul(a, w, bias=None, activation=None):
     strides; bias: (N,) or None."""
     if activation not in ACTIVATION_CODES:
         raise ValueError("unknown activation %r" % (activation,))
+    check_pallas_knob("pallas_gemm", "the dense matmul", operator.not_)
     tensors = (a, w) if bias is None else (a, w, bias)
     if on_gpu(*tensors):
         return _matmul_cuda(a, w, bias, activation)

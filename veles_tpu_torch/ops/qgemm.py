@@ -30,10 +30,12 @@ it.
 """
 
 import ctypes
+import operator
 
 import torch
 import torch.nn.functional as F
 
+from veles_tpu_torch.backends import check_pallas_knob
 from veles_tpu_torch.ops.gemm import ACTIVATION_CODES as _GEMM_CODES
 from veles_tpu_torch.ops.gemm import _activate
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
@@ -239,6 +241,8 @@ def qmatmul(a, q, scale, bias=None, activation=None, out_dtype=None):
     on CUDA tensors, :func:`_qmatmul_ref` on CPU tensors."""
     if activation not in ACTIVATION_CODES:
         raise ValueError("unknown activation %r" % (activation,))
+    check_pallas_knob("pallas_gemm", "the dequantized dense product",
+                      operator.not_)
     out_dtype = out_dtype or a.dtype
     tensors = (a, q, scale) if bias is None else (a, q, scale, bias)
     if on_gpu(*tensors):

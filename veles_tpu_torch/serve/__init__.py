@@ -1,6 +1,6 @@
 """veles_tpu_torch.serve: dynamic-batching model serving over captured
-bucket graphs.  The port's counterpart of :mod:`veles_tpu.serve`, its
-batch (request/response) half:
+bucket graphs, and generative serving behind the same registry and
+front end.  The port's counterpart of :mod:`veles_tpu.serve`:
 
 - :mod:`engine`: :class:`InferenceEngine`, the trained workflow's
   forward (the lowered route at inference, or the forward-unit chain)
@@ -10,17 +10,20 @@ batch (request/response) half:
   requests into one padded bucket call and sheds load
   (:class:`QueueFull` → HTTP 503);
 - :mod:`registry`: :class:`ModelRegistry`, named models hot-swapped
-  atomically, replica sets and canaries;
+  atomically, replica sets and canaries, and generative models
+  (``deploy_generative``: the V-S01 preflight, a continuous-batching
+  scheduler a name, drain swaps);
 - :mod:`server`: :class:`ServingServer`, the threaded HTTP front end
-  (``POST /service[/<name>]``, ``/healthz``, ``/metrics``);
+  (``POST /service[/<name>]``, ``POST /generate[/<name>]`` whole or as
+  an ndjson stream, ``/healthz``, ``/metrics``);
 - :mod:`metrics`: :class:`ServingMetrics`;
 - :mod:`wire`: request decoding (JSON lists or base64 numpy).
 
 ``veles_tpu_torch.restful_api.RESTfulAPI`` is the in-workflow adapter
-over these parts.  Generative serving through the registry and the
-server is not ported yet (ROADMAP.md, 'Slices still to port', item
-6(b)); the generative engine and scheduler themselves are
-:mod:`veles_tpu_torch.gen`.
+over these parts; the generative engine and scheduler are
+:mod:`veles_tpu_torch.gen`.  Not ported yet (ROADMAP.md, 'Slices still
+to port'): snapshots (7(a)), fleets and meshes (7(d)), the workflow
+preflight's analyzer and ``notify_status`` (7(e)).
 """
 
 from veles_tpu_torch.serve.batcher import (DynamicBatcher,

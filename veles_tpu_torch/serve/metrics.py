@@ -75,11 +75,13 @@ class ServingMetrics(object):
         with self._lock:
             self._gauges[name] = fn
 
-    def unregister_gauge(self, name):
+    def unregister_gauge(self, name, fn=None):
         """Drop a gauge (stopped registries/batchers must not leave
-        stale callables keeping dead engines alive)."""
+        stale callables keeping dead engines alive).  Given ``fn``, only
+        while ``name`` is still bound to it."""
         with self._lock:
-            self._gauges.pop(name, None)
+            if fn is None or self._gauges.get(name) is fn:
+                self._gauges.pop(name, None)
 
     @staticmethod
     def _hist_key(name, labels):
@@ -96,9 +98,14 @@ class ServingMetrics(object):
             self._histograms[self._hist_key(name, labels)] = \
                 (hist, help_, dict(labels or {}))
 
-    def unregister_histogram(self, name, labels=None):
+    def unregister_histogram(self, name, labels=None, hist=None):
+        """Drop a histogram; given ``hist``, only while it is the one
+        registered under ``name`` and ``labels``."""
+        key = self._hist_key(name, labels)
         with self._lock:
-            self._histograms.pop(self._hist_key(name, labels), None)
+            held = self._histograms.get(key)
+            if hist is None or (held is not None and held[0] is hist):
+                self._histograms.pop(key, None)
 
     def _histogram_items(self):
         with self._lock:

@@ -12,13 +12,18 @@ and routes each batch to one member by smooth weighted round-robin
 (deterministic, proportional at every prefix); ``deploy_canary`` is the
 two-member case.
 
+Generative engines (:mod:`veles_tpu_torch.gen`) deploy through
+:meth:`ModelRegistry.deploy_generative`, which gives the name a
+continuous-batching scheduler instead of a batcher and preflights the
+KV-cache plan (rule V-S01, :mod:`veles_tpu_torch.analyze.shapes`)
+under ``root.common.serve.preflight``; a redeploy is a drain swap.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-item: generative deploys (``deploy_generative``, ``generate``,
-``preflight_generative``: item 6(b)), ``deploy_fleet`` (7(d)),
-``load_snapshot`` (7(a)), and the analyzer preflight that
-``load_workflow`` runs under ``root.common.serve.preflight`` = ``warn``
-(the default) or ``fail`` (7(e)): set it to ``off`` to load a workflow.
-``deploy`` never preflights.
+item: ``deploy_fleet`` (7(d)), ``load_snapshot`` (7(a)), and the
+analyzer preflight that ``load_workflow`` runs under
+``root.common.serve.preflight`` = ``warn`` (the default) or ``fail``
+(7(e)): set it to ``off`` to load a workflow.  ``deploy`` never
+preflights.
 """
 
 import threading
@@ -252,6 +257,38 @@ class _Model(object):
         return info
 
 
+class _GenModel(object):
+    """One served GENERATIVE name: engine + continuous scheduler."""
+
+    __slots__ = ("name", "scheduler", "version", "deployed_at",
+                 "source")
+
+    is_generative = True
+
+    def __init__(self, name, scheduler):
+        self.name = name
+        self.scheduler = scheduler
+        self.version = None
+        self.deployed_at = None
+        self.source = None
+
+    @property
+    def engine(self):
+        return self.scheduler.engine
+
+    def describe(self):
+        info = {
+            "name": self.name,
+            "version": self.version,
+            "deployed_at": self.deployed_at,
+            "source": self.source,
+            "generative": True,
+        }
+        info.update(self.engine.describe())
+        info.update(self.scheduler.describe())
+        return info
+
+
 class ModelRegistry(Logger):
     """Name → model map with atomic deploy/swap (thread-safe)."""
 
@@ -273,6 +310,9 @@ class ModelRegistry(Logger):
         metrics.register_gauge("models", lambda: len(self._models))
         with self._lock:
             for name, model in self._models.items():
+                if model.is_generative:
+                    model.scheduler.attach_metrics(metrics)
+                    continue
                 model.batcher.metrics = metrics
                 metrics.register_gauge(
                     'queue_depth{model="%s"}' % name,
@@ -336,6 +376,12 @@ class ModelRegistry(Logger):
             engine.warmup()
         with self._lock:
             model = self._models.get(name)
+            if model is not None and model.is_generative:
+                raise ValueError(
+                    "%r serves a generative model — undeploy it (or "
+                    "deploy_generative a successor) instead of hot-"
+                    "swapping a request/response engine over token "
+                    "streams" % name)
             if model is None:
                 batcher = DynamicBatcher(
                     engine, metrics=self.metrics,
@@ -434,6 +480,9 @@ class ModelRegistry(Logger):
             raise ValueError("canary weight must be in (0, 1), got %r"
                              % weight)
         model = self.get(name)
+        if model.is_generative:
+            raise ValueError("canary rollout of generative models is "
+                             "not supported yet")
         stable = model.engine
         if isinstance(stable, ReplicaSet):
             raise ValueError(
@@ -447,21 +496,91 @@ class ModelRegistry(Logger):
               if version is not None else "canary")],
             version=model.version, source="canary", warmup=warmup)
 
-    # -- not ported -------------------------------------------------------
+    # -- generative deploys ------------------------------------------------
+    @staticmethod
+    def _preflight_mode():
+        """``root.common.serve.preflight``, checked: a typo'd fail-mode
+        config must not silently downgrade to warn-and-deploy."""
+        mode = str(root.common.serve.get("preflight",
+                                         "warn")).strip().lower()
+        if mode not in ("off", "no", "false", "0", "warn", "fail"):
+            raise ValueError(
+                "root.common.serve.preflight is %r — want off | warn "
+                "| fail" % mode)
+        return None if mode in ("off", "no", "false", "0") else mode
+
     def preflight_generative(self, engine, name=None):
-        """The generative deploy's analyzer preflight (V-S01)."""
-        _not_ported("ModelRegistry.preflight_generative (generative "
-                    "serving through the registry)", "6(b)")
+        """Analyzer rule V-S01 at deploy time, honouring
+        ``root.common.serve.preflight``: ``off`` returns None, ``warn``
+        (the default) logs every finding and returns the report,
+        ``fail`` raises :class:`veles_tpu_torch.analyze.PreflightError`
+        when it holds errors.  KV-cache footprint against the card's
+        memory, slot and bucket plan sanity, and non-causal models:
+        refused at the registry, not at the first streamed token."""
+        mode = self._preflight_mode()
+        if mode is None:
+            return None
+        from veles_tpu_torch.analyze import PreflightError
+        from veles_tpu_torch.analyze.shapes import check_generative
+        report = check_generative(engine)
+        label = name or getattr(engine, "prof_name", "generative")
+        for finding in report:
+            log = {"error": self.error,
+                   "warning": self.warning}.get(finding.severity,
+                                                self.info)
+            log("preflight[%s]: %s", label, finding.render())
+        if report.has_errors and mode == "fail":
+            raise PreflightError(report)
+        return report
 
     def deploy_generative(self, name, engine, version=None,
                           source=None, warmup=True,
                           scheduler_config=None, quantize=None,
                           calibration=None):
-        """Generative engines behind the registry: the scheduler's
-        ``/metrics`` gauges are not ported, so this route is not
-        either."""
-        _not_ported("ModelRegistry.deploy_generative (generative "
-                    "serving through the registry)", "6(b)")
+        """Install a :class:`veles_tpu_torch.gen.engine.GenerativeEngine`
+        under ``name`` with its own continuous-batching scheduler
+        (started on a worker thread).  Redeploying a generative name is
+        a DRAIN swap: the old scheduler finishes its streams, its engine
+        releases the KV cache, then the successor takes over (token
+        streams cannot migrate between engines mid-request).
+
+        ``quantize="int8"`` (or the ``root.common.serve.quantize`` knob)
+        quantizes the engine's params BEFORE the V-S01 preflight and
+        warmup (``GenerativeEngine.quantize_int8``), so the preflight
+        prices the deploy from the actual int8 bytes; ``calibration``
+        is the optional drift-gate token prompt."""
+        mode = self._resolve_quantize(quantize)
+        if mode and getattr(engine, "quantized", None) != mode:
+            engine.quantize_int8(calibration_tokens=calibration)
+        self.preflight_generative(engine, name)
+        if warmup:
+            engine.warmup()
+        from veles_tpu_torch.gen.scheduler import GenerativeScheduler
+        scheduler = GenerativeScheduler(
+            engine, metrics=self.metrics, name=name,
+            **dict(scheduler_config or {})).start()
+        with self._lock:
+            old = self._models.get(name)
+            if old is not None and not old.is_generative:
+                scheduler.stop(drain=False)
+                raise ValueError(
+                    "%r serves a request/response model — undeploy it "
+                    "before deploying a generative engine" % name)
+            model = _GenModel(name, scheduler)
+            model.version = version if version is not None else (
+                (old.version + 1)
+                if old is not None and
+                isinstance(old.version, int) else 1)
+            model.deployed_at = time.time()
+            model.source = source
+            self._models[name] = model
+        if old is not None:
+            old.scheduler.stop(drain=True)
+            old.engine.close()
+        self.info("deployed generative %s version %s (%d slots, "
+                  "buckets %s)", name, model.version,
+                  engine.max_slots, list(engine.prefill_buckets))
+        return model
 
     def deploy_fleet(self, name, fleet, version=None, source=None):
         """A disaggregated fleet under ``name``."""
@@ -470,9 +589,14 @@ class ModelRegistry(Logger):
 
     def generate(self, name, tokens, max_new_tokens=16, timeout=120.0,
                  on_token=None):
-        """A generation on ``name``'s scheduler."""
-        _not_ported("ModelRegistry.generate (generative serving "
-                    "through the registry)", "6(b)")
+        """Stream a generation on ``name``'s scheduler (blocking
+        convenience; returns the full token list)."""
+        model = self.get(name)
+        if not model.is_generative:
+            raise ValueError("%r is not a generative model" % name)
+        return model.scheduler.generate(tokens, max_new_tokens,
+                                        timeout=timeout,
+                                        on_token=on_token)
 
     def preflight(self, workflow, name=None):
         """The analyzer's preflight of a workflow about to be served,
@@ -480,14 +604,11 @@ class ModelRegistry(Logger):
         None); ``"warn"`` (the default) and ``"fail"`` run the analyzer,
         which is not ported, and raise ``NotImplementedError`` naming
         item 7(e); any other value is a ``ValueError``, as in the JAX
-        package."""
-        mode = str(root.common.serve.get("preflight",
-                                         "warn")).strip().lower()
-        if mode not in ("off", "no", "false", "0", "warn", "fail"):
-            raise ValueError(
-                "root.common.serve.preflight is %r — want off | warn "
-                "| fail" % mode)
-        if mode in ("off", "no", "false", "0"):
+        package.  The generative deploys' V-S01 preflight
+        (:meth:`preflight_generative`) is ported and does not come
+        through here."""
+        mode = self._preflight_mode()
+        if mode is None:
             return None
         _not_ported("ModelRegistry.preflight with root.common.serve"
                     ".preflight=%r (analyze/; set it to 'off' to serve "
@@ -528,11 +649,16 @@ class ModelRegistry(Logger):
             model = self._models.pop(name, None)
         if model is None:
             raise KeyError("no model %r" % name)
-        if self.metrics is not None:
-            self.metrics.unregister_gauge(
-                'queue_depth{model="%s"}' % name)
-        model.batcher.stop(drain=drain)
-        self._retire_engine(model.engine, None)
+        if model.is_generative:
+            # the scheduler's stop() drops its own gauges
+            model.scheduler.stop(drain=drain)
+            model.engine.close()
+        else:
+            if self.metrics is not None:
+                self.metrics.unregister_gauge(
+                    'queue_depth{model="%s"}' % name)
+            model.batcher.stop(drain=drain)
+            self._retire_engine(model.engine, None)
         self.info("undeployed %s", name)
         return model
 
@@ -549,8 +675,9 @@ class ModelRegistry(Logger):
     def extra_metrics_text(self):
         """Exposition lines contributed by deployed models themselves
         (a model with a ``metrics_text()``: the JAX package's fleets,
-        not ported yet).  A raising source is skipped, never poisoning
-        the scrape."""
+        item 7(d); a generative model's gauges ride on the metrics sink
+        instead).  A raising source is skipped, never poisoning the
+        scrape."""
         with self._lock:
             models = list(self._models.values())
         parts = []
@@ -566,7 +693,12 @@ class ModelRegistry(Logger):
 
     def submit(self, name, rows):
         """Queue rows on ``name``'s batcher; returns the Future."""
-        return self.get(name).batcher.submit(rows)
+        model = self.get(name)
+        if model.is_generative:
+            raise ValueError(
+                "%r is generative — use generate()/the /generate "
+                "route, not the request/response path" % name)
+        return model.batcher.submit(rows)
 
     def infer(self, name, rows, timeout=30.0):
         return self.submit(name, rows).result(timeout)
@@ -583,5 +715,9 @@ class ModelRegistry(Logger):
                 self.metrics.unregister_gauge(
                     'queue_depth{model="%s"}' % name)
         for model in models.values():
-            model.batcher.stop(drain=drain)
-            self._retire_engine(model.engine, None)
+            if model.is_generative:
+                model.scheduler.stop(drain=drain)
+                model.engine.close()
+            else:
+                model.batcher.stop(drain=drain)
+                self._retire_engine(model.engine, None)

@@ -5,6 +5,8 @@ Wire contract::
 
     POST /service            {"input": [[...]]}  →  {"result": [[...]]}
     POST /service/<model>    same, for a named registry entry
+    POST /generate[/<model>] {"tokens": [...], "max_new_tokens": n,
+                              "stream": false}  →  {"tokens": [...]}
     GET /healthz   → {"status": "ok", "models": {...}}   (200/503)
     GET /metrics   → text/plain Prometheus-style counters
 
@@ -18,19 +20,28 @@ context (:mod:`veles_tpu_torch.obs.context`), activates it for the
 handler thread and echoes the ``traceparent`` header.  ``/metrics``
 carries the serving counters, :func:`veles_tpu_torch.prof.metrics_text`,
 the trace counters while tracing is on, and the SLO engine's lines
-(:mod:`veles_tpu_torch.obs.slo`, sampled per scrape).
+(:mod:`veles_tpu_torch.obs.slo`, sampled per scrape); a generative
+model's scheduler adds its ``gen_*`` gauges to the same sink.
+
+``POST /generate`` runs on the named generative model's scheduler
+(:meth:`~veles_tpu_torch.serve.registry.ModelRegistry
+.deploy_generative`).  With ``"stream": true`` the reply is an ndjson
+token stream in chunked transfer encoding: one ``{"token", "index"}``
+line a token as the scheduler emits it, then the final ``{"done":
+true, "tokens": [...]}`` document; an error before the first token
+still maps to its status code, one after it rides in-band as the final
+document.
 
 The handler thread only parses and serializes; the device work runs on
-each model's batcher worker, so concurrent HTTP threads coalesce into
-bucket calls.
+each model's batcher or scheduler worker, so concurrent HTTP threads
+coalesce into bucket calls and decode steps.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``POST /generate[/<name>]`` (answered 501), ``handle_generate``
-and ``stream_generate`` (item 6(b)), and ``notify_status`` (the
-``web_status`` page, item 7(e)).
+Not ported: ``notify_status`` (the ``web_status`` page, item 7(e)),
+raising ``NotImplementedError`` naming its ROADMAP item.
 """
 
 import json
+import queue as queue_module
 import threading
 import time
 from concurrent.futures import TimeoutError as FuturesTimeout
@@ -43,10 +54,13 @@ from veles_tpu_torch.samples.transformer import _not_ported
 from veles_tpu_torch.serve.batcher import QueueFull
 from veles_tpu_torch.serve.metrics import ServingMetrics
 from veles_tpu_torch.serve.registry import ModelRegistry
-from veles_tpu_torch.serve.wire import decode_input
+from veles_tpu_torch.serve.wire import decode_gen_request, decode_input
 
 DEFAULT_MODEL = "default"
 GENERATE_PATH = "/generate"
+
+#: the streaming queue's end-of-stream sentinel
+_STREAM_DONE = object()
 
 
 class ServingServer(Logger):
@@ -112,6 +126,11 @@ class ServingServer(Logger):
             return 404, {"error": e.args[0]}   # LookupError parent)
         except LookupError as e:      # no such route
             return 404, {"error": str(e)}
+        if model.is_generative:
+            return 400, {"error": "%r is a generative model — POST "
+                                  "%s/%s instead" % (model.name,
+                                                     GENERATE_PATH,
+                                                     model.name)}
         # captured BEFORE the device call: a concurrent hot swap must
         # not relabel this result with the successor's version
         version = model.version
@@ -142,17 +161,113 @@ class ServingServer(Logger):
         return 200, {"result": result.tolist(),
                      "model": model.name, "version": version}
 
-    # -- not ported -------------------------------------------------------
+    def _gen_model_for(self, url_path):
+        """``/generate`` → default model; ``/generate/<name>`` → name.
+        Raises KeyError/LookupError for the 404 mapping and ValueError
+        when the name is not generative."""
+        if url_path == GENERATE_PATH:
+            name = DEFAULT_MODEL
+        elif url_path.startswith(GENERATE_PATH + "/"):
+            name = url_path[len(GENERATE_PATH) + 1:]
+        else:
+            raise LookupError("no route %r" % url_path)
+        model = self.registry.get(name)
+        if not model.is_generative:
+            raise ValueError(
+                "%r is a request/response model — POST %s%s instead"
+                % (name, self.path,
+                   "" if name == DEFAULT_MODEL else "/" + name))
+        return model
+
     def handle_generate(self, url_path, body, on_token=None):
-        """``POST /generate[/<name>]``: the generative route through the
-        registry (the HTTP handler answers 501 with this message)."""
-        _not_ported("ServingServer.handle_generate (POST %s)"
-                    % GENERATE_PATH, "6(b)")
+        """(status, payload dict) for one ``POST /generate``: the
+        transport-free core (the streaming handler adds its ndjson
+        framing on top through ``on_token``, which runs on the
+        scheduler's worker)."""
+        try:
+            model = self._gen_model_for(url_path)
+        except KeyError as e:
+            return 404, {"error": e.args[0]}
+        except LookupError as e:
+            return 404, {"error": str(e)}
+        except ValueError as e:
+            return 400, {"error": str(e)}
+        version = model.version
+        try:
+            tokens, max_new, _stream = decode_gen_request(
+                json.loads(body))
+        except ValueError as e:
+            return 400, {"error": str(e)}
+        except Exception as e:  # malformed JSON etc.
+            return 400, {"error": "bad request: %s" % e}
+        try:
+            out = model.scheduler.generate(
+                tokens, max_new, timeout=self.request_timeout,
+                on_token=on_token)
+        except QueueFull as e:
+            return 503, {"error": str(e),
+                         "retry_after": QueueFull.retry_after}
+        except ValueError as e:       # unservable prompt/budget
+            return 400, {"error": str(e)}
+        except (FuturesTimeout, TimeoutError):
+            return 504, {"error": "generation timed out after %.1fs"
+                         % self.request_timeout}
+        except Exception as e:  # noqa: BLE001 - wire boundary
+            return 500, {"error": "generation failed: %s" % e}
+        return 200, {"tokens": [int(t) for t in out],
+                     "model": model.name, "version": version}
 
     def stream_generate(self, url_path, body):
-        """The ndjson token stream of ``POST /generate``."""
-        _not_ported("ServingServer.stream_generate (the ndjson token "
-                    "stream)", "6(b)")
+        """Streaming variant: yields ``(status, line)`` pairs of
+        ndjson-encoded bytes, one ``{"token": t, "index": i}`` event per
+        generated token as the scheduler emits it, then a final
+        ``{"done": true, "tokens": [...]}`` document (or ``{"error":
+        ...}``).  The first yield's status is the reply's, so the HTTP
+        handler can still map an early rejection to its code; later
+        statuses are None.  The scheduler's callback only enqueues the
+        event: the JSON encoding runs on the caller's thread."""
+        events = queue_module.Queue()
+
+        def on_token(token):
+            events.put(token)
+
+        outcome = {}
+
+        def run():
+            outcome["reply"] = self.handle_generate(url_path, body,
+                                                    on_token=on_token)
+            events.put(_STREAM_DONE)
+
+        worker = threading.Thread(target=run, daemon=True,
+                                  name="serve-gen-stream")
+        worker.start()
+        first = events.get()
+        if first is _STREAM_DONE:
+            # finished (or failed) before the first token
+            status, payload = outcome["reply"]
+            if status == 200:
+                payload = dict(payload, done=True)
+            yield status, (json.dumps(payload) + "\n").encode()
+            return
+        index = 0
+        yield 200, (json.dumps({"token": int(first), "index": index})
+                    + "\n").encode()
+        while True:
+            event = events.get()
+            if event is _STREAM_DONE:
+                break
+            index += 1
+            yield None, (json.dumps({"token": int(event), "index": index})
+                         + "\n").encode()
+        status, payload = outcome["reply"]
+        if status == 200:
+            payload = dict(payload, done=True)
+        else:
+            # the stream already committed a 200: the error rides
+            # in-band as the final document
+            payload = {"error": payload.get("error", "failed"),
+                       "done": True}
+        yield None, (json.dumps(payload) + "\n").encode()
 
     def healthz(self):
         ok = bool(self.registry.names())
@@ -192,6 +307,15 @@ class ServingServer(Logger):
             #: the request's trace context (set per POST when tracing
             #: is on) — echoed as the traceparent response header
             _trace_ctx = None
+            #: the reply's last bytes, held back until the request's
+            #: ``http`` span has closed, so a client that has read its
+            #: whole reply also finds the span in the trace ring
+            _tail = None
+
+            def _send_tail(self):
+                tail, self._tail = self._tail, None
+                if tail:
+                    self.wfile.write(tail)
 
             def _reply(self, status, body, content_type):
                 self.send_response(status)
@@ -204,11 +328,57 @@ class ServingServer(Logger):
                 self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
-                self.wfile.write(body)
+                self._tail = body
 
             def _reply_json(self, status, payload):
                 self._reply(status, json.dumps(payload).encode(),
                             "application/json")
+
+            def _stream_reply(self, body):
+                """Chunked ndjson token stream (``"stream": true``).
+                Handles its own errors: before the first chunk a
+                failure still maps to a clean JSON status; once the
+                headers are on the wire (a mid-stream disconnect, a
+                serialization failure) the only safe move is dropping
+                the connection, since a second send_response inside a
+                half-written chunked body would corrupt the stream."""
+                try:
+                    stream = server.stream_generate(self.path, body)
+                    status, first = next(stream)
+                except StopIteration:
+                    self._reply_json(500, {"error": "empty stream"})
+                    return
+                except Exception as e:  # noqa: BLE001 - pre-headers
+                    self._reply_json(500, {"error": str(e)})
+                    return
+                self.send_response(status)
+                if status == 503 and b"retry_after" in first:
+                    # the generative queue-full shed carries the predict
+                    # path's back-off contract: clients key reconnects
+                    # off the header, not the body
+                    self.send_header("Retry-After",
+                                     str(QueueFull.retry_after))
+                if self._trace_ctx is not None:
+                    self.send_header("traceparent",
+                                     self._trace_ctx.traceparent())
+                self.send_header("Content-Type",
+                                 "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                try:
+                    self.end_headers()
+
+                    def chunk(data):
+                        self.wfile.write(
+                            ("%x\r\n" % len(data)).encode()
+                            + data + b"\r\n")
+
+                    chunk(first)
+                    for _status, line in stream:
+                        chunk(line)
+                    self._tail = b"0\r\n\r\n"
+                except Exception as e:  # noqa: BLE001 - mid-stream
+                    server.debug("generation stream aborted: %s", e)
+                    self.close_connection = True
 
             def do_POST(self):
                 length = int(self.headers.get("Content-Length", 0))
@@ -224,6 +394,7 @@ class ServingServer(Logger):
                     self.headers.get("traceparent"))
                 if ctx is None:
                     self._handle_post(body)
+                    self._send_tail()
                     return
                 self._trace_ctx = ctx
                 with obs_context.activate(ctx):
@@ -231,15 +402,22 @@ class ServingServer(Logger):
                                     ctx.span_args({"path": self.path}),
                                     role="server"):
                         self._handle_post(body)
+                self._send_tail()
 
             def _handle_post(self, body):
                 if self.path == GENERATE_PATH or \
                         self.path.startswith(GENERATE_PATH + "/"):
                     try:
+                        wants_stream = bool(
+                            json.loads(body).get("stream"))
+                    except Exception:
+                        wants_stream = False   # 400s via the core
+                    if wants_stream:
+                        self._stream_reply(body)   # self-contained
+                        return
+                    try:
                         status, payload = server.handle_generate(
                             self.path, body)
-                    except NotImplementedError as e:
-                        status, payload = 501, {"error": str(e)}
                     except Exception as e:  # noqa: BLE001 - wire edge
                         status, payload = 500, {"error": str(e)}
                     self._reply_json(status, payload)
@@ -261,6 +439,7 @@ class ServingServer(Logger):
                 else:
                     self._reply_json(404, {"error": "no route %r"
                                            % self.path})
+                self._send_tail()
 
             def log_message(self, fmt, *args):
                 server.debug("http: " + fmt, *args)

@@ -8,10 +8,12 @@ preallocated ring.  Events are ``(phase, cat, name, ts_ns, dur_ns,
 tid, args, role)`` tuples in the Chrome trace-event vocabulary (``X``
 complete spans, ``i`` instants, ``C`` counter samples).  Running counts
 by ``(cat, name)`` survive the ring's wraparound, as the JAX package's
-do, and feed :func:`metrics_text`, the trace lines of the serving
-``/metrics`` page.  ``root.common.engine.trace_capacity`` sizes the
-ring (:func:`configure`).  The device-profiler bridge and the Chrome
-export are not ported yet.
+do, and feed :func:`veles_tpu_torch.trace.export.metrics_text`, the
+trace lines of the serving ``/metrics`` page.
+``root.common.engine.trace_capacity`` sizes the ring
+(:func:`configure`).  The Chrome export is
+:mod:`veles_tpu_torch.trace.export`; the device-profiler bridge
+(``device_trace``) waits for ROADMAP item 6(c).
 """
 
 import threading
@@ -73,6 +75,8 @@ class TraceRecorder(object):
         #: THE hot-path switch every hook reads
         self.enabled = False
         self.role = DEFAULT_ROLE
+        #: where the Chrome trace is written at exit (``trace=<path>``)
+        self.path = None
         self.capacity = int(capacity)
         self._ring = [None] * self.capacity
         self._pos = 0
@@ -209,40 +213,41 @@ def normalize(events=None):
             for phase, cat, name, ts_ns, dur_ns, tid, args, role in events]
 
 
-def metrics_text():
-    """Exposition lines for the serving ``/metrics`` page while tracing
-    is on (counterpart of ``veles_tpu.trace.export.metrics_text``):
-    running counts, not a walk of the ring."""
-    lines = [
-        "# HELP veles_trace_recorded_total trace events recorded "
-        "(veles_tpu.trace; grand total — its own family, so "
-        "sum(veles_trace_events_total) stays honest)",
-        "# TYPE veles_trace_recorded_total counter",
-        "veles_trace_recorded_total %d" % recorder.recorded,
-        "# HELP veles_trace_events_total trace events per category",
-        "# TYPE veles_trace_events_total counter",
-    ]
-    for cat, count in sorted(recorder.category_counts().items()):
-        lines.append('veles_trace_events_total{cat="%s"} %d'
-                     % (cat, count))
-    lines.append("# TYPE veles_trace_dropped_total counter")
-    lines.append("veles_trace_dropped_total %d" % recorder.dropped)
-    return "\n".join(lines) + "\n"
+#: whether the exit-time save is registered (once a process)
+_atexit_armed = [False]
 
 
 def configure(value=None):
-    """Apply the ``root.common.engine.trace`` knob (``off`` | ``on``,
-    read fresh when ``value`` is None); returns the enabled state.
-    ``root.common.engine.trace_capacity`` resizes the ring when it
-    differs from the ring's capacity."""
+    """Apply the ``root.common.engine.trace`` knob (read fresh when
+    ``value`` is None): ``off`` disables recording, ``on`` records to
+    the ring, any other string is a path: record AND write a
+    Perfetto-loadable Chrome trace-event JSON there at process exit (or
+    through :func:`veles_tpu_torch.trace.export.save`).  Returns the
+    enabled state.  ``root.common.engine.trace_capacity`` resizes the
+    ring when it differs from the ring's capacity."""
     if value is None:
         value = root.common.engine.get("trace", "off")
+    path = None
     if isinstance(value, str):
-        on = value.strip().lower() in ("on", "1", "true", "yes")
+        low = value.strip().lower()
+        if low in ("", "off", "0", "false", "no", "none"):
+            on = False
+        elif low in ("on", "1", "true", "yes"):
+            on = True
+        else:
+            on = True
+            path = value
     else:
         on = bool(value)
     capacity = root.common.engine.get("trace_capacity", None)
     if capacity and int(capacity) != recorder.capacity:
         recorder.resize(int(capacity))
     recorder.enabled = on
+    recorder.path = path
+    if path is not None and not _atexit_armed[0]:
+        import atexit
+
+        from veles_tpu_torch.trace import export
+        _atexit_armed[0] = True
+        atexit.register(export.save_at_exit)
     return on

@@ -20,6 +20,7 @@ import collections
 import inspect
 
 from veles_tpu_torch import trace
+from veles_tpu_torch.config import root
 from veles_tpu_torch.plumbing import EndPoint, StartPoint
 from veles_tpu_torch.units import MissingDemandedAttributes, Unit
 
@@ -98,8 +99,21 @@ class Workflow(Unit):
         """Initialize every unit in dependency order; a unit whose
         demanded attributes are not yet produced is retried after its
         producers (only :class:`MissingDemandedAttributes` requeues, at
-        most once per unit in the queue)."""
+        most once per unit in the queue).  The trace knob, the flight
+        recorder's (``root.common.obs.blackbox_dir``) and the telemetry
+        bus's (``root.common.watch.endpoint``, refused: ROADMAP item
+        6(c)) are applied here, where a run starts, as in the JAX
+        package."""
+        from veles_tpu_torch import obs
+        watch = root.common.get("watch")
+        endpoint = watch.get("endpoint") if hasattr(watch, "get") else None
+        if endpoint:
+            raise NotImplementedError(
+                "root.common.watch.endpoint=%r (the telemetry bus) is not "
+                "ported to veles_tpu_torch yet (ROADMAP.md, 'Slices still "
+                "to port', item 6(c))" % (endpoint,))
         trace.configure()
+        obs.configure()
         self.device = device
         pending = collections.deque(self.units_in_dependency_order())
         retries = {}

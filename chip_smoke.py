@@ -240,9 +240,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    360), 220 served gathers (220 + 220 tables); the device verdict equal
    to the host close at every validated close; capture seconds, pool
    bytes, each epoch's wall time and the host serving and dispatch time
-   of the steady epoch's windows; then epoch 2 under ``torch.profiler``
-   (kernels a minibatch, busy share, device time by group, one gather
-   kernel a minibatch, the split tile's GEMM bodies only).
+   of the steady epoch's windows; two more epochs with each window
+   graph's replays under the profiler (its nodes a replay, which the
+   ``tooling`` phase holds its own to); then epoch 2 under
+   ``torch.profiler`` (kernels a minibatch, busy share, device time by
+   group, one gather kernel a minibatch, the split tile's GEMM bodies
+   only).
 19. ``mnist_scan_parity`` — 3 epochs (eager, captured and replayed
    windows): the card's window route against the card's per-step
    stitched route from the same seed, weights, momenta, confusion and
@@ -301,6 +304,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
    served layers (784×100 tanh, 100×10) beside the plain version,
    ``addmm`` (on a dequantized f32 copy for qmatmul) and the bound;
    these ride in the kernels line's ``serving_buckets``.
+24. ``tooling`` — ROADMAP 6(c) on the card: ``mnist_scan``'s windows
+   (4 epochs, epoch_scan=auto) with ``engine.health`` off and then on,
+   from the same seed: weights and momenta bit for bit, launches
+   exactly ``mnist_scan``'s; two more epochs whose windows' ledger
+   rows (device time, flops, MFU of the replays alone) are printed, and
+   two more with each window
+   graph's replays under the profiler (the count of the window that saw
+   the most): with health off its nodes equal ``mnist_scan``'s
+   (profiled the same way after its counted run), with health on the
+   nodes and busy time it adds are printed.  The
+   first train window's health statistics on the card agree with the
+   CPU route's over the same window within 1e-4 relative, non-finite
+   counts exact.  Under ``strict`` a NaN planted in layer 1's weights
+   raises ``HealthError`` at the first window boundary naming the leaf
+   and step the CPU route names.  ``prof``'s ``run_smoke`` over the
+   sample on the card (flops on every segment, a report row each, 0
+   recompiles) passes; ``watch``'s ``run_smoke`` runs where ``import
+   zmq`` succeeds (printed either way).  The ledger's rows for every
+   entry the run's paths registered (segments, windows, serve buckets,
+   prefill, chunk, decode and verify programs) are printed with their
+   MFU against the card's rate for their type, beside ``nvidia-smi``'s
+   name and power limit: every entry has non-zero flops and the run 0
+   recompiles.  ``trace.device_trace`` around a warm stitched epoch
+   writes a Chrome trace naming ``veles_gemm_kernel<0, .>`` (matmul),
+   ``veles_gemm_kernel<2, .>`` (the body ``veles_gd_dw`` launches) and
+   ``veles_gather_served_kernel``.  The phase's wall time is printed.
 
 The ``kernels`` phase also holds the paged decode kernel against
 ``_paged_decode_ref`` (f32 <= 1e-4, bf16 <= 2e-2) for decode (1 row)
@@ -407,7 +436,7 @@ Then it prints the per-kernel JSON line, all 14 TPU kernels (launches on
 the main paths, serve, serve_int8, serve_generate,
 serve_generate_int8, serve_paged,
 serve_spec, train, mnist, mnist_stitched, mnist_scan, mnist_ae,
-serve_batch and ops, max
+serve_batch, ops and tooling, max
 abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -5436,16 +5465,18 @@ def _scan_profile(device, create, epochs, names_of, steady_epoch=2,
     return summary, window["minibatches"]
 
 
-def _scan_counted_run(device, create, epochs, mode):
+def _scan_counted_run(device, create, epochs, mode, prepare=None):
     """A sample's stitched run under ``epoch_scan=mode`` with the trace
     on: ``(wf, info)`` with the launches, the windows by epoch, the
     ``segment/dispatch`` and ``window_serve`` spans, the verdict checks
-    and the wall times."""
+    and the wall times.  ``prepare(wf)`` runs before the run."""
     from veles_tpu_torch import prng, trace
     with engine_knobs(stitch="on", loader="auto", epoch_scan=mode,
                       trace="on"):
         prng.seed_all(SEED)
         wf = create(device=device, max_epochs=epochs)
+        if prepare is not None:
+            prepare(wf)
         trace.recorder.clear()
         log = _window_log(wf) if mode != "off" else []
         verdicts = _verdict_log(wf) if mode != "off" else []
@@ -5484,6 +5515,47 @@ def _scan_counted_run(device, create, epochs, mode):
             for e in epochs_seen]
         info["windows"] = log
     return wf, info
+
+
+def _replay_nodes(wf, epochs=2):
+    """Run ``epochs`` more epochs of a windowed workflow, each captured
+    window graph's replays under the profiler: ``{graph name: {"nodes",
+    "busy_ms", "by_group", "windows"}}``, the kernels and copies a replay
+    put on the card, less the block copies and the prior's fill that
+    run before it (``scripts/scan_probe.py``'s count), from the window
+    that saw the most of them (late in a process the profiler at times
+    loses a window's records, ``prime_window``)."""
+    from veles_tpu_torch.epoch_scan import WindowGraph
+    execute, seen = WindowGraph.execute, {}
+
+    def profiled(self, rows, prior, preds=None, timer=None):
+        if not self.graph.captures:
+            return execute(self, rows, prior, preds, timer)
+        out = {}
+        summary = profile_window(
+            lambda: out.update(r=execute(self, rows, prior, preds,
+                                         timer)))
+        before = len(self.blocks) + (self.preds is not None) + 1
+        row = {"nodes": summary["device_kernels"] - before,
+               "busy_ms": summary["device_busy_ms"],
+               "by_group": summary["kernels_by_group"]}
+        best = seen.get(self.name)
+        row["windows"] = best["windows"] + 1 if best else 1
+        if best is None or row["nodes"] > best["nodes"]:
+            seen[self.name] = row
+        else:
+            best["windows"] = row["windows"]
+        return out["r"]
+    WindowGraph.execute = profiled
+    try:
+        with engine_knobs(stitch="on", loader="auto", epoch_scan="auto"):
+            wf.decision.complete <<= False
+            wf.decision.max_epochs += epochs
+            wf.run()
+            gpu_sync()
+    finally:
+        WindowGraph.execute = execute
+    return seen
 
 
 def _scan_graphs_ok(report, keys, step_launches):
@@ -5555,6 +5627,9 @@ def phase_mnist_scan(device, smi):
     })
     info["epoch_scan"] = {k: v for k, v in report.items() if k != "graphs"}
     info["graphs"] = {str(k): g for k, g in report["graphs"].items()}
+    # two more epochs: each window graph's replays under the profiler
+    # (the nodes the tooling phase holds its health-off graphs to)
+    info["replay_nodes"] = _replay_nodes(wf)
     reset_all_launches()
     info["breakdown"], kernels_ok = _mnist_profiled(
         lambda: _scan_profile(device, create, MNIST_SCAN_EPOCHS,
@@ -5579,7 +5654,9 @@ def phase_mnist_scan(device, smi):
           % (info["breakdown"].get("gather_kernels"),
              info["breakdown"].get("minibatches_seen"),
              info["breakdown"].get("gemm_bodies")))
-    return launches
+    check(len(info["replay_nodes"]) == len(MNIST_SCAN_KEYS), "mnist_scan",
+          "replays profiled: %s" % info["replay_nodes"])
+    return launches, info["replay_nodes"]
 
 
 def _exact_agreement(a, b):
@@ -6214,6 +6291,263 @@ def phase_serve_batch(device, smi):
             "qmatmul": int8_launches["qmatmul"]}, timed
 
 
+#: the card's first train window's health statistics against the CPU
+#: route's over the same window
+TOOLING_STATS_RTOL = 1e-4
+TOOLING_STATS = ("grad_norm", "weight_norm", "update_norm", "update_ratio")
+#: the kernels the device trace of a warm stitched epoch must name: the
+#: forward GEMM body, the dw body (``veles_gd_dw``'s launch) and the
+#: served gather
+TOOLING_TRACE_NAMES = ("veles_gemm_kernel<0,", "veles_gemm_kernel<2,",
+                       "veles_gather_served_kernel")
+
+
+def _steady_windows(wf, epochs=2):
+    """``epochs`` more unprofiled epochs of a windowed workflow whose
+    graphs are captured: each window entry's share of the ledger over
+    just those epochs (replays only), ``{name: {"dispatches", "steps",
+    "device_ms", "flops", "achieved_flops", "mfu"}}``."""
+    from veles_tpu_torch import prof
+    entries = [e for e in prof.ledger.entries("segment")
+               if e.name.startswith("scan:") and e.device == "cuda"]
+    before = {id(e): (e.dispatches, e.steps, e.dispatch_ns,
+                      e.flops_dispatched) for e in entries}
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="auto"):
+        wf.decision.complete <<= False
+        wf.decision.max_epochs += epochs
+        wf.run()
+        gpu_sync()
+    rows = {}
+    for e in entries:
+        d0, s0, ns0, f0 = before[id(e)]
+        if e.dispatches == d0:
+            continue
+        ns, flops = e.dispatch_ns - ns0, e.flops_dispatched - f0
+        achieved = flops / (ns / 1e9) if ns else 0.0
+        peak = e.peak_for(prof.peak_flops())
+        rows[e.name] = {"dispatches": e.dispatches - d0,
+                        "steps": e.steps - s0, "device_ms": ns / 1e6,
+                        "flops": flops, "achieved_flops": achieved,
+                        "mfu": achieved / peak if peak else None,
+                        "peak_dtype": e.peak_dtype}
+    return rows
+
+
+def _mnist_native(device, max_epochs):
+    from veles_tpu_torch.samples import mnist
+    return mnist.create_workflow(device=device, max_epochs=max_epochs,
+                                 native=True)
+
+
+def _first_train_snapshot(out):
+    """A ``_scan_counted_run`` ``prepare``: the health snapshot right
+    after the first window that observed train steps, into ``out``."""
+    def prepare(wf):
+        from veles_tpu_torch import watch
+        runner = wf.epoch_runner
+        execute = runner._execute_window
+
+        def watched(k_max):
+            execute(k_max)
+            if "snapshot" not in out and watch.monitor.steps:
+                out["snapshot"] = watch.monitor.snapshot()
+        runner._execute_window = watched
+    return prepare
+
+
+def _poisoned(wf):
+    weights = wf.forwards[0].weights
+    weights.map_write()
+    weights.mem[0, 0] = numpy.nan
+
+
+def _strict_verdict(device):
+    """The HealthError of a strict windowed run with a NaN planted in
+    layer 1's weights: ``{"leaf", "count", "step", "windows"}``, or None
+    when none was raised."""
+    from veles_tpu_torch import trace
+    from veles_tpu_torch.watch import HealthError
+    box = {}
+
+    def prepare(wf):
+        _poisoned(wf)
+        box["wf"] = wf
+    try:
+        with engine_knobs(health="strict"):
+            _scan_counted_run(device, _mnist_native, MNIST_SCAN_EPOCHS,
+                              "auto", prepare=prepare)
+    except HealthError as exc:
+        return {"leaf": exc.leaf, "count": exc.count, "step": exc.step,
+                "windows": box["wf"].epoch_runner.windows}
+    finally:
+        trace.configure()
+        trace.recorder.clear()
+    return None
+
+
+def _stats_agree(got, want):
+    """Every group's statistics within TOOLING_STATS_RTOL of ``want``'s
+    and its non-finite counts equal: ``(ok, worst relative error)``."""
+    worst, ok = 0.0, set(got["groups"]) == set(want["groups"])
+    for name, group in want["groups"].items():
+        mine = got["groups"].get(name, {})
+        for stat in TOOLING_STATS:
+            err = abs(mine.get(stat, numpy.inf) - group[stat]) \
+                / max(abs(group[stat]), 1e-30)
+            worst = max(worst, err)
+        ok = ok and mine.get("nonfinite") == group["nonfinite"] \
+            and mine.get("leaves") == group["leaves"]
+    return ok and worst <= TOOLING_STATS_RTOL, worst
+
+
+def _device_traced(device):
+    """A stitched epoch (per-step graphs, captured in the epoch before)
+    under ``trace.device_trace``: the trace's path and which of
+    TOOLING_TRACE_NAMES it names."""
+    import os
+
+    from veles_tpu_torch import prng, trace
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        prng.seed_all(SEED)
+        wf = _mnist_native(device, 1)
+        wf.run()
+        wf.decision.complete <<= False
+        wf.decision.max_epochs += 1
+        with trace.device_trace(logdir=os.path.join(
+                "build", "torch_trace")) as ctx:
+            wf.run()
+    if ctx.path is None:
+        return None, {}
+    with open(ctx.path) as fin:
+        text = fin.read()
+    return ctx.path, {name: name in text for name in TOOLING_TRACE_NAMES}
+
+
+def phase_tooling(device, smi, scan_nodes):
+    """The tooling on the card (the docstring's phase 24); returns the
+    health-on window run's launches."""
+    import veles_tpu_torch.prof.__main__ as prof_cli
+    import veles_tpu_torch.watch.__main__ as watch_cli
+    from veles_tpu_torch import prof, trace
+    tic = time.perf_counter()
+    info = {"phase": "tooling", "nvidia_smi": smi}
+    # the windows with health off, then on, from the same seed
+    runs, params = {}, {}
+    first = {}
+    for mode in ("off", "on"):
+        with engine_knobs(health=mode):
+            wf, counted = _scan_counted_run(
+                device, _mnist_native, MNIST_SCAN_EPOCHS, "auto",
+                prepare=_first_train_snapshot(first) if mode == "on"
+                else None)
+            launches = _counted()
+            params[mode] = wf.params_to_numpy()
+            steady = _steady_windows(wf)
+            nodes = _replay_nodes(wf)
+        runs[mode] = {"launches": launches, "replay_nodes": nodes,
+                      "steady_windows": steady,
+                      "graphs": {str(k): g["graph_launches"] for k, g
+                                 in counted["epoch_scan"]["graphs"].items()},
+                      "steady_epoch_wall_ms": counted["epoch_wall_ms"][2]}
+        trace.configure()
+    expected = _counted_expected(_launches_of(MNIST_SCAN_STEPS,
+                                              MNIST_STEP_LAUNCHES))
+    bit_equal = sorted(params["off"]) == sorted(params["on"]) and all(
+        numpy.array_equal(numpy.asarray(params["off"][k]),
+                          numpy.asarray(params["on"][k]))
+        for k in params["off"])
+    off_nodes = {k: v["nodes"] for k, v in runs["off"]["replay_nodes"].items()}
+    want_nodes = {k: v["nodes"] for k, v in scan_nodes.items()}
+    added = {k: {"nodes": v["nodes"] - runs["off"]["replay_nodes"][k]["nodes"],
+                 "busy_ms": v["busy_ms"]
+                 - runs["off"]["replay_nodes"][k]["busy_ms"]}
+             for k, v in runs["on"]["replay_nodes"].items()
+             if k in runs["off"]["replay_nodes"]}
+    info.update({"runs": runs, "weights_bit_equal": bit_equal,
+                 "mnist_scan_replay_nodes": want_nodes,
+                 "health_added_per_replay": added,
+                 "launches_expected": expected})
+    # the card's first train window against the CPU route's
+    cpu = {}
+    with engine_knobs(health="on"):
+        # two epochs: the first is the validation pass alone
+        _scan_counted_run("cpu", _mnist_native, 2, "auto",
+                          prepare=_first_train_snapshot(cpu))
+    trace.configure()
+    stats_ok, worst = (False, None)
+    if "snapshot" in first and "snapshot" in cpu:
+        stats_ok, worst = _stats_agree(first["snapshot"], cpu["snapshot"])
+    info["first_window_stats"] = {"card": first.get("snapshot"),
+                                  "cpu": cpu.get("snapshot"),
+                                  "worst_rel_err": worst,
+                                  "rtol": TOOLING_STATS_RTOL}
+    # strict, a NaN planted in layer 1's weights, card and CPU
+    strict = {"card": _strict_verdict(device),
+              "cpu": _strict_verdict("cpu")}
+    strict_ok = (strict["card"] is not None and strict["cpu"] is not None
+                 and strict["card"]["leaf"] == strict["cpu"]["leaf"]
+                 and strict["card"]["step"] == strict["cpu"]["step"]
+                 == MNIST_SCAN_KEYS[1][1]
+                 and strict["card"]["windows"] == 2)
+    info["strict"] = strict
+    # the smokes
+    try:
+        import zmq  # noqa: F401
+        has_zmq = True
+    except ImportError:
+        has_zmq = False
+    print("tooling: pyzmq %s; the watch smoke %s"
+          % ("imports" if has_zmq else "is not installed",
+             "runs" if has_zmq else "does not run"), flush=True)
+    recompiles0 = prof.ledger.recompiles
+    info["prof_smoke_rc"] = prof_cli.run_smoke(
+        "veles_tpu_torch.samples.mnist")
+    info["watch_smoke_rc"] = watch_cli.run_smoke() if has_zmq else None
+    smokes_ok = (info["prof_smoke_rc"] == 0
+                 and info["watch_smoke_rc"] in (0, None)
+                 and prof.ledger.recompiles == recompiles0)
+    # the device trace
+    info["device_trace"], names = _device_traced(device)
+    info["device_trace_names"] = names
+    trace_ok = bool(names) and all(names.values())
+    # the ledger's rows, every path of the run
+    summary = prof.summary()
+    rows = summary["entries"]
+    info["ledger"] = {"card": smi, "device_kind": summary["device_kind"],
+                      "peak_flops_bf16": summary["peak_flops"],
+                      "totals": summary["totals"], "rows": rows}
+    kinds = sorted({r["kind"] for r in rows if r.get("device") == "cuda"})
+    ledger_ok = (all(r["flops"] > 0 for r in rows)
+                 and all(r["mfu"] is not None for r in rows
+                         if r["dispatches"] and r.get("device") == "cuda")
+                 and summary["totals"]["recompiles"] == 0
+                 and {"segment", "bucket", "prefill", "decode"} <= set(kinds))
+    print(prof.report_text(summary), end="", flush=True)
+    info["tooling_s"] = time.perf_counter() - tic
+    info["ok"] = (bit_equal and off_nodes == want_nodes
+                  and runs["off"]["launches"] == expected
+                  and runs["on"]["launches"] == expected and stats_ok
+                  and strict_ok and smokes_ok and trace_ok and ledger_ok)
+    emit(info)
+    check(bit_equal, "tooling", "health on changed the weights")
+    check(off_nodes == want_nodes, "tooling", "health off: nodes a replay "
+          "%s, mnist_scan's %s" % (off_nodes, want_nodes))
+    check(runs["off"]["launches"] == expected
+          and runs["on"]["launches"] == expected, "tooling",
+          "launches off %s, on %s, want %s"
+          % (runs["off"]["launches"], runs["on"]["launches"], expected))
+    check(stats_ok, "tooling", "first window's stats card vs CPU: %s"
+          % info["first_window_stats"])
+    check(strict_ok, "tooling", "strict verdicts %s" % strict)
+    check(smokes_ok, "tooling", "smokes: prof %s, watch %s"
+          % (info["prof_smoke_rc"], info["watch_smoke_rc"]))
+    check(trace_ok, "tooling", "device trace %s names %s"
+          % (info["device_trace"], names))
+    check(ledger_ok, "tooling", "ledger kinds %s, totals %s, rows %s"
+          % (kinds, summary["totals"], rows))
+    return runs["on"]["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6261,13 +6595,16 @@ def main():
         paths["mnist_stitched"] = phase_mnist_stitched(
             device, info["nvidia_smi"])
         phase_mnist_stitched_parity(device)
-        paths["mnist_scan"] = phase_mnist_scan(device, info["nvidia_smi"])
+        paths["mnist_scan"], scan_nodes = phase_mnist_scan(
+            device, info["nvidia_smi"])
         phase_mnist_scan_parity(device)
         paths["mnist_ae"] = phase_mnist_ae(device, info["nvidia_smi"])
         phase_mnist_ae_parity(device)
         paths["serve_batch"], serving_timed = phase_serve_batch(
             device, info["nvidia_smi"])
         paths["ops"] = phase_ops(device)
+        paths["tooling"] = phase_tooling(device, info["nvidia_smi"],
+                                         scan_nodes)
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1

@@ -82,12 +82,13 @@ def replay_nodes():
     from veles_tpu_torch.epoch_scan import WindowGraph
     execute, seen = WindowGraph.execute, {}
 
-    def profiled(self, rows, prior, preds=None):
+    def profiled(self, rows, prior, preds=None, timer=None):
         if not self.graph.captures or self.name in seen:
-            return execute(self, rows, prior, preds)
+            return execute(self, rows, prior, preds, timer)
         out = {}
         summary = chip_smoke.profile_window(
-            lambda: out.update(r=execute(self, rows, prior, preds)))
+            lambda: out.update(r=execute(self, rows, prior, preds,
+                                           timer)))
         before = len(self.blocks) + (self.preds is not None) + 1
         seen[self.name] = {"profiled_events": summary["device_kernels"],
                            "nodes": summary["device_kernels"] - before,

@@ -97,6 +97,51 @@ def test_importing_the_serving_path_loads_no_jax_and_no_veles_tpu():
     assert "veles_tpu_torch.ops.build" not in loaded
 
 
+def test_importing_the_tooling_loads_no_jax_and_no_veles_tpu():
+    proc = _run(
+        "import json, sys\n"
+        "import veles_tpu_torch.prof.__main__, veles_tpu_torch.prof.merge\n"
+        "import veles_tpu_torch.watch.__main__, veles_tpu_torch.ops.cost\n"
+        "import veles_tpu_torch.trace\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    for module in ("prof.ledger", "prof.merge", "prof.__main__", "watch",
+                   "watch.bus", "watch.health", "watch.__main__",
+                   "ops.cost", "trace.core"):
+        assert "veles_tpu_torch." + module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    # pyzmq loads only when a bus or a reader is made
+    assert "zmq" not in loaded
+
+
+def test_watch_and_health_work_without_pyzmq():
+    """Without pyzmq (the card's machine lists none) the watch package
+    imports, a health=on run on the CPU works, and starting a bus
+    raises an ImportError that names what needs pyzmq."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['zmq'] = None\n"
+        "import veles_tpu_torch.watch as watch\n"
+        "from veles_tpu_torch.config import root\n"
+        "from veles_tpu_torch.samples import mnist\n"
+        "root.common.engine.health = 'on'\n"
+        "wf = mnist.create_workflow(device='cpu', max_epochs=2)\n"
+        "wf.run()\n"
+        "snap = watch.last_health()\n"
+        "assert snap['groups']['GDTanh']['nonfinite'] == 0, snap\n"
+        "assert snap['step'] == 60, snap\n"
+        "try:\n"
+        "    watch.start()\n"
+        "except ImportError as exc:\n"
+        "    print('IMPORTERROR', exc)\n"
+        "else:\n"
+        "    print('STARTED')\n")
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout.strip().splitlines()[-1]
+    assert out.startswith("IMPORTERROR") and "pyzmq" in out, out
+
+
 def test_no_source_of_the_port_imports_jax_or_veles_tpu():
     sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 15
@@ -285,14 +330,24 @@ def test_kernels_xla_is_refused_naming_item_7(knobs, stitch):
 
 @pytest.mark.parametrize("value", ["on", "strict", "ON"])
 def test_health_instrumentation_is_refused_naming_item_6(knobs, value):
+    """Item 6(c) ported the instrumentation: ``on`` and ``strict`` now
+    instrument the GD stages when segments are built, and, as in the
+    JAX package, nothing without segments."""
+    from veles_tpu_torch import watch
     from veles_tpu_torch.samples import mnist
     knobs.health = value
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mnist.create_workflow(device="cpu", max_epochs=1)
-    # the JAX package reads it only when it builds segments
-    knobs.stitch = "off"
-    wf = mnist.create_workflow(device="cpu", max_epochs=1)
-    assert wf.stitch_segments == []
+    try:
+        wf = mnist.create_workflow(device="cpu", max_epochs=1)
+        assert [g.name for g in watch.monitor.groups] == ["GDSoftmax",
+                                                          "GDTanh"]
+        assert watch.monitor.mode == value.lower()
+        # the JAX package reads it only when it builds segments
+        knobs.stitch = "off"
+        wf = mnist.create_workflow(device="cpu", max_epochs=1)
+        assert wf.stitch_segments == []
+        assert not watch.monitor.armed
+    finally:
+        watch.monitor.reset()
 
 
 def test_health_rejects_what_the_jax_package_rejects(knobs):
@@ -455,10 +510,17 @@ def test_ensemble_train_ratio_is_refused_naming_item_7(config_knobs, ratio):
 
 
 def test_watch_endpoint_is_refused_at_initialize_naming_6c(config_knobs):
+    """Item 6(c) ported the bus: ``Workflow.initialize`` now starts it
+    on the configured endpoint."""
+    from veles_tpu_torch import watch
     from veles_tpu_torch.samples import mnist
-    config_knobs.watch.endpoint = "tcp://127.0.0.1:5599"
-    with pytest.raises(NotImplementedError, match=r"item 6\(c\)"):
+    config_knobs.watch.endpoint = "tcp://127.0.0.1:0"
+    try:
         mnist.create_workflow(device="cpu", max_epochs=1)
+        assert watch.enabled()
+        assert watch.bus().endpoint.startswith("tcp://127.0.0.1:")
+    finally:
+        watch.shutdown()
 
 
 @pytest.mark.parametrize("knob,value,call", [

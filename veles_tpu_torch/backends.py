@@ -4,7 +4,8 @@ Every entry point of the port runs on the CUDA card unless the caller
 asks for ``device="cpu"``; without a card and without that request it
 raises instead of carrying on on the CPU.  The H100 numbers below are
 data for the roofline bound (the least time the card could take for a
-function's bytes and operations), from NVIDIA's H100 SXM data sheet:
+function's bytes and operations) and the performance ledger's MFU
+denominators (:func:`peak_ops`), from NVIDIA's H100 SXM data sheet:
 dense rates, no sparsity, at the full 700 W power limit.
 
 The workflow devices are the counterpart of :mod:`veles_tpu.backends`:
@@ -32,6 +33,59 @@ H100_PEAK_OPS = {
     "fp8": 1979e12,
     "int8": 1979e12,
 }
+
+#: the MFU denominators by card (a substring of
+#: ``torch.cuda.get_device_name``, lower case) and operand type: the
+#: counterpart of the JAX package's per-generation ``PEAK_BF16_FLOPS``
+#: and ``PEAK_INT8_OPS``, keyed by type because the MNIST kernels
+#: compute f32 on the FMA units and the serving kernels bf16 on the
+#: tensor cores
+PEAK_FLOPS = (("h100", H100_PEAK_OPS),)
+
+#: the ledger's ``peak_dtype`` names -> the table's operand type.  None
+#: is the session's bf16 rate, as in the JAX package.  The quantized
+#: programs' ``"int8"`` maps to the bf16 rate, not the int8 one: the
+#: W8A16 qmatmul widens its int8 weights and runs bf16 products on the
+#: tensor cores (``csrc/qgemm.cu``), so bf16 is the rate it could reach.
+PEAK_DTYPES = {None: "bfloat16", "bfloat16": "bfloat16", "tf32": "tf32",
+               "float32": "float32", "int8": "bfloat16"}
+
+
+def peak_ops(device_kind, dtype=None):
+    """The card's dense peak rate for ``dtype`` (a ``PEAK_DTYPES`` name),
+    or None for a CPU or a card the table lacks."""
+    kind = (device_kind or "").lower()
+    for tag, rates in PEAK_FLOPS:
+        if tag in kind:
+            return rates[PEAK_DTYPES[dtype]]
+    return None
+
+
+def peak_bf16_flops(device_kind):
+    """Peak dense bf16 FLOP/s of a card, or None."""
+    return peak_ops(device_kind, "bfloat16")
+
+
+def peak_int8_ops(device_kind):
+    """The quantized programs' denominator: the bf16 rate their
+    tensor-core products run at (see :data:`PEAK_DTYPES`), or None."""
+    return peak_ops(device_kind, "int8")
+
+
+def card_label():
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (every MFU stands beside it), or None where it does not run."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    line = out.stdout.strip().splitlines()
+    return line[0].strip() if out.returncode == 0 and line else None
 
 
 def resolve_device(device=None):

@@ -115,8 +115,8 @@ root.common.update({
         # Trace ring capacity in events; wraparound keeps the newest
         # (read by veles_tpu_torch.trace.configure).
         "trace_capacity": 65536,
-        # Training-health instrumentation of stitched stages: only
-        # "off" is ported (ROADMAP item 6).
+        # Training-health statistics in the stitched segments and
+        # windows: "off" | "on" | "strict" (veles_tpu_torch.watch.health)
         "health": "off",
     },
     # Generative serving defaults (veles_tpu_torch.gen.engine); an

@@ -47,23 +47,37 @@ keeps the per-step route, with the reason in ``describe()["reason"]``.
 Knob: ``root.common.engine.epoch_scan = off | auto | <K>``: ``off``
 (the default) is the per-step stitched route, ``auto`` takes K =
 ``metrics_every`` when set, else :data:`AUTO_WINDOW`; an integer pins
-K.  Not ported: the pod shardings and the chaos ``pod_chip`` site
-(ROADMAP item 7(d)), the ``watch.health`` statistics of a window
-(item 6(c); ``engine.health`` is refused when segments are built), the
-``prof`` ledger (item 6(c); each graph's captures, replays and capture
-seconds stand in), and ``run_smoke``'s analyzer check
+K.
+
+Each window kind (with and without the GD segment) has one ``segment``
+entry in the performance ledger, named ``scan:`` + the units, as in the
+JAX package: a key's capture is its compile, with one step's cost (the
+capture's tally over K), and each window dispatches K steps
+(``record_dispatch(steps=K)``), timed on the device around its steps.
+On the CPU a key's first window is its compile and each window's tally
+its cost.  With ``engine.health`` armed the stages carry the
+statistics (:mod:`veles_tpu_torch.watch.health`); a window computes
+them at its last step only and lands them (NaNs persist through the
+updates, so the last step's counts see any earlier one), and the
+monitor observes K steps at the window boundary, where ``strict``
+checks.
+
+Not ported: the pod shardings and the chaos ``pod_chip`` site (ROADMAP
+item 7(d)) and ``run_smoke``'s analyzer check
 ``scan_epoch_scan_hazards`` (item 7(e)).
 """
 
 import torch
 
-from veles_tpu_torch import trace
+from veles_tpu_torch import prof, trace
 from veles_tpu_torch.config import root
 from veles_tpu_torch.loader.base import TRAIN, Loader
 from veles_tpu_torch.logger import Logger
-from veles_tpu_torch.stitch import (CapturedGraph, ScalarBlock,
-                                    _constant_false, run_stages,
-                                    scalar_slots, scalar_values)
+from veles_tpu_torch.ops import cost
+from veles_tpu_torch.stitch import (PEAK_DTYPE, CapturedGraph, ScalarBlock,
+                                    _constant_false, record_compile,
+                                    run_stages, scalar_slots, scalar_values)
+from veles_tpu_torch.watch import health as watch_health
 
 #: the ``auto`` bound when ``metrics_every`` is unset: a class pass of
 #: any workload the repo runs is one window
@@ -154,7 +168,7 @@ class WindowGraph(object):
     scalar blocks, its prior slot and, on the card, its graph."""
 
     def __init__(self, plan, k, device, accum_index, predicate=None,
-                 pred_names=(), name="window"):
+                 pred_names=(), name="window", entry=None):
         self.plan = plan
         self.k = int(k)
         self.device = torch.device(device)
@@ -174,7 +188,10 @@ class WindowGraph(object):
         self.runs = 0
         #: the window's graph on the card
         self.graph = CapturedGraph(name, self.device)
-        self.trace_args = {"segment": name, "steps": self.k, "scan": True}
+        #: the ledger entry of its kind (shared by the kind's keys)
+        self.entry = entry
+        self.trace_args = {"segment": entry.name if entry else name,
+                           "steps": self.k, "scan": True}
 
     def _body(self, tensors):
         """The K steps over ``tensors`` (the plan's read Vectors' tensors,
@@ -184,9 +201,12 @@ class WindowGraph(object):
         env = {id(vec): t for vec, t in zip(plan.read_vecs, tensors[:n])}
         blocks, step_metrics = self.blocks, []
         for i in range(self.k):
+            # a window reports its last step's health statistics, so only
+            # that step computes them
             metrics = run_stages(
                 plan.stages, plan.slots, env,
-                lambda kind, index: blocks[kind].tensor[i, index])
+                lambda kind, index: blocks[kind].tensor[i, index],
+                health=i == self.k - 1)
             step_metrics.append(metrics[self.accum_index])
         accum = self.prior + torch.stack(step_metrics).to(
             torch.float32).sum()
@@ -205,12 +225,14 @@ class WindowGraph(object):
             verdict = self.predicate(accum, scal)
         return accum, metrics, verdict
 
-    def execute(self, rows, prior, preds=None):
+    def execute(self, rows, prior, preds=None, timer=None):
         """Write the blocks (``rows``: a ``{kind: [value, ...]}`` a
         step), copy ``prior`` (a device scalar, or None for 0) into the
         prior slot and run the window: eagerly on the CPU and at a
         key's first window on the card, as a graph replay after that.
-        Returns ``(accum, lasts, verdict)``."""
+        ``timer`` (a ledger ``DispatchTimer``) brackets the steps, started
+        again right before a replay.  Returns ``(accum, lasts,
+        verdict)``."""
         for kind, block in self.blocks.items():
             block.write([row[kind] for row in rows])
         if self.preds is not None:
@@ -221,11 +243,13 @@ class WindowGraph(object):
             self.prior.copy_(prior)
         vecs = self.plan.read_vecs + self.plan.out_vecs
         tensors = [vec.devmem for vec in vecs]
+        if timer is not None:
+            timer.restart()
         if self.device.type != "cuda" or self.runs == 0:
             result = self._body(tensors)
         else:
             result = self.graph.replay(lambda: self._body(tensors),
-                                       tensors, vecs)
+                                       tensors, vecs, timer=timer)
         self.runs += 1
         return result
 
@@ -248,6 +272,8 @@ class EpochScanRunner(Logger):
         self.windows = 0
         self.steps = 0
         self.reason = None
+        #: the ledger entries by window kind (train or not)
+        self._entries = {}
         self._structure = self._analyze()
         if self._structure is not None:
             self._structure["seg1"].epoch_runner = self
@@ -385,9 +411,19 @@ class EpochScanRunner(Logger):
                 plan, k, s["seg1"].device, accum_index,
                 predicate=predicate, pred_names=pred_names,
                 name="scan:%s[K=%d%s]" % ("+".join(names), k,
-                                          ",verdict" if verdict else ""))
+                                          ",verdict" if verdict else ""),
+                entry=self._entry(train, names))
             self._programs[key] = program
         return program
+
+    def _entry(self, train, names):
+        entry = self._entries.get(train)
+        if entry is None:
+            entry = self._entries[train] = prof.ledger.entry(
+                "segment", "scan:" + "+".join(names),
+                self._structure["seg1"].device.type)
+            entry.peak_dtype = PEAK_DTYPE
+        return entry
 
     def try_window(self, segment):
         """Called by the loader-headed segment's head in place of a
@@ -432,11 +468,25 @@ class EpochScanRunner(Logger):
                    and decision.device_predicate() is not None
                    and decision.scan_verdict_ready(cls))
         program = self._program_for(train, k, verdict)
+        entry, graph = program.entry, program.graph
         with trace.span("segment", "dispatch", program.trace_args):
             preds = decision.predicate_scalars(cls, k, samples) \
                 if verdict else None
-            accum, lasts, verd = program.execute(
-                rows, decision.scan_prior(cls), preds)
+            eager = program.device.type != "cuda" or program.runs == 0
+            captures = graph.captures
+            timer = prof.DispatchTimer(program.device)
+            with cost.Tally() as tally, timer:
+                accum, lasts, verd = program.execute(
+                    rows, decision.scan_prior(cls), preds, timer)
+            # one step's cost: the tally of the K steps over K
+            step_cost = tally.cost(scale=k)
+            if graph.captures != captures:
+                record_compile(entry, step_cost, program.trace_args,
+                               steady=captures > 0, logger=self)
+            elif program.device.type != "cuda" and program.runs == 1:
+                record_compile(entry, step_cost, program.trace_args)
+            prof.ledger.record_dispatch(entry, timer, steps=k,
+                                        cost=step_cost if eager else None)
             for vec in plan.out_vecs + plan.don_vecs:
                 vec.devmem = vec.devmem     # the device copy is fresh
             for (unit, name), value in zip(plan.metric_spec, lasts):
@@ -450,6 +500,10 @@ class EpochScanRunner(Logger):
             seg2.absorb_pass(include_head=True)
         self.windows += 1
         self.steps += k
+        if any(stage.health_spec is not None for stage in plan.stages):
+            # the window landed its last step's stats: the window
+            # boundary is strict mode's checkpoint
+            watch_health.monitor.observe(steps=k, window=True)
 
 
 def build_runner(workflow):

@@ -26,14 +26,29 @@ tensor-parallel mesh (item 7).  int8 weights (W8A16) come in as a
 quantized params tree or through :meth:`GenerativeEngine.quantize_int8`
 before warmup, and every entry point serves them through the qmatmul
 kernel.
+
+Each program has a performance-ledger entry (:mod:`veles_tpu_torch.prof`):
+``prefill`` entries for every prefill bucket (``p<bucket>``) and the
+chunk (``chunk<C>``), ``decode`` entries for the decode step and the
+verify (``verify<K>``).  The steps run eagerly, so a step's cost is
+what its kernel wrappers tallied (:mod:`veles_tpu_torch.ops.cost`): a
+program's first served step registers its entry (its compile; there
+is nothing to recompile), and each served step dispatches its own
+tally, timed on the device.  ``items`` count tokens: the prompt tokens
+a prefill or chunk processed (as in the JAX package) and the tokens a
+decode or verify step emitted.  Each entry is judged against the rate
+its products run at: f32 engines the f32 rate, bf16 ones the bf16
+rate, and quantized ones ``"int8"``, which the peak table maps to the
+bf16 rate their tensor-core qmatmul runs at.
 """
 
 import bisect
+import itertools
 
 import numpy
 import torch
 
-from veles_tpu_torch import quant, trace
+from veles_tpu_torch import prof, quant, trace
 from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.config import root
 from veles_tpu_torch.gen.model import params_from_numpy
@@ -42,8 +57,13 @@ from veles_tpu_torch.gen.prefix import PrefixCache
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.memory import Watcher
 from veles_tpu_torch.obs import context as obs_context
+from veles_tpu_torch.ops import cost
 from veles_tpu_torch.ops.attention import flash_attention
 from veles_tpu_torch.samples.transformer import _not_ported
+
+
+#: per-process engine sequence for performance-ledger entry names
+_GEN_SEQ = itertools.count()
 
 
 def _round_up(x, mult):
@@ -296,6 +316,9 @@ class GenerativeEngine(Logger):
         Watcher.track(self.params_nbytes, "params")
         self._params_tracked = True
         self._ledger_gen = Watcher.generation
+        #: performance-ledger identity and entries by (kind, program)
+        self.prof_name = "gen%d" % next(_GEN_SEQ)
+        self._prof_entries = {}
 
         self.slot_len = numpy.zeros(self.max_slots, numpy.int32)
         self.slot_token = numpy.zeros(self.max_slots, numpy.int32)
@@ -456,6 +479,27 @@ class GenerativeEngine(Logger):
         self._warmed = True
         self._masters = None
         return self
+
+    def _account(self, kind, name, tally, timer, items):
+        """One served step of program ``name`` in the ledger: its entry
+        registered (the compile) at the program's first step, then the
+        step dispatched with its own tally, its ``timer`` and ``items``
+        tokens."""
+        entry = self._prof_entries.get((kind, name))
+        if entry is None:
+            entry = self._prof_entries[(kind, name)] = prof.ledger.entry(
+                kind, "%s[%s]" % (self.prof_name, name), self.device.type)
+            if self.model.compute_dtype == torch.float32:
+                entry.peak_dtype = "float32"
+            else:
+                entry.peak_dtype = self.quantized or "bfloat16"
+            step_cost, args = prof.span_cost_args(
+                tally.cost(), {"program": name, "engine": self.prof_name},
+                peak_dtype=entry.peak_dtype)
+            prof.ledger.record_compile(entry, cost=step_cost)
+            trace.instant("serve", "compile_gen", args, role="server")
+        prof.ledger.record_dispatch(entry, timer, items=items,
+                                    cost=tally.cost())
 
     def warm_handoff(self):
         _not_ported("the fleet page handoff (warm_handoff)", 7)
@@ -658,7 +702,9 @@ class GenerativeEngine(Logger):
         with trace.span("gen", "prefill",
                         obs_context.tag({"bucket": bucket, "slot": slot,
                                          "len": n}),
-                        role="server"), torch.inference_mode():
+                        role="server"), torch.inference_mode(), \
+                cost.Tally() as tally, \
+                prof.DispatchTimer(self.device) as timer:
             if self._pool is not None:
                 block_ids = numpy.zeros(bucket // self.block_size,
                                         numpy.int32)
@@ -674,6 +720,7 @@ class GenerativeEngine(Logger):
                 _cache, tok = self.model.prefill(
                     self._params, self._cache, self._put(padded), slot, n)
             tok = int(tok)
+        self._account("prefill", "p%d" % bucket, tally, timer, n)
         self.slot_len[slot] = n
         self.slot_token[slot] = tok
         self.slot_active[slot] = True
@@ -716,7 +763,9 @@ class GenerativeEngine(Logger):
         with trace.span("gen", "prefill_chunk",
                         obs_context.tag({"slot": slot, "start": start,
                                          "len": chunk_len}),
-                        role="server"), torch.inference_mode():
+                        role="server"), torch.inference_mode(), \
+                cost.Tally() as tally, \
+                prof.DispatchTimer(self.device) as timer:
             if self._pool is not None:
                 first = start // self.block_size
                 chunk_ids = self._pool.tables[
@@ -729,6 +778,8 @@ class GenerativeEngine(Logger):
                 _cache, tok = self.model.prefill_chunk(
                     self._params, self._cache, self._put(tokens), slot,
                     start, chunk_len)
+        self._account("prefill", "chunk%d" % chunk, tally, timer,
+                      chunk_len)
         state["done"] = start + chunk_len
         if state["done"] < state["n"]:
             return None
@@ -767,7 +818,9 @@ class GenerativeEngine(Logger):
             if traces:
                 decode_args["traces"] = traces
         with trace.span("gen", "decode", decode_args,
-                        role="server"), torch.inference_mode():
+                        role="server"), torch.inference_mode(), \
+                cost.Tally() as tally, \
+                prof.DispatchTimer(self.device) as timer:
             args = (self._put(toks), self._put(positions),
                     self._put(active, torch.bool))
             if self._pool is not None:
@@ -778,6 +831,7 @@ class GenerativeEngine(Logger):
                 _cache, out = self.model.decode(self._params, self._cache,
                                                 *args)
             out = out.cpu().numpy().astype(numpy.int32)
+        self._account("decode", "decode", tally, timer, int(active.sum()))
         self.slot_len[active] += 1
         self.slot_token[active] = out[active]
         return out, active
@@ -850,7 +904,9 @@ class GenerativeEngine(Logger):
         self.spec_dispatches += 1
         with trace.span("gen", "spec_verify",
                         {"active": len(order), "draft_k": self.draft_k},
-                        role="server"), torch.inference_mode():
+                        role="server"), torch.inference_mode(), \
+                cost.Tally() as tally, \
+                prof.DispatchTimer(self.device) as timer:
             args = (self._put(tokens), self._put(positions),
                     self._put(drafts), self._put(active, torch.bool))
             if pool is not None:
@@ -877,6 +933,8 @@ class GenerativeEngine(Logger):
             self.spec_accepted_total += a
             self.spec_tokens_total += a + 1
             results[slot] = emitted
+        self._account("decode", "verify%d" % self.draft_k, tally, timer,
+                      sum(len(tokens) for tokens in results.values()))
         return results
 
     # -- the fleet page handoff (item 7) -----------------------------------

@@ -54,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.backends import resolve_device
-from veles_tpu_torch.ops import qgemm
+from veles_tpu_torch.ops import cost, qgemm
 from veles_tpu_torch.ops.attention import (chunk_attention,
                                            decode_attention,
                                            flash_attention,
@@ -218,6 +218,11 @@ class TransformerGenModel(object):
                                  "gelu" if gelu else None,
                                  out_dtype=x2.dtype)
         y = x2 @ w.to(x2.dtype).reshape(k, -1)
+        # a plain product through cuBLAS: 2·M·N·K, the bias and the gelu
+        # per output element; x2 and w read, y written
+        cost.add(cost.product(y.shape[0], y.shape[1], k, bias is not None,
+                              "gelu" if gelu else None),
+                 cost.nbytes(x2, w, bias, y))
         if bias is not None:
             y = y + bias
         return F.gelu(y, approximate="tanh") if gelu else y
@@ -265,7 +270,13 @@ class TransformerGenModel(object):
         embed = params.get("embed_cd")
         if embed is None:
             embed = params["embed"].to(cd)
-        return (rows.to(cd) @ embed.t()).float()
+        logits = rows.to(cd) @ embed.t()
+        # the tied readout, 2·rows·d·vocab; rows and the table read, the
+        # logits written
+        cost.add(cost.product(logits.shape[0], logits.shape[1],
+                              rows.shape[1]),
+                 cost.nbytes(rows, embed, logits))
+        return logits.float()
 
     def _tokens(self, params, tokens):
         return torch.as_tensor(tokens, dtype=torch.long).to(

@@ -33,8 +33,9 @@ the engine's dispatch spans carry its trace id.
 
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP
 item: the fleet page handoff and drain (``submit_handoff``, ``drain``;
-item 7(d)).  The telemetry-bus snapshots (``watch_snapshot``) wait for
-``watch/`` (item 6(c)).
+item 7(d)).  Every :data:`GenerativeScheduler.WATCH_EVERY` decode steps
+a ``serve`` snapshot (:meth:`GenerativeScheduler.watch_snapshot`) goes
+onto the telemetry bus when one is live (:mod:`veles_tpu_torch.watch`).
 """
 
 import collections
@@ -44,7 +45,7 @@ from concurrent.futures import Future
 
 import numpy
 
-from veles_tpu_torch import trace
+from veles_tpu_torch import trace, watch
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.metrics import LatencyHistogram
 from veles_tpu_torch.obs import context as obs_context
@@ -224,6 +225,26 @@ class GenerativeScheduler(Logger):
         (a registry handed its sink after this scheduler started)."""
         self.metrics = metrics
         self._register_gauges(metrics)
+
+    #: decode-step cadence of the telemetry-bus "serve" snapshots
+    WATCH_EVERY = 32
+
+    def watch_snapshot(self):
+        """The compact serving digest published onto the telemetry bus
+        every :data:`WATCH_EVERY` decode steps (and readable any time):
+        queue and slot pressure, throughput counters, TTFT."""
+        return {
+            "model": self.name,
+            "queue_depth": len(self._queue),
+            "active": len(self._active),
+            "prefilling": len(self._prefilling),
+            "batch_fill": round(self.batch_fill(), 4),
+            "admitted_total": self.admitted_total,
+            "finished_total": self.finished_total,
+            "tokens_total": self.tokens_total,
+            "preemptions_total": self.engine.preemptions_total,
+            "ttft_p99_ms": round(self.ttft.percentile(99) * 1e3, 3),
+        }
 
     def batch_fill(self):
         """Mean decode-row utilisation: active slots served per decode
@@ -539,6 +560,7 @@ class GenerativeScheduler(Logger):
             self._preempt(max(self._active.values(),
                               key=lambda r: r.admit_seq))
             emitted += 1
+        decode_steps_before = self.decode_steps
         if self._active:
             if self.engine.proposer is not None:
                 emitted += self._spec_decode()
@@ -552,6 +574,11 @@ class GenerativeScheduler(Logger):
                         if active[slot]:
                             self._emit(request, out[slot])
                             emitted += 1
+        if watch.enabled() and self.decode_steps != decode_steps_before \
+                and self.decode_steps % self.WATCH_EVERY == 0:
+            # only when a decode step reached the cadence (a prefill-only
+            # pump must not republish); the publish never blocks
+            watch.publish("serve", self.watch_snapshot())
         return emitted
 
     def run_until_idle(self, max_steps=100000):

@@ -1,11 +1,7 @@
 """Flight recorder: a loadable post-mortem from any traced role.
 
 The port's counterpart of :mod:`veles_tpu.obs.blackbox`, with the same
-payload keys but one: the ``"watch"`` block (the last training-health
-snapshot and the newest telemetry-bus events) waits for ``watch/``
-(ROADMAP.md, 'Slices still to port', item 6(c)); while
-``root.common.watch.endpoint`` and ``engine.health`` refuse, the JAX
-package would not write that block either.
+payload keys.
 
 A crashed process takes its trace ring and perf ledger with it — the
 two artifacts that would have said what it was doing.  This module is
@@ -16,6 +12,8 @@ fatal exit path dumps a compact JSON post-mortem there —
   them) and its wraparound-proof per-category counts,
 * the perf-ledger summary (compiles, recompiles, per-program rows,
   device memory by category),
+* the ``"watch"`` block when there is something to put in it: the last
+  training-health snapshot and the newest telemetry-bus events,
 * the role, pid, reason and wall-clock time of death —
 
 via three hooks: ``sys.excepthook`` and ``threading.excepthook``
@@ -43,6 +41,10 @@ KIND = "veles_tpu.obs.blackbox"
 #: how many newest trace events a post-mortem keeps (bounds the file;
 #: the interesting events are the last ones by construction)
 MAX_EVENTS = 8192
+
+#: how many newest telemetry-bus events ride along in the "watch"
+#: block (bounded by the bus's own history ring anyway)
+MAX_BUS_EVENTS = 64
 
 _installed = [False]
 _prev_excepthook = [None]
@@ -83,8 +85,11 @@ def dump(reason, directory=None, extra=None):
             "event_counts": trace.recorder.category_counts(),
             "ledger": prof.summary(),
         }
-        # the "watch" block (health snapshot, bus events) waits for
-        # watch/, ROADMAP item 6(c)
+        from veles_tpu_torch import watch
+        health = watch.last_health()
+        bus_events = watch.recent_events(MAX_BUS_EVENTS)
+        if health is not None or bus_events:
+            payload["watch"] = {"health": health, "events": bus_events}
         if extra:
             payload["extra"] = dict(extra)
         os.makedirs(directory, exist_ok=True)

@@ -8,9 +8,11 @@ guarded: one failing source must not blank the page for the rest) and
 ``GET /healthz``.  :func:`default_sources` is the process-wide base:
 the perf-ledger gauges always, the trace category counters when tracing
 is on, a declared :class:`~veles_tpu_torch.obs.slo.SLOEngine` when
-given.  The JAX package's training-health source (``watch``) waits for
-ROADMAP item 6(c), and the job master's and slaves' endpoints
-(``JobServer.start_scrape``, ``JobClient.start_scrape``) for item 7(e).
+given, and the training-health source (:func:`veles_tpu_torch.watch
+.metrics_text`: the health gauges and the bus counters, empty when
+neither is armed).  The job master's and slaves' endpoints
+(``JobServer.start_scrape``, ``JobClient.start_scrape``) wait for
+ROADMAP item 7(e).
 
 The exposition text comes from the same renderers the serving
 ``/metrics`` page uses, so one Prometheus config scrapes every role
@@ -26,9 +28,9 @@ from veles_tpu_torch.logger import Logger
 def default_sources(slo=None, extra=()):
     """The process-wide base every role shares: perf-ledger gauges
     (always on — the ledger has no knob), trace counters when tracing
-    is enabled, an optional SLO engine (sampled per scrape), plus any
-    role-specific callables.  The training-health source waits for
-    ``watch/`` (ROADMAP item 6(c))."""
+    is enabled, the training-health gauges and bus counters, an
+    optional SLO engine (sampled per scrape), plus any role-specific
+    callables."""
     from veles_tpu_torch import prof, trace
 
     sources = [prof.metrics_text]
@@ -37,6 +39,12 @@ def default_sources(slo=None, extra=()):
         return trace.metrics_text() if trace.enabled() else ""
 
     sources.append(trace_source)
+
+    def watch_source():
+        from veles_tpu_torch import watch
+        return watch.metrics_text()
+
+    sources.append(watch_source)
     if slo is not None:
         def slo_source():
             slo.sample()

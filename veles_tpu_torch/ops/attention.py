@@ -29,8 +29,10 @@ kernel pair (the counterpart of the JAX ``custom_vjp``).
 
 import ctypes
 
+import numpy
 import torch
 
+from veles_tpu_torch.ops import cost
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 
 NEG_INF = -1e30
@@ -262,10 +264,36 @@ def _flash_fwd_cuda(q, k, v, causal, q_offset, k_offset):
     return o, lse
 
 
+def _pairs(q, k, causal, q_offset, k_offset):
+    """(query, key) pairs a (b, s, h, d) attention computes for each
+    (b, h): every pair, or under the causal mask the keys at or before
+    each query's position."""
+    sq, sk = q.shape[1], k.shape[1]
+    if not causal:
+        return sq * sk
+    return int(numpy.clip(numpy.arange(sq)
+                          + (int(q_offset) - int(k_offset) + 1),
+                          0, sk).sum())
+
+
+def _tally_flash(q, k, v, causal, q_offset, k_offset, products, nbytes):
+    """The cost of a flash launch: ``products`` products of 2·d flops
+    per visible (query, key) pair and (b, h) (the forward's QKᵀ and PV
+    are two; the dq kernel's S, dP and dS·K three; the dk/dv kernel's
+    S, dP, dV and dK four), and ``nbytes``."""
+    b, _, h, d = q.shape
+    cost.add(2.0 * products * d * b * h
+             * _pairs(q, k, causal, q_offset, k_offset), nbytes)
+
+
 def _flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
     """``(o, lse)`` of attention over (b, s, h, d) tensors: the kernel on
     CUDA tensors, :func:`_mha_ref` on CPU tensors.  ``q_offset`` and
     ``k_offset`` are the global causal positions of element 0."""
+    # q, k and v read once; o and the f32 lse (b, h, sq) written
+    b, sq, h, _ = q.shape
+    _tally_flash(q, k, v, causal, q_offset, k_offset, 2,
+                 2 * cost.nbytes(q) + cost.nbytes(k, v) + 4 * b * h * sq)
     if on_gpu(q, k, v):
         return _flash_fwd_cuda(q, k, v, causal, int(q_offset),
                                int(k_offset))
@@ -331,6 +359,13 @@ def _flash_bwd(q, k, v, o, lse, do, causal=False, q_offset=0, k_offset=0,
     if delta is None:
         delta = _delta(o, do)
     do = do.to(q.dtype)
+    # each kernel reads q, k, v, do, lse and delta once; dq writes a
+    # q-sized output, dk/dv two k-sized ones
+    read = cost.nbytes(q, k, v, do, lse, delta)
+    _tally_flash(q, k, v, causal, q_offset, k_offset, 3,
+                 read + cost.nbytes(q))
+    _tally_flash(q, k, v, causal, q_offset, k_offset, 4,
+                 read + cost.nbytes(k, v))
     if on_gpu(q, k, v, o, lse, do, delta):
         if do.stride(-1) != 1:
             do = do.contiguous()
@@ -446,6 +481,15 @@ def _decode_cuda(q, k, v, lengths, row_step, split=None):
     return o
 
 
+def _tally_decode(q, keys, nbytes):
+    """The cost of a decode launch: QKᵀ and PV, 4·d flops a key, for
+    every query row and head over ``keys`` keys, the cache's full
+    extent.  The valid lengths live on the device, so this is the upper
+    bound the JAX package's analytic decode count also takes."""
+    b, nq, h, d = q.shape
+    cost.add(4.0 * d * keys * b * nq * h, nbytes)
+
+
 def decode_attention(q, k, v, lengths, row_step=0):
     """Attention of a few query rows against a masked KV buffer — the
     decode step's hot op.
@@ -461,6 +505,7 @@ def decode_attention(q, k, v, lengths, row_step=0):
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
+    _tally_decode(q, k.shape[1], cost.nbytes(q, q, k, v, lengths))
     if on_gpu(q, k, v, lengths):
         out = _decode_cuda(q, k, v, lengths, row_step)
     elif row_step:
@@ -562,6 +607,11 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, row_step=0):
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
+    # the keys of every table's blocks, read through the tables
+    keys = tables.shape[1] * k_pool.shape[1]
+    _tally_decode(q, keys, cost.nbytes(q, q, tables, lengths)
+                  + 2 * q.shape[0] * keys * k_pool.shape[2]
+                  * k_pool.shape[3] * k_pool.element_size())
     if on_gpu(q, k_pool, v_pool, tables, lengths):
         out = _paged_decode_cuda(q, k_pool, v_pool, tables, lengths,
                                  row_step)

@@ -49,6 +49,7 @@ import math
 import torch
 
 from veles_tpu_torch.backends import check_pallas_knob
+from veles_tpu_torch.ops import cost
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 
 #: launches since the last reset_launches(), under "gather_norm" when the
@@ -341,6 +342,23 @@ def _forced_off(value):
     return value is False
 
 
+def _tally(specs, rows):
+    """The cost of one gather launch of ``rows`` rows: each table's
+    rows read and written once (its element type in, f32 out where it
+    is normalized), the int32 index of each row read, and the scale and
+    shift, two flops an element of a normalized table."""
+    flops, nbytes = 0, 4 * rows
+    for data, how in specs:
+        row = math.prod(data.shape[1:])
+        nbytes += rows * row * data.element_size()
+        if _is_norm(how):
+            flops += 2 * rows * row
+            nbytes += 4 * rows * row
+        else:
+            nbytes += rows * row * data.element_size()
+    cost.add(flops, nbytes)
+
+
 def take_rows_group(tables, indices):
     """Rows ``indices`` (int32) of every table in one launch: ``tables``
     holds up to four ``(data, how)`` pairs, ``how`` a raw table's pad
@@ -351,6 +369,7 @@ def take_rows_group(tables, indices):
     check_pallas_knob("pallas_gather", "the jnp row gather",
                       _forced_off)
     specs, tensors = _specs(tables)
+    _tally(specs, indices.shape[0])
     if on_gpu(indices, *tensors):
         return _gather_group_cuda(specs, indices)
     return _gather_group_ref(specs, indices)
@@ -367,6 +386,8 @@ def take_rows_served(tables, shuffled, offset, size, count):
     check_pallas_knob("pallas_gather", "the jnp row gather",
                       _forced_off)
     specs, tensors = _specs(tables)
+    # the served rows' indices are read from ``shuffled`` too
+    _tally(specs, count)
     if on_gpu(shuffled, offset, size, *tensors):
         return _gather_served_cuda(specs, shuffled, offset, size, count)
     return _gather_served_ref(specs, shuffled, offset, size, count)

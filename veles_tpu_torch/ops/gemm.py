@@ -48,6 +48,7 @@ import operator
 import torch
 
 from veles_tpu_torch.backends import check_pallas_knob
+from veles_tpu_torch.ops import cost
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 
 #: activation name -> the kernels' code; ``None`` and "linear" are one
@@ -310,6 +311,11 @@ def matmul(a, w, bias=None, activation=None):
         raise ValueError("unknown activation %r" % (activation,))
     check_pallas_knob("pallas_gemm", "the dense matmul", operator.not_)
     tensors = (a, w) if bias is None else (a, w, bias)
+    # 2·M·N·K, the bias and the activation per output element; a, w and
+    # the bias read once, the (M, N) f32 output written once
+    m, n = a.shape[0], w.shape[-1]
+    cost.add(cost.product(m, n, a.shape[-1], bias is not None, activation),
+             cost.nbytes(*tensors) + 4 * m * n)
     if on_gpu(*tensors):
         return _matmul_cuda(a, w, bias, activation)
     return _matmul_ref(a, w, bias, activation)
@@ -416,6 +422,27 @@ def _gd_dw_cuda(x, eo, y, w, vw, inv_batch, lr, decay, moment, activation,
         bias_in_dw["gd_db_in_dw"] += 1
 
 
+def _tally_gd(x2, eo, w, b, activation, need_err_input):
+    """The cost of one GD step (batch B, F inputs, N neurons).  dx:
+    2·B·N·F and δ rebuilt per element (act' and the product with the
+    error); eo, y and W read, the (B, F) output written.  dw: 2·B·F·N,
+    δ again, the momentum step per weight; x, eo and y read, W and vW
+    read and written.  The bias step in dw's launch: Σδ over the batch
+    and the momentum step per bias; b and vb read and written."""
+    batch, f = x2.shape
+    n = eo.shape[1]
+    delta = cost.DERIVATIVE_FLOPS[activation] * batch * n
+    flops = 2.0 * batch * f * n + delta + cost.UPDATE_FLOPS * f * n
+    nbytes = cost.nbytes(x2, eo, eo) + 4 * cost.nbytes(w)
+    if need_err_input:
+        flops += 2.0 * batch * n * f + delta
+        nbytes += cost.nbytes(eo, eo, w) + 4 * batch * f
+    if b is not None:
+        flops += batch * n + cost.UPDATE_FLOPS * n
+        nbytes += 4 * cost.nbytes(b)
+    cost.add(flops, nbytes)
+
+
 def gd_fused(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
              decay_bias, moment, moment_bias, activation=None,
              need_err_input=True, has_bias=True, transposed=False):
@@ -433,6 +460,8 @@ def gd_fused(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
     eo = err_output.reshape(batch, -1)
     y2 = y.reshape(batch, -1)
     params = (w, vw, b, vb) if has_bias else (w, vw)
+    _tally_gd(x2, eo, w, b if has_bias else None, activation,
+              need_err_input)
     if not on_gpu(x2, eo, y2, *params):
         new = _gd_ref(x2, y2, eo, w, b, vw, vb, lr, lr_bias, decay,
                       decay_bias, moment, moment_bias, activation,

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from veles_tpu_torch.backends import check_pallas_knob
 from veles_tpu_torch.ops.gemm import ACTIVATION_CODES as _GEMM_CODES
 from veles_tpu_torch.ops.gemm import _activate
+from veles_tpu_torch.ops import cost
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 
 #: activation name -> the kernel's code: the GEMM table plus gelu
@@ -100,8 +101,15 @@ def _qactivate(x, activation):
 def _qmatmul_ref(a, q, scale, bias=None, activation=None, out_dtype=None):
     """Mirror of ``_qmatmul_jnp``: q widened (exactly) and the product
     accumulated in f32, then ``* scale``, ``+ bias`` and the activation
-    in f32, cast to ``out_dtype or a.dtype``."""
-    out = torch.mm(a.float(), q.float())
+    in f32, cast to ``out_dtype or a.dtype``.  On CPU tensors the
+    product accumulates in float64 and rounds to f32 once: an f32 times
+    an int8 is exact there, so terms that cancel give exactly zero, as
+    the JAX package's quantized forward does (an f32 ``mm`` on the CPU
+    fuses multiply and add and leaves a residue)."""
+    if a.is_cuda:
+        out = torch.mm(a.float(), q.float())
+    else:
+        out = torch.mm(a.double(), q.double()).float()
     out = out * scale.reshape(-1).float()
     if bias is not None:
         out = out + bias.float()
@@ -245,6 +253,12 @@ def qmatmul(a, q, scale, bias=None, activation=None, out_dtype=None):
                       operator.not_)
     out_dtype = out_dtype or a.dtype
     tensors = (a, q, scale) if bias is None else (a, q, scale, bias)
+    # 2·M·N·K, then the scale, the bias and the activation per output
+    # element; a, q (int8), scale and bias read once, the output written
+    m, n = a.shape[0], q.shape[1]
+    cost.add(cost.product(m, n, a.shape[1], bias is not None, activation)
+             + m * n, cost.nbytes(*tensors)
+             + m * n * torch.empty((), dtype=out_dtype).element_size())
     if on_gpu(*tensors):
         return _qmatmul_cuda(a, q, scale, bias, activation, out_dtype)
     return _qmatmul_ref(a, q, scale, bias, activation, out_dtype)

@@ -28,6 +28,7 @@ import numpy
 import torch
 
 from veles_tpu_torch.backends import resolve_device
+from veles_tpu_torch.ops import cost
 from veles_tpu_torch.ops.util import check_status, stream_handle
 
 #: kernel name -> launches since the last reset_launches()
@@ -175,6 +176,10 @@ def uniform_pallas(seed, shape, dtype=torch.float32, low=0.0, high=1.0,
     the card (``device`` defaults to ``cuda`` and raises without one),
     :func:`_uniform_ref` on the CPU; the same bits on both."""
     device = resolve_device(device)
+    # the affine to [low, high), two flops an element (the Philox rounds
+    # are integer work); the output written once
+    count = math.prod(shape) if not isinstance(shape, int) else shape
+    cost.add(2 * count, count * torch.empty((), dtype=dtype).element_size())
     if device.type == "cuda":
         return _uniform_cuda(seed, shape, dtype, low, high, device)
     return _uniform_ref(seed, shape, dtype, low, high, device)

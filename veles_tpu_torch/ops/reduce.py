@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from veles_tpu_torch.ops import cost
 from veles_tpu_torch.ops.util import check_status, on_gpu, stream_handle
 
 OPS = {"sum": 0, "max": 1, "min": 2}
@@ -244,6 +245,10 @@ def matrix_reduce(a, axis=0, op="sum", use_pallas=None):
     if use_pallas is None:
         from veles_tpu_torch.config import root
         use_pallas = bool(root.common.engine.get("pallas_reduce", False))
+    # one operation an element; the matrix read once, one row or column
+    # of results written
+    cost.add(a.numel(), cost.nbytes(a)
+             + a.shape[1 - axis] * a.element_size())
     if use_pallas and on_gpu(a):
         return _reduce_cuda(a, axis, op)
     return _reduce_ref(a, axis, op)

@@ -47,6 +47,7 @@ from veles_tpu_torch import prof, quant, trace
 from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.memory import Watcher
+from veles_tpu_torch.ops import cost
 from veles_tpu_torch.samples.transformer import _not_ported
 
 #: per-process engine sequence for performance-ledger entry names
@@ -350,13 +351,17 @@ class InferenceEngine(Logger):
                 self._buckets[batch_size] = bucket
         return bucket
 
-    def _compiled(self, batch_size, recapture=False):
+    def _compiled(self, batch_size, recapture=False, program_cost=None):
         """Account one capture of bucket ``batch_size`` (its eager
-        function on the CPU): compile_count, the ledger entry, the
-        trace span, and the sentinel after warmup."""
+        function on the CPU): compile_count, the ledger entry with the
+        capture's ``program_cost`` (on the CPU each call's tally is its
+        cost),
+        the trace span, and the sentinel after warmup.  Every bucket is
+        judged against the f32 rate: its products are the f32 GEMM, or
+        the qmatmul's f32 FMA body when quantized."""
         span_args = {"bucket": batch_size, "engine": self.prof_name}
-        cost, span_args = prof.span_cost_args(None, span_args,
-                                              peak_dtype=self.quantized)
+        program_cost, span_args = prof.span_cost_args(
+            program_cost, span_args, peak_dtype="float32")
         if self._warmed:
             span_args["recompile"] = True
         trace.instant("serve", "compile_bucket", span_args, role="server")
@@ -364,10 +369,11 @@ class InferenceEngine(Logger):
         entry = self._prof_entries.get(batch_size)
         if entry is None:
             entry = self._prof_entries[batch_size] = prof.ledger.entry(
-                "bucket", "%s[b%d]" % (self.prof_name, batch_size))
-        if self.quantized:
-            entry.peak_dtype = self.quantized
-        prof.ledger.record_compile(entry, cost=cost, steady=self._warmed)
+                "bucket", "%s[b%d]" % (self.prof_name, batch_size),
+                "cuda" if self._on_card else "cpu")
+        entry.peak_dtype = "float32"
+        prof.ledger.record_compile(entry, cost=program_cost,
+                                   steady=self._warmed)
         self.debug("compiled bucket %d (compile #%d)", batch_size,
                    self.compile_count)
         if self._warmed:
@@ -557,7 +563,8 @@ class InferenceEngine(Logger):
             entry = self._prof_entries.get(size)
             if entry is not None:
                 prof.ledger.record_dispatch(
-                    entry, time.perf_counter_ns() - tic)
+                    entry, time.perf_counter_ns() - tic,
+                    cost=bucket.eager_cost)
         return out
 
 
@@ -571,6 +578,9 @@ class _Bucket(object):
         self.size = size
         self.output = None
         self.graph = None
+        #: the last eager call's cost (the CPU route; None on the card,
+        #: where the capture's cost is the entry's)
+        self.eager_cost = None
         if engine._on_card:
             from veles_tpu_torch.stitch import CapturedGraph
             shape = (size,) + engine.sample_shape
@@ -597,11 +607,12 @@ class _Bucket(object):
             padded = numpy.zeros((self.size,) + engine.sample_shape,
                                  numpy.float32)
             padded[:n] = chunk[:n]
-            with engine._lock:
+            with engine._lock, cost.Tally() as tally:
                 out = engine._apply(engine._params,
                                     torch.from_numpy(padded))
                 self.output = out
-                return out[:n].numpy().copy()
+            self.eager_cost = tally.cost()
+            return out[:n].numpy().copy()
         with engine._lock, engine._on_stream():
             host = self.host_in.numpy()
             host[:n] = chunk[:n]
@@ -613,11 +624,14 @@ class _Bucket(object):
                 self._body()
             leaves = _leaves(engine._params)
             before = self.graph.captures
-            out = self.graph.replay(
-                self._body, [self.input] + [t for _, t in leaves],
-                ["input"] + [p for p, _ in leaves])
+            with cost.Tally() as tally:
+                out = self.graph.replay(
+                    self._body, [self.input] + [t for _, t in leaves],
+                    ["input"] + [p for p, _ in leaves])
             if self.graph.captures != before:
-                engine._compiled(self.size, recapture=before > 0)
+                # the wrappers ran once, inside the capture
+                engine._compiled(self.size, recapture=before > 0,
+                                 program_cost=tally.cost())
             if self.host_out is None:
                 self.host_out = torch.empty(tuple(out.shape),
                                             dtype=out.dtype,

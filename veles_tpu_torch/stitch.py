@@ -45,12 +45,25 @@ loader-headed segment asks its ``epoch_runner`` for a window before a
 per-step dispatch, and a window marks the segments' pass absorbed
 (:meth:`StitchSegment.absorb_pass`).
 
-Not ported: pod shardings, health instrumentation, the AOT
-``EnforcedProgram`` and the ``prof`` ledger (the capture and recapture
-counters stand in for the last two), and the JAX package's fallbacks to
-per-unit dispatch when a ``stitch_stage()`` or a segment build raises:
-here the exception propagates.  ``engine.health`` ``on`` or ``strict``
-raises when a workflow stitches (ROADMAP item 6).
+Each segment has a ``segment`` entry in the performance ledger
+(:mod:`veles_tpu_torch.prof`): the capture is its compile, with the
+cost its kernel wrappers tallied while it was captured
+(:mod:`veles_tpu_torch.ops.cost`), and each dispatch adds its time on
+the device (``prof.DispatchTimer``: CUDA events around the replay, the
+capture left out).  On the CPU the first dispatch is the compile and
+each dispatch's tally is its cost.  A recapture is a steady-state
+recompile: it replaces the cost and is flagged by the recompile
+sentinel.  With ``engine.health`` ``on`` or ``strict``,
+:func:`build_segments` folds the training-health statistics
+(:mod:`veles_tpu_torch.watch.health`) into the stages before the
+segments are built; ``off`` leaves every stage, and so every graph, as
+it is.
+
+Not ported: pod shardings, the AOT ``EnforcedProgram`` (a CUDA graph
+replays what it captured; the address check above stands in for its
+signature check), and the JAX package's fallbacks to per-unit dispatch
+when a ``stitch_stage()`` or a segment build raises: here the exception
+propagates.
 """
 
 import time
@@ -58,11 +71,18 @@ import time
 import numpy
 import torch
 
-from veles_tpu_torch import trace
+from veles_tpu_torch import prof, trace
 from veles_tpu_torch.config import root
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.memory import Vector, Watcher
 from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.ops import cost
+from veles_tpu_torch.watch import health as watch_health
+
+#: the operand type of every stitched stage's kernels (the GEMM, GD and
+#: gather kernels compute f32 on the FMA units): the ledger's MFU
+#: denominator for segments and windows
+PEAK_DTYPE = "float32"
 
 
 def enabled():
@@ -73,25 +93,6 @@ def enabled():
     return bool(value)
 
 
-def check_health():
-    """Raise unless ``engine.health`` is ``off``: the JAX package reads
-    it when it builds segments and then instruments every stitched
-    stage (``on``) or also raises on non-finite parameters
-    (``strict``).  Any other value is refused as the JAX package
-    refuses it."""
-    value = root.common.engine.get("health", "off")
-    mode = "off" if value is None else str(value).strip().lower()
-    if mode in ("off", "0", "false", "no", ""):
-        return
-    if mode in ("on", "1", "true", "yes", "strict"):
-        raise NotImplementedError(
-            "engine.health=%r (the training-health instrumentation of "
-            "stitched stages) is not ported yet (ROADMAP item 6)"
-            % (value,))
-    raise ValueError("root.common.engine.health must be off|on|strict, "
-                     "got %r" % (value,))
-
-
 class StitchStage(object):
     """One unit's part of a segment.
 
@@ -99,14 +100,19 @@ class StitchStage(object):
     + params + donated + scalars, the scalars as 0-d tensors) and
     returns a dict with every ``produces`` name, every ``donated`` name
     (the same buffer, updated in place) and every ``metrics`` name
-    (device scalars set on the unit after each dispatch)."""
+    (device scalars set on the unit after each dispatch).  ``health``
+    (optional) declares the stage's training-health statistics:
+    ``health(t, out)`` returns ``{"grad_norm", "weight_norm",
+    "update_norm"}`` as 0-d tensors, ``t`` holding the donated values
+    from before the update for the names in ``health.reads_before``."""
 
     __slots__ = ("unit", "fn", "consumes", "produces", "params",
-                 "donated", "scalars", "metrics", "prelude")
+                 "donated", "scalars", "metrics", "prelude", "health",
+                 "health_spec")
 
     def __init__(self, unit, fn, consumes=None, produces=None,
                  params=None, donated=None, scalars=None, metrics=(),
-                 prelude=None):
+                 prelude=None, health=None):
         self.unit = unit
         self.fn = fn
         self.consumes = dict(consumes or {})
@@ -118,6 +124,9 @@ class StitchStage(object):
         self.metrics = tuple(metrics)
         #: host callable run before every dispatch, before the scalars
         self.prelude = prelude
+        self.health = health
+        #: the HealthGroup once watch.health instrumented the stage
+        self.health_spec = None
 
     def vectors(self):
         for group in (self.consumes, self.produces, self.params,
@@ -166,14 +175,17 @@ def scalar_values(stages, slots, kinds):
     return values
 
 
-def run_stages(stages, slots, tensors, scalar):
+def run_stages(stages, slots, tensors, scalar, health=True):
     """Run ``stages`` in order, once.  ``tensors`` maps ``id(Vector)``
     to the tensor a stage reads for it: every Vector no earlier stage
     produced must be there, and each stage's produced and donated
     results are written back into it, so a later stage (or the next
     step of a window) reads them.  ``scalar(kind, index)`` gives the
     0-d tensor of a scalar slot.  Returns the stages' metrics, in
-    order."""
+    order.  ``health=False`` runs the instrumented stages without their
+    health statistics (a window's steps before its last, whose
+    statistics it reports): their places among the metrics hold
+    None."""
     metrics = []
     for stage, stage_slots in zip(stages, slots):
         t = {name: tensors[id(vec)]
@@ -181,11 +193,15 @@ def run_stages(stages, slots, tensors, scalar):
              for name, vec in group.items()}
         for kind, index, name in stage_slots:
             t[name] = scalar(kind, index)
-        out = stage.fn(t)
+        skip = not health and stage.health_spec is not None
+        out = stage.fn.plain(t) if skip else stage.fn(t)
         for group in (stage.produces, stage.donated):
             for name, vec in group.items():
                 tensors[id(vec)] = out[name]
-        metrics.extend(out[name] for name in stage.metrics)
+        if skip:
+            metrics.extend(out.get(name) for name in stage.metrics)
+        else:
+            metrics.extend(out[name] for name in stage.metrics)
     return metrics
 
 
@@ -226,13 +242,14 @@ class CapturedGraph(Logger):
         """``{kernel: launches}`` of one replay."""
         return {name: count for _c, name, count in self._launched}
 
-    def replay(self, body, tensors, labels, on_capture=None):
+    def replay(self, body, tensors, labels, on_capture=None, timer=None):
         """Replay the graph of ``body()``, whose inputs and outputs are
         ``tensors`` (``labels`` name them in the log), capturing it
         first when there is none or one of them moved;
         ``on_capture(results)`` sees a new capture's results before the
-        replay.  Returns ``body()``'s results as the graph holds
-        them."""
+        replay, and ``timer`` (a ledger ``DispatchTimer``) is started
+        right before it.  Returns ``body()``'s results as the graph
+        holds them."""
         ptrs = [t.data_ptr() for t in tensors]
         if self._graph is not None and ptrs != self._ptrs:
             moved = [label for label, a, b in zip(labels, ptrs, self._ptrs)
@@ -244,6 +261,8 @@ class CapturedGraph(Logger):
         if self._graph is None:
             self._capture(body, on_capture)
             self._ptrs = ptrs
+        if timer is not None:
+            timer.restart()
         self._graph.replay()
         self.replays += 1
         for counters, name, count in self._launched:
@@ -344,10 +363,18 @@ class StitchSegment(Logger):
         self.epoch_runner = None
         #: a window ran this segment's pass, head included
         self._head_absorbed_ = False
+        #: the health groups riding this segment's metrics (empty with
+        #: engine.health=off)
+        self._health_groups = [stage.health_spec for stage in stages
+                               if stage.health_spec is not None]
         self._build_plan()
         self._trace_args = {"segment": "+".join(self.names)}
         #: the segment's graph on the card
         self.graph = CapturedGraph(repr(self), self.device)
+        #: the performance-ledger entry (the capture's cost, the
+        #: dispatch clocks), registered at the first dispatch: a
+        #: segment a window always absorbs registers none
+        self.prof_entry = None
 
     @property
     def names(self):
@@ -431,7 +458,7 @@ class StitchSegment(Logger):
             setattr(unit, name, value)
 
     # -- the graph -----------------------------------------------------------
-    def _replay(self, tensors):
+    def _replay(self, tensors, timer=None):
         def captured(static):
             """A new capture: donated buffers stay put, and the produced
             Vectors are bound to the graph's outputs."""
@@ -449,24 +476,48 @@ class StitchSegment(Logger):
                 vec.bind(value)
         self._publish(*self.graph.replay(
             lambda: self._run_stages(tensors), tensors, self._read_vecs,
-            on_capture=captured))
+            on_capture=captured, timer=timer))
 
     # -- execution ----------------------------------------------------------
     def execute(self):
         """Run the preludes, write the scalars and dispatch the
         segment: eagerly on the CPU and at the first dispatch on the
-        card, as a graph replay after that."""
+        card, as a graph replay after that.  The dispatch lands in the
+        ledger and, with health armed, its stats in the monitor."""
         with trace.span("segment", "dispatch", self._trace_args):
             for stage in self.stages:
                 if stage.prelude is not None:
                     stage.prelude()
             self._write_scalars()
             tensors = [vec.devmem for vec in self._read_vecs]
-            if self.device.type == "cuda" and self.dispatches > 0:
-                self._replay(tensors)
-            else:
-                self._publish(*self._run_stages(tensors))
+            eager = self.device.type != "cuda" or self.dispatches == 0
+            if self.prof_entry is None:
+                self.prof_entry = prof.ledger.entry(
+                    "segment", "+".join(self.names), self.device.type)
+                self.prof_entry.peak_dtype = PEAK_DTYPE
+            captures = self.graph.captures
+            timer = prof.DispatchTimer(self.device)
+            with cost.Tally() as tally, timer:
+                if eager:
+                    self._publish(*self._run_stages(tensors))
+                else:
+                    self._replay(tensors, timer)
+            if self.graph.captures != captures:
+                # the wrappers ran once, inside the capture
+                record_compile(self.prof_entry, tally.cost(),
+                               self._trace_args, steady=captures > 0,
+                               logger=self)
+            elif self.device.type != "cuda" and self.dispatches == 0:
+                record_compile(self.prof_entry, tally.cost(),
+                               self._trace_args)
+            prof.ledger.record_dispatch(
+                self.prof_entry, timer,
+                cost=tally.cost() if eager else None)
             self.dispatches += 1
+            if self._health_groups:
+                # one instrumented dispatch = one train step's stats (a
+                # strict check at its cadence raises out of here)
+                watch_health.monitor.observe(steps=1)
             self._computed = set(self._member_ids)
 
     def member_run(self, unit):
@@ -510,12 +561,32 @@ class StitchSegment(Logger):
     def report(self):
         graph = self.graph
         return {"names": self.names, "dispatches": self.dispatches,
+                "flops": self.prof_entry.flops if self.prof_entry else 0.0,
                 "captures": graph.captures, "recaptures": graph.recaptures,
                 "replays": graph.replays,
                 "capture_s": graph.capture_seconds,
                 "graph_launches": graph.launches,
                 "loader_headed": any(s.prelude is not None
                                      for s in self.stages)}
+
+
+def record_compile(entry, cost_dict, trace_args, steady=False,
+                   logger=None):
+    """A segment's or a window's compile point: the ledger entry gets
+    ``cost_dict`` (replacing the last), a ``segment/compile`` instant
+    carries it (:func:`veles_tpu_torch.prof.entries_from_events` reads
+    it back), and a ``steady`` one (a recapture) is flagged by the
+    recompile sentinel."""
+    cost_dict, span_args = prof.span_cost_args(cost_dict, trace_args,
+                                               peak_dtype=entry.peak_dtype)
+    prof.ledger.record_compile(entry, cost=cost_dict, steady=steady)
+    if steady:
+        span_args["recompile"] = True
+        prof.flag_recompile(
+            "stitch:%s" % entry.name, None, None, logger=logger,
+            detail="%s recaptured: a tensor its graph reads moved"
+            % entry.name)
+    trace.instant("segment", "compile", span_args)
 
 
 # -- building segments ------------------------------------------------------
@@ -549,14 +620,20 @@ def build_segments(workflow):
     """Walk the control graph and return its :class:`StitchSegment`\\ s
     (empty when stitching is off, no device is attached, or no chain
     qualifies).  Members get their segment through
-    ``Unit.attach_stitch_segment``."""
+    ``Unit.attach_stitch_segment``.  Every build owns the process-wide
+    health monitor: it is disarmed first, and armed again when
+    ``engine.health`` instruments this build's stages."""
+    # disarm FIRST: a knob flip to off or a stitch-off rebuild must not
+    # leave the previous build's groups armed
+    watch_health.monitor.reset()
     if not enabled():
         return []
     device = getattr(workflow, "device", None)
     torch_device = getattr(device, "torch_device", None)
     if torch_device is None:
         return []
-    check_health()
+    health_mode = watch_health.health_mode()
+    health_groups = []
     cache = {}
     assigned = set()
     segments = []
@@ -590,11 +667,20 @@ def build_segments(workflow):
                 "stays on per-unit dispatch",
                 "+".join(u.name for u in chain), ", ".join(blocked))
             continue
+        if health_mode != "off":
+            # the stats become part of the stages before the segment
+            # plans its metrics; off leaves the stages untouched
+            health_groups.extend(watch_health.instrument_stages(stages))
         segment = StitchSegment(chain, stages, torch_device)
         for member in chain:
             member.attach_stitch_segment(segment)
             assigned.add(id(member))
         segments.append(segment)
+    if health_groups:
+        watch_health.monitor.install(health_groups, health_mode)
+        workflow.info("health telemetry %s: %d param group(s): %s",
+                      health_mode, len(health_groups),
+                      ", ".join(g.name for g in health_groups))
     if segments:
         workflow.info("stitched %d segment(s): %s", len(segments),
                       "; ".join("+".join(s.names) for s in segments))

@@ -11,12 +11,17 @@ spans, the HTTP front door's spans) and ``prof`` (recompile instants).
 The knob is ``root.common.engine.trace = off | on | <path.json>``: a
 path also writes the Perfetto-loadable Chrome trace there at exit
 (:mod:`veles_tpu_torch.trace.export`, summarized offline by ``python -m
-veles_tpu_torch.trace <trace.json>``).  The device-profiler bridge
-(``device_trace``) waits for ROADMAP item 6(c).
+veles_tpu_torch.trace <trace.json>``).  :func:`device_trace` wraps a
+block in ``torch.profiler`` with CUDA activity on the card (a no-op on
+the CPU) and writes its Chrome trace.  Categories added by the tooling:
+``segment`` (stitched and window ``dispatch`` spans, ``compile``
+instants carrying the ledger's cost) and ``watch`` (health checks and
+snapshots).
 """
 
 from veles_tpu_torch.trace.core import (  # noqa: F401
     DEFAULT_CAPACITY, NULL_SPAN, TraceRecorder, complete, configure,
-    counter, enabled, instant, normalize, recorder, set_role, span)
+    counter, device_trace, enabled, instant, normalize, recorder, set_role,
+    span)
 from veles_tpu_torch.trace.export import (  # noqa: F401
     chrome_events, load, metrics_text, report_text, save, summary)

@@ -12,8 +12,8 @@ do, and feed :func:`veles_tpu_torch.trace.export.metrics_text`, the
 trace lines of the serving ``/metrics`` page.
 ``root.common.engine.trace_capacity`` sizes the ring
 (:func:`configure`).  The Chrome export is
-:mod:`veles_tpu_torch.trace.export`; the device-profiler bridge
-(``device_trace``) waits for ROADMAP item 6(c).
+:mod:`veles_tpu_torch.trace.export`; :func:`device_trace` bridges to
+``torch.profiler`` for the card's own kernel timeline.
 """
 
 import threading
@@ -117,6 +117,12 @@ class TraceRecorder(object):
         """Recorded events no longer in the ring."""
         with self._lock:
             return self._recorded - min(self._pos, self.capacity)
+
+    def count(self, cat, name):
+        """Events of ``(cat, name)`` recorded since clear() (survives
+        wraparound)."""
+        with self._lock:
+            return self._counts.get((cat, name), 0)
 
     def category_counts(self):
         """``{category: events recorded since clear()}``."""
@@ -251,3 +257,67 @@ def configure(value=None):
         _atexit_armed[0] = True
         atexit.register(export.save_at_exit)
     return on
+
+
+# -- the guarded device-profiler bridge -------------------------------------
+
+class _DeviceTrace(object):
+    """Context manager running ``torch.profiler`` with CUDA activity
+    around its block when a card is present, and writing the Chrome
+    trace under ``logdir`` at exit; a no-op on the CPU, as the JAX
+    package's bridge is on a CPU device.  ``bool(ctx)`` tells whether
+    the profiler ran, ``ctx.path`` where its trace went and
+    ``ctx.kernels()`` the names of the device kernels it saw."""
+
+    def __init__(self, logdir=None):
+        self._logdir = logdir
+        self._profiler = None
+        self.path = None
+
+    def __bool__(self):
+        return self._profiler is not None
+
+    def __enter__(self):
+        import torch
+        if not torch.cuda.is_available():
+            return self
+        from torch.profiler import ProfilerActivity, profile
+        self._profiler = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+        self._profiler.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._profiler is None:
+            return False
+        import os
+        import torch
+        torch.cuda.synchronize()
+        self._profiler.__exit__(*exc)
+        logdir = self._logdir
+        if logdir is None:
+            logdir = os.path.join(root.common.dirs.get("cache") or ".",
+                                  "torch_trace")
+        os.makedirs(logdir, exist_ok=True)
+        self.path = os.path.join(logdir, "device-%d-%d.json"
+                                 % (os.getpid(), time.time_ns()))
+        self._profiler.export_chrome_trace(self.path)
+        return False
+
+    def kernels(self):
+        """Names of the device kernels the profiler recorded (empty
+        when it did not run)."""
+        if self._profiler is None:
+            return []
+        return sorted({event.name for event in self._profiler.events()
+                       if getattr(event, "device_type", None) is not None
+                       and "CUDA" in str(event.device_type)})
+
+
+def device_trace(logdir=None):
+    """Guarded bridge to the device profiler: ``torch.profiler`` with
+    CUDA activity around a few warm steps gives the card's kernel
+    timeline next to this module's host spans, written as a Chrome
+    trace under ``logdir`` (``<root.common.dirs.cache>/torch_trace`` by
+    default).  A no-op without a card."""
+    return _DeviceTrace(logdir)

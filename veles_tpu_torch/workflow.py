@@ -12,15 +12,19 @@ ends with ``rebuild_stitching()``, and ``run()`` rebuilds when the
 ``engine.stitch`` knob was flipped since the last build.  The
 epoch-scan runner (:mod:`veles_tpu_torch.epoch_scan`) is built beside
 the segments and dropped with them; ``epoch_scan_report()`` describes
-it.  Not ported (ROADMAP item 7): the master/slave job protocol,
-checkpoint capture and restore, ``checksum`` and ``package_export``.
+it.  ``perf_report()`` renders the performance ledger
+(:mod:`veles_tpu_torch.prof`).  ``initialize()`` applies the telemetry
+bus's knob (``root.common.watch.endpoint``), and ``run()`` publishes its
+begin, its end and the perf digest on the bus when one is live.  Not
+ported (ROADMAP item 7): the master/slave job protocol, checkpoint
+capture and restore, ``checksum`` and ``package_export``.
 """
 
 import collections
 import inspect
+import time
 
 from veles_tpu_torch import trace
-from veles_tpu_torch.config import root
 from veles_tpu_torch.plumbing import EndPoint, StartPoint
 from veles_tpu_torch.units import MissingDemandedAttributes, Unit
 
@@ -101,19 +105,12 @@ class Workflow(Unit):
         producers (only :class:`MissingDemandedAttributes` requeues, at
         most once per unit in the queue).  The trace knob, the flight
         recorder's (``root.common.obs.blackbox_dir``) and the telemetry
-        bus's (``root.common.watch.endpoint``, refused: ROADMAP item
-        6(c)) are applied here, where a run starts, as in the JAX
-        package."""
-        from veles_tpu_torch import obs
-        watch = root.common.get("watch")
-        endpoint = watch.get("endpoint") if hasattr(watch, "get") else None
-        if endpoint:
-            raise NotImplementedError(
-                "root.common.watch.endpoint=%r (the telemetry bus) is not "
-                "ported to veles_tpu_torch yet (ROADMAP.md, 'Slices still "
-                "to port', item 6(c))" % (endpoint,))
+        bus's (``root.common.watch.endpoint``) are applied here, where a
+        run starts, as in the JAX package."""
+        from veles_tpu_torch import obs, watch
         trace.configure()
         obs.configure()
+        watch.configure()
         self.device = device
         pending = collections.deque(self.units_in_dependency_order())
         retries = {}
@@ -177,6 +174,17 @@ class Workflow(Unit):
         runner = self._epoch_runner_
         return runner.describe() if runner is not None else None
 
+    def perf_report(self):
+        """Text summary of the performance ledger
+        (:mod:`veles_tpu_torch.prof`): per segment, window, serve
+        bucket and generative program, the flops and bytes their
+        kernels tallied, the dispatches' time (on the device on the
+        card), achieved FLOP/s and, on a card of the peak table, MFU
+        against each row's own type; the compile and recompile totals
+        and the HBM ledger."""
+        from veles_tpu_torch import prof
+        return prof.report_text()
+
     # -- execution ----------------------------------------------------------
     def schedule(self, unit, src):
         """Enqueue a gate check of ``unit`` triggered by ``src``."""
@@ -197,8 +205,40 @@ class Workflow(Unit):
             # and the Decision's absorb mark of a window it never saw
             self._epoch_runner_.reset_pass()
         self.stopped = False
+        from veles_tpu_torch import watch
+        if watch.enabled():
+            watch.publish("run", phase="begin",
+                          workflow=type(self).__name__)
+        tic = time.time()
         self.schedule(self.start_point, None)
         self._drain()
+        if watch.enabled():
+            watch.publish("run", phase="end", workflow=type(self).__name__,
+                          run_time=round(time.time() - tic, 3),
+                          results=self.gather_results())
+            watch.publish("perf", self._perf_event())
+
+    def _perf_event(self):
+        """The compact perf digest a run's end publishes on the bus: the
+        ledger's totals, the HBM peak and bytes by category, the
+        segments' dispatches and the windows run."""
+        from veles_tpu_torch import prof
+        from veles_tpu_torch.memory import Watcher
+        totals = prof.ledger.summary()["totals"]
+        hbm = Watcher.hbm_ledger()
+        event = {key: totals.get(key) for key in
+                 ("compiles", "recompiles", "flops_dispatched",
+                  "achieved_flops", "mfu")}
+        event["hbm_peak_bytes"] = hbm.get("peak_bytes", 0)
+        event["hbm_bytes"] = {
+            cat: info["bytes"] for cat, info in
+            hbm.get("by_category", {}).items() if info}
+        event["dispatches"] = sum(r["dispatches"]
+                                  for r in self.stitch_report())
+        scan = self.epoch_scan_report() or {}
+        event["scan_windows"] = scan.get("windows", 0)
+        event["scan_steps"] = scan.get("steps", 0)
+        return event
 
     def _drain(self):
         """Pop and run until the queue is empty or the workflow stops."""

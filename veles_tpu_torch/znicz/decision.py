@@ -25,9 +25,14 @@ class-closing validated window the Decision's
 :meth:`~DecisionBase.device_predicate` (plain torch ops on 0-d
 tensors) computes ``improved`` and ``stop`` in the window's graph,
 from :meth:`~DecisionBase.predicate_scalars`; the host close stays
-authoritative.  Not ported: the telemetry bus and health snapshot at a
-close (ROADMAP item 6), the job protocol's master and slave halves and
-checkpoint state (item 7).
+authoritative.
+
+Every class close runs :meth:`DecisionBase._publish_close`: with
+``engine.health`` armed, one fetch of the health snapshot (the close is
+already a host sync point; strict mode's verdict applies there), and
+with a telemetry bus an ``epoch`` event and the ``health`` event.  Not
+ported: the job protocol's master and slave halves and checkpoint state
+(item 7).
 """
 
 import numpy
@@ -216,6 +221,21 @@ class DecisionBase(Unit):
         is always complete."""
         return True
 
+    def _publish_close(self, cls, metrics):
+        """The telemetry hook of every class close: the health snapshot
+        when the monitor is armed (strict raises on a bad leaf here),
+        then the ``health`` and ``epoch`` events when a bus is live.
+        Disarmed and without a bus: two attribute checks."""
+        from veles_tpu_torch import watch
+        snap = watch.monitor.maybe_snapshot()
+        if not watch.enabled():
+            return
+        if snap is not None:
+            watch.publish("health", snap)
+        watch.publish("epoch", dict(
+            metrics, cls=CLASS_NAME[cls], epoch=int(self.epoch_number),
+            improved=bool(self.improved), complete=bool(self.complete)))
+
     def link_from_loader(self, loader):
         self.link_attrs(
             loader, "minibatch_class", "minibatch_size", "last_minibatch",
@@ -309,6 +329,12 @@ class DecisionGD(DecisionBase):
                 self._epochs_without_improvement += 1
         if check_epoch_end:
             self._on_epoch_ended()
+        self._publish_close(cls, {
+            "n_err_pt": float(self.epoch_n_err_pt[cls]),
+            "n_err": float(self.epoch_n_err[cls]),
+            "samples": int(self.epoch_samples[cls]),
+            "best_n_err_pt": float(self.best_n_err_pt),
+            "best_epoch": int(self.best_epoch)})
         self.epoch_n_err[cls] = 0
         self.epoch_samples[cls] = 0
 
@@ -386,6 +412,11 @@ class DecisionMSE(DecisionBase):
                 self.complete <<= True
             if self._epochs_without_improvement >= self.fail_iterations:
                 self.complete <<= True
+        self._publish_close(cls, {
+            "mse": float(self.epoch_mse[cls]),
+            "batches": int(self.epoch_batches[cls]),
+            "best_mse": float(self.best_mse),
+            "best_epoch": int(self.best_epoch)})
         self.epoch_sum_mse[cls] = 0.0
         self.epoch_batches[cls] = 0
 

@@ -13,13 +13,19 @@ them); on CPU tensors the plain version.  The stitched stage
 (:meth:`GradientDescent.stitch_stage`) makes the same call with the
 six hyperparameters as 0-d tensors of the segment's scalar block, so
 the dw and db kernels read them when a replay runs: a learning rate
-changed between dispatches takes effect at the next one.  The health
-statistics are not ported (ROADMAP item 6), nor the
+changed between dispatches takes effect at the next one.  The stage
+declares its training-health statistics (``health``, read when
+``engine.health`` is armed; :mod:`veles_tpu_torch.watch.health`): the
+effective gradient's norm recovered from the momentum recurrence, and
+the weight and update norms.  The kernels update the momenta in place,
+so with health armed the stage copies vW and vb before the GD launches;
+with health off it copies nothing.  Not ported: the
 ``engine.kernels=xla`` route to the dense reference, which
 :meth:`GradientDescent.initialize` refuses (ROADMAP item 7).
 """
 
 import numpy
+import torch
 
 from veles_tpu_torch.backends import check_kernels
 from veles_tpu_torch.memory import Vector
@@ -94,6 +100,32 @@ class GradientDescent(GradientDescentBase):
         if has_bias:
             donated["b"] = self.bias
             donated["vb"] = self.gradient_bias
+
+        def health(t, out):
+            # the effective gradient (weight decay included) from the
+            # momentum recurrence v' = moment·v - lr·(grad + decay·w): its
+            # norm is ‖moment·v - v'‖ / |lr|, so a changing learning rate
+            # needs no second backward; t holds v from before the update
+            # (reads_before), and lr = 0 keeps a frozen group's norm at
+            # zero, not inf.  One norm kernel a tensor, then a few on the
+            # small vector of norms: a handful of graph nodes a step
+            pairs = [("w", "vw", "lr", "moment")]
+            if has_bias:
+                pairs.append(("b", "vb", "lr_b", "moment_b"))
+            norm = torch.linalg.vector_norm
+            tensors = [out[w] for w, _v, _l, _m in pairs] \
+                + [out[v] for _w, v, _l, _m in pairs] \
+                + [torch.addcmul(out[v], t[v], t[m], value=-1)
+                   for _w, v, _l, m in pairs]
+            n = torch.stack([norm(x) for x in tensors])
+            k = len(pairs)
+            lrs = torch.stack([t[lr] for _w, _v, lr, _m in pairs])
+            grads = torch.where(lrs != 0, n[2 * k:] / lrs.abs(), 0.0)
+            return {"grad_norm": norm(grads),
+                    "weight_norm": norm(n[:k]),
+                    "update_norm": norm(n[k:2 * k])}
+
+        health.reads_before = ("vw", "vb") if has_bias else ("vw",)
         unit = self
         return StitchStage(
             self, fn,
@@ -109,7 +141,8 @@ class GradientDescent(GradientDescentBase):
                 "decay_b": float(unit.weights_decay_bias),
                 "moment": float(unit.gradient_moment),
                 "moment_b": float(unit.gradient_moment_bias),
-            })
+            },
+            health=health)
 
 
 class GDTanh(GradientDescent):

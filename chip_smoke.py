@@ -330,6 +330,39 @@ Phases, each printing one JSON line (any failure exits non-zero):
    writes a Chrome trace naming ``veles_gemm_kernel<0, .>`` (matmul),
    ``veles_gemm_kernel<2, .>`` (the body ``veles_gd_dw`` launches) and
    ``veles_gather_served_kernel``.  The phase's wall time is printed.
+25. ``snapshot`` — ROADMAP 7(a) on the card: the native stitched MNIST
+   MLP (full width, stand-in data) trained 3 epochs with
+   ``snapshot_dir`` (a snapshot at every improvement: ``time_interval``
+   0) under ``epoch_scan=auto``: the windows are refused
+   with the JAX reason ("units hang off DecisionGD in the training
+   loop"), the per-step route launches exactly ``mnist_stitched``'s
+   counts, and at least one artifact is written.  The last artifact is
+   resumed under the JAX package's protocol (load, ``max_epochs`` 5,
+   ``complete`` cleared, ``initialize``, ``run``) on the card — new
+   segments, captured once each over the new tensors, no recapture,
+   exact launches — and on the CPU from the same stream positions: the
+   per-class n_err and confusion matrices equal, every parameter and
+   momentum within 1e-4 of its leaf's largest value.  A process started
+   with ``CUDA_VISIBLE_DEVICES=`` loads the artifact and its params
+   equal, bit for bit, the card's ``params_to_numpy()`` read right
+   before that snapshot's capture.  Printed: the artifact's bytes, each
+   synchronous capture and background write in ms, the resume's
+   ``initialize`` plus capture ms, captures and recaptures, launches.
+26. ``snapshot_serve`` — ``ModelRegistry.load_snapshot`` of that
+   artifact on the card (``serve.preflight = "off"``): the engine's
+   params equal the artifact's, and 64 requests of 1–4 rows (the
+   validation rows scaled by 1/255, as the loader head scales them)
+   from 8 threads each get a reply bit-equal to ``reference_forward``,
+   with 2 GEMM launches an infer call and no capture after warmup; their
+   error rate is within 10 points of the artifact's validation error.
+27. ``checkpoint`` — the train-state checkpoint on the window route
+   (``epoch_scan=auto``): 2 epochs, ``capture_train_state`` →
+   ``TrainCheckpointer.save``, a workflow built from another seed,
+   ``restore`` onto its own state → ``restore_train_state`` → on to 4
+   epochs (the pending minibatch served again first, one step, then
+   windows), on the card and on the CPU: held together as in
+   ``snapshot``, with the continued card run's exact launches and the
+   step directory's bytes and the save and restore ms.
 
 The ``kernels`` phase also holds the paged decode kernel against
 ``_paged_decode_ref`` (f32 <= 1e-4, bf16 <= 2e-2) for decode (1 row)
@@ -6548,6 +6581,517 @@ def phase_tooling(device, smi, scan_nodes):
     return runs["on"]["launches"]
 
 
+# -- checkpoints (ROADMAP 7(a)) ---------------------------------------------
+
+SNAPSHOT_EPOCHS = 3
+SNAPSHOT_RESUME_EPOCHS = 5
+SNAPSHOT_SERVE_REQUESTS = 64
+SNAPSHOT_SERVE_CLIENTS = 8
+# the served rows' error rate (157 of the validation rows) may exceed the
+# artifact's validation error over all 1000 by this many points
+SNAPSHOT_SERVE_ERROR_SLACK_PT = 10.0
+CHECKPOINT_EPOCHS = 2
+CHECKPOINT_RESUME_EPOCHS = 4
+# the JAX package's refusal of the windows with a unit off the Decision
+SNAPSHOT_SCAN_REASON = "units hang off DecisionGD in the training loop"
+# a stand-in epoch: 10 validation and 60 train minibatches of 100
+STAND_IN_STEPS = (10, 60)
+
+
+@contextlib.contextmanager
+def _class_closes(decision_cls):
+    """Every class close of ``decision_cls``'s instances, recorded as
+    ``_record_closes`` records it, by Decision (weakly held): patched on
+    the class, since a snapshot pickles the instances."""
+    import weakref
+    records = weakref.WeakKeyDictionary()
+    close = decision_cls._close_class
+
+    def recording(self, cls, check_epoch_end):
+        ev = self.evaluator
+        ev.confusion_matrix.map_read()
+        records.setdefault(self, []).append({
+            "epoch": int(self.epoch_number), "cls": cls,
+            "n_err": float(self.epoch_n_err[cls]),
+            "samples": int(self.epoch_samples[cls]),
+            "confusion": numpy.array(ev.confusion_matrix.mem)})
+        return close(self, cls, check_epoch_end)
+    decision_cls._close_class = recording
+    try:
+        yield records
+    finally:
+        decision_cls._close_class = close
+
+
+@contextlib.contextmanager
+def _snapshot_timings():
+    """The snapshotter's synchronous capture (the pickle at the gate)
+    and its background write, each in ms, with the card's params read
+    right before each capture and the artifacts' paths."""
+    from veles_tpu_torch import snapshotter
+    dumps = snapshotter.checked_dumps
+    export = snapshotter.SnapshotterToFile.export
+    write = snapshotter.SnapshotterToFile._write
+    out = {"capture_ms": [], "write_ms": [], "params": [], "paths": []}
+
+    def timed_dumps(obj, logger=None):
+        tic = time.perf_counter()
+        data = dumps(obj, logger=logger)
+        out["capture_ms"].append((time.perf_counter() - tic) * 1e3)
+        return data
+
+    def recorded_export(self):
+        gpu_sync()
+        out["params"].append(self.workflow.params_to_numpy())
+        export(self)
+        out["paths"].append(self._destination)
+
+    def timed_write(self, data, path, name, ext):
+        tic = time.perf_counter()
+        write(self, data, path, name, ext)
+        out["write_ms"].append((time.perf_counter() - tic) * 1e3)
+    snapshotter.checked_dumps = timed_dumps
+    snapshotter.SnapshotterToFile.export = recorded_export
+    snapshotter.SnapshotterToFile._write = timed_write
+    try:
+        yield out
+    finally:
+        snapshotter.checked_dumps = dumps
+        snapshotter.SnapshotterToFile.export = export
+        snapshotter.SnapshotterToFile._write = write
+
+
+def _mnist_counts():
+    """``mnist_launches`` with the gather launches by C entry and the
+    GEMM launches that split K."""
+    from veles_tpu_torch.ops import gather, gemm
+    return dict(mnist_launches(), **gather.entry_launches,
+                **gemm.split_launches)
+
+
+def _prng_states():
+    from veles_tpu_torch import prng
+    return {name: gen.__getstate__() for name, gen in prng._streams.items()}
+
+
+def _set_prng_states(states):
+    from veles_tpu_torch import prng
+    for name, state in states.items():
+        prng.get(name).__setstate__(state)
+
+
+def _resume_snapshot(path, dev, epochs, records, directory):
+    """The JAX package's resume protocol on ``dev``: load, raise
+    ``max_epochs``, clear ``complete``, ``initialize``, ``run``.
+    Returns the workflow, its ``(closes, params)``, the ms of
+    ``initialize`` and of the run."""
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.snapshotter import load_snapshot
+    wf = load_snapshot(path)
+    wf.launcher = DummyLauncher()
+    wf.snapshotter.directory = directory
+    wf.decision.max_epochs = epochs
+    wf.decision.complete <<= False
+    tic = time.perf_counter()
+    wf.initialize(device=dev)
+    init_ms = (time.perf_counter() - tic) * 1e3
+    tic = time.perf_counter()
+    wf.run()
+    if dev.type == "cuda":
+        gpu_sync()
+    run_ms = (time.perf_counter() - tic) * 1e3
+    wf.stop()
+    return wf, (records.get(wf.decision, []),
+                wf.params_to_numpy()), init_ms, run_ms
+
+
+def _load_without_cuda(path):
+    """The artifact's params, loaded by a Python process that sees no
+    card (``CUDA_VISIBLE_DEVICES=``): ``(params, report)``."""
+    import os
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, numpy, torch\n"
+            "from veles_tpu_torch.snapshotter import load_snapshot\n"
+            "wf = load_snapshot(sys.argv[1])\n"
+            "numpy.savez(sys.argv[2], **wf.params_to_numpy())\n"
+            "print(torch.cuda.is_available(), torch.cuda.device_count())\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "params.npz")
+        tic = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, path, out],
+                              cwd=here, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - tic
+        report = {"rc": proc.returncode, "stdout": proc.stdout.strip(),
+                  "stderr_tail": proc.stderr[-2000:], "wall_s": wall}
+        if proc.returncode != 0:
+            return None, report
+        with numpy.load(out, allow_pickle=False) as archive:
+            return {name: archive[name] for name in archive.files}, report
+
+
+def phase_snapshot(device, smi, tmp):
+    """ROADMAP 7(a) on the card: the native stitched MNIST MLP trained
+    with ``snapshot_dir`` (3 epochs; ``epoch_scan=auto``, which the
+    snapshotter off the Decision must refuse with the JAX reason), its
+    last artifact resumed on the card and on the CPU to 5 epochs under
+    the JAX resume protocol and held together, and the artifact loaded
+    by a process that sees no card.  Returns the training run's and the
+    card resume's launches, and the artifact's path."""
+    import os
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.memory import Watcher
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.znicz.decision import DecisionGD
+    phase = "snapshot"
+    snap_dir = os.path.join(tmp, "snapshots")
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="auto"), \
+            _class_closes(DecisionGD) as records:
+        prng.seed_all(SEED)
+        Watcher.reset()
+        wf = mnist.create_workflow(device=device, max_epochs=SNAPSHOT_EPOCHS,
+                                   native=True, snapshot_dir=snap_dir)
+        # a snapshot at every improvement: the card runs a stand-in epoch
+        # in well under the default second between two snapshots
+        wf.snapshotter.time_interval = 0.0
+        with _snapshot_timings() as timings:
+            reset_all_launches()
+            tic = time.perf_counter()
+            wf.run()
+            gpu_sync()
+            train_s = time.perf_counter() - tic
+            launches = _mnist_counts()
+            wf.stop()
+        scan = wf.epoch_scan_report()
+        report = wf.stitch_report()
+        path = timings["paths"][-1]
+        artifacts = sorted(name for name in os.listdir(snap_dir)
+                           if "_current" not in name)
+        refused = (not scan["eligible"]
+                   and str(scan["reason"]).startswith(SNAPSHOT_SCAN_REASON)
+                   and scan["windows"] == 0)
+        trained = (launches == dict(MNIST_STITCHED_LAUNCHES,
+                                    **MNIST_STITCHED_ENTRY_LAUNCHES,
+                                    **MNIST_SPLIT_LAUNCHES)
+                   and [r["dispatches"] for r in report]
+                   == MNIST_STITCHED_DISPATCHES
+                   and [r["captures"] for r in report] == [1, 1]
+                   and all(r["recaptures"] == 0 for r in report))
+        written = (len(artifacts) >= 1 and len(timings["write_ms"])
+                   == len(timings["capture_ms"]) == len(timings["paths"])
+                   and os.path.getsize(path) > 0)
+
+        # -- the resume, on the card and then on the CPU, from the same
+        # stream positions (the streams are the process's, as in the JAX
+        # package: a resumed run draws from where they are)
+        states = _prng_states()
+        from veles_tpu_torch.snapshotter import load_snapshot
+        artifact = load_snapshot(path)
+        start_epoch = int(artifact.loader.epoch_number)
+        steps = _resume_steps(start_epoch, SNAPSHOT_RESUME_EPOCHS)
+        reset_all_launches()
+        card_wf, card, init_ms, run_ms = _resume_snapshot(
+            path, device, SNAPSHOT_RESUME_EPOCHS, records,
+            os.path.join(tmp, "resumed_card"))
+        resume_launches = _mnist_counts()
+        resume_report = card_wf.stitch_report()
+        _set_prng_states(states)
+        _cpu_wf, cpu, _i, cpu_run_ms = _resume_snapshot(
+            path, torch.device("cpu"), SNAPSHOT_RESUME_EPOCHS, records,
+            os.path.join(tmp, "resumed_cpu"))
+    agreement = _agreement(card, cpu)
+    want_resume = dict(_launches_of(steps, MNIST_STEP_LAUNCHES),
+                       veles_gather_group=0)
+    resumed = (resume_launches == _with_zeros(want_resume, resume_launches)
+               and [r["dispatches"] for r in resume_report] == list(steps)
+               and [r["captures"] for r in resume_report] == [1, 1]
+               and all(r["recaptures"] == 0 for r in resume_report)
+               and card_wf.epoch_scan_report()["windows"] == 0
+               and card[0][0]["epoch"] == start_epoch
+               and card[0][0]["cls"] == 2)
+
+    # -- the artifact in a process without a card
+    loaded, sub = _load_without_cuda(path)
+    at_export = timings["params"][-1]
+    bitwise = loaded is not None and sorted(loaded) == sorted(at_export) \
+        and all(numpy.array_equal(loaded[k], at_export[k])
+                for k in at_export)
+    no_card = sub["stdout"].startswith("False 0")
+    info = {
+        "phase": phase, "nvidia_smi": smi, "ok": False,
+        "layers": "784-100 all2all_tanh, 100-10 softmax", "native": True,
+        "minibatch": 100, "max_epochs": SNAPSHOT_EPOCHS,
+        "resume_to": SNAPSHOT_RESUME_EPOCHS, "seed": SEED,
+        "train_s": train_s, "epoch_scan": _scan_json(scan),
+        "windows_refused": refused, "segments": report,
+        "launches": launches,
+        "artifacts": artifacts,
+        "artifact": os.path.basename(path),
+        "artifact_bytes": os.path.getsize(path),
+        "artifact_epoch": start_epoch,
+        "capture_ms": timings["capture_ms"],
+        "background_write_ms": timings["write_ms"],
+        "resume_card": {"initialize_ms": init_ms,
+                        "capture_ms": sum(r["capture_s"]
+                                          for r in resume_report) * 1e3,
+                        "initialize_plus_capture_ms": init_ms + sum(
+                            r["capture_s"] for r in resume_report) * 1e3,
+                        "run_ms": run_ms, "segments": resume_report,
+                        "captures": sum(r["captures"]
+                                        for r in resume_report),
+                        "recaptures": sum(r["recaptures"]
+                                          for r in resume_report),
+                        "launches": resume_launches,
+                        "launches_expected": want_resume,
+                        "epoch_scan": _scan_json(
+                            card_wf.epoch_scan_report())},
+        "resume_cpu_run_ms": cpu_run_ms,
+        "card_vs_cpu_resume": agreement,
+        "param_rtol": MNIST_PARAM_RTOL,
+        "no_card_process": dict(sub, params_bit_equal=bitwise),
+    }
+    info["ok"] = (refused and trained and written and resumed
+                  and agreement["ok"] and bitwise and no_card)
+    emit(info)
+    check(refused, phase, "the windows were not refused with the JAX "
+          "reason: %s" % scan)
+    check(trained, phase, "the training run's launches or segments: %s %s"
+          % (launches, report))
+    check(written, phase, "artifacts %s, timings %s" % (
+        artifacts, {k: v for k, v in timings.items() if k != "params"}))
+    check(resumed, phase, "the card resume's launches %s (want %s) or "
+          "segments %s" % (resume_launches, want_resume, resume_report))
+    check(agreement["ok"], phase, "the card resume disagrees with the "
+          "CPU resume: %s" % agreement)
+    check(no_card and bitwise, phase, "the artifact in a process without "
+          "a card: %s, params bit-equal %s" % (sub, bitwise))
+    return launches, resume_launches, path
+
+
+def _scan_json(report):
+    """An ``epoch_scan_report()`` with its graphs keyed by strings."""
+    return dict(report, graphs={str(key): value for key, value in
+                                report.get("graphs", {}).items()})
+
+
+def _resume_steps(start_epoch, epochs):
+    """(forward, train) steps of a resume from the validation close of
+    ``start_epoch`` to ``epochs``: that epoch's train pass, the full
+    epochs after it, and the last epoch's validation pass."""
+    valid, train = STAND_IN_STEPS
+    full = epochs - 2 - start_epoch
+    return (train + full * (valid + train) + valid,
+            train * (epochs - 1 - start_epoch))
+
+
+def _with_zeros(want, got):
+    """``want`` with the counters ``got`` has and ``want`` lacks at 0."""
+    return dict({name: 0 for name in got}, **want)
+
+
+def phase_snapshot_serve(device, smi, path):
+    """``ModelRegistry.load_snapshot`` of the snapshot phase's artifact
+    on the card (the preflight off): 64 requests of 1–4 rows from 8
+    threads, each reply bit-equal to ``reference_forward`` of the
+    unpickled workflow's engine, 2 GEMM launches an infer call.
+    Returns the counted requests' launches."""
+    import threading
+
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import gemm
+    from veles_tpu_torch.serve import ModelRegistry, ServingMetrics
+    from veles_tpu_torch.snapshotter import load_snapshot
+    phase = "snapshot_serve"
+    artifact = load_snapshot(path)
+    loader = artifact.loader
+    rows_u8 = numpy.array(loader.original_data.mem[:loader.class_lengths[1]])
+    # the rows as the loader head hands them to the first layer
+    pool = (rows_u8.astype(numpy.float32)
+            * numpy.float32(1.0 / 255.0)).astype(numpy.float32)
+    labels = numpy.array(loader.original_labels[:loader.class_lengths[1]])
+    best_pt = float(artifact.decision.best_n_err_pt)
+    serve = root.common.serve
+    saved = serve.get("preflight")
+    serve.preflight = "off"
+    registry = ModelRegistry(metrics=ServingMetrics())
+    try:
+        tic = time.perf_counter()
+        model = registry.load_snapshot("mnist", path, engine_config={
+            "max_batch_size": SERVE_BATCH_MAX})
+        load_s = time.perf_counter() - tic
+        engine = model.engine
+        graphs = _graphs_of(engine)
+        params_equal = all(
+            numpy.array_equal(engine._params[i]["w"].cpu().numpy(),
+                              fwd.weights.mem)
+            and numpy.array_equal(engine._params[i]["b"].cpu().numpy(),
+                                  fwd.bias.mem)
+            for i, fwd in enumerate(artifact.forwards))
+        rng = numpy.random.default_rng(SEED + 41)
+        requests = []
+        for _ in range(SNAPSHOT_SERVE_REQUESTS):
+            n = int(rng.integers(1, 5))
+            start = int(rng.integers(0, len(pool) - n))
+            requests.append((start, n))
+        replies = [None] * len(requests)
+
+        def client(k):
+            for i in range(k, len(requests), SNAPSHOT_SERVE_CLIENTS):
+                start, n = requests[i]
+                replies[i] = registry.infer("mnist", pool[start:start + n])
+        reset_all_launches()
+        calls0 = engine.infer_calls
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SNAPSHOT_SERVE_CLIENTS)]
+        tic = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        gpu_sync()
+        wall = time.perf_counter() - tic
+        launches = dict(gemm.launches)
+        calls = engine.infer_calls - calls0
+        exact = sum(
+            replies[i].tobytes() == engine.reference_forward(
+                pool[s:s + n]).tobytes()
+            for i, (s, n) in enumerate(requests))
+        predicted = numpy.concatenate([numpy.argmax(r, axis=1)
+                                       for r in replies])
+        truth = numpy.concatenate([labels[s:s + n] for s, n in requests])
+        after = _graphs_of(engine)
+        info = {
+            "phase": phase, "nvidia_smi": smi,
+            "artifact": path.rsplit("/", 1)[-1], "load_s": load_s,
+            "device": str(engine.device), "buckets": engine.buckets,
+            "requests": len(requests), "clients": SNAPSHOT_SERVE_CLIENTS,
+            "rows": int(sum(n for _s, n in requests)), "wall_s": wall,
+            "requests_per_s": len(requests) / wall, "infer_calls": calls,
+            "launches": launches, "bit_equal_replies": exact,
+            "params_equal_artifact": params_equal,
+            "graphs_after_warmup": graphs, "graphs_after": after,
+            "error_rate": float(numpy.mean(predicted != truth)),
+            "artifact_best_validation_error_pt": best_pt,
+        }
+        info["ok"] = (engine.device.type == "cuda" and params_equal
+                      and exact == len(requests)
+                      and graphs["captures"] == len(engine.buckets)
+                      and after["captures"] == graphs["captures"]
+                      and after["recaptures"] == 0
+                      and launches.get("matmul") == 2 * calls
+                      and launches.get("gd_dx", 0) == 0
+                      and info["error_rate"] * 100 <= best_pt
+                      + SNAPSHOT_SERVE_ERROR_SLACK_PT)
+        emit(info)
+    finally:
+        registry.stop()
+        if saved is None:
+            serve.__dict__.pop("preflight", None)
+        else:
+            serve.preflight = saved
+    check(info["ok"], phase, "replies %d of %d bit-equal, launches %s "
+          "for %d calls, graphs %s -> %s, params equal %s, error rate "
+          "%.4f against the artifact's %.2f %%"
+          % (exact, len(requests), launches, calls, graphs, after,
+             params_equal, info["error_rate"], best_pt))
+    return launches
+
+
+def _checkpoint_run(dev, tmp, records):
+    """The window route's train-state protocol on ``dev``: train 2
+    epochs, ``capture_train_state`` → ``TrainCheckpointer.save``, a
+    freshly built workflow, ``restore`` onto its own state → 
+    ``restore_train_state`` → run on to 4 epochs.  Returns the continued
+    run's ``(closes, params)``, its launches and workflow, and the
+    checkpoint's numbers."""
+    import os
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.checkpoint import TrainCheckpointer
+    prng.seed_all(SEED)
+    wf = _mnist_native(dev, CHECKPOINT_EPOCHS)
+    wf.run()
+    windows_before = wf.epoch_scan_report()["windows"]
+    import tempfile
+    folder = tempfile.mkdtemp(prefix="checkpoint_%s_" % dev.type, dir=tmp)
+    ckpt = TrainCheckpointer(folder)
+    tic = time.perf_counter()
+    train, meta = wf.capture_train_state()
+    ckpt.save(CHECKPOINT_EPOCHS, train, meta)
+    save_ms = (time.perf_counter() - tic) * 1e3
+    step_dir = os.path.join(folder, str(CHECKPOINT_EPOCHS))
+    step_bytes = sum(os.path.getsize(os.path.join(step_dir, name))
+                     for name in os.listdir(step_dir))
+    prng.seed_all(SEED + 1)
+    fresh = _mnist_native(dev, CHECKPOINT_RESUME_EPOCHS)
+    abstract, _meta = fresh.capture_train_state()
+    tic = time.perf_counter()
+    _step, got_train, got_meta = ckpt.restore(abstract)
+    restored = fresh.restore_train_state(got_train, got_meta)
+    if dev.type == "cuda":
+        gpu_sync()
+    restore_ms = (time.perf_counter() - tic) * 1e3
+    ckpt.close()
+    fresh.decision.complete <<= False
+    reset_all_launches()
+    fresh.run()
+    if dev.type == "cuda":
+        gpu_sync()
+    launches = _mnist_counts()
+    numbers = {"save_ms": save_ms, "restore_ms": restore_ms,
+               "step_dir_bytes": step_bytes, "units_restored": restored,
+               "windows_before": windows_before,
+               "pending": meta["u002_MnistLoader"]["pending"]}
+    return ((records.get(fresh.decision, []), fresh.params_to_numpy()),
+            launches, fresh, numbers)
+
+
+def phase_checkpoint(device, smi, tmp):
+    """``TrainCheckpointer`` on the window route (``epoch_scan=auto``, no
+    snapshotter): ``_checkpoint_run`` on the card and on the CPU, held
+    together (n_err and confusion equal, parameters within 1e-4 of each
+    leaf's largest value), with the continued card run's exact launches
+    (the pending minibatch served again one step, then windows) and the
+    step directory's bytes, save and restore ms.  Returns the continued
+    card run's launches."""
+    from veles_tpu_torch.znicz.decision import DecisionGD
+    phase = "checkpoint"
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="auto"), \
+            _class_closes(DecisionGD) as records:
+        card, launches, card_wf, numbers = _checkpoint_run(device, tmp,
+                                                          records)
+        cpu, _l, _wf, cpu_numbers = _checkpoint_run(torch.device("cpu"),
+                                                    tmp, records)
+    agreement = _agreement(card, cpu)
+    # the pending (last validation) minibatch again, then the train pass
+    # of epoch 1, epoch 2 whole and epoch 3's validation pass
+    valid, train = STAND_IN_STEPS
+    steps = (1 + train + (valid + train) + valid, 2 * train)
+    want = dict(_launches_of(steps, MNIST_STEP_LAUNCHES),
+                veles_gather_group=0)
+    scan = card_wf.epoch_scan_report()
+    counted = launches == _with_zeros(want, launches)
+    ok = (agreement["ok"] and counted and numbers["windows_before"] > 0
+          and scan["windows"] > 0 and numbers["units_restored"] == 4
+          and len(numbers["pending"]) == 1)
+    emit({"phase": phase, "nvidia_smi": smi, "ok": ok,
+          "epochs": CHECKPOINT_EPOCHS,
+          "continued_to": CHECKPOINT_RESUME_EPOCHS, "route": "windows",
+          "card": numbers, "cpu": cpu_numbers,
+          "card_vs_cpu": agreement, "param_rtol": MNIST_PARAM_RTOL,
+          "launches": launches, "launches_expected": want,
+          "epoch_scan": _scan_json(scan)})
+    check(counted, phase, "launches %s, want %s" % (launches, want))
+    check(ok, phase, "the continued card run disagrees with the CPU's, or "
+          "ran no windows: %s, %s, %s" % (agreement, numbers, scan))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6605,6 +7149,14 @@ def main():
         paths["ops"] = phase_ops(device)
         paths["tooling"] = phase_tooling(device, info["nvidia_smi"],
                                          scan_nodes)
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            (paths["snapshot"], paths["snapshot_resume"],
+             artifact) = phase_snapshot(device, info["nvidia_smi"], tmp)
+            paths["snapshot_serve"] = phase_snapshot_serve(
+                device, info["nvidia_smi"], artifact)
+            paths["checkpoint"] = phase_checkpoint(
+                device, info["nvidia_smi"], tmp)
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1

@@ -374,7 +374,7 @@ def test_served_ref_gives_the_jax_heads_rows(engines, native, offset, size):
     want = jstage.fn(_head_inputs(jstage, offset, size,
                                   lambda v: jnp.asarray(v, jnp.int32)))
     loader = twf.loader
-    how = loader._input_norm_dev if native else 0
+    how = loader._input_norm_dev_ if native else 0
     tables = [(loader.original_data.devmem, how),
               (loader.resident_labels.devmem, -1)]
     got = gather._gather_served_ref(

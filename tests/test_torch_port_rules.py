@@ -23,11 +23,15 @@
 - ``chip_smoke.py`` fails, and prints no result, without a card or
   without the package beside it.
 - Each part of the serving path it leaves out raises
-  ``NotImplementedError`` naming its ROADMAP item: a mesh (7(d)),
-  snapshots (7(a)), the workflow analyzer preflight and the strict
-  recompile sentinel (7(e)), the fleet (7(d)) and ``notify_status``
-  (7(e)).  Generative serving through the registry and the server is
-  ported (``tests/test_torch_gen_serve.py``).
+  ``NotImplementedError`` naming its ROADMAP item: a mesh (7(d)), the
+  workflow analyzer preflight and the strict recompile sentinel (7(e)),
+  the fleet (7(d)) and ``notify_status`` (7(e)).  Serving a snapshot
+  (item 7(a)) is ported: ``InferenceEngine.from_snapshot`` and
+  ``ModelRegistry.load_snapshot`` serve what ``from_workflow`` serves.
+  Generative serving through the registry and the server is ported
+  (``tests/test_torch_gen_serve.py``).
+- ``snapshotter_config`` and ``snapshot_dir`` (item 7(a)) are ported;
+  the other options of ``StandardWorkflow._NOT_PORTED`` still raise.
 """
 
 import ast
@@ -933,10 +937,31 @@ def test_serving_engine_mesh_is_refused_naming_7d(kwargs):
         _serving_engine(**kwargs)
 
 
-def test_serving_engine_from_snapshot_is_refused_naming_7a():
+def _mnist_after_a_run():
+    """The MNIST workflow after one validation pass, on the CPU."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist
+    prng.seed_all(3)
+    wf = mnist.create_workflow(device="cpu", max_epochs=1)
+    wf.run()
+    return wf
+
+
+def test_serving_engine_from_snapshot_is_refused_naming_7a(tmp_path):
+    """Item 7(a)'s route: ``from_snapshot`` of a saved workflow serves
+    what ``from_workflow`` of the workflow serves, bit for bit."""
+    import numpy
     from veles_tpu_torch.serve import InferenceEngine
-    with pytest.raises(NotImplementedError, match=r"item 7\(a\)"):
-        InferenceEngine.from_snapshot("model.pickle")
+    from veles_tpu_torch.snapshotter import save_snapshot
+    wf = _mnist_after_a_run()
+    path = save_snapshot(wf, str(tmp_path / "wf.pickle.gz"))
+    x = numpy.array(wf.loader.original_data.mem[:5])
+    engine = InferenceEngine.from_snapshot(path, max_batch_size=8,
+                                           device="cpu")
+    direct = InferenceEngine.from_workflow(wf, max_batch_size=8,
+                                           device="cpu")
+    numpy.testing.assert_array_equal(engine.infer(x), direct.infer(x))
+    assert engine.device == torch.device("cpu")
 
 
 @pytest.fixture
@@ -1009,9 +1034,47 @@ def test_recompile_sentinel_strict_is_refused_naming_7e(knobs):
         sentinel.reset()
 
 
+def test_registry_load_snapshot_roundtrip(serve_preflight, tmp_path):
+    """The port's ``tests/test_serve.py::test_load_snapshot_roundtrip``:
+    a saved workflow deployed by ``load_snapshot`` answers within 1e-6
+    of ``from_workflow``'s engine (the preflight off, as
+    ``load_workflow`` needs until item 7(e))."""
+    import numpy
+    from veles_tpu_torch.serve import InferenceEngine, ModelRegistry
+    from veles_tpu_torch.snapshotter import save_snapshot
+    wf = _mnist_after_a_run()
+    path = save_snapshot(wf, str(tmp_path / "wf.pickle"))
+    serve_preflight.preflight = "off"
+    registry = ModelRegistry()
+    try:
+        model = registry.load_snapshot(
+            "tiny", path, engine_config={"device": "cpu",
+                                         "max_batch_size": 4})
+        assert model.source == path
+        x = numpy.array(wf.loader.original_data.mem[:3])
+        out = registry.infer("tiny", x)
+        ref = InferenceEngine.from_workflow(
+            wf, device="cpu", max_batch_size=4).infer(x)
+        assert numpy.allclose(out, ref, atol=1e-6)
+    finally:
+        registry.stop()
+
+
+def test_registry_load_snapshot_keeps_the_preflight(serve_preflight,
+                                                    tmp_path):
+    from veles_tpu_torch.serve import ModelRegistry
+    from veles_tpu_torch.snapshotter import save_snapshot
+    path = save_snapshot(_mnist_after_a_run(),
+                         str(tmp_path / "wf.pickle"))
+    registry = ModelRegistry()
+    with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
+        registry.load_snapshot("tiny", path,
+                               engine_config={"device": "cpu"})
+    assert registry.names() == []
+
+
 @pytest.mark.parametrize("call,item", [
     (lambda r: r.deploy_fleet("fleet", None), "7(d)"),
-    (lambda r: r.load_snapshot("m", "model.pickle"), "7(a)"),
 ])
 def test_registry_refusals_name_their_items(call, item):
     from veles_tpu_torch.serve import ModelRegistry
@@ -1034,3 +1097,44 @@ def test_server_refusals_name_their_items(call, item):
             call(server)
     finally:
         server.stop()
+
+
+# -- the workflow options of item 7 ------------------------------------------
+
+_STILL_REFUSED = ["fused", "fused_config", "mcdnnic_topology",
+                  "mcdnnic_parameters", "plotters_config",
+                  "lr_adjuster_config", "rollback_config",
+                  "image_saver_config"]
+
+
+def test_not_ported_options_are_the_rest_of_item_7():
+    from veles_tpu_torch.znicz import standard_workflow
+    assert sorted(standard_workflow._NOT_PORTED) == sorted(_STILL_REFUSED)
+
+
+@pytest.mark.parametrize("option", _STILL_REFUSED)
+def test_standard_workflow_options_still_refused(option):
+    from veles_tpu_torch.samples import mnist
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        mnist.create_workflow(device="cpu", **{option: {"x": 1}})
+
+
+def test_snapshotter_options_are_ported(tmp_path):
+    """``snapshotter_config`` and the sample's ``snapshot_dir`` build
+    the snapshotter off the Decision, and neither raises."""
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    wf = mnist.create_workflow(device="cpu", max_epochs=1,
+                               snapshot_dir=str(tmp_path))
+    assert isinstance(wf.snapshotter, SnapshotterToFile)
+    assert wf.snapshotter.directory == str(tmp_path)
+    assert wf.snapshotter.prefix == "mnist"
+    wf = StandardWorkflow(
+        None, loader_factory=lambda w: mnist.MnistLoader(w),
+        layers=[dict(spec) for spec in mnist.LAYERS],
+        snapshotter_config={"directory": str(tmp_path), "prefix": "p",
+                            "compression": "xz"})
+    assert wf.snapshotter.compression == "xz"
+    assert wf.decision in wf.snapshotter.links_from
+    assert wf.snapshotter in wf.decision.links_to

@@ -13,7 +13,8 @@ contiguous KV cache (:mod:`veles_tpu_torch.gen`), single-card training
 of the same LM (:mod:`veles_tpu_torch.samples.transformer`), and
 training of the MNIST MLP through the unit/workflow core
 (:mod:`veles_tpu_torch.samples.mnist` over :mod:`.units`,
-:mod:`.workflow`, :mod:`.memory`, :mod:`.loader` and :mod:`.znicz`).
-Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.
+:mod:`.workflow`, :mod:`.memory`, :mod:`.loader` and :mod:`.znicz`),
+with its whole-workflow snapshots and train-state checkpoints
+(:mod:`.snapshotter`, :mod:`.checkpoint`).  Entry points run on the
+CUDA card unless the caller passes ``device="cpu"``.
 """

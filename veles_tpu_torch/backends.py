@@ -179,9 +179,22 @@ def bound_seconds(nbytes, ops, dtype="bfloat16"):
     return t_ops, "operations"
 
 
+def _detached_device():
+    """What a pickled :class:`Device` loads as: None."""
+    return None
+
+
 class Device(object):
     """A workflow device: where the units' ``Vector`` buffers live and
-    how they move there and back."""
+    how they move there and back.
+
+    A device is a handle of the process that made it: it pickles as
+    None, so a snapshot names no torch object and loads without a card,
+    and ``initialize(device=...)`` of the loaded workflow attaches it
+    (to the card when no device is given)."""
+
+    def __reduce__(self):
+        return (_detached_device, ())
 
     @property
     def torch_device(self):

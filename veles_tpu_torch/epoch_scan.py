@@ -428,16 +428,18 @@ class EpochScanRunner(Logger):
     def try_window(self, segment):
         """Called by the loader-headed segment's head in place of a
         per-step dispatch: False when the knob is off or the workflow
-        is ineligible, True after running one window.  (The JAX
-        package also declines while the loader retries failed
-        minibatches or serves a master or slave; the port's loader has
-        neither a retry queue nor a job mode.)"""
+        is ineligible or the loader retries failed minibatches (served
+        one a step), True after running one window.  (The JAX package
+        also declines while the loader serves a master or slave; the
+        port's loader has no job mode.)"""
         k_max = mode()
         if k_max < 1 or not self.eligible:
             return False
         every = int(root.common.engine.get("metrics_every", 0) or 0)
         if every > 0:
             k_max = min(k_max, every)
+        if self._structure["loader"].failed_minibatches:
+            return False
         self._execute_window(k_max)
         return True
 
@@ -458,7 +460,8 @@ class EpochScanRunner(Logger):
             rows = [plan.fetch_scalars()]
             samples = int(loader.minibatch_size)
             closed = bool(loader.last_minibatch)
-            while not closed and len(rows) < k_max:
+            while not closed and len(rows) < k_max \
+                    and not loader.failed_minibatches:
                 loader.scan_window_step()
                 rows.append(plan.fetch_scalars())
                 samples += int(loader.minibatch_size)

@@ -27,12 +27,19 @@ then normalizes, maps the labels and pads a short batch) may set
 (:mod:`veles_tpu_torch.thread_pool`) fills and prepares the predicted
 next minibatch in a :class:`veles_tpu_torch.memory.StagingRing` slot
 and uploads it on a side stream, and the next serve publishes it when
-its ``(offset, size)`` matches.  Not ported: the slave half of the
-prefetch (``prefetch_job_data``) and the rest of the master/slave job
-methods, the retry queue, ``validation_ratio`` and checkpointing
-(ROADMAP item 7).
+its ``(offset, size)`` matches.
+
+The retry queue: ``failed_minibatches`` are served before the offset
+advances, each in its own class and with the epoch flags down.  The
+minibatch served last stays pending until the next serve; a
+``checkpoint_state()`` (``Workflow.capture_train_state``) folds it into
+the retry queue with the failed ones, so a restored run serves it again,
+as the JAX package's does.  Not ported: the slave half of the prefetch
+(``prefetch_job_data``) and the rest of the master/slave job methods
+and ``validation_ratio`` (ROADMAP item 7).
 """
 
+import collections
 import threading
 
 import numpy
@@ -103,6 +110,9 @@ class Loader(Unit):
         self.epoch_number = 0
         self.last_minibatch = Bool(False)
         self.epoch_ended = Bool(False)
+        #: (offset, size) of minibatches to serve again, before the
+        #: offset advances
+        self.failed_minibatches = []
         self._normalization_type = kwargs.get("normalization_type", "none")
         self._normalization_parameters = kwargs.get(
             "normalization_parameters", {})
@@ -117,6 +127,9 @@ class Loader(Unit):
 
     def init_unpickled(self):
         super(Loader, self).init_unpickled()
+        #: the minibatches served and not yet done, by consumer (None:
+        #: this process)
+        self.pending_minibatches_ = collections.defaultdict(list)
         #: pending background fills: {(offset, size): Future}
         self._prefetch_futures_ = {}
         #: serializes fill_minibatch against a background
@@ -215,6 +228,7 @@ class Loader(Unit):
 
     def run(self):
         """Serve one minibatch, then start the next one's prefetch."""
+        self.pending_minibatches_.pop(None, None)
         self.serve_next_minibatch()
         self.samples_served += self.minibatch_size
         self._start_prefetch()
@@ -224,6 +238,7 @@ class Loader(Unit):
         the serving state (offset, class, epoch flags, the shuffle at an
         epoch's start) without filling a minibatch buffer; the segment
         gathers the batch on the device."""
+        self.pending_minibatches_.pop(None, None)
         self.serve_next_minibatch(fill=False)
         self.samples_served += self.minibatch_size
 
@@ -255,15 +270,28 @@ class Loader(Unit):
         raise LoaderError("sample index %d out of range" % index)
 
     def serve_next_minibatch(self, fill=True):
-        """Advance to the next (offset, size), update the epoch flags and
-        fill the minibatch (``fill=False``: leave the fill to a
-        stitched segment)."""
+        """Take the next (offset, size), a failed one first, update the
+        epoch flags and fill the minibatch (``fill=False``: leave the
+        fill to a stitched segment)."""
         with trace.span("loader", "serve_minibatch"):
-            minibatch_offset, minibatch_size = \
-                self._advance_global_offset()
+            retried = bool(self.failed_minibatches)
+            if retried:
+                minibatch_def = self.failed_minibatches.pop()
+            else:
+                minibatch_def = self._advance_global_offset()
+            minibatch_offset, minibatch_size = minibatch_def
+            self.pending_minibatches_[None].append(minibatch_def)
             self.minibatch_offset = minibatch_offset
             self.minibatch_size = minibatch_size
-            self._update_flags()
+            if retried:
+                # a retried minibatch keeps its own class; its epoch
+                # flags were raised when it was first served
+                self.minibatch_class, _ = self.class_index_by_sample_index(
+                    minibatch_offset - minibatch_size)
+                self.last_minibatch <<= False
+                self.epoch_ended <<= False
+            else:
+                self._update_flags()
             self.fill_indices(minibatch_offset - minibatch_size,
                               minibatch_size)
             if not fill:
@@ -336,7 +364,7 @@ class Loader(Unit):
         return self.global_offset, minibatch_size
 
     def _update_flags(self):
-        last_mb = self.class_ended
+        last_mb = self.class_ended and not self.failed_minibatches
         self.last_minibatch <<= last_mb
         self.epoch_ended <<= last_mb and (
             self.minibatch_class == VALID or
@@ -348,10 +376,11 @@ class Loader(Unit):
     # -- prefetch (the next minibatch filled in the background) -------------
     def _peek_next_minibatch(self):
         """The ``(offset, size)`` the next serve will pick, or None when
-        an epoch wrap (a reshuffle) comes first.  The port's loader has
-        no retry queue and no master/slave mode, the JAX package's other
-        two cases."""
-        if self.global_offset >= self.total_samples:
+        a retried minibatch or an epoch wrap (a reshuffle) comes first.
+        The port's loader has no master/slave mode, the JAX package's
+        other case."""
+        if self.failed_minibatches \
+                or self.global_offset >= self.total_samples:
             return None
         _cls, remainder = self.class_index_by_sample_index(
             self.global_offset)
@@ -498,6 +527,51 @@ class Loader(Unit):
                     start + offset:start + offset + self.minibatch_size]
             self.fill_minibatch()
             fn()
+
+    # -- the train-state checkpoint ------------------------------------------
+    def checkpoint_state(self):
+        """The serving cursor: the epoch, the offset, the shuffled index
+        space and the retry queue, with the pending minibatches (the one
+        served last) folded in, so a restored run serves them again."""
+        state = {
+            "epoch_number": int(self.epoch_number),
+            "global_offset": int(self.global_offset),
+            "minibatch_class": int(self.minibatch_class or 0),
+            "samples_served": int(self.samples_served),
+            "failed": [(int(o), int(s))
+                       for o, s in self.failed_minibatches],
+            "pending": [(int(o), int(s))
+                        for defs in self.pending_minibatches_.values()
+                        for o, s in defs],
+        }
+        if self.shuffled_indices:
+            state["shuffled_indices"] = numpy.array(
+                self.shuffled_indices.mem)
+        return state
+
+    def restore_checkpoint_state(self, state):
+        self.epoch_number = int(state.get("epoch_number", 0))
+        self.global_offset = int(state.get("global_offset", 0))
+        self.minibatch_class = int(state.get("minibatch_class", 0))
+        self.samples_served = int(state.get("samples_served", 0))
+        if state.get("shuffled_indices") is not None:
+            # a copy: the next epoch reshuffles it in place
+            self.shuffled_indices.reset(numpy.array(
+                state["shuffled_indices"], dtype=INDEX_DTYPE))
+        requeue = [(int(o), int(s))
+                   for o, s in (state.get("failed") or ())]
+        requeue += [(int(o), int(s))
+                    for o, s in (state.get("pending") or ())]
+        self.failed_minibatches = requeue
+        self.pending_minibatches_.clear()
+        # the epoch flags are computed again at the next serve
+        self.last_minibatch <<= False
+        self.epoch_ended <<= False
+        # a fill buffered for the old cursor must not be published
+        self._prefetch_futures_.clear()
+        if requeue:
+            self.info("resume requeued %d in-flight/failed "
+                      "minibatch(es) from the checkpoint", len(requeue))
 
     # -- results ------------------------------------------------------------
     def get_metric_values(self):

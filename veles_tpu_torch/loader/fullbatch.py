@@ -68,10 +68,14 @@ class FullBatchLoader(Loader):
                                                    False))
         #: the normalizer's ``(scale, shift)`` when native_device_dtype
         self.input_norm = None
-        self._input_norm_dev = None
         #: the pre-mapped labels (int32, -1 = unlabeled), device-resident
         self.resident_labels = Vector(category="dataset")
         super(FullBatchLoader, self).__init__(workflow, **kwargs)
+
+    def init_unpickled(self):
+        super(FullBatchLoader, self).init_unpickled()
+        #: ``input_norm`` as device tensors, made at initialize
+        self._input_norm_dev_ = None
 
     @property
     def has_labels(self):
@@ -133,7 +137,7 @@ class FullBatchLoader(Loader):
         if self.has_labels:
             self.resident_labels.devmem
         if self.native_device_dtype and self.device is not None:
-            self._input_norm_dev = affine_tensors(
+            self._input_norm_dev_ = affine_tensors(
                 self.input_norm, self.device.torch_device)
 
     def analyze_dataset(self):
@@ -201,7 +205,7 @@ class FullBatchLoader(Loader):
             return None
         plan = self._device_stage_plan()
         pads = {name: pad for name, _src, _out, pad in plan}
-        norm = self._input_norm_dev if self.native_device_dtype else None
+        norm = self._input_norm_dev_ if self.native_device_dtype else None
         count = int(self.max_minibatch_size)
 
         def fn(t):

@@ -24,6 +24,14 @@ into the bound tensor (counted in the Watcher as an in-place upload),
 and a published tensor of the same shape and type is copied into it.
 ``bind`` rebinds unconditionally: a segment binds the Vectors it
 produces to its graph's outputs once.
+
+A ``Vector`` pickles its host numpy array and its category only: the
+pickle first waits for the device and brings a fresher device copy to
+the host (the graphs write the weights on the device in place), and
+the tensor, the device, the ledger's hold and ``keep_address`` are
+transient.  A snapshot written on the card therefore holds no device
+storage and loads in a process without CUDA; ``initialize(device)``
+attaches it again.
 """
 
 import threading
@@ -342,6 +350,18 @@ class Vector(object):
     def _drop_devmem(self):
         self._untrack()
         self._devmem = None
+
+    # -- pickling (snapshots) ----------------------------------------------
+    def __getstate__(self):
+        if not self._host_fresh and self._devmem is not None:
+            # a graph may have written the tensor on another stream
+            self._device.sync()
+        self.map_read()
+        return {"mem": self._mem, "category": self.category}
+
+    def __setstate__(self, state):
+        self.__init__(category=state.get("category"))
+        self._mem = state.get("mem")
 
     def __del__(self):
         # the collector may run this inside the Watcher's locked section

@@ -6,10 +6,14 @@ The port's own copy of :mod:`veles_tpu.mutable`:
   (``&``, ``|``, ``^``, ``~``) recomputed from their operands at read
   time, and in-place rebinding with ``<<=``.  Units gate on these
   (``gate_block`` / ``gate_skip``), so flipping one Decision flag
-  re-gates the whole graph without re-linking.
+  re-gates the whole graph without re-linking.  A ``Bool`` pickles its
+  value and its expression, whose operator is a module-level function,
+  so a snapshot keeps its gates live.
 * ``LinkableAttribute``: aliases an attribute of one object to an
   attribute of another (optionally two-way); ``Unit.link_attrs`` builds
-  the dataflow edges with it.
+  the dataflow edges with it.  The forwarding descriptors live on the
+  class, so an object unpickled in a fresh process installs them again
+  (``reinstall``, which ``Unit.init_unpickled`` calls).
 """
 
 
@@ -37,7 +41,9 @@ class Bool(object):
     """Mutable, composable boolean cell.
 
     Expressions are built from module-level operator functions (not
-    lambdas)."""
+    lambdas) so they pickle: a snapshotted workflow keeps its gate
+    expressions live, and the pickle memo keeps the operands' identity
+    (two gates sharing one Decision flag still share it when loaded)."""
 
     __slots__ = ("_value", "_expr")
 
@@ -98,6 +104,12 @@ class Bool(object):
         kind = "expr" if self._expr is not None else "value"
         return "<Bool %s=%s at 0x%x>" % (kind, bool(self), id(self))
 
+    def __getstate__(self):
+        return (self._value, self._expr)
+
+    def __setstate__(self, state):
+        self._value, self._expr = state
+
 
 def _coerce(value):
     return value if isinstance(value, Bool) else Bool(value)
@@ -113,6 +125,14 @@ class LinkableAttribute(object):
         links = dst.__dict__.setdefault("_linked_attrs", {})
         links[dst_name] = (src, src_name, two_way)
         _install_forwarding(type(dst), dst_name)
+
+    @staticmethod
+    def reinstall(obj):
+        """Install the forwarding descriptors of ``obj``'s links again:
+        ``link()`` changes the class, which is local to the process,
+        while ``_linked_attrs`` pickles with the instance."""
+        for name in obj.__dict__.get("_linked_attrs", {}):
+            _install_forwarding(type(obj), name)
 
 
 class _Forward(object):

@@ -8,7 +8,11 @@ derived from the global base seed and a hash of its name.  So
 (``forward_init``) and epoch shuffles (``loader``) bit for bit.  The
 JAX stream's ``jax.random`` key is dropped: no ported unit draws
 device noise yet, and the first that does gets a ``torch.Generator``
-seeded from its stream.
+seeded from its stream.  A stream pickles its exact Philox position
+(the JAX package's state dict): :class:`veles_tpu_torch.checkpoint
+.TrainCheckpointer` carries every stream's state in its meta, so a
+restored run draws from where the saved one stood.  The streams are the
+process's, not a workflow's: a workflow snapshot does not hold them.
 """
 
 import hashlib
@@ -60,6 +64,19 @@ class RandomGenerator(object):
         self._counter += 1
         arr[...] = self._numpy.uniform(
             low=low, high=high, size=arr.shape).astype(arr.dtype)
+
+    def __getstate__(self):
+        return {"name": self.name, "seed": self._seed,
+                "counter": self._counter,
+                "numpy_state": self._numpy.bit_generator.state}
+
+    def __setstate__(self, state):
+        self.name = state["name"]
+        self._seed = state["seed"]
+        self._counter = state["counter"]
+        self._numpy = numpy.random.Generator(
+            numpy.random.Philox(key=self._seed))
+        self._numpy.bit_generator.state = state["numpy_state"]
 
     def __repr__(self):
         return "<RandomGenerator %r seed=%#x n=%d>" % (

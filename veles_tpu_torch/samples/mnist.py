@@ -65,16 +65,14 @@ class MnistLoader(FullBatchLoader):
 
 
 def create_workflow(device=None, max_epochs=25, minibatch_size=100,
-                    layers=None, native=False, **kwargs):
+                    snapshot_dir=None, layers=None, native=False,
+                    **kwargs):
     """The MNIST MLP workflow, initialized on ``device`` (the card when
     None; raises without one).  ``native=True``: the uint8-resident
     dataset, normalized by ``"scale"`` (1/255) in the stitched loader
     head unless ``normalization_type`` says otherwise.
-    ``snapshot_dir`` is not ported (ROADMAP item 7)."""
-    if kwargs.pop("snapshot_dir", None):
-        raise NotImplementedError(
-            "snapshot_dir (the snapshotter) is not ported yet "
-            "(ROADMAP item 7)")
+    ``snapshot_dir``: snapshot every improving validation there
+    (``mnist_<error>pt.pickle.gz``), which keeps the per-step route."""
     device = make_device(device)
     normalization = kwargs.pop("normalization_type",
                                "scale" if native else "none")
@@ -87,6 +85,8 @@ def create_workflow(device=None, max_epochs=25, minibatch_size=100,
         decision_config={"max_epochs": max_epochs,
                          "fail_iterations": kwargs.pop(
                              "fail_iterations", 50)},
+        snapshotter_config={"directory": snapshot_dir, "prefix": "mnist"}
+        if snapshot_dir else None,
         **kwargs)
     wf.launcher = DummyLauncher()
     wf.initialize(device=device)

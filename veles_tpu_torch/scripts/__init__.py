@@ -1,0 +1,2 @@
+"""Utility scripts: the port's counterpart of :mod:`veles_tpu.scripts`.
+Ported: snapshot diffing (:mod:`.compare_snapshots`)."""

@@ -21,9 +21,11 @@ front end.  The port's counterpart of :mod:`veles_tpu.serve`:
 
 ``veles_tpu_torch.restful_api.RESTfulAPI`` is the in-workflow adapter
 over these parts; the generative engine and scheduler are
-:mod:`veles_tpu_torch.gen`.  Not ported yet (ROADMAP.md, 'Slices still
-to port'): snapshots (7(a)), fleets and meshes (7(d)), the workflow
-preflight's analyzer and ``notify_status`` (7(e)).
+:mod:`veles_tpu_torch.gen`.  A snapshot
+(:mod:`veles_tpu_torch.snapshotter`) is served through
+``InferenceEngine.from_snapshot`` or ``ModelRegistry.load_snapshot``.
+Not ported yet (ROADMAP.md, 'Slices still to port'): fleets and meshes
+(7(d)), the workflow preflight's analyzer and ``notify_status`` (7(e)).
 """
 
 from veles_tpu_torch.serve.batcher import (DynamicBatcher,

@@ -30,9 +30,13 @@ the eager forward over the padded batch, counted once per bucket.
   ``plan`` at the served shapes; ``tests/test_torch_serve.py`` on the
   CPU).
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-item: a mesh or ``param_specs`` (item 7(d)) and ``from_snapshot``
-(item 7(a)).
+:meth:`InferenceEngine.from_snapshot` serves a
+:mod:`veles_tpu_torch.snapshotter` artifact: the snapshot holds host
+arrays only, so it loads anywhere, and the engine places its params on
+its own device (the card unless ``device="cpu"``).
+
+Not ported, raising ``NotImplementedError`` naming its ROADMAP item: a
+mesh or ``param_specs`` (item 7(d)).
 """
 
 import contextlib
@@ -296,9 +300,11 @@ class InferenceEngine(Logger):
 
     @classmethod
     def from_snapshot(cls, path, **kwargs):
-        """Engine from a snapshot artifact."""
-        _not_ported("InferenceEngine.from_snapshot (the snapshotter)",
-                    "7(a)")
+        """Engine from a :mod:`veles_tpu_torch.snapshotter` artifact (a
+        local path, an ``http(s)://`` URL or a ``db://`` row), as
+        :meth:`from_workflow` builds it."""
+        from veles_tpu_torch.snapshotter import load_snapshot
+        return cls.from_workflow(load_snapshot(path), **kwargs)
 
     @staticmethod
     def _infer_sample_shape(workflow, forwards):

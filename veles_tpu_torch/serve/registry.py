@@ -18,12 +18,15 @@ continuous-batching scheduler instead of a batcher and preflights the
 KV-cache plan (rule V-S01, :mod:`veles_tpu_torch.analyze.shapes`)
 under ``root.common.serve.preflight``; a redeploy is a drain swap.
 
+``load_snapshot`` deploys a :mod:`veles_tpu_torch.snapshotter`
+artifact as ``load_workflow`` deploys a workflow.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``deploy_fleet`` (7(d)), ``load_snapshot`` (7(a)), and the
-analyzer preflight that ``load_workflow`` runs under
+item: ``deploy_fleet`` (7(d)) and the analyzer preflight that
+``load_workflow`` and ``load_snapshot`` run under
 ``root.common.serve.preflight`` = ``warn`` (the default) or ``fail``
-(7(e)): set it to ``off`` to load a workflow.  ``deploy`` never
-preflights.
+(7(e)): set it to ``off`` to load a workflow or a snapshot.  ``deploy``
+never preflights.
 """
 
 import threading
@@ -616,9 +619,18 @@ class ModelRegistry(Logger):
 
     def load_snapshot(self, name, path, version=None, engine_config=None,
                       warmup=True):
-        """Build an engine from a snapshot artifact and deploy it."""
-        _not_ported("ModelRegistry.load_snapshot (the snapshotter)",
-                    "7(a)")
+        """Load a snapshot artifact (:func:`veles_tpu_torch.snapshotter
+        .load_snapshot`), preflight it (see :meth:`preflight`), build
+        the engine with :meth:`InferenceEngine.from_workflow` (on the
+        card unless ``engine_config`` says ``device="cpu"``) and deploy
+        it."""
+        from veles_tpu_torch.snapshotter import load_snapshot
+        workflow = load_snapshot(path)
+        self.preflight(workflow, name)
+        engine = InferenceEngine.from_workflow(
+            workflow, **dict(engine_config or {}))
+        return self.deploy(name, engine, version=version, source=path,
+                           warmup=warmup)
 
     def load_workflow(self, name, workflow, version=None,
                       engine_config=None, warmup=True):

@@ -66,6 +66,9 @@ when a ``stitch_stage()`` or a segment build raises: here the exception
 propagates.
 """
 
+import contextlib
+import gc
+import threading
 import time
 
 import numpy
@@ -205,6 +208,30 @@ def run_stages(stages, slots, tensors, scalar, health=True):
     return metrics
 
 
+#: captures in flight in any thread, and whether the collector was on
+#: when the first of them began
+_collection_hold = {"captures": 0, "was_enabled": True}
+_collection_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """The garbage collector off while any thread captures a graph."""
+    with _collection_lock:
+        if _collection_hold["captures"] == 0:
+            _collection_hold["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _collection_hold["captures"] += 1
+    try:
+        yield
+    finally:
+        with _collection_lock:
+            _collection_hold["captures"] -= 1
+            if _collection_hold["captures"] == 0 \
+                    and _collection_hold["was_enabled"]:
+                gc.enable()
+
+
 class CapturedGraph(Logger):
     """One CUDA graph and its discipline, shared by a segment and an
     epoch-scan window: captured at its first replay, replayed after,
@@ -212,7 +239,13 @@ class CapturedGraph(Logger):
     tensor it reads or writes has moved, never read at a stale
     address.  A capture records how many launches of each kernel went
     into the graph and restores the launch counters; each replay adds
-    them."""
+    them.
+
+    A capture runs with the garbage collector off: a collection during
+    the capture could free an unreachable workflow's graphs (a loaded
+    snapshot's predecessor, an earlier run's segments), and destroying
+    a graph while a stream captures invalidates the capture.  The
+    garbage waits for the next collection after the capture."""
 
     def __init__(self, name, device, capture_error_mode=None):
         super(CapturedGraph, self).__init__()
@@ -225,8 +258,8 @@ class CapturedGraph(Logger):
         self.captures = 0
         self.recaptures = 0
         self.replays = 0
-        #: host seconds spent capturing (torch.cuda.graph synchronizes
-        #: and collects garbage on entry)
+        #: host seconds spent capturing (``torch.cuda.graph``'s
+        #: synchronize on entry included)
         self.capture_seconds = 0.0
         #: the bytes of the graph's private memory pool after the last
         #: capture: its segments, and what stays allocated in them
@@ -277,7 +310,7 @@ class CapturedGraph(Logger):
         options = {} if self.capture_error_mode is None else {
             "capture_error_mode": self.capture_error_mode}
         try:
-            with torch.cuda.graph(graph, **options):
+            with _no_collection(), torch.cuda.graph(graph, **options):
                 static = body()
         finally:
             launched = [(c, name, c[name] - b[name])

@@ -22,13 +22,19 @@ JAX package.  Segment stitching: a unit opts in by returning a
 while the workflow runs with ``stitch_active``, ``run_wrapped`` goes
 through the unit's segment (the head dispatches it, members no-op).
 Background units (``wants_thread``) are not ported (ROADMAP item 7).
+
+A unit pickles without its transient state (``_``-suffixed: the gate
+lock, the segment membership, the workflow back-reference, which
+``Workflow.__setstate__`` sets again); an unpickled unit installs its
+data links' forwarding descriptors again, so they work in a fresh
+process.
 """
 
 import threading
 import time
 
 from veles_tpu_torch import trace
-from veles_tpu_torch.distributable import Pickleable
+from veles_tpu_torch.distributable import Distributable
 from veles_tpu_torch.mutable import Bool, LinkableAttribute
 
 
@@ -55,7 +61,7 @@ class UnitRegistry(type):
                 UnitRegistry.mapped[alias] = cls
 
 
-class Unit(Pickleable, metaclass=UnitRegistry):
+class Unit(Distributable, metaclass=UnitRegistry):
     """Dataflow + controlflow graph node."""
 
     hide_from_registry = True
@@ -81,7 +87,15 @@ class Unit(Pickleable, metaclass=UnitRegistry):
     def init_unpickled(self):
         super(Unit, self).init_unpickled()
         self._gate_lock_ = threading.Lock()
+        # the segments hold CUDA graphs: Workflow.initialize rebuilds
+        # the membership after an unpickle
         self._stitch_segment_ = None
+        if not hasattr(self, "_workflow_ref_"):
+            # a unit unpickled on its own; Workflow.__setstate__ links
+            # its members again
+            self._workflow_ref_ = None
+        # the data links' descriptors live on the class, in this process
+        LinkableAttribute.reinstall(self)
 
     def __repr__(self):
         return '<%s "%s">' % (self.__class__.__name__, self.name)

@@ -15,14 +15,25 @@ the segments and dropped with them; ``epoch_scan_report()`` describes
 it.  ``perf_report()`` renders the performance ledger
 (:mod:`veles_tpu_torch.prof`).  ``initialize()`` applies the telemetry
 bus's knob (``root.common.watch.endpoint``), and ``run()`` publishes its
-begin, its end and the perf digest on the bus when one is live.  Not
-ported (ROADMAP item 7): the master/slave job protocol, checkpoint
-capture and restore, ``checksum`` and ``package_export``.
+begin, its end and the perf digest on the bus when one is live.
+
+A workflow pickles whole (:mod:`veles_tpu_torch.snapshotter`): its
+queue, segments, epoch runner and their CUDA graphs are transient, and
+``initialize()`` of the loaded workflow rebuilds them (on the card, the
+graphs are captured again over the new tensors).
+``capture_train_state()`` / ``restore_train_state()`` split the units'
+``checkpoint_state()`` into arrays and small values for
+:class:`veles_tpu_torch.checkpoint.TrainCheckpointer`, under the JAX
+package's keys, so a JAX pair installs unchanged.  Not ported (ROADMAP
+item 7): the master/slave job protocol, ``checksum`` and
+``package_export``.
 """
 
 import collections
 import inspect
 import time
+
+import numpy
 
 from veles_tpu_torch import trace
 from veles_tpu_torch.plumbing import EndPoint, StartPoint
@@ -53,6 +64,12 @@ class Workflow(Unit):
         #: was the switch on when the segments were last (re)built?
         self._stitch_built_enabled_ = False
 
+    def __setstate__(self, state):
+        super(Workflow, self).__setstate__(state)
+        # the units' back-references are transient: link them again
+        for unit in self._units:
+            unit.workflow = self
+
     # -- membership ---------------------------------------------------------
     def add_ref(self, unit):
         """Units register themselves on construction."""
@@ -61,6 +78,9 @@ class Workflow(Unit):
         if unit not in self._units:
             self._units.append(unit)
         unit.workflow = self
+
+    def __iter__(self):
+        return iter(self._units)
 
     @property
     def launcher(self):
@@ -248,6 +268,13 @@ class Workflow(Unit):
             unit._check_gate_and_run(src)
         queue.clear()
 
+    def stop(self):
+        """Stop the run and every unit (a snapshotter joins its write
+        in flight)."""
+        self.stopped = True
+        for unit in self._units:
+            unit.stop()
+
     def on_workflow_finished(self):
         self.stopped = True
         if self._launcher is not None:
@@ -256,6 +283,73 @@ class Workflow(Unit):
     def on_unit_failed(self, unit):
         self.warning("unit %r failed; stopping workflow", unit)
         self.stopped = True
+
+    # -- the train-state checkpoint ------------------------------------------
+    def _checkpoint_key(self, index, unit):
+        """A unit's key: its dependency-order index and its name made
+        safe (``u%03d_<name>``), as the JAX package keys it."""
+        safe = "".join(c if c.isalnum() else "_" for c in unit.name)
+        return "u%03d_%s" % (index, safe)
+
+    def capture_train_state(self):
+        """``(train, meta)`` for a
+        :class:`veles_tpu_torch.checkpoint.TrainCheckpointer`: each unit
+        with a ``checkpoint_state()`` gives a dict, whose numpy arrays
+        go into ``train`` and everything else into the JSON ``meta``,
+        under the unit's key."""
+        train, meta = {}, {}
+        for i, unit in enumerate(self.units_in_dependency_order()):
+            if unit is self:
+                continue
+            hook = getattr(unit, "checkpoint_state", None)
+            if hook is None:
+                continue
+            try:
+                state = hook()
+            except Exception:
+                self.exception("checkpoint_state failed on %r", unit)
+                continue
+            if not state:
+                continue
+            key = self._checkpoint_key(i, unit)
+            arrays = {k: v for k, v in state.items()
+                      if isinstance(v, numpy.ndarray)}
+            small = {k: v for k, v in state.items()
+                     if not isinstance(v, numpy.ndarray)}
+            if arrays:
+                train[key] = arrays
+            if small:
+                meta[key] = small
+        return train, meta
+
+    def restore_train_state(self, train, meta):
+        """Install a :meth:`capture_train_state` pair into this built
+        and initialized workflow: each unit's
+        ``restore_checkpoint_state`` gets its dict back whole.  Returns
+        the number of units restored."""
+        train = train or {}
+        meta = meta or {}
+        restored = 0
+        for i, unit in enumerate(self.units_in_dependency_order()):
+            if unit is self:
+                continue
+            hook = getattr(unit, "restore_checkpoint_state", None)
+            if hook is None:
+                continue
+            key = self._checkpoint_key(i, unit)
+            state = {}
+            state.update(meta.get(key) or {})
+            state.update(train.get(key) or {})
+            if not state:
+                continue
+            try:
+                hook(state)
+                restored += 1
+            except Exception:
+                self.exception("restore_checkpoint_state failed on %r",
+                               unit)
+        self.info("restored checkpoint state into %d unit(s)", restored)
+        return restored
 
     # -- results / stats ----------------------------------------------------
     def gather_results(self):

@@ -30,9 +30,14 @@ authoritative.
 Every class close runs :meth:`DecisionBase._publish_close`: with
 ``engine.health`` armed, one fetch of the health snapshot (the close is
 already a host sync point; strict mode's verdict applies there), and
-with a telemetry bus an ``epoch`` event and the ``health`` event.  Not
-ported: the job protocol's master and slave halves and checkpoint state
-(item 7).
+with a telemetry bus an ``epoch`` event and the ``health`` event.
+
+An improving validated close sets ``snapshot_suffix`` (the snapshot's
+name, :mod:`veles_tpu_torch.snapshotter`).  ``checkpoint_state()``
+carries ``CHECKPOINT_ATTRS`` with ``complete`` and ``improved`` for
+``Workflow.capture_train_state``.  The pending device sums and the last
+window's device verdict are transient.  Not ported: the job protocol's
+master and slave halves (item 7).
 """
 
 import numpy
@@ -67,10 +72,7 @@ class DecisionBase(Unit):
         self.fail_iterations = kwargs.get("fail_iterations", 100)
         self.complete = Bool(False)
         self.improved = Bool(False)
-        #: the last class-closing validated window's device verdict:
-        #: {"improved", "stop"} 0-d device booleans, "cls", "epoch",
-        #: "steps"; the host close stays authoritative
-        self.scan_verdict = None
+        self.snapshot_suffix = ""
         self._epochs_without_improvement = 0
         # linked from the loader:
         self.minibatch_class = None
@@ -94,6 +96,18 @@ class DecisionBase(Unit):
         #: graph's output, so a per-step add never writes into it
         self._scan_accums_ = [None, None, None]
         self._scan_absorbed_ = False
+        #: the last class-closing validated window's device verdict:
+        #: {"improved", "stop"} 0-d device booleans, "cls", "epoch",
+        #: "steps"; the host close stays authoritative
+        self.scan_verdict_ = None
+
+    @property
+    def scan_verdict(self):
+        return self.scan_verdict_
+
+    @scan_verdict.setter
+    def scan_verdict(self, value):
+        self.scan_verdict_ = value
 
     # -- deferred metric accounting -----------------------------------------
     def _accumulate_metric(self, sums, cls, value):
@@ -246,11 +260,44 @@ class DecisionBase(Unit):
         return cls == VALID or (cls == TRAIN and
                                 self.class_lengths[VALID] == 0)
 
+    # -- the train-state checkpoint ------------------------------------------
+    #: plain attributes saved and restored as they are; subclasses extend
+    CHECKPOINT_ATTRS = ("snapshot_suffix", "_epochs_without_improvement")
+
+    def checkpoint_state(self):
+        """The stop criteria's accounting: without it a resumed run
+        would forget its best epoch and its streak without improvement
+        and stop at another epoch."""
+        state = {name: getattr(self, name)
+                 for name in self.CHECKPOINT_ATTRS if hasattr(self, name)}
+        state["complete"] = bool(self.complete)
+        state["improved"] = bool(self.improved)
+        return state
+
+    def restore_checkpoint_state(self, state):
+        for name in self.CHECKPOINT_ATTRS:
+            if name not in state:
+                continue
+            value = state[name]
+            current = getattr(self, name, None)
+            if isinstance(current, list) and \
+                    isinstance(value, (list, tuple)):
+                value = list(value)
+            setattr(self, name, value)
+        if "complete" in state:
+            self.complete <<= bool(state["complete"])
+        if "improved" in state:
+            self.improved <<= bool(state["improved"])
+
 
 class DecisionGD(DecisionBase):
     """Classification decision driven by ``EvaluatorSoftmax.n_err``."""
 
     SCAN_METRIC = "n_err"
+
+    CHECKPOINT_ATTRS = DecisionBase.CHECKPOINT_ATTRS + (
+        "epoch_n_err", "epoch_samples", "epoch_n_err_pt",
+        "best_n_err_pt", "best_epoch")
 
     def __init__(self, workflow, **kwargs):
         super(DecisionGD, self).__init__(workflow, **kwargs)
@@ -323,6 +370,7 @@ class DecisionGD(DecisionBase):
                 self.best_n_err_pt = err_pt
                 self.best_epoch = int(self.epoch_number)
                 self.improved <<= True
+                self.snapshot_suffix = "%.2fpt" % err_pt
                 self._epochs_without_improvement = 0
             else:
                 self.improved <<= False
@@ -364,6 +412,10 @@ class DecisionMSE(DecisionBase):
 
     SCAN_METRIC = "mse"
 
+    CHECKPOINT_ATTRS = DecisionBase.CHECKPOINT_ATTRS + (
+        "epoch_sum_mse", "epoch_batches", "epoch_mse", "best_mse",
+        "best_epoch")
+
     def __init__(self, workflow, **kwargs):
         super(DecisionMSE, self).__init__(workflow, **kwargs)
         self.evaluator = None
@@ -402,6 +454,7 @@ class DecisionMSE(DecisionBase):
                 self.best_mse = self.epoch_mse[cls]
                 self.best_epoch = int(self.epoch_number)
                 self.improved <<= True
+                self.snapshot_suffix = "%.4frmse" % self.best_mse
                 self._epochs_without_improvement = 0
             else:
                 self.improved <<= False

@@ -12,6 +12,9 @@ backward hyperparameters and the momenta ``gradient_weights`` /
 ``gradient_bias``, with the update rule (docs ``:547-556``)::
 
     v ← μ·v − α·(g + λ·w);  w ← w + v
+
+A forward's ``checkpoint_state()`` is its weights and bias, for
+``Workflow.capture_train_state``.
 """
 
 import numpy
@@ -99,6 +102,25 @@ class ForwardBase(AcceleratedUnit):
             array[...] = stddev
         else:
             raise ValueError("unknown filling %r" % filling)
+
+
+    # -- the train-state checkpoint ------------------------------------------
+    def checkpoint_state(self):
+        """The trainable parameters, host copies (the GD momenta are not
+        in it, as in the JAX package)."""
+        if not self.weights:
+            return None
+        state = {"weights": numpy.array(self.weights.mem)}
+        if self.include_bias and self.bias:
+            state["bias"] = numpy.array(self.bias.mem)
+        return state
+
+    def restore_checkpoint_state(self, state):
+        # copies: training updates the parameters in place
+        if "weights" in state:
+            self.weights.reset(numpy.array(state["weights"]))
+        if "bias" in state and self.bias:
+            self.bias.reset(numpy.array(state["bias"]))
 
 
 class GradientDescentBase(AcceleratedUnit):

@@ -11,8 +11,17 @@ Layer specs are a list of dicts with ``type`` (a unit ``MAPPING``) and
 the forward ``->`` and backward ``<-`` parameter groups.  With
 ``engine.stitch=on`` (the default) ``initialize()`` stitches the chain
 into two segments, ``[loader head, forwards…, evaluator]`` and
-``[gds…]`` (:mod:`veles_tpu_torch.stitch`).  Not ported: ``fused`` (the
-one-program trainer), ``mcdnnic_topology``, the snapshotter, plotters,
+``[gds…]`` (:mod:`veles_tpu_torch.stitch`).
+
+``snapshotter_config`` hangs a
+:class:`~veles_tpu_torch.snapshotter.SnapshotterToFile` off the
+Decision, gated on ``~decision.improved`` and clearing it after each
+export: one snapshot an improving validation.  A unit hanging off the
+Decision keeps the run on the per-step stitched route (the epoch-scan
+windows refuse it, with the JAX package's reason).
+``restore_train_state`` is the Workflow's: the JAX package's override
+only refreshes the fused trainer.  Not ported:
+``fused`` (the one-program trainer), ``mcdnnic_topology``, plotters,
 ``lr_adjuster``, rollback and image saver (ROADMAP item 7).
 
 ``loss_function="mse"`` (the default when the last layer is not a
@@ -50,7 +59,7 @@ GD_PAIRS = {
 #: ROADMAP item that will port each
 _NOT_PORTED = {
     "fused": "7", "fused_config": "7", "mcdnnic_topology": "7",
-    "mcdnnic_parameters": "7", "snapshotter_config": "7",
+    "mcdnnic_parameters": "7",
     "plotters_config": "7", "lr_adjuster_config": "7",
     "rollback_config": "7", "image_saver_config": "7",
 }
@@ -70,6 +79,14 @@ class ClassSkipGate(Bool):
     def __bool__(self):
         return int(self.loader.minibatch_class) != self.cls
 
+    def __getstate__(self):
+        return (self.loader, self.cls)
+
+    def __setstate__(self, state):
+        self.loader, self.cls = state
+        self._value = False
+        self._expr = None
+
 
 class StandardWorkflow(AcceleratedWorkflow):
     """Builds the training graph from the ``layers`` config.
@@ -80,6 +97,7 @@ class StandardWorkflow(AcceleratedWorkflow):
       loss_function: "softmax" (the default from a last softmax layer)
         or "mse" (the default otherwise)
       decision_config: dict for the Decision unit
+      snapshotter_config: kwargs of the SnapshotterToFile (None: none)
     """
 
     def __init__(self, workflow=None, **kwargs):
@@ -91,6 +109,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.layers = kwargs.pop("layers", [])
         self.loss_function = kwargs.pop("loss_function", None)
         self.decision_config = dict(kwargs.pop("decision_config", {}))
+        self.snapshotter_config = kwargs.pop("snapshotter_config", None)
         loader_factory = kwargs.pop("loader_factory")
         super(StandardWorkflow, self).__init__(workflow, **kwargs)
         self.repeater = Repeater(self)
@@ -98,6 +117,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.forwards = []
         self.gds = []
         self.evaluator = None
+        self.snapshotter = None
         self.create_workflow()
 
     # -- the link_* contract ------------------------------------------------
@@ -122,6 +142,8 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.link_forwards()
         self.link_evaluator()
         self.link_decision()
+        if self.snapshotter_config is not None:
+            self.link_snapshotter()
         self.link_gds()
         self.link_loop_and_end()
 
@@ -182,6 +204,20 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.decision.link_from_loader(self.loader)
         self.decision.evaluator = self.evaluator
         self.decision.link_from(self.evaluator)
+
+    def link_snapshotter(self):
+        """Snapshot at every improving validation: gated on
+        ``~decision.improved``, which the export clears (it stays up
+        until the next validated close), named by the Decision's
+        ``snapshot_suffix``."""
+        from veles_tpu_torch.snapshotter import SnapshotterToFile
+        self.snapshotter = SnapshotterToFile(
+            self, **dict(self.snapshotter_config or {}))
+        self.snapshotter.link_from(self.decision)
+        self.snapshotter.link_attrs(
+            self.decision, ("suffix", "snapshot_suffix"))
+        self.snapshotter.gate_skip = ~self.decision.improved
+        self.snapshotter.reset_flag = self.decision.improved
 
     def link_gds(self):
         """The backward chain in reverse layer order, gated to TRAIN

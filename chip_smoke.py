@@ -533,14 +533,16 @@ MNIST_PARAM_RTOL = 1e-4
 # layer's GD computes err_input; the bias step rides in every dw launch
 # (gd_db_in_dw), and one gather launch a minibatch serves its data and
 # labels (two raw tables)
-MNIST_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240, "gd_db": 0,
+MNIST_LAUNCHES = {"matmul": 300, "matmul_bf16": 0, "gd_dx": 120,
+                  "gd_dw": 240, "gd_db": 0,
                   "gd_db_in_dw": 240, "gather": 150, "gather_norm": 0,
                   "gather_tables": 300, "gather_norm_tables": 0}
 # the stitched native route, max_epochs=3: the forward segment dispatches
 # every minibatch (150), the GD segment every train minibatch (120); its
 # head's one gather launch normalizes the u8 data row and takes the
 # labels (counted under gather_norm)
-MNIST_STITCHED_LAUNCHES = {"matmul": 300, "gd_dx": 120, "gd_dw": 240,
+MNIST_STITCHED_LAUNCHES = {"matmul": 300, "matmul_bf16": 0, "gd_dx": 120,
+                           "gd_dw": 240,
                            "gd_db": 0, "gd_db_in_dw": 240, "gather": 0,
                            "gather_norm": 150, "gather_tables": 150,
                            "gather_norm_tables": 150}
@@ -1383,8 +1385,9 @@ def _gemm_cases(rng, device):
     """Every activation × bias on/off for matmul, and activation ×
     layout × need_err_input × has_bias for the GD trio, at the ragged,
     MNIST, split (K split 2 over 20, split 8 over 9 K tiles), the
-    autoencoder's (100, 100, 784) and 4096^3 shapes; each output element
-    within its tolerance."""
+    autoencoder's (100, 100, 784) and 4096^3 shapes, and matmul at the
+    fused step's backward products (:func:`_gemm_fused_cases`); each
+    output element within its tolerance."""
     from veles_tpu_torch.ops import gemm
     cases = []
     shapes = ((37, 70, 50), (100, 784, 100), (100, 100, 10), (8, 20, 8),
@@ -1433,7 +1436,54 @@ def _gemm_cases(rng, device):
                                                for e in errors.values()),
                             "ok": all(e["outside_tol"] == 0
                                       for e in errors.values())})
+    cases.extend(_gemm_fused_cases(device))
     gpu_sync()
+    return cases
+
+
+#: (M, K, N) and which operand is a transposed view in the fused f32
+#: step's backward products (lower_specs' MatMul.backward): layer 1's
+#: weight gradient x^T·δ (784, 100, 100) and layer 2's h^T·δ (100, 100,
+#: 10) read a transposed view of A, layer 2's input gradient δ·W^T
+#: (100, 10, 100) a transposed view of W
+GEMM_FUSED_SHAPES = (((784, 100, 100), "a"), ((100, 100, 10), "a"),
+                     ((100, 10, 100), "w"))
+
+
+def _as_view(a, w, view):
+    """``a`` or ``w`` (``view`` "a" or "w") as the transposed view of a
+    contiguous copy: the same values through the other strides."""
+    if view == "a":
+        a = a.t().contiguous().t()
+    elif view == "w":
+        w = w.t().contiguous().t()
+    return a, w
+
+
+def _gemm_fused_cases(device):
+    """The f32 body at the fused step's backward shapes and layouts
+    (GEMM_FUSED_SHAPES), every activation × bias on/off, against the
+    plain version within GEMM_TOL; its own stream of operands."""
+    from veles_tpu_torch.ops import gemm
+    rng = numpy.random.default_rng(SEED + 20)
+    cases = []
+    for (m, k, n), view in GEMM_FUSED_SHAPES:
+        for activation in GEMM_ACTIVATIONS:
+            for with_bias in (True, False):
+                a, w, bias = _gemm_operands(rng, device, m, k, n)
+                a, w = _as_view(a, w, view)
+                bias = bias if with_bias else None
+                report = _within(gemm.matmul(a, w, bias, activation),
+                                 gemm._matmul_ref(a, w, bias, activation),
+                                 GEMM_TOL)
+                cases.append(dict(report, kernel="matmul",
+                                  shape=[m, k, n], view=view,
+                                  strides=[list(a.stride()),
+                                           list(w.stride())],
+                                  tile_split=list(gemm.plan(m, n, k)),
+                                  activation=activation, bias=with_bias,
+                                  tol=list(GEMM_TOL),
+                                  ok=report["outside_tol"] == 0))
     return cases
 
 
@@ -1752,6 +1802,97 @@ def _gemm_kernels(device):
           and all(f["caught"] for f in planted.values()))
     return {"cases": cases, "bit_equal_relaunch": repeatable,
             "planted_faults": planted}, timed, ok
+
+
+# -- the bf16 body of the GEMM (csrc/gemm.cu veles_matmul_bf16) -------------
+
+#: bf16 products against the plain version (the f32 product of the same
+#: bf16 operands, rounded once): within one bf16 ulp (2^-7 relative) and
+#: 2^-8 absolute, for outputs near 0 that another f32 summation order
+#: rounds to the other side
+BF16_GEMM_TOL = (2.0 ** -8, 2.0 ** -7)
+#: (M, K, N), activation and which operand is a transposed view: the
+#: ragged shape, the fused bf16 step's products (layer 1's forward, its
+#: weight gradient a^T·δ through a transposed view of a; the f32 softmax
+#: layer's shapes for the record) and 4096^3
+GEMM_BF16_SHAPES = (((37, 70, 50), "a"), ((100, 784, 100), None),
+                    ((784, 100, 100), "a"), ((100, 100, 10), "w"),
+                    ((GEMM_BIG,) * 3, None))
+#: the shapes timed: the fused step's three (layer 1's forward, layer 1's
+#: weight gradient, the (100, 100, 10) layer-2 product) and 4096^3
+GEMM_BF16_TIMED = (((100, 784, 100), "tanh", None),
+                   ((784, 100, 100), None, "a"),
+                   ((100, 100, 10), None, None),
+                   ((GEMM_BIG,) * 3, None, None))
+
+
+def _bf16_operands(rng, device, m, k, n, view=None):
+    a, w, bias = _gemm_operands(rng, device, m, k, n)
+    a, w = _as_view(a.bfloat16(), w.bfloat16(), view)
+    return a, w, bias.bfloat16()
+
+
+def _gemm_bf16_kernels(device):
+    """The bf16 body: every activation × bias on/off at each shape of
+    GEMM_BF16_SHAPES against the plain version, a relaunch bit for bit,
+    and the device times at GEMM_BF16_TIMED beside the bf16 bound, the
+    plain version's and ``torch.addmm``'s in bf16."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops import gemm
+    rng = numpy.random.default_rng(SEED + 19)
+    cases = []
+    for (m, k, n), view in GEMM_BF16_SHAPES:
+        for activation in GEMM_ACTIVATIONS:
+            for with_bias in (True, False):
+                a, w, bias = _bf16_operands(rng, device, m, k, n, view)
+                bias = bias if with_bias else None
+                got = gemm.matmul(a, w, bias, activation)
+                report = _within(got, gemm._matmul_ref(a, w, bias,
+                                                       activation),
+                                 BF16_GEMM_TOL)
+                cases.append(dict(report, kernel="matmul_bf16",
+                                  shape=[m, k, n], view=view,
+                                  activation=activation, bias=with_bias,
+                                  dtype=str(got.dtype),
+                                  tol=list(BF16_GEMM_TOL),
+                                  ok=report["outside_tol"] == 0
+                                  and got.dtype == torch.bfloat16))
+    a, w, bias = _bf16_operands(rng, device, 100, 784, 100)
+    repeatable = torch.equal(gemm.matmul(a, w, bias, "tanh"),
+                             gemm.matmul(a, w, bias, "tanh"))
+    by_shape = []
+    for (m, k, n), act, view in GEMM_BF16_TIMED:
+        a, w, bias = _bf16_operands(rng, device, m, k, n, view)
+        big = m == GEMM_BIG
+        reps = 5 if big else 20
+        err = _within(gemm.matmul(a, w, bias, act),
+                      gemm._matmul_ref(a, w, bias, act),
+                      BF16_GEMM_TOL)["max_abs_err"]
+        bound, by = bound_seconds(2 * (m * k + k * n + n + m * n),
+                                  2 * m * n * k, "bfloat16")
+        by_shape.append({
+            "shape": [m, k, n], "activation": act, "view": view,
+            "ms": device_ms(lambda: gemm._matmul_cuda(a, w, bias, act),
+                            reps),
+            "wrapper_ms": time_ms(lambda: gemm._matmul_cuda(a, w, bias,
+                                                            act)),
+            "plain_ms": device_ms(lambda: gemm._matmul_ref(a, w, bias, act),
+                                  reps),
+            "library_ms": device_ms(lambda: torch.addmm(bias, a, w), reps),
+            "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err})
+    gpu_sync()
+    main = by_shape[0]
+    row = {"name": "matmul_bf16", "route": "cuda",
+           "source": "veles_tpu_torch/csrc/gemm.cu",
+           "replaces": "veles_tpu/ops/gemm.py:56", "dtype": "bfloat16",
+           "entry": "veles_matmul_bf16", "plain_of": "_matmul_ref",
+           "library_of": "torch.addmm in bf16 (no activation)",
+           "by_shape": by_shape}
+    row.update({key: main[key] for key in (
+        "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "max_abs_err")})
+    ok = all(c["ok"] for c in cases) and repeatable
+    return {"cases": cases, "bit_equal_relaunch": repeatable}, [row], ok
 
 
 # -- the gather kernels (csrc/gather.cu) ------------------------------------
@@ -3307,6 +3448,10 @@ def phase_kernels(device):
     flash, flash_ok = _fwd_timed(rng, device)
     bwd_rows, bwd_report, bwd_ok = _bwd_timed(rng, device)
     gemm_report, gemm_rows, gemm_ok = _gemm_kernels(device)
+    bf16_report, bf16_rows, bf16_ok = _gemm_bf16_kernels(device)
+    gemm_report["bf16"] = bf16_report
+    gemm_rows += bf16_rows
+    gemm_ok = gemm_ok and bf16_ok
     gather_report, gather_rows, gather_ok = _gather_kernels(device)
     paged_report, paged_rows, paged_ok = _paged_kernels(device)
     qgemm_report, qgemm_rows, qgemm_ok = _qgemm_kernels(device)
@@ -3324,7 +3469,8 @@ def phase_kernels(device):
           "gather": gather_report, "paged": paged_report,
           "qgemm": qgemm_report, "reduce": reduce_report,
           "uniform": uniform_report, "timed": timed})
-    gemm_bad = [c for c in gemm_report["cases"] if not c["ok"]]
+    gemm_bad = [c for c in gemm_report["cases"] + bf16_report["cases"]
+                if not c["ok"]]
     gather_bad = [c for c in gather_report["cases"] if not c["ok"]]
     paged_bad = [c for c in paged_report["cases"] if not c["ok"]]
     new_bad = [c for report in (decode_report, qgemm_report, reduce_report,
@@ -5895,6 +6041,310 @@ def _named_leaves(tree, prefix=""):
             yield prefix + key, leaf
 
 
+# -- the fused trainer (ROADMAP 7(b)) ---------------------------------------
+
+MNIST_FUSED_EPOCHS = 4
+MNIST_FUSED_PARITY_EPOCHS = 3
+# GEMM launches of the fused step: a train step runs 2 forward products,
+# the softmax layer's da and dw and layer 1's dw (its input is data: no
+# da); an eval step the 2 forward products
+FUSED_TRAIN_PRODUCTS = 5
+FUSED_EVAL_PRODUCTS = 2
+# bf16: layer 1's forward and weight gradient take the bf16 body; the
+# softmax layer widens to f32 (its forward, da and dw), and an eval step
+# meets the f32 master weights with the bf16-cast u8 input, so both of
+# its products are f32
+FUSED_BF16_TRAIN = {"matmul_bf16": 2, "matmul": 3}
+FUSED_BF16_EVAL = {"matmul_bf16": 0, "matmul": 2}
+# bf16 card against CPU: each class close's n_err within 1% of its
+# samples, each parameter leaf within 1e-2 of its largest value.  Both
+# take the same bf16 operands, but the card's tensor cores and the CPU's
+# f32 product sum in other orders, so a result near a bf16 rounding
+# boundary rounds the other way, and those ulps (2^-8 relative) feed
+# the next steps
+MNIST_FUSED_BF16_ERR = 0.01
+MNIST_FUSED_BF16_RTOL = 1e-2
+
+
+def _fused_workflow(device, epochs, fused_config=None):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist
+    prng.seed_all(SEED)
+    wf = mnist.create_workflow(device=device, max_epochs=epochs, native=True,
+                               fused=True, fused_config=fused_config)
+    train_closes = []
+    close = wf.decision._close_class
+
+    def timed_close(cls, check_epoch_end):
+        out = close(cls, check_epoch_end)
+        if cls == 2:             # the class close fetched: a host sync
+            train_closes.append(time.perf_counter())
+        return out
+    wf.decision._close_class = timed_close
+    wf.train_closes = train_closes
+    return wf
+
+
+def _fused_confusion(wf):
+    """The validation confusion matrix of the trained weights (the
+    forwards', synced from the trainer), on the host in float64."""
+    loader = wf.loader
+    scale, shift = loader.input_norm
+    n = int(loader.class_lengths[1])
+    start = int(loader.class_end_offsets[0])
+    x = numpy.array(loader.original_data.mem[start:start + n],
+                    numpy.float64) * scale + shift
+    labels = numpy.array(loader.original_labels[start:start + n])
+    params = wf.params_to_numpy()
+    h = numpy.tanh((x @ params["0.weights"] + params["0.bias"]) * 0.6666) \
+        * 1.7159
+    pred = (h @ params["1.weights"] + params["1.bias"]).argmax(axis=1)
+    out = numpy.zeros((10, 10), numpy.int64)
+    numpy.add.at(out, (pred, labels), 1)
+    return out
+
+
+def _fused_run(device, epochs, fused_config=None):
+    wf = _fused_workflow(device, epochs, fused_config)
+    wf.run()
+    if device.type == "cuda":
+        gpu_sync()
+    wf.fused_trainer.sync_weights()
+    closes = [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+              for c in wf.decision.history]
+    return wf, closes, _fused_confusion(wf), wf.params_to_numpy()
+
+
+def _param_rel_errors(got, want):
+    return {name: float(numpy.abs(got[name] - ref).max()
+                        / max(float(numpy.abs(ref).max()), 1e-30))
+            for name, ref in want.items()}
+
+
+def _steady_epoch_ms(wf):
+    """Wall ms of each epoch after the first (a validation pass and a
+    train pass, from one train close to the next): every graph was
+    captured in the first."""
+    t = wf.train_closes
+    return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+
+def _graphs_expected(report, train_steps, eval_steps):
+    """One eager step and one capture a shape, no recapture, the rest
+    replays."""
+    return (report.get("train_100", {}).get("eager") == 1
+            and report["train_100"].get("captures") == 1
+            and report["train_100"].get("replays") == train_steps - 1
+            and report.get("eval_100", {}).get("eager") == 1
+            and report["eval_100"].get("captures") == 1
+            and report["eval_100"].get("replays") == eval_steps - 1
+            and all(r.get("recaptures", 0) == 0 for r in report.values()))
+
+
+def phase_mnist_fused(device, smi):
+    """The fused trainer at full width (784→100 tanh→10 softmax,
+    minibatch 100, u8-resident, 1/255 in the step), f32: one CUDA graph
+    a step shape, the minibatch's gather inside it.  Exact GEMM launches
+    (5 a train step, 2 an eval step, over the eager steps and the
+    replays), one gather launch in each step graph, the graphs' captures,
+    recaptures (0) and replays, and the wall ms of a steady epoch beside
+    the stitched route's in the same run."""
+    from veles_tpu_torch.ops import gather, gemm
+    from veles_tpu_torch.samples import mnist
+    reset_all_launches()
+    tic = time.perf_counter()
+    wf, closes, confusion, _params = _fused_run(device, MNIST_FUSED_EPOCHS)
+    elapsed = time.perf_counter() - tic
+    launches = mnist_launches()
+    entries = dict(gather.entry_launches)
+    report = wf.fused_trainer.graph_report()
+    train_steps = sum(c[3] for c in closes if c[1] == "train") // 100
+    eval_steps = sum(c[3] for c in closes if c[1] == "validation") // 100
+    products = (FUSED_TRAIN_PRODUCTS * train_steps
+                + FUSED_EVAL_PRODUCTS * eval_steps)
+    counted = (launches["matmul"] == products
+               and launches["matmul_bf16"] == 0
+               and launches["gd_dx"] == launches["gd_dw"] == 0
+               and entries["veles_gather_group"] == train_steps + eval_steps
+               and report["train_100"].get("graph_launches", {}).get(
+                   "matmul") == FUSED_TRAIN_PRODUCTS
+               and report["eval_100"].get("graph_launches", {}).get(
+                   "matmul") == FUSED_EVAL_PRODUCTS
+               # the minibatch's gather rides in each step's graph
+               and all(report[key].get("graph_launches", {}).get(
+                   "veles_gather_group") == 1
+                   for key in ("train_100", "eval_100")))
+    graphs_ok = _graphs_expected(report, train_steps, eval_steps)
+    valid = [c[2] for c in closes if c[1] == "validation"]
+    learned = valid[-1] < valid[0]
+    fused_ms = _steady_epoch_ms(wf)
+    # the stitched route of the same workflow, timed the same way
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        from veles_tpu_torch import prng
+        prng.seed_all(SEED)
+        stitched = mnist.create_workflow(device=device,
+                                         max_epochs=MNIST_FUSED_EPOCHS,
+                                         native=True)
+        stamps = []
+        close = stitched.decision._close_class
+
+        def timed_close(cls, check_epoch_end):
+            out = close(cls, check_epoch_end)
+            if cls == 2:
+                stamps.append(time.perf_counter())
+            return out
+        stitched.decision._close_class = timed_close
+        stitched.run()
+        gpu_sync()
+    stitched_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    ok = counted and graphs_ok and learned
+    emit({"phase": "mnist_fused", "nvidia_smi": smi, "ok": ok,
+          "layers": "784-100 all2all_tanh, 100-10 softmax",
+          "minibatch": 100, "max_epochs": MNIST_FUSED_EPOCHS,
+          "data": "synthetic stand-in as u8, 1/255 in the fused step",
+          "compute_dtype": "float32", "elapsed_s": elapsed,
+          "train_steps": train_steps, "eval_steps": eval_steps,
+          "launches": launches, "entry_launches": entries,
+          "matmul_expected": products, "graphs": report,
+          "class_closes": closes, "confusion": confusion.tolist(),
+          "steady_epoch_ms": fused_ms,
+          "stitched_steady_epoch_ms": stitched_ms,
+          "epoch": "one validation pass (10 minibatches) and one train "
+                   "pass (60) of the stand-in"})
+    check(counted, "mnist_fused", "GEMM launches %s (want matmul %d, no "
+          "GD kernel), gather entries %s, graph launches %s"
+          % (launches, products, entries, report))
+    check(graphs_ok, "mnist_fused", "the step graphs were not one eager "
+          "step, one capture and replays with no recapture: %s" % report)
+    check(learned, "mnist_fused", "validation error did not fall: %s"
+          % valid)
+    return dict(launches, **entries)
+
+
+def phase_mnist_fused_parity(device):
+    """The fused f32 route on the card against the CPU route from one
+    seed: each class close's n_err and the validation confusion matrix
+    equal, every parameter leaf within MNIST_PARAM_RTOL of its largest
+    value (mnist_parity's tolerance)."""
+    _wf, g_closes, g_conf, g_params = _fused_run(device,
+                                                 MNIST_FUSED_PARITY_EPOCHS)
+    _wf, c_closes, c_conf, c_params = _fused_run(torch.device("cpu"),
+                                                 MNIST_FUSED_PARITY_EPOCHS)
+    errs = _param_rel_errors(g_params, c_params)
+    worst = max(errs, key=errs.get)
+    ok = (g_closes == c_closes and numpy.array_equal(g_conf, c_conf)
+          and errs[worst] <= MNIST_PARAM_RTOL)
+    emit({"phase": "mnist_fused_parity", "ok": ok, "dtype": "float32",
+          "max_epochs": MNIST_FUSED_PARITY_EPOCHS,
+          "gpu_closes": g_closes, "cpu_closes": c_closes,
+          "confusion_equal": bool(numpy.array_equal(g_conf, c_conf)),
+          "param_rel_err_by_leaf": errs, "param_rtol": MNIST_PARAM_RTOL})
+    check(ok, "mnist_fused_parity", "card and CPU fused training disagree "
+          "(closes %s vs %s, params %s %.3g)"
+          % (g_closes, c_closes, worst, errs[worst]))
+
+
+def phase_mnist_fused_bf16(device):
+    """``engine.precision_type="bfloat16"``: the fused step's layer-1
+    products on the bf16 body, the master weights f32; card against the
+    CPU route within MNIST_FUSED_BF16_ERR (n_err, of each close's
+    samples) and MNIST_FUSED_BF16_RTOL (parameters), and the launches
+    exact by body."""
+    from veles_tpu_torch.ops import gemm
+    with engine_knobs(precision_type="bfloat16"):
+        reset_all_launches()
+        wf, g_closes, g_conf, g_params = _fused_run(
+            device, MNIST_FUSED_PARITY_EPOCHS)
+        launches = mnist_launches()
+        report = wf.fused_trainer.graph_report()
+        dtypes = {k: str(v.dtype) for k, v in
+                  wf.fused_trainer._params_[0].items()}
+        _wf, c_closes, c_conf, c_params = _fused_run(
+            torch.device("cpu"), MNIST_FUSED_PARITY_EPOCHS)
+    train_steps = sum(c[3] for c in g_closes if c[1] == "train") // 100
+    eval_steps = sum(c[3] for c in g_closes if c[1] == "validation") // 100
+    want = {k: FUSED_BF16_TRAIN[k] * train_steps
+            + FUSED_BF16_EVAL[k] * eval_steps for k in FUSED_BF16_TRAIN}
+    counted = all(launches[k] == v for k, v in want.items())
+    errs = _param_rel_errors(g_params, c_params)
+    worst = max(errs, key=errs.get)
+    close_ok = len(g_closes) == len(c_closes) and all(
+        g[:2] == c[:2] and g[3] == c[3]
+        and abs(g[2] - c[2]) <= MNIST_FUSED_BF16_ERR * c[3]
+        for g, c in zip(g_closes, c_closes))
+    ok = (counted and close_ok and errs[worst] <= MNIST_FUSED_BF16_RTOL
+          and dtypes["w"] == "torch.float32"
+          and _graphs_expected(report, train_steps, eval_steps))
+    emit({"phase": "mnist_fused_bf16", "ok": ok, "dtype": "bfloat16",
+          "master_dtypes": dtypes, "max_epochs": MNIST_FUSED_PARITY_EPOCHS,
+          "launches": launches, "launches_expected": want,
+          "graphs": report, "gpu_closes": g_closes, "cpu_closes": c_closes,
+          "confusion_equal": bool(numpy.array_equal(g_conf, c_conf)),
+          "n_err_tol_of_samples": MNIST_FUSED_BF16_ERR,
+          "param_rel_err_by_leaf": errs,
+          "param_rtol": MNIST_FUSED_BF16_RTOL})
+    check(ok, "mnist_fused_bf16", "bf16 card and CPU training disagree or "
+          "the launches are off (launches %s want %s, closes %s vs %s, "
+          "params %s %.3g, graphs %s)" % (launches, want, g_closes, c_closes,
+                                          worst, errs[worst], report))
+    return launches
+
+
+def phase_mnist_fused_epoch(device):
+    """``fused_config={"epoch_mode": True}``: a train epoch is one window
+    graph of K = 60 steps (the whole epoch) replayed once an epoch after
+    the first (eager) epoch; the card's permutation is the CPU's (the
+    same CPU generator, copied into the graph's index buffer), and the
+    card's run equals the CPU's as in mnist_fused_parity."""
+    from veles_tpu_torch.ops import gather
+    reset_all_launches()
+    tic = time.perf_counter()
+    wf, g_closes, g_conf, g_params = _fused_run(
+        device, MNIST_FUSED_EPOCHS, {"epoch_mode": True})
+    elapsed = time.perf_counter() - tic
+    launches = mnist_launches()
+    entries = dict(gather.entry_launches)
+    trainer = wf.fused_trainer
+    report = trainer.graph_report()
+    epochs = trainer.epoch_key_counter
+    order_ok = torch.equal(trainer._epoch_["idx"].cpu(),
+                           trainer.epoch_order(epochs - 1))
+    cwf, c_closes, c_conf, c_params = _fused_run(
+        torch.device("cpu"), MNIST_FUSED_EPOCHS, {"epoch_mode": True})
+    same_orders = all(torch.equal(trainer.epoch_order(k),
+                                  cwf.fused_trainer.epoch_order(k))
+                      for k in range(epochs))
+    errs = _param_rel_errors(g_params, c_params)
+    worst = max(errs, key=errs.get)
+    window = report.get("window_0_60", {})
+    windows_ok = (window.get("eager") == 1 and window.get("captures") == 1
+                  and window.get("recaptures") == 0
+                  and window.get("replays") == epochs - 1
+                  and window.get("graph_launches", {}).get("matmul")
+                  == FUSED_TRAIN_PRODUCTS * 60
+                  and window.get("graph_launches", {}).get(
+                      "veles_gather_group") == 60)
+    ok = (windows_ok and order_ok and same_orders and g_closes == c_closes
+          and numpy.array_equal(g_conf, c_conf)
+          and errs[worst] <= MNIST_PARAM_RTOL)
+    emit({"phase": "mnist_fused_epoch", "ok": ok, "window_steps": 60,
+          "window_steps_chosen": "the whole train epoch (60 minibatches; "
+                                 "the trainer's limit is 1024)",
+          "epochs_trained": epochs, "elapsed_s": elapsed,
+          "graphs": report, "launches": launches, "entry_launches": entries,
+          "index_buffer_is_the_cpu_order": order_ok,
+          "card_and_cpu_orders_equal": same_orders,
+          "steady_epoch_ms": _steady_epoch_ms(wf),
+          "gpu_closes": g_closes, "cpu_closes": c_closes,
+          "confusion_equal": bool(numpy.array_equal(g_conf, c_conf)),
+          "param_rel_err_by_leaf": errs, "param_rtol": MNIST_PARAM_RTOL})
+    check(ok, "mnist_fused_epoch", "epoch mode: windows %s, orders %s %s, "
+          "closes %s vs %s, params %s %.3g" % (
+              report, order_ok, same_orders, g_closes, c_closes, worst,
+              errs[worst]))
+    return dict(launches, **entries)
+
+
 # -- the batch serving path -------------------------------------------------
 
 SERVE_BATCH_EPOCHS = 2           # one validation and one train pass
@@ -7144,6 +7594,10 @@ def main():
         phase_mnist_scan_parity(device)
         paths["mnist_ae"] = phase_mnist_ae(device, info["nvidia_smi"])
         phase_mnist_ae_parity(device)
+        paths["mnist_fused"] = phase_mnist_fused(device, info["nvidia_smi"])
+        phase_mnist_fused_parity(device)
+        paths["mnist_fused_bf16"] = phase_mnist_fused_bf16(device)
+        paths["mnist_fused_epoch"] = phase_mnist_fused_epoch(device)
         paths["serve_batch"], serving_timed = phase_serve_batch(
             device, info["nvidia_smi"])
         paths["ops"] = phase_ops(device)

@@ -653,7 +653,8 @@ def test_gd_kernels_match_plain_version_on_card(
     got = gemm.gd_fused(*args, *_GD_HP, **flags)
     torch.cuda.synchronize()
     # the bias step rides in dw's launch: no launch of its own
-    assert gemm_launches == {"matmul": 0, "gd_dx": int(need_err_input),
+    assert gemm_launches == {"matmul": 0, "matmul_bf16": 0,
+                             "gd_dx": int(need_err_input),
                              "gd_dw": 1, "gd_db": 0}
     assert gemm.bias_in_dw == {"gd_db_in_dw": int(has_bias)}
     for name, g, w_ in zip(("w", "b", "vw", "vb", "err_input"), got, want):
@@ -662,6 +663,68 @@ def test_gd_kernels_match_plain_version_on_card(
             continue
         torch.testing.assert_close(g, w_, atol=GEMM_TOL[0],
                                    rtol=GEMM_TOL[1], msg=name)
+
+
+#: the bf16 body against its plain version: one bf16 ulp (2^-7
+#: relative) and 2^-8 absolute (another f32 summation order can round an
+#: output near 0 the other way)
+BF16_GEMM_TOL = (2.0 ** -8, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", GEMM_ACTIVATIONS)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("view", [None, "a", "w"])
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES + [(784, 100, 100)])
+def test_bf16_matmul_kernel_matches_plain_version_on_card(
+        cuda_device, gemm_launches, m, k, n, view, with_bias, activation):
+    from veles_tpu_torch.ops import gemm
+    rng = numpy.random.default_rng(41)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        numpy.float32)).to(cuda_device).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((k, n)) / numpy.sqrt(k))
+                         .astype(numpy.float32)).to(cuda_device).bfloat16()
+    if view == "a":
+        a = a.t().contiguous().t()
+    elif view == "w":
+        w = w.t().contiguous().t()
+    bias = torch.from_numpy(rng.standard_normal(n).astype(
+        numpy.float32)).to(cuda_device).bfloat16() if with_bias else None
+    got = gemm.matmul(a, w, bias, activation)
+    want = gemm._matmul_ref(a, w, bias, activation)
+    torch.cuda.synchronize()
+    assert gemm_launches["matmul_bf16"] == 1 and gemm_launches["matmul"] == 0
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=BF16_GEMM_TOL[0], rtol=BF16_GEMM_TOL[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_gradients_run_the_kernel_on_card(cuda_device, gemm_launches,
+                                                 dtype):
+    """The autograd matmul's backward products go through the same
+    kernel (3 launches: the forward, da and dw) and agree with the CPU
+    route's."""
+    from veles_tpu_torch.ops import gemm
+    rng = numpy.random.default_rng(42)
+    host = [rng.standard_normal(s).astype(numpy.float32) * scale
+            for s, scale in (((100, 100), 1.0), ((100, 10), 0.1),
+                             ((10,), 1.0), ((100, 10), 1.0))]
+    results = []
+    for device in ("cpu", cuda_device):
+        a, w, b, g = (torch.from_numpy(x).to(device).to(dtype) for x in host)
+        leaves = [t.requires_grad_(True) for t in (a, w, b)]
+        out = gemm.matmul(*leaves, "tanh")
+        results.append([t.float().cpu() for t in
+                        [out] + list(torch.autograd.grad(out, leaves, g))])
+    torch.cuda.synchronize()
+    name = "matmul_bf16" if dtype == torch.bfloat16 else "matmul"
+    assert gemm_launches[name] == 3
+    tol = BF16_GEMM_TOL if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, atol=tol[0] * 4,
+                                   rtol=tol[1])
 
 
 @pytest.mark.cuda

@@ -449,8 +449,9 @@ def test_pallas_arm_on_blobs_matches_port(engine_config):
 
 
 def test_workflow_options_not_ported_raise(engine_config):
+    # fused=True is ported (item 7(b)); the plotters still raise
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        mnist.create_workflow(device="cpu", fused=True)
+        mnist.create_workflow(device="cpu", plotters_config={})
     # the u8 dataset needs the stitched head, which stitch=off turns off
     with pytest.raises(ValueError, match="stitched"):
         mnist.create_workflow(device="cpu", native=True)

@@ -30,8 +30,13 @@
   ``ModelRegistry.load_snapshot`` serve what ``from_workflow`` serves.
   Generative serving through the registry and the server is ported
   (``tests/test_torch_gen_serve.py``).
-- ``snapshotter_config`` and ``snapshot_dir`` (item 7(a)) are ported;
-  the other options of ``StandardWorkflow._NOT_PORTED`` still raise.
+- ``snapshotter_config`` and ``snapshot_dir`` (item 7(a)) are ported,
+  and so are the options of item 7(b) (``fused``, ``fused_config``,
+  ``mcdnnic_topology`` / ``mcdnnic_parameters``, ``lr_adjuster_config``,
+  ``rollback_config``, ``image_saver_config``) and the
+  ``engine.precision_type`` knob; ``plotters_config`` is refused naming
+  7(e) whenever it is given, and ``fused_config``'s ``mesh_axes``,
+  ``fsdp`` and ``tp`` naming 7(d).
 """
 
 import ast
@@ -71,11 +76,18 @@ def test_importing_the_port_loads_no_jax_and_no_veles_tpu():
         "import veles_tpu_torch.ops.attention\n"
         "import veles_tpu_torch.gen.__main__\n"
         "import veles_tpu_torch.samples.mnist\n"
+        "import veles_tpu_torch.dtypes\n"
+        "from veles_tpu_torch.znicz import (fused, fused_graph, fused_unit,"
+        " gd_base, image_saver, lr_adjust, mcdnnic, rollback)\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     assert proc.returncode == 0, proc.stderr
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "veles_tpu_torch.gen.engine" in loaded
     assert "veles_tpu_torch.ops.gemm" in loaded
+    for module in ("dtypes", "znicz.fused_unit", "znicz.fused_graph",
+                   "znicz.fused", "znicz.gd_base", "znicz.lr_adjust",
+                   "znicz.rollback", "znicz.mcdnnic", "znicz.image_saver"):
+        assert "veles_tpu_torch." + module in loaded
     for module in ("quant.core", "ops.qgemm", "ops.reduce", "ops.random"):
         assert "veles_tpu_torch." + module in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -285,7 +297,8 @@ def test_qmatmul_reduce_and_uniform_on_cpu_tensors_launch_nothing(no_cuda):
 
 # -- the engine knobs the JAX package reads -----------------------------------
 
-KNOBS = ("kernels", "health", "metrics_every", "trace_capacity", "stitch")
+KNOBS = ("kernels", "health", "metrics_every", "trace_capacity", "stitch",
+         "precision_type")
 
 
 @pytest.fixture
@@ -1101,22 +1114,88 @@ def test_server_refusals_name_their_items(call, item):
 
 # -- the workflow options of item 7 ------------------------------------------
 
-_STILL_REFUSED = ["fused", "fused_config", "mcdnnic_topology",
-                  "mcdnnic_parameters", "plotters_config",
-                  "lr_adjuster_config", "rollback_config",
-                  "image_saver_config"]
+#: the StandardWorkflow options of item 7: each builds (7(b) ported the
+#: first seven), the plotters are refused naming 7(e)
+_ITEM_7_OPTIONS = {
+    "fused": {"fused": True},
+    "fused_config": {"fused": True, "fused_config": {"remat": True}},
+    "mcdnnic_topology": {"layers": [],
+                         "mcdnnic_topology": "784x1x1-100N-10N"},
+    "mcdnnic_parameters": {"layers": [], "mcdnnic_topology": "100N-10N",
+                           "mcdnnic_parameters": {"<-": {
+                               "learning_rate": 0.03}}},
+    "plotters_config": {"plotters_config": {}},
+    "lr_adjuster_config": {"lr_adjuster_config": {
+        "lr_policy_name": "exp"}},
+    "rollback_config": {"rollback_config": {}},
+    "image_saver_config": {"image_saver_config": {"out_dirs": []}},
+}
+_STILL_REFUSED = ["plotters_config"]
 
 
 def test_not_ported_options_are_the_rest_of_item_7():
     from veles_tpu_torch.znicz import standard_workflow
     assert sorted(standard_workflow._NOT_PORTED) == sorted(_STILL_REFUSED)
+    assert standard_workflow._NOT_PORTED["plotters_config"] == "7(e)"
 
 
-@pytest.mark.parametrize("option", _STILL_REFUSED)
+@pytest.mark.parametrize("option", sorted(_ITEM_7_OPTIONS))
 def test_standard_workflow_options_still_refused(option):
+    """Each option of item 7, given (even as an empty dict): the
+    plotters raise naming 7(e); the others build their units."""
     from veles_tpu_torch.samples import mnist
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        mnist.create_workflow(device="cpu", **{option: {"x": 1}})
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    kwargs = dict(_ITEM_7_OPTIONS[option])
+    kwargs.setdefault("layers", [dict(spec) for spec in mnist.LAYERS])
+
+    def build():
+        return StandardWorkflow(
+            None, loader_factory=lambda w: mnist.MnistLoader(w), **kwargs)
+
+    if option in _STILL_REFUSED:
+        with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
+            build()
+        return
+    wf = build()
+    linked = {"fused": wf.fused_trainer, "fused_config": wf.fused_trainer,
+              "lr_adjuster_config": wf.lr_adjuster,
+              "rollback_config": wf.rollback,
+              "image_saver_config": wf.image_saver}.get(option)
+    if option.startswith("mcdnnic"):
+        linked = [s["type"] for s in wf.layers] == ["all2all_tanh",
+                                                    "softmax"]
+    assert linked
+
+
+@pytest.mark.parametrize("knob", ["mesh_axes", "fsdp", "tp"])
+def test_fused_config_meshes_are_refused_naming_7d(knob):
+    from veles_tpu_torch.samples import mnist
+    with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
+        mnist.create_workflow(device="cpu", fused=True,
+                              fused_config={knob: {"data": -1}})
+
+
+@pytest.mark.parametrize("value,dtype", [("float32", torch.float32),
+                                         ("bfloat16", torch.bfloat16)])
+def test_precision_type_is_the_devices_compute_dtype(knobs, value, dtype):
+    """``engine.precision_type`` is ported: the devices' compute and
+    storage dtype, which the fused trainer's products take (its master
+    weights stay f32); an unknown name raises."""
+    from veles_tpu_torch.backends import CPUDevice
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import mnist
+    assert root.common.engine.precision_type == "float32"
+    root.common.engine.precision_type = value
+    device = CPUDevice()
+    assert device.compute_dtype == device.storage_dtype == dtype
+    wf = mnist.create_workflow(device="cpu", max_epochs=1, fused=True,
+                               layers=[{"type": "softmax", "->": {
+                                   "output_sample_shape": 10}}])
+    assert wf.fused_trainer._compute_dtype() == (
+        None if dtype == torch.float32 else dtype)
+    root.common.engine.precision_type = "float8"
+    with pytest.raises(TypeError, match="unknown dtype"):
+        CPUDevice().compute_dtype
 
 
 def test_snapshotter_options_are_ported(tmp_path):

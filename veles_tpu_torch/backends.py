@@ -218,6 +218,26 @@ class Device(object):
     def sync(self):
         """Wait until the work queued on this device has finished."""
 
+    # -- dtype policy -------------------------------------------------------
+    @property
+    def compute_dtype(self):
+        """The torch dtype of the fused trainer's products:
+        ``root.common.engine.precision_type`` ("float32" by default,
+        "bfloat16" for the tensor cores); ``precision_level`` is the
+        separate f32 robustness knob."""
+        from veles_tpu_torch.config import root
+        from veles_tpu_torch.dtypes import dtype_by_name
+        return dtype_by_name(
+            root.common.engine.get("precision_type", "float32"))
+
+    @property
+    def storage_dtype(self):
+        """The dtype of persistent parameters (the master copy), as the
+        JAX package names it: ``precision_type`` too.  The fused trainer
+        keeps its master weights and momenta in float32 whatever it
+        says."""
+        return self.compute_dtype
+
     def __repr__(self):
         return "<%s %s>" % (type(self).__name__, self.torch_device)
 

@@ -3,7 +3,8 @@
 The port's own copy of :mod:`veles_tpu.config` (the port imports nothing
 of ``veles_tpu``): the same dotted namespace, trimmed to the defaults
 the paths the port runs: ``root.common.engine`` (``trace``,
-``precision_level``, ``pallas_reduce``, and the workflow's ``stitch``,
+``precision_level``, ``precision_type``, ``pallas_reduce``, and the
+workflow's ``stitch``,
 ``loader``, ``epoch_scan`` and ``metrics_every``) and the
 ``root.common.gen`` subtree (``kv``, ``prefill_chunk``,
 ``prefix_cache``, ``speculative``), which auto-vivifies.
@@ -89,6 +90,11 @@ root.common.update({
         # entry point resolves a card): 0 lets cuBLAS and cuDNN use
         # TF32, 1 and 2 keep full float32.
         "precision_level": 0,
+        # The compute dtype of the fused trainer's products
+        # (veles_tpu_torch.backends.Device.compute_dtype): "float32", or
+        # "bfloat16" for bf16 operands with f32 sums and f32 master
+        # weights and momenta.  Only the fused path reads it.
+        "precision_type": "float32",
         # matrix_reduce through its kernel (veles_tpu_torch.ops.reduce)
         # instead of torch's own reduction.
         "pallas_reduce": False,

@@ -29,9 +29,14 @@ two ways:
 normalizer's affine form as ``input_norm``; the head's served launch
 then normalizes the data row (as
 :func:`~veles_tpu_torch.ops.gather.take_rows_norm`), so the first
-forward sees normalized float32.  It needs the head: the eager fill
-cannot normalize.  Without it the dataset is normalized once on the
-host at initialize.
+forward sees normalized float32.  It needs the head, or a consumer
+that normalizes itself: the eager fill cannot normalize.  Without it
+the dataset is normalized once on the host at initialize.
+
+``rows_by_consumer`` (set by the fused trainer's link) makes :meth:`run`
+serve the minibatch's indices only, as the head's prelude does: the
+consumer gathers the rows (and normalizes a native dataset) inside its
+own program, from ``minibatch_indices`` and the resident tables.
 
 An epoch-scan window (:mod:`veles_tpu_torch.epoch_scan`) replays the
 head's served launch once a step, each time with its own row of the
@@ -58,6 +63,10 @@ class FullBatchLoader(Loader):
     ``original_labels`` (list or array) and ``class_lengths``."""
 
     hide_from_registry = True
+    #: run() serves ``minibatch_indices`` only: the consumer gathers the
+    #: rows itself (the fused trainer's step); a class default, so that
+    #: a loader pickled before the attribute existed unpickles with it
+    rows_by_consumer = False
 
     def __init__(self, workflow, **kwargs):
         self.original_data = Vector(category="dataset")
@@ -150,6 +159,12 @@ class FullBatchLoader(Loader):
             uniques = sorted(set(
                 raw for raw in self.original_labels if raw is not None))
             self.labels_mapping = {raw: i for i, raw in enumerate(uniques)}
+
+    def run(self):
+        if self.rows_by_consumer:
+            self.stitch_prelude()
+        else:
+            super(FullBatchLoader, self).run()
 
     def fill_minibatch(self):
         """Gather the minibatch rows and labels on the device, where the

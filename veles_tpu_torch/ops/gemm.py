@@ -21,8 +21,26 @@ Counterpart of :mod:`veles_tpu.ops.gemm`:
   of ``znicz.gd._gd_math``).  Either way W, vW, b and vb are updated IN
   PLACE (the JAX package donates them) and returned with err_input.
 
-The kernels take f32 only (bf16 arrives with the fused trainer) and
-compute full f32 at every ``precision_level``.  :func:`plan` picks the
+:func:`matmul` is differentiable: it is a ``torch.autograd.Function``
+(:class:`MatMul`, the counterpart of ``matmul.defvjp(_matmul_fwd,
+_matmul_bwd)``) whenever a gradient is wanted.  Its backward takes
+act′ from the saved OUTPUT by the JAX formulas (the forward saves it
+only for a non-linear activation), casts it to ``a``'s type and runs
+``da = act′·Wᵀ`` and ``dW = aᵀ·act′`` through the same wrapper, so
+through the same kernel on the card, reading the transposed views
+through their strides; ``da`` is skipped when ``a`` needs no gradient
+(the first layer, whose input is data).  ``db = Σ act′`` is a plain
+sum.
+
+The GD kernels take f32 only.  ``matmul`` takes f32 or bf16 operands
+of one type: f32 runs ``veles_matmul``, which computes full f32 at
+every ``precision_level``; bf16 runs ``veles_matmul_bf16`` (the bf16
+body of ``_matmul_kernel``: bf16 products on the tensor cores, f32
+sums and epilogue, a bf16 result; ``launches["matmul_bf16"]``).  Its
+plain version computes the f32 product of the widened operands and
+rounds once to bf16, as ``_matmul_jnp`` does.  float64 is for CPU
+debugging (the JAX package's ``dtypes``): a CUDA tensor of it raises
+``TypeError``.  :func:`plan` picks the
 GEMM body's tile and K split from the shape (the ``tile`` and ``split``
 of every launch): the 128 × 128 tile where its grid covers the card's
 SMs, else the 32 × 32 tile with K split over a thread block cluster of
@@ -57,7 +75,8 @@ ACTIVATION_CODES = {None: 0, "linear": 0, "tanh": 1, "sigmoid": 2,
 
 #: kernel name -> launches since the last reset_launches(); "gd_db" stays
 #: 0, as the bias step rides in gd_dw's launch
-launches = {"matmul": 0, "gd_dx": 0, "gd_dw": 0, "gd_db": 0}
+launches = {"matmul": 0, "matmul_bf16": 0, "gd_dx": 0, "gd_dw": 0,
+            "gd_db": 0}
 #: "gd_db_in_dw" -> the gd_dw launches that carried the bias step
 bias_in_dw = {"gd_db_in_dw": 0}
 #: "<GEMM kernel name>_split" -> those of its launches that split K
@@ -77,6 +96,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _ARGTYPES = {
     "matmul": ("veles_matmul", [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I] * 3
                + [_P]),
+    "matmul_bf16": ("veles_matmul_bf16", [_P] * 4 + [_I] * 3 + [_L] * 4
+                    + [_I] + [_P]),
     "gd_dx": ("veles_gd_dx", [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I] * 3
               + [_P]),
     "gd_dw": ("veles_gd_dw", [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I] * 2
@@ -256,9 +277,24 @@ def _bias_sum_plan_ref(delta, split, tile=SPLIT_TILE):
 def _check_f32(name, *tensors):
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError("%s kernel takes float32 only (bf16 arrives "
-                            "with the fused trainer), got %s"
+            raise TypeError("%s kernel takes float32 only, got %s"
                             % (name, t.dtype))
+        if t.device != tensors[0].device:
+            raise ValueError("%s operands on different devices" % name)
+
+
+#: the operand types of the matmul kernels
+MATMUL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_operands(name, *tensors):
+    """One operand type for every tensor, f32 or bf16, on one device."""
+    dtype = tensors[0].dtype
+    for t in tensors:
+        if t.dtype not in MATMUL_DTYPES or t.dtype != dtype:
+            raise TypeError("%s kernel takes float32 or bfloat16 operands "
+                            "of one type, got %s"
+                            % (name, [str(x.dtype) for x in tensors]))
         if t.device != tensors[0].device:
             raise ValueError("%s operands on different devices" % name)
 
@@ -277,11 +313,12 @@ def _check_contiguous(name, **tensors):
 
 
 def _matmul_cuda(a, w, bias, activation, tile_split=None):
-    """The ``veles_matmul`` kernel: a (M, K) and w (K, N) read through
-    their strides (a transposed view needs no copy), bias (N,)
-    contiguous or None; ``tile_split`` overrides :func:`plan`."""
+    """The ``veles_matmul`` kernel (f32) or ``veles_matmul_bf16`` (bf16):
+    a (M, K) and w (K, N) read through their strides (a transposed view
+    needs no copy), bias (N,) contiguous or None, all of one type;
+    ``tile_split`` overrides :func:`plan` (f32 only)."""
     _check_2d("matmul", a=a, w=w)
-    _check_f32("matmul", a, w, *(() if bias is None else (bias,)))
+    _check_operands("matmul", a, w, *(() if bias is None else (bias,)))
     m, k = a.shape
     k2, n = w.shape
     if k != k2:
@@ -291,11 +328,19 @@ def _matmul_cuda(a, w, bias, activation, tile_split=None):
                              or not bias.is_contiguous()):
         raise ValueError("matmul needs a contiguous bias of shape (%d,)"
                          % n)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if a.dtype == torch.bfloat16:
+        status = _entry("matmul_bf16")(
+            a.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), m, n, k,
+            a.stride(0), a.stride(1), w.stride(0), w.stride(1),
+            ACTIVATION_CODES[activation], stream_handle(a.device))
+        check_status("matmul_bf16", status)
+        _launched("matmul_bf16", 1)
+        return out
     tile, split = tile_split or plan(m, n, k)
     status = _entry("matmul")(
-        a.data_ptr(), w.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        a.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
         m, n, k, a.stride(0), a.stride(1), w.stride(0), w.stride(1),
         ACTIVATION_CODES[activation], tile, split, stream_handle(a.device))
     check_status("matmul", status)
@@ -303,22 +348,66 @@ def _matmul_cuda(a, w, bias, activation, tile_split=None):
     return out
 
 
+def _matmul_call(a, w, bias, activation):
+    """One product, no autograd: the cost tallied, then the kernel on
+    CUDA tensors or :func:`_matmul_ref` on CPU tensors."""
+    tensors = (a, w) if bias is None else (a, w, bias)
+    # 2·M·N·K, the bias and the activation per output element; a, w and
+    # the bias read once, the (M, N) output written once
+    m, n = a.shape[0], w.shape[-1]
+    cost.add(cost.product(m, n, a.shape[-1], bias is not None, activation),
+             cost.nbytes(*tensors) + a.element_size() * m * n)
+    if on_gpu(*tensors):
+        return _matmul_cuda(a, w, bias, activation)
+    return _matmul_ref(a, w, bias, activation)
+
+
+class MatMul(torch.autograd.Function):
+    """``activation(a @ w + bias)`` with its gradient through the same
+    kernel: the counterpart of the JAX ``matmul``'s custom VJP
+    (``_matmul_fwd`` / ``_matmul_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, a, w, bias, activation):
+        out = _matmul_call(a, w, bias, activation)
+        ctx.activation = activation
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        # a linear backward never reads the output: it is not saved
+        ctx.save_for_backward(
+            a, w, None if activation in (None, "linear") else out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w, out = ctx.saved_tensors
+        g = g.float()
+        if ctx.activation in (None, "linear"):
+            dact = g
+        else:
+            dact = g * _derivative(out.float(), ctx.activation)
+        dact = dact.to(a.dtype)
+        da = dw = dbias = None
+        if ctx.needs_input_grad[0]:
+            da = _matmul_call(dact, w.t(), None, None).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _matmul_call(a.t(), dact, None, None).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            dbias = dact.sum(dim=0).to(ctx.bias_dtype)
+        return da, dw, dbias, None
+
+
 def matmul(a, w, bias=None, activation=None):
-    """``activation(a @ w + bias)`` in f32: the kernel on CUDA tensors,
+    """``activation(a @ w + bias)``: the kernel on CUDA tensors,
     :func:`_matmul_ref` on CPU tensors.  a: (M, K); w: (K, N), any
-    strides; bias: (N,) or None."""
+    strides; bias: (N,) or None; f32 or bf16, one type, the result in
+    it.  Through :class:`MatMul` when a gradient is wanted."""
     if activation not in ACTIVATION_CODES:
         raise ValueError("unknown activation %r" % (activation,))
     check_pallas_knob("pallas_gemm", "the dense matmul", operator.not_)
     tensors = (a, w) if bias is None else (a, w, bias)
-    # 2·M·N·K, the bias and the activation per output element; a, w and
-    # the bias read once, the (M, N) f32 output written once
-    m, n = a.shape[0], w.shape[-1]
-    cost.add(cost.product(m, n, a.shape[-1], bias is not None, activation),
-             cost.nbytes(*tensors) + 4 * m * n)
-    if on_gpu(*tensors):
-        return _matmul_cuda(a, w, bias, activation)
-    return _matmul_ref(a, w, bias, activation)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return MatMul.apply(a, w, bias, activation)
+    return _matmul_call(a, w, bias, activation)
 
 
 def _gd_check(name, eo, y, w, transposed, x=None):

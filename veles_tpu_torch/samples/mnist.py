@@ -10,12 +10,19 @@ dispatches, ``[loader head, All2AllTanh, All2AllSoftmax,
 EvaluatorSoftmax]`` and, on train minibatches, ``[GDSoftmax, GDTanh]``:
 two CUDA graph replays on the card.  ``native=True`` keeps the dataset
 as uint8 and scales it by 1/255 in the loader head (the gather +
-normalize kernel); it needs stitching.  With ``engine.stitch=off`` the
-units run one by one (the gather, GEMM and dx/dw/db kernels).  Run it
+normalize kernel); it needs stitching or ``fused=True``.  With
+``engine.stitch=off`` the units run one by one (the gather, GEMM and
+dx/dw/db kernels).  ``fused=True`` trains through one
+:class:`~veles_tpu_torch.znicz.fused_unit.FusedTrainer` step a
+minibatch (one CUDA graph a step shape on the card: the GEMM kernel
+forward and in both backward products), with ``fused_config``'s knobs
+(``{"epoch_mode": True}``: a whole train epoch a program); a native
+dataset is then scaled inside the step, on every route, and
+``engine.precision_type="bfloat16"`` runs its products in bf16.  Run it
 with
 
     python -m veles_tpu_torch.samples.mnist [--device cpu] [--max-epochs N]
-        [--native] [--stitch on|off]
+        [--native] [--stitch on|off] [--fused] [--epoch-mode] [--bf16]
 
 which prints ``gather_results()`` and the epochs per second.
 """
@@ -66,11 +73,13 @@ class MnistLoader(FullBatchLoader):
 
 def create_workflow(device=None, max_epochs=25, minibatch_size=100,
                     snapshot_dir=None, layers=None, native=False,
-                    **kwargs):
+                    fused=False, fused_config=None, **kwargs):
     """The MNIST MLP workflow, initialized on ``device`` (the card when
     None; raises without one).  ``native=True``: the uint8-resident
     dataset, normalized by ``"scale"`` (1/255) in the stitched loader
-    head unless ``normalization_type`` says otherwise.
+    head, or in the fused step with ``fused=True``, unless
+    ``normalization_type`` says otherwise.  ``fused_config``: the
+    FusedTrainer's knobs.
     ``snapshot_dir``: snapshot every improving validation there
     (``mnist_<error>pt.pickle.gz``), which keeps the per-step route."""
     device = make_device(device)
@@ -87,7 +96,7 @@ def create_workflow(device=None, max_epochs=25, minibatch_size=100,
                              "fail_iterations", 50)},
         snapshotter_config={"directory": snapshot_dir, "prefix": "mnist"}
         if snapshot_dir else None,
-        **kwargs)
+        fused=fused, fused_config=fused_config, **kwargs)
     wf.launcher = DummyLauncher()
     wf.initialize(device=device)
     return wf
@@ -108,13 +117,26 @@ def main(argv=None):
                         help="engine.stitch: segments (CUDA graphs on "
                         "the card) or the eager per-unit chain "
                         "(default: the config's, on)")
+    parser.add_argument("--fused", action="store_true",
+                        help="train through the FusedTrainer (one CUDA "
+                        "graph a step shape on the card)")
+    parser.add_argument("--epoch-mode", action="store_true",
+                        help="with --fused: a whole train epoch a "
+                        "program")
+    parser.add_argument("--bf16", action="store_true",
+                        help="with --fused: engine.precision_type="
+                        "bfloat16 (bf16 products, f32 master weights)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     if args.stitch is not None:
         root.common.engine.stitch = args.stitch
+    if args.bf16:
+        root.common.engine.precision_type = "bfloat16"
     wf = create_workflow(device=args.device, max_epochs=args.max_epochs,
                          minibatch_size=args.minibatch_size,
-                         native=args.native)
+                         native=args.native, fused=args.fused,
+                         fused_config={"epoch_mode": True}
+                         if args.epoch_mode else None)
     tic = time.perf_counter()
     wf.run()
     wf.device.sync()

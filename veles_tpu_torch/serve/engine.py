@@ -247,7 +247,14 @@ class InferenceEngine(Logger):
         with the trained weights.  That function is served here over
         the workflow's forward units (whose params are ``{"w", "b"}``:
         no port forward carries a seed).  Workflows built without specs
-        take :meth:`from_forwards`, which does not cast."""
+        take :meth:`from_forwards`, which does not cast.  A fused
+        workflow's trainer writes its parameters into the forwards
+        first."""
+        fused_trainer = getattr(workflow, "fused_trainer", None)
+        if fused_trainer is not None:
+            # the trained parameters live in the trainer's tensors: into
+            # the forwards' Vectors before they are read
+            fused_trainer.sync_weights()
         specs = getattr(workflow, "layers", None)
         forwards = getattr(workflow, "forwards", None)
         if not forwards:

@@ -15,6 +15,17 @@ int8 weight (a :mod:`veles_tpu_torch.quant` ``{"q", "scale"}`` pair, in
 the deploy walk canonicalizes it) runs through
 :func:`veles_tpu_torch.ops.qgemm.qmatmul` instead, with the unit's
 activation in its epilogue and an f32 result.
+
+The fused lowering (:func:`veles_tpu_torch.znicz.fused_graph.lower_specs`)
+takes the JAX package's static form instead: :meth:`All2All.pure_config`
+(``activation``, ``is_softmax``, ``transposed``) and
+:meth:`All2All.pure_fn`, one call of the differentiable
+:func:`~veles_tpu_torch.ops.gemm.matmul` a layer.  A product whose
+operands differ in type (the softmax layer widens its input to f32
+while a bf16 step hands it bf16 weights; an eval step over bf16-cast
+integer data meets the f32 master weights) is computed in f32 over all
+of them widened, as the JAX package promotes it, so autograd rounds that
+layer's weight gradient back to the weights' type.
 """
 
 import numpy
@@ -64,6 +75,34 @@ class All2All(ForwardBase):
         self.output.reset(numpy.zeros(
             (batch,) + self.output_sample_shape, dtype=numpy.float32))
         self.init_vectors(self.weights, self.bias, self.output)
+
+    def pure_config(self):
+        """The static config of :meth:`pure_fn` for this layer."""
+        return {"activation": self.ACTIVATION,
+                "is_softmax": isinstance(self, All2AllSoftmax),
+                "transposed": bool(self.weights_transposed)}
+
+    @staticmethod
+    def pure_fn(params, x, activation=None, is_softmax=False,
+                transposed=False):
+        """The fused lowering's form of the layer: ``{"w", "b"}`` and
+        the input to the output, differentiable through the GEMM
+        kernel; the softmax layer widens its input to f32 first (a bf16
+        round trip of the logits would flip near-tie argmaxes) and
+        returns the probabilities in the input's type."""
+        h = x.reshape(x.shape[0], -1)
+        w = params["w"]
+        b = params.get("b")
+        if transposed:
+            w = w.t()
+        if is_softmax:
+            h = h.float()
+        if h.dtype != w.dtype or (b is not None and b.dtype != h.dtype):
+            h, w = h.float(), w.float()
+            b = None if b is None else b.float()
+        if is_softmax:
+            return _softmax(gemm.matmul(h, w, b, None)).to(x.dtype)
+        return gemm.matmul(h, w, b, activation).to(x.dtype)
 
     def _gemm(self, params, x, activation):
         """One GEMM kernel call (a transposed storage is read through

@@ -1,0 +1,465 @@
+"""The general fused lowering: a StandardWorkflow layer stack as one
+train step, the port's counterpart of :mod:`veles_tpu.znicz.fused_graph`.
+
+:func:`lower_specs` instantiates the real forward units once
+(:func:`probe_units`) to reuse their shape inference and weight
+initialization, then keeps ``(pure_fn, static config, hyperparameters)``
+a layer and the parameters as torch tensors.  Its ``step_fn`` runs the
+forward, the loss, ``torch.autograd.grad`` through the GEMM kernel's
+autograd (:class:`veles_tpu_torch.ops.gemm.MatMul`) and the solver
+update as one function of ``(params, x, labels)``: the body that
+:class:`~veles_tpu_torch.znicz.fused_unit.FusedTrainer` captures into
+one CUDA graph a step shape on the card.
+
+Where the JAX step returns new parameters (it donates the old), the
+port's updates the parameters, momenta and solver slots IN PLACE, so
+their addresses stay fixed across the graph's replays; it returns the
+same list.  It carries what the JAX lowering carries: the five solvers
+(momentum, adam with its ``t``, adagrad, adadelta, iRprop−) with
+``l1_vs_l2`` and ``factor_ortho``; ``grad_accum`` (microbatches summed
+in order, one update); ``remat`` (``torch.utils.checkpoint`` around a
+layer, per layer or for all); the LR-adjuster tick in each layer's
+state; ``input_norm`` and ``compute_dtype`` (bf16 operands with f32
+master weights and solver state); and the padded-batch loss
+denominators.
+
+Only the all2all family lowers here; any other layer type waits for the
+layer zoo (ROADMAP item 7(c)), and ``grad_reduce_axis`` (the
+explicit-collective data parallelism) for item 7(d).
+"""
+
+import numpy
+import torch
+import torch.utils.checkpoint
+
+from veles_tpu_torch.dtypes import dtype_by_name
+from veles_tpu_torch.znicz.gd_base import ortho_grad, reg_term, rprop_update
+
+SOLVERS = ("momentum", "adam", "rprop", "adagrad", "adadelta")
+
+
+def default_lr(solver):
+    """The learning rate a spec gets when it names none: 1.0 for
+    adadelta (whose update scales itself), 0.01 otherwise."""
+    return 1.0 if str(solver) == "adadelta" else 0.01
+
+
+def fused_types():
+    """The layer types the lowering takes: the all2all family."""
+    from veles_tpu_torch.znicz import all2all
+    return {cls.MAPPING: cls for cls in (
+        all2all.All2All, all2all.All2AllTanh, all2all.All2AllSigmoid,
+        all2all.All2AllRELU, all2all.All2AllStrictRELU,
+        all2all.All2AllSoftmax)} | {
+        alias: all2all.All2AllStrictRELU
+        for alias in all2all.All2AllStrictRELU.MAPPING_ALIASES}
+
+
+def probe_units(layer_specs, sample_shape):
+    """One host-initialized probe unit a layer spec: the weights filled
+    from the ``forward_init`` stream, then the spec's ``init`` weights
+    put in, each unit's ``output`` feeding the next one's ``input``."""
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.memory import Vector
+
+    types = fused_types()
+    wf = DummyWorkflow()
+    probe = Vector(numpy.zeros((2,) + tuple(sample_shape), numpy.float32))
+    units = []
+    for spec in layer_specs:
+        klass = types.get(spec["type"])
+        if klass is None:
+            raise NotImplementedError(
+                "layer type %r is not ported to the fused lowering yet "
+                "(ROADMAP item 7(c), the layer zoo)" % (spec["type"],))
+        unit = klass(wf, **dict(spec.get("->", {})))
+        unit.input = probe
+        unit.initialize(device=None)
+        init = spec.get("init")
+        if init:
+            unit.weights.reset(numpy.array(init["weights"]))
+            if "bias" in init and unit.bias:
+                unit.bias.reset(numpy.array(init["bias"]))
+        probe = unit.output
+        units.append(unit)
+    return units
+
+
+def _hyper(bw, solver):
+    lr = float(bw.get("learning_rate", default_lr(solver)))
+    return {
+        "solver": solver,
+        "lr": lr, "lr_b": float(bw.get("learning_rate_bias", lr)),
+        "decay": float(bw.get("weights_decay", 0.0)),
+        "decay_b": float(bw.get("weights_decay_bias", 0.0)),
+        "moment": float(bw.get("gradient_moment", 0.0)),
+        "moment_b": float(bw.get("gradient_moment_bias",
+                                 bw.get("gradient_moment", 0.0))),
+        "l1": float(bw.get("l1_vs_l2", 0.0)),
+        "l1_b": float(bw.get("l1_vs_l2_bias", bw.get("l1_vs_l2", 0.0))),
+        "factor_ortho": float(bw.get("factor_ortho", 0.0)),
+        "beta1": float(bw.get("adam_beta1", 0.9)),
+        "beta2": float(bw.get("adam_beta2", 0.999)),
+        "eps": float(bw.get("adam_epsilon", 1e-8)),
+        "adagrad_eps": float(bw.get("adagrad_epsilon", 1e-6)),
+        "adadelta_rho": float(bw.get("adadelta_momentum", 0.9)),
+        "adadelta_eps": float(bw.get("adadelta_epsilon", 1e-6)),
+        "delta_init": float(bw.get("rprop_delta_init", 0.1)),
+        "eta_plus": float(bw.get("rprop_eta_plus", 1.2)),
+        "eta_minus": float(bw.get("rprop_eta_minus", 0.5)),
+        "delta_min": float(bw.get("rprop_delta_min", 1e-6)),
+        "delta_max": float(bw.get("rprop_delta_max", 50.0)),
+    }
+
+
+def _remat_stage(pure, config):
+    """``pure`` with its static config bound, its activations recomputed
+    in the backward (``torch.utils.checkpoint``)."""
+    def wrapped(params, x, **_config):
+        keys = sorted(params)
+
+        def body(h, *values):
+            return pure(dict(zip(keys, values)), h, **config)
+        return torch.utils.checkpoint.checkpoint(
+            body, x, *(params[k] for k in keys), use_reentrant=False)
+    return wrapped
+
+
+def _state_of(layer_params, solver, hyper, scheduled):
+    """A layer's solver state beside its w and b (host numpy)."""
+    state = dict(layer_params)
+
+    def slot(key):
+        if state.get(key) is None:
+            return None
+        if solver == "rprop":
+            # stacked [per-weight step sizes, previous signs]
+            s = numpy.zeros((2,) + state[key].shape, numpy.float32)
+            s[0] = hyper["delta_init"]
+            return s
+        return numpy.zeros_like(state[key])
+
+    # vw/vb: the momentum, adam's first moment, adadelta's E[Δ²], rprop's
+    # stacked state; adagrad has no first slot
+    state["vw"], state["vb"] = ((None, None) if solver == "adagrad"
+                                else (slot("w"), slot("b")))
+    if solver in ("adam", "adagrad", "adadelta"):
+        state["sw"], state["sb"] = slot("w"), slot("b")
+    if solver == "adam":
+        state["t"] = numpy.int32(0)
+    if scheduled and (state.get("w") is not None
+                      or state.get("b") is not None):
+        state["tick"] = numpy.int32(0)
+    return state
+
+
+def to_tensors(params, device=None):
+    """A params list of host arrays as torch tensors on ``device`` (0-d
+    int32 counters stay 0-d int32)."""
+    return [{k: None if v is None else torch.as_tensor(
+        numpy.array(v)).to(device or "cpu") for k, v in state.items()}
+        for state in params]
+
+
+def to_numpy(params):
+    """Host numpy copies of a params list (what a snapshot pickles: a
+    torch tensor in a pickle brings its storage with it)."""
+    return [{k: None if v is None else v.detach().cpu().numpy().copy()
+             for k, v in state.items()} for state in params]
+
+
+def _solver_update(state, grads, hyper, policies):
+    """One layer's update, in place (``grads``: ``{"w", "b"}``)."""
+    if hyper["solver"] == "adam" and (state.get("w") is not None
+                                      or state.get("b") is not None):
+        state["t"].add_(1)
+    for key, vkey, skey, lr_k, dec_k, mom_k in (
+            ("w", "vw", "sw", "lr", "decay", "moment"),
+            ("b", "vb", "sb", "lr_b", "decay_b", "moment_b")):
+        if key not in grads or state.get(key) is None:
+            continue
+        param = state[key]
+        grad = grads[key]
+        lr_eff = hyper[lr_k]
+        if "tick" in state:
+            policy = policies[0] if key == "w" else policies[1]
+            lr_eff = lr_eff * policy(state["tick"])
+        l1 = hyper["l1"] if key == "w" else hyper["l1_b"]
+        if key == "w" and hyper["factor_ortho"]:
+            grad = grad + ortho_grad(param, hyper["factor_ortho"])
+        solver = hyper["solver"]
+        if solver == "momentum":
+            v = hyper[mom_k] * state[vkey] - lr_eff * (
+                grad + reg_term(param, hyper[dec_k], l1))
+            param.copy_(param + v)
+            state[vkey].copy_(v)
+        elif solver == "adagrad":
+            g = grad + reg_term(param, hyper[dec_k], l1)
+            s2 = state[skey] + g * g
+            param.copy_(param - lr_eff * g / (torch.sqrt(s2)
+                                              + hyper["adagrad_eps"]))
+            state[skey].copy_(s2)
+        elif solver == "adadelta":
+            rho, eps = hyper["adadelta_rho"], hyper["adadelta_eps"]
+            g = grad + reg_term(param, hyper[dec_k], l1)
+            s2 = rho * state[skey] + (1.0 - rho) * g * g
+            upd = -torch.sqrt(state[vkey] + eps) / torch.sqrt(s2 + eps) * g
+            param.copy_(param + lr_eff * upd)
+            state[vkey].copy_(rho * state[vkey] + (1.0 - rho) * upd * upd)
+            state[skey].copy_(s2)
+        elif solver == "adam":
+            t = state["t"].to(torch.float32)
+            m = hyper["beta1"] * state[vkey] + (1.0 - hyper["beta1"]) * grad
+            s2 = hyper["beta2"] * state[skey] \
+                + (1.0 - hyper["beta2"]) * grad * grad
+            m_hat = m / (1.0 - hyper["beta1"] ** t)
+            s_hat = s2 / (1.0 - hyper["beta2"] ** t)
+            step = m_hat / (torch.sqrt(s_hat) + hyper["eps"])
+            param.copy_(param - lr_eff * (
+                step + reg_term(param, hyper[dec_k], l1)))
+            state[vkey].copy_(m)
+            state[skey].copy_(s2)
+        else:                            # iRprop−
+            g = grad + reg_term(param, hyper[dec_k], l1)
+            new_param, new_state = rprop_update(
+                param, state[vkey], g, hyper["eta_plus"],
+                hyper["eta_minus"], hyper["delta_min"], hyper["delta_max"])
+            param.copy_(new_param)
+            state[vkey].copy_(new_state)
+    if "tick" in state:
+        state["tick"].add_(1)
+
+
+def lower_specs(layer_specs, sample_shape, loss="softmax",
+                compute_dtype=None, remat=False, grad_accum=1,
+                lr_adjuster=None, input_norm=None, grad_reduce_axis=None):
+    """``(params, step_fn, eval_fn, apply_fn)`` from layer specs.
+
+    ``sample_shape``: one sample's shape (no batch axis).  ``params``
+    is a list of per-layer dicts of host numpy arrays (``w``, ``b``, the
+    solver slots, ``t``, ``tick``), as the JAX function returns them;
+    :func:`to_tensors` puts them on a device.  ``step_fn(params, x,
+    labels) -> (params, {"loss", "n_err"})`` updates the tensors of
+    ``params`` in place; ``eval_fn(params, x, labels)`` gives ``{"n_err",
+    "n"}`` (softmax) or ``{"rmse"}``; ``apply_fn(params, x)`` the output.
+    ``input_norm=(scale, shift)``: the affine normalizer applied in the
+    step, so ``x`` may arrive in its storage type (u8 pixels).
+    ``compute_dtype`` (a torch dtype or its name): the products' operand
+    type, the master weights and solver state staying f32.
+    """
+    if grad_reduce_axis is not None:
+        raise NotImplementedError(
+            "lower_specs(grad_reduce_axis=...): data parallelism over "
+            "explicit collectives is not ported yet (ROADMAP item 7(d))")
+    grad_accum = max(int(grad_accum), 1)
+    if compute_dtype is not None:
+        compute_dtype = dtype_by_name(compute_dtype)
+    policies = None
+    if lr_adjuster:
+        from veles_tpu_torch.znicz.lr_adjust import make_policy
+        name = lr_adjuster.get("lr_policy_name", "fixed")
+        parameters = lr_adjuster.get("lr_parameters")
+        policies = (make_policy(name, parameters), make_policy(
+            lr_adjuster.get("bias_lr_policy_name", name),
+            lr_adjuster.get("bias_lr_parameters", parameters)))
+    units = probe_units(layer_specs, sample_shape)
+    stages = []      # (pure_fn, config, hyper, skip_at_eval)
+    params = []
+    for spec, unit in zip(layer_specs, units):
+        layer_params = {"w": numpy.array(unit.weights.mem)}
+        if unit.include_bias and unit.bias:
+            layer_params["b"] = numpy.array(unit.bias.mem)
+        bw = spec.get("<-", {})
+        solver = str(bw.get("solver", "momentum"))
+        if solver not in SOLVERS:
+            raise ValueError("unknown solver %r (want momentum / adam "
+                             "/ rprop / adagrad / adadelta)" % solver)
+        if policies is not None and solver == "rprop":
+            raise ValueError(
+                "lr_adjuster has no effect on the rprop solver (its "
+                "per-weight deltas are self-adaptive): remove the "
+                "schedule or pick another solver for this layer")
+        hyper = _hyper(bw, solver)
+        pure = type(unit).pure_fn
+        if spec.get("remat", remat):
+            pure = _remat_stage(pure, unit.pure_config())
+        stages.append((pure, unit.pure_config(), hyper,
+                       bool(getattr(type(unit), "SKIP_AT_EVAL", False))))
+        params.append(_state_of(layer_params, solver, hyper,
+                                policies is not None))
+
+    norm_cache = {}
+
+    def _norm(dtype, device):
+        # made at a step's first call and reused, so a CUDA graph of a
+        # later step copies nothing from the host
+        key = (dtype, str(device))
+        if key not in norm_cache:
+            scale, shift = input_norm
+            norm_cache[key] = tuple(
+                torch.as_tensor(numpy.asarray(v, numpy.float32)).to(
+                    device=device, dtype=dtype) for v in (scale, shift))
+        return norm_cache[key]
+
+    def _ingest(x):
+        h = x
+        if not h.is_floating_point():
+            h = h.to(compute_dtype or torch.float32)
+        if input_norm is not None:
+            scale, shift = _norm(h.dtype, h.device)
+            h = h * scale + shift
+        return h
+
+    def apply_fn(params_list, x, train=False):
+        h = _ingest(x)
+        for (pure, config, _hyper, skip_at_eval), state in zip(
+                stages, params_list):
+            if skip_at_eval and not train:
+                continue
+            p = {k: v for k, v in state.items() if k in ("w", "b")
+                 and v is not None}
+            h = pure(p, h, **config)
+        return h
+
+    def loss_fn(wb_list, x, labels):
+        h = _ingest(x)
+        if compute_dtype is not None:
+            h = h.to(compute_dtype)
+        for (pure, config, _hyper, _skip), wb in zip(stages, wb_list):
+            p = ({k: v.to(compute_dtype) for k, v in wb.items()}
+                 if compute_dtype is not None else dict(wb))
+            h = pure(p, h, **config)
+        out = h.float()
+        if loss == "softmax":
+            valid = labels >= 0
+        else:
+            valid = torch.ones(x.shape[0], dtype=torch.bool,
+                               device=x.device)
+        grad_denom = x.shape[0]
+        if loss == "softmax":
+            logp = torch.log(torch.clamp(out, min=1e-30))
+            picked = torch.gather(
+                logp, 1, torch.clamp(labels, min=0).long()[:, None])[:, 0]
+            total = -(picked * valid).sum()
+            n_err = ((out.argmax(dim=1) != labels) & valid).sum()
+        else:
+            flat = out.reshape(out.shape[0], -1)
+            target = labels.reshape(flat.shape)
+            total = ((flat - target) ** 2).mean(dim=1).sum() / 2
+            n_err = torch.sqrt(((flat - target) ** 2).mean())
+        return (total / grad_denom, n_err,
+                total / torch.clamp(valid.sum(), min=1))
+
+    def _grads(params_list, x, labels):
+        keys = [[k for k in ("w", "b") if state.get(k) is not None]
+                for state in params_list]
+        with torch.enable_grad():
+            leaves = [{k: state[k].detach().requires_grad_(True)
+                       for k in layer_keys}
+                      for state, layer_keys in zip(params_list, keys)]
+            flat = [leaf[k] for leaf, layer_keys in zip(leaves, keys)
+                    for k in layer_keys]
+            if grad_accum == 1:
+                value, n_err, report = loss_fn(leaves, x, labels)
+                grads = list(torch.autograd.grad(value, flat))
+            else:
+                batch = x.shape[0]
+                if batch % grad_accum:
+                    raise ValueError(
+                        "batch %d not divisible by grad_accum %d"
+                        % (batch, grad_accum))
+                size = batch // grad_accum
+                grads = [torch.zeros_like(leaf) for leaf in flat]
+                n_err = torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
+                loss_sum = torch.zeros_like(n_err)
+                # the microbatches in order: activations exist for one
+                # at a time, the gradients are summed, ONE update
+                for i in range(grad_accum):
+                    chunk = slice(i * size, (i + 1) * size)
+                    value, err_c, report_c = loss_fn(
+                        leaves, x[chunk], labels[chunk])
+                    for g, gi in zip(grads, torch.autograd.grad(value,
+                                                                flat)):
+                        g.add_(gi)
+                    n_err = n_err + err_c.to(torch.float32)
+                    loss_sum = loss_sum + report_c.to(torch.float32)
+                grads = [g / grad_accum for g in grads]
+                report = loss_sum / grad_accum
+                if loss == "mse":
+                    # each chunk's "n_err" is an RMSE: averaged, not summed
+                    n_err = n_err / grad_accum
+        it = iter(grads)
+        per_layer = [{k: next(it) for k in layer_keys} for layer_keys in keys]
+        return per_layer, n_err, report
+
+    def step_fn(params_list, x, labels):
+        grads, n_err, report = _grads(params_list, x, labels)
+        with torch.no_grad():
+            for state, layer_grads, (_p, _c, hyper, _s) in zip(
+                    params_list, grads, stages):
+                _solver_update(state, layer_grads, hyper, policies)
+        return params_list, {"loss": report.detach(),
+                             "n_err": n_err.detach()}
+
+    def eval_fn(params_list, x, labels):
+        with torch.no_grad():
+            out = apply_fn(params_list, x, train=False)
+            if loss == "softmax":
+                valid = labels >= 0
+                n_err = ((out.argmax(dim=1) != labels) & valid).sum()
+                return {"n_err": n_err, "n": valid.sum()}
+            flat = out.float().reshape(out.shape[0], -1)
+            return {"rmse": torch.sqrt(
+                ((flat - labels.reshape(flat.shape)) ** 2).mean())}
+
+    return params, step_fn, eval_fn, apply_fn
+
+
+def epoch_indices(n_samples, batch, generator=None, shuffle=True):
+    """The ``(steps, batch)`` minibatch indices of one epoch: a
+    ``torch.randperm`` of the samples drawn from ``generator`` (a CPU
+    ``torch.Generator``), or the samples in order when ``shuffle`` is
+    False; the short tail is dropped.  (JAX's threefry permutation
+    cannot be reproduced, so a test holds the unshuffled epochs.)"""
+    steps = n_samples // batch
+    if steps == 0:
+        raise ValueError("dataset smaller than one minibatch")
+    perm = (torch.randperm(n_samples, generator=generator) if shuffle
+            else torch.arange(n_samples))
+    return perm[:steps * batch].reshape(steps, batch).to(torch.int32)
+
+
+def epoch_runner(step_fn, n_samples, batch, shuffle=True):
+    """A whole epoch of ``step_fn`` over a resident dataset:
+    ``epoch_fn(params, data, labels, generator) -> (params, metrics)``
+    gathers each minibatch's rows and labels on the device in one launch
+    (:func:`veles_tpu_torch.ops.gather.take_rows_group`: the gather
+    kernel on the card) and runs a step on them; ``metrics`` stacks each
+    step's (``{"loss": (steps,), "n_err": (steps,)}``, f32).  The short
+    tail (< ``batch`` samples) is dropped."""
+    steps = n_samples // batch
+    if steps == 0:
+        raise ValueError("dataset smaller than one minibatch")
+
+    def epoch_fn(params, data, labels, generator=None):
+        idx = epoch_indices(n_samples, batch, generator, shuffle).to(
+            data.device)
+        return run_steps(step_fn, params, data, labels, idx)
+
+    return epoch_fn
+
+
+def run_steps(step_fn, params, data, labels, idx):
+    """``step_fn`` over the minibatches whose rows ``idx`` (``(steps,
+    batch)`` int32) names, each gathered with its labels in one launch;
+    the stacked f32 metrics."""
+    from veles_tpu_torch.ops.gather import take_rows_group
+
+    stacked = {"loss": [], "n_err": []}
+    for i in range(idx.shape[0]):
+        x, y = take_rows_group([(data, 0), (labels, -1)], idx[i])
+        params, metrics = step_fn(params, x, y)
+        for key in stacked:
+            stacked[key].append(metrics[key].to(torch.float32))
+    return params, {k: torch.stack(v) for k, v in stacked.items()}

@@ -1,6 +1,5 @@
 """StandardWorkflow: the canonical training-graph builder, the port's
-counterpart of :mod:`veles_tpu.znicz.standard_workflow`, ported for the
-eager per-unit chain (``fused=False``)::
+counterpart of :mod:`veles_tpu.znicz.standard_workflow`::
 
     repeater → loader → forwards… → evaluator → decision → gds… ─┐
         ▲                                                        │
@@ -8,21 +7,35 @@ eager per-unit chain (``fused=False``)::
     decision --complete--> end_point ; gds gated to TRAIN minibatches
 
 Layer specs are a list of dicts with ``type`` (a unit ``MAPPING``) and
-the forward ``->`` and backward ``<-`` parameter groups.  With
-``engine.stitch=on`` (the default) ``initialize()`` stitches the chain
-into two segments, ``[loader head, forwards…, evaluator]`` and
+the forward ``->`` and backward ``<-`` parameter groups, or an
+``mcdnnic_topology`` string (:mod:`veles_tpu_torch.znicz.mcdnnic`) with
+``mcdnnic_parameters`` for every generated layer.  With
+``engine.stitch=on`` (the default) ``initialize()`` stitches the eager
+chain into two segments, ``[loader head, forwards…, evaluator]`` and
 ``[gds…]`` (:mod:`veles_tpu_torch.stitch`).
 
-``snapshotter_config`` hangs a
-:class:`~veles_tpu_torch.snapshotter.SnapshotterToFile` off the
-Decision, gated on ``~decision.improved`` and clearing it after each
-export: one snapshot an improving validation.  A unit hanging off the
-Decision keeps the run on the per-step stitched route (the epoch-scan
-windows refuse it, with the JAX package's reason).
-``restore_train_state`` is the Workflow's: the JAX package's override
-only refreshes the fused trainer.  Not ported:
-``fused`` (the one-program trainer), ``mcdnnic_topology``, plotters,
-``lr_adjuster``, rollback and image saver (ROADMAP item 7).
+``fused=True`` replaces the chain after the loader with one
+:class:`~veles_tpu_torch.znicz.fused_unit.FusedTrainer` (``repeater →
+loader → trainer → decision``): the forwards are built unchained, for
+their shapes and weights, and the Decision reads the trainer's metric;
+``fused_config`` passes the lowering's knobs (``compute_dtype``,
+``remat``, ``grad_accum``, ``epoch_mode``).  The loader then serves
+only the minibatch's indices, and the step gathers the rows from the
+resident dataset (a native u8 one normalized in the step).
+
+Off the Decision hang, when configured: the snapshotter
+(``snapshotter_config``, gated on ``~decision.improved``, which the
+export clears: one snapshot an improving validation), the image saver
+(``image_saver_config``, eager only), the LR adjuster
+(``lr_adjuster_config``: before the GDs, or evaluated in the fused
+step) and :class:`~veles_tpu_torch.znicz.rollback.Rollback`
+(``rollback_config``: linked whenever it is given, ``{}`` taking the
+defaults).  A unit hanging off the Decision keeps the eager run on the
+per-step stitched route (the epoch-scan windows refuse it, with the JAX
+package's reason).  ``restore_train_state`` refreshes a fused trainer's
+parameters from the restored forwards.  Not ported: the plotters
+(ROADMAP item 7(e)); an option the port does not take is refused when
+it is given at all, not only when it is truthy.
 
 ``loss_function="mse"`` (the default when the last layer is not a
 softmax) takes ``EvaluatorMSE`` against the loader's
@@ -56,13 +69,8 @@ GD_PAIRS = {
 }
 
 #: StandardWorkflow options of the JAX package not ported yet, with the
-#: ROADMAP item that will port each
-_NOT_PORTED = {
-    "fused": "7", "fused_config": "7", "mcdnnic_topology": "7",
-    "mcdnnic_parameters": "7",
-    "plotters_config": "7", "lr_adjuster_config": "7",
-    "rollback_config": "7", "image_saver_config": "7",
-}
+#: ROADMAP item that will port each; refused when given (not None)
+_NOT_PORTED = {"plotters_config": "7(e)"}
 
 
 class ClassSkipGate(Bool):
@@ -102,14 +110,41 @@ class StandardWorkflow(AcceleratedWorkflow):
 
     def __init__(self, workflow=None, **kwargs):
         for key, item in _NOT_PORTED.items():
-            if kwargs.pop(key, None):
+            if kwargs.pop(key, None) is not None:
                 raise NotImplementedError(
                     "StandardWorkflow option %r is not ported yet "
                     "(ROADMAP item %s)" % (key, item))
         self.layers = kwargs.pop("layers", [])
+        topology = kwargs.pop("mcdnnic_topology", None)
+        mcdnnic_parameters = kwargs.pop("mcdnnic_parameters", None)
+        if topology is not None:
+            if self.layers:
+                raise ValueError(
+                    "give either layers or mcdnnic_topology, not both")
+            from veles_tpu_torch.znicz.mcdnnic import parse_topology
+            _shape, self.layers = parse_topology(topology,
+                                                 mcdnnic_parameters)
         self.loss_function = kwargs.pop("loss_function", None)
         self.decision_config = dict(kwargs.pop("decision_config", {}))
         self.snapshotter_config = kwargs.pop("snapshotter_config", None)
+        #: fused=True: one FusedTrainer step a minibatch instead of the
+        #: eager chain; fused_config passes the lowering's knobs
+        self.fused = bool(kwargs.pop("fused", False))
+        self.fused_config = dict(kwargs.pop("fused_config", None) or {})
+        self.fused_trainer = None
+        #: the LR adjuster's policy names and parameters
+        self.lr_adjuster_config = kwargs.pop("lr_adjuster_config", None)
+        self.lr_adjuster = None
+        #: Rollback's {"fail_iterations": N, "lr_factor": f}
+        self.rollback_config = kwargs.pop("rollback_config", None)
+        self.rollback = None
+        #: ImageSaver's {"out_dirs": [test, validation, train], "limit"}
+        self.image_saver_config = kwargs.pop("image_saver_config", None)
+        self.image_saver = None
+        if self.lr_adjuster_config and self.fused:
+            # the fused step evaluates the schedule itself
+            self.fused_config.setdefault(
+                "lr_adjuster", dict(self.lr_adjuster_config))
         loader_factory = kwargs.pop("loader_factory")
         super(StandardWorkflow, self).__init__(workflow, **kwargs)
         self.repeater = Repeater(self)
@@ -123,6 +158,20 @@ class StandardWorkflow(AcceleratedWorkflow):
     # -- the link_* contract ------------------------------------------------
     def create_workflow(self):
         self.link_loader()
+        if self.fused:
+            if self.image_saver_config is not None:
+                raise NotImplementedError(
+                    "image_saver needs the eager evaluator's per-sample "
+                    "max_idx; use fused=False")
+            self.link_forwards(chain=False)
+            self.link_fused_trainer()
+            self.link_decision()
+            if self.snapshotter_config is not None:
+                self.link_snapshotter()
+            if self.rollback_config is not None:
+                self.link_rollback()
+            self.link_loop_and_end()
+            return
         if getattr(self.loader, "native_device_dtype", False):
             # the eager forward units consume minibatch_data as it is:
             # raw integers must never train silently.  The stitched
@@ -135,17 +184,64 @@ class StandardWorkflow(AcceleratedWorkflow):
                 and str(eng.get("loader", "auto")).lower() != "host")
             if not stitched_norm:
                 raise ValueError(
-                    "native_device_dtype loaders require the stitched "
-                    "device fast path (engine.stitch=on, "
+                    "native_device_dtype loaders require fused=True or "
+                    "the stitched device fast path (engine.stitch=on, "
                     "engine.loader!=host): the affine normalizer is "
-                    "applied by the stitched gather+normalize head")
+                    "applied inside the fused step or the stitched "
+                    "gather+normalize head")
         self.link_forwards()
         self.link_evaluator()
         self.link_decision()
         if self.snapshotter_config is not None:
             self.link_snapshotter()
+        if self.image_saver_config is not None:
+            self.link_image_saver()
+        if self.lr_adjuster_config:
+            self.link_lr_adjuster()
         self.link_gds()
+        if self.rollback_config is not None:
+            self.link_rollback()
         self.link_loop_and_end()
+
+    def link_image_saver(self):
+        """Misclassified samples of each minibatch to disk
+        (:class:`~veles_tpu_torch.znicz.image_saver.ImageSaver`)."""
+        if self._loss_kind() != "softmax":
+            raise ValueError("image_saver needs classification "
+                             "(max_idx); loss is %r" % self._loss_kind())
+        from veles_tpu_torch.znicz.image_saver import ImageSaver
+        self.image_saver = ImageSaver(
+            self, **dict(self.image_saver_config or {}))
+        s = self.image_saver
+        s.link_attrs(self.loader, ("input", "minibatch_data"),
+                     ("labels", "minibatch_labels"),
+                     "minibatch_class", "minibatch_size", "epoch_number")
+        s.link_attrs(self.evaluator, "max_idx")
+        s.link_from(self.decision)
+
+    def link_rollback(self):
+        """The best-state keeper, after the Decision so that it sees
+        every epoch close."""
+        from veles_tpu_torch.znicz.rollback import Rollback
+        self.rollback = Rollback(self, **dict(self.rollback_config or {}))
+        self.rollback.decision = self.decision
+        self.rollback.forwards = self.forwards
+        self.rollback.gds = self.gds
+        self.rollback.trainer = self.fused_trainer
+        self.rollback.lr_adjuster = self.lr_adjuster
+        self.rollback.link_from(self.decision)
+
+    def link_lr_adjuster(self):
+        """The LR adjuster BEFORE the gradient chain, so TRAIN minibatch
+        t trains with factor f(t), as the fused step's schedule does; it
+        rescales the GD units that :meth:`link_gds` makes."""
+        from veles_tpu_torch.znicz.lr_adjust import LearningRateAdjust
+        self.lr_adjuster = LearningRateAdjust(
+            self, **dict(self.lr_adjuster_config or {}))
+        self.lr_adjuster.gds = self.gds   # shared list, filled by link_gds
+        self.lr_adjuster.link_from(self.decision)
+        # the schedule advances once a TRAIN minibatch
+        self.lr_adjuster.gate_skip = ClassSkipGate(self.loader, TRAIN)
 
     def link_loader(self):
         self.repeater.link_from(self.start_point)
@@ -160,20 +256,48 @@ class StandardWorkflow(AcceleratedWorkflow):
                 (mapping, ", ".join(sorted(UnitRegistry.mapped))))
         return klass(self, **params)
 
-    def link_forwards(self):
+    def link_forwards(self, chain=True):
+        """The forward units; with ``chain=False`` (fused mode) they are
+        attribute-linked for shape inference and weight storage but stay
+        out of the control graph: the FusedTrainer computes."""
         prev = self.loader
         prev_attr = "minibatch_data"
         for spec in self.layers:
             if spec["type"] not in GD_PAIRS:
                 raise NotImplementedError(
-                    "layer type %r is not ported yet (ROADMAP item 7)"
-                    % spec["type"])
+                    "layer type %r is not ported yet (ROADMAP item 7(c), "
+                    "the layer zoo)" % spec["type"])
             unit = self._make_unit(spec["type"], dict(spec.get("->", {})))
-            unit.link_from(prev)
+            if chain:
+                unit.link_from(prev)
             unit.link_attrs(prev, ("input", prev_attr))
+            init = spec.get("init")
+            if init:
+                # pre-seeded parameters: initialize() keeps them
+                unit.weights.reset(init["weights"])
+                if "bias" in init:
+                    unit.bias.reset(init["bias"])
             self.forwards.append(unit)
             prev = unit
             prev_attr = "output"
+
+    def link_fused_trainer(self):
+        from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+        from veles_tpu_torch.znicz.fused_unit import FusedTrainer
+        if not isinstance(self.loader, FullBatchLoader):
+            raise NotImplementedError(
+                "fused=True gathers each minibatch inside its step from a "
+                "resident FullBatchLoader dataset (got %s)"
+                % type(self.loader).__name__)
+        self.fused_trainer = FusedTrainer(
+            self, layers=[{**s} for s in self.layers],
+            loss=self._loss_kind(), **self.fused_config)
+        self.fused_trainer.loader = self.loader
+        self.fused_trainer.forwards = self.forwards
+        self.fused_trainer.link_from(self.loader)
+        # the step gathers (and normalizes) the rows itself: the loader
+        # serves the indices only
+        self.loader.rows_by_consumer = True
 
     def _loss_kind(self):
         return self.loss_function or (
@@ -202,8 +326,10 @@ class StandardWorkflow(AcceleratedWorkflow):
         decision = DecisionMSE if self._loss_kind() == "mse" else DecisionGD
         self.decision = decision(self, **self.decision_config)
         self.decision.link_from_loader(self.loader)
-        self.decision.evaluator = self.evaluator
-        self.decision.link_from(self.evaluator)
+        # in fused mode the trainer exposes the evaluator's metric
+        err_src = self.fused_trainer if self.fused else self.evaluator
+        self.decision.evaluator = err_src
+        self.decision.link_from(err_src)
 
     def link_snapshotter(self):
         """Snapshot at every improving validation: gated on
@@ -221,8 +347,10 @@ class StandardWorkflow(AcceleratedWorkflow):
 
     def link_gds(self):
         """The backward chain in reverse layer order, gated to TRAIN
-        batches; the first layer's GD computes no err_input."""
-        prev = self.decision
+        batches, after the LR adjuster when there is one; the first
+        layer's GD computes no err_input."""
+        prev = self.lr_adjuster if self.lr_adjuster is not None \
+            else self.decision
         err_src, err_attr = self.evaluator, "err_output"
         skip_gate = ClassSkipGate(self.loader, TRAIN)
         for forward, spec in zip(reversed(self.forwards),
@@ -245,6 +373,15 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.end_point.link_from(last_gd)
         self.end_point.gate_block = ~self.decision.complete
         self.repeater.gate_block = self.decision.complete
+
+    def restore_train_state(self, train, meta):
+        restored = super(StandardWorkflow, self).restore_train_state(
+            train, meta)
+        if self.fused and self.fused_trainer is not None:
+            # the forwards' weights were just replaced: into the built
+            # parameters with them
+            self.fused_trainer.refresh_from_forwards()
+        return restored
 
     # -- carrying weights across --------------------------------------------
     def _param_vectors(self):

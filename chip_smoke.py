@@ -1437,6 +1437,7 @@ def _gemm_cases(rng, device):
                             "ok": all(e["outside_tol"] == 0
                                       for e in errors.values())})
     cases.extend(_gemm_fused_cases(device))
+    cases.extend(_gemm_zoo_cases(device))
     gpu_sync()
     return cases
 
@@ -1484,6 +1485,55 @@ def _gemm_fused_cases(device):
                                   activation=activation, bias=with_bias,
                                   tol=list(GEMM_TOL),
                                   ok=report["outside_tol"] == 0))
+    return cases
+
+
+#: the conv nets' fully-connected products: (M, K, N), which operand is a
+#: transposed view, and the layer's activation for a forward product
+#: (held with and without the bias) or None for a backward one
+#: (MatMul.backward: no bias, no activation).  mnist_conv: 800→500 tanh
+#: and 500→10 softmax at minibatch 100; AlexNet: fc6 9216→4096 and fc7
+#: 4096→4096 strict relu, fc8 4096→1000 softmax, at batch 128; each
+#: one's weight gradient x^T·δ (a transposed A) and input gradient δ·W^T
+#: (a transposed W)
+GEMM_ZOO_SHAPES = (
+    ((100, 800, 500), None, "tanh"), ((100, 500, 10), None, "linear"),
+    ((800, 100, 500), "a", None), ((100, 500, 800), "w", None),
+    ((500, 100, 10), "a", None), ((100, 10, 500), "w", None),
+    ((128, 9216, 4096), None, "strict_relu"),
+    ((128, 4096, 4096), None, "strict_relu"),
+    ((128, 4096, 1000), None, "linear"),
+    ((9216, 128, 4096), "a", None), ((4096, 128, 4096), "a", None),
+    ((4096, 128, 1000), "a", None),
+    ((128, 4096, 9216), "w", None), ((128, 4096, 4096), "w", None),
+    ((128, 1000, 4096), "w", None))
+
+
+def _gemm_zoo_cases(device):
+    """The f32 body at GEMM_ZOO_SHAPES against the plain version within
+    GEMM_TOL (K up to 9216: on an H100 the largest error was 1.26e-5,
+    each element inside 1e-5 + 1e-5·|plain|); its own stream of
+    operands."""
+    from veles_tpu_torch.ops import gemm
+    rng = numpy.random.default_rng(SEED + 21)
+    cases = []
+    for (m, k, n), view, layer_activation in GEMM_ZOO_SHAPES:
+        forward = layer_activation is not None
+        variants = ([(layer_activation, True), (layer_activation, False)]
+                    if forward else [(None, False)])
+        for activation, with_bias in variants:
+            a, w, bias = _gemm_operands(rng, device, m, k, n)
+            a, w = _as_view(a, w, view)
+            bias = bias if with_bias else None
+            got = gemm.matmul(a, w, bias, activation)
+            want = gemm._matmul_ref(a, w, bias, activation)
+            report = _within(got, want, GEMM_TOL)
+            cases.append(dict(
+                report, kernel="matmul", shape=[m, k, n], view=view,
+                layer="zoo forward" if forward else "zoo backward",
+                tile_split=list(gemm.plan(m, n, k)),
+                activation=activation, bias=with_bias, tol=list(GEMM_TOL),
+                ok=report["outside_tol"] == 0))
     return cases
 
 
@@ -6345,6 +6395,491 @@ def phase_mnist_fused_epoch(device):
     return dict(launches, **entries)
 
 
+# -- the conv layer zoo (ROADMAP 7(c)) --------------------------------------
+
+MNIST_CONV_EPOCHS = 3
+MNIST_CONV_PARITY_EPOCHS = 2
+#: card against CPU, the conv workflow after 2 epochs: each weight and
+#: bias leaf within this share of its largest value.  cuDNN's conv sums
+#: and the CPU's run in other orders, and cuDNN's are not the same from
+#: one card run to the next (an H100 measured 7.5e-5 between two runs);
+#: a near tie in a max pooling or a relu mask that they break apart
+#: sends a gradient elsewhere, and 120 steps with momentum carry it
+#: (measured on an H100: 8.1e-4 to 1.7e-3 at the second conv, 1.6e-4 at
+#: the fully-connected layers)
+MNIST_CONV_PARAM_RTOL = 5e-3
+#: ... and each momentum leaf (after a step, the learning rate times a
+#: gradient) within this one.  A conv's gradient passes max-pool choices
+#: and relu masks: a near tie that the card's conv sums (cuDNN picks
+#: FFT and implicit-GEMM algorithms) and the CPU's break apart routes an
+#: element's gradient elsewhere, and the conv layers' gradients, sums
+#: over many such elements that mostly cancel, move by a few percent of
+#: their largest value (on an H100: 1.5e-2 to 4.3e-2 at mnist_conv's
+#: second conv over three runs, 1.7e-2 at AlexNet's after one step, whose
+#: weights stay within 4.1e-7 and whose fully-connected layers' momenta
+#: within 2.1e-6)
+MOMENTUM_RTOL = 1e-1
+#: AlexNet at full width: captured steps timed at each dtype, and the
+#: batch of the one step held against the CPU step
+ALEXNET_BATCH = 128
+ALEXNET_STEPS = 10
+ALEXNET_PARITY_BATCH = 8
+#: one f32 step, card against CPU, each weight and bias leaf within this
+#: share of its largest value (momenta: MOMENTUM_RTOL)
+ALEXNET_PARAM_RTOL = 1e-5
+#: the GEMM launches of one AlexNet step: fc6, fc7 and fc8 forward, and
+#: each one's weight and input gradients (fc6's input comes from the
+#: convs, which train: it needs its gradient); bf16 runs fc6 and fc7 on
+#: the bf16 body, the softmax layer (fc8) widens to f32
+ALEXNET_STEP_LAUNCHES = {"float32": {"matmul": 9, "matmul_bf16": 0},
+                         "bfloat16": {"matmul": 3, "matmul_bf16": 6}}
+VGG_BATCH = 32
+#: the aten ops that would run a cuBLAS GEMM: none may run in a zoo
+#: profile window (the all2all layers run on the hand-written kernel)
+_BLAS_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+             "aten::matmul", "aten::linear", "aten::addmv", "aten::mv")
+#: kernel-name tags of cuDNN's convolutions: its direct and implicit-GEMM
+#: bodies, its layout transforms, and its FFT algorithm's transforms and
+#: complex products (cuBLAS's ``cf32`` GEMM, which only the FFT convs
+#: call)
+_CONV_TAGS = ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
+              "nchwtonhwc", "nhwctonchw", "fft", "complex", "cf32")
+
+
+def _zoo_group(name):
+    """A kernel's group in a zoo window: ``conv`` (cuDNN, its FFT
+    algorithm's complex GEMM included), the hand-written GEMM and gather
+    groups, ``matmul`` (any other GEMM), ``copy``, and ``elementwise``
+    for the rest (pooling, LRN, dropout, activations, the solver's
+    updates, reductions)."""
+    lower = name.lower()
+    if any(tag in lower for tag in _CONV_TAGS):
+        return "conv"
+    group = _kernel_group(name)
+    return "elementwise" if group == "other" else group
+
+
+def zoo_profile(fn):
+    """Run ``fn`` under ``torch.profiler``: device ms and kernels by
+    :func:`_zoo_group`, the 12 kernels that took most, the aten ops of
+    _BLAS_OPS that ran (a cuBLAS GEMM is reached through one of them),
+    the cuDNN convolution ops (``aten::cudnn_convolution*``) and the
+    device's busy share of the wall time.  A cuDNN kernel whose name has
+    no conv tag (a runtime-compiled CUTLASS body) lands in ``matmul``:
+    the ops, not the kernel names, tell cuDNN from cuBLAS."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gpu_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prime_window()
+        tic = time.perf_counter()
+        fn()
+        gpu_sync()
+        wall_us = (time.perf_counter() - tic) * 1e6
+    events = prof.events()
+    work = min((ev.time_range.start for ev in events
+                if ev.name == WORK_MARKER), default=None)
+    groups, counts, names, blas, cudnn = {}, {}, {}, {}, {}
+    for ev in events:
+        if work is not None and ev.time_range.start < work:
+            continue
+        if ev.device_type != DeviceType.CUDA:
+            if ev.name in _BLAS_OPS:
+                blas[ev.name] = blas.get(ev.name, 0) + 1
+            elif "cudnn_convolution" in ev.name:
+                cudnn[ev.name] = cudnn.get(ev.name, 0) + 1
+            continue
+        if ev.name == WORK_MARKER:
+            continue
+        group = _zoo_group(ev.name)
+        groups[group] = groups.get(group, 0.0) + ev.device_time_total
+        counts[group] = counts.get(group, 0) + 1
+        names[ev.name] = names.get(ev.name, 0.0) + ev.device_time_total
+    busy = sum(groups.values())
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / wall_us if wall_us else None,
+            "device_ms_by_group": {g: t / 1e3 for g, t in groups.items()},
+            "kernels_by_group": counts, "blas_ops": blas,
+            "cudnn_conv_ops": cudnn,
+            "top_kernels_ms": [[n[:160], t / 1e3] for n, t in sorted(
+                names.items(), key=lambda kv: -kv[1])[:12]]}
+
+
+def _conv_workflow(device, epochs, stitch):
+    """mnist_conv at full width (its LAYERS, minibatch 100) over the
+    synthetic stand-in, stitched or eager; the wall clock stamped at
+    every train close."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist_conv
+    with engine_knobs(stitch=stitch, loader="auto", epoch_scan="off"):
+        prng.seed_all(SEED)
+        wf = mnist_conv.create_workflow(device=device, max_epochs=epochs)
+    stamps = []
+    close = wf.decision._close_class
+
+    def timed_close(cls, check_epoch_end):
+        out = close(cls, check_epoch_end)
+        if cls == 2:
+            stamps.append(time.perf_counter())
+        return out
+    wf.decision._close_class = timed_close
+    wf.train_closes = stamps
+    return wf
+
+
+def _conv_run(device, epochs, stitch):
+    """Train it; its closes, the evaluator's confusion matrix and the
+    parameters and momenta."""
+    wf = _conv_workflow(device, epochs, stitch)
+    with engine_knobs(stitch=stitch, loader="auto", epoch_scan="off"):
+        wf.run()
+    if device.type == "cuda":
+        gpu_sync()
+    wf.evaluator.confusion_matrix.map_read()
+    closes = [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+              for c in wf.decision.history]
+    return (wf, closes, numpy.array(wf.evaluator.confusion_matrix.mem),
+            wf.params_to_numpy())
+
+
+def _conv_expected(closes, stitched):
+    """The launches of a run whose closes are ``closes``: two GEMM
+    layers a minibatch; on train minibatches both all2all GD units
+    compute err_input (the convs below train) and carry the bias step in
+    dw; one gather launch a minibatch serves the data and the labels
+    (two f32 tables), by the eager fill's entry or the stitched head's."""
+    n = sum(c[3] for c in closes) // 100
+    train = sum(c[3] for c in closes if c[1] == "train") // 100
+    launches = {"matmul": 2 * n, "matmul_bf16": 0, "gd_dx": 2 * train,
+                "gd_dw": 2 * train, "gd_db": 0, "gd_db_in_dw": 2 * train,
+                "gather": n, "gather_norm": 0, "gather_tables": 2 * n,
+                "gather_norm_tables": 0}
+    entries = {"veles_gather_group": 0 if stitched else n,
+               "veles_gather_served": n if stitched else 0}
+    return launches, entries, n, train
+
+
+def phase_mnist_conv(device, smi):
+    """The MNIST convnet (mnist_conv's LAYERS: two cuDNN convs, two max
+    poolings, the 800→500 tanh and 500→10 softmax layers on the GEMM
+    kernel) at full width, minibatch 100, on the eager and the stitched
+    routes: each route's launches counted exactly, the wall ms of a
+    steady epoch, the stitched graphs' captures and recaptures (0); then
+    a 2-epoch run of each route under the profiler: cuDNN convs, the
+    hand-written GEMM and GD kernels, and no cuBLAS GEMM."""
+    from veles_tpu_torch.ops import gather
+    out, paths, ok = {}, {}, True
+    for route, stitch in (("eager", "off"), ("stitched", "on")):
+        reset_all_launches()
+        tic = time.perf_counter()
+        wf, closes, _conf, _params = _conv_run(device, MNIST_CONV_EPOCHS,
+                                               stitch)
+        elapsed = time.perf_counter() - tic
+        launches = mnist_launches()
+        entries = dict(gather.entry_launches)
+        want, want_entries, n, train = _conv_expected(closes,
+                                                      stitch == "on")
+        counted = launches == want and entries == want_entries
+        report = wf.stitch_report()
+        graphs_ok = (stitch == "off" and report == []) or (
+            len(report) == 2
+            and [r["dispatches"] for r in report] == [n, train]
+            and all(r["captures"] == 1 and r["recaptures"] == 0
+                    for r in report))
+        # the sample does not learn the stand-in in three epochs on either
+        # package (the JAX package's closes on the CPU: 888, 895, 895 of
+        # 1000): the parity phase holds its numbers, this one its routes
+        learned = all(numpy.isfinite(c[2]) for c in closes)
+        # one train minibatch under the profiler: the last pass's first
+        profiled = _conv_workflow(device, 2, stitch)
+        served = []
+        inner = profiled.loader.run
+
+        def counting_run():
+            served.append(int(profiled.loader.minibatch_class))
+            inner()
+        profiled.loader.run = counting_run
+        with engine_knobs(stitch=stitch, loader="auto", epoch_scan="off"):
+            window = zoo_profile(profiled.run)
+        kinds = window["kernels_by_group"]
+        profile_ok = (bool(window["cudnn_conv_ops"])
+                      and kinds.get("veles_matmul", 0) > 0
+                      and kinds.get("veles_gd_dw", 0) > 0
+                      and not window["blas_ops"])
+        route_ok = counted and graphs_ok and learned and profile_ok
+        ok = ok and route_ok
+        out[route] = {
+            "ok": route_ok, "elapsed_s": elapsed,
+            "steady_epoch_ms": _steady_epoch_ms(wf), "class_closes": closes,
+            "launches": launches, "launches_expected": want,
+            "entry_launches": entries, "entry_expected": want_entries,
+            "minibatches": n, "train_minibatches": train,
+            "graphs": report,
+            "profile": dict(window, window="max_epochs=2: 2 validation "
+                            "passes and 1 train pass (%d minibatches)"
+                            % len(served))}
+        paths["mnist_conv" if stitch == "off" else "mnist_conv_stitched"] = \
+            dict(launches, **entries)
+    emit({"phase": "mnist_conv", "nvidia_smi": smi, "ok": ok,
+          "layers": "28x28x1: 20C5 strict_relu, MP2, 50C5 strict_relu, MP2, "
+                    "800-500 tanh, 500-10 softmax", "minibatch": 100,
+          "max_epochs": MNIST_CONV_EPOCHS,
+          "data": "synthetic stand-in (6000 train, 1000 validation)",
+          "epoch": "one validation pass (10 minibatches) and one train "
+                   "pass (60)", **out})
+    for route, info in out.items():
+        check(info["ok"], "mnist_conv", "%s route: launches %s (want %s), "
+              "entries %s (want %s), graphs %s, closes %s, profile groups "
+              "%s, blas ops %s, cudnn ops %s" % (
+                  route, info["launches"], info["launches_expected"],
+                  info["entry_launches"], info["entry_expected"],
+                  info["graphs"], info["class_closes"],
+                  info["profile"]["kernels_by_group"],
+                  info["profile"]["blas_ops"],
+                  info["profile"]["cudnn_conv_ops"]))
+    return paths
+
+
+def phase_mnist_conv_parity(device):
+    """mnist_conv on the card (eager twice, and stitched) against the
+    port's CPU route from one seed: every class close and the confusion
+    matrix equal, each parameter leaf within MNIST_CONV_PARAM_RTOL of its
+    largest value; whether the two eager card runs are bit-equal (cuDNN's
+    algorithms and the overlapping max-pool backward's atomics need not
+    be) and the largest gap between them."""
+    _wf, c_closes, c_conf, c_params = _conv_run(
+        torch.device("cpu"), MNIST_CONV_PARITY_EPOCHS, "on")
+    runs = {}
+    for name, stitch in (("eager", "off"), ("eager_again", "off"),
+                         ("stitched", "on")):
+        _wf, closes, conf, params = _conv_run(
+            device, MNIST_CONV_PARITY_EPOCHS, stitch)
+        errs = _param_rel_errors(params, c_params)
+        weights, momenta = _split_leaves(errs, "gradient_")
+        runs[name] = {"closes": closes, "confusion": conf,
+                      "params": params, "rel_err_by_leaf": errs,
+                      "param_rel_err": max(weights.values()),
+                      "momentum_rel_err": max(momenta.values()),
+                      "ok": (closes == c_closes
+                             and numpy.array_equal(conf, c_conf)
+                             and max(weights.values())
+                             <= MNIST_CONV_PARAM_RTOL
+                             and max(momenta.values()) <= MOMENTUM_RTOL)}
+    a, b = runs["eager"]["params"], runs["eager_again"]["params"]
+    repeat_gap = max(float(numpy.abs(a[k] - b[k]).max()) for k in a)
+    ok = all(r["ok"] for r in runs.values())
+    emit({"phase": "mnist_conv_parity", "ok": ok,
+          "max_epochs": MNIST_CONV_PARITY_EPOCHS, "cpu_closes": c_closes,
+          "param_rtol": MNIST_CONV_PARAM_RTOL,
+          "momentum_rtol": MOMENTUM_RTOL,
+          "card_runs_bit_equal": repeat_gap == 0.0,
+          "card_repeat_max_abs_gap": repeat_gap,
+          **{name: {"closes": r["closes"],
+                    "confusion_equal": bool(numpy.array_equal(
+                        r["confusion"], c_conf)),
+                    "rel_err_by_leaf": r["rel_err_by_leaf"],
+                    "param_rel_err": r["param_rel_err"],
+                    "momentum_rel_err": r["momentum_rel_err"],
+                    "ok": r["ok"]}
+             for name, r in runs.items()}})
+    for name, r in runs.items():
+        check(r["ok"], "mnist_conv_parity", "%s card run against the CPU: "
+              "closes %s vs %s, weights %.3g, momenta %.3g" % (
+                  name, r["closes"], c_closes, r["param_rel_err"],
+                  r["momentum_rel_err"]))
+
+
+def _split_leaves(errs, momentum_mark):
+    """``errs`` split into the parameters' leaves and the momenta's
+    (whose names hold ``momentum_mark``)."""
+    momenta = {k: v for k, v in errs.items() if momentum_mark in k}
+    return ({k: v for k, v in errs.items() if k not in momenta}, momenta)
+
+
+def _alexnet_steps(device, dtype, layers=None, input_shape=None, batch=None,
+                   steps=ALEXNET_STEPS, build=None):
+    """``steps`` captured steps of a fused conv net on one fixed
+    synthetic batch after its eager and captured first two: the losses,
+    images/s, the launches of the timed steps and the step's graph
+    report."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import alexnet
+    from veles_tpu_torch.ops import gemm
+    build = build or alexnet.build_fused
+    prng.seed_all(SEED)
+    kwargs = {} if layers is None else {"layers": layers}
+    if input_shape is not None:
+        kwargs["input_shape"] = input_shape
+    shape = input_shape or alexnet.INPUT_SHAPE
+    params, step, _eval, _apply = build(
+        device=device, compute_dtype=None if dtype == "float32" else dtype,
+        **kwargs)
+    x, labels = alexnet.synthetic_imagenet_batch(batch, shape=shape)
+    x = torch.from_numpy(x).to(device)
+    labels = torch.from_numpy(labels).to(device)
+    losses = []
+    for _ in range(2):
+        _p, metrics = step(params, x, labels)
+        losses.append(float(metrics["loss"]))
+    gpu_sync()
+    reset_all_launches()
+    tic = time.perf_counter()
+    for _ in range(steps):
+        _p, metrics = step(params, x, labels)
+        losses.append(float(metrics["loss"]))
+    elapsed = time.perf_counter() - tic
+    launches = {k: gemm.launches[k] for k in ("matmul", "matmul_bf16")}
+    return {"losses": losses, "images_per_s": steps * batch / elapsed,
+            "step_ms": elapsed * 1e3 / steps, "launches": launches,
+            "graphs": step.report(), "step": step, "params": params,
+            "x": x, "labels": labels}
+
+
+def _alexnet_parity():
+    """One f32 AlexNet step at ALEXNET_PARITY_BATCH, card against CPU
+    from one seed (the same dropout masks): each leaf's max abs error
+    over its largest value."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import alexnet
+    from veles_tpu_torch.znicz.fused_graph import to_numpy
+    x, labels = alexnet.synthetic_imagenet_batch(ALEXNET_PARITY_BATCH)
+    out = {}
+    for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        prng.seed_all(SEED)
+        params, step, _e, _a = alexnet.build_fused(device=dev)
+        _p, metrics = step(params, torch.from_numpy(x).to(dev),
+                           torch.from_numpy(labels).to(dev))
+        out[dev.type] = (to_numpy(params), float(metrics["loss"]))
+    errs = {}
+    for i, (g, c) in enumerate(zip(out["cuda"][0], out["cpu"][0])):
+        for key, ref in c.items():
+            if ref is None or key == "seed":
+                continue
+            errs["%d.%s" % (i, key)] = float(
+                numpy.abs(g[key] - ref).max()
+                / max(float(numpy.abs(ref).max()), 1e-30))
+    seeds_equal = all(numpy.array_equal(g["seed"], c["seed"])
+                      for g, c in zip(out["cuda"][0], out["cpu"][0])
+                      if "seed" in c)
+    return errs, out["cuda"][1], out["cpu"][1], seeds_equal
+
+
+def phase_alexnet_fused(device, smi):
+    """``alexnet.build_fused()`` at full width (227×227×3, 1000 classes,
+    batch 128), f32 and bf16: ALEXNET_STEPS captured steps each on one
+    fixed batch, images/s, the GEMM launches a step (exact), one capture
+    and no recapture, a finite loss that falls; a profile of two f32
+    steps (where the time goes: cuDNN convs, the GEMM kernel, elementwise
+    work, copies) and of one eager step (no aten GEMM op: no cuBLAS in
+    the fully-connected layers); one f32 step at batch 8 held against
+    the port's CPU step; one captured VGG-A step at full width (224×224×3,
+    batch 32) with a finite loss."""
+    from veles_tpu_torch.samples import vgg
+    runs, paths, ok = {}, {}, True
+    for dtype in ("float32", "bfloat16"):
+        run = _alexnet_steps(device, dtype, batch=ALEXNET_BATCH)
+        per_step = {k: v / ALEXNET_STEPS for k, v in run["launches"].items()}
+        graph = run["graphs"]["step_%d" % ALEXNET_BATCH]
+        losses = run["losses"]
+        finite = all(numpy.isfinite(v) for v in losses)
+        falls = finite and numpy.mean(losses[-3:]) < numpy.mean(losses[:3])
+        counted = per_step == ALEXNET_STEP_LAUNCHES[dtype]
+        graphs_ok = (graph.get("eager") == 1 and graph.get("captures") == 1
+                     and graph.get("recaptures") == 0
+                     and graph.get("replays") == ALEXNET_STEPS + 1)
+        if dtype == "float32":
+            step, params = run["step"], run["params"]
+            x, labels = run["x"], run["labels"]
+
+            def two_steps():
+                for _ in range(2):
+                    step(params, x, labels)
+            profile = zoo_profile(two_steps)
+            run["profile"] = profile
+            kinds = profile["kernels_by_group"]
+            # a graph replay records no aten op: one eager step shows
+            # that no aten GEMM op runs (the fully-connected products
+            # are the 9 GEMM launches); the "matmul" kernels of the
+            # replays are then cuDNN's own (its im2col convs call
+            # cuBLAS)
+            eager = zoo_profile(lambda: step.step_fn(params, x, labels))
+            run["eager_profile"] = eager
+            want = ALEXNET_STEP_LAUNCHES[dtype]["matmul"]
+            profile_ok = (bool(eager["cudnn_conv_ops"])
+                          and not eager["blas_ops"]
+                          and eager["kernels_by_group"].get(
+                              "veles_matmul", 0) == want
+                          and kinds.get("conv", 0) > 0
+                          and kinds.get("veles_matmul", 0) == 2 * want)
+        else:
+            profile_ok = True
+        run_ok = finite and falls and counted and graphs_ok and profile_ok
+        ok = ok and run_ok
+        runs[dtype] = {
+            "ok": run_ok, "images_per_s": run["images_per_s"],
+            "step_ms": run["step_ms"], "losses": losses,
+            "launches_per_step": per_step,
+            "launches_per_step_expected": ALEXNET_STEP_LAUNCHES[dtype],
+            "graphs": run["graphs"], "profile": run.get("profile"),
+            "eager_step_profile": run.get("eager_profile")}
+        paths["alexnet_fused_" + dtype] = dict(run["launches"])
+        del run
+        torch.cuda.empty_cache()
+    errs, g_loss, c_loss, seeds_equal = _alexnet_parity()
+    weights, momenta = _split_leaves(errs, ".v")
+    worst = max(weights, key=weights.get)
+    worst_momentum = max(momenta, key=momenta.get)
+    parity_ok = (weights[worst] <= ALEXNET_PARAM_RTOL
+                 and momenta[worst_momentum] <= MOMENTUM_RTOL
+                 and seeds_equal
+                 and abs(g_loss - c_loss) <= 1e-4 * abs(c_loss))
+    torch.cuda.empty_cache()
+    vgg_run = _alexnet_steps(device, "float32", batch=VGG_BATCH, steps=1,
+                             input_shape=vgg.INPUT_SHAPE,
+                             build=vgg.build_fused)
+    vgg_graph = vgg_run["graphs"]["step_%d" % VGG_BATCH]
+    vgg_ok = (all(numpy.isfinite(v) for v in vgg_run["losses"])
+              and vgg_graph.get("captures") == 1
+              and vgg_graph.get("recaptures") == 0)
+    paths["vgg_fused"] = dict(vgg_run["launches"])
+    vgg_info = {"ok": vgg_ok, "losses": vgg_run["losses"],
+                "step_ms": vgg_run["step_ms"],
+                "images_per_s": vgg_run["images_per_s"],
+                "graphs": vgg_run["graphs"], "remat": True}
+    del vgg_run
+    torch.cuda.empty_cache()
+    ok = ok and parity_ok and vgg_ok
+    emit({"phase": "alexnet_fused", "nvidia_smi": smi, "ok": ok,
+          "input": "227x227x3, 1000 classes", "batch": ALEXNET_BATCH,
+          "steps_timed": ALEXNET_STEPS,
+          "data": "one synthetic N(0,1) batch (seed 0), the JAX "
+                  "package's stand-in", **runs,
+          "parity": {"batch": ALEXNET_PARITY_BATCH, "dtype": "float32",
+                     "param_rel_err_by_leaf": errs, "worst_leaf": worst,
+                     "worst_momentum_leaf": worst_momentum,
+                     "param_rtol": ALEXNET_PARAM_RTOL,
+                     "momentum_rtol": MOMENTUM_RTOL, "card_loss": g_loss,
+                     "cpu_loss": c_loss, "seeds_equal": seeds_equal,
+                     "ok": parity_ok},
+          "vgg": dict(vgg_info, input="224x224x3", batch=VGG_BATCH)})
+    for dtype, info in runs.items():
+        check(info["ok"], "alexnet_fused", "%s: launches a step %s (want "
+              "%s), graphs %s, losses %s, profile %s" % (
+                  dtype, info["launches_per_step"],
+                  info["launches_per_step_expected"], info["graphs"],
+                  info["losses"], info["profile"] and
+                  (info["profile"]["kernels_by_group"],
+                   info["profile"]["blas_ops"])))
+    check(parity_ok, "alexnet_fused", "card step against the CPU step: %s "
+          "%.3g (bound %g), %s %.3g (bound %g), losses %r %r, seeds equal "
+          "%s" % (worst, errs[worst], ALEXNET_PARAM_RTOL, worst_momentum,
+                  errs[worst_momentum], MOMENTUM_RTOL, g_loss, c_loss,
+                  seeds_equal))
+    check(vgg_ok, "alexnet_fused", "VGG-A step: %s" % vgg_info)
+    return paths
+
+
 # -- the batch serving path -------------------------------------------------
 
 SERVE_BATCH_EPOCHS = 2           # one validation and one train pass
@@ -7598,6 +8133,9 @@ def main():
         phase_mnist_fused_parity(device)
         paths["mnist_fused_bf16"] = phase_mnist_fused_bf16(device)
         paths["mnist_fused_epoch"] = phase_mnist_fused_epoch(device)
+        paths.update(phase_mnist_conv(device, info["nvidia_smi"]))
+        phase_mnist_conv_parity(device)
+        paths.update(phase_alexnet_fused(device, info["nvidia_smi"]))
         paths["serve_batch"], serving_timed = phase_serve_batch(
             device, info["nvidia_smi"])
         paths["ops"] = phase_ops(device)

@@ -191,9 +191,9 @@ def test_the_tick_and_adam_counter_advance_once_a_step(results):
 @pytest.mark.parametrize("call", [
     lambda: fused_graph.lower_specs(_layers(), (12,),
                                     grad_reduce_axis="data"),
+    # the layer zoo lowers (7(c)); the recurrent types do not yet
     lambda: fused_graph.lower_specs(
-        [{"type": "conv_tanh", "->": {"n_kernels": 2, "kx": 3, "ky": 3}}],
-        (6, 6, 1)),
+        [{"type": "lstm", "->": {"output_sample_shape": 4}}], (6, 3)),
 ])
 def test_what_the_lowering_leaves_out_names_its_item(call):
     with pytest.raises(NotImplementedError, match=r"item 7\((c|d)\)"):

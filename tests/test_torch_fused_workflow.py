@@ -26,7 +26,8 @@ against the JAX package, on the CPU.
   (eager and fused) against the JAX package under the protocols of
   ``tests/test_rollback.py`` and ``tests/test_lr_adjust.py``; mcdnnic
   parsing; the image saver's PNGs; serving a fused workflow.
-- The refusals: a conv layer (7(c)), a mesh (7(d)), the plotters (7(e),
+- The refusals: a recurrent layer (7(c); a conv topology builds now),
+  a mesh (7(d)), the plotters (7(e),
   refused when given at all: ``plotters_config={}`` built silently
   before) and ``rollback_config={}``, which links a Rollback with the
   JAX defaults (it linked none before).
@@ -550,9 +551,26 @@ def test_mcdnnic_topology_trains_as_its_layers():
 
 
 def test_a_conv_topology_is_refused_naming_7c():
+    """The layer zoo is ported: an mcdnnic conv topology builds its conv
+    layer; a recurrent layer is what still raises naming 7(c)."""
+    class TinyImages(Tiny):
+        def load_data(self):
+            _load(self)
+            self.original_data.mem = self.original_data.mem.reshape(
+                -1, 4, 3, 1)
+
+    wf = StandardWorkflow(
+        None, loader_factory=lambda w: TinyImages(w, minibatch_size=BATCH),
+        mcdnnic_topology="1x4x3-2C2-3N", fused=True,
+        decision_config={"max_epochs": 1})
+    wf.launcher = DummyLauncher()
+    wf.initialize(device=CPUDevice())
+    wf.run()
+    assert [s["type"] for s in wf.layers] == ["conv_tanh", "softmax"]
+    assert wf.forwards[0].weights.shape == (2, 2, 1, 2)
     with pytest.raises(NotImplementedError, match=r"item 7\(c\)"):
-        _build(False, layers=[], fused=True,
-               mcdnnic_topology="1x4x3-2C2-3N")
+        _build(False, layers=[{"type": "rnn", "->": {}},
+                              {"type": "softmax", "->": {}}], fused=True)
 
 
 def _saver(package, tmp, data, labels, preds, workflow):

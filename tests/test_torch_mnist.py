@@ -455,9 +455,10 @@ def test_workflow_options_not_ported_raise(engine_config):
     # the u8 dataset needs the stitched head, which stitch=off turns off
     with pytest.raises(ValueError, match="stitched"):
         mnist.create_workflow(device="cpu", native=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    # the layer zoo is ported (7(c)); the recurrent types still raise
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 7\(c\)"):
         mnist.create_workflow(device="cpu", layers=[
-            {"type": "conv", "->": {}}, {"type": "softmax", "->": {}}])
+            {"type": "lstm", "->": {}}, {"type": "softmax", "->": {}}])
 
 
 def test_mnist_cli_on_cpu(capsys):

@@ -301,7 +301,16 @@ def test_mse_loader_arms_match_the_jax_host_arm(engines):
 
 @pytest.mark.parametrize("option", ["conv", "rbm_pretrain"])
 def test_mnist_ae_options_not_ported_raise_naming_item_7(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    """``rbm_pretrain`` still raises naming 7(c); ``conv`` (the conv
+    autoencoder, ported with the layer zoo) builds its three layers."""
+    if option == "conv":
+        wf = mnist_ae.create_workflow(device="cpu", max_epochs=1,
+                                      conv=True)
+        assert [type(f).__name__ for f in wf.forwards] == [
+            "ConvTanh", "StochasticPoolingDepooling", "Deconv"]
+        assert wf.forwards[-1].output.shape[1:] == (28, 28, 1)
+        return
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 7\(c\)"):
         mnist_ae.create_workflow(device="cpu", **{option: True})
 
 

@@ -37,6 +37,12 @@
   ``engine.precision_type`` knob; ``plotters_config`` is refused naming
   7(e) whenever it is given, and ``fused_config``'s ``mesh_axes``,
   ``fsdp`` and ``tp`` naming 7(d).
+- The layer zoo (7(c), its conv half): its modules and samples import
+  no JAX, its entry points raise without a card, its CPU path never
+  loads the kernel builder, ``engine.s2d_conv`` forces the space-to-depth
+  choice of an eligible conv (True / False) or leaves it to the
+  heuristic (``"auto"``), the recurrent layer types are refused naming
+  7(c) and ``mesh=`` naming 7(d).
 """
 
 import ast
@@ -48,6 +54,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy
 import pytest
 import torch
 
@@ -1217,3 +1224,97 @@ def test_snapshotter_options_are_ported(tmp_path):
     assert wf.snapshotter.compression == "xz"
     assert wf.decision in wf.snapshotter.links_from
     assert wf.snapshotter in wf.decision.links_to
+
+
+# -- the layer zoo (7(c)) ----------------------------------------------------
+
+_ZOO_MODULES = ("znicz.activation", "znicz.conv", "znicz.pooling",
+                "znicz.normalization_units", "znicz.misc_units",
+                "znicz.gd_base", "samples.mnist_conv", "samples.cifar10",
+                "samples.stl10", "samples.alexnet", "samples.vgg",
+                "samples.mnist_ae", "samples.datasets")
+
+
+def test_importing_the_zoo_loads_no_jax_and_no_veles_tpu():
+    proc = _run(
+        "import importlib, json, sys\n"
+        "for m in %r:\n"
+        "    importlib.import_module('veles_tpu_torch.' + m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n" % (_ZOO_MODULES,))
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert "veles_tpu_torch.ops.build" not in loaded
+
+
+@pytest.mark.parametrize("entry", [
+    "mnist_conv", "cifar10", "stl10", "mnist_ae_conv", "alexnet", "vgg",
+    "vgg_workflow"])
+def test_zoo_entry_points_raise_without_a_card(no_cuda, entry):
+    from veles_tpu_torch.samples import (alexnet, cifar10, mnist_ae,
+                                         mnist_conv, stl10, vgg)
+    call = {"mnist_conv": mnist_conv.create_workflow,
+            "cifar10": cifar10.create_workflow,
+            "stl10": stl10.create_workflow,
+            "mnist_ae_conv": lambda: mnist_ae.create_workflow(conv=True),
+            "alexnet": alexnet.build_fused, "vgg": vgg.build_fused,
+            "vgg_workflow": vgg.create_workflow}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_cpu_conv_workflow_never_loads_the_kernel_builder():
+    proc = _run(
+        "import sys\n"
+        "from veles_tpu_torch.ops import gemm\n"
+        "from veles_tpu_torch.samples import mnist_conv\n"
+        "layers = [dict(s) for s in mnist_conv.LAYERS]\n"
+        "layers[4] = {'type': 'all2all_tanh', '->': "
+        "{'output_sample_shape': 16}}\n"
+        "wf = mnist_conv.create_workflow(device='cpu', max_epochs=1, "
+        "layers=layers, minibatch_size=500)\n"
+        "wf.run()\n"
+        "assert not any(gemm.launches.values())\n"
+        "assert 'veles_tpu_torch.ops.build' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+@pytest.mark.parametrize("knob,stride,want", [
+    ("auto", 2, True), (True, 2, True), (False, 2, False),
+    # an ineligible conv (stride 1) is never rewritten, forced or not
+    ("auto", 1, False), (True, 1, False)])
+def test_s2d_conv_knob_forces_the_choice(knob, stride, want):
+    from veles_tpu_torch.backends import CPUDevice
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.memory import Vector
+    from veles_tpu_torch.znicz.conv import Conv
+    from veles_tpu_torch.config import root
+    saved = root.common.engine.get("s2d_conv", "auto")
+    root.common.engine.s2d_conv = knob
+    unit = Conv(DummyWorkflow(), n_kernels=2, kx=3, ky=3,
+                sliding=(stride, stride))
+    unit.input = Vector(numpy.zeros((2, 9, 9, 3), numpy.float32))
+    unit.initialize(device=CPUDevice())
+    try:
+        assert unit.pure_config()["s2d"] is want
+        unit.run()
+    finally:
+        root.common.engine.s2d_conv = saved
+    assert unit.output.shape == unit.output_shape_for((2, 9, 9, 3))
+
+
+@pytest.mark.parametrize("call", ["workflow", "lowering", "mesh"])
+def test_zoo_refusals_name_their_items(call):
+    from veles_tpu_torch.samples import alexnet, mnist
+    from veles_tpu_torch.znicz import fused_graph
+    if call == "mesh":
+        with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
+            alexnet.build_fused(mesh=object(), device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match=r"item 7\(c\)"):
+        if call == "workflow":
+            mnist.create_workflow(device="cpu", layers=[
+                {"type": "rnn", "->": {}}, {"type": "softmax", "->": {}}])
+        else:
+            fused_graph.lower_specs(
+                [{"type": "lstm", "->": {}}], (4, 3))

@@ -1,9 +1,11 @@
 """Feature normalizers: the port's counterpart of
 :mod:`veles_tpu.normalization`, trimmed to the registry,
 ``normalizer_factory`` and the stateless normalizers (``none``,
-``scale``, ``linear``).  The ones that fit statistics on the TRAIN set
-(``range_linear``, ``mean_disp``, ``exp``, ``pointwise``,
-``external_mean``, ``internal_mean``) are not ported (ROADMAP item 7).
+``scale``, ``linear``) and ``internal_mean`` (the TRAIN set's mean
+subtracted, which the CIFAR-10 and STL-10 samples take).  The other
+ones that fit statistics on the TRAIN set (``range_linear``,
+``mean_disp``, ``exp``, ``pointwise``, ``external_mean``) are not
+ported (ROADMAP item 7(c)).
 
 The contract: ``analyze(data)`` streams over the TRAIN set once;
 ``normalize(data)`` edits a host batch in place; ``as_affine()`` is the
@@ -17,7 +19,7 @@ import numpy
 
 #: the JAX package's normalizers the port does not have yet
 _NOT_PORTED = ("range_linear", "mean_disp", "exp", "pointwise",
-               "external_mean", "internal_mean")
+               "external_mean")
 
 
 class NormalizerRegistry(type):
@@ -35,7 +37,8 @@ class NormalizerRegistry(type):
 def normalizer_factory(name, **kwargs):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            "normalization type %r is not ported yet (ROADMAP item 7)"
+            "normalization type %r is not ported yet (ROADMAP item "
+            "7(c))"
             % name)
     try:
         klass = NormalizerRegistry.normalizers[name]
@@ -111,3 +114,37 @@ class LinearNormalizer(NormalizerBase):
         dmax = flat.max(axis=1, keepdims=True)
         span = numpy.where(dmax > dmin, dmax - dmin, 1)
         flat[...] = (flat - dmin) / span * (hi - lo) + lo
+
+
+class InternalMeanNormalizer(NormalizerBase):
+    """Subtract the TRAIN set's mean sample (summed in float64 over every
+    ``analyze`` call, as the JAX normalizer sums it)."""
+
+    MAPPING = "internal_mean"
+
+    def __init__(self, **kwargs):
+        self._sum = None
+        self._count = 0
+        super(InternalMeanNormalizer, self).__init__(**kwargs)
+
+    def analyze(self, data):
+        batch = data.reshape(len(data), -1).astype(numpy.float64)
+        if self._sum is None:
+            self._sum = batch.sum(axis=0)
+        else:
+            self._sum += batch.sum(axis=0)
+        self._count += len(batch)
+
+    @property
+    def mean(self):
+        if self._sum is None:
+            raise RuntimeError("InternalMeanNormalizer used before "
+                               "analyze()")
+        return (self._sum / max(self._count, 1)).astype(numpy.float32)
+
+    def normalize(self, data):
+        flat = data.reshape(len(data), -1)
+        flat -= self.mean
+
+    def as_affine(self):
+        return (1.0, -self.mean.reshape(-1))

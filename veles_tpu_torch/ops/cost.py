@@ -64,6 +64,27 @@ def product(m, n, k, bias=False, activation=None):
             + EPILOGUE_FLOPS[activation] * m * n)
 
 
+def conv(dots, length, bias=False, activation=None):
+    """Flops of a convolution (or a transposed one) of ``dots`` dot
+    products of ``length`` terms (a conv: B·OH·OW·K outputs of
+    ky·kx·C/g, so ``2·B·OH·OW·K·ky·kx·C/g``), plus the bias and the
+    activation an output, as :func:`product` counts them."""
+    return (2.0 * dots * length + (dots if bias else 0)
+            + EPILOGUE_FLOPS[activation] * dots)
+
+
+def conv_grads(dots, length, dx=True, dw=True):
+    """Flops of a convolution's VJP: its two transposed products, the
+    input's gradient and the weights', each as many as the forward's."""
+    return 2.0 * dots * length * (int(bool(dx)) + int(bool(dw)))
+
+
+#: the flops of one output element of local response normalization
+#: beyond its n-channel window sum: the square, the scale and offset,
+#: the power and the product
+LRN_FLOPS = 5
+
+
 class Tally(object):
     """The work tallied on this thread inside a ``with`` block:
     ``flops`` and ``bytes`` after it exits, or :meth:`cost` as the

@@ -6,6 +6,15 @@ Counterpart of :mod:`veles_tpu.ops.random`.  Two paths, as there:
   explicit ``torch.Generator`` (the JAX package's ``jax.random`` key);
   they are plain torch, and are held to the distribution, not to
   threefry's bits.
+* :func:`threefry_bits`, :func:`threefry_uniform` and
+  :func:`threefry_bernoulli` give the bits of ``jax.random.bits``,
+  ``uniform`` and ``bernoulli`` over ``jax.random.key(seed)`` (the
+  threefry2x32 stream of JAX's default implementation, with
+  ``jax_threefry_partitionable`` on): the masks of dropout and
+  stochastic pooling, which the JAX units draw from an int32 seed.  They
+  are plain torch integer arithmetic over int64 tensors holding uint32
+  words, on the seed's device, so the seed may be a device tensor that a
+  CUDA graph advances in place.
 * :func:`uniform_pallas` fills ``[low, high)`` from ``(seed, shape)``
   alone: on the card the kernel (``csrc/random.cu`` ``veles_uniform``,
   replacing ``_uniform_kernel``), elsewhere :func:`_uniform_ref`.  Both
@@ -84,6 +93,66 @@ def dropout_mask(generator, shape, keep_prob, dtype=torch.float32):
     keep = draw < keep_prob
     return keep.to(dtype) / torch.tensor(keep_prob, dtype=dtype,
                                          device=generator.device)
+
+
+# -- threefry2x32: the bits of jax.random over jax.random.key(seed) ---------
+
+#: the rotations of threefry2x32's even and odd groups of four rounds
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+def threefry2x32(key, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
+    ``key = (k0, k1)``: int64 tensors (or ints) holding uint32 values;
+    returns the two output words."""
+    k0, k1 = key
+    ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def threefry_bits(seed, shape, device=None):
+    """``jax.random.bits(jax.random.key(seed), shape)`` (uint32 words in
+    an int64 tensor).  ``seed``: an int or a 0-d integer tensor, taken
+    as uint32 (the JAX units cast their int32 seed so); the key is
+    ``(0, seed)``.  The partitionable layout: element ``i`` (row-major)
+    hashes the counter ``(i >> 32, i & 0xFFFFFFFF)`` and its bits are
+    the XOR of the two output words.  On the seed tensor's device, else
+    ``device`` (the CPU by default)."""
+    if isinstance(seed, torch.Tensor):
+        device = seed.device
+        seed = seed.to(torch.int64) & _M32
+    else:
+        seed = int(seed) & _M32
+    shape = tuple(int(s) for s in shape)
+    count = math.prod(shape)
+    idx = torch.arange(count, dtype=torch.int64, device=device or "cpu")
+    x0, x1 = threefry2x32((0, seed), idx >> 32, idx & _M32)
+    return (x0 ^ x1).reshape(shape)
+
+
+def threefry_uniform(seed, shape, device=None):
+    """``jax.random.uniform(jax.random.key(seed), shape)`` in float32:
+    the top 23 bits of each word as the mantissa of a float in [1, 2),
+    minus 1."""
+    bits = threefry_bits(seed, shape, device)
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+def threefry_bernoulli(seed, p, shape, device=None):
+    """``jax.random.bernoulli(jax.random.key(seed), p, shape)`` for a
+    float ``p``: the uniform draw below ``p`` in float32."""
+    return threefry_uniform(seed, shape, device) < numpy.float32(p)
 
 
 # -- the counter-based uniform fill -----------------------------------------

@@ -5,10 +5,13 @@ Each named stream is the JAX package's numpy side copied exactly: a
 ``numpy.random.Generator(Philox(key=seed))`` with the stream's seed
 derived from the global base seed and a hash of its name.  So
 ``seed_all(s)`` gives the port the JAX package's initial weights
-(``forward_init``) and epoch shuffles (``loader``) bit for bit.  The
-JAX stream's ``jax.random`` key is dropped: no ported unit draws
-device noise yet, and the first that does gets a ``torch.Generator``
-seeded from its stream.  A stream pickles its exact Philox position
+(``forward_init``) and epoch shuffles (``loader``) bit for bit, and
+``randint`` the int32 seeds of dropout and stochastic pooling
+(``dropout``, ``stochastic_pooling``), whose masks
+:mod:`veles_tpu_torch.ops.random`'s threefry gives as JAX's
+``jax.random`` gives them.  The JAX stream's own ``key()`` (a
+``fold_in`` of the stream's seed) has no caller in the ported units and
+is not ported.  A stream pickles its exact Philox position
 (the JAX package's state dict): :class:`veles_tpu_torch.checkpoint
 .TrainCheckpointer` carries every stream's state in its meta, so a
 restored run draws from where the saved one stood.  The streams are the
@@ -64,6 +67,10 @@ class RandomGenerator(object):
         self._counter += 1
         arr[...] = self._numpy.uniform(
             low=low, high=high, size=arr.shape).astype(arr.dtype)
+
+    def randint(self, low, high=None, size=None):
+        self._counter += 1
+        return self._numpy.integers(low, high, size=size)
 
     def __getstate__(self):
         return {"name": self.name, "seed": self._seed,

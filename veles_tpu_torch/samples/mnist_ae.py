@@ -1,5 +1,8 @@
-"""The MNIST MLP autoencoder (784→100 sigmoid→784 sigmoid, MSE): the
-port's counterpart of :mod:`veles_tpu.samples.mnist_ae`.
+"""The MNIST autoencoders (MSE): the port's counterpart of
+:mod:`veles_tpu.samples.mnist_ae`.  The MLP one is 784→100 sigmoid→784
+sigmoid; ``conv=True`` builds the conv one over (28, 28, 1) images: a
+3×3 tanh conv of 8 kernels, the stochastic pool + depool bottleneck and
+the 3×3 deconv back to one channel (``make_conv_layers``).
 
 ``create_workflow()`` builds the ``StandardWorkflow`` over the
 resident MNIST images as both data and targets (the synthetic stand-in
@@ -9,12 +12,13 @@ CPU tensors.  Stitched (the default), each minibatch is the loader
 head's one served launch (data and targets, two f32 tables 784 wide)
 and the two sigmoid GEMMs and the MSE evaluator in one segment, and on
 train minibatches the two GD steps in the other; with
-``engine.epoch_scan=auto`` a class pass is one window.  Not ported:
-``conv=True`` (the conv autoencoder: conv and pooling units) and
-``rbm_pretrain=True`` (``rbm.py``), both ROADMAP item 7.  Run it with
+``engine.epoch_scan=auto`` a class pass is one window.  The conv
+autoencoder's stochastic pool-depool draws a seed at every run, so its
+chain is three stitched pieces around it.  Not ported:
+``rbm_pretrain=True`` (``rbm.py``, ROADMAP item 7(c)).  Run it with
 
     python -m veles_tpu_torch.samples.mnist_ae [--device cpu]
-        [--max-epochs N] [--epoch-scan off|auto|K]
+        [--max-epochs N] [--epoch-scan off|auto|K] [--conv]
 
 which prints ``gather_results()`` and the epochs per second.
 """
@@ -48,9 +52,30 @@ def make_layers(hidden=100, learning_rate=0.01):
     ]
 
 
+def make_conv_layers(kernels=8, learning_rate=0.01, pool_depool=True):
+    """The conv autoencoder: a conv encoder, the stochastic pool + depool
+    bottleneck, a deconv decoder."""
+    layers = [
+        {"type": "conv_tanh",
+         "->": {"n_kernels": kernels, "kx": 3, "ky": 3, "padding": 1},
+         "<-": {"learning_rate": learning_rate,
+                "gradient_moment": 0.9}},
+        {"type": "deconv",
+         "->": {"n_kernels": kernels, "kx": 3, "ky": 3, "padding": 1,
+                "output_channels": 1},
+         "<-": {"learning_rate": learning_rate,
+                "gradient_moment": 0.9}},
+    ]
+    if pool_depool:
+        layers.insert(1, {"type": "stochastic_pool_depool",
+                          "->": {"kx": 2, "ky": 2}})
+    return layers
+
+
 class MnistAELoader(FullBatchLoaderMSE):
     """Targets = inputs (reconstruction); no labels."""
 
+    #: (784,) for the MLP autoencoder, (28, 28, 1) for the conv one
     SAMPLE_SHAPE = (784,)
 
     def load_data(self):
@@ -66,25 +91,29 @@ class MnistAELoader(FullBatchLoaderMSE):
         self.class_lengths[:] = [0, len(te_y), len(tr_x)]
 
 
+class MnistConvAELoader(MnistAELoader):
+    SAMPLE_SHAPE = (28, 28, 1)
+
+
 def create_workflow(device=None, max_epochs=15, minibatch_size=100,
                     hidden=100, rbm_pretrain=False, conv=False,
                     **kwargs):
-    """The MLP autoencoder workflow, initialized on ``device`` (the
-    card when None; raises without one)."""
-    if conv:
-        raise NotImplementedError(
-            "mnist_ae conv=True (the conv autoencoder: conv and pooling "
-            "units) is not ported yet (ROADMAP item 7)")
+    """The autoencoder workflow (the conv one with ``conv``),
+    initialized on ``device`` (the card when None; raises without
+    one)."""
     if rbm_pretrain:
         raise NotImplementedError(
             "mnist_ae rbm_pretrain=True (rbm.py) is not ported yet "
-            "(ROADMAP item 7)")
+            "(ROADMAP item 7(c))")
     device = make_device(device)
+    loader_class = MnistConvAELoader if conv else MnistAELoader
+    layers = kwargs.pop("layers", None) or (
+        make_conv_layers() if conv else make_layers(hidden=hidden))
     wf = StandardWorkflow(
         None,
-        loader_factory=lambda w: MnistAELoader(
+        loader_factory=lambda w: loader_class(
             w, minibatch_size=minibatch_size),
-        layers=kwargs.pop("layers", None) or make_layers(hidden=hidden),
+        layers=layers,
         loss_function="mse",
         decision_config={"max_epochs": max_epochs},
         **kwargs)
@@ -96,7 +125,7 @@ def create_workflow(device=None, max_epochs=15, minibatch_size=100,
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m veles_tpu_torch.samples.mnist_ae",
-        description="Train the MNIST MLP autoencoder through the "
+        description="Train the MNIST autoencoder through the "
         "workflow.")
     parser.add_argument("--device", default=None,
                         help="cpu, or a cuda device (default: the card)")
@@ -105,12 +134,14 @@ def main(argv=None):
     parser.add_argument("--epoch-scan", default=None,
                         help="engine.epoch_scan: off, auto or a window "
                         "length K (default: the config's, off)")
+    parser.add_argument("--conv", action="store_true",
+                        help="the conv autoencoder")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     if args.epoch_scan is not None:
         root.common.engine.epoch_scan = args.epoch_scan
     wf = create_workflow(device=args.device, max_epochs=args.max_epochs,
-                         minibatch_size=args.minibatch_size)
+                         minibatch_size=args.minibatch_size, conv=args.conv)
     tic = time.perf_counter()
     wf.run()
     wf.device.sync()

@@ -17,14 +17,24 @@ their addresses stay fixed across the graph's replays; it returns the
 same list.  It carries what the JAX lowering carries: the five solvers
 (momentum, adam with its ``t``, adagrad, adadelta, iRprop−) with
 ``l1_vs_l2`` and ``factor_ortho``; ``grad_accum`` (microbatches summed
-in order, one update); ``remat`` (``torch.utils.checkpoint`` around a
+in order, one update, each microbatch's seeds offset by the JAX stride);
+``remat`` (``torch.utils.checkpoint`` around a
 layer, per layer or for all); the LR-adjuster tick in each layer's
 state; ``input_norm`` and ``compute_dtype`` (bf16 operands with f32
 master weights and solver state); and the padded-batch loss
 denominators.
 
-Only the all2all family lowers here; any other layer type waits for the
-layer zoo (ROADMAP item 7(c)), and ``grad_reduce_axis`` (the
+Every registered layer type lowers, as in the JAX package: the all2all
+family through the GEMM kernel's autograd, the layer zoo (conv, pooling,
+LRN, dropout, deconv, …) through its ``pure_fn``'s autograd (cuDNN for
+the convolutions on the card).  A stage whose ``pure_params`` holds a
+``seed`` (dropout, stochastic pooling) gets one in its state, drawn from
+the ``dropout`` stream at lowering as the JAX lowering draws it: a 0-d
+int32 tensor that the step advances in place as ``(seed + 1) &
+0x3fffffff``, so a CUDA graph of the step draws new masks at every
+replay with no host generator.  ``apply_fn`` and ``eval_fn`` leave out
+the ``SKIP_AT_EVAL`` stages (dropout).  The recurrent types (``lstm``,
+``rnn``) wait for ROADMAP item 7(c), and ``grad_reduce_axis`` (the
 explicit-collective data parallelism) for item 7(d).
 """
 
@@ -44,34 +54,36 @@ def default_lr(solver):
     return 1.0 if str(solver) == "adadelta" else 0.01
 
 
-def fused_types():
-    """The layer types the lowering takes: the all2all family."""
-    from veles_tpu_torch.znicz import all2all
-    return {cls.MAPPING: cls for cls in (
-        all2all.All2All, all2all.All2AllTanh, all2all.All2AllSigmoid,
-        all2all.All2AllRELU, all2all.All2AllStrictRELU,
-        all2all.All2AllSoftmax)} | {
-        alias: all2all.All2AllStrictRELU
-        for alias in all2all.All2AllStrictRELU.MAPPING_ALIASES}
+#: layer types of the JAX lowering not ported yet, with their ROADMAP item
+_NOT_PORTED_TYPES = {"lstm": "7(c)", "rnn": "7(c)"}
+
+#: the grad_accum microbatch stride of the stage seeds (the JAX step's)
+SEED_STRIDE = 0x3504f325
+SEED_MASK = 0x3fffffff
 
 
 def probe_units(layer_specs, sample_shape):
-    """One host-initialized probe unit a layer spec: the weights filled
-    from the ``forward_init`` stream, then the spec's ``init`` weights
-    put in, each unit's ``output`` feeding the next one's ``input``."""
+    """One host-initialized probe unit a layer spec, of any registered
+    type: the weights filled from the ``forward_init`` stream, then the
+    spec's ``init`` weights put in, each unit's ``output`` feeding the
+    next one's ``input``."""
     from veles_tpu_torch.dummy import DummyWorkflow
     from veles_tpu_torch.memory import Vector
+    from veles_tpu_torch.units import UnitRegistry
+    from veles_tpu_torch.znicz import (  # noqa: F401 - the registry
+        activation, all2all, conv, misc_units, normalization_units,
+        pooling)
 
-    types = fused_types()
     wf = DummyWorkflow()
     probe = Vector(numpy.zeros((2,) + tuple(sample_shape), numpy.float32))
     units = []
     for spec in layer_specs:
-        klass = types.get(spec["type"])
-        if klass is None:
+        if spec["type"] in _NOT_PORTED_TYPES:
             raise NotImplementedError(
                 "layer type %r is not ported to the fused lowering yet "
-                "(ROADMAP item 7(c), the layer zoo)" % (spec["type"],))
+                "(ROADMAP item %s)" % (spec["type"],
+                                       _NOT_PORTED_TYPES[spec["type"]]))
+        klass = UnitRegistry.mapped[spec["type"]]
         unit = klass(wf, **dict(spec.get("->", {})))
         unit.input = probe
         unit.initialize(device=None)
@@ -266,9 +278,8 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
     stages = []      # (pure_fn, config, hyper, skip_at_eval)
     params = []
     for spec, unit in zip(layer_specs, units):
-        layer_params = {"w": numpy.array(unit.weights.mem)}
-        if unit.include_bias and unit.bias:
-            layer_params["b"] = numpy.array(unit.bias.mem)
+        layer_params = {k: numpy.array(v) for k, v in
+                        unit.pure_params(host=True).items()}
         bw = spec.get("<-", {})
         solver = str(bw.get("solver", "momentum"))
         if solver not in SOLVERS:
@@ -285,8 +296,13 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
             pure = _remat_stage(pure, unit.pure_config())
         stages.append((pure, unit.pure_config(), hyper,
                        bool(getattr(type(unit), "SKIP_AT_EVAL", False))))
-        params.append(_state_of(layer_params, solver, hyper,
-                                policies is not None))
+        state = _state_of(layer_params, solver, hyper, policies is not None)
+        if "seed" in state:
+            # a fresh stream a stage, advanced by every step
+            from veles_tpu_torch import prng
+            state["seed"] = numpy.int32(
+                prng.get("dropout").randint(0, 2 ** 30))
+        params.append(state)
 
     norm_cache = {}
 
@@ -316,18 +332,20 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
                 stages, params_list):
             if skip_at_eval and not train:
                 continue
-            p = {k: v for k, v in state.items() if k in ("w", "b")
-                 and v is not None}
+            p = {k: v for k, v in state.items()
+                 if k in ("w", "b", "seed") and v is not None}
             h = pure(p, h, **config)
         return h
 
-    def loss_fn(wb_list, x, labels):
+    def loss_fn(wb_list, aux_list, x, labels):
         h = _ingest(x)
         if compute_dtype is not None:
             h = h.to(compute_dtype)
-        for (pure, config, _hyper, _skip), wb in zip(stages, wb_list):
+        for (pure, config, _hyper, _skip), wb, aux in zip(stages, wb_list,
+                                                          aux_list):
             p = ({k: v.to(compute_dtype) for k, v in wb.items()}
                  if compute_dtype is not None else dict(wb))
+            p.update(aux)
             h = pure(p, h, **config)
         out = h.float()
         if loss == "softmax":
@@ -353,6 +371,8 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
     def _grads(params_list, x, labels):
         keys = [[k for k in ("w", "b") if state.get(k) is not None]
                 for state in params_list]
+        aux_list = [{"seed": state["seed"]} if "seed" in state else {}
+                    for state in params_list]
         with torch.enable_grad():
             leaves = [{k: state[k].detach().requires_grad_(True)
                        for k in layer_keys}
@@ -360,7 +380,8 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
             flat = [leaf[k] for leaf, layer_keys in zip(leaves, keys)
                     for k in layer_keys]
             if grad_accum == 1:
-                value, n_err, report = loss_fn(leaves, x, labels)
+                value, n_err, report = loss_fn(leaves, aux_list, x,
+                                               labels)
                 grads = list(torch.autograd.grad(value, flat))
             else:
                 batch = x.shape[0]
@@ -377,8 +398,13 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
                 # at a time, the gradients are summed, ONE update
                 for i in range(grad_accum):
                     chunk = slice(i * size, (i + 1) * size)
+                    # each microbatch draws its own masks: the chunk
+                    # index folded into every stage seed
+                    aux_i = [{k: (v.to(torch.int64) + i * SEED_STRIDE)
+                              .bitwise_and(SEED_MASK).to(torch.int32)
+                              for k, v in aux.items()} for aux in aux_list]
                     value, err_c, report_c = loss_fn(
-                        leaves, x[chunk], labels[chunk])
+                        leaves, aux_i, x[chunk], labels[chunk])
                     for g, gi in zip(grads, torch.autograd.grad(value,
                                                                 flat)):
                         g.add_(gi)
@@ -399,6 +425,10 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
             for state, layer_grads, (_p, _c, hyper, _s) in zip(
                     params_list, grads, stages):
                 _solver_update(state, layer_grads, hyper, policies)
+                if "seed" in state:
+                    # the stage's mask stream advances a step, in place
+                    seed = state["seed"]
+                    seed.copy_((seed + 1).bitwise_and(SEED_MASK))
         return params_list, {"loss": report.detach(),
                              "n_err": n_err.detach()}
 

@@ -108,6 +108,48 @@ class _Program(object):
         return out
 
 
+class GraphStep(object):
+    """A lowered ``step_fn(params, x, labels)`` run as the trainer runs
+    it: a step shape's first call eager (on a side stream on the card),
+    the second captured into one CUDA graph and replayed, every later
+    call a replay; eager on the CPU.  ``x`` and ``labels`` are copied
+    into the shape's own buffers, which the graph reads, and ``params``
+    (updated in place) must be the list of every call.  Returns
+    ``(params, metrics)``, the metrics as the graph holds them (read
+    them before the next call).  :meth:`report` gives each shape's
+    eager calls, captures, recaptures and replays."""
+
+    def __init__(self, step_fn, name="step"):
+        self.step_fn = step_fn
+        self.name = name
+        self._programs = {}
+
+    def __call__(self, params, x, labels):
+        key = (tuple(x.shape), x.dtype, tuple(labels.shape))
+        entry = self._programs.get(key)
+        if entry is None:
+            sx, sy = torch.empty_like(x), torch.empty_like(labels)
+
+            def fn():
+                return self.step_fn(entry[3], sx, sy)[1]
+            entry = [_Program("%s_%d" % (self.name, x.shape[0]), fn,
+                              x.device), sx, sy, params]
+            self._programs[key] = entry
+        program, sx, sy, bound = entry
+        if bound is not params:
+            raise ValueError("GraphStep: params must be the list the step "
+                             "was first called with (updated in place)")
+        sx.copy_(x)
+        sy.copy_(labels)
+        tensors = [sx, sy] + [t for state in params for t in state.values()
+                              if t is not None]
+        return params, program(tensors)
+
+    def report(self):
+        return {"%s_%d" % (self.name, key[0][0]): entry[0].report()
+                for key, entry in self._programs.items()}
+
+
 class FusedTrainer(AcceleratedUnit):
     """Runs lower_specs' step and eval for the workflow's layer stack,
     exposing ``n_err`` (softmax) or ``mse`` (MSE) after every run, so a

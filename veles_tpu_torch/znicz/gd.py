@@ -32,11 +32,24 @@ from veles_tpu_torch.memory import Vector
 from veles_tpu_torch.ops.gemm import gd_fused
 from veles_tpu_torch.znicz.nn_units import GradientDescentBase
 
+#: backward options the GD kernels do not take (the layer zoo's
+#: GDViaVJP units take them)
+_GD_NOT_PORTED = ("l1_vs_l2", "l1_vs_l2_bias", "factor_ortho")
+
+
 class GradientDescent(GradientDescentBase):
     """Backward for plain All2All (identity activation)."""
 
     MAPPING = "gd"
     ACTIVATION = None
+
+    def __init__(self, workflow, **kwargs):
+        for key in _GD_NOT_PORTED:
+            if kwargs.get(key):
+                raise NotImplementedError(
+                    "GD option %r is not ported to the all2all GD kernels "
+                    "yet (ROADMAP item 7)" % key)
+        super(GradientDescent, self).__init__(workflow, **kwargs)
 
     def initialize(self, device=None, **kwargs):
         check_kernels("the GD units' dense route")

@@ -13,9 +13,9 @@ Grammar (dash-separated tokens after the input shape):
 - ``<n>N``: a fully-connected layer of ``n`` neurons; the LAST one is
   the softmax output layer, earlier ones scaled-tanh hidden layers.
 
-The whole grammar parses here.  The convolution and pooling layer types
-come with the layer zoo (ROADMAP item 7(c)): a workflow built from a
-topology that holds them raises there, naming it.
+The whole grammar parses here, and every token builds: ``C`` gives a
+``conv_tanh`` layer and ``MP`` a ``max_pooling`` one
+(:mod:`veles_tpu_torch.znicz.conv`, :mod:`veles_tpu_torch.znicz.pooling`).
 """
 
 import re

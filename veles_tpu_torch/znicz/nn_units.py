@@ -7,7 +7,14 @@ counterpart of :mod:`veles_tpu.znicz.nn_units`.
 the JAX package's initial weights).  A forward class defines
 ``pure(params, x)``, its output from ``{"w", "b"}`` tensors and the
 input; its ``cuda_run`` and its generic stitched stage
-(:meth:`ForwardBase.stitch_stage`) both call it.  ``GradientDescentBase`` holds the
+(:meth:`ForwardBase.stitch_stage`) both call it.  The layer zoo's
+forwards (:class:`PureForward`) have the JAX units' static form: a
+``pure_fn(params, x, **config)`` and the unit's ``pure_config()``, which
+their backward (:class:`~veles_tpu_torch.znicz.gd_base.GDViaVJP`) and
+the fused lowering differentiate; ``pure_params`` may carry more than
+the parameters (dropout's and stochastic pooling's ``seed``,
+depooling's ``offsets``), and such a unit is a stitching barrier, as in
+the JAX package.  ``GradientDescentBase`` holds the
 backward hyperparameters and the momenta ``gradient_weights`` /
 ``gradient_bias``, with the update rule (docs ``:547-556``)::
 
@@ -22,10 +29,6 @@ import numpy
 from veles_tpu_torch import prng
 from veles_tpu_torch.accelerated_units import AcceleratedUnit
 from veles_tpu_torch.memory import Vector
-
-#: backward options of the JAX package this slice does not port
-_GD_NOT_PORTED = ("l1_vs_l2", "l1_vs_l2_bias", "factor_ortho")
-
 
 class ForwardBase(AcceleratedUnit):
     """Forward layer base."""
@@ -54,24 +57,34 @@ class ForwardBase(AcceleratedUnit):
         ``b`` absent without a bias) and the input tensor ``x``."""
         raise NotImplementedError
 
-    def pure_params(self):
-        """``{"w", "b"}`` device tensors of the layer's parameters."""
-        params = {"w": self.weights.devmem}
+    def pure_params(self, host=False):
+        """``{"w", "b"}`` of the layer's parameters (those it has): device
+        tensors, or host numpy arrays with ``host``."""
+        params = {}
+        if self.weights:
+            params["w"] = self.weights.mem if host else self.weights.devmem
         if self.include_bias and self.bias:
-            params["b"] = self.bias.devmem
+            params["b"] = self.bias.mem if host else self.bias.devmem
         return params
 
     def stitch_stage(self):
         """The generic forward stage: :meth:`pure` over the w/b Vectors,
         consuming ``input`` and producing ``output``; None for a class
-        without ``pure``."""
+        without ``pure`` and for a unit whose ``pure_params`` carries
+        more than w and b (a seed drawn at every run, which a replay
+        would freeze, or another unit's offsets)."""
         from veles_tpu_torch.stitch import StitchStage
         if type(self).pure is ForwardBase.pure \
                 or not isinstance(self.input, Vector) \
                 or not self.input or not self.output:
             return None
+        if any(key not in ("w", "b")
+               for key in self.pure_params(host=True)):
+            return None
         out_shape = tuple(self.output.shape)
-        params = {"w": self.weights}
+        params = {}
+        if self.weights:
+            params["w"] = self.weights
         if self.include_bias and self.bias:
             params["b"] = self.bias
         keys = tuple(sorted(params))
@@ -123,6 +136,28 @@ class ForwardBase(AcceleratedUnit):
             self.bias.reset(numpy.array(state["bias"]))
 
 
+class PureForward(ForwardBase):
+    """A layer-zoo forward: ``pure_fn(params, x, **pure_config())``, a
+    static function as in the JAX units, with the unit's configuration
+    read at each call; ``cuda_run`` publishes its output."""
+
+    hide_from_registry = True
+
+    def pure_config(self):
+        return {}
+
+    @staticmethod
+    def pure_fn(params, x):
+        raise NotImplementedError
+
+    def pure(self, params, x):
+        return type(self).pure_fn(params, x, **self.pure_config())
+
+    def cuda_run(self):
+        self.output.devmem = self.pure(self.pure_params(),
+                                       self.input.devmem)
+
+
 class GradientDescentBase(AcceleratedUnit):
     """Backward layer base: consumes ``err_output`` and the forward's
     ``input``/``output``, produces ``err_input`` and updates the
@@ -133,10 +168,6 @@ class GradientDescentBase(AcceleratedUnit):
     MAPPING = None
 
     def __init__(self, workflow, **kwargs):
-        for key in _GD_NOT_PORTED:
-            if kwargs.get(key):
-                raise NotImplementedError(
-                    "GD option %r is not ported yet (ROADMAP item 7)" % key)
         super(GradientDescentBase, self).__init__(workflow, **kwargs)
         self.input = None
         self.output = None
@@ -152,6 +183,14 @@ class GradientDescentBase(AcceleratedUnit):
         self.gradient_moment = kwargs.get("gradient_moment", 0.0)
         self.gradient_moment_bias = kwargs.get(
             "gradient_moment_bias", kwargs.get("gradient_moment", 0.0))
+        #: the regularization mix: 1.0 = pure L1 (λ·sign(w)), 0.0 =
+        #: pure L2 (λ·w)
+        self.l1_vs_l2 = float(kwargs.get("l1_vs_l2", 0.0))
+        self.l1_vs_l2_bias = float(kwargs.get(
+            "l1_vs_l2_bias", kwargs.get("l1_vs_l2", 0.0)))
+        #: the soft-orthogonality weight: the gradient gains
+        #: factor_ortho · W·(WᵀW − I) over the weights flattened to 2-D
+        self.factor_ortho = float(kwargs.get("factor_ortho", 0.0))
         self.include_bias = kwargs.get("include_bias", True)
         #: compute err_input (False for the first layer: saves a GEMM)
         self.need_err_input = kwargs.get("need_err_input", True)

@@ -37,6 +37,16 @@ parameters from the restored forwards.  Not ported: the plotters
 (ROADMAP item 7(e)); an option the port does not take is refused when
 it is given at all, not only when it is truthy.
 
+The layer types are those of the JAX package's ``GD_PAIRS`` but the
+recurrent ``lstm`` and ``rnn`` (ROADMAP item 7(c)): the all2all family
+on the GEMM and GD kernels, and the layer zoo (conv, pooling, LRN,
+dropout, the activations, deconv, the cutter, the channel splitter,
+depooling, ``rprop_all2all``, ``resizable_all2all``), whose backward
+units are VJPs of their forwards (:mod:`veles_tpu_torch.znicz.gd_base`).
+A dropout layer's ``forward_mode`` is a ``ClassSkipGate``: the identity
+off TRAIN minibatches.  ``zero_filter`` and ``channel_merger`` are
+service units, refused in ``layers`` with the JAX package's text.
+
 ``loss_function="mse"`` (the default when the last layer is not a
 softmax) takes ``EvaluatorMSE`` against the loader's
 ``minibatch_targets`` (a :class:`~veles_tpu_torch.loader.fullbatch.
@@ -52,21 +62,62 @@ from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import Repeater
 from veles_tpu_torch.units import UnitRegistry
-from veles_tpu_torch.znicz import all2all, gd  # noqa: F401 - registry
+from veles_tpu_torch.znicz import (  # noqa: F401 - populate the registry
+    activation, all2all, conv, gd, misc_units, normalization_units,
+    pooling)
 from veles_tpu_torch.znicz.decision import DecisionGD, DecisionMSE
 from veles_tpu_torch.znicz.evaluator import EvaluatorMSE, EvaluatorSoftmax
 
-#: forward MAPPING → paired gradient MAPPING (the all2all family and
-#: softmax; the JAX package's table also pairs conv, pooling, rnn, …)
+#: forward MAPPING → paired gradient MAPPING: the JAX package's table but
+#: the recurrent types (:data:`_NOT_PORTED_TYPES`)
 GD_PAIRS = {
     "all2all": "gd",
     "all2all_tanh": "gd_tanh",
     "all2all_sigmoid": "gd_sigmoid",
     "all2all_relu": "gd_relu",
     "all2all_strict_relu": "gd_strict_relu",
-    "all2all_str": "gd_strict_relu",
+    "resizable_all2all": "gd",
+    # sign-based per-weight step sizes (iRprop−)
+    "rprop_all2all": "gd_rprop",
     "softmax": "gd_softmax",
+    "conv": "gd_conv",
+    "conv_tanh": "gd_conv_tanh",
+    "conv_sigmoid": "gd_conv_sigmoid",
+    "conv_relu": "gd_conv_relu",
+    "conv_strict_relu": "gd_conv_strict_relu",
+    "max_pooling": "gd_max_pooling",
+    "maxabs_pooling": "gd_max_pooling",
+    "avg_pooling": "gd_avg_pooling",
+    "stochastic_pooling": "gd_stochastic_pooling",
+    "stochasticabs_pooling": "gd_stochastic_pooling",
+    "stochastic_pool_depool": "gd_stochastic_pooling",
+    "stochastic_abs_pool_depool": "gd_stochastic_pooling",
+    # forward-only layer types: the backward is the VJP of the forward
+    "depooling": "gd_generic",
+    "channel_splitter": "gd_generic",
+    "lrn": "gd_lrn",
+    "dropout": "gd_dropout",
+    # the alias spellings pair with their canonical names' backwards
+    "all2all_str": "gd_strict_relu",
+    "conv_str": "gd_conv_strict_relu",
+    "activation_str": "gd_activation",
+    "norm": "gd_lrn",
+    "stochastic_abs_pooling": "gd_stochastic_pooling",
+    "deconv": "gd_deconv",
+    "cutter": "gd_cutter",
+    "activation_tanh": "gd_activation",
+    "activation_sigmoid": "gd_activation",
+    "activation_relu": "gd_activation",
+    "activation_strict_relu": "gd_activation",
+    "activation_log": "gd_activation",
+    "activation_tanhlog": "gd_activation",
+    "activation_sincos": "gd_activation",
+    "activation_mul": "gd_activation",
 }
+
+#: layer types of the JAX package's table not ported yet, with the ROADMAP
+#: item that will port each
+_NOT_PORTED_TYPES = {"lstm": "7(c)", "rnn": "7(c)"}
 
 #: StandardWorkflow options of the JAX package not ported yet, with the
 #: ROADMAP item that will port each; refused when given (not None)
@@ -256,21 +307,36 @@ class StandardWorkflow(AcceleratedWorkflow):
                 (mapping, ", ".join(sorted(UnitRegistry.mapped))))
         return klass(self, **params)
 
+    #: registered unit types that are NOT chainable layers: they have no
+    #: single input → output seam for link_forwards / link_gds
+    NON_LAYER_TYPES = frozenset({"zero_filter", "channel_merger"})
+
     def link_forwards(self, chain=True):
         """The forward units; with ``chain=False`` (fused mode) they are
         attribute-linked for shape inference and weight storage but stay
         out of the control graph: the FusedTrainer computes."""
+        from veles_tpu_torch.znicz.normalization_units import DropoutForward
         prev = self.loader
         prev_attr = "minibatch_data"
         for spec in self.layers:
-            if spec["type"] not in GD_PAIRS:
+            if spec["type"] in _NOT_PORTED_TYPES:
                 raise NotImplementedError(
-                    "layer type %r is not ported yet (ROADMAP item 7(c), "
-                    "the layer zoo)" % spec["type"])
+                    "layer type %r is not ported yet (ROADMAP item %s)"
+                    % (spec["type"], _NOT_PORTED_TYPES[spec["type"]]))
+            if spec["type"] in self.NON_LAYER_TYPES:
+                raise ValueError(
+                    "%r is a service unit, not a chainable layer — "
+                    "construct it directly (e.g. ZeroFiller(wf, "
+                    "mask=...).target_unit = fwd; ChannelMerger(wf)"
+                    ".link_inputs(...)) instead of listing it in "
+                    "layers" % spec["type"])
             unit = self._make_unit(spec["type"], dict(spec.get("->", {})))
             if chain:
                 unit.link_from(prev)
             unit.link_attrs(prev, ("input", prev_attr))
+            if isinstance(unit, DropoutForward):
+                # dropout is the identity off TRAIN minibatches
+                unit.forward_mode = ClassSkipGate(self.loader, TRAIN)
             init = spec.get("init")
             if init:
                 # pre-seeded parameters: initialize() keeps them

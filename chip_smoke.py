@@ -396,7 +396,15 @@ bias merge) and times each kernel at the MNIST shapes and 4096³ beside
 its f32 bound, the plain version and one PyTorch call (``addmm``,
 ``mm``, ``sum``), with the (tile, split) it ran: dw with the bias step
 as the main path launches it and without, and gd_db as the time the
-bias step adds to the dw launch.  These
+bias step adds to the dw launch.  The bf16 GEMM (``csrc/gemm_bf16.cu``)
+is held on both of its bodies (W: TMA + wgmma; S: ldmatrix + mma.sync)
+within one bf16 ulp of the plain version and of the plain model of its
+split sum, at the fused MNIST step's products, AlexNet's six bf16 fc
+products, 4096^3, two ragged shapes in each of the four layout pairs
+(split 4, and unsplit through the TMA stores), an output pitch TMA
+cannot store and unaligned views; each body's relaunch is bit-equal,
+and each main-path product is timed beside its bound, ``addmm`` and
+the body, tile and split it took.  These
 times are device times of back-to-back calls (queued behind a spin
 kernel, one CUDA-event pair around them, per call): at the MNIST
 shapes a CUDA-event pair around one call times the host wrapper, which
@@ -479,6 +487,7 @@ result.
 """
 
 import contextlib
+import copy
 import itertools
 import json
 import re
@@ -691,6 +700,8 @@ _GEMM_BODY = re.compile(r"veles_gemm_kernel<(\d+),\s*(\d+)>")
 
 def _kernel_group(name):
     for tag, group in (("qmatmul_kernel", "qmatmul"),
+                       ("veles_gemm_bf16_tma", "veles_matmul_bf16"),
+                       ("veles_gemm_bf16_ldsm", "veles_matmul_bf16"),
                        ("reduce_axis0_kernel", "reduce"),
                        ("reduce_axis1_kernel", "reduce"),
                        ("reduce_rows_kernel", "reduce"),
@@ -1452,11 +1463,12 @@ GEMM_FUSED_SHAPES = (((784, 100, 100), "a"), ((100, 100, 10), "a"),
 
 
 def _as_view(a, w, view):
-    """``a`` or ``w`` (``view`` "a" or "w") as the transposed view of a
-    contiguous copy: the same values through the other strides."""
-    if view == "a":
+    """``a``, ``w`` or both (``view`` "a", "w" or "aw") as the transposed
+    view of a contiguous copy: the same values through the other
+    strides."""
+    if view and "a" in view:
         a = a.t().contiguous().t()
-    elif view == "w":
+    if view and "w" in view:
         w = w.t().contiguous().t()
     return a, w
 
@@ -1854,95 +1866,275 @@ def _gemm_kernels(device):
             "planted_faults": planted}, timed, ok
 
 
-# -- the bf16 body of the GEMM (csrc/gemm.cu veles_matmul_bf16) -------------
+# -- the bf16 bodies of the GEMM (csrc/gemm_bf16.cu veles_matmul_bf16) ------
 
 #: bf16 products against the plain version (the f32 product of the same
 #: bf16 operands, rounded once): within one bf16 ulp (2^-7 relative) and
 #: 2^-8 absolute, for outputs near 0 that another f32 summation order
 #: rounds to the other side
 BF16_GEMM_TOL = (2.0 ** -8, 2.0 ** -7)
-#: (M, K, N), activation and which operand is a transposed view: the
-#: ragged shape, the fused bf16 step's products (layer 1's forward, its
-#: weight gradient a^T·δ through a transposed view of a; the f32 softmax
-#: layer's shapes for the record) and 4096^3
-GEMM_BF16_SHAPES = (((37, 70, 50), "a"), ((100, 784, 100), None),
-                    ((784, 100, 100), "a"), ((100, 100, 10), "w"),
-                    ((GEMM_BIG,) * 3, None))
-#: the shapes timed: the fused step's three (layer 1's forward, layer 1's
-#: weight gradient, the (100, 100, 10) layer-2 product) and 4096^3
-GEMM_BF16_TIMED = (((100, 784, 100), "tanh", None),
-                   ((784, 100, 100), None, "a"),
-                   ((100, 100, 10), None, None),
-                   ((GEMM_BIG,) * 3, None, None))
+#: AlexNet's fully-connected layers' activations: strict relu (fc6, fc7)
+#: and linear (a backward product: no bias, no activation)
+ALEXNET_FC_ACTIVATIONS = ("strict_relu", None)
+#: (M, K, N), which operand is a transposed view ("a", "w" or both:
+#: "aw"), and the activations held there, each with and without the
+#: bias: a ragged shape and the fused MNIST step's products (layer 1's
+#: forward, its weight gradient a^T·δ through a transposed view of a, the
+#: (100, 100, 10) layer-2 product) at every activation; AlexNet's bf16
+#: products at batch 128 (fc6 9216 -> 4096 and fc7 4096 -> 4096: each
+#: forward, input gradient δ·W^T through W's transposed view and weight
+#: gradient x^T·δ through x's) at its layers' two; 4096^3
+GEMM_BF16_SHAPES = (
+    ((37, 70, 50), "a", GEMM_ACTIVATIONS),
+    ((100, 784, 100), None, GEMM_ACTIVATIONS),
+    ((784, 100, 100), "a", GEMM_ACTIVATIONS),
+    ((100, 100, 10), "w", GEMM_ACTIVATIONS),
+    ((128, 9216, 4096), None, ALEXNET_FC_ACTIVATIONS),
+    ((128, 4096, 9216), "w", ALEXNET_FC_ACTIVATIONS),
+    ((9216, 128, 4096), "a", ALEXNET_FC_ACTIVATIONS),
+    ((128, 4096, 4096), None, ALEXNET_FC_ACTIVATIONS),
+    ((128, 4096, 4096), "w", ALEXNET_FC_ACTIVATIONS),
+    ((4096, 128, 4096), "a", ALEXNET_FC_ACTIVATIONS),
+    ((GEMM_BIG,) * 3, None, GEMM_ACTIVATIONS))
+#: ragged shapes whose operands' row pitches are multiples of 16 bytes in
+#: every layout, held in each of the four layout pairs (a K- or M-major,
+#: w N- or K-major), and whether body W splits K there: (200, 328, 264)
+#: at split 4 (the rank-order reduction), (2000, 72, 2200) unsplit on
+#: 128 x 256 tiles (the persistent walk and the TMA stores)
+GEMM_BF16_RAGGED = (((200, 328, 264), True), ((2000, 72, 2200), False))
+GEMM_BF16_LAYOUTS = (None, "a", "w", "aw")
+#: body W unsplit where TMA cannot store the output (a pitch of 2201
+#: bf16): the epilogue copies its staged rows out itself
+GEMM_BF16_ODD_PITCH = ((2000, 72, 2201), "w")
+#: views with an unaligned base, which TMA cannot describe: a = a'[:, 1:]
+#: of a (100, 785) a' (2-byte base, odd pitch: element loads) and w =
+#: w'[1:] of a (785, 100) w' (200-byte base: 8-byte copies)
+GEMM_BF16_UNALIGNED = (100, 784, 100)
+#: the shapes timed, (M, K, N), activation, which operand is a transposed
+#: view, and the product's name: the fused MNIST step's bf16 products
+#: (layer 1's forward, its weight gradient a^T·δ) and the (100, 100, 10)
+#: layer-2 product; AlexNet's bf16 fc6 and fc7 at batch 128, each one's
+#: forward, input gradient δ·W^T and weight gradient a^T·δ; 4096^3
+GEMM_BF16_TIMED = (
+    ((100, 784, 100), "tanh", None, "mnist_fwd"),
+    ((784, 100, 100), None, "a", "mnist_dw"),
+    ((100, 100, 10), None, None, "mnist_layer2"),
+    ((128, 9216, 4096), "strict_relu", None, "fc6_fwd"),
+    ((128, 4096, 9216), None, "w", "fc6_dx"),
+    ((9216, 128, 4096), None, "a", "fc6_dw"),
+    ((128, 4096, 4096), "strict_relu", None, "fc7_fwd"),
+    ((128, 4096, 4096), None, "w", "fc7_dx"),
+    ((4096, 128, 4096), None, "a", "fc7_dw"),
+    ((GEMM_BIG,) * 3, None, None, "big"))
+#: the bodies each shape must take: (body name, split above 1 or not)
+#: by GEMM_BF16_TIMED name; MNIST's 200-byte row pitches take body S
+GEMM_BF16_BODIES = {"mnist_fwd": ("ldmatrix", True),
+                    "mnist_dw": ("ldmatrix", True),
+                    "mnist_layer2": ("ldmatrix", True),
+                    "fc6_fwd": ("wgmma", True), "fc6_dx": ("wgmma", False),
+                    "fc6_dw": ("wgmma", False), "fc7_fwd": ("wgmma", True),
+                    "fc7_dx": ("wgmma", True), "fc7_dw": ("wgmma", False),
+                    "big": ("wgmma", False)}
+#: a call whose operands and output pass this many bytes is timed on
+#: copies cycled so that the bytes between two calls on one copy pass the
+#: 50 MB L2 three times: a training step reads W from device memory
+BF16_COLD_BYTES = 8 << 20
 
 
 def _bf16_operands(rng, device, m, k, n, view=None):
-    a, w, bias = _gemm_operands(rng, device, m, k, n)
+    """bf16 a (m, k), w (k, n) scaled by 1/sqrt(k) and bias (n,), drawn on
+    ``device`` by a generator seeded from ``rng`` (numpy would take
+    seconds a product at AlexNet's sizes); ``view`` as _as_view."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2 ** 62)))
+    a = torch.randn((m, k), generator=gen, device=device)
+    w = torch.randn((k, n), generator=gen, device=device) * k ** -0.5
+    bias = torch.randn((n,), generator=gen, device=device)
     a, w = _as_view(a.bfloat16(), w.bfloat16(), view)
     return a, w, bias.bfloat16()
 
 
-def _gemm_bf16_kernels(device):
-    """The bf16 body: every activation × bias on/off at each shape of
-    GEMM_BF16_SHAPES against the plain version, a relaunch bit for bit,
-    and the device times at GEMM_BF16_TIMED beside the bf16 bound, the
-    plain version's and ``torch.addmm``'s in bf16."""
-    from veles_tpu_torch.backends import bound_seconds
+def _bf16_plan(a, w):
+    """``gemm.plan_bf16`` of the product ``a @ w``: (body name, tile,
+    split)."""
     from veles_tpu_torch.ops import gemm
+    body, tile, split = gemm.plan_bf16(
+        a.shape[0], w.shape[1], a.shape[1],
+        (a.stride(0), a.stride(1), w.stride(0), w.stride(1)),
+        (a.data_ptr(), w.data_ptr()))
+    return gemm.BF16_BODIES[body], tile, split
+
+
+def _bf16_case(a, w, bias, activation, **info):
+    """One launch against the plain version and against the plain model
+    of the body's split sum, within BF16_GEMM_TOL."""
+    from veles_tpu_torch.ops import gemm
+    body, tile, split = _bf16_plan(a, w)
+    got = gemm.matmul(a, w, bias, activation)
+    report = _within(got, gemm._matmul_ref(a, w, bias, activation),
+                     BF16_GEMM_TOL)
+    model = _within(got, gemm._matmul_bf16_split_ref(a, w, bias, activation,
+                                                      split), BF16_GEMM_TOL)
+    return dict(report, kernel="matmul_bf16", shape=[a.shape[0], a.shape[1],
+                                                     w.shape[1]],
+                strides=[list(a.stride()), list(w.stride())],
+                activation=activation, bias=bias is not None, body=body,
+                tile=tile, split=split,
+                split_model_max_abs_err=model["max_abs_err"],
+                dtype=str(got.dtype), tol=list(BF16_GEMM_TOL),
+                ok=report["outside_tol"] == 0 and model["outside_tol"] == 0
+                and got.dtype == torch.bfloat16, **info)
+
+
+def _gemm_bf16_cases(device):
+    """Every case of the bf16 bodies: GEMM_BF16_SHAPES, the ragged shape
+    in each layout pair on body W at split > 1, and the unaligned views
+    on body S; each case checks the body it must take."""
     rng = numpy.random.default_rng(SEED + 19)
     cases = []
-    for (m, k, n), view in GEMM_BF16_SHAPES:
-        for activation in GEMM_ACTIVATIONS:
+    for (m, k, n), view, activations in GEMM_BF16_SHAPES:
+        for activation in activations:
             for with_bias in (True, False):
                 a, w, bias = _bf16_operands(rng, device, m, k, n, view)
-                bias = bias if with_bias else None
-                got = gemm.matmul(a, w, bias, activation)
-                report = _within(got, gemm._matmul_ref(a, w, bias,
-                                                       activation),
-                                 BF16_GEMM_TOL)
-                cases.append(dict(report, kernel="matmul_bf16",
-                                  shape=[m, k, n], view=view,
-                                  activation=activation, bias=with_bias,
-                                  dtype=str(got.dtype),
-                                  tol=list(BF16_GEMM_TOL),
-                                  ok=report["outside_tol"] == 0
-                                  and got.dtype == torch.bfloat16))
-    a, w, bias = _bf16_operands(rng, device, 100, 784, 100)
-    repeatable = torch.equal(gemm.matmul(a, w, bias, "tanh"),
-                             gemm.matmul(a, w, bias, "tanh"))
-    by_shape = []
-    for (m, k, n), act, view in GEMM_BF16_TIMED:
-        a, w, bias = _bf16_operands(rng, device, m, k, n, view)
-        big = m == GEMM_BIG
-        reps = 5 if big else 20
+                cases.append(_bf16_case(a, w, bias if with_bias else None,
+                                        activation, view=view))
+        torch.cuda.empty_cache()
+    for (m, k, n), split in GEMM_BF16_RAGGED:
+        for view in GEMM_BF16_LAYOUTS:
+            for activation in GEMM_ACTIVATIONS:
+                for with_bias in (True, False):
+                    a, w, bias = _bf16_operands(rng, device, m, k, n, view)
+                    case = _bf16_case(a, w, bias if with_bias else None,
+                                      activation, view=view,
+                                      check="layout_pair")
+                    case["ok"] = (case["ok"] and case["body"] == "wgmma"
+                                  and (case["split"] > 1) == split)
+                    cases.append(case)
+    (m, k, n), view = GEMM_BF16_ODD_PITCH
+    for activation in GEMM_ACTIVATIONS:
+        for with_bias in (True, False):
+            a, w, bias = _bf16_operands(rng, device, m, k, n, view)
+            case = _bf16_case(a, w, bias if with_bias else None, activation,
+                              view=view, check="odd_output_pitch")
+            case["ok"] = (case["ok"] and case["body"] == "wgmma"
+                          and case["split"] == 1)
+            cases.append(case)
+    m, k, n = GEMM_BF16_UNALIGNED
+    for activation in GEMM_ACTIVATIONS:
+        for with_bias in (True, False):
+            a, w, bias = _bf16_operands(rng, device, m, k + 1, n)
+            _, w, _ = _bf16_operands(rng, device, 1, k + 1, n)
+            a, w = a[:, 1:], w[1:]
+            case = _bf16_case(a, w, bias if with_bias else None, activation,
+                              view="a[:, 1:], w[1:]",
+                              base_offsets=[a.data_ptr() % 16,
+                                            w.data_ptr() % 16],
+                              check="unaligned_base")
+            case["ok"] = case["ok"] and case["body"] == "ldmatrix"
+            cases.append(case)
+    return cases
+
+
+def _gemm_bf16_repeatable(device):
+    """A relaunch is bit-equal on each body: body W at split 4 (the ragged
+    shape) and 2 (AlexNet's fc6 forward) and unsplit (the persistent
+    walk), body S at split 8 (MNIST's layer 1)."""
+    from veles_tpu_torch.ops import gemm
+    rng = numpy.random.default_rng(SEED + 23)
+    out = {}
+    for name, (m, k, n), act in (
+            ("wgmma_ragged", GEMM_BF16_RAGGED[0][0], "tanh"),
+            ("wgmma_unsplit", GEMM_BF16_RAGGED[1][0], "tanh"),
+            ("wgmma_fc6_fwd", (128, 9216, 4096), "strict_relu"),
+            ("ldmatrix_mnist_fwd", (100, 784, 100), "tanh")):
+        a, w, bias = _bf16_operands(rng, device, m, k, n)
+        body, tile, split = _bf16_plan(a, w)
+        first = gemm.matmul(a, w, bias, act)
+        out[name] = {"body": body, "tile": tile, "split": split,
+                     "bit_equal": all(torch.equal(first, gemm.matmul(
+                         a, w, bias, act)) for _ in range(3))}
+    return out
+
+
+def _bf16_copies(m, k, n):
+    """Copies of a product's operands to cycle when timing it: enough for
+    its bytes to pass the L2 three times between two calls on a copy."""
+    nbytes = 2 * (m * k + k * n + n + m * n)
+    return 1 if nbytes <= BF16_COLD_BYTES else max(
+        2, -(-3 * (50 << 20) // nbytes))
+
+
+def _gemm_bf16_timed(device):
+    """Device time of each GEMM_BF16_TIMED product on the body its plan
+    picks (on cycled copies where its bytes pass BF16_COLD_BYTES), one
+    wrapper call's event time, the plain version's and ``torch.addmm``'s
+    in bf16, beside the bound; and whether each took its body."""
+    from veles_tpu_torch.backends import bound_seconds
+    from veles_tpu_torch.ops import gemm
+    rng = numpy.random.default_rng(SEED + 29)
+    rows = []
+    for (m, k, n), act, view, name in GEMM_BF16_TIMED:
+        copies = _bf16_copies(m, k, n)
+        ops = [_bf16_operands(rng, device, m, k, n, view)
+               for _ in range(copies)]
+        a, w, bias = ops[0]
+        body, tile, split = _bf16_plan(a, w)
+        reps = max(5 if m == GEMM_BIG else 20, copies)
+
+        def timed(call):
+            if copies == 1:
+                return device_ms(lambda: call(*ops[0]), reps)
+            return cold_device_ms([lambda o=o: call(*o) for o in ops], reps)
         err = _within(gemm.matmul(a, w, bias, act),
                       gemm._matmul_ref(a, w, bias, act),
                       BF16_GEMM_TOL)["max_abs_err"]
         bound, by = bound_seconds(2 * (m * k + k * n + n + m * n),
                                   2 * m * n * k, "bfloat16")
-        by_shape.append({
-            "shape": [m, k, n], "activation": act, "view": view,
-            "ms": device_ms(lambda: gemm._matmul_cuda(a, w, bias, act),
-                            reps),
+        rows.append({
+            "name": name, "shape": [m, k, n], "activation": act,
+            "view": view, "body": body, "tile": tile, "split": split,
+            "body_ok": (body, split > 1) == GEMM_BF16_BODIES[name],
+            "copies": copies,
+            "ms": timed(lambda a, w, b: gemm._matmul_cuda(a, w, b, act)),
             "wrapper_ms": time_ms(lambda: gemm._matmul_cuda(a, w, bias,
                                                             act)),
-            "plain_ms": device_ms(lambda: gemm._matmul_ref(a, w, bias, act),
-                                  reps),
-            "library_ms": device_ms(lambda: torch.addmm(bias, a, w), reps),
+            "plain_ms": timed(lambda a, w, b: gemm._matmul_ref(a, w, b,
+                                                               act)),
+            "library_ms": timed(lambda a, w, b: torch.addmm(b, a, w)),
             "bound_ms": bound * 1e3, "bound_by": by, "max_abs_err": err})
+        del ops
+        torch.cuda.empty_cache()
     gpu_sync()
+    return rows
+
+
+def _gemm_bf16_kernels(device):
+    """The bf16 bodies: their cases (_gemm_bf16_cases), a relaunch bit for
+    bit on each body, and the device times at GEMM_BF16_TIMED beside the
+    bf16 bound, the plain version's and ``torch.addmm``'s in bf16."""
+    cases = _gemm_bf16_cases(device)
+    repeatable = _gemm_bf16_repeatable(device)
+    by_shape = _gemm_bf16_timed(device)
     main = by_shape[0]
     row = {"name": "matmul_bf16", "route": "cuda",
-           "source": "veles_tpu_torch/csrc/gemm.cu",
+           "source": "veles_tpu_torch/csrc/gemm_bf16.cu",
            "replaces": "veles_tpu/ops/gemm.py:56", "dtype": "bfloat16",
            "entry": "veles_matmul_bf16", "plain_of": "_matmul_ref",
            "library_of": "torch.addmm in bf16 (no activation)",
            "by_shape": by_shape}
     row.update({key: main[key] for key in (
         "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by", "max_abs_err")})
-    ok = all(c["ok"] for c in cases) and repeatable
-    return {"cases": cases, "bit_equal_relaunch": repeatable}, [row], ok
+        "bound_by", "max_abs_err", "body", "split")})
+    layouts = {(c["split"] > 1, c["view"]) for c in cases
+               if c.get("check") == "layout_pair" and c["ok"]}
+    ok = (all(c["ok"] for c in cases)
+          and all(r["bit_equal"] for r in repeatable.values())
+          and all(r["body_ok"] for r in by_shape)
+          and layouts == {(split, view) for _s, split in GEMM_BF16_RAGGED
+                          for view in GEMM_BF16_LAYOUTS})
+    return {"cases": cases, "bit_equal_relaunch": repeatable,
+            "bodies": {r["name"]: [r["body"], r["tile"], r["split"]]
+                       for r in by_shape}}, [row], ok
 
 
 # -- the gather kernels (csrc/gather.cu) ------------------------------------
@@ -6106,6 +6298,10 @@ FUSED_EVAL_PRODUCTS = 2
 # its products are f32
 FUSED_BF16_TRAIN = {"matmul_bf16": 2, "matmul": 3}
 FUSED_BF16_EVAL = {"matmul_bf16": 0, "matmul": 2}
+# ... both on body S (w (784, 100) and delta (100, 100) have a 200-byte
+# row pitch, which TMA cannot describe), both with K split
+FUSED_BF16_TRAIN_BODIES = {"wgmma": 0, "ldmatrix": 2, "wgmma_split": 0,
+                           "ldmatrix_split": 2}
 # bf16 card against CPU: each class close's n_err within 1% of its
 # samples, each parameter leaf within 1e-2 of its largest value.  Both
 # take the same bf16 operands, but the card's tensor cores and the CPU's
@@ -6306,6 +6502,7 @@ def phase_mnist_fused_bf16(device):
         wf, g_closes, g_conf, g_params = _fused_run(
             device, MNIST_FUSED_PARITY_EPOCHS)
         launches = mnist_launches()
+        bodies = dict(gemm.bf16_bodies)
         report = wf.fused_trainer.graph_report()
         dtypes = {k: str(v.dtype) for k, v in
                   wf.fused_trainer._params_[0].items()}
@@ -6315,7 +6512,10 @@ def phase_mnist_fused_bf16(device):
     eval_steps = sum(c[3] for c in g_closes if c[1] == "validation") // 100
     want = {k: FUSED_BF16_TRAIN[k] * train_steps
             + FUSED_BF16_EVAL[k] * eval_steps for k in FUSED_BF16_TRAIN}
-    counted = all(launches[k] == v for k, v in want.items())
+    want_bodies = {k: v * train_steps
+                   for k, v in FUSED_BF16_TRAIN_BODIES.items()}
+    counted = (all(launches[k] == v for k, v in want.items())
+               and bodies == want_bodies)
     errs = _param_rel_errors(g_params, c_params)
     worst = max(errs, key=errs.get)
     close_ok = len(g_closes) == len(c_closes) and all(
@@ -6328,16 +6528,18 @@ def phase_mnist_fused_bf16(device):
     emit({"phase": "mnist_fused_bf16", "ok": ok, "dtype": "bfloat16",
           "master_dtypes": dtypes, "max_epochs": MNIST_FUSED_PARITY_EPOCHS,
           "launches": launches, "launches_expected": want,
+          "bf16_bodies": bodies, "bf16_bodies_expected": want_bodies,
           "graphs": report, "gpu_closes": g_closes, "cpu_closes": c_closes,
           "confusion_equal": bool(numpy.array_equal(g_conf, c_conf)),
           "n_err_tol_of_samples": MNIST_FUSED_BF16_ERR,
           "param_rel_err_by_leaf": errs,
           "param_rtol": MNIST_FUSED_BF16_RTOL})
     check(ok, "mnist_fused_bf16", "bf16 card and CPU training disagree or "
-          "the launches are off (launches %s want %s, closes %s vs %s, "
-          "params %s %.3g, graphs %s)" % (launches, want, g_closes, c_closes,
-                                          worst, errs[worst], report))
-    return launches
+          "the launches are off (launches %s want %s, bodies %s want %s, "
+          "closes %s vs %s, params %s %.3g, graphs %s)" % (
+              launches, want, bodies, want_bodies, g_closes, c_closes,
+              worst, errs[worst], report))
+    return dict(launches, **bodies)
 
 
 def phase_mnist_fused_epoch(device):
@@ -6400,25 +6602,34 @@ def phase_mnist_fused_epoch(device):
 MNIST_CONV_EPOCHS = 3
 MNIST_CONV_PARITY_EPOCHS = 2
 #: card against CPU, the conv workflow after 2 epochs: each weight and
-#: bias leaf within this share of its largest value.  cuDNN's conv sums
-#: and the CPU's run in other orders, and cuDNN's are not the same from
-#: one card run to the next (an H100 measured 7.5e-5 between two runs);
-#: a near tie in a max pooling or a relu mask that they break apart
-#: sends a gradient elsewhere, and 120 steps with momentum carry it
-#: (measured on an H100: 8.1e-4 to 1.7e-3 at the second conv, 1.6e-4 at
-#: the fully-connected layers)
+#: bias leaf within this share of its largest value, and each momentum
+#: leaf (after a step, the learning rate times a gradient) within
+#: MOMENTUM_RTOL.  The cause, measured on an H100 with
+#: scripts/conv_drift_probe.py: f32 rounding, which a max pooling's or a
+#: relu mask's near ties carry from step to step, not the card.  Run as
+#: one fused step 120 times, the CPU's f32 run lands as far from a
+#: float64 run (weights 2.9e-3, momenta 3.2e-2) as the card's (9.8e-3,
+#: 2.3e-2); the same stack with tanh convs and average pooling (no
+#: choices) stays within 1.5e-6 of it on both; with cuDNN's algorithms
+#: pinned (precision levels 1 and 2) two card runs are bit-equal, and the
+#: card stays 1.3e-3 (weights) and 3.0e-2 (momenta) from the CPU.  So two
+#: f32 runs may sit twice one run's 3.2e-2 apart in the momenta: 1e-1 is
+#: that with a 1.6x margin, and 5e-3 is 3.9x the weights' 1.3e-3 (H100
+#: runs before the pin: up to 1.7e-3 and 4.3e-2).  AlexNet's one step
+#: at batch 8 leaves its conv momenta 1.66e-2 from the CPU's, and the
+#: CPU's f32 step is 1.66e-2 from float64 itself.  The tie-free check
+#: below is the one that sees a wrong conv gradient.
 MNIST_CONV_PARAM_RTOL = 5e-3
-#: ... and each momentum leaf (after a step, the learning rate times a
-#: gradient) within this one.  A conv's gradient passes max-pool choices
-#: and relu masks: a near tie that the card's conv sums (cuDNN picks
-#: FFT and implicit-GEMM algorithms) and the CPU's break apart routes an
-#: element's gradient elsewhere, and the conv layers' gradients, sums
-#: over many such elements that mostly cancel, move by a few percent of
-#: their largest value (on an H100: 1.5e-2 to 4.3e-2 at mnist_conv's
-#: second conv over three runs, 1.7e-2 at AlexNet's after one step, whose
-#: weights stay within 4.1e-7 and whose fully-connected layers' momenta
-#: within 2.1e-6)
 MOMENTUM_RTOL = 1e-1
+#: the tie-free copy of the LeNet stack (tanh convs, average pooling),
+#: card against CPU after the same 2 epochs: every weight and momentum
+#: leaf within this share of its largest value.  With no choice for a sum
+#: to break apart the runs stay at f32 size (on an H100: 3.0e-7 weights,
+#: 2.6e-6 momenta); 2.5e-5 is the momenta's with a 9.6x margin.  A 1 %
+#: error planted in the first conv layer's weight gradient
+#: (TIE_FREE_PLANTED_SCALE) must fail it.
+TIE_FREE_RTOL = 2.5e-5
+TIE_FREE_PLANTED_SCALE = 1.01
 #: AlexNet at full width: captured steps timed at each dtype, and the
 #: batch of the one step held against the CPU step
 ALEXNET_BATCH = 128
@@ -6433,6 +6644,12 @@ ALEXNET_PARAM_RTOL = 1e-5
 #: the bf16 body, the softmax layer (fc8) widens to f32
 ALEXNET_STEP_LAUNCHES = {"float32": {"matmul": 9, "matmul_bf16": 0},
                          "bfloat16": {"matmul": 3, "matmul_bf16": 6}}
+#: ... the bf16 body of each: all six on body W (TMA describes every
+#: operand), the forwards and fc7's input gradient with K split (32
+#: tiles of 128 x 128 in clusters of 2), fc6's input gradient (72 tiles)
+#: and the weight gradients (K = 128, tiles of 128 x 256) unsplit
+ALEXNET_BF16_STEP_BODIES = {"wgmma": 6, "ldmatrix": 0, "wgmma_split": 3,
+                            "ldmatrix_split": 0}
 VGG_BATCH = 32
 #: the aten ops that would run a cuBLAS GEMM: none may run in a zoo
 #: profile window (the all2all layers run on the hand-written kernel)
@@ -6506,15 +6723,16 @@ def zoo_profile(fn):
                 names.items(), key=lambda kv: -kv[1])[:12]]}
 
 
-def _conv_workflow(device, epochs, stitch):
-    """mnist_conv at full width (its LAYERS, minibatch 100) over the
-    synthetic stand-in, stitched or eager; the wall clock stamped at
-    every train close."""
+def _conv_workflow(device, epochs, stitch, layers=None):
+    """mnist_conv at full width (its LAYERS, or ``layers``, minibatch
+    100) over the synthetic stand-in, stitched or eager; the wall clock
+    stamped at every train close."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.samples import mnist_conv
     with engine_knobs(stitch=stitch, loader="auto", epoch_scan="off"):
         prng.seed_all(SEED)
-        wf = mnist_conv.create_workflow(device=device, max_epochs=epochs)
+        wf = mnist_conv.create_workflow(device=device, max_epochs=epochs,
+                                        layers=layers)
     stamps = []
     close = wf.decision._close_class
 
@@ -6528,10 +6746,12 @@ def _conv_workflow(device, epochs, stitch):
     return wf
 
 
-def _conv_run(device, epochs, stitch):
-    """Train it; its closes, the evaluator's confusion matrix and the
-    parameters and momenta."""
-    wf = _conv_workflow(device, epochs, stitch)
+def _conv_run(device, epochs, stitch, layers=None, prepare=None):
+    """Train it (``prepare(wf)`` first, where given); its closes, the
+    evaluator's confusion matrix and the parameters and momenta."""
+    wf = _conv_workflow(device, epochs, stitch, layers)
+    if prepare is not None:
+        prepare(wf)
     with engine_knobs(stitch=stitch, loader="auto", epoch_scan="off"):
         wf.run()
     if device.type == "cuda":
@@ -6641,13 +6861,61 @@ def phase_mnist_conv(device, smi):
     return paths
 
 
+def _tie_free_layers():
+    """mnist_conv's LAYERS with tanh convs and average pooling."""
+    from veles_tpu_torch.samples import mnist_conv
+    layers = copy.deepcopy(mnist_conv.LAYERS)
+    for spec in layers:
+        spec["type"] = {"conv_strict_relu": "conv_tanh",
+                        "max_pooling": "avg_pooling"}.get(spec["type"],
+                                                          spec["type"])
+    return layers
+
+
+def _plant_conv_gradient(wf):
+    """Scale the first conv layer's weight gradient by
+    TIE_FREE_PLANTED_SCALE in its GD unit's update."""
+    gd = next(g for g in wf.gds
+              if getattr(g, "forward", None) is wf.forwards[0])
+    update = gd._update
+
+    def planted_update(param, state, grad, hyper, key):
+        if key == "w":
+            grad = grad * TIE_FREE_PLANTED_SCALE
+        return update(param, state, grad, hyper, key)
+    gd._update = planted_update
+
+
+def _tie_free_parity(device):
+    """The tie-free stack, card (eager) against CPU, after
+    MNIST_CONV_PARITY_EPOCHS; and the same card run with the planted
+    gradient error, which must fail the bound."""
+    layers = _tie_free_layers()
+    _wf, c_closes, _conf, c_params = _conv_run(
+        torch.device("cpu"), MNIST_CONV_PARITY_EPOCHS, "off", layers)
+    out = {}
+    for name, prepare in (("clean", None), ("planted", _plant_conv_gradient)):
+        _wf, closes, _conf, params = _conv_run(
+            device, MNIST_CONV_PARITY_EPOCHS, "off", layers, prepare)
+        errs = _param_rel_errors(params, c_params)
+        worst = max(errs, key=errs.get)
+        out[name] = {"closes_equal": closes == c_closes,
+                     "worst_leaf": worst, "rel_err": errs[worst],
+                     "rel_err_by_leaf": errs,
+                     "within": errs[worst] <= TIE_FREE_RTOL}
+    out["ok"] = out["clean"]["within"] and out["clean"]["closes_equal"] \
+        and not out["planted"]["within"]
+    return out
+
+
 def phase_mnist_conv_parity(device):
     """mnist_conv on the card (eager twice, and stitched) against the
     port's CPU route from one seed: every class close and the confusion
     matrix equal, each parameter leaf within MNIST_CONV_PARAM_RTOL of its
-    largest value; whether the two eager card runs are bit-equal (cuDNN's
-    algorithms and the overlapping max-pool backward's atomics need not
-    be) and the largest gap between them."""
+    largest value, each momentum within MOMENTUM_RTOL; the two eager card
+    runs bit-equal (cuDNN's algorithms pinned at precision level 2); the
+    tie-free stack within TIE_FREE_RTOL, and its planted gradient error
+    caught."""
     _wf, c_closes, c_conf, c_params = _conv_run(
         torch.device("cpu"), MNIST_CONV_PARITY_EPOCHS, "on")
     runs = {}
@@ -6668,13 +6936,20 @@ def phase_mnist_conv_parity(device):
                              and max(momenta.values()) <= MOMENTUM_RTOL)}
     a, b = runs["eager"]["params"], runs["eager_again"]["params"]
     repeat_gap = max(float(numpy.abs(a[k] - b[k]).max()) for k in a)
-    ok = all(r["ok"] for r in runs.values())
+    tie_free = _tie_free_parity(device)
+    ok = (all(r["ok"] for r in runs.values()) and repeat_gap == 0.0
+          and tie_free["ok"])
     emit({"phase": "mnist_conv_parity", "ok": ok,
           "max_epochs": MNIST_CONV_PARITY_EPOCHS, "cpu_closes": c_closes,
           "param_rtol": MNIST_CONV_PARAM_RTOL,
           "momentum_rtol": MOMENTUM_RTOL,
+          "cudnn_deterministic": torch.backends.cudnn.deterministic,
           "card_runs_bit_equal": repeat_gap == 0.0,
           "card_repeat_max_abs_gap": repeat_gap,
+          "tie_free": dict(tie_free, rtol=TIE_FREE_RTOL,
+                           planted_scale=TIE_FREE_PLANTED_SCALE,
+                           layers="28x28x1: 20C5 tanh, AP2, 50C5 tanh, AP2, "
+                                  "800-500 tanh, 500-10 softmax"),
           **{name: {"closes": r["closes"],
                     "confusion_equal": bool(numpy.array_equal(
                         r["confusion"], c_conf)),
@@ -6688,6 +6963,13 @@ def phase_mnist_conv_parity(device):
               "closes %s vs %s, weights %.3g, momenta %.3g" % (
                   name, r["closes"], c_closes, r["param_rel_err"],
                   r["momentum_rel_err"]))
+    check(repeat_gap == 0.0, "mnist_conv_parity", "two eager card runs "
+          "differ by %.3g with cuDNN's algorithms pinned" % repeat_gap)
+    check(tie_free["ok"], "mnist_conv_parity", "tie-free stack: clean %s "
+          "%.3g, planted %s %.3g (bound %g)" % (
+              tie_free["clean"]["worst_leaf"], tie_free["clean"]["rel_err"],
+              tie_free["planted"]["worst_leaf"],
+              tie_free["planted"]["rel_err"], TIE_FREE_RTOL))
 
 
 def _split_leaves(errs, momentum_mark):
@@ -6732,6 +7014,7 @@ def _alexnet_steps(device, dtype, layers=None, input_shape=None, batch=None,
     launches = {k: gemm.launches[k] for k in ("matmul", "matmul_bf16")}
     return {"losses": losses, "images_per_s": steps * batch / elapsed,
             "step_ms": elapsed * 1e3 / steps, "launches": launches,
+            "bf16_bodies": dict(gemm.bf16_bodies),
             "graphs": step.report(), "step": step, "params": params,
             "x": x, "labels": labels}
 
@@ -6784,20 +7067,23 @@ def phase_alexnet_fused(device, smi):
         losses = run["losses"]
         finite = all(numpy.isfinite(v) for v in losses)
         falls = finite and numpy.mean(losses[-3:]) < numpy.mean(losses[:3])
-        counted = per_step == ALEXNET_STEP_LAUNCHES[dtype]
+        bodies = {k: v / ALEXNET_STEPS
+                  for k, v in run["bf16_bodies"].items()}
+        counted = per_step == ALEXNET_STEP_LAUNCHES[dtype] and (
+            dtype == "float32" or bodies == ALEXNET_BF16_STEP_BODIES)
         graphs_ok = (graph.get("eager") == 1 and graph.get("captures") == 1
                      and graph.get("recaptures") == 0
                      and graph.get("replays") == ALEXNET_STEPS + 1)
-        if dtype == "float32":
-            step, params = run["step"], run["params"]
-            x, labels = run["x"], run["labels"]
+        step, params = run["step"], run["params"]
+        x, labels = run["x"], run["labels"]
 
-            def two_steps():
-                for _ in range(2):
-                    step(params, x, labels)
-            profile = zoo_profile(two_steps)
-            run["profile"] = profile
-            kinds = profile["kernels_by_group"]
+        def two_steps():
+            for _ in range(2):
+                step(params, x, labels)
+        profile = zoo_profile(two_steps)
+        run["profile"] = profile
+        kinds = profile["kernels_by_group"]
+        if dtype == "float32":
             # a graph replay records no aten op: one eager step shows
             # that no aten GEMM op runs (the fully-connected products
             # are the 9 GEMM launches); the "matmul" kernels of the
@@ -6813,7 +7099,14 @@ def phase_alexnet_fused(device, smi):
                           and kinds.get("conv", 0) > 0
                           and kinds.get("veles_matmul", 0) == 2 * want)
         else:
-            profile_ok = True
+            # the six bf16 products of each step on the bf16 bodies
+            want = ALEXNET_STEP_LAUNCHES[dtype]["matmul_bf16"]
+            profile_ok = kinds.get("veles_matmul_bf16", 0) == 2 * want
+        busy = profile["device_busy_ms"]
+        run["gemm_share"] = sum(
+            profile["device_ms_by_group"].get(g, 0.0)
+            for g in ("veles_matmul", "veles_matmul_bf16")) / busy \
+            if busy else None
         run_ok = finite and falls and counted and graphs_ok and profile_ok
         ok = ok and run_ok
         runs[dtype] = {
@@ -6821,9 +7114,12 @@ def phase_alexnet_fused(device, smi):
             "step_ms": run["step_ms"], "losses": losses,
             "launches_per_step": per_step,
             "launches_per_step_expected": ALEXNET_STEP_LAUNCHES[dtype],
+            "bf16_bodies_per_step": bodies,
             "graphs": run["graphs"], "profile": run.get("profile"),
+            "gemm_share_of_busy": run.get("gemm_share"),
             "eager_step_profile": run.get("eager_profile")}
-        paths["alexnet_fused_" + dtype] = dict(run["launches"])
+        paths["alexnet_fused_" + dtype] = dict(run["launches"],
+                                               **run["bf16_bodies"])
         del run
         torch.cuda.empty_cache()
     errs, g_loss, c_loss, seeds_equal = _alexnet_parity()
@@ -6865,9 +7161,12 @@ def phase_alexnet_fused(device, smi):
           "vgg": dict(vgg_info, input="224x224x3", batch=VGG_BATCH)})
     for dtype, info in runs.items():
         check(info["ok"], "alexnet_fused", "%s: launches a step %s (want "
-              "%s), graphs %s, losses %s, profile %s" % (
+              "%s), bf16 bodies %s (want %s), graphs %s, losses %s, "
+              "profile %s" % (
                   dtype, info["launches_per_step"],
-                  info["launches_per_step_expected"], info["graphs"],
+                  info["launches_per_step_expected"],
+                  info["bf16_bodies_per_step"], ALEXNET_BF16_STEP_BODIES,
+                  info["graphs"],
                   info["losses"], info["profile"] and
                   (info["profile"]["kernels_by_group"],
                    info["profile"]["blas_ops"])))
@@ -8163,6 +8462,13 @@ def main():
                                      for path, counts in paths.items()
                                      if counts.get(counter)}
         entry["launches"] = sum(entry["launches_by_path"].values())
+        if entry["name"] == "matmul_bf16":
+            entry["launches_by_body"] = {
+                path: {body: counts[body] for body in (
+                    "wgmma", "ldmatrix", "wgmma_split", "ldmatrix_split")
+                    if counts.get(body)}
+                for path, counts in paths.items()
+                if counts.get("wgmma") or counts.get("ldmatrix")}
         if entry["name"] in ("gather", "gather_norm"):
             entry["launches_by_entry"] = {
                 path: {name: counts[name] for name in (
@@ -8193,7 +8499,8 @@ def main():
     # and its share of the bound (the contiguous one SDPA's device time);
     # qmatmul its prefill layer's device times and its decode layer
     # (device times, plans, body)
-    extra = ("entry", "rides_in", "launches_by_entry", "tables_by_path",
+    extra = ("entry", "rides_in", "launches_by_entry", "launches_by_body",
+             "tables_by_path",
              "parent_head_ms", "group_alone_ms", "without_bias_ms",
              "carrier_ms",
              "wrapper_ms", "contiguous_ms", "verify_ms",

@@ -215,20 +215,28 @@ def test_dropout_mask_keep_share_and_scale():
 def tf32_flags():
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32,
-             root.common.engine.get("precision_level"))
+             root.common.engine.get("precision_level"),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
     yield
     torch.backends.cuda.matmul.allow_tf32 = saved[0]
     torch.backends.cudnn.allow_tf32 = saved[1]
     root.common.engine.precision_level = saved[2]
+    torch.backends.cudnn.deterministic = saved[3]
+    torch.backends.cudnn.benchmark = saved[4]
 
 
 @pytest.mark.parametrize("level,tf32", [(0, True), (1, False), (2, False)])
 def test_precision_level_maps_to_the_tf32_switches(tf32_flags, level, tf32):
     assert root.common.engine.precision_level == 0    # the JAX default
     root.common.engine.precision_level = level
+    torch.backends.cudnn.benchmark = True
     assert set_precision() == level
     assert torch.backends.cuda.matmul.allow_tf32 is tf32
     assert torch.backends.cudnn.allow_tf32 is tf32
+    # the full-f32 levels also pin cuDNN's algorithms: two runs, one sum
+    assert torch.backends.cudnn.deterministic is not tf32
+    assert torch.backends.cudnn.benchmark is tf32
     root.common.engine.precision_level = 3
     with pytest.raises(ValueError, match="precision_level"):
         set_precision()

@@ -110,7 +110,8 @@ def resolve_device(device=None):
 
 def set_precision():
     """Map ``root.common.engine.precision_level`` onto the float32
-    matmul switches of cuBLAS and cuDNN, and return the level.
+    matmul switches of cuBLAS and cuDNN and cuDNN's choice of
+    algorithms, and return the level.
 
     The JAX package maps the level to XLA's matmul precision
     (``veles_tpu/ops/gemm.py`` ``_precision``): 0 → one bf16 pass on a
@@ -120,8 +121,14 @@ def set_precision():
     give full f32, since cuBLAS has no counterpart of bf16_3x.  The
     switches are process-wide and touch only the library and plain
     paths: the hand-written GEMM, GD and qmatmul kernels compute f32 at
-    every level.  On the CPU the level changes nothing, as XLA on the
-    CPU computes f32 at level 0 too.  :func:`resolve_device` calls this
+    every level.  Levels 1 and 2 also pin cuDNN to deterministic
+    algorithms (``cudnn.deterministic``, no ``benchmark`` search): with
+    them two card runs of the conv workflow give the same bits, where
+    cuDNN's own picks left them 7.2e-5 apart after 2 epochs of
+    ``mnist_conv``, for 1.8 % of AlexNet f32's images/s
+    (``scripts/conv_drift_probe.py`` on an H100); level 0 leaves cuDNN
+    free.  On the CPU the level changes nothing, as XLA on the CPU
+    computes f32 at level 0 too.  :func:`resolve_device` calls this
     for every card it resolves; the JAX package reads the level on every
     matmul, so a level set later takes effect at the next entry point
     (or a direct call here)."""
@@ -133,6 +140,9 @@ def set_precision():
     tf32 = level == 0
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cudnn.deterministic = not tf32
+    if not tf32:
+        torch.backends.cudnn.benchmark = False
     return level
 
 

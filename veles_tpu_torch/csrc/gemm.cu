@@ -6,9 +6,8 @@
 // - `_matmul_kernel` (via `_matmul_pallas`): act(a @ w + bias), f32
 //   accumulator, the bias and one activation in the epilogue (linear,
 //   Znicz scaled tanh tanh(x*0.6666)*1.7159, sigmoid, smooth relu
-//   log1p(exp(min(x, 30))), strict relu)            -> veles_matmul (f32)
-//   and veles_matmul_bf16 (bf16 operands on the tensor cores, f32 sums
-//   and epilogue, a bf16 result: the last section of this file);
+//   log1p(exp(min(x, 30))), strict relu)            -> veles_matmul (f32;
+//   the bf16 operands go to veles_matmul_bf16 in csrc/gemm_bf16.cu);
 // - `_gd_dx_kernel`: err_input = delta W^T (delta W in transposed
 //   storage), delta = err_output * act'(y) rebuilt per tile from the
 //   output y, against the weights BEFORE the update  -> veles_gd_dx;
@@ -100,6 +99,7 @@
 
 #include <type_traits>
 
+#include "act.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -117,7 +117,6 @@ namespace {
 constexpr int PAD = 4;         // shared-memory row pad (banks)
 constexpr int MAX_SPLIT = 8;   // a portable cluster
 
-enum Act { LINEAR = 0, TANH = 1, SIGMOID = 2, RELU = 3, STRICT_RELU = 4 };
 enum Kind { MATMUL = 0, GD_DX = 1, GD_DW = 2, GD_DW_T = 3 };
 enum Epilogue { STORE_ACT = 0, STORE = 1, MOMENTUM = 2 };
 
@@ -156,25 +155,6 @@ template <> struct TileOf<BIG_TILE>
 // gd_dw's big tile stages its operands with 32-bit offsets
 __host__ __device__ constexpr bool narrow(int kind, int tile) {
   return tile == BIG_TILE && (kind == GD_DW || kind == GD_DW_T);
-}
-
-template <int ACT>
-__device__ __forceinline__ float activate(float x) {
-  if (ACT == TANH) return tanhf(x * 0.6666f) * 1.7159f;
-  if (ACT == SIGMOID) return 1.0f / (1.0f + expf(-x));
-  if (ACT == RELU) return log1pf(expf(fminf(x, 30.0f)));
-  if (ACT == STRICT_RELU) return fmaxf(x, 0.0f);
-  return x;
-}
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case TANH: return activate<TANH>(x);
-    case SIGMOID: return activate<SIGMOID>(x);
-    case RELU: return activate<RELU>(x);
-    case STRICT_RELU: return activate<STRICT_RELU>(x);
-    default: return x;
-  }
 }
 
 // the activation of an epilogue: ANY_ACT reads it at run time
@@ -858,220 +838,4 @@ extern "C" int veles_gd_dw(const float* x, const float* eo, const float* y,
   const Operand Xt = a_operand(x, nullptr, sxf, sxb, LINEAR);  // (f, B)
   const Operand D = b_operand(eo, y, (long long)n, 1, act);    // (B, n)
   return launch_gemm<GD_DW>(Xt, D, f, n, batch, p, tile, split, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The bf16 body of `_matmul_kernel` (its bf16 refs, veles_tpu/ops/gemm.py
-// `_matmul_pallas` given bf16 operands, which the fused trainer's
-// precision_type="bfloat16" mode sends): act(a @ w + bias) with a and w
-// bf16, the products on the tensor cores (mma.sync m16n8k16, exact bf16
-// products summed in f32), the epilogue in f32 (the bf16 bias widened,
-// then the activation), and the result rounded once to bf16 (round to
-// nearest even).  The f32 body above does not serve it: its FMA pipeline
-// stages f32.
-//
-// What bounds it.  At the fused MNIST step's shapes (100 x 784 x 100 and
-// its weight gradient 784 x 100 x 100) latency: a few blocks, each walking
-// K.  At 4096^3 operations: 137 GFLOP over the 989 TFLOP/s of bf16 is
-// 0.139 ms.  This body is simple and right, not fast: a 64 x 64 output
-// tile a block, four warps of 32 x 32 (2 x 4 mma tiles each), K in steps
-// of 64 staged by element loads through the operands' strides (the walk
-// runs along whichever index has the unit stride, so neighbouring threads
-// read neighbouring addresses; a transposed view such as the weight
-// gradient's a^T needs no copy), ragged edges zero-filled, fragments read
-// from shared memory as 32-bit pairs (the row pitch of 72 bf16 keeps a
-// warp's reads on 32 distinct banks).  Two shared buffers and one barrier
-// a K step: step k+1's loads are issued into registers before step k's
-// products and stored after them, so a block waits for one round trip a
-// step, not one a load.  No ldmatrix, no wgmma, no K split: later work.
-
-namespace {
-
-constexpr int H_BM = 64, H_BN = 64, H_BK = 64, H_PAD = 8, H_THREADS = 128;
-constexpr int H_LD = H_BK + H_PAD;   // bf16 elements a staged row
-
-// One operand's (R x H_BK) tile of a logical (rows, K) operand with
-// strides (sr, sk): `fetch` loads a thread's share into registers (zero
-// past the edges), `store` writes it to S[r * H_LD + k].  K_FAST: the
-// walk runs along k (neighbouring threads, neighbouring k).
-template <int R>
-struct Stage16 {
-  static constexpr int PER = R * H_BK / H_THREADS;
-  unsigned short v[PER];
-
-  __device__ __forceinline__ static void place(bool k_fast, int e, int& r,
-                                               int& k) {
-    if (k_fast) {
-      r = e / H_BK;
-      k = e % H_BK;
-    } else {
-      k = e / R;
-      r = e % R;
-    }
-  }
-
-  __device__ __forceinline__ void fetch(const unsigned short* __restrict__ p,
-                                        long long sr, long long sk,
-                                        bool k_fast, int r0, int rows,
-                                        int k0, int K, int tid) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      int r, k;
-      place(k_fast, tid + i * H_THREADS, r, k);
-      const int gr = r0 + r, gk = k0 + k;
-      v[i] = (gr < rows && gk < K)
-                 ? __ldg(p + ((long long)gr * sr + (long long)gk * sk))
-                 : (unsigned short)0;
-    }
-  }
-
-  __device__ __forceinline__ void store(unsigned short* S, bool k_fast,
-                                        int tid) const {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      int r, k;
-      place(k_fast, tid + i * H_THREADS, r, k);
-      S[r * H_LD + k] = v[i];
-    }
-  }
-};
-
-__device__ __forceinline__ uint32_t ld_pair(const unsigned short* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int ACT>
-__global__ void __launch_bounds__(H_THREADS)
-veles_gemm_bf16_kernel(const unsigned short* __restrict__ a, long long sam,
-                       long long sak, const unsigned short* __restrict__ w,
-                       long long swk, long long swn,
-                       const __nv_bfloat16* __restrict__ bias,
-                       __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) unsigned short As[2][H_BM * H_LD];
-  __shared__ __align__(16) unsigned short Bs[2][H_BN * H_LD];   // (n, k)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * H_BM, n0 = blockIdx.x * H_BN;
-  const int gid = lane >> 2, tig = lane & 3;
-  // A as (m, k) with strides (sam, sak); B as (n, k) with (swn, swk)
-  const bool a_kfast = sak == 1 || sam != 1;
-  const bool b_kfast = swk == 1 || swn != 1;
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  Stage16<H_BM> sa;
-  Stage16<H_BN> sb;
-  const int tiles = (K + H_BK - 1) / H_BK;
-  if (tiles > 0) {
-    sa.fetch(a, sam, sak, a_kfast, m0, M, 0, K, tid);
-    sb.fetch(w, swn, swk, b_kfast, n0, N, 0, K, tid);
-    sa.store(As[0], a_kfast, tid);
-    sb.store(Bs[0], b_kfast, tid);
-  }
-  __syncthreads();
-  for (int t = 0; t < tiles; ++t) {
-    const int cur = t & 1;
-    const bool more = t + 1 < tiles;
-    if (more) {   // step t + 1's loads, in flight under the products
-      sa.fetch(a, sam, sak, a_kfast, m0, M, (t + 1) * H_BK, K, tid);
-      sb.fetch(w, swn, swk, b_kfast, n0, N, (t + 1) * H_BK, K, tid);
-    }
-#pragma unroll
-    for (int kk = 0; kk < H_BK; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const unsigned short* r0p = As[cur] + (wm + i * 16 + gid) * H_LD +
-                                    kk + 2 * tig;
-        const unsigned short* r8p = r0p + 8 * H_LD;
-        af[i][0] = ld_pair(r0p);
-        af[i][1] = ld_pair(r8p);
-        af[i][2] = ld_pair(r0p + 8);
-        af[i][3] = ld_pair(r8p + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const unsigned short* c = Bs[cur] + (wn + j * 8 + gid) * H_LD + kk +
-                                  2 * tig;
-        bfr[j][0] = ld_pair(c);
-        bfr[j][1] = ld_pair(c + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-    if (more) {
-      sa.store(As[cur ^ 1], a_kfast, tid);
-      sb.store(Bs[cur ^ 1], b_kfast, tid);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + i * 16 + gid + 8 * half;
-        if (row >= M) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn + j * 8 + 2 * tig + e;
-          if (col >= N) continue;
-          float x = acc[i][j][2 * half + e];
-          if (bias != nullptr) x += __bfloat162float(bias[col]);
-          out[(long long)row * N + col] = __float2bfloat16_rn(activate<ACT>(x));
-        }
-      }
-}
-
-template <int ACT>
-int launch_bf16(const void* a, long long sam, long long sak, const void* w,
-                long long swk, long long swn, const void* bias, void* out,
-                int m, int n, int k, cudaStream_t stream) {
-  const dim3 grid((n + H_BN - 1) / H_BN, (m + H_BM - 1) / H_BM);
-  veles_gemm_bf16_kernel<ACT><<<grid, H_THREADS, 0, stream>>>(
-      static_cast<const unsigned short*>(a), sam, sak,
-      static_cast<const unsigned short*>(w), swk, swn,
-      static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(out), m, n, k);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// out (m, n) bf16 = act(a @ w + bias); a (m, k) and w (k, n) bf16 through
-// strides; bias (n,) bf16 or null; f32 sums and epilogue.
-extern "C" int veles_matmul_bf16(const void* a, const void* w,
-                                 const void* bias, void* out, int m, int n,
-                                 int k, long long sam, long long sak,
-                                 long long swk, long long swn, int act,
-                                 void* stream) {
-  if (m <= 0 || n <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (act) {
-    case TANH:
-      return launch_bf16<TANH>(a, sam, sak, w, swk, swn, bias, out, m, n, k,
-                               s);
-    case SIGMOID:
-      return launch_bf16<SIGMOID>(a, sam, sak, w, swk, swn, bias, out, m, n,
-                                  k, s);
-    case RELU:
-      return launch_bf16<RELU>(a, sam, sak, w, swk, swn, bias, out, m, n, k,
-                               s);
-    case STRICT_RELU:
-      return launch_bf16<STRICT_RELU>(a, sam, sak, w, swk, swn, bias, out, m,
-                                      n, k, s);
-    default:
-      return launch_bf16<LINEAR>(a, sam, sak, w, swk, swn, bias, out, m, n,
-                                 k, s);
-  }
 }

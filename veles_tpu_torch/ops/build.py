@@ -5,7 +5,8 @@ library with a plain C interface and loaded with ``ctypes``; the
 wrappers pass pointers and the stream as ``c_void_p``.  Libraries land
 in ``build/veles_tpu_torch/`` beside the package, named by a hash of
 the source, the headers of ``csrc/`` (``mma.cuh``: the tensor-core
-building blocks) and the flags, so an edited source or header is
+building blocks; ``act.cuh``: the GEMM epilogues' activations) and the
+flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as it is.  ``build_all()``
 starts one ``nvcc`` per source, all at once.  Nothing here runs at
 import time, and the CPU path never imports this module.
@@ -24,8 +25,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "veles_tpu_torch"
 #: every kernel source of the package (``csrc/<name>.cu``)
-SOURCES = ("flash_fwd", "flash_bwd", "decode_attn", "gemm", "gather",
-           "qgemm", "reduce", "random")
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attn", "gemm", "gemm_bf16",
+           "gather", "qgemm", "reduce", "random")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -34,11 +34,17 @@ sum.
 
 The GD kernels take f32 only.  ``matmul`` takes f32 or bf16 operands
 of one type: f32 runs ``veles_matmul``, which computes full f32 at
-every ``precision_level``; bf16 runs ``veles_matmul_bf16`` (the bf16
-body of ``_matmul_kernel``: bf16 products on the tensor cores, f32
-sums and epilogue, a bf16 result; ``launches["matmul_bf16"]``).  Its
-plain version computes the f32 product of the widened operands and
-rounds once to bf16, as ``_matmul_jnp`` does.  float64 is for CPU
+every ``precision_level``; bf16 runs ``veles_matmul_bf16``
+(``csrc/gemm_bf16.cu``, the bf16 body of ``_matmul_kernel``: bf16
+products on the tensor cores, f32 sums and epilogue, a bf16 result;
+``launches["matmul_bf16"]``).  :func:`plan_bf16` picks its body, tile
+and K split before each launch: body W (TMA + ``wgmma``, a 128-row
+tile) where TMA can describe both operands (:func:`tma_major`), else
+body S (``cp.async`` + ``ldmatrix`` + ``mma.sync``, a 64 × 64 tile);
+``bf16_bodies`` counts the launches of each.  Its plain version computes
+the f32 product of the widened operands and rounds once to bf16, as
+``_matmul_jnp`` does; :func:`_matmul_bf16_split_ref` is the plain model
+of the bodies' order of sums over a split K.  float64 is for CPU
 debugging (the JAX package's ``dtypes``): a CUDA tensor of it raises
 ``TypeError``.  :func:`plan` picks the
 GEMM body's tile and K split from the shape (the ``tile`` and ``split``
@@ -81,6 +87,9 @@ launches = {"matmul": 0, "matmul_bf16": 0, "gd_dx": 0, "gd_dw": 0,
 bias_in_dw = {"gd_db_in_dw": 0}
 #: "<GEMM kernel name>_split" -> those of its launches that split K
 split_launches = {"matmul_split": 0, "gd_dx_split": 0, "gd_dw_split": 0}
+#: the bf16 body -> its launches ("<body>_split": those that split K)
+bf16_bodies = {"wgmma": 0, "ldmatrix": 0, "wgmma_split": 0,
+               "ldmatrix_split": 0}
 
 #: csrc/gemm.cu's tile configurations (``TileOf<TILE>``): code -> (BM,
 #: BN, BK, threads) of the output tile, the K step and the block
@@ -90,6 +99,20 @@ _SMS = 132                # the H100's SMs
 _COVER = _SMS * 256       # threads of a grid that covers them once
 _MAX_SPLIT = 8            # the portable cluster size
 
+#: csrc/gemm_bf16.cu's bodies of ``veles_matmul_bf16`` (its ``body``
+#: argument) by name
+BF16_BODY_S, BF16_BODY_W = 0, 1
+BF16_BODIES = {BF16_BODY_S: "ldmatrix", BF16_BODY_W: "wgmma"}
+#: the K tile of both bf16 bodies, and their output tiles' rows: body
+#: S's tile is 64 x 64, body W's 128 x 128 or 128 x 256
+BF16_BLOCK_K = 64
+BF16_BLOCK_M = {BF16_BODY_S: 64, BF16_BODY_W: 128}
+#: body W's K split stops doubling past this many blocks: on an H100
+#: AlexNet's batch-128 products ran fastest at 64-72 blocks (32 tiles in
+#: clusters of 2, 72 unsplit) and 1.2-1.5x slower at 128
+#: (scripts/gemm_bf16_probe.py --variants)
+_BF16_SPLIT_BLOCKS = 96
+
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 #: kernel name -> (C symbol, ctypes argtypes), all in csrc/gemm.cu
@@ -97,18 +120,20 @@ _ARGTYPES = {
     "matmul": ("veles_matmul", [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I] * 3
                + [_P]),
     "matmul_bf16": ("veles_matmul_bf16", [_P] * 4 + [_I] * 3 + [_L] * 4
-                    + [_I] + [_P]),
+                    + [_I] * 4 + [_P]),
     "gd_dx": ("veles_gd_dx", [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I] * 3
               + [_P]),
     "gd_dw": ("veles_gd_dw", [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I] * 2
               + [_F] * 4 + [_P] * 5 + [_F] * 3 + [_P] * 3 + [_I] * 2
               + [_P]),
 }
+#: the kernels whose source is not csrc/gemm.cu
+_LIBRARIES = {"matmul_bf16": "gemm_bf16"}
 _entries = {}
 
 
 def reset_launches():
-    for counter in (launches, bias_in_dw, split_launches):
+    for counter in (launches, bias_in_dw, split_launches, bf16_bodies):
         for name in counter:
             counter[name] = 0
 
@@ -137,15 +162,69 @@ def plan(m, n, k):
     return SPLIT_TILE, split
 
 
-def k_range(rank, split, k, tile=SPLIT_TILE):
+def k_range(rank, split, k, tile=SPLIT_TILE, block_k=None):
     """``[k_begin, k_end)``: the K elements rank ``rank`` of a split
     launch sums, as the kernel computes them: K tiles ``[rank T / split,
     (rank + 1) T / split)`` of ``T = ceil(K / BK)``, so the chunks
-    differ by at most one tile and only the last one is ragged."""
-    block_k = TILES[tile][2]
+    differ by at most one tile and only the last one is ragged.  BK is
+    ``tile``'s, or ``block_k`` where given (the bf16 bodies':
+    BF16_BLOCK_K)."""
+    block_k = block_k or TILES[tile][2]
     k_tiles = -(-k // block_k)
     return (rank * k_tiles // split * block_k,
             min(k, (rank + 1) * k_tiles // split * block_k))
+
+
+def tma_major(s0, s1, data_ptr):
+    """Which index of a 2-D bf16 operand with strides ``(s0, s1)``
+    (elements) TMA reads along: 1 where ``s1`` is the unit stride, 0
+    where ``s0`` is, with the other stride a positive multiple of 16
+    bytes and the base 16-byte aligned; None where TMA cannot describe
+    the operand (a 200-byte row pitch, a sliced view's unaligned base, no
+    unit stride).  csrc/gemm_bf16.cu ``tma_major`` is the same rule."""
+    if data_ptr % 16:
+        return None
+    if s1 == 1 and s0 > 0 and s0 % 8 == 0:
+        return 1
+    if s0 == 1 and s1 > 0 and s1 % 8 == 0:
+        return 0
+    return None
+
+
+def plan_bf16(m, n, k, strides, data_ptrs):
+    """``(body, tile, split)`` of ``veles_matmul_bf16`` for an (M, K) by
+    (K, N) product of bf16 operands ``a`` and ``w`` with ``strides``
+    ``(a.stride(0), a.stride(1), w.stride(0), w.stride(1))`` at
+    ``data_ptrs`` ``(a.data_ptr(), w.data_ptr())``.
+
+    Body W where TMA can describe both operands: a 128 × 256 tile where
+    that grid alone fills the SMs (4096³, the weight gradients' K of
+    128), else 128 × 128 with K split over a cluster, doubled up to 8
+    while the grid stays within _BF16_SPLIT_BLOCKS blocks and every rank
+    keeps a K tile (AlexNet's forwards and input gradients at batch 128,
+    which ran 4-14 % faster so than on 128 × 256 tiles).  An unsplit
+    grid is walked by one block an SM.  Body S otherwise: a 64 × 64
+    tile, K split doubled up to 8 while the grid covers the SMs less
+    than once and every rank keeps a K tile.  ``tile`` is body W's
+    columns or body S's 64."""
+    sam, sak, swk, swn = strides
+    k_tiles = -(-k // BF16_BLOCK_K)
+    if (tma_major(sam, sak, data_ptrs[0]) is not None
+            and tma_major(swk, swn, data_ptrs[1]) is not None):
+        m_tiles = -(-m // BF16_BLOCK_M[BF16_BODY_W])
+        if m_tiles * -(-n // 256) >= _SMS:
+            return BF16_BODY_W, 256, 1
+        tiles, split = m_tiles * -(-n // 128), 1
+        while (split < _MAX_SPLIT and k_tiles >= 2 * split
+               and tiles * 2 * split <= _BF16_SPLIT_BLOCKS):
+            split *= 2
+        return BF16_BODY_W, 128, split
+    split = 1
+    tile = BF16_BLOCK_M[BF16_BODY_S]
+    tiles = -(-m // tile) * -(-n // tile)
+    while split < _MAX_SPLIT and k_tiles >= 2 * split and tiles * split < _SMS:
+        split *= 2
+    return BF16_BODY_S, tile, split
 
 
 def _launched(name, split):
@@ -161,7 +240,7 @@ def _entry(name):
     if fn is None:
         from veles_tpu_torch.ops import build
         symbol, argtypes = _ARGTYPES[name]
-        fn = getattr(build.library("gemm"), symbol)
+        fn = getattr(build.library(_LIBRARIES.get(name, "gemm")), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _entries[name] = fn
@@ -218,6 +297,26 @@ def _matmul_ref(a, w, bias=None, activation=None):
     if bias is not None:
         out = out + bias.float()
     return _activate(out, activation).to(a.dtype)
+
+
+def _matmul_bf16_split_ref(a, w, bias=None, activation=None, split=1):
+    """The plain model of the bf16 bodies' sums: rank r of a ``split``
+    launch takes the f32 product of the widened operands over its K chunk
+    (:func:`k_range` at BF16_BLOCK_K), the partials are added into zero
+    in rank order, then the bias and the activation in f32, and the
+    result is rounded once to ``a``'s type.  Each rank's own sum runs in
+    another order than the kernel's, so the two agree within a bf16
+    rounding, not bit for bit."""
+    a32, w32 = a.float(), w.float()
+    total = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32,
+                        device=a.device)
+    for rank in range(split):
+        begin, end = k_range(rank, split, a.shape[1],
+                             block_k=BF16_BLOCK_K)
+        total = total + torch.mm(a32[:, begin:end], w32[begin:end])
+    if bias is not None:
+        total = total + bias.float()
+    return _activate(total, activation).to(a.dtype)
 
 
 def _gd_ref(x, y, err_output, w, b, vw, vb, lr, lr_bias, decay,
@@ -316,7 +415,8 @@ def _matmul_cuda(a, w, bias, activation, tile_split=None):
     """The ``veles_matmul`` kernel (f32) or ``veles_matmul_bf16`` (bf16):
     a (M, K) and w (K, N) read through their strides (a transposed view
     needs no copy), bias (N,) contiguous or None, all of one type;
-    ``tile_split`` overrides :func:`plan` (f32 only)."""
+    ``tile_split`` overrides the plan: ``(tile, split)`` of :func:`plan`
+    for f32, ``(body, tile, split)`` of :func:`plan_bf16` for bf16."""
     _check_2d("matmul", a=a, w=w)
     _check_operands("matmul", a, w, *(() if bias is None else (bias,)))
     m, k = a.shape
@@ -331,12 +431,19 @@ def _matmul_cuda(a, w, bias, activation, tile_split=None):
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     bias_ptr = None if bias is None else bias.data_ptr()
     if a.dtype == torch.bfloat16:
+        strides = (a.stride(0), a.stride(1), w.stride(0), w.stride(1))
+        body, tile, split = tile_split or plan_bf16(
+            m, n, k, strides, (a.data_ptr(), w.data_ptr()))
         status = _entry("matmul_bf16")(
             a.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), m, n, k,
-            a.stride(0), a.stride(1), w.stride(0), w.stride(1),
-            ACTIVATION_CODES[activation], stream_handle(a.device))
+            *strides, ACTIVATION_CODES[activation], body, tile, split,
+            stream_handle(a.device))
         check_status("matmul_bf16", status)
-        _launched("matmul_bf16", 1)
+        launches["matmul_bf16"] += 1
+        name = BF16_BODIES[body]
+        bf16_bodies[name] += 1
+        if split > 1:
+            bf16_bodies[name + "_split"] += 1
         return out
     tile, split = tile_split or plan(m, n, k)
     status = _entry("matmul")(

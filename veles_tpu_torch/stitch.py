@@ -141,11 +141,11 @@ class StitchStage(object):
 def _launch_counters():
     """Every kernel wrapper module's ``launches`` dict, the gather's
     ``tables_served`` and ``entry_launches`` and the GEMM wrappers'
-    ``bias_in_dw`` and ``split_launches``."""
+    ``bias_in_dw``, ``split_launches`` and ``bf16_bodies``."""
     from veles_tpu_torch.ops import attention, gather, gemm, qgemm
     return (attention.launches, gather.launches, gather.tables_served,
             gather.entry_launches, gemm.launches, gemm.bias_in_dw,
-            gemm.split_launches, qgemm.launches)
+            gemm.split_launches, gemm.bf16_bodies, qgemm.launches)
 
 
 def scalar_slots(stages):

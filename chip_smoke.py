@@ -363,6 +363,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
    windows), on the card and on the CPU: held together as in
    ``snapshot``, with the continued card run's exact launches and the
    step directory's bytes and the save and restore ms.
+28. ``mnist_rnn`` — ``samples/mnist_rnn.py`` at full width (an LSTM of
+   128 over the stand-in's 28 rows of 28 pixels, a softmax of 10,
+   minibatch 100), 3 epochs on the eager, stitched and fused routes:
+   exact GEMM, GD and gather launches, the graphs' captures and
+   recaptures (0), the steady epoch's wall ms and MFU by the JAX formula
+   ``lstm_train_flops``, and a profile's device ms by group (the gates'
+   cuBLAS products, elementwise, the GEMM and gather kernels, copies).
+29. ``mnist_rnn_parity`` — 2 epochs on the card (eager, stitched)
+   against the CPU: closes and confusion equal, every leaf within
+   ``MNIST_RNN_PARAM_RTOL``; a 1 % error planted in the LSTM's weight
+   gradient must fail the bound.
+30. ``mnist_ae_rbm`` — ``mnist_ae(rbm_pretrain=True)``: the RBM's 20
+   CD-1 steps on the card and on the CPU, the flipped Bernoulli draws
+   counted step by step (at most ``RBM_MAX_FLIPS``), the weights held
+   together step by step up to the first flip and at the end; a card
+   run with a planted sampler (``>=`` for ``<``) must fail; the
+   fine-tune's exact launches and falling rmse.
+31. ``kohonen`` — the SOM sample, card against CPU: the winners that
+   moved counted (at most ``KOHONEN_MAX_MOVED``), the codebook step by
+   step up to the first move and the quantization error; a card run
+   with a planted winner (the second nearest) must fail; one gather
+   launch a step (the eager fill's: the trainer is a barrier).
+32. ``data_side`` — every normalizer through the stitched MNIST head:
+   an affine one over the u8-resident stand-in, applied by the head's
+   served gather launch, any other on the host at initialize; the
+   served minibatches against the CPU route's and the host
+   ``normalize`` of the same rows, the launches counted; MeanDisp, the
+   joiner, the avatar and HOG on CUDA tensors against the CPU; the MNIST
+   MLP over the all-TRAIN stand-in with ``validation_ratio`` 0.1, card
+   against CPU (the same index sequence, closes and parameters); a
+   ``MinibatchesSaver`` dump of a card loader replayed exactly.
 
 The ``kernels`` phase also holds the paged decode kernel against
 ``_paged_decode_ref`` (f32 <= 1e-4, bf16 <= 2e-2) for decode (1 row)
@@ -477,7 +508,9 @@ Then it prints the per-kernel JSON line, all 14 TPU kernels (launches on
 the main paths, serve, serve_int8, serve_generate,
 serve_generate_int8, serve_paged,
 serve_spec, train, mnist, mnist_stitched, mnist_scan, mnist_ae,
-serve_batch, ops and tooling, max
+serve_batch, ops, tooling, the snapshot and checkpoint phases,
+mnist_rnn on its three routes, mnist_ae_rbm, kohonen, data_side and
+data_side_norms, max
 abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -8376,6 +8409,843 @@ def phase_checkpoint(device, smi, tmp):
     return launches
 
 
+# -- the rest of the layer zoo and the data side (ROADMAP 7(c)) ---------------
+
+#: three epochs, two train passes: the steady epoch is the second
+#: (a validation pass and a train pass, every graph captured in the
+#: first)
+MNIST_RNN_EPOCHS = 3
+MNIST_RNN_PARITY_EPOCHS = 2
+#: mnist_rnn's shape: T rows of D pixels, H hidden units, C classes
+MNIST_RNN_SHAPE = dict(t=28, d=28, h=128, classes=10)
+#: card against CPU after MNIST_RNN_PARITY_EPOCHS (eager and stitched):
+#: each weight, bias and momentum leaf within this share of its largest
+#: value.  The LSTM has no max or relu to turn a rounding into a choice,
+#: so two f32 runs that sum their products in other orders (cuBLAS on
+#: the card, MKL on the CPU, TF32 off) stay f32 noise apart after the
+#: 60 steps: on an H100 8.7e-7 (the head's momentum; the LSTM's weights
+#: 1.7e-7), so 1e-5 leaves an 11x margin.  A 1 % error planted in the
+#: LSTM's weight gradient (MNIST_RNN_PLANTED_SCALE) must fail it (on
+#: an H100: 1.2e-2, and the closes move).
+MNIST_RNN_PARAM_RTOL = 1e-5
+MNIST_RNN_PLANTED_SCALE = 1.01
+#: the softmax head's GEMM launches a fused step: its forward (train and
+#: eval), its input gradient and weight gradient (the LSTM below trains)
+RNN_FUSED_TRAIN_PRODUCTS = 3
+RNN_FUSED_EVAL_PRODUCTS = 1
+#: mnist_ae's RBM pretraining (hidden 100, CD-1, lr 0.1, the first 2000
+#: train images, minibatch 100): a flipped Bernoulli draw moves the
+#: weights of its hidden unit's column by at most lr/batch = 1e-3 (a
+#: visible value and a probability both lie in [0, 1]), and the steps
+#: after it carry that on (a flip of a step's last sample, which CD-k
+#: does not use, moves nothing); card against CPU the weights must stay
+#: within RBM_FLIP_ABS · (1 + flipped draws) max abs at the end, and
+#: within RBM_RTOL of the largest weight after every step before the
+#: first flip (all of them when none flipped).  At most RBM_MAX_FLIPS of
+#: the 400,000 draws may flip (1e-5 of them; an H100 flipped 1): a
+#: sampler that is wrong on the card flips about half, and a planted one
+#: (``>=`` for ``<``) must fail the count
+RBM_FLIP_ABS = 1e-3
+RBM_RTOL = 1e-4
+RBM_MAX_FLIPS = 4
+MNIST_AE_RBM_EPOCHS = 2
+KOHONEN_EPOCHS = 10
+#: the SOM card against CPU: at most KOHONEN_MAX_MOVED of the 10,100
+#: winners may move (a near tie of two distances; an H100 moved none),
+#: the codebook within KOHONEN_RTOL of its largest value after every
+#: step before the first move (f32 sums in other orders; an H100:
+#: 1.6e-7 after all 101 steps), the quantization error within
+#: KOHONEN_QERR_RTOL.  A planted argmin (each winner one neuron on)
+#: must fail
+KOHONEN_RTOL = 1e-4
+KOHONEN_MAX_MOVED = 4
+KOHONEN_QERR_RTOL = 1e-3
+#: MeanDisp, the joiner, the avatar and HOG, card against CPU: max abs
+DATA_SIDE_TOL = 1e-5
+#: the normalizers that ``as_affine()`` cannot express (a per-sample
+#: map, a non-linear one): the host normalizes the dataset at
+#: initialize and the head gathers it raw
+HOST_ONLY_NORMS = ("exp", "linear")
+#: a normalizer's served minibatches, card against CPU and against the
+#: host ``normalize``: the largest gap within this share of the largest
+#: served value (the kernel's f32 x·scale + shift against numpy's own
+#: order of the same map: a few ulps of the largest value)
+NORM_SERVED_RTOL = 1e-5
+DATA_SIDE_EPOCHS = 2
+#: the validation_ratio MLP, card against CPU: MNIST_PARAM_RTOL's bound
+DATA_SIDE_PARAM_RTOL = 1e-4
+
+
+def _rnn_workflow(device, epochs, route, layers=None):
+    """mnist_rnn at full width (its LAYERS, or ``layers``, minibatch
+    100) over the synthetic stand-in on ``route`` (eager, stitched or
+    fused); the wall clock stamped at every train close."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist_rnn
+    with engine_knobs(stitch="off" if route == "eager" else "on",
+                      loader="auto", epoch_scan="off"):
+        prng.seed_all(SEED)
+        wf = mnist_rnn.create_workflow(device=device, max_epochs=epochs,
+                                       layers=layers,
+                                       fused=(route == "fused"))
+    stamps = []
+    close = wf.decision._close_class
+
+    def timed_close(cls, check_epoch_end):
+        out = close(cls, check_epoch_end)
+        if cls == 2:
+            stamps.append(time.perf_counter())
+        return out
+    wf.decision._close_class = timed_close
+    wf.train_closes = stamps
+    return wf
+
+
+def _rnn_run(device, epochs, route, layers=None, prepare=None):
+    """Train it (``prepare(wf)`` first, where given); its closes, the
+    evaluator's confusion matrix (None on the fused route, which runs no
+    evaluator unit) and the parameters and momenta."""
+    wf = _rnn_workflow(device, epochs, route, layers)
+    if prepare is not None:
+        prepare(wf)
+    with engine_knobs(stitch="off" if route == "eager" else "on",
+                      loader="auto", epoch_scan="off"):
+        wf.run()
+    if device.type == "cuda":
+        gpu_sync()
+    confusion = None
+    if route == "fused":
+        wf.fused_trainer.sync_weights()
+    else:
+        wf.evaluator.confusion_matrix.map_read()
+        confusion = numpy.array(wf.evaluator.confusion_matrix.mem)
+    closes = [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+              for c in wf.decision.history]
+    return wf, closes, confusion, wf.params_to_numpy()
+
+
+def _rnn_expected(closes, route):
+    """The kernel launches of a run whose closes are ``closes``: the
+    softmax head's GEMM a minibatch; on train minibatches its GD unit's
+    dx (the LSTM below trains) and dw with the bias step; one gather
+    launch a minibatch for the rows and the labels (two tables), by the
+    eager fill's entry or the stitched head's.  The fused step runs the
+    head's three products through the GEMM kernel's autograd and gathers
+    inside its graph."""
+    n = sum(c[3] for c in closes) // 100
+    train = sum(c[3] for c in closes if c[1] == "train") // 100
+    if route == "fused":
+        launches = {"matmul": RNN_FUSED_TRAIN_PRODUCTS * train
+                    + RNN_FUSED_EVAL_PRODUCTS * (n - train),
+                    "matmul_bf16": 0, "gd_dx": 0, "gd_dw": 0, "gd_db": 0,
+                    "gd_db_in_dw": 0}
+        entries = {"veles_gather_group": n, "veles_gather_served": 0}
+        return launches, entries, n, train
+    launches = {"matmul": n, "matmul_bf16": 0, "gd_dx": train,
+                "gd_dw": train, "gd_db": 0, "gd_db_in_dw": train,
+                "gather": n, "gather_norm": 0, "gather_tables": 2 * n,
+                "gather_norm_tables": 0}
+    stitched = route == "stitched"
+    entries = {"veles_gather_group": 0 if stitched else n,
+               "veles_gather_served": n if stitched else 0}
+    return launches, entries, n, train
+
+
+def _rnn_epoch_flops(train, evals):
+    """One epoch's work by the JAX formulas: ``train`` train steps of
+    ``lstm_train_flops`` and ``evals`` forwards of ``lstm_fwd_flops``,
+    the softmax head included, at minibatch 100."""
+    from veles_tpu_torch.znicz.rnn import lstm_fwd_flops, lstm_train_flops
+    s = MNIST_RNN_SHAPE
+    args = (100, s["t"], s["d"], s["h"], 4, s["classes"])
+    return train * lstm_train_flops(*args) + evals * lstm_fwd_flops(*args)
+
+
+def phase_mnist_rnn(device, smi):
+    """mnist_rnn (an LSTM of 128 over 28 rows of 28 pixels, its last
+    state into a softmax of 10, minibatch 100, lr 0.01, momentum 0.9) at
+    full width on the stand-in on each route: eager units,
+    stitched segments (each one CUDA graph: the loader head, the LSTM's
+    28 steps, the head and the evaluator; the head's GD and the LSTM's
+    VJP) and the fused step (one graph a step shape), 3 epochs (two
+    train passes) on each.  Each route's GEMM,
+    GD and gather launches counted exactly, the graphs' captures and
+    recaptures (0), the wall ms of the steady epoch, its MFU by
+    ``lstm_train_flops``, and a 2-epoch run under the profiler: device ms
+    by group (the gates' cuBLAS products, elementwise, the hand-written
+    GEMM and gather kernels, copies)."""
+    from veles_tpu_torch.backends import peak_ops
+    from veles_tpu_torch.ops import gather
+    peak = peak_ops(torch.cuda.get_device_name(0), "float32")
+    out, paths, ok = {}, {}, True
+    for route in ("eager", "stitched", "fused"):
+        reset_all_launches()
+        tic = time.perf_counter()
+        wf, closes, _conf, _params = _rnn_run(device, MNIST_RNN_EPOCHS,
+                                              route)
+        elapsed = time.perf_counter() - tic
+        launches = mnist_launches()
+        entries = dict(gather.entry_launches)
+        want, want_entries, n, train = _rnn_expected(closes, route)
+        counted = (all(launches[k] == v for k, v in want.items())
+                   and entries == want_entries)
+        if route == "fused":
+            report = wf.fused_trainer.graph_report()
+            graphs_ok = (_graphs_expected(report, train, n - train)
+                         and report["train_100"].get("graph_launches", {})
+                         .get("matmul") == RNN_FUSED_TRAIN_PRODUCTS
+                         and report["eval_100"].get("graph_launches", {})
+                         .get("matmul") == RNN_FUSED_EVAL_PRODUCTS)
+        else:
+            report = wf.stitch_report()
+            graphs_ok = (route == "eager" and report == []) or (
+                len(report) == 2
+                and [r["dispatches"] for r in report] == [n, train]
+                and all(r["captures"] == 1 and r["recaptures"] == 0
+                        for r in report))
+        learned = all(numpy.isfinite(c[2]) for c in closes)
+        steady = _steady_epoch_ms(wf)
+        epoch_flops = _rnn_epoch_flops(60, 10)
+        mfu = (epoch_flops / (steady[-1] / 1e3) / peak
+               if steady and peak else None)
+        profiled = _rnn_workflow(device, 2, route)
+        with engine_knobs(stitch="off" if route == "eager" else "on",
+                          loader="auto", epoch_scan="off"):
+            window = zoo_profile(profiled.run)
+        groups = window["kernels_by_group"]
+        profile_ok = (groups.get("veles_matmul", 0) > 0
+                      and groups.get("matmul", 0) > 0
+                      and not window["cudnn_conv_ops"])
+        if route != "fused":
+            profile_ok = profile_ok and groups.get("veles_gd_dw", 0) > 0
+        window["device_ms_by_group"] = {
+            {"matmul": "cublas_gates"}.get(g, g): t
+            for g, t in window["device_ms_by_group"].items()}
+        route_ok = counted and graphs_ok and learned and profile_ok
+        ok = ok and route_ok
+        out[route] = {
+            "ok": route_ok, "elapsed_s": elapsed, "steady_epoch_ms": steady,
+            "epoch_flops": epoch_flops, "mfu_f32": mfu,
+            "class_closes": closes, "launches": launches,
+            "launches_expected": want, "entry_launches": entries,
+            "entry_expected": want_entries, "minibatches": n,
+            "train_minibatches": train, "graphs": report,
+            "profile": dict(window, window="max_epochs=2: 2 validation "
+                            "passes and 1 train pass")}
+        paths["mnist_rnn" if route == "eager" else "mnist_rnn_" + route] = \
+            dict(launches, **entries)
+    emit({"phase": "mnist_rnn", "nvidia_smi": smi, "ok": ok,
+          "layers": "(28, 28) rows: LSTM 128 last_only, 128-10 softmax",
+          "minibatch": 100, "max_epochs": MNIST_RNN_EPOCHS,
+          "data": "synthetic stand-in (6000 train, 1000 validation)",
+          "epoch": "one validation pass (10 minibatches) and one train "
+                   "pass (60)", "peak_f32_flops": peak, **out})
+    for route, info in out.items():
+        check(info["ok"], "mnist_rnn", "%s route: launches %s (want %s), "
+              "entries %s (want %s), graphs %s, closes %s, profile groups "
+              "%s" % (route, info["launches"], info["launches_expected"],
+                      info["entry_launches"], info["entry_expected"],
+                      info["graphs"], info["class_closes"],
+                      info["profile"]["kernels_by_group"]))
+    return paths
+
+
+def _plant_lstm_gradient(wf):
+    """Scale the LSTM's weight gradient by MNIST_RNN_PLANTED_SCALE in
+    its GD unit's update."""
+    gd = next(g for g in wf.gds
+              if getattr(g, "forward", None) is wf.forwards[0])
+    update = gd._update
+
+    def planted_update(param, state, grad, hyper, key):
+        if key == "w":
+            grad = grad * MNIST_RNN_PLANTED_SCALE
+        return update(param, state, grad, hyper, key)
+    gd._update = planted_update
+
+
+def phase_mnist_rnn_parity(device):
+    """mnist_rnn on the card (eager, stitched, and eager with a 1 % error
+    planted in the LSTM's weight gradient) against the port's CPU route
+    from one seed, 2 epochs: every class close and the confusion matrix
+    equal, each leaf within MNIST_RNN_PARAM_RTOL of its largest value;
+    the planted run must fail the bound."""
+    cpu = torch.device("cpu")
+    _wf, c_closes, c_conf, c_params = _rnn_run(
+        cpu, MNIST_RNN_PARITY_EPOCHS, "eager")
+    runs = {}
+    for name, route, prepare in (("eager", "eager", None),
+                                 ("stitched", "stitched", None),
+                                 ("planted", "eager", _plant_lstm_gradient)):
+        _wf, closes, conf, params = _rnn_run(
+            device, MNIST_RNN_PARITY_EPOCHS, route, prepare=prepare)
+        errs = _param_rel_errors(params, c_params)
+        worst = max(errs, key=errs.get)
+        runs[name] = {"closes": closes,
+                      "closes_equal": closes == c_closes,
+                      "confusion_equal": bool(numpy.array_equal(conf,
+                                                                c_conf)),
+                      "worst_leaf": worst, "rel_err": errs[worst],
+                      "rel_err_by_leaf": errs,
+                      "within": errs[worst] <= MNIST_RNN_PARAM_RTOL}
+    ok = (all(runs[n]["within"] and runs[n]["closes_equal"]
+              and runs[n]["confusion_equal"] for n in ("eager", "stitched"))
+          and not runs["planted"]["within"])
+    emit({"phase": "mnist_rnn_parity", "ok": ok,
+          "max_epochs": MNIST_RNN_PARITY_EPOCHS, "cpu_closes": c_closes,
+          "param_rtol": MNIST_RNN_PARAM_RTOL,
+          "planted_scale": MNIST_RNN_PLANTED_SCALE, **runs})
+    for name in ("eager", "stitched"):
+        r = runs[name]
+        check(r["within"] and r["closes_equal"] and r["confusion_equal"],
+              "mnist_rnn_parity", "%s card run against the CPU: closes %s "
+              "vs %s, confusion equal %s, %s %.3g (bound %g)" % (
+                  name, r["closes"], c_closes, r["confusion_equal"],
+                  r["worst_leaf"], r["rel_err"], MNIST_RNN_PARAM_RTOL))
+    check(not runs["planted"]["within"], "mnist_rnn_parity", "the planted "
+          "1 %% LSTM gradient error stayed within the bound: %s %.3g" % (
+              runs["planted"]["worst_leaf"], runs["planted"]["rel_err"]))
+
+
+def _rbm_pretrain_recorded(device, planted=False):
+    """mnist_ae's RBM pretraining on ``device`` from SEED, each CD step's
+    hidden samples and new weights recorded (host copies); ``planted``:
+    the sampler draws ``uniform >= p`` in place of ``uniform < p``."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist_ae
+    from veles_tpu_torch.samples.datasets import load_mnist
+    from veles_tpu_torch.znicz import rbm
+    tr_x = load_mnist()[0]
+    data = numpy.ascontiguousarray(tr_x.reshape(len(tr_x), -1)[:2000],
+                                   dtype=numpy.float32)
+    steps, weights = [], []
+    inner, bernoulli = rbm._cd_step, rbm.threefry_bernoulli
+
+    def recording(*args, **kwargs):
+        samples = []
+        result = inner(*args, samples=samples, **kwargs)
+        steps.append([s.cpu().numpy() for s in samples])
+        weights.append(result[0].cpu().numpy().copy())
+        return result
+    prng.seed_all(SEED)
+    rbm._cd_step = recording
+    if planted:
+        rbm.threefry_bernoulli = lambda key, p: ~bernoulli(key, p)
+    try:
+        tic = time.perf_counter()
+        trainer = mnist_ae.pretrain_rbm(data, hidden=100, epochs=1,
+                                        device=device)
+        if device.type == "cuda":
+            gpu_sync()
+        elapsed = time.perf_counter() - tic
+    finally:
+        rbm._cd_step, rbm.threefry_bernoulli = inner, bernoulli
+    return trainer, steps, weights, elapsed
+
+
+def _rbm_agreement(card, card_steps, card_w, cpu, cpu_steps, cpu_w):
+    """The flipped draws of each step, the weights' gap after each step
+    before the first flip, and the final parameters' gaps; ``ok`` by
+    RBM_MAX_FLIPS, RBM_RTOL and RBM_FLIP_ABS."""
+    flips = [int(sum((a != b).sum() for a, b in zip(x, y)))
+             for x, y in zip(card_steps, cpu_steps)]
+    flipped = sum(flips)
+    first = next((i for i, f in enumerate(flips) if f), len(flips))
+    scale = max(float(numpy.abs(cpu_w[-1]).max()), 1e-30)
+    before = max([float(numpy.abs(a - b).max()) / scale
+                  for a, b in zip(card_w[:first], cpu_w[:first])] or [0.0])
+    gaps = {}
+    for name in ("weights", "vbias", "hbias"):
+        got = getattr(card, name).mem
+        want = getattr(cpu, name).mem
+        gaps[name] = {"max_abs": float(numpy.abs(got - want).max()),
+                      "rel": float(numpy.abs(got - want).max()
+                                   / max(float(numpy.abs(want).max()),
+                                         1e-30))}
+    ok = (len(card_steps) == len(cpu_steps) == 20
+          and flipped <= RBM_MAX_FLIPS and before <= RBM_RTOL
+          and all(g["max_abs"] <= RBM_FLIP_ABS * (1 + flipped)
+                  for g in gaps.values())
+          and (flipped or gaps["weights"]["rel"] <= RBM_RTOL))
+    return {"ok": ok, "flipped_draws_by_step": flips,
+            "flipped_draws": flipped, "first_flipped_step": first,
+            "weights_rel_before_first_flip": before, "param_gaps": gaps}
+
+
+def phase_mnist_ae_rbm(device, smi):
+    """``mnist_ae(rbm_pretrain=True)``: the RBM's CD-1 pretraining (20
+    steps of 100 images, 784 visible, 100 hidden) on the card and on the
+    CPU from one seed, the flipped Bernoulli draws counted step by step
+    and the weights held together (RBM_MAX_FLIPS, RBM_RTOL,
+    RBM_FLIP_ABS); a card run with a planted sampler must fail them;
+    then the autoencoder fine-tuned from the card's RBM on the card, 2
+    epochs stitched: exact GEMM/GD/gather launches and a falling
+    rmse."""
+    card, card_steps, card_w, card_s = _rbm_pretrain_recorded(device)
+    cpu, cpu_steps, cpu_w, cpu_s = _rbm_pretrain_recorded(
+        torch.device("cpu"))
+    draws = int(sum(s.size for step in cpu_steps for s in step))
+    agreement = _rbm_agreement(card, card_steps, card_w, cpu, cpu_steps,
+                               cpu_w)
+    bad, bad_steps, bad_w, _s = _rbm_pretrain_recorded(device, planted=True)
+    planted = _rbm_agreement(bad, bad_steps, bad_w, cpu, cpu_steps, cpu_w)
+    rbm_ok = agreement["ok"] and not planted["ok"]
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import gather
+    from veles_tpu_torch.samples import mnist_ae
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        prng.seed_all(SEED)
+        tic = time.perf_counter()
+        wf = mnist_ae.create_workflow(device=device,
+                                      max_epochs=MNIST_AE_RBM_EPOCHS,
+                                      rbm_pretrain=True)
+        reset_all_launches()
+        wf.run()
+        gpu_sync()
+        elapsed = time.perf_counter() - tic
+    launches = mnist_launches()
+    entries = dict(gather.entry_launches)
+    closes = [(h["epoch"], h["cls"], h["batches"]) for h in
+              wf.decision.history]
+    n = sum(c[2] for c in closes)
+    train = sum(c[2] for c in closes if c[1] == "train")
+    want = {"matmul": 2 * n, "gd_dx": train, "gd_dw": 2 * train,
+            "gd_db_in_dw": 2 * train, "veles_gather_served": n}
+    counted = all(dict(launches, **entries).get(k) == v
+                  for k, v in want.items())
+    rmse = [h["mse"] for h in wf.decision.history if h["cls"] ==
+            "validation"]
+    tuned = all(numpy.isfinite(v) for v in rmse) and rmse[-1] < rmse[0]
+    ok = rbm_ok and counted and tuned
+    emit({"phase": "mnist_ae_rbm", "nvidia_smi": smi, "ok": ok,
+          "rbm": "784-100, CD-1, lr 0.1, 20 steps of 100 (the first 2000 "
+                 "train images)", "pretrain_s": {"card": card_s,
+                                                "cpu": cpu_s},
+          "draws": draws, **{k: v for k, v in agreement.items()
+                             if k != "ok"},
+          "flip_abs": RBM_FLIP_ABS, "rtol": RBM_RTOL,
+          "max_flips": RBM_MAX_FLIPS,
+          "planted_sampler": {k: planted[k] for k in (
+              "ok", "flipped_draws", "first_flipped_step", "param_gaps")},
+          "finetune": {"layers": "784-100 sigmoid, 100-784 sigmoid (from "
+                                 "the RBM)", "max_epochs":
+                       MNIST_AE_RBM_EPOCHS, "elapsed_s": elapsed,
+                       "closes": closes, "validation_rmse": rmse,
+                       "launches": launches, "entry_launches": entries,
+                       "launches_expected": want}})
+    check(agreement["ok"], "mnist_ae_rbm", "RBM card against CPU: %s"
+          % agreement)
+    check(not planted["ok"], "mnist_ae_rbm", "the planted sampler passed: "
+          "%d flipped draws" % planted["flipped_draws"])
+    check(counted, "mnist_ae_rbm", "fine-tune launches %s %s, want %s"
+          % (launches, entries, want))
+    check(tuned, "mnist_ae_rbm", "fine-tune rmse did not fall: %s" % rmse)
+    return dict(launches, **entries)
+
+
+def _kohonen_run(device, planted=False):
+    """The SOM sample on ``device`` from SEED; each step's winners and
+    codebook recorded (host copies).  ``planted``: each step's winner is
+    taken one neuron on from the argmin."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import kohonen
+    from veles_tpu_torch.znicz import kohonen as units
+    inner = units._som_step
+
+    def planted_step(weights, grid, x, radius, learning_rate):
+        _w, winners = inner(weights, grid, x, radius, learning_rate)
+        winners = (winners + 1) % weights.shape[0]
+        h = torch.exp(-torch.sum((grid[None] - grid[winners][:, None]) ** 2,
+                                 dim=2) / (2.0 * float(radius) ** 2))
+        den = torch.sum(h, dim=0)[:, None]
+        delta = (h.t() @ x) / torch.clamp(den, min=1e-8) - weights
+        return (weights + float(learning_rate) * delta * (den > 1e-8),
+                winners)
+    prng.seed_all(SEED)
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        wf = kohonen.create_workflow(device=device,
+                                     max_epochs=KOHONEN_EPOCHS)
+        winners, codebooks = [], []
+        run = wf.trainer.run
+
+        def recording_run():
+            run()
+            winners.append(wf.trainer.winners.mem.copy())
+            codebooks.append(
+                wf.trainer.weights.devmem.cpu().numpy().copy())
+        wf.trainer.run = recording_run
+        if planted:
+            units._som_step = planted_step
+        try:
+            tic = time.perf_counter()
+            wf.run()
+            if device.type == "cuda":
+                gpu_sync()
+            elapsed = time.perf_counter() - tic
+        finally:
+            units._som_step = inner
+    return wf, winners, codebooks, elapsed
+
+
+def _kohonen_agreement(wf, winners, codebooks, cpu, cpu_winners,
+                       cpu_codebooks):
+    """The winners moved at each step, the codebook's gap after each
+    step before the first move (every step when none moved) and the
+    quantization errors; ``ok`` by KOHONEN_MAX_MOVED, KOHONEN_RTOL and
+    KOHONEN_QERR_RTOL."""
+    moved = [int((a != b).sum()) for a, b in zip(winners, cpu_winners)]
+    first = next((i for i, m in enumerate(moved) if m), len(moved))
+    scale = max(float(numpy.abs(cpu_codebooks[-1]).max()), 1e-30)
+    before = max([float(numpy.abs(a - b).max()) / scale for a, b in
+                  zip(codebooks[:first], cpu_codebooks[:first])] or [0.0])
+    qerr = (wf.get_metric_values()["quantization_error"],
+            cpu.get_metric_values()["quantization_error"])
+    ok = (len(winners) == len(cpu_winners) == len(codebooks)
+          and sum(moved) <= KOHONEN_MAX_MOVED and before <= KOHONEN_RTOL
+          and abs(qerr[0] - qerr[1])
+          <= KOHONEN_QERR_RTOL * max(qerr[1], 1e-6))
+    return {"ok": ok, "winners_moved_by_step": moved,
+            "winners_moved": sum(moved), "first_moved_step": first,
+            "codebook_rel_before_first_move": before,
+            "quantization_error": {"card": qerr[0], "cpu": qerr[1]}}
+
+
+def phase_kohonen(device, smi):
+    """The Kohonen SOM sample (an 8x8 map over 1000 points of a 2-D
+    Gaussian mixture, minibatch 100, 10 epochs) on the card and on the
+    CPU from one seed: the winners of every step compared (the ones that
+    moved counted: a near tie of two distances), the codebook after
+    each step before the first move and the quantization error
+    (KOHONEN_MAX_MOVED, KOHONEN_RTOL, KOHONEN_QERR_RTOL); a card run
+    with a planted argmin must fail them; exact gather launches: one a
+    step by the eager fill's entry (the trainer is a barrier, so the
+    loader heads no segment)."""
+    from veles_tpu_torch.ops import gather
+    reset_all_launches()
+    wf, winners, codebooks, elapsed = _kohonen_run(device)
+    launches = mnist_launches()
+    entries = dict(gather.entry_launches)
+    cpu, cpu_winners, cpu_codebooks, cpu_elapsed = _kohonen_run(
+        torch.device("cpu"))
+    steps = wf.trainer._step
+    counted = (steps == len(winners) == len(cpu_winners)
+               and launches["gather"] == steps
+               and entries["veles_gather_group"] == steps)
+    agreement = _kohonen_agreement(wf, winners, codebooks, cpu,
+                                   cpu_winners, cpu_codebooks)
+    bad, bad_winners, bad_codebooks, _s = _kohonen_run(device, planted=True)
+    planted = _kohonen_agreement(bad, bad_winners, bad_codebooks, cpu,
+                                 cpu_winners, cpu_codebooks)
+    ok = counted and agreement["ok"] and not planted["ok"]
+    emit({"phase": "kohonen", "nvidia_smi": smi, "ok": ok,
+          "map": "8x8 over 2-D points (1000, 6 centres), minibatch 100",
+          "max_epochs": KOHONEN_EPOCHS, "steps": steps,
+          "elapsed_s": {"card": elapsed, "cpu": cpu_elapsed},
+          **{k: v for k, v in agreement.items() if k != "ok"},
+          "codebook_rel_err": float(
+              numpy.abs(codebooks[-1] - cpu_codebooks[-1]).max()
+              / numpy.abs(cpu_codebooks[-1]).max()),
+          "rtol": KOHONEN_RTOL, "max_moved": KOHONEN_MAX_MOVED,
+          "planted_argmin": {k: planted[k] for k in (
+              "ok", "winners_moved", "first_moved_step",
+              "quantization_error")},
+          "launches": launches, "entry_launches": entries})
+    check(counted, "kohonen", "gather launches %s %s for %d steps"
+          % (launches, entries, steps))
+    check(agreement["ok"], "kohonen", "card against CPU: %s" % {
+        k: v for k, v in agreement.items() if k != "winners_moved_by_step"})
+    check(not planted["ok"], "kohonen", "the planted argmin passed: %d "
+          "winners moved" % planted["winners_moved"])
+    return dict(launches, **entries)
+
+
+def _gap(a, b):
+    """:func:`_max_err` of two host or device arrays, on the host."""
+    return _max_err(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
+
+
+def _served_norm_run(device, name):
+    """The MNIST MLP, stitched, 2 epochs (two validation passes and a
+    train pass: 80 minibatches), its loader normalized by the
+    ``name`` normalizer.  An affine normalizer (``as_affine()``) rides
+    on the u8-resident stand-in (``native_device_dtype``): the stitched
+    head's served gather launch normalizes each row on the device; any
+    other normalizes the float32 dataset once on the host at
+    initialize, and the head gathers it.  Each served minibatch,
+    recorded after its head segment's dispatch: its indices and its
+    rows (host copies); the loader; the launch counts of the run."""
+    from veles_tpu_torch import prng, stitch
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.samples.datasets import load_mnist
+    from veles_tpu_torch.ops import gather
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    native = name not in HOST_ONLY_NORMS
+    params = {}
+    if name == "external_mean":
+        params["mean_source"] = load_mnist(raw=native)[0].reshape(
+            -1, 784).mean(0)
+    served = []
+    execute = stitch.StitchSegment.execute
+
+    def recording(segment):
+        execute(segment)
+        head = segment.head
+        if head is wf.loader:
+            size = int(head.minibatch_size)
+            served.append((head.minibatch_indices.mem[:size].copy(),
+                           head.minibatch_data.devmem[:size].cpu().numpy()
+                           .copy()))
+    reset_all_launches()
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        prng.seed_all(SEED)
+        wf = StandardWorkflow(
+            None, loader_factory=lambda w: mnist.MnistLoader(
+                w, minibatch_size=100, native_device_dtype=native,
+                normalization_type=name, normalization_parameters=params),
+            layers=[dict(s) for s in mnist.LAYERS],
+            decision_config={"max_epochs": 2})
+        wf.launcher = DummyLauncher()
+        wf.initialize(device=device)
+        stitch.StitchSegment.execute = recording
+        try:
+            wf.run()
+        finally:
+            stitch.StitchSegment.execute = execute
+    if device.type == "cuda":
+        gpu_sync()
+    return served, wf.loader, dict(mnist_launches(), **gather.entry_launches)
+
+
+def _served_norm_check(device, name):
+    """One normalizer's served minibatches on the card against the
+    CPU route's (:func:`_served_norm_run` there, the served gather's
+    plain version) and against the host ``normalize`` of the same
+    dataset rows, as the largest gap over the largest served value;
+    the head's gather launches counted (one a minibatch, the data table
+    normalized in it where affine)."""
+    card, loader, launches = _served_norm_run(device, name)
+    cpu, _cpu_loader, _ = _served_norm_run(torch.device("cpu"), name)
+    native = loader.native_device_dtype
+    scale = max(max(float(numpy.abs(rows).max()) for _i, rows in cpu),
+                1e-30)
+    raw = loader.original_data.mem
+    host_gap = cpu_gap = 0.0
+    for (idx, rows), (_c_idx, c_rows) in zip(card, cpu):
+        want = numpy.array(raw[idx], dtype=numpy.float32)
+        if native:
+            loader.normalizer.normalize(want)
+        host_gap = max(host_gap, float(numpy.abs(rows - want).max()))
+        cpu_gap = max(cpu_gap, float(numpy.abs(rows - c_rows).max()))
+    n = len(card)
+    counted = (launches["gather_norm" if native else "gather"] == n
+               and launches["gather_norm_tables"] == (n if native else 0)
+               and launches["veles_gather_served"] == n)
+    same = (n == len(cpu) == 80 and all(
+        numpy.array_equal(a[0], b[0]) for a, b in zip(card, cpu)))
+    info = {"native_u8": native, "minibatches": n,
+            "indices_equal": same,
+            "card_vs_cpu": cpu_gap / scale,
+            "card_vs_host_normalize": host_gap / scale,
+            "launches": {k: launches[k] for k in (
+                "gather", "gather_norm", "gather_tables",
+                "gather_norm_tables", "veles_gather_served")}}
+    info["ok"] = (same and counted
+                  and info["card_vs_cpu"] <= NORM_SERVED_RTOL
+                  and info["card_vs_host_normalize"] <= NORM_SERVED_RTOL)
+    return info, launches
+
+
+def _data_side_units(device):
+    """MeanDisp, the joiner and the avatar as units on ``device`` over
+    one seed's inputs: their outputs on the host."""
+    from veles_tpu_torch.avatar import Avatar
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.input_joiner import InputJoiner
+    from veles_tpu_torch.mean_disp_normalizer import MeanDispNormalizer
+    from veles_tpu_torch.memory import Vector
+    dev = make_device(device)
+    rng = numpy.random.default_rng(SEED)
+    x = rng.integers(0, 256, (100, 28, 28)).astype(numpy.uint8)
+    unit = MeanDispNormalizer(DummyWorkflow())
+    unit.input = Vector(x)
+    unit.mean.reset(rng.random((28, 28)).astype(numpy.float32) * 128)
+    unit.rdisp.reset(rng.random((28, 28)).astype(numpy.float32) / 64)
+    unit.initialize(device=dev)
+    unit.run()
+    parts = [rng.standard_normal((100, 784)).astype(numpy.float32),
+             rng.standard_normal((100, 10, 5)).astype(numpy.float32)]
+    joiner = InputJoiner(DummyWorkflow(), inputs=[Vector(p) for p in parts])
+    joiner.initialize(device=dev)
+    joiner.run()
+
+    class Source(object):
+        minibatch_class, minibatch_size = 2, 100
+        minibatch_offset, epoch_number = 100, 0
+        minibatch_data = Vector(parts[0])
+        minibatch_labels = Vector(numpy.arange(100, dtype=numpy.int32))
+    for vec in (Source.minibatch_data, Source.minibatch_labels):
+        vec.initialize(dev)
+    avatar = Avatar(DummyWorkflow(), source=Source())
+    avatar.initialize()
+    avatar.run()
+    return {"mean_disp": unit.output.mem, "joiner": joiner.output.mem,
+            "avatar": avatar.minibatch_data.mem,
+            "avatar_labels": avatar.minibatch_labels.mem}
+
+
+class _AllTrainMnist(object):
+    """A mixin: the stand-in's 7000 images all TRAIN, so
+    ``validation_ratio`` carves the validation set."""
+
+    def load_data(self):
+        super(_AllTrainMnist, self).load_data()
+        self.class_lengths[:] = [0, 0, sum(self.class_lengths)]
+
+
+def _ratio_run(device):
+    """The MNIST MLP over the all-TRAIN stand-in with validation_ratio
+    0.1, stitched, 2 epochs; its closes, the served index sequence and
+    the parameters."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    from veles_tpu_torch.dummy import DummyLauncher
+
+    class Loader(_AllTrainMnist, mnist.MnistLoader):
+        pass
+    served = []
+    fill = Loader.fill_indices
+
+    def recording(self, start, count):
+        served.append(int(self.shuffled_indices.mem[start]))
+        return fill(self, start, count)
+    Loader.fill_indices = recording
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        prng.seed_all(SEED)
+        wf = StandardWorkflow(
+            None, loader_factory=lambda w: Loader(
+                w, minibatch_size=100, validation_ratio=0.1),
+            layers=[dict(s) for s in mnist.LAYERS],
+            decision_config={"max_epochs": DATA_SIDE_EPOCHS})
+        wf.launcher = DummyLauncher()
+        wf.initialize(device=device)
+        wf.run()
+    if device.type == "cuda":
+        gpu_sync()
+    closes = [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+              for c in wf.decision.history]
+    return wf, closes, served, wf.params_to_numpy()
+
+
+def _saver_replay(device, tmp):
+    """A stitched-free MNIST loader on ``device`` dumped by
+    MinibatchesSaver for 12 serves, then replayed by MinibatchesLoader
+    on ``device``: the replayed minibatches against the served ones."""
+    import os
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.loader import saver
+    from veles_tpu_torch.samples import mnist
+    prng.seed_all(SEED)
+    with engine_knobs(stitch="off"):
+        device = make_device(device)
+        loader = mnist.MnistLoader(DummyWorkflow(), minibatch_size=100)
+        loader.initialize(device=device)
+        path = os.path.join(tmp, "minibatches.dump.gz")
+        dump = saver.MinibatchesSaver(DummyWorkflow(), file_name=path)
+        dump.minibatch_data = loader.minibatch_data
+        dump.minibatch_labels = loader.minibatch_labels
+        dump.initialize()
+        served = []
+        for _ in range(12):
+            loader.run()
+            dump.minibatch_class = loader.minibatch_class
+            dump.minibatch_size = loader.minibatch_size
+            dump.run()
+            served.append(numpy.array(loader.minibatch_data.mem))
+        dump.stop()
+        replay = saver.MinibatchesLoader(DummyWorkflow(), file_name=path)
+        replay.initialize(device=device)
+        gaps = []
+        for want in served:
+            replay.run()
+            gaps.append(float(numpy.abs(replay.minibatch_data.mem
+                                        - want).max()))
+    return gaps
+
+
+def phase_data_side(device, smi):
+    """The data side on CUDA tensors against the CPU: each normalizer's
+    affine form applied on the card (against its own host ``normalize``
+    and the CPU), MeanDispNormalizer, InputJoiner and Avatar as units,
+    ``hog_batch`` over 100 stand-in images (cell 4, block 2, 9 bins) and
+    an RGB batch; the MNIST MLP over the all-TRAIN stand-in with
+    ``validation_ratio`` 0.1, stitched, card against CPU (the served
+    index sequence equal, closes and parameters); a MinibatchesSaver dump
+    of a card loader replayed by MinibatchesLoader on the card."""
+    import tempfile
+    from veles_tpu_torch import normalization
+    from veles_tpu_torch.ops import gather, hog
+    from veles_tpu_torch.samples.datasets import load_mnist
+    results, ok = {}, True
+    rng = numpy.random.default_rng(SEED)
+    norms, norm_launches = {}, {}
+    for name in sorted(normalization.NormalizerRegistry.normalizers):
+        norms[name], launches = _served_norm_check(device, name)
+        for key, value in launches.items():
+            norm_launches[key] = norm_launches.get(key, 0) + value
+        ok = ok and norms[name]["ok"]
+    results["normalizers"] = norms
+    card, cpu = _data_side_units(device), _data_side_units("cpu")
+    results["units"] = {k: _gap(card[k], cpu[k]) for k in card}
+    ok = ok and all(v <= DATA_SIDE_TOL for v in results["units"].values())
+    images = load_mnist()[0][:100].reshape(100, 28, 28)
+    rgb = rng.random((8, 32, 32, 3)).astype(numpy.float32)
+    hogs = {}
+    for name, x, kwargs in (("mnist_gray", images, {"cell": 4}),
+                            ("rgb", rgb, {"cell": 8, "orientations": 6})):
+        t = torch.as_tensor(numpy.ascontiguousarray(x, numpy.float32))
+        got = hog.hog_batch(t.to(device), **kwargs)
+        want = hog.hog_batch(t, **kwargs)
+        hogs[name] = {"shape": list(got.shape), "card_vs_cpu": _gap(got,
+                                                                    want)}
+        ok = ok and hogs[name]["card_vs_cpu"] <= DATA_SIDE_TOL
+    results["hog"] = hogs
+    reset_all_launches()
+    wf, closes, served, params = _ratio_run(device)
+    launches = mnist_launches()
+    entries = dict(gather.entry_launches)
+    _cwf, c_closes, c_served, c_params = _ratio_run(torch.device("cpu"))
+    errs = _param_rel_errors(params, c_params)
+    ratio_ok = (served == c_served and closes == c_closes
+                and wf.loader.class_lengths == [0, 700, 6300]
+                and max(errs.values()) <= DATA_SIDE_PARAM_RTOL
+                and entries["veles_gather_served"] == len(served)
+                and launches["matmul"] == 2 * len(served))
+    results["validation_ratio"] = {
+        "class_lengths": wf.loader.class_lengths, "closes": closes,
+        "served_equal": served == c_served, "closes_equal":
+        closes == c_closes, "param_rel_err": max(errs.values()),
+        "param_rtol": DATA_SIDE_PARAM_RTOL, "launches": launches,
+        "entry_launches": entries, "ok": ratio_ok}
+    with tempfile.TemporaryDirectory() as tmp:
+        gaps = _saver_replay(device, tmp)
+    results["saver_replay_gaps"] = gaps
+    replay_ok = len(gaps) == 12 and max(gaps) == 0.0
+    ok = ok and ratio_ok and replay_ok
+    emit({"phase": "data_side", "nvidia_smi": smi, "ok": ok,
+          "tol": DATA_SIDE_TOL, **results})
+    check(ok, "data_side", "normalizers %s, units %s, hog %s, "
+          "validation_ratio %s, saver replay %s" % (
+              norms, results["units"], hogs, results["validation_ratio"],
+              gaps))
+    return {"data_side": dict(launches, **entries),
+            "data_side_norms": norm_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8448,6 +9318,12 @@ def main():
                 device, info["nvidia_smi"], artifact)
             paths["checkpoint"] = phase_checkpoint(
                 device, info["nvidia_smi"], tmp)
+        paths.update(phase_mnist_rnn(device, info["nvidia_smi"]))
+        phase_mnist_rnn_parity(device)
+        paths["mnist_ae_rbm"] = phase_mnist_ae_rbm(device,
+                                                   info["nvidia_smi"])
+        paths["kohonen"] = phase_kohonen(device, info["nvidia_smi"])
+        paths.update(phase_data_side(device, info["nvidia_smi"]))
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1

@@ -26,7 +26,8 @@ against the JAX package, on the CPU.
   (eager and fused) against the JAX package under the protocols of
   ``tests/test_rollback.py`` and ``tests/test_lr_adjust.py``; mcdnnic
   parsing; the image saver's PNGs; serving a fused workflow.
-- The refusals: a recurrent layer (7(c); a conv topology builds now),
+- The refusals: none left of 7(c) (a conv topology and a recurrent
+  layer build now),
   a mesh (7(d)), the plotters (7(e),
   refused when given at all: ``plotters_config={}`` built silently
   before) and ``rollback_config={}``, which links a Rollback with the
@@ -37,6 +38,7 @@ import io
 import os
 import pickle
 
+import jax
 import jax.numpy as jnp
 import numpy
 import pytest
@@ -48,6 +50,7 @@ from veles_tpu.config import root as jax_root
 from veles_tpu.dummy import DummyLauncher as JaxDummyLauncher
 from veles_tpu.dummy import DummyWorkflow as JaxDummyWorkflow
 from veles_tpu.loader.fullbatch import FullBatchLoader as JaxFullBatch
+from veles_tpu.memory import Vector as JaxVector
 from veles_tpu.samples import mnist as jax_mnist
 from veles_tpu.znicz import image_saver as jax_image_saver
 from veles_tpu.znicz import mcdnnic as jax_mcdnnic
@@ -136,6 +139,22 @@ def _record(wf):
                                 float(dec.epoch_n_err[cls])))
         return close(cls, check_epoch_end)
     dec._close_class = recording
+    return wf
+
+
+def _synchronous(wf):
+    """The JAX eager chain waiting for each unit's results: on the CPU
+    its loader rewrites a host buffer that a dispatched step may still
+    read, which under load changes the JAX run's errors."""
+    for unit in wf.units:
+        def run(unit=unit, inner=unit.run):
+            inner()
+            for value in list(unit.__dict__.values()):
+                if isinstance(value, JaxVector):
+                    value = value._devmem_
+                if isinstance(value, jax.Array):
+                    value.block_until_ready()
+        unit.run = run
     return wf
 
 
@@ -455,6 +474,8 @@ def test_lr_adjuster_matches_jax(fused):
             _seed(4)
             wf = _record(_build(jax_side, native=fused, fused=fused,
                                 lr_adjuster_config=dict(LR_CONFIG)))
+            if jax_side and not fused:
+                _synchronous(wf)
             wf.run()
             runs.append(wf)
     finally:
@@ -552,7 +573,8 @@ def test_mcdnnic_topology_trains_as_its_layers():
 
 def test_a_conv_topology_is_refused_naming_7c():
     """The layer zoo is ported: an mcdnnic conv topology builds its conv
-    layer; a recurrent layer is what still raises naming 7(c)."""
+    layer, and a recurrent layer, once refused naming 7(c), builds the
+    fused trainer too.  The name dates from when both were refused."""
     class TinyImages(Tiny):
         def load_data(self):
             _load(self)
@@ -568,9 +590,24 @@ def test_a_conv_topology_is_refused_naming_7c():
     wf.run()
     assert [s["type"] for s in wf.layers] == ["conv_tanh", "softmax"]
     assert wf.forwards[0].weights.shape == (2, 2, 1, 2)
-    with pytest.raises(NotImplementedError, match=r"item 7\(c\)"):
-        _build(False, layers=[{"type": "rnn", "->": {}},
-                              {"type": "softmax", "->": {}}], fused=True)
+    class TinyRows(Tiny):
+        def load_data(self):
+            _load(self)
+            self.original_data.mem = self.original_data.mem.reshape(
+                -1, 4, 3)
+
+    wf = StandardWorkflow(
+        None, loader_factory=lambda w: TinyRows(w, minibatch_size=BATCH),
+        layers=[{"type": "rnn", "->": {"hidden_units": 3,
+                                       "last_only": True}},
+                {"type": "softmax", "->": {"output_sample_shape": 3}}],
+        fused=True, decision_config={"max_epochs": 1})
+    wf.launcher = DummyLauncher()
+    wf.initialize(device=CPUDevice())
+    wf.run()
+    assert [type(f).__name__ for f in wf.forwards] == [
+        "SimpleRNN", "All2AllSoftmax"]
+    assert wf.decision.history
 
 
 def _saver(package, tmp, data, labels, preds, workflow):

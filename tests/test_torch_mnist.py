@@ -455,10 +455,13 @@ def test_workflow_options_not_ported_raise(engine_config):
     # the u8 dataset needs the stitched head, which stitch=off turns off
     with pytest.raises(ValueError, match="stitched"):
         mnist.create_workflow(device="cpu", native=True)
-    # the layer zoo is ported (7(c)); the recurrent types still raise
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 7\(c\)"):
+    # the recurrent types are ported with the rest of 7(c): an LSTM over
+    # the flat images (one sample a sequence of no steps) is a shape
+    # error, not a refusal
+    with pytest.raises(ValueError):
         mnist.create_workflow(device="cpu", layers=[
-            {"type": "lstm", "->": {}}, {"type": "softmax", "->": {}}])
+            {"type": "lstm", "->": {"hidden_units": 4}},
+            {"type": "softmax", "->": {}}])
 
 
 def test_mnist_cli_on_cpu(capsys):

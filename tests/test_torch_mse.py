@@ -301,8 +301,11 @@ def test_mse_loader_arms_match_the_jax_host_arm(engines):
 
 @pytest.mark.parametrize("option", ["conv", "rbm_pretrain"])
 def test_mnist_ae_options_not_ported_raise_naming_item_7(option):
-    """``rbm_pretrain`` still raises naming 7(c); ``conv`` (the conv
-    autoencoder, ported with the layer zoo) builds its three layers."""
+    """Both options are ported: ``conv`` (the conv autoencoder, with the
+    layer zoo) builds its three layers, ``rbm_pretrain`` (with the rest
+    of 7(c)) starts the MLP autoencoder from the RBM's weights.  The
+    name dates from when both options were refused; the test now checks
+    that they build."""
     if option == "conv":
         wf = mnist_ae.create_workflow(device="cpu", max_epochs=1,
                                       conv=True)
@@ -310,8 +313,12 @@ def test_mnist_ae_options_not_ported_raise_naming_item_7(option):
             "ConvTanh", "StochasticPoolingDepooling", "Deconv"]
         assert wf.forwards[-1].output.shape[1:] == (28, 28, 1)
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 7\(c\)"):
-        mnist_ae.create_workflow(device="cpu", **{option: True})
+    wf = mnist_ae.create_workflow(device="cpu", max_epochs=1, hidden=8,
+                                  **{option: True})
+    assert [type(f).__name__ for f in wf.forwards] == [
+        "All2AllSigmoid", "All2AllSigmoid"]
+    assert wf.forwards[0].weights.shape == (784, 8)
+    assert float(abs(wf.forwards[0].weights.mem).max()) > 0
 
 
 def test_mnist_ae_cli_on_cpu(engines, capsys):

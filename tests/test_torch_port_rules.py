@@ -16,9 +16,9 @@
   package's at any cadence) and so are ``trace_capacity``
   (``tests/test_torch_trace.py``) and ``backend`` = ``auto`` / ``tpu``
   (the card) or ``cpu``.  So are the other knobs the JAX package reads
-  there: ``root.common.ensemble.train_ratio`` other than 1 (item 7) and
-  ``root.common.watch.endpoint`` (item 6(c)) are refused, and
-  ``root.common.obs.blackbox_dir`` is ported
+  there: ``root.common.ensemble.train_ratio`` (7(c)) serves the JAX
+  loader's sequence, ``root.common.watch.endpoint`` (item 6(c)) starts
+  the bus, and ``root.common.obs.blackbox_dir`` is ported
   (``tests/test_torch_obs.py``).
 - ``chip_smoke.py`` fails, and prints no result, without a card or
   without the package beside it.
@@ -41,8 +41,11 @@
   no JAX, its entry points raise without a card, its CPU path never
   loads the kernel builder, ``engine.s2d_conv`` forces the space-to-depth
   choice of an eligible conv (True / False) or leaves it to the
-  heuristic (``"auto"``), the recurrent layer types are refused naming
-  7(c) and ``mesh=`` naming 7(d).
+  heuristic (``"auto"``) and ``mesh=`` is refused naming 7(d).
+- The rest of 7(c) (the recurrent layers, the RBM, the Kohonen map, the
+  data side and the loader modules): its modules import no JAX and none
+  of PIL, h5py, pyzmq and lmdb, its entry points raise without a card,
+  and no refusal in the port names 7(c) any more.
 """
 
 import ast
@@ -522,15 +525,81 @@ def config_knobs():
             setattr(getattr(root.common, node), key, value)
 
 
+_SERVE_CODE = """
+import json, sys
+from veles_tpu_torch.backends import CPUDevice
+PORT = sys.argv[1] == "port"
+if PORT:
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.samples.mnist import MnistLoader
+else:
+    from veles_tpu import prng
+    from veles_tpu.config import root
+    from veles_tpu.dummy import DummyWorkflow
+    from veles_tpu.samples.mnist import MnistLoader
+out = {}
+for ratio in (0.5, 0.9, 2.0):
+    root.common.ensemble.train_ratio = ratio
+    prng.seed_all(3)
+    loader = MnistLoader(DummyWorkflow(), minibatch_size=500)
+    loader.initialize(device=CPUDevice() if PORT else None)
+    served = []
+    try:
+        for _ in range(40):
+            loader.run()
+            size = int(loader.minibatch_size)
+            served.append([int(loader.minibatch_class), size,
+                           loader.minibatch_indices.mem[:size].tolist()])
+        error = None
+    except Exception as exc:
+        error = type(exc).__name__
+    out[str(ratio)] = {"served": served, "error": error,
+                       "ratio": loader.train_ratio}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def train_ratio_serves():
+    """The served sequences of the MNIST loader at each ratio, the port's
+    and the JAX package's, each package in a process of its own (JAX
+    stays out of this one)."""
+    out = {}
+    for package in ("port", "jax"):
+        proc = subprocess.run(
+            [sys.executable, "-c", _SERVE_CODE, package], cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu"),
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        out[package] = json.loads(proc.stdout.strip().splitlines()[-1])
+    return out
+
+
 @pytest.mark.parametrize("ratio", [0.5, 0.9, 2.0])
-def test_ensemble_train_ratio_is_refused_naming_item_7(config_knobs, ratio):
-    """The JAX loader reads the ratio when no keyword is passed, and a
-    ratio below 1 shrinks the TRAIN set: the port refuses it instead of
-    training on another set."""
-    from veles_tpu_torch.samples import mnist
-    config_knobs.ensemble.train_ratio = ratio
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mnist.create_workflow(device="cpu", max_epochs=1)
+def test_ensemble_train_ratio_is_refused_naming_item_7(train_ratio_serves,
+                                                       ratio):
+    """``root.common.ensemble.train_ratio`` is ported now (ROADMAP item
+    7(c)): read when no keyword is passed, a ratio below 1 serves that
+    share of the TRAIN span an epoch.  The port serves the JAX loader's
+    classes, sizes and index sequence over 40 minibatches of 500; a
+    ratio above 1 runs past the dataset and fails in the same serve
+    with the same error in both packages.  The name dates from when the
+    ratio was refused; the test now checks that it is served."""
+    got = train_ratio_serves["port"][str(ratio)]
+    want = train_ratio_serves["jax"][str(ratio)]
+    assert got == want
+    assert got["ratio"] == ratio
+    if ratio < 1:
+        assert got["error"] is None
+        train = [size for cls, size, _idx in got["served"] if cls == 2]
+        # the first epoch's TRAIN serves cover the ratio's share, cut as
+        # the JAX loader cuts it (0.9 serves 5401: int(0.1 * 6000) is 599)
+        share = 6000 - int((1.0 - ratio) * 6000)
+        assert sum(train[:int(math.ceil(share / 500))]) == share
+    else:
+        assert got["error"] is not None and got["served"]
 
 
 def test_watch_endpoint_is_refused_at_initialize_naming_6c(config_knobs):
@@ -1305,16 +1374,73 @@ def test_s2d_conv_knob_forces_the_choice(knob, stride, want):
 
 @pytest.mark.parametrize("call", ["workflow", "lowering", "mesh"])
 def test_zoo_refusals_name_their_items(call):
-    from veles_tpu_torch.samples import alexnet, mnist
+    """``mesh=`` is refused naming 7(d); the recurrent layer types, once
+    refused naming 7(c), now build in the workflow and lower in the
+    fused step."""
+    from veles_tpu_torch.samples import alexnet, mnist_rnn
     from veles_tpu_torch.znicz import fused_graph
     if call == "mesh":
         with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
             alexnet.build_fused(mesh=object(), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=r"item 7\(c\)"):
-        if call == "workflow":
-            mnist.create_workflow(device="cpu", layers=[
-                {"type": "rnn", "->": {}}, {"type": "softmax", "->": {}}])
-        else:
-            fused_graph.lower_specs(
-                [{"type": "lstm", "->": {}}], (4, 3))
+    if call == "workflow":
+        wf = mnist_rnn.create_workflow(device="cpu", max_epochs=1, layers=[
+            {"type": "rnn", "->": {"hidden_units": 4, "last_only": True}},
+            {"type": "softmax", "->": {"output_sample_shape": 10}}])
+        assert [type(f).__name__ for f in wf.forwards] == [
+            "SimpleRNN", "All2AllSoftmax"]
+        assert type(wf.gds[-1]).__name__ == "GDGeneric"
+    else:
+        params, _step, _eval, _apply = fused_graph.lower_specs(
+            [{"type": "lstm", "->": {"hidden_units": 3}}], (4, 3))
+        assert params[0]["w"].shape == (6, 12)
+
+
+# -- the rest of the layer zoo and the data side (7(c)) -----------------------
+
+_REST_MODULES = ("znicz.rnn", "znicz.rbm", "znicz.kohonen",
+                 "samples.mnist_rnn", "samples.kohonen", "ops.normalize",
+                 "ops.join", "ops.hog", "mean_disp_normalizer",
+                 "input_joiner", "avatar", "normalization", "loader.image",
+                 "loader.formats", "loader.streaming", "loader.saver")
+
+
+def test_importing_the_rest_of_7c_loads_no_jax_and_no_optional_package():
+    """The new modules import no JAX, and PIL, h5py, pyzmq and lmdb only
+    where a loader of theirs loads (the card's machine has none)."""
+    proc = _run(
+        "import importlib, json, sys\n"
+        "for m in %r:\n"
+        "    importlib.import_module('veles_tpu_torch.' + m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n" % (_REST_MODULES,))
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert not {"PIL", "h5py", "zmq", "lmdb"} & set(loaded)
+    assert "veles_tpu_torch.ops.build" not in loaded
+
+
+@pytest.mark.parametrize("entry", ["mnist_rnn", "mnist_rnn_cli", "kohonen",
+                                   "mnist_ae_rbm", "rbm_pretrain"])
+def test_rest_of_7c_entry_points_raise_without_a_card(no_cuda, entry):
+    from veles_tpu_torch.samples import kohonen, mnist_ae, mnist_rnn
+    call = {"mnist_rnn": mnist_rnn.create_workflow,
+            "mnist_rnn_cli": lambda: mnist_rnn.main(["--max-epochs", "1"]),
+            "kohonen": kohonen.create_workflow,
+            "mnist_ae_rbm": lambda: mnist_ae.create_workflow(
+                rbm_pretrain=True),
+            "rbm_pretrain": lambda: mnist_ae.pretrain_rbm(
+                numpy.zeros((4, 784), numpy.float32), batch=2)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_no_refusal_names_7c_any_more():
+    """After the rest of 7(c) the port's sources name 7(c) in no
+    refusal: what is still left out names 7(d) or 7(e)."""
+    hits = []
+    for path in PACKAGE.rglob("*.py"):
+        for lineno, line in enumerate(path.read_text().splitlines(), 1):
+            if "7(c)" in line:
+                hits.append("%s:%d" % (path.relative_to(REPO), lineno))
+    assert hits == []

@@ -9,7 +9,8 @@ CPU.
   ``torch`` global (a device tensor would bring its storage along).
 - The snapshotter: one export per improving validation with
   ``Decision.improved`` cleared after it, as many as the JAX package
-  makes on the same task; each codec round-trips with the ``_current``
+  makes on the same task (its eager chain waiting for each unit's
+  results, ``_jax_synchronous``); each codec round-trips with the ``_current``
   symlink; ``SnapshotterToDB`` by id, by ``latest`` and with a ``#`` in
   its path, a missing row or database raising ``KeyError``;
   ``load_snapshot`` from a local ``http.server`` URL; ``diagnose_pickle``
@@ -38,6 +39,7 @@ import io
 import os
 import pickle
 import threading
+import time
 
 import jax
 import numpy
@@ -277,6 +279,36 @@ def _tiny(package, max_epochs=3, **kwargs):
     return wf
 
 
+def _jax_synchronous(wf):
+    """Make the JAX eager chain wait for each unit's results, on the
+    units' classes (the snapshots pickle the instances); returns the
+    undo.  On the CPU the JAX loader rewrites a host buffer that a
+    dispatched step may still read: under load that changes the JAX
+    run's errors, and with them its count of improvements (4 of 64 runs
+    beside the heavy port files made a third)."""
+    saved = []
+    for klass in {type(unit) for unit in wf.units}:
+        inner = klass.run
+
+        def run(self, inner=inner):
+            inner(self)
+            for value in list(self.__dict__.values()):
+                if isinstance(value, JaxVector):
+                    value = value._devmem_
+                if isinstance(value, jax.Array):
+                    value.block_until_ready()
+        saved.append((klass, klass.__dict__.get("run")))
+        klass.run = run
+
+    def undo():
+        for klass, own in reversed(saved):
+            if own is None:
+                del klass.run
+            else:
+                klass.run = own
+    return undo
+
+
 def _count_exports(package, tmp_path, snapshotter_cls):
     wf = _tiny(package, max_epochs=6, snapshotter_config={
         "directory": str(tmp_path / package), "time_interval": 0.0})
@@ -284,6 +316,7 @@ def _count_exports(package, tmp_path, snapshotter_cls):
     original = snapshotter_cls.export
     decision_cls = type(wf.decision)
     close = decision_cls._close_class
+    undo = _jax_synchronous(wf) if package == "jax" else (lambda: None)
 
     def recording_close(self, cls, check_epoch_end):
         result = close(self, cls, check_epoch_end)
@@ -299,6 +332,7 @@ def _count_exports(package, tmp_path, snapshotter_cls):
     finally:
         snapshotter_cls.export = original
         decision_cls._close_class = close
+        undo()
     assert not bool(wf.decision.improved)
     return len(exports), sum(improvements), wf.snapshotter.destination
 
@@ -314,6 +348,28 @@ def test_one_export_per_improvement(engines, tmp_path):
     restored = load_snapshot(path)
     assert restored.snapshotter.suffix == \
         "%.2fpt" % restored.decision.best_n_err_pt
+
+
+def test_a_backward_wall_clock_step_loses_no_export(engines, tmp_path,
+                                                    monkeypatch):
+    """The wall clock steps back a second at every export (a clock
+    correction): at ``time_interval`` 0 each improvement is still
+    exported once, as the gate reads a monotonic clock.  Reading the
+    wall clock, the gate skipped every export after the first until the
+    next close lowered ``improved``."""
+    _set_route(engines, "eager")
+    wall, back = time.time, [0.0]
+    monkeypatch.setattr(time, "time", lambda: wall() - back[0])
+    export = SnapshotterToFile.export
+
+    def stepping_export(self):
+        back[0] += 1.0
+        return export(self)
+
+    monkeypatch.setattr(SnapshotterToFile, "export", stepping_export)
+    got, improved, _ = _count_exports("port", tmp_path, SnapshotterToFile)
+    assert got == improved >= 2
+    assert back[0] == got
 
 
 @pytest.mark.parametrize("compression", ["", "gz", "bz2", "xz"])

@@ -34,9 +34,21 @@ advances, each in its own class and with the epoch flags down.  The
 minibatch served last stays pending until the next serve; a
 ``checkpoint_state()`` (``Workflow.capture_train_state``) folds it into
 the retry queue with the failed ones, so a restored run serves it again,
-as the JAX package's does.  Not ported: the slave half of the prefetch
-(``prefetch_job_data``) and the rest of the master/slave job methods
-and ``validation_ratio`` (ROADMAP item 7).
+as the JAX package's does.
+
+The dataset options of the JAX loader: ``validation_ratio`` carves a
+random part of an all-TRAIN dataset into a validation set at
+initialize (one ``loader``-stream permutation of the TRAIN span, then
+its leading block); ``train_ratio`` (the keyword, else
+``root.common.ensemble.train_ratio``) serves only that share of the
+TRAIN span each epoch (the effective class end offsets); ``testing``
+serves the dataset unshuffled from its start, the TEST pass ending the
+epoch.  They act on the serving bookkeeping, so every route serves the
+JAX package's index sequence: the eager fill, the stitched loader head
+and the epoch-scan windows read the same offsets; the fused trainer's
+epoch mode refuses a ``train_ratio`` as the JAX one does.  Not ported:
+the slave half of the prefetch (``prefetch_job_data``) and the rest of
+the master/slave job methods (ROADMAP item 7(e)).
 """
 
 import collections
@@ -59,11 +71,6 @@ CLASS_NAME = ["test", "validation", "train"]
 INDEX_DTYPE = numpy.int32
 LABEL_DTYPE = numpy.int32
 
-#: loader options of the JAX package this slice does not port, with the
-#: ROADMAP item that will
-_NOT_PORTED = {"validation_ratio": "7", "testing": "7", "train_ratio": "7"}
-
-
 class LoaderError(Exception):
     pass
 
@@ -77,20 +84,9 @@ class Loader(Unit):
     hide_from_registry = True
 
     def __init__(self, workflow, **kwargs):
-        for key, item in _NOT_PORTED.items():
-            if kwargs.get(key):
-                raise NotImplementedError(
-                    "Loader option %r is not ported yet (ROADMAP item %s)"
-                    % (key, item))
-        # the JAX package reads the ensemble's ratio from the config when
-        # no keyword is passed; a ratio below 1 shrinks the TRAIN set
-        ratio = float(root.common.ensemble.get("train_ratio", 1.0) or 1.0)
-        if ratio != 1.0:
-            raise NotImplementedError(
-                "root.common.ensemble.train_ratio=%r is not ported yet "
-                "(ROADMAP item 7)" % ratio)
         self.class_lengths = [0, 0, 0]
         self.class_end_offsets = [0, 0, 0]
+        self._effective_class_end_offsets = [0, 0, 0]
         self.max_minibatch_size = kwargs.get("minibatch_size", 100)
         self.minibatch_class = TRAIN
         self.minibatch_offset = 0
@@ -105,11 +101,36 @@ class Loader(Unit):
         #: head reads it on the device, uploaded once per shuffle
         self.shuffled_indices = Vector(category="dataset")
         self.shuffle_limit = kwargs.get("shuffle_limit", 2 ** 31)
+        # the share of the TRAIN span served an epoch: the keyword, else
+        # the ensemble's ratio from the config
+        if "train_ratio" in kwargs:
+            self.train_ratio = kwargs["train_ratio"]
+        else:
+            self.train_ratio = float(
+                root.common.ensemble.get("train_ratio", 1.0) or 1.0)
+        # a (0, 1) ratio carves a validation set out of an all-TRAIN
+        # dataset at initialize; checked here, before any data loads
+        ratio = kwargs.get("validation_ratio", None)
+        if ratio is not None:
+            try:
+                ratio = float(ratio)
+            except (TypeError, ValueError):
+                raise LoaderError(
+                    "validation_ratio must be a number in (0, 1), "
+                    "got %r" % (kwargs["validation_ratio"],))
+            if not 0.0 < ratio < 1.0:
+                raise LoaderError(
+                    "validation_ratio must be in (0, 1), got %r"
+                    % ratio)
+        self.validation_ratio = ratio
+        self.testing = kwargs.get("testing", False)
         self.global_offset = 0
         self.samples_served = 0
         self.epoch_number = 0
         self.last_minibatch = Bool(False)
         self.epoch_ended = Bool(False)
+        self.train_ended = Bool(False)
+        self.test_ended = Bool(False)
         #: (offset, size) of minibatches to serve again, before the
         #: offset advances
         self.failed_minibatches = []
@@ -162,15 +183,25 @@ class Loader(Unit):
         return sum(self.class_lengths)
 
     @property
+    def effective_total_samples(self):
+        """The end of an epoch's serving: the TRAIN span cut to
+        ``train_ratio``."""
+        return self._effective_class_end_offsets[TRAIN]
+
+    @property
+    def effective_class_end_offsets(self):
+        return self._effective_class_end_offsets
+
+    @property
     def class_ended(self):
-        for offset in self.class_end_offsets:
+        for offset in self.effective_class_end_offsets:
             if self.global_offset == offset:
                 return True
             if self.global_offset < offset:
                 return False
         raise LoaderError(
             "global_offset %d out of bounds %s" %
-            (self.global_offset, self.class_end_offsets))
+            (self.global_offset, self.effective_class_end_offsets))
 
     # -- the loader contract ------------------------------------------------
     def load_data(self):
@@ -208,9 +239,30 @@ class Loader(Unit):
         # must not be served under a matching (offset, size)
         self._prefetch_futures_.clear()
         self._staging_ring_ = None
+        if self.testing:
+            self.shuffle_limit = 0
+            self.global_offset = 0
+            del self.failed_minibatches[:]
         self.load_data()
         if self.total_samples == 0:
             raise LoaderError("there is no data to serve")
+        if self.validation_ratio is not None and \
+                self.class_lengths[VALID] == 0 and \
+                self.class_lengths[TRAIN] > 0:
+            # a random part of the TRAIN span becomes validation: one
+            # permutation of the span, then its leading block (a
+            # label-sorted dataset would otherwise send whole classes)
+            k = int(self.class_lengths[TRAIN] * self.validation_ratio)
+            if k > 0:
+                start = self.class_lengths[TEST] + self.class_lengths[VALID]
+                idx = numpy.arange(self.total_samples, dtype=INDEX_DTYPE)
+                self.prng.shuffle(idx[start:])
+                self.shuffled_indices.mem = idx
+                self.class_lengths[VALID] = k
+                self.class_lengths[TRAIN] -= k
+                self.info("extracted %d random validation samples from "
+                          "train (validation_ratio %.3f)", k,
+                          self.validation_ratio)
         self._calc_class_end_offsets()
         self.info("samples: test: %d, validation: %d, train: %d",
                   *self.class_lengths)
@@ -264,7 +316,8 @@ class Loader(Unit):
             self.shuffled_indices.mem[self.class_end_offsets[VALID]:])
 
     def class_index_by_sample_index(self, index):
-        for class_index, offset in enumerate(self.class_end_offsets):
+        for class_index, offset in enumerate(
+                self.effective_class_end_offsets):
             if index < offset:
                 return class_index, offset - index
         raise LoaderError("sample index %d out of range" % index)
@@ -351,9 +404,12 @@ class Loader(Unit):
                 raise TypeError("class_lengths must be integers")
             total += n
             self.class_end_offsets[i] = total
+        self._effective_class_end_offsets = list(self.class_end_offsets)
+        self._effective_class_end_offsets[TRAIN] -= int(
+            (1.0 - self.train_ratio) * self.class_lengths[TRAIN])
 
     def _advance_global_offset(self):
-        if self.global_offset >= self.total_samples:
+        if self.global_offset >= self.effective_total_samples:
             self.global_offset = 0
             self.epoch_number += 1
             self.shuffle()
@@ -361,6 +417,10 @@ class Loader(Unit):
             self.global_offset)
         minibatch_size = min(remainder, self.max_minibatch_size)
         self.global_offset += minibatch_size
+        self.train_ended <<= \
+            self.global_offset >= self.effective_total_samples
+        self.test_ended <<= \
+            self.global_offset >= self.class_end_offsets[TEST]
         return self.global_offset, minibatch_size
 
     def _update_flags(self):
@@ -370,6 +430,7 @@ class Loader(Unit):
             self.minibatch_class == VALID or
             (self.minibatch_class == TEST and
              self.class_lengths[TRAIN] == self.class_lengths[VALID] == 0) or
+            (self.minibatch_class == TEST and self.testing) or
             (self.minibatch_class == TRAIN and
              self.class_lengths[VALID] == 0))
 
@@ -380,7 +441,7 @@ class Loader(Unit):
         The port's loader has no master/slave mode, the JAX package's
         other case."""
         if self.failed_minibatches \
-                or self.global_offset >= self.total_samples:
+                or self.global_offset >= self.effective_total_samples:
             return None
         _cls, remainder = self.class_index_by_sample_index(
             self.global_offset)
@@ -492,6 +553,10 @@ class Loader(Unit):
         the label mapping from the raw labels (a resident dataset
         analyzes itself directly)."""
         if self.class_lengths[TRAIN] == 0:
+            if not self.normalizer.is_initialized:
+                raise LoaderError(
+                    "no train samples and the normalizer is "
+                    "uninitialized; set normalizer.state")
             return
         labels_seen = {}
 

@@ -152,6 +152,9 @@ class FullBatchLoader(Loader):
     def analyze_dataset(self):
         """The dataset is resident: analyze the TRAIN span directly."""
         if self.class_lengths[TRAIN] == 0:
+            if not self.normalizer.is_initialized:
+                raise LoaderError(
+                    "no train samples and uninitialized normalizer")
             return
         start = self.class_end_offsets[TRAIN - 1]
         self.normalizer.analyze(self.original_data.mem[start:])

@@ -300,9 +300,16 @@ def _gather_served_cuda(tables, shuffled, offset, size, count):
 def affine_tensors(norm, device):
     """``(scale, shift)`` of an affine normalizer (``as_affine()``: a
     number or one per feature each) as flat f32 tensors on ``device``,
-    rounded to f32 as the JAX package's ``_norm_row`` rounds them."""
-    return tuple(torch.as_tensor(v, dtype=torch.float32).reshape(-1)
-                 .to(device) for v in norm)
+    rounded to f32 as the JAX package's ``_norm_row`` rounds them.  A
+    number beside one per feature (``internal_mean``, ``external_mean``)
+    is repeated to the feature count: the kernel reads both with one
+    stride."""
+    scale, shift = (torch.as_tensor(v, dtype=torch.float32).reshape(-1)
+                    for v in norm)
+    if 1 in (scale.numel(), shift.numel()):
+        n = max(scale.numel(), shift.numel())
+        scale, shift = (t.expand(n).contiguous() for t in (scale, shift))
+    return scale.to(device), shift.to(device)
 
 
 def take_rows(data, indices, pad=0):

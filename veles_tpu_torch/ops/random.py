@@ -6,12 +6,14 @@ Counterpart of :mod:`veles_tpu.ops.random`.  Two paths, as there:
   explicit ``torch.Generator`` (the JAX package's ``jax.random`` key);
   they are plain torch, and are held to the distribution, not to
   threefry's bits.
-* :func:`threefry_bits`, :func:`threefry_uniform` and
-  :func:`threefry_bernoulli` give the bits of ``jax.random.bits``,
-  ``uniform`` and ``bernoulli`` over ``jax.random.key(seed)`` (the
-  threefry2x32 stream of JAX's default implementation, with
+* :func:`threefry_bits`, :func:`threefry_uniform`,
+  :func:`threefry_bernoulli` and :func:`threefry_split` give the bits of
+  ``jax.random.bits``, ``uniform``, ``bernoulli`` and ``split`` over a
+  key, ``jax.random.key(seed)`` or one split from it (the threefry2x32
+  stream of JAX's default implementation, with
   ``jax_threefry_partitionable`` on): the masks of dropout and
-  stochastic pooling, which the JAX units draw from an int32 seed.  They
+  stochastic pooling, which the JAX units draw from an int32 seed, and
+  the RBM's Gibbs samples, drawn over split keys.  They
   are plain torch integer arithmetic over int64 tensors holding uint32
   words, on the seed's device, so the seed may be a device tensor that a
   CUDA graph advances in place.
@@ -120,39 +122,76 @@ def threefry2x32(key, x0, x1):
     return x0, x1
 
 
-def threefry_bits(seed, shape, device=None):
-    """``jax.random.bits(jax.random.key(seed), shape)`` (uint32 words in
-    an int64 tensor).  ``seed``: an int or a 0-d integer tensor, taken
-    as uint32 (the JAX units cast their int32 seed so); the key is
-    ``(0, seed)``.  The partitionable layout: element ``i`` (row-major)
-    hashes the counter ``(i >> 32, i & 0xFFFFFFFF)`` and its bits are
-    the XOR of the two output words.  On the seed tensor's device, else
-    ``device`` (the CPU by default)."""
-    if isinstance(seed, torch.Tensor):
-        device = seed.device
-        seed = seed.to(torch.int64) & _M32
+def _key_words(key):
+    """The two uint32 words of a key: ``(k0, k1)`` given as a pair (ints
+    or 0-d int64 tensors), or a seed (an int or a 0-d integer tensor,
+    taken as uint32 as the JAX units cast their int32 seed), whose key
+    is ``jax.random.key(seed)``'s ``(0, seed)``."""
+    if isinstance(key, (tuple, list)):
+        k0, k1 = key
     else:
-        seed = int(seed) & _M32
+        k0, k1 = 0, key
+    words = []
+    for k in (k0, k1):
+        if isinstance(k, torch.Tensor):
+            words.append(k.to(torch.int64) & _M32)
+        else:
+            words.append(int(k) & _M32)
+    return tuple(words)
+
+
+def _key_device(key, device):
+    for k in (key if isinstance(key, (tuple, list)) else (key,)):
+        if isinstance(k, torch.Tensor):
+            return k.device
+    return device or "cpu"
+
+
+def threefry_split(key, num=2):
+    """``jax.random.split(key, num)``: a list of ``num`` keys (pairs of
+    words, ints for an int key), key ``i`` being the two output words of
+    threefry2x32 over the counter ``(0, i)`` (the partitionable
+    layout)."""
+    words = _key_words(key)
+    return [threefry2x32(words, 0, i) for i in range(int(num))]
+
+
+def threefry_bits(key, shape, device=None):
+    """``jax.random.bits(key, shape)`` (uint32 words in an int64 tensor)
+    for a key pair or a seed (:func:`_key_words`).  The partitionable
+    layout: element ``i`` (row-major) hashes the counter ``(i >> 32, i &
+    0xFFFFFFFF)`` and its bits are the XOR of the two output words.  On
+    the key's device when a word is a tensor, else ``device`` (the CPU
+    by default)."""
+    device = _key_device(key, device)
+    words = _key_words(key)
     shape = tuple(int(s) for s in shape)
     count = math.prod(shape)
-    idx = torch.arange(count, dtype=torch.int64, device=device or "cpu")
-    x0, x1 = threefry2x32((0, seed), idx >> 32, idx & _M32)
+    idx = torch.arange(count, dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32(words, idx >> 32, idx & _M32)
     return (x0 ^ x1).reshape(shape)
 
 
-def threefry_uniform(seed, shape, device=None):
-    """``jax.random.uniform(jax.random.key(seed), shape)`` in float32:
-    the top 23 bits of each word as the mantissa of a float in [1, 2),
-    minus 1."""
-    bits = threefry_bits(seed, shape, device)
+def threefry_uniform(key, shape, device=None):
+    """``jax.random.uniform(key, shape)`` in float32: the top 23 bits of
+    each word as the mantissa of a float in [1, 2), minus 1."""
+    bits = threefry_bits(key, shape, device)
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
         torch.float32) - 1.0
 
 
-def threefry_bernoulli(seed, p, shape, device=None):
-    """``jax.random.bernoulli(jax.random.key(seed), p, shape)`` for a
-    float ``p``: the uniform draw below ``p`` in float32."""
-    return threefry_uniform(seed, shape, device) < numpy.float32(p)
+def threefry_bernoulli(key, p, shape=None, device=None):
+    """``jax.random.bernoulli(key, p, shape)``: the float32 uniform draw
+    below ``p``.  A tensor ``p`` gives the shape and the device when
+    they are not given (the JAX call with ``shape=None``); a float ``p``
+    is rounded to float32 first, as JAX casts it."""
+    if isinstance(p, torch.Tensor):
+        if shape is None:
+            shape = p.shape
+        if device is None:
+            device = p.device
+        return threefry_uniform(key, shape, device) < p.to(torch.float32)
+    return threefry_uniform(key, shape, device) < numpy.float32(p)
 
 
 # -- the counter-based uniform fill -----------------------------------------

@@ -14,11 +14,15 @@ and the two sigmoid GEMMs and the MSE evaluator in one segment, and on
 train minibatches the two GD steps in the other; with
 ``engine.epoch_scan=auto`` a class pass is one window.  The conv
 autoencoder's stochastic pool-depool draws a seed at every run, so its
-chain is three stitched pieces around it.  Not ported:
-``rbm_pretrain=True`` (``rbm.py``, ROADMAP item 7(c)).  Run it with
+chain is three stitched pieces around it.  ``rbm_pretrain=True`` first
+trains an RBM (:class:`~veles_tpu_torch.znicz.rbm.RBMTrainer`, CD-1, one
+pass over the first 2000 train images) on the workflow's device, the
+card or the CPU when asked (the JAX sample pretrains on the host), and
+starts the MLP autoencoder from its weights.  Run it with
 
     python -m veles_tpu_torch.samples.mnist_ae [--device cpu]
         [--max-epochs N] [--epoch-scan off|auto|K] [--conv]
+        [--rbm-pretrain]
 
 which prints ``gather_results()`` and the epochs per second.
 """
@@ -95,20 +99,45 @@ class MnistConvAELoader(MnistAELoader):
     SAMPLE_SHAPE = (28, 28, 1)
 
 
+def pretrain_rbm(loader_data, hidden=100, epochs=3, batch=100,
+                 device=None):
+    """CD-1 pretraining passes over ``loader_data`` (N, 784) on
+    ``device`` (the card when None); returns the trainer, whose ``to_autoencoder_specs()``
+    seed the autoencoder's layers."""
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.memory import Vector
+    from veles_tpu_torch.znicz.rbm import RBMTrainer
+    wf = DummyWorkflow()
+    trainer = RBMTrainer(wf, n_hidden=hidden, learning_rate=0.1)
+    trainer.input = Vector(loader_data[:batch])
+    trainer.initialize(device=make_device(device))
+    n = len(loader_data)
+    for _ in range(epochs):
+        for start in range(0, n - batch + 1, batch):
+            trainer.input.reset(loader_data[start:start + batch])
+            trainer.run()
+    return trainer
+
+
 def create_workflow(device=None, max_epochs=15, minibatch_size=100,
                     hidden=100, rbm_pretrain=False, conv=False,
                     **kwargs):
     """The autoencoder workflow (the conv one with ``conv``),
     initialized on ``device`` (the card when None; raises without
-    one)."""
-    if rbm_pretrain:
-        raise NotImplementedError(
-            "mnist_ae rbm_pretrain=True (rbm.py) is not ported yet "
-            "(ROADMAP item 7(c))")
+    one); ``rbm_pretrain`` starts the MLP one from an RBM's weights,
+    pretrained on that device."""
     device = make_device(device)
     loader_class = MnistConvAELoader if conv else MnistAELoader
     layers = kwargs.pop("layers", None) or (
         make_conv_layers() if conv else make_layers(hidden=hidden))
+    if rbm_pretrain:
+        tr_x, _tr_y, _te_x, _te_y, _real = load_mnist()
+        trainer = pretrain_rbm(
+            numpy.ascontiguousarray(tr_x.reshape(len(tr_x), -1)[:2000],
+                                    dtype=numpy.float32),
+            hidden=hidden, epochs=1, device=device)
+        for layer, seeded in zip(layers, trainer.to_autoencoder_specs()):
+            layer["init"] = seeded["init"]
     wf = StandardWorkflow(
         None,
         loader_factory=lambda w: loader_class(
@@ -136,12 +165,15 @@ def main(argv=None):
                         "length K (default: the config's, off)")
     parser.add_argument("--conv", action="store_true",
                         help="the conv autoencoder")
+    parser.add_argument("--rbm-pretrain", action="store_true",
+                        help="start from an RBM's weights (CD-1)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     if args.epoch_scan is not None:
         root.common.engine.epoch_scan = args.epoch_scan
     wf = create_workflow(device=args.device, max_epochs=args.max_epochs,
-                         minibatch_size=args.minibatch_size, conv=args.conv)
+                         minibatch_size=args.minibatch_size, conv=args.conv,
+                         rbm_pretrain=args.rbm_pretrain)
     tic = time.perf_counter()
     wf.run()
     wf.device.sync()

@@ -5,7 +5,11 @@ The port's counterpart of :mod:`veles_tpu.snapshotter`:
 * ``SnapshotterBase`` decides *when*: every ``interval``-th run, at
   most once in ``time_interval`` seconds, and with ``reset_flag`` (a
   ``Bool``) cleared after each export, so a level-triggered gate such
-  as ``Decision.improved`` gives one snapshot an improvement;
+  as ``Decision.improved`` gives one snapshot an improvement.  The
+  interval is read on ``time.monotonic()``: the JAX package reads the
+  wall clock, and a step of it backwards made the gate skip an export
+  at ``time_interval`` 0, which lost that improvement's snapshot when
+  the next close lowered the flag;
 * ``SnapshotterToFile`` pickles the workflow to
   ``<directory>/<prefix>_<suffix>.pickle[.<codec>]`` with a
   ``<prefix>_current.pickle[.<codec>]`` symlink and a size warning.
@@ -85,19 +89,25 @@ class SnapshotterBase(Unit):
         #: a one-shot trigger, cleared after each export
         self.reset_flag = None
         self._run_counter = 0
-        self._last_time = 0.0
+
+    def init_unpickled(self):
+        super(SnapshotterBase, self).init_unpickled()
+        #: ``time.monotonic()`` at the last export in this process (a
+        #: monotonic reading means nothing in another one), None before
+        self._last_export_ = None
 
     def run(self):
         self._run_counter += 1
         if self._run_counter % max(self.interval, 1) != 0:
             self.skipped <<= True
             return
-        now = time.time()
-        if now - self._last_time < self.time_interval:
+        now = time.monotonic()
+        if self._last_export_ is not None \
+                and now - self._last_export_ < self.time_interval:
             self.skipped <<= True
             return
         self.skipped <<= False
-        self._last_time = now
+        self._last_export_ = now
         self.export()
         if self.reset_flag is not None:
             self.reset_flag <<= False

@@ -34,8 +34,9 @@ int32 tensor that the step advances in place as ``(seed + 1) &
 0x3fffffff``, so a CUDA graph of the step draws new masks at every
 replay with no host generator.  ``apply_fn`` and ``eval_fn`` leave out
 the ``SKIP_AT_EVAL`` stages (dropout).  The recurrent types (``lstm``,
-``rnn``) wait for ROADMAP item 7(c), and ``grad_reduce_axis`` (the
-explicit-collective data parallelism) for item 7(d).
+``rnn``) lower through their loop's autograd.  ``grad_reduce_axis``
+(the explicit-collective data parallelism) waits for ROADMAP item
+7(d).
 """
 
 import numpy
@@ -54,9 +55,6 @@ def default_lr(solver):
     return 1.0 if str(solver) == "adadelta" else 0.01
 
 
-#: layer types of the JAX lowering not ported yet, with their ROADMAP item
-_NOT_PORTED_TYPES = {"lstm": "7(c)", "rnn": "7(c)"}
-
 #: the grad_accum microbatch stride of the stage seeds (the JAX step's)
 SEED_STRIDE = 0x3504f325
 SEED_MASK = 0x3fffffff
@@ -72,17 +70,12 @@ def probe_units(layer_specs, sample_shape):
     from veles_tpu_torch.units import UnitRegistry
     from veles_tpu_torch.znicz import (  # noqa: F401 - the registry
         activation, all2all, conv, misc_units, normalization_units,
-        pooling)
+        pooling, rnn)
 
     wf = DummyWorkflow()
     probe = Vector(numpy.zeros((2,) + tuple(sample_shape), numpy.float32))
     units = []
     for spec in layer_specs:
-        if spec["type"] in _NOT_PORTED_TYPES:
-            raise NotImplementedError(
-                "layer type %r is not ported to the fused lowering yet "
-                "(ROADMAP item %s)" % (spec["type"],
-                                       _NOT_PORTED_TYPES[spec["type"]]))
         klass = UnitRegistry.mapped[spec["type"]]
         unit = klass(wf, **dict(spec.get("->", {})))
         unit.input = probe

@@ -37,12 +37,12 @@ parameters from the restored forwards.  Not ported: the plotters
 (ROADMAP item 7(e)); an option the port does not take is refused when
 it is given at all, not only when it is truthy.
 
-The layer types are those of the JAX package's ``GD_PAIRS`` but the
-recurrent ``lstm`` and ``rnn`` (ROADMAP item 7(c)): the all2all family
-on the GEMM and GD kernels, and the layer zoo (conv, pooling, LRN,
-dropout, the activations, deconv, the cutter, the channel splitter,
-depooling, ``rprop_all2all``, ``resizable_all2all``), whose backward
-units are VJPs of their forwards (:mod:`veles_tpu_torch.znicz.gd_base`).
+The layer types are those of the JAX package's ``GD_PAIRS``: the
+all2all family on the GEMM and GD kernels, and the layer zoo (conv,
+pooling, LRN, dropout, the activations, deconv, the cutter, the channel
+splitter, depooling, ``rprop_all2all``, ``resizable_all2all``, the
+recurrent ``lstm`` and ``rnn``), whose backward units are VJPs of their
+forwards (:mod:`veles_tpu_torch.znicz.gd_base`).
 A dropout layer's ``forward_mode`` is a ``ClassSkipGate``: the identity
 off TRAIN minibatches.  ``zero_filter`` and ``channel_merger`` are
 service units, refused in ``layers`` with the JAX package's text.
@@ -64,12 +64,11 @@ from veles_tpu_torch.plumbing import Repeater
 from veles_tpu_torch.units import UnitRegistry
 from veles_tpu_torch.znicz import (  # noqa: F401 - populate the registry
     activation, all2all, conv, gd, misc_units, normalization_units,
-    pooling)
+    pooling, rnn)
 from veles_tpu_torch.znicz.decision import DecisionGD, DecisionMSE
 from veles_tpu_torch.znicz.evaluator import EvaluatorMSE, EvaluatorSoftmax
 
-#: forward MAPPING → paired gradient MAPPING: the JAX package's table but
-#: the recurrent types (:data:`_NOT_PORTED_TYPES`)
+#: forward MAPPING → paired gradient MAPPING: the JAX package's table
 GD_PAIRS = {
     "all2all": "gd",
     "all2all_tanh": "gd_tanh",
@@ -95,6 +94,9 @@ GD_PAIRS = {
     # forward-only layer types: the backward is the VJP of the forward
     "depooling": "gd_generic",
     "channel_splitter": "gd_generic",
+    # recurrent: the VJP through the sequence loop
+    "lstm": "gd_generic",
+    "rnn": "gd_generic",
     "lrn": "gd_lrn",
     "dropout": "gd_dropout",
     # the alias spellings pair with their canonical names' backwards
@@ -114,10 +116,6 @@ GD_PAIRS = {
     "activation_sincos": "gd_activation",
     "activation_mul": "gd_activation",
 }
-
-#: layer types of the JAX package's table not ported yet, with the ROADMAP
-#: item that will port each
-_NOT_PORTED_TYPES = {"lstm": "7(c)", "rnn": "7(c)"}
 
 #: StandardWorkflow options of the JAX package not ported yet, with the
 #: ROADMAP item that will port each; refused when given (not None)
@@ -319,10 +317,6 @@ class StandardWorkflow(AcceleratedWorkflow):
         prev = self.loader
         prev_attr = "minibatch_data"
         for spec in self.layers:
-            if spec["type"] in _NOT_PORTED_TYPES:
-                raise NotImplementedError(
-                    "layer type %r is not ported yet (ROADMAP item %s)"
-                    % (spec["type"], _NOT_PORTED_TYPES[spec["type"]]))
             if spec["type"] in self.NON_LAYER_TYPES:
                 raise ValueError(
                     "%r is a service unit, not a chainable layer — "

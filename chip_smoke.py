@@ -394,6 +394,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
    MLP over the all-TRAIN stand-in with ``validation_ratio`` 0.1, card
    against CPU (the same index sequence, closes and parameters); a
    ``MinibatchesSaver`` dump of a card loader replayed exactly.
+33. ``spmd_group`` — ``parallel.multihost.initialize`` on the card: a
+   one-rank NCCL group (one card allows one NCCL rank; the multi-rank
+   cases run as gloo worlds in the CPU tests), which the next four
+   phases run their collectives on, each reporting the collectives it
+   issued by kind (``parallel.comm.counts``).
+34. ``spmd_train`` — the ``train`` phase's CONFIG step through
+   ``build_train(mesh=mesh_from_topology("data=1,seq=1,model=1"))``
+   beside the no-mesh step, 6 steps each: losses, params and velocity
+   bit-equal, 24/12/12 flash launches and exactly 61 all-reduces a step,
+   step ms and tokens/s of both; a 2-layer f32 mesh step against the
+   CPU at ``train_parity``'s bounds.
+35. ``ring`` — ring-flash at (8, 2048, 16, 64), bf16 and f32, as 4
+   virtual ranks of 512 positions: ``ring.forward_hop`` /
+   ``backward_hop`` for each (rank, hop), 16 forward and 16 backward
+   pairs at global causal offsets; the merged o, lse, dq, dk, dv against
+   the single-shard flash kernels at the kernels phase's tolerances and
+   against the ring's plain version (the gradients within the sum of
+   the hops' bounds); a k_offset one block off must be caught; then
+   ``ring_attention`` and ``ulysses_attention`` on the one-rank group
+   equal to the flash attention bit for bit.
+36. ``moe`` — ``samples/moe.py`` at CONFIG, batch 8: ``moe_mlp`` on the
+   one-rank group equal to ``moe_reference`` (capacity factor = the
+   experts), 5 mesh train steps bit-equal to the no-mesh steps with a
+   falling loss, tokens/s.
+37. ``fused_dp`` — the fused MNIST trainer with ``mesh_axes={"data":
+   -1}``, 3 epochs, bit-equal to the no-mesh run, one capture a step
+   shape, no recapture, exact GEMM and gather launches, the step's
+   all-reduce captured in its graph; AlexNet's f32 step at batch 128
+   over the data mesh bit-equal to the no-mesh step, 3 captured steps.
 
 The ``kernels`` phase also holds the paged decode kernel against
 ``_paged_decode_ref`` (f32 <= 1e-4, bf16 <= 2e-2) for decode (1 row)
@@ -510,7 +539,7 @@ serve_generate_int8, serve_paged,
 serve_spec, train, mnist, mnist_stitched, mnist_scan, mnist_ae,
 serve_batch, ops, tooling, the snapshot and checkpoint phases,
 mnist_rnn on its three routes, mnist_ae_rbm, kohonen, data_side and
-data_side_norms, max
+data_side_norms, spmd_train, ring, fused_dp, max
 abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -9246,6 +9275,550 @@ def phase_data_side(device, smi):
             "data_side_norms": norm_launches}
 
 
+# -- ROADMAP 7(d), part 1: the SPMD library on a one-rank NCCL group ---------
+
+SPMD_TRAIN_STEPS = 6
+SPMD_PARITY_STEPS = 2
+RING_RANKS = 4                   # virtual ranks of the ring phase
+RING_SHAPE = (8, 2048, 16, 64)   # the train step's attention
+MOE_BATCH = 8
+MOE_STEPS = 5
+MOE_REF_RTOL = 1e-5              # moe_mlp vs moe_reference, of max |ref|
+FUSED_DP_EPOCHS = 3
+ALEXNET_DP_STEPS = 3
+
+
+def spmd_counts():
+    from veles_tpu_torch.parallel import comm
+    return {kind: comm.counts[kind] for kind in comm.KINDS}
+
+
+def phase_spmd_group(device):
+    """The one-rank NCCL group the SPMD phases run on (one card: NCCL
+    refuses two ranks on one GPU, so the multi-rank behaviour is proven
+    on the CPU with gloo ranks): ``multihost.initialize`` on the card,
+    its backend, rank and world size."""
+    import torch.distributed as dist
+    from veles_tpu_torch.parallel import multihost
+    dev = multihost.initialize(device=device)
+    info = {"phase": "spmd_group", "backend": str(dist.get_backend()),
+            "rank": dist.get_rank(), "world_size": dist.get_world_size(),
+            "device": str(dev)}
+    info["ok"] = info["backend"] == "nccl" and info["world_size"] == 1
+    emit(info)
+    check(info["ok"], "spmd_group", "want a one-rank NCCL group: %s" % info)
+
+
+def _steps_timed(step, params, velocity, tokens, steps):
+    """``steps`` steps: each's loss, wall ms (synchronised), flash
+    launches and collectives."""
+    from veles_tpu_torch.ops import attention
+    from veles_tpu_torch.parallel import comm
+    out = {"losses": [], "step_ms": [], "launches": [], "collectives": []}
+    for _ in range(steps):
+        before, issued = dict(attention.launches), dict(comm.counts)
+        gpu_sync()
+        tic = time.perf_counter()
+        params, velocity, metrics = step(params, velocity, tokens)
+        out["losses"].append(float(metrics["loss"]))
+        gpu_sync()
+        out["step_ms"].append((time.perf_counter() - tic) * 1e3)
+        out["launches"].append({k: attention.launches[k] - before[k]
+                                for k in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv")})
+        out["collectives"].append({k: comm.counts[k] - issued.get(k, 0)
+                                   for k in comm.KINDS})
+    return out
+
+
+def _trees_equal(a, b):
+    from veles_tpu_torch.samples import transformer as T
+    return all(torch.equal(x, y) for x, y in zip(T._leaves(a), T._leaves(b)))
+
+
+def phase_spmd_train(device, smi):
+    """The transformer at CONFIG width (bf16, remat, batch 8) through
+    ``build_train(mesh=mesh_from_topology("data=1,seq=1,model=1"))`` on
+    the one-rank NCCL group, SPMD_TRAIN_STEPS steps, beside the no-mesh
+    ``build_train`` in the same run: losses and params bit-equal, the
+    flash launches the train phase's 24/12/12 a step, the collectives a
+    step exact (the Megatron pair's all-reduces: 2 a layer forward, 2
+    backward and 1 in the remat recompute, which stops after the block's
+    last saved tensor, before the second; one flat all-reduce of the
+    gradients and the loss), step time and tokens/s beside the no-mesh
+    step's.  Then a 2-layer f32 mesh step on the card against the CPU's
+    step at the train_parity bounds."""
+    from veles_tpu_torch.gen.model import params_to_numpy
+    from veles_tpu_torch.ops import attention
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import mesh_from_topology
+    from veles_tpu_torch.samples import transformer as T
+
+    cfg, batch = T.CONFIG, TRAIN_BATCH
+    layers = cfg["layers"]
+    mesh = mesh_from_topology("data=1,seq=1,model=1")
+    tokens = T._as_tokens(T.synthetic_tokens(cfg, batch, seed=SEED), device)
+    runs = {}
+    attention.reset_launches()
+    comm.reset_counts()
+    path_launches = {}
+    for name, m in (("no_mesh", None), ("mesh", mesh)):
+        params, velocity, step = T.build_train(cfg, mesh=m, seed=SEED,
+                                               device=device)
+        before = dict(attention.launches)
+        runs[name] = _steps_timed(step, params, velocity, tokens,
+                                  SPMD_TRAIN_STEPS)
+        if m is not None:
+            path_launches = {k: attention.launches[k] - before[k]
+                             for k in before}
+        runs[name]["params"], runs[name]["velocity"] = params, velocity
+    equal = (runs["mesh"]["losses"] == runs["no_mesh"]["losses"]
+             and _trees_equal(runs["mesh"]["params"],
+                              runs["no_mesh"]["params"])
+             and _trees_equal(runs["mesh"]["velocity"],
+                              runs["no_mesh"]["velocity"]))
+    want_launches = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+                     "flash_bwd_dkv": layers}
+    want_coll = {"all_reduce": 5 * layers + 1, "all_to_all": 0,
+                 "ring_shift": 0, "all_gather": 0}
+    counted = (all(c == want_launches for c in runs["mesh"]["launches"])
+               and all(c == want_coll for c in runs["mesh"]["collectives"]))
+    timing = {}
+    for name, run in runs.items():
+        median = statistics.median(run["step_ms"][1:])
+        timing[name] = {"step_ms": run["step_ms"], "step_median_ms": median,
+                        "tokens_per_s": batch * cfg["seq_len"]
+                        / (median / 1e3)}
+    del runs["mesh"]["params"], runs["no_mesh"]["params"]
+    del runs["mesh"]["velocity"], runs["no_mesh"]["velocity"]
+
+    # the 2-layer f32 mesh step, card against the CPU (no-mesh: the CPU
+    # has no NCCL rank; at world 1 the mesh step is the no-mesh step)
+    pcfg = dict(cfg, layers=2, seq_len=256)
+    ptokens = T.synthetic_tokens(pcfg, 2, seed=SEED + 2)
+    parity = {}
+    for name, dev, m in (("card", device, mesh),
+                         ("cpu", torch.device("cpu"), None)):
+        p, v, step = T.build_train(pcfg, mesh=m, seed=SEED, device=dev,
+                                   compute_dtype=torch.float32)
+        losses = [float(step(p, v, ptokens)[2]["loss"])
+                  for _ in range(SPMD_PARITY_STEPS)]
+        parity[name] = (losses, params_to_numpy(p), params_to_numpy(v))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(parity["card"][0],
+                                                       parity["cpu"][0]))
+    param_err = max(float(numpy.abs(a - b).max()) for a, b in zip(
+        T._leaves(parity["card"][1]), T._leaves(parity["cpu"][1])))
+    v_err = max(float(numpy.abs(a - b).max()
+                      / max(float(numpy.abs(b).max()), 1e-30))
+                for a, b in zip(T._leaves(parity["card"][2]),
+                                T._leaves(parity["cpu"][2])))
+    parity_ok = (loss_rel <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL
+                 and v_err <= TRAIN_VELOCITY_RTOL)
+    ok = equal and counted and parity_ok
+    emit({"phase": "spmd_train", "nvidia_smi": smi, "ok": ok,
+          "config": dict(cfg), "batch": batch, "compute_dtype": "bfloat16",
+          "remat": True, "mesh": dict(mesh.shape), "backend": "nccl",
+          "steps": SPMD_TRAIN_STEPS, "bit_equal_to_no_mesh": equal,
+          "losses": runs["mesh"]["losses"],
+          "no_mesh_losses": runs["no_mesh"]["losses"],
+          "launches_per_step": runs["mesh"]["launches"],
+          "launches_per_step_expected": want_launches,
+          "collectives_per_step": runs["mesh"]["collectives"],
+          "collectives_per_step_expected": want_coll,
+          "timing": timing,
+          "parity": {"config": pcfg, "dtype": "float32",
+                     "card_losses": parity["card"][0],
+                     "cpu_losses": parity["cpu"][0],
+                     "loss_max_rel_err": loss_rel,
+                     "params_max_abs_err": param_err,
+                     "velocity_max_rel_err": v_err,
+                     "bounds": [TRAIN_LOSS_RTOL, TRAIN_PARAM_TOL,
+                                TRAIN_VELOCITY_RTOL], "ok": parity_ok}})
+    check(equal, "spmd_train", "the mesh step at world 1 is not the no-mesh "
+          "step bit for bit: %s vs %s" % (runs["mesh"]["losses"],
+                                          runs["no_mesh"]["losses"]))
+    check(counted, "spmd_train", "launches %s / collectives %s a step, want "
+          "%s / %s" % (runs["mesh"]["launches"], runs["mesh"]["collectives"],
+                       want_launches, want_coll))
+    check(parity_ok, "spmd_train", "card and CPU disagree: loss rel %.3g, "
+          "params %.3g, velocity %.3g" % (loss_rel, param_err, v_err))
+    return path_launches
+
+
+def _ring_virtual(q, k, v, do, ranks, k_shift=0):
+    """Ring-flash over ``ranks`` virtual ranks in one process: each
+    (rank, hop) runs ring.py's forward hop, then its backward hop, the
+    blocks rotated here; ``k_shift`` blocks added to every k_offset
+    (the planted fault).  The merged ``(o, lse, dq, dk, dv)`` and, for
+    dq, dk and dv, the sum over the hops of each hop's |share|."""
+    from veles_tpu_torch.ops import attention
+    from veles_tpu_torch.parallel import ring
+    s = q.shape[1] // ranks
+    b, _, h, d = q.shape
+    cut = [slice(r * s, (r + 1) * s) for r in range(ranks)]
+    outs, lses = [], []
+    for r in range(ranks):
+        o = torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
+        lse = torch.full((b, h, s), ring.NEG_INF, dtype=torch.float32,
+                         device=q.device)
+        for t in range(ranks):
+            blk = (r - t) % ranks
+            o, lse = ring.forward_hop(q[:, cut[r]], k[:, cut[blk]],
+                                      v[:, cut[blk]], o, lse, True, r * s,
+                                      (blk + k_shift) * s)
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    zeros = [torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
+             for _ in range(6 * ranks)]
+    dq, dk, dv, mq, mk, mv = (zeros[i * ranks:(i + 1) * ranks]
+                              for i in range(6))
+    for r in range(ranks):
+        delta = attention._delta(outs[r], do[:, cut[r]])
+        for t in range(ranks):
+            blk = (r - t) % ranks
+            before = (dq[r], dk[blk], dv[blk])
+            dq[r], dk[blk], dv[blk] = ring.backward_hop(
+                q[:, cut[r]], k[:, cut[blk]], v[:, cut[blk]], outs[r],
+                lses[r], do[:, cut[r]], delta, True, r * s,
+                (blk + k_shift) * s, dq[r], dk[blk], dv[blk])
+            for mag, new, old in zip((mq[r], mk[blk], mv[blk]),
+                                     (dq[r], dk[blk], dv[blk]), before):
+                mag.add_((new - old).abs())
+    return (torch.cat(outs, 1), torch.cat(lses, 2),
+            torch.cat(dq, 1).to(q.dtype), torch.cat(dk, 1).to(k.dtype),
+            torch.cat(dv, 1).to(v.dtype)), tuple(
+                torch.cat(m, 1) for m in (mq, mk, mv))
+
+
+def _bwd_gap(got, want, tol):
+    """Largest excess of |got - want| over atol + rtol·|want| (<= 0
+    within tolerance) and the largest absolute error."""
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    return (float((diff - atol - rtol * want.float().abs()).max()),
+            float(diff.max()))
+
+
+@contextlib.contextmanager
+def _plain_flash():
+    """The flash wrappers' CUDA launches replaced by their plain
+    versions on the same CUDA tensors (nothing counted)."""
+    from veles_tpu_torch.ops import attention
+    saved = (attention._flash_fwd_cuda, attention._bwd_dq_cuda,
+             attention._bwd_dkv_cuda)
+
+    def bwd(q, k, v, do, lse, delta, causal, q_offset, k_offset):
+        return attention._bwd_ref(q, k, v, None, lse, do, causal, q_offset,
+                                  k_offset, delta)
+    attention._flash_fwd_cuda = attention._mha_ref
+    attention._bwd_dq_cuda = lambda *args: bwd(*args)[0]
+    attention._bwd_dkv_cuda = lambda *args: bwd(*args)[1:]
+    try:
+        yield
+    finally:
+        (attention._flash_fwd_cuda, attention._bwd_dq_cuda,
+         attention._bwd_dkv_cuda) = saved
+
+
+def phase_ring(device, smi):
+    """Ring-flash at the train step's attention shape (8, 2048, 16, 64),
+    bf16 and f32, split into RING_RANKS virtual ranks of 512 positions in
+    one process: ring.py's forward and backward hops for each (rank,
+    hop), 16 forward launches and 16 backward pairs at the global causal
+    offsets (the fully masked hops included).  The merged o, lse, dq, dk
+    and dv are held against the single-shard flash kernels on the card
+    at the kernels phase's tolerances, and against the ring's plain
+    version (the same hops over ``_mha_ref`` and ``_bwd_ref``): the
+    forward at those tolerances, each gradient within the sum of its
+    hops' bounds (RING_RANKS times the atol, the rtol times the sum of
+    the hops' |shares|: each hop is one launch, held to the kernels
+    phase's bound of its own share); a k_offset one block off must be
+    caught.  The ring's wall and the single-shard forward and backward's
+    are printed.  Then ``ring_attention`` and ``ulysses_attention`` on
+    the one-rank group equal the flash attention (forward and gradients)
+    bit for bit."""
+    from veles_tpu_torch.ops import attention
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import mesh_from_topology
+    from veles_tpu_torch.parallel.ring import (ring_attention,
+                                               ulysses_attention)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    results, ok, hop_launches = {}, True, {}
+    for dtype, fwd_tol, bwd_tol in ((torch.bfloat16, BF16_TOL, BWD_BF16_TOL),
+                                    (torch.float32, F32_TOL, BWD_F32_TOL)):
+        name = str(dtype).split(".")[-1]
+        # the kernels phase's operands, whose tolerances these are:
+        # q, k ~ N(0, 1), v and do ~ U(-1, 1)
+        q, k = (torch.randn(RING_SHAPE, generator=gen, device=device)
+                .to(dtype) for _ in range(2))
+        v, do = ((torch.rand(RING_SHAPE, generator=gen, device=device) * 2
+                  - 1).to(dtype) for _ in range(2))
+        attention.reset_launches()
+        tic = time.perf_counter()
+        ring_out, _mags = _ring_virtual(q, k, v, do, RING_RANKS)
+        gpu_sync()
+        ring_ms = (time.perf_counter() - tic) * 1e3
+        launches = {k_: attention.launches[k_] for k_ in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        for k_, n in launches.items():
+            hop_launches[k_] = hop_launches.get(k_, 0) + n
+        gpu_sync()
+        tic = time.perf_counter()
+        o, lse = attention._flash_fwd(q, k, v, True)
+        flash = (o, lse) + attention._flash_bwd(q, k, v, o, lse, do, True)
+        gpu_sync()
+        single_ms = (time.perf_counter() - tic) * 1e3
+        with _plain_flash():
+            plain, mags = _ring_virtual(q, k, v, do, RING_RANKS)
+        gaps = {}
+        for against, ref in (("flash", flash), ("plain", plain)):
+            row = {}
+            for i, part in enumerate(("o", "lse", "dq", "dk", "dv")):
+                if i < 2:
+                    err = float((ring_out[i].float() - ref[i].float())
+                                .abs().max())
+                    row[part] = {"max_abs_err": err, "tol": fwd_tol,
+                                 "ok": err <= fwd_tol}
+                elif against == "flash":
+                    excess, err = _bwd_gap(ring_out[i], ref[i], bwd_tol)
+                    row[part] = {"max_abs_err": err, "excess": excess,
+                                 "tol": bwd_tol, "ok": excess <= 0}
+                else:
+                    # hop by hop: each hop one launch within the kernels
+                    # phase's bound of its own share, the sum within the
+                    # sum of the hops' bounds
+                    atol, rtol = bwd_tol
+                    diff = (ring_out[i].float() - ref[i].float()).abs()
+                    over = diff - RING_RANKS * atol - rtol * mags[i - 2]
+                    worst = int(over.argmax())
+                    excess = float(over.reshape(-1)[worst])
+                    row[part] = {"max_abs_err": float(diff.max()),
+                                 "excess": excess, "tol": bwd_tol,
+                                 "bound": "the hops' summed bounds",
+                                 "worst": {"err": float(
+                                     diff.reshape(-1)[worst]),
+                                     "plain": float(ref[i].float()
+                                                    .reshape(-1)[worst]),
+                                     "hops_abs_sum": float(
+                                         mags[i - 2].reshape(-1)[worst])},
+                                 "ok": excess <= 0}
+            gaps[against] = row
+        planted = _ring_virtual(q, k, v, do, RING_RANKS, k_shift=1)[0]
+        planted_err = float((planted[0].float() - flash[0].float()).abs()
+                            .max())
+        caught = planted_err > fwd_tol
+        want = {"flash_fwd": RING_RANKS ** 2,
+                "flash_bwd_dq": RING_RANKS ** 2,
+                "flash_bwd_dkv": RING_RANKS ** 2}
+        row_ok = (launches == want and caught and all(
+            cell["ok"] for row in gaps.values() for cell in row.values()))
+        ok = ok and row_ok
+        results[name] = {"hop_launches": launches,
+                         "hop_launches_expected": want, "gaps": gaps,
+                         "planted_k_offset_err": planted_err,
+                         "planted_caught": caught, "ring_ms": ring_ms,
+                         "single_shard_ms": single_ms, "ok": row_ok}
+        del q, k, v, do, ring_out, flash, plain, planted
+    # the library functions on the one-rank group: exact at world 1
+    mesh = mesh_from_topology("data=1,seq=1")
+    comm.reset_counts()
+    q, k, v = (torch.randn((2, 512, 16, 64), generator=gen, device=device)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    cot = torch.randn((2, 512, 16, 64), generator=gen,
+                      device=device).to(torch.bfloat16)
+    ref = attention.flash_attention(q, k, v, True)
+    ref_grads = torch.autograd.grad((ref.float() * cot.float()).sum(),
+                                    (q, k, v))
+    exact = {}
+    for name, fn in (("ring_attention", ring_attention),
+                     ("ulysses_attention", ulysses_attention)):
+        before = dict(comm.counts)
+        out = fn(q, k, v, mesh, causal=True)
+        grads = torch.autograd.grad((out.float() * cot.float()).sum(),
+                                    (q, k, v))
+        gpu_sync()
+        exact[name] = {
+            "equal": bool(torch.equal(out, ref) and all(
+                torch.equal(a, b) for a, b in zip(grads, ref_grads))),
+            "collectives": {k_: comm.counts[k_] - before.get(k_, 0)
+                            for k_ in comm.KINDS}}
+    library_ok = (all(e["equal"] for e in exact.values())
+                  and exact["ulysses_attention"]["collectives"][
+                      "all_to_all"] == 8
+                  and exact["ring_attention"]["collectives"][
+                      "ring_shift"] == 0)
+    ok = ok and library_ok
+    emit({"phase": "ring", "nvidia_smi": smi, "ok": ok, "shape": RING_SHAPE,
+          "virtual_ranks": RING_RANKS, "causal": True, "dtypes": results,
+          "library_on_one_rank": exact})
+    check(ok, "ring", "dtypes %s, library %s" % (
+        {k_: r["ok"] for k_, r in results.items()}, exact))
+    return hop_launches
+
+
+def phase_moe(device, smi):
+    """``samples/moe.py`` at CONFIG (vocab 32000, dim 512, ffn 2048, 8
+    experts, seq 256), batch 8: ``moe_mlp`` on the one-rank group
+    (expert axis of 1; capacity factor = the experts, so nothing drops)
+    against ``moe_reference`` within MOE_REF_RTOL of max |ref|; then
+    MOE_STEPS train steps through ``build_train(mesh=...)``, equal to the
+    no-mesh steps bit for bit, with a falling loss, tokens/s and the
+    collectives a step."""
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import mesh_from_topology
+    from veles_tpu_torch.parallel.moe import moe_mlp, moe_reference
+    from veles_tpu_torch.samples import moe
+    cfg = moe.CONFIG
+    mesh = mesh_from_topology("expert=1,data=1")
+    host = moe.init_params(cfg, seed=SEED)
+    params = {k: torch.tensor(v, device=device) for k, v in host.items()}
+    tokens = torch.as_tensor(moe.synthetic_tokens(cfg, MOE_BATCH, seed=SEED),
+                             device=device).long()
+    comm.reset_counts()
+    with torch.no_grad():
+        h = params["embed"][tokens]
+        y = moe_mlp(h, moe.moe_params(params), mesh, expert_axis="expert",
+                    capacity_factor=float(cfg["experts"]))
+        ref = moe_reference(h, moe.moe_params(params))
+    gpu_sync()
+    mlp_coll = spmd_counts()
+    rel = float((y - ref).abs().max() / ref.abs().max())
+    runs = {}
+    for name, m in (("no_mesh", None), ("mesh", mesh)):
+        p, v, step = moe.build_train(cfg, mesh=m, seed=SEED, device=device)
+        losses, step_ms = [], []
+        comm.reset_counts()
+        for _ in range(MOE_STEPS):
+            gpu_sync()
+            tic = time.perf_counter()
+            losses.append(float(step(p, v, tokens)[2]["loss"]))
+            gpu_sync()
+            step_ms.append((time.perf_counter() - tic) * 1e3)
+        median = statistics.median(step_ms[1:])
+        runs[name] = {"losses": losses, "step_ms": step_ms,
+                      "tokens_per_s": MOE_BATCH * cfg["seq_len"]
+                      / (median / 1e3),
+                      "collectives": spmd_counts(), "params": p}
+    equal = (runs["mesh"]["losses"] == runs["no_mesh"]["losses"]
+             and all(torch.equal(runs["mesh"]["params"][k],
+                                 runs["no_mesh"]["params"][k])
+                     for k in runs["mesh"]["params"]))
+    for run in runs.values():
+        del run["params"]
+    losses = runs["mesh"]["losses"]
+    falls = all(numpy.isfinite(losses)) and losses[-1] < losses[0]
+    coll_ok = (mlp_coll["all_to_all"] == 2 and runs["mesh"]["collectives"][
+        "all_reduce"] == 2 * MOE_STEPS)
+    ok = rel <= MOE_REF_RTOL and equal and falls and coll_ok
+    emit({"phase": "moe", "nvidia_smi": smi, "ok": ok, "config": cfg,
+          "batch": MOE_BATCH, "mesh": dict(mesh.shape),
+          "moe_mlp_vs_reference_rel_err": rel, "rtol": MOE_REF_RTOL,
+          "moe_mlp_collectives": mlp_coll, "runs": runs,
+          "mesh_equals_no_mesh": equal, "loss_falls": falls})
+    check(ok, "moe", "moe_mlp vs reference %.3g, mesh == no mesh %s, "
+          "losses %s, collectives %s / %s" % (
+              rel, equal, losses, mlp_coll, runs["mesh"]["collectives"]))
+
+
+def phase_fused_dp(device, smi):
+    """The fused trainer over the one-rank data mesh: MNIST
+    ``create_workflow(fused=True, native=True, fused_config={"mesh_axes":
+    {"data": -1}})`` for FUSED_DP_EPOCHS epochs against the no-mesh run
+    bit for bit (closes, confusion, every parameter), one eager step and
+    one capture a step shape and no recapture, the GEMM and gather
+    launches exact, the step's all-reduce inside its graph (issued by
+    the eager step and the capture, then replayed); then
+    ``alexnet.build_fused(mesh=...)`` at batch 128, f32, ALEXNET_DP_STEPS
+    captured steps against the no-mesh step, losses and params bit for
+    bit, and the wall ms a step of both."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import gather
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    from veles_tpu_torch.samples import alexnet
+    from veles_tpu_torch.znicz.fused_graph import to_numpy
+    runs = {}
+    for name, config in (("no_mesh", None),
+                         ("mesh", {"mesh_axes": {"data": -1}})):
+        reset_all_launches()
+        comm.reset_counts()
+        wf, closes, confusion, params = _fused_run(device, FUSED_DP_EPOCHS,
+                                                   config)
+        runs[name] = {"closes": closes, "confusion": confusion,
+                      "params": params, "launches": mnist_launches(),
+                      "entries": dict(gather.entry_launches),
+                      "graphs": wf.fused_trainer.graph_report(),
+                      "collectives": spmd_counts(),
+                      "steady_epoch_ms": _steady_epoch_ms(wf)}
+    mesh_run, plain = runs["mesh"], runs["no_mesh"]
+    equal = (mesh_run["closes"] == plain["closes"]
+             and numpy.array_equal(mesh_run["confusion"], plain["confusion"])
+             and all(numpy.array_equal(mesh_run["params"][k], plain["params"][k])
+                     for k in plain["params"]))
+    train_steps = sum(c[3] for c in mesh_run["closes"]
+                      if c[1] == "train") // 100
+    eval_steps = sum(c[3] for c in mesh_run["closes"]
+                     if c[1] == "validation") // 100
+    products = (FUSED_TRAIN_PRODUCTS * train_steps
+                + FUSED_EVAL_PRODUCTS * eval_steps)
+    report = mesh_run["graphs"]
+    counted = (mesh_run["launches"]["matmul"] == products
+               and mesh_run["entries"]["veles_gather_group"]
+               == train_steps + eval_steps
+               and mesh_run["launches"] == plain["launches"]
+               # the warm-up, the eager step and the capture issue it; the
+               # replays run the captured all-reduce
+               and mesh_run["collectives"]["all_reduce"] == 3
+               and plain["collectives"]["all_reduce"] == 0)
+    graphs_ok = _graphs_expected(report, train_steps, eval_steps)
+    path = dict(mesh_run["launches"], **mesh_run["entries"])
+    for run in runs.values():
+        run["confusion"] = run["confusion"].tolist()
+        del run["params"]
+    # AlexNet's fused step over the data mesh against the one-device step
+    alex = {}
+    x, labels = alexnet.synthetic_imagenet_batch(ALEXNET_BATCH)
+    x, labels = torch.from_numpy(x).to(device), torch.from_numpy(labels).to(
+        device)
+    for name, mesh in (("no_mesh", None), ("mesh", make_mesh({"data": -1}))):
+        prng.seed_all(SEED)
+        params, step, _e, _a = alexnet.build_fused(mesh=mesh, device=device)
+        losses, step_ms = [], []
+        for _ in range(2 + ALEXNET_DP_STEPS):
+            gpu_sync()
+            tic = time.perf_counter()
+            losses.append(float(step(params, x, labels)[1]["loss"]))
+            gpu_sync()
+            step_ms.append((time.perf_counter() - tic) * 1e3)
+        alex[name] = {"losses": losses, "step_ms": step_ms,
+                      "graphs": step.report(), "state": to_numpy(params)}
+    alex_equal = alex["mesh"]["losses"] == alex["no_mesh"]["losses"] and all(
+        numpy.array_equal(a[k], b[k]) for a, b in zip(
+            alex["mesh"]["state"], alex["no_mesh"]["state"])
+        for k in a if a[k] is not None)
+    graph = alex["mesh"]["graphs"]["step_%d" % ALEXNET_BATCH]
+    alex_graph_ok = graph.get("captures") == 1 and graph.get(
+        "recaptures") == 0
+    for run in alex.values():
+        del run["state"]
+    ok = equal and counted and graphs_ok and alex_equal and alex_graph_ok
+    emit({"phase": "fused_dp", "nvidia_smi": smi, "ok": ok,
+          "epochs": FUSED_DP_EPOCHS, "mnist": runs,
+          "mnist_bit_equal": equal, "matmul_expected": products,
+          "alexnet": alex, "alexnet_batch": ALEXNET_BATCH,
+          "alexnet_bit_equal": alex_equal})
+    check(equal, "fused_dp", "the data-mesh run is not the no-mesh run bit "
+          "for bit: closes %s vs %s" % (mesh_run["closes"], plain["closes"]))
+    check(counted, "fused_dp", "launches %s / %s, collectives %s" % (
+        mesh_run["launches"], mesh_run["entries"],
+        mesh_run["collectives"]))
+    check(graphs_ok, "fused_dp", "graphs %s" % report)
+    check(alex_equal and alex_graph_ok, "fused_dp", "AlexNet over the data "
+          "mesh: losses %s vs %s, graph %s" % (
+              alex["mesh"]["losses"], alex["no_mesh"]["losses"], graph))
+    return path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9324,6 +9897,11 @@ def main():
                                                    info["nvidia_smi"])
         paths["kohonen"] = phase_kohonen(device, info["nvidia_smi"])
         paths.update(phase_data_side(device, info["nvidia_smi"]))
+        phase_spmd_group(device)
+        paths["spmd_train"] = phase_spmd_train(device, info["nvidia_smi"])
+        paths["ring"] = phase_ring(device, info["nvidia_smi"])
+        phase_moe(device, info["nvidia_smi"])
+        paths["fused_dp"] = phase_fused_dp(device, info["nvidia_smi"])
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1
@@ -9389,6 +9967,8 @@ def main():
     emit({"kernels": [{key: entry[key] for key in keys + extra
                        if key in keys or key in entry}
                       for entry in timed]})
+    from veles_tpu_torch.parallel import multihost
+    multihost.shutdown()
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,10 @@ from veles_tpu.ops.attention import (_decode_jnp, _decode_pallas,
                                      _flash_fwd, _mha_jnp, _verify_jnp)
 from veles_tpu_torch.ops import attention as port
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 ATOL = RTOL = 1e-5
 
 

@@ -33,6 +33,10 @@ from veles_tpu_torch.checkpoint import (ArraySpec, TrainCheckpointer,
                                         _dejsonify, _jsonify)
 from veles_tpu_torch.samples import mnist
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 
 def _state():
     return {"w": numpy.arange(64, dtype=numpy.float32).reshape(8, 8),

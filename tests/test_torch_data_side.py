@@ -37,6 +37,10 @@ from veles_tpu_torch.mean_disp_normalizer import MeanDispNormalizer
 from veles_tpu_torch.memory import Vector
 from veles_tpu_torch.ops import gather, hog, join, normalize
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 NORM_TOL = 1e-6
 HOG_TOL = 1e-5
 

@@ -37,6 +37,10 @@ from veles_tpu.ops.attention import (_decode_jnp, _paged_decode_jnp,
 from veles_tpu_torch import quant
 from veles_tpu_torch.ops import attention, qgemm
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 MERGE_ATOL = MERGE_RTOL = 1e-5
 QMM_RTOL = 1e-5
 ACTIVATIONS = [None, "tanh", "sigmoid", "relu", "strict_relu", "gelu"]

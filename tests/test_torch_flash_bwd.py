@@ -30,6 +30,10 @@ from veles_tpu.ops.attention import _mha_jnp
 from veles_tpu.ops.attention import flash_attention as jax_flash_attention
 from veles_tpu_torch.ops import attention as port
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 ATOL = RTOL = 1e-5
 #: (atol, rtol) by dtype: the card's bfloat16 backward tolerance
 TOLS = {"float32": (ATOL, RTOL), "bfloat16": (2e-3, 2 ** -7)}

@@ -30,6 +30,10 @@ from veles_tpu.ops import gemm as jax_gemm
 from veles_tpu_torch.ops import gemm
 from veles_tpu_torch.znicz import fused_graph
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 ACTIVATIONS = [None, "tanh", "sigmoid", "relu", "strict_relu"]
 LAYOUTS = ["plain", "a_transposed", "w_transposed"]
 DTYPES = {"float32": (torch.float32, jnp.float32),

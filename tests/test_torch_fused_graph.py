@@ -36,6 +36,10 @@ from veles_tpu.znicz import fused_graph as jax_graph
 from veles_tpu_torch import prng
 from veles_tpu_torch.znicz import fused, fused_graph
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 TOL = 1e-5
 BF16_STATE_TOL = 2e-5
 BF16_LOSS_TOL = 1e-5
@@ -189,17 +193,42 @@ def test_the_tick_and_adam_counter_advance_once_a_step(results):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: fused_graph.lower_specs(_layers(), (12,),
-                                    grad_reduce_axis="data"),
-    # the recurrent types lower since the rest of 7(c): what is left out
-    # of a recurrent stack is the explicit-collective reduction, 7(d)
-    lambda: fused_graph.lower_specs(
-        [{"type": "lstm", "->": {"hidden_units": 4}}], (6, 3),
-        grad_reduce_axis="data"),
+    lambda reduce: fused_graph.lower_specs(_layers(), (12,),
+                                           grad_reduce_axis=reduce),
+    # the recurrent types lower since the rest of 7(c), and their
+    # explicit-collective reduction since 7(d)
+    lambda reduce: fused_graph.lower_specs(
+        [{"type": "lstm", "->": {"hidden_units": 4, "last_only": True}},
+         {"type": "softmax", "->": {"output_sample_shape": 3}}], (6, 3),
+        grad_reduce_axis=reduce),
 ])
 def test_what_the_lowering_leaves_out_names_its_item(call):
-    with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
-        call()
+    """``grad_reduce_axis``, once refused naming 7(d), is ported: in one
+    process (no process group) the axis holds this process alone and
+    the reduced step is the plain step bit for bit; the ranks' reduction
+    is ``tests/test_torch_parallel.py``'s.  A 2-rank axis without a
+    process group raises."""
+    states = []
+    for reduce in (None, "data"):
+        prng.seed_all(4)
+        params, step, _e, _a = call(reduce)
+        shape = (12,) if params[0]["w"].shape[0] == 12 else (6, 3)
+        rng = numpy.random.default_rng(1)
+        x = torch.tensor(rng.standard_normal((6,) + shape), dtype=torch.float32)
+        y = torch.tensor(numpy.arange(6) % 3, dtype=torch.int32)
+        params = fused_graph.to_tensors(params)
+        for _ in range(2):
+            params, metrics = step(params, x, y)
+        states.append((fused_graph.to_numpy(params), float(metrics["loss"])))
+    assert states[0][1] == states[1][1]
+    for a, b in zip(states[0][0], states[1][0]):
+        for key in a:
+            if a[key] is not None:
+                numpy.testing.assert_array_equal(a[key], b[key])
+    from veles_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="initialize"):
+        fused_graph.lower_specs(_layers(), (12,), grad_reduce_axis="data",
+                                mesh=Mesh({"data": 2}, world_size=2))
 
 
 def test_rprop_refuses_a_schedule_and_solvers_are_checked():

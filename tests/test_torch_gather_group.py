@@ -53,6 +53,10 @@ from veles_tpu_torch.loader import fullbatch
 from veles_tpu_torch.ops import gather
 from veles_tpu_torch.samples import mnist
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 SEED = 7
 NORM_RTOL = 1e-6
 ROWS = [(784,), (3, 9, 9)]

@@ -42,6 +42,10 @@ from veles_tpu.ops.gemm import _matmul_jnp, _matmul_pallas, gd_fused_pallas
 from veles_tpu.znicz.gd import _gd_math
 from veles_tpu_torch.ops import gemm
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 ACTIVATIONS = [None, "tanh", "sigmoid", "relu", "strict_relu"]
 MATMUL_ATOL = 1e-5
 GD_ATOL = 5e-5

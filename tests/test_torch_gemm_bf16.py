@@ -35,6 +35,10 @@ import jax.numpy as jnp
 from veles_tpu.ops.gemm import _matmul_jnp, _matmul_pallas
 from veles_tpu_torch.ops import gemm
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 #: one bf16 ulp (2^-7 relative) and 2^-8 absolute: two f32 summation
 #: orders may round an output near a bf16 boundary to either side
 BF16_GEMM_TOL = (2.0 ** -8, 2.0 ** -7)

@@ -48,6 +48,11 @@ from veles_tpu_torch.memory import Watcher
 from veles_tpu_torch.samples.transformer import TINY
 from veles_tpu_torch.serve import (InferenceEngine, ModelRegistry, QueueFull,
                                    ServingMetrics, ServingServer)
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 CFG = dict(TINY, seq_len=64)
 CPU = "cpu"

@@ -16,6 +16,11 @@ the golden passes ``alpha·n`` to torch.
 
 import numpy
 import pytest
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 torch = pytest.importorskip("torch")
 

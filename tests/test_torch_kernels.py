@@ -34,6 +34,10 @@ import torch
 from veles_tpu_torch.ops import attention as port
 from veles_tpu_torch.ops.util import on_gpu
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
 BWD_F32_TOL = (1e-4, 1e-4)              # (atol, rtol)

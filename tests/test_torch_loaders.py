@@ -56,6 +56,10 @@ from veles_tpu_torch.loader.base import Loader, LoaderError
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 N_TEST, N_VALID, N_TRAIN, FEATURES, CLASSES = 6, 0, 41, 5, 3
 TIMEOUT = 10.0
 

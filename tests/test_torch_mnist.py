@@ -47,6 +47,11 @@ from veles_tpu_torch.samples import datasets, mnist
 from veles_tpu_torch.znicz import all2all, gd
 from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 SEED = 7
 PARAM_TOL = 1e-4

@@ -45,6 +45,10 @@ from veles_tpu_torch.samples import mnist_ae
 from veles_tpu_torch.znicz.evaluator import EvaluatorMSE
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 SEED = 7
 RMSE_RTOL = 1e-5
 PARAM_TOL = 1e-4

@@ -37,6 +37,11 @@ from veles_tpu_torch.config import root
 from veles_tpu_torch.obs import blackbox, scrape
 from veles_tpu_torch.trace import __main__ as trace_main
 from veles_tpu_torch.trace import core, export
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 HTTP_TIMEOUT = 30
 TRACE_A = "ab" * 16

@@ -32,6 +32,10 @@ from veles_tpu_torch.ops import random as port_random
 from veles_tpu_torch.ops import reduce as port_reduce
 from veles_tpu_torch.samples.transformer import TINY
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 SUM_RTOL = 1e-6
 BF16_ULP = 2.0 ** -8          # half the spacing at 1: one rounding of bf16
 

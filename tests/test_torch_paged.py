@@ -41,6 +41,10 @@ from veles_tpu_torch.gen import params_from_numpy
 from veles_tpu_torch.ops import attention as port
 from veles_tpu_torch.samples.transformer import TINY
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 CFG = dict(TINY, seq_len=64)
 ATOL = RTOL = 1e-5
 TOL = 1e-4

@@ -35,13 +35,16 @@
   ``mcdnnic_topology`` / ``mcdnnic_parameters``, ``lr_adjuster_config``,
   ``rollback_config``, ``image_saver_config``) and the
   ``engine.precision_type`` knob; ``plotters_config`` is refused naming
-  7(e) whenever it is given, and ``fused_config``'s ``mesh_axes``,
-  ``fsdp`` and ``tp`` naming 7(d).
+  7(e) whenever it is given, and ``fused_config``'s ``fsdp`` and ``tp``
+  naming 7(d) (``mesh_axes``, 7(d)'s first part, trains data-parallel).
 - The layer zoo (7(c), its conv half): its modules and samples import
   no JAX, its entry points raise without a card, its CPU path never
   loads the kernel builder, ``engine.s2d_conv`` forces the space-to-depth
   choice of an eligible conv (True / False) or leaves it to the
-  heuristic (``"auto"``) and ``mesh=`` is refused naming 7(d).
+  heuristic (``"auto"``) and ``mesh=`` trains data-parallel (7(d)).
+- The SPMD library (7(d), part 1): ``veles_tpu_torch.parallel``, the
+  MoE sample and ``spmd_launch`` import no JAX, in this process and in a
+  spawned gloo rank.
 - The rest of 7(c) (the recurrent layers, the RBM, the Kohonen map, the
   data side and the loader modules): its modules import no JAX and none
   of PIL, h5py, pyzmq and lmdb, its entry points raise without a card,
@@ -60,6 +63,10 @@ from pathlib import Path
 import numpy
 import pytest
 import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "veles_tpu_torch"
@@ -89,10 +96,16 @@ def test_importing_the_port_loads_no_jax_and_no_veles_tpu():
         "import veles_tpu_torch.dtypes\n"
         "from veles_tpu_torch.znicz import (fused, fused_graph, fused_unit,"
         " gd_base, image_saver, lr_adjust, mcdnnic, rollback)\n"
+        "import veles_tpu_torch.parallel, veles_tpu_torch.samples.moe\n"
+        "import veles_tpu_torch.scripts.spmd_launch\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     assert proc.returncode == 0, proc.stderr
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "veles_tpu_torch.gen.engine" in loaded
+    for module in ("comm", "mesh", "multihost", "tp", "dp", "ring", "pp",
+                   "moe"):
+        assert "veles_tpu_torch.parallel." + module in loaded
+    assert "veles_tpu_torch.launcher" in loaded
     assert "veles_tpu_torch.ops.gemm" in loaded
     for module in ("dtypes", "znicz.fused_unit", "znicz.fused_graph",
                    "znicz.fused", "znicz.gd_base", "znicz.lr_adjust",
@@ -101,6 +114,15 @@ def test_importing_the_port_loads_no_jax_and_no_veles_tpu():
     for module in ("quant.core", "ops.qgemm", "ops.reduce", "ops.random"):
         assert "veles_tpu_torch." + module in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_a_spawned_rank_loads_no_jax_and_no_veles_tpu(tmp_path):
+    """A rank of a gloo world (``tests/torch_ranks.py``, joined through
+    ``parallel.multihost.initialize``) imports the SPMD library, the MoE
+    sample and ``spmd_launch`` without JAX or ``veles_tpu``."""
+    import torch_ranks
+    results = torch_ranks.run_world(1, ("imports",), {}, tmp_path)
+    assert results == [{"imports": []}]
 
 
 def test_importing_the_serving_path_loads_no_jax_and_no_veles_tpu():
@@ -1245,8 +1267,20 @@ def test_standard_workflow_options_still_refused(option):
 
 @pytest.mark.parametrize("knob", ["mesh_axes", "fsdp", "tp"])
 def test_fused_config_meshes_are_refused_naming_7d(knob):
+    """``mesh_axes`` is ported (7(d), part 1): over one process it builds
+    a data-parallel trainer whose world is this process alone; ``fsdp``
+    and ``tp`` still raise naming 7(d), whose part 2 they are."""
     from veles_tpu_torch.samples import mnist
-    with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
+    if knob == "mesh_axes":
+        wf = mnist.create_workflow(device="cpu", fused=True, max_epochs=2,
+                                   fused_config={knob: {"data": -1}})
+        wf.run()
+        trainer = wf.fused_trainer
+        assert trainer.mesh_axes == {"data": -1}
+        assert trainer._mesh_.shape == {"data": 1}
+        assert trainer.graph_report()["train_100"]["eager"] > 0
+        return
+    with pytest.raises(NotImplementedError, match=r"item 7\(d\), part 2"):
         mnist.create_workflow(device="cpu", fused=True,
                               fused_config={knob: {"data": -1}})
 
@@ -1374,14 +1408,29 @@ def test_s2d_conv_knob_forces_the_choice(knob, stride, want):
 
 @pytest.mark.parametrize("call", ["workflow", "lowering", "mesh"])
 def test_zoo_refusals_name_their_items(call):
-    """``mesh=`` is refused naming 7(d); the recurrent layer types, once
-    refused naming 7(c), now build in the workflow and lower in the
-    fused step."""
+    """``mesh=``, once refused naming 7(d), now trains data-parallel
+    (here over a one-process mesh, the step the one-device step); the
+    recurrent layer types, once refused naming 7(c), now build in the
+    workflow and lower in the fused step."""
     from veles_tpu_torch.samples import alexnet, mnist_rnn
     from veles_tpu_torch.znicz import fused_graph
     if call == "mesh":
-        with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
-            alexnet.build_fused(mesh=object(), device="cpu")
+        from veles_tpu_torch.parallel.mesh import make_mesh
+        layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": 4}},
+                  {"type": "softmax", "->": {"output_sample_shape": 3}}]
+        x = torch.ones((4, 6))
+        y = torch.tensor([0, 1, 2, 0], dtype=torch.int32)
+        states = []
+        for mesh in (None, make_mesh({"data": -1})):
+            from veles_tpu_torch import prng
+            prng.seed_all(5)
+            params, step, _e, _a = alexnet.build_fused(
+                mesh=mesh, layers=layers, input_shape=(6,), device="cpu")
+            step(params, x, y)
+            states.append(fused_graph.to_numpy(params))
+        for a, b in zip(*states):
+            for key in ("w", "b", "vw", "vb"):
+                numpy.testing.assert_array_equal(a[key], b[key])
         return
     if call == "workflow":
         wf = mnist_rnn.create_workflow(device="cpu", max_epochs=1, layers=[

@@ -36,6 +36,11 @@ from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import Repeater
 from veles_tpu_torch.units import Unit
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 
 def _slow_io_loader(base):

@@ -33,6 +33,11 @@ from veles_tpu_torch import backends, prng, prof, trace
 from veles_tpu_torch.config import root
 from veles_tpu_torch.ops import cost
 from veles_tpu_torch.samples import mnist
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 H100 = "NVIDIA H100 80GB HBM3"
 #: relative tolerance of the port's flops against XLA's cost analysis

@@ -42,6 +42,10 @@ from veles_tpu_torch.ops import qgemm
 from veles_tpu_torch.samples.transformer import TINY
 from veles_tpu_torch.znicz import all2all
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 CFG = dict(TINY, seq_len=64)
 CPU = "cpu"
 ACTIVATIONS = (None, "tanh", "sigmoid", "relu", "strict_relu", "gelu")

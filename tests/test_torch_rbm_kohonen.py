@@ -36,6 +36,10 @@ from veles_tpu_torch.samples import kohonen, mnist_ae
 from veles_tpu_torch.znicz import kohonen as som
 from veles_tpu_torch.znicz import rbm
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 RBM_TOL = 1e-6
 SOM_TOL = 1e-6
 _SEEDS = (0, 7, 12345, 2 ** 31 - 1)

@@ -24,6 +24,10 @@ import torch
 from veles_tpu.ops.reduce import _reduce_jnp
 from veles_tpu_torch.ops import reduce
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 SPLITS = (1, 2, 4, 8)
 #: one strip of many rows, rows that are not 16-byte aligned, one row,
 #: one column; the coverage adds a ragged strip and split and tiny ones

@@ -49,6 +49,10 @@ from veles_tpu_torch.samples import mnist_rnn
 from veles_tpu_torch.units import UnitRegistry
 from veles_tpu_torch.znicz import fused_graph, gd_base, rnn
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 FWD_TOL = 1e-6
 GD_TOL = 1e-6
 PARAM_TOL = 1e-5

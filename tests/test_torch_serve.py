@@ -31,6 +31,11 @@ from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.serve.engine import InferenceEngine
 from veles_tpu_torch.znicz.all2all import All2All, All2AllTanh
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 TOL = 1e-6
 INT8_TOL = 1e-5

@@ -38,6 +38,11 @@ from veles_tpu_torch.serve import (DynamicBatcher, InferDeadlineExceeded,
                                    QueueFull, ReplicaSet, ServingMetrics,
                                    ServingServer, decode_gen_request,
                                    decode_input)
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 HTTP_TIMEOUT = 15
 

@@ -73,6 +73,11 @@ from veles_tpu_torch.snapshotter import (SnapshotterToDB,
                                          save_snapshot)
 from veles_tpu_torch.units import Unit
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 SEED = 5
 PARAM_TOL = 1e-4

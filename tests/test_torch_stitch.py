@@ -42,6 +42,10 @@ from veles_tpu_torch.memory import Watcher
 from veles_tpu_torch.ops import gather, gemm
 from veles_tpu_torch.samples import datasets, mnist
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 SEED = 7
 PARAM_TOL = 1e-4
 NORM_RTOL = 1e-6

@@ -11,6 +11,11 @@ from veles_tpu.config import root as jax_root
 from veles_tpu.trace import core as jax_core
 from veles_tpu_torch.config import root
 from veles_tpu_torch.trace import core
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 
 @pytest.fixture

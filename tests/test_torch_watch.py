@@ -47,6 +47,11 @@ from veles_tpu_torch.watch import HealthError, TelemetryReader
 from veles_tpu_torch.watch import health as port_health
 from veles_tpu_torch.watch.bus import load_events, record_events
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 #: relative tolerance of the norms against the JAX package's
 STAT_RTOL = 1e-5

@@ -37,6 +37,10 @@ from veles_tpu.znicz import fused_graph as jax_fused_graph
 from veles_tpu_torch import prng
 from veles_tpu_torch.znicz import fused_graph, mcdnnic
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 PARAM_TOL = 1e-5
 LOSS_TOL = 1e-5
 BF16_TOL = 8e-5
@@ -200,8 +204,11 @@ def test_alexnet_build_fused_steps_in_place_through_its_graph_step():
         {"type": "softmax", "->": {"output_sample_shape": 1000}}]
     assert alexnet.benchmark(batch=2, steps=1, layers=wide,
                              input_shape=ALEXNET_SHAPE, device="cpu") > 0
-    with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
-        vgg.build_fused(mesh=object(), device="cpu")
+    # mesh= is ported: a one-process data mesh builds the same step
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    assert len(vgg.build_fused(mesh=make_mesh({"data": -1}), layers=wide,
+                               input_shape=ALEXNET_SHAPE,
+                               device="cpu")[0]) == len(wide)
     wf = vgg.create_workflow(
         device="cpu", layers=[vgg._conv(4), vgg._pool(),
                               {"type": "dropout", "->": {}},

@@ -50,6 +50,10 @@ from veles_tpu_torch.units import UnitRegistry
 from veles_tpu_torch.znicz import (  # noqa: F401 - the port registry
     activation, conv, gd_base, misc_units, normalization_units, pooling)
 
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
+
 FWD_TOL = 2e-6
 GD_TOL = 1e-6
 

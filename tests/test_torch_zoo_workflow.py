@@ -42,6 +42,11 @@ from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.loader.fullbatch import FullBatchLoaderMSE
 from veles_tpu_torch.samples import mnist_ae
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+import torch
+
+# one intra-op thread a test process: the suite runs one xdist worker a
+# core, and torch's default of a thread a core oversubscribes the box
+torch.set_num_threads(1)
 
 PARAM_TOL = 1e-5
 MSE_RTOL = 1e-5

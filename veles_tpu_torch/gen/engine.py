@@ -22,7 +22,7 @@ runs eagerly, so :meth:`warmup` instead builds the CUDA kernels and runs
 each entry point once.  Not ported here, each raising
 ``NotImplementedError`` naming its ROADMAP item: the fleet page handoff
 (``warm_handoff``, ``export_slot``, ``adopt_sequence``: item 7) and a
-tensor-parallel mesh (item 7).  int8 weights (W8A16) come in as a
+tensor-parallel mesh (item 7(d), its second part).  int8 weights (W8A16) come in as a
 quantized params tree or through :meth:`GenerativeEngine.quantize_int8`
 before warmup, and every entry point serves them through the qmatmul
 kernel.
@@ -203,7 +203,7 @@ class GenerativeEngine(Logger):
                 "max_seq %d out of range (2..%d, the model's "
                 "positional table)" % (self.max_seq, model.seq_limit))
         if mesh is not None:
-            _not_ported("a tensor-parallel mesh", 7)
+            _not_ported("a tensor-parallel mesh", "7(d)")
 
         gen_cfg = root.common.gen
         self.kv_mode = str(kv or gen_cfg.get("kv", "contiguous"))

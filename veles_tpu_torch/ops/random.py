@@ -291,3 +291,18 @@ def uniform_pallas(seed, shape, dtype=torch.float32, low=0.0, high=1.0,
     if device.type == "cuda":
         return _uniform_cuda(seed, shape, dtype, low, high, device)
     return _uniform_ref(seed, shape, dtype, low, high, device)
+
+
+def threefry_permutation(key, n):
+    """``jax.random.permutation(key, n)``: ``ceil(3 ln n / ln(2^32 -
+    1))`` rounds, each splitting the key (:func:`threefry_split`) and
+    stably sorting the order by the subkey's uint32 bits
+    (:func:`threefry_bits`).  An int64 CPU tensor."""
+    rounds = int(math.ceil(3 * math.log(max(1, n))
+                           / math.log(0xFFFFFFFF)))
+    order = torch.arange(n, dtype=torch.int64)
+    for _ in range(rounds):
+        key, subkey = threefry_split(key, 2)
+        bits = threefry_bits(subkey, (n,))
+        order = order[torch.sort(bits, stable=True).indices]
+    return order

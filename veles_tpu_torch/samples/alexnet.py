@@ -12,8 +12,11 @@ a step) and whose convs run on cuDNN.  The step is a
 batch shape, as the fused trainer captures its steps, after one eager
 call.  ImageNet is not shipped: :func:`synthetic_imagenet_batch` gives
 the JAX package's shape-true stand-in batches (images/s does not depend
-on the data).  Not ported: ``mesh=`` (data parallelism over a device
-mesh, ROADMAP item 7(d)).  Run it with
+on the data).  ``mesh=`` (a :class:`~veles_tpu_torch.parallel.mesh.Mesh`
+with a ``data`` axis) trains data-parallel over its ranks: each takes
+its contiguous rows of the global batch and the step averages the
+gradients over the axis in one all-reduce inside its graph.  Run it
+with
 
     python -m veles_tpu_torch.samples.alexnet [--device cpu] [--batch B]
         [--steps N] [--bf16]
@@ -99,18 +102,22 @@ def build_fused(mesh=None, layers=None, input_shape=INPUT_SHAPE,
     train step as a :class:`~veles_tpu_torch.znicz.fused_unit.GraphStep`
     (``step(params, x, labels) -> (params, metrics)``, params updated in
     place), and the eval and apply functions.  ``compute_dtype=
-    "bfloat16"``: bf16 products with f32 master weights."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_fused(mesh=...): data parallelism over a device mesh is "
-            "not ported yet (ROADMAP item 7(d))")
+    "bfloat16"``: bf16 products with f32 master weights.  With ``mesh``
+    the step takes the GLOBAL batch on every rank and trains on the
+    rank's rows of it (:func:`veles_tpu_torch.parallel.dp
+    .data_parallel`)."""
     from veles_tpu_torch.backends import resolve_device
     from veles_tpu_torch.znicz.fused_graph import lower_specs, to_tensors
-    from veles_tpu_torch.znicz.fused_unit import GraphStep
+    from veles_tpu_torch.znicz.fused_unit import GraphStep, warm_up_group
     device = resolve_device(device)
     params, step_fn, eval_fn, apply_fn = lower_specs(
         layers or LAYERS, input_shape, compute_dtype=compute_dtype,
-        remat=remat, grad_accum=grad_accum)
+        remat=remat, grad_accum=grad_accum,
+        grad_reduce_axis="data" if mesh is not None else None, mesh=mesh)
+    if mesh is not None:
+        from veles_tpu_torch.parallel.dp import data_parallel
+        step_fn = data_parallel(step_fn, mesh)
+        warm_up_group(mesh.group("data"), device)
     return (to_tensors(params, device), GraphStep(step_fn), eval_fn,
             apply_fn)
 

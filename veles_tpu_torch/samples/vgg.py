@@ -7,8 +7,8 @@ Simonyan & Zisserman 2014 configuration A: eight 3×3 convs
 :func:`build_fused` is :func:`veles_tpu_torch.samples.alexnet
 .build_fused` over this stack, with ``remat`` on by default (the 224²×64
 early activations); :func:`create_workflow` is its StandardWorkflow twin
-over synthetic shape-true data.  Not ported: ``mesh=`` (ROADMAP item
-7(d)).  Run it with
+over synthetic shape-true data; ``mesh=`` trains data-parallel, as
+AlexNet's does.  Run it with
 
     python -m veles_tpu_torch.samples.vgg [--device cpu] [--batch B]
         [--steps N] [--bf16]

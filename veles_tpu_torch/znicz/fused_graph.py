@@ -35,8 +35,11 @@ int32 tensor that the step advances in place as ``(seed + 1) &
 replay with no host generator.  ``apply_fn`` and ``eval_fn`` leave out
 the ``SKIP_AT_EVAL`` stages (dropout).  The recurrent types (``lstm``,
 ``rnn``) lower through their loop's autograd.  ``grad_reduce_axis``
-(the explicit-collective data parallelism) waits for ROADMAP item
-7(d).
+is the explicit-collective data parallelism
+(:mod:`veles_tpu_torch.parallel.dp`): the step averages the gradients
+and the loss report over that mesh axis and sums ``n_err`` (averages an
+MSE's), one all-reduce of one flat buffer a step, so every rank applies
+the same update.
 """
 
 import numpy
@@ -237,7 +240,8 @@ def _solver_update(state, grads, hyper, policies):
 
 def lower_specs(layer_specs, sample_shape, loss="softmax",
                 compute_dtype=None, remat=False, grad_accum=1,
-                lr_adjuster=None, input_norm=None, grad_reduce_axis=None):
+                lr_adjuster=None, input_norm=None, grad_reduce_axis=None,
+                mesh=None):
     """``(params, step_fn, eval_fn, apply_fn)`` from layer specs.
 
     ``sample_shape``: one sample's shape (no batch axis).  ``params``
@@ -251,11 +255,11 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
     step, so ``x`` may arrive in its storage type (u8 pixels).
     ``compute_dtype`` (a torch dtype or its name): the products' operand
     type, the master weights and solver state staying f32.
+    ``grad_reduce_axis``: a ``mesh`` axis (by default a mesh of every
+    rank on that axis) over which each step reduces its gradients and
+    metrics (see the module); each rank gives the step its own rows.
     """
-    if grad_reduce_axis is not None:
-        raise NotImplementedError(
-            "lower_specs(grad_reduce_axis=...): data parallelism over "
-            "explicit collectives is not ported yet (ROADMAP item 7(d))")
+    reduce_group = _reduce_group(grad_reduce_axis, mesh)
     grad_accum = max(int(grad_accum), 1)
     if compute_dtype is not None:
         compute_dtype = dtype_by_name(compute_dtype)
@@ -414,6 +418,9 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
 
     def step_fn(params_list, x, labels):
         grads, n_err, report = _grads(params_list, x, labels)
+        if reduce_group is not None:
+            grads, n_err, report = _reduce(grads, n_err, report,
+                                           reduce_group, loss)
         with torch.no_grad():
             for state, layer_grads, (_p, _c, hyper, _s) in zip(
                     params_list, grads, stages):
@@ -437,6 +444,51 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
                 ((flat - labels.reshape(flat.shape)) ** 2).mean())}
 
     return params, step_fn, eval_fn, apply_fn
+
+
+def _reduce_group(axis, mesh):
+    """The group a ``grad_reduce_axis`` step reduces over: None without
+    an axis, or on a one-process mesh without a process group (a world
+    of one has nothing to reduce)."""
+    if axis is None:
+        return None
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    if mesh is None:
+        mesh = make_mesh({axis: -1})
+    if axis not in mesh.shape:
+        raise ValueError("grad_reduce_axis %r is not an axis of %r"
+                         % (axis, mesh))
+    group = mesh.group(axis)
+    if group is None and mesh.shape[axis] > 1:
+        raise ValueError(
+            "grad_reduce_axis %r spans %d ranks, but no process group is "
+            "initialized (parallel.multihost.initialize)"
+            % (axis, mesh.shape[axis]))
+    return group
+
+
+def _reduce(grads, n_err, report, group, loss):
+    """``pmean`` of the gradients and the loss report over ``group`` and
+    ``psum`` (softmax) or ``pmean`` (MSE) of ``n_err``: one all-reduce
+    of one flat f32 buffer, then the shares divided by the group
+    size."""
+    from veles_tpu_torch.parallel.comm import all_reduce
+    leaves = [g for layer in grads for g in layer.values()]
+    flat = torch.cat([g.reshape(-1) for g in leaves]
+                     + [report.reshape(1).float(), n_err.reshape(1).float()])
+    all_reduce(flat, group)
+    size = group.size
+    out, offset = [], 0
+    for layer in grads:
+        mean = {}
+        for key, g in layer.items():
+            mean[key] = flat[offset:offset + g.numel()].view_as(g) / size
+            offset += g.numel()
+        out.append(mean)
+    report = (flat[offset] / size).to(report.dtype)
+    total = flat[offset + 1]
+    n_err = (total if loss == "softmax" else total / size).to(n_err.dtype)
+    return out, n_err, report
 
 
 def epoch_indices(n_samples, batch, generator=None, shuffle=True):

@@ -41,9 +41,18 @@ epoch and are replayed one minibatch at a time to the Decision.
 
 ``solver_state`` (the whole per-layer state, host numpy) is pickled with
 the unit, so a snapshot resumes with the same optimizer dynamics; a
-torch tensor in a pickle would bring its CUDA storage with it.  Not
-ported: ``mesh_axes``, ``fsdp`` and ``tp`` (ROADMAP item 7(d)), and the
-job protocol's refresh on a slave (item 7(e); ``epoch_mode`` on a slave
+torch tensor in a pickle would bring its CUDA storage with it.
+
+``mesh_axes`` (e.g. ``{"data": -1}``) trains data-parallel over the
+ranks of the default process group (:mod:`veles_tpu_torch.parallel`):
+every rank runs the same workflow, serves the same minibatches and
+trains on its contiguous rows of each (the ``data`` axis), through a
+step lowered with ``grad_reduce_axis="data"`` whose one all-reduce a
+step rides inside the step's CUDA graph; the short tail rounds down to
+a multiple of the axis size, evaluation runs whole on every rank, and
+epoch mode gives each rank its columns of the global permutation.  Not
+ported: ``fsdp`` and ``tp`` (ROADMAP item 7(d), part 2), and the job
+protocol's refresh on a slave (item 7(e); ``epoch_mode`` on a slave
 raises, as in the JAX package).
 """
 
@@ -150,6 +159,15 @@ class GraphStep(object):
                 for key, entry in self._programs.items()}
 
 
+def warm_up_group(group, device):
+    """One all-reduce on ``group`` before a step that reduces over it is
+    captured: NCCL sets up its communicator at a group's first
+    collective, which must not happen inside a CUDA graph capture."""
+    if group is not None:
+        from veles_tpu_torch.parallel.comm import all_reduce
+        all_reduce(torch.zeros(1, device=device), group)
+
+
 class FusedTrainer(AcceleratedUnit):
     """Runs lower_specs' step and eval for the workflow's layer stack,
     exposing ``n_err`` (softmax) or ``mse`` (MSE) after every run, so a
@@ -158,11 +176,13 @@ class FusedTrainer(AcceleratedUnit):
     hide_from_registry = True
 
     def __init__(self, workflow, **kwargs):
-        for key in ("mesh_axes", "fsdp", "tp"):
+        for key in ("fsdp", "tp"):
             if kwargs.get(key):
                 raise NotImplementedError(
-                    "FusedTrainer option %r (training over a device mesh) "
-                    "is not ported yet (ROADMAP item 7(d))" % key)
+                    "FusedTrainer option %r (parameters sharded over a "
+                    "mesh) is not ported yet: it comes in the second "
+                    "part of the SPMD slice (ROADMAP item 7(d), part 2)"
+                    % key)
         super(FusedTrainer, self).__init__(workflow, **kwargs)
         self.view_group = "TRAINER"
         # each spec AND its nested "->"/"<-" dicts copied: rollback_to
@@ -176,6 +196,8 @@ class FusedTrainer(AcceleratedUnit):
         self.remat = bool(kwargs.get("remat", False))
         self.lr_adjuster = kwargs.get("lr_adjuster")
         self.epoch_mode = bool(kwargs.get("epoch_mode", False))
+        #: {axis: size} of the data-parallel mesh, or None
+        self.mesh_axes = dict(kwargs.get("mesh_axes") or {}) or None
         #: seeds each epoch's permutation; pickled, so a resume draws on
         self.epoch_key_counter = 0
         self.loader = None
@@ -194,6 +216,7 @@ class FusedTrainer(AcceleratedUnit):
         self._step_ = None
         self._eval_ = None
         self._train_divisor_ = 1
+        self._mesh_ = None            # the data-parallel mesh, if any
         self._programs_ = {}          # (train, rows) -> _Program
         self._retired_ = {}           # reports of programs rebuilt away
         self._epoch_ = None           # epoch mode: its data and buffers
@@ -239,17 +262,29 @@ class FusedTrainer(AcceleratedUnit):
                 spec["init"] = init
             specs.append(spec)
         sample_shape = tuple(self.loader.minibatch_data.shape[1:])
+        mesh = None
+        if self.mesh_axes:
+            from veles_tpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(self.mesh_axes)
+            if "data" not in mesh.shape:
+                raise ValueError("mesh_axes %r has no 'data' axis"
+                                 % (self.mesh_axes,))
+        self._mesh_ = mesh
         params, step_fn, eval_fn, _apply = lower_specs(
             specs, sample_shape, loss=self.loss,
             compute_dtype=self._compute_dtype(), remat=self.remat,
             grad_accum=self.grad_accum, lr_adjuster=self.lr_adjuster,
-            input_norm=getattr(self.loader, "input_norm", None))
+            input_norm=getattr(self.loader, "input_norm", None),
+            grad_reduce_axis="data" if mesh else None, mesh=mesh)
         params = self._restore_solver_state(params)
         self._params_ = to_tensors(params, self._torch_device())
         # the indices upload in place, where the step graphs read them
         self.loader.minibatch_indices.keep_address = True
         self._step_, self._eval_ = step_fn, eval_fn
         self._train_divisor_ = max(self.grad_accum, 1)
+        if mesh is not None:
+            self._train_divisor_ *= mesh.shape["data"]
+            warm_up_group(mesh.group("data"), self._torch_device())
         for key, program in self._programs_.items():
             _add_report(self._retired_.setdefault(key, {}), program.report())
         self._programs_ = {}
@@ -276,18 +311,29 @@ class FusedTrainer(AcceleratedUnit):
                 "samples (%d < %d)" % (n_train, batch))
         if batch % self._train_divisor_:
             raise ValueError("epoch_mode minibatch %d must divide by "
-                             "grad_accum (%d)" % (batch,
-                                                  self._train_divisor_))
+                             "grad_accum%s (%d)" % (
+                                 batch, " x data-axis" if self._mesh_
+                                 else "", self._train_divisor_))
         start = int(loader.class_end_offsets[TRAIN - 1])
         data, labels, _pad = self._tables()
         data = data[start:start + n_train]
         labels = labels[start:start + n_train]
         steps = n_train // batch
         window = min(steps, EPOCH_WINDOW)
+        start, stop = self._rows(batch)
         return {"data": data, "labels": labels, "n_train": n_train,
                 "batch": batch, "steps": steps, "window": window,
-                "idx": torch.zeros((steps, batch), dtype=torch.int32,
+                "columns": slice(start, stop),
+                "idx": torch.zeros((steps, stop - start), dtype=torch.int32,
                                    device=data.device)}
+
+    def _rows(self, n):
+        """This rank's contiguous ``[start, stop)`` of ``n`` train rows
+        (all of them without a mesh)."""
+        if self._mesh_ is None:
+            return 0, n
+        from veles_tpu_torch.parallel.dp import _rows
+        return _rows(self._mesh_, "data", n)
 
     def _restore_solver_state(self, params):
         """The pickled solver state in place of a fresh one, when it
@@ -339,11 +385,13 @@ class FusedTrainer(AcceleratedUnit):
         key = (bool(train), int(rows))
         program = self._programs_.get(key)
         if program is None:
+            start, stop = self._rows(rows) if train else (0, rows)
+
             def fn():
                 data, labels, pad = self._tables()
                 x, y = take_rows_group(
                     [(data, 0), (labels, pad)],
-                    self.loader.minibatch_indices.devmem[:rows])
+                    self.loader.minibatch_indices.devmem[start:stop])
                 if train:
                     return self._step_(self._params_, x, y)[1]
                 return self._eval_(self._params_, x, y)
@@ -401,7 +449,7 @@ class FusedTrainer(AcceleratedUnit):
         from veles_tpu_torch.znicz.fused_graph import run_steps
         ep = self._epoch_
         buffer = ep["idx"]
-        buffer.copy_(idx)
+        buffer.copy_(idx[:, ep["columns"]])
         pieces = []
         for w0 in range(0, ep["steps"], ep["window"]):
             k = min(ep["window"], ep["steps"] - w0)

@@ -9819,6 +9819,429 @@ def phase_fused_dp(device, smi):
     return path
 
 
+# -- 7(d) part 2: the pod, the sharded fused trainer, the TP engine ---------
+
+POD_EPOCHS = MNIST_EPOCHS
+# a one-rank pod: the forward segment's evaluator sums over the data group
+# (2 all-reduces a step), each GD layer all-gathers x, y and err_output (3
+# all-gathers a layer a step); the eager first dispatch and the capture of
+# each segment issue them, every replay runs the captured ones
+POD_SEGMENT_COLLECTIVES = {"all_reduce": 2, "all_gather": 6}
+#: the payload of one pod dispatch's collectives at MNIST's width: the
+#: GD segment all-gathers x, y and err_output of both layers (100 rows,
+#: 100 + 10 + 10 + 784 + 100 + 100 f32 columns), the evaluator
+#: all-reduces 3 f32 sums and the 10x10 int64 confusion counts
+POD_SEGMENT_BYTES = {"GDSoftmax+GDTanh": 4 * 100 * 1104,
+                     "MnistLoader+All2AllTanh+All2AllSoftmax"
+                     "+EvaluatorSoftmax": 3 * 4 + 10 * 10 * 8}
+FUSED_SHARD_EPOCHS = 3
+SERVE_TP_SHARDS = 2              # virtual model shards of the serve_tp phase
+SERVE_TP_LOGIT_RTOL = 1e-5       # the 2-layer f32 copy against one device
+
+
+def _mnist_pod_run(device, epochs, pod, scan="off", health="off"):
+    """The stitched native MNIST route (as mnist_stitched) for ``epochs``
+    epochs, under a PodRuntime over the one-rank group when ``pod``:
+    closes, launches, collectives, segment and window reports, the
+    weights and momenta, the health snapshot and each train close's
+    host time."""
+    from veles_tpu_torch import prng, prof
+    from veles_tpu_torch.ops import gather
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import mesh_from_topology
+    from veles_tpu_torch.pod import PodRuntime
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.watch import health as watch_health
+    with engine_knobs(stitch="on", loader="auto", epoch_scan=scan,
+                      health=health):
+        prng.seed_all(SEED)
+        wf = mnist.create_workflow(device=device, max_epochs=epochs,
+                                   native=True)
+        runtime = None
+        if pod:
+            runtime = PodRuntime(wf, mesh=mesh_from_topology(
+                {"data": -1})).install()
+        closes = []
+        _record_closes(wf, closes)
+        times = []
+        close = wf.decision._close_class
+
+        def timed_close(cls, check_epoch_end):
+            out = close(cls, check_epoch_end)
+            if cls == 2:
+                times.append(time.perf_counter())
+            return out
+        wf.decision._close_class = timed_close
+
+        def ledger_now():
+            # this device's entries: the CPU parity phases keep their own
+            # under the same names
+            return {e.name: (e.shards, e.collective_bytes, e.dispatches)
+                    for e in prof.ledger.entries("segment")
+                    if e.device == device.type}
+        ledger_before = ledger_now()
+        reset_all_launches()
+        comm.reset_counts()
+        wf.run()
+        gpu_sync()
+        out = {"closes": [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+                          for c in closes],
+               "confusion": [c["confusion"].tolist() for c in closes],
+               "launches": dict(mnist_launches(),
+                                **gather.entry_launches),
+               "collectives": spmd_counts(),
+               "segments": wf.stitch_report(),
+               "scan": wf.epoch_scan_report(),
+               "steady_epoch_ms": [(b - a) * 1e3
+                                   for a, b in zip(times, times[1:])],
+               "health": watch_health.monitor.snapshot()
+               if health != "off" else None,
+               "state": {k: v.copy() for k, v in wf.params_to_numpy()
+                         .items()}}
+        for i, gd in enumerate(reversed(wf.gds)):
+            for name in ("gradient_weights", "gradient_bias"):
+                vec = getattr(gd, name)
+                vec.map_read()
+                out["state"]["%d.%s" % (i, name)] = numpy.array(vec.mem)
+        if runtime is not None:
+            out["pod"] = runtime.describe()
+            names = {"+".join(seg.names) for seg in wf.stitch_segments}
+            # this run's share of each entry
+            out["ledger"] = {
+                name: {"shards": shards,
+                       "collective_bytes": moved - ledger_before.get(
+                           name, (0, 0, 0))[1],
+                       "dispatches": dispatches - ledger_before.get(
+                           name, (0, 0, 0))[2]}
+                for name, (shards, moved, dispatches) in ledger_now().items()
+                if (name in names or name.startswith("scan:"))
+                and dispatches > ledger_before.get(name, (0, 0, 0))[2]}
+            runtime.uninstall()
+    return out
+
+
+def _states_equal(a, b):
+    return sorted(a) == sorted(b) and all(
+        numpy.array_equal(a[k], b[k]) for k in a)
+
+
+def phase_pod(device, smi):
+    """The stitched MNIST stand-in at MNIST's width (784→100→10,
+    minibatch 100, u8 scaled in the head) under PodRuntime over the
+    one-rank NCCL group: bit-equal to the plain stitched run (closes,
+    confusion, weights, momenta), its launches the plain run's, one
+    capture a segment, the collectives issued by each segment's eager
+    dispatch and its capture only (the replays run them inside the
+    graphs), a steady epoch's wall beside the plain run's; then
+    mnist_scan's windows (epoch_scan=auto, 4 epochs) with health on, pod
+    against plain: bit-equal, the same windows, the same health
+    statistics, and the windows' collectives issued by each key's eager
+    run and capture only."""
+    runs = {}
+    for name in ("plain", "pod"):
+        runs[name] = _mnist_pod_run(device, POD_EPOCHS, name == "pod")
+    plain, pod = runs["plain"], runs["pod"]
+    equal = (pod["closes"] == plain["closes"]
+             and pod["confusion"] == plain["confusion"]
+             and _states_equal(pod["state"], plain["state"]))
+    want = {kind: 2 * count for kind, count in
+            POD_SEGMENT_COLLECTIVES.items()}
+    collectives_ok = all(pod["collectives"][k] == v
+                         for k, v in want.items()) \
+        and plain["collectives"]["all_gather"] == 0
+    launches_ok = pod["launches"] == plain["launches"] and \
+        {k: pod["launches"][k] for k in MNIST_STITCHED_LAUNCHES} \
+        == MNIST_STITCHED_LAUNCHES
+    # the ledger's collective_bytes: each dispatch's payload, counted
+    # where the stages issue it (a replay moves what its capture counted)
+    bytes_ok = all(
+        pod["ledger"].get(name, {}).get("dispatches", 0) > 0
+        and pod["ledger"][name]["collective_bytes"]
+        == per * pod["ledger"][name]["dispatches"]
+        for name, per in POD_SEGMENT_BYTES.items())
+    segments_ok = ([r["dispatches"] for r in pod["segments"]]
+                   == MNIST_STITCHED_DISPATCHES
+                   and [r["captures"] for r in pod["segments"]] == [1, 1]
+                   and all(r["recaptures"] == 0 for r in pod["segments"]))
+    scans = {}
+    for name in ("plain", "pod"):
+        scans[name] = _mnist_pod_run(device, MNIST_SCAN_EPOCHS,
+                                     name == "pod", scan="auto",
+                                     health="on")
+    sp, sd = scans["plain"], scans["pod"]
+    scan_equal = (sd["closes"] == sp["closes"]
+                  and _states_equal(sd["state"], sp["state"])
+                  and sd["health"]["groups"] == sp["health"]["groups"])
+    train_k, valid_k = 60, 10
+    scan_want = {"all_gather": 2 * train_k * 6,
+                 "all_reduce": 2 * (train_k + valid_k) * 2}
+    scan_ok = (sd["scan"]["windows"] == sp["scan"]["windows"] > 0
+               and sd["collectives"]["all_gather"] == scan_want["all_gather"]
+               and sd["collectives"]["all_reduce"] == scan_want["all_reduce"]
+               and all(g["recaptures"] == 0
+                       for g in sd["scan"]["graphs"].values()))
+    for run in list(runs.values()) + list(scans.values()):
+        run.pop("state")
+        run.pop("confusion")
+    ok = equal and collectives_ok and launches_ok and segments_ok \
+        and bytes_ok and scan_equal and scan_ok
+    emit({"phase": "pod", "nvidia_smi": smi, "ok": ok,
+          "epochs": POD_EPOCHS, "per_step": runs, "bit_equal": equal,
+          "collectives_expected": want,
+          "collective_bytes_expected": POD_SEGMENT_BYTES, "windows": {
+              "epochs": MNIST_SCAN_EPOCHS, "runs": {
+                  k: {key: v[key] for key in ("closes", "collectives",
+                                              "steady_epoch_ms", "health",
+                                              "pod", "ledger") if key in v}
+                  for k, v in scans.items()},
+              "scan": {k: {key: v["scan"][key] for key in ("windows",
+                                                           "steps")}
+                       for k, v in scans.items()},
+              "bit_equal": scan_equal,
+              "collectives_expected": scan_want}})
+    check(equal, "pod", "the one-rank pod is not the stitched run bit for "
+          "bit: closes %s vs %s" % (pod["closes"], plain["closes"]))
+    check(collectives_ok, "pod", "collectives %s, want %s"
+          % (pod["collectives"], want))
+    check(launches_ok, "pod", "launches %s vs %s" % (pod["launches"],
+                                                    plain["launches"]))
+    check(segments_ok, "pod", "segments %s" % pod["segments"])
+    check(bytes_ok, "pod", "ledger %s, want %s bytes a dispatch"
+          % (pod["ledger"], POD_SEGMENT_BYTES))
+    check(scan_equal, "pod", "the pod's windows are not the plain "
+          "windows bit for bit (closes %s vs %s, health %s vs %s)"
+          % (sd["closes"], sp["closes"], sd["health"], sp["health"]))
+    check(scan_ok, "pod", "windows %s / %s, collectives %s, want %s" % (
+        sd["scan"]["windows"], sp["scan"]["windows"], sd["collectives"],
+        scan_want))
+    return pod["launches"]
+
+
+def phase_fused_shard(device, smi):
+    """The fused MNIST trainer (native, minibatch 100) with ``fsdp=True``
+    over ``{"data": -1}`` and ``tp=True`` over ``{"data": 1, "model": 1}``
+    on the one-rank NCCL group, each bit-equal to the unsharded fused run
+    (closes, confusion, weights, the whole solver state), launches
+    equal, one capture a step shape; then AlexNet's bf16 step at batch
+    128 with ``fsdp`` over the one-rank data mesh against the no-mesh
+    bf16 step, losses and params bit for bit."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import gather
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    from veles_tpu_torch.samples import alexnet
+    from veles_tpu_torch.znicz.fused_graph import to_numpy
+    runs = {}
+    for name, config in (
+            ("no_mesh", None),
+            ("fsdp", {"mesh_axes": {"data": -1}, "fsdp": True}),
+            ("tp", {"mesh_axes": {"data": 1, "model": 1}, "tp": True})):
+        reset_all_launches()
+        comm.reset_counts()
+        wf, closes, confusion, params = _fused_run(
+            device, FUSED_SHARD_EPOCHS, config)
+        trainer = wf.fused_trainer
+        runs[name] = {"closes": closes, "confusion": confusion.tolist(),
+                      "params": params, "solver": trainer.capture_state(),
+                      "launches": dict(mnist_launches(),
+                                       **gather.entry_launches),
+                      "graphs": trainer.graph_report(),
+                      "collectives": spmd_counts(),
+                      "specs": None if trainer._specs_ is None else [
+                          {k: list(v) for k, v in layer.items()}
+                          for layer in trainer._specs_],
+                      "steady_epoch_ms": _steady_epoch_ms(wf)}
+    plain = runs["no_mesh"]
+
+    def same(run):
+        return (run["closes"] == plain["closes"]
+                and run["confusion"] == plain["confusion"]
+                and _states_equal(run["params"], plain["params"])
+                and all(_states_equal(
+                    {k: v for k, v in a.items() if v is not None},
+                    {k: v for k, v in b.items() if v is not None})
+                    for a, b in zip(run["solver"], plain["solver"])))
+    equal = {name: same(runs[name]) for name in ("fsdp", "tp")}
+    launches_ok = all(runs[n]["launches"] == plain["launches"]
+                      for n in ("fsdp", "tp"))
+    graphs_ok = all(
+        r.get("captures", 0) <= 1 and r.get("recaptures", 0) == 0
+        for n in ("fsdp", "tp") for r in runs[n]["graphs"].values())
+    specs_ok = (runs["fsdp"]["specs"][0]["w"] == ["data", None]
+                and runs["tp"]["specs"][0]["w"] == [None, "model"])
+    for run in runs.values():
+        del run["params"], run["solver"]
+    alex = {}
+    x, labels = alexnet.synthetic_imagenet_batch(ALEXNET_BATCH)
+    x, labels = torch.from_numpy(x).to(device), torch.from_numpy(labels).to(
+        device)
+    for name, kwargs in (("no_mesh", {}),
+                         ("fsdp", {"mesh": make_mesh({"data": -1}),
+                                   "fsdp": True})):
+        prng.seed_all(SEED)
+        params, step, _e, _a = alexnet.build_fused(
+            device=device, compute_dtype="bfloat16", **kwargs)
+        losses, step_ms = [], []
+        for _ in range(2 + ALEXNET_DP_STEPS):
+            gpu_sync()
+            tic = time.perf_counter()
+            losses.append(float(step(params, x, labels)[1]["loss"]))
+            gpu_sync()
+            step_ms.append((time.perf_counter() - tic) * 1e3)
+        alex[name] = {"losses": losses, "step_ms": step_ms,
+                      "graphs": step.report(), "state": to_numpy(params)}
+    alex_equal = alex["fsdp"]["losses"] == alex["no_mesh"]["losses"] and all(
+        numpy.array_equal(a[k], b[k]) for a, b in zip(
+            alex["fsdp"]["state"], alex["no_mesh"]["state"])
+        for k in a if a[k] is not None)
+    for run in alex.values():
+        del run["state"]
+    ok = all(equal.values()) and launches_ok and graphs_ok and specs_ok \
+        and alex_equal
+    emit({"phase": "fused_shard", "nvidia_smi": smi, "ok": ok,
+          "epochs": FUSED_SHARD_EPOCHS, "mnist": runs, "bit_equal": equal,
+          "alexnet": alex, "alexnet_batch": ALEXNET_BATCH,
+          "alexnet_dtype": "bfloat16", "alexnet_bit_equal": alex_equal})
+    check(all(equal.values()), "fused_shard", "a sharded run is not the "
+          "unsharded run bit for bit: %s" % equal)
+    check(launches_ok and graphs_ok and specs_ok, "fused_shard",
+          "launches %s, graphs %s, specs %s" % (
+              {n: r["launches"] for n, r in runs.items()},
+              {n: r["graphs"] for n, r in runs.items()},
+              {n: r["specs"] for n, r in runs.items()}))
+    check(alex_equal, "fused_shard", "AlexNet bf16 with fsdp: losses %s vs "
+          "%s" % (alex["fsdp"]["losses"], alex["no_mesh"]["losses"]))
+    return runs["fsdp"]["launches"]
+
+
+def phase_serve_tp(device, smi, serve_streams, serve_tokens_per_s):
+    """The generative engine at full width (CONFIG: 16x64 heads, 12
+    layers, bf16) as two virtual model shards on the card
+    (:class:`veles_tpu_torch.gen.model.VirtualShards`: each shard an
+    engine over ``TransformerGenModel.shard`` in its own thread, the
+    ``wo`` and ``w2`` float32 partials summed in rank order where the
+    all-reduce would go), contiguous and paged: the 8 serve requests'
+    greedy streams over 64 new tokens equal to the serve engine's, the
+    flash and decode kernels launched at 8 heads, their launches and
+    local-head shapes, tokens/s beside serve's; then a 2-layer f32 copy's
+    last-position logits against the single-device model's within
+    SERVE_TP_LOGIT_RTOL relative."""
+    from veles_tpu_torch.gen import (GenerativeEngine, GenerativeScheduler,
+                                     TransformerGenModel)
+    from veles_tpu_torch.gen import model as gen_model
+    from veles_tpu_torch.ops import attention
+    from veles_tpu_torch.samples.transformer import CONFIG
+    lengths, workload = serve_workload(CONFIG["vocab"])
+    heads_seen = {}
+    wrapped = {}
+    for name in ("flash_attention", "decode_attention",
+                 "paged_decode_attention"):
+        inner = getattr(gen_model, name)
+
+        def recording(q, *args, _name=name, _inner=inner, **kwargs):
+            heads_seen.setdefault(_name, set()).add(int(q.shape[2]))
+            return _inner(q, *args, **kwargs)
+        wrapped[name] = inner
+        setattr(gen_model, name, recording)
+    info = {"phase": "serve_tp", "nvidia_smi": smi,
+            "config": dict(CONFIG), "compute_dtype": "bfloat16",
+            "shards": SERVE_TP_SHARDS, "requests": len(workload),
+            "prompt_lengths": lengths.tolist(),
+            "new_tokens": SERVE_NEW_TOKENS,
+            "serve_tokens_per_s": serve_tokens_per_s}
+    try:
+        model = TransformerGenModel(CONFIG, compute_dtype=torch.bfloat16,
+                                    device=device)
+        full = model.init_params(seed=SEED)
+        for kv in ("contiguous", "paged"):
+            group = gen_model.VirtualShards(SERVE_TP_SHARDS)
+            shards = [model.shard(r, SERVE_TP_SHARDS, group)
+                      for r in range(SERVE_TP_SHARDS)]
+            options = {"kv": "paged"} if kv == "paged" else {}
+            engines = [GenerativeEngine(
+                part, params=part.shard_params(full), max_slots=4,
+                max_seq=2048, seed=SEED, device=device, **options)
+                for part in shards]
+            group.run(lambda r: engines[r].warmup())
+            gpu_sync()
+            attention.reset_launches()
+            reductions0 = group.reductions
+            tic = time.perf_counter()
+
+            def serve(rank):
+                scheduler = GenerativeScheduler(engines[rank])
+                futures = [scheduler.submit(toks, SERVE_NEW_TOKENS)
+                           for toks in workload]
+                scheduler.run_until_idle()
+                return [f.result(0) for f in futures]
+            streams = group.run(serve)
+            gpu_sync()
+            elapsed = time.perf_counter() - tic
+            tokens = sum(len(s) for s in streams[0])
+            info[kv] = {
+                "elapsed_s": elapsed, "tokens": tokens,
+                "tokens_per_s": tokens / elapsed,
+                "launches": dict(attention.launches),
+                "local_heads": {k: sorted(v) for k, v in heads_seen.items()},
+                "cache_heads": int(engines[0]._cache["k"].shape[3]),
+                "reductions": group.reductions - reductions0,
+                "prefills": engines[0].prefill_calls,
+                "decode_steps": engines[0].decode_calls,
+                "shards_agree": all(s == streams[0] for s in streams),
+                "equal_serve": streams[0] == serve_streams}
+            heads_seen.clear()
+            for engine in engines:
+                engine.close()
+            del engines
+    finally:
+        for name, inner in wrapped.items():
+            setattr(gen_model, name, inner)
+    small = dict(CONFIG, layers=2)
+    one = TransformerGenModel(small, device=device)
+    params = one.init_params(seed=SEED)
+    tokens = torch.tensor(workload[0][:256], dtype=torch.long)
+    want = one.calibration_logits(params, tokens)
+    group = gen_model.VirtualShards(SERVE_TP_SHARDS)
+    parts = [one.shard(r, SERVE_TP_SHARDS, group)
+             for r in range(SERVE_TP_SHARDS)]
+    got = group.run(lambda r: parts[r].calibration_logits(
+        parts[r].shard_params(params), tokens))
+    rel = float((got[0] - want).abs().max() / want.abs().max())
+    info["logits_rel_err"] = rel
+    layers = CONFIG["layers"]
+    half = CONFIG["heads"] // SERVE_TP_SHARDS
+    ok = True
+    for kv in ("contiguous", "paged"):
+        run = info[kv]
+        decode = "paged_decode_attention" if kv == "paged" \
+            else "decode_attention"
+        run["ok"] = (run["equal_serve"] and run["shards_agree"]
+                     and run["cache_heads"] == half
+                     and run["local_heads"].get("flash_attention") == [half]
+                     and run["local_heads"].get(decode) == [half]
+                     and run["prefills"] > 0 and run["decode_steps"] > 0
+                     # one launch a shard, a layer and a call
+                     and run["launches"].get("flash_fwd", 0)
+                     == SERVE_TP_SHARDS * layers * run["prefills"]
+                     and run["launches"].get(
+                         "paged_decode_attn" if kv == "paged"
+                         else "decode_attn", 0)
+                     == SERVE_TP_SHARDS * layers * run["decode_steps"]
+                     and run["reductions"] > 0)
+        ok = ok and run["ok"]
+    info["ok"] = ok and rel <= SERVE_TP_LOGIT_RTOL
+    emit(info)
+    for kv in ("contiguous", "paged"):
+        check(info[kv]["ok"], "serve_tp", "%s: %s" % (kv, info[kv]))
+    check(rel <= SERVE_TP_LOGIT_RTOL, "serve_tp", "the 2-layer f32 copy's "
+          "logits are %.3g relative from one device's" % rel)
+    # both runs' launches: the contiguous and the paged decode kernels
+    return {k: info["contiguous"]["launches"].get(k, 0)
+            + info["paged"]["launches"].get(k, 0)
+            for k in set(info["contiguous"]["launches"])
+            | set(info["paged"]["launches"])}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9902,6 +10325,10 @@ def main():
         paths["ring"] = phase_ring(device, info["nvidia_smi"])
         phase_moe(device, info["nvidia_smi"])
         paths["fused_dp"] = phase_fused_dp(device, info["nvidia_smi"])
+        paths["pod"] = phase_pod(device, info["nvidia_smi"])
+        paths["fused_shard"] = phase_fused_shard(device, info["nvidia_smi"])
+        paths["serve_tp"] = phase_serve_tp(
+            device, info["nvidia_smi"], serve_streams, serve_tokens_per_s)
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1

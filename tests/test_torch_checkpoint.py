@@ -16,7 +16,18 @@ card's machine).
   tensor's dtype and device, a numpy array's dtype, an ``ArraySpec``),
   and refuses a leaf of another shape;
 - a step that a crash left half-written is never taken for the latest;
-- restoring onto another rank count raises naming item 7(d);
+- restoring onto another rank count (once refused naming item 7(d)):
+  a step saved by 2 gloo ranks (``tests/torch_ranks.py``: the JAX
+  test's 8x8 ``w`` / ``vw`` held as row slices, and the train state of
+  the pod's seeded task after one epoch of an fsdp pod, its sharded
+  Vectors gathered by ``capture_train_state``) restores on 4 ranks (``w``
+  by rows and ``vw`` by columns of the new data axis, the train state
+  into a fresh fsdp pod whose Vectors re-shard by its rules) and on 1
+  (this process), every value equal to the JAX ``TrainCheckpointer``'s
+  restore of the same state saved over 8 devices and restored over 2
+  (``test_checkpoint.py:39``), exactly for the 8x8 state and within
+  5e-5 (the pod parity gate's tolerance) for the trained one, which the
+  JAX package trains on one device;
 - the restore copies what it installs, where the JAX units alias it.
 """
 
@@ -217,13 +228,150 @@ def test_a_half_written_step_is_never_the_latest(tmp_path, monkeypatch):
 
 def test_restoring_onto_another_rank_count_names_7d(tmp_path,
                                                      monkeypatch):
+    """Once refused naming item 7(d): a step recorded as saved by 2
+    ranks restores in this one-rank process, onto a sharded abstract
+    leaf too (a one-rank mesh: the whole array)."""
+    from veles_tpu_torch.parallel.mesh import Sharding, make_mesh
     ckpt = TrainCheckpointer(str(tmp_path / "ckpt"))
-    state = {"x": numpy.ones(4, numpy.float32)}
+    state = {"x": numpy.arange(4, dtype=numpy.float32)}
     monkeypatch.setattr(checkpoint, "_world_size", lambda: 2)
     ckpt.save(1, state)
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
-        ckpt.restore(state)
+    with open(tmp_path / "ckpt" / "1" / "meta.json") as fin:
+        assert json.load(fin)["world_size"] == 2
+    _step, got, _loader = ckpt.restore(state)
+    numpy.testing.assert_array_equal(got["x"], state["x"])
+    mesh = make_mesh({"data": -1})
+    _step, got, _loader = ckpt.restore({"x": ArraySpec(
+        (4,), numpy.float32, "cpu", Sharding(mesh, ("data",)))})
+    numpy.testing.assert_array_equal(got["x"].numpy(), state["x"])
+
+
+# -- across rank counts --------------------------------------------------------
+
+#: the pod parity gate's tolerance (test_pod.py:186)
+TRAINED_TOL = 5e-5
+
+
+@pytest.fixture(scope="module")
+def across(tmp_path_factory):
+    """Saved by 2 ranks, restored by 4 (ranks) and by 1 (this process)."""
+    import torch_ranks
+    from veles_tpu_torch.checkpoint import ArraySpec as Spec
+    from veles_tpu_torch.parallel.mesh import Sharding, make_mesh
+    from veles_tpu_torch.pod.__main__ import make_workflow
+    base = tmp_path_factory.mktemp("across")
+    inputs = {"ckpt_dir": str(base / "ckpt")}
+    (base / "save").mkdir()
+    (base / "restore").mkdir()
+    saved = torch_ranks.run_world(2, ("ckpt_save",), inputs,
+                                  base / "save")
+    restored4 = torch_ranks.run_world(4, ("ckpt_restore",), inputs,
+                                      base / "restore")
+    mesh = make_mesh({"data": -1})
+    abstract = {n: Spec((8, 8), numpy.float32, "cpu",
+                        Sharding(mesh, ("data", None)))
+                for n in ("w", "vw")}
+    abstract["step_scale"] = Spec((), numpy.float32, None)
+    ckpt = TrainCheckpointer(inputs["ckpt_dir"])
+    _s, one, loader = ckpt.restore(abstract, step=1)
+    wf = make_workflow(max_epochs=1, device="cpu")
+    abstract_train, _m = wf.capture_train_state()
+    _s, train, meta = ckpt.restore(abstract_train, step=2)
+    wf.restore_train_state(train, meta)
+    one_train, _m = wf.capture_train_state()
+    return {"saved": [r["ckpt_save"] for r in saved],
+            "four": [r["ckpt_restore"] for r in restored4],
+            "one": {"w": one["w"].numpy(), "vw": one["vw"].numpy(),
+                    "loader": loader, "train": one_train}}
+
+
+@pytest.fixture(scope="module")
+def jax_restored(tmp_path_factory):
+    """The JAX TrainCheckpointer's restore of the 8x8 state saved over 8
+    devices and restored over 2, and of the seeded task's train state
+    after one single-device epoch."""
+    import jax
+    from veles_tpu.checkpoint import TrainCheckpointer as JaxCheckpointer
+    from veles_tpu.parallel import make_mesh as jax_make_mesh
+    from veles_tpu.pod import train_epochs
+    from veles_tpu.pod.__main__ import make_workflow
+    P = jax.sharding.PartitionSpec
+    named = jax.sharding.NamedSharding
+    base = tmp_path_factory.mktemp("jax_across")
+    mesh8 = jax_make_mesh({"data": 8})
+    sharding = named(mesh8, P("data", None))
+    state = {"w": jax.device_put(numpy.arange(64, dtype=numpy.float32)
+                                 .reshape(8, 8), sharding),
+             "vw": jax.device_put(numpy.zeros((8, 8), numpy.float32),
+                                  sharding),
+             "step_scale": numpy.float32(0.5)}
+    ckpt = JaxCheckpointer(str(base / "ckpt"))
+    ckpt.save(1, state)
+    wf = make_workflow(max_epochs=1)
+    for _ in train_epochs(wf, 1):
+        pass
+    train, _meta = wf.capture_train_state()
+    ckpt.save(2, train)
+    ckpt.close()
+    mesh2 = jax_make_mesh({"data": 2}, devices=jax.devices()[:2])
+    abstract = {
+        "w": jax.ShapeDtypeStruct((8, 8), numpy.float32,
+                                  sharding=named(mesh2, P("data", None))),
+        "vw": jax.ShapeDtypeStruct((8, 8), numpy.float32,
+                                   sharding=named(mesh2, P(None, "data"))),
+        "step_scale": jax.ShapeDtypeStruct((), numpy.float32)}
+    ckpt = JaxCheckpointer(str(base / "ckpt"))
+    _s, got, _l = ckpt.restore(abstract, step=1)
+    _s, got_train, _l = ckpt.restore(train, step=2)
+    ckpt.close()
+    return {"w": numpy.asarray(got["w"]), "vw": numpy.asarray(got["vw"]),
+            "train": {k: {n: numpy.asarray(v) for n, v in d.items()}
+                      for k, d in got_train.items()}}
+
+
+def test_saved_by_2_restored_by_4_equals_jax(across, jax_restored):
+    for rank, got in enumerate(across["four"]):
+        assert got["step"] == 1
+        assert got["loader"] == {"epoch": 2, "offset": 40}
+        assert got["step_scale"] == 0.5
+        for name in ("w", "vw"):
+            numpy.testing.assert_array_equal(got["whole"][name],
+                                             jax_restored[name])
+        # the new placement: rows of w, columns of vw
+        numpy.testing.assert_array_equal(
+            got["local"]["w"], jax_restored["w"][2 * rank:2 * rank + 2])
+        numpy.testing.assert_array_equal(
+            got["local"]["vw"], jax_restored["vw"][:, 2 * rank:2 * rank + 2])
+
+
+def test_saved_by_2_restored_by_1_equals_jax(across, jax_restored):
+    assert across["one"]["loader"] == {"epoch": 2, "offset": 40}
+    for name in ("w", "vw"):
+        numpy.testing.assert_array_equal(across["one"][name],
+                                         jax_restored[name])
+
+
+@pytest.mark.parametrize("ranks", ["four", "one"])
+def test_fsdp_train_state_restores_on_another_rank_count(across,
+                                                        jax_restored, ranks):
+    saved = across["saved"][0]["train"]
+    want = jax_restored["train"]
+    restored = [r["train"] for r in across["four"]] \
+        if ranks == "four" else [across["one"]["train"]]
+    assert sorted(saved) == sorted(want)
+    for train in restored:
+        assert sorted(train) == sorted(saved)
+        for key, arrays in saved.items():
+            for name, value in arrays.items():
+                # restored as saved, bit for bit, on any rank count
+                numpy.testing.assert_array_equal(train[key][name], value)
+                numpy.testing.assert_allclose(
+                    train[key][name], want[key][name], rtol=0,
+                    atol=TRAINED_TOL)
+    if ranks == "four":
+        for got in across["four"]:
+            assert got["shards"] == 4 and got["sharded_leaves"] > 0
 
 
 def test_the_restore_copies_what_it_installs():

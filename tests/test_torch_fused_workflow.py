@@ -27,8 +27,9 @@ against the JAX package, on the CPU.
   ``tests/test_rollback.py`` and ``tests/test_lr_adjust.py``; mcdnnic
   parsing; the image saver's PNGs; serving a fused workflow.
 - The refusals: none left of 7(c) (a conv topology and a recurrent
-  layer build now), ``fsdp`` and ``tp`` (7(d), part 2; ``mesh_axes``
-  builds and trains), the plotters (7(e),
+  layer build now) or of 7(d) (``mesh_axes``, ``fsdp`` and ``tp``
+  build and train: over one process the one-device run bit for bit),
+  the plotters (7(e),
   refused when given at all: ``plotters_config={}`` built silently
   before) and ``rollback_config={}``, which links a Rollback with the
   JAX defaults (it linked none before).
@@ -704,16 +705,16 @@ def test_rollback_config_empty_links_a_rollback_with_the_jax_defaults():
         (jwf.rollback.fail_iterations, jwf.rollback.lr_factor) == (5, 0.5)
 
 
-@pytest.mark.parametrize("option", [{"mesh_axes": {"data": -1}},
-                                    {"fsdp": True}, {"tp": True}])
+@pytest.mark.parametrize("option", [
+    {"mesh_axes": {"data": -1}},
+    {"mesh_axes": {"data": -1}, "fsdp": True},
+    {"mesh_axes": {"data": -1, "model": 1}, "tp": True}])
 def test_a_mesh_is_refused_naming_7d(option):
-    """``mesh_axes`` is ported (over one process: the one-device run bit
-    for bit; the ranks' runs are ``tests/test_torch_spmd.py``'s);
-    ``fsdp`` and ``tp`` still raise naming 7(d)."""
-    if "mesh_axes" not in option:
-        with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
-            _build(False, fused=True, fused_config=option)
-        return
+    """``mesh_axes``, ``fsdp`` and ``tp`` (``fsdp`` and ``tp`` once
+    refused naming 7(d)) are ported: over one process each is the
+    one-device run bit for bit (the ranks' runs are
+    ``tests/test_torch_spmd.py``'s and ``tests/test_torch_fused_shard
+    .py``'s)."""
     runs = []
     for config in ({}, option):
         _seed(6)

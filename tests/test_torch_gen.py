@@ -293,18 +293,38 @@ def _int8_params():
     return params
 
 
+def _layout_mesh(axes):
+    from veles_tpu_torch.parallel.mesh import Mesh
+    return Mesh(axes, world_size=2)
+
+
 @pytest.mark.parametrize("option", [
-    # int8 params are served now (tests/test_torch_quant.py); an int8
-    # deploy over a tensor-parallel mesh is not (ROADMAP item 7)
-    lambda: port_engine(params=_int8_params(), mesh=object()),
+    # int8 params are served (tests/test_torch_quant.py), but not over a
+    # tensor-parallel mesh: a ValueError, as in the JAX package
+    lambda: port_engine(params=_int8_params(),
+                        mesh=_layout_mesh({"model": 2})),
     lambda: GenerativeScheduler(port_engine()).drain(),
     lambda: port_engine(kv="paged", block_size=8).warm_handoff(),
     lambda: port_engine(kv="paged", block_size=8).export_slot(0),
-    lambda: port_engine(mesh=object())],
+    # the mesh is ported (tests/test_torch_tp_serve.py): one without a
+    # model axis is the single-device path
+    lambda: port_engine(mesh=_layout_mesh({"data": 2}))],
     ids=["int8", "drain", "warm_handoff", "export_slot", "mesh"])
-def test_unported_engine_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        option()
+def test_unported_engine_options_raise(option, request):
+    """The fleet options (the drain, the page handoff) raise naming
+    their ROADMAP item, 7(e); the two mesh cases were refusals of item
+    7(d) and now take the JAX engine's paths."""
+    case = request.node.callspec.id
+    if case == "int8":
+        with pytest.raises(ValueError, match="int8"):
+            option()
+    elif case == "mesh":
+        engine = option()
+        assert engine.mesh is None
+        assert engine.describe()["sharded"] is False
+    else:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.*7\(e\)"):
+            option()
 
 
 def test_gen_smoke_entry_point_on_cpu(capsys):

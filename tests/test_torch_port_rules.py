@@ -116,6 +116,52 @@ def test_importing_the_port_loads_no_jax_and_no_veles_tpu():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+def test_importing_the_pod_loads_no_jax_and_no_veles_tpu():
+    """The pod package (7(d), part 2: the runtime, the in-process
+    membership, ``MultiHostPod``, the smoke's task) and the modules it
+    rewrites import no JAX and no ``veles_tpu``."""
+    proc = _run(
+        "import json, sys\n"
+        "import veles_tpu_torch.pod, veles_tpu_torch.pod.__main__\n"
+        "from veles_tpu_torch.pod import membership, pods, runtime\n"
+        "import veles_tpu_torch.checkpoint, veles_tpu_torch.epoch_scan\n"
+        "import veles_tpu_torch.analyze.pricing\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    for module in ("pod", "pod.runtime", "pod.membership", "pod.pods",
+                   "pod.__main__", "parallel.comm", "parallel.mesh",
+                   "stitch", "analyze.pricing"):
+        assert "veles_tpu_torch." + module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("call", [
+    lambda pod: pod.PodMaster(None),
+    lambda pod: pod.PodWorker(None, "tcp://127.0.0.1:1"),
+    lambda pod: pod.MultiHostPodWorker(None, "tcp://127.0.0.1:1")],
+    ids=["PodMaster", "PodWorker", "MultiHostPodWorker"])
+def test_the_pod_lease_half_names_7e(call):
+    """What is left of ``pod/`` rides the job protocol, item 7(e)."""
+    import veles_tpu_torch.pod as pod
+    with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
+        call(pod)
+
+
+def test_the_pod_refusals_name_their_items():
+    """The runtime's refusals: the planner (``param_rules="auto"``) and
+    the V-P02 preflight (``warn`` / ``fail``) are the analyzer's, item
+    7(e); every ``NotImplementedError`` the pod package raises names an
+    item of ROADMAP 7."""
+    import re
+    for path in (PACKAGE / "pod").glob("*.py"):
+        text = path.read_text()
+        for match in re.finditer(r"raise NotImplementedError\(", text):
+            window = text[match.end():match.end() + 400]
+            assert re.search(r"7\(e\)|ROADMAP item %s", window), \
+                "%s: a refusal without its item" % path.name
+
+
 def test_a_spawned_rank_loads_no_jax_and_no_veles_tpu(tmp_path):
     """A rank of a gloo world (``tests/torch_ranks.py``, joined through
     ``parallel.multihost.initialize``) imports the SPMD library, the MoE
@@ -1041,11 +1087,21 @@ def test_serving_engine_raises_without_a_card(no_cuda):
     assert _serving_engine().device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()},
-                                    {"param_specs": lambda leaf: None}])
+@pytest.mark.parametrize("kwargs", [
+    {"mesh": "one rank"}, {"param_specs": lambda leaf: None}])
 def test_serving_engine_mesh_is_refused_naming_7d(kwargs):
-    with pytest.raises(NotImplementedError, match=r"item 7\(d\)"):
-        _serving_engine(**kwargs)
+    """Once refused naming 7(d): a mesh of one rank, and param_specs
+    without a mesh, are the single-device path (the ranks' runs are
+    ``tests/test_torch_pod.py``'s)."""
+    from veles_tpu_torch.parallel.mesh import Mesh
+    if kwargs.get("mesh") == "one rank":
+        kwargs = {"mesh": Mesh({"data": 1}, world_size=1)}
+    engine = _serving_engine(**kwargs)
+    assert engine.mesh is None
+    assert engine.describe()["sharded"] is False
+    rows = numpy.arange(8, dtype=numpy.float32).reshape(2, 4)
+    numpy.testing.assert_array_equal(engine.infer(rows),
+                                     _serving_engine().infer(rows))
 
 
 def _mnist_after_a_run():
@@ -1185,7 +1241,7 @@ def test_registry_load_snapshot_keeps_the_preflight(serve_preflight,
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda r: r.deploy_fleet("fleet", None), "7(d)"),
+    (lambda r: r.deploy_fleet("fleet", None), "7(e)"),
 ])
 def test_registry_refusals_name_their_items(call, item):
     from veles_tpu_torch.serve import ModelRegistry
@@ -1267,22 +1323,25 @@ def test_standard_workflow_options_still_refused(option):
 
 @pytest.mark.parametrize("knob", ["mesh_axes", "fsdp", "tp"])
 def test_fused_config_meshes_are_refused_naming_7d(knob):
-    """``mesh_axes`` is ported (7(d), part 1): over one process it builds
-    a data-parallel trainer whose world is this process alone; ``fsdp``
-    and ``tp`` still raise naming 7(d), whose part 2 they are."""
+    """``mesh_axes`` is ported (7(d), part 1), and ``fsdp`` and ``tp``
+    (once refused naming 7(d), part 2) with it: over one process each
+    builds a trainer whose world is this process alone."""
     from veles_tpu_torch.samples import mnist
-    if knob == "mesh_axes":
-        wf = mnist.create_workflow(device="cpu", fused=True, max_epochs=2,
-                                   fused_config={knob: {"data": -1}})
-        wf.run()
-        trainer = wf.fused_trainer
-        assert trainer.mesh_axes == {"data": -1}
-        assert trainer._mesh_.shape == {"data": 1}
-        assert trainer.graph_report()["train_100"]["eager"] > 0
-        return
-    with pytest.raises(NotImplementedError, match=r"item 7\(d\), part 2"):
-        mnist.create_workflow(device="cpu", fused=True,
-                              fused_config={knob: {"data": -1}})
+    axes = {"data": -1, "model": 1} if knob == "tp" else {"data": -1}
+    config = {"mesh_axes": axes}
+    if knob != "mesh_axes":
+        config[knob] = True
+    wf = mnist.create_workflow(device="cpu", fused=True, max_epochs=2,
+                               fused_config=config)
+    wf.run()
+    trainer = wf.fused_trainer
+    assert trainer.mesh_axes == axes
+    assert trainer._mesh_.shape == {a: 1 for a in axes}
+    assert trainer.graph_report()["train_100"]["eager"] > 0
+    if knob != "mesh_axes":
+        spec = trainer._specs_[0]["w"]
+        assert spec == (("data", None) if knob == "fsdp"
+                        else (None, "model"))
 
 
 @pytest.mark.parametrize("value,dtype", [("float32", torch.float32),

@@ -319,6 +319,136 @@ def case_fused_mnist_dp_epoch(inputs):
     return _fused_run(epoch_mode=True)
 
 
+def _fused_sharded_run(config):
+    """The MNIST sample fused over ``config`` (its ``mesh_axes`` with
+    ``fsdp`` / ``tp``) for two epochs: the closes, the trained weights,
+    each leaf's spec and the collectives."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.samples import mnist
+    prng.seed_all(3)
+    wf = mnist.create_workflow(device="cpu", max_epochs=2, native=True,
+                               fused=True, fused_config=dict(config))
+    dec, closes = wf.decision, []
+    close = dec._close_class
+
+    def recording(cls, check_epoch_end):
+        closes.append((int(dec.epoch_number), int(cls),
+                       float(dec.epoch_n_err[cls])))
+        return close(cls, check_epoch_end)
+    dec._close_class = recording
+    comm.reset_counts()
+    wf.run()
+    trainer = wf.fused_trainer
+    return {"closes": closes,
+            "weights": [(numpy.array(f.weights.mem, numpy.float32),
+                         numpy.array(f.bias.mem, numpy.float32))
+                        for f in wf.forwards],
+            "specs": [{k: list(v) for k, v in layer.items()}
+                      for layer in trainer._specs_],
+            "local": [{k: list(v.shape) for k, v in layer.items()
+                       if v is not None and v.dim()}
+                      for layer in trainer._params_],
+            "state": trainer.capture_state(),
+            "collectives": {k: int(comm.counts[k]) for k in comm.KINDS}}
+
+
+def case_fused_fsdp(inputs):
+    return _fused_sharded_run({"mesh_axes": {"data": -1}, "fsdp": True})
+
+
+def case_fused_fsdp_epoch(inputs):
+    return _fused_sharded_run({"mesh_axes": {"data": -1}, "fsdp": True,
+                               "epoch_mode": True})
+
+
+def case_fused_tp(inputs):
+    return _fused_sharded_run({"mesh_axes": {"data": 2, "model": 2},
+                               "tp": True})
+
+
+def case_fused_tp_fsdp(inputs):
+    return _fused_sharded_run({"mesh_axes": {"data": 2, "model": 2},
+                               "tp": True, "fsdp": True})
+
+
+def case_fused_step_rules(inputs):
+    """Three steps of the lowered specs under sharded params on every
+    rank (``test_fused_parallel.py:137`` and ``:175``): fsdp_rules at 64
+    elements over data 4, and the last dim of the 2-d weights over model
+    2 on data 2 x model 2; the state gathered whole and the metrics."""
+    import torch
+    from veles_tpu_torch.parallel import mesh as M
+    from veles_tpu_torch.parallel.dp import (data_parallel, fsdp_rules,
+                                             shard_params)
+    from veles_tpu_torch.znicz.fused_graph import (_leaf_spec, lower_specs,
+                                                   to_tensors)
+    out = {}
+    x, y = inputs["rules_x"], inputs["rules_y"]
+    for name, axes in (("fsdp", {"data": 4}),
+                       ("tp", {"data": 2, "model": 2})):
+        mesh = M.make_mesh(axes)
+        if name == "fsdp":
+            rules = fsdp_rules(mesh, min_elements=64)
+        else:
+            def rules(leaf):
+                shape = numpy.shape(leaf)
+                if len(shape) == 2 and shape[1] % 2 == 0:
+                    return (None, "model")
+                return None
+        params, step_fn, _e, _a = lower_specs(
+            [dict(s) for s in inputs["rules_specs"]], (x.shape[1],),
+            grad_reduce_axis="data", mesh=mesh, param_rules=rules)
+        specs = [{k: _leaf_spec(rules, v) for k, v in state.items()}
+                 for state in params]
+        params = to_tensors(shard_params(params, mesh, param_rules=rules),
+                            "cpu")
+        step = data_parallel(step_fn, mesh)
+        metrics = []
+        for _ in range(3):
+            params, m = step(params, torch.tensor(x), torch.tensor(y))
+            metrics.append({k: float(v) for k, v in m.items()})
+        whole = [{k: None if v is None else _np(
+            M.unshard(v, specs[i][k], mesh) if any(specs[i][k]) else v)
+            for k, v in state.items()} for i, state in enumerate(params)]
+        out[name] = {"state": whole, "metrics": metrics,
+                     "specs": [{k: list(v) for k, v in s.items()}
+                               for s in specs]}
+    return out
+
+
+def case_fused_topology_change(inputs):
+    """``test_fused_parallel.py:201``: the lowered params placed over
+    data 4 (``fsdp_rules`` at 64 elements), gathered whole, then placed
+    over data 2 (the first two ranks): the whole tree and this rank's
+    slices under each mesh."""
+    from veles_tpu_torch.parallel import mesh as M
+    from veles_tpu_torch.parallel.dp import fsdp_rules, shard_params
+    from veles_tpu_torch.znicz.fused_graph import (_leaf_spec, lower_specs,
+                                                   to_tensors)
+    params, _s, _e, _a = lower_specs(
+        [dict(s) for s in inputs["rules_specs"]],
+        (inputs["rules_x"].shape[1],))
+    out = {}
+    for name, axes in (("data4", {"data": 4}), ("data2", {"data": 2})):
+        mesh = M.make_mesh(axes)
+        rules = fsdp_rules(mesh, min_elements=64)
+        specs = [{k: _leaf_spec(rules, v) for k, v in state.items()}
+                 for state in params]
+        placed = to_tensors(shard_params(params, mesh, param_rules=rules),
+                            "cpu")
+        out[name] = {"local": [{k: None if v is None else _np(v)
+                                for k, v in state.items()}
+                               for state in placed]}
+        if mesh.coords is not None:
+            out[name]["whole"] = [
+                {k: None if v is None else _np(
+                    M.unshard(v, specs[i][k], mesh) if any(specs[i][k])
+                    else v) for k, v in state.items()}
+                for i, state in enumerate(placed)]
+    return out
+
+
 def case_fused_dp_step(inputs):
     """One fused DP step of the lowered specs on every rank of the world
     (``data`` = the world), each rank its rows of the global batch."""
@@ -338,9 +468,482 @@ def case_fused_dp_step(inputs):
             "metrics": {k: float(v) for k, v in m.items()}}
 
 
+# -- the pod (veles_tpu_torch.pod) --------------------------------------------
+
+def _pod_weights(wf):
+    """The forwards' weights and biases and the GD units' momenta (the
+    Vectors a unit has)."""
+    vecs = [vec for fwd in wf.forwards for vec in (fwd.weights, fwd.bias)]
+    vecs += [vec for gd in wf.gds
+             for vec in (gd.gradient_weights, gd.gradient_bias)]
+    out = []
+    for vec in vecs:
+        if vec:
+            vec.map_read()
+            out.append(numpy.array(vec.mem))
+    return out
+
+
+def _pod_run(epochs, topology=None, install=True, scan="off", health="off",
+             param_rules=None, hook=None, layers=None, batch=64, make=None):
+    """The pod's seeded task (or ``make(max_epochs, batch)``'s workflow)
+    trained ``epochs`` epochs under a PodRuntime (``install=False``: the
+    single-device stitched run): eval metrics, weights and momenta, the
+    pod's report, the collectives by kind and the segments'
+    dispatches."""
+    from veles_tpu_torch import prof, trace
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import mesh_from_topology
+    from veles_tpu_torch.pod import PodRuntime, eval_metrics, train_epochs
+    from veles_tpu_torch.pod.__main__ import make_workflow
+    from veles_tpu_torch.watch import health as watch_health
+    eng = root.common.engine
+    eng.epoch_scan, eng.health, eng.trace = scan, health, "on"
+    trace.configure()
+    trace.recorder.clear()
+    if make is None:
+        wf = make_workflow(max_epochs=epochs, device="cpu", layers=layers,
+                           batch=batch)
+    else:
+        wf = make(epochs, batch)
+    pod = None
+    if install:
+        rules = param_rules(mesh_from_topology(topology)) \
+            if param_rules else None
+        pod = PodRuntime(wf, mesh=mesh_from_topology(topology),
+                         param_rules=rules).install()
+    comm.reset_counts()
+    recompiles = prof.ledger.recompiles
+    done = []
+    for epoch in train_epochs(wf, epochs):
+        done.append(epoch)
+        if hook is not None:
+            hook(wf, pod, epoch)
+    out = {"metrics": eval_metrics(wf), "epochs_run": done,
+           "collectives": {k: int(comm.counts[k]) for k in comm.KINDS},
+           "dispatches": trace.recorder.count("segment", "dispatch"),
+           "recompiles": prof.ledger.recompiles - recompiles,
+           "health": watch_health.monitor.snapshot() if health != "off"
+           else None,
+           "scan": wf.epoch_scan_report()}
+    if pod is not None:
+        out["pod"] = pod.describe()
+        out["lanes"] = sorted({ev[5] for ev in trace.recorder.events()
+                               if ev[1:3] == ("pod", "shard_dispatch")})
+        out["ledger"] = [
+            {"name": e.name, "shards": e.shards,
+             "bytes": e.collective_bytes, "dispatches": e.dispatches,
+             "steps": e.steps}
+            for e in prof.ledger.entries("segment")]
+        out["reshard_instants"] = trace.recorder.count("pod", "reshard")
+        out["stall_instants"] = trace.recorder.count("jobs",
+                                                     "heartbeat_stall")
+    if pod is None or not pod.left:
+        out["weights"] = _pod_weights(wf)
+    eng.epoch_scan, eng.health, eng.trace = "off", "off", "off"
+    trace.configure()
+    return out
+
+
+def case_pod(inputs):
+    """The pod over every rank of the world (data axis), per step."""
+    return _pod_run(inputs["pod_epochs"])
+
+
+#: a minibatch of 40 over 4 ranks, 10 rows each: the last train
+#: minibatch of the pod's task has 24 rows (rank 2 serves 4, rank 3
+#: padding only), the last validation minibatch 8 (ranks 1-3 padding)
+TAIL_BATCH = 40
+
+
+def case_pod_tail(inputs):
+    """The pod's task at :data:`TAIL_BATCH`: short tails in both
+    classes."""
+    return _pod_run(inputs["pod_epochs"], batch=TAIL_BATCH)
+
+
+#: the regression stack of the MSE tail case
+MSE_LAYERS = [
+    {"type": "all2all_tanh", "->": {"output_sample_shape": 8},
+     "<-": {"learning_rate": 0.05, "gradient_moment": 0.9}},
+    {"type": "all2all", "->": {"output_sample_shape": 4},
+     "<-": {"learning_rate": 0.05}}]
+
+
+def _mse_tail_workflow(epochs, batch):
+    """A seeded regression task with short tails at a minibatch of 40:
+    252 train rows (the last minibatch 12: rank 1 serves 2, ranks 2 and
+    3 padding) and 68 validation rows (the last 28: rank 3 padding), 16
+    features, targets ``tanh(x[:, :4] / 2)``."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoaderMSE
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+
+    class TailMSELoader(FullBatchLoaderMSE):
+        def load_data(self):
+            rng = numpy.random.default_rng(3)
+            data = rng.standard_normal((320, 16)).astype(numpy.float32)
+            self.original_data.mem = data
+            self.original_targets.mem = numpy.tanh(
+                data[:, :4] * 0.5).astype(numpy.float32)
+            self.class_lengths[:] = [0, 68, 252]
+
+    prng.seed_all(5)
+    wf = StandardWorkflow(
+        None, loader_factory=lambda w: TailMSELoader(
+            w, minibatch_size=batch),
+        layers=[dict(spec) for spec in MSE_LAYERS], loss_function="mse",
+        decision_config={"max_epochs": epochs})
+    wf.launcher = DummyLauncher()
+    wf.initialize(device=make_device("cpu"))
+    return wf
+
+
+def case_pod_mse_tail(inputs):
+    """The MSE evaluator over the pod with short tails, beside the
+    single-device stitched run."""
+    epochs = inputs["pod_epochs"]
+    return {"reference": _pod_run(epochs, install=False, batch=TAIL_BATCH,
+                                  make=_mse_tail_workflow),
+            "pod": _pod_run(epochs, batch=TAIL_BATCH,
+                            make=_mse_tail_workflow)}
+
+
+def case_pod_reference(inputs):
+    """The single-device stitched run and the pod over a one-rank
+    group, in one process."""
+    return {"reference": _pod_run(inputs["pod_epochs"], install=False),
+            "pod": _pod_run(inputs["pod_epochs"])}
+
+
+def case_pod_windows(inputs):
+    """The pod's epoch-scan windows with health on, and the per-step pod
+    route with health on."""
+    return {"windows": _pod_run(inputs["pod_epochs"], scan="auto",
+                                health="on"),
+            "steps": _pod_run(inputs["pod_epochs"], health="on")}
+
+
+#: a stack whose backward is the VJP family: rprop_all2all trains through
+#: GDRProp, a GDViaVJP, which sums its gradients over the data group
+VJP_LAYERS = [
+    {"type": "rprop_all2all", "->": {"output_sample_shape": 12}},
+    {"type": "activation_tanh"},
+    {"type": "softmax", "->": {"output_sample_shape": 5},
+     "<-": {"learning_rate": 0.05}}]
+
+
+def case_pod_vjp(inputs):
+    """The VJP family under the pod (each rank its rows, the summed
+    gradients all-reduced) beside the single-device run."""
+    return {"reference": _pod_run(inputs["pod_epochs"], install=False,
+                                  layers=VJP_LAYERS),
+            "pod": _pod_run(inputs["pod_epochs"], layers=VJP_LAYERS)}
+
+
+def case_pod_fsdp(inputs):
+    """The pod with every parameter leaf of at least 16 elements
+    sharded over the data axis (fsdp_rules)."""
+    from veles_tpu_torch.parallel.dp import fsdp_rules
+    return _pod_run(inputs["pod_epochs"], param_rules=lambda mesh:
+                    fsdp_rules(mesh, min_elements=16))
+
+
+def case_pod_serve(inputs):
+    """``InferenceEngine`` over the world's data mesh (``test_pod.py:
+    422``): the seeded task trained one epoch, served plain, over the
+    mesh replicated, over the mesh with the 2-d weights whose last dim
+    divides by the world column-sharded, and over a one-rank mesh."""
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from veles_tpu_torch.pod import train_epochs
+    from veles_tpu_torch.pod.__main__ import make_workflow
+    from veles_tpu_torch.serve.engine import InferenceEngine
+    wf = make_workflow(max_epochs=1, device="cpu")
+    for _ in train_epochs(wf, 1):
+        pass
+    batch = inputs["serve_batch"]
+    mesh = make_mesh({"data": -1})
+
+    def rule(leaf):
+        shape = numpy.shape(leaf)
+        if len(shape) == 2 and shape[-1] % mesh.size == 0:
+            return (None, "data")
+        return None
+    out = {}
+    for name, kwargs in (("plain", {}), ("sharded", {"mesh": mesh}),
+                         ("tp", {"mesh": mesh, "param_specs": rule}),
+                         ("fallback", {"mesh": Mesh({"data": 1},
+                                                    world_size=1)})):
+        comm.reset_counts()
+        engine = InferenceEngine.from_workflow(wf, max_batch_size=8,
+                                               device="cpu", **kwargs)
+        engine.warmup()
+        out[name] = {"y": engine.infer(batch),
+                     "mesh": None if engine.mesh is None
+                     else dict(engine.mesh.shape),
+                     "sharded": engine.describe()["sharded"],
+                     "gathers": int(comm.counts["all_gather"])}
+    return out
+
+
+def case_multihost_poll(inputs):
+    """``MultiHostPod.poll`` over the world: host "b" falls silent on the
+    coordinator's clock; its verdict reaches every rank, which reshards
+    together (the last rank leaves)."""
+    from veles_tpu_torch.pod import MultiHostPod
+    from veles_tpu_torch.pod.__main__ import make_workflow
+    wf = make_workflow(max_epochs=1, device="cpu")
+    pod = MultiHostPod(wf, heartbeat_timeout=5.0).install()
+    before = pod.runtime.shards
+    pod.beat("a", now=100.0)
+    pod.beat("b", now=100.0)
+    pod.beat("a", now=110.0)
+    lost = pod.poll(now=110.0)
+    return {"before": before, "lost": lost, "shards": pod.runtime.shards,
+            "left": pod.runtime.left,
+            "generation": pod.runtime.generation,
+            "processes": pod.process_count}
+
+
+def case_multihost_self_beats(inputs):
+    """``MultiHostPod.beat()`` with no host on every rank: each process
+    beats only itself, the beats reach the coordinator at each poll, and
+    the last process falls silent after the first poll; the second poll
+    declares it lost on every rank, which reshards together (the last
+    rank leaves)."""
+    import torch.distributed as dist
+    from veles_tpu_torch.pod import MultiHostPod
+    from veles_tpu_torch.pod.__main__ import make_workflow
+    wf = make_workflow(max_epochs=1, device="cpu")
+    pod = MultiHostPod(wf, heartbeat_timeout=5.0).install()
+    last = pod.process_count - 1
+    pod.beat(now=100.0)
+    first = pod.poll(now=100.0)
+    if dist.get_rank() != last:
+        pod.beat(now=110.0)
+    lost = pod.poll(now=110.0)
+    return {"first": first, "lost": lost, "shards": pod.runtime.shards,
+            "left": pod.runtime.left,
+            "generation": pod.runtime.generation,
+            "stalls": pod.detector.stalls,
+            "hosts": pod.detector.hosts()}
+
+
+def case_vector_sharding(inputs):
+    """``Vector.set_sharding`` over the data axis of the world: the
+    device holds the rank's rows, ``shape`` stays global, a host read
+    gathers, and a replicated or cleared placement keeps the values."""
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.memory import Vector
+    from veles_tpu_torch.parallel.mesh import Sharding, make_mesh
+    mesh = make_mesh({"data": -1})
+    vec = Vector(numpy.arange(64, dtype=numpy.float32))
+    vec.initialize(make_device("cpu"))
+    vec.devmem
+    vec.set_sharding(Sharding(mesh, ("data",)))
+    out = {"local": [int(v) for v in vec.devmem.tolist()],
+           "shape": list(vec.shape)}
+    vec.devmem.add_(0)
+    vec.devmem = vec.devmem                     # the device is fresher
+    vec.map_read()
+    out["gathered"] = [int(v) for v in vec.mem]
+    vec.set_sharding(Sharding(mesh, ()))
+    out["replicated"] = [int(v) for v in vec.devmem.tolist()]
+    vec.set_sharding(None)
+    out["cleared"] = [int(v) for v in vec.devmem.tolist()]
+    out["sharding_after"] = vec.sharding
+    return out
+
+
+def case_pod_reshard(inputs, scan="off", param_rules=None):
+    """A heartbeat-silent host after the second epoch: the detector
+    reshards the pod 4 -> 2 (the windows invalidated), ranks 2 and 3
+    leave and the survivors finish the run."""
+    from veles_tpu_torch.pod import DeviceLossDetector
+    clock = {"now": 100.0}
+    state = {}
+
+    def hook(wf, pod, epoch):
+        if epoch != 2:
+            return
+        det = DeviceLossDetector(pod, timeout=5.0, devices_per_host=1,
+                                 clock=lambda: clock["now"])
+        for host in range(4):
+            det.beat("host-%d" % host)
+        clock["now"] += 10.0
+        for host in range(3):
+            det.beat("host-%d" % host)        # host-3 falls silent
+        state["lost"] = det.poll()
+        state["stalls"] = det.stalls
+        state["after"] = det.poll()
+    out = _pod_run(inputs["pod_epochs"], scan=scan, hook=hook,
+                   param_rules=param_rules)
+    out.update(state)
+    return out
+
+
+def case_pod_reshard_fsdp(inputs):
+    """:func:`case_pod_reshard` with every leaf of 16 elements or more
+    sharded over the data axis: the reshard gathers them over the old
+    mesh and cuts the new mesh's slices."""
+    from veles_tpu_torch.parallel.dp import fsdp_rules
+    return case_pod_reshard(inputs, param_rules=lambda mesh: fsdp_rules(
+        mesh, min_elements=16))
+
+
+def case_pod_reshard_windows(inputs):
+    """:func:`case_pod_reshard` under epoch-scan windows."""
+    return case_pod_reshard(inputs, scan="auto")
+
+
+# -- checkpoints across rank counts -----------------------------------------
+
+def _ckpt_mesh_state(mesh, specs):
+    """The JAX test's state (``w`` = arange(64) 8x8, ``vw`` zeros,
+    ``step_scale`` 0.5) with ``w`` / ``vw`` held as this rank's slices
+    under ``specs``."""
+    import torch
+    from veles_tpu_torch.checkpoint import ShardedLeaf
+    from veles_tpu_torch.parallel.mesh import Sharding, shard
+    full = {"w": numpy.arange(64, dtype=numpy.float32).reshape(8, 8),
+            "vw": numpy.zeros((8, 8), numpy.float32)}
+    state = {name: ShardedLeaf(torch.tensor(numpy.ascontiguousarray(shard(
+        full[name], specs[name], mesh))), Sharding(mesh, specs[name]))
+        for name in full}
+    state["step_scale"] = numpy.float32(0.5)
+    return state
+
+
+def _fsdp_pod_workflow(epochs):
+    from veles_tpu_torch.parallel.dp import fsdp_rules
+    from veles_tpu_torch.parallel.mesh import mesh_from_topology
+    from veles_tpu_torch.pod import PodRuntime
+    from veles_tpu_torch.pod.__main__ import make_workflow
+    wf = make_workflow(max_epochs=epochs, device="cpu")
+    mesh = mesh_from_topology(None)
+    pod = PodRuntime(wf, mesh=mesh, param_rules=fsdp_rules(
+        mesh, min_elements=16)).install()
+    return wf, pod
+
+
+def case_ckpt_save(inputs):
+    """Save the sharded JAX-test state (step 1) and the train state of
+    the seeded task after one epoch of an fsdp pod (step 2)."""
+    from veles_tpu_torch.checkpoint import TrainCheckpointer
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    from veles_tpu_torch.pod import train_epochs
+    mesh = make_mesh({"data": -1})
+    ckpt = TrainCheckpointer(inputs["ckpt_dir"])
+    ckpt.save(1, _ckpt_mesh_state(mesh, {"w": ("data", None),
+                                         "vw": ("data", None)}),
+              loader_state={"epoch": 2, "offset": 40})
+    wf, _pod = _fsdp_pod_workflow(1)
+    for _ in train_epochs(wf, 1):
+        pass
+    train, meta = wf.capture_train_state()
+    ckpt.save(2, train, meta)
+    return {"train": train}
+
+
+def case_ckpt_restore(inputs):
+    """Restore step 1 onto ``w`` sharded by rows and ``vw`` by columns
+    of this world's data axis, and step 2 into a fresh fsdp pod's
+    workflow; the train state read back whole."""
+    from veles_tpu_torch.checkpoint import ArraySpec, TrainCheckpointer
+    from veles_tpu_torch.parallel.mesh import Sharding, make_mesh, unshard
+    mesh = make_mesh({"data": -1})
+    ckpt = TrainCheckpointer(inputs["ckpt_dir"])
+    specs = {"w": ("data", None), "vw": (None, "data")}
+    abstract = {name: ArraySpec((8, 8), numpy.float32, "cpu",
+                                Sharding(mesh, spec))
+                for name, spec in specs.items()}
+    abstract["step_scale"] = ArraySpec((), numpy.float32, None)
+    step, restored, loader = ckpt.restore(abstract, step=1)
+    out = {"step": step, "loader": loader,
+           "local": {n: _np(restored[n]) for n in specs},
+           "whole": {n: _np(unshard(restored[n], specs[n], mesh))
+                     for n in specs},
+           "step_scale": float(restored["step_scale"])}
+    wf, pod = _fsdp_pod_workflow(1)
+    abstract_train, _meta = wf.capture_train_state()
+    step, train, meta = ckpt.restore(abstract_train, step=2)
+    wf.restore_train_state(train, meta)
+    out["restored_units"] = sorted(train)
+    out["train"], _m = wf.capture_train_state()
+    out["shards"] = pod.shards
+    out["sharded_leaves"] = sum(1 for vec in pod._sharded_vecs
+                                if vec.category == "params")
+    return out
+
+
+# -- the tensor-parallel generative engine ------------------------------------
+
+def _gen_run(engine, workload, sequential=False):
+    from veles_tpu_torch.gen import GenerativeScheduler
+    scheduler = GenerativeScheduler(engine)
+    out = []
+    if sequential:
+        for toks, max_new in workload:
+            future = scheduler.submit(toks, max_new)
+            scheduler.run_until_idle()
+            out.append(future.result(0))
+        return out
+    futures = [scheduler.submit(toks, max_new) for toks, max_new in workload]
+    scheduler.run_until_idle()
+    return [f.result(0) for f in futures]
+
+
+def case_gen_tp(inputs):
+    """The TINY generative engine over ``{"model": world}``, contiguous
+    and paged, continuous and sequential; the attention kernels' head
+    counts and the all-reduces; then a 2-layer f32 prefill's logits."""
+    import torch
+    from veles_tpu_torch.gen import GenerativeEngine, TransformerGenModel
+    from veles_tpu_torch.ops import attention
+    from veles_tpu_torch.parallel import comm
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    cfg, workload = inputs["gen_cfg"], inputs["gen_workload"]
+    mesh = make_mesh({"model": -1})
+    out = {}
+    for kv in ("contiguous", "paged"):
+        options = {"kv": kv, "block_size": 8} if kv == "paged" else {}
+        runs = {}
+        for mode in ("continuous", "sequential"):
+            comm.reset_counts()
+            engine = GenerativeEngine(
+                TransformerGenModel(cfg, device="cpu"), max_slots=2,
+                max_seq=48, prefill_buckets=(8, 16), seed=0, device="cpu",
+                mesh=mesh, **options)
+            engine.warmup()
+            runs[mode] = _gen_run(engine, workload,
+                                  sequential=mode == "sequential")
+            runs[mode + "_all_reduce"] = int(comm.counts["all_reduce"])
+            runs["describe"] = {k: v for k, v in engine.describe().items()
+                                if k in ("sharded", "mesh", "local_heads",
+                                         "kv_cache_bytes")}
+            runs["cache_heads"] = int(engine._cache["k"].shape[3])
+            engine.close()
+        out[kv] = runs
+    # the logits of one prefill, f32, 2 layers
+    small = dict(cfg, layers=2)
+    model = TransformerGenModel(small, device="cpu").shard(
+        mesh.index("model"), mesh.shape["model"], mesh.group("model"))
+    tokens = torch.tensor(inputs["gen_workload"][0][0], dtype=torch.long)
+    out["logits"] = _np(model.calibration_logits(
+        model.shard_params(model.init_params(seed=1)), tokens))
+    out["local_heads"] = model.heads
+    return out
+
+
 def case_imports(inputs):
     """The modules a rank loaded: no JAX, no ``veles_tpu``."""
     import veles_tpu_torch.parallel  # noqa: F401
+    import veles_tpu_torch.pod  # noqa: F401
+    import veles_tpu_torch.pod.__main__  # noqa: F401
     import veles_tpu_torch.samples.moe  # noqa: F401
     import veles_tpu_torch.scripts.spmd_launch  # noqa: F401
     return sorted(m for m in sys.modules if m == "jax"

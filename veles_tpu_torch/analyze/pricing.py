@@ -4,8 +4,11 @@ params tree, over the card that is present.
 The port's counterpart of :mod:`veles_tpu.analyze.pricing`, trimmed to
 the four functions rule V-S01 prices a generative deploy with
 (:func:`veles_tpu_torch.analyze.shapes.check_generative`).  The pod
-residency, the collective byte formulas and the planner's helpers wait
-for ROADMAP item 7(e).  Pure host arithmetic: no kernel, no copy.
+residency and the planner's helpers wait for ROADMAP item 7(e), with
+the JAX collective byte formulas, which price the gradient all-reduce
+GSPMD derives: the port's pod issues other collectives and counts what
+they move where it issues them (:mod:`veles_tpu_torch.parallel.comm`).
+Pure host arithmetic: no kernel, no copy.
 """
 
 import torch

@@ -22,9 +22,20 @@ format of its own:
 ``restore(abstract, step)`` places each leaf as the matching leaf of
 ``abstract`` says, as Orbax restores onto the shardings it is given: a
 torch tensor (its dtype and device), a numpy array (its dtype, on the
-host) or an :class:`ArraySpec` ``(shape, dtype, device)``.  Restoring
-onto another rank count than the save's needs ``torch.distributed`` and
-waits for ROADMAP item 7(d).
+host), an :class:`ArraySpec` ``(shape, dtype, device[, sharding])`` or a
+:class:`ShardedLeaf`.
+
+Across ranks: a leaf of the saved tree may be a :class:`ShardedLeaf`
+(this rank's slice and its
+:class:`~veles_tpu_torch.parallel.mesh.Sharding`), which the save
+gathers over the spec's groups; a workflow's ``capture_train_state``
+gathers its sharded Vectors itself (``Vector.map_read``).  Every rank of
+the default group calls ``save`` in the same order, rank 0 writes the
+step and the others wait for its commit.  The step records the rank
+count, and any rank count restores it: an abstract leaf with a sharding
+gets this rank's slice of the whole array under the new mesh, so a
+train state saved by N ranks restores on M (a pod re-shards the
+restored Vectors by its own rules when they upload).
 """
 
 import collections
@@ -39,8 +50,15 @@ from veles_tpu_torch import prng
 from veles_tpu_torch.logger import Logger
 
 #: an abstract leaf: the counterpart of ``jax.ShapeDtypeStruct``
-#: (``dtype`` a numpy or torch dtype; ``device`` None restores numpy)
-ArraySpec = collections.namedtuple("ArraySpec", "shape dtype device")
+#: (``dtype`` a numpy or torch dtype; ``device`` None restores numpy;
+#: ``sharding`` a mesh Sharding restores this rank's slice)
+ArraySpec = collections.namedtuple("ArraySpec", "shape dtype device sharding",
+                                   defaults=(None,))
+
+#: a leaf held as this rank's slice of a global array (``tensor``) under
+#: ``sharding`` (a :class:`veles_tpu_torch.parallel.mesh.Sharding`):
+#: saved whole, restored as the slice of the same placement
+ShardedLeaf = collections.namedtuple("ShardedLeaf", "tensor sharding")
 
 _TRAIN_FILE = "train.npz"
 _META_FILE = "meta.json"
@@ -54,12 +72,26 @@ def _world_size():
     return 1
 
 
+def _rank():
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def _barrier():
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _flatten(tree, prefix=""):
     """``{path: leaf}`` of a tree of dicts, lists and tuples."""
     if isinstance(tree, dict):
         items = [(str(k), v) for k, v in tree.items()]
-    elif isinstance(tree, (list, tuple)) and not isinstance(tree,
-                                                            ArraySpec):
+    elif isinstance(tree, (list, tuple)) and not isinstance(
+            tree, (ArraySpec, ShardedLeaf)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
         return {prefix: tree}
@@ -80,7 +112,7 @@ def _unflatten(abstract, leaves, prefix=""):
                               else str(k))
                 for k, v in abstract.items()}
     if isinstance(abstract, (list, tuple)) and not isinstance(
-            abstract, ArraySpec):
+            abstract, (ArraySpec, ShardedLeaf)):
         seq = [_unflatten(v, leaves, "%s/%d" % (prefix, i) if prefix
                           else str(i))
                for i, v in enumerate(abstract)]
@@ -89,6 +121,10 @@ def _unflatten(abstract, leaves, prefix=""):
 
 
 def _host_array(leaf):
+    if isinstance(leaf, ShardedLeaf):
+        from veles_tpu_torch.parallel.mesh import unshard
+        leaf = unshard(leaf.tensor.detach(), leaf.sharding.spec,
+                       leaf.sharding.mesh)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return numpy.asarray(leaf)
@@ -101,23 +137,47 @@ def _torch_dtype(dtype):
 
 
 def _place(array, like):
-    """``array`` as the abstract leaf ``like`` places it."""
+    """``array`` as the abstract leaf ``like`` places it (a sharded
+    one: this rank's slice of it)."""
+    sharding = None
+    if isinstance(like, ShardedLeaf):
+        sharding, tensor = like.sharding, like.tensor
+        if tuple(array.shape) != tuple(_global_shape(tensor, sharding)):
+            raise ValueError("checkpoint leaf of shape %s, the abstract "
+                             "leaf's is %s" % (array.shape, tuple(
+                                 _global_shape(tensor, sharding))))
+        return ShardedLeaf(_place(array, ArraySpec(
+            array.shape, tensor.dtype, tensor.device, sharding)), sharding)
     if isinstance(like, torch.Tensor):
         shape, dtype, device = tuple(like.shape), like.dtype, like.device
     elif isinstance(like, ArraySpec):
         shape, dtype, device = tuple(like.shape), like.dtype, like.device
+        sharding = like.sharding
     else:
         like = numpy.asarray(like)
         shape, dtype, device = like.shape, like.dtype, None
     if tuple(array.shape) != tuple(shape):
         raise ValueError("checkpoint leaf of shape %s, the abstract "
                          "leaf's is %s" % (array.shape, tuple(shape)))
+    if sharding is not None:
+        from veles_tpu_torch.parallel.mesh import shard
+        array = numpy.ascontiguousarray(shard(array, sharding.spec,
+                                              sharding.mesh))
     if device is None:
         if isinstance(dtype, torch.dtype):
             return torch.from_numpy(array).to(dtype).numpy()
         return array.astype(dtype, copy=False)
     return torch.from_numpy(array).to(device=device,
                                       dtype=_torch_dtype(dtype))
+
+
+def _global_shape(tensor, sharding):
+    """The whole array's shape of a slice under ``sharding``."""
+    from veles_tpu_torch.parallel.mesh import _axes_of
+    shape = list(tensor.shape)
+    for dim, entry in enumerate(sharding.spec):
+        shape[dim] *= sharding.mesh.axis_size(*_axes_of(entry))
+    return tuple(shape)
 
 
 class TrainCheckpointer(Logger):
@@ -160,7 +220,9 @@ class TrainCheckpointer(Logger):
 
     # -- the api ------------------------------------------------------------------
     def save(self, step, train_state, loader_state=None):
-        """Write and commit the checkpoint of ``step``."""
+        """Write and commit the checkpoint of ``step`` (every rank calls
+        it: the sharded leaves are gathered, rank 0 writes, the others
+        wait for its commit)."""
         final = self._step_dir(step)
         if os.path.exists(final):
             raise FileExistsError("step %d is already checkpointed in %s"
@@ -175,6 +237,15 @@ class TrainCheckpointer(Logger):
         meta = {"loader": loader_state or {},
                 "prng": self._prng_states(),
                 "world_size": _world_size()}
+        if _rank() != 0:
+            _barrier()
+            return
+        try:
+            self._commit(step, final, arrays, meta)
+        finally:
+            _barrier()
+
+    def _commit(self, step, final, arrays, meta):
         tmp = os.path.join(self.directory,
                            "%s%d-%d" % (_TMP_PREFIX, step, os.getpid()))
         shutil.rmtree(tmp, ignore_errors=True)
@@ -207,13 +278,6 @@ class TrainCheckpointer(Logger):
                                     % (step, self.directory))
         with open(os.path.join(folder, _META_FILE)) as fin:
             meta = _dejsonify(json.load(fin))
-        saved_ranks = int(meta.get("world_size", 1))
-        if saved_ranks != _world_size():
-            raise NotImplementedError(
-                "step %d was saved by %d rank(s) and is restored by %d: "
-                "restoring onto another rank count needs "
-                "torch.distributed and is not ported yet (ROADMAP item "
-                "7(d))" % (step, saved_ranks, _world_size()))
         with numpy.load(os.path.join(folder, _TRAIN_FILE),
                         allow_pickle=False) as archive:
             saved = {name: archive[name] for name in archive.files}
@@ -225,7 +289,9 @@ class TrainCheckpointer(Logger):
 
         train = _unflatten(abstract_train_state, leaf)
         self._restore_prng(meta.get("prng"))
-        self.info("restored step %d from %s", step, self.directory)
+        self.info("restored step %d (saved by %d rank(s)) from %s on %d "
+                  "rank(s)", step, int(meta.get("world_size", 1)),
+                  self.directory, _world_size())
         return step, train, meta.get("loader", {})
 
     def close(self):

@@ -62,9 +62,18 @@ updates, so the last step's counts see any earlier one), and the
 monitor observes K steps at the window boundary, where ``strict``
 checks.
 
-Not ported: the pod shardings and the chaos ``pod_chip`` site (ROADMAP
-item 7(d)) and ``run_smoke``'s analyzer check
-``scan_epoch_scan_hazards`` (item 7(e)).
+Over a pod (:class:`veles_tpu_torch.pod.runtime.PodRuntime`) a window
+replays, on every rank, the stages the pod rewrote for it, with their
+collectives inside the graph; the pod's ``pre_dispatch`` is asked once
+a window, the window's ledger entry carries the pod's ``shards`` and
+each window the per-step ``collective_bytes`` times its K, and a reshard drops
+every window graph (:meth:`EpochScanRunner.invalidate_programs`), so
+the next window of each key runs eagerly on the new mesh and captures
+once.
+
+Not ported: the chaos ``pod_chip`` site the pod's ``pre_dispatch``
+stands for and ``run_smoke``'s analyzer check ``scan_epoch_scan_hazards``
+(item 7(e)).
 """
 
 import torch
@@ -447,6 +456,9 @@ class EpochScanRunner(Logger):
         s = self._structure
         seg1, seg2 = s["seg1"], s["seg2"]
         decision, loader = s["decision"], s["loader"]
+        if seg1.pod is not None:
+            # the pod's pre-dispatch site, once a window
+            seg1.pod.pre_dispatch(seg1)
         with trace.span("segment", "window_serve"):
             loader.scan_window_step()
             cls = int(loader.minibatch_class)
@@ -472,6 +484,8 @@ class EpochScanRunner(Logger):
                    and decision.scan_verdict_ready(cls))
         program = self._program_for(train, k, verdict)
         entry, graph = program.entry, program.graph
+        pod = seg1.pod
+        entry.shards = pod.shards if pod is not None else 1
         with trace.span("segment", "dispatch", program.trace_args):
             preds = decision.predicate_scalars(cls, k, samples) \
                 if verdict else None
@@ -483,13 +497,19 @@ class EpochScanRunner(Logger):
                     rows, decision.scan_prior(cls), preds, timer)
             # one step's cost: the tally of the K steps over K
             step_cost = tally.cost(scale=k)
+            moved = 0
+            if pod is not None:
+                # the stages counted their collectives as they ran
+                for segment in (seg1, seg2) if train else (seg1,):
+                    moved += k * pod.segment_collective_bytes(segment)
             if graph.captures != captures:
                 record_compile(entry, step_cost, program.trace_args,
                                steady=captures > 0, logger=self)
             elif program.device.type != "cuda" and program.runs == 1:
                 record_compile(entry, step_cost, program.trace_args)
             prof.ledger.record_dispatch(entry, timer, steps=k,
-                                        cost=step_cost if eager else None)
+                                        cost=step_cost if eager else None,
+                                        collective_bytes=moved)
             for vec in plan.out_vecs + plan.don_vecs:
                 vec.devmem = vec.devmem     # the device copy is fresh
             for (unit, name), value in zip(plan.metric_spec, lasts):

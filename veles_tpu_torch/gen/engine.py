@@ -21,11 +21,19 @@ The JAX engine compiles one program per shape ahead of time; PyTorch
 runs eagerly, so :meth:`warmup` instead builds the CUDA kernels and runs
 each entry point once.  Not ported here, each raising
 ``NotImplementedError`` naming its ROADMAP item: the fleet page handoff
-(``warm_handoff``, ``export_slot``, ``adopt_sequence``: item 7) and a
-tensor-parallel mesh (item 7(d), its second part).  int8 weights (W8A16) come in as a
-quantized params tree or through :meth:`GenerativeEngine.quantize_int8`
-before warmup, and every entry point serves them through the qmatmul
-kernel.
+(``warm_handoff``, ``export_slot``, ``adopt_sequence``: item 7(e), behind
+the job protocol).  int8 weights (W8A16) come in as a quantized params
+tree or through :meth:`GenerativeEngine.quantize_int8` before warmup, and
+every entry point serves them through the qmatmul kernel.
+
+``mesh``: a :class:`~veles_tpu_torch.parallel.mesh.Mesh` whose ``model``
+axis is wider than 1 makes this rank's engine a model shard
+(:meth:`TransformerGenModel.shard`): its heads of the params and of the
+KV cache or block pool, the attention kernels on the local heads, the
+``wo`` / ``w2`` partials all-reduced over the axis; every rank of the
+axis serves the same requests in lockstep.  A mesh without such an axis
+is the single-device path.  An axis that does not divide the heads, and
+int8 params with a mesh, raise ``ValueError``, as in the JAX package.
 
 Each program has a performance-ledger entry (:mod:`veles_tpu_torch.prof`):
 ``prefill`` entries for every prefill bucket (``p<bucket>``) and the
@@ -202,8 +210,13 @@ class GenerativeEngine(Logger):
             raise ValueError(
                 "max_seq %d out of range (2..%d, the model's "
                 "positional table)" % (self.max_seq, model.seq_limit))
-        if mesh is not None:
-            _not_ported("a tensor-parallel mesh", "7(d)")
+        # a mesh without a >1 model axis IS the single-device path
+        self.mesh = mesh if (mesh is not None and
+                             mesh.shape.get("model", 1) > 1) else None
+        if self.mesh is not None and \
+                model.heads % self.mesh.shape["model"]:
+            raise ValueError("model axis %d does not divide %d heads"
+                             % (self.mesh.shape["model"], model.heads))
 
         gen_cfg = root.common.gen
         self.kv_mode = str(kv or gen_cfg.get("kv", "contiguous"))
@@ -293,6 +306,18 @@ class GenerativeEngine(Logger):
         #: the constructor or made by quantize_int8()); None = float
         self.quantized = "int8" if quant.tree_is_quantized(params) \
             else None
+        if self.quantized and self.mesh is not None:
+            raise ValueError(
+                "int8-quantized params cannot shard over a model-axis mesh "
+                "yet - serve the quantized deploy replicated (or keep the "
+                "TP deploy float)")
+        if self.mesh is not None:
+            # this rank's model shard: its heads of everything
+            model = model.shard(self.mesh.index("model"),
+                                self.mesh.shape["model"],
+                                self.mesh.group("model"))
+            self.model = model
+            params = model.shard_params(params)
         #: the float params as given (held by reference until warmup()
         #: or quantize_int8()): quantize_int8() quantizes these, as the
         #: JAX engine quantizes its float32 masters, and not the served
@@ -399,6 +424,10 @@ class GenerativeEngine(Logger):
                 "quantize_int8 must run before warmup() and any served "
                 "step: the JAX package would recompile every program in "
                 "steady state")
+        if self.mesh is not None:
+            raise ValueError(
+                "int8-quantized params cannot shard over a model-axis mesh "
+                "yet - serve the quantized deploy replicated")
         if self.quantized:
             return self
         qparams = quant.quantize_gen_params(
@@ -502,7 +531,7 @@ class GenerativeEngine(Logger):
                                     cost=tally.cost())
 
     def warm_handoff(self):
-        _not_ported("the fleet page handoff (warm_handoff)", 7)
+        _not_ported("the fleet page handoff (warm_handoff)", "7(e)")
 
     # -- slot accounting ---------------------------------------------------
     def bucket_for(self, n):
@@ -937,12 +966,12 @@ class GenerativeEngine(Logger):
                       sum(len(tokens) for tokens in results.values()))
         return results
 
-    # -- the fleet page handoff (item 7) -----------------------------------
+    # -- the fleet page handoff (item 7(e)) --------------------------------
     def export_slot(self, slot):
-        _not_ported("the fleet page handoff (export_slot)", 7)
+        _not_ported("the fleet page handoff (export_slot)", "7(e)")
 
     def adopt_sequence(self, payload):
-        _not_ported("the fleet page handoff (adopt_sequence)", 7)
+        _not_ported("the fleet page handoff (adopt_sequence)", "7(e)")
 
     # -- lifecycle / introspection -----------------------------------------
     @property
@@ -1018,7 +1047,11 @@ class GenerativeEngine(Logger):
             "hbm_per_request_bytes": self.hbm_per_request_bytes(),
             "prefix_cache": "on" if self.prefix_cache else "off",
             "speculative": self.speculative or "off",
+            "sharded": self.mesh is not None,
         }
+        if self.mesh is not None:
+            info["mesh"] = dict(self.mesh.shape)
+            info["local_heads"] = self.model.heads
         if self.speculative:
             info.update({
                 "draft_k": self.draft_k,

@@ -47,6 +47,19 @@ pair (:mod:`veles_tpu_torch.quant`) runs its product through
 card: four per layer when all four are quantized, the MLP's bias and
 gelu in the epilogues); every other block product is a plain
 ``torch.matmul``.
+
+Tensor parallelism (:meth:`TransformerGenModel.shard`): a model shard
+``r`` of ``m`` over a ``model`` axis holds the JAX specs' slices
+(:meth:`~TransformerGenModel.param_specs`: ``wqkv`` and its heads, ``w1``
+/ ``b1`` column-parallel, ``wo`` and ``w2`` row-parallel, the rest
+replicated) and its heads of the KV cache or the block pool
+(:meth:`~TransformerGenModel.cache_spec`; the block tables stay
+replicated), so the attention kernels run on ``heads / m`` heads.  The
+row-parallel ``wo`` and ``w2`` products give float32 partials, which
+the shard's group sums (``torch.distributed`` ranks, or
+:class:`VirtualShards` on one device, in rank order) before the one
+rounding to the compute type a single product makes; ``b2`` is added
+after the sum.
 """
 
 import numpy
@@ -66,6 +79,62 @@ from veles_tpu_torch.samples.transformer import _layernorm, init_params
 
 #: block weights whose matmul operands are cast to ``compute_dtype``
 _MATMUL_LEAVES = ("wqkv", "wo", "w1", "b1", "w2", "b2")
+
+#: the block leaves a model shard slices, and the dim (of the stacked
+#: leaf) it slices: the heads of wqkv [L, d, 3, h, dh] and wo [L, h, dh,
+#: d], the hidden units of w1 [L, d, f], b1 [L, f] and w2 [L, f, d]
+TP_DIMS = {"wqkv": 3, "wo": 1, "w1": 2, "b1": 1, "w2": 1}
+
+
+class VirtualShards(object):
+    """The group of ``size`` model shards run by threads of one process
+    on one device: :meth:`all_reduce` returns, to every shard, the sum of
+    the shards' tensors in rank order (where a rank's all-reduce would
+    go), and :meth:`run` runs ``fn(rank)`` on every shard at once."""
+
+    def __init__(self, size):
+        import threading
+        self.size = int(size)
+        self._parts = [None] * self.size
+        self._sum = None
+        self._barrier = threading.Barrier(self.size)
+        #: the sums made, as a group's all-reduce count
+        self.reductions = 0
+
+    def all_reduce(self, tensor, rank):
+        self._parts[rank] = tensor
+        self._barrier.wait()
+        if rank == 0:
+            total = self._parts[0]
+            for part in self._parts[1:]:
+                total = total + part
+            self._sum = total
+            self.reductions += 1
+        self._barrier.wait()
+        out = self._sum
+        self._barrier.wait()
+        return out
+
+    def run(self, fn):
+        """``[fn(rank) for rank]``, every rank in its own thread."""
+        import threading
+        results, errors = [None] * self.size, []
+
+        def body(rank):
+            try:
+                results[rank] = fn(rank)
+            except BaseException as exc:  # pragma: no cover - re-raised
+                errors.append(exc)
+                self._barrier.abort()
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.size)]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join()
+        if errors:
+            raise errors[0]
+        return results
 
 
 def params_from_numpy(tree, device, dtype=torch.float32):
@@ -136,6 +205,92 @@ class TransformerGenModel(object):
         self.seq_limit = int(cfg["seq_len"])
         self.compute_dtype = compute_dtype or torch.float32
         self.device = resolve_device(device)
+        #: a model shard's place: (rank, size, group) over the model
+        #: axis; None for the whole model
+        self.tp = None
+
+    # -- tensor parallelism ------------------------------------------------
+    def shard(self, rank, size, group):
+        """Model shard ``rank`` of ``size`` (see the module): the same
+        model over ``heads / size`` heads, summing its row-parallel
+        partials over ``group`` (a ``comm.Group`` or a
+        :class:`VirtualShards`).  Raises ``ValueError`` when the axis
+        does not divide the heads."""
+        import copy
+        if self.heads % int(size):
+            raise ValueError("model axis %d does not divide %d heads"
+                             % (size, self.heads))
+        part = copy.copy(self)
+        part.cfg = dict(self.cfg)
+        part.heads = self.heads // int(size)
+        part.tp = (int(rank), int(size), group)
+        return part
+
+    def param_specs(self):
+        """The spec tree (tuples, as ``P(...)``) of :meth:`init_params`
+        over a ``model`` axis: the JAX model's Megatron column -> row
+        pairs (:data:`TP_DIMS`), everything else replicated."""
+        from veles_tpu_torch.parallel.tp import shard_dim
+
+        def walk(tree):
+            return {key: walk(leaf) if isinstance(leaf, dict)
+                    else (shard_dim(numpy.ndim(leaf), TP_DIMS[key])
+                          if key in TP_DIMS else ())
+                    for key, leaf in tree.items()}
+        return walk(self.init_params(seed=0))
+
+    def cache_spec(self):
+        """The KV cache sharded over heads (dim 3 of [L, slots, S, h,
+        dh])."""
+        spec = (None, None, None, "model", None)
+        return {"k": spec, "v": spec}
+
+    def paged_cache_spec(self):
+        """The block pool sharded over heads (dim 3 of [L, num_blocks,
+        BS, h, dh]); the block tables stay replicated."""
+        return self.cache_spec()
+
+    def shard_params(self, params):
+        """This shard's slices of a whole params tree (numpy or torch
+        leaves), as :meth:`param_specs` lays them out."""
+        if self.tp is None:
+            return params
+        rank, size, _group = self.tp
+        blocks = {}
+        for key, leaf in params["blocks"].items():
+            dim = TP_DIMS.get(key)
+            if dim is None:
+                blocks[key] = leaf
+                continue
+            step = leaf.shape[dim] // size
+            cut = [slice(None)] * dim + [slice(rank * step,
+                                               (rank + 1) * step)]
+            part = leaf[tuple(cut)]
+            blocks[key] = part.contiguous() \
+                if isinstance(part, torch.Tensor) \
+                else numpy.ascontiguousarray(part)
+        return dict(params, blocks=blocks)
+
+    def _tp_sum(self, partial):
+        """A row-parallel product's float32 partial summed over the
+        shard's group."""
+        rank, _size, group = self.tp
+        if isinstance(group, VirtualShards):
+            return group.all_reduce(partial, rank)
+        from veles_tpu_torch.parallel.comm import all_reduce
+        return all_reduce(partial, group)
+
+    def _mm_partial(self, x2, leaf, nc):
+        """A row-parallel block product's partial in float32 (its
+        operands exact in float32), for :meth:`_tp_sum`."""
+        k = 1
+        for dim in leaf.shape[:nc]:
+            k *= int(dim)
+        w = leaf.to(x2.dtype).reshape(k, -1)
+        y = x2.float() @ w.float()
+        cost.add(cost.product(y.shape[0], y.shape[1], k),
+                 cost.nbytes(x2, w, y))
+        return y
 
     # -- params / cache ----------------------------------------------------
     def init_params(self, seed=0):
@@ -252,14 +407,24 @@ class TransformerGenModel(object):
             if cache is not None:
                 kc, vc = cache["k"][i], cache["v"][i]
             att = kv_hook(kc, vc, q, k, v)
-            proj = self._mm(att.reshape(b_ * s_, -1).to(cd), blk["wo"], 2)
+            if self.tp is None:
+                proj = self._mm(att.reshape(b_ * s_, -1).to(cd),
+                                blk["wo"], 2)
+            else:
+                # the heads' partials summed, then rounded once
+                proj = self._tp_sum(self._mm_partial(
+                    att.reshape(b_ * s_, -1).to(cd), blk["wo"], 2)).to(cd)
             h = h + proj.reshape(b_, s_, -1).to(h.dtype)
             x = _layernorm(h, blk["ln2_g"], blk["ln2_b"])
             # bias + gelu ride the up-projection's epilogue, the bias the
             # down-projection's
             up = self._mm(x.reshape(b_ * s_, -1).to(cd), blk["w1"], 1,
                           bias=blk["b1"].to(cd), gelu=True)
-            down = self._mm(up, blk["w2"], 1, bias=blk["b2"].to(cd))
+            if self.tp is None:
+                down = self._mm(up, blk["w2"], 1, bias=blk["b2"].to(cd))
+            else:
+                down = self._tp_sum(self._mm_partial(
+                    up, blk["w2"], 1)).to(cd) + blk["b2"].to(cd)
             h = h + down.reshape(b_, s_, -1).to(h.dtype)
         return _layernorm(h, params["lnf_g"], params["lnf_b"])
 

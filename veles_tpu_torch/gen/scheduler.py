@@ -314,10 +314,10 @@ class GenerativeScheduler(Logger):
         return request.future
 
     def submit_handoff(self, payload, request):
-        _not_ported("the fleet page handoff (submit_handoff)", "7(d)")
+        _not_ported("the fleet page handoff (submit_handoff)", "7(e)")
 
     def drain(self, timeout=30.0):
-        _not_ported("the fleet drain", "7(d)")
+        _not_ported("the fleet drain", "7(e)")
 
     def generate(self, tokens, max_new_tokens=16, timeout=120.0,
                  on_token=None):

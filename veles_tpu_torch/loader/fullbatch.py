@@ -40,7 +40,10 @@ own program, from ``minibatch_indices`` and the resident tables.
 
 An epoch-scan window (:mod:`veles_tpu_torch.epoch_scan`) replays the
 head's served launch once a step, each time with its own row of the
-window's stacked scalar block.  :class:`FullBatchLoaderMSE` adds the
+window's stacked scalar block.  The head stage's ``shard(first, rows)``
+is the same launch over rows ``[first, first + rows)`` of each minibatch
+(a pod rank's, :mod:`veles_tpu_torch.pod.runtime`): the offset moved by
+``first``, the size clamped to the rank's rows.  :class:`FullBatchLoaderMSE` adds the
 regression targets, a raw float32 table padded with 0 that rides in the
 same launch on both routes.  The slave half of the job protocol
 (``prefetch_job_data``, ``apply_data_from_master``) waits for ROADMAP
@@ -226,13 +229,22 @@ class FullBatchLoader(Loader):
         norm = self._input_norm_dev_ if self.native_device_dtype else None
         count = int(self.max_minibatch_size)
 
-        def fn(t):
-            rows = take_rows_served(
-                [(t["src_" + name], norm if norm is not None
-                  and name == "minibatch_data" else pad)
-                 for name, pad in pads.items()],
-                t["indices"], t["offset"], t["size"], count)
-            return dict(zip(pads, rows))
+        def served(first, rows):
+            def fn(t):
+                offset, size = t["offset"], t["size"]
+                if first:
+                    # a pod rank's rows of the minibatch: the same
+                    # shuffled buffer from its own offset, the short
+                    # tail's rows past the size padded
+                    offset = offset + first
+                    size = (size - first).clamp(0, rows)
+                out = take_rows_served(
+                    [(t["src_" + name], norm if norm is not None
+                      and name == "minibatch_data" else pad)
+                     for name, pad in pads.items()],
+                    t["indices"], offset, size, rows)
+                return dict(zip(pads, out))
+            return fn
 
         params = {"indices": self.shuffled_indices}
         produces = {}
@@ -241,7 +253,8 @@ class FullBatchLoader(Loader):
             produces[name] = out_vec
         loader = self
         return StitchStage(
-            self, fn, produces=produces, params=params,
+            self, served(0, count), produces=produces, params=params,
+            shard=served,
             scalars=lambda: {
                 "offset": int(loader.minibatch_offset
                               - loader.minibatch_size),

@@ -25,6 +25,14 @@ and a published tensor of the same shape and type is copied into it.
 ``bind`` rebinds unconditionally: a segment binds the Vectors it
 produces to its graph's outputs once.
 
+A pod (:mod:`veles_tpu_torch.pod`) pins a Vector's placement over its
+mesh with :meth:`Vector.set_sharding` (a
+:class:`~veles_tpu_torch.parallel.mesh.Sharding`): the device then holds
+this rank's slice under the spec (the whole array when the spec
+replicates), ``shape`` stays the global one, and ``map_read`` gathers
+the slices back over the spec's groups, a collective every rank of the
+mesh makes in the same order.
+
 A ``Vector`` pickles its host numpy array and its category only: the
 pickle first waits for the device and brings a fresher device copy to
 the host (the graphs write the weights on the device in place), and
@@ -186,6 +194,9 @@ class Vector(object):
         self.category = category
         #: writes go into the bound device tensor (a graph reads it)
         self.keep_address = False
+        #: the pinned placement over a pod's mesh (None: the whole
+        #: array on the attached device)
+        self._sharding = None
         if data is not None:
             self.reset(data)
 
@@ -203,7 +214,18 @@ class Vector(object):
         return self
 
     def _ref(self):
+        if self._sharding is not None and self._mem is not None:
+            return self._mem            # the device holds a slice
         return self._devmem if self._devmem is not None else self._mem
+
+    @property
+    def nbytes(self):
+        """The bytes of the whole array (its global shape), read without
+        a copy."""
+        shape, dtype = self.shape, self.dtype
+        if shape is None or dtype is None:
+            return 0
+        return int(numpy.prod(shape, dtype=numpy.int64)) * dtype.itemsize
 
     @property
     def shape(self):
@@ -258,14 +280,15 @@ class Vector(object):
             if self._device is None:
                 raise ValueError("Vector is attached to no device: "
                                  "initialize(device) it first")
+            host = self._placed_host()
             inplace = (self.keep_address and self._devmem is not None
-                       and _same_layout(self._devmem, self._mem.shape,
-                                        self._mem.dtype))
+                       and _same_layout(self._devmem, host.shape,
+                                        host.dtype))
             if inplace:
-                self._device.put_into(self._devmem, self._mem)
+                self._device.put_into(self._devmem, host)
             else:
-                self._set_devmem(self._device.put(self._mem))
-            Watcher.track_h2d(self._mem.nbytes, inplace=inplace)
+                self._set_devmem(self._device.put(host))
+            Watcher.track_h2d(host.nbytes, inplace=inplace)
             self._dev_fresh = True
         return self._devmem
 
@@ -317,12 +340,57 @@ class Vector(object):
 
     def map_read(self):
         """Bring the host copy up to date (a device→host copy when the
-        device holds newer data)."""
+        device holds newer data; a sharded Vector gathers its slices
+        first)."""
         if not self._host_fresh and self._devmem is not None:
-            self._mem = self._device.get(self._devmem)
+            dev = self._devmem
+            if self._sharding is not None:
+                from veles_tpu_torch.parallel.mesh import unshard
+                dev = unshard(dev, self._sharding.spec,
+                              self._sharding.mesh)
+            self._mem = self._device.get(dev)
             self._host_fresh = True
             Watcher.track_d2h(self._mem.nbytes)
         return self
+
+    # -- pod placement --------------------------------------------------------
+    @property
+    def sharding(self):
+        """The pinned placement over a pod's mesh (None: the whole array
+        on the attached device)."""
+        return self._sharding
+
+    def set_sharding(self, sharding, keep=True):
+        """Pin (or clear, with None) this Vector's placement: a
+        :class:`~veles_tpu_torch.parallel.mesh.Sharding`.  With ``keep``
+        the freshest contents are preserved (a newer device copy is
+        read back to the host first, gathered under the old placement);
+        ``keep=False`` drops a device copy unread (a staging buffer the
+        next step rewrites).  The next ``devmem`` uploads this rank's
+        slice under the new spec.  No-op when the placement is
+        unchanged."""
+        old = self._sharding
+        if sharding is old or (
+                sharding is not None and old is not None
+                and sharding.mesh is old.mesh and sharding.spec == old.spec):
+            return self
+        if keep and self._devmem is not None:
+            self.map_read()
+        elif self._devmem is not None and not self._host_fresh:
+            self._host_fresh = True     # unread: the host copy stands
+        self._sharding = sharding
+        self._drop_devmem()
+        self._dev_fresh = False
+        return self
+
+    def _placed_host(self):
+        """The host array this rank's device copy holds: the whole array,
+        or its slice under the pinned spec."""
+        if self._sharding is None:
+            return self._mem
+        from veles_tpu_torch.parallel.mesh import shard
+        return numpy.ascontiguousarray(shard(
+            self._mem, self._sharding.spec, self._sharding.mesh))
 
     def map_write(self):
         """Declare an in-place edit of the host copy: the next

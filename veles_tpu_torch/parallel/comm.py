@@ -14,6 +14,10 @@ port issues them itself, each through one wrapper here that adds one to
   rank's: the ring attention's hops and the pipeline's ticks),
 - ``all_gather`` (:func:`all_gather`: ``mesh.unshard``).
 
+Each wrapper also adds the payload it moves to :data:`bytes_moved`, by
+kind: the reduced tensor, the gathered result, the exchanged tensor,
+the tensors a ring shift sends.
+
 A group is a :class:`Group`: the ``ProcessGroup`` and its global ranks
 in group order.  A collective on a one-rank group is still issued (the
 card's one-rank NCCL group runs them), except a ring shift, which has
@@ -27,13 +31,27 @@ import torch.distributed as dist
 
 #: collectives issued since the last :func:`reset_counts`, by kind
 counts = collections.Counter()
+#: their payload bytes since the last :func:`reset_counts`, by kind
+bytes_moved = collections.Counter()
 KINDS = ("all_reduce", "all_to_all", "ring_shift", "all_gather")
 
 
 def reset_counts():
     counts.clear()
+    bytes_moved.clear()
     for kind in KINDS:
         counts[kind] = 0
+        bytes_moved[kind] = 0
+
+
+def total_bytes():
+    """The payload bytes of every collective since the last
+    :func:`reset_counts`."""
+    return sum(bytes_moved.values())
+
+
+def _nbytes(tensor):
+    return tensor.numel() * tensor.element_size()
 
 
 reset_counts()
@@ -64,6 +82,7 @@ def all_reduce(tensor, group, op="sum"):
     reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     dist.all_reduce(tensor, op=reduce_op, group=group.pg)
     counts["all_reduce"] += 1
+    bytes_moved["all_reduce"] += _nbytes(tensor)
     return tensor
 
 
@@ -78,6 +97,7 @@ def all_to_all(tensor, group):
     out = torch.empty_like(tensor)
     dist.all_to_all_single(out, tensor, group=group.pg)
     counts["all_to_all"] += 1
+    bytes_moved["all_to_all"] += _nbytes(tensor)
     return out
 
 
@@ -97,6 +117,7 @@ def ring_shift(tensors, group, offset=1):
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     counts["ring_shift"] += 1
+    bytes_moved["ring_shift"] += sum(_nbytes(t) for t in tensors)
     return received
 
 
@@ -106,7 +127,9 @@ def all_gather(tensor, group, dim=0):
     parts = [torch.empty_like(tensor) for _ in range(group.size)]
     dist.all_gather(parts, tensor, group=group.pg)
     counts["all_gather"] += 1
-    return torch.cat(parts, dim)
+    out = torch.cat(parts, dim)
+    bytes_moved["all_gather"] += _nbytes(out)
+    return out
 
 
 # -- autograd functions -----------------------------------------------------

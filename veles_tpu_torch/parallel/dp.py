@@ -13,23 +13,20 @@ without being sent.
 
 :func:`tp_rules`, :func:`fsdp_rules`, :func:`pp_rules` and
 :func:`ep_rules` give the JAX rules' specs (tuples, as ``P(...)``) for
-the same shapes; :func:`shard_params` cuts each rank's slices.  Training
-over sharded parameters (``param_rules`` in the step functions) is part
-2 of ROADMAP item 7(d).
+the same shapes; :func:`shard_params` cuts each rank's slices.  Over
+sharded parameters the step itself carries the layout (``lower_specs(...,
+param_rules=rules, mesh=mesh)``: it gathers, reduces and runs
+column-parallel inside), so :func:`data_parallel` and
+:func:`data_parallel_epoch` take ``param_rules`` for the JAX signature
+and only cut the rows; the params given are the rank's slices
+(:func:`shard_params`).  A pod (:mod:`veles_tpu_torch.pod`) takes the
+same rules.
 """
 
 import numpy
 import torch
 
 from veles_tpu_torch.parallel.mesh import shard
-
-
-def _refuse_rules(param_rules):
-    if param_rules is not None:
-        raise NotImplementedError(
-            "data parallelism over sharded parameters (param_rules: the "
-            "fsdp / tp layouts) is not ported yet (ROADMAP item 7(d), "
-            "part 2)")
 
 
 def _rows(mesh, batch_axis, n):
@@ -48,9 +45,10 @@ def data_parallel(step_fn, mesh, params_example=None, donate_params=True,
     """``step(params, x, labels) -> (params, metrics)`` over the mesh:
     ``x``/``labels`` are the GLOBAL minibatch on every rank, each rank
     runs ``step_fn`` (a ``grad_reduce_axis=batch_axis`` lowering) on its
-    contiguous rows; params are replicated and updated in place."""
-    del params_example, donate_params
-    _refuse_rules(param_rules)
+    contiguous rows; params are updated in place (replicated, or the
+    rank's slices under the ``param_rules`` the step was lowered
+    with)."""
+    del params_example, donate_params, param_rules
 
     def step(params, x, labels):
         start, stop = _rows(mesh, batch_axis, x.shape[0])
@@ -157,8 +155,7 @@ def data_parallel_epoch(step_fn, mesh, params_example, n_samples, batch,
     .fused_graph.epoch_indices` from ``generator``), and each rank runs
     its contiguous columns of every minibatch.  The dataset is resident
     whole on every rank (the JAX function shards it and gathers)."""
-    del params_example
-    _refuse_rules(param_rules)
+    del params_example, param_rules
     from veles_tpu_torch.znicz.fused_graph import epoch_indices, run_steps
     start, stop = _rows(mesh, batch_axis, batch)
 

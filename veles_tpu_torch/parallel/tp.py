@@ -11,9 +11,32 @@ pair a column → row pair of products.  A spec is a tuple, as ``P(...)``
 is (:mod:`veles_tpu_torch.parallel.mesh`).
 """
 
+import torch
+
 from veles_tpu_torch.parallel.comm import (  # noqa: F401 - exported
-    copy_to_group, reduce_from_group)
+    all_gather, copy_to_group, reduce_from_group)
 from veles_tpu_torch.parallel.mesh import Sharding, _axes_of
+
+
+class _GatherColumns(torch.autograd.Function):
+    """A column-parallel product's output made whole: forward an
+    all-gather of the last dim over the group, backward this rank's
+    columns of the gradient (every rank computes the same gradient of
+    the whole output downstream)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        return all_gather(x, group, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        first = ctx.group.index * ctx.width
+        return grad[..., first:first + ctx.width].contiguous(), None
+
+
+def gather_columns(x, group):
+    return _GatherColumns.apply(x, group)
 
 
 def shard_dim(ndim, dim, axis="model"):

@@ -174,7 +174,7 @@ class LedgerEntry(object):
     __slots__ = ("kind", "name", "device", "cost", "compiles",
                  "recompiles", "dispatches", "_dispatch_ns",
                  "flops_dispatched", "items", "steps", "peak_dtype",
-                 "_pending", "_lock")
+                 "shards", "collective_bytes", "_pending", "_lock")
 
     def __init__(self, kind, name, device=None):
         self.kind = kind            # "segment" | "bucket" | "prefill"
@@ -201,6 +201,12 @@ class LedgerEntry(object):
         self.steps = 0
         #: MFU-denominator type (None: the session's bf16 rate)
         self.peak_dtype = None
+        #: ranks running this program in lockstep (1: one device; a pod
+        #: sets it at install and at a reshard)
+        self.shards = 1
+        #: the collective payload bytes of the recorded dispatches (a
+        #: pod segment's, as its stages counted them)
+        self.collective_bytes = 0
 
     @property
     def dispatch_ns(self):
@@ -302,6 +308,12 @@ class LedgerEntry(object):
             row["steps"] = self.steps
             row["steps_per_dispatch"] = round(
                 self.steps / self.dispatches, 2) if self.dispatches else 0
+        if self.shards > 1 or self.collective_bytes:
+            row["shards"] = self.shards
+            row["collective_bytes"] = self.collective_bytes
+            row["collective_bytes_per_dispatch"] = round(
+                self.collective_bytes / self.dispatches, 1) \
+                if self.dispatches else 0
         return row
 
 
@@ -350,16 +362,20 @@ class PerfLedger(object):
                 self.recompiles += 1
         return steady
 
-    def record_dispatch(self, entry, dur, items=0, steps=0, cost=None):
+    def record_dispatch(self, entry, dur, items=0, steps=0, cost=None,
+                        collective_bytes=0):
         """One dispatch on ``entry``: integer adds (one dispatching
         thread an entry; its time goes in under the entry's lock).  ``dur``: nanoseconds or a
         :class:`DispatchTimer`; ``items``: work units this dispatch
         served (tokens); ``steps``: steps this one dispatch covered (a
         window's K; the entry's per-step flops scale by it); ``cost``:
         this dispatch's own cost (an eager step's tally), which becomes
-        the entry's."""
+        the entry's; ``collective_bytes``: the payload bytes of the
+        dispatch's collectives (a pod segment's)."""
         if cost is not None:
             entry.cost = cost
+        if collective_bytes:
+            entry.collective_bytes += int(collective_bytes)
         entry.dispatches += 1
         entry.add_time(dur)
         if items:
@@ -570,6 +586,18 @@ def report_text(summary_dict=None):
         lines.append("")
         lines.append("stitched segments and windows (per step):")
         lines.extend(render_rows(segments, peak))
+        pod_rows = [r for r in segments if r.get("shards", 1) > 1
+                    or r.get("collective_bytes")]
+        if pod_rows:
+            # the pod line: the programs running over N ranks, with
+            # the payload of their collectives beside the clocks
+            shards = max(r.get("shards", 1) for r in pod_rows)
+            moved = sum(r.get("collective_bytes", 0) for r in pod_rows)
+            dispatches = sum(r["dispatches"] for r in pod_rows) or 1
+            lines.append(
+                "  pod: %d shard(s) in lockstep, %s of collectives "
+                "(%s/dispatch)" % (shards, _fmt_bytes(moved),
+                                   _fmt_bytes(moved / dispatches)))
     if buckets:
         lines.append("")
         lines.append("serve buckets (per call):")

@@ -96,7 +96,8 @@ def synthetic_imagenet_batch(batch, seed=0, shape=INPUT_SHAPE):
 
 
 def build_fused(mesh=None, layers=None, input_shape=INPUT_SHAPE,
-                compute_dtype=None, device=None, remat=False, grad_accum=1):
+                compute_dtype=None, device=None, remat=False, grad_accum=1,
+                fsdp=False):
     """``(params, step, eval, apply)``: the lowered stack's parameters as
     tensors on ``device`` (the card when None; raises without one), its
     train step as a :class:`~veles_tpu_torch.znicz.fused_unit.GraphStep`
@@ -105,15 +106,27 @@ def build_fused(mesh=None, layers=None, input_shape=INPUT_SHAPE,
     "bfloat16"``: bf16 products with f32 master weights.  With ``mesh``
     the step takes the GLOBAL batch on every rank and trains on the
     rank's rows of it (:func:`veles_tpu_torch.parallel.dp
-    .data_parallel`)."""
+    .data_parallel`); ``fsdp=True`` also stores every leaf of
+    :func:`~veles_tpu_torch.parallel.dp.fsdp_rules` as the rank's slice
+    over the data axis (the returned params are the slices)."""
     from veles_tpu_torch.backends import resolve_device
     from veles_tpu_torch.znicz.fused_graph import lower_specs, to_tensors
     from veles_tpu_torch.znicz.fused_unit import GraphStep, warm_up_group
     device = resolve_device(device)
+    rules = None
+    if fsdp:
+        if mesh is None:
+            raise ValueError("fsdp shards over a mesh: pass mesh too")
+        from veles_tpu_torch.parallel.dp import fsdp_rules
+        rules = fsdp_rules(mesh)
     params, step_fn, eval_fn, apply_fn = lower_specs(
         layers or LAYERS, input_shape, compute_dtype=compute_dtype,
         remat=remat, grad_accum=grad_accum,
-        grad_reduce_axis="data" if mesh is not None else None, mesh=mesh)
+        grad_reduce_axis="data" if mesh is not None else None, mesh=mesh,
+        param_rules=rules)
+    if rules is not None:
+        from veles_tpu_torch.parallel.dp import shard_params
+        params = shard_params(params, mesh, param_rules=rules)
     if mesh is not None:
         from veles_tpu_torch.parallel.dp import data_parallel
         step_fn = data_parallel(step_fn, mesh)

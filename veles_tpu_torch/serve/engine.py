@@ -35,8 +35,16 @@ the eager forward over the padded batch, counted once per bucket.
 arrays only, so it loads anywhere, and the engine places its params on
 its own device (the card unless ``device="cpu"``).
 
-Not ported, raising ``NotImplementedError`` naming its ROADMAP item: a
-mesh or ``param_specs`` (item 7(d)).
+``mesh`` / ``param_specs``: the mesh-sharded forward.  Every rank of a
+:class:`~veles_tpu_torch.parallel.mesh.Mesh` (over ``torch.distributed``'s
+default group) serves the same request batches in lockstep, as the JAX
+engine replicates them; ``param_specs`` (a spec tree matching the params
+tree, or a callable ``leaf -> spec or None`` such as
+:func:`veles_tpu_torch.parallel.dp.tp_rules`; None replicates) stores
+each leaf it shards as this rank's slice, which the forward all-gathers
+before use, inside the bucket's graph.  A None mesh, or one of a single
+rank, is the transparent fallback: the single-device path, with no
+wrapper at all.
 """
 
 import contextlib
@@ -52,7 +60,6 @@ from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.memory import Watcher
 from veles_tpu_torch.ops import cost
-from veles_tpu_torch.samples.transformer import _not_ported
 
 #: per-process engine sequence for performance-ledger entry names
 _ENGINE_SEQ = itertools.count()
@@ -186,10 +193,12 @@ class InferenceEngine(Logger):
                  mesh=None, param_specs=None, quant_axes=None,
                  device=None, **kwargs):
         super(InferenceEngine, self).__init__(**kwargs)
-        if mesh is not None or param_specs is not None:
-            _not_ported("InferenceEngine over a mesh (mesh, "
-                        "param_specs)", "7(d)")
         self.device = resolve_device(device)
+        # a mesh of one rank IS the single-device path
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        #: each leaf's spec over the mesh, in _leaves order (None: the
+        #: single-device path)
+        self._specs = self._leaf_specs(params, param_specs)
         self._on_card = self.device.type == "cuda"
         #: per-stage quantization axes ({"w": (axis,)}), from each
         #: unit's ``weights_transposed``
@@ -207,13 +216,14 @@ class InferenceEngine(Logger):
                 "largest bucket %d must equal max_batch_size %d"
                 % (self.buckets[-1], self.max_batch_size))
         self.params_source = params_source
-        self._apply = apply_fn
+        self._apply = apply_fn if self._specs is None \
+            else self._sharded_apply(apply_fn)
         #: the engine's lock and (on the card) its one stream
         self._lock = threading.RLock()
         self._stream = torch.cuda.Stream(self.device) if self._on_card \
             else None
         with self._on_stream():
-            self._params = _device_tree(params, self.device)
+            self._params = _device_tree(self._placed(params), self.device)
         #: "int8" after quantize_int8() (or for constructor-injected
         #: quantized params); None = float
         self.quantized = "int8" if quant.tree_is_quantized(params) \
@@ -321,6 +331,68 @@ class InferenceEngine(Logger):
                 "cannot infer sample_shape from the forward chain — "
                 "pass sample_shape=(...) explicitly")
         return shape
+
+    # -- sharding -----------------------------------------------------------
+    def _leaf_specs(self, params, param_specs):
+        """``[spec]`` of each leaf (``_leaves`` order) over the mesh, or
+        None on the single-device path."""
+        if self.mesh is None:
+            return None
+        leaves = _leaves(params)
+        if param_specs is None:
+            return [()] * len(leaves)
+        if callable(param_specs):
+            specs = []
+            for _path, leaf in leaves:
+                spec = param_specs(leaf) if numpy.ndim(leaf) else None
+                specs.append(tuple(spec) if spec is not None else ())
+            return specs
+        specs = [tuple(spec or ()) for _p, spec in _leaves(param_specs)]
+        if len(specs) != len(leaves):
+            raise ValueError("param_specs has %d leaves, the params %d"
+                             % (len(specs), len(leaves)))
+        return specs
+
+    def _placed(self, params):
+        """``params`` with each sharded leaf cut to this rank's slice."""
+        if self._specs is None or not any(any(s) for s in self._specs):
+            return params
+        from veles_tpu_torch.parallel.mesh import shard
+        specs = iter(self._specs)
+
+        def walk(node):
+            if isinstance(node, dict):
+                return {key: walk(node[key]) for key in sorted(node)}
+            if isinstance(node, (list, tuple)):
+                return [walk(child) for child in node]
+            spec = next(specs)
+            if not any(spec):
+                return node
+            if isinstance(node, torch.Tensor):
+                node = node.detach().cpu().numpy()
+            return numpy.ascontiguousarray(shard(numpy.asarray(node), spec,
+                                                 self.mesh))
+        return walk(params)
+
+    def _sharded_apply(self, apply_fn):
+        """``apply_fn`` over the whole params: each sharded leaf
+        all-gathered over its spec's axes first."""
+        from veles_tpu_torch.parallel.mesh import unshard
+        engine = self
+
+        def apply(params, x):
+            specs = iter(engine._specs)
+
+            def walk(node):
+                if isinstance(node, dict):
+                    return {key: walk(node[key]) for key in sorted(node)}
+                if isinstance(node, (list, tuple)):
+                    return [walk(child) for child in node]
+                spec = next(specs)
+                return unshard(node, spec, engine.mesh) if any(spec) \
+                    else node
+            return apply_fn(walk(params), x)
+        return apply
 
     # -- the device ---------------------------------------------------------
     def _on_stream(self):
@@ -456,6 +528,10 @@ class InferenceEngine(Logger):
                 "cannot quantize a live (params_source) engine — the "
                 "per-call float refresh would clash with the "
                 "quantized tree; deploy a frozen snapshot instead")
+        if self.mesh is not None:
+            raise ValueError(
+                "int8-quantized params cannot shard over a mesh yet - "
+                "serve the int8 deploy single-device (mesh=None)")
         if self.quantized:
             return self
         tol = quant.DRIFT_TOL if tol is None else tol
@@ -502,7 +578,7 @@ class InferenceEngine(Logger):
             "sample_shape": list(self.sample_shape),
             "quantize": self.quantized,
             "params_bytes": self.params_nbytes,
-            "sharded": False,
+            "sharded": self.mesh is not None,
         }
 
     def close(self):
@@ -518,7 +594,7 @@ class InferenceEngine(Logger):
         """Install new host params (the same tree and shapes): copied
         into the tensors the graphs read, under the engine's lock, so a
         concurrent call sees the old or the new params whole."""
-        new = _leaves(params)
+        new = _leaves(self._placed(params))
         with self._lock, self._on_stream():
             old = _leaves(self._params)
             if [path for path, _ in new] != [path for path, _ in old]:

@@ -588,7 +588,7 @@ class ModelRegistry(Logger):
     def deploy_fleet(self, name, fleet, version=None, source=None):
         """A disaggregated fleet under ``name``."""
         _not_ported("ModelRegistry.deploy_fleet (the disaggregated "
-                    "fleet)", "7(d)")
+                    "fleet, behind the job protocol)", "7(e)")
 
     def generate(self, name, tokens, max_new_tokens=16, timeout=120.0,
                  on_token=None):

@@ -59,7 +59,17 @@ sentinel.  With ``engine.health`` ``on`` or ``strict``,
 segments are built; ``off`` leaves every stage, and so every graph, as
 it is.
 
-Not ported: pod shardings, the AOT ``EnforcedProgram`` (a CUDA graph
+A pod (:class:`veles_tpu_torch.pod.runtime.PodRuntime`) binds itself to
+each segment (``segment.pod``): the segment then calls
+``pod.pre_dispatch(self)`` before it gathers its arguments, its ledger
+entry carries the pod's ``shards`` and each dispatch the payload
+bytes of its collectives (``collective_bytes``), and under a live trace one
+``pod``/``shard_dispatch`` lane a shard mirrors the dispatch.  The pod
+rewrites the stages' functions for its rank (:meth:`StitchSegment
+.invalidate` drops the graph: the next dispatch runs eagerly, which
+also sets up a new group's communicator before a capture).
+
+Not ported: the AOT ``EnforcedProgram`` (a CUDA graph
 replays what it captured; the address check above stands in for its
 signature check), and the JAX package's fallbacks to per-unit dispatch
 when a ``stitch_stage()`` or a segment build raises: here the exception
@@ -107,15 +117,18 @@ class StitchStage(object):
     (optional) declares the stage's training-health statistics:
     ``health(t, out)`` returns ``{"grad_norm", "weight_norm",
     "update_norm"}`` as 0-d tensors, ``t`` holding the donated values
-    from before the update for the names in ``health.reads_before``."""
+    from before the update for the names in ``health.reads_before``.
+    ``shard`` (optional, a loader head's) is ``shard(first, rows)``: the
+    stage function serving only rows ``[first, first + rows)`` of each
+    minibatch, a pod rank's."""
 
     __slots__ = ("unit", "fn", "consumes", "produces", "params",
                  "donated", "scalars", "metrics", "prelude", "health",
-                 "health_spec")
+                 "health_spec", "shard")
 
     def __init__(self, unit, fn, consumes=None, produces=None,
                  params=None, donated=None, scalars=None, metrics=(),
-                 prelude=None, health=None):
+                 prelude=None, health=None, shard=None):
         self.unit = unit
         self.fn = fn
         self.consumes = dict(consumes or {})
@@ -130,6 +143,7 @@ class StitchStage(object):
         self.health = health
         #: the HealthGroup once watch.health instrumented the stage
         self.health_spec = None
+        self.shard = shard
 
     def vectors(self):
         for group in (self.consumes, self.produces, self.params,
@@ -275,6 +289,13 @@ class CapturedGraph(Logger):
         """``{kernel: launches}`` of one replay."""
         return {name: count for _c, name, count in self._launched}
 
+    def drop(self):
+        """Forget the graph: the next replay captures anew (a capture,
+        not a recapture: the program changed, not an address)."""
+        self._graph = None
+        self._ptrs = None
+        self._static = None
+
     def replay(self, body, tensors, labels, on_capture=None, timer=None):
         """Replay the graph of ``body()``, whose inputs and outputs are
         ``tensors`` (``labels`` name them in the log), capturing it
@@ -408,6 +429,12 @@ class StitchSegment(Logger):
         #: dispatch clocks), registered at the first dispatch: a
         #: segment a window always absorbs registers none
         self.prof_entry = None
+        #: the pod runtime bound to this segment (None: one device)
+        self.pod = None
+        #: the next dispatch runs eagerly, and the capture after it is a
+        #: new program's, not a steady-state recompile (set by invalidate)
+        self._eager_next_ = False
+        self._new_program_ = False
 
     @property
     def names(self):
@@ -517,17 +544,26 @@ class StitchSegment(Logger):
         segment: eagerly on the CPU and at the first dispatch on the
         card, as a graph replay after that.  The dispatch lands in the
         ledger and, with health armed, its stats in the monitor."""
+        pod = self.pod
+        if pod is not None:
+            # the pod's pre-dispatch site: a reshard here rewrites this
+            # segment's stages before the arguments are gathered
+            pod.pre_dispatch(self)
         with trace.span("segment", "dispatch", self._trace_args):
+            tic = time.perf_counter_ns()
             for stage in self.stages:
                 if stage.prelude is not None:
                     stage.prelude()
             self._write_scalars()
             tensors = [vec.devmem for vec in self._read_vecs]
-            eager = self.device.type != "cuda" or self.dispatches == 0
+            eager = (self.device.type != "cuda" or self.dispatches == 0
+                     or self._eager_next_)
             if self.prof_entry is None:
                 self.prof_entry = prof.ledger.entry(
                     "segment", "+".join(self.names), self.device.type)
                 self.prof_entry.peak_dtype = PEAK_DTYPE
+                if pod is not None:
+                    self.prof_entry.shards = pod.shards
             captures = self.graph.captures
             timer = prof.DispatchTimer(self.device)
             with cost.Tally() as tally, timer:
@@ -538,14 +574,25 @@ class StitchSegment(Logger):
             if self.graph.captures != captures:
                 # the wrappers ran once, inside the capture
                 record_compile(self.prof_entry, tally.cost(),
-                               self._trace_args, steady=captures > 0,
+                               self._trace_args,
+                               steady=captures > 0 and not self._new_program_,
                                logger=self)
+                self._new_program_ = False
             elif self.device.type != "cuda" and self.dispatches == 0:
                 record_compile(self.prof_entry, tally.cost(),
                                self._trace_args)
             prof.ledger.record_dispatch(
                 self.prof_entry, timer,
-                cost=tally.cost() if eager else None)
+                cost=tally.cost() if eager else None,
+                collective_bytes=pod.segment_collective_bytes(self)
+                if pod else 0)
+            if pod is not None and trace.enabled():
+                # one lane a shard under the pod role, on host clocks
+                toc = time.perf_counter_ns()
+                for shard in range(pod.shards):
+                    trace.complete("pod", "shard_dispatch", tic, toc - tic,
+                                   self._trace_args, role="pod", tid=shard)
+            self._eager_next_ = False
             self.dispatches += 1
             if self._health_groups:
                 # one instrumented dispatch = one train step's stats (a
@@ -590,6 +637,14 @@ class StitchSegment(Logger):
     def detach(self):
         for unit in self.units:
             unit.attach_stitch_segment(None)
+
+    def invalidate(self):
+        """The stages' functions changed (a pod installed, resharded or
+        left): drop the graph, so the next dispatch runs eagerly and the
+        one after captures the new program once."""
+        self.graph.drop()
+        self._eager_next_ = True
+        self._new_program_ = True
 
     def report(self):
         graph = self.graph

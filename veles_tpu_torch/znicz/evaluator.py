@@ -30,10 +30,13 @@ from veles_tpu_torch.accelerated_units import AcceleratedUnit
 from veles_tpu_torch.memory import Vector
 
 
-def _softmax_eval_math(out, labels, max_idx, confusion):
+def _softmax_eval_math(out, labels, max_idx, confusion, group=None):
     """Mirror of ``_softmax_eval_math``: ``(err, n_err, loss,
     confusion)``; ``confusion`` (classes, classes) int64 is updated in
-    place when given."""
+    place when given.  ``group`` (a pod's data group; each rank holds
+    its own rows) sums ``n_err``, the loss's sum and valid rows (one
+    all-reduce) and the confusion counts (another) over the group, so
+    every rank holds the global values."""
     out32 = out.float()
     valid = labels >= 0
     lbl = labels.clamp(min=0).long()
@@ -44,16 +47,29 @@ def _softmax_eval_math(out, labels, max_idx, confusion):
     n_err = ((pred != labels.long()) & valid).sum()
     probs = out32.gather(1, lbl[:, None])[:, 0]
     n_valid = valid.sum()
+    loss_sum = -(torch.log(probs.clamp(min=1e-30)) * valid).sum()
+    if group is not None:
+        from veles_tpu_torch.parallel.comm import all_reduce
+        # counts below 2**24 stay exact in float32
+        sums = all_reduce(torch.stack([loss_sum, n_valid.float(),
+                                       n_err.float()]), group)
+        loss_sum = sums[0]
+        n_valid = sums[1].to(n_valid.dtype)
+        n_err = sums[2].to(n_err.dtype)
     loss = torch.where(
-        n_valid > 0,
-        -(torch.log(probs.clamp(min=1e-30)) * valid).sum()
-        / n_valid.clamp(min=1),
+        n_valid > 0, loss_sum / n_valid.clamp(min=1),
         torch.zeros((), dtype=torch.float32, device=out.device))
     if confusion is not None:
         # integer counts: the order of the adds does not matter
         n = confusion.shape[1]
-        confusion.view(-1).index_add_(0, lbl * n + pred,
+        if group is None:
+            confusion.view(-1).index_add_(0, lbl * n + pred,
+                                          valid.to(confusion.dtype))
+        else:
+            delta = torch.zeros_like(confusion)
+            delta.view(-1).index_add_(0, lbl * n + pred,
                                       valid.to(confusion.dtype))
+            confusion.add_(all_reduce(delta, group))
     return err, n_err, loss, confusion
 
 
@@ -140,6 +156,19 @@ class EvaluatorSoftmax(EvaluatorBase):
             donated={"confusion": self.confusion_matrix},
             metrics=("n_err", "loss"))
 
+    def pod_stage_fn(self, stage, pod):
+        """The stage over a pod rank's rows: the same math with the sums
+        reduced over the data group."""
+        group = pod.group
+
+        def fn(t):
+            err, n_err, loss, cm = _softmax_eval_math(
+                t["output"], t["labels"], t["max_idx"], t["confusion"],
+                group)
+            return {"err_output": err, "n_err": n_err, "loss": loss,
+                    "confusion": cm}
+        return fn
+
 
 class EvaluatorMSE(EvaluatorBase):
     """Mean-squared error against ``target`` (linked from the loader's
@@ -157,20 +186,26 @@ class EvaluatorMSE(EvaluatorBase):
         self.mean = kwargs.get("mean", True)
         self.demand("target")
 
-    def _device_math(self, out, target, batch):
-        """``(err_output, mse)`` for a batch of ``batch`` rows."""
+    def _device_math(self, out, target, batch, first=0, group=None):
+        """``(err_output, mse)`` for a batch of ``batch`` rows; a pod
+        rank passes the index of its first row and the data group, which
+        sums the rows' errors."""
         err, mean_sq_scaled, row_scale, valid = _mse_eval_math(
-            out, target, batch)
+            out, target, batch - first if first else batch)
         if self.root:
             per_sample = row_scale * torch.sqrt(mean_sq_scaled)
         else:
             per_sample = row_scale * row_scale * mean_sq_scaled
         denom = torch.clamp(batch, min=1.0) \
             if isinstance(batch, torch.Tensor) else max(float(batch), 1.0)
-        mse = (per_sample * valid).sum() / denom
+        total = (per_sample * valid).sum()
+        if group is not None:
+            from veles_tpu_torch.parallel.comm import all_reduce
+            total = all_reduce(total.reshape(1), group)[0]
+        mse = total / denom
         if not self.mean:
             err = err * float(self.err_output.shape[0])
-        return err.reshape(self.err_output.shape), mse
+        return err.reshape((err.shape[0],) + self.err_output.shape[1:]), mse
 
     def cuda_run(self):
         err, mse = self._device_math(self.output.devmem,
@@ -201,3 +236,14 @@ class EvaluatorMSE(EvaluatorBase):
             produces={"err_output": self.err_output},
             scalars=lambda: {"batch": float(int(unit.batch_size))},
             metrics=("mse", "n_err"))
+
+    def pod_stage_fn(self, stage, pod):
+        """The stage over a pod rank's rows: its own rows of the batch,
+        the errors summed over the data group."""
+        unit, first, group = self, pod.row_start, pod.group
+
+        def fn(t):
+            err, mse = unit._device_math(t["output"], t["target"],
+                                         t["batch"], first, group)
+            return {"err_output": err, "mse": mse, "n_err": mse}
+        return fn

@@ -40,6 +40,26 @@ is the explicit-collective data parallelism
 and the loss report over that mesh axis and sums ``n_err`` (averages an
 MSE's), one all-reduce of one flat buffer a step, so every rank applies
 the same update.
+
+``param_rules`` (a ``leaf -> spec or None`` rule over ``mesh``:
+``dp.fsdp_rules``, ``dp.tp_rules`` or their merge) lays the step out
+over sharded parameters, each rank holding its slice of every leaf a
+rule shards (:class:`Layout`; the caller shards the returned host
+params with :func:`veles_tpu_torch.parallel.dp.shard_params`):
+
+- a leaf sharded over the data axis (FSDP / ZeRO-3 storage) is
+  all-gathered before use inside the step; its gradient, averaged over
+  the data axis with the others, is cut back to the rank's slice (the
+  reduce-scatter), and the solver updates the slice in place;
+- a fully-connected layer whose weight's last dim (its neurons) is
+  sharded over the ``model`` axis runs column-parallel through
+  :mod:`veles_tpu_torch.parallel.tp`: its input through
+  ``copy_to_group`` (the input gradient all-reduced over the axis), the
+  GEMM kernel's autograd product on the rank's neurons with the
+  matching columns of a replicated bias (whose gradient is summed over
+  the axis), and the output all-gathered over the axis
+  (``gather_columns``; a softmax layer gathers its logits first).  A
+  model-sharded leaf of any other layer is gathered as an FSDP one is.
 """
 
 import numpy
@@ -238,10 +258,107 @@ def _solver_update(state, grads, hyper, policies):
         state["tick"].add_(1)
 
 
+def _leaf_spec(rules, leaf):
+    if rules is None or leaf is None or numpy.ndim(leaf) == 0:
+        return ()
+    spec = rules(leaf)
+    return tuple(spec) if spec is not None else ()
+
+
+class Layout(object):
+    """Where each leaf of a params list lives under ``rules`` over
+    ``mesh`` and how the step uses it (see the module)."""
+
+    def __init__(self, params, configs, rules, mesh, data_axis="data",
+                 model_axis="model"):
+        from veles_tpu_torch.parallel.mesh import shard, unshard
+        self._shard, self._unshard = shard, unshard
+        self.mesh = mesh
+        self.specs = [{k: _leaf_spec(rules, v) for k, v in state.items()}
+                      for state in params]
+        #: None without a model axis, or on a mesh without a group
+        self.model_group = mesh.group(model_axis) \
+            if model_axis in mesh.shape else None
+        self.tp = []
+        self.gather = []
+        for state, specs, config in zip(params, self.specs, configs):
+            w_spec = specs.get("w", ())
+            column = (self.model_group is not None and len(w_spec) == 2
+                      and w_spec[-1] == model_axis
+                      and w_spec[0] in (None, data_axis)
+                      and "is_softmax" in config
+                      and not config.get("transposed"))
+            self.tp.append(column)
+            gather = {}
+            for key, spec in specs.items():
+                if column and key in ("w", "vw", "sw", "b", "vb", "sb") \
+                        and spec and spec[-1] == model_axis:
+                    # the model part stays local: gather the data part
+                    spec = tuple(None if e == model_axis else e
+                                 for e in spec)
+                gather[key] = spec
+            self.gather.append(gather)
+            w = state.get("w")
+            for key in ("vw", "sw"):
+                slot = state.get(key)
+                if slot is not None and w is not None and numpy.shape(
+                        slot) == numpy.shape(w) and specs.get(key, ()) != \
+                        specs.get("w", ()):
+                    raise NotImplementedError(
+                        "param_rules shard %s unlike its weight (%s vs "
+                        "%s): a solver slot laid out apart from its "
+                        "parameter is not ported yet (ROADMAP item "
+                        "7(d))" % (key, specs[key], specs["w"]))
+
+    def sharded(self):
+        return any(any(spec) for specs in self.specs
+                   for spec in specs.values())
+
+    def full(self, i, key, tensor):
+        """The tensor the step uses for layer ``i``'s ``key`` (the whole
+        leaf, but a column-parallel layer's model slice)."""
+        spec = self.gather[i].get(key, ())
+        if tensor is None or not any(spec):
+            return tensor
+        return self._unshard(tensor, spec, self.mesh)
+
+    def local(self, i, key, grad):
+        """The rank's slice of a gradient of :meth:`full`'s tensor."""
+        spec = self.gather[i].get(key, ())
+        if not any(spec):
+            return grad
+        return self._shard(grad, spec, self.mesh).contiguous()
+
+    def model_summed(self, i, key):
+        """A replicated bias a column-parallel layer slices: its
+        gradient is summed over the model axis."""
+        return self.tp[i] and key == "b" and not any(
+            self.specs[i].get("b", ()))
+
+    def apply(self, i, pure, config, p, h):
+        """Stage ``i`` over ``h``: column-parallel when it is one."""
+        if not self.tp[i]:
+            return pure(p, h, **config)
+        from veles_tpu_torch.parallel.tp import (copy_to_group,
+                                                 gather_columns)
+        group = self.model_group
+        p = dict(p)
+        width = p["w"].shape[-1]
+        if "b" in p and p["b"] is not None and p["b"].shape[-1] != width:
+            first = group.index * width
+            p["b"] = p["b"][first:first + width]
+        h_in = copy_to_group(h, group)
+        if config.get("is_softmax"):
+            from veles_tpu_torch.znicz.all2all import _softmax
+            logits = pure(p, h_in.float(), **dict(config, is_softmax=False))
+            return _softmax(gather_columns(logits, group)).to(h.dtype)
+        return gather_columns(pure(p, h_in, **config), group)
+
+
 def lower_specs(layer_specs, sample_shape, loss="softmax",
                 compute_dtype=None, remat=False, grad_accum=1,
                 lr_adjuster=None, input_norm=None, grad_reduce_axis=None,
-                mesh=None):
+                mesh=None, param_rules=None):
     """``(params, step_fn, eval_fn, apply_fn)`` from layer specs.
 
     ``sample_shape``: one sample's shape (no batch axis).  ``params``
@@ -258,6 +375,8 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
     ``grad_reduce_axis``: a ``mesh`` axis (by default a mesh of every
     rank on that axis) over which each step reduces its gradients and
     metrics (see the module); each rank gives the step its own rows.
+    ``param_rules``: the sharded layout over ``mesh`` (see the module);
+    ``params`` come back whole.
     """
     reduce_group = _reduce_group(grad_reduce_axis, mesh)
     grad_accum = max(int(grad_accum), 1)
@@ -301,6 +420,30 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
                 prng.get("dropout").randint(0, 2 ** 30))
         params.append(state)
 
+    layout = None
+    if param_rules is not None:
+        if mesh is None:
+            raise ValueError("param_rules needs the mesh they shard over")
+        layout = Layout(params, [config for _p, config, _h, _s in stages],
+                        param_rules, mesh)
+        for state, specs, (_p, _c, hyper, _s) in zip(params, layout.specs,
+                                                      stages):
+            if hyper["factor_ortho"] and any(specs.get("w", ())):
+                raise NotImplementedError(
+                    "factor_ortho over a sharded weight (W^T W needs the "
+                    "whole weight in the solver) is not ported yet "
+                    "(ROADMAP item 7(d))")
+        if not layout.sharded():
+            layout = None
+
+    def _apply_stage(i, pure, config, p, h):
+        if layout is None:
+            return pure(p, h, **config)
+        return layout.apply(i, pure, config, p, h)
+
+    def _full(i, key, tensor):
+        return tensor if layout is None else layout.full(i, key, tensor)
+
     norm_cache = {}
 
     def _norm(dtype, device):
@@ -325,25 +468,25 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
 
     def apply_fn(params_list, x, train=False):
         h = _ingest(x)
-        for (pure, config, _hyper, skip_at_eval), state in zip(
-                stages, params_list):
+        for i, ((pure, config, _hyper, skip_at_eval), state) in enumerate(
+                zip(stages, params_list)):
             if skip_at_eval and not train:
                 continue
-            p = {k: v for k, v in state.items()
+            p = {k: _full(i, k, v) for k, v in state.items()
                  if k in ("w", "b", "seed") and v is not None}
-            h = pure(p, h, **config)
+            h = _apply_stage(i, pure, config, p, h)
         return h
 
     def loss_fn(wb_list, aux_list, x, labels):
         h = _ingest(x)
         if compute_dtype is not None:
             h = h.to(compute_dtype)
-        for (pure, config, _hyper, _skip), wb, aux in zip(stages, wb_list,
-                                                          aux_list):
+        for i, ((pure, config, _hyper, _skip), wb, aux) in enumerate(
+                zip(stages, wb_list, aux_list)):
             p = ({k: v.to(compute_dtype) for k, v in wb.items()}
                  if compute_dtype is not None else dict(wb))
             p.update(aux)
-            h = pure(p, h, **config)
+            h = _apply_stage(i, pure, config, p, h)
         out = h.float()
         if loss == "softmax":
             valid = labels >= 0
@@ -371,9 +514,10 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
         aux_list = [{"seed": state["seed"]} if "seed" in state else {}
                     for state in params_list]
         with torch.enable_grad():
-            leaves = [{k: state[k].detach().requires_grad_(True)
+            leaves = [{k: _full(i, k, state[k]).detach().requires_grad_(True)
                        for k in layer_keys}
-                      for state, layer_keys in zip(params_list, keys)]
+                      for i, (state, layer_keys) in enumerate(
+                          zip(params_list, keys))]
             flat = [leaf[k] for leaf, layer_keys in zip(leaves, keys)
                     for k in layer_keys]
             if grad_accum == 1:
@@ -418,9 +562,18 @@ def lower_specs(layer_specs, sample_shape, loss="softmax",
 
     def step_fn(params_list, x, labels):
         grads, n_err, report = _grads(params_list, x, labels)
+        if layout is not None and layout.model_group is not None:
+            from veles_tpu_torch.parallel.comm import all_reduce
+            for i, layer in enumerate(grads):
+                for key in sorted(layer):
+                    if layout.model_summed(i, key):
+                        all_reduce(layer[key], layout.model_group)
         if reduce_group is not None:
             grads, n_err, report = _reduce(grads, n_err, report,
                                            reduce_group, loss)
+        if layout is not None:
+            grads = [{k: layout.local(i, k, g) for k, g in layer.items()}
+                     for i, layer in enumerate(grads)]
         with torch.no_grad():
             for state, layer_grads, (_p, _c, hyper, _s) in zip(
                     params_list, grads, stages):

@@ -50,8 +50,16 @@ trains on its contiguous rows of each (the ``data`` axis), through a
 step lowered with ``grad_reduce_axis="data"`` whose one all-reduce a
 step rides inside the step's CUDA graph; the short tail rounds down to
 a multiple of the axis size, evaluation runs whole on every rank, and
-epoch mode gives each rank its columns of the global permutation.  Not
-ported: ``fsdp`` and ``tp`` (ROADMAP item 7(d), part 2), and the job
+epoch mode gives each rank its columns of the global permutation.
+``fsdp=True`` stores every leaf of :func:`~veles_tpu_torch.parallel.dp
+.fsdp_rules` (1024 elements and up) as the rank's slice over ``data``
+and ``tp=True`` shards every wide layer's neurons over a ``model`` axis
+(``mesh_axes={"data": d, "model": m}``, :func:`~veles_tpu_torch.parallel
+.dp.tp_rules`); both merge as the JAX trainer merges them (TP takes a
+contested dim, FSDP any other), and the step gathers, reduces and runs
+column-parallel as :func:`~veles_tpu_torch.znicz.fused_graph.lower_specs`
+says.  The weights written back to the forwards, a snapshot's solver
+state and ``capture_state`` are gathered whole.  Not ported: the job
 protocol's refresh on a slave (item 7(e); ``epoch_mode`` on a slave
 raises, as in the JAX package).
 """
@@ -176,13 +184,6 @@ class FusedTrainer(AcceleratedUnit):
     hide_from_registry = True
 
     def __init__(self, workflow, **kwargs):
-        for key in ("fsdp", "tp"):
-            if kwargs.get(key):
-                raise NotImplementedError(
-                    "FusedTrainer option %r (parameters sharded over a "
-                    "mesh) is not ported yet: it comes in the second "
-                    "part of the SPMD slice (ROADMAP item 7(d), part 2)"
-                    % key)
         super(FusedTrainer, self).__init__(workflow, **kwargs)
         self.view_group = "TRAINER"
         # each spec AND its nested "->"/"<-" dicts copied: rollback_to
@@ -198,6 +199,11 @@ class FusedTrainer(AcceleratedUnit):
         self.epoch_mode = bool(kwargs.get("epoch_mode", False))
         #: {axis: size} of the data-parallel mesh, or None
         self.mesh_axes = dict(kwargs.get("mesh_axes") or {}) or None
+        #: ZeRO-3 storage over "data" and Megatron columns over "model"
+        #: (both need mesh_axes: without a mesh they change nothing, as
+        #: in the JAX trainer)
+        self.fsdp = bool(kwargs.get("fsdp", False))
+        self.tp = bool(kwargs.get("tp", False))
         #: seeds each epoch's permutation; pickled, so a resume draws on
         self.epoch_key_counter = 0
         self.loader = None
@@ -217,6 +223,8 @@ class FusedTrainer(AcceleratedUnit):
         self._eval_ = None
         self._train_divisor_ = 1
         self._mesh_ = None            # the data-parallel mesh, if any
+        self._rules_ = None           # fsdp / tp param rules, if any
+        self._specs_ = None           # each leaf's spec under them
         self._programs_ = {}          # (train, rows) -> _Program
         self._retired_ = {}           # reports of programs rebuilt away
         self._epoch_ = None           # epoch mode: its data and buffers
@@ -226,8 +234,7 @@ class FusedTrainer(AcceleratedUnit):
     def __getstate__(self):
         state = super(FusedTrainer, self).__getstate__()
         if self._params_ is not None:
-            from veles_tpu_torch.znicz.fused_graph import to_numpy
-            state["solver_state"] = to_numpy(self._params_)
+            state["solver_state"] = self._whole_params()
         for key in ("n_err", "mse", "loss_value"):
             if isinstance(state.get(key), torch.Tensor):
                 state[key] = float(state[key])
@@ -270,13 +277,23 @@ class FusedTrainer(AcceleratedUnit):
                 raise ValueError("mesh_axes %r has no 'data' axis"
                                  % (self.mesh_axes,))
         self._mesh_ = mesh
+        rules = self._make_rules(mesh) if mesh is not None else None
+        self._rules_ = rules
         params, step_fn, eval_fn, _apply = lower_specs(
             specs, sample_shape, loss=self.loss,
             compute_dtype=self._compute_dtype(), remat=self.remat,
             grad_accum=self.grad_accum, lr_adjuster=self.lr_adjuster,
             input_norm=getattr(self.loader, "input_norm", None),
-            grad_reduce_axis="data" if mesh else None, mesh=mesh)
+            grad_reduce_axis="data" if mesh else None, mesh=mesh,
+            param_rules=rules)
         params = self._restore_solver_state(params)
+        self._specs_ = None
+        if rules is not None:
+            from veles_tpu_torch.parallel.dp import shard_params
+            from veles_tpu_torch.znicz.fused_graph import _leaf_spec
+            self._specs_ = [{k: _leaf_spec(rules, v) for k, v in
+                             state.items()} for state in params]
+            params = shard_params(params, mesh, param_rules=rules)
         self._params_ = to_tensors(params, self._torch_device())
         # the indices upload in place, where the step graphs read them
         self.loader.minibatch_indices.keep_address = True
@@ -285,6 +302,8 @@ class FusedTrainer(AcceleratedUnit):
         if mesh is not None:
             self._train_divisor_ *= mesh.shape["data"]
             warm_up_group(mesh.group("data"), self._torch_device())
+            if "model" in mesh.shape:
+                warm_up_group(mesh.group("model"), self._torch_device())
         for key, program in self._programs_.items():
             _add_report(self._retired_.setdefault(key, {}), program.report())
         self._programs_ = {}
@@ -326,6 +345,44 @@ class FusedTrainer(AcceleratedUnit):
                 "columns": slice(start, stop),
                 "idx": torch.zeros((steps, stop - start), dtype=torch.int32,
                                    device=data.device)}
+
+    def _make_rules(self, mesh):
+        """The param rules of ``fsdp`` / ``tp`` over ``mesh`` (None for
+        neither): TP's last dim over "model", FSDP's first divisible dim
+        over "data", merged TP-first as the JAX trainer merges them."""
+        if not (self.tp or self.fsdp):
+            return None
+        from veles_tpu_torch.parallel.dp import fsdp_rules, tp_rules
+        r_tp = tp_rules(mesh) if self.tp else None
+        r_fsdp = fsdp_rules(mesh) if self.fsdp else None
+
+        def rules(leaf):
+            spec_t = r_tp(leaf) if r_tp else None
+            spec_f = r_fsdp(leaf) if r_fsdp else None
+            if spec_t is None:
+                return spec_f
+            if spec_f is None:
+                return spec_t
+            merged = list(spec_t)
+            for dim, axis in enumerate(spec_f):
+                if axis is not None and merged[dim] is None:
+                    merged[dim] = axis
+            return tuple(merged)
+
+        return rules
+
+    def _whole_params(self):
+        """Host numpy copies of the whole parameter tree: the sharded
+        leaves gathered over the mesh (every rank calls this in the
+        same order)."""
+        from veles_tpu_torch.znicz.fused_graph import to_numpy
+        if self._specs_ is None:
+            return to_numpy(self._params_)
+        from veles_tpu_torch.parallel.mesh import unshard
+        return to_numpy([
+            {k: v if v is None or not any(specs.get(k, ())) else unshard(
+                v, specs[k], self._mesh_) for k, v in state.items()}
+            for state, specs in zip(self._params_, self._specs_)])
 
     def _rows(self, n):
         """This rank's contiguous ``[start, stop)`` of ``n`` train rows
@@ -522,8 +579,7 @@ class FusedTrainer(AcceleratedUnit):
         improved epoch.  None before the first build."""
         if self._params_ is None:
             return None
-        from veles_tpu_torch.znicz.fused_graph import to_numpy
-        return to_numpy(self._params_)
+        return self._whole_params()
 
     def rollback_to(self, snap, lr_factor=1.0):
         """Restore a :meth:`capture_state` tree and scale every layer's
@@ -547,23 +603,31 @@ class FusedTrainer(AcceleratedUnit):
         before the first build."""
         if self._params_ is None:
             return
-        for fwd, state in zip(self.forwards, self._params_):
+        for i, (fwd, state) in enumerate(zip(self.forwards, self._params_)):
             for key, vec in (("w", fwd.weights), ("b", fwd.bias)):
                 old = state.get(key)
                 if old is None or not vec:
                     continue
                 host = numpy.ascontiguousarray(vec.mem)
+                if self._specs_ is not None and any(
+                        self._specs_[i].get(key, ())):
+                    from veles_tpu_torch.parallel.mesh import shard
+                    host = numpy.ascontiguousarray(shard(
+                        host, self._specs_[i][key], self._mesh_))
                 old.copy_(torch.from_numpy(host).to(old.dtype))
 
     def sync_weights(self):
         """Write the trained parameters into the forward units."""
         if self._params_ is None:
             return
-        for fwd, state in zip(self.forwards, self._params_):
+        whole = self._whole_params() if self._specs_ is not None \
+            else self._params_
+        for fwd, state in zip(self.forwards, whole):
             for key, vec in (("w", fwd.weights), ("b", fwd.bias)):
                 value = state.get(key)
                 if value is None or not vec:
                     continue
+                if isinstance(value, torch.Tensor):
+                    value = value.detach().to("cpu").numpy()
                 vec.map_write()
-                vec.mem[...] = value.detach().to("cpu").numpy().astype(
-                    vec.mem.dtype, copy=False)
+                vec.mem[...] = value.astype(vec.mem.dtype, copy=False)

@@ -92,9 +92,14 @@ def vjp(pure_fn, config, params, x, cotangent, need_dx=True):
 
 
 class GDViaVJP(GradientDescentBase):
-    """Backward for any forward with ``pure_fn`` / ``pure_config``."""
+    """Backward for any forward with ``pure_fn`` / ``pure_config``.
+    Under a pod (:mod:`veles_tpu_torch.pod`) each rank runs the VJP on
+    its own rows and ``grad_group_`` (the data group, set by the pod)
+    sums the gradients over it before the in-place update."""
 
     hide_from_registry = True
+    #: the data group a pod sums this unit's gradients over (transient)
+    grad_group_ = None
 
     def __init__(self, workflow, **kwargs):
         super(GDViaVJP, self).__init__(workflow, **kwargs)
@@ -159,6 +164,15 @@ class GDViaVJP(GradientDescentBase):
             dparams, dx = vjp(pure_fn, config, params, x, err_output,
                               need_err_input)
             batch = x.shape[0]
+            group = unit.grad_group_
+            if group is not None:
+                # a pod rank's rows: the summed gradients over the data
+                # group, over the global batch
+                from veles_tpu_torch.parallel.comm import all_reduce
+                batch *= group.size
+                for key in sorted(dparams):
+                    if key in vstate:
+                        all_reduce(dparams[key], group)
             with torch.no_grad():
                 for key in ("w", "b"):
                     if key not in vstate:
@@ -221,7 +235,8 @@ class GDViaVJP(GradientDescentBase):
             for k in keys:
                 out[k], out["v" + k] = params[k], vstate[k]
             if need_err_input:
-                out["err_input"] = dx.reshape(input_shape)
+                out["err_input"] = dx.reshape((dx.shape[0],)
+                                              + input_shape[1:])
             return out
 
         donated = {}

@@ -92,7 +92,8 @@ class ForwardBase(AcceleratedUnit):
 
         def fn(t):
             out = unit.pure({k: t[k] for k in keys}, t["input"])
-            return {"output": out.reshape(out_shape)}
+            # the rows as given: a pod rank runs its own rows
+            return {"output": out.reshape((out.shape[0],) + out_shape[1:])}
 
         return StitchStage(self, fn, consumes={"input": self.input},
                            produces={"output": self.output},

@@ -423,6 +423,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
    shape, no recapture, exact GEMM and gather launches, the step's
    all-reduce captured in its graph; AlexNet's f32 step at batch 128
    over the data mesh bit-equal to the no-mesh step, 3 captured steps.
+38. ``jobs`` — the job layer (``parallel/jobs.py`` on the standard
+   library's TCP wire): an in-process ``JobServer`` over the MNIST
+   master workflow (full width, native, stitched) and one ``JobClient``
+   slave in the same process, both on the card, ``MNIST_EPOCHS`` to the
+   Decision's end: every job applied exactly once, the master's
+   weights moved, the slave's launches exactly ``MNIST_STITCHED_
+   LAUNCHES`` (its segments captured once, no recapture after the first
+   job); wall ms, jobs/s, the job round trip's p50/p99 and the bytes
+   each job moves each way.
+39. ``jobs_parity`` — that session on the card and on the CPU for
+   ``MNIST_PARITY_EPOCHS``: closes equal, the master's weights within
+   ``MNIST_PARAM_RTOL``.
+40. ``jobs_fused`` — a fused slave: the step graphs' GEMM launches (5 a
+   train job, 2 an eval job), one capture a step shape and no
+   recapture, the master's weights within ``MNIST_PARAM_RTOL`` of the
+   CPU's fused session.
+41. ``jobs_chaos`` — the chaos gate's seeded schedule on the card's
+   MNIST session (a slave kill, a dropped job frame, a duplicated
+   update, a master kill and a resume from its checkpoint): completes,
+   each seq applied once a generation, ``dedup_dropped`` >= the
+   duplicates, ``lost_requeued`` > 0, the resume within one checkpoint
+   interval.
+42. ``cli`` — ``python -m veles_tpu_torch veles_tpu_torch.samples.mnist
+   -l 127.0.0.1:0 -n 'localhost x2' --slave-launch-transform 'sh -c'
+   --result-file ... --profile ...`` as a subprocess: exit code 0, both
+   spawned slaves did jobs (the session bundle), the result file holds
+   the Decision's metrics, every spawned process gone.
 
 The ``kernels`` phase also holds the paged decode kernel against
 ``_paged_decode_ref`` (f32 <= 1e-4, bf16 <= 2e-2) for decode (1 row)
@@ -539,7 +566,8 @@ serve_generate_int8, serve_paged,
 serve_spec, train, mnist, mnist_stitched, mnist_scan, mnist_ae,
 serve_batch, ops, tooling, the snapshot and checkpoint phases,
 mnist_rnn on its three routes, mnist_ae_rbm, kohonen, data_side and
-data_side_norms, spmd_train, ring, fused_dp, max
+data_side_norms, spmd_train, ring, fused_dp, pod, fused_shard, serve_tp,
+jobs, jobs_fused, jobs_chaos, max
 abs error, kernel / plain / library times,
 roofline bound), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -10242,6 +10270,502 @@ def phase_serve_tp(device, smi, serve_streams, serve_tokens_per_s):
             | set(info["paged"]["launches"])}
 
 
+# -- the job layer and the entry point (ROADMAP 7(e), first part) ------------
+
+#: the chaos phase's faults on the card's MNIST session: slave A killed
+#: holding its 2nd job, the 5th job frame dropped, the 4th update frame
+#: duplicated (the CPU gate's, tests/test_torch_chaos.py)
+JOBS_CHAOS_SCHEDULE = [
+    {"site": "slave_job", "action": "slave_kill", "nth": 2},
+    {"site": "master_send", "action": "drop", "op": "job", "nth": 5},
+    {"site": "slave_send", "action": "dup", "op": "update", "nth": 4},
+]
+#: the master checkpoints every 10 applied updates (and at each epoch's
+#: start); the surviving slave's 40th job waits for the master's kill,
+#: so the kill lands mid-run, after the lost frame's requeue
+JOBS_CHAOS_EVERY = 10
+JOBS_CHAOS_HOLD_AT = 40
+JOBS_CHAOS_SEED = 7
+#: the bootstrapped CLI session's epochs (root.mnist.max_epochs) and its
+#: time limit
+JOBS_CLI_EPOCHS = 3
+JOBS_CLI_TIMEOUT_S = 300
+
+
+def _job_workflow(device, epochs, role, fused=False):
+    """The MNIST sample's workflow (native u8, full width) as a job
+    master or slave on ``device``: built through ``launcher=`` and
+    initialized there, as the entry point does."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.samples import mnist
+    prng.seed_all(SEED)
+    launcher = DummyLauncher(is_master=role == "master",
+                             is_slave=role == "slave")
+    wf = mnist.create_workflow(device=device, max_epochs=epochs,
+                               native=True, fused=fused, launcher=launcher)
+    wf.initialize(device=make_device(device))
+    return wf
+
+
+def _weights(wf):
+    """The master's weights and biases (its momenta never move)."""
+    return {name: value for name, value in wf.params_to_numpy().items()
+            if name.endswith((".weights", ".bias"))}
+
+
+def _job_session(device, epochs, fused=False):
+    """One in-process JobServer over the MNIST master workflow and one
+    synchronous JobClient slave (``client.run()``), both on ``device``,
+    to the Decision's end.  The kernel launches are counted from the
+    slave's first job request to its last update (the master runs no
+    kernel); the frames each job moves are measured as pickled."""
+    import pickle
+
+    from veles_tpu_torch.memory import Watcher
+    from veles_tpu_torch.ops import gather
+    from veles_tpu_torch.parallel.jobs import JobClient, JobServer
+    master = _job_workflow(device, epochs, "master", fused)
+    slave = _job_workflow(device, epochs, "slave", fused)
+    before_weights = _weights(master)
+    server = JobServer(master)
+    frames = {"job": [], "update": []}
+    served = []
+    send = server._send
+
+    def counted_send(identity, msg):
+        if msg.get("op") == "job":
+            served.append(msg["job"]["seq"])
+            frames["job"].append(len(pickle.dumps(
+                msg, pickle.HIGHEST_PROTOCOL)))
+        return send(identity, msg)
+    server._send = counted_send
+    server.start()
+    try:
+        client = JobClient(slave, server.endpoint)
+        chaos_send = client._chaos_send
+
+        def counted_chaos_send(msg):
+            if msg.get("op") == "update":
+                frames["update"].append(len(pickle.dumps(
+                    msg, pickle.HIGHEST_PROTOCOL)))
+            return chaos_send(msg)
+        client._chaos_send = counted_chaos_send
+        client.handshake()
+        reset_all_launches()
+        moved = Watcher.transfers()
+        tic = time.perf_counter()
+        finished = client.run()
+        if device.type == "cuda":
+            gpu_sync()
+        wall_s = time.perf_counter() - tic
+        launches = dict(mnist_launches(), **gather.entry_launches)
+        moved = {key: value - moved[key]
+                 for key, value in Watcher.transfers().items()}
+        hist = server.slaves[client.sid].latency
+        latency = {"count": hist.count, "mean_ms": hist.mean * 1e3,
+                   "p50_ms": hist.percentile(50) * 1e3,
+                   "p95_ms": hist.percentile(95) * 1e3,
+                   "p99_ms": hist.percentile(99) * 1e3}
+        client.close()
+    finally:
+        server.stop()
+    jobs = client.jobs_done
+    applied = list(server._applied_order)
+    return {
+        "master": master, "slave": slave, "server": server,
+        "finished": finished, "jobs": jobs, "wall_s": wall_s,
+        "launches": launches, "served": served, "applied": applied,
+        "exactly_once": (applied == served and len(set(applied)) == jobs
+                         and server._updates_applied == jobs
+                         and server.dedup_dropped == 0
+                         and server.stale_rejected == 0
+                         and server.lost_requeued == 0),
+        "moved": not all(numpy.array_equal(before_weights[k], v)
+                         for k, v in _weights(master).items()),
+        "closes": [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+                   for c in master.decision.history],
+        "latency": latency,
+        "frame_bytes": {
+            "job_median": statistics.median(frames["job"]),
+            "update_median": statistics.median(frames["update"]),
+            "jobs_sent": len(frames["job"]),
+            "updates_sent": len(frames["update"])},
+        "transfers_per_job": {key: value / max(jobs, 1)
+                              for key, value in moved.items()},
+    }
+
+
+def _session_json(s):
+    return {key: s[key] for key in ("finished", "jobs", "wall_s",
+                                    "launches", "exactly_once", "moved",
+                                    "closes", "latency", "frame_bytes",
+                                    "transfers_per_job")}
+
+
+def _job_span_breakdown(device):
+    """A 2-epoch session with the span recorder on: the mean and median
+    ms of each ``jobs`` span (the master's job generation and update
+    apply, the slave's job request, ``do_job`` and update rpcs) and of
+    the slave's segment dispatches, and the jobs each covers."""
+    from veles_tpu_torch import trace
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off",
+                      trace="on"):
+        trace.recorder.clear()
+        session = _job_session(device, MNIST_PARITY_EPOCHS)
+        events = trace.normalize()
+    trace.configure()
+    trace.recorder.clear()
+    spans = {}
+    for ev in events:
+        if ev["ph"] == "X" and ev["cat"] in ("jobs", "segment"):
+            spans.setdefault("%s:%s" % (ev["cat"], ev["name"]), []).append(
+                ev["dur_us"] / 1e3)
+    return {"jobs": session["jobs"], "wall_ms": session["wall_s"] * 1e3,
+            "spans_ms": {key: {"count": len(v),
+                               "mean": statistics.mean(v),
+                               "median": statistics.median(v)}
+                         for key, v in sorted(spans.items())}}
+
+
+def phase_jobs(device, smi):
+    """The job layer on the card: an in-process JobServer over the MNIST
+    master workflow (full width, native, stitched) and one JobClient
+    slave in the same process, both on the card, MNIST_EPOCHS to the
+    Decision's end.  Every job applied exactly once (served seqs ==
+    applied seqs, no dedup, stale or requeue), the master's weights
+    moved, and the slave's launches exactly the stitched route's
+    (MNIST_STITCHED_LAUNCHES: a job is one minibatch through the two
+    segments, one capture each, no recapture after the first job); the
+    session's wall ms, jobs/s, the job round trip's percentiles and the
+    bytes each job moves each way; then a traced 2-epoch session's
+    span means (where a job's time goes)."""
+    phase = "jobs"
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        s = _job_session(device, MNIST_EPOCHS)
+    launches = {key: s["launches"].get(key, 0)
+                for key in MNIST_STITCHED_LAUNCHES}
+    entries = {key: s["launches"].get(key, 0)
+               for key in MNIST_STITCHED_ENTRY_LAUNCHES}
+    report = s["slave"].stitch_report()
+    counted = (launches == MNIST_STITCHED_LAUNCHES
+               and entries == MNIST_STITCHED_ENTRY_LAUNCHES)
+    graphs_ok = ([r["dispatches"] for r in report] == MNIST_STITCHED_DISPATCHES
+                 and [r["captures"] for r in report] == [1, 1]
+                 and all(r["recaptures"] == 0 for r in report))
+    valid = [c[2] for c in s["closes"] if c[1] == "validation"]
+    learned = len(valid) == MNIST_EPOCHS and valid[-1] < valid[0]
+    complete = bool(s["master"].decision.complete) and s["finished"]
+    info = dict(_session_json(s), phase=phase, nvidia_smi=smi,
+                layers="784-100 all2all_tanh, 100-10 softmax",
+                minibatch=100, max_epochs=MNIST_EPOCHS,
+                data="synthetic stand-in as u8, 1/255 in the loader head",
+                route="stitched slave, in-process master, stdlib TCP wire",
+                wall_ms=s["wall_s"] * 1e3,
+                jobs_per_s=s["jobs"] / s["wall_s"],
+                launches_expected=MNIST_STITCHED_LAUNCHES,
+                entry_launches_expected=MNIST_STITCHED_ENTRY_LAUNCHES,
+                segments=report,
+                ok=counted and graphs_ok and learned and complete
+                and s["exactly_once"] and s["moved"])
+    info["traced"] = _job_span_breakdown(device)
+    emit(info)
+    check(complete, phase, "the session did not reach the Decision's end")
+    check(s["exactly_once"], phase, "jobs not applied exactly once: "
+          "served %s, applied %s" % (s["served"], s["applied"]))
+    check(s["moved"], phase, "the master's weights did not move")
+    check(counted, phase, "the slave's launches %s %s, want %s %s"
+          % (launches, entries, MNIST_STITCHED_LAUNCHES,
+             MNIST_STITCHED_ENTRY_LAUNCHES))
+    check(graphs_ok, phase, "the slave's segments dispatched, captured or "
+          "recaptured other than expected: %s" % report)
+    check(learned, phase, "validation error did not fall: %s" % valid)
+    return s["launches"]
+
+
+def phase_jobs_parity(device):
+    """The one-slave synchronous session on the card and on the CPU (the
+    port's plain kernels) for MNIST_PARITY_EPOCHS: each class close's
+    n_err equal and the master's weights within MNIST_PARAM_RTOL of each
+    leaf's largest value."""
+    phase = "jobs_parity"
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"):
+        card = _job_session(device, MNIST_PARITY_EPOCHS)
+        cpu = _job_session(torch.device("cpu"), MNIST_PARITY_EPOCHS)
+    errors = _param_rel_errors(_weights(card["master"]),
+                               _weights(cpu["master"]))
+    closes_ok = card["closes"] == cpu["closes"]
+    params_ok = max(errors.values()) <= MNIST_PARAM_RTOL
+    once = card["exactly_once"] and cpu["exactly_once"]
+    emit({"phase": phase, "ok": closes_ok and params_ok and once,
+          "epochs": MNIST_PARITY_EPOCHS, "card_closes": card["closes"],
+          "cpu_closes": cpu["closes"], "param_rel_errors": errors,
+          "param_rtol": MNIST_PARAM_RTOL, "card_jobs": card["jobs"],
+          "cpu_jobs": cpu["jobs"]})
+    check(once, phase, "a session did not apply its jobs exactly once")
+    check(closes_ok, phase, "class closes differ: card %s, cpu %s"
+          % (card["closes"], cpu["closes"]))
+    check(params_ok, phase, "master weights differ: %s" % errors)
+
+
+def phase_jobs_fused(device, smi):
+    """A fused slave on the card (``--fused``: one FusedTrainer step a
+    job): its GEMM launches are the step graphs' (5 a train job, 2 an
+    eval job, the minibatch's gather in each graph), one eager step and
+    one capture a step shape and no recapture after (each job's weights
+    go into the captured parameters in place); the master's weights
+    within MNIST_PARAM_RTOL of the CPU's fused session and the closes
+    equal."""
+    phase = "jobs_fused"
+    card = _job_session(device, MNIST_PARITY_EPOCHS, fused=True)
+    cpu = _job_session(torch.device("cpu"), MNIST_PARITY_EPOCHS, fused=True)
+    launches = card["launches"]
+    report = card["slave"].fused_trainer.graph_report()
+    train_steps = sum(c[3] for c in card["closes"] if c[1] == "train") // 100
+    eval_steps = sum(c[3] for c in card["closes"]
+                     if c[1] == "validation") // 100
+    products = (FUSED_TRAIN_PRODUCTS * train_steps
+                + FUSED_EVAL_PRODUCTS * eval_steps)
+    counted = (launches["matmul"] == products
+               and launches["matmul_bf16"] == 0
+               and launches["gd_dx"] == launches["gd_dw"] == 0
+               and launches["veles_gather_group"]
+               == train_steps + eval_steps
+               and all(report[key].get("graph_launches", {}).get(
+                   "veles_gather_group") == 1
+                   for key in ("train_100", "eval_100")))
+    graphs_ok = _graphs_expected(report, train_steps, eval_steps)
+    errors = _param_rel_errors(_weights(card["master"]),
+                               _weights(cpu["master"]))
+    params_ok = max(errors.values()) <= MNIST_PARAM_RTOL
+    closes_ok = card["closes"] == cpu["closes"]
+    once = card["exactly_once"] and cpu["exactly_once"]
+    emit(dict(_session_json(card), phase=phase, nvidia_smi=smi,
+              ok=counted and graphs_ok and params_ok and closes_ok and once,
+              epochs=MNIST_PARITY_EPOCHS, train_steps=train_steps,
+              eval_steps=eval_steps, matmul_expected=products,
+              graphs=report, cpu_closes=cpu["closes"],
+              param_rel_errors=errors, param_rtol=MNIST_PARAM_RTOL,
+              wall_ms=card["wall_s"] * 1e3,
+              jobs_per_s=card["jobs"] / card["wall_s"]))
+    check(once, phase, "a session did not apply its jobs exactly once")
+    check(counted, phase, "launches %s, want matmul %d and one gather a "
+          "job inside the step graphs %s" % (launches, products, report))
+    check(graphs_ok, phase, "the step graphs were not one eager step, one "
+          "capture and replays with no recapture: %s" % report)
+    check(closes_ok, phase, "class closes differ: card %s, cpu %s"
+          % (card["closes"], cpu["closes"]))
+    check(params_ok, phase, "master weights differ: %s" % errors)
+    return launches
+
+
+def phase_jobs_chaos(device, smi):
+    """The chaos gate's seeded schedule on the card's MNIST session
+    (stitched slaves, in-process masters): slave A killed holding its
+    2nd job, the 5th job frame dropped, the 4th update frame duplicated,
+    and the master killed once the dropped frame was requeued and a
+    checkpoint written (slave B's JOBS_CHAOS_HOLD_AT-th job waits for
+    the kill); a fresh master resumes the latest checkpoint on the same
+    port.  The session completes, every seq is applied once within each
+    generation, ``dedup_dropped`` >= the duplicates injected,
+    ``lost_requeued`` > 0, and the resume is within one checkpoint
+    interval of the kill."""
+    import tempfile
+    import threading
+
+    from veles_tpu_torch import chaos
+    from veles_tpu_torch.parallel.jobs import JobClient, JobServer
+    phase = "jobs_chaos"
+    reset_all_launches()
+    tic = time.perf_counter()
+    with engine_knobs(stitch="on", loader="auto", epoch_scan="off"), \
+            tempfile.TemporaryDirectory() as ckdir:
+        chaos.controller.arm(list(JOBS_CHAOS_SCHEDULE), seed=JOBS_CHAOS_SEED)
+        try:
+            m1 = _job_workflow(device, MNIST_EPOCHS, "master")
+            server1 = JobServer(m1, checkpoint_dir=ckdir,
+                                checkpoint_every=JOBS_CHAOS_EVERY,
+                                slave_timeout=5.0,
+                                heartbeat_interval=0.3).start()
+            port = server1.port
+            client_a = JobClient(_job_workflow(device, MNIST_EPOCHS,
+                                               "slave"),
+                                 server1.endpoint, rpc_timeout_ms=1200,
+                                 reconnect_max_wait=10.0)
+            client_a.handshake()
+            a_died = client_a.run() is False
+            client_a.close()
+            slave_b = _job_workflow(device, MNIST_EPOCHS, "slave")
+            killed = threading.Event()
+            jobs_seen = []
+            do_job = slave_b.do_job
+
+            def held_do_job(data, callback):
+                jobs_seen.append(1)
+                if len(jobs_seen) == JOBS_CHAOS_HOLD_AT:
+                    killed.wait(60)
+                do_job(data, callback)
+            slave_b.do_job = held_do_job
+            client_b = JobClient(slave_b, server1.endpoint,
+                                 rpc_timeout_ms=1200,
+                                 reconnect_max_wait=25.0)
+            client_b.handshake()
+            done = []
+            runner = threading.Thread(
+                target=lambda: done.append(client_b.run()))
+            runner.start()
+            deadline = time.time() + 60
+            ckpt = server1._checkpointer()
+            while time.time() < deadline and not (
+                    len(jobs_seen) >= JOBS_CHAOS_HOLD_AT
+                    and server1.lost_requeued
+                    and not server1._ckpt_busy.is_set()
+                    and ckpt.latest_step() is not None
+                    and server1._updates_applied - ckpt.latest_step()
+                    <= JOBS_CHAOS_EVERY):
+                time.sleep(0.01)
+            killed_at = server1._updates_applied
+            checkpointed = ckpt.latest_step()
+            server1.kill()
+            killed.set()
+            m2 = _job_workflow(device, MNIST_EPOCHS, "master")
+            server2 = JobServer(m2, port=port, checkpoint_dir=ckdir,
+                                checkpoint_every=JOBS_CHAOS_EVERY,
+                                slave_timeout=5.0, heartbeat_interval=0.3)
+            resumed_step = server2.resume_from_checkpoint()
+            server2.start()
+            try:
+                runner.join(120)
+                hung = runner.is_alive()
+                client_b.close()
+            finally:
+                server2.stop()
+            snap = chaos.controller.snapshot()
+        finally:
+            chaos.controller.disarm()
+    if device.type == "cuda":
+        gpu_sync()
+    elapsed = time.perf_counter() - tic
+    injected = snap["injected"]
+    once = all(len(list(srv._applied_order))
+               == len(set(srv._applied_order)) for srv in (server1, server2))
+    dedup = server1.dedup_dropped + server2.dedup_dropped
+    complete = (not hung and done == [True] and bool(m2.decision.complete))
+    ok = (a_died and complete and once
+          and injected.get("slave_kill") == 1
+          and dedup >= injected.get("dup", 0) >= 1
+          and server1.lost_requeued > 0
+          and killed_at - resumed_step <= JOBS_CHAOS_EVERY
+          and server2.generation == 2)
+    closes = [(c["epoch"], c["cls"], c["n_err"], c["samples"])
+              for c in m2.decision.history]
+    emit({"phase": phase, "nvidia_smi": smi, "ok": ok,
+          "schedule": JOBS_CHAOS_SCHEDULE, "seed": JOBS_CHAOS_SEED,
+          "checkpoint_every": JOBS_CHAOS_EVERY,
+          "hold_at": JOBS_CHAOS_HOLD_AT, "injected": injected,
+          "slave_a_died": a_died, "complete": complete,
+          "killed_at_update": killed_at, "checkpoint_step": checkpointed,
+          "resumed_step": resumed_step,
+          "dedup_dropped": dedup,
+          "stale_rejected": server1.stale_rejected
+          + server2.stale_rejected,
+          "lost_requeued": server1.lost_requeued + server2.lost_requeued,
+          "applied": [len(server1._applied_order),
+                      len(server2._applied_order)],
+          "closes_after_resume": closes, "elapsed_s": elapsed,
+          "launches": dict(mnist_launches())})
+    check(a_died, phase, "the scheduled slave kill did not fire")
+    check(complete, phase, "the chaos session did not complete (hung %s, "
+          "run %s, complete %s)" % (hung, done, bool(m2.decision.complete)))
+    check(once, phase, "a seq was applied twice in one generation")
+    check(dedup >= injected.get("dup", 0) >= 1, phase,
+          "%d duplicates deduplicated for %s injected"
+          % (dedup, injected.get("dup")))
+    check(server1.lost_requeued > 0, phase, "the dropped job frame was "
+          "never requeued")
+    check(killed_at - resumed_step <= JOBS_CHAOS_EVERY, phase,
+          "resumed at step %d, killed at %d: more than one interval (%d)"
+          % (resumed_step, killed_at, JOBS_CHAOS_EVERY))
+    return dict(mnist_launches())
+
+
+def phase_cli(device, smi):
+    """The entry point as a user runs it: ``python -m veles_tpu_torch
+    veles_tpu_torch.samples.mnist -l 127.0.0.1:0 -n 'localhost x2'
+    --slave-launch-transform 'sh -c' --result-file ... --profile ...``
+    (on the card: no ``-d``), a subprocess whose master bootstraps two
+    slave processes on this card.  Exit code 0; both slaves did jobs (the
+    session bundle's ``do_job`` spans by slave role); the result file
+    holds the Decision's final metrics; every spawned process is gone
+    when the master exits."""
+    import os
+    import tempfile
+    phase = "cli"
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "result.json")
+        profile = os.path.join(tmp, "profile")
+        cmd = [sys.executable, "-m", "veles_tpu_torch",
+               "veles_tpu_torch.samples.mnist", "-l", "127.0.0.1:0", "-n",
+               "localhost x2", "--slave-launch-transform", "sh -c",
+               "--result-file", result, "--profile", profile,
+               "--no-logo", "-v", "warning",
+               "root.mnist.max_epochs=%d" % JOBS_CLI_EPOCHS]
+        checkout = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=checkout)
+        tic = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=checkout, env=env,
+                              capture_output=True, text=True,
+                              timeout=JOBS_CLI_TIMEOUT_S)
+        elapsed = time.perf_counter() - tic
+        results = None
+        if os.path.exists(result):
+            with open(result) as fin:
+                results = json.load(fin)
+        jobs_by_slave = {}
+        bundle_path = os.path.join(profile, "session_profile.json")
+        if os.path.exists(bundle_path):
+            with open(bundle_path) as fin:
+                bundle = json.load(fin)
+            for sid, shipped in bundle["slaves"].items():
+                jobs_by_slave[sid] = sum(
+                    1 for ev in shipped["events"]
+                    if ev.get("cat") == "jobs" and ev.get("name") == "do_job"
+                    and ev.get("role") == "slave-%s" % sid)
+        pids = [int(name[:-len(".json")].rsplit("_", 1)[1])
+                for name in (os.listdir(profile)
+                             if os.path.isdir(profile) else [])
+                if name.startswith("trace_slave_")]
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    ok = (proc.returncode == 0 and len(jobs_by_slave) == 2
+          and all(n > 0 for n in jobs_by_slave.values())
+          and results is not None
+          and {"best_validation_error_pt", "best_epoch",
+               "errors_pt"} <= set(results)
+          and results["Total epochs"] == JOBS_CLI_EPOCHS - 1
+          and len(pids) == 2 and not alive)
+    emit({"phase": phase, "nvidia_smi": smi, "ok": ok,
+          "command": " ".join(cmd[1:]), "returncode": proc.returncode,
+          "elapsed_s": elapsed, "jobs_by_slave": jobs_by_slave,
+          "results": results, "slave_pids": pids, "alive": alive,
+          "stderr_tail": proc.stderr[-2000:] if not ok else ""})
+    check(proc.returncode == 0, phase, "exit code %d: %s"
+          % (proc.returncode, proc.stderr[-3000:]))
+    check(len(jobs_by_slave) == 2 and all(n > 0 for n in
+                                          jobs_by_slave.values()),
+          phase, "not both spawned slaves did jobs: %s" % jobs_by_slave)
+    check(results is not None and results.get("Total epochs")
+          == JOBS_CLI_EPOCHS - 1, phase, "result file: %s" % results)
+    check(len(pids) == 2 and not alive, phase, "spawned slaves %s, still "
+          "alive %s" % (pids, alive))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -10329,6 +10853,11 @@ def main():
         paths["fused_shard"] = phase_fused_shard(device, info["nvidia_smi"])
         paths["serve_tp"] = phase_serve_tp(
             device, info["nvidia_smi"], serve_streams, serve_tokens_per_s)
+        paths["jobs"] = phase_jobs(device, info["nvidia_smi"])
+        phase_jobs_parity(device)
+        paths["jobs_fused"] = phase_jobs_fused(device, info["nvidia_smi"])
+        paths["jobs_chaos"] = phase_jobs_chaos(device, info["nvidia_smi"])
+        phase_cli(device, info["nvidia_smi"])
     except PhaseFailed as exc:
         print("chip_smoke FAILED in phase %s" % exc, file=sys.stderr)
         return 1

@@ -729,7 +729,7 @@ def test_a_mesh_is_refused_naming_7d(option):
 
 def test_epoch_mode_on_a_slave_raises():
     wf = _build(False, fused=True, fused_config={"epoch_mode": True})
-    wf.is_slave = True
+    wf.launcher.is_slave = True
     with pytest.raises(NotImplementedError, match="slaves"):
         wf.fused_trainer.initialize(device=CPUDevice())
 

@@ -49,6 +49,14 @@
   data side and the loader modules): its modules import no JAX and none
   of PIL, h5py, pyzmq and lmdb, its entry points raise without a card,
   and no refusal in the port names 7(c) any more.
+- The job layer and the entry point (7(e), first part): importing
+  ``parallel.jobs``, ``__main__``, ``chaos.__main__`` and ``launcher``
+  loads no JAX, no ``veles_tpu`` and no pyzmq (the wire is the standard
+  library's TCP, :mod:`veles_tpu_torch.parallel.wire`, named among the
+  port-only modules with ``ops/build.py``, ``ops/cost.py`` and
+  ``parallel/comm.py``); each flag of a module not ported yet raises
+  naming 7(e); the entry point raises without a card; background units
+  (``wants_thread``) run on the thread pool.
 """
 
 import ast
@@ -1552,3 +1560,97 @@ def test_no_refusal_names_7c_any_more():
             if "7(c)" in line:
                 hits.append("%s:%d" % (path.relative_to(REPO), lineno))
     assert hits == []
+
+
+# -- the job layer and the entry point (7(e), first part) ---------------------
+
+#: the port's modules with no counterpart in the JAX package: the kernel
+#: build (nvcc and ctypes), the cost tally, the counted collectives and
+#: the job wire (the standard library's TCP in place of ZeroMQ)
+PORT_ONLY = ["ops/build.py", "ops/cost.py", "parallel/comm.py",
+             "parallel/wire.py"]
+
+
+def test_the_port_only_modules_are_named():
+    def modules(package):
+        return {str(p.relative_to(package)) for p in package.rglob("*.py")}
+    extra = sorted(modules(PACKAGE) - modules(REPO / "veles_tpu"))
+    assert extra == PORT_ONLY
+
+
+def test_importing_the_job_layer_loads_no_jax_no_veles_tpu_and_no_zmq():
+    proc = _run(
+        "import json, sys\n"
+        "import veles_tpu_torch.parallel.jobs\n"
+        "import veles_tpu_torch.__main__\n"
+        "import veles_tpu_torch.chaos.__main__\n"
+        "import veles_tpu_torch.launcher\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    for module in ("parallel.jobs", "parallel.wire", "chaos.core",
+                   "cmdline", "launcher", "__main__"):
+        assert "veles_tpu_torch." + module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert "zmq" not in loaded
+    assert "veles_tpu_torch.ops.build" not in loaded
+
+
+def test_each_refused_entry_point_flag_names_7e():
+    """Every flag of a module not ported yet: its help and its refusal
+    name ROADMAP item 7(e)."""
+    from veles_tpu_torch.__main__ import NOT_PORTED, Main
+    from veles_tpu_torch.cmdline import make_parser
+    helps = {a.dest: a.help for a in make_parser()._actions}
+    for dest, flag in NOT_PORTED:
+        assert "7(e)" in helps[dest], dest
+        value = [] if dest in ("visualize", "graphics", "web_status",
+                               "analyze", "manhole", "debug_nans") \
+            else ["x"]
+        with pytest.raises(NotImplementedError,
+                           match=r"%s .*item 7\(e\)" % flag):
+            Main(["w", flag.split("/")[-1]] + value).run()
+
+
+def test_the_entry_point_raises_without_a_card(no_cuda):
+    from veles_tpu_torch.__main__ import Main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Main(["veles_tpu_torch.samples.mnist", "--no-logo",
+              "--dry-run", "init"]).run()
+
+
+def test_background_units_run_on_the_thread_pool():
+    """``wants_thread`` (refused until 7(e)) runs a unit on the pool: the
+    drain goes on, its downstream unit runs after it, run() returns
+    only when it is done, and it stays out of a segment."""
+    import threading
+    import time
+
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.units import Unit
+
+    seen = []
+
+    class Background(Unit):
+        wants_thread = True
+
+        def run(self):
+            time.sleep(0.05)
+            seen.append(("background", threading.get_ident()))
+
+    class After(Unit):
+        def run(self):
+            seen.append(("after", threading.get_ident()))
+
+    wf = DummyWorkflow()
+    bg = Background(wf)
+    after = After(wf)
+    bg.link_from(wf.start_point)
+    after.link_from(bg)
+    wf.end_point.link_from(after)
+    wf.initialize()
+    wf.run()
+    assert [name for name, _t in seen] == ["background", "after"]
+    assert seen[0][1] != threading.get_ident()
+    from veles_tpu_torch import stitch
+    assert not stitch._gate_compatible(wf.start_point, bg)

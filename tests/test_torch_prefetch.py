@@ -13,7 +13,8 @@ the pure ``fill_minibatch_into``), one copy subclassing each package's
 - The sequence of served minibatches equals the JAX package's, with
   prefetch on and off (both seeded alike, so they shuffle alike).
 - The slave half (``prefetch_job_data``, the full-batch loader's
-  ``apply_data_from_master``) raises naming ROADMAP item 7.
+  ``apply_data_from_master``), once refused naming ROADMAP item 7,
+  serves a job's minibatch and fills the next one in the background.
 """
 
 import threading
@@ -251,14 +252,74 @@ def test_prefetch_ring_reuses_buffers_and_publishes_device():
 
 
 def test_the_slave_half_raises_naming_item_7():
-    wf = DummyWorkflow()
-    loader = SlowIOLoader(wf, io_delay=0.0, minibatch_size=16,
-                          prefetch=True)
-    payload = {"minibatch_offset": 16, "minibatch_size": 16,
-               "indices": numpy.arange(16)}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        loader.prefetch_job_data(payload)
-    full = FullBatchLoader(DummyWorkflow(), minibatch_size=16)
-    for method in (full.prefetch_job_data, full.apply_data_from_master):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-            method(payload)
+    """The slave half, once refused naming ROADMAP item 7, now works (the
+    test keeps its name): a master serves jobs without filling; a slave
+    installs a job's indices and serves exactly that minibatch, and
+    ``prefetch_job_data`` fills the next job's on a worker thread, which
+    its serve then publishes; the master retires the slave's pending
+    minibatches as the updates come.  A full-batch slave takes the job's
+    span into its shuffled indices, and on its device path stages the
+    next job's copy of the buffer."""
+    prng.seed_all(4321)
+    master_wf = DummyWorkflow(is_master=True)
+    master = SlowIOLoader(master_wf, io_delay=0.0, minibatch_size=16)
+    master_wf.initialize(device=CPUDevice())
+    slave_wf = DummyWorkflow(is_slave=True)
+    slave = SlowIOLoader(slave_wf, io_delay=0.05, minibatch_size=16,
+                         prefetch=True)
+    slave_wf.initialize(device=CPUDevice())
+    master.fill_threads.clear()
+    slave.fill_threads.clear()
+    jobs = [master.generate_data_for_slave("s1") for _ in range(2)]
+    assert master.fill_threads == [], "a master fills nothing"
+    assert len(master.pending_minibatches_["s1"]) == 2
+    main = threading.get_ident()
+    for job in jobs:
+        slave.apply_data_from_master(job)
+        slave.run()
+        numpy.testing.assert_array_equal(
+            slave.minibatch_data.mem[:16, 0],
+            numpy.asarray(job["indices"], numpy.float32))
+        numpy.testing.assert_array_equal(
+            slave.minibatch_labels.mem[:16],
+            numpy.asarray(job["indices"]) % 8)
+        if job is jobs[0]:
+            slave.prefetch_job_data(jobs[1])
+            time.sleep(0.1)       # let the background fill land
+    assert slave.fill_threads[0] == main and len(slave.fill_threads) == 2
+    assert slave.fill_threads[1] != main, \
+        "the next job's minibatch was filled on a worker"
+    for _ in jobs:
+        master.apply_data_from_slave(True, "s1")
+    assert not master.pending_minibatches_["s1"]
+    assert master.samples_served == 32
+
+    class Rows(FullBatchLoader):
+        def load_data(self):
+            self.original_data.mem = numpy.arange(
+                64 * 3, dtype=numpy.float32).reshape(64, 3)
+            self.original_labels = [i % 4 for i in range(64)]
+            self.class_lengths[:] = [0, 16, 48]
+
+    full_master_wf = DummyWorkflow(is_master=True)
+    full_master = Rows(full_master_wf, minibatch_size=16)
+    full_master_wf.initialize(device=CPUDevice())
+    full_wf = DummyWorkflow(is_slave=True)
+    full = Rows(full_wf, minibatch_size=16, prefetch=True)
+    full_wf.initialize(device=CPUDevice())
+    job1, job2 = (full_master.generate_data_for_slave("s1")
+                  for _ in range(2))
+    full.apply_data_from_master(job1)
+    full.run()
+    numpy.testing.assert_array_equal(
+        full.minibatch_data.mem[:16, 0],
+        numpy.asarray(job1["indices"], numpy.float32) * 3)
+    full.prefetch_job_data(job2)
+    assert list(full._staged_indices_) == [(job2["minibatch_offset"], 16)]
+    full.apply_data_from_master(job2)
+    assert not full._staged_indices_
+    span = slice(job2["minibatch_offset"] - 16, job2["minibatch_offset"])
+    numpy.testing.assert_array_equal(full.shuffled_indices.mem[span],
+                                     job2["indices"])
+    numpy.testing.assert_array_equal(
+        full.shuffled_indices.devmem.numpy()[span], job2["indices"])

@@ -15,6 +15,11 @@ training of the MNIST MLP through the unit/workflow core
 (:mod:`veles_tpu_torch.samples.mnist` over :mod:`.units`,
 :mod:`.workflow`, :mod:`.memory`, :mod:`.loader` and :mod:`.znicz`),
 with its whole-workflow snapshots and train-state checkpoints
-(:mod:`.snapshotter`, :mod:`.checkpoint`).  Entry points run on the
-CUDA card unless the caller passes ``device="cpu"``.
+(:mod:`.snapshotter`, :mod:`.checkpoint`), and master/slave training
+over the job layer (:mod:`.parallel.jobs`) from the entry point,
+``python -m veles_tpu_torch <workflow> [-l HOST:PORT | -m HOST:PORT]``
+(:mod:`.__main__`, :mod:`.launcher`).  Entry points run on the CUDA card
+unless the caller passes ``device="cpu"`` (``-d cpu``).
 """
+
+__version__ = "0.1.0"

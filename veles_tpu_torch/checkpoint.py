@@ -227,6 +227,9 @@ class TrainCheckpointer(Logger):
         if os.path.exists(final):
             raise FileExistsError("step %d is already checkpointed in %s"
                                   % (step, self.directory))
+        # every rank has looked before rank 0 may commit: a rank that
+        # came late would find the step written and raise alone
+        _barrier()
         arrays = {}
         for path, leaf in _flatten(train_state).items():
             array = _host_array(leaf)

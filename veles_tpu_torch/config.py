@@ -3,12 +3,18 @@
 The port's own copy of :mod:`veles_tpu.config` (the port imports nothing
 of ``veles_tpu``): the same dotted namespace, trimmed to the defaults
 the paths the port runs: ``root.common.engine`` (``trace``,
-``precision_level``, ``precision_type``, ``pallas_reduce``, and the
-workflow's ``stitch``,
-``loader``, ``epoch_scan`` and ``metrics_every``) and the
+``precision_level``, ``precision_type``, ``pallas_reduce``, the
+workflow's ``stitch``, ``loader``, ``epoch_scan`` and
+``metrics_every``, and the job master's ``checkpoint``),
+``root.common.chaos`` (the fault injection of the job layer) and the
 ``root.common.gen`` subtree (``kv``, ``prefill_chunk``,
 ``prefix_cache``, ``speculative``), which auto-vivifies.
+:func:`update_from_arguments` applies the entry point's ``key=value``
+overrides and :func:`apply_site_config` its site configuration files.
 """
+
+import json
+import os
 
 
 class Config(object):
@@ -76,6 +82,17 @@ class Config(object):
             out[key] = value.to_dict() if isinstance(value, Config) else value
         return out
 
+    def print_(self, indent=0, file=None):
+        """Print the subtree, one key a line (``--dump-config``)."""
+        import sys
+        file = file or sys.stdout
+        for key, value in sorted(self.__dict__.items()):
+            if isinstance(value, Config):
+                print("%s%s:" % ("  " * indent, key), file=file)
+                value.print_(indent + 1, file)
+            else:
+                print("%s%s: %r" % ("  " * indent, key, value), file=file)
+
 
 #: The global configuration tree.
 root = Config("root")
@@ -124,6 +141,26 @@ root.common.update({
         # Training-health statistics in the stitched segments and
         # windows: "off" | "on" | "strict" (veles_tpu_torch.watch.health)
         "health": "off",
+        # The job master's crash recovery
+        # (veles_tpu_torch.parallel.jobs.JobServer): a non-empty "dir"
+        # checkpoints the workflow's train state there every
+        # "every_jobs" applied updates and at every epoch boundary.
+        "checkpoint": {"dir": "", "every_jobs": 0},
+    },
+    # Deterministic fault injection (veles_tpu_torch.chaos, read at
+    # chaos.configure(), which the Launcher calls at initialize):
+    # "schedule" is a list of fault dicts or the path of a JSON file of
+    # them; a run replays from (seed, schedule).
+    "chaos": {
+        "enabled": False,
+        "seed": 1234,
+        "schedule": [],
+        "drop_probability": 0.0,
+        "dup_probability": 0.0,
+        "delay_probability": 0.0,
+        "delay_ms": 50.0,
+        "corrupt_probability": 0.0,
+        "slave_death_probability": 0.0,
     },
     # Generative serving defaults (veles_tpu_torch.gen.engine); an
     # engine's keyword arguments win over them.
@@ -145,3 +182,41 @@ root.common.update({
         "draft_k": 4,
     },
 })
+
+
+def apply_site_config():
+    """Exec each site configuration file against ``root``: a
+    ``site_config.py`` beside the package, then the file named by
+    ``$VELES_TPU_TORCH_SITE_CONFIG``."""
+    candidates = [
+        os.path.join(os.path.dirname(__file__), "site_config.py"),
+        os.environ.get("VELES_TPU_TORCH_SITE_CONFIG", ""),
+    ]
+    for path in candidates:
+        if path and os.path.exists(path):
+            with open(path, "r") as fin:
+                code = compile(fin.read(), path, "exec")
+            exec(code, {"root": root})
+
+
+def update_from_arguments(pairs):
+    """Apply ``key=value`` overrides: ``key`` is a dotted path below
+    ``root`` (a leading ``root.`` is allowed); ``value`` is parsed as
+    JSON when it can be, else kept as a string."""
+    for pair in pairs:
+        key, sep, raw = pair.partition("=")
+        if not sep:
+            raise ValueError("override %r is not key=value" % pair)
+        try:
+            value = json.loads(raw)
+        except ValueError:
+            value = raw
+        node = root
+        parts = key.split(".")
+        if parts[0] == "root":
+            parts = parts[1:]
+        if not parts:
+            raise ValueError("override %r names no key below root" % pair)
+        for part in parts[:-1]:
+            node = getattr(node, part)
+        setattr(node, parts[-1], value)

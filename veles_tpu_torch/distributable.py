@@ -13,8 +13,8 @@ The port's counterpart of :mod:`veles_tpu.distributable`:
   brings its device storage along.
 * ``Distributable``: ``data_lock()`` around the master/slave data
   methods, with a deadlock warning after ``DEADLOCK_TIME`` seconds,
-  and the trivial ``generate_/apply_`` defaults of the job contract.
-  The job protocol that calls them waits for ROADMAP item 7(e).
+  and the trivial ``generate_/apply_`` defaults of the job contract,
+  which the job layer (:mod:`veles_tpu_torch.parallel.jobs`) calls.
 """
 
 import contextlib

@@ -11,9 +11,9 @@ class DummyLauncher(Logger):
 
     def __init__(self, **kwargs):
         super(DummyLauncher, self).__init__()
-        self.is_master = False
-        self.is_slave = False
-        self.is_standalone = True
+        self.is_master = kwargs.get("is_master", False)
+        self.is_slave = kwargs.get("is_slave", False)
+        self.is_standalone = not (self.is_master or self.is_slave)
         self.stopped = False
         self.workflow = None
 
@@ -26,10 +26,15 @@ class DummyLauncher(Logger):
     def on_workflow_finished(self):
         self.stopped = True
 
+    def stop(self):
+        self.stopped = True
+
 
 class DummyWorkflow(Workflow):
     """A workflow pre-wired to a DummyLauncher."""
 
     def __init__(self, **kwargs):
         super(DummyWorkflow, self).__init__(None, **kwargs)
-        self.launcher = DummyLauncher()
+        self.launcher = DummyLauncher(
+            is_master=kwargs.get("is_master", False),
+            is_slave=kwargs.get("is_slave", False))

@@ -46,9 +46,18 @@ serves the dataset unshuffled from its start, the TEST pass ending the
 epoch.  They act on the serving bookkeeping, so every route serves the
 JAX package's index sequence: the eager fill, the stitched loader head
 and the epoch-scan windows read the same offsets; the fused trainer's
-epoch mode refuses a ``train_ratio`` as the JAX one does.  Not ported:
-the slave half of the prefetch (``prefetch_job_data``) and the rest of
-the master/slave job methods (ROADMAP item 7(e)).
+epoch mode refuses a ``train_ratio`` as the JAX one does.
+
+The job contract (:mod:`veles_tpu_torch.parallel.jobs`): a master serves
+each slave's minibatch (``generate_data_for_slave``: its indices, class,
+size, offset and epoch) without filling anything, keeps it pending under
+the slave's id until its update comes (``apply_data_from_slave``), and
+requeues a dead slave's pending minibatches into the retry queue
+(``drop_slave``).  A slave installs a job's span of indices into its
+shuffled index space and serves exactly that minibatch
+(``apply_data_from_master``); ``prefetch_job_data`` fills the next
+job's minibatch in the background while the current one computes (a
+host-fill loader with ``prefetch``).
 """
 
 import collections
@@ -193,6 +202,10 @@ class Loader(Unit):
         return self._effective_class_end_offsets
 
     @property
+    def pending_minibatches_count(self):
+        return sum(len(v) for v in self.pending_minibatches_.values())
+
+    @property
     def class_ended(self):
         for offset in self.effective_class_end_offsets:
             if self.global_offset == offset:
@@ -322,10 +335,12 @@ class Loader(Unit):
                 return class_index, offset - index
         raise LoaderError("sample index %d out of range" % index)
 
-    def serve_next_minibatch(self, fill=True):
+    def serve_next_minibatch(self, fill=True, consumer_id=None):
         """Take the next (offset, size), a failed one first, update the
         epoch flags and fill the minibatch (``fill=False``: leave the
-        fill to a stitched segment)."""
+        fill to a stitched segment).  The minibatch stays pending under
+        ``consumer_id`` (a slave's id on a master, which fills
+        nothing)."""
         with trace.span("loader", "serve_minibatch"):
             retried = bool(self.failed_minibatches)
             if retried:
@@ -333,7 +348,7 @@ class Loader(Unit):
             else:
                 minibatch_def = self._advance_global_offset()
             minibatch_offset, minibatch_size = minibatch_def
-            self.pending_minibatches_[None].append(minibatch_def)
+            self.pending_minibatches_[consumer_id].append(minibatch_def)
             self.minibatch_offset = minibatch_offset
             self.minibatch_size = minibatch_size
             if retried:
@@ -347,7 +362,7 @@ class Loader(Unit):
                 self._update_flags()
             self.fill_indices(minibatch_offset - minibatch_size,
                               minibatch_size)
-            if not fill:
+            if self.is_master or not fill:
                 return
             if self._consume_prefetched((minibatch_offset,
                                          minibatch_size)):
@@ -409,6 +424,9 @@ class Loader(Unit):
             (1.0 - self.train_ratio) * self.class_lengths[TRAIN])
 
     def _advance_global_offset(self):
+        if self.is_slave:
+            # the job's minibatch, installed by apply_data_from_master
+            return self.minibatch_offset, self.minibatch_size
         if self.global_offset >= self.effective_total_samples:
             self.global_offset = 0
             self.epoch_number += 1
@@ -424,7 +442,12 @@ class Loader(Unit):
         return self.global_offset, minibatch_size
 
     def _update_flags(self):
-        last_mb = self.class_ended and not self.failed_minibatches
+        if self.is_slave:
+            return
+        last_mb = (self.class_ended
+                   and (not self.pending_minibatches_count
+                        or not self.is_master)
+                   and not self.failed_minibatches)
         self.last_minibatch <<= last_mb
         self.epoch_ended <<= last_mb and (
             self.minibatch_class == VALID or
@@ -437,11 +460,10 @@ class Loader(Unit):
     # -- prefetch (the next minibatch filled in the background) -------------
     def _peek_next_minibatch(self):
         """The ``(offset, size)`` the next serve will pick, or None when
-        a retried minibatch or an epoch wrap (a reshuffle) comes first.
-        The port's loader has no master/slave mode, the JAX package's
-        other case."""
-        if self.failed_minibatches \
-                or self.global_offset >= self.effective_total_samples:
+        a retried minibatch or an epoch wrap (a reshuffle) comes first,
+        or in master/slave mode (a slave's prefetch follows its jobs)."""
+        if (self.is_slave or self.is_master or self.failed_minibatches
+                or self.global_offset >= self.effective_total_samples):
             return None
         _cls, remainder = self.class_index_by_sample_index(
             self.global_offset)
@@ -504,6 +526,9 @@ class Loader(Unit):
         """Start a background fill of the predicted next minibatch."""
         if not (self.prefetch and self.supports_prefetch):
             return
+        if self.is_slave or self.is_master:
+            # a slave's prefetch is prefetch_job_data's (the next job)
+            return
         nxt = self._peek_next_minibatch()
         if nxt is None:
             # an epoch wrap reshuffles: whatever is buffered may be
@@ -516,11 +541,18 @@ class Loader(Unit):
         self._submit_fill(nxt, indices, size)
 
     def prefetch_job_data(self, data):
-        """The slave half of the prefetch (the next job's indices filled
-        while the current job computes) waits for the job protocol."""
-        raise NotImplementedError(
-            "Loader.prefetch_job_data (the slave half of the prefetch "
-            "ring) is not ported yet (ROADMAP item 7)")
+        """Slave: start filling the NEXT job's minibatch (its payload's
+        indices) in the background while the current job computes, so
+        that its serve publishes it ready."""
+        if not (self.prefetch and self.supports_prefetch):
+            return
+        key = (int(data["minibatch_offset"]), int(data["minibatch_size"]))
+        # at most two in flight (the job pipeline is two deep); the same
+        # key keeps the older fill, which the serve meets first
+        if len(self._prefetch_futures_) >= 2 \
+                or key in self._prefetch_futures_:
+            return
+        self._submit_fill(key, numpy.array(data["indices"]), key[1])
 
     def _consume_prefetched(self, minibatch_def):
         """Publish the prepared minibatch when a background fill
@@ -530,7 +562,9 @@ class Loader(Unit):
         key = (int(minibatch_def[0]), int(minibatch_def[1]))
         fut = self._prefetch_futures_.pop(key, None)
         if fut is None:
-            self._prefetch_futures_.clear()
+            if not self.is_slave:
+                # stale predictions; a slave's may be the next job's
+                self._prefetch_futures_.clear()
             return False
         try:
             data, labels, raw_labels, dev_data, dev_labels = fut.result()
@@ -592,6 +626,63 @@ class Loader(Unit):
                     start + offset:start + offset + self.minibatch_size]
             self.fill_minibatch()
             fn()
+
+    # -- the job contract -----------------------------------------------------
+    def generate_data_for_master(self):
+        return True
+
+    def generate_data_for_slave(self, slave=None):
+        """Master: serve the slave's minibatch (kept pending under its
+        id) and describe it."""
+        sid = getattr(slave, "id", slave)
+        self.serve_next_minibatch(consumer_id=sid)
+        data = {"indices": numpy.array(
+            self.minibatch_indices.mem[:self.minibatch_size])}
+        for attr in ("minibatch_class", "minibatch_size",
+                     "minibatch_offset", "epoch_number"):
+            data[attr] = int(getattr(self, attr))
+        return data
+
+    def _install_job(self, data):
+        """The job's serving state: its class, size, offset and epoch,
+        the epoch flags down."""
+        for attr in ("minibatch_class", "minibatch_size",
+                     "minibatch_offset", "epoch_number"):
+            setattr(self, attr, int(data[attr]))
+        self.last_minibatch <<= False
+        self.epoch_ended <<= False
+        self.train_ended <<= False
+        if numpy.asarray(data["indices"]).size != self.minibatch_size:
+            raise LoaderError("minibatch size mismatch in job payload")
+
+    def apply_data_from_master(self, data):
+        """Slave: the job's span of indices into the shuffled index
+        space, where the serve takes it."""
+        self._install_job(data)
+        if not self.shuffled_indices:
+            self.shuffled_indices.mem = numpy.arange(
+                self.total_samples, dtype=INDEX_DTYPE)
+        self.shuffled_indices.map_write()
+        self.shuffled_indices.mem[
+            self.minibatch_offset - self.minibatch_size:
+            self.minibatch_offset] = data["indices"]
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Master: the slave's oldest pending minibatch is done."""
+        sid = getattr(slave, "id", slave)
+        if not self.pending_minibatches_.get(sid):
+            raise LoaderError("no pending minibatches for slave %r" % sid)
+        self.minibatch_offset, self.minibatch_size = \
+            self.pending_minibatches_[sid].pop()
+        self.samples_served += self.minibatch_size
+
+    def drop_slave(self, slave=None):
+        """Master: requeue a gone slave's pending minibatches."""
+        sid = getattr(slave, "id", slave)
+        if sid in self.pending_minibatches_:
+            failed = self.pending_minibatches_.pop(sid)
+            self.failed_minibatches.extend(failed)
+            self.info("requeued %d failed minibatches", len(failed))
 
     # -- the train-state checkpoint ------------------------------------------
     def checkpoint_state(self):

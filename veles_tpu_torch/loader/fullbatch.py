@@ -45,16 +45,23 @@ is the same launch over rows ``[first, first + rows)`` of each minibatch
 (a pod rank's, :mod:`veles_tpu_torch.pod.runtime`): the offset moved by
 ``first``, the size clamped to the rank's rows.  :class:`FullBatchLoaderMSE` adds the
 regression targets, a raw float32 table padded with 0 that rides in the
-same launch on both routes.  The slave half of the job protocol
-(``prefetch_job_data``, ``apply_data_from_master``) waits for ROADMAP
-item 7.
+same launch on both routes.
+
+A slave (:mod:`veles_tpu_torch.parallel.jobs`) keeps the dataset
+resident across its jobs: a job moves only its span of indices into the
+shuffled index buffer (one in-place upload at the head's next dispatch).
+With ``prefetch`` on the device fast path, ``prefetch_job_data`` merges
+the next job's span into a copy of the buffer and uploads it in the
+background while the current job computes, and
+``apply_data_from_master`` publishes that copy when the job comes.
 """
 
 import numpy
 
 from veles_tpu_torch.config import root
-from veles_tpu_torch.loader.base import Loader, LoaderError, TRAIN
-from veles_tpu_torch.memory import Vector
+from veles_tpu_torch.loader.base import (INDEX_DTYPE, Loader, LoaderError,
+                                         TRAIN)
+from veles_tpu_torch.memory import StagingRing, Vector
 from veles_tpu_torch.ops.gather import (affine_tensors, take_rows_group,
                                         take_rows_served)
 
@@ -88,6 +95,9 @@ class FullBatchLoader(Loader):
         super(FullBatchLoader, self).init_unpickled()
         #: ``input_norm`` as device tensors, made at initialize
         self._input_norm_dev_ = None
+        #: a slave's staged next job: {(offset, size): (host, Future)}
+        self._staged_indices_ = {}
+        self._index_ring_ = None
 
     @property
     def has_labels(self):
@@ -198,14 +208,42 @@ class FullBatchLoader(Loader):
         """No-op: the labels were mapped once into ``resident_labels``."""
 
     def prefetch_job_data(self, data):
-        raise NotImplementedError(
-            "FullBatchLoader.prefetch_job_data (the slave's staged index "
-            "span) is not ported yet (ROADMAP item 7)")
+        """Slave lookahead on the device fast path: the next job's span
+        merged into a copy of the shuffled indices, uploaded in the
+        background (opt in with ``prefetch``, as the host fill ring)."""
+        if not self.device_fast_path_active:
+            return super(FullBatchLoader, self).prefetch_job_data(data)
+        if not self.prefetch or self._staged_indices_:
+            # one staged span at a time: a second merge would copy the
+            # buffer before the first span lands in it
+            return
+        key = (int(data["minibatch_offset"]), int(data["minibatch_size"]))
+        if self._index_ring_ is None:
+            target = getattr(self.device, "torch_device", None)
+            self._index_ring_ = StagingRing(
+                self.shuffled_indices.shape, INDEX_DTYPE, depth=3,
+                pin=target is not None and target.type == "cuda")
+        merged = self._index_ring_.acquire()
+        merged[...] = self.shuffled_indices.mem
+        merged[key[0] - key[1]:key[0]] = numpy.asarray(
+            data["indices"], dtype=INDEX_DTYPE)
+        from veles_tpu_torch import thread_pool
+        fut = thread_pool.submit(self._index_ring_.upload, self.device,
+                                 merged)
+        self._staged_indices_[key] = (merged, fut)
 
     def apply_data_from_master(self, data):
-        raise NotImplementedError(
-            "FullBatchLoader.apply_data_from_master (the job protocol) "
-            "is not ported yet (ROADMAP item 7)")
+        key = (int(data["minibatch_offset"]), int(data["minibatch_size"]))
+        staged = self._staged_indices_.pop(key, None)
+        # a miss means the lookahead is stale (the pipeline is two deep)
+        self._staged_indices_.clear()
+        if staged is None:
+            return super(FullBatchLoader, self).apply_data_from_master(data)
+        self._install_job(data)
+        merged, fut = staged
+        dev = fut.result()
+        self.shuffled_indices.publish(
+            merged, dev.take() if dev is not None else None)
 
     # -- the loader-headed stitched segment (the device fast path) -----------
     def _device_stage_plan(self):

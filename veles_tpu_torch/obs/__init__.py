@@ -14,9 +14,9 @@ scrape endpoint and the flight recorder, the port's counterpart of
   ``root.common.obs.blackbox_dir`` (:func:`configure`, called at
   ``Workflow.initialize``).
 
-``python -m veles_tpu.obs`` is not ported yet: its cross-process phase
-drives the ZMQ job wire (ROADMAP.md, 'Slices still to port', item
-7(e)).
+``python -m veles_tpu.obs`` is not ported yet (ROADMAP.md, 'Slices
+still to port', item 7(e)): its cross-process phase drives the job wire
+(:mod:`veles_tpu_torch.parallel.jobs`).
 """
 
 from veles_tpu_torch.obs import blackbox, context, scrape, slo  # noqa: F401

@@ -10,9 +10,9 @@ the perf-ledger gauges always, the trace category counters when tracing
 is on, a declared :class:`~veles_tpu_torch.obs.slo.SLOEngine` when
 given, and the training-health source (:func:`veles_tpu_torch.watch
 .metrics_text`: the health gauges and the bus counters, empty when
-neither is armed).  The job master's and slaves' endpoints
-(``JobServer.start_scrape``, ``JobClient.start_scrape``) wait for
-ROADMAP item 7(e).
+neither is armed).  The job master and its slaves mount their own
+(``JobServer.start_scrape``, ``JobClient.start_scrape``,
+:mod:`veles_tpu_torch.parallel.jobs`).
 
 The exposition text comes from the same renderers the serving
 ``/metrics`` page uses, so one Prometheus config scrapes every role

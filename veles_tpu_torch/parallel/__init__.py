@@ -1,6 +1,8 @@
-"""The SPMD library on ``torch.distributed``.  Counterpart of
-:mod:`veles_tpu.parallel` (without ``jobs``, the elastic job layer,
-ROADMAP item 7(e)).
+"""The SPMD library on ``torch.distributed`` and the elastic job layer.
+Counterpart of :mod:`veles_tpu.parallel`.  The job layer
+(:mod:`.jobs`, master–slave task distribution over the standard
+library's TCP in :mod:`.wire`) is imported on its own: it needs no
+process group.
 
 Every process is one rank of the default process group
 (:func:`multihost.initialize`: NCCL on the card, gloo on the CPU) and

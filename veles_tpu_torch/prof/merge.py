@@ -11,11 +11,13 @@ ledger summary::
                       "offset_ns": <master_clock - slave_clock>}}}
 
 ``offset_ns`` is the master's clock minus the slave's, and the merge
-shifts each slave's timestamps by it.  In the JAX package the job
-protocol ships the slaves' halves and measures the offsets on the
-heartbeat wire; the port's job protocol is ROADMAP item 7(e), so no
-producer of bundles exists in the port yet (:func:`make_bundle` builds
-one from trace exports and ledger summaries in hand).
+shifts each slave's timestamps by it.  The job layer produces bundles
+(:meth:`veles_tpu_torch.parallel.jobs.JobServer.save_session_profile`):
+the slaves ship their halves over the job wire at the end of their run
+(op ``prof``), and the master measures each offset on the heartbeat
+wire (the minimum of ``recv_ns - sent_ns`` over the slave's pings).
+:func:`make_bundle` builds one from trace exports and ledger summaries
+in hand.
 
 ``python -m veles_tpu_torch.prof merge session.json -o merged.json``
 writes the single Perfetto-loadable timeline (master + ``slave-<sid>``
@@ -40,7 +42,8 @@ def load(path):
         payload = json.load(fin)
     if not is_bundle(payload):
         raise ValueError(
-            "%s is not a prof session bundle (make_bundle writes one)"
+            "%s is not a prof session bundle (JobServer.save_session_profile "
+            "or make_bundle writes one)"
             % path)
     return payload
 

@@ -23,11 +23,10 @@ import sys
 import numpy
 
 from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
-from veles_tpu_torch.backends import make_device
-from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.plumbing import Repeater
+from veles_tpu_torch.samples import launch
 from veles_tpu_torch.units import Unit
 from veles_tpu_torch.znicz.kohonen import KohonenForward, KohonenTrainer
 
@@ -98,12 +97,10 @@ class KohonenWorkflow(AcceleratedWorkflow):
 
 def create_workflow(device=None, **kwargs):
     """The SOM workflow, initialized on ``device`` (the card when None;
-    raises without one)."""
-    device = make_device(device)
-    wf = KohonenWorkflow(None, **kwargs)
-    wf.launcher = DummyLauncher()
-    wf.initialize(device=device)
-    return wf
+    raises without one); given ``launcher=``, left to the launcher to
+    initialize."""
+    launcher = kwargs.pop("launcher", None)
+    return launch(KohonenWorkflow(None, **kwargs), launcher, device)
 
 
 def main(argv=None):

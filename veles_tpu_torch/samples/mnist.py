@@ -35,10 +35,9 @@ import time
 
 import numpy
 
-from veles_tpu_torch.backends import make_device
 from veles_tpu_torch.config import root
-from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.samples import launch
 from veles_tpu_torch.samples.datasets import load_mnist
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
 
@@ -71,18 +70,23 @@ class MnistLoader(FullBatchLoader):
         self.class_lengths[:] = [0, len(te_y), len(tr_y)]
 
 
-def create_workflow(device=None, max_epochs=25, minibatch_size=100,
+def create_workflow(device=None, max_epochs=None, minibatch_size=100,
                     snapshot_dir=None, layers=None, native=False,
                     fused=False, fused_config=None, **kwargs):
     """The MNIST MLP workflow, initialized on ``device`` (the card when
-    None; raises without one).  ``native=True``: the uint8-resident
+    None; raises without one); given ``launcher=``, left to the
+    launcher to initialize.  ``native=True``: the uint8-resident
     dataset, normalized by ``"scale"`` (1/255) in the stitched loader
     head, or in the fused step with ``fused=True``, unless
     ``normalization_type`` says otherwise.  ``fused_config``: the
     FusedTrainer's knobs.
     ``snapshot_dir``: snapshot every improving validation there
-    (``mnist_<error>pt.pickle.gz``), which keeps the per-step route."""
-    device = make_device(device)
+    (``mnist_<error>pt.pickle.gz``), which keeps the per-step route.
+    ``max_epochs`` defaults to ``root.mnist.max_epochs``, else 25."""
+    launcher = kwargs.pop("launcher", None)
+    if max_epochs is None:
+        # the entry point sets it as root.mnist.max_epochs=N
+        max_epochs = int((root.get("mnist") or {}).get("max_epochs", 25))
     normalization = kwargs.pop("normalization_type",
                                "scale" if native else "none")
     wf = StandardWorkflow(
@@ -97,9 +101,7 @@ def create_workflow(device=None, max_epochs=25, minibatch_size=100,
         snapshotter_config={"directory": snapshot_dir, "prefix": "mnist"}
         if snapshot_dir else None,
         fused=fused, fused_config=fused_config, **kwargs)
-    wf.launcher = DummyLauncher()
-    wf.initialize(device=device)
-    return wf
+    return launch(wf, launcher, device)
 
 
 def main(argv=None):

@@ -37,8 +37,8 @@ import numpy
 
 from veles_tpu_torch.backends import make_device
 from veles_tpu_torch.config import root
-from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.fullbatch import FullBatchLoaderMSE
+from veles_tpu_torch.samples import launch
 from veles_tpu_torch.samples.datasets import load_mnist
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
 
@@ -125,8 +125,9 @@ def create_workflow(device=None, max_epochs=15, minibatch_size=100,
     """The autoencoder workflow (the conv one with ``conv``),
     initialized on ``device`` (the card when None; raises without
     one); ``rbm_pretrain`` starts the MLP one from an RBM's weights,
-    pretrained on that device."""
-    device = make_device(device)
+    pretrained on that device (a launcher's device, given ``launcher=``,
+    which is then left to initialize the workflow)."""
+    launcher = kwargs.pop("launcher", None)
     loader_class = MnistConvAELoader if conv else MnistAELoader
     layers = kwargs.pop("layers", None) or (
         make_conv_layers() if conv else make_layers(hidden=hidden))
@@ -135,7 +136,9 @@ def create_workflow(device=None, max_epochs=15, minibatch_size=100,
         trainer = pretrain_rbm(
             numpy.ascontiguousarray(tr_x.reshape(len(tr_x), -1)[:2000],
                                     dtype=numpy.float32),
-            hidden=hidden, epochs=1, device=device)
+            hidden=hidden, epochs=1, device=make_device(
+                device if launcher is None
+                else getattr(launcher, "device_spec", device)))
         for layer, seeded in zip(layers, trainer.to_autoencoder_specs()):
             layer["init"] = seeded["init"]
     wf = StandardWorkflow(
@@ -146,9 +149,7 @@ def create_workflow(device=None, max_epochs=15, minibatch_size=100,
         loss_function="mse",
         decision_config={"max_epochs": max_epochs},
         **kwargs)
-    wf.launcher = DummyLauncher()
-    wf.initialize(device=device)
-    return wf
+    return launch(wf, launcher, device)
 
 
 def main(argv=None):

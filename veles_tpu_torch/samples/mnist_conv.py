@@ -27,10 +27,9 @@ import time
 
 import numpy
 
-from veles_tpu_torch.backends import make_device
 from veles_tpu_torch.config import root
-from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.samples import launch
 from veles_tpu_torch.samples.datasets import load_mnist
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
 
@@ -70,8 +69,9 @@ class MnistConvLoader(FullBatchLoader):
 def create_workflow(device=None, max_epochs=25, minibatch_size=100,
                     layers=None, loader_class=MnistConvLoader, **kwargs):
     """The workflow over ``loader_class``'s dataset, initialized on
-    ``device`` (the card when None; raises without one)."""
-    device = make_device(device)
+    ``device`` (the card when None; raises without one); given
+    ``launcher=``, left to the launcher to initialize."""
+    launcher = kwargs.pop("launcher", None)
     loader_kwargs = {"minibatch_size": minibatch_size}
     if "normalization_type" in kwargs:
         loader_kwargs["normalization_type"] = kwargs.pop(
@@ -82,9 +82,7 @@ def create_workflow(device=None, max_epochs=25, minibatch_size=100,
         layers=[{**spec} for spec in (layers or LAYERS)],
         decision_config={"max_epochs": max_epochs},
         **kwargs)
-    wf.launcher = DummyLauncher()
-    wf.initialize(device=device)
-    return wf
+    return launch(wf, launcher, device)
 
 
 def run_cli(prog, create, argv, max_epochs):

@@ -24,9 +24,8 @@ import sys
 
 import numpy
 
-from veles_tpu_torch.backends import make_device
-from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.samples import launch
 from veles_tpu_torch.samples.datasets import load_mnist
 from veles_tpu_torch.samples.mnist_conv import run_cli
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
@@ -62,8 +61,9 @@ def create_workflow(device=None, max_epochs=10, minibatch_size=100,
                     layers=None, **kwargs):
     """The workflow, initialized on ``device`` (the card when None;
     raises without one).  ``layers`` replaces :data:`LAYERS` (a narrow
-    LSTM for the CPU tests)."""
-    device = make_device(device)
+    LSTM for the CPU tests); given ``launcher=``, left to the launcher
+    to initialize."""
+    launcher = kwargs.pop("launcher", None)
     wf = StandardWorkflow(
         None,
         loader_factory=lambda w: MnistRowsLoader(
@@ -71,9 +71,7 @@ def create_workflow(device=None, max_epochs=10, minibatch_size=100,
         layers=[{**spec} for spec in (layers or LAYERS)],
         decision_config={"max_epochs": max_epochs},
         **kwargs)
-    wf.launcher = DummyLauncher()
-    wf.initialize(device=device)
-    return wf
+    return launch(wf, launcher, device)
 
 
 def main(argv=None):

@@ -687,7 +687,8 @@ def _constant_false(cell):
 
 
 def _gate_compatible(head, unit):
-    if unit.ignores_gate or not _constant_false(unit.gate_block):
+    if unit.ignores_gate or unit.wants_thread \
+            or not _constant_false(unit.gate_block):
         return False
     return (_constant_false(unit.gate_skip)
             or unit.gate_skip is head.gate_skip)
@@ -729,7 +730,7 @@ def build_segments(workflow):
         if id(unit) in assigned or unit is workflow:
             continue
         head_stage = _stage_of(unit, cache)
-        if head_stage is None:
+        if head_stage is None or unit.wants_thread:
             continue
         chain, stages, cur = [unit], [head_stage], unit
         while True:

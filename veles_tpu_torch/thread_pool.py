@@ -2,9 +2,11 @@
 :mod:`veles_tpu.thread_pool`.
 
 One process-wide :class:`~concurrent.futures.ThreadPoolExecutor` for
-host-blocking work.  The port's one caller is the loader's prefetch
-ring (:mod:`veles_tpu_torch.loader.base`); background units
-(``wants_thread``) wait for ROADMAP item 7.
+host-blocking work: the loader's prefetch ring
+(:mod:`veles_tpu_torch.loader.base`), background units
+(``wants_thread``, :mod:`veles_tpu_torch.workflow`) and the job layer's
+job generation and checkpoint writes
+(:mod:`veles_tpu_torch.parallel.jobs`).
 """
 
 import atexit

@@ -21,7 +21,10 @@ JAX package.  Segment stitching: a unit opts in by returning a
 :class:`veles_tpu_torch.stitch.StitchStage` from ``stitch_stage()``;
 while the workflow runs with ``stitch_active``, ``run_wrapped`` goes
 through the unit's segment (the head dispatches it, members no-op).
-Background units (``wants_thread``) are not ported (ROADMAP item 7).
+A unit with ``wants_thread`` runs on the workflow's background executor
+(and is a stitching barrier); a trigger that arrives while its previous
+run is still going is discarded with its propagation, as in the JAX
+package.  ``is_master`` / ``is_slave`` read the workflow's launcher.
 
 A unit pickles without its transient state (``_``-suffixed: the gate
 lock, the segment membership, the workflow back-reference, which
@@ -66,6 +69,9 @@ class Unit(Distributable, metaclass=UnitRegistry):
 
     hide_from_registry = True
 
+    #: run on the workflow's background executor (host-blocking work)
+    wants_thread = False
+
     def __init__(self, workflow, **kwargs):
         self.name = kwargs.get("name", self.__class__.__name__)
         #: incoming control edges: {unit: fired?}
@@ -87,6 +93,7 @@ class Unit(Distributable, metaclass=UnitRegistry):
     def init_unpickled(self):
         super(Unit, self).init_unpickled()
         self._gate_lock_ = threading.Lock()
+        self._run_lock_ = threading.Lock()
         # the segments hold CUDA graphs: Workflow.initialize rebuilds
         # the membership after an unpickle
         self._stitch_segment_ = None
@@ -109,12 +116,30 @@ class Unit(Distributable, metaclass=UnitRegistry):
     def workflow(self, value):
         self._workflow_ref_ = value
 
+    @property
+    def is_master(self):
+        wf = self.workflow
+        return wf.is_master if wf is not None else False
+
+    @property
+    def is_slave(self):
+        wf = self.workflow
+        return wf.is_slave if wf is not None else False
+
     # -- graph construction -------------------------------------------------
     def link_from(self, *src_units):
         """Add control edges ``src → self``."""
         for src in src_units:
             self.links_from[src] = False
             src.links_to[self] = True
+        self._is_initialized = False
+        return self
+
+    def unlink_from(self, *src_units):
+        """Remove control edges ``src → self``."""
+        for src in src_units:
+            self.links_from.pop(src, None)
+            src.links_to.pop(self, None)
         self._is_initialized = False
         return self
 
@@ -192,8 +217,16 @@ class Unit(Distributable, metaclass=UnitRegistry):
             return
         if bool(self.gate_block):
             return
-        if not bool(self.gate_skip):
-            self.run_wrapped()
+        # a trigger arriving while the previous run still goes (only
+        # background units can make one) is discarded with its
+        # propagation
+        if not self._run_lock_.acquire(blocking=False):
+            return
+        try:
+            if not bool(self.gate_skip):
+                self.run_wrapped()
+        finally:
+            self._run_lock_.release()
         self.run_dependent()
 
     def run_wrapped(self):

@@ -24,13 +24,32 @@ graphs are captured again over the new tensors).
 ``capture_train_state()`` / ``restore_train_state()`` split the units'
 ``checkpoint_state()`` into arrays and small values for
 :class:`veles_tpu_torch.checkpoint.TrainCheckpointer`, under the JAX
-package's keys, so a JAX pair installs unchanged.  Not ported (ROADMAP
-item 7): the master/slave job protocol, ``checksum`` and
-``package_export``.
+package's keys, so a JAX pair installs unchanged.
+
+Background units: a unit with ``wants_thread`` runs on the host thread
+pool (:mod:`veles_tpu_torch.thread_pool`) instead of the draining
+thread, and its downstream units are scheduled from the worker after its
+``run()``, so the control graph's order holds; ``run()`` returns only
+once no background unit is in flight.
+
+The master/slave job contract (:mod:`veles_tpu_torch.parallel.jobs`): a
+master never runs the graph; it serves ``generate_data_for_slave()``
+(each unit's payload, in dependency order) and merges
+``apply_data_from_slave()``.  A slave's ``do_job()`` installs a payload
+(``apply_data_from_master``), runs the graph once and hands
+``generate_data_for_master()`` to the job's callback when the end point
+fires.  ``checksum()`` content-addresses the graph and the files of the
+modules that define its units (by module name, not path), so a master
+and a slave running different code refuse each other at the handshake:
+the port's units live in the port's files, so a JAX master and a port
+slave never agree.  Not ported: ``package_export`` (ROADMAP item 7(e)).
 """
 
 import collections
+import hashlib
 import inspect
+import os
+import threading
 import time
 
 import numpy
@@ -40,13 +59,35 @@ from veles_tpu_torch.plumbing import EndPoint, StartPoint
 from veles_tpu_torch.units import MissingDemandedAttributes, Unit
 
 
+class ChecksumError(Exception):
+    """A unit's defining code cannot be content-addressed: the
+    master/slave code-mismatch check would be unsound, so ``checksum()``
+    fails closed."""
+
+
+class NoMoreJobs(Exception):
+    """The master has no further jobs for slaves."""
+
+
+class NoJobYet(Exception):
+    """The master has nothing to hand out right now, but more jobs may
+    appear; the slave should retry shortly instead of quitting."""
+
+
 class Workflow(Unit):
     """Container unit holding and executing a unit graph."""
 
     hide_from_registry = True
 
+    #: seconds ``run()`` waits for background units in flight after the
+    #: queue drained before it raises (warnings every 60 s until then)
+    QUIESCENCE_TIMEOUT = 600.0
+
     def __init__(self, workflow=None, **kwargs):
         self._units = []
+        #: where ``write_results()`` writes ``gather_results()`` (and a
+        #: master's or a standalone run's end writes it)
+        self.result_file = kwargs.get("result_file")
         super(Workflow, self).__init__(workflow, **kwargs)
         self._launcher = None
         if kwargs.get("launcher") is not None:
@@ -58,6 +99,11 @@ class Workflow(Unit):
     def init_unpickled(self):
         super(Workflow, self).init_unpickled()
         self._queue_ = collections.deque()
+        self._queue_cond_ = threading.Condition(threading.Lock())
+        #: background units running on the thread pool
+        self._inflight_ = 0
+        #: a slave's job callback, called once at the end point
+        self._job_callback_ = None
         self._stitch_segments_ = []
         self._epoch_runner_ = None
         self._stitch_active_ = False
@@ -95,6 +141,18 @@ class Workflow(Unit):
         if value is not None:
             value.add_ref(self)
 
+    @property
+    def is_master(self):
+        return getattr(self._launcher, "is_master", False)
+
+    @property
+    def is_slave(self):
+        return getattr(self._launcher, "is_slave", False)
+
+    @property
+    def is_standalone(self):
+        return getattr(self._launcher, "is_standalone", True)
+
     # -- initialization ----------------------------------------------------
     def units_in_dependency_order(self):
         """BFS from ``start_point`` over control edges; units it does not
@@ -113,7 +171,9 @@ class Workflow(Unit):
                     frontier.append(dst)
         unreachable = [u for u in self._units if id(u) not in seen_set]
         flagged = [u.name for u in unreachable if u is not self.end_point]
-        if flagged:
+        # once: the job contract walks the order at every job
+        if flagged and not getattr(self, "_warned_unreachable_", False):
+            self._warned_unreachable_ = True
             self.warning("%d unit(s) unreachable from start_point, appended "
                          "in insertion order: %s", len(flagged),
                          ", ".join(flagged))
@@ -208,12 +268,17 @@ class Workflow(Unit):
     # -- execution ----------------------------------------------------------
     def schedule(self, unit, src):
         """Enqueue a gate check of ``unit`` triggered by ``src``."""
-        self._queue_.append((unit, src))
+        with self._queue_cond_:
+            self._queue_.append((unit, src))
+            self._queue_cond_.notify_all()
 
     def run(self):
-        """Run the graph until the end point fires (or a unit fails)."""
+        """Run the graph until the end point fires (or a unit fails).  A
+        master never runs the graph: its slaves' jobs drive it."""
         if not self._is_initialized:
             raise RuntimeError("initialize() the workflow before run()")
+        if self.is_master:
+            return
         from veles_tpu_torch import stitch
         if stitch.enabled() != self._stitch_built_enabled_:
             self.rebuild_stitching()
@@ -261,28 +326,178 @@ class Workflow(Unit):
         return event
 
     def _drain(self):
-        """Pop and run until the queue is empty or the workflow stops."""
+        """Pop and run until the queue is empty and no background unit
+        is in flight (or the workflow stops).  A ``wants_thread`` unit
+        runs on the thread pool and schedules its downstream units from
+        there; units not downstream of it keep draining meanwhile."""
         queue = self._queue_
-        while queue and not self.stopped:
-            unit, src = queue.popleft()
+        cond = self._queue_cond_
+        while True:
+            with cond:
+                while not queue and self._inflight_ and not self.stopped:
+                    cond.wait(0.05)
+                if self.stopped or (not queue and not self._inflight_):
+                    break
+                unit, src = queue.popleft()
+            if unit.wants_thread:
+                self._spawn(unit, src)
+            else:
+                unit._check_gate_and_run(src)
+        # returning means the graph is quiescent: a background unit
+        # still running would race a snapshot or the teardown
+        with cond:
+            start = time.time()
+            next_warn = 60.0
+            while self._inflight_:
+                cond.wait(0.5)
+                elapsed = time.time() - start
+                if self._inflight_ and elapsed >= self.QUIESCENCE_TIMEOUT:
+                    raise RuntimeError(
+                        "workflow not quiescent: %d background unit(s) "
+                        "still running %.0f s after the drain"
+                        % (self._inflight_, elapsed))
+                if self._inflight_ and elapsed >= next_warn:
+                    self.warning("%d background unit(s) still running "
+                                 "%.0f s after the drain", self._inflight_,
+                                 elapsed)
+                    next_warn += 60.0
+            queue.clear()
+
+    def _spawn(self, unit, src):
+        from veles_tpu_torch import thread_pool
+        with self._queue_cond_:
+            self._inflight_ += 1
+        thread_pool.submit(self._run_background, unit, src)
+
+    def _run_background(self, unit, src):
+        try:
             unit._check_gate_and_run(src)
-        queue.clear()
+        except Exception:
+            self.exception("background unit %r failed", unit)
+        finally:
+            with self._queue_cond_:
+                self._inflight_ -= 1
+                self._queue_cond_.notify_all()
 
     def stop(self):
         """Stop the run and every unit (a snapshotter joins its write
         in flight)."""
         self.stopped = True
+        with self._queue_cond_:
+            self._queue_cond_.notify_all()
         for unit in self._units:
             unit.stop()
 
     def on_workflow_finished(self):
         self.stopped = True
+        callback, self._job_callback_ = self._job_callback_, None
+        if callback is not None:
+            callback(self.generate_data_for_master())
+        if getattr(self, "result_file", None) and not self.is_slave:
+            self.write_results()
         if self._launcher is not None:
             self._launcher.on_workflow_finished()
 
     def on_unit_failed(self, unit):
         self.warning("unit %r failed; stopping workflow", unit)
         self.stopped = True
+
+    # -- the master/slave job contract ----------------------------------------
+    def _job_units(self):
+        return [u for u in self.units_in_dependency_order() if u is not self]
+
+    def generate_data_for_slave(self, slave=None):
+        """Master: each unit's job payload, in dependency order (None for
+        a unit with nothing to send)."""
+        return [unit.generate_data_for_slave(slave)
+                for unit in self._job_units()]
+
+    def apply_data_from_master(self, data):
+        """Slave: install a job's payloads into the units."""
+        units = self._job_units()
+        if len(data) != len(units):
+            raise ValueError(
+                "job payload has %d entries for %d units: master/slave "
+                "workflow checksum mismatch?" % (len(data), len(units)))
+        for unit, payload in zip(units, data):
+            if payload is not None:
+                unit.apply_data_from_master(payload)
+
+    def prefetch_job(self, data):
+        """Slave lookahead: offer the next job's payloads to the units
+        with a ``prefetch_job_data`` (the loader starts its minibatch
+        I/O) while the current job computes.  The serving state is left
+        alone: ``apply_data_from_master`` installs the job when it
+        runs."""
+        units = self._job_units()
+        if len(data) != len(units):
+            return
+        for unit, payload in zip(units, data):
+            hook = getattr(unit, "prefetch_job_data", None)
+            if hook is not None and payload is not None:
+                try:
+                    hook(payload)
+                except Exception:
+                    self.exception("prefetch_job_data failed on %r", unit)
+
+    def generate_data_for_master(self):
+        """Slave: each unit's update for the master, in dependency
+        order."""
+        return [unit.generate_data_for_master()
+                for unit in self._job_units()]
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Master: merge a slave's update into the units."""
+        units = self._job_units()
+        if len(data) != len(units):
+            raise ValueError(
+                "update payload has %d entries for %d units: master/slave "
+                "workflow checksum mismatch?" % (len(data), len(units)))
+        for unit, payload in zip(units, data):
+            if payload is not None:
+                unit.apply_data_from_slave(payload, slave)
+
+    def drop_slave(self, slave=None):
+        """Master: a slave is gone; every unit requeues its work."""
+        for unit in self._units:
+            unit.drop_slave(slave)
+
+    def do_job(self, data, callback):
+        """Slave: install a job, run the graph once, and hand the update
+        to ``callback`` when the end point fires."""
+        self.apply_data_from_master(data)
+        self._job_callback_ = callback
+        self.run()
+
+    def checksum(self):
+        """Content-address the workflow: the graph (class and unit names
+        in dependency order) and the bytes of every module file that
+        defines a unit class, keyed by module name (a master and a slave
+        may hold the same code at different paths).  A unit whose code
+        cannot be located raises :class:`ChecksumError`."""
+        sha = hashlib.sha256()
+        files = {}
+        for unit in self.units_in_dependency_order():
+            sha.update(type(unit).__name__.encode())
+            sha.update(unit.name.encode())
+            mod = inspect.getmodule(type(unit))
+            fname = getattr(mod, "__file__", None)
+            if fname and os.path.isfile(fname):
+                files[mod.__name__] = fname
+                continue
+            try:
+                sha.update(inspect.getsource(type(unit)).encode())
+            except (OSError, TypeError):
+                raise ChecksumError(
+                    "cannot content-address %r (class %s: no module file "
+                    "and no retrievable source): the master/slave "
+                    "checksum would be unsound" % (unit,
+                                                   type(unit).__name__))
+        for modname in sorted(files):
+            sha.update(modname.encode())
+            with open(files[modname], "rb") as fin:
+                sha.update(fin.read())
+        return sha.hexdigest()
 
     # -- the train-state checkpoint ------------------------------------------
     def _checkpoint_key(self, index, unit):
@@ -360,6 +575,23 @@ class Workflow(Unit):
             if callable(get):
                 results.update(get())
         return results
+
+    def write_results(self, path=None):
+        """``gather_results()`` as JSON at ``path`` (default
+        ``result_file``)."""
+        import json
+        path = path or self.result_file
+        if not path:
+            return
+
+        def _default(obj):
+            try:
+                return float(obj)
+            except (TypeError, ValueError):
+                return repr(obj)
+        with open(path, "w") as fout:
+            json.dump(self.gather_results(), fout, indent=2,
+                      default=_default)
 
     def get_unit_run_time_stats(self):
         """(unit, seconds) sorted by descending run time."""

@@ -36,8 +36,14 @@ An improving validated close sets ``snapshot_suffix`` (the snapshot's
 name, :mod:`veles_tpu_torch.snapshotter`).  ``checkpoint_state()``
 carries ``CHECKPOINT_ATTRS`` with ``complete`` and ``improved`` for
 ``Workflow.capture_train_state``.  The pending device sums and the last
-window's device verdict are transient.  Not ported: the job protocol's
-master and slave halves (item 7).
+window's device verdict are transient.
+
+The job contract (:mod:`veles_tpu_torch.parallel.jobs`): a slave's
+``DecisionGD`` sends the job's class, error count and size
+(``generate_data_for_master``); the master's adds them up and closes
+a class when its sample budget (``effective_class_length``) is served,
+whatever order the updates arrive in, and a validated close ends the
+master's epoch.
 """
 
 import numpy
@@ -253,8 +259,18 @@ class DecisionBase(Unit):
     def link_from_loader(self, loader):
         self.link_attrs(
             loader, "minibatch_class", "minibatch_size", "last_minibatch",
-            "epoch_ended", "epoch_number", "class_lengths")
+            "epoch_ended", "epoch_number", "class_lengths",
+            "effective_class_end_offsets")
         return self
+
+    def effective_class_length(self, cls):
+        """The samples of ``cls`` served an epoch (less than
+        ``class_lengths`` under a ``train_ratio``)."""
+        offsets = getattr(self, "effective_class_end_offsets", None)
+        if offsets is None:
+            return self.class_lengths[cls]
+        start = offsets[cls - 1] if cls > 0 else 0
+        return offsets[cls] - start
 
     def _validated(self, cls):
         return cls == VALID or (cls == TRAIN and
@@ -375,7 +391,9 @@ class DecisionGD(DecisionBase):
             else:
                 self.improved <<= False
                 self._epochs_without_improvement += 1
-        if check_epoch_end:
+        # a master closes classes from its slaves' updates: its epoch
+        # ends at the validated close
+        if check_epoch_end or (self._validated(cls) and self.is_master):
             self._on_epoch_ended()
         self._publish_close(cls, {
             "n_err_pt": float(self.epoch_n_err_pt[cls]),
@@ -403,6 +421,28 @@ class DecisionGD(DecisionBase):
             "errors_pt": {CLASS_NAME[i]: self.epoch_n_err_pt[i]
                           for i in (TEST, VALID, TRAIN)},
         }
+
+    # -- the job contract -----------------------------------------------------
+    def generate_data_for_master(self):
+        """Slave: the job's class, error count and size."""
+        n_err = self.evaluator.n_err
+        if not _is_host_number(n_err):
+            Watcher.track_d2h(n_err.element_size())
+            n_err = n_err.item()
+        return {"cls": int(self.minibatch_class), "n_err": float(n_err),
+                "size": int(self.minibatch_size)}
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Master: add a job's counts; a class closes when its sample
+        budget is reached, whatever order the updates come in."""
+        if not data:
+            return
+        cls = data["cls"]
+        self.epoch_n_err[cls] += data["n_err"]
+        self.epoch_samples[cls] += data["size"]
+        length = self.effective_class_length(cls)
+        if length and self.epoch_samples[cls] >= length:
+            self._close_class(cls, check_epoch_end=False)
 
 
 class DecisionMSE(DecisionBase):

@@ -22,6 +22,14 @@ backward hyperparameters and the momenta ``gradient_weights`` /
 
 A forward's ``checkpoint_state()`` is its weights and bias, for
 ``Workflow.capture_train_state``.
+
+The job contract (:mod:`veles_tpu_torch.parallel.jobs`): a forward's
+weights and bias go to the slave with each job, and the slave sends back
+their deltas over the job, which the master adds to its own (the
+asynchronous data parallelism of the JAX package).  The slave installs a
+job's weights through ``Vector.reset``: a stitched segment's Vectors
+keep their device address, so the upload copies into the captured
+tensors and the graphs replay on.  A GD unit sends nothing.
 """
 
 import numpy
@@ -135,6 +143,49 @@ class ForwardBase(AcceleratedUnit):
             self.weights.reset(numpy.array(state["weights"]))
         if "bias" in state and self.bias:
             self.bias.reset(numpy.array(state["bias"]))
+
+    # -- the job contract ----------------------------------------------------
+    def generate_data_for_slave(self, slave=None):
+        """Master: the weights (and bias) ride with each job."""
+        if not self.weights:
+            return None
+        payload = {"weights": numpy.array(self.weights.mem)}
+        if self.include_bias and self.bias:
+            payload["bias"] = numpy.array(self.bias.mem)
+        return payload
+
+    def apply_data_from_master(self, data):
+        """Slave: install the job's weights (a reset: the whole buffer is
+        replaced, so the device copy is not read back first) and keep
+        them as the job's starting point, from which the update's deltas
+        are taken."""
+        if data is None:
+            return
+        self.weights.reset(numpy.array(data["weights"]))
+        self._job_start_ = {"weights": numpy.array(data["weights"])}
+        if "bias" in data and self.bias:
+            self.bias.reset(numpy.array(data["bias"]))
+            self._job_start_["bias"] = numpy.array(data["bias"])
+
+    def generate_data_for_master(self):
+        """Slave: the job's weight (and bias) deltas."""
+        start = getattr(self, "_job_start_", None)
+        if start is None or not self.weights:
+            return None
+        payload = {"delta_weights": self.weights.mem - start["weights"]}
+        if "bias" in start and self.bias:
+            payload["delta_bias"] = self.bias.mem - start["bias"]
+        return payload
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Master: add a slave's deltas to the weights."""
+        if data is None:
+            return
+        self.weights.map_write()
+        self.weights.mem += data["delta_weights"]
+        if "delta_bias" in data and self.bias:
+            self.bias.map_write()
+            self.bias.mem += data["delta_bias"]
 
 
 class PureForward(ForwardBase):

@@ -37,6 +37,17 @@ parameters from the restored forwards.  Not ported: the plotters
 (ROADMAP item 7(e)); an option the port does not take is refused when
 it is given at all, not only when it is truthy.
 
+Master and slave (:mod:`veles_tpu_torch.parallel.jobs`): a job is one
+pass of the slave's graph.  On a slave ``initialize()`` unlinks the
+repeater from the loop's tail, opens the end point and stitches again,
+so each ``run()`` is one minibatch through the segments (no graph of
+the standalone chain is reused).  The master raises ``StopIteration``
+from ``generate_data_for_slave`` once the Decision is complete.  A fused
+slave installs each job's weights into the built parameters in place
+(``refresh_from_forwards``: its step graphs keep their addresses) and
+writes the trained ones back into the forwards before the update is
+taken (``sync_weights``).
+
 The layer types are those of the JAX package's ``GD_PAIRS``: the
 all2all family on the GEMM and GD kernels, and the layer zoo (conv,
 pooling, LRN, dropout, the activations, deconv, the cutter, the channel
@@ -429,10 +440,45 @@ class StandardWorkflow(AcceleratedWorkflow):
 
     def link_loop_and_end(self):
         last_gd = self.gds[-1] if self.gds else self.decision
+        self._loop_tail = last_gd
         self.repeater.link_from(last_gd)
         self.end_point.link_from(last_gd)
         self.end_point.gate_block = ~self.decision.complete
         self.repeater.gate_block = self.decision.complete
+
+    def initialize(self, device=None, **kwargs):
+        result = super(StandardWorkflow, self).initialize(
+            device=device, **kwargs)
+        if self.is_slave:
+            # a job is ONE pass of the graph: no back edge, and the end
+            # point open; the chain changed, so stitch it again before
+            # any segment dispatched
+            self.repeater.unlink_from(self._loop_tail)
+            self.end_point.gate_block = Bool(False)
+            self.rebuild_stitching()
+        return result
+
+    # -- the job contract -----------------------------------------------------
+    def generate_data_for_slave(self, slave=None):
+        """Master: no more jobs once the Decision is complete."""
+        if bool(self.decision.complete):
+            raise StopIteration
+        return super(StandardWorkflow, self).generate_data_for_slave(slave)
+
+    def apply_data_from_master(self, data):
+        super(StandardWorkflow, self).apply_data_from_master(data)
+        if self.fused and self.fused_trainer is not None:
+            # the job's weights are in the forwards' Vectors now: into
+            # the built parameters with them (the solver state stays
+            # the slave's, as the eager route's momenta do)
+            self.fused_trainer.refresh_from_forwards()
+
+    def generate_data_for_master(self):
+        if self.fused and self.fused_trainer is not None:
+            # the forwards take the deltas from their Vectors: the
+            # trained parameters go there first
+            self.fused_trainer.sync_weights()
+        return super(StandardWorkflow, self).generate_data_for_master()
 
     def restore_train_state(self, train, meta):
         restored = super(StandardWorkflow, self).restore_train_state(
